@@ -31,6 +31,79 @@ def spd_kappa(n: int, kappa: float, seed: int):
     return A, b
 
 
+def circulant_spd_batch(nsys: int, n: int, seed: int = 0):
+    """A batch of dense SPD systems whose lap counts are fixed by their
+    spectra, not by rounding: (A (nsys, n, n), b (nsys, n), X0 (nsys, n)),
+    float32.
+
+    System i is P C P^T for a dense symmetric circulant C whose spectrum
+    takes m = 1 + i % 6 distinct levels, geometric in [0.2 n, 1.5 n], and a
+    random permutation P; its diagonal is constant (the mean eigenvalue), so
+    Jacobi only rescales it. CG and Jacobi-PCG on it end in m laps: the
+    residual before lap m is a sizeable share of ||b|| and after it near the
+    float32 floor, so a tolerance between the two (``tol=1e-2`` for n up to
+    a few thousand) stops every correct float32 implementation on the same
+    lap. b is uniform in [0, 1). X0 is zero except for the last system,
+    which starts at an exact solution (x0 = e0 with b = A e0, column 0 of A,
+    exact in any order of summation) and so stops at k = 0.
+    """
+    A = np.empty((nsys, n, n), np.float32)
+    b = np.empty((nsys, n), np.float32)
+    k = np.arange(n)
+    wrap = (k[None, :] - k[:, None]) % n
+    for i in range(nsys):
+        rng = np.random.default_rng(seed + i)
+        m = 1 + i % 6
+        levels = n * np.geomspace(0.2, 1.5, m)
+        pick = rng.integers(m, size=n // 2 + 1)
+        pick[:m] = np.arange(m)  # every level occurs
+        lam = levels[pick[np.minimum(k, n - k)]]  # lam_k = lam_{n-k}: C is real symmetric
+        c = np.fft.ifft(lam).real
+        p = rng.permutation(n)
+        A[i] = c[wrap][p][:, p]
+        b[i] = rng.random(n)
+    X0 = np.zeros((nsys, n), np.float32)
+    X0[-1, 0] = 1.0
+    b[-1] = A[-1][:, 0]
+    return A, b, X0
+
+
+def shifted_spd_batch(nsys: int, n: int, seed: int = 0):
+    """A batch of ``generate_spd_system``-style systems, each from its own
+    seed (seed + i) and with its own shift: A = 0.5 (R + R^T) + s_i I with R
+    uniform in [0, 1) and s_i geometric in [0.25 n, n] (the last two
+    systems share the last shift), b uniform in [0, 1); float32 (A, b, X0).
+    At tol 1e-6 they stop after 4 to 7 laps. X0 is zero except for the last
+    system, which starts at the exact solution x0 = e0 (b = A e0) and stops
+    at k = 0.
+
+    At tol 1e-6 these stop where ||r|| is near ||b|| times float32's
+    epsilon, so the rounding of r is of the order of tol itself: two correct
+    float32 orders of summation can stop one lap apart, and their x then
+    differ by the last lap's small step."""
+    A = np.empty((nsys, n, n), np.float32)
+    b = np.empty((nsys, n), np.float32)
+    shifts = n * np.geomspace(0.25, 1.0, max(nsys - 1, 1))
+    for i in range(nsys):
+        rng = np.random.default_rng(seed + i)
+        R = rng.random((n, n), dtype=np.float32)
+        A[i] = 0.5 * (R + R.T)
+        A[i][np.diag_indices(n)] += np.float32(shifts[min(i, len(shifts) - 1)])
+        b[i] = rng.random(n, dtype=np.float32)
+    X0 = np.zeros((nsys, n), np.float32)
+    X0[-1, 0] = 1.0
+    b[-1] = A[-1][:, 0]
+    return A, b, X0
+
+
+def scaled_err(x, want) -> float:
+    """max |x - want| / max |want| per system (the last axis), the largest
+    over the systems: an error measured against the size of the solution."""
+    x = np.asarray(x, np.float64)
+    want = np.asarray(want, np.float64)
+    return float((np.abs(x - want).max(-1) / np.abs(want).max(-1)).max())
+
+
 @pytest.fixture
 def cuda_device():
     """The first CUDA device; tests that need the card skip without one."""

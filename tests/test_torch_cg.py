@@ -160,15 +160,12 @@ def test_operator_padding_matches_tpucg(n, npad):
         dict(method="pipelined"),
         dict(method="ca"),
         dict(method="chebyshev"),
-        dict(precondition="poly"),
         dict(precondition="block_jacobi"),
-        dict(fused="always"),
         dict(dtype=torch.float64),
         dict(two_level=object()),
         dict(interval=(1.0, 2.0)),
     ],
-    ids=["pipelined", "ca", "chebyshev", "poly", "block_jacobi", "fused_always",
-         "f64", "two_level", "interval"],
+    ids=["pipelined", "ca", "chebyshev", "block_jacobi", "f64", "two_level", "interval"],
 )
 def test_unported_options_name_their_roadmap_item(kw):
     g = GOLDEN_2X2
@@ -188,11 +185,10 @@ def test_kernel_cuda_on_cpu_raises():
         cg_solve(g["A"], g["b"], kernel="cuda", device=CPU)
 
 
-@pytest.mark.parametrize("knob", ["strategy", "poly_degree", "pc_block_size", "s_step",
-                                  "check_every"])
+@pytest.mark.parametrize("knob", ["strategy", "pc_block_size", "s_step", "check_every"])
 def test_knobs_of_unported_slices_are_refused(knob):
-    # tpucg's knobs of sharded solves, ca/chebyshev and poly/block_jacobi are
-    # not fields here: passing one fails instead of being ignored.
+    # tpucg's knobs of sharded solves, ca/chebyshev and block_jacobi are not
+    # fields here: passing one fails instead of being ignored.
     with pytest.raises(TypeError, match=knob):
         CGConfig(**{knob: 2})
     g = GOLDEN_2X2

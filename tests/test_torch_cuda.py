@@ -10,13 +10,27 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_helpers import cuda_device, rel_err  # noqa: F401  (fixture)
+from _torch_helpers import (  # noqa: F401  (fixture)
+    circulant_spd_batch,
+    cuda_device,
+    rel_err,
+    scaled_err,
+    shifted_spd_batch,
+)
 from tpucg_torch.io.generator import generate_spd_system
 from tpucg_torch.io.golden import GOLDEN_2X2, GOLDEN_4X4
 from tpucg_torch.kernels.blas1 import dot_cuda, dot_torch, fused_update_cuda, fused_update_torch
+from tpucg_torch.kernels.fused import (
+    FUSED_BATCH_MAX_N,
+    FUSED_MAX_N,
+    fused_batch_cg_solve_cuda,
+    fused_cg_solve_cuda,
+)
 from tpucg_torch.kernels.matvec import matvec_cuda, matvec_torch
-from tpucg_torch.solver.cg import cg_loop, cg_solve, lap_ops
+from tpucg_torch.solver.cg import cg_loop, cg_solve, cg_solve_batch, lap_ops
+from tpucg_torch.solver.fused import fused_batch_cg_solve_torch, fused_cg_solve_torch
 from tpucg_torch.solver.operators import DenseOperator
+from tpucg_torch.solver.oracle import oracle_cg
 
 pytestmark = pytest.mark.cuda
 
@@ -80,11 +94,12 @@ def test_device_named_without_index(cuda_device):
         assert int(res.iterations) == 2 and res.x.device == cuda_device
 
 
-@pytest.mark.parametrize("precondition", ["none", "jacobi"])
+@pytest.mark.parametrize("precondition", ["none", "jacobi", "poly"])
 def test_solve_on_card_matches_cpu(cuda_device, precondition):
+    # fused="never": the lap path (K1-K3), which small solves leave for K4.
     A, b, x0 = generate_spd_system(1000, seed=0)
     before = matvec_cuda.launches
-    card = cg_solve(A, b, x0, device=cuda_device, precondition=precondition)
+    card = cg_solve(A, b, x0, device=cuda_device, precondition=precondition, fused="never")
     cpu = cg_solve(A, b, x0, device="cpu", precondition=precondition)
     assert matvec_cuda.launches > before
     assert int(card.iterations) == int(cpu.iterations)
@@ -93,8 +108,8 @@ def test_solve_on_card_matches_cpu(cuda_device, precondition):
 
 def test_chunk_sizes_bit_identical_on_card(cuda_device):
     A, b, x0 = generate_spd_system(1000, seed=4)
-    runs = [cg_solve(A, b, x0, device=cuda_device, chunk=c, record_residuals=True)
-            for c in (None, 1, 3, 64)]
+    runs = [cg_solve(A, b, x0, device=cuda_device, chunk=c, record_residuals=True,
+                     fused="never") for c in (None, 1, 3, 64)]
     for r in runs[1:]:
         assert torch.equal(r.x, runs[0].x)
         assert torch.equal(r.iterations, runs[0].iterations)
@@ -141,3 +156,153 @@ def test_lap_buffers_do_not_leak_into_the_state(cuda_device):
     for a, b_ in zip(first, kept):
         if a is not None:
             assert torch.equal(a, b_)
+
+
+# ---- the whole solve: K4 (one system) and K5 (a batch) -----------------------
+
+
+def _k4_operands(dev, n, seed=0):
+    A, b, x0 = generate_spd_system(n, seed=seed)
+    op = DenseOperator.create(A, device=dev)
+    pad = op.padded_n - n
+    bd = torch.nn.functional.pad(torch.as_tensor(b, device=dev), (0, pad))
+    x0d = torch.nn.functional.pad(torch.as_tensor(x0, device=dev), (0, pad))
+    d = op.diagonal()
+    return (A, b, x0), op, bd, x0d, torch.where(d != 0, 1.0 / d, 1.0)
+
+
+# x against another correct f32 solve, relative to the solution's size
+# (x ~ 1/n on these systems, so a fixed atol would hide a wrong x):
+# max |x - x_plain| <= 1e-5 max |x_plain| for none and jacobi (f32 sums in
+# another order) and 1e-4 for poly (its power method and Neumann apply sum in
+# other orders too).
+def _x_bound(pc):
+    return 1e-4 if pc == "poly" else 1e-5
+
+
+@pytest.mark.parametrize("n", [100, 1000, 4096], ids=["npad128", "npad1024", "npad4096"])
+@pytest.mark.parametrize("pc", ["none", "jacobi", "poly"])
+def test_k4_matches_plain_on_card(cuda_device, n, pc):
+    (A, b, x0), op, bd, x0d, minv = _k4_operands(cuda_device, n)
+    kw = dict(tol=1e-6, maxiter=n, precondition=pc, poly_degree=3 if pc == "poly" else 0,
+              minv=minv if pc == "jacobi" else None)
+    x, k, rr = fused_cg_solve_cuda(op.A, bd, x0d, **kw)
+    xp, kp, rp = fused_cg_solve_torch(op.A, bd, x0d, **kw)
+    assert x.shape == (op.padded_n,) and k.dtype == torch.int32 and rr.shape == ()
+    assert int(k) == int(kp) and float(rr) < 1e-12
+    assert scaled_err(x.cpu(), xp.cpu()) <= _x_bound(pc)
+    again = fused_cg_solve_cuda(op.A, bd, x0d, **kw)
+    assert all(torch.equal(u, v) for u, v in zip((x, k, rr), again))
+    if pc == "none":
+        assert int(k) == oracle_cg(A, b, x0)[1]
+
+
+def test_k4_maxiter_cap_and_exact_guess_on_card(cuda_device):
+    n = 96
+    A, b, x0 = generate_spd_system(n, seed=4)
+    A = (A - (n - n / 8.0) * np.eye(n)).astype(np.float32)
+    op = DenseOperator.create(A, device=cuda_device)
+    bd = torch.nn.functional.pad(torch.as_tensor(b, device=cuda_device), (0, 32))
+    z = torch.zeros_like(bd)
+    x, k, rr = fused_cg_solve_cuda(op.A, bd, z, tol=1e-6, maxiter=3)
+    xp, kp, _ = fused_cg_solve_torch(op.A, bd, z, tol=1e-6, maxiter=3)
+    assert int(k) == int(kp) == 3 and float(rr) > 1e-12
+    torch.testing.assert_close(x, xp, rtol=1e-5, atol=1e-6)
+    e0 = torch.zeros_like(bd)
+    e0[0] = 1.0  # A e0 is column 0, exact whatever the order of the sums
+    x, k, rr = fused_cg_solve_cuda(op.A, op.A[:, 0].contiguous(), e0, tol=1e-6, maxiter=128)
+    assert int(k) == 0 and float(rr) == 0.0 and torch.equal(x, e0)
+
+
+def test_k4_refuses_what_it_cannot_run_on_card(cuda_device):
+    big = FUSED_MAX_N + 128
+    v = torch.zeros(big, device=cuda_device)
+    with pytest.raises(ValueError, match="fused solve needs 128-aligned n <= 4096"):
+        fused_cg_solve_cuda(torch.zeros(big, big, device=cuda_device), v, v, tol=1e-6, maxiter=4)
+    nb = FUSED_BATCH_MAX_N + 128
+    vb = torch.zeros(1, nb, device=cuda_device)
+    with pytest.raises(ValueError, match="batched fused solve needs 128-aligned n <= 2048"):
+        fused_batch_cg_solve_cuda(torch.zeros(1, nb, nb, device=cuda_device), vb, vb,
+                                  tol=1e-6, maxiter=4)
+
+
+@pytest.mark.parametrize("g", [GOLDEN_2X2, GOLDEN_4X4], ids=["2x2", "4x4"])
+def test_fused_always_runs_k4_and_nothing_else(cuda_device, g):
+    wrappers = (fused_cg_solve_cuda, fused_cg_solve_torch, matvec_cuda, dot_cuda,
+                fused_update_cuda)
+    before = [w.launches for w in wrappers]
+    res = cg_solve(g["A"], g["b"], g["x0"], device=cuda_device, fused="always")
+    assert int(res.iterations) == g["iters"] and bool(res.converged)
+    np.testing.assert_allclose(res.x.cpu().numpy(), g["x_star"], atol=1e-5)
+    assert [w.launches - b_ for w, b_ in zip(wrappers, before)] == [1, 0, 0, 0, 0]
+
+
+@pytest.mark.parametrize("pc", ["none", "jacobi", "poly"])
+def test_fused_always_solve_matches_the_lap_path(cuda_device, pc):
+    A, b, x0 = generate_spd_system(1000, seed=2)
+    fused = cg_solve(A, b, x0, device=cuda_device, precondition=pc, fused="always")
+    laps = cg_solve(A, b, x0, device=cuda_device, precondition=pc, fused="never")
+    assert int(fused.iterations) == int(laps.iterations) and bool(fused.converged)
+    assert fused.x.shape == (1000,)
+    assert scaled_err(fused.x.cpu(), laps.x.cpu()) <= _x_bound(pc)
+
+
+@pytest.mark.parametrize("pc", ["none", "jacobi"])
+def test_k5_matches_plain_on_card(cuda_device, pc):
+    As, bs, X0 = circulant_spd_batch(12, 1000)
+    A = torch.zeros(12, 1024, 1024, device=cuda_device)
+    A[:, :1000, :1000] = torch.as_tensor(As, device=cuda_device)
+    idx = torch.arange(1000, 1024, device=cuda_device)
+    A[:, idx, idx] = 1.0
+    b = torch.nn.functional.pad(torch.as_tensor(bs, device=cuda_device), (0, 24))
+    x0 = torch.nn.functional.pad(torch.as_tensor(X0, device=cuda_device), (0, 24))
+    d = torch.diagonal(A, dim1=1, dim2=2)
+    # Lap counts fixed by the spectra: tol 1e-2 lies far from ||r|| on both
+    # sides of the last lap, so no rounding order can move it.
+    kw = dict(tol=1e-2, maxiter=1000, precondition=pc,
+              minv=torch.where(d != 0, 1.0 / d, 1.0) if pc == "jacobi" else None)
+    x, k, rr = fused_batch_cg_solve_cuda(A, b, x0, **kw)
+    xp, kp, _ = fused_batch_cg_solve_torch(A, b, x0, **kw)
+    assert torch.equal(k, kp) and k.tolist() == [1, 2, 3, 4, 5, 6, 1, 2, 3, 4, 5, 0]
+    assert bool((rr < 1e-4).all())
+    torch.testing.assert_close(x, xp, rtol=1e-5, atol=1e-6)
+    assert scaled_err(x.cpu(), xp.cpu()) <= 1e-4
+    again = fused_batch_cg_solve_cuda(A, b, x0, **kw)
+    assert all(torch.equal(u, v) for u, v in zip((x, k, rr), again))
+
+
+@pytest.mark.parametrize("pc", ["none", "jacobi"])
+def test_k5_shifted_batch_within_a_lap_on_card(cuda_device, pc):
+    # generate_spd_system-style systems with their own seeds and shifts at
+    # tol 1e-6: they stop where the rounding of r is of the order of tol, so
+    # K5 and its plain version may stop a lap apart, never more.
+    As, bs, X0 = shifted_spd_batch(16, 1000, seed=100)
+    A = torch.nn.functional.pad(torch.as_tensor(As, device=cuda_device), (0, 24, 0, 24))
+    idx = torch.arange(1000, 1024, device=cuda_device)
+    A[:, idx, idx] = 1.0
+    b = torch.nn.functional.pad(torch.as_tensor(bs, device=cuda_device), (0, 24))
+    x0 = torch.nn.functional.pad(torch.as_tensor(X0, device=cuda_device), (0, 24))
+    d = torch.diagonal(A, dim1=1, dim2=2)
+    kw = dict(tol=1e-6, maxiter=1000, precondition=pc,
+              minv=torch.where(d != 0, 1.0 / d, 1.0) if pc == "jacobi" else None)
+    x, k, rr = fused_batch_cg_solve_cuda(A, b, x0, **kw)
+    xp, kp, _ = fused_batch_cg_solve_torch(A, b, x0, **kw)
+    assert int(k[-1]) == int(kp[-1]) == 0 and bool(k[:-1].gt(0).all())
+    assert int((k - kp).abs().max()) <= 1 and bool((rr < 1e-12).all())
+    assert scaled_err(x.cpu(), xp.cpu()) <= 1e-4
+    again = fused_batch_cg_solve_cuda(A, b, x0, **kw)
+    assert all(torch.equal(u, v) for u, v in zip((x, k, rr), again))
+
+
+def test_cg_solve_batch_runs_k5_on_card(cuda_device):
+    As, bs, X0 = circulant_spd_batch(6, 300, seed=3)
+    before = (fused_batch_cg_solve_cuda.launches, fused_batch_cg_solve_torch.launches)
+    res = cg_solve_batch(As, bs, X0, device=cuda_device, tol=1e-2)
+    assert (fused_batch_cg_solve_cuda.launches - before[0],
+            fused_batch_cg_solve_torch.launches - before[1]) == (1, 0)
+    cpu = cg_solve_batch(As, bs, X0, device="cpu", tol=1e-2)
+    assert torch.equal(res.iterations.cpu(), cpu.iterations)
+    torch.testing.assert_close(res.x.cpu(), cpu.x, rtol=1e-5, atol=1e-6)
+    for i in range(6):
+        one = cg_solve(As[i], bs[i], X0[i], device=cuda_device, fused="never", tol=1e-2)
+        assert int(one.iterations) == int(res.iterations[i])

@@ -65,6 +65,17 @@ def test_sources_import_no_jax_tpucg_or_module_level_triton():
         assert "torch.compile" not in text, path
 
 
+def test_kernels_import_nothing_above_them():
+    # The kernels layer sits under the solver: no import of it reaches up,
+    # not even one made at call time.
+    above = ("solver", "io", "bench", "cli", "interop", "config")
+    for path in sorted((PKG / "kernels").glob("*.py")):
+        for mod, _ in _imports(ast.parse(path.read_text())):
+            parts = mod.split(".")
+            assert not (parts[0] == "tpucg_torch" and len(parts) > 1 and parts[1] in above), (
+                f"{path}: imports {mod}")
+
+
 def test_bound_entry_points_exist_in_csrc():
     csrc = "\n".join(p.read_text() for p in _lib.sources())
     header = (PKG / "kernels" / "csrc" / "blas.cuh").read_text()

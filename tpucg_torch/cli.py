@@ -1,6 +1,8 @@
 """``python -m tpucg_torch``: solve, selftest, bench and info for the dense
 slice of the port (the counterparts of tpucg's ``cmd_solve``,
-``cmd_selftest``, ``cmd_bench`` and ``cmd_info``).
+``cmd_selftest``, ``cmd_bench`` and ``cmd_info``). ``solve`` and ``bench``
+take tpucg's ``--fused {auto,always,never}``: ``always`` runs a padded n <=
+4096 as one launch of the whole-solve kernel K4, ``never`` the lap path.
 """
 
 from __future__ import annotations
@@ -38,7 +40,8 @@ def cmd_solve(args) -> int:
     )
     res = cg_solve(
         op, b, x0, tol=args.tol, maxiter=args.maxiter, kernel=args.kernel,
-        precondition=args.precondition, record_residuals=args.residual_history,
+        precondition=args.precondition, poly_degree=args.poly_degree, fused=args.fused,
+        record_residuals=args.residual_history,
     )
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -85,18 +88,23 @@ def cmd_selftest(args) -> int:
             failures.append(name)
 
     print(f"device: {device} (kernels: {resolve_backend('auto', device)})")
+    # fused="always" runs K4 on the card and the lap path elsewhere;
+    # fused="never" always runs the lap path.
     for label, g in (("golden 2x2", GOLDEN_2X2), ("golden 4x4", GOLDEN_4X4)):
-        r = cg_solve(g["A"], g["b"], g["x0"], kernel=args.kernel, device=device)
-        ok = (
-            int(r.iterations) == g["iters"]
-            and bool(r.converged)
-            and np.allclose(r.x.cpu().numpy(), g["x_star"], atol=1e-5)
-        )
-        check(label, ok, f"{int(r.iterations)} iters, ||r||={float(r.residual_norm):.2e}")
+        for fused in ("never", "always"):
+            r = cg_solve(g["A"], g["b"], g["x0"], kernel=args.kernel, device=device,
+                         fused=fused)
+            ok = (
+                int(r.iterations) == g["iters"]
+                and bool(r.converged)
+                and np.allclose(r.x.cpu().numpy(), g["x_star"], atol=1e-5)
+            )
+            check(f"{label} fused={fused}", ok,
+                  f"{int(r.iterations)} iters, ||r||={float(r.residual_norm):.2e}")
     n = args.n
     A, b, x0 = generate_spd_system(n, seed=0)
     x_ref, k_ref, _ = oracle_cg(A, b, x0)
-    for pc in ("none", "jacobi"):
+    for pc in ("none", "jacobi", "poly"):
         r = cg_solve(A, b, x0, precondition=pc, kernel=args.kernel, device=device)
         check(
             f"random SPD n={n} precondition={pc} vs oracle",
@@ -144,7 +152,8 @@ def cmd_bench(args) -> int:
     distribute_s = time.perf_counter() - t0
 
     def solve():
-        return cg_solve(op, bd, x0d, kernel=args.kernel)
+        return cg_solve(op, bd, x0d, kernel=args.kernel, fused=args.fused,
+                        precondition=args.precondition, poly_degree=args.poly_degree)
 
     res = solve()
     solve_t = time_fn(solve, warmup=1, iters=args.repeats)
@@ -158,7 +167,7 @@ def cmd_bench(args) -> int:
         solve=solve_t,
         total_s=time.perf_counter() - t_total0,
         card=nvidia_smi_card(),
-        backend=op.backend,
+        backend=f"{op.backend} fused={args.fused} precondition={args.precondition}",
         padded_n=op.padded_n,
         matvec=matvec_t,
     ).finalize(hbm_peak_bytes_per_s())
@@ -223,7 +232,6 @@ def build_parser() -> argparse.ArgumentParser:
     ps.add_argument("--n", type=int, default=None, help="system size (default: from file)")
     ps.add_argument("--tol", type=float, default=1.0e-6)
     ps.add_argument("--maxiter", type=int, default=None)
-    ps.add_argument("--precondition", default="none", choices=("none", "jacobi"))
     ps.add_argument("--storage", default="f32", choices=("f32", "bf16"))
     ps.add_argument("--residual-history", action="store_true")
     ps.add_argument("--print-solution", action="store_true")
@@ -247,6 +255,13 @@ def build_parser() -> argparse.ArgumentParser:
 
     for sp in (ps, pt, pb):
         sp.add_argument("--kernel", default="auto", choices=("auto", "cuda", "torch"))
+    for sp in (ps, pb):
+        sp.add_argument("--fused", default="auto", choices=("auto", "always", "never"),
+                        help="whole-solve kernel K4 for padded n <= 4096 (auto: below the "
+                             "card's measured crossover; never: the lap path)")
+        sp.add_argument("--precondition", default="none", choices=("none", "jacobi", "poly"))
+        sp.add_argument("--poly-degree", type=int, default=3,
+                        help="degree for --precondition poly (truncated Neumann)")
     for sp in (ps, pt):
         sp.add_argument("--device", default=None, help="torch device (default: the card if any)")
     return p

@@ -6,9 +6,8 @@ takes ``"auto"``/``"cuda"``/``"torch"`` (tpucg's ``"auto"``/``"pallas"``/
 ``"xla"``) and ``dtype`` is a torch dtype. Values this slice does not run yet
 pass validation here and raise ``NotImplementedError`` in ``cg_solve``,
 naming their ROADMAP item. tpucg's knobs of sharded solves and of the other
-methods and preconditioners (``strategy``, ``poly_degree``,
-``pc_block_size``, ``s_step``, ``check_every``) return with the slices that
-read them.
+methods and preconditioners (``strategy``, ``pc_block_size``, ``s_step``,
+``check_every``) return with the slices that read them.
 """
 
 from __future__ import annotations
@@ -34,7 +33,10 @@ class CGConfig:
         plain PyTorch versions elsewhere; ``"cuda"`` / ``"torch"`` force one.
       safe_alpha: treat ``p.Ap == 0`` (exact initial guess) as a zero step
         instead of dividing by zero.
-      precondition: ``"none"``, ``"jacobi"``, ``"block_jacobi"`` or ``"poly"``.
+      precondition: ``"none"``, ``"jacobi"``, ``"block_jacobi"`` or ``"poly"``
+        (truncated-Neumann polynomial of degree ``poly_degree``:
+        ``poly_degree - 1`` extra matvecs per lap).
+      poly_degree: polynomial degree for ``precondition="poly"`` (>= 1).
       method: ``"cg"``, ``"pipelined"``, ``"ca"`` or ``"chebyshev"``.
       fused: whole-solve-in-one-kernel dispatch: ``"auto"``, ``"always"`` or
         ``"never"``.
@@ -48,6 +50,7 @@ class CGConfig:
     precondition: str = "none"
     method: str = "cg"
     fused: str = "auto"
+    poly_degree: int = 3
 
     def __post_init__(self):
         if self.method not in ("cg", "pipelined", "ca", "chebyshev"):
@@ -58,6 +61,8 @@ class CGConfig:
             raise ValueError(f"unknown fused mode {self.fused!r}")
         if self.precondition not in ("none", "jacobi", "block_jacobi", "poly"):
             raise ValueError(f"unknown preconditioner {self.precondition!r}")
+        if self.poly_degree < 1:
+            raise ValueError("poly_degree must be >= 1")
         if self.tol <= 0:
             raise ValueError("tol must be positive")
         if self.dtype not in (torch.float32, torch.float64):

@@ -1,9 +1,13 @@
-"""The CG lap's kernels: hand-written CUDA for Hopper (``csrc/``), each with
-its plain PyTorch version beside it.
+"""The CG kernels: hand-written CUDA for Hopper (``csrc/``). The lap
+kernels' plain PyTorch versions sit beside them; the whole-solve kernels'
+run the solver's loops and live in ``tpucg_torch.solver.fused``.
 
-K1 ``matvec_cuda`` (dense GEMV), K2 ``fused_update_cuda`` (x/r update and
-beta = r'.r' in one pass) and K3 ``dot_cuda``. The kernel library is built
-by ``nvcc`` at first use (``_lib``); importing this package builds nothing.
+The lap: K1 ``matvec_cuda`` (dense GEMV), K2 ``fused_update_cuda`` (x/r
+update and beta = r'.r' in one pass) and K3 ``dot_cuda``. The whole solve:
+K4 ``fused_cg_solve_cuda`` (one system, one cooperative launch) and K5
+``fused_batch_cg_solve_cuda`` (B systems, one launch). The kernel library
+is built by ``nvcc`` at first use (``_lib``); importing this package builds
+nothing.
 """
 
 from tpucg_torch.kernels.blas1 import (
@@ -14,6 +18,13 @@ from tpucg_torch.kernels.blas1 import (
     fused_update_torch,
 )
 from tpucg_torch.kernels.dispatch import resolve_backend
+from tpucg_torch.kernels.fused import (
+    FUSED_AUTO_MAX_N,
+    FUSED_BATCH_MAX_N,
+    FUSED_MAX_N,
+    fused_batch_cg_solve_cuda,
+    fused_cg_solve_cuda,
+)
 from tpucg_torch.kernels.matvec import MATVEC_ALIGN, matvec, matvec_cuda, matvec_torch
 
 __all__ = [
@@ -22,6 +33,11 @@ __all__ = [
     "fused_update",
     "fused_update_cuda",
     "fused_update_torch",
+    "FUSED_AUTO_MAX_N",
+    "FUSED_BATCH_MAX_N",
+    "FUSED_MAX_N",
+    "fused_batch_cg_solve_cuda",
+    "fused_cg_solve_cuda",
     "resolve_backend",
     "MATVEC_ALIGN",
     "matvec",

@@ -3,9 +3,10 @@
 The kernels are compiled by ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface (``csrc/blas.cuh``) and bound with ctypes. The
 build happens at first use, from the sources in this package and nothing
-else, into ``build/tpucg_torch/`` at the root of the checkout. The library's
-file name carries a hash of the sources and flags, so a stale build is never
-loaded; the compiler writes to a temporary file that is renamed into place,
+else, into ``build/tpucg_torch/`` at the root of the checkout: one ``nvcc``
+per ``.cu`` file, all started together, then one link. The library's file
+name carries a hash of the sources and flags, so a stale build is never
+loaded; the linker writes to a temporary file that is renamed into place,
 so concurrent processes never load a half-written library. A failed build
 or load raises with the compiler's output: there is no fallback.
 """
@@ -18,20 +19,13 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 from pathlib import Path
 
 SRC_DIR = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpucg_torch"
-NVCC_FLAGS = (
-    "-gencode=arch=compute_90a,code=sm_90a",
-    "-std=c++17",
-    "-O3",
-    "-shared",
-    "-Xcompiler",
-    "-fPIC",
-    "-Xptxas",
-    "-v",
-)
+ARCH = "-gencode=arch=compute_90a,code=sm_90a"
+NVCC_FLAGS = (ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _PTR = ctypes.c_void_p  # every pointer and the stream: a c_int would cut them
 _LEN = ctypes.c_longlong
@@ -46,6 +40,15 @@ SIGNATURES = {
         [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _LEN, _PTR, _PTR],
     ),
     "tpucg_reduce_blocks": (ctypes.c_int, [_LEN]),
+    "tpucg_fused_cg_f32": (
+        ctypes.c_int,
+        [_PTR] * 8 + [_LEN, ctypes.c_float, _LEN, ctypes.c_int, ctypes.c_int, ctypes.c_int, _PTR],
+    ),
+    "tpucg_fused_cg_scratch": (ctypes.c_longlong, [_LEN]),
+    "tpucg_fused_batch_cg_f32": (
+        ctypes.c_int,
+        [_PTR] * 7 + [_LEN, _LEN, ctypes.c_float, _LEN, ctypes.c_int, ctypes.c_int, _PTR],
+    ),
     "tpucg_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
 
@@ -84,16 +87,28 @@ def build() -> Path:
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp)] + [
-        str(s) for s in sources() if s.suffix == ".cu"
-    ]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n{log}")
-    path.with_suffix(".log").write_text(log)
-    os.replace(tmp, path)
+    objdir = Path(tempfile.mkdtemp(prefix=".objs.", dir=BUILD_DIR))
+    try:
+        exe = nvcc()
+        cus = [s for s in sources() if s.suffix == ".cu"]
+        objs = [objdir / f"{s.stem}.o" for s in cus]
+        compiles = [[exe, *NVCC_FLAGS, "-c", str(s), "-o", str(o)] for s, o in zip(cus, objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for c in compiles]
+        steps = [(c, p.communicate()[0], p.returncode) for c, p in zip(compiles, procs)]
+        if all(rc == 0 for _, _, rc in steps):
+            link = [exe, ARCH, "-shared", "-o", str(tmp), *map(str, objs)]
+            proc = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            steps.append((link, proc.stdout, proc.returncode))
+        log = "".join(f"$ {' '.join(c)}\n{out}" for c, out, _ in steps)
+        bad = [rc for _, _, rc in steps if rc != 0]
+        if bad:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed (exit {bad[0]}):\n{log}")
+        path.with_suffix(".log").write_text(log)
+        os.replace(tmp, path)
+    finally:
+        shutil.rmtree(objdir, ignore_errors=True)
     return path
 
 

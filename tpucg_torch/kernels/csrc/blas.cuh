@@ -1,20 +1,24 @@
-// Hand-written Hopper (sm_90a) kernels of the dense CG lap: the plain C ABI
+// Hand-written Hopper (sm_90a) kernels of the dense CG solve: the plain C ABI
 // that tpucg_torch/kernels/_lib.py binds with ctypes, and the fixed-order
-// block reduction that K2 (fused update) and K3 (dot) share.
+// block reduction that K2 (fused update) and K3 (dot) share. K1-K3 (the lap)
+// live in blas.cu, K4 and K5 (the whole solve) in fused.cu.
 //
-// Every entry point takes the launch stream and an optional `active` device
-// flag (const int*, may be null). When the flag reads 0 the kernels return
-// at once, so the frozen laps a chunked CG loop runs after convergence cost a
-// launch and nothing else; their outputs are then left as they were. Every
-// entry point returns cudaGetLastError() after its launches.
+// Every entry point takes the launch stream. The lap's kernels also take an
+// optional `active` device flag (const int*, may be null). When the flag
+// reads 0 they return at once, so the frozen laps a chunked CG loop runs
+// after convergence cost a launch and nothing else; their outputs are then
+// left as they were. Every entry point returns the launch's error, then
+// cudaGetLastError().
 #pragma once
 
 #include <cuda_runtime.h>
 
 namespace tpucg {
 
-constexpr int kBlock = 256;          // threads per block, every kernel
+constexpr int kBlock = 256;          // threads per block, K1-K4
 constexpr int kMaxPartials = 1024;   // cap on stage-1 blocks of a reduction
+constexpr int kFusedMaxN = 4096;     // K4's largest n (tpucg's FUSED_MAX_N)
+constexpr int kFusedBatchMaxN = 2048;  // K5's (tpucg's FUSED_BATCH_MAX_N)
 
 // Number of stage-1 blocks (= partial sums) of an n-element reduction. It
 // depends on n alone, so the order in which a sum is taken does too: the
@@ -67,6 +71,27 @@ cudaError_t tpucg_fused_update_f32(const void* x, const void* r, const void* p,
 
 // Length of the `partials` scratch for an n-element reduction.
 int tpucg_reduce_blocks(long long n);
+
+// K4: one whole CG / PCG solve of A[n, n] x = b in one cooperative launch,
+// n % 128 == 0 and n <= 4096, A f32 and 16-byte aligned. precond: 0 none,
+// 1 jacobi (minv = 1/diag, n floats), 2 poly of degree `degree` (>= 1). Writes
+// x[n], *k (int) and *rr (the last r.r); `scratch` holds
+// tpucg_fused_cg_scratch(n) floats. A device without cooperative launch, or
+// a refused launch, returns the CUDA error.
+cudaError_t tpucg_fused_cg_f32(const void* A, const void* b, const void* x0, const void* minv,
+                               void* x, void* k, void* rr, void* scratch, long long n,
+                               float tol, long long maxiter, int safe_alpha, int precond,
+                               int degree, void* stream);
+long long tpucg_fused_cg_scratch(long long n);
+
+// K5: `batch` independent solves of A[batch, n, n], one block each, n % 128
+// == 0 and n <= 2048; b, x0, minv (jacobi != 0) and x are (batch, n), k and
+// rr (batch,).
+cudaError_t tpucg_fused_batch_cg_f32(const void* A, const void* b, const void* x0,
+                                     const void* minv, void* x, void* k, void* rr,
+                                     long long batch, long long n, float tol,
+                                     long long maxiter, int safe_alpha, int jacobi,
+                                     void* stream);
 
 // cudaGetErrorString, for the wrappers' error messages.
 const char* tpucg_error_string(int err);

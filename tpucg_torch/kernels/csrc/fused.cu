@@ -1,0 +1,508 @@
+// Whole-solve dense CG for Hopper (sm_90a), behind a plain C ABI.
+//
+// K4  fused_cg_kernel        replaces tpucg/kernels/fused.py:234 fused_cg_solve_pallas
+//                            (_fused_cg_kernel :177, _cg_while :78,
+//                            _in_kernel_poly_precond :132)
+// K5  fused_batch_cg_kernel  replaces tpucg/kernels/fused.py:610 fused_batch_cg_solve_pallas
+//                            (_fused_batch_cg_kernel :560)
+//
+// Both run tpucg's _cg_while contract: r0 = b - A x0, stop at k = 0 when
+// r.r < tol^2; each lap alpha = rsold / p.Ap (0 when p.Ap = 0 with
+// safe_alpha), x += alpha p, r -= alpha Ap, stop when r.r < tol^2 (p and
+// rsold then stay as they were), else z = M^-1 r, p = z + (r.z / rsold) p,
+// rsold = r.z; k <= maxiter. They return x, k and the last r.r.
+//
+// What bounds them on an H100 and what the design does about it:
+//
+// The lap path (K1-K3 enqueued from the host) is bound by host enqueue: tens
+// of microseconds of device work per lap at n <= 4096 cost hundreds of
+// microseconds of host time. K4 runs the whole solve in one cooperative
+// launch, so the host enqueues one kernel per solve. Inside, a lap is bound
+// by the GEMV's bytes (A is 64 MiB at n = 4096, above the 50 MB L2, so laps
+// stream it from HBM; at n <= ~3500 it can stay in L2 across laps) and by
+// the latency of grid.sync(): two per lap, plus one per extra matvec of the
+// poly preconditioner. The grid is sized by the occupancy calculator times
+// the SM count, capped at one warp per row (more blocks would own no row and
+// only lengthen every grid.sync()).
+//
+// Every block must take the same branch, or the next grid.sync() hangs. So
+// every scalar (p.Ap, r.r, r.z, the power method's norms) is reduced from
+// per-block partials in global scratch: each block sums its warps' values in
+// a fixed tree, writes one partial, grid.sync(), and then every block sums
+// all partials in the same fixed order. All blocks hold the same bits of
+// alpha, beta and the stopping test, and leave the loop on the same lap.
+// There are no float atomics (results repeat bit for bit). A partial slot is
+// read right after the grid.sync() that follows its writes, so two slots
+// alternate: a fast block writing the next phase's partials never overwrites
+// those a slow block is still summing.
+//
+// Vectors the launch writes (p, r, z, the power iterate) are read with plain
+// loads, never through the read-only cache; A, b, x0 and 1/diag are the only
+// __ldg reads. A matvec stages its whole input vector (<= 16 KB) in shared
+// memory; one warp owns one row (16-byte loads of A, four in flight per
+// lane, a fixed shuffle tree), and lane 0 of the row's warp owns that
+// element in every elementwise step, so those steps need no sync. A vector
+// that is staged by every block while its owners write the next value is
+// double-buffered (p, z, the power iterate).
+//
+// K5 solves B independent systems, one block each (grid = B, no grid-wide
+// sync): x, r, p and Ap live in shared memory (4 x 8 KB at n = 2048) and A
+// streams from global memory every lap. A block that stops returns; k and
+// r.r are written per system. One SM per system leaves the card underused
+// below B = 132, and a single SM pulls A far below the card's bandwidth: a
+// later redesign splits a system over several blocks.
+#include "blas.cuh"
+
+#include <cooperative_groups.h>
+
+namespace tpucg {
+namespace {
+
+namespace cgrp = cooperative_groups;
+
+constexpr int kWarps = kBlock / 32;        // K4: 8 warps a block
+constexpr int kBatchBlock = 1024;          // K5: one block of 32 warps a system
+constexpr int kPowerIters = 12;            // tpucg's in-kernel power method
+constexpr int kMaxDevices = 16;
+
+enum Precond : int { kNone = 0, kJacobi = 1, kPoly = 2 };
+
+// Sum of v over a block of `threads` threads, returned to every thread:
+// a shuffle tree in each warp, then warp 0 sums the warp results in warp
+// order. `red` is 33 floats of shared memory, free again on return.
+template <int threads>
+__device__ __forceinline__ float block_allsum(float v, float* red) {
+  constexpr int warps = threads / 32;
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    float s = lane < warps ? red[lane] : 0.f;
+    for (int off = 16; off > 0; off >>= 1) s += __shfl_down_sync(0xffffffffu, s, off);
+    if (lane == 0) red[32] = s;
+  }
+  __syncthreads();
+  const float out = red[32];
+  __syncthreads();
+  return out;
+}
+
+// One row of A (n floats, 16-byte aligned, read-only for the launch) times
+// the vector staged in shared memory, summed over the warp: every lane gets
+// the result. Lanes take neighbouring 16-byte chunks, four loads in flight.
+__device__ __forceinline__ float row_dot(const float* __restrict__ arow, const float4* v,
+                                         int nchunks, int lane) {
+  const float4* __restrict__ a4 = reinterpret_cast<const float4*>(arow);
+  float acc = 0.f;
+  int c = lane;
+  for (; c + 96 < nchunks; c += 128) {
+    float4 a[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) a[u] = __ldg(a4 + c + 32 * u);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const float4 x = v[c + 32 * u];
+      acc = fmaf(a[u].x, x.x, acc);
+      acc = fmaf(a[u].y, x.y, acc);
+      acc = fmaf(a[u].z, x.z, acc);
+      acc = fmaf(a[u].w, x.w, acc);
+    }
+  }
+  for (; c < nchunks; c += 32) {
+    const float4 a = __ldg(a4 + c);
+    const float4 x = v[c];
+    acc = fmaf(a.x, x.x, acc);
+    acc = fmaf(a.y, x.y, acc);
+    acc = fmaf(a.z, x.z, acc);
+    acc = fmaf(a.w, x.w, acc);
+  }
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  return acc;
+}
+
+__device__ __forceinline__ float safe_div(float num, float den, int safe) {
+  return (safe && den == 0.f) ? 0.f : num / den;
+}
+
+struct FusedArgs {
+  const float* A;     // (n, n), read-only
+  const float* b;     // (n,)
+  const float* x0;    // (n,)
+  const float* minv;  // (n,) 1/diag for jacobi, else unused
+  float* x;           // (n,) out
+  int* k_out;         // 0-d out
+  float* rr_out;      // 0-d out
+  float* scratch;     // tpucg_fused_cg_scratch(n) floats
+  int n;
+  float tol;
+  long long maxiter;
+  int safe_alpha;
+  int precond;
+  int degree;         // poly degree: degree - 1 extra matvecs per apply
+};
+
+__global__ void __launch_bounds__(kBlock) fused_cg_kernel(FusedArgs a) {
+  cgrp::grid_group grid = cgrp::this_grid();
+  extern __shared__ float4 vs4[];  // the staged matvec input, n floats
+  float* vs = reinterpret_cast<float*>(vs4);
+  __shared__ float red[33];
+
+  const int n = a.n;
+  const int nchunks = n / 4;
+  const int lane = threadIdx.x & 31;
+  const int gwarp = static_cast<int>((blockIdx.x * kBlock + threadIdx.x) >> 5);
+  const int nwarps = static_cast<int>(gridDim.x) * kWarps;
+  const int nblocks = static_cast<int>(gridDim.x);
+  const float tol2 = a.tol * a.tol;
+
+  // Scratch: r | p[2] | ap | z[2] | y[2] | partials: 2 slots x 2 sums x grid.
+  float* r = a.scratch;
+  float* pb[2] = {r + n, r + 2 * n};
+  float* ap = r + 3 * n;
+  float* zb[2] = {r + 4 * n, r + 5 * n};
+  float* yb[2] = {r + 6 * n, r + 7 * n};
+  float* partials = r + 8 * n;
+  int slot = 0;
+
+  // Ends a phase: the block's sums of s0 and s1 go to the current partial
+  // slot, grid.sync(), and every block sums the slot in one fixed order.
+  auto end_phase = [&](float s0, float s1, float& t0, float& t1) {
+    float* part = partials + slot * 2 * nblocks;
+    s0 = block_allsum<kBlock>(s0, red);
+    s1 = block_allsum<kBlock>(s1, red);
+    if (threadIdx.x == 0) {
+      part[blockIdx.x] = s0;
+      part[nblocks + blockIdx.x] = s1;
+    }
+    grid.sync();
+    float u0 = 0.f, u1 = 0.f;
+    for (int i = threadIdx.x; i < nblocks; i += kBlock) {
+      u0 += part[i];
+      u1 += part[nblocks + i];
+    }
+    t0 = block_allsum<kBlock>(u0, red);
+    t1 = block_allsum<kBlock>(u1, red);
+    slot ^= 1;
+  };
+
+  // w of the polynomial preconditioner: 12 power iterations from the fixed
+  // seed cos(0.7 i) + 0.1, then lam = v.Av / (v.v + 1e-30), w = 0.95 / lam.
+  float w = 0.f;
+  if (a.precond == kPoly) {
+    float scale = 0.f, lam = 0.f;
+    for (int it = 0; it <= kPowerIters; ++it) {
+      const float* yprev = yb[(it + 1) & 1];
+      for (int i = threadIdx.x; i < n; i += kBlock)
+        vs[i] = it == 0 ? cosf(static_cast<float>(i) * 0.7f) + 0.1f : yprev[i] * scale;
+      __syncthreads();
+      float s0 = 0.f, s1 = 0.f;
+      for (int row = gwarp; row < n; row += nwarps) {
+        const float av = row_dot(a.A + static_cast<size_t>(row) * n, vs4, nchunks, lane);
+        if (lane == 0) {
+          if (it < kPowerIters) {
+            yb[it & 1][row] = av;
+            s0 += av * av;
+          } else {
+            s0 += vs[row] * av;
+            s1 += vs[row] * vs[row];
+          }
+        }
+      }
+      float t0, t1;
+      end_phase(s0, s1, t0, t1);
+      if (it < kPowerIters)
+        scale = 1.f / sqrtf(t0 + 1e-30f);
+      else
+        lam = t0 / (t1 + 1e-30f);
+    }
+    w = 0.95f / fmaxf(lam, 1e-30f);
+  }
+
+  // z = M^-1 r for the row's owner (jacobi, and the first Neumann term of
+  // poly, z0 = w r); returns the row's share of r.z where it is final.
+  auto first_z = [&](int row, float rv) -> float {
+    if (a.precond == kJacobi) {
+      const float z = __ldg(a.minv + row) * rv;
+      zb[0][row] = z;
+      return rv * z;
+    }
+    if (a.precond == kPoly) {
+      const float z = w * rv;
+      zb[0][row] = z;
+      return a.degree <= 1 ? rv * z : 0.f;
+    }
+    return 0.f;
+  };
+  // The remaining degree - 1 Neumann terms, z = z + w r - w A z, one
+  // matvec and one grid.sync() each; returns r.z and the buffer holding z.
+  auto neumann = [&](float rz, int& zi) -> float {
+    zi = 0;
+    for (int j = 1; j < a.degree; ++j) {
+      for (int i = threadIdx.x; i < n; i += kBlock) vs[i] = zb[zi][i];
+      __syncthreads();
+      float s1 = 0.f;
+      for (int row = gwarp; row < n; row += nwarps) {
+        const float az = row_dot(a.A + static_cast<size_t>(row) * n, vs4, nchunks, lane);
+        if (lane == 0) {
+          const float rv = r[row];
+          const float zn = vs[row] + w * rv - w * az;
+          zb[zi ^ 1][row] = zn;
+          s1 += rv * zn;
+        }
+      }
+      float t0;
+      end_phase(0.f, s1, t0, rz);
+      zi ^= 1;
+    }
+    return rz;
+  };
+
+  // r0 = b - A x0; x = x0; p_old = 0, so the first lap's p = z + 0 p = z.
+  for (int i = threadIdx.x; i < n; i += kBlock) vs[i] = __ldg(a.x0 + i);
+  __syncthreads();
+  float s0 = 0.f, s1 = 0.f;
+  for (int row = gwarp; row < n; row += nwarps) {
+    const float av = row_dot(a.A + static_cast<size_t>(row) * n, vs4, nchunks, lane);
+    if (lane == 0) {
+      a.x[row] = vs[row];
+      const float rv = __ldg(a.b + row) - av;
+      r[row] = rv;
+      pb[0][row] = 0.f;
+      s0 += rv * rv;
+      s1 += first_z(row, rv);
+    }
+  }
+  float rr, rz;
+  end_phase(s0, s1, rr, rz);
+  int zi = 0;
+  if (a.precond == kPoly && a.degree > 1) rz = neumann(rz, zi);
+  if (a.precond == kNone) rz = rr;
+  float rsold = rz, beta = 0.f;
+  int cur = 0;  // pb[cur] holds p
+  long long k = 0;
+  bool done = rr < tol2;
+
+  while (!done && k < a.maxiter) {
+    // p = z + beta p, staged by every block; the row owners write it to
+    // the other buffer. Ap and p.Ap.
+    const float* zsrc = a.precond == kNone ? r : zb[zi];
+    const float* pold = pb[cur];
+    for (int i = threadIdx.x; i < n; i += kBlock) vs[i] = zsrc[i] + beta * pold[i];
+    __syncthreads();
+    cur ^= 1;
+    s0 = 0.f;
+    for (int row = gwarp; row < n; row += nwarps) {
+      const float av = row_dot(a.A + static_cast<size_t>(row) * n, vs4, nchunks, lane);
+      if (lane == 0) {
+        const float pv = vs[row];
+        pb[cur][row] = pv;
+        ap[row] = av;
+        s0 += pv * av;
+      }
+    }
+    float pap, unused;
+    end_phase(s0, 0.f, pap, unused);
+    const float alpha = safe_div(rsold, pap, a.safe_alpha);
+
+    // x += alpha p, r -= alpha Ap, r.r and (PCG) z, r.z: row owners only.
+    s0 = 0.f;
+    s1 = 0.f;
+    if (lane == 0) {
+      for (int row = gwarp; row < n; row += nwarps) {
+        a.x[row] = a.x[row] + alpha * pb[cur][row];
+        const float rv = r[row] - alpha * ap[row];
+        r[row] = rv;
+        s0 += rv * rv;
+        s1 += first_z(row, rv);
+      }
+    }
+    end_phase(s0, s1, rr, rz);
+    ++k;
+    done = rr < tol2;
+    if (done) break;
+    if (a.precond == kPoly && a.degree > 1) rz = neumann(rz, zi);
+    if (a.precond == kNone) rz = rr;
+    beta = rz / rsold;
+    rsold = rz;
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    *a.k_out = static_cast<int>(k);
+    *a.rr_out = rr;
+  }
+}
+
+struct BatchArgs {
+  const float* A;     // (B, n, n), read-only
+  const float* b;     // (B, n)
+  const float* x0;    // (B, n)
+  const float* minv;  // (B, n) 1/diag for jacobi, else unused
+  float* x;           // (B, n) out
+  int* k_out;         // (B,) out
+  float* rr_out;      // (B,) out
+  int n;
+  float tol;
+  long long maxiter;
+  int safe_alpha;
+  int jacobi;
+};
+
+__global__ void __launch_bounds__(kBatchBlock) fused_batch_cg_kernel(BatchArgs a) {
+  extern __shared__ float4 sm4[];  // x | r | p | Ap, n floats each
+  __shared__ float red[33];
+  const int n = a.n;
+  const int nchunks = n / 4;
+  float* xs = reinterpret_cast<float*>(sm4);
+  float* rs = xs + n;
+  float* ps = rs + n;
+  float* aps = ps + n;
+  const float4* ps4 = sm4 + 2 * nchunks;
+  const size_t sys = blockIdx.x;
+  const float* A = a.A + sys * n * n;
+  const float* b = a.b + sys * n;
+  const float* x0 = a.x0 + sys * n;
+  const float* minv = a.jacobi ? a.minv + sys * n : nullptr;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  constexpr int nwarps = kBatchBlock / 32;
+  const float tol2 = a.tol * a.tol;
+
+  // Ap (into aps) for p in ps; lane 0 of the row's warp adds p.Ap's terms.
+  auto matvec = [&]() -> float {
+    float s = 0.f;
+    for (int row = warp; row < n; row += nwarps) {
+      const float av = row_dot(A + static_cast<size_t>(row) * n, ps4, nchunks, lane);
+      if (lane == 0) {
+        aps[row] = av;
+        s += ps[row] * av;
+      }
+    }
+    return s;
+  };
+
+  for (int i = threadIdx.x; i < n; i += kBatchBlock) {
+    const float v = __ldg(x0 + i);
+    xs[i] = v;
+    ps[i] = v;
+  }
+  __syncthreads();
+  matvec();
+  __syncthreads();
+  float s0 = 0.f, s1 = 0.f;
+  for (int i = threadIdx.x; i < n; i += kBatchBlock) {
+    const float rv = __ldg(b + i) - aps[i];
+    rs[i] = rv;
+    const float z = minv ? __ldg(minv + i) * rv : rv;
+    ps[i] = z;
+    s0 += rv * rv;
+    s1 += rv * z;
+  }
+  float rr = block_allsum<kBatchBlock>(s0, red);
+  float rsold = minv ? block_allsum<kBatchBlock>(s1, red) : rr;
+  long long k = 0;
+  bool done = rr < tol2;
+  while (!done && k < a.maxiter) {
+    const float pap = block_allsum<kBatchBlock>(matvec(), red);  // syncs: Ap complete
+    const float alpha = safe_div(rsold, pap, a.safe_alpha);
+    s0 = 0.f;
+    s1 = 0.f;
+    for (int i = threadIdx.x; i < n; i += kBatchBlock) {
+      xs[i] = xs[i] + alpha * ps[i];
+      const float rv = rs[i] - alpha * aps[i];
+      rs[i] = rv;
+      s0 += rv * rv;
+      s1 += minv ? rv * (__ldg(minv + i) * rv) : 0.f;
+    }
+    rr = block_allsum<kBatchBlock>(s0, red);
+    const float rz = minv ? block_allsum<kBatchBlock>(s1, red) : rr;
+    ++k;
+    done = rr < tol2;
+    if (done) break;
+    const float beta = rz / rsold;
+    rsold = rz;
+    for (int i = threadIdx.x; i < n; i += kBatchBlock) {
+      const float z = minv ? __ldg(minv + i) * rs[i] : rs[i];
+      ps[i] = z + beta * ps[i];
+    }
+    __syncthreads();
+  }
+  float* x = a.x + sys * n;
+  for (int i = threadIdx.x; i < n; i += kBatchBlock) x[i] = xs[i];
+  if (threadIdx.x == 0) {
+    a.k_out[sys] = static_cast<int>(k);
+    a.rr_out[sys] = rr;
+  }
+}
+
+// Blocks of K4 an SM holds at once for n (its shared memory depends on n),
+// cached per device and n.
+cudaError_t fused_blocks_per_sm(int dev, int n, int* out) {
+  static int cache[kMaxDevices][kFusedMaxN / 128 + 1];
+  int* slot = (dev >= 0 && dev < kMaxDevices) ? &cache[dev][n / 128] : nullptr;
+  if (slot && *slot > 0) {
+    *out = *slot;
+    return cudaSuccess;
+  }
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out, fused_cg_kernel, kBlock, static_cast<size_t>(n) * sizeof(float));
+  if (err == cudaSuccess && slot) *slot = *out;
+  return err;
+}
+
+}  // namespace
+}  // namespace tpucg
+
+extern "C" long long tpucg_fused_cg_scratch(long long n) {
+  return 8 * n + 4 * ((n + tpucg::kWarps - 1) / tpucg::kWarps);
+}
+
+extern "C" cudaError_t tpucg_fused_cg_f32(const void* A, const void* b, const void* x0,
+                                          const void* minv, void* x, void* k, void* rr,
+                                          void* scratch, long long n, float tol,
+                                          long long maxiter, int safe_alpha, int precond,
+                                          int degree, void* stream) {
+  using namespace tpucg;
+  if (n <= 0 || n % 128 || n > kFusedMaxN) return cudaErrorInvalidValue;
+  int dev = 0, coop = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err != cudaSuccess) return err;
+  if (!coop) return cudaErrorNotSupported;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = fused_blocks_per_sm(dev, static_cast<int>(n), &per_sm);
+  if (err != cudaSuccess) return err;
+  const int rows_blocks = static_cast<int>((n + kWarps - 1) / kWarps);
+  const int grid = per_sm * sms < rows_blocks ? per_sm * sms : rows_blocks;
+  if (grid < 1) return cudaErrorCooperativeLaunchTooLarge;
+  FusedArgs fa{static_cast<const float*>(A), static_cast<const float*>(b),
+               static_cast<const float*>(x0), static_cast<const float*>(minv),
+               static_cast<float*>(x), static_cast<int*>(k), static_cast<float*>(rr),
+               static_cast<float*>(scratch), static_cast<int>(n), tol, maxiter,
+               safe_alpha, precond, degree};
+  void* args[] = {&fa};
+  err = cudaLaunchCooperativeKernel((void*)fused_cg_kernel, dim3(grid),
+                                    dim3(kBlock), args, static_cast<size_t>(n) * sizeof(float),
+                                    static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+extern "C" cudaError_t tpucg_fused_batch_cg_f32(const void* A, const void* b, const void* x0,
+                                                const void* minv, void* x, void* k, void* rr,
+                                                long long batch, long long n, float tol,
+                                                long long maxiter, int safe_alpha, int jacobi,
+                                                void* stream) {
+  using namespace tpucg;
+  if (batch <= 0 || n <= 0 || n % 128 || n > kFusedBatchMaxN) return cudaErrorInvalidValue;
+  BatchArgs ba{static_cast<const float*>(A), static_cast<const float*>(b),
+               static_cast<const float*>(x0), static_cast<const float*>(minv),
+               static_cast<float*>(x), static_cast<int*>(k), static_cast<float*>(rr),
+               static_cast<int>(n), tol, maxiter, safe_alpha, jacobi};
+  fused_batch_cg_kernel<<<static_cast<unsigned>(batch), kBatchBlock,
+                          4 * static_cast<size_t>(n) * sizeof(float),
+                          static_cast<cudaStream_t>(stream)>>>(ba);
+  return cudaGetLastError();
+}

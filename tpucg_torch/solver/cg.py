@@ -16,6 +16,12 @@ stopped changes nothing (k, x, r, p, rsold, rslast, done): on the cuda
 backend its kernels read ``active`` on the device and return at once, and on
 the torch backend ``torch.where`` keeps the old values. Lap counts and
 results therefore do not depend on the chunk size.
+
+A plain f32 dense solve of padded n <= ``FUSED_AUTO_MAX_N`` on the cuda
+backend (any n <= ``FUSED_MAX_N`` with ``fused="always"``) skips the lap
+loop: the whole-solve kernel K4 runs it in one launch (``_fused_eligible``).
+``cg_solve_batch`` solves B independent systems, through the batched kernel
+K5 where it applies and ``batch_cg_loop`` elsewhere.
 """
 
 from __future__ import annotations
@@ -36,10 +42,18 @@ from tpucg_torch.kernels.blas1 import (
     scratch_for,
 )
 from tpucg_torch.kernels.dispatch import canonical_device, cuda_stream, resolve_backend
+from tpucg_torch.kernels.fused import (
+    FUSED_AUTO_MAX_N,
+    FUSED_BATCH_MAX_N,
+    FUSED_MAX_N,
+    fused_batch_cg_solve_cuda,
+    fused_cg_solve_cuda,
+)
 from tpucg_torch.kernels.matvec import check_matvec, gemv_launch, matvec_cuda
-from tpucg_torch.solver.operators import LinearOperator, as_operator
+from tpucg_torch.solver.operators import DenseOperator, LinearOperator, as_operator, padded_size
 
 CHUNK_MAX = 64  # laps per host read, once the chunks have grown
+POWER_ITERS = 12  # power iterations of the poly preconditioner's lambda_max
 
 
 class CGResult(NamedTuple):
@@ -53,6 +67,59 @@ class CGResult(NamedTuple):
     # ||r|| after each lap (entry 0 = initial residual), NaN past the last
     # lap; only filled by record_residuals=True solves.
     residual_history: Optional[torch.Tensor] = None
+
+
+def lambda_max_estimate(matvec: Callable, dot: Callable, like: torch.Tensor,
+                        power_iters: int = POWER_ITERS) -> torch.Tensor:
+    """Fixed-iteration power-method estimate of lambda_max(A) (tpucg's).
+
+    ``matvec``/``dot`` are ``lap_ops``'s closures, called with no flag, or
+    batched closures over (B, n) whose dot gives (B,): then each system gets
+    its own estimate. The seed is the fixed oscillation cos(0.7 i) + 0.1
+    over ``like``'s (padded) length, never derived from the rhs, which can
+    vanish or live in the identity-tail pad. No host read: these are
+    ``power_iters`` + 1 enqueued matvecs."""
+    n = like.shape[-1]
+    v = torch.cos(torch.arange(n, dtype=like.dtype, device=like.device) * 0.7) + 0.1
+    v = v.expand(like.shape).contiguous()
+    for _ in range(power_iters):
+        y = matvec(v, None)
+        v = y * torch.rsqrt(dot(y, y, None) + 1e-30)[..., None]
+    lam = dot(v, matvec(v, None), None) / (dot(v, v, None) + 1e-30)
+    return torch.clamp(lam, min=1e-30)
+
+
+def make_poly_precond(matvec: Callable, dot: Callable, b: torch.Tensor, degree: int,
+                      power_iters: int = POWER_ITERS) -> Callable:
+    """Truncated-Neumann polynomial preconditioner, M^-1 = w sum_{i<d} (I - wA)^i
+    with w = 0.95 / lambda_max (SPD for any degree when 0 < w lambda_max < 1).
+    Each apply costs ``degree - 1`` matvecs. The returned ``precond(r, act)``
+    passes ``act`` to ``matvec``: on the cuda lap that returns K1's shared
+    output buffer, which the lap's Ap also lives in. That is safe because
+    ``cg_loop`` consumes Ap in the x/r update before it calls ``precond``,
+    and each product here is consumed before the next matvec."""
+    if degree < 1:
+        raise ValueError("poly degree must be >= 1")
+    w = (0.95 / lambda_max_estimate(matvec, dot, b, power_iters))[..., None]
+
+    def precond(r, act=None):
+        z = w * r
+        for _ in range(degree - 1):
+            z = z + w * r - w * matvec(z, act)
+        return z
+    return precond
+
+
+def make_precond(precondition: str, minv: Optional[torch.Tensor], matvec: Callable,
+                 dot: Callable, b: torch.Tensor, degree: int) -> Optional[Callable]:
+    """The ``precond(r, act)`` that ``cg_loop`` and ``batch_cg_loop`` take:
+    None for ``"none"``, z = minv r for ``"jacobi"``, and for ``"poly"``
+    ``make_poly_precond`` on ``matvec``/``dot`` (one system, or a batch)."""
+    if precondition == "jacobi":
+        return lambda r, act=None: minv * r
+    if precondition == "poly":
+        return make_poly_precond(matvec, dot, b, degree)
+    return None
 
 
 class _State(NamedTuple):
@@ -71,9 +138,10 @@ class _State(NamedTuple):
 def init_state(matvec: Callable, dot: Callable, b: torch.Tensor, x0: torch.Tensor,
                tol: float, precond: Optional[Callable] = None,
                hist_len: Optional[int] = None) -> _State:
-    """r = p = b - A x0; rsold = r.r. With ``precond`` (z = M^-1 r) this is
-    PCG: p = z0 and ``rsold`` carries r.z, while ``rslast`` carries r.r (the
-    stopping test is always on the true residual)."""
+    """r = p = b - A x0; rsold = r.r. With ``precond`` (``precond(r, act)``
+    gives z = M^-1 r) this is PCG: p = z0 and ``rsold`` carries r.z, while
+    ``rslast`` carries r.r (the stopping test is always on the true
+    residual)."""
     r0 = b - matvec(x0, None)
     tol2 = torch.tensor(tol, dtype=r0.dtype, device=r0.device) ** 2
     rr0 = dot(r0, r0, None)
@@ -94,6 +162,15 @@ def init_state(matvec: Callable, dot: Callable, b: torch.Tensor, x0: torch.Tenso
     )
 
 
+def _require_backend(op: LinearOperator, backend: str) -> None:
+    own = getattr(op, "backend", None)
+    if own != backend:
+        raise ValueError(
+            f"the operator runs kernel backend {own!r} and the solve asked for "
+            f"{backend!r}: make the operator with the solve's kernel"
+        )
+
+
 def lap_ops(op: LinearOperator, backend: str):
     """The (matvec, dot, update) closures that ``cg_loop`` runs for ``op`` on
     ``backend``. Each takes the lap's ``active`` flag last: a 0-d int32
@@ -107,12 +184,7 @@ def lap_ops(op: LinearOperator, backend: str):
     place, so a frozen lap costs launches and nothing else. On ``"torch"``
     the plain versions run and the update keeps x and r with ``torch.where``.
     """
-    own = getattr(op, "backend", None)
-    if own != backend:
-        raise ValueError(
-            f"the operator runs kernel backend {own!r} and the solve asked for "
-            f"{backend!r}: make the operator with the solve's kernel"
-        )
+    _require_backend(op, backend)
     if backend == "cuda":
         return _cuda_lap_ops(op.A)
 
@@ -206,7 +278,8 @@ def cg_loop(
 
     ``matvec``/``dot``/``update`` come from ``lap_ops``. ``state`` resumes a
     previous run (``maxiter`` bounds the cumulative k); its tensors are not
-    modified. ``precond`` (z = M^-1 r) switches to preconditioned CG with the
+    modified. ``precond`` (``precond(r, act)`` gives z = M^-1 r, ``act`` the
+    lap's flag as ``matvec`` takes it) switches to preconditioned CG with the
     same stopping test on the true residual. ``chunk`` fixes the laps per
     host read (default: 1, 2, 4, ... up to ``CHUNK_MAX``).
     """
@@ -240,7 +313,7 @@ def cg_loop(
             if precond is None:
                 z, rs_new = r, rr
             else:
-                z = precond(r)
+                z = precond(r, act)
                 rs_new = dot(r, z, act)
             step = active & ~stop
             p = torch.where(step, z + (rs_new / rsold) * p, p)
@@ -258,22 +331,140 @@ def cg_loop(
     return _State(k=k, x=x, r=r, p=p, rsold=rsold, rslast=rslast, done=done, hist=hist)
 
 
+class _BatchState(NamedTuple):
+    """``batch_cg_loop``'s state: ``_State``'s fields with a leading batch
+    axis, every scalar a (B,) tensor."""
+
+    k: torch.Tensor
+    x: torch.Tensor
+    r: torch.Tensor
+    p: torch.Tensor
+    rsold: torch.Tensor
+    rslast: torch.Tensor
+    done: torch.Tensor
+
+
+def batch_matvec(A: torch.Tensor) -> Callable:
+    """``matvec(v, act)`` over (B, n) for the (B, n, n) ``A``: one
+    ``torch.bmm`` (tpucg's plain batched matvec is a ``jnp.dot``)."""
+    return lambda v, act=None: torch.bmm(A, v[:, :, None])[:, :, 0]
+
+
+def _batch_dot(u, v, act=None):
+    return (u * v).sum(-1)
+
+
+def batch_cg_loop(
+    matvec: Callable,
+    b: torch.Tensor,
+    x0: torch.Tensor,
+    *,
+    tol: float,
+    maxiter: int,
+    safe_alpha: bool = True,
+    precond: Optional[Callable] = None,
+    chunk: Optional[int] = None,
+) -> _BatchState:
+    """CG on B independent systems at once (tpucg's vmapped ``cg_loop``):
+    ``b`` and ``x0`` are (B, n), ``matvec(v, act)`` maps (B, n) to (B, n)
+    and ``precond(r, act)`` likewise. Every loop scalar is a (B,) device
+    tensor and each system stops on its own: a lap masks the systems that
+    have stopped with ``torch.where``, so they change nothing. As in
+    ``cg_loop``, the host reads whether any system is still running once
+    per chunk of laps (1, 2, 4, ... up to ``CHUNK_MAX``, or ``chunk``)."""
+    if chunk is not None and chunk < 1:
+        raise ValueError("chunk must be >= 1")
+    dot = _batch_dot
+    x = x0.clone()
+    r = b - matvec(x, None)
+    tol2 = torch.tensor(tol, dtype=r.dtype, device=r.device) ** 2
+    rr = dot(r, r)
+    if precond is None:
+        p, rsold = r, rr
+    else:
+        p = precond(r, None)
+        rsold = dot(r, p)
+    k = torch.zeros(b.shape[0], dtype=torch.int32, device=b.device)
+    rslast, done = rr, rr < tol2
+    active = ~done & (k < maxiter)
+    laps = 1 if chunk is None else chunk
+    while True:
+        for _ in range(laps):
+            ap = matvec(p, None)
+            pap = dot(p, ap)
+            alpha = torch.where(pap != 0, rsold / pap, 0.0) if safe_alpha else rsold / pap
+            on = active[:, None]
+            x = torch.where(on, x + alpha[:, None] * p, x)
+            r = torch.where(on, r - alpha[:, None] * ap, r)
+            rr = dot(r, r)
+            stop = rr < tol2
+            if precond is None:
+                z, rs_new = r, rr
+            else:
+                z = precond(r, None)
+                rs_new = dot(r, z)
+            step = active & ~stop
+            p = torch.where(step[:, None], z + (rs_new / rsold)[:, None] * p, p)
+            rsold = torch.where(step, rs_new, rsold)
+            rslast = torch.where(active, rr, rslast)
+            done = done | (active & stop)
+            k = k + active.to(torch.int32)
+            active = ~done & (k < maxiter)
+        if not bool(active.any()):  # the one host read of the chunk
+            break
+        if chunk is None:
+            laps = min(2 * laps, CHUNK_MAX)
+    return _BatchState(k=k, x=x, r=r, p=p, rsold=rsold, rslast=rslast, done=done)
+
+
 def _check_supported(config: CGConfig, interval, two_level) -> None:
     """Name the ROADMAP item of every configuration this slice does not run."""
     if config.method != "cg":
         raise NotImplementedError(f"method={config.method!r} is ROADMAP M8")
-    if config.precondition not in ("none", "jacobi"):
-        raise NotImplementedError(f"precondition={config.precondition!r} is ROADMAP M8")
+    if config.precondition == "block_jacobi":
+        raise NotImplementedError("precondition='block_jacobi' is ROADMAP M8")
     if config.dtype != torch.float32:
         raise NotImplementedError(f"solve dtype {config.dtype} is ROADMAP M9")
-    if config.fused == "always":
-        raise NotImplementedError(
-            "fused='always' needs the whole-solve kernel K4 (ROADMAP M6)"
-        )
     if interval is not None:
         raise NotImplementedError("interval= serves method='ca'/'chebyshev': ROADMAP M8")
     if two_level is not None:
         raise NotImplementedError("two_level= is ROADMAP M12")
+
+
+def _fused_eligible(config: CGConfig, op: LinearOperator, backend: str, dtype,
+                    record_residuals: bool) -> Optional[str]:
+    """``"dense"`` when a solve runs as one launch of K4 (tpucg's gate, its
+    dense arm, with ``"pallas"`` read as ``"cuda"``), else None: a plain
+    (``method="cg"``, no residual history) f32 solve of an f32
+    ``DenseOperator`` on the cuda backend, preconditioned by none, jacobi or
+    poly (K4 runs the PCG recurrence in the kernel; block Jacobi keeps the
+    lap path), padded n a multiple of 128 and at most ``FUSED_MAX_N`` under
+    ``fused="always"`` or ``FUSED_AUTO_MAX_N`` under ``"auto"``. bf16
+    storage keeps the lap path."""
+    if config.fused == "never" or backend != "cuda":
+        return None
+    if config.method != "cg" or record_residuals or dtype != torch.float32:
+        return None
+    if config.precondition not in ("none", "jacobi", "poly"):
+        return None
+    if not isinstance(op, DenseOperator) or op.A.dtype != torch.float32:
+        return None
+    npad = op.padded_n
+    cap = FUSED_MAX_N if config.fused == "always" else FUSED_AUTO_MAX_N
+    return "dense" if npad % 128 == 0 and npad <= cap else None
+
+
+def _configure(config: Optional[CGConfig], overrides) -> CGConfig:
+    if config is None:
+        return CGConfig(**overrides)
+    return dataclasses.replace(config, **overrides) if overrides else config
+
+
+def _fused_result(x, k, rr, tol: float) -> CGResult:
+    """tpucg's result of a whole-solve kernel: ||r|| = sqrt(rr), converged
+    when rr < tol^2."""
+    return CGResult(x=x, iterations=k, residual_norm=rr.sqrt(),
+                    converged=rr < torch.tensor(tol, dtype=rr.dtype, device=rr.device) ** 2)
 
 
 def cg_solve(
@@ -295,15 +486,15 @@ def cg_solve(
     ``A`` is a dense array or tensor, or a ``DenseOperator``. ``device``
     defaults to the device of a tensor or operator ``A``, else the card when
     there is one; ``kernel="auto"`` then runs the CUDA kernels on a CUDA
-    device and the plain versions elsewhere. ``fused="auto"`` takes the lap
-    path (the whole-solve kernel K4 is not ported yet). ``record_residuals``
-    returns the per-lap ||r|| in ``residual_history``; ``chunk`` is
-    ``cg_loop``'s.
+    device and the plain versions elsewhere. On the cuda backend a solve
+    ``_fused_eligible`` admits runs as one launch of K4 (``fused="auto"``:
+    padded n <= ``FUSED_AUTO_MAX_N``; ``"always"``: n <= ``FUSED_MAX_N``);
+    every other solve, and ``fused="never"``, takes the lap path
+    (``cg_loop`` on K1-K3). ``precondition`` is ``"none"``, ``"jacobi"`` or
+    ``"poly"`` (degree ``poly_degree``). ``record_residuals`` returns the
+    per-lap ||r|| in ``residual_history``; ``chunk`` is ``cg_loop``'s.
     """
-    if config is None:
-        config = CGConfig(**overrides)
-    elif overrides:
-        config = dataclasses.replace(config, **overrides)
+    config = _configure(config, overrides)
     _check_supported(config, interval, two_level)
     if device is None and isinstance(A, (LinearOperator, torch.Tensor)):
         device = A.device
@@ -312,6 +503,7 @@ def cg_solve(
     op = as_operator(A, backend=backend, device=device)
     if op.device != device:
         raise ValueError(f"operator lives on {op.device}, solve asked for {device}")
+    _require_backend(op, backend)  # K4 too: one choice runs the whole solve
     n, npad = op.n, op.padded_n
     b = torch.as_tensor(b, dtype=torch.float32, device=device)
     if b.shape != (n,):
@@ -333,10 +525,19 @@ def cg_solve(
         d = op.diagonal()
         minv = torch.where(d != 0, 1.0 / d, 1.0)
     tol = float(config.tol)
+    poly = config.precondition == "poly"
+    if _fused_eligible(config, op, backend, config.dtype, record_residuals) == "dense":
+        x, k, rr = fused_cg_solve_cuda(
+            op.A, b, x0, tol=tol, maxiter=maxiter, safe_alpha=bool(config.safe_alpha),
+            precondition=config.precondition, poly_degree=config.poly_degree if poly else 0,
+            minv=minv,
+        )
+        return _fused_result(x[:n], k, rr, tol)
+    matvec, dot, update = lap_ops(op, backend)
+    precond = make_precond(config.precondition, minv, matvec, dot, b, config.poly_degree)
     s = cg_loop(
-        *lap_ops(op, backend), b, x0,
-        tol=tol, maxiter=maxiter, safe_alpha=bool(config.safe_alpha),
-        precond=None if minv is None else (lambda r: minv * r),
+        matvec, dot, update, b, x0,
+        tol=tol, maxiter=maxiter, safe_alpha=bool(config.safe_alpha), precond=precond,
         hist_len=maxiter if record_residuals else None,
         chunk=chunk,
     )
@@ -347,3 +548,89 @@ def cg_solve(
         converged=s.rslast < torch.tensor(tol, dtype=s.rslast.dtype, device=device) ** 2,
         residual_history=s.hist,
     )
+
+
+def cg_solve_batch(
+    A,
+    b,
+    X0=None,
+    config: Optional[CGConfig] = None,
+    *,
+    device=None,
+    chunk: Optional[int] = None,
+    **overrides,
+) -> CGResult:
+    """Solve a batch of independent SPD systems A[i] x[i] = b[i] (tpucg's
+    ``cg_solve_batch``): ``A`` is (B, n, n), ``b`` and ``X0`` (B, n), as
+    arrays or tensors; ``device`` defaults as in ``cg_solve``.
+
+    Each system is padded with an identity tail to a multiple of 128. On the
+    cuda backend, unless ``fused="never"``, a batch with precondition none
+    or jacobi and padded n <= ``FUSED_BATCH_MAX_N`` runs as one launch of
+    K5. Every other batch (larger n, ``"poly"``, the torch backend) runs
+    ``batch_cg_loop`` with ``torch.bmm`` as its matvec. The solve is f32.
+    Result fields are batched: ``x`` is (B, n); ``iterations``,
+    ``residual_norm`` and ``converged`` are (B,).
+    """
+    config = _configure(config, overrides)
+    if config.method != "cg":
+        raise ValueError("cg_solve_batch supports method='cg' only")
+    if device is None and isinstance(A, torch.Tensor):
+        device = A.device
+    device = canonical_device(device)
+    A = torch.as_tensor(A, dtype=torch.float32, device=device)
+    if A.dim() != 3 or A.shape[1] != A.shape[2]:
+        raise ValueError(f"A must be (B, n, n), got {tuple(A.shape)}")
+    nsys, n = A.shape[0], A.shape[1]
+    b = torch.as_tensor(b, dtype=torch.float32, device=device)
+    if b.shape != (nsys, n):
+        raise ValueError(f"b must be ({nsys}, {n}), got {tuple(b.shape)}")
+    X0 = (
+        torch.zeros((nsys, n), dtype=torch.float32, device=device)
+        if X0 is None
+        else torch.as_tensor(X0, dtype=torch.float32, device=device)
+    )
+    if X0.shape != (nsys, n):
+        raise ValueError(f"X0 must be ({nsys}, {n}), got {tuple(X0.shape)}")
+    npad = padded_size(n)
+    if npad != n:
+        # Identity-tail padding, batched: tail rows solve 1 x = 0 and stay inert.
+        A = F.pad(A, (0, npad - n, 0, npad - n))
+        idx = torch.arange(n, npad, device=device)
+        A[:, idx, idx] = 1.0
+        b = F.pad(b, (0, npad - n))
+        X0 = F.pad(X0, (0, npad - n))
+    A = A.contiguous()
+    maxiter = int(config.maxiter if config.maxiter is not None else n)
+    backend = resolve_backend(config.kernel, device)
+    if config.precondition == "block_jacobi":
+        raise ValueError(
+            "cg_solve_batch supports precondition 'none', 'jacobi', or 'poly' "
+            "(per-system block inverses are unimplemented)"
+        )
+    minv = None
+    if config.precondition == "jacobi":
+        d = torch.diagonal(A, dim1=1, dim2=2)
+        minv = torch.where(d != 0, 1.0 / d, 1.0)
+    tol, safe_alpha = float(config.tol), bool(config.safe_alpha)
+    if (
+        backend == "cuda"
+        and config.fused != "never"
+        and config.precondition in ("none", "jacobi")
+        and npad <= FUSED_BATCH_MAX_N
+    ):
+        x, k, rr = fused_batch_cg_solve_cuda(
+            A, b, X0, tol=tol, maxiter=maxiter, safe_alpha=safe_alpha,
+            precondition=config.precondition, minv=minv,
+        )
+        res = _fused_result(x, k, rr, tol)
+    else:
+        matvec = batch_matvec(A)
+        precond = make_precond(config.precondition, minv, matvec, _batch_dot, b,
+                               config.poly_degree)
+        s = batch_cg_loop(matvec, b, X0, tol=tol, maxiter=maxiter, safe_alpha=safe_alpha,
+                          precond=precond, chunk=chunk)
+        res = CGResult(x=s.x, iterations=s.k, residual_norm=s.rslast.sqrt(), converged=s.done)
+    if npad != n:
+        res = res._replace(x=res.x[:, :n])
+    return res

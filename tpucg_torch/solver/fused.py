@@ -1,0 +1,71 @@
+"""The plain versions of the whole-solve kernels K4 and K5, and the
+dispatchers that pick kernel or plain version by the tensors' device.
+
+The kernels' wrappers (``tpucg_torch.kernels.fused``) check the operands
+and launch one kernel; the plain versions check the same operands, with the
+same messages, and run the same recurrence (tpucg's ``_cg_while``) through
+this package's loops on plain torch ops: ``cg_loop`` on the plain lap
+kernels for one system, ``batch_cg_loop`` with ``torch.bmm`` for a batch.
+They return what the kernels return, ``(x, k, rr)``, and read nothing back
+to the host beyond the loops' one flag per chunk of laps. ``cg_solve`` and
+``cg_solve_batch`` never call them: they serve the tests and the card's
+checks of K4 and K5.
+"""
+
+from __future__ import annotations
+
+from tpucg_torch.kernels.dispatch import resolve_backend
+from tpucg_torch.kernels.fused import (
+    check_fused,
+    check_fused_batch,
+    fused_batch_cg_solve_cuda,
+    fused_cg_solve_cuda,
+)
+from tpucg_torch.solver.cg import batch_cg_loop, batch_matvec, cg_loop, lap_ops, make_precond
+from tpucg_torch.solver.operators import DenseOperator
+
+
+def fused_cg_solve_torch(A, b, x0, *, tol, maxiter, safe_alpha=True, precondition="none",
+                         poly_degree=0, minv=None):
+    """Plain version of K4: ``cg_loop`` on the plain lap kernels, with the
+    polynomial preconditioner of ``make_poly_precond`` (the same power
+    method from the same seed as the kernel's)."""
+    fused_cg_solve_torch.launches += 1
+    check_fused(A, b, x0, precondition, poly_degree, minv)
+    matvec, dot, update = lap_ops(DenseOperator(A=A, n=A.shape[0], backend="torch"), "torch")
+    precond = make_precond(precondition, minv, matvec, dot, b, poly_degree)
+    s = cg_loop(matvec, dot, update, b, x0, tol=tol, maxiter=maxiter,
+                safe_alpha=safe_alpha, precond=precond)
+    return s.x, s.k, s.rslast
+
+
+fused_cg_solve_torch.launches = 0
+
+
+def fused_batch_cg_solve_torch(A, b, x0, *, tol, maxiter, safe_alpha=True,
+                               precondition="none", minv=None):
+    """Plain version of K5: ``batch_cg_loop`` with ``torch.bmm`` as the
+    matvec (tpucg's non-fused batch matvec is a plain ``jnp.dot``)."""
+    fused_batch_cg_solve_torch.launches += 1
+    check_fused_batch(A, b, x0, precondition, minv)
+    precond = None if precondition == "none" else (lambda r, act=None: minv * r)
+    s = batch_cg_loop(batch_matvec(A), b, x0, tol=tol, maxiter=maxiter, safe_alpha=safe_alpha,
+                      precond=precond)
+    return s.x, s.k, s.rslast
+
+
+fused_batch_cg_solve_torch.launches = 0
+
+
+def fused_cg_solve(A, b, x0, *, backend: str = "auto", **kw):
+    """K4 for a CUDA tensor (``"auto"``), its plain version for a CPU one."""
+    if resolve_backend(backend, A.device) == "cuda":
+        return fused_cg_solve_cuda(A, b, x0, **kw)
+    return fused_cg_solve_torch(A, b, x0, **kw)
+
+
+def fused_batch_cg_solve(A, b, x0, *, backend: str = "auto", **kw):
+    """K5 for a CUDA tensor (``"auto"``), its plain version for a CPU one."""
+    if resolve_backend(backend, A.device) == "cuda":
+        return fused_batch_cg_solve_cuda(A, b, x0, **kw)
+    return fused_batch_cg_solve_torch(A, b, x0, **kw)
