@@ -36,9 +36,30 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    laps around the split is printed from K5, the plain version and a
    float64 solve. x is held within a bound scaled to x in both.
 
-The line before last is a JSON object of the kernels; the last line is
-``{"ok": true, "device": {...}}``. Any failure exits non-zero without it, as
-does a machine without CUDA or a directory without the package.
+9. sparse kernels vs plain: K6 (DIA SpMV) in f32 and bf16 on the m=128
+   Poisson Laplacian in DIA form and on a cross-row band at n=2^20, and K8
+   (7-point stencil) at m=128, 100 and 2, each bit-identical to its plain
+   version and to its own repeat; µs per launch (device time of calls
+   queued behind a spin kernel, ``bench.timing.device_timing``: back-to-back
+   wrapper calls are host-bound at these sizes) against the bound (bytes at the HBM peak) and a torch CSR sparse product.
+10. Poisson m=128: tpucg's sparse flagship (``bench --operator
+   poisson-free|poisson-dia``) through ``cg_solve`` on the stencil operator
+   and on DIA in f32 and bf16: the default route (K10 / K11 in one launch,
+   nothing else), ``fused="never"`` (K8 / K6 with K2 and K3, no plain
+   version), ``kernel="torch"`` (the plain route on the card, no kernel),
+   jacobi on DIA and poly (degree 3) on both; every solve converges with a
+   float64 true residual ||b - A x|| / ||b|| <= 2e-5 and within a lap of the
+   plain route; times per solve; then the gate table: ``fused="always"``
+   against ``"never"`` at m = 16 ... 192 (stencil) and 32 ... 160 (DIA f32
+   and bf16), medians of 5, each arm twice in turns.
+11. whole-solve K10/K11 vs plain at m = 16, 32, 64 with a nonzero x0: laps
+   within one, x within 1e-4 of max |x|, repeats bit-identical.
+
+The line before last is a JSON object of the kernels (K1-K6, K8, K10, K11:
+launches on the main path, error against the plain version, times, the
+bound and the library call's time); the last line is ``{"ok": true,
+"device": {...}}``. Any failure exits non-zero without it, as does a
+machine without CUDA or a directory without the package.
 """
 
 import contextlib
@@ -86,14 +107,24 @@ def main() -> int:
     sys.path.insert(0, str(pkg_root / "tests"))
     from _torch_helpers import circulant_spd_batch, scaled_err, shifted_spd_batch
 
+    from _torch_helpers import BAND_SETS, random_banded_dia
+
     from tpucg_torch.bench.timing import (
         device_seconds_per_call,
+        dia_spmv_bytes,
         gemv_bytes,
         hbm_peak_bytes_per_s,
         nvidia_smi_card,
+        poisson_nnz,
+        rate_line,
+        stencil_bytes,
         time_fn,
     )
-    from tpucg_torch.io.generator import generate_spd_system, generate_spd_system_f32
+    from tpucg_torch.io.generator import (
+        generate_spd_system,
+        generate_spd_system_f32,
+        poisson3d_dia,
+    )
     from tpucg_torch.io.golden import GOLDEN_2X2, GOLDEN_4X4
     from tpucg_torch.kernels import _lib
     from tpucg_torch.kernels.blas1 import (
@@ -105,19 +136,32 @@ def main() -> int:
     from tpucg_torch.kernels.dispatch import strict_f32
     from tpucg_torch.kernels.fused import (
         FUSED_AUTO_MAX_N,
+        FUSED_DIA_AUTO_MAX_N,
+        FUSED_STENCIL_AUTO_MAX_M,
         fused_batch_cg_solve_cuda,
         fused_cg_solve_cuda,
+        fused_dia_cg_solve_cuda,
+        fused_stencil_cg_solve_cuda,
     )
     from tpucg_torch.kernels.matvec import matvec_cuda, matvec_torch
+    from tpucg_torch.kernels.spmv import dia_spmv_cuda, dia_spmv_torch
+    from tpucg_torch.kernels.stencil import poisson3d_cuda, poisson3d_torch
     from tpucg_torch.solver.cg import batch_cg_loop, batch_matvec, cg_solve, cg_solve_batch
-    from tpucg_torch.solver.fused import fused_batch_cg_solve_torch, fused_cg_solve_torch
-    from tpucg_torch.solver.operators import DenseOperator
+    from tpucg_torch.solver.fused import (
+        fused_batch_cg_solve_torch,
+        fused_cg_solve_torch,
+        fused_dia_cg_solve_torch,
+        fused_stencil_cg_solve_torch,
+    )
+    from tpucg_torch.solver.operators import DenseOperator, DiaOperator, PoissonOperator
     from tpucg_torch.solver.oracle import oracle_cg
 
     wrappers = (matvec_cuda, matvec_torch, dot_cuda, dot_torch,
-                fused_update_cuda, fused_update_torch)
+                fused_update_cuda, fused_update_torch, dia_spmv_cuda, dia_spmv_torch,
+                poisson3d_cuda, poisson3d_torch)
     whole = (fused_cg_solve_cuda, fused_cg_solve_torch, fused_batch_cg_solve_cuda,
-             fused_batch_cg_solve_torch)
+             fused_batch_cg_solve_torch, fused_stencil_cg_solve_cuda,
+             fused_stencil_cg_solve_torch, fused_dia_cg_solve_cuda, fused_dia_cg_solve_torch)
 
     def drive(fn):
         """Run one main-path call with every launch count at 0 just before
@@ -254,7 +298,25 @@ def main() -> int:
                 flagship = (op, bd, x0d, k)
             del op, bd, x0d, res
 
-    times = {}
+    times, library, bounds = {}, {}, {}
+    f32_peak = 67e12  # FLOP/s outside the tensor cores (H100 SXM data sheet)
+
+    def bound_of(nbytes, flops):
+        """(ms, what bounds it): the larger of the bytes at the HBM peak and
+        the f32 operations at the f32 peak."""
+        tb, tf = nbytes / peak, flops / f32_peak
+        return (tb * 1e3, "bytes") if tb >= tf else (tf * 1e3, "operations")
+
+    def cg_flops(n, laps, mv_flops, matvecs=None):
+        """Operations of a CG solve: its matvecs (laps + 1 by default) and
+        10 n of BLAS-1 a lap (p update, two dots, x and r updates); the
+        preconditioners' own elementwise work is left out (a lower bound)."""
+        return (laps + 1 if matvecs is None else matvecs) * mv_flops + 10 * n * laps
+
+    n8 = 8192
+    bounds["K1"] = bound_of(gemv_bytes(n8, n8, 4), 2 * n8 * n8)
+    bounds["K2"] = bound_of(4 * (6 * n8 + 1), 5 * n8)  # x, r, p, Ap in; x', r', beta out
+    bounds["K3"] = bound_of(4 * (2 * n8 + 1), 2 * n8)
     with phase("times"):
         op, bd, x0d, k = flagship
         op_plain = DenseOperator(A=op.A, n=op.n, backend="torch")
@@ -275,7 +337,10 @@ def main() -> int:
                 print(f"{who} gemv {label} 8192x8192: {t.median * 1e6:.2f} us, "
                       f"{rate / 1e9:.1f} GB/s, {100 * rate / peak:.1f}% of HBM peak {tag}{flag}")
             if label == "f32":
+                tl = time_fn(lambda: torch.mv(A, v), warmup=3, iters=7, reps=20)
                 times["K1"] = (tk.median, tp.median)
+                library["K1"] = tl.median
+                print(f"torch.mv (cuBLAS) f32 8192x8192: {tl.median * 1e6:.2f} us {tag}")
         x, r, p, ap = (rnd(8192) for _ in range(4))
         alpha = torch.tensor(0.37, device=dev)
         pairs = {
@@ -285,13 +350,16 @@ def main() -> int:
         }
         for kname, (fk, fp) in pairs.items():
             # Back-to-back wrapper calls are bound by host overhead at this
-            # size; the profiler gives the device time of what each launches.
+            # size; calls queued behind a spin kernel give the device time.
             tk = time_fn(fk, warmup=3, iters=7, reps=200)
             tp = time_fn(fp, warmup=3, iters=7, reps=200)
             dk, dp = device_seconds_per_call(fk), device_seconds_per_call(fp)
             times[kname] = (dk, dp)
+            if kname == "K3":
+                library["K3"] = device_seconds_per_call(lambda: torch.dot(p, ap))
+                print(f"torch.dot n=8192: device {library['K3'] * 1e6:.2f} us per call {tag}")
             print(f"{kname} n=8192: device {dk * 1e6:.2f} us per call, plain {dp * 1e6:.2f} us "
-                  f"(profiler); back to back {tk.median * 1e6:.2f} us per call, plain "
+                  f"(queued); back to back {tk.median * 1e6:.2f} us per call, plain "
                   f"{tp.median * 1e6:.2f} us (host-bound) {tag}")
 
     def pad_to(t, npad):
@@ -342,6 +410,10 @@ def main() -> int:
                       + f"), ||r|| {float(rr) ** 0.5:.3e}, max abs err vs plain {e:.3e} = "
                       f"{se:.3e} of max |x| (bound {bound}), repeat bit-identical")
             if n == 1000:
+                k4_laps = int(fused_cg_solve_cuda(op.A, bp, x0p, tol=1e-6, maxiter=n)[1])
+                npad = op.padded_n
+                bounds["K4"] = bound_of(4 * (npad * npad + 3 * npad),
+                                     cg_flops(npad, k4_laps, 2 * npad * npad))
                 kw = dict(tol=1e-6, maxiter=n)
                 times["K4"] = (time_fn(lambda: fused_cg_solve_cuda(op.A, bp, x0p, **kw),
                                        warmup=2, iters=7).median,
@@ -469,6 +541,10 @@ def main() -> int:
                           f"max abs err {e:.3e} = {se:.3e} of max |x| (bound 1e-4), repeat "
                           f"bit-identical")
                     if (kind, nsys, pc) == ("circulant", 64, "none"):
+                        npad = Ad.shape[1]
+                        bounds["K5"] = bound_of(
+                            4 * nsys * (npad * npad + 3 * npad),
+                            sum(cg_flops(npad, kk, 2 * npad * npad) for kk in laps))
                         tk = time_fn(lambda: fused_batch_cg_solve_cuda(Ad, bp, x0p, **kw),
                                      warmup=1, iters=5)
                         tp = time_fn(lambda: fused_batch_cg_solve_torch(Ad, bp, x0p, **kw),
@@ -481,6 +557,265 @@ def main() -> int:
         print(f"K4 n=1000 none: {times['K4'][0] * 1e3:.4f} ms vs plain "
               f"{times['K4'][1] * 1e3:.4f} ms {tag}")
 
+    def torch_csr(data, offsets):
+        """The DIA matrix as a torch CSR tensor on the card: the yardstick
+        sparse product (library_ms), never used by the port."""
+        npad = data.shape[1]
+        rows = torch.arange(npad, device=dev)
+        ri, ci, vi = [], [], []
+        for d, off in enumerate(offsets):
+            cols = rows + off
+            keep = (cols >= 0) & (cols < npad) & (data[d] != 0)
+            ri.append(rows[keep])
+            ci.append(cols[keep])
+            vi.append(data[d][keep].float())
+        coo = torch.sparse_coo_tensor(torch.stack([torch.cat(ri), torch.cat(ci)]),
+                                      torch.cat(vi), (npad, npad), check_invariants=True)
+        return coo.coalesce().to_sparse_csr()
+
+    def kernel_vs_plain(label, fk, fp, nbytes, nnz, csr, x):
+        """One sparse lap kernel against its plain version on the same
+        inputs: bit-identical (same products and sums in the same order,
+        each rounded on its own) and repeat bit-identical; then the device
+        time per call (queued behind a spin kernel: back-to-back wrapper
+        calls are bound by host overhead at these sizes) of the kernel, the plain version and
+        the CSR product."""
+        y, yp = fk(), fp()
+        e = float((y - yp).abs().max())
+        require(torch.equal(y, yp), f"{label}: max abs err {e} against plain")
+        require(torch.equal(y, fk()), f"{label}: repeat differs")
+        for f in (fk, fp, lambda: csr @ x):  # warm up
+            f()
+        tk, tp, tl = (device_seconds_per_call(f) for f in (fk, fp, lambda: csr @ x))
+        b_s = nbytes / peak
+        print(f"{label}: bit-identical to plain and to its repeat (tol 0); device "
+              f"{tk * 1e6:.2f} us per launch, {rate_line(nbytes, tk, peak, nnz)}, "
+              f"{100 * b_s / tk:.1f}% of its {b_s * 1e6:.2f} us bound; plain "
+              f"{tp * 1e6:.2f} us, torch CSR product {tl * 1e6:.2f} us (queued) {tag}")
+        return e, tk, tp, tl
+
+    with phase("sparse kernels vs plain"):
+        m = 128
+        dia128 = poisson3d_dia(m)
+        f32, bf16 = torch.float32, torch.bfloat16
+        ops128 = {dt: DiaOperator.from_dia(dia128, storage_dtype=dt, device=dev)
+                  for dt in (f32, bf16)}
+        csr128 = torch_csr(ops128[f32].data, ops128[f32].offsets)
+        x = rnd(m ** 3)
+        require(torch.equal(ops128[f32].matvec(x), ops128[bf16].matvec(x)),
+                "K6 Poisson m=128: bf16 slab differs from f32")
+        print("K6 Poisson m=128: the bf16 slab's y equals the f32 slab's bit for bit")
+        for dt, name in ((f32, "f32"), (bf16, "bf16")):
+            op = ops128[dt]
+            r = kernel_vs_plain(
+                f"K6 Poisson m=128 DIA {name} (n={op.padded_n}, 7 diagonals)",
+                lambda: dia_spmv_cuda(op.data, op.offsets, x),
+                lambda: dia_spmv_torch(op.data, op.offsets, x),
+                dia_spmv_bytes(7, op.padded_n, op.data.element_size()), poisson_nnz(m),
+                csr128, x)
+            if dt == f32:
+                err["K6"], times["K6"], library["K6"] = r[0], r[1:3], r[3]
+                bounds["K6"] = bound_of(dia_spmv_bytes(7, op.padded_n, 4), 14 * op.padded_n)
+        nb = 2 ** 20
+        offsets, data, _ = random_banded_dia(nb, BAND_SETS["cross_row"], seed=0)
+        data32 = torch.as_tensor(data, device=dev)
+        csrb = torch_csr(data32, offsets)
+        xb = rnd(nb)
+        for dt, name in ((f32, "f32"), (bf16, "bf16")):
+            d = data32.to(dt)
+            e = kernel_vs_plain(
+                f"K6 cross-row band {offsets} {name} (n=2^20)",
+                lambda: dia_spmv_cuda(d, offsets, xb), lambda: dia_spmv_torch(d, offsets, xb),
+                dia_spmv_bytes(len(offsets), nb, d.element_size()), int((data != 0).sum()),
+                csrb, xb)[0]
+            err["K6"] = max(err["K6"], e)
+        del csrb, data32
+        for mm in (128, 100, 2):
+            u = rnd(mm ** 3)
+            dm = poisson3d_dia(mm)  # unpadded: the CSR product's length is u's
+            csr = csr128 if mm == 128 else torch_csr(torch.as_tensor(dm.data, device=dev),
+                                                     dm.offsets)
+            r = kernel_vs_plain(f"K8 stencil m={mm} (n={mm ** 3})",
+                                lambda: poisson3d_cuda(u, mm), lambda: poisson3d_torch(u, mm),
+                                stencil_bytes(mm ** 3), poisson_nnz(mm), csr, u)
+            if mm == 128:
+                err["K8"], times["K8"], library["K8"] = r[0], r[1:3], r[3]
+                bounds["K8"] = bound_of(stencil_bytes(mm ** 3), 7 * mm ** 3)
+            else:
+                err["K8"] = max(err["K8"], r[0])
+        del csr128, csr
+
+    def true_residual(op, b, x):
+        """||b - A x|| / ||b|| in float64 on the card (plain versions)."""
+        x64 = x.double()
+        if isinstance(op, PoissonOperator):
+            ax = poisson3d_torch(x64, op.m)
+        else:
+            ax = dia_spmv_torch(op.data.double(), op.offsets, x64)[: op.n]
+        b64 = b.double()
+        return float((b64 - ax).norm() / b64.norm())
+
+    def poisson_rhs(mm, x0_scale=0.0):
+        """tpucg's bench system: x_true standard normal (default_rng(0),
+        f32), b = A x_true (the plain stencil on the card); with x0_scale a
+        nonzero x0 from the same generator."""
+        rng = np.random.default_rng(0)
+        xt = torch.as_tensor(rng.standard_normal(mm ** 3).astype(np.float32), device=dev)
+        x0 = torch.as_tensor((x0_scale * rng.standard_normal(mm ** 3)).astype(np.float32),
+                             device=dev)
+        return poisson3d_torch(xt, mm), x0
+
+    def poisson_maxiter(mm):
+        # CG on the m^3 Laplacian at tol 1e-5 ||b|| takes ~4 m laps: the
+        # clamp is ~2x that, and every solve must converge under it.
+        return 8 * mm + 200
+
+    with phase("Poisson m=128"):
+        m = 128
+        b, _ = poisson_rhs(m)
+        tol, maxiter = 1e-5 * float(b.norm()), poisson_maxiter(m)
+        print(f"Poisson m={m}: n={m ** 3}, nnz={poisson_nnz(m)}, tol 1e-5 ||b|| = {tol:.6e}, "
+              f"maxiter {maxiter}; gate caps: stencil m <= {FUSED_STENCIL_AUTO_MAX_M}, "
+              f"DIA n <= {FUSED_DIA_AUTO_MAX_N}")
+        routes = {
+            "stencil": (PoissonOperator(m, device=dev), PoissonOperator(m, backend="torch",
+                                                                        device=dev),
+                        "fused_stencil_cg_solve_cuda", "poisson3d_cuda", "poisson3d_torch"),
+        }
+        for dt, name in ((f32, "f32"), (bf16, "bf16")):
+            op = ops128[dt]
+            routes[f"DIA {name}"] = (op, DiaOperator(data=op.data, offsets=op.offsets, n=op.n,
+                                                     backend="torch"),
+                                     "fused_dia_cg_solve_cuda", "dia_spmv_cuda", "dia_spmv_torch")
+        main = {k: 0 for k in ("fused_stencil_cg_solve_cuda", "fused_dia_cg_solve_cuda",
+                               "poisson3d_cuda", "dia_spmv_cuda")}
+        cuda_names = [w.__name__ for w in wrappers + whole if w.__name__.endswith("_cuda")]
+        plain_names = [w.__name__ for w in wrappers + whole if w.__name__.endswith("_torch")]
+        solve_ms, x_err = {}, {"K10": 0.0, "K11": 0.0}
+        for label, (op, op_plain, whole_name, mv, mv_plain) in routes.items():
+            for pc in ("none", "jacobi", "poly") if label != "stencil" else ("none", "poly"):
+                kw = dict(tol=tol, maxiter=maxiter, precondition=pc, poly_degree=3)
+                what = f"{label} {pc}"
+                res_p, lp = drive(lambda: cg_solve(op_plain, b, kernel="torch", **kw))
+                require(lp[mv_plain] > 0 and all(lp[c] == 0 for c in cuda_names),
+                        f"{what} plain route: launches {lp}")
+                res_f, lf = drive(lambda: cg_solve(op, b, **kw))
+                require(only(lf, whole_name), f"{what} default route: launches {lf}")
+                main[whole_name] += lf[whole_name]
+                runs = {"default (" + whole_name.split("_cg")[0] + ")": res_f, "plain": res_p}
+                if pc == "none":
+                    res_n, ln = drive(lambda: cg_solve(op, b, fused="never", **kw))
+                    require(all(ln[c] > 0 for c in (mv, "dot_cuda", "fused_update_cuda"))
+                            and all(ln[c] == 0 for c in plain_names)
+                            and ln[whole_name] == 0, f"{what} lap route: launches {ln}")
+                    main[mv] += ln[mv]
+                    runs["lap (fused=never)"] = res_n
+                kp = int(res_p.iterations)
+                cells = []
+                for rname, res in runs.items():
+                    tr = true_residual(op, b, res.x)
+                    laps = int(res.iterations)
+                    require(bool(res.converged) and tr <= 2e-5 and abs(laps - kp) <= 1,
+                            f"{what} {rname}: {laps} laps (plain {kp}), converged "
+                            f"{bool(res.converged)}, true residual {tr:.3e}")
+                    cells.append(f"{rname} {laps} laps ({laps - kp:+d} vs plain), "
+                                 f"true residual {tr:.3e}")
+                kid = "K10" if label == "stencil" else "K11"
+                x_err[kid] = max(x_err[kid], float((res_f.x - res_p.x).abs().max()))
+                print(f"{what}: " + "; ".join(cells))
+                if pc == "none" or label == "stencil":
+                    arms = {"default": lambda: cg_solve(op, b, **kw)}
+                    if pc == "none":
+                        arms["lap"] = lambda: cg_solve(op, b, fused="never", **kw)
+                        arms["plain"] = lambda: cg_solve(op_plain, b, kernel="torch", **kw)
+                    for arm, fn in arms.items():
+                        t = time_fn(fn, warmup=1, iters=5)
+                        solve_ms[(what, arm)] = t.median * 1e3
+                        print(f"  {what} {arm}: {t.median * 1e3:.4f} ms per solve (min "
+                              f"{t.min * 1e3:.4f}, max {t.max * 1e3:.4f}, 5 solves) {tag}")
+        for name, c in main.items():
+            require(c > 0, f"main path: {name} never launched")
+        counts.update(main)
+        print(f"main-path launches: {main}")
+        # K10 / K11 alone against their plain versions at m = 128 (none).
+        z = torch.zeros_like(b)
+        kw = dict(tol=tol, maxiter=maxiter)
+        opf = ops128[f32]
+        for kid, fk, fp, mvf, nbytes in (
+            ("K10", lambda: fused_stencil_cg_solve_cuda(b, z, m, **kw),
+             lambda: fused_stencil_cg_solve_torch(b, z, m, **kw), 7 * m ** 3, 12 * m ** 3),
+            ("K11", lambda: fused_dia_cg_solve_cuda(opf.data, opf.offsets, b, z, **kw),
+             lambda: fused_dia_cg_solve_torch(opf.data, opf.offsets, b, z, **kw),
+             14 * m ** 3, 4 * 7 * m ** 3 + 12 * m ** 3),
+        ):
+            (x, k, _), (xp, kp, _) = fk(), fp()
+            e = float((x - xp).abs().max())
+            err[kid] = max(x_err[kid], e)
+            tk, tp = time_fn(fk, warmup=1, iters=5), time_fn(fp, warmup=0, iters=5)
+            times[kid] = (tk.median, tp.median)
+            bounds[kid] = bound_of(nbytes, cg_flops(m ** 3, int(k), mvf))
+            print(f"{kid} m={m} none: {int(k)} laps (plain {int(kp)}), max abs err vs plain "
+                  f"{e:.3e}; {tk.median * 1e3:.4f} ms per solve, {tk.median / int(k) * 1e6:.2f} "
+                  f"us per lap; plain {tp.median * 1e3:.4f} ms; bound {bounds[kid][0]:.4f} ms "
+                  f"({bounds[kid][1]}) {tag}")
+
+    with phase("gate table"):
+        print("cg_solve fused='always' (K10 / K11) against fused='never' (lap path), tpucg's "
+              "bench system, medians of 5 solves (ms), each arm twice in turns "
+              f"(never, always, always, never) {tag}")
+        cases = [("stencil", mm, None) for mm in (16, 32, 64, 128, 160, 192)]
+        cases += [("DIA", mm, dt) for mm in (32, 64, 128, 160) for dt in (f32, bf16)]
+        for kind, mm, dt in cases:
+            b, _ = poisson_rhs(mm)
+            tol, maxiter = 1e-5 * float(b.norm()), poisson_maxiter(mm)
+            if kind == "stencil":
+                op = PoissonOperator(mm, device=dev)
+            else:
+                op = DiaOperator.from_dia(poisson3d_dia(mm), storage_dtype=dt, device=dev)
+            arms = {}
+            for fused in ("never", "always", "always", "never"):
+                res = cg_solve(op, b, tol=tol, maxiter=maxiter, fused=fused)
+                require(bool(res.converged), f"gate {kind} m={mm} {fused}: not converged")
+                t = time_fn(lambda: cg_solve(op, b, tol=tol, maxiter=maxiter, fused=fused),
+                            warmup=1, iters=5)
+                arms.setdefault(fused, []).append(t.median * 1e3)
+            lap, whole_ = arms["never"], arms["always"]
+            label = kind if dt is None else f"{kind} {'f32' if dt == f32 else 'bf16'}"
+            print(f"  {label} m={mm} ({int(res.iterations)} laps): lap path {lap[0]:.4f} / "
+                  f"{lap[1]:.4f} ms, whole solve {whole_[0]:.4f} / {whole_[1]:.4f} ms, "
+                  f"whole solve faster: {max(whole_) < min(lap)}")
+            del op
+
+    with phase("whole-solve K10/K11 vs plain"):
+        for mm in (16, 32, 64):
+            b, x0 = poisson_rhs(mm, x0_scale=0.1)
+            tol, maxiter = 1e-5 * float(b.norm()), poisson_maxiter(mm)
+            cases = [("K10", pc, None) for pc in ("none", "poly")]
+            cases += [("K11", pc, dt) for pc in ("none", "jacobi", "poly") for dt in (f32, bf16)]
+            for kid, pc, dt in cases:
+                kw = dict(tol=tol, maxiter=maxiter, precondition=pc,
+                          poly_degree=3 if pc == "poly" else 0)
+                if kid == "K10":
+                    fk = lambda: fused_stencil_cg_solve_cuda(b, x0, mm, **kw)  # noqa: E731
+                    fp = lambda: fused_stencil_cg_solve_torch(b, x0, mm, **kw)  # noqa: E731
+                    what = f"K10 m={mm} {pc}"
+                else:
+                    op = DiaOperator.from_dia(poisson3d_dia(mm), storage_dtype=dt, device=dev)
+                    fk = lambda: fused_dia_cg_solve_cuda(op.data, op.offsets, b, x0, **kw)  # noqa: E731,E501
+                    fp = lambda: fused_dia_cg_solve_torch(op.data, op.offsets, b, x0, **kw)  # noqa: E731,E501
+                    what = f"K11 m={mm} {'f32' if dt == f32 else 'bf16'} {pc}"
+                (x, k, rr), (xp, kp, _) = fk(), fp()
+                e, se = float((x - xp).abs().max()), scaled_err(x.cpu(), xp.cpu())
+                require(abs(int(k) - int(kp)) <= 1 and float(rr) < tol ** 2 and se <= 1e-4,
+                        f"{what}: {int(k)} laps (plain {int(kp)}), rr {float(rr)}, err {se}")
+                again = fk()
+                require(all(torch.equal(u, v) for u, v in zip((x, k, rr), again)),
+                        f"{what}: repeat differs")
+                err[kid] = max(err[kid], e)
+                print(f"{what}: {int(k)} laps (plain {int(kp)}), max abs err {e:.3e} = {se:.3e} "
+                      "of max |x| (bound 1e-4), repeat bit-identical")
+        del ops128
+
     meta = (
         ("K1", "gemv", "matvec_cuda", "blas.cu", "tpucg/kernels/matvec.py:108"),
         ("K2", "fused_update", "fused_update_cuda", "blas.cu", "tpucg/kernels/blas1.py:111"),
@@ -489,12 +824,20 @@ def main() -> int:
          "tpucg/kernels/fused.py:234"),
         ("K5", "fused_batch_cg_solve", "fused_batch_cg_solve_cuda", "fused.cu",
          "tpucg/kernels/fused.py:610"),
+        ("K6", "dia_spmv", "dia_spmv_cuda", "sparse.cu", "tpucg/kernels/spmv.py:221"),
+        ("K8", "poisson3d", "poisson3d_cuda", "sparse.cu", "tpucg/kernels/stencil.py:152"),
+        ("K10", "fused_stencil_cg_solve", "fused_stencil_cg_solve_cuda", "fused.cu",
+         "tpucg/kernels/fused.py:335"),
+        ("K11", "fused_dia_cg_solve", "fused_dia_cg_solve_cuda", "fused.cu",
+         "tpucg/kernels/fused.py:493"),
     )
     kernels = [
         {"name": f"{kid} {kname}", "route": "cuda",
          "source": f"tpucg_torch/kernels/csrc/{src}", "replaces": replaces,
          "launches": counts[wrapper], "max_abs_err": err[kid],
-         "ms": times[kid][0] * 1e3, "plain_ms": times[kid][1] * 1e3}
+         "ms": times[kid][0] * 1e3, "plain_ms": times[kid][1] * 1e3,
+         "bound_ms": bounds[kid][0], "bound_by": bounds[kid][1],
+         "library_ms": None if library.get(kid) is None else library[kid] * 1e3}
         for kid, kname, wrapper, src, replaces in meta
     ]
     print(json.dumps({"kernels": kernels}))

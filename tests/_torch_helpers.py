@@ -96,6 +96,37 @@ def shifted_spd_batch(nsys: int, n: int, seed: int = 0):
     return A, b, X0
 
 
+def random_banded_dia(n: int, offsets, seed: int = 0):
+    """A random diagonally dominant SPD banded system in DIA form, built in
+    O(ndiag n) (tpucg's ``tests/test_fused.py:_random_banded_system``
+    without the dense matrix): for each positive offset k (in the given
+    order) a standard normal band v of n - k values sits at +k and its
+    mirror at -k; the main diagonal is 1 + the row's absolute off-diagonal
+    sum; b is standard normal; float32. ``offsets`` must hold 0 and come in
+    +-k pairs. Returns (offsets, data (ndiag, n), b)."""
+    rng = np.random.default_rng(seed)
+    offsets = tuple(int(o) for o in offsets)
+    pos = {o: d for d, o in enumerate(offsets)}
+    data = np.zeros((len(offsets), n), np.float32)
+    for off in offsets:
+        if off <= 0:
+            continue
+        v = rng.standard_normal(n - off).astype(np.float32)
+        data[pos[off], : n - off] = v
+        data[pos[-off], off:] = v
+    data[pos[0]] = 1.0 + np.abs(np.delete(data, pos[0], axis=0)).sum(axis=0)
+    b = rng.standard_normal(n).astype(np.float32)
+    return offsets, data, b
+
+
+# The offset sets of tpucg's fused DIA tests (tests/test_fused.py:307-311).
+BAND_SETS = {
+    "cross_row": (-130, -128, -3, -1, 0, 1, 3, 128, 130),
+    "tridiagonal": (-1, 0, 1),
+    "multi_row": (-257, 0, 257),
+}
+
+
 def scaled_err(x, want) -> float:
     """max |x - want| / max |want| per system (the last axis), the largest
     over the systems: an error measured against the size of the solution."""

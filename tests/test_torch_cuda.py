@@ -11,13 +11,15 @@ import pytest
 import torch
 
 from _torch_helpers import (  # noqa: F401  (fixture)
+    BAND_SETS,
     circulant_spd_batch,
     cuda_device,
+    random_banded_dia,
     rel_err,
     scaled_err,
     shifted_spd_batch,
 )
-from tpucg_torch.io.generator import generate_spd_system
+from tpucg_torch.io.generator import generate_spd_system, poisson3d_dia
 from tpucg_torch.io.golden import GOLDEN_2X2, GOLDEN_4X4
 from tpucg_torch.kernels.blas1 import dot_cuda, dot_torch, fused_update_cuda, fused_update_torch
 from tpucg_torch.kernels.fused import (
@@ -25,11 +27,21 @@ from tpucg_torch.kernels.fused import (
     FUSED_MAX_N,
     fused_batch_cg_solve_cuda,
     fused_cg_solve_cuda,
+    fused_dia_cg_solve_cuda,
+    fused_stencil_cg_solve_cuda,
 )
 from tpucg_torch.kernels.matvec import matvec_cuda, matvec_torch
+from tpucg_torch.kernels.spmv import dia_spmv_cuda, dia_spmv_torch
+from tpucg_torch.kernels.stencil import poisson3d_cuda, poisson3d_torch
 from tpucg_torch.solver.cg import cg_loop, cg_solve, cg_solve_batch, lap_ops
-from tpucg_torch.solver.fused import fused_batch_cg_solve_torch, fused_cg_solve_torch
-from tpucg_torch.solver.operators import DenseOperator
+from tpucg_torch.solver.fused import (
+    fused_batch_cg_solve_torch,
+    fused_cg_solve_torch,
+    fused_dia_cg_solve_torch,
+    fused_stencil_cg_solve_torch,
+)
+from tpucg_torch.solver.operators import DenseOperator, DiaOperator, PoissonOperator
+from tpucg_torch.sparse.formats import DIAMatrix
 from tpucg_torch.solver.oracle import oracle_cg
 
 pytestmark = pytest.mark.cuda
@@ -306,3 +318,141 @@ def test_cg_solve_batch_runs_k5_on_card(cuda_device):
     for i in range(6):
         one = cg_solve(As[i], bs[i], X0[i], device=cuda_device, fused="never", tol=1e-2)
         assert int(one.iterations) == int(res.iterations[i])
+
+
+# ---- the structured-sparse path: K6, K8 (lap) and K10, K11 (whole solve) ----
+
+
+@pytest.mark.parametrize("band", list(BAND_SETS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [512, 1000, 70_000])
+def test_dia_spmv_kernel_equals_plain(cuda_device, band, dtype, n):
+    # The same products and sums in the same order, each rounded on its own:
+    # bit for bit.
+    offsets, data, _ = random_banded_dia(n, BAND_SETS[band], seed=n)
+    d = torch.as_tensor(data, device=cuda_device).to(dtype)
+    x = _rand(cuda_device, n, seed=3)
+    y = dia_spmv_cuda(d, offsets, x)
+    assert torch.equal(y, dia_spmv_torch(d, offsets, x))
+    assert torch.equal(y, dia_spmv_cuda(d, offsets, x))
+
+
+@pytest.mark.parametrize("m", [2, 3, 10, 16, 33])
+def test_poisson3d_kernel_equals_plain(cuda_device, m):
+    u = _rand(cuda_device, m ** 3, seed=m)
+    y = poisson3d_cuda(u, m)
+    assert torch.equal(y, poisson3d_torch(u, m))
+    assert torch.equal(y, poisson3d_cuda(u, m))
+
+
+def test_bf16_poisson_slab_equals_f32_on_card(cuda_device):
+    # 6, -1 and the identity tail are exact in bf16.
+    dia = poisson3d_dia(12)
+    f32 = DiaOperator.from_dia(dia, device=cuda_device)
+    bf16 = DiaOperator.from_dia(dia, storage_dtype=torch.bfloat16, device=cuda_device)
+    x = _rand(cuda_device, f32.padded_n, seed=5)
+    assert torch.equal(f32.matvec(x), bf16.matvec(x))
+
+
+def test_sparse_active_flag_zero_returns_at_once(cuda_device):
+    off = torch.zeros((), dtype=torch.int32, device=cuda_device)
+    u = _rand(cuda_device, 8 ** 3)
+    y = torch.full_like(u, 7.0)
+    from tpucg_torch.kernels.spmv import dia_spmv_launch, offsets_array
+    from tpucg_torch.kernels.stencil import poisson3d_launch
+    stream = torch.cuda.current_stream().cuda_stream
+    poisson3d_launch(u, y, 8, off.data_ptr(), stream)
+    op = DiaOperator.from_dia(poisson3d_dia(8), device=cuda_device)
+    dia_spmv_launch(op.data, offsets_array(op.offsets), u, y, off.data_ptr(), stream)
+    assert bool((y == 7.0).all())
+
+
+def _poisson_rhs(dev, m, seed):
+    rng = np.random.default_rng(seed)
+    b = torch.as_tensor(rng.standard_normal(m ** 3).astype(np.float32), device=dev)
+    x0 = torch.as_tensor(0.1 * rng.standard_normal(m ** 3).astype(np.float32), device=dev)
+    return b, x0
+
+
+# Whole solves against their plain versions: sums in other orders, so laps
+# within one (tpucg's own bound, tests/test_fused.py:167) and x within 1e-4
+# of max |x|.
+@pytest.mark.parametrize("m", [10, 16, 24])
+@pytest.mark.parametrize("pc", ["none", "poly"])
+def test_k10_matches_plain_on_card(cuda_device, m, pc):
+    b, x0 = _poisson_rhs(cuda_device, m, seed=m)
+    tol = 1e-5 * float(b.norm())
+    kw = dict(tol=tol, maxiter=4 * m ** 3, precondition=pc, poly_degree=3 if pc == "poly" else 0)
+    x, k, rr = fused_stencil_cg_solve_cuda(b, x0, m, **kw)
+    xp, kp, _ = fused_stencil_cg_solve_torch(b, x0, m, **kw)
+    assert abs(int(k) - int(kp)) <= 1 and float(rr) < tol ** 2
+    assert scaled_err(x.cpu(), xp.cpu()) <= 1e-4
+    again = fused_stencil_cg_solve_cuda(b, x0, m, **kw)
+    assert all(torch.equal(u, v) for u, v in zip((x, k, rr), again))
+
+
+@pytest.mark.parametrize("band", list(BAND_SETS) + ["poisson16"])
+@pytest.mark.parametrize("pc", ["none", "jacobi", "poly"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k11_matches_plain_on_card(cuda_device, band, pc, dtype):
+    if band == "poisson16":
+        dia = poisson3d_dia(16)
+        b = np.random.default_rng(1).standard_normal(16 ** 3).astype(np.float32)
+        tol = 1e-5 * float(np.linalg.norm(b))
+    else:
+        offsets, data, b = random_banded_dia(1000, BAND_SETS[band], seed=2)
+        dia = DIAMatrix(offsets=np.asarray(offsets), data=data, shape=(1000, 1000))
+        tol = 1e-6
+    op = DiaOperator.from_dia(dia, storage_dtype=dtype, device=cuda_device)
+    pad = op.padded_n - op.n
+    bd = torch.nn.functional.pad(torch.as_tensor(b, device=cuda_device), (0, pad))
+    x0 = 0.1 * _rand(cuda_device, op.padded_n, seed=4)
+    x0[op.n:] = 0.0
+    kw = dict(tol=tol, maxiter=4 * op.padded_n, precondition=pc,
+              poly_degree=3 if pc == "poly" else 0)
+    x, k, rr = fused_dia_cg_solve_cuda(op.data, op.offsets, bd, x0, **kw)
+    xp, kp, _ = fused_dia_cg_solve_torch(op.data, op.offsets, bd, x0, **kw)
+    assert abs(int(k) - int(kp)) <= 1 and float(rr) < tol ** 2
+    assert scaled_err(x.cpu(), xp.cpu()) <= 1e-4
+    again = fused_dia_cg_solve_cuda(op.data, op.offsets, bd, x0, **kw)
+    assert all(torch.equal(u, v) for u, v in zip((x, k, rr), again))
+
+
+def test_k10_k11_refuse_what_they_cannot_run_on_card(cuda_device):
+    b = torch.zeros(8 ** 3, device=cuda_device)
+    with pytest.raises(ValueError, match="supports precondition none/poly"):
+        fused_stencil_cg_solve_cuda(b, b, 8, tol=1e-6, maxiter=4, precondition="jacobi")
+    data = torch.ones(2, 512, device=cuda_device)
+    v = torch.zeros(512, device=cuda_device)
+    with pytest.raises(ValueError, match="jacobi needs a stored main diagonal"):
+        fused_dia_cg_solve_cuda(data, (-1, 1), v, v, tol=1e-6, maxiter=4, precondition="jacobi")
+
+
+_SPARSE_WRAPPERS = (fused_stencil_cg_solve_cuda, fused_dia_cg_solve_cuda, poisson3d_cuda,
+                    dia_spmv_cuda, dot_cuda, fused_update_cuda, poisson3d_torch, dia_spmv_torch,
+                    fused_stencil_cg_solve_torch, fused_dia_cg_solve_torch)
+
+
+@pytest.mark.parametrize("kind", ["poisson", "dia_f32", "dia_bf16"])
+def test_cg_solve_sparse_routes_on_card(cuda_device, kind):
+    m = 16
+    if kind == "poisson":
+        op = PoissonOperator(m, device=cuda_device)
+    else:
+        dtype = torch.bfloat16 if kind == "dia_bf16" else torch.float32
+        op = DiaOperator.from_dia(poisson3d_dia(m), storage_dtype=dtype, device=cuda_device)
+    b, _ = _poisson_rhs(cuda_device, m, seed=9)
+    tol = 1e-5 * float(b.norm())
+    before = [w.launches for w in _SPARSE_WRAPPERS]
+    fused = cg_solve(op, b, tol=tol, maxiter=4 * m ** 3)
+    counts = [w.launches - c for w, c in zip(_SPARSE_WRAPPERS, before)]
+    assert counts[:2] == ([1, 0] if kind == "poisson" else [0, 1]) and sum(counts[2:]) == 0
+    before = [w.launches for w in _SPARSE_WRAPPERS]
+    laps = cg_solve(op, b, tol=tol, maxiter=4 * m ** 3, fused="never")
+    counts = [w.launches - c for w, c in zip(_SPARSE_WRAPPERS, before)]
+    matvec = 2 if kind == "poisson" else 3
+    assert counts[:2] == [0, 0] and all(counts[i] > 0 for i in (matvec, 4, 5))
+    assert sum(counts[6:]) == 0
+    assert bool(fused.converged) and bool(laps.converged)
+    assert abs(int(fused.iterations) - int(laps.iterations)) <= 1
+    assert scaled_err(fused.x.cpu(), laps.x.cpu()) <= 1e-4

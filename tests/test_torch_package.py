@@ -33,6 +33,8 @@ def test_import_pulls_in_no_jax_or_tpucg():
         "before = set(sys.modules)\n"
         "import tpucg_torch, tpucg_torch.kernels, tpucg_torch.solver.cg\n"
         "import tpucg_torch.interop, tpucg_torch.cli, tpucg_torch.bench\n"
+        "import tpucg_torch.sparse, tpucg_torch.kernels.spmv, tpucg_torch.kernels.stencil\n"
+        "import tpucg_torch.solver.fused\n"
         "new = sorted(set(sys.modules) - before)\n"
         "bad = [m for m in new if m.split('.')[0] in ('jax', 'jaxlib', 'tpucg', 'triton')]\n"
         "print(json.dumps(bad))\n"
@@ -162,9 +164,11 @@ def test_cli_solve_golden(tmp_path, fmt):
     np.testing.assert_allclose(np.loadtxt(out), g["x_star"], atol=1e-6)
 
 
-def test_cli_bench_needs_the_card():
+@pytest.mark.parametrize("operator", ["dense", "poisson-free", "poisson-dia"])
+def test_cli_bench_needs_the_card(operator):
     env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
-    proc = _run("-m", "tpucg_torch", "bench", "--n", "128", env=env)
+    proc = _run("-m", "tpucg_torch", "bench", "--operator", operator, "--n", "128", "--m", "8",
+                env=env)
     assert proc.returncode != 0
     assert "no CUDA device" in proc.stderr
     assert proc.stdout.strip() == ""

@@ -3,9 +3,10 @@
 
 Times come from CUDA events around the timed calls, never from a host clock
 without a synchronize; every measurement path needs a card and fails without
-one. A GEMV rate is reported against the card's own HBM peak, looked up by
-its name; an unknown card raises instead of getting a guessed peak, and a
-rate above 100% of the peak is flagged as a timing fault.
+one. A matvec's rate (dense GEMV, DIA SpMV, stencil) is reported against
+the card's own HBM peak, looked up by its name, from the bytes it must move;
+an unknown card raises instead of getting a guessed peak, and a rate above
+100% of the peak is flagged as a timing fault.
 """
 
 from __future__ import annotations
@@ -112,11 +113,69 @@ def trace_calls(fn: Callable[[], object], reps: int, trace_path: Optional[str] =
     return wall, ops
 
 
+# Cycles a second assumed when sizing the spin kernel of a queued window:
+# at least the card's clock (H100: 1.98 GHz at most), so a spin lasts at
+# least as long as asked.
+_SPIN_HZ = 2.0e9
+_SPIN_MAX_S = 2.0
+
+
+def _queued_window(fn: Callable[[], object], reps: int, spin_s: float) -> Optional[float]:
+    """Seconds between two CUDA events around ``reps`` calls of ``fn``, all
+    enqueued while a spin kernel holds the stream, so that the card runs
+    them back to back without waiting for the host. None when the spin had
+    ended before the last call was enqueued: the window then holds host
+    gaps and is not kept."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(spin_s * _SPIN_HZ))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    held = not start.query()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / 1e3 if held else None
+
+
+def device_timing(fn: Callable[[], object], iters: int = 5, reps: int = 100) -> Timing:
+    """Device time per call of ``fn`` where back-to-back calls are bound by
+    host overhead (a 10-30 us kernel behind a ~20 us wrapper): each of
+    ``iters`` windows times ``reps`` calls queued behind a spin kernel
+    (``_queued_window``), so host time between calls is hidden and the
+    card's own time per call, launch gaps included, remains. ``fn`` must
+    enqueue on the current stream and must not synchronize. A window the
+    host could not fill in time is taken again with half the calls (a long
+    queue blocks the host) and twice the spin; raises when none can be."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("device_timing measures on the card, and there is no CUDA device")
+    if iters < 1 or reps < 1:
+        raise ValueError("device_timing needs iters >= 1 and reps >= 1")
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    spin_s = 2 * (time.perf_counter() - t0) + 1e-3
+    torch.cuda.synchronize()
+    ts = []
+    while len(ts) < iters:
+        seconds = _queued_window(fn, reps, spin_s)
+        if seconds is not None and seconds > 0:
+            ts.append(seconds / reps)
+            continue
+        if reps == 1 and spin_s >= _SPIN_MAX_S:
+            raise RuntimeError(
+                f"device_timing: one call of {getattr(fn, '__name__', fn)!r} outlasted a "
+                f"{spin_s:.1f} s spin on the host (does it synchronize?)"
+            )
+        reps, spin_s = max(1, reps // 2), min(2 * spin_s, _SPIN_MAX_S)
+    return Timing(statistics.median(ts), min(ts), max(ts), len(ts))
+
+
 def device_seconds_per_call(fn: Callable[[], object], reps: int = 100) -> float:
-    """Summed device time of everything ``fn`` launches, per call: a
-    kernel's own time where back-to-back calls are bound by host overhead."""
-    _, ops = trace_calls(fn, reps)
-    return sum(us for _, us in ops.values()) / reps / 1e6
+    """Median device time per call of ``fn`` (``device_timing``)."""
+    return device_timing(fn, iters=5, reps=reps).median
 
 
 def profile_table(fn: Callable[[], object], reps: int, trace_path: str) -> str:
@@ -142,10 +201,39 @@ def gemv_bytes(rows: int, cols: int, itemsize: int) -> int:
     return rows * cols * itemsize + 4 * (rows + cols)
 
 
+def dia_spmv_bytes(ndiag: int, npad: int, itemsize: int) -> int:
+    """Bytes one DIA SpMV (K6) must move: the slab once, x and y once each."""
+    return itemsize * ndiag * npad + 8 * npad
+
+
+def stencil_bytes(n: int) -> int:
+    """Bytes one stencil matvec (K8) must move: u once and y once (f32)."""
+    return 8 * n
+
+
+def poisson_nnz(m: int) -> int:
+    """Nonzeros of the 7-point Dirichlet Laplacian on an m^3 grid."""
+    return 7 * m ** 3 - 6 * m * m
+
+
+def rate_line(nbytes: int, seconds: float, peak: float, nnz: Optional[int] = None) -> str:
+    """A matvec's rate: GB/s, % of the HBM peak (flagged above 100%: a
+    timing fault, not a fast kernel) and, with ``nnz``, Gnnz/s."""
+    if not seconds > 0:
+        raise ValueError(f"rate_line needs a positive time, got {seconds!r} s")
+    rate = nbytes / seconds
+    out = f"{rate / 1e9:.1f} GB/s, {100 * rate / peak:.1f}% of HBM peak"
+    if nnz is not None:
+        out += f", {nnz / seconds / 1e9:.2f} Gnnz/s"
+    return out + ("  ABOVE PEAK: timing fault" if rate > peak else "")
+
+
 @dataclasses.dataclass
 class BenchReport:
     """Per-run report: the reference's phases (distribution, CG, total) plus
-    the GEMV's rate against the card's HBM peak. Times in seconds."""
+    the operator's matvec rate against the card's HBM peak (from the
+    ``matvec_bytes`` it must move) and, for a sparse operator, nnz/s. Times
+    in seconds."""
 
     n: int
     iterations: int
@@ -156,14 +244,19 @@ class BenchReport:
     card: str  # nvidia_smi_card(): name and power limit
     backend: str
     padded_n: int
-    matvec: Optional[Timing] = None  # of the f32 operator
+    matvec: Optional[Timing] = None
+    matvec_bytes: Optional[int] = None
+    nnz: Optional[int] = None
     matvec_gbps: Optional[float] = None
     roofline_frac: Optional[float] = None
     above_peak: bool = False
 
     def finalize(self, hbm_peak: float) -> "BenchReport":
         if self.matvec is not None:
-            rate = gemv_bytes(self.padded_n, self.padded_n, 4) / self.matvec.median
+            nbytes = self.matvec_bytes
+            if nbytes is None:
+                nbytes = gemv_bytes(self.padded_n, self.padded_n, 4)
+            rate = nbytes / self.matvec.median
             self.matvec_gbps = rate / 1e9
             self.roofline_frac = rate / hbm_peak
             # Faster than the card's HBM peak means the timing is wrong
@@ -184,10 +277,12 @@ class BenchReport:
             f"final ||r||          : {self.residual_norm:.3e}",
         ]
         if self.matvec is not None:
+            nnz = (f", {self.nnz / self.matvec.median / 1e9:.2f} Gnnz/s"
+                   if self.nnz is not None else "")
             lines.append(
-                f"matvec               : {self.matvec.median * 1e6:.1f} us, "
+                f"matvec, device       : {self.matvec.median * 1e6:.1f} us, "
                 f"{self.matvec_gbps:.0f} GB/s "
-                f"({100 * self.roofline_frac:.1f}% of HBM peak)"
+                f"({100 * self.roofline_frac:.1f}% of HBM peak{nnz})"
                 + ("  ABOVE PEAK: timing fault" if self.above_peak else "")
             )
         return "\n".join(lines)

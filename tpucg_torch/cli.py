@@ -1,8 +1,10 @@
-"""``python -m tpucg_torch``: solve, selftest, bench and info for the dense
-slice of the port (the counterparts of tpucg's ``cmd_solve``,
-``cmd_selftest``, ``cmd_bench`` and ``cmd_info``). ``solve`` and ``bench``
-take tpucg's ``--fused {auto,always,never}``: ``always`` runs a padded n <=
-4096 as one launch of the whole-solve kernel K4, ``never`` the lap path.
+"""``python -m tpucg_torch``: solve, selftest, bench and info (the
+counterparts of tpucg's ``cmd_solve``, ``cmd_selftest``, ``cmd_bench`` and
+``cmd_info``). ``solve`` and ``bench`` take tpucg's ``--fused
+{auto,always,never}``: ``always`` runs a solve the whole-solve kernels take
+(K4 dense, K10 Poisson stencil, K11 DIA) as one launch, ``never`` the lap
+path. ``bench --operator poisson-free|poisson-dia --m M`` solves tpucg's
+sparse flagship, the 3-D Poisson Laplacian on an m^3 grid.
 """
 
 from __future__ import annotations
@@ -101,6 +103,15 @@ def cmd_selftest(args) -> int:
             )
             check(f"{label} fused={fused}", ok,
                   f"{int(r.iterations)} iters, ||r||={float(r.residual_norm):.2e}")
+    m = 16
+    for route in ("poisson-free", "poisson-dia"):
+        for fused in ("never", "always"):
+            op, b, _, _ = _poisson_system(route, m, torch.float32, args.kernel, device)
+            tol = 1e-5 * float(np.linalg.norm(b))
+            r = cg_solve(op, b, tol=tol, maxiter=4 * op.n, kernel=args.kernel, fused=fused)
+            rel = float(np.linalg.norm(op.matvec(r.x).cpu().numpy() - b) / np.linalg.norm(b))
+            check(f"{route} m={m} fused={fused}", bool(r.converged) and rel < 2e-5,
+                  f"{int(r.iterations)} iters, ||b - A x|| / ||b|| = {rel:.2e}")
     n = args.n
     A, b, x0 = generate_spd_system(n, seed=0)
     x_ref, k_ref, _ = oracle_cg(A, b, x0)
@@ -122,11 +133,36 @@ def cmd_selftest(args) -> int:
     return 0
 
 
+def _poisson_system(route: str, m: int, storage, kernel: str, device):
+    """tpucg's sparse bench system (``cli.py:_build_bench_system``): the
+    m^3 Poisson Laplacian as the stencil operator (``poisson-free``) or in
+    DIA form (``poisson-dia``, built in O(n) with no CSR), x_true standard
+    normal from ``default_rng(0)`` (f32) and b = A x_true on the host.
+    Returns (operator, b, nnz, matvec bytes)."""
+    import numpy as np
+
+    from tpucg_torch.bench.timing import dia_spmv_bytes, poisson_nnz, stencil_bytes
+    from tpucg_torch.io.generator import poisson3d_dia
+    from tpucg_torch.solver.operators import DiaOperator, PoissonOperator
+
+    dia = poisson3d_dia(m)
+    x_true = np.random.default_rng(0).standard_normal(m ** 3).astype(np.float32)
+    b = dia.matvec(x_true)
+    if route == "poisson-free":
+        op = PoissonOperator(m=m, backend=kernel, device=device)
+        return op, b, poisson_nnz(m), stencil_bytes(op.n)
+    op = DiaOperator.from_dia(dia, backend=kernel, storage_dtype=storage, device=device)
+    return op, b, poisson_nnz(m), dia_spmv_bytes(op.ndiag, op.padded_n, op.data.element_size())
+
+
 def cmd_bench(args) -> int:
+    import numpy as np
     import torch
 
     from tpucg_torch.bench.timing import (
         BenchReport,
+        device_timing,
+        gemv_bytes,
         hbm_peak_bytes_per_s,
         nvidia_smi_card,
         profile_table,
@@ -139,26 +175,42 @@ def cmd_bench(args) -> int:
     if not torch.cuda.is_available():
         print("bench measures on the card, and there is no CUDA device", file=sys.stderr)
         return 2
-    n = args.n
+    storage = torch.bfloat16 if args.storage == "bf16" else torch.float32
     t_total0 = time.perf_counter()
-    A, b, x0 = generate_spd_system(n, seed=0)
-    # Distribution phase: placing the padded operator on the card (the
-    # reference's MPI_Scatter phase).
-    t0 = time.perf_counter()
-    op = DenseOperator.create(A, backend=args.kernel, device="cuda")
+    if args.operator == "dense":
+        n = args.n
+        A, b, x0 = generate_spd_system(n, seed=0)
+        tol, maxiter, nnz = 1.0e-6, None, None
+        # Distribution phase: placing the padded operator on the card (the
+        # reference's MPI_Scatter phase).
+        t0 = time.perf_counter()
+        op = DenseOperator.create(A, backend=args.kernel, device="cuda", dtype=storage)
+        mv_bytes = gemv_bytes(op.padded_n, op.padded_n, op.A.element_size())
+    else:
+        t0 = time.perf_counter()  # the slab's generation and placement
+        op, b, nnz, mv_bytes = _poisson_system(args.operator, args.m, storage, args.kernel,
+                                               "cuda")
+        n, x0, maxiter = op.n, None, 4 * op.n
+        # Large-norm sparse systems: an absolute 1e-6 is below the f32
+        # residual floor (tpucg's choice, cli.py:938-943).
+        tol = 1.0e-5 * float(np.linalg.norm(b))
     bd = torch.as_tensor(b, device="cuda")
-    x0d = torch.as_tensor(x0, device="cuda")
+    x0d = None if x0 is None else torch.as_tensor(x0, device="cuda")
     torch.cuda.synchronize()
     distribute_s = time.perf_counter() - t0
 
     def solve():
-        return cg_solve(op, bd, x0d, kernel=args.kernel, fused=args.fused,
-                        precondition=args.precondition, poly_degree=args.poly_degree)
+        return cg_solve(op, bd, x0d, kernel=args.kernel, fused=args.fused, tol=tol,
+                        maxiter=maxiter, precondition=args.precondition,
+                        poly_degree=args.poly_degree)
 
     res = solve()
     solve_t = time_fn(solve, warmup=1, iters=args.repeats)
     v = torch.ones(op.padded_n, device="cuda")
-    matvec_t = time_fn(lambda: op.matvec(v), warmup=2, iters=args.repeats, reps=20)
+    op.matvec(v)
+    # The matvec kernel's own device time: back-to-back wrapper calls are
+    # bound by host overhead for the sparse kernels (10-30 us of work).
+    matvec_t = device_timing(lambda: op.matvec(v), iters=args.repeats)
     report = BenchReport(
         n=n,
         iterations=int(res.iterations),
@@ -167,9 +219,12 @@ def cmd_bench(args) -> int:
         solve=solve_t,
         total_s=time.perf_counter() - t_total0,
         card=nvidia_smi_card(),
-        backend=f"{op.backend} fused={args.fused} precondition={args.precondition}",
+        backend=f"{args.operator} {args.storage} {op.backend} fused={args.fused} "
+                f"precondition={args.precondition}",
         padded_n=op.padded_n,
         matvec=matvec_t,
+        matvec_bytes=mv_bytes,
+        nnz=nnz,
     ).finalize(hbm_peak_bytes_per_s())
     print(report.pretty(), file=sys.stderr)
     if args.profile:
@@ -177,13 +232,22 @@ def cmd_bench(args) -> int:
         os.makedirs(args.profile, exist_ok=True)
         print(profile_table(solve, 5, os.path.join(args.profile, "trace.json")),
               file=sys.stderr)
-    baseline = BASELINE_S.get(n)
-    print(json.dumps({
-        "metric": f"dense_cg_solve_time_n{n}",
-        "value": round(solve_t.median, 6),
-        "unit": "s",
-        "vs_baseline": round(baseline / solve_t.median, 2) if baseline else None,
-    }))
+    if args.operator == "dense":
+        baseline = BASELINE_S.get(n)
+        line = {
+            "metric": f"dense_cg_solve_time_n{n}",
+            "value": round(solve_t.median, 6),
+            "unit": "s",
+            "vs_baseline": round(baseline / solve_t.median, 2) if baseline else None,
+        }
+    else:
+        # The reference C code has no sparse solve: no vs_baseline.
+        line = {
+            "metric": f"{args.operator.replace('-', '_')}_cg_solve_time_m{args.m}",
+            "value": round(solve_t.median, 6),
+            "unit": "s",
+        }
+    print(json.dumps(line))
     return 0
 
 
@@ -232,7 +296,6 @@ def build_parser() -> argparse.ArgumentParser:
     ps.add_argument("--n", type=int, default=None, help="system size (default: from file)")
     ps.add_argument("--tol", type=float, default=1.0e-6)
     ps.add_argument("--maxiter", type=int, default=None)
-    ps.add_argument("--storage", default="f32", choices=("f32", "bf16"))
     ps.add_argument("--residual-history", action="store_true")
     ps.add_argument("--print-solution", action="store_true")
     ps.add_argument("--output", default=None, help="write the solution to this file")
@@ -242,8 +305,13 @@ def build_parser() -> argparse.ArgumentParser:
     pt.add_argument("--n", type=int, default=256)
     pt.set_defaults(fn=cmd_selftest)
 
-    pb = sub.add_parser("bench", help="dense solve timing on the card (one JSON line)")
+    pb = sub.add_parser("bench", help="solve timing on the card (one JSON line)")
+    pb.add_argument("--operator", default="dense",
+                    choices=("dense", "poisson-free", "poisson-dia"),
+                    help="dense generator system (--n), or the 3-D Poisson Laplacian on "
+                         "an m^3 grid (--m) as a stencil or in DIA form")
     pb.add_argument("--n", type=int, default=8192)
+    pb.add_argument("--m", type=int, default=128, help="Poisson grid edge (n = m^3)")
     pb.add_argument("--repeats", type=int, default=5, help="timed solves (>= 5)")
     pb.add_argument("--profile", default=None, metavar="DIR",
                     help="also trace 5 solves with torch.profiler: per-kernel device "
@@ -256,9 +324,11 @@ def build_parser() -> argparse.ArgumentParser:
     for sp in (ps, pt, pb):
         sp.add_argument("--kernel", default="auto", choices=("auto", "cuda", "torch"))
     for sp in (ps, pb):
+        sp.add_argument("--storage", default="f32", choices=("f32", "bf16"),
+                        help="storage of the dense A or the DIA slab")
         sp.add_argument("--fused", default="auto", choices=("auto", "always", "never"),
-                        help="whole-solve kernel K4 for padded n <= 4096 (auto: below the "
-                             "card's measured crossover; never: the lap path)")
+                        help="whole-solve kernels K4/K10/K11 (auto: up to the card's "
+                             "measured crossovers; never: the lap path)")
         sp.add_argument("--precondition", default="none", choices=("none", "jacobi", "poly"))
         sp.add_argument("--poly-degree", type=int, default=3,
                         help="degree for --precondition poly (truncated Neumann)")

@@ -2,9 +2,10 @@
 
 CG has no weights: what a solve carries is the padded operator and the loop
 state. These functions take both from NumPy arrays, as a ``tpucg``
-``DenseOperator`` and ``_State`` hold them (``np.asarray`` of each field),
-and give the port's state back in the same form, so a lap of either package
-can start where the other stopped.
+``DenseOperator``, ``DiaOperator`` and ``_State`` hold them (``np.asarray``
+of each field), and give the port's state back in the same form, so a lap
+of either package can start where the other stopped. A ``PoissonOperator``
+holds only its grid edge.
 """
 
 from __future__ import annotations
@@ -14,8 +15,10 @@ from typing import Dict
 import numpy as np
 import torch
 
+from tpucg_torch.io.partitioner import round_up
+from tpucg_torch.kernels.spmv import LANE, dia_deinterleave
 from tpucg_torch.solver.cg import _State
-from tpucg_torch.solver.operators import DenseOperator, padded_size
+from tpucg_torch.solver.operators import DenseOperator, DiaOperator, PoissonOperator, padded_size
 
 STATE_FIELDS = ("k", "x", "r", "p", "rsold", "rslast", "done")
 
@@ -38,6 +41,44 @@ def dense_operator_from_numpy(A_padded: np.ndarray, n: int, device="cpu") -> Den
     dtype = torch.bfloat16 if A.dtype.name == "bfloat16" else torch.float32
     t = torch.from_numpy(A.astype(np.float32)).to(device=device, dtype=dtype)
     return DenseOperator(A=t, n=n)
+
+
+def dia_operator_from_numpy(data: np.ndarray, offsets, n: int, interleaved: bool = False,
+                            device="cpu") -> DiaOperator:
+    """The port's DiaOperator for a tpucg ``DiaOperator``'s fields: its slab
+    (f32 or bf16; tpucg's row-interleaved (npad//128, ndiag*128) packing
+    when ``interleaved``, else the canonical (ndiag, npad)), its offsets and
+    its logical size ``n``. The padding must be tpucg's: npad the multiple
+    of 128 above n when 0 is among the offsets (else n), the main diagonal
+    1 on the tail, and nothing else on the tail rows or coupling to them."""
+    data = np.asarray(data)
+    if interleaved:
+        data = dia_deinterleave(data)
+    offsets = tuple(int(o) for o in offsets)
+    npad = round_up(n, LANE) if 0 in offsets else n
+    if data.shape != (len(offsets), npad):
+        raise ValueError(
+            f"expected a ({len(offsets)}, {npad}) slab for n={n} and {len(offsets)} offsets, "
+            f"got {data.shape}"
+        )
+    wide = data.astype(np.float32)
+    if npad != n:
+        d0 = offsets.index(0)
+        rows = np.arange(npad)
+        cols = rows[None, :] + np.asarray(offsets)[:, None]
+        # Entries of a tail row, or of a row < n reaching a tail column.
+        tail = (rows[None, :] >= n) | ((cols >= n) & (cols < npad))
+        tail[d0, n:] = False
+        if not np.all(wide[d0, n:] == 1.0) or np.any(wide[tail]):
+            raise ValueError("the slab does not end in a decoupled identity tail")
+    dtype = torch.bfloat16 if data.dtype.name == "bfloat16" else torch.float32
+    t = torch.from_numpy(np.ascontiguousarray(wide)).to(device=device, dtype=dtype)
+    return DiaOperator(data=t, offsets=offsets, n=n)
+
+
+def poisson_operator(m: int, device="cpu") -> PoissonOperator:
+    """The port's counterpart of tpucg's ``PoissonOperator(m)``."""
+    return PoissonOperator(m=m, device=device)
 
 
 def state_from_numpy(d: Dict[str, np.ndarray], device="cpu") -> _State:

@@ -2,10 +2,13 @@
 kernels' plain PyTorch versions sit beside them; the whole-solve kernels'
 run the solver's loops and live in ``tpucg_torch.solver.fused``.
 
-The lap: K1 ``matvec_cuda`` (dense GEMV), K2 ``fused_update_cuda`` (x/r
-update and beta = r'.r' in one pass) and K3 ``dot_cuda``. The whole solve:
-K4 ``fused_cg_solve_cuda`` (one system, one cooperative launch) and K5
-``fused_batch_cg_solve_cuda`` (B systems, one launch). The kernel library
+The lap: K1 ``matvec_cuda`` (dense GEMV), K6 ``dia_spmv_cuda`` (DIA
+SpMV), K8 ``poisson3d_cuda`` (7-point stencil), K2 ``fused_update_cuda``
+(x/r update and beta = r'.r' in one pass) and K3 ``dot_cuda``. The whole
+solve: K4 ``fused_cg_solve_cuda`` (one dense system, one cooperative
+launch), K5 ``fused_batch_cg_solve_cuda`` (B dense systems, one launch),
+K10 ``fused_stencil_cg_solve_cuda`` (Poisson stencil) and K11
+``fused_dia_cg_solve_cuda`` (DIA), both cooperative. The kernel library
 is built by ``nvcc`` at first use (``_lib``); importing this package builds
 nothing.
 """
@@ -24,8 +27,12 @@ from tpucg_torch.kernels.fused import (
     FUSED_MAX_N,
     fused_batch_cg_solve_cuda,
     fused_cg_solve_cuda,
+    fused_dia_cg_solve_cuda,
+    fused_stencil_cg_solve_cuda,
 )
 from tpucg_torch.kernels.matvec import MATVEC_ALIGN, matvec, matvec_cuda, matvec_torch
+from tpucg_torch.kernels.spmv import dia_spmv, dia_spmv_cuda, dia_spmv_torch
+from tpucg_torch.kernels.stencil import poisson3d, poisson3d_cuda, poisson3d_torch
 
 __all__ = [
     "dot_cuda",
@@ -38,6 +45,14 @@ __all__ = [
     "FUSED_MAX_N",
     "fused_batch_cg_solve_cuda",
     "fused_cg_solve_cuda",
+    "fused_dia_cg_solve_cuda",
+    "fused_stencil_cg_solve_cuda",
+    "dia_spmv",
+    "dia_spmv_cuda",
+    "dia_spmv_torch",
+    "poisson3d",
+    "poisson3d_cuda",
+    "poisson3d_torch",
     "resolve_backend",
     "MATVEC_ALIGN",
     "matvec",

@@ -49,6 +49,24 @@ SIGNATURES = {
         ctypes.c_int,
         [_PTR] * 7 + [_LEN, _LEN, ctypes.c_float, _LEN, ctypes.c_int, ctypes.c_int, _PTR],
     ),
+    "tpucg_dia_spmv_f32": (ctypes.c_int, [_PTR, _PTR, ctypes.c_int, _PTR, _PTR, _LEN, _PTR, _PTR]),
+    "tpucg_dia_spmv_bf16": (ctypes.c_int, [_PTR, _PTR, ctypes.c_int, _PTR, _PTR, _LEN, _PTR, _PTR]),
+    "tpucg_poisson3d_f32": (ctypes.c_int, [_PTR, _PTR, _LEN, _PTR, _PTR]),
+    "tpucg_fused_stencil_cg_f32": (
+        ctypes.c_int,
+        [_PTR] * 6 + [_LEN, ctypes.c_float, _LEN, ctypes.c_int, ctypes.c_int, ctypes.c_int, _PTR],
+    ),
+    "tpucg_fused_dia_cg_f32": (
+        ctypes.c_int,
+        [_PTR, _PTR, ctypes.c_int] + [_PTR] * 7
+        + [_LEN, ctypes.c_float, _LEN, ctypes.c_int, ctypes.c_int, ctypes.c_int, _PTR],
+    ),
+    "tpucg_fused_dia_cg_bf16": (
+        ctypes.c_int,
+        [_PTR, _PTR, ctypes.c_int] + [_PTR] * 7
+        + [_LEN, ctypes.c_float, _LEN, ctypes.c_int, ctypes.c_int, ctypes.c_int, _PTR],
+    ),
+    "tpucg_fused_sparse_scratch": (ctypes.c_longlong, [_LEN]),
     "tpucg_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
 

@@ -36,10 +36,6 @@
 namespace tpucg {
 namespace {
 
-__device__ __forceinline__ bool inactive(const int* active) {
-  return active != nullptr && *active == 0;
-}
-
 // One 16-byte chunk of A times the matching x values, added into acc.
 __device__ __forceinline__ float chunk_dot(uint4 a, const float* __restrict__ x,
                                            float acc, float) {

@@ -1,7 +1,9 @@
-// Hand-written Hopper (sm_90a) kernels of the dense CG solve: the plain C ABI
-// that tpucg_torch/kernels/_lib.py binds with ctypes, and the fixed-order
-// block reduction that K2 (fused update) and K3 (dot) share. K1-K3 (the lap)
-// live in blas.cu, K4 and K5 (the whole solve) in fused.cu.
+// Hand-written Hopper (sm_90a) kernels of the CG solve: the plain C ABI that
+// tpucg_torch/kernels/_lib.py binds with ctypes, and the fixed-order block
+// reduction that K2 (fused update) and K3 (dot) share. The dense lap (K1-K3)
+// lives in blas.cu, the structured-sparse lap matvecs (K6 DIA SpMV, K8
+// 7-point stencil) in sparse.cu, and the whole solves (K4, K5, K10, K11) in
+// fused.cu.
 //
 // Every entry point takes the launch stream. The lap's kernels also take an
 // optional `active` device flag (const int*, may be null). When the flag
@@ -19,6 +21,11 @@ constexpr int kBlock = 256;          // threads per block, K1-K4
 constexpr int kMaxPartials = 1024;   // cap on stage-1 blocks of a reduction
 constexpr int kFusedMaxN = 4096;     // K4's largest n (tpucg's FUSED_MAX_N)
 constexpr int kFusedBatchMaxN = 2048;  // K5's (tpucg's FUSED_BATCH_MAX_N)
+
+// The lap kernels' `active` flag: true when it is given and reads 0.
+__device__ __forceinline__ bool inactive(const int* active) {
+  return active != nullptr && *active == 0;
+}
 
 // Number of stage-1 blocks (= partial sums) of an n-element reduction. It
 // depends on n alone, so the order in which a sum is taken does too: the
@@ -92,6 +99,45 @@ cudaError_t tpucg_fused_batch_cg_f32(const void* A, const void* b, const void* x
                                      long long batch, long long n, float tol,
                                      long long maxiter, int safe_alpha, int jacobi,
                                      void* stream);
+
+// K6: y[i] = sum_d data[d, i] * x[i + offsets[d]] (0 outside [0, npad)),
+// data (ndiag, npad) f32 or bf16 row-major, x and y f32 (npad,). `offsets`
+// is a host array of ndiag int64, 1 <= ndiag <= 64.
+cudaError_t tpucg_dia_spmv_f32(const void* data, const void* offsets, int ndiag,
+                               const void* x, void* y, long long npad, const void* active,
+                               void* stream);
+cudaError_t tpucg_dia_spmv_bf16(const void* data, const void* offsets, int ndiag,
+                                const void* x, void* y, long long npad, const void* active,
+                                void* stream);
+
+// K8: y = A u for the 7-point Dirichlet Laplacian on an m^3 grid, flat index
+// x*m^2 + y*m + z; u and y f32 (m^3,), 2 <= m and m^3 < 2^31.
+cudaError_t tpucg_poisson3d_f32(const void* u, void* y, long long m, const void* active,
+                                void* stream);
+
+// K10: one whole matrix-free Poisson CG (precond 0) or poly-PCG (2) solve on
+// an m^3 grid in one cooperative launch; b, x0, x (m^3,) f32; `scratch`
+// holds tpucg_fused_sparse_scratch(m^3) floats.
+cudaError_t tpucg_fused_stencil_cg_f32(const void* b, const void* x0, void* x, void* k,
+                                       void* rr, void* scratch, long long m, float tol,
+                                       long long maxiter, int safe_alpha, int precond,
+                                       int degree, void* stream);
+
+// K11: one whole banded CG / Jacobi (minv, npad floats) / poly-PCG solve of
+// the DIA matrix (data, host `offsets`) in one cooperative launch; b, x0, x
+// (npad,) f32, npad < 2^31; `scratch` holds tpucg_fused_sparse_scratch(npad)
+// floats. The slab is f32 or bf16.
+cudaError_t tpucg_fused_dia_cg_f32(const void* data, const void* offsets, int ndiag,
+                                   const void* b, const void* x0, const void* minv, void* x,
+                                   void* k, void* rr, void* scratch, long long npad, float tol,
+                                   long long maxiter, int safe_alpha, int precond, int degree,
+                                   void* stream);
+cudaError_t tpucg_fused_dia_cg_bf16(const void* data, const void* offsets, int ndiag,
+                                    const void* b, const void* x0, const void* minv, void* x,
+                                    void* k, void* rr, void* scratch, long long npad, float tol,
+                                    long long maxiter, int safe_alpha, int precond, int degree,
+                                    void* stream);
+long long tpucg_fused_sparse_scratch(long long n);
 
 // cudaGetErrorString, for the wrappers' error messages.
 const char* tpucg_error_string(int err);

@@ -1,49 +1,68 @@
-// Whole-solve dense CG for Hopper (sm_90a), behind a plain C ABI.
+// Whole-solve CG for Hopper (sm_90a), behind a plain C ABI.
 //
-// K4  fused_cg_kernel        replaces tpucg/kernels/fused.py:234 fused_cg_solve_pallas
-//                            (_fused_cg_kernel :177, _cg_while :78,
-//                            _in_kernel_poly_precond :132)
-// K5  fused_batch_cg_kernel  replaces tpucg/kernels/fused.py:610 fused_batch_cg_solve_pallas
-//                            (_fused_batch_cg_kernel :560)
+// K4  fused_cg_kernel          replaces tpucg/kernels/fused.py:234 fused_cg_solve_pallas
+//                              (_fused_cg_kernel :177, _cg_while :78,
+//                              _in_kernel_poly_precond :132)
+// K5  fused_batch_cg_kernel    replaces tpucg/kernels/fused.py:610 fused_batch_cg_solve_pallas
+//                              (_fused_batch_cg_kernel :560)
+// K10 fused_stencil_cg_kernel  replaces tpucg/kernels/fused.py:335
+//                              fused_stencil_cg_solve_pallas (_fused_stencil_cg_kernel :301)
+// K11 fused_dia_cg_kernel      replaces tpucg/kernels/fused.py:493 fused_dia_cg_solve_pallas
+//                              (_fused_dia_cg_kernel :452, _dia_apply_values :421)
 //
-// Both run tpucg's _cg_while contract: r0 = b - A x0, stop at k = 0 when
+// All run tpucg's _cg_while contract: r0 = b - A x0, stop at k = 0 when
 // r.r < tol^2; each lap alpha = rsold / p.Ap (0 when p.Ap = 0 with
 // safe_alpha), x += alpha p, r -= alpha Ap, stop when r.r < tol^2 (p and
 // rsold then stay as they were), else z = M^-1 r, p = z + (r.z / rsold) p,
 // rsold = r.z; k <= maxiter. They return x, k and the last r.r.
 //
+// K4, K10 and K11 are one device recurrence (cg_recurrence, tpucg's shared
+// _cg_while) over an operator policy: DenseOp (K4), StencilOp (K10) and
+// DiaOp (K11). A policy owns the rows of the matvec and says which thread
+// owns which row; the recurrence, its scalars, syncs and preconditioners
+// are written once.
+//
 // What bounds them on an H100 and what the design does about it:
 //
-// The lap path (K1-K3 enqueued from the host) is bound by host enqueue: tens
-// of microseconds of device work per lap at n <= 4096 cost hundreds of
-// microseconds of host time. K4 runs the whole solve in one cooperative
-// launch, so the host enqueues one kernel per solve. Inside, a lap is bound
-// by the GEMV's bytes (A is 64 MiB at n = 4096, above the 50 MB L2, so laps
-// stream it from HBM; at n <= ~3500 it can stay in L2 across laps) and by
-// the latency of grid.sync(): two per lap, plus one per extra matvec of the
-// poly preconditioner. The grid is sized by the occupancy calculator times
-// the SM count, capped at one warp per row (more blocks would own no row and
-// only lengthen every grid.sync()).
+// The lap path (a matvec kernel, K2 and K3 enqueued from the host) is bound
+// by host enqueue: tens of microseconds of device work per lap cost
+// hundreds of microseconds of host time. A whole-solve kernel runs the
+// solve in one cooperative launch, so the host enqueues one kernel per
+// solve. Inside, a lap is bound by the matvec's bytes and by the latency of
+// grid.sync(): two per lap, plus one per extra matvec of the poly
+// preconditioner. The grid is sized by the occupancy calculator times the
+// SM count (K4: capped at one warp per row; K10/K11: at one thread per
+// element): more blocks would own no row and only lengthen every sync.
 //
 // Every block must take the same branch, or the next grid.sync() hangs. So
 // every scalar (p.Ap, r.r, r.z, the power method's norms) is reduced from
-// per-block partials in global scratch: each block sums its warps' values in
-// a fixed tree, writes one partial, grid.sync(), and then every block sums
-// all partials in the same fixed order. All blocks hold the same bits of
-// alpha, beta and the stopping test, and leave the loop on the same lap.
+// per-block partials in global scratch: each block sums its threads' values
+// in a fixed tree, writes one partial, grid.sync(), and then every block
+// sums all partials in the same fixed order. All blocks hold the same bits
+// of alpha, beta and the stopping test, and leave the loop on the same lap.
 // There are no float atomics (results repeat bit for bit). A partial slot is
 // read right after the grid.sync() that follows its writes, so two slots
 // alternate: a fast block writing the next phase's partials never overwrites
 // those a slow block is still summing.
 //
-// Vectors the launch writes (p, r, z, the power iterate) are read with plain
-// loads, never through the read-only cache; A, b, x0 and 1/diag are the only
-// __ldg reads. A matvec stages its whole input vector (<= 16 KB) in shared
-// memory; one warp owns one row (16-byte loads of A, four in flight per
+// Vectors the launch writes (p, r, z, the power iterate) are read with
+// __ldcg (L2, never the read-only path or L1, which other SMs' writes do not
+// update); A, b, x0, the DIA slab and 1/diag are the only __ldg reads. The
+// matvec of a lap reads p = z + beta p_old on the fly at every row it
+// touches, so p needs no pass (and no sync) of its own: the row's owner
+// writes p to the other of two buffers while other blocks still read the
+// old one; z and the power iterate are double-buffered the same way.
+//
+// K4 (dense, n <= 4096) stages that input vector (<= 16 KB) in shared
+// memory, one warp owns one row (16-byte loads of A, four in flight per
 // lane, a fixed shuffle tree), and lane 0 of the row's warp owns that
-// element in every elementwise step, so those steps need no sync. A vector
-// that is staged by every block while its owners write the next value is
-// double-buffered (p, z, the power iterate).
+// element in every elementwise step. K10 and K11 keep x, r, p, Ap, z and the
+// power iterate in global memory (8 MiB each at m = 128: the 50 MB L2 holds
+// the lap's working set but not all of them); a thread owns elements in a
+// grid-stride loop and reads neighbours through L2. K10 computes the
+// stencil from the grid coordinates, so its lap moves vectors only; K11
+// streams its slab from device memory every lap (58.7 MB at m = 128 in f32,
+// above L2), the slab staying where the operator put it.
 //
 // K5 solves B independent systems, one block each (grid = B, no grid-wide
 // sync): x, r, p and Ap live in shared memory (4 x 8 KB at n = 2048) and A
@@ -52,6 +71,7 @@
 // below B = 132, and a single SM pulls A far below the card's bandwidth: a
 // later redesign splits a system over several blocks.
 #include "blas.cuh"
+#include "sparse.cuh"
 
 #include <cooperative_groups.h>
 
@@ -64,6 +84,7 @@ constexpr int kWarps = kBlock / 32;        // K4: 8 warps a block
 constexpr int kBatchBlock = 1024;          // K5: one block of 32 warps a system
 constexpr int kPowerIters = 12;            // tpucg's in-kernel power method
 constexpr int kMaxDevices = 16;
+constexpr int kSparseMaxGrid = 4096;       // K10/K11: cap on blocks (sizes their partials)
 
 enum Precond : int { kNone = 0, kJacobi = 1, kPoly = 2 };
 
@@ -126,15 +147,15 @@ __device__ __forceinline__ float safe_div(float num, float den, int safe) {
   return (safe && den == 0.f) ? 0.f : num / den;
 }
 
-struct FusedArgs {
-  const float* A;     // (n, n), read-only
+// The operands and outputs of one whole solve (K4, K10, K11).
+struct SolveArgs {
   const float* b;     // (n,)
   const float* x0;    // (n,)
   const float* minv;  // (n,) 1/diag for jacobi, else unused
   float* x;           // (n,) out
   int* k_out;         // 0-d out
   float* rr_out;      // 0-d out
-  float* scratch;     // tpucg_fused_cg_scratch(n) floats
+  float* scratch;     // 8 n floats, then the partials: 2 slots x 2 sums x grid
   int n;
   float tol;
   long long maxiter;
@@ -143,17 +164,81 @@ struct FusedArgs {
   int degree;         // poly degree: degree - 1 extra matvecs per apply
 };
 
-__global__ void __launch_bounds__(kBlock) fused_cg_kernel(FusedArgs a) {
-  cgrp::grid_group grid = cgrp::this_grid();
-  extern __shared__ float4 vs4[];  // the staged matvec input, n floats
-  float* vs = reinterpret_cast<float*>(vs4);
-  __shared__ float red[33];
+// Operator policies. matvec(g, f) calls f(i, v_i, (A v)_i) for every row i
+// this thread owns, where v_j = g(j); each(f) calls f(i) for the same rows.
+// A thread owns the same rows in every phase, so an element's owner reads
+// back what it wrote itself; g may read any element. The recurrence ends
+// every matvec with a block-wide sync (end_phase) before the next one.
 
-  const int n = a.n;
-  const int nchunks = n / 4;
-  const int lane = threadIdx.x & 31;
-  const int gwarp = static_cast<int>((blockIdx.x * kBlock + threadIdx.x) >> 5);
-  const int nwarps = static_cast<int>(gridDim.x) * kWarps;
+// K4: one warp a row; g is evaluated once per element into shared memory.
+struct DenseOp {
+  const float* __restrict__ A;
+  float* vs;  // n floats of dynamic shared memory
+  int n;
+  int lane, gwarp, nwarps;
+
+  template <class G, class F>
+  __device__ __forceinline__ void matvec(G g, F f) const {
+    for (int i = threadIdx.x; i < n; i += kBlock) vs[i] = g(i);
+    __syncthreads();
+    const float4* vs4 = reinterpret_cast<const float4*>(vs);
+    for (int row = gwarp; row < n; row += nwarps) {
+      const float av = row_dot(A + static_cast<size_t>(row) * n, vs4, n / 4, lane);
+      if (lane == 0) f(row, vs[row], av);
+    }
+  }
+  template <class F>
+  __device__ __forceinline__ void each(F f) const {
+    if (lane == 0)
+      for (int row = gwarp; row < n; row += nwarps) f(row);
+  }
+};
+
+// Grid-stride ownership of K10 and K11: thread t owns t, t + T, ...
+struct StrideRows {
+  int n, tid, nthreads;
+  __device__ StrideRows(int n_)
+      : n(n_), tid(static_cast<int>(blockIdx.x) * kBlock + threadIdx.x),
+        nthreads(static_cast<int>(gridDim.x) * kBlock) {}
+  template <class F>
+  __device__ __forceinline__ void each(F f) const {
+    for (int i = tid; i < n; i += nthreads) f(i);
+  }
+};
+
+// K10: the 7-point stencil on an m^3 grid, g evaluated at every neighbour.
+struct StencilOp : StrideRows {
+  int m;
+  __device__ StencilOp(int m_) : StrideRows(m_ * m_ * m_), m(m_) {}
+  template <class G, class F>
+  __device__ __forceinline__ void matvec(G g, F f) const {
+    for (int i = tid; i < n; i += nthreads) {
+      const float v = g(i);
+      f(i, v, stencil_row(m, i, v, g));
+    }
+  }
+};
+
+// K11: the DIA matrix (slab (ndiag, n), f32 or bf16), g evaluated at every
+// column a row touches.
+template <typename T>
+struct DiaOp : StrideRows {
+  const T* __restrict__ data;
+  const DiaOffsets& offs;
+  __device__ DiaOp(const T* data_, const DiaOffsets& offs_, int n_)
+      : StrideRows(n_), data(data_), offs(offs_) {}
+  template <class G, class F>
+  __device__ __forceinline__ void matvec(G g, F f) const {
+    for (int i = tid; i < n; i += nthreads) f(i, g(i), dia_row(data, n, offs, i, g));
+  }
+};
+
+// tpucg's _cg_while (with _in_kernel_poly_precond) over the operator `op`.
+template <class Op>
+__device__ void cg_recurrence(const Op& op, const SolveArgs& a) {
+  cgrp::grid_group grid = cgrp::this_grid();
+  __shared__ float red[33];
+  const size_t n = static_cast<size_t>(a.n);
   const int nblocks = static_cast<int>(gridDim.x);
   const float tol2 = a.tol * a.tol;
 
@@ -179,8 +264,8 @@ __global__ void __launch_bounds__(kBlock) fused_cg_kernel(FusedArgs a) {
     grid.sync();
     float u0 = 0.f, u1 = 0.f;
     for (int i = threadIdx.x; i < nblocks; i += kBlock) {
-      u0 += part[i];
-      u1 += part[nblocks + i];
+      u0 += __ldcg(part + i);
+      u1 += __ldcg(part + nblocks + i);
     }
     t0 = block_allsum<kBlock>(u0, red);
     t1 = block_allsum<kBlock>(u1, red);
@@ -194,22 +279,22 @@ __global__ void __launch_bounds__(kBlock) fused_cg_kernel(FusedArgs a) {
     float scale = 0.f, lam = 0.f;
     for (int it = 0; it <= kPowerIters; ++it) {
       const float* yprev = yb[(it + 1) & 1];
-      for (int i = threadIdx.x; i < n; i += kBlock)
-        vs[i] = it == 0 ? cosf(static_cast<float>(i) * 0.7f) + 0.1f : yprev[i] * scale;
-      __syncthreads();
+      float* ynext = yb[it & 1];
       float s0 = 0.f, s1 = 0.f;
-      for (int row = gwarp; row < n; row += nwarps) {
-        const float av = row_dot(a.A + static_cast<size_t>(row) * n, vs4, nchunks, lane);
-        if (lane == 0) {
-          if (it < kPowerIters) {
-            yb[it & 1][row] = av;
-            s0 += av * av;
-          } else {
-            s0 += vs[row] * av;
-            s1 += vs[row] * vs[row];
-          }
-        }
-      }
+      op.matvec(
+          [&](long long j) {
+            return it == 0 ? cosf(static_cast<float>(j) * 0.7f) + 0.1f
+                           : __ldcg(yprev + j) * scale;
+          },
+          [&](long long row, float v, float av) {
+            if (it < kPowerIters) {
+              ynext[row] = av;
+              s0 += av * av;
+            } else {
+              s0 += v * av;
+              s1 += v * v;
+            }
+          });
       float t0, t1;
       end_phase(s0, s1, t0, t1);
       if (it < kPowerIters)
@@ -222,7 +307,7 @@ __global__ void __launch_bounds__(kBlock) fused_cg_kernel(FusedArgs a) {
 
   // z = M^-1 r for the row's owner (jacobi, and the first Neumann term of
   // poly, z0 = w r); returns the row's share of r.z where it is final.
-  auto first_z = [&](int row, float rv) -> float {
+  auto first_z = [&](long long row, float rv) -> float {
     if (a.precond == kJacobi) {
       const float z = __ldg(a.minv + row) * rv;
       zb[0][row] = z;
@@ -240,18 +325,16 @@ __global__ void __launch_bounds__(kBlock) fused_cg_kernel(FusedArgs a) {
   auto neumann = [&](float rz, int& zi) -> float {
     zi = 0;
     for (int j = 1; j < a.degree; ++j) {
-      for (int i = threadIdx.x; i < n; i += kBlock) vs[i] = zb[zi][i];
-      __syncthreads();
+      const float* zsrc = zb[zi];
+      float* zdst = zb[zi ^ 1];
       float s1 = 0.f;
-      for (int row = gwarp; row < n; row += nwarps) {
-        const float az = row_dot(a.A + static_cast<size_t>(row) * n, vs4, nchunks, lane);
-        if (lane == 0) {
-          const float rv = r[row];
-          const float zn = vs[row] + w * rv - w * az;
-          zb[zi ^ 1][row] = zn;
-          s1 += rv * zn;
-        }
-      }
+      op.matvec([&](long long i) { return __ldcg(zsrc + i); },
+                [&](long long row, float zv, float az) {
+                  const float rv = r[row];
+                  const float zn = zv + w * rv - w * az;
+                  zdst[row] = zn;
+                  s1 += rv * zn;
+                });
       float t0;
       end_phase(0.f, s1, t0, rz);
       zi ^= 1;
@@ -260,20 +343,16 @@ __global__ void __launch_bounds__(kBlock) fused_cg_kernel(FusedArgs a) {
   };
 
   // r0 = b - A x0; x = x0; p_old = 0, so the first lap's p = z + 0 p = z.
-  for (int i = threadIdx.x; i < n; i += kBlock) vs[i] = __ldg(a.x0 + i);
-  __syncthreads();
   float s0 = 0.f, s1 = 0.f;
-  for (int row = gwarp; row < n; row += nwarps) {
-    const float av = row_dot(a.A + static_cast<size_t>(row) * n, vs4, nchunks, lane);
-    if (lane == 0) {
-      a.x[row] = vs[row];
-      const float rv = __ldg(a.b + row) - av;
-      r[row] = rv;
-      pb[0][row] = 0.f;
-      s0 += rv * rv;
-      s1 += first_z(row, rv);
-    }
-  }
+  op.matvec([&](long long j) { return __ldg(a.x0 + j); },
+            [&](long long row, float xv, float av) {
+              a.x[row] = xv;
+              const float rv = __ldg(a.b + row) - av;
+              r[row] = rv;
+              pb[0][row] = 0.f;
+              s0 += rv * rv;
+              s1 += first_z(row, rv);
+            });
   float rr, rz;
   end_phase(s0, s1, rr, rz);
   int zi = 0;
@@ -285,23 +364,19 @@ __global__ void __launch_bounds__(kBlock) fused_cg_kernel(FusedArgs a) {
   bool done = rr < tol2;
 
   while (!done && k < a.maxiter) {
-    // p = z + beta p, staged by every block; the row owners write it to
-    // the other buffer. Ap and p.Ap.
+    // p = z + beta p_old, evaluated where the matvec reads it; the row
+    // owners write it to the other buffer. Ap and p.Ap.
     const float* zsrc = a.precond == kNone ? r : zb[zi];
     const float* pold = pb[cur];
-    for (int i = threadIdx.x; i < n; i += kBlock) vs[i] = zsrc[i] + beta * pold[i];
-    __syncthreads();
-    cur ^= 1;
+    float* pnew = pb[cur ^ 1];
     s0 = 0.f;
-    for (int row = gwarp; row < n; row += nwarps) {
-      const float av = row_dot(a.A + static_cast<size_t>(row) * n, vs4, nchunks, lane);
-      if (lane == 0) {
-        const float pv = vs[row];
-        pb[cur][row] = pv;
-        ap[row] = av;
-        s0 += pv * av;
-      }
-    }
+    op.matvec([&](long long j) { return __ldcg(zsrc + j) + beta * __ldcg(pold + j); },
+              [&](long long row, float pv, float av) {
+                pnew[row] = pv;
+                ap[row] = av;
+                s0 += pv * av;
+              });
+    cur ^= 1;
     float pap, unused;
     end_phase(s0, 0.f, pap, unused);
     const float alpha = safe_div(rsold, pap, a.safe_alpha);
@@ -309,15 +384,14 @@ __global__ void __launch_bounds__(kBlock) fused_cg_kernel(FusedArgs a) {
     // x += alpha p, r -= alpha Ap, r.r and (PCG) z, r.z: row owners only.
     s0 = 0.f;
     s1 = 0.f;
-    if (lane == 0) {
-      for (int row = gwarp; row < n; row += nwarps) {
-        a.x[row] = a.x[row] + alpha * pb[cur][row];
-        const float rv = r[row] - alpha * ap[row];
-        r[row] = rv;
-        s0 += rv * rv;
-        s1 += first_z(row, rv);
-      }
-    }
+    const float* p = pb[cur];
+    op.each([&](long long row) {
+      a.x[row] = a.x[row] + alpha * p[row];
+      const float rv = r[row] - alpha * ap[row];
+      r[row] = rv;
+      s0 += rv * rv;
+      s1 += first_z(row, rv);
+    });
     end_phase(s0, s1, rr, rz);
     ++k;
     done = rr < tol2;
@@ -331,6 +405,29 @@ __global__ void __launch_bounds__(kBlock) fused_cg_kernel(FusedArgs a) {
     *a.k_out = static_cast<int>(k);
     *a.rr_out = rr;
   }
+}
+
+__global__ void __launch_bounds__(kBlock)
+fused_cg_kernel(const __grid_constant__ SolveArgs s, const float* __restrict__ A) {
+  extern __shared__ float4 vs4[];  // the staged matvec input, n floats
+  const int gwarp = static_cast<int>((blockIdx.x * kBlock + threadIdx.x) >> 5);
+  const DenseOp op{A, reinterpret_cast<float*>(vs4), s.n, static_cast<int>(threadIdx.x & 31),
+                   gwarp, static_cast<int>(gridDim.x) * kWarps};
+  cg_recurrence(op, s);
+}
+
+__global__ void __launch_bounds__(kBlock)
+fused_stencil_cg_kernel(const __grid_constant__ SolveArgs s, int m) {
+  const StencilOp op(m);
+  cg_recurrence(op, s);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kBlock)
+fused_dia_cg_kernel(const __grid_constant__ SolveArgs s, const T* __restrict__ data,
+                    const __grid_constant__ DiaOffsets offs) {
+  const DiaOp<T> op(data, offs, s.n);
+  cg_recurrence(op, s);
 }
 
 struct BatchArgs {
@@ -435,19 +532,81 @@ __global__ void __launch_bounds__(kBatchBlock) fused_batch_cg_kernel(BatchArgs a
   }
 }
 
-// Blocks of K4 an SM holds at once for n (its shared memory depends on n),
-// cached per device and n.
-cudaError_t fused_blocks_per_sm(int dev, int n, int* out) {
-  static int cache[kMaxDevices][kFusedMaxN / 128 + 1];
-  int* slot = (dev >= 0 && dev < kMaxDevices) ? &cache[dev][n / 128] : nullptr;
+// Cooperative grid of `kernel` (kBlock threads, `smem` dynamic bytes): the
+// blocks an SM holds at once (cached per device and `key`) times the SM
+// count, at most `cap`. A device without cooperative launch refuses.
+constexpr int kGridKeys = kFusedMaxN / 128 + 4;  // K4 by n / 128, then K10, K11 f32/bf16
+constexpr int kKeyStencil = kFusedMaxN / 128 + 1;
+constexpr int kKeyDiaF32 = kFusedMaxN / 128 + 2;
+constexpr int kKeyDiaBf16 = kFusedMaxN / 128 + 3;
+
+cudaError_t coop_grid(const void* kernel, size_t smem, int key, long long cap, int* grid) {
+  static int cache[kMaxDevices][kGridKeys];
+  int dev = 0, coop = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err != cudaSuccess) return err;
+  if (!coop) return cudaErrorNotSupported;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  int* slot = dev < kMaxDevices ? &cache[dev][key] : nullptr;
   if (slot && *slot > 0) {
-    *out = *slot;
-    return cudaSuccess;
+    per_sm = *slot;
+  } else {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kBlock, smem);
+    if (err != cudaSuccess) return err;
+    if (slot) *slot = per_sm;
   }
-  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      out, fused_cg_kernel, kBlock, static_cast<size_t>(n) * sizeof(float));
-  if (err == cudaSuccess && slot) *slot = *out;
-  return err;
+  const long long g = static_cast<long long>(per_sm) * sms;
+  *grid = static_cast<int>(g < cap ? g : cap);
+  return *grid < 1 ? cudaErrorCooperativeLaunchTooLarge : cudaSuccess;
+}
+
+// K10/K11: at most one thread per element and kSparseMaxGrid blocks.
+long long sparse_grid_cap(long long n) {
+  const long long blocks = (n + kBlock - 1) / kBlock;
+  return blocks < kSparseMaxGrid ? blocks : kSparseMaxGrid;
+}
+
+cudaError_t coop_launch(const void* kernel, int grid, size_t smem, void** args, void* stream) {
+  const cudaError_t err = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(kBlock), args,
+                                                      smem, static_cast<cudaStream_t>(stream));
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+SolveArgs solve_args(const void* b, const void* x0, const void* minv, void* x, void* k,
+                     void* rr, void* scratch, long long n, float tol, long long maxiter,
+                     int safe_alpha, int precond, int degree) {
+  return SolveArgs{static_cast<const float*>(b), static_cast<const float*>(x0),
+                   static_cast<const float*>(minv), static_cast<float*>(x),
+                   static_cast<int*>(k), static_cast<float*>(rr),
+                   static_cast<float*>(scratch), static_cast<int>(n), tol, maxiter,
+                   safe_alpha, precond, degree};
+}
+
+template <typename T>
+cudaError_t launch_fused_dia(const void* data, const void* offsets, int ndiag, const void* b,
+                             const void* x0, const void* minv, void* x, void* k, void* rr,
+                             void* scratch, long long npad, float tol, long long maxiter,
+                             int safe_alpha, int precond, int degree, void* stream, int key) {
+  if (ndiag < 1 || ndiag > kDiaMaxDiags || npad <= 0 || npad > kMaxIntRows ||
+      offsets == nullptr || precond < kNone || precond > kPoly ||
+      (precond == kJacobi && minv == nullptr) || (precond == kPoly && degree < 1))
+    return cudaErrorInvalidValue;
+  DiaOffsets offs{};
+  offs.ndiag = ndiag;
+  const long long* host = static_cast<const long long*>(offsets);
+  for (int d = 0; d < ndiag; ++d) offs.off[d] = host[d];
+  const void* kernel = (const void*)fused_dia_cg_kernel<T>;
+  int grid = 0;
+  cudaError_t err = coop_grid(kernel, 0, key, sparse_grid_cap(npad), &grid);
+  if (err != cudaSuccess) return err;
+  SolveArgs sa = solve_args(b, x0, minv, x, k, rr, scratch, npad, tol, maxiter, safe_alpha,
+                            precond, degree);
+  const T* slab = static_cast<const T*>(data);
+  void* args[] = {&sa, &slab, &offs};
+  return coop_launch(kernel, grid, 0, args, stream);
 }
 
 }  // namespace
@@ -457,6 +616,10 @@ extern "C" long long tpucg_fused_cg_scratch(long long n) {
   return 8 * n + 4 * ((n + tpucg::kWarps - 1) / tpucg::kWarps);
 }
 
+extern "C" long long tpucg_fused_sparse_scratch(long long n) {
+  return 8 * n + 4 * tpucg::kSparseMaxGrid;
+}
+
 extern "C" cudaError_t tpucg_fused_cg_f32(const void* A, const void* b, const void* x0,
                                           const void* minv, void* x, void* k, void* rr,
                                           void* scratch, long long n, float tol,
@@ -464,30 +627,59 @@ extern "C" cudaError_t tpucg_fused_cg_f32(const void* A, const void* b, const vo
                                           int degree, void* stream) {
   using namespace tpucg;
   if (n <= 0 || n % 128 || n > kFusedMaxN) return cudaErrorInvalidValue;
-  int dev = 0, coop = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  const void* kernel = (const void*)fused_cg_kernel;
+  const size_t smem = static_cast<size_t>(n) * sizeof(float);
+  int grid = 0;
+  cudaError_t err = coop_grid(kernel, smem, static_cast<int>(n / 128), (n + kWarps - 1) / kWarps,
+                              &grid);
   if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  SolveArgs sa = solve_args(b, x0, minv, x, k, rr, scratch, n, tol, maxiter, safe_alpha,
+                            precond, degree);
+  const float* Af = static_cast<const float*>(A);
+  void* args[] = {&sa, &Af};
+  return coop_launch(kernel, grid, smem, args, stream);
+}
+
+extern "C" cudaError_t tpucg_fused_stencil_cg_f32(const void* b, const void* x0, void* x,
+                                                  void* k, void* rr, void* scratch, long long m,
+                                                  float tol, long long maxiter, int safe_alpha,
+                                                  int precond, int degree, void* stream) {
+  using namespace tpucg;
+  if (m < 2 || m > kStencilMaxM || (precond != kNone && precond != kPoly) ||
+      (precond == kPoly && degree < 1))
+    return cudaErrorInvalidValue;
+  const long long n = m * m * m;
+  const void* kernel = (const void*)fused_stencil_cg_kernel;
+  int grid = 0;
+  cudaError_t err = coop_grid(kernel, 0, kKeyStencil, sparse_grid_cap(n), &grid);
   if (err != cudaSuccess) return err;
-  if (!coop) return cudaErrorNotSupported;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  err = fused_blocks_per_sm(dev, static_cast<int>(n), &per_sm);
-  if (err != cudaSuccess) return err;
-  const int rows_blocks = static_cast<int>((n + kWarps - 1) / kWarps);
-  const int grid = per_sm * sms < rows_blocks ? per_sm * sms : rows_blocks;
-  if (grid < 1) return cudaErrorCooperativeLaunchTooLarge;
-  FusedArgs fa{static_cast<const float*>(A), static_cast<const float*>(b),
-               static_cast<const float*>(x0), static_cast<const float*>(minv),
-               static_cast<float*>(x), static_cast<int*>(k), static_cast<float*>(rr),
-               static_cast<float*>(scratch), static_cast<int>(n), tol, maxiter,
-               safe_alpha, precond, degree};
-  void* args[] = {&fa};
-  err = cudaLaunchCooperativeKernel((void*)fused_cg_kernel, dim3(grid),
-                                    dim3(kBlock), args, static_cast<size_t>(n) * sizeof(float),
-                                    static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  SolveArgs sa = solve_args(b, x0, nullptr, x, k, rr, scratch, n, tol, maxiter, safe_alpha,
+                            precond, degree);
+  int mi = static_cast<int>(m);
+  void* args[] = {&sa, &mi};
+  return coop_launch(kernel, grid, 0, args, stream);
+}
+
+extern "C" cudaError_t tpucg_fused_dia_cg_f32(const void* data, const void* offsets, int ndiag,
+                                              const void* b, const void* x0, const void* minv,
+                                              void* x, void* k, void* rr, void* scratch,
+                                              long long npad, float tol, long long maxiter,
+                                              int safe_alpha, int precond, int degree,
+                                              void* stream) {
+  return tpucg::launch_fused_dia<float>(data, offsets, ndiag, b, x0, minv, x, k, rr, scratch,
+                                        npad, tol, maxiter, safe_alpha, precond, degree, stream,
+                                        tpucg::kKeyDiaF32);
+}
+
+extern "C" cudaError_t tpucg_fused_dia_cg_bf16(const void* data, const void* offsets, int ndiag,
+                                               const void* b, const void* x0, const void* minv,
+                                               void* x, void* k, void* rr, void* scratch,
+                                               long long npad, float tol, long long maxiter,
+                                               int safe_alpha, int precond, int degree,
+                                               void* stream) {
+  return tpucg::launch_fused_dia<uint16_t>(data, offsets, ndiag, b, x0, minv, x, k, rr,
+                                           scratch, npad, tol, maxiter, safe_alpha, precond,
+                                           degree, stream, tpucg::kKeyDiaBf16);
 }
 
 extern "C" cudaError_t tpucg_fused_batch_cg_f32(const void* A, const void* b, const void* x0,

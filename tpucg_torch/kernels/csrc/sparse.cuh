@@ -1,0 +1,79 @@
+// Row functions of the structured-sparse operators, shared by the lap
+// kernels (sparse.cu: K6 DIA SpMV, K8 7-point stencil) and the whole-solve
+// kernels (fused.cu: K11, K10), so a lap and a whole solve compute one
+// operator the same way.
+//
+// Both take the input vector as a functor v(j) (j a flat index inside the
+// vector; the row functions never call it outside [0, n)): the lap kernels
+// pass a read through the read-only cache, the whole-solve kernels a read
+// of a vector the same launch writes (never through that cache), possibly
+// combined on the fly (p = z + beta p_old).
+//
+// The sums are taken in the plain version's order, each product and each
+// sum rounded on its own (__fmul_rn / __fadd_rn / __fsub_rn keep nvcc from
+// contracting them into FMAs), so a kernel's y equals its plain PyTorch
+// version's bit for bit.
+#pragma once
+
+#include <cstdint>
+
+#include <cuda_runtime.h>
+
+namespace tpucg {
+
+constexpr int kDiaMaxDiags = 64;  // tpucg's cap on the diagonals of its DIA kernel
+
+// A DIA matrix's offsets, passed by value to the kernels (520 bytes).
+struct DiaOffsets {
+  int ndiag;
+  long long off[kDiaMaxDiags];
+};
+
+// One slab element widened to f32: a float as it is, a bf16 (raw bits)
+// exactly (its bits are the high half of the f32's).
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(uint16_t v) {
+  return __uint_as_float(static_cast<uint32_t>(v) << 16);
+}
+
+// (A v)[i] for the DIA matrix with slab `data` (ndiag, npad), row-major and
+// read-only for the launch: sum over d, in offsets order from 0, of
+// data[d, i] * v(i + off_d), a column outside [0, npad) giving 0.
+template <typename T, class V>
+__device__ __forceinline__ float dia_row(const T* __restrict__ data, long long npad,
+                                         const DiaOffsets& offs, long long i, V v) {
+  float acc = 0.f;
+  for (int d = 0; d < offs.ndiag; ++d) {
+    const long long j = i + offs.off[d];
+    const float xv = (j >= 0 && j < npad) ? v(j) : 0.f;
+    acc = __fadd_rn(acc, __fmul_rn(widen(__ldg(data + d * npad + i)), xv));
+  }
+  return acc;
+}
+
+// (A v)[i] of the 7-point Dirichlet Laplacian on an m^3 grid, flat index
+// i = x*m^2 + y*m + z, given vi = v(i): 6 vi minus each in-grid neighbour,
+// in tpucg's order x+1, x-1, y+1, y-1, z+1, z-1 (stencil.py:60-80).
+template <class V>
+__device__ __forceinline__ float stencil_row(int m, int i, float vi, V v) {
+  const int mm = m * m;
+  const int ix = i / mm;
+  const int rem = i - ix * mm;
+  const int iy = rem / m;
+  const int iz = rem - iy * m;
+  float acc = __fmul_rn(6.f, vi);
+  if (ix < m - 1) acc = __fsub_rn(acc, v(i + mm));
+  if (ix > 0) acc = __fsub_rn(acc, v(i - mm));
+  if (iy < m - 1) acc = __fsub_rn(acc, v(i + m));
+  if (iy > 0) acc = __fsub_rn(acc, v(i - m));
+  if (iz < m - 1) acc = __fsub_rn(acc, v(i + 1));
+  if (iz > 0) acc = __fsub_rn(acc, v(i - 1));
+  return acc;
+}
+
+// Sizes the kernels index with int: a grid-stride loop's i + stride must
+// stay below 2^31 for up to 2^22 threads.
+constexpr long long kMaxIntRows = 0x7fffffffLL - (1LL << 22);
+constexpr long long kStencilMaxM = 1280;  // 1280^3 <= kMaxIntRows
+
+}  // namespace tpucg

@@ -1,11 +1,12 @@
-"""Whole-solve dense CG in one kernel launch: K4 for one system and K5 for a
-batch of independent systems (the dense part of ``tpucg.kernels.fused``).
-``csrc/fused.cu`` holds both kernels and their design note. Their plain
+"""Whole-solve CG in one kernel launch (``tpucg.kernels.fused``): K4 for one
+dense system, K5 for a batch of independent dense systems, K10 for the
+matrix-free 3-D Poisson stencil and K11 for a banded (DIA) matrix.
+``csrc/fused.cu`` holds the kernels and their design note. Their plain
 PyTorch versions run the same recurrence (tpucg's ``_cg_while``) through
 the solver's loops, so they live above this layer, in
 ``tpucg_torch.solver.fused``, with the dispatchers.
 
-Both return ``(x, k, rr)`` as tpucg's kernels do: the padded solution, the
+All return ``(x, k, rr)`` as tpucg's kernels do: the padded solution, the
 lap count (int32) and the last r.r (f32), 0-d for one system and ``(B,)``
 for a batch, on the solve's device. Nothing here reads a result back to
 the host. tpucg's ``mv_impl`` chose the TPU's vector or matrix unit for the
@@ -18,6 +19,8 @@ import torch
 
 from tpucg_torch.kernels import _lib
 from tpucg_torch.kernels.dispatch import cuda_stream
+from tpucg_torch.kernels.spmv import DIA_MAX_DIAGS, offsets_array
+from tpucg_torch.kernels.stencil import STENCIL_MAX_M
 
 # Largest padded n of K4 and of K5, tpucg's caps (fused.py:55, :75), so that
 # the gate means the same in both packages.
@@ -32,6 +35,24 @@ FUSED_BATCH_MAX_N = 2048
 # Being equal to FUSED_MAX_N, it makes fused="auto" and fused="always" take
 # the same route for every dense solve.
 FUSED_AUTO_MAX_N = 4096
+
+# K10 and K11 keep the solve's vectors in device memory, not in VMEM, so
+# tpucg's caps (FUSED_STENCIL_MAX_M = 128 and a 100 MiB slab-plus-state
+# budget, fused.py:68, :405) do not apply. What they take: any grid edge
+# 2 <= m <= FUSED_STENCIL_MAX_M (int32 indices) and any DIA matrix of
+# padded n <= FUSED_DIA_MAX_N with at most 64 diagonals, f32 or bf16.
+FUSED_STENCIL_MAX_M = STENCIL_MAX_M
+FUSED_DIA_MAX_N = 2 ** 31 - 1 - 2 ** 22  # csrc/sparse.cuh kMaxIntRows
+
+# The largest sizes fused="auto" sends to K10 and K11 (fused="always" runs
+# them up to the kernels' own limits above): the largest the card's gate
+# table measured, all won by the whole solve. cg_solve(fused="always")
+# against fused="never" on tpucg's bench system, medians of 5, each arm
+# twice in turns (chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W): the stencil
+# at m = 16 ... 192, 0.42-13.4 ms against 15-63 ms; DIA f32 and bf16 at
+# m = 32 ... 160, 0.51-10.4 ms against 15-42 ms. PERF.md keeps the table.
+FUSED_STENCIL_AUTO_MAX_M = 192
+FUSED_DIA_AUTO_MAX_N = 160 ** 3
 
 _PRECOND_CODE = {"none": 0, "jacobi": 1, "poly": 2}
 
@@ -58,8 +79,7 @@ def check_fused(A, b, x0, precondition, poly_degree, minv) -> None:
         raise ValueError(f"fused solve runs precondition none/jacobi/poly, got {precondition!r}")
     if precondition == "jacobi" and minv is None:
         raise ValueError("precondition='jacobi' requires minv")
-    if precondition == "poly" and poly_degree < 1:
-        raise ValueError("precondition='poly' requires poly_degree >= 1")
+    _check_poly(precondition, poly_degree)
     for name, v in (("b", b), ("x0", x0)) + ((("minv", minv),) if precondition == "jacobi" else ()):
         _check_vector(name, v, (npad,), A)
 
@@ -148,3 +168,139 @@ def fused_batch_cg_solve_cuda(A, b, x0, *, tol, maxiter, safe_alpha=True,
 
 
 fused_batch_cg_solve_cuda.launches = 0
+
+
+def _check_poly(precondition, poly_degree) -> None:
+    if precondition == "poly" and poly_degree < 1:
+        raise ValueError("precondition='poly' requires poly_degree >= 1")
+
+
+def fused_stencil_supported(m: int) -> bool:
+    """K10 runs a grid edge 2 <= m <= ``FUSED_STENCIL_MAX_M``."""
+    return 2 <= m <= FUSED_STENCIL_MAX_M
+
+
+def check_fused_stencil(b, x0, m, precondition, poly_degree) -> None:
+    """K10's operands, with tpucg's messages (``fused.py:351-360``; K10's
+    wrapper and its plain version both check them). The stencil refuses
+    jacobi: its diagonal is the constant 6, so z = r/6 changes no iterate."""
+    if not fused_stencil_supported(m):
+        raise ValueError(
+            f"fused stencil solve needs 2 <= m <= {FUSED_STENCIL_MAX_M}, got m={m}"
+        )
+    if precondition not in ("none", "poly"):
+        raise ValueError(
+            f"fused stencil solve supports precondition none/poly, got {precondition!r}"
+        )
+    _check_poly(precondition, poly_degree)
+    for name, v in (("b", b), ("x0", x0)):
+        _check_vector(name, v, (m ** 3,), b)
+
+
+def fused_dia_supported(n: int, offsets) -> bool:
+    """K11 runs 1 to 64 diagonals over a padded length n <= ``FUSED_DIA_MAX_N``."""
+    return 1 <= n <= FUSED_DIA_MAX_N and 1 <= len(offsets) <= DIA_MAX_DIAGS
+
+
+def check_fused_dia(data, offsets, b, x0, precondition, poly_degree) -> None:
+    """K11's operands, with tpucg's messages (``fused.py:514-524``; K11's
+    wrapper and its plain version both check them). Jacobi reads 1/diag from
+    the stored main diagonal, so it needs offset 0."""
+    offsets = tuple(int(o) for o in offsets)
+    if data.dim() != 2 or data.shape[0] != len(offsets):
+        raise ValueError(
+            f"fused DIA solve needs a (ndiag, n) slab for {len(offsets)} offsets, got "
+            f"{tuple(data.shape)}"
+        )
+    npad = data.shape[1]
+    if not fused_dia_supported(npad, offsets):
+        raise ValueError(
+            f"fused DIA solve unsupported for n={npad}, ndiag={len(offsets)} "
+            f"(1 to {DIA_MAX_DIAGS} diagonals, n <= {FUSED_DIA_MAX_N})"
+        )
+    if data.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"fused DIA solve stores f32 or bf16 slabs, got {data.dtype}")
+    if precondition not in _PRECOND_CODE:
+        raise ValueError(
+            f"fused DIA solve runs precondition none/jacobi/poly, got {precondition!r}"
+        )
+    if precondition == "jacobi" and 0 not in offsets:
+        raise ValueError("jacobi needs a stored main diagonal")
+    _check_poly(precondition, poly_degree)
+    for name, v in (("b", b), ("x0", x0)):
+        _check_vector(name, v, (npad,), data)
+
+
+def dia_minv(data, offsets) -> torch.Tensor:
+    """1/diag from the slab's main diagonal (1 where it is 0), f32: the
+    Jacobi inverse K11 and its plain version read, as tpucg's kernel reads
+    it from its resident slab (``fused.py:464-470``)."""
+    d = data[list(int(o) for o in offsets).index(0)].to(torch.float32)
+    return torch.where(d != 0, 1.0 / d, 1.0)
+
+
+def _solve_outputs(n, like):
+    return (torch.empty(n, dtype=torch.float32, device=like.device),
+            torch.empty((), dtype=torch.int32, device=like.device),
+            torch.empty((), dtype=torch.float32, device=like.device),
+            torch.empty(int(_lib.load().tpucg_fused_sparse_scratch(n)), dtype=torch.float32,
+                        device=like.device))
+
+
+def _require_cuda(what, *ts) -> None:
+    if any(t.device.type != "cuda" or not t.is_contiguous() for t in ts):
+        raise ValueError(f"{what} needs contiguous tensors on a CUDA device, got "
+                         f"{[str(t.device) for t in ts]}")
+
+
+def fused_stencil_cg_solve_cuda(b, x0, m, *, tol, maxiter, safe_alpha=True,
+                                precondition="none", poly_degree=0):
+    """K10 on the card: one cooperative launch runs the whole matrix-free
+    Poisson CG (``"none"``) or poly-PCG (``"poly"``, degree ``poly_degree``,
+    12 in-kernel power iterations) solve on an m^3 grid. ``b`` and ``x0``
+    are (m^3,) f32 on the card. Raises if the card refuses the launch."""
+    check_fused_stencil(b, x0, m, precondition, poly_degree)
+    _require_cuda("fused_stencil_cg_solve_cuda", b, x0)
+    x, k, rr, scratch = _solve_outputs(m ** 3, b)
+    err = _lib.load().tpucg_fused_stencil_cg_f32(
+        b.data_ptr(), x0.data_ptr(), x.data_ptr(), k.data_ptr(), rr.data_ptr(),
+        scratch.data_ptr(), m, float(tol), int(maxiter), int(bool(safe_alpha)),
+        _PRECOND_CODE[precondition], int(poly_degree), cuda_stream(b),
+    )
+    if err:
+        _lib.check(err, "fused_stencil_cg_solve_cuda")
+    fused_stencil_cg_solve_cuda.launches += 1
+    return x, k, rr
+
+
+fused_stencil_cg_solve_cuda.launches = 0
+
+
+def fused_dia_cg_solve_cuda(data, offsets, b, x0, *, tol, maxiter, safe_alpha=True,
+                            precondition="none", poly_degree=0):
+    """K11 on the card: one cooperative launch runs the whole banded CG /
+    Jacobi / poly-PCG solve of the DIA matrix (``data`` (ndiag, npad) f32 or
+    bf16 on the card, ``offsets`` its ndiag offsets). The slab streams from
+    where it lies every lap and is never copied. ``b`` and ``x0`` are
+    (npad,) f32. Raises if the card refuses the launch."""
+    check_fused_dia(data, offsets, b, x0, precondition, poly_degree)
+    _require_cuda("fused_dia_cg_solve_cuda", data, b, x0)
+    npad = data.shape[1]
+    minv = dia_minv(data, offsets) if precondition == "jacobi" else None
+    offs = offsets_array(offsets)
+    x, k, rr, scratch = _solve_outputs(npad, b)
+    lib = _lib.load()
+    fn = lib.tpucg_fused_dia_cg_f32 if data.dtype == torch.float32 else lib.tpucg_fused_dia_cg_bf16
+    err = fn(
+        data.data_ptr(), offs.ctypes.data, offs.size, b.data_ptr(), x0.data_ptr(),
+        None if minv is None else minv.data_ptr(), x.data_ptr(), k.data_ptr(), rr.data_ptr(),
+        scratch.data_ptr(), npad, float(tol), int(maxiter), int(bool(safe_alpha)),
+        _PRECOND_CODE[precondition], int(poly_degree), cuda_stream(b),
+    )
+    if err:
+        _lib.check(err, "fused_dia_cg_solve_cuda")
+    fused_dia_cg_solve_cuda.launches += 1
+    return x, k, rr
+
+
+fused_dia_cg_solve_cuda.launches = 0

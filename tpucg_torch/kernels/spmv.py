@@ -1,0 +1,144 @@
+"""DIA SpMV, y[i] = sum_d data[d, i] * x[i + offsets[d]] with zero fill
+outside [0, n): K6 of the port; ``csrc/sparse.cu`` holds the kernel and its
+design note. The slab is the canonical (ndiag, npad) layout in f32 or bf16,
+with f32 sums. tpucg's row-interleaved packing (``dia_interleave``) was a
+TPU DMA layout; it is kept here, in NumPy, for carrying tpucg's operators
+across only.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from tpucg_torch.kernels import _lib
+from tpucg_torch.kernels.dispatch import check_active, cuda_stream, resolve_backend
+
+LANE = 128  # tpucg's lane width: the interleaved layout's block
+DIA_MAX_DIAGS = 64  # K6 takes the offsets by value (tpucg's cap, spmv.py:102)
+
+
+def dia_supported(n: int, offsets: Sequence[int]) -> bool:
+    """The port's own limits on a DIA operator: 1 to ``DIA_MAX_DIAGS``
+    diagonals and n >= 1. tpucg's lane tiling and VMEM budget
+    (``spmv.py:91``) are TPU rules and do not apply."""
+    return n >= 1 and 1 <= len(offsets) <= DIA_MAX_DIAGS
+
+
+def offsets_array(offsets: Sequence[int]) -> np.ndarray:
+    """The offsets as the contiguous int64 host array the kernels copy."""
+    return np.ascontiguousarray(np.asarray(offsets, dtype=np.int64).reshape(-1))
+
+
+def _shift(x: torch.Tensor, off: int) -> torch.Tensor:
+    """result[i] = x[i + off], 0 outside [0, n) (tpucg's ``_shift_flat``)."""
+    n = x.shape[0]
+    if off == 0:
+        return x
+    if abs(off) >= n:
+        return torch.zeros_like(x)
+    if off > 0:
+        return torch.cat([x[off:], x.new_zeros(off)])
+    return torch.cat([x.new_zeros(-off), x[: n + off]])
+
+
+def dia_spmv_torch(data: torch.Tensor, offsets: Sequence[int], x: torch.Tensor) -> torch.Tensor:
+    """Plain version of K6 (tpucg's ``dia_spmv``, ``spmv.py:43-56``): one
+    shifted product per diagonal, added in offsets order from zero; bf16
+    slabs widened to f32."""
+    dia_spmv_torch.launches += 1
+    y = torch.zeros_like(x)
+    for d, off in enumerate(offsets):
+        y = y + data[d].to(torch.float32) * _shift(x, int(off))
+    return y
+
+
+dia_spmv_torch.launches = 0
+
+
+def check_dia(data: torch.Tensor, offsets: Sequence[int], x: Optional[torch.Tensor] = None) -> None:
+    """K6's operands, as ``dia_spmv_cuda`` checks them before a launch; with
+    no ``x``, the slab alone."""
+    if data.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"dia_spmv_cuda supports f32/bf16 slabs, got {data.dtype}")
+    if data.dim() != 2 or data.shape[0] != len(offsets):
+        raise ValueError(
+            f"dia_spmv_cuda needs a (ndiag, npad) slab for {len(offsets)} offsets, got "
+            f"{tuple(data.shape)}"
+        )
+    if not dia_supported(data.shape[1], offsets):
+        raise ValueError(
+            f"dia_spmv_cuda takes 1 to {DIA_MAX_DIAGS} diagonals, got {len(offsets)}"
+        )
+    if not data.is_contiguous() or data.device.type != "cuda":
+        raise ValueError(f"dia_spmv_cuda needs a contiguous slab on a CUDA device, got {data.device}")
+    if x is not None and (
+        x.dtype != torch.float32 or x.dim() != 1 or x.shape[0] != data.shape[1]
+        or not x.is_contiguous() or x.device != data.device
+    ):
+        raise ValueError(
+            f"dia_spmv_cuda needs a contiguous f32 x of length {data.shape[1]} on "
+            f"{data.device}, got {x.dtype} {tuple(x.shape)} on {x.device}"
+        )
+
+
+def dia_spmv_launch(data: torch.Tensor, offs: np.ndarray, x: torch.Tensor, y: torch.Tensor,
+                    active: Optional[int], stream: int) -> None:
+    """Launch K6, y = A x, with no checks: the caller has checked the slab
+    and x as ``dia_spmv_cuda`` does and owns y; ``offs`` is
+    ``offsets_array(offsets)``. The one place that counts K6's launches."""
+    lib = _lib.load()
+    fn = lib.tpucg_dia_spmv_f32 if data.dtype == torch.float32 else lib.tpucg_dia_spmv_bf16
+    err = fn(data.data_ptr(), offs.ctypes.data, offs.size, x.data_ptr(), y.data_ptr(),
+             data.shape[1], active, stream)
+    if err:
+        _lib.check(err, "dia_spmv_cuda")
+    dia_spmv_cuda.launches += 1
+
+
+def dia_spmv_cuda(data: torch.Tensor, offsets: Sequence[int], x: torch.Tensor, *,
+                  active: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K6 on the card. With ``active`` (0-d int32 on the device) the kernel
+    does nothing when the flag is 0, and the returned vector is undefined."""
+    check_dia(data, offsets, x)
+    check_active(active, data)
+    y = torch.empty_like(x)
+    dia_spmv_launch(data, offsets_array(offsets), x, y,
+                    None if active is None else active.data_ptr(), cuda_stream(x))
+    return y
+
+
+dia_spmv_cuda.launches = 0
+
+
+def dia_spmv(data: torch.Tensor, offsets: Sequence[int], x: torch.Tensor, backend: str = "auto",
+             active: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """DIA SpMV: K6 for a CUDA slab (``"auto"``), the plain version for a
+    CPU one; ``active`` is read by K6 only."""
+    if resolve_backend(backend, data.device) == "cuda":
+        return dia_spmv_cuda(data, offsets, x, active=active)
+    return dia_spmv_torch(data, offsets, x)
+
+
+def dia_interleave(data) -> np.ndarray:
+    """tpucg's (n//128, ndiag*128) packing of an (ndiag, n) slab: row r holds
+    diagonal d's lanes at columns [d*128, (d+1)*128) (``spmv.py:105``)."""
+    data = np.asarray(data)
+    ndiag, n = data.shape
+    rows = n // LANE
+    return np.ascontiguousarray(
+        np.transpose(data.reshape(ndiag, rows, LANE), (1, 0, 2)).reshape(rows, ndiag * LANE)
+    )
+
+
+def dia_deinterleave(data_il) -> np.ndarray:
+    """Inverse of ``dia_interleave``: (n//128, ndiag*128) back to the
+    canonical (ndiag, n) (``spmv.py:120``)."""
+    data_il = np.asarray(data_il)
+    rows = data_il.shape[0]
+    ndiag = data_il.shape[1] // LANE
+    return np.ascontiguousarray(
+        np.transpose(data_il.reshape(rows, ndiag, LANE), (1, 0, 2)).reshape(ndiag, rows * LANE)
+    )

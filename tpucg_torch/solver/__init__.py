@@ -1,5 +1,5 @@
-"""CG solver: the chunked device loops, the dense operator, the NumPy oracle,
-and the plain versions of the whole-solve kernels."""
+"""CG solver: the chunked device loops, the dense, DIA and Poisson operators,
+the NumPy oracle, and the plain versions of the whole-solve kernels."""
 
 from tpucg_torch.solver.cg import (
     CGResult,
@@ -17,8 +17,18 @@ from tpucg_torch.solver.fused import (
     fused_batch_cg_solve_torch,
     fused_cg_solve,
     fused_cg_solve_torch,
+    fused_dia_cg_solve,
+    fused_dia_cg_solve_torch,
+    fused_stencil_cg_solve,
+    fused_stencil_cg_solve_torch,
 )
-from tpucg_torch.solver.operators import DenseOperator, LinearOperator, as_operator
+from tpucg_torch.solver.operators import (
+    DenseOperator,
+    DiaOperator,
+    LinearOperator,
+    PoissonOperator,
+    as_operator,
+)
 from tpucg_torch.solver.oracle import oracle_cg
 
 __all__ = [
@@ -31,12 +41,18 @@ __all__ = [
     "fused_batch_cg_solve_torch",
     "fused_cg_solve",
     "fused_cg_solve_torch",
+    "fused_dia_cg_solve",
+    "fused_dia_cg_solve_torch",
+    "fused_stencil_cg_solve",
+    "fused_stencil_cg_solve_torch",
     "init_state",
     "lambda_max_estimate",
     "lap_ops",
     "make_poly_precond",
     "DenseOperator",
+    "DiaOperator",
     "LinearOperator",
+    "PoissonOperator",
     "as_operator",
     "oracle_cg",
 ]

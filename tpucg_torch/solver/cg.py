@@ -1,4 +1,5 @@
-"""The CG iteration on the device (the dense slice of ``tpucg.solver.cg``).
+"""The CG iteration on the device (the dense and structured-sparse slices of
+``tpucg.solver.cg``).
 
 Contract (reference ``serialConjugate.c:180-259``, as in tpucg):
 
@@ -17,11 +18,13 @@ backend its kernels read ``active`` on the device and return at once, and on
 the torch backend ``torch.where`` keeps the old values. Lap counts and
 results therefore do not depend on the chunk size.
 
-A plain f32 dense solve of padded n <= ``FUSED_AUTO_MAX_N`` on the cuda
-backend (any n <= ``FUSED_MAX_N`` with ``fused="always"``) skips the lap
-loop: the whole-solve kernel K4 runs it in one launch (``_fused_eligible``).
-``cg_solve_batch`` solves B independent systems, through the batched kernel
-K5 where it applies and ``batch_cg_loop`` elsewhere.
+The lap's matvec is the operator's kernel: K1 for a ``DenseOperator``, K6
+for a ``DiaOperator``, K8 for a ``PoissonOperator``; K2 and K3 do the rest.
+A plain f32 solve that ``_fused_eligible`` admits on the cuda backend skips
+the lap loop: a whole-solve kernel runs it in one launch, K4 (dense), K10
+(Poisson stencil) or K11 (DIA). ``cg_solve_batch`` solves B independent
+systems, through the batched kernel K5 where it applies and
+``batch_cg_loop`` elsewhere.
 """
 
 from __future__ import annotations
@@ -45,12 +48,24 @@ from tpucg_torch.kernels.dispatch import canonical_device, cuda_stream, resolve_
 from tpucg_torch.kernels.fused import (
     FUSED_AUTO_MAX_N,
     FUSED_BATCH_MAX_N,
+    FUSED_DIA_AUTO_MAX_N,
     FUSED_MAX_N,
+    FUSED_STENCIL_AUTO_MAX_M,
     fused_batch_cg_solve_cuda,
     fused_cg_solve_cuda,
+    fused_dia_cg_solve_cuda,
+    fused_dia_supported,
+    fused_stencil_cg_solve_cuda,
+    fused_stencil_supported,
 )
-from tpucg_torch.kernels.matvec import check_matvec, gemv_launch, matvec_cuda
-from tpucg_torch.solver.operators import DenseOperator, LinearOperator, as_operator, padded_size
+from tpucg_torch.solver.operators import (
+    DenseOperator,
+    DiaOperator,
+    LinearOperator,
+    PoissonOperator,
+    as_operator,
+    padded_size,
+)
 
 CHUNK_MAX = 64  # laps per host read, once the chunks have grown
 POWER_ITERS = 12  # power iterations of the poly preconditioner's lambda_max
@@ -178,15 +193,16 @@ def lap_ops(op: LinearOperator, backend: str):
     backend must be ``backend``: one choice runs the whole lap, and a
     mismatch raises instead of mixing plain and hand-written kernels.
 
-    On ``"cuda"`` the kernels read the flag on the device and return at once
-    when it is 0, leaving their outputs undefined (every consumer in
+    On ``"cuda"`` the matvec is the operator's kernel (``op.launcher()``:
+    K1, K6 or K8) and the kernels read the flag on the device and return at
+    once when it is 0, leaving their outputs undefined (every consumer in
     ``cg_loop`` is masked by the flag), and the update writes x and r in
     place, so a frozen lap costs launches and nothing else. On ``"torch"``
     the plain versions run and the update keeps x and r with ``torch.where``.
     """
     _require_backend(op, backend)
     if backend == "cuda":
-        return _cuda_lap_ops(op.A)
+        return _cuda_lap_ops(op)
 
     def dot(u, v, act):
         return dot_torch(u, v)
@@ -198,34 +214,32 @@ def lap_ops(op: LinearOperator, backend: str):
     return op.matvec, dot, update
 
 
-def _cuda_lap_ops(A: torch.Tensor):
-    """K1/K2/K3 for ``cg_loop`` with the per-call host work moved out of the
-    lap: A is checked, the stream taken and every buffer allocated once,
-    here, and the laps call the launch cores. A lap's outputs (Ap, the dots,
-    beta) live in these buffers and the next lap overwrites them; every
-    consumer in ``cg_loop`` reads them in the same lap, in stream order.
-    Calls without a flag (``init_state``) go through the checked wrappers
-    and get fresh outputs, which the state keeps. ``cg_loop`` checks its
-    vectors once; K1 checks x's length every lap, so no launch reads past A.
+def _cuda_lap_ops(op: LinearOperator):
+    """The operator's matvec kernel (K1, K6 or K8) and K2/K3 for
+    ``cg_loop``, with the per-call host work moved out of the lap: the
+    operator is checked (``op.launcher()``), the stream taken and every
+    buffer allocated once, here, and the laps call the launch cores. A lap's
+    outputs (Ap, the dots, beta) live in these buffers and the next lap
+    overwrites them; every consumer in ``cg_loop`` reads them in the same
+    lap, in stream order. Calls without a flag (``init_state``) go through
+    the checked wrappers and get fresh outputs, which the state keeps.
+    ``cg_loop`` checks its vectors once; the matvec checks x's length every
+    lap, so no launch reads past the operator.
     """
-    check_matvec(A)
-    rows, cols = A.shape
-    if rows != cols:
-        raise ValueError(f"the CG lap needs a square A, got {tuple(A.shape)}")
-    dev, stream = A.device, cuda_stream(A)
-    y = torch.empty(rows, dtype=torch.float32, device=dev)
+    launch = op.launcher()
+    n, dev = op.padded_n, op.device
+    y = torch.empty(n, dtype=torch.float32, device=dev)
+    stream = cuda_stream(y)
     d = torch.empty((), dtype=torch.float32, device=dev)
     beta = torch.empty((), dtype=torch.float32, device=dev)
     scratch = scratch_for(y)  # K2 and K3 run one after the other on `stream`
 
     def matvec(x, act):
         if act is None:
-            return matvec_cuda(A, x)
-        if x.shape[0] != cols or x.device != dev:
-            raise ValueError(
-                f"x {tuple(x.shape)} on {x.device} for A {tuple(A.shape)} on {dev}"
-            )
-        gemv_launch(A, x, y, act.data_ptr(), stream)
+            return op.matvec(x)
+        if x.shape[0] != n or x.device != dev:
+            raise ValueError(f"x {tuple(x.shape)} on {x.device} for an operator of {n} on {dev}")
+        launch(x, y, act.data_ptr(), stream)
         return y
 
     def dot(u, v, act):
@@ -433,20 +447,57 @@ def _check_supported(config: CGConfig, interval, two_level) -> None:
 
 def _fused_eligible(config: CGConfig, op: LinearOperator, backend: str, dtype,
                     record_residuals: bool) -> Optional[str]:
-    """``"dense"`` when a solve runs as one launch of K4 (tpucg's gate, its
-    dense arm, with ``"pallas"`` read as ``"cuda"``), else None: a plain
-    (``method="cg"``, no residual history) f32 solve of an f32
-    ``DenseOperator`` on the cuda backend, preconditioned by none, jacobi or
-    poly (K4 runs the PCG recurrence in the kernel; block Jacobi keeps the
-    lap path), padded n a multiple of 128 and at most ``FUSED_MAX_N`` under
-    ``fused="always"`` or ``FUSED_AUTO_MAX_N`` under ``"auto"``. bf16
-    storage keeps the lap path."""
+    """Which whole-solve kernel runs a solve in one launch: ``"dense"``
+    (K4), ``"stencil"`` (K10) or ``"dia"`` (K11), else None (the lap path).
+    This is tpucg's gate (``cg.py:2489-2542``) with ``"pallas"`` read as
+    ``"cuda"``: a plain (``method="cg"``, no residual history) f32 solve on
+    the cuda backend, preconditioned by what the kernel runs in-kernel
+    (block Jacobi keeps the lap path):
+
+    - ``DenseOperator``, f32 storage, none/jacobi/poly, padded n a multiple
+      of 128 and at most ``FUSED_MAX_N`` under ``fused="always"`` or
+      ``FUSED_AUTO_MAX_N`` under ``"auto"``; bf16 storage keeps the lap path;
+    - ``PoissonOperator``, none/poly (jacobi is an iterate-exact no-op on
+      the constant diagonal, so tpucg keeps it on the lap path);
+    - ``DiaOperator``, f32 or bf16 slab, none/poly, and jacobi when 0 is
+      among the offsets.
+
+    The sparse size caps are the card's own. Where the port's route differs
+    from tpucg's (each pinned by ``tests/test_torch_fused_sparse.py``):
+
+    - Poisson grids that are not lane-tileable ((m*m) % 128 != 0, e.g.
+      m = 10) and 128 < m <= ``FUSED_STENCIL_AUTO_MAX_M`` run K10 here and
+      tpucg's lap path there; ``fused="always"`` runs K10 up to
+      ``FUSED_STENCIL_MAX_M``, beyond tpucg's 128;
+    - DIA operators whose slab plus solve state exceed tpucg's 100 MiB VMEM
+      budget (f32 at m = 128 Poisson, 58.7 MB + 67 MB) run K11 here, up to
+      padded n ``FUSED_DIA_AUTO_MAX_N`` (any n K11 takes under "always");
+      so do DIA operators whose length is not a multiple of 128 (no main
+      diagonal to pad), which tpucg cannot lane-tile;
+    - tpucg's ``"xla"`` operators (``PoissonOperator(kernel="xla")``,
+      ``DiaOperator.from_dia(backend="xla")``) have no counterpart: a port
+      operator's backend is its device's.
+    """
     if config.fused == "never" or backend != "cuda":
         return None
     if config.method != "cg" or record_residuals or dtype != torch.float32:
         return None
-    if config.precondition not in ("none", "jacobi", "poly"):
+    pc = config.precondition
+    if pc not in ("none", "jacobi", "poly"):
         return None
+    always = config.fused == "always"
+    if isinstance(op, PoissonOperator):
+        if pc == "jacobi" or not fused_stencil_supported(op.m):
+            return None
+        return "stencil" if always or op.m <= FUSED_STENCIL_AUTO_MAX_M else None
+    if isinstance(op, DiaOperator):
+        if pc == "jacobi" and 0 not in op.offsets:
+            return None
+        if op.data.dtype not in (torch.float32, torch.bfloat16):
+            return None
+        if not fused_dia_supported(op.padded_n, op.offsets):
+            return None
+        return "dia" if always or op.padded_n <= FUSED_DIA_AUTO_MAX_N else None
     if not isinstance(op, DenseOperator) or op.A.dtype != torch.float32:
         return None
     npad = op.padded_n
@@ -483,16 +534,17 @@ def cg_solve(
     """Solve the SPD system A x = b (tpucg's ``cg_solve`` with the
     classic-CG branch of its ``_cg_jit``).
 
-    ``A`` is a dense array or tensor, or a ``DenseOperator``. ``device``
+    ``A`` is a dense array or tensor, a ``DIAMatrix``, or an operator
+    (``DenseOperator``, ``DiaOperator``, ``PoissonOperator``). ``device``
     defaults to the device of a tensor or operator ``A``, else the card when
     there is one; ``kernel="auto"`` then runs the CUDA kernels on a CUDA
     device and the plain versions elsewhere. On the cuda backend a solve
-    ``_fused_eligible`` admits runs as one launch of K4 (``fused="auto"``:
-    padded n <= ``FUSED_AUTO_MAX_N``; ``"always"``: n <= ``FUSED_MAX_N``);
-    every other solve, and ``fused="never"``, takes the lap path
-    (``cg_loop`` on K1-K3). ``precondition`` is ``"none"``, ``"jacobi"`` or
-    ``"poly"`` (degree ``poly_degree``). ``record_residuals`` returns the
-    per-lap ||r|| in ``residual_history``; ``chunk`` is ``cg_loop``'s.
+    ``_fused_eligible`` admits runs as one launch of K4, K10 or K11; every
+    other solve, and ``fused="never"``, takes the lap path (``cg_loop`` on
+    the operator's matvec kernel, K2 and K3). ``precondition`` is
+    ``"none"``, ``"jacobi"`` or ``"poly"`` (degree ``poly_degree``).
+    ``record_residuals`` returns the per-lap ||r|| in
+    ``residual_history``; ``chunk`` is ``cg_loop``'s.
     """
     config = _configure(config, overrides)
     _check_supported(config, interval, two_level)
@@ -526,12 +578,17 @@ def cg_solve(
         minv = torch.where(d != 0, 1.0 / d, 1.0)
     tol = float(config.tol)
     poly = config.precondition == "poly"
-    if _fused_eligible(config, op, backend, config.dtype, record_residuals) == "dense":
-        x, k, rr = fused_cg_solve_cuda(
-            op.A, b, x0, tol=tol, maxiter=maxiter, safe_alpha=bool(config.safe_alpha),
-            precondition=config.precondition, poly_degree=config.poly_degree if poly else 0,
-            minv=minv,
-        )
+    kind = _fused_eligible(config, op, backend, config.dtype, record_residuals)
+    if kind is not None:
+        kw = dict(tol=tol, maxiter=maxiter, safe_alpha=bool(config.safe_alpha),
+                  precondition=config.precondition,
+                  poly_degree=config.poly_degree if poly else 0)
+        if kind == "dense":
+            x, k, rr = fused_cg_solve_cuda(op.A, b, x0, minv=minv, **kw)
+        elif kind == "stencil":
+            x, k, rr = fused_stencil_cg_solve_cuda(b, x0, op.m, **kw)
+        else:
+            x, k, rr = fused_dia_cg_solve_cuda(op.data, op.offsets, b, x0, **kw)
         return _fused_result(x[:n], k, rr, tol)
     matvec, dot, update = lap_ops(op, backend)
     precond = make_precond(config.precondition, minv, matvec, dot, b, config.poly_degree)

@@ -1,15 +1,17 @@
-"""The plain versions of the whole-solve kernels K4 and K5, and the
-dispatchers that pick kernel or plain version by the tensors' device.
+"""The plain versions of the whole-solve kernels K4, K5, K10 and K11, and
+the dispatchers that pick kernel or plain version by the tensors' device.
 
 The kernels' wrappers (``tpucg_torch.kernels.fused``) check the operands
 and launch one kernel; the plain versions check the same operands, with the
 same messages, and run the same recurrence (tpucg's ``_cg_while``) through
 this package's loops on plain torch ops: ``cg_loop`` on the plain lap
-kernels for one system, ``batch_cg_loop`` with ``torch.bmm`` for a batch.
-They return what the kernels return, ``(x, k, rr)``, and read nothing back
-to the host beyond the loops' one flag per chunk of laps. ``cg_solve`` and
-``cg_solve_batch`` never call them: they serve the tests and the card's
-checks of K4 and K5.
+kernels for one system (the dense GEMV, the DIA SpMV or the stencil),
+``batch_cg_loop`` with ``torch.bmm`` for a batch; poly comes through
+``make_poly_precond`` (the kernels' power method, from the same seed over
+the padded length). They return what the kernels return, ``(x, k, rr)``,
+and read nothing back to the host beyond the loops' one flag per chunk of
+laps. ``cg_solve`` and ``cg_solve_batch`` never call them: they serve the
+tests and the card's checks of the kernels.
 """
 
 from __future__ import annotations
@@ -18,11 +20,16 @@ from tpucg_torch.kernels.dispatch import resolve_backend
 from tpucg_torch.kernels.fused import (
     check_fused,
     check_fused_batch,
+    check_fused_dia,
+    check_fused_stencil,
+    dia_minv,
     fused_batch_cg_solve_cuda,
     fused_cg_solve_cuda,
+    fused_dia_cg_solve_cuda,
+    fused_stencil_cg_solve_cuda,
 )
 from tpucg_torch.solver.cg import batch_cg_loop, batch_matvec, cg_loop, lap_ops, make_precond
-from tpucg_torch.solver.operators import DenseOperator
+from tpucg_torch.solver.operators import DenseOperator, DiaOperator, PoissonOperator
 
 
 def fused_cg_solve_torch(A, b, x0, *, tol, maxiter, safe_alpha=True, precondition="none",
@@ -32,7 +39,14 @@ def fused_cg_solve_torch(A, b, x0, *, tol, maxiter, safe_alpha=True, preconditio
     method from the same seed as the kernel's)."""
     fused_cg_solve_torch.launches += 1
     check_fused(A, b, x0, precondition, poly_degree, minv)
-    matvec, dot, update = lap_ops(DenseOperator(A=A, n=A.shape[0], backend="torch"), "torch")
+    return _plain_solve(DenseOperator(A=A, n=A.shape[0], backend="torch"), b, x0, minv,
+                        tol=tol, maxiter=maxiter, safe_alpha=safe_alpha,
+                        precondition=precondition, poly_degree=poly_degree)
+
+
+def _plain_solve(op, b, x0, minv, *, tol, maxiter, safe_alpha, precondition, poly_degree):
+    """``cg_loop`` on ``op``'s plain lap kernels: the plain K4/K10/K11."""
+    matvec, dot, update = lap_ops(op, "torch")
     precond = make_precond(precondition, minv, matvec, dot, b, poly_degree)
     s = cg_loop(matvec, dot, update, b, x0, tol=tol, maxiter=maxiter,
                 safe_alpha=safe_alpha, precond=precond)
@@ -57,6 +71,35 @@ def fused_batch_cg_solve_torch(A, b, x0, *, tol, maxiter, safe_alpha=True,
 fused_batch_cg_solve_torch.launches = 0
 
 
+def fused_stencil_cg_solve_torch(b, x0, m, *, tol, maxiter, safe_alpha=True,
+                                 precondition="none", poly_degree=0):
+    """Plain version of K10: ``cg_loop`` on the plain stencil (a plain
+    ``PoissonOperator`` on b's device)."""
+    fused_stencil_cg_solve_torch.launches += 1
+    check_fused_stencil(b, x0, m, precondition, poly_degree)
+    op = PoissonOperator(m=m, backend="torch", device=b.device)
+    return _plain_solve(op, b, x0, None, tol=tol, maxiter=maxiter, safe_alpha=safe_alpha,
+                        precondition=precondition, poly_degree=poly_degree)
+
+
+fused_stencil_cg_solve_torch.launches = 0
+
+
+def fused_dia_cg_solve_torch(data, offsets, b, x0, *, tol, maxiter, safe_alpha=True,
+                             precondition="none", poly_degree=0):
+    """Plain version of K11: ``cg_loop`` on the plain DIA SpMV of the slab,
+    jacobi's 1/diag read from its main diagonal as K11 reads it."""
+    fused_dia_cg_solve_torch.launches += 1
+    check_fused_dia(data, offsets, b, x0, precondition, poly_degree)
+    op = DiaOperator(data=data, offsets=offsets, n=data.shape[1], backend="torch")
+    minv = dia_minv(data, offsets) if precondition == "jacobi" else None
+    return _plain_solve(op, b, x0, minv, tol=tol, maxiter=maxiter, safe_alpha=safe_alpha,
+                        precondition=precondition, poly_degree=poly_degree)
+
+
+fused_dia_cg_solve_torch.launches = 0
+
+
 def fused_cg_solve(A, b, x0, *, backend: str = "auto", **kw):
     """K4 for a CUDA tensor (``"auto"``), its plain version for a CPU one."""
     if resolve_backend(backend, A.device) == "cuda":
@@ -69,3 +112,17 @@ def fused_batch_cg_solve(A, b, x0, *, backend: str = "auto", **kw):
     if resolve_backend(backend, A.device) == "cuda":
         return fused_batch_cg_solve_cuda(A, b, x0, **kw)
     return fused_batch_cg_solve_torch(A, b, x0, **kw)
+
+
+def fused_stencil_cg_solve(b, x0, m, *, backend: str = "auto", **kw):
+    """K10 for a CUDA tensor (``"auto"``), its plain version for a CPU one."""
+    if resolve_backend(backend, b.device) == "cuda":
+        return fused_stencil_cg_solve_cuda(b, x0, m, **kw)
+    return fused_stencil_cg_solve_torch(b, x0, m, **kw)
+
+
+def fused_dia_cg_solve(data, offsets, b, x0, *, backend: str = "auto", **kw):
+    """K11 for a CUDA slab (``"auto"``), its plain version for a CPU one."""
+    if resolve_backend(backend, data.device) == "cuda":
+        return fused_dia_cg_solve_cuda(data, offsets, b, x0, **kw)
+    return fused_dia_cg_solve_torch(data, offsets, b, x0, **kw)
