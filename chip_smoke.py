@@ -54,8 +54,27 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    and bf16), medians of 5, each arm twice in turns.
 11. whole-solve K10/K11 vs plain at m = 16, 32, 64 with a nonzero x0: laps
    within one, x within 1e-4 of max |x|, repeats bit-identical.
+12. irregular K13 vs plain: tpucg's WELL packing of the P1 FEM stiffness
+   matrix (``fem_p1_system(300_000, seed=0)``, mesh order) and the random
+   geometric graph Laplacian (``random_geometric_spd(1_000_000, seed=0,
+   avg_degree=12.0)``), values f32 and bf16: K13 bit-identical to its plain
+   version and to its repeat (else within 1e-6 of sum |a_ij x_j|), the K14
+   name the same; µs per launch (``device_timing``) against the bound and
+   the torch CSR product, Gnnz/s, the group imbalance.
+13. FEM .mtx solve: the FEM system written to .mtx and solved through
+   ``cli.main(["solve", A.mtx, b.mtx, "--precondition", "jacobi", ...])``
+   at tol 1e-5 ||b||: ``best_sparse_operator`` picks ``WellOperator``, K13,
+   K2 and K3 run and no plain version; it converges, its float64 ||b - A
+   x|| / ||b|| is within the bound PERF.md states, its laps within 1% of the
+   plain route's on the card; the median of 3 solves and the load,
+   promotion and packing seconds.
+14. batched banded K12: tpucg's battery of 256 tridiagonal systems of n =
+   1024 through ``cg_solve_batch_banded``, none and jacobi, f32 and bf16
+   slabs, one K12 launch each; K12 against its plain version (laps within
+   one, x within 1e-4 of max |x|, repeats bit-identical) and laps equal on
+   a battery whose spectra set them; ms per battery against the plain loop.
 
-The line before last is a JSON object of the kernels (K1-K6, K8, K10, K11:
+The line before last is a JSON object of the kernels (K1-K6, K8, K10-K14:
 launches on the main path, error against the plain version, times, the
 bound and the library call's time); the last line is ``{"ok": true,
 "device": {...}}``. Any failure exits non-zero without it, as does a
@@ -63,8 +82,12 @@ machine without CUDA or a directory without the package.
 """
 
 import contextlib
+import dataclasses
+import io
 import json
+import re
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -107,9 +130,15 @@ def main() -> int:
     sys.path.insert(0, str(pkg_root / "tests"))
     from _torch_helpers import circulant_spd_batch, scaled_err, shifted_spd_batch
 
-    from _torch_helpers import BAND_SETS, random_banded_dia
+    from _torch_helpers import (
+        BAND_SETS,
+        banded_battery,
+        banded_spectrum_battery,
+        random_banded_dia,
+    )
 
     from tpucg_torch.bench.timing import (
+        csr_spmv_bytes,
         device_seconds_per_call,
         dia_spmv_bytes,
         gemv_bytes,
@@ -119,12 +148,19 @@ def main() -> int:
         rate_line,
         stencil_bytes,
         time_fn,
+        trace_calls,
+        well_spmv_bytes,
     )
+    from tpucg_torch import cli
     from tpucg_torch.io.generator import (
+        fem_p1_system,
         generate_spd_system,
         generate_spd_system_f32,
         poisson3d_dia,
+        random_geometric_spd,
     )
+    from tpucg_torch.io.mmio import load_matrix_market, save_matrix_market
+    from tpucg_torch.io.textio import load_vector
     from tpucg_torch.io.golden import GOLDEN_2X2, GOLDEN_4X4
     from tpucg_torch.kernels import _lib
     from tpucg_torch.kernels.blas1 import (
@@ -139,29 +175,50 @@ def main() -> int:
         FUSED_DIA_AUTO_MAX_N,
         FUSED_STENCIL_AUTO_MAX_M,
         fused_batch_cg_solve_cuda,
+        fused_batch_dia_cg_solve_cuda,
         fused_cg_solve_cuda,
         fused_dia_cg_solve_cuda,
         fused_stencil_cg_solve_cuda,
     )
+    from tpucg_torch.kernels.gather_spmv import (
+        well_spmv_cuda,
+        well_spmv_fused_gather,
+        well_spmv_torch,
+    )
     from tpucg_torch.kernels.matvec import matvec_cuda, matvec_torch
     from tpucg_torch.kernels.spmv import dia_spmv_cuda, dia_spmv_torch
     from tpucg_torch.kernels.stencil import poisson3d_cuda, poisson3d_torch
-    from tpucg_torch.solver.cg import batch_cg_loop, batch_matvec, cg_solve, cg_solve_batch
+    from tpucg_torch.solver.cg import (
+        batch_cg_loop,
+        batch_matvec,
+        cg_solve,
+        cg_solve_batch,
+        cg_solve_batch_banded,
+    )
     from tpucg_torch.solver.fused import (
         fused_batch_cg_solve_torch,
+        fused_batch_dia_cg_solve_torch,
         fused_cg_solve_torch,
         fused_dia_cg_solve_torch,
         fused_stencil_cg_solve_torch,
     )
-    from tpucg_torch.solver.operators import DenseOperator, DiaOperator, PoissonOperator
+    from tpucg_torch.solver.operators import (
+        DenseOperator,
+        DiaOperator,
+        PoissonOperator,
+        WellOperator,
+        best_sparse_operator,
+    )
     from tpucg_torch.solver.oracle import oracle_cg
+    from tpucg_torch.sparse.well import csr_to_well
 
     wrappers = (matvec_cuda, matvec_torch, dot_cuda, dot_torch,
                 fused_update_cuda, fused_update_torch, dia_spmv_cuda, dia_spmv_torch,
-                poisson3d_cuda, poisson3d_torch)
+                poisson3d_cuda, poisson3d_torch, well_spmv_cuda, well_spmv_torch)
     whole = (fused_cg_solve_cuda, fused_cg_solve_torch, fused_batch_cg_solve_cuda,
              fused_batch_cg_solve_torch, fused_stencil_cg_solve_cuda,
-             fused_stencil_cg_solve_torch, fused_dia_cg_solve_cuda, fused_dia_cg_solve_torch)
+             fused_stencil_cg_solve_torch, fused_dia_cg_solve_cuda, fused_dia_cg_solve_torch,
+             fused_batch_dia_cg_solve_cuda, fused_batch_dia_cg_solve_torch)
 
     def drive(fn):
         """Run one main-path call with every launch count at 0 just before
@@ -816,6 +873,228 @@ def main() -> int:
                       "of max |x| (bound 1e-4), repeat bit-identical")
         del ops128
 
+    # The f32 true-residual bound of the FEM solve (PERF.md, written before
+    # the first run): FEM's b ~ 1/n makes A x cancel, so the float64
+    # ||b - A x|| / ||b|| of an f32 x sits near eps32 |A| |x| / |b|.
+    fem_residual_bound = 0.25
+
+    def torch_csr_of(csr):
+        """A host CSR as a torch CSR tensor on the card: the library call
+        (library_ms), never used by the port."""
+        return torch.sparse_csr_tensor(
+            torch.as_tensor(csr.indptr, dtype=torch.int64, device=dev),
+            torch.as_tensor(csr.indices, dtype=torch.int64, device=dev),
+            torch.as_tensor(csr.data, dtype=torch.float32, device=dev), csr.shape)
+
+    with phase("irregular K13 vs plain"):
+        t0 = time.perf_counter()
+        A_fem, b_fem, _ = fem_p1_system(300_000, seed=0)
+        fem_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        A_geo, _, _ = random_geometric_spd(1_000_000, seed=0, avg_degree=12.0)
+        geo_s = time.perf_counter() - t0
+        print(f"built FEM n={A_fem.shape[0]} nnz={A_fem.nnz} in {fem_s:.2f} s, geometric "
+              f"n={A_geo.shape[0]} nnz={A_geo.nnz} in {geo_s:.2f} s (host)")
+        counts["well_spmv_cuda"] = 0
+        err["K13"] = err["K14"] = 0.0
+        for label, A in (("FEM 300k", A_fem), ("geometric 1M", A_geo)):
+            t0 = time.perf_counter()
+            op32 = WellOperator.from_csr(A, device=dev)
+            pack_s = time.perf_counter() - t0
+            ns, npad = op32.vals.shape[0], op32.padded_n
+            g = torch.diff(op32.gptr.long())[: op32.n_groups].double()
+            print(f"{label}: NS={ns} sublanes, BS={op32.gidl.shape[1]}, nsg={op32.nsg}, fill "
+                  f"{A.nnz / (ns * 128):.4f}, groups {op32.n_groups}, sublanes a group max "
+                  f"{int(g.max())} mean {float(g.mean()):.2f} (imbalance "
+                  f"{float(g.max() / g.mean()):.2f}); pack + place {pack_s:.2f} s")
+            csr_t = torch_csr_of(A)
+            x2 = rnd(op32.n_groups, 128)
+            xv = x2.reshape(-1)[: A.shape[0]].contiguous()
+            for dt, dname in ((f32, "f32"), (bf16, "bf16")):
+                op = op32 if dt == f32 else dataclasses.replace(op32, vals=op32.vals.to(bf16))
+                args = (op.vals, op.lidx, op.gidl, op.wrow, op.sgb, x2, op.bg, op.nsg)
+                index = (op.gptr, op.gsub)
+
+                def fk():
+                    return well_spmv_cuda(*args, index=index)
+
+                y, yp = fk(), well_spmv_torch(*args)
+                scale = well_spmv_torch(op.vals.abs(), *args[1:5], x2.abs(), op.bg, op.nsg)
+                e = float((y - yp).abs().max())
+                rel = float(((y - yp).abs() / scale.clamp_min(1e-30)).max())
+                same = torch.equal(y, yp)
+                require(same or rel <= 1e-6, f"K13 {label} {dname}: err {e}, {rel} of sum|a x|")
+                require(torch.equal(y, fk()), f"K13 {label} {dname}: repeat differs")
+                yk14 = well_spmv_fused_gather(*args, index=index)
+                require(torch.equal(yk14, y), f"K14 {label} {dname}: differs from K13")
+                err["K13"] = max(err["K13"], e)
+                err["K14"] = max(err["K14"], e)
+                tk = device_seconds_per_call(fk)
+                tp = time_fn(lambda: well_spmv_torch(*args), warmup=1, iters=5).median
+                tl = device_seconds_per_call(lambda: csr_t @ xv) if dt == f32 else None
+                nbytes = well_spmv_bytes(ns, op.vals.element_size(), npad)
+                b_ms = bound_of(nbytes, 2 * ns * 128)
+                print(f"K13 {label} {dname}: {'bit-identical to plain' if same else 'within '}"
+                      f"{'' if same else f'{rel:.2e} of sum |a x|'} and to its repeat, K14 "
+                      f"the same; device {tk * 1e6:.2f} us per launch, "
+                      f"{rate_line(nbytes, tk, peak, A.nnz)}, {100 * b_ms[0] / 1e3 / tk:.1f}% of "
+                      f"its {b_ms[0] * 1e3:.2f} us bound; plain {tp * 1e3:.3f} ms (host-timed, "
+                      f"one read back a call)" + (
+                          f"; torch CSR product {tl * 1e6:.2f} us, "
+                          f"{rate_line(csr_spmv_bytes(A.nnz, A.shape[0], 4, 8), tl, peak, A.nnz)}"
+                          if tl is not None else "") + f" {tag}")
+                if (label, dname) == ("FEM 300k", "f32"):
+                    times["K13"], library["K13"], bounds["K13"] = (tk, tp), tl, b_ms
+                    tk14 = device_seconds_per_call(
+                        lambda: well_spmv_fused_gather(*args, index=index))
+                    times["K14"], library["K14"], bounds["K14"] = (tk14, tp), tl, b_ms
+                    print(f"K14 (K13's kernel under tpucg's second name) {label} f32: device "
+                          f"{tk14 * 1e6:.2f} us per launch {tag}")
+            del op32, op, csr_t
+        del A_geo
+
+    with phase("FEM .mtx solve"):
+        with tempfile.TemporaryDirectory() as tmp:
+            pa, pb, px = (str(Path(tmp) / f) for f in ("A.mtx", "b.mtx", "x.txt"))
+            t0 = time.perf_counter()
+            save_matrix_market(pa, A_fem, symmetric=True)
+            save_matrix_market(pb, b_fem)
+            write_s = time.perf_counter() - t0
+            tol = 1e-5 * float(np.linalg.norm(b_fem.astype(np.float64)))
+            argv = ["solve", pa, pb, "--precondition", "jacobi", "--tol", repr(tol),
+                    "--maxiter", "4000", "--output", px]
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                rc, launched = drive(lambda: cli.main(argv))
+            text = out.getvalue()
+            print("\n".join("  " + ln for ln in text.splitlines() if "solution written" not in ln))
+            fmt = re.search(r"system size\s+: \d+ x \d+\s+\[([^\]]+)\]", text).group(1)
+            laps = int(re.search(r"iterations\s+: (\d+)", text).group(1))
+            require(rc == 0 and "converged            : True" in text,
+                    f"FEM .mtx solve: rc {rc}, not converged")
+            require(fmt == "WellOperator", f"FEM .mtx solve promoted to {fmt}")
+            require(all(launched[k] > 0 for k in ("well_spmv_cuda", "dot_cuda",
+                                                  "fused_update_cuda"))
+                    and all(launched[w.__name__] == 0 for w in wrappers + whole
+                            if w.__name__.endswith("_torch")),
+                    f"FEM .mtx solve: launches {launched}")
+            counts["well_spmv_cuda"] += launched["well_spmv_cuda"]
+            x = load_vector(px, n=A_fem.shape[0]).astype(np.float64)
+            t0 = time.perf_counter()
+            csr = load_matrix_market(pa).to_csr()
+            load_s = time.perf_counter() - t0
+        b64 = b_fem.astype(np.float64)
+        true_rel = float(np.linalg.norm(b64 - csr.matvec(x)) / np.linalg.norm(b64))
+        require(true_rel <= fem_residual_bound,
+                f"FEM .mtx solve: true residual {true_rel:.3e} > {fem_residual_bound}")
+        t0 = time.perf_counter()
+        csr_to_well(csr)
+        pack_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        op = best_sparse_operator(csr, device=dev)
+        torch.cuda.synchronize()
+        promote_s = time.perf_counter() - t0
+        bd = torch.as_tensor(b_fem, device=dev)
+        kw = dict(tol=tol, maxiter=4000, precondition="jacobi")
+        op_plain = dataclasses.replace(op, backend="torch")
+        t0 = time.perf_counter()
+        res_p = cg_solve(op_plain, bd, kernel="torch", **kw)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        kp = int(res_p.iterations)
+        require(bool(res_p.converged) and abs(laps - kp) <= 0.01 * kp,
+                f"FEM .mtx solve: {laps} laps, plain route {kp}")
+        solves = []
+        for _ in range(3):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            res = cg_solve(op, bd, **kw)
+            end.record()
+            torch.cuda.synchronize()
+            solves.append(start.elapsed_time(end) / 1e3)
+            require(int(res.iterations) == laps, f"FEM repeat: {int(res.iterations)} laps")
+        fem_solve_s = sorted(solves)[1]
+        # The lap path's busy share: a profiled window of 200 laps (a capped
+        # solve; the profiler's trace can come back empty, and then the
+        # share is not measured).
+        wall, ops = trace_calls(lambda: cg_solve(op, bd, tol=tol, maxiter=200,
+                                                 precondition="jacobi"), 1)
+        busy = sum(us for _, us in ops.values())
+        if busy > 0:
+            top = sorted(ops.items(), key=lambda kv: -kv[1][1])[:4]
+            print(f"FEM lap path, profiled 200 laps: host wall {wall * 1e3:.3f} ms, device busy "
+                  f"{busy / 1e3:.3f} ms, busy share {busy / 1e6 / wall:.3f}, "
+                  f"{sum(c for c, _ in ops.values()) / 200:.1f} device ops a lap; "
+                  + "; ".join(f"{name[:40]} {us / c:.2f} us x {c}" for name, (c, us) in top)
+                  + f" {tag}")
+        else:
+            print("FEM lap path: the profiler's trace held no device event; busy share not "
+                  "measured")
+        print(f"FEM .mtx solve n={A_fem.shape[0]} nnz={A_fem.nnz}: {fmt}, {laps} laps (plain "
+              f"route on the card {kp}, {laps - kp:+d}), float64 ||b - A x|| / ||b|| "
+              f"{true_rel:.4e} (bound {fem_residual_bound}); solve median of 3 "
+              f"{fem_solve_s * 1e3:.3f} ms ({', '.join(f'{t * 1e3:.3f}' for t in solves)}; "
+              f"{fem_solve_s / laps * 1e6:.2f} us a lap); plain route {plain_s:.3f} s; write "
+              f".mtx {write_s:.2f} s, load {load_s:.2f} s, promotion + packing + placement "
+              f"{promote_s:.2f} s (packing alone {pack_s:.2f} s) {tag}")
+        del op, op_plain, A_fem, csr
+
+    with phase("batched banded K12"):
+        counts["fused_batch_dia_cg_solve_cuda"] = 0
+        err["K12"] = 0.0
+        nsys, nb = 256, 1024
+        # tpucg's battery at its tol (laps within one of the plain version),
+        # and one whose spectra set the laps (tol 1e-2: equal laps).
+        data_s, offs_s, b_s, laps_s = banded_spectrum_battery(nsys, nb, seed=0)
+        batteries = {"tpucg": (*banded_battery(nsys, nb, seed=0), 1e-5, None),
+                     "spectrum": (data_s, offs_s, b_s, 1e-2, laps_s)}
+        for name, (data, offs, b, tol, want) in batteries.items():
+            bd = torch.as_tensor(b, device=dev)
+            z = torch.zeros_like(bd)
+            for dt, dname in ((f32, "f32"), (bf16, "bf16")):
+                d = torch.as_tensor(data, device=dev).to(dt)
+                for pc in ("none", "jacobi"):
+                    what = f"K12 {name} {nsys}x{nb} {dname} {pc} (tol {tol})"
+                    res, launched = drive(lambda: cg_solve_batch_banded(
+                        data, offs, b, device=dev, precondition=pc, storage_dtype=dt, tol=tol))
+                    require(only(launched, "fused_batch_dia_cg_solve_cuda"),
+                            f"{what}: launches {launched}")
+                    counts["fused_batch_dia_cg_solve_cuda"] += launched[
+                        "fused_batch_dia_cg_solve_cuda"]
+                    kw = dict(tol=tol, maxiter=nb, precondition=pc)
+                    x, k, rr = fused_batch_dia_cg_solve_cuda(d, offs, bd, z, **kw)
+                    xp, kp, _ = fused_batch_dia_cg_solve_torch(d, offs, bd, z, **kw)
+                    laps = k.tolist()
+                    require(laps == res.iterations.tolist() and bool(res.converged.all()),
+                            f"{what}: cg_solve_batch_banded's laps or convergence")
+                    require(torch.equal(res.x, x), f"{what}: cg_solve_batch_banded's x")
+                    e, se = float((x - xp).abs().max()), scaled_err(x.cpu(), xp.cpu())
+                    require(int((k - kp).abs().max()) <= 1 and se <= 1e-4,
+                            f"{what}: laps {laps} vs plain {kp.tolist()}, err {se}")
+                    if want is not None:
+                        require(laps == kp.tolist() == want, f"{what}: laps {laps} vs {want}")
+                    again = fused_batch_dia_cg_solve_cuda(d, offs, bd, z, **kw)
+                    require(all(torch.equal(u, v) for u, v in zip((x, k, rr), again)),
+                            f"{what}: repeat differs")
+                    err["K12"] = max(err["K12"], e)
+                    split = int((k != kp).sum())
+                    tk = time_fn(lambda: fused_batch_dia_cg_solve_cuda(d, offs, bd, z, **kw),
+                                 warmup=1, iters=5)
+                    tp = time_fn(lambda: fused_batch_dia_cg_solve_torch(d, offs, bd, z, **kw),
+                                 warmup=1, iters=5)
+                    print(f"{what}: laps {min(laps)}-{max(laps)}, "
+                          + ("equal to plain and to the spectra's" if want is not None else
+                             f"{split} of {nsys} a lap apart from plain")
+                          + f"; max abs err {e:.3e} = {se:.3e} of max |x|, repeat "
+                          f"bit-identical; {tk.median * 1e3:.4f} ms per battery (min "
+                          f"{tk.min * 1e3:.4f}), plain loop {tp.median * 1e3:.4f} ms {tag}")
+                    if (name, dname, pc) == ("tpucg", "f32", "none"):
+                        times["K12"] = (tk.median, tp.median)
+                        npad = nb
+                        bounds["K12"] = bound_of(
+                            nsys * (3 * npad * 4 + 3 * npad * 4 + 8),
+                            sum(cg_flops(npad, kk, 2 * 3 * npad) for kk in laps))
+
     meta = (
         ("K1", "gemv", "matvec_cuda", "blas.cu", "tpucg/kernels/matvec.py:108"),
         ("K2", "fused_update", "fused_update_cuda", "blas.cu", "tpucg/kernels/blas1.py:111"),
@@ -830,6 +1109,13 @@ def main() -> int:
          "tpucg/kernels/fused.py:335"),
         ("K11", "fused_dia_cg_solve", "fused_dia_cg_solve_cuda", "fused.cu",
          "tpucg/kernels/fused.py:493"),
+        ("K12", "fused_batch_dia_cg_solve", "fused_batch_dia_cg_solve_cuda", "fused.cu",
+         "tpucg/kernels/fused.py:729"),
+        ("K13", "well_spmv", "well_spmv_cuda", "gather.cu",
+         "tpucg/kernels/gather_spmv.py:97"),
+        # K14 is K13's kernel under tpucg's second name: K13's launches.
+        ("K14", "well_spmv_fused_gather (K13's kernel)", "well_spmv_cuda", "gather.cu",
+         "tpucg/kernels/gather_spmv.py:226"),
     )
     kernels = [
         {"name": f"{kid} {kname}", "route": "cuda",

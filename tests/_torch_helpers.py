@@ -127,6 +127,65 @@ BAND_SETS = {
 }
 
 
+def banded_battery(nsys: int, n: int, seed: int = 0):
+    """tpucg's battery of tridiagonal systems (``tests/test_batch.py``
+    ``TestBatchBanded._battery``; ``benchmarks/extensions.py:241-254`` at
+    256 x 1024): offsets (-1, 0, 1), both off-diagonal rows the same draw
+    from U(0.2, 1), the main diagonal 4 + U(0, 1), b standard normal;
+    float32. Returns (data (nsys, 3, n), offsets, b)."""
+    rng = np.random.default_rng(seed)
+    data = np.zeros((nsys, 3, n), np.float32)
+    off = rng.uniform(0.2, 1.0, (nsys, n)).astype(np.float32)
+    data[:, 0] = off
+    data[:, 2] = off
+    data[:, 1] = 4.0 + rng.uniform(0, 1, (nsys, n)).astype(np.float32)
+    b = rng.standard_normal((nsys, n)).astype(np.float32)
+    return data, (-1, 0, 1), b
+
+
+def scale_banded(data, seed: int = 2):
+    """tpucg's badly scaled battery for Jacobi (``test_batch.py``
+    ``test_jacobi_and_bf16``): A' = D A D with D = 10^U(-1, 1) per row, on a
+    copy of a tridiagonal ``data`` (offsets (-1, 0, 1))."""
+    data = data.copy()
+    s = 10.0 ** np.random.default_rng(seed).uniform(
+        -1, 1, (data.shape[0], data.shape[2])).astype(np.float32)
+    data[:, 1] *= s * s
+    data[:, 0, 1:] *= s[:, 1:] * s[:, :-1]
+    data[:, 2, :-1] *= s[:, :-1] * s[:, 1:]
+    return data
+
+
+def banded_spectrum_battery(nsys: int, n: int, seed: int = 0):
+    """A battery of tridiagonal SPD systems whose lap counts are set by
+    their spectra: system i is block diagonal in 2 x 2 blocks [[a, c], [c,
+    a]] (eigenvalues a -+ c) of t = 1 + i % 3 types, a geometric in [2, 8]
+    and c / a in [0.3, 0.6] apart per type, so A has 2 t distinct
+    eigenvalues, and so has D^-1 A (1 -+ c / a): CG and Jacobi-PCG end in
+    2 t laps, with the residual before the last lap a sizeable share of
+    ||b|| and after it near the float32 floor, so tol 1e-2 stops every
+    correct float32 solve on the same lap. n is even; offsets (-1, 0, 1); b
+    standard normal; float32. Returns (data (nsys, 3, n), offsets, b, laps)."""
+    if n % 2:
+        raise ValueError("banded_spectrum_battery needs an even n")
+    rng = np.random.default_rng(seed)
+    data = np.zeros((nsys, 3, n), np.float32)
+    laps = []
+    for i in range(nsys):
+        t = 1 + i % 3
+        a = np.geomspace(2.0, 8.0, t) if t > 1 else np.array([4.0])
+        rho = np.linspace(0.3, 0.6, t)
+        kind = rng.integers(t, size=n // 2)
+        kind[:t] = np.arange(t)
+        av, cv = a[kind], (a * rho)[kind]
+        data[i, 1] = np.repeat(av, 2)
+        data[i, 2, 0::2] = cv  # A[2j, 2j + 1]
+        data[i, 0, 1::2] = cv  # A[2j + 1, 2j]
+        laps.append(2 * t)
+    b = rng.standard_normal((nsys, n)).astype(np.float32)
+    return data, (-1, 0, 1), b, laps
+
+
 def scaled_err(x, want) -> float:
     """max |x - want| / max |want| per system (the last axis), the largest
     over the systems: an error measured against the size of the solution."""

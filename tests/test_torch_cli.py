@@ -1,0 +1,122 @@
+"""``python -m tpucg_torch solve A.mtx b.mtx`` against tpucg's CLI, both run
+in-process on the CPU: the same operator class, laps within one and x
+within 1e-4 of max |x|, with and without a reordering; the bench forms of
+tpucg's sparse operators; the options that later slices bring."""
+
+import re
+
+import numpy as np
+import pytest
+import torch
+
+import tpucg.cli as jcli
+from _torch_helpers import scaled_err
+from tpucg_torch import cli
+from tpucg_torch.io.generator import fem_p1_system, poisson3d_csr, random_geometric_spd
+from tpucg_torch.io.mmio import save_matrix_market
+from tpucg_torch.io.textio import load_vector
+
+
+def _files(tmp_path, A, b):
+    pa, pb = str(tmp_path / "A.mtx"), str(tmp_path / "b.mtx")
+    save_matrix_market(pa, A, symmetric=True)
+    save_matrix_market(pb, b)
+    return pa, pb
+
+
+def _run(main, argv, capsys):
+    rc = main(argv)
+    out = capsys.readouterr().out
+    fmt = re.search(r"system size\s+: \d+ x \d+\s+\[([^\]]+)\]", out).group(1)
+    laps = int(re.search(r"iterations\s+: (\d+)", out).group(1))
+    return rc, out, fmt, laps
+
+
+SYSTEMS = {
+    "fem": lambda: fem_p1_system(1500, seed=0)[:2],
+    "geometric_shuffled": lambda: random_geometric_spd(1200, seed=3, avg_degree=8.0,
+                                                       shuffle=True)[:2],
+    "poisson": lambda: (poisson3d_csr(6), np.ones(216, np.float32)),
+}
+
+
+@pytest.mark.parametrize("order", [[], ["--rcm"], ["--strength-order"]])
+@pytest.mark.parametrize("case,pc", [("fem", "jacobi"), ("geometric_shuffled", "none"),
+                                     ("poisson", "none")])
+def test_solve_mtx_matches_tpucgs_cli(tmp_path, capsys, case, pc, order):
+    A, b = SYSTEMS[case]()
+    pa, pb = _files(tmp_path, A, b)
+    tol = str(1e-5 * float(np.linalg.norm(b)))
+    common = ["solve", pa, pb, "--tol", tol, "--maxiter", "3000", "--precondition", pc] + order
+    x_ours, x_theirs = str(tmp_path / "x.txt"), str(tmp_path / "jx.txt")
+    rc, out, fmt, laps = _run(cli.main, common + ["--device", "cpu", "--output", x_ours], capsys)
+    jrc, jout, jfmt_, jlaps = _run(jcli.main, common + ["--output", x_theirs], capsys)
+    assert rc == jrc == 0, out + jout
+    assert fmt == jfmt_
+    if not order:
+        assert fmt == ("DiaOperator" if case == "poisson" else "WellOperator")
+    assert abs(laps - jlaps) <= 1
+    n = A.shape[0]
+    x, jx = load_vector(x_ours, n=n), load_vector(x_theirs, n=n)
+    assert scaled_err(x, jx) <= 1e-4
+    # x is in the file's numbering: its float64 residual is tpucg's. (FEM's
+    # b ~ 1/n makes A x cancel: the f32 floor of ||b - A x|| / ||b|| lies
+    # far above tol already at this size, and grows with n.)
+    res = [np.linalg.norm(b - A.matvec(v.astype(np.float64))) for v in (x, jx)]
+    assert res[0] <= 2 * res[1] + 1e-6 * np.linalg.norm(b)
+    if case == "fem":
+        assert res[1] > 5e-5 * np.linalg.norm(b)
+
+
+def test_solve_mtx_bf16_and_dense_array_files(tmp_path, capsys):
+    A, b = SYSTEMS["geometric_shuffled"]()
+    pa, pb = _files(tmp_path, A, b)
+    rc, out, fmt, _ = _run(cli.main, ["solve", pa, pb, "--device", "cpu", "--storage", "bf16",
+                                      "--tol", str(1e-3 * float(np.linalg.norm(b))), "--rcm"],
+                           capsys)
+    assert rc == 0 and fmt == "WellOperator+rcm+bf16", out
+    dense, rhs = str(tmp_path / "D.mtx"), str(tmp_path / "ones.npy")
+    save_matrix_market(dense, poisson3d_csr(3).to_dense(), symmetric=True)
+    np.save(rhs, np.ones(27, np.float32))
+    rc, out, fmt, _ = _run(cli.main, ["solve", dense, rhs, "--device", "cpu"], capsys)
+    assert rc == 0 and fmt == "dense", out
+
+
+@pytest.mark.parametrize("flags,item", [
+    (["--two-level", "64"], "M12"),
+    (["--strategy", "allgather"], "M14"),
+    (["--method", "minres"], "M12"),
+    (["--method", "ca"], "M8"),
+    (["--precondition", "block_jacobi"], "M8"),
+    (["--pc-block-size", "32"], "M8"),
+])
+def test_later_slices_name_their_roadmap_item(tmp_path, flags, item):
+    A, b = SYSTEMS["poisson"]()
+    pa, pb = _files(tmp_path, A, b)
+    with pytest.raises(NotImplementedError, match=item):
+        cli.main(["solve", pa, pb, "--device", "cpu"] + flags)
+
+
+def test_bf16_refused_for_bsr():
+    from tpucg_torch.solver.operators import BsrOperator
+
+    op = BsrOperator(values=torch.zeros(1, 1, 8, 8), indices=torch.zeros(1, 1, dtype=torch.int32),
+                     n=8)
+    with pytest.raises(SystemExit, match="bf16"):
+        cli._bf16_operator(op)
+
+
+@pytest.mark.parametrize("route,kind", [("poisson-ell", "EllOperator"),
+                                        ("poisson-bsr", "BsrOperator"),
+                                        ("poisson-auto", "DiaOperator")])
+def test_bench_operators_are_tpucgs_systems(route, kind):
+    import argparse
+
+    op, b, nnz, nbytes = cli._poisson_system(route, 6, torch.float32, "auto", "cpu")
+    assert type(op).__name__ == kind and nnz == 7 * 216 - 6 * 36 and nbytes > 0
+    args = argparse.Namespace(operator=route, m=6, n=0)
+    _, jop, jb, _, _, jnnz = jcli._build_bench_system(args, "xla")
+    np.testing.assert_array_equal(b, jb)
+    assert jnnz == nnz
+    with pytest.raises(SystemExit, match="bf16"):
+        cli._poisson_system(route, 6, torch.bfloat16, "auto", "cpu")

@@ -12,6 +12,8 @@ import torch
 
 from _torch_helpers import (  # noqa: F401  (fixture)
     BAND_SETS,
+    banded_battery,
+    banded_spectrum_battery,
     circulant_spd_batch,
     cuda_device,
     random_banded_dia,
@@ -19,28 +21,53 @@ from _torch_helpers import (  # noqa: F401  (fixture)
     scaled_err,
     shifted_spd_batch,
 )
-from tpucg_torch.io.generator import generate_spd_system, poisson3d_dia
+from tpucg_torch.io.generator import (
+    fem_p1_system,
+    generate_spd_system,
+    poisson3d_dia,
+    random_geometric_spd,
+)
 from tpucg_torch.io.golden import GOLDEN_2X2, GOLDEN_4X4
 from tpucg_torch.kernels.blas1 import dot_cuda, dot_torch, fused_update_cuda, fused_update_torch
 from tpucg_torch.kernels.fused import (
     FUSED_BATCH_MAX_N,
     FUSED_MAX_N,
     fused_batch_cg_solve_cuda,
+    fused_batch_dia_cg_solve_cuda,
     fused_cg_solve_cuda,
     fused_dia_cg_solve_cuda,
     fused_stencil_cg_solve_cuda,
 )
+from tpucg_torch.kernels.gather_spmv import (
+    well_spmv_cuda,
+    well_spmv_fused_gather,
+    well_spmv_launch,
+    well_spmv_torch,
+)
 from tpucg_torch.kernels.matvec import matvec_cuda, matvec_torch
 from tpucg_torch.kernels.spmv import dia_spmv_cuda, dia_spmv_torch
 from tpucg_torch.kernels.stencil import poisson3d_cuda, poisson3d_torch
-from tpucg_torch.solver.cg import cg_loop, cg_solve, cg_solve_batch, lap_ops
+from tpucg_torch.solver.cg import (
+    cg_loop,
+    cg_solve,
+    cg_solve_batch,
+    cg_solve_batch_banded,
+    lap_ops,
+)
 from tpucg_torch.solver.fused import (
     fused_batch_cg_solve_torch,
+    fused_batch_dia_cg_solve_torch,
     fused_cg_solve_torch,
     fused_dia_cg_solve_torch,
     fused_stencil_cg_solve_torch,
 )
-from tpucg_torch.solver.operators import DenseOperator, DiaOperator, PoissonOperator
+from tpucg_torch.solver.operators import (
+    DenseOperator,
+    DiaOperator,
+    PoissonOperator,
+    WellOperator,
+    best_sparse_operator,
+)
 from tpucg_torch.sparse.formats import DIAMatrix
 from tpucg_torch.solver.oracle import oracle_cg
 
@@ -456,3 +483,139 @@ def test_cg_solve_sparse_routes_on_card(cuda_device, kind):
     assert bool(fused.converged) and bool(laps.converged)
     assert abs(int(fused.iterations) - int(laps.iterations)) <= 1
     assert scaled_err(fused.x.cpu(), laps.x.cpu()) <= 1e-4
+
+
+# ---- the irregular path: K13 (K14 its second name) and K12 ----
+
+
+def _well(kind):
+    if kind == "fem":
+        return fem_p1_system(20_000, seed=0)[0]
+    if kind == "geometric_shuffled":
+        return random_geometric_spd(30_000, seed=3, avg_degree=12.0, shuffle=True)[0]
+    return random_geometric_spd(30_000, seed=0, avg_degree=12.0)[0]
+
+
+@pytest.mark.parametrize("kind", ["fem", "geometric", "geometric_shuffled"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_well_spmv_kernel_equals_plain(cuda_device, kind, dtype):
+    # The same products and sums in the same order (each group's sublanes
+    # ascending), each rounded on its own: bit for bit.
+    op = WellOperator.from_csr(_well(kind), storage_dtype=dtype, device=cuda_device)
+    x2 = _rand(cuda_device, op.n_groups, 128, seed=2)
+    args = (op.vals, op.lidx, op.gidl, op.wrow, op.sgb, x2, op.bg, op.nsg)
+    y = well_spmv_cuda(*args)
+    assert torch.equal(y, well_spmv_torch(*args))
+    assert torch.equal(y, well_spmv_cuda(*args, index=(op.gptr, op.gsub)))
+    assert torch.equal(y, well_spmv_fused_gather(*args))
+    assert torch.equal(op.matvec(x2.reshape(-1)), y.reshape(-1)[: op.padded_n])
+
+
+def test_well_spmv_counts_and_flag(cuda_device):
+    op = WellOperator.from_csr(_well("geometric"), device=cuda_device)
+    x = _rand(cuda_device, op.padded_n, seed=1)
+    before = (well_spmv_cuda.launches, well_spmv_torch.launches)
+    op.matvec(x)
+    well_spmv_fused_gather(op.vals, op.lidx, op.gidl, op.wrow, op.sgb,
+                           x.reshape(-1, 128), op.bg, op.nsg)
+    assert (well_spmv_cuda.launches - before[0], well_spmv_torch.launches - before[1]) == (2, 0)
+    y = torch.full_like(x, 7.0)
+    off = torch.zeros((), dtype=torch.int32, device=cuda_device)
+    well_spmv_launch(op.vals, op.lidx, op.wrow, op.gptr, op.gsub, x, y, op.n_groups,
+                     off.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    assert bool((y == 7.0).all())
+
+
+@pytest.mark.parametrize("pc", ["none", "jacobi"])
+def test_cg_solve_on_well_runs_k13_on_card(cuda_device, pc):
+    A, b, _ = random_geometric_spd(20_000, seed=4, avg_degree=12.0, shift=0.3)
+    op = best_sparse_operator(A, device=cuda_device)
+    assert isinstance(op, WellOperator) and op.backend == "cuda"
+    tol = 1e-5 * float(np.linalg.norm(b))
+    before = (well_spmv_cuda.launches, well_spmv_torch.launches)
+    res = cg_solve(op, b, tol=tol, precondition=pc, maxiter=2000)
+    assert well_spmv_cuda.launches > before[0] and well_spmv_torch.launches == before[1]
+    plain = WellOperator(vals=op.vals, lidx=op.lidx, gidl=op.gidl, wrow=op.wrow, sgb=op.sgb,
+                         dvec=op.dvec, n=op.n, bg=op.bg, nsg=op.nsg, backend="torch")
+    ref = cg_solve(plain, b, tol=tol, precondition=pc, maxiter=2000, kernel="torch")
+    assert bool(res.converged) and abs(int(res.iterations) - int(ref.iterations)) <= 1
+    assert scaled_err(res.x.cpu(), ref.x.cpu()) <= 1e-4
+
+
+def test_cg_solve_on_ell_and_bsr_on_card(cuda_device):
+    from tpucg_torch.io.generator import poisson3d_csr
+    from tpucg_torch.solver.operators import BsrOperator, EllOperator
+    from tpucg_torch.sparse.formats import csr_to_bsr
+
+    csr = poisson3d_csr(12)
+    b = np.random.default_rng(0).standard_normal(csr.shape[0]).astype(np.float32)
+    tol = 1e-5 * float(np.linalg.norm(b))
+    ell = EllOperator.from_csr(csr, device=cuda_device)
+    bsr = BsrOperator.from_bsr(csr_to_bsr(csr, 8), device=cuda_device)
+    dia = best_sparse_operator(csr, device=cuda_device)
+    laps = [int(cg_solve(op, b, tol=tol, maxiter=1000, fused="never").iterations)
+            for op in (ell, bsr, dia)]
+    assert max(laps) - min(laps) <= 1
+
+
+@pytest.mark.parametrize("pc", ["none", "jacobi"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("battery", ["tpucg", "spectrum"])
+def test_k12_matches_plain_on_card(cuda_device, pc, dtype, battery):
+    if battery == "tpucg":
+        data, offsets, b = banded_battery(64, 1024, seed=0)
+        tol, laps = 1e-5, None
+    else:
+        data, offsets, b, laps = banded_spectrum_battery(64, 1024, seed=0)
+        tol = 1e-2
+    d = torch.as_tensor(data, device=cuda_device).to(dtype)
+    bd = torch.as_tensor(b, device=cuda_device)
+    z = torch.zeros_like(bd)
+    kw = dict(tol=tol, maxiter=1024, precondition=pc)
+    x, k, rr = fused_batch_dia_cg_solve_cuda(d, offsets, bd, z, **kw)
+    xp, kp, _ = fused_batch_dia_cg_solve_torch(d, offsets, bd, z, **kw)
+    if laps is None:
+        assert int((k - kp).abs().max()) <= 1
+    else:
+        assert k.tolist() == kp.tolist() == laps
+    assert bool((rr < tol ** 2).all()) and scaled_err(x.cpu(), xp.cpu()) <= 1e-4
+    again = fused_batch_dia_cg_solve_cuda(d, offsets, bd, z, **kw)
+    assert all(torch.equal(u, v) for u, v in zip((x, k, rr), again))
+
+
+@pytest.mark.parametrize("n", [128, 1000, 4096, 14464])
+def test_k12_sizes_and_cap_on_card(cuda_device, n):
+    data, offsets, b = banded_battery(8, n, seed=1)
+    before = fused_batch_dia_cg_solve_cuda.launches
+    res = cg_solve_batch_banded(data, offsets, b, tol=1e-5, device=cuda_device)
+    assert fused_batch_dia_cg_solve_cuda.launches == before + 1
+    ref = cg_solve_batch_banded(data, offsets, b, tol=1e-5, device=cuda_device, fused="never")
+    assert fused_batch_dia_cg_solve_cuda.launches == before + 1
+    assert bool(res.converged.all()) and int((res.iterations - ref.iterations).abs().max()) <= 1
+    assert scaled_err(res.x.cpu(), ref.x.cpu()) <= 1e-4
+
+
+def test_k12_above_the_cap_runs_the_plain_loop(cuda_device):
+    data, offsets, b = banded_battery(2, 14464 + 128, seed=2)
+    before = (fused_batch_dia_cg_solve_cuda.launches, fused_batch_dia_cg_solve_torch.launches)
+    res = cg_solve_batch_banded(data, offsets, b, tol=1e-5, device=cuda_device)
+    assert (fused_batch_dia_cg_solve_cuda.launches, fused_batch_dia_cg_solve_torch.launches) \
+        == before and bool(res.converged.all())
+
+
+@pytest.mark.parametrize("route", ["poisson-ell", "poisson-bsr", "poisson-auto"])
+def test_bench_sparse_forms_print_one_json_line(cuda_device, route):
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    proc = subprocess.run([sys.executable, "-m", "tpucg_torch", "bench", "--operator", route,
+                           "--m", "8", "--repeats", "5"], cwd=root, capture_output=True,
+                          text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.strip().splitlines()
+    assert len(lines) == 1
+    line = json.loads(lines[0])
+    assert line["metric"] == f"{route.replace('-', '_')}_cg_solve_time_m8" and line["value"] > 0

@@ -34,7 +34,8 @@ def test_import_pulls_in_no_jax_or_tpucg():
         "import tpucg_torch, tpucg_torch.kernels, tpucg_torch.solver.cg\n"
         "import tpucg_torch.interop, tpucg_torch.cli, tpucg_torch.bench\n"
         "import tpucg_torch.sparse, tpucg_torch.kernels.spmv, tpucg_torch.kernels.stencil\n"
-        "import tpucg_torch.solver.fused\n"
+        "import tpucg_torch.solver.fused, tpucg_torch.kernels.gather_spmv\n"
+        "import tpucg_torch.io.mmio, tpucg_torch.sparse.well, tpucg_torch.sparse.ordering\n"
         "new = sorted(set(sys.modules) - before)\n"
         "bad = [m for m in new if m.split('.')[0] in ('jax', 'jaxlib', 'tpucg', 'triton')]\n"
         "print(json.dumps(bad))\n"
@@ -164,7 +165,8 @@ def test_cli_solve_golden(tmp_path, fmt):
     np.testing.assert_allclose(np.loadtxt(out), g["x_star"], atol=1e-6)
 
 
-@pytest.mark.parametrize("operator", ["dense", "poisson-free", "poisson-dia"])
+@pytest.mark.parametrize("operator", ["dense", "poisson-free", "poisson-dia", "poisson-ell",
+                                      "poisson-bsr", "poisson-auto"])
 def test_cli_bench_needs_the_card(operator):
     env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
     proc = _run("-m", "tpucg_torch", "bench", "--operator", operator, "--n", "128", "--m", "8",

@@ -8,29 +8,41 @@ launch of a hand-written CUDA kernel for Hopper (K4); the others run laps of
 three: the GEMV (K1), the fused x/r update with beta (K2) and the dot (K3).
 The 3-D Poisson Laplacian runs as a stencil (``PoissonOperator``, K8 on the
 lap, K10 for the whole solve) and banded matrices in DIA form
-(``DiaOperator``, K6 on the lap, K11 for the whole solve).
+(``DiaOperator``, K6 on the lap, K11 for the whole solve). Sparse systems,
+from MatrixMarket files or the generators, go through
+``best_sparse_operator``, which picks DIA, BSR, WELL (irregular matrices,
+``WellOperator``, K13 on the lap) or ELL as tpucg does.
 ``cg_solve_batch`` solves B independent systems, in one launch of K5 where
-it applies. The package imports neither ``jax`` nor ``tpucg``.
+it applies, and ``cg_solve_batch_banded`` B banded ones (K12). The package
+imports neither ``jax`` nor ``tpucg``.
 """
 
 from tpucg_torch.config import CGConfig
 from tpucg_torch.io.generator import (
+    fem_p1_system,
     generate_spd_system,
     generate_spd_system_f32,
     poisson3d_csr,
     poisson3d_dia,
+    random_geometric_spd,
 )
+from tpucg_torch.io.mmio import load_matrix_market, save_matrix_market
 from tpucg_torch.io.textio import load_matrix, load_system, load_vector, save_array
-from tpucg_torch.solver.cg import CGResult, cg_solve, cg_solve_batch
+from tpucg_torch.solver.cg import CGResult, cg_solve, cg_solve_batch, cg_solve_batch_banded
 from tpucg_torch.solver.operators import (
+    BsrOperator,
     DenseOperator,
     DiaOperator,
+    EllOperator,
     LinearOperator,
     PoissonOperator,
+    WellOperator,
     as_operator,
+    best_sparse_operator,
 )
 from tpucg_torch.solver.oracle import oracle_cg
 from tpucg_torch.sparse.formats import COOMatrix, CSRMatrix, DIAMatrix, csr_to_dia
+from tpucg_torch.sparse.well import WellMatrix, csr_to_well
 
 __version__ = "0.1.0"
 
@@ -39,16 +51,27 @@ __all__ = [
     "CGResult",
     "cg_solve",
     "cg_solve_batch",
+    "cg_solve_batch_banded",
+    "BsrOperator",
     "DenseOperator",
     "DiaOperator",
+    "EllOperator",
     "LinearOperator",
     "PoissonOperator",
+    "WellOperator",
     "as_operator",
+    "best_sparse_operator",
     "oracle_cg",
     "COOMatrix",
     "CSRMatrix",
     "DIAMatrix",
     "csr_to_dia",
+    "csr_to_well",
+    "WellMatrix",
+    "fem_p1_system",
+    "random_geometric_spd",
+    "load_matrix_market",
+    "save_matrix_market",
     "generate_spd_system",
     "generate_spd_system_f32",
     "poisson3d_csr",

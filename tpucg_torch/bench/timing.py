@@ -211,6 +211,19 @@ def stencil_bytes(n: int) -> int:
     return 8 * n
 
 
+def well_spmv_bytes(n_sublanes: int, itemsize: int, npad: int) -> int:
+    """Bytes one WELL SpMV (K13) must move: every slot's value and lane index
+    once, the group index (4 bytes a sublane) and the window ids (4 bytes a
+    chunk of 8 sublanes) once, x read and y written once (f32)."""
+    return n_sublanes * 128 * (itemsize + 1) + 4 * n_sublanes + n_sublanes // 2 + 8 * npad
+
+
+def csr_spmv_bytes(nnz: int, n: int, itemsize: int = 4, index_size: int = 4) -> int:
+    """Bytes one CSR SpMV must move: values and column indices once, the row
+    pointers once, x read and y written once (f32)."""
+    return nnz * (itemsize + index_size) + index_size * (n + 1) + 8 * n
+
+
 def poisson_nnz(m: int) -> int:
     """Nonzeros of the 7-point Dirichlet Laplacian on an m^3 grid."""
     return 7 * m ** 3 - 6 * m * m

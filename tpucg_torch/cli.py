@@ -3,8 +3,13 @@ counterparts of tpucg's ``cmd_solve``, ``cmd_selftest``, ``cmd_bench`` and
 ``cmd_info``). ``solve`` and ``bench`` take tpucg's ``--fused
 {auto,always,never}``: ``always`` runs a solve the whole-solve kernels take
 (K4 dense, K10 Poisson stencil, K11 DIA) as one launch, ``never`` the lap
-path. ``bench --operator poisson-free|poisson-dia --m M`` solves tpucg's
-sparse flagship, the 3-D Poisson Laplacian on an m^3 grid.
+path. ``solve A.mtx b.mtx`` reads a MatrixMarket system, optionally
+reorders it (``--rcm``, ``--strength-order``) and promotes it with
+``best_sparse_operator`` (DIA, BSR, WELL or ELL), as tpucg's
+``_cmd_solve_mtx`` does. ``bench --operator poisson-free|poisson-dia|
+poisson-ell|poisson-bsr|poisson-auto --m M`` solves tpucg's sparse
+flagship, the 3-D Poisson Laplacian on an m^3 grid, in each of tpucg's
+bench forms.
 """
 
 from __future__ import annotations
@@ -21,16 +26,168 @@ from typing import Optional
 BASELINE_S = {512: 0.005, 1024: 0.016, 2048: 0.039, 4096: 0.186, 8192: 0.562}
 
 
-def cmd_solve(args) -> int:
+def _check_solve_options(args) -> None:
+    """Name the ROADMAP item of every solve option this port does not run."""
+    if args.two_level is not None:
+        raise NotImplementedError("--two-level (the two-level preconditioner) is ROADMAP M12")
+    if args.strategy != "serial":
+        raise NotImplementedError(f"--strategy {args.strategy} (sharded solves) is ROADMAP M14")
+    if args.method == "minres":
+        raise NotImplementedError("--method minres is ROADMAP M12")
+    if args.method != "cg":
+        raise NotImplementedError(f"--method {args.method} is ROADMAP M8")
+    if args.precondition == "block_jacobi" or args.pc_block_size is not None:
+        raise NotImplementedError("block Jacobi (--precondition block_jacobi, "
+                                  "--pc-block-size) is ROADMAP M8")
+
+
+def _load_rhs_any(path: str, n: int):
+    """A length-n vector from .mtx, .npy or the reference's text format."""
+    import numpy as np
+
+    from tpucg_torch.io.textio import load_vector
+
+    if path.endswith(".mtx"):
+        from tpucg_torch.io.mmio import load_matrix_market
+
+        v = load_matrix_market(path)
+        if not isinstance(v, np.ndarray):
+            v = v.to_dense()
+        v = np.asarray(v, np.float32).ravel()
+        if v.size != n:
+            raise ValueError(f"{path!r}: expected {n} values, got {v.size}")
+        return v
+    return load_vector(path, n=n)
+
+
+def _bf16_operator(op):
+    """``--storage bf16`` for a promoted sparse operator: a DIA slab or the
+    WELL values re-cast (tpucg's ``_apply_storage``); other formats refuse."""
+    import dataclasses
+
+    import torch
+
+    from tpucg_torch.solver.operators import DiaOperator, WellOperator
+
+    if isinstance(op, DiaOperator):
+        return dataclasses.replace(op, data=op.data.to(torch.bfloat16))
+    if isinstance(op, WellOperator):
+        return dataclasses.replace(op, vals=op.vals.to(torch.bfloat16))
+    raise SystemExit("--storage bf16 supports dense systems and banded (DIA) or irregular "
+                     f"(WELL) operators; got {type(op).__name__}")
+
+
+def _cmd_solve_mtx(args, t_total0) -> int:
+    """A MatrixMarket system: COO -> CSR, an optional reordering, then
+    ``best_sparse_operator`` and ``cg_solve``; x is written in the file's
+    numbering (tpucg's ``_cmd_solve_mtx``, ``cli.py:207``)."""
     import numpy as np
     import torch
 
-    from tpucg_torch.io.textio import load_system, save_array
+    from tpucg_torch.io.mmio import load_matrix_market
+    from tpucg_torch.kernels.dispatch import canonical_device
+    from tpucg_torch.solver.cg import cg_solve
+    from tpucg_torch.solver.operators import DenseOperator, best_sparse_operator
+
+    device = canonical_device(args.device)
+    t0 = time.perf_counter()
+    mat = load_matrix_market(args.matrix)
+    perm = csr = None
+    if isinstance(mat, np.ndarray):
+        n, fmt = mat.shape[0], "dense"  # an `array` file: the dense path
+    else:
+        if mat.shape[0] != mat.shape[1]:
+            raise SystemExit(f"matrix is {mat.shape[0]}x{mat.shape[1]}, CG needs square SPD")
+        csr = mat.to_csr()
+        n = mat.shape[0]
+        if args.rcm or args.strength_order is not None:
+            # Files in the wild often carry no spatial numbering: RCM (or RCM
+            # on the strength-filtered graph) restores locality before the
+            # format is chosen; x is un-permuted before it is reported.
+            from tpucg_torch.sparse.ordering import permute_csr, rcm_order, strength_order
+
+            perm = (strength_order(csr, theta=args.strength_order)
+                    if args.strength_order is not None else rcm_order(csr))
+            csr = permute_csr(csr, perm)
+    b = _load_rhs_any(args.rhs, n)
+    x0 = _load_rhs_any(args.x0, n) if args.x0 else None
+    if perm is not None:
+        b = b[perm]
+        x0 = None if x0 is None else x0[perm]
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if csr is None:
+        op = DenseOperator.create(mat, backend=args.kernel, device=device,
+                                  dtype=torch.bfloat16 if args.storage == "bf16" else torch.float32)
+    else:
+        op = best_sparse_operator(csr, backend=args.kernel, device=device)
+        fmt = type(op).__name__
+        if perm is not None:
+            fmt += "+strength" if args.strength_order is not None else "+rcm"
+        if args.storage == "bf16":
+            op = _bf16_operator(op)
+            fmt += "+bf16"
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = cg_solve(
+        op, b, x0, tol=args.tol, maxiter=args.maxiter, kernel=args.kernel,
+        precondition=args.precondition, poly_degree=args.poly_degree, fused=args.fused,
+        record_residuals=args.residual_history,
+    )
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    solve_s = time.perf_counter() - t0
+    print(f"system size          : {n} x {n}  [{fmt}]")
+    print(f"device               : {device} [{op.backend}]")
+    print(f"data load (s)        : {load_s:.6f}  (parse, reordering)")
+    print(f"operator build (s)   : {build_s:.6f}  (promotion, packing, placement)")
+    print(f"CG solve (s)         : {solve_s:.6f}")
+    print(f"total (s)            : {time.perf_counter() - t_total0:.6f}")
+    return _report(args, res, perm, n)
+
+
+def _report(args, res, perm, n) -> int:
+    """The iterations, residual, convergence and x of a solve, as tpucg's
+    CLI prints them; x un-permuted to the file's numbering."""
+    import numpy as np
+
+    from tpucg_torch.io.textio import save_array
+
+    print(f"iterations           : {int(res.iterations)}")
+    print(f"final ||r||          : {float(res.residual_norm):.6e}")
+    print(f"converged            : {bool(res.converged)}")
+    if res.residual_history is not None:
+        hist = res.residual_history.cpu().numpy()
+        for i in range(int(res.iterations) + 1):
+            print(f"  ||r_{i}||{' ' * (12 - len(str(i)))}: {hist[i]:.6e}")
+    x = res.x.cpu().numpy()
+    if perm is not None:
+        xo = np.empty_like(x[:n])
+        xo[perm] = x[:n]
+        x = xo
+    if args.print_solution:
+        np.set_printoptions(threshold=64, precision=7)
+        print(f"x                    : {x}")
+    if args.output:
+        save_array(args.output, x, fmt="%r")
+        print(f"solution written     : {args.output}")
+    return 0 if bool(res.converged) else 3
+
+
+def cmd_solve(args) -> int:
+    import torch
+
+    from tpucg_torch.io.textio import load_system
     from tpucg_torch.kernels.dispatch import canonical_device
     from tpucg_torch.solver.cg import cg_solve
     from tpucg_torch.solver.operators import DenseOperator
 
+    _check_solve_options(args)
     t_total0 = time.perf_counter()
+    if args.matrix.endswith(".mtx"):
+        return _cmd_solve_mtx(args, t_total0)
     A, b, x0 = load_system(args.matrix, args.rhs, args.x0, n=args.n)
     n = A.shape[0]
     load_s = time.perf_counter() - t_total0
@@ -53,21 +210,7 @@ def cmd_solve(args) -> int:
     print(f"data load (s)        : {load_s:.6f}")
     print(f"CG solve (s)         : {solve_s:.6f}  (includes operator placement)")
     print(f"total (s)            : {time.perf_counter() - t_total0:.6f}")
-    print(f"iterations           : {int(res.iterations)}")
-    print(f"final ||r||          : {float(res.residual_norm):.6e}")
-    print(f"converged            : {bool(res.converged)}")
-    if res.residual_history is not None:
-        hist = res.residual_history.cpu().numpy()
-        for i in range(int(res.iterations) + 1):
-            print(f"  ||r_{i}||{' ' * (12 - len(str(i)))}: {hist[i]:.6e}")
-    x = res.x.cpu().numpy()
-    if args.print_solution:
-        np.set_printoptions(threshold=64, precision=7)
-        print(f"x                    : {x}")
-    if args.output:
-        save_array(args.output, x, fmt="%r")
-        print(f"solution written     : {args.output}")
-    return 0 if bool(res.converged) else 3
+    return _report(args, res, None, n)
 
 
 def cmd_selftest(args) -> int:
@@ -135,24 +278,53 @@ def cmd_selftest(args) -> int:
 
 def _poisson_system(route: str, m: int, storage, kernel: str, device):
     """tpucg's sparse bench system (``cli.py:_build_bench_system``): the
-    m^3 Poisson Laplacian as the stencil operator (``poisson-free``) or in
-    DIA form (``poisson-dia``, built in O(n) with no CSR), x_true standard
-    normal from ``default_rng(0)`` (f32) and b = A x_true on the host.
-    Returns (operator, b, nnz, matvec bytes)."""
+    m^3 Poisson Laplacian as the stencil operator (``poisson-free``), in DIA
+    form (``poisson-dia``, built in O(n) with no CSR), or from its CSR as
+    ELLPACK (``poisson-ell``), block-ELL with 8 x 8 blocks (4 x 4 when 8
+    does not divide n; ``poisson-bsr``) or what ``best_sparse_operator``
+    picks (``poisson-auto``); x_true standard normal from ``default_rng(0)``
+    (f32) and b = A x_true on the host. bf16 storage applies to the dense
+    and DIA forms. Returns (operator, b, nnz, matvec bytes)."""
     import numpy as np
+    import torch
 
     from tpucg_torch.bench.timing import dia_spmv_bytes, poisson_nnz, stencil_bytes
-    from tpucg_torch.io.generator import poisson3d_dia
-    from tpucg_torch.solver.operators import DiaOperator, PoissonOperator
+    from tpucg_torch.io.generator import poisson3d_csr, poisson3d_dia
+    from tpucg_torch.solver.operators import (
+        BsrOperator,
+        DiaOperator,
+        EllOperator,
+        PoissonOperator,
+        best_sparse_operator,
+    )
+    from tpucg_torch.sparse.formats import csr_to_bsr
 
-    dia = poisson3d_dia(m)
     x_true = np.random.default_rng(0).standard_normal(m ** 3).astype(np.float32)
-    b = dia.matvec(x_true)
-    if route == "poisson-free":
-        op = PoissonOperator(m=m, backend=kernel, device=device)
-        return op, b, poisson_nnz(m), stencil_bytes(op.n)
-    op = DiaOperator.from_dia(dia, backend=kernel, storage_dtype=storage, device=device)
-    return op, b, poisson_nnz(m), dia_spmv_bytes(op.ndiag, op.padded_n, op.data.element_size())
+    if route in ("poisson-free", "poisson-dia"):
+        dia = poisson3d_dia(m)
+        b = dia.matvec(x_true)
+        if route == "poisson-free":
+            op = PoissonOperator(m=m, backend=kernel, device=device)
+            return op, b, poisson_nnz(m), stencil_bytes(op.n)
+        op = DiaOperator.from_dia(dia, backend=kernel, storage_dtype=storage, device=device)
+        return op, b, poisson_nnz(m), dia_spmv_bytes(op.ndiag, op.padded_n,
+                                                     op.data.element_size())
+    if storage != torch.float32:
+        raise SystemExit(f"--storage bf16 applies to the dense and poisson-dia forms, not {route}")
+    csr = poisson3d_csr(m)
+    b = csr.matvec(x_true)
+    n = csr.shape[0]
+    if route == "poisson-ell":
+        op = EllOperator.from_csr(csr, backend=kernel, device=device)
+        return op, b, csr.nnz, op.values.numel() * 8 + 8 * n
+    if route == "poisson-bsr":
+        op = BsrOperator.from_bsr(csr_to_bsr(csr, 8 if n % 8 == 0 else 4), backend=kernel,
+                                  device=device)
+        return op, b, csr.nnz, op.values.numel() * 4 + op.indices.numel() * 4 + 8 * op.padded_n
+    op = best_sparse_operator(csr, backend=kernel, device=device)
+    if not isinstance(op, DiaOperator):
+        raise AssertionError(f"best_sparse_operator picked {type(op).__name__} for Poisson")
+    return op, b, csr.nnz, dia_spmv_bytes(op.ndiag, op.padded_n, op.data.element_size())
 
 
 def cmd_bench(args) -> int:
@@ -285,13 +457,14 @@ def cmd_info(args) -> int:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="tpucg_torch",
-        description="Conjugate-gradient solver on PyTorch and CUDA (dense slice)",
+        description="Conjugate-gradient solver on PyTorch and CUDA",
     )
     sub = p.add_subparsers(dest="command", required=True)
 
-    ps = sub.add_parser("solve", help="solve A x = b from text / .npy files")
-    ps.add_argument("matrix", help="matrix file: one float per line (row-major) or .npy")
-    ps.add_argument("rhs", help="right-hand-side vector file")
+    ps = sub.add_parser("solve", help="solve A x = b from text / .npy / .mtx files")
+    ps.add_argument("matrix", help="matrix file: one float per line (row-major), .npy, or "
+                                   "MatrixMarket .mtx (sparse: promoted to DIA/BSR/WELL/ELL)")
+    ps.add_argument("rhs", help="right-hand-side vector file (text, .npy or .mtx)")
     ps.add_argument("x0", nargs="?", default=None, help="initial guess (default zeros)")
     ps.add_argument("--n", type=int, default=None, help="system size (default: from file)")
     ps.add_argument("--tol", type=float, default=1.0e-6)
@@ -299,6 +472,21 @@ def build_parser() -> argparse.ArgumentParser:
     ps.add_argument("--residual-history", action="store_true")
     ps.add_argument("--print-solution", action="store_true")
     ps.add_argument("--output", default=None, help="write the solution to this file")
+    ps.add_argument("--rcm", action="store_true",
+                    help=".mtx: reverse Cuthill-McKee reordering before promotion")
+    ps.add_argument("--strength-order", type=float, nargs="?", const=0.25, default=None,
+                    metavar="THETA", help=".mtx: RCM on the strength-filtered graph "
+                                          "(|a_ij| >= THETA sqrt(|a_ii a_jj|), default 0.25)")
+    ps.add_argument("--method", default="cg",
+                    choices=("cg", "pipelined", "ca", "chebyshev", "minres"),
+                    help="only cg runs in this port (the others: ROADMAP M8, M12)")
+    ps.add_argument("--strategy", default="serial",
+                    choices=("serial", "allgather", "overlap", "summa"),
+                    help="only serial runs in this port (sharded solves: ROADMAP M14)")
+    ps.add_argument("--two-level", type=int, default=None, metavar="AGG",
+                    help="two-level preconditioner (ROADMAP M12)")
+    ps.add_argument("--pc-block-size", type=int, default=None,
+                    help="block size of block Jacobi (ROADMAP M8)")
     ps.set_defaults(fn=cmd_solve)
 
     pt = sub.add_parser("selftest", help="goldens + oracle checks")
@@ -307,9 +495,11 @@ def build_parser() -> argparse.ArgumentParser:
 
     pb = sub.add_parser("bench", help="solve timing on the card (one JSON line)")
     pb.add_argument("--operator", default="dense",
-                    choices=("dense", "poisson-free", "poisson-dia"),
+                    choices=("dense", "poisson-free", "poisson-dia", "poisson-ell",
+                             "poisson-bsr", "poisson-auto"),
                     help="dense generator system (--n), or the 3-D Poisson Laplacian on "
-                         "an m^3 grid (--m) as a stencil or in DIA form")
+                         "an m^3 grid (--m) as a stencil, in DIA form, as ELLPACK, as "
+                         "block-ELL, or as best_sparse_operator promotes its CSR")
     pb.add_argument("--n", type=int, default=8192)
     pb.add_argument("--m", type=int, default=128, help="Poisson grid edge (n = m^3)")
     pb.add_argument("--repeats", type=int, default=5, help="timed solves (>= 5)")
@@ -325,11 +515,15 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--kernel", default="auto", choices=("auto", "cuda", "torch"))
     for sp in (ps, pb):
         sp.add_argument("--storage", default="f32", choices=("f32", "bf16"),
-                        help="storage of the dense A or the DIA slab")
+                        help="storage of the dense A, the DIA slab or the WELL values")
         sp.add_argument("--fused", default="auto", choices=("auto", "always", "never"),
                         help="whole-solve kernels K4/K10/K11 (auto: up to the card's "
                              "measured crossovers; never: the lap path)")
-        sp.add_argument("--precondition", default="none", choices=("none", "jacobi", "poly"))
+    ps.add_argument("--precondition", default="none",
+                    choices=("none", "jacobi", "poly", "block_jacobi"),
+                    help="block_jacobi is ROADMAP M8")
+    pb.add_argument("--precondition", default="none", choices=("none", "jacobi", "poly"))
+    for sp in (ps, pb):
         sp.add_argument("--poly-degree", type=int, default=3,
                         help="degree for --precondition poly (truncated Neumann)")
     for sp in (ps, pt):

@@ -2,10 +2,11 @@
 
 CG has no weights: what a solve carries is the padded operator and the loop
 state. These functions take both from NumPy arrays, as a ``tpucg``
-``DenseOperator``, ``DiaOperator`` and ``_State`` hold them (``np.asarray``
-of each field), and give the port's state back in the same form, so a lap
-of either package can start where the other stopped. A ``PoissonOperator``
-holds only its grid edge.
+``DenseOperator``, ``DiaOperator``, ``WellOperator``, ``EllOperator``,
+``BsrOperator`` and ``_State`` hold them (``np.asarray`` of each field), and
+give the port's state back in the same form, so a lap of either package can
+start where the other stopped. A ``PoissonOperator`` holds only its grid
+edge.
 """
 
 from __future__ import annotations
@@ -18,7 +19,15 @@ import torch
 from tpucg_torch.io.partitioner import round_up
 from tpucg_torch.kernels.spmv import LANE, dia_deinterleave
 from tpucg_torch.solver.cg import _State
-from tpucg_torch.solver.operators import DenseOperator, DiaOperator, PoissonOperator, padded_size
+from tpucg_torch.solver.operators import (
+    BsrOperator,
+    DenseOperator,
+    DiaOperator,
+    EllOperator,
+    PoissonOperator,
+    WellOperator,
+    padded_size,
+)
 
 STATE_FIELDS = ("k", "x", "r", "p", "rsold", "rslast", "done")
 
@@ -74,6 +83,39 @@ def dia_operator_from_numpy(data: np.ndarray, offsets, n: int, interleaved: bool
     dtype = torch.bfloat16 if data.dtype.name == "bfloat16" else torch.float32
     t = torch.from_numpy(np.ascontiguousarray(wide)).to(device=device, dtype=dtype)
     return DiaOperator(data=t, offsets=offsets, n=n)
+
+
+def well_operator_from_numpy(vals, lidx, gidl, wrow, sgb, dvec, n: int, bg: int, nsg: int,
+                             device="cpu") -> WellOperator:
+    """The port's WellOperator for a tpucg ``WellOperator``'s fields: its
+    packed arrays (``vals`` f32 or bf16), ``dvec`` (diag(A) over the padded
+    length), ``n``, ``bg`` and ``nsg``."""
+    vals = np.asarray(vals)
+    dtype = torch.bfloat16 if vals.dtype.name == "bfloat16" else torch.float32
+
+    def put(a, np_dtype):
+        return torch.from_numpy(np.ascontiguousarray(np.asarray(a).astype(np_dtype))).to(device)
+
+    return WellOperator(vals=put(vals, np.float32).to(dtype), lidx=put(lidx, np.int8),
+                        gidl=put(gidl, np.int32), wrow=put(wrow, np.int32),
+                        sgb=put(sgb, np.int32), dvec=put(dvec, np.float32), n=int(n),
+                        bg=int(bg), nsg=int(nsg))
+
+
+def ell_operator_from_numpy(values, indices, n: int, device="cpu") -> EllOperator:
+    """The port's EllOperator for a tpucg ``EllOperator``'s (n, L) values and
+    indices."""
+    return EllOperator(values=torch.tensor(np.asarray(values, np.float32), device=device),
+                       indices=torch.tensor(np.asarray(indices, np.int32), device=device),
+                       n=int(n))
+
+
+def bsr_operator_from_numpy(values, indices, n: int, device="cpu") -> BsrOperator:
+    """The port's BsrOperator for a tpucg ``BsrOperator``'s (nbr, L, bs, bs)
+    values, (nbr, L) block-column ids and logical size ``n``."""
+    return BsrOperator(values=torch.tensor(np.asarray(values, np.float32), device=device),
+                       indices=torch.tensor(np.asarray(indices, np.int32), device=device),
+                       n=int(n))
 
 
 def poisson_operator(m: int, device="cpu") -> PoissonOperator:

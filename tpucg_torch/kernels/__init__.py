@@ -3,12 +3,15 @@ kernels' plain PyTorch versions sit beside them; the whole-solve kernels'
 run the solver's loops and live in ``tpucg_torch.solver.fused``.
 
 The lap: K1 ``matvec_cuda`` (dense GEMV), K6 ``dia_spmv_cuda`` (DIA
-SpMV), K8 ``poisson3d_cuda`` (7-point stencil), K2 ``fused_update_cuda``
-(x/r update and beta = r'.r' in one pass) and K3 ``dot_cuda``. The whole
-solve: K4 ``fused_cg_solve_cuda`` (one dense system, one cooperative
-launch), K5 ``fused_batch_cg_solve_cuda`` (B dense systems, one launch),
-K10 ``fused_stencil_cg_solve_cuda`` (Poisson stencil) and K11
-``fused_dia_cg_solve_cuda`` (DIA), both cooperative. The kernel library
+SpMV), K8 ``poisson3d_cuda`` (7-point stencil), K13 ``well_spmv_cuda``
+(WELL SpMV; K14 ``well_spmv_fused_gather`` is the same kernel under
+tpucg's second name), K2 ``fused_update_cuda`` (x/r update and beta =
+r'.r' in one pass) and K3 ``dot_cuda``. The whole solve: K4
+``fused_cg_solve_cuda`` (one dense system, one cooperative launch), K5
+``fused_batch_cg_solve_cuda`` (B dense systems, one launch), K10
+``fused_stencil_cg_solve_cuda`` (Poisson stencil) and K11
+``fused_dia_cg_solve_cuda`` (DIA), both cooperative, and K12
+``fused_batch_dia_cg_solve_cuda`` (B banded systems, one launch). The kernel library
 is built by ``nvcc`` at first use (``_lib``); importing this package builds
 nothing.
 """
@@ -23,15 +26,29 @@ from tpucg_torch.kernels.blas1 import (
 from tpucg_torch.kernels.dispatch import resolve_backend
 from tpucg_torch.kernels.fused import (
     FUSED_AUTO_MAX_N,
+    FUSED_BATCH_DIA_MAX_N,
     FUSED_BATCH_MAX_N,
     FUSED_MAX_N,
     fused_batch_cg_solve_cuda,
+    fused_batch_dia_cg_solve_cuda,
     fused_cg_solve_cuda,
     fused_dia_cg_solve_cuda,
     fused_stencil_cg_solve_cuda,
 )
+from tpucg_torch.kernels.gather_spmv import (
+    well_spmv,
+    well_spmv_cuda,
+    well_spmv_fused_gather,
+    well_spmv_torch,
+)
 from tpucg_torch.kernels.matvec import MATVEC_ALIGN, matvec, matvec_cuda, matvec_torch
-from tpucg_torch.kernels.spmv import dia_spmv, dia_spmv_cuda, dia_spmv_torch
+from tpucg_torch.kernels.spmv import (
+    bsr_ell_spmv,
+    dia_spmv,
+    dia_spmv_cuda,
+    dia_spmv_torch,
+    ell_spmv,
+)
 from tpucg_torch.kernels.stencil import poisson3d, poisson3d_cuda, poisson3d_torch
 
 __all__ = [
@@ -41,15 +58,19 @@ __all__ = [
     "fused_update_cuda",
     "fused_update_torch",
     "FUSED_AUTO_MAX_N",
+    "FUSED_BATCH_DIA_MAX_N",
     "FUSED_BATCH_MAX_N",
     "FUSED_MAX_N",
     "fused_batch_cg_solve_cuda",
+    "fused_batch_dia_cg_solve_cuda",
     "fused_cg_solve_cuda",
     "fused_dia_cg_solve_cuda",
     "fused_stencil_cg_solve_cuda",
+    "bsr_ell_spmv",
     "dia_spmv",
     "dia_spmv_cuda",
     "dia_spmv_torch",
+    "ell_spmv",
     "poisson3d",
     "poisson3d_cuda",
     "poisson3d_torch",
@@ -58,4 +79,8 @@ __all__ = [
     "matvec",
     "matvec_cuda",
     "matvec_torch",
+    "well_spmv",
+    "well_spmv_cuda",
+    "well_spmv_fused_gather",
+    "well_spmv_torch",
 ]

@@ -67,6 +67,18 @@ SIGNATURES = {
         + [_LEN, ctypes.c_float, _LEN, ctypes.c_int, ctypes.c_int, ctypes.c_int, _PTR],
     ),
     "tpucg_fused_sparse_scratch": (ctypes.c_longlong, [_LEN]),
+    "tpucg_fused_batch_dia_cg_f32": (
+        ctypes.c_int,
+        [_PTR, _PTR, ctypes.c_int, ctypes.c_int] + [_PTR] * 5
+        + [_LEN, _LEN, ctypes.c_float, _LEN, ctypes.c_int, _PTR],
+    ),
+    "tpucg_fused_batch_dia_cg_bf16": (
+        ctypes.c_int,
+        [_PTR, _PTR, ctypes.c_int, ctypes.c_int] + [_PTR] * 5
+        + [_LEN, _LEN, ctypes.c_float, _LEN, ctypes.c_int, _PTR],
+    ),
+    "tpucg_well_spmv_f32": (ctypes.c_int, [_PTR] * 7 + [_LEN, _PTR, _PTR]),
+    "tpucg_well_spmv_bf16": (ctypes.c_int, [_PTR] * 7 + [_LEN, _PTR, _PTR]),
     "tpucg_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
 

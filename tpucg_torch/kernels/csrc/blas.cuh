@@ -2,8 +2,8 @@
 // tpucg_torch/kernels/_lib.py binds with ctypes, and the fixed-order block
 // reduction that K2 (fused update) and K3 (dot) share. The dense lap (K1-K3)
 // lives in blas.cu, the structured-sparse lap matvecs (K6 DIA SpMV, K8
-// 7-point stencil) in sparse.cu, and the whole solves (K4, K5, K10, K11) in
-// fused.cu.
+// 7-point stencil) in sparse.cu, the irregular one (K13 WELL SpMV) in
+// gather.cu, and the whole solves (K4, K5, K10, K11, K12) in fused.cu.
 //
 // Every entry point takes the launch stream. The lap's kernels also take an
 // optional `active` device flag (const int*, may be null). When the flag
@@ -21,6 +21,10 @@ constexpr int kBlock = 256;          // threads per block, K1-K4
 constexpr int kMaxPartials = 1024;   // cap on stage-1 blocks of a reduction
 constexpr int kFusedMaxN = 4096;     // K4's largest n (tpucg's FUSED_MAX_N)
 constexpr int kFusedBatchMaxN = 2048;  // K5's (tpucg's FUSED_BATCH_MAX_N)
+// K12's: the largest multiple of 128 whose four f32 vectors, with the 132
+// bytes of the block reduction, fit the 232,448 bytes of shared memory an
+// H100 block may take.
+constexpr int kFusedBatchDiaMaxN = 14464;
 
 // The lap kernels' `active` flag: true when it is given and reads 0.
 __device__ __forceinline__ bool inactive(const int* active) {
@@ -138,6 +142,33 @@ cudaError_t tpucg_fused_dia_cg_bf16(const void* data, const void* offsets, int n
                                     long long maxiter, int safe_alpha, int precond, int degree,
                                     void* stream);
 long long tpucg_fused_sparse_scratch(long long n);
+
+// K12: `batch` independent banded CG (diag = -1) or Jacobi-PCG (diag = the
+// slab row of offset 0) solves, one block each; data (batch, ndiag, npad) f32
+// or bf16 with one host `offsets` array of ndiag int64 for all, npad % 128 ==
+// 0 and npad <= 14464; b, x0 and x (batch, npad) f32, k and rr (batch,).
+cudaError_t tpucg_fused_batch_dia_cg_f32(const void* data, const void* offsets, int ndiag,
+                                         int diag, const void* b, const void* x0, void* x,
+                                         void* k, void* rr, long long batch, long long npad,
+                                         float tol, long long maxiter, int safe_alpha,
+                                         void* stream);
+cudaError_t tpucg_fused_batch_dia_cg_bf16(const void* data, const void* offsets, int ndiag,
+                                          int diag, const void* b, const void* x0, void* x,
+                                          void* k, void* rr, long long batch, long long npad,
+                                          float tol, long long maxiter, int safe_alpha,
+                                          void* stream);
+
+// K13: the WELL SpMV. For each output group g < ngroups, y[g * 128 + l] is
+// the sum, over the group's sublanes s = gsub[j], gptr[g] <= j < gptr[g + 1],
+// in that order, of vals[s, l] * x[wrow[s / 8] * 128 + lidx[s, l]]. vals
+// (NS, 128) f32 or bf16, lidx (NS, 128) int8, wrow (NS / 8,), gptr and gsub
+// int32; x f32, y (ngroups * 128,) f32.
+cudaError_t tpucg_well_spmv_f32(const void* vals, const void* lidx, const void* wrow,
+                                const void* gptr, const void* gsub, const void* x, void* y,
+                                long long ngroups, const void* active, void* stream);
+cudaError_t tpucg_well_spmv_bf16(const void* vals, const void* lidx, const void* wrow,
+                                 const void* gptr, const void* gsub, const void* x, void* y,
+                                 long long ngroups, const void* active, void* stream);
 
 // cudaGetErrorString, for the wrappers' error messages.
 const char* tpucg_error_string(int err);

@@ -9,6 +9,8 @@
 //                              fused_stencil_cg_solve_pallas (_fused_stencil_cg_kernel :301)
 // K11 fused_dia_cg_kernel      replaces tpucg/kernels/fused.py:493 fused_dia_cg_solve_pallas
 //                              (_fused_dia_cg_kernel :452, _dia_apply_values :421)
+// K12 fused_batch_dia_cg_kernel  replaces tpucg/kernels/fused.py:729
+//                              fused_batch_dia_cg_solve_pallas (_fused_batch_dia_cg_kernel :694)
 //
 // All run tpucg's _cg_while contract: r0 = b - A x0, stop at k = 0 when
 // r.r < tol^2; each lap alpha = rsold / p.Ap (0 when p.Ap = 0 with
@@ -70,6 +72,17 @@
 // r.r are written per system. One SM per system leaves the card underused
 // below B = 132, and a single SM pulls A far below the card's bandwidth: a
 // later redesign splits a system over several blocks.
+//
+// K12 is K5's layout for B banded systems that share one offsets tuple:
+// one block of min(n, 1024) threads per system, x, r, p and Ap in shared
+// memory (16 KB at n = 1024), the matvec K11's DIA row function over the
+// system's (ndiag, n) slab, which streams from device memory (through the
+// read-only path) every lap in f32 or bf16; jacobi reads 1/diag from the
+// slab's main-diagonal row. Its cap is the card's: the n whose four vectors
+// fit the 227 KB of shared memory a block may take (kFusedBatchDiaMaxN). A
+// lap reads the slab (ndiag x n elements) and touches shared memory only,
+// so at tpucg's battery (256 x 1024, 3 diagonals) every SM holds two
+// systems and the slab's 3 MB (f32) stays in L2 across laps.
 #include "blas.cuh"
 #include "sparse.cuh"
 
@@ -88,12 +101,10 @@ constexpr int kSparseMaxGrid = 4096;       // K10/K11: cap on blocks (sizes thei
 
 enum Precond : int { kNone = 0, kJacobi = 1, kPoly = 2 };
 
-// Sum of v over a block of `threads` threads, returned to every thread:
+// Sum of v over a block of `warps` whole warps, returned to every thread:
 // a shuffle tree in each warp, then warp 0 sums the warp results in warp
 // order. `red` is 33 floats of shared memory, free again on return.
-template <int threads>
-__device__ __forceinline__ float block_allsum(float v, float* red) {
-  constexpr int warps = threads / 32;
+__device__ __forceinline__ float block_allsum_warps(float v, float* red, int warps) {
   for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -108,6 +119,12 @@ __device__ __forceinline__ float block_allsum(float v, float* red) {
   const float out = red[32];
   __syncthreads();
   return out;
+}
+
+// The same over a block of `threads` threads (a compile-time count).
+template <int threads>
+__device__ __forceinline__ float block_allsum(float v, float* red) {
+  return block_allsum_warps(v, red, threads / 32);
 }
 
 // One row of A (n floats, 16-byte aligned, read-only for the launch) times
@@ -532,6 +549,140 @@ __global__ void __launch_bounds__(kBatchBlock) fused_batch_cg_kernel(BatchArgs a
   }
 }
 
+struct BatchDiaArgs {
+  const float* b;     // (B, n)
+  const float* x0;    // (B, n)
+  float* x;           // (B, n) out
+  int* k_out;         // (B,) out
+  float* rr_out;      // (B,) out
+  int n;
+  int diag;           // jacobi: the slab row of offset 0; -1 for none
+  float tol;
+  long long maxiter;
+  int safe_alpha;
+};
+
+// K12: K5's recurrence with K11's DIA row function as the matvec, one block
+// of min(n, 1024) threads per system; `data` is (B, ndiag, n) and every
+// system shares `offs`. Thread t owns rows t, t + blockDim, ...
+template <typename T>
+__global__ void __launch_bounds__(kBatchBlock)
+fused_batch_dia_cg_kernel(const __grid_constant__ BatchDiaArgs a, const T* __restrict__ data,
+                          const __grid_constant__ DiaOffsets offs) {
+  extern __shared__ float4 sm4[];  // x | r | p | Ap, n floats each
+  __shared__ float red[33];
+  const int n = a.n;
+  const int nthreads = static_cast<int>(blockDim.x);
+  const int warps = nthreads >> 5;
+  float* xs = reinterpret_cast<float*>(sm4);
+  float* rs = xs + n;
+  float* ps = rs + n;
+  float* aps = ps + n;
+  const size_t sys = blockIdx.x;
+  const T* slab = data + sys * offs.ndiag * n;
+  const float* b = a.b + sys * n;
+  const float* x0 = a.x0 + sys * n;
+  const T* dmain = a.diag >= 0 ? slab + static_cast<size_t>(a.diag) * n : nullptr;
+  const float tol2 = a.tol * a.tol;
+
+  // 1/diag of row i, 1 where the diagonal is 0 (tpucg's fused.py:707-711).
+  auto minv = [&](int i) -> float {
+    const float d = widen(__ldg(dmain + i));
+    return d != 0.f ? 1.f / d : 1.f;
+  };
+  // Ap (into aps) for p in ps; returns this thread's share of p.Ap.
+  auto matvec = [&]() -> float {
+    float s = 0.f;
+    for (int i = threadIdx.x; i < n; i += nthreads) {
+      const float av = dia_row(slab, n, offs, i, [&](long long j) { return ps[j]; });
+      aps[i] = av;
+      s += ps[i] * av;
+    }
+    return s;
+  };
+
+  for (int i = threadIdx.x; i < n; i += nthreads) {
+    const float v = __ldg(x0 + i);
+    xs[i] = v;
+    ps[i] = v;
+  }
+  __syncthreads();
+  matvec();
+  __syncthreads();
+  float s0 = 0.f, s1 = 0.f;
+  for (int i = threadIdx.x; i < n; i += nthreads) {
+    const float rv = __ldg(b + i) - aps[i];
+    rs[i] = rv;
+    const float z = dmain ? minv(i) * rv : rv;
+    ps[i] = z;
+    s0 += rv * rv;
+    s1 += rv * z;
+  }
+  float rr = block_allsum_warps(s0, red, warps);
+  float rsold = dmain ? block_allsum_warps(s1, red, warps) : rr;
+  long long k = 0;
+  bool done = rr < tol2;
+  while (!done && k < a.maxiter) {
+    const float pap = block_allsum_warps(matvec(), red, warps);  // syncs: Ap complete
+    const float alpha = safe_div(rsold, pap, a.safe_alpha);
+    s0 = 0.f;
+    s1 = 0.f;
+    for (int i = threadIdx.x; i < n; i += nthreads) {
+      xs[i] = xs[i] + alpha * ps[i];
+      const float rv = rs[i] - alpha * aps[i];
+      rs[i] = rv;
+      s0 += rv * rv;
+      s1 += dmain ? rv * (minv(i) * rv) : 0.f;
+    }
+    rr = block_allsum_warps(s0, red, warps);
+    const float rz = dmain ? block_allsum_warps(s1, red, warps) : rr;
+    ++k;
+    done = rr < tol2;
+    if (done) break;
+    const float beta = rz / rsold;
+    rsold = rz;
+    for (int i = threadIdx.x; i < n; i += nthreads) {
+      const float z = dmain ? minv(i) * rs[i] : rs[i];
+      ps[i] = z + beta * ps[i];
+    }
+    __syncthreads();
+  }
+  float* x = a.x + sys * n;
+  for (int i = threadIdx.x; i < n; i += nthreads) x[i] = xs[i];
+  if (threadIdx.x == 0) {
+    a.k_out[sys] = static_cast<int>(k);
+    a.rr_out[sys] = rr;
+  }
+}
+
+template <typename T>
+cudaError_t launch_fused_batch_dia(const void* data, const void* offsets, int ndiag, int diag,
+                                   const void* b, const void* x0, void* x, void* k, void* rr,
+                                   long long batch, long long npad, float tol,
+                                   long long maxiter, int safe_alpha, void* stream) {
+  if (batch <= 0 || batch > 0x7fffffffLL || npad <= 0 || npad % 128 ||
+      npad > kFusedBatchDiaMaxN || ndiag < 1 || ndiag > kDiaMaxDiags || offsets == nullptr ||
+      diag < -1 || diag >= ndiag)
+    return cudaErrorInvalidValue;
+  DiaOffsets offs{};
+  offs.ndiag = ndiag;
+  const long long* host = static_cast<const long long*>(offsets);
+  for (int d = 0; d < ndiag; ++d) offs.off[d] = host[d];
+  const int threads = static_cast<int>(npad < kBatchBlock ? npad : kBatchBlock);
+  const int smem = static_cast<int>(4 * npad * sizeof(float));
+  // Above 48 KB a block takes dynamic shared memory only when asked.
+  cudaError_t err = cudaFuncSetAttribute(fused_batch_dia_cg_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  BatchDiaArgs ba{static_cast<const float*>(b), static_cast<const float*>(x0),
+                  static_cast<float*>(x), static_cast<int*>(k), static_cast<float*>(rr),
+                  static_cast<int>(npad), diag, tol, maxiter, safe_alpha};
+  fused_batch_dia_cg_kernel<T><<<static_cast<unsigned>(batch), threads, smem,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      ba, static_cast<const T*>(data), offs);
+  return cudaGetLastError();
+}
+
 // Cooperative grid of `kernel` (kBlock threads, `smem` dynamic bytes): the
 // blocks an SM holds at once (cached per device and `key`) times the SM
 // count, at most `cap`. A device without cooperative launch refuses.
@@ -697,4 +848,24 @@ extern "C" cudaError_t tpucg_fused_batch_cg_f32(const void* A, const void* b, co
                           4 * static_cast<size_t>(n) * sizeof(float),
                           static_cast<cudaStream_t>(stream)>>>(ba);
   return cudaGetLastError();
+}
+
+extern "C" cudaError_t tpucg_fused_batch_dia_cg_f32(const void* data, const void* offsets,
+                                                    int ndiag, int diag, const void* b,
+                                                    const void* x0, void* x, void* k, void* rr,
+                                                    long long batch, long long npad, float tol,
+                                                    long long maxiter, int safe_alpha,
+                                                    void* stream) {
+  return tpucg::launch_fused_batch_dia<float>(data, offsets, ndiag, diag, b, x0, x, k, rr, batch,
+                                              npad, tol, maxiter, safe_alpha, stream);
+}
+
+extern "C" cudaError_t tpucg_fused_batch_dia_cg_bf16(const void* data, const void* offsets,
+                                                     int ndiag, int diag, const void* b,
+                                                     const void* x0, void* x, void* k, void* rr,
+                                                     long long batch, long long npad, float tol,
+                                                     long long maxiter, int safe_alpha,
+                                                     void* stream) {
+  return tpucg::launch_fused_batch_dia<uint16_t>(data, offsets, ndiag, diag, b, x0, x, k, rr,
+                                                 batch, npad, tol, maxiter, safe_alpha, stream);
 }

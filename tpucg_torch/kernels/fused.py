@@ -1,6 +1,7 @@
 """Whole-solve CG in one kernel launch (``tpucg.kernels.fused``): K4 for one
 dense system, K5 for a batch of independent dense systems, K10 for the
-matrix-free 3-D Poisson stencil and K11 for a banded (DIA) matrix.
+matrix-free 3-D Poisson stencil, K11 for a banded (DIA) matrix and K12 for
+a batch of banded systems that share their offsets.
 ``csrc/fused.cu`` holds the kernels and their design note. Their plain
 PyTorch versions run the same recurrence (tpucg's ``_cg_while``) through
 the solver's loops, so they live above this layer, in
@@ -53,6 +54,13 @@ FUSED_DIA_MAX_N = 2 ** 31 - 1 - 2 ** 22  # csrc/sparse.cuh kMaxIntRows
 # m = 32 ... 160, 0.51-10.4 ms against 15-42 ms. PERF.md keeps the table.
 FUSED_STENCIL_AUTO_MAX_M = 192
 FUSED_DIA_AUTO_MAX_N = 160 ** 3
+
+# K12's cap, the card's own: the largest padded n (a multiple of 128) whose
+# four f32 vectors fit the shared memory an H100 grants one block (232,448
+# bytes, less K12's 132-byte reduction buffer; csrc/blas.cuh
+# kFusedBatchDiaMaxN). tpucg's VMEM rule (fused_batch_dia_supported,
+# fused.py:680) is a TPU rule and does not apply.
+FUSED_BATCH_DIA_MAX_N = 14464
 
 _PRECOND_CODE = {"none": 0, "jacobi": 1, "poly": 2}
 
@@ -233,10 +241,40 @@ def check_fused_dia(data, offsets, b, x0, precondition, poly_degree) -> None:
 
 def dia_minv(data, offsets) -> torch.Tensor:
     """1/diag from the slab's main diagonal (1 where it is 0), f32: the
-    Jacobi inverse K11 and its plain version read, as tpucg's kernel reads
-    it from its resident slab (``fused.py:464-470``)."""
-    d = data[list(int(o) for o in offsets).index(0)].to(torch.float32)
+    Jacobi inverse K11 and K12 and their plain versions read, as tpucg's
+    kernels read it from their resident slab (``fused.py:464-470``,
+    ``:707-711``). ``data`` is (ndiag, n), or (B, ndiag, n) for a batch."""
+    d = data[..., list(int(o) for o in offsets).index(0), :].to(torch.float32)
     return torch.where(d != 0, 1.0 / d, 1.0)
+
+
+def fused_batch_dia_supported(n: int, offsets) -> bool:
+    """K12 runs 1 to 64 diagonals over a padded length n, a multiple of 128
+    up to ``FUSED_BATCH_DIA_MAX_N``."""
+    return 1 <= n <= FUSED_BATCH_DIA_MAX_N and n % 128 == 0 and 1 <= len(offsets) <= DIA_MAX_DIAGS
+
+
+def check_fused_batch_dia(data, offsets, b, x0, precondition) -> None:
+    """K12's operands, with tpucg's messages (``fused.py:750-765``; K12's
+    wrapper and its plain version both check them)."""
+    offsets = tuple(int(o) for o in offsets)
+    if data.dim() != 3 or data.shape[1] != len(offsets):
+        raise ValueError(
+            f"batched fused DIA solve needs a (B, ndiag, n) slab for {len(offsets)} offsets, "
+            f"got {tuple(data.shape)}")
+    B, npad = data.shape[0], data.shape[2]
+    if not fused_batch_dia_supported(npad, offsets):
+        raise ValueError(
+            f"batched fused DIA solve unsupported for n={npad}, ndiag={len(offsets)} (128-aligned "
+            f"n <= {FUSED_BATCH_DIA_MAX_N}, 1 to {DIA_MAX_DIAGS} diagonals)")
+    if data.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"batched DIA solve stores f32 or bf16 slabs, got {data.dtype}")
+    if precondition not in ("none", "jacobi"):
+        raise ValueError("batched DIA solve supports precondition 'none' or 'jacobi'")
+    if precondition == "jacobi" and 0 not in offsets:
+        raise ValueError("jacobi needs a stored main diagonal")
+    for name, v in (("b", b), ("x0", x0)):
+        _check_vector(name, v, (B, npad), data)
 
 
 def _solve_outputs(n, like):
@@ -304,3 +342,36 @@ def fused_dia_cg_solve_cuda(data, offsets, b, x0, *, tol, maxiter, safe_alpha=Tr
 
 
 fused_dia_cg_solve_cuda.launches = 0
+
+
+def fused_batch_dia_cg_solve_cuda(data, offsets, b, x0, *, tol, maxiter, safe_alpha=True,
+                                  precondition="none"):
+    """K12 on the card: B independent banded CG (``"none"``) or Jacobi-PCG
+    (``"jacobi"``, 1/diag read from each slab's main diagonal) solves in one
+    launch, one block per system. ``data`` is (B, ndiag, npad) f32 or bf16
+    on the card, every system with the same ``offsets``; ``b`` and ``x0``
+    (B, npad) f32. Returns x (B, npad), k and rr (B,)."""
+    check_fused_batch_dia(data, offsets, b, x0, precondition)
+    _require_cuda("fused_batch_dia_cg_solve_cuda", data, b, x0)
+    B, npad = data.shape[0], data.shape[2]
+    offsets = tuple(int(o) for o in offsets)
+    offs = offsets_array(offsets)
+    x = torch.empty((B, npad), dtype=torch.float32, device=data.device)
+    k = torch.empty(B, dtype=torch.int32, device=data.device)
+    rr = torch.empty(B, dtype=torch.float32, device=data.device)
+    lib = _lib.load()
+    fn = (lib.tpucg_fused_batch_dia_cg_f32 if data.dtype == torch.float32
+          else lib.tpucg_fused_batch_dia_cg_bf16)
+    err = fn(
+        data.data_ptr(), offs.ctypes.data, offs.size,
+        offsets.index(0) if precondition == "jacobi" else -1, b.data_ptr(), x0.data_ptr(),
+        x.data_ptr(), k.data_ptr(), rr.data_ptr(), B, npad, float(tol), int(maxiter),
+        int(bool(safe_alpha)), cuda_stream(data),
+    )
+    if err:
+        _lib.check(err, "fused_batch_dia_cg_solve_cuda")
+    fused_batch_dia_cg_solve_cuda.launches += 1
+    return x, k, rr
+
+
+fused_batch_dia_cg_solve_cuda.launches = 0

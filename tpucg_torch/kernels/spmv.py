@@ -1,9 +1,15 @@
-"""DIA SpMV, y[i] = sum_d data[d, i] * x[i + offsets[d]] with zero fill
+"""Sparse matrix-vector products.
+
+DIA SpMV, y[i] = sum_d data[d, i] * x[i + offsets[d]] with zero fill
 outside [0, n): K6 of the port; ``csrc/sparse.cu`` holds the kernel and its
 design note. The slab is the canonical (ndiag, npad) layout in f32 or bf16,
 with f32 sums. tpucg's row-interleaved packing (``dia_interleave``) was a
 TPU DMA layout; it is kept here, in NumPy, for carrying tpucg's operators
 across only.
+
+ELLPACK (``ell_spmv``) and block-ELL (``bsr_ell_spmv``) products are plain
+torch ops on any device, as tpucg computes them in XLA outside any Pallas
+kernel: a gather, a product and a row sum (a batched block product for BSR).
 """
 
 from __future__ import annotations
@@ -32,16 +38,33 @@ def offsets_array(offsets: Sequence[int]) -> np.ndarray:
     return np.ascontiguousarray(np.asarray(offsets, dtype=np.int64).reshape(-1))
 
 
+def ell_spmv(values: torch.Tensor, indices: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """y[i] = sum_k values[i, k] * x[indices[i, k]] (tpucg's ``ell_spmv``,
+    ``spmv.py:23``); padded entries hold value 0 at index 0."""
+    return (values.to(torch.float32) * x[indices.long()]).sum(1)
+
+
+def bsr_ell_spmv(values: torch.Tensor, indices: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Block-ELL SpMV (tpucg's ``bsr_ell_spmv``, ``spmv.py:359``): values
+    (nbr, L, bs, bs), indices (nbr, L) block-column ids, x (ncols,). Each
+    block row gathers its L x-blocks and does L dense (bs x bs) products, in
+    full f32 (no TF32: ``dispatch.strict_f32``)."""
+    nbr, L, bs, _ = values.shape
+    gathered = x.reshape(-1, bs)[indices.reshape(-1).long()].reshape(nbr, L, bs)
+    return torch.einsum("rlij,rlj->ri", values.to(torch.float32), gathered).reshape(nbr * bs)
+
+
 def _shift(x: torch.Tensor, off: int) -> torch.Tensor:
-    """result[i] = x[i + off], 0 outside [0, n) (tpucg's ``_shift_flat``)."""
-    n = x.shape[0]
+    """result[..., i] = x[..., i + off], 0 outside [0, n) along the last
+    axis (tpucg's ``_shift_flat``)."""
+    n = x.shape[-1]
     if off == 0:
         return x
     if abs(off) >= n:
         return torch.zeros_like(x)
     if off > 0:
-        return torch.cat([x[off:], x.new_zeros(off)])
-    return torch.cat([x.new_zeros(-off), x[: n + off]])
+        return torch.cat([x[..., off:], x.new_zeros(x.shape[:-1] + (off,))], -1)
+    return torch.cat([x.new_zeros(x.shape[:-1] + (-off,)), x[..., : n + off]], -1)
 
 
 def dia_spmv_torch(data: torch.Tensor, offsets: Sequence[int], x: torch.Tensor) -> torch.Tensor:
@@ -56,6 +79,16 @@ def dia_spmv_torch(data: torch.Tensor, offsets: Sequence[int], x: torch.Tensor) 
 
 
 dia_spmv_torch.launches = 0
+
+
+def batch_dia_spmv_torch(data: torch.Tensor, offsets: Sequence[int],
+                         x: torch.Tensor) -> torch.Tensor:
+    """The plain DIA SpMV of B systems at once: ``data`` (B, ndiag, n), x
+    (B, n); each system's sum is ``dia_spmv_torch``'s, in the same order."""
+    y = torch.zeros_like(x)
+    for d, off in enumerate(offsets):
+        y = y + data[:, d].to(torch.float32) * _shift(x, int(off))
+    return y
 
 
 def check_dia(data: torch.Tensor, offsets: Sequence[int], x: Optional[torch.Tensor] = None) -> None:

@@ -1,5 +1,6 @@
-"""CG solver: the chunked device loops, the dense, DIA and Poisson operators,
-the NumPy oracle, and the plain versions of the whole-solve kernels."""
+"""CG solver: the chunked device loops, the dense, DIA, Poisson, WELL, BSR
+and ELL operators, the NumPy oracle, and the plain versions of the
+whole-solve kernels."""
 
 from tpucg_torch.solver.cg import (
     CGResult,
@@ -7,6 +8,7 @@ from tpucg_torch.solver.cg import (
     cg_loop,
     cg_solve,
     cg_solve_batch,
+    cg_solve_batch_banded,
     init_state,
     lambda_max_estimate,
     lap_ops,
@@ -15,6 +17,8 @@ from tpucg_torch.solver.cg import (
 from tpucg_torch.solver.fused import (
     fused_batch_cg_solve,
     fused_batch_cg_solve_torch,
+    fused_batch_dia_cg_solve,
+    fused_batch_dia_cg_solve_torch,
     fused_cg_solve,
     fused_cg_solve_torch,
     fused_dia_cg_solve,
@@ -23,11 +27,15 @@ from tpucg_torch.solver.fused import (
     fused_stencil_cg_solve_torch,
 )
 from tpucg_torch.solver.operators import (
+    BsrOperator,
     DenseOperator,
     DiaOperator,
+    EllOperator,
     LinearOperator,
     PoissonOperator,
+    WellOperator,
     as_operator,
+    best_sparse_operator,
 )
 from tpucg_torch.solver.oracle import oracle_cg
 
@@ -37,8 +45,11 @@ __all__ = [
     "cg_loop",
     "cg_solve",
     "cg_solve_batch",
+    "cg_solve_batch_banded",
     "fused_batch_cg_solve",
     "fused_batch_cg_solve_torch",
+    "fused_batch_dia_cg_solve",
+    "fused_batch_dia_cg_solve_torch",
     "fused_cg_solve",
     "fused_cg_solve_torch",
     "fused_dia_cg_solve",
@@ -49,10 +60,14 @@ __all__ = [
     "lambda_max_estimate",
     "lap_ops",
     "make_poly_precond",
+    "BsrOperator",
     "DenseOperator",
     "DiaOperator",
+    "EllOperator",
     "LinearOperator",
     "PoissonOperator",
+    "WellOperator",
     "as_operator",
+    "best_sparse_operator",
     "oracle_cg",
 ]

@@ -19,12 +19,15 @@ the torch backend ``torch.where`` keeps the old values. Lap counts and
 results therefore do not depend on the chunk size.
 
 The lap's matvec is the operator's kernel: K1 for a ``DenseOperator``, K6
-for a ``DiaOperator``, K8 for a ``PoissonOperator``; K2 and K3 do the rest.
+for a ``DiaOperator``, K8 for a ``PoissonOperator``, K13 for a
+``WellOperator`` (and a plain torch product for ``BsrOperator`` and
+``EllOperator``, as in tpucg); K2 and K3 do the rest.
 A plain f32 solve that ``_fused_eligible`` admits on the cuda backend skips
 the lap loop: a whole-solve kernel runs it in one launch, K4 (dense), K10
 (Poisson stencil) or K11 (DIA). ``cg_solve_batch`` solves B independent
 systems, through the batched kernel K5 where it applies and
-``batch_cg_loop`` elsewhere.
+``batch_cg_loop`` elsewhere; ``cg_solve_batch_banded`` B banded systems
+that share their offsets, through K12 or ``batch_cg_loop``.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from tpucg_torch.config import CGConfig
+from tpucg_torch.io.partitioner import round_up
 from tpucg_torch.kernels.blas1 import (
     dot_cuda,
     dot_launch,
@@ -51,13 +55,17 @@ from tpucg_torch.kernels.fused import (
     FUSED_DIA_AUTO_MAX_N,
     FUSED_MAX_N,
     FUSED_STENCIL_AUTO_MAX_M,
+    dia_minv,
     fused_batch_cg_solve_cuda,
+    fused_batch_dia_cg_solve_cuda,
+    fused_batch_dia_supported,
     fused_cg_solve_cuda,
     fused_dia_cg_solve_cuda,
     fused_dia_supported,
     fused_stencil_cg_solve_cuda,
     fused_stencil_supported,
 )
+from tpucg_torch.kernels.spmv import LANE, batch_dia_spmv_torch
 from tpucg_torch.solver.operators import (
     DenseOperator,
     DiaOperator,
@@ -364,6 +372,13 @@ def batch_matvec(A: torch.Tensor) -> Callable:
     return lambda v, act=None: torch.bmm(A, v[:, :, None])[:, :, 0]
 
 
+def batch_dia_matvec(data: torch.Tensor, offsets) -> Callable:
+    """``matvec(v, act)`` over (B, n) for the (B, ndiag, n) DIA slab: the
+    batched shift-and-add (tpucg's per-system ``dia_spmv_interleaved_xla``)."""
+    offsets = tuple(int(o) for o in offsets)
+    return lambda v, act=None: batch_dia_spmv_torch(data, offsets, v)
+
+
 def _batch_dot(u, v, act=None):
     return (u * v).sum(-1)
 
@@ -534,8 +549,11 @@ def cg_solve(
     """Solve the SPD system A x = b (tpucg's ``cg_solve`` with the
     classic-CG branch of its ``_cg_jit``).
 
-    ``A`` is a dense array or tensor, a ``DIAMatrix``, or an operator
-    (``DenseOperator``, ``DiaOperator``, ``PoissonOperator``). ``device``
+    ``A`` is a dense array or tensor, a sparse container (a ``CSRMatrix``
+    becomes an ``EllOperator`` as in tpucg; ``best_sparse_operator`` picks a
+    format instead), or an operator (``DenseOperator``, ``DiaOperator``,
+    ``PoissonOperator``, ``WellOperator``, ``BsrOperator``,
+    ``EllOperator``). ``device``
     defaults to the device of a tensor or operator ``A``, else the card when
     there is one; ``kernel="auto"`` then runs the CUDA kernels on a CUDA
     device and the plain versions elsewhere. On the cuda backend a solve
@@ -685,6 +703,91 @@ def cg_solve_batch(
         matvec = batch_matvec(A)
         precond = make_precond(config.precondition, minv, matvec, _batch_dot, b,
                                config.poly_degree)
+        s = batch_cg_loop(matvec, b, X0, tol=tol, maxiter=maxiter, safe_alpha=safe_alpha,
+                          precond=precond, chunk=chunk)
+        res = CGResult(x=s.x, iterations=s.k, residual_norm=s.rslast.sqrt(), converged=s.done)
+    if npad != n:
+        res = res._replace(x=res.x[:, :n])
+    return res
+
+
+def cg_solve_batch_banded(
+    data,
+    offsets,
+    b,
+    X0=None,
+    config: Optional[CGConfig] = None,
+    storage_dtype=torch.float32,
+    *,
+    device=None,
+    chunk: Optional[int] = None,
+    **overrides,
+) -> CGResult:
+    """Solve a batch of independent banded SPD systems A[i] x[i] = b[i]
+    (tpucg's ``cg_solve_batch_banded``, ``cg.py:1906``): ``data`` is (B,
+    ndiag, n) canonical DIA values (``data[i, d, j] = A_i[j, j +
+    offsets[d]]``), ``offsets`` one tuple for the batch, ``b`` and ``X0``
+    (B, n), as arrays or tensors; ``device`` defaults as in ``cg_solve``.
+    ``precondition`` is ``"none"`` or ``"jacobi"``; ``storage_dtype`` f32 or
+    bf16 (the slab's storage; f32 sums).
+
+    n is padded to a multiple of 128 with an identity tail on the main
+    diagonal (raises without one). On the cuda backend, unless
+    ``fused="never"``, a batch of padded n <= ``FUSED_BATCH_DIA_MAX_N`` runs
+    as one launch of K12; every other batch runs ``batch_cg_loop`` over the
+    batched shift-and-add, as tpucg runs its XLA loop. Result fields are
+    batched like ``cg_solve_batch``'s.
+    """
+    config = _configure(config, overrides)
+    if config.method != "cg":
+        raise ValueError("cg_solve_batch_banded supports method='cg' only")
+    if config.precondition not in ("none", "jacobi"):
+        raise ValueError("cg_solve_batch_banded supports precondition 'none' or 'jacobi'")
+    if storage_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"storage_dtype must be float32 or bfloat16, got {storage_dtype}")
+    if device is None and isinstance(data, torch.Tensor):
+        device = data.device
+    device = canonical_device(device)
+    data = torch.as_tensor(data, dtype=torch.float32, device=device)
+    if data.dim() != 3:
+        raise ValueError(f"data must be (B, ndiag, n), got {tuple(data.shape)}")
+    offsets = tuple(int(o) for o in offsets)
+    nsys, ndiag, n = data.shape
+    if ndiag != len(offsets):
+        raise ValueError(f"data has {ndiag} diagonals, offsets has {len(offsets)}")
+    b = torch.as_tensor(b, dtype=torch.float32, device=device)
+    if b.shape != (nsys, n):
+        raise ValueError(f"b must be ({nsys}, {n}), got {tuple(b.shape)}")
+    X0 = (
+        torch.zeros((nsys, n), dtype=torch.float32, device=device)
+        if X0 is None
+        else torch.as_tensor(X0, dtype=torch.float32, device=device)
+    )
+    if X0.shape != (nsys, n):
+        raise ValueError(f"X0 must be ({nsys}, {n}), got {tuple(X0.shape)}")
+    npad = round_up(n, LANE)
+    if npad != n:
+        if 0 not in offsets:
+            raise ValueError(
+                "non-128-multiple n needs a stored main diagonal for the identity padding")
+        data = F.pad(data, (0, npad - n))
+        data[:, offsets.index(0), n:] = 1.0
+        b = F.pad(b, (0, npad - n))
+        X0 = F.pad(X0, (0, npad - n))
+    data = data.to(storage_dtype).contiguous()
+    maxiter = int(config.maxiter if config.maxiter is not None else n)
+    backend = resolve_backend(config.kernel, device)
+    tol, safe_alpha = float(config.tol), bool(config.safe_alpha)
+    if backend == "cuda" and config.fused != "never" and fused_batch_dia_supported(npad, offsets):
+        x, k, rr = fused_batch_dia_cg_solve_cuda(
+            data, offsets, b.contiguous(), X0.contiguous(), tol=tol, maxiter=maxiter,
+            safe_alpha=safe_alpha, precondition=config.precondition,
+        )
+        res = _fused_result(x, k, rr, tol)
+    else:
+        matvec = batch_dia_matvec(data, offsets)
+        minv = dia_minv(data, offsets) if config.precondition == "jacobi" else None
+        precond = make_precond(config.precondition, minv, matvec, _batch_dot, b, 0)
         s = batch_cg_loop(matvec, b, X0, tol=tol, maxiter=maxiter, safe_alpha=safe_alpha,
                           precond=precond, chunk=chunk)
         res = CGResult(x=s.x, iterations=s.k, residual_norm=s.rslast.sqrt(), converged=s.done)

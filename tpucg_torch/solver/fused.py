@@ -1,17 +1,19 @@
-"""The plain versions of the whole-solve kernels K4, K5, K10 and K11, and
-the dispatchers that pick kernel or plain version by the tensors' device.
+"""The plain versions of the whole-solve kernels K4, K5, K10, K11 and K12,
+and the dispatchers that pick kernel or plain version by the tensors'
+device.
 
 The kernels' wrappers (``tpucg_torch.kernels.fused``) check the operands
 and launch one kernel; the plain versions check the same operands, with the
 same messages, and run the same recurrence (tpucg's ``_cg_while``) through
 this package's loops on plain torch ops: ``cg_loop`` on the plain lap
 kernels for one system (the dense GEMV, the DIA SpMV or the stencil),
-``batch_cg_loop`` with ``torch.bmm`` for a batch; poly comes through
+``batch_cg_loop`` with ``torch.bmm`` for a dense batch and the batched
+shift-and-add for a banded one; poly comes through
 ``make_poly_precond`` (the kernels' power method, from the same seed over
 the padded length). They return what the kernels return, ``(x, k, rr)``,
 and read nothing back to the host beyond the loops' one flag per chunk of
-laps. ``cg_solve`` and ``cg_solve_batch`` never call them: they serve the
-tests and the card's checks of the kernels.
+laps. ``cg_solve``, ``cg_solve_batch`` and ``cg_solve_batch_banded`` never
+call them: they serve the tests and the card's checks of the kernels.
 """
 
 from __future__ import annotations
@@ -20,15 +22,24 @@ from tpucg_torch.kernels.dispatch import resolve_backend
 from tpucg_torch.kernels.fused import (
     check_fused,
     check_fused_batch,
+    check_fused_batch_dia,
     check_fused_dia,
     check_fused_stencil,
     dia_minv,
     fused_batch_cg_solve_cuda,
+    fused_batch_dia_cg_solve_cuda,
     fused_cg_solve_cuda,
     fused_dia_cg_solve_cuda,
     fused_stencil_cg_solve_cuda,
 )
-from tpucg_torch.solver.cg import batch_cg_loop, batch_matvec, cg_loop, lap_ops, make_precond
+from tpucg_torch.solver.cg import (
+    batch_cg_loop,
+    batch_dia_matvec,
+    batch_matvec,
+    cg_loop,
+    lap_ops,
+    make_precond,
+)
 from tpucg_torch.solver.operators import DenseOperator, DiaOperator, PoissonOperator
 
 
@@ -100,6 +111,23 @@ def fused_dia_cg_solve_torch(data, offsets, b, x0, *, tol, maxiter, safe_alpha=T
 fused_dia_cg_solve_torch.launches = 0
 
 
+def fused_batch_dia_cg_solve_torch(data, offsets, b, x0, *, tol, maxiter, safe_alpha=True,
+                                   precondition="none"):
+    """Plain version of K12: ``batch_cg_loop`` over the batched shift-and-add
+    (tpucg's ``_cg_batch_dia_xla_jit``, ``cg.py:1878``), jacobi's 1/diag read
+    from each slab's main diagonal as K12 reads it."""
+    fused_batch_dia_cg_solve_torch.launches += 1
+    check_fused_batch_dia(data, offsets, b, x0, precondition)
+    minv = dia_minv(data, offsets) if precondition == "jacobi" else None
+    precond = None if minv is None else (lambda r, act=None: minv * r)
+    s = batch_cg_loop(batch_dia_matvec(data, offsets), b, x0, tol=tol, maxiter=maxiter,
+                      safe_alpha=safe_alpha, precond=precond)
+    return s.x, s.k, s.rslast
+
+
+fused_batch_dia_cg_solve_torch.launches = 0
+
+
 def fused_cg_solve(A, b, x0, *, backend: str = "auto", **kw):
     """K4 for a CUDA tensor (``"auto"``), its plain version for a CPU one."""
     if resolve_backend(backend, A.device) == "cuda":
@@ -126,3 +154,10 @@ def fused_dia_cg_solve(data, offsets, b, x0, *, backend: str = "auto", **kw):
     if resolve_backend(backend, data.device) == "cuda":
         return fused_dia_cg_solve_cuda(data, offsets, b, x0, **kw)
     return fused_dia_cg_solve_torch(data, offsets, b, x0, **kw)
+
+
+def fused_batch_dia_cg_solve(data, offsets, b, x0, *, backend: str = "auto", **kw):
+    """K12 for a CUDA slab (``"auto"``), its plain version for a CPU one."""
+    if resolve_backend(backend, data.device) == "cuda":
+        return fused_batch_dia_cg_solve_cuda(data, offsets, b, x0, **kw)
+    return fused_batch_dia_cg_solve_torch(data, offsets, b, x0, **kw)

@@ -1,5 +1,5 @@
-"""Linear operators: what CG needs of A (the dense and structured-sparse
-parts of ``tpucg.solver.operators``).
+"""Linear operators: what CG needs of A (the counterpart of
+``tpucg.solver.operators``).
 
 A ``DenseOperator`` pads once at construction with an identity tail to a
 multiple of 128 (``MATVEC_ALIGN``) on every backend, so its ``padded_n``
@@ -7,10 +7,15 @@ equals tpucg's ``DenseOperator.create(..., backend="pallas")`` and the hot
 matvec never pads again. A ``DiaOperator`` holds a banded matrix's (ndiag,
 npad) slab (K6), padded as tpucg's ``DiaOperator.from_dia`` pads it; a
 ``PoissonOperator`` applies the 3-D 7-point Laplacian as a stencil (K8),
-with no stored matrix.
+with no stored matrix. A ``WellOperator`` holds an irregular matrix in
+tpucg's WELL packing (K13). ``BsrOperator`` (block-ELL) and ``EllOperator``
+(ELLPACK) compute their products with plain torch ops on either device, as
+tpucg computes them in XLA: tpucg has no Pallas kernel for them, so none is
+owed. ``best_sparse_operator`` picks among DIA, BSR, WELL and ELL as tpucg's
+does.
 
 Each operator's ``launcher()`` checks its stored operands once and returns
-its kernel's launch core, ``launch(x, y, active, stream)``, which the CUDA
+its matvec's launch core, ``launch(x, y, active, stream)``, which the CUDA
 lap (``cg._cuda_lap_ops``) calls every lap.
 """
 
@@ -24,19 +29,30 @@ import torch
 
 from tpucg_torch.io.partitioner import pad_identity_tail, round_up
 from tpucg_torch.kernels.dispatch import canonical_device, resolve_backend
+from tpucg_torch.kernels.gather_spmv import (
+    check_well,
+    check_well_values,
+    group_index,
+    well_spmv_cuda,
+    well_spmv_launch,
+    well_spmv_torch,
+)
 from tpucg_torch.kernels.matvec import MATVEC_ALIGN, check_matvec, gemv_launch, matvec
-from tpucg_torch.kernels.spmv import LANE, check_dia, dia_spmv, dia_spmv_launch, offsets_array
+from tpucg_torch.kernels.spmv import (
+    LANE,
+    bsr_ell_spmv,
+    check_dia,
+    dia_spmv,
+    dia_spmv_launch,
+    ell_spmv,
+    offsets_array,
+)
 from tpucg_torch.kernels.stencil import (
     STENCIL_MAX_M,
     poisson3d,
     poisson3d_launch,
     stencil_supported,
 )
-
-# Sparse containers that arrive with ROADMAP slice D (and torch's sparse
-# layouts); as_operator names them instead of densifying.
-_SPARSE_TYPES = ("CSRMatrix", "EllMatrix", "BSRMatrix", "WellMatrix", "COOMatrix")
-
 
 def padded_size(n: int) -> int:
     """The device-side size of an n x n dense operator."""
@@ -250,20 +266,318 @@ class PoissonOperator(LinearOperator):
         return lambda x, y, active, stream: poisson3d_launch(x, y, m, active, stream)
 
 
+def _plain_launcher(product: Callable) -> Callable:
+    """The launch core of an operator whose matvec is a plain torch op: the
+    product is written into the lap's y buffer on the current stream (the
+    lap's own); a frozen lap computes it too, and every consumer masks it."""
+    return lambda x, y, active, stream: y.copy_(product(x))
+
+
+@dataclasses.dataclass(frozen=True)
+class EllOperator(LinearOperator):
+    """ELLPACK operator (tpucg's device form of CSR): ``values`` (n, L) f32
+    and ``indices`` (n, L) int32, padded entries 0 at column 0. No padding
+    of n. Its product is a plain torch op on either device (tpucg's XLA
+    ``ell_spmv``); ``backend`` resolves against the device, so on the card
+    the lap runs K2 and K3 around it."""
+
+    values: torch.Tensor
+    indices: torch.Tensor
+    n: int
+    backend: str = "auto"
+
+    def __post_init__(self):
+        object.__setattr__(self, "backend", resolve_backend(self.backend, self.values.device))
+        if (self.values.dim() != 2 or self.values.shape != self.indices.shape
+                or self.values.shape[0] != self.n or self.indices.device != self.values.device):
+            raise ValueError(
+                f"EllOperator needs (n, L) values and indices on one device for n={self.n}, "
+                f"got {tuple(self.values.shape)} and {tuple(self.indices.shape)}")
+
+    @classmethod
+    def from_csr(cls, csr, backend: str = "auto", device=None) -> "EllOperator":
+        from tpucg_torch.sparse.formats import csr_to_ell
+
+        return cls.from_ell(csr_to_ell(csr), backend=backend, device=device)
+
+    @classmethod
+    def from_ell(cls, ell, backend: str = "auto", device=None) -> "EllOperator":
+        """``ell`` is an ``EllMatrix`` (this package's or tpucg's); ``device``
+        defaults to the card when there is one."""
+        device = canonical_device(device)
+        return cls(values=torch.as_tensor(np.asarray(ell.values, np.float32), device=device),
+                   indices=torch.as_tensor(np.asarray(ell.indices, np.int32), device=device),
+                   n=int(ell.shape[0]), backend=backend)
+
+    @property
+    def device(self) -> torch.device:
+        return self.values.device
+
+    def matvec(self, x: torch.Tensor, active: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return ell_spmv(self.values, self.indices, x)
+
+    def diagonal(self) -> torch.Tensor:
+        rows = torch.arange(self.n, device=self.device)[:, None]
+        return torch.where(self.indices == rows, self.values, 0.0).sum(1)
+
+    def launcher(self) -> Callable:
+        values, indices = self.values, self.indices
+        return _plain_launcher(lambda x: ell_spmv(values, indices, x))
+
+
+@dataclasses.dataclass(frozen=True)
+class BsrOperator(LinearOperator):
+    """Block-ELL operator (tpucg's device form of BSR): ``values`` (nbr, L,
+    bs, bs) f32, ``indices`` (nbr, L) int32 block-column ids, padded blocks
+    all zero at block column 0. ``n`` may be below ``padded_n = nbr * bs``
+    when the skeleton was padded with an identity tail
+    (``best_sparse_operator``). Its product is a plain torch op on either
+    device (tpucg's XLA ``bsr_ell_spmv``)."""
+
+    values: torch.Tensor
+    indices: torch.Tensor
+    n: int
+    backend: str = "auto"
+
+    def __post_init__(self):
+        object.__setattr__(self, "backend", resolve_backend(self.backend, self.values.device))
+        v, i = self.values, self.indices
+        if (v.dim() != 4 or v.shape[2] != v.shape[3] or tuple(i.shape) != tuple(v.shape[:2])
+                or i.device != v.device or not 0 < self.n <= v.shape[0] * v.shape[2]):
+            raise ValueError(
+                f"BsrOperator needs (nbr, L, bs, bs) values and (nbr, L) indices on one device "
+                f"covering n={self.n}, got {tuple(v.shape)} and {tuple(i.shape)}")
+
+    @classmethod
+    def from_bsr(cls, bsr, backend: str = "auto", device=None) -> "BsrOperator":
+        """``bsr`` is a ``BSRMatrix`` (this package's or tpucg's), packed
+        into block rows of one width as tpucg packs it."""
+        bs = bsr.blocksize
+        nbr = bsr.shape[0] // bs
+        lengths = bsr.block_row_lengths
+        L = max(1, int(lengths.max()) if nbr else 1)
+        values = np.zeros((nbr, L, bs, bs), dtype=np.float32)
+        indices = np.zeros((nbr, L), dtype=np.int32)
+        within = np.arange(bsr.nnzb, dtype=np.int64) - np.repeat(bsr.indptr[:-1], lengths)
+        rows = np.repeat(np.arange(nbr, dtype=np.int64), lengths)
+        values[rows, within] = bsr.data
+        indices[rows, within] = bsr.indices
+        device = canonical_device(device)
+        return cls(values=torch.from_numpy(values).to(device),
+                   indices=torch.from_numpy(indices).to(device), n=int(bsr.shape[0]),
+                   backend=backend)
+
+    @property
+    def padded_n(self) -> int:
+        return self.values.shape[0] * self.values.shape[2]
+
+    @property
+    def device(self) -> torch.device:
+        return self.values.device
+
+    def matvec(self, x: torch.Tensor, active: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return bsr_ell_spmv(self.values, self.indices, x)
+
+    def diagonal(self) -> torch.Tensor:
+        nbr, L = self.indices.shape
+        rows = torch.arange(nbr, device=self.device)[:, None]
+        on_diag = (self.indices == rows)[..., None]
+        blocks = torch.where(on_diag, torch.diagonal(self.values, dim1=2, dim2=3), 0.0)
+        return blocks.sum(1).reshape(-1)
+
+    def launcher(self) -> Callable:
+        values, indices = self.values, self.indices
+        return _plain_launcher(lambda x: bsr_ell_spmv(values, indices, x))
+
+
+@dataclasses.dataclass(frozen=True)
+class WellOperator(LinearOperator):
+    """tpucg's windowed gather-ELL operator (``tpucg_torch.sparse.well``):
+    the irregular-sparse path, on K13. ``vals`` (NS, 128) f32 or bf16,
+    ``lidx`` (NS, 128) int8, ``gidl`` (NB, BS), ``wrow`` (NS/8,) and ``sgb``
+    (NB,) int32, ``dvec`` (padded_n,) f32 = diag(A), built on the host at
+    set-up as tpucg builds it; ``n`` the logical size, ``bg``/``nsg``
+    groups per super-group and super-groups. The group index of K13
+    (``gptr``, ``gsub``) is built here, once, on the arrays' device, and the
+    arrays' values are checked once (one read back to the host). On a CUDA
+    device the matvec is K13 or raises; on the CPU its plain version."""
+
+    vals: torch.Tensor
+    lidx: torch.Tensor
+    gidl: torch.Tensor
+    wrow: torch.Tensor
+    sgb: torch.Tensor
+    dvec: torch.Tensor
+    n: int
+    bg: int
+    nsg: int
+    backend: str = "auto"
+    gptr: torch.Tensor = dataclasses.field(init=False, repr=False)
+    gsub: torch.Tensor = dataclasses.field(init=False, repr=False)
+
+    def __post_init__(self):
+        object.__setattr__(self, "backend", resolve_backend(self.backend, self.vals.device))
+        check_well(self.vals, self.lidx, self.gidl, self.wrow, self.sgb, self.bg, self.nsg)
+        if (self.dvec.dtype != torch.float32 or tuple(self.dvec.shape) != (self.padded_n,)
+                or self.dvec.device != self.vals.device):
+            raise ValueError(f"dvec must be f32 ({self.padded_n},) on {self.vals.device}, got "
+                             f"{self.dvec.dtype} {tuple(self.dvec.shape)} on {self.dvec.device}")
+        if self.nsg * self.bg < self.n_groups:
+            raise ValueError(f"{self.nsg} super-groups of {self.bg} groups do not cover "
+                             f"n={self.n}")
+        check_well_values(self.lidx, self.gidl, self.wrow, self.sgb, self.bg, self.nsg,
+                          self.n_groups)
+        gptr, gsub = group_index(self.gidl, self.sgb, self.bg, self.nsg)
+        object.__setattr__(self, "gptr", gptr)
+        object.__setattr__(self, "gsub", gsub)
+
+    @classmethod
+    def from_csr(cls, csr, backend: str = "auto", storage_dtype=torch.float32, device=None,
+                 pc_block_size=None, **well_kwargs) -> "WellOperator":
+        """Pack a square CSR (``csr_to_well``, keyword arguments forwarded)."""
+        from tpucg_torch.sparse.well import csr_to_well
+
+        if csr.shape[0] != csr.shape[1]:
+            raise ValueError(f"WellOperator needs a square matrix, got {csr.shape}")
+        if pc_block_size is not None:
+            raise NotImplementedError(
+                "pc_block_size (the diagonal blocks of block Jacobi) is ROADMAP M8")
+        return cls.from_well(csr_to_well(csr, **well_kwargs), backend=backend,
+                             storage_dtype=storage_dtype, device=device)
+
+    @classmethod
+    def from_well(cls, well, backend: str = "auto", storage_dtype=torch.float32,
+                  device=None) -> "WellOperator":
+        """``well`` is a ``WellMatrix`` (this package's or tpucg's).
+        ``storage_dtype=torch.bfloat16`` stores the values in bf16 (3.5
+        streamed bytes a slot instead of 5.5; f32 products and sums; the
+        solve meets the f32 contract on the bf16-rounded system). ``device``
+        defaults to the card when there is one."""
+        if storage_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"storage_dtype must be float32 or bfloat16, got {storage_dtype}")
+        device = canonical_device(device)
+
+        def put(a, dtype):
+            return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(device)
+
+        return cls(
+            vals=put(well.vals, np.float32).to(storage_dtype),
+            lidx=put(well.lidx, np.int8), gidl=put(well.gidl, np.int32),
+            wrow=put(well.wrow, np.int32), sgb=put(well.sgb, np.int32),
+            dvec=put(well.diagonal(), np.float32), n=int(well.shape[0]),
+            bg=int(well.groups_per_super), nsg=int(well.n_supergroups), backend=backend,
+        )
+
+    @property
+    def padded_n(self) -> int:
+        return round_up(self.n, LANE)  # rows [n, padded_n) hold the identity tail
+
+    @property
+    def n_groups(self) -> int:
+        return self.padded_n // LANE
+
+    @property
+    def device(self) -> torch.device:
+        return self.vals.device
+
+    def matvec(self, x: torch.Tensor, active: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """A @ x over the padded length; ``active`` is K13's lap flag."""
+        x2 = x.reshape(self.n_groups, LANE)
+        arrays = (self.vals, self.lidx, self.gidl, self.wrow, self.sgb, x2, self.bg, self.nsg)
+        if self.backend == "cuda":
+            y2 = well_spmv_cuda(*arrays, index=(self.gptr, self.gsub), active=active)
+        else:
+            y2 = well_spmv_torch(*arrays)
+        return y2.reshape(-1)[: self.padded_n]
+
+    def matvec_multi(self, X: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError("WellOperator.matvec_multi serves the multi-RHS and block "
+                                  "solvers: ROADMAP M9")
+
+    def diagonal(self) -> torch.Tensor:
+        return self.dvec
+
+    def launcher(self) -> Callable:
+        vals, lidx, wrow, gptr, gsub = self.vals, self.lidx, self.wrow, self.gptr, self.gsub
+        ngroups = self.n_groups
+        return lambda x, y, active, stream: well_spmv_launch(vals, lidx, wrow, gptr, gsub, x, y,
+                                                             ngroups, active, stream)
+
+
+def best_sparse_operator(csr, backend: str = "auto", max_diags: int = 64,
+                         dia_fill_cap: float = 4.0, blocksize: int = 8,
+                         bsr_fill_cap: float = 3.0, fallback: str = "well", pc_block_size=None,
+                         device=None) -> LinearOperator:
+    """Promote a CSR matrix to a device format with tpucg's rules and
+    thresholds (``operators.py:625``), in tpucg's order:
+
+    1. DIA when the matrix is banded: at most ``max_diags`` distinct
+       diagonals, and ndiag * n within ``dia_fill_cap`` times nnz;
+    2. BSR when re-blocking into (blocksize x blocksize) tiles stores at most
+       ``bsr_fill_cap`` times nnz (n identity-padded to the blocksize);
+    3. WELL otherwise, for a square matrix (``fallback="ell"``: ELLPACK).
+
+    ``device`` defaults to the card when there is one; every operator's
+    backend resolves against it (tpucg's "xla" operators have no
+    counterpart). ``pc_block_size`` serves block Jacobi (ROADMAP M8)."""
+    from tpucg_torch.sparse.formats import CSRMatrix, csr_to_bsr, csr_to_dia
+
+    n = csr.shape[0]
+    nnz = max(csr.nnz, 1)
+    offs = np.unique(csr.indices.astype(np.int64) - csr.to_coo().row)
+    if offs.size <= max_diags and offs.size * n <= dia_fill_cap * nnz:
+        return DiaOperator.from_dia(csr_to_dia(csr, max_diags=max_diags), backend=backend,
+                                    device=device)
+    bs = blocksize
+    csr_b = csr
+    if n % bs:
+        npad = round_up(n, bs)
+        pad_rows = np.arange(n, npad)
+        csr_b = CSRMatrix(
+            indptr=np.concatenate([csr.indptr, csr.indptr[-1] + np.arange(1, npad - n + 1)]),
+            indices=np.concatenate([csr.indices, pad_rows.astype(np.int32)]),
+            data=np.concatenate([csr.data, np.ones(npad - n, dtype=csr.data.dtype)]),
+            shape=(npad, npad),
+        )
+    brow = csr_b.to_coo().row // bs
+    bcol = csr_b.indices.astype(np.int64) // bs
+    nnzb = np.unique(brow * (csr_b.shape[1] // bs) + bcol).size
+    if nnzb * bs * bs <= bsr_fill_cap * nnz:
+        op = BsrOperator.from_bsr(csr_to_bsr(csr_b, bs), backend=backend, device=device)
+        if csr_b.shape[0] != n:
+            # The logical size: solves pad b and x0 to padded_n.
+            op = dataclasses.replace(op, n=n)
+        return op
+    if fallback == "well" and n == csr.shape[1]:
+        return WellOperator.from_csr(csr, backend=backend, device=device,
+                                     pc_block_size=pc_block_size)
+    return EllOperator.from_csr(csr, backend=backend, device=device)
+
+
 def as_operator(A, backend: str = "auto", dtype=torch.float32, device=None) -> LinearOperator:
-    """A dense array or tensor, a ``DIAMatrix`` (this package's or tpucg's;
-    ``dtype`` is its slab's storage dtype), or an operator, as a
-    LinearOperator (operators are returned unchanged)."""
+    """A dense array or tensor, a sparse container of this package or
+    tpucg's, or an operator, as a LinearOperator (operators are returned
+    unchanged). As in tpucg, a ``CSRMatrix`` becomes an ``EllOperator`` and
+    an ``EllMatrix``, ``BSRMatrix``, ``WellMatrix`` or ``DIAMatrix`` its own
+    operator (``best_sparse_operator`` picks a format instead). ``dtype`` is
+    the storage dtype of a dense A, a DIA slab or WELL values."""
     if isinstance(A, LinearOperator):
         return A
-    if type(A).__name__ == "DIAMatrix":
+    kind = type(A).__name__
+    if kind == "CSRMatrix":
+        return EllOperator.from_csr(A, backend=backend, device=device)
+    if kind == "EllMatrix":
+        return EllOperator.from_ell(A, backend=backend, device=device)
+    if kind == "BSRMatrix":
+        return BsrOperator.from_bsr(A, backend=backend, device=device)
+    if kind == "WellMatrix":
+        return WellOperator.from_well(A, backend=backend, storage_dtype=dtype, device=device)
+    if kind == "DIAMatrix":
         return DiaOperator.from_dia(A, backend=backend, storage_dtype=dtype, device=device)
-    if type(A).__name__ in _SPARSE_TYPES or getattr(A, "is_sparse", False):
-        raise NotImplementedError(
-            f"{type(A).__name__}: CSR/COO/ELL/BSR/WELL inputs and best_sparse_operator are "
-            "ROADMAP slice D (M10's BSR/ELL, M11 WELL); pass a DIAMatrix, a "
-            "PoissonOperator or a dense array"
-        )
+    if kind == "COOMatrix" or getattr(A, "is_sparse", False) or (
+            isinstance(A, torch.Tensor) and A.layout != torch.strided):
+        raise TypeError(f"cannot interpret {kind} as a linear operator: convert it to a "
+                        "CSRMatrix (COOMatrix.to_csr())")
     ndim = A.dim() if isinstance(A, torch.Tensor) else np.ndim(A)
     if ndim == 2:
         return DenseOperator.create(A, backend=backend, dtype=dtype, device=device)

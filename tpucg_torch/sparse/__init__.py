@@ -1,5 +1,31 @@
-"""Sparse containers on the host (NumPy only)."""
+"""Sparse containers, the WELL packing and locality orderings on the host
+(NumPy only)."""
 
-from tpucg_torch.sparse.formats import COOMatrix, CSRMatrix, DIAMatrix, csr_to_dia
+from tpucg_torch.sparse.formats import (
+    BSRMatrix,
+    COOMatrix,
+    CSRMatrix,
+    DIAMatrix,
+    EllMatrix,
+    csr_to_bsr,
+    csr_to_dia,
+    csr_to_ell,
+)
+from tpucg_torch.sparse.ordering import permute_csr, rcm_order, strength_order
+from tpucg_torch.sparse.well import WellMatrix, csr_to_well
 
-__all__ = ["COOMatrix", "CSRMatrix", "DIAMatrix", "csr_to_dia"]
+__all__ = [
+    "BSRMatrix",
+    "COOMatrix",
+    "CSRMatrix",
+    "DIAMatrix",
+    "EllMatrix",
+    "WellMatrix",
+    "csr_to_bsr",
+    "csr_to_dia",
+    "csr_to_ell",
+    "csr_to_well",
+    "permute_csr",
+    "rcm_order",
+    "strength_order",
+]
