@@ -74,7 +74,31 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    one, x within 1e-4 of max |x|, repeats bit-identical) and laps equal on
    a battery whose spectra set them; ms per battery against the plain loop.
 
-The line before last is a JSON object of the kernels (K1-K6, K8, K10-K14:
+15. halo kernels vs plain: K9 (the stencil on a slab with halo planes) at
+   m=128 on slabs of mp = 128, 64 and 32 planes (1, 2 and 4 ranks), halos
+   cut from a random global u, and K7 (the DIA SpMV on a row block with
+   band halos) on the m=128 Poisson slab, f32 and bf16, in 1, 2 and 4
+   blocks: each bit-identical to its plain version and to its repeat, the
+   blocks concatenated bit-identical to K8 / K6 on the whole; µs per launch
+   (``device_timing``) against the bound and a torch CSR product on the
+   block with the halos as extra columns.
+16. sharded, one rank (NCCL): a world of one rank on the card runs
+   ``sharded_cg_solve`` on the dense n=8192 system with ``allgather`` and
+   ``overlap`` (the oracle's 4 laps) and ``sharded_operator_cg_solve`` on
+   Poisson m=128 (K9) and its DIA form in f32 (K7), 71 laps: each equal to
+   the serial lap path (``fused="never"``) bit for bit in x and in laps;
+   K1/K9/K7 with K2 and K3 launched, no plain version; ms per solve (CUDA
+   events) beside the serial lap path's, the host µs of a transport call,
+   the operator solves' set-up, and one profiled solve of each route.
+17. sharded, 2 and 4 ranks on one card (gloo): spawned ranks on cuda:0 (gloo
+   on a card copies point-to-point buffers through pinned host memory) run
+   the dense n=8192 system (2 ranks, both strategies) and Poisson and DIA
+   m=128 (2 and 4 ranks): laps within one of the one-rank solve, x within
+   1e-4 of max |x|, Poisson's float64 ||b - A x|| / ||b|| <= 2e-5; the
+   host seconds a lap spends in the transport. A failed rank fails the
+   phase.
+
+The line before last is a JSON object of the kernels (K1-K14:
 launches on the main path, error against the plain version, times, the
 bound and the library call's time); the last line is ``{"ok": true,
 "device": {...}}``. Any failure exits non-zero without it, as does a
@@ -134,7 +158,9 @@ def main() -> int:
         BAND_SETS,
         banded_battery,
         banded_spectrum_battery,
+        card_world_worker,
         random_banded_dia,
+        run_world,
     )
 
     from tpucg_torch.bench.timing import (
@@ -186,8 +212,19 @@ def main() -> int:
         well_spmv_torch,
     )
     from tpucg_torch.kernels.matvec import matvec_cuda, matvec_torch
-    from tpucg_torch.kernels.spmv import dia_spmv_cuda, dia_spmv_torch
-    from tpucg_torch.kernels.stencil import poisson3d_cuda, poisson3d_torch
+    from tpucg_torch.kernels.spmv import (
+        dia_spmv_cuda,
+        dia_spmv_halo_cuda,
+        dia_spmv_halo_torch,
+        dia_spmv_torch,
+        halo_length,
+    )
+    from tpucg_torch.kernels.stencil import (
+        poisson3d_cuda,
+        poisson3d_slab_cuda,
+        poisson3d_slab_torch,
+        poisson3d_torch,
+    )
     from tpucg_torch.solver.cg import (
         batch_cg_loop,
         batch_matvec,
@@ -210,11 +247,19 @@ def main() -> int:
         best_sparse_operator,
     )
     from tpucg_torch.solver.oracle import oracle_cg
+    from tpucg_torch.solver.sharded import (
+        distribute_system,
+        sharded_cg_solve,
+        sharded_operator_cg_solve,
+    )
     from tpucg_torch.sparse.well import csr_to_well
+    from tpucg_torch.comm.mesh import init_distributed, make_mesh
 
     wrappers = (matvec_cuda, matvec_torch, dot_cuda, dot_torch,
                 fused_update_cuda, fused_update_torch, dia_spmv_cuda, dia_spmv_torch,
-                poisson3d_cuda, poisson3d_torch, well_spmv_cuda, well_spmv_torch)
+                poisson3d_cuda, poisson3d_torch, well_spmv_cuda, well_spmv_torch,
+                dia_spmv_halo_cuda, dia_spmv_halo_torch, poisson3d_slab_cuda,
+                poisson3d_slab_torch)
     whole = (fused_cg_solve_cuda, fused_cg_solve_torch, fused_batch_cg_solve_cuda,
              fused_batch_cg_solve_torch, fused_stencil_cg_solve_cuda,
              fused_stencil_cg_solve_torch, fused_dia_cg_solve_cuda, fused_dia_cg_solve_torch,
@@ -1095,6 +1140,227 @@ def main() -> int:
                             nsys * (3 * npad * 4 + 3 * npad * 4 + 8),
                             sum(cg_flops(npad, kk, 2 * 3 * npad) for kk in laps))
 
+    def halo_csr(data, offsets, pad):
+        """A row block of a DIA matrix as a torch CSR tensor on the card over
+        x_ext = [halo_lo, x, halo_hi] (the halos as extra columns): the
+        library call beside K7 and K9 (library_ms), never used by the port."""
+        blk = data.shape[1]
+        rows = torch.arange(blk, device=dev)
+        ri, ci, vi = [], [], []
+        for d, off in enumerate(offsets):
+            keep = data[d] != 0
+            ri.append(rows[keep])
+            ci.append(rows[keep] + off + pad)
+            vi.append(data[d][keep].float())
+        coo = torch.sparse_coo_tensor(torch.stack([torch.cat(ri), torch.cat(ci)]),
+                                      torch.cat(vi), (blk, blk + 2 * pad))
+        return coo.coalesce().to_sparse_csr()
+
+    def halos(v, r, blk, pad):
+        """Rank r's halos of v cut in blocks of blk: the pad elements below
+        and above its block (zeros at the ends)."""
+        zero = torch.zeros(pad, device=dev)
+        lo = v[r * blk - pad:r * blk].contiguous() if r > 0 else zero
+        hi = v[(r + 1) * blk:(r + 1) * blk + pad].contiguous() if (r + 1) * blk < v.numel() \
+            else zero
+        return lo, hi
+
+    with phase("halo kernels vs plain"):
+        m, mm = 128, 128 * 128
+        dia128 = poisson3d_dia(m)
+        offs128 = tuple(int(o) for o in dia128.offsets)
+        slab32 = torch.as_tensor(np.asarray(dia128.data, np.float32), device=dev)
+        u = rnd(m ** 3)
+        y8 = poisson3d_cuda(u, m)
+        err["K9"] = err["K7"] = 0.0
+        for P in (1, 2, 4):
+            blk, parts = m ** 3 // P, []
+            for r in range(P):
+                ub = u[r * blk:(r + 1) * blk]
+                lo, hi = halos(u, r, blk, mm)
+                y, yp = poisson3d_slab_cuda(ub, lo, hi, m), poisson3d_slab_torch(ub, lo, hi, m)
+                err["K9"] = max(err["K9"], float((y - yp).abs().max()))
+                require(torch.equal(y, yp), f"K9 P={P} rank {r}: differs from plain")
+                require(torch.equal(y, poisson3d_slab_cuda(ub, lo, hi, m)), f"K9 P={P} repeat")
+                parts.append(y)
+            require(torch.equal(torch.cat(parts), y8), f"K9 P={P}: slabs differ from K8")
+            lo, hi = halos(u, 0, blk, mm)
+            ub = u[:blk]
+            csr = halo_csr(slab32[:, :blk], offs128, mm)
+            u_ext = torch.cat([lo, ub, hi])
+            fk, fp = (lambda: poisson3d_slab_cuda(ub, lo, hi, m),
+                      lambda: poisson3d_slab_torch(ub, lo, hi, m))
+            tk, tp, tl = (device_seconds_per_call(f) for f in (fk, fp, lambda: csr @ u_ext))
+            b9 = bound_of(4 * (2 * blk + 2 * mm), 7 * blk)
+            print(f"K9 m={m} mp={m // P} ({P} ranks): bit-identical to plain, to its repeat and, "
+                  f"concatenated, to K8; rank 0 device {tk * 1e6:.2f} us per launch, "
+                  f"{100 * b9[0] / 1e3 / tk:.1f}% of its {b9[0] * 1e3:.2f} us bound; plain "
+                  f"{tp * 1e6:.2f} us, torch CSR product {tl * 1e6:.2f} us (queued) {tag}")
+            if P == 1:
+                times["K9"], library["K9"], bounds["K9"] = (tk, tp), tl, b9
+            del csr
+        pad = halo_length(offs128)
+        x = rnd(m ** 3)
+        for dt, name in ((f32, "f32"), (bf16, "bf16")):
+            slab = slab32.to(dt)
+            y6 = dia_spmv_cuda(slab, offs128, x)
+            for P in (1, 2, 4):
+                blk, parts = m ** 3 // P, []
+                for r in range(P):
+                    d = slab[:, r * blk:(r + 1) * blk].contiguous()
+                    xb = x[r * blk:(r + 1) * blk]
+                    lo, hi = halos(x, r, blk, pad)
+                    y = dia_spmv_halo_cuda(d, offs128, xb, lo, hi)
+                    yp = dia_spmv_halo_torch(d, offs128, xb, lo, hi)
+                    err["K7"] = max(err["K7"], float((y - yp).abs().max()))
+                    require(torch.equal(y, yp), f"K7 {name} P={P} rank {r}: differs from plain")
+                    require(torch.equal(y, dia_spmv_halo_cuda(d, offs128, xb, lo, hi)),
+                            f"K7 {name} P={P} repeat")
+                    parts.append(y)
+                require(torch.equal(torch.cat(parts), y6), f"K7 {name} P={P}: blocks differ "
+                        "from K6")
+                d = slab[:, :blk].contiguous()
+                xb = x[:blk]
+                lo, hi = halos(x, 0, blk, pad)
+                csr = halo_csr(d, offs128, pad)
+                x_ext = torch.cat([lo, xb, hi])
+                fk, fp = (lambda: dia_spmv_halo_cuda(d, offs128, xb, lo, hi),
+                          lambda: dia_spmv_halo_torch(d, offs128, xb, lo, hi))
+                tk, tp, tl = (device_seconds_per_call(f) for f in (fk, fp, lambda: csr @ x_ext))
+                b7 = bound_of(dia_spmv_bytes(7, blk, d.element_size()) + 8 * pad, 14 * blk)
+                print(f"K7 m={m} DIA {name}, {P} blocks of {blk} (halos {pad}): bit-identical to "
+                      f"plain, to its repeat and, concatenated, to K6; block 0 device "
+                      f"{tk * 1e6:.2f} us per launch, {100 * b7[0] / 1e3 / tk:.1f}% of its "
+                      f"{b7[0] * 1e3:.2f} us bound; plain {tp * 1e6:.2f} us, torch CSR product "
+                      f"{tl * 1e6:.2f} us (queued) {tag}")
+                if (P, dt) == (1, f32):
+                    times["K7"], library["K7"], bounds["K7"] = (tk, tp), tl, b7
+                del csr
+        del slab32, slab
+
+    one_rank = {}
+    with phase("sharded, one rank (NCCL)"):
+        init_distributed(backend="nccl", device=dev)
+        mesh = make_mesh(device=dev, backend="nccl")
+        print(f"{mesh!r}")
+        plain_names = [w.__name__ for w in wrappers if w.__name__.endswith("_torch")]
+        A, b, x0 = generate_spd_system(8192, seed=0)
+        k_ref = oracle_cg(A, b, x0)[1]
+        op = DenseOperator.create(A, device=dev)
+        bd, x0d = torch.as_tensor(b, device=dev), torch.as_tensor(x0, device=dev)
+        serial = cg_solve(op, bd, x0d, fused="never")
+        runs = {"dense n=8192": (lambda: cg_solve(op, bd, x0d, fused="never"), serial, {})}
+        for strategy in ("allgather", "overlap"):
+            system = distribute_system(A, b, x0, mesh, strategy=strategy)
+            runs[f"dense n=8192 {strategy}"] = (
+                lambda system=system, strategy=strategy: sharded_cg_solve(
+                    system, mesh=mesh, strategy=strategy), serial, {"matvec_cuda": k_ref})
+        del A
+        m = 128
+        bp, _ = poisson_rhs(m)
+        kw = dict(tol=1e-5 * float(bp.norm()), maxiter=poisson_maxiter(m))
+        opp = PoissonOperator(m, device=dev)
+        opd = DiaOperator.from_dia(poisson3d_dia(m), device=dev)
+        for label, o, kern in (("Poisson m=128 slab", opp, "poisson3d_slab_cuda"),
+                               ("DIA m=128 f32", opd, "dia_spmv_halo_cuda")):
+            ser = cg_solve(o, bp, fused="never", **kw)
+            runs[f"{label} serial"] = (lambda o=o: cg_solve(o, bp, fused="never", **kw), ser, {})
+            runs[label] = (lambda o=o: sharded_operator_cg_solve(o, bp, mesh=mesh, **kw), ser,
+                           {kern: 1})
+        for label, (fn, ser, kerns) in runs.items():
+            if not kerns:
+                continue  # a serial lap path, timed below beside its sharded solves
+            res, launched = drive(fn)
+            k = int(res.iterations)
+            require(bool(res.converged) and k == int(ser.iterations),
+                    f"{label}: {k} laps, serial lap path {int(ser.iterations)}")
+            require(torch.equal(res.x, ser.x), f"{label}: x differs from the serial lap path")
+            for kern in list(kerns) + ["dot_cuda", "fused_update_cuda"]:
+                require(launched[kern] > 0, f"{label}: {kern} never launched ({launched})")
+            require(all(launched[c] == 0 for c in plain_names),
+                    f"{label}: a plain version ran ({launched})")
+            if "n=8192" in label:
+                require(k == k_ref, f"{label}: {k} laps, oracle {k_ref}")
+            for kern in ("poisson3d_slab_cuda", "dia_spmv_halo_cuda"):
+                counts[kern] = counts.get(kern, 0) + launched[kern]
+            one_rank[label] = (res, k)
+            print(f"{label}: {k} laps, x bit-identical to the serial lap path's, launches "
+                  f"{ {c: n for c, n in launched.items() if n} }")
+        for label, (fn, _, _) in runs.items():
+            t = time_fn(fn, warmup=1, iters=5)
+            print(f"  {label}: {t.median * 1e3:.4f} ms per solve (min {t.min * 1e3:.4f}, max "
+                  f"{t.max * 1e3:.4f}, 5 solves, CUDA events) {tag}")
+        # What a sharded lap adds on one rank: the host time of the
+        # transport's calls (a dot's rank_sum, the gather of p), and the
+        # operator solves' set-up (a maxiter=0 solve: placing the block and
+        # the initial residual).
+        part, p_blk, p_full = (torch.ones((), device=dev), torch.ones(8192, device=dev),
+                               torch.empty(8192, device=dev))
+        for what, call in (("rank_sum of a partial", lambda: mesh.rank_sum(part)),
+                           ("all_gather of p (8192)", lambda: mesh.all_gather(p_full, p_blk))):
+            call()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                call()
+            torch.cuda.synchronize()
+            print(f"  transport, one NCCL rank: {what} {(time.perf_counter() - t0) / 200 * 1e6:.1f} "
+                  f"us per call (host clock, 200 calls) {tag}")
+        for label, o in (("Poisson m=128 slab", opp), ("DIA m=128 f32", opd)):
+            t = time_fn(lambda: sharded_operator_cg_solve(o, bp, mesh=mesh, tol=kw["tol"],
+                                                          maxiter=0), warmup=1, iters=5)
+            print(f"  {label}: set-up and initial residual (maxiter=0) {t.median * 1e3:.4f} ms "
+                  f"{tag}")
+        # One profiled solve each, serial lap path and one rank: device busy
+        # time against the host's wall (the trace can come back empty, and
+        # then nothing is measured).
+        for label, fn in (("Poisson serial", lambda: cg_solve(opp, bp, fused="never", **kw)),
+                          ("Poisson slab", lambda: sharded_operator_cg_solve(opp, bp, mesh=mesh,
+                                                                             **kw)),
+                          ("DIA serial", lambda: cg_solve(opd, bp, fused="never", **kw)),
+                          ("DIA band halo", lambda: sharded_operator_cg_solve(opd, bp, mesh=mesh,
+                                                                              **kw))):
+            wall, ops = trace_calls(fn, 1)
+            busy = sum(us for _, us in ops.values())
+            top = sorted(ops.items(), key=lambda kv: -kv[1][1])[:3]
+            print(f"  profiled {label}: host wall {wall * 1e3:.3f} ms, " + (
+                f"device busy {busy / 1e3:.3f} ms (share {busy / 1e6 / wall:.3f}), "
+                f"{sum(c for c, _ in ops.values())} device ops; " + "; ".join(
+                    f"{name[:36]} {us / c:.2f} us x {c}" for name, (c, us) in top)
+                if busy > 0 else "no device event in the trace: not measured") + f" {tag}")
+        torch.distributed.destroy_process_group()
+        del op, opd, runs, system
+
+    with phase("sharded, 2 and 4 ranks on one card (gloo)"):
+        worlds = {2: [("dense", "allgather"), ("dense", "overlap"), ("poisson", None),
+                      ("dia", None)],
+                  4: [("poisson", None), ("dia", None)]}
+        refs = {"dense": one_rank["dense n=8192 allgather"],
+                "poisson": one_rank["Poisson m=128 slab"], "dia": one_rank["DIA m=128 f32"]}
+        with tempfile.TemporaryDirectory() as tmp:
+            for P, cases in worlds.items():
+                t0 = time.perf_counter()
+                got = run_world(P, card_world_worker, args=(cases, m, bp.cpu().numpy(), kw),
+                                rendezvous=str(Path(tmp) / f"world{P}"), timeout_s=400)
+                print(f"world of {P} ranks on cuda:0 ({got['mesh']}): "
+                      f"{time.perf_counter() - t0:.1f} s with start-up")
+                for case in cases:
+                    r = got[case]
+                    ref, k1 = refs[case[0]]
+                    x = torch.as_tensor(r["x"], device=dev)
+                    se = scaled_err(r["x"], ref.x.cpu().numpy())
+                    what = f"{case[0]}{'' if case[1] is None else ' ' + case[1]} P={P}"
+                    require(r["converged"] and abs(r["laps"] - k1) <= 1 and se <= 1e-4,
+                            f"{what}: {r['laps']} laps (one rank {k1}), x err {se:.3e}")
+                    tr = true_residual(opp, bp, x) if case[0] == "poisson" else None
+                    require(tr is None or tr <= 2e-5, f"{what}: true residual {tr}")
+                    print(f"  {what}: {r['laps']} laps (one rank {k1}), x within {se:.3e} of "
+                          f"max |x|" + ("" if tr is None else
+                                        f", float64 ||b - A x|| / ||b|| {tr:.3e}")
+                          + f"; {r['ms']:.3f} ms per solve (host clock), {r['laps_run']} laps "
+                          f"run, transport {r['transport_s'] * 1e3 / r['laps_run']:.4f} ms a "
+                          f"lap over {r['transport_calls']} calls {tag}")
+
     meta = (
         ("K1", "gemv", "matvec_cuda", "blas.cu", "tpucg/kernels/matvec.py:108"),
         ("K2", "fused_update", "fused_update_cuda", "blas.cu", "tpucg/kernels/blas1.py:111"),
@@ -1104,7 +1370,10 @@ def main() -> int:
         ("K5", "fused_batch_cg_solve", "fused_batch_cg_solve_cuda", "fused.cu",
          "tpucg/kernels/fused.py:610"),
         ("K6", "dia_spmv", "dia_spmv_cuda", "sparse.cu", "tpucg/kernels/spmv.py:221"),
+        ("K7", "dia_spmv_halo", "dia_spmv_halo_cuda", "sparse.cu", "tpucg/kernels/spmv.py:271"),
         ("K8", "poisson3d", "poisson3d_cuda", "sparse.cu", "tpucg/kernels/stencil.py:152"),
+        ("K9", "poisson3d_slab", "poisson3d_slab_cuda", "sparse.cu",
+         "tpucg/kernels/stencil.py:126"),
         ("K10", "fused_stencil_cg_solve", "fused_stencil_cg_solve_cuda", "fused.cu",
          "tpucg/kernels/fused.py:335"),
         ("K11", "fused_dia_cg_solve", "fused_dia_cg_solve_cuda", "fused.cu",

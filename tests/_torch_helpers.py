@@ -194,6 +194,269 @@ def scaled_err(x, want) -> float:
     return float((np.abs(x - want).max(-1) / np.abs(want).max(-1)).max())
 
 
+def run_world(nprocs: int, target, args=(), rendezvous: str = "", timeout_s: float = 600.0):
+    """Run ``target(rank, nprocs, *args)`` in ``nprocs`` spawned processes,
+    the ranks of one gloo world (``init_distributed`` through the file
+    ``rendezvous``, which must not exist yet), and return rank 0's return
+    value. A rank that raises fails the world (the others are ended) and
+    raises here with its traceback; so does a world that outlasts
+    ``timeout_s``. The ranks import this module, torch and tpucg_torch, no
+    jax."""
+    import queue as queue_mod
+    import time
+
+    import torch.multiprocessing as tmp
+
+    results = tmp.get_context("spawn").Queue()
+    ctx = tmp.start_processes(_world_rank, args=(nprocs, rendezvous, target, args, results),
+                              nprocs=nprocs, join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout_s
+    out = None
+    try:
+        while True:
+            try:  # drain while waiting: a rank exits only once its result is read
+                out = results.get(timeout=0.2)
+            except queue_mod.Empty:
+                pass
+            if ctx.join(timeout=0.2):
+                break
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"a world of {nprocs} ranks outlasted {timeout_s} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    if out is None:
+        out = results.get(timeout=30)
+    return out
+
+
+def _world_rank(rank, nprocs, rendezvous, target, args, results):
+    torch.set_num_threads(1)
+    import torch.distributed as dist
+
+    from tpucg_torch.comm.mesh import init_distributed
+
+    init_distributed(init_method=f"file://{rendezvous}", world_size=nprocs, rank=rank,
+                     backend="gloo")
+    try:
+        out = target(rank, nprocs, *args)
+        if rank == 0:
+            results.put(out)
+    finally:
+        dist.destroy_process_group()
+
+
+# The sharded cases of tests/test_torch_sharded.py: tpucg's own sharded
+# tests (tests/test_sharded.py, tests/test_sharded_sparse.py) with their
+# systems and seeds, plus a dense system whose laps its spectrum sets.
+# name -> (system, solve keyword arguments); each dense case runs with both
+# strategies.
+DENSE_CASES = {
+    "generator_n96": (("generator", 96, 96), {}),
+    "generator_n50": (("generator", 50, 50), {}),
+    "golden_4x4": (("golden4",), {}),
+    "spectrum_n96": (("circulant", 96, 5), {"tol": 1e-2}),
+    "jacobi_n96": (("generator", 96, 7), {"precondition": "jacobi"}),
+    "poly_n96": (("generator", 96, 7), {"precondition": "poly", "poly_degree": 3}),
+    "record_n96": (("shifted", 96, 13), {"record_residuals": True}),
+    "bf16_n96": (("generator", 96, 23), {"storage": "bf16", "tol_rel": 1e-5}),
+}
+OPERATOR_CASES = {
+    "poisson_m8": (("poisson", 8, 0), {}),
+    "poisson_m9_pad_planes": (("poisson", 9, 6), {}),
+    "poisson_m8_jacobi": (("poisson", 8, 0), {"precondition": "jacobi"}),
+    "poisson_m8_poly": (("poisson", 8, 0), {"precondition": "poly", "poly_degree": 3}),
+    "ell_m7": (("ell", 7, 8), {}),
+    "dia_m16": (("dia", 16, 9), {}),
+    "dia_m16_bf16": (("dia", 16, 9), {"storage": "bf16"}),
+    "banded_n1000_jacobi": (("banded", 1000, 11), {"precondition": "jacobi"}),
+    "bsr_m6": (("bsr", 6, 12), {}),
+    "bsr_m6_jacobi": (("bsr", 6, 12), {"precondition": "jacobi"}),
+}
+
+
+def sharded_system(spec):
+    """The NumPy system of a sharded case: a dict with ``A`` (dense) or
+    ``op`` (the port's host container: ``("poisson", m)``, a DIAMatrix, a
+    CSRMatrix for ELL, a BSRMatrix), ``b``, ``x0`` (or None), and ``x_true``
+    where the case has one."""
+    from tpucg_torch.io.generator import generate_spd_system, poisson3d_csr, poisson3d_dia
+    from tpucg_torch.io.golden import GOLDEN_4X4
+    from tpucg_torch.sparse.formats import COOMatrix, csr_to_bsr, csr_to_dia
+
+    kind = spec[0]
+    if kind == "generator":
+        A, b, _ = generate_spd_system(spec[1], seed=spec[2])
+        return {"A": A, "b": b, "x0": None}
+    if kind == "golden4":
+        g = GOLDEN_4X4
+        return {"A": g["A"], "b": g["b"], "x0": g["x0"], "x_true": g["x_star"]}
+    if kind == "circulant":
+        A, b, _ = circulant_spd_batch(4, spec[1], seed=spec[2])
+        return {"A": A[3], "b": b[3], "x0": None}
+    if kind == "shifted":
+        n = spec[1]
+        A, b, x0 = generate_spd_system(n, seed=spec[2])
+        return {"A": (A - (n - n / 8.0) * np.eye(n)).astype(np.float32), "b": b, "x0": x0}
+    n_or_m, seed = spec[1], spec[2]
+    rng = np.random.default_rng(seed)
+    if kind == "banded":
+        n, bw = n_or_m, 3
+        rows, cols, vals = [], [], []
+        for off in range(-bw, bw + 1):
+            idx = np.arange(max(0, -off), min(n, n - off))
+            rows.append(idx)
+            cols.append(idx + off)
+            v = rng.random(idx.size).astype(np.float32)
+            if off == 0:
+                v += 4 * bw
+            vals.append(v)
+        csr = COOMatrix(row=np.concatenate(rows), col=np.concatenate(cols),
+                        data=np.concatenate(vals), shape=(n, n)).to_csr()
+        x_true = rng.standard_normal(n).astype(np.float32)
+        return {"op": csr_to_dia(csr), "b": csr.matvec(x_true), "x0": None, "x_true": x_true}
+    m = n_or_m
+    x_true = rng.standard_normal(m ** 3).astype(np.float32)
+    csr = poisson3d_csr(m)
+    b = csr.matvec(x_true).astype(np.float32)
+    if kind == "poisson":
+        # tpucg's tests take b from the operator itself (PoissonOperator.matvec).
+        b = poisson3d_dia(m).matvec(x_true).astype(np.float32)
+        op = ("poisson", m)
+    elif kind == "dia":
+        op = poisson3d_dia(m)
+        b = op.matvec(x_true).astype(np.float32)
+    elif kind == "ell":
+        op = csr
+    else:
+        op = csr_to_bsr(csr, 4)
+    return {"op": op, "b": b, "x0": None, "x_true": x_true}
+
+
+def solve_sharded_case(mesh, name: str, strategy: str = "allgather"):
+    """Run one case of ``DENSE_CASES`` / ``OPERATOR_CASES`` through the
+    port's sharded solve on ``mesh``; returns x, iterations, converged,
+    residual_norm and the residual history (or None), as NumPy."""
+    from tpucg_torch.solver.operators import BsrOperator, PoissonOperator
+    from tpucg_torch.solver.sharded import sharded_cg_solve, sharded_operator_cg_solve
+
+    spec, kw = DENSE_CASES[name] if name in DENSE_CASES else OPERATOR_CASES[name]
+    kw = dict(kw)
+    s = sharded_system(spec)
+    storage = torch.bfloat16 if kw.pop("storage", "f32") == "bf16" else torch.float32
+    if "tol_rel" in kw:
+        kw["tol"] = kw.pop("tol_rel") * float(np.linalg.norm(s["b"]))
+    if "A" in s:
+        res = sharded_cg_solve(s["A"], s["b"], s["x0"], mesh=mesh, strategy=strategy,
+                               storage_dtype=storage, **kw)
+    else:
+        op = s["op"]
+        if isinstance(op, tuple):
+            op = PoissonOperator(op[1], device="cpu")
+        elif type(op).__name__ == "BSRMatrix":
+            op = BsrOperator.from_bsr(op, device="cpu")
+        elif type(op).__name__ == "CSRMatrix":
+            from tpucg_torch.solver.operators import EllOperator
+
+            op = EllOperator.from_csr(op, device="cpu")
+        n = s["b"].shape[0]
+        kw.setdefault("tol", 1e-5 * float(np.linalg.norm(s["b"])))
+        kw.setdefault("maxiter", 4 * n)
+        res = sharded_operator_cg_solve(op, s["b"], s["x0"], mesh=mesh, storage_dtype=storage,
+                                        **kw)
+    return {
+        "x": res.x.cpu().numpy(), "iterations": int(res.iterations),
+        "converged": bool(res.converged), "residual_norm": float(res.residual_norm),
+        "hist": None if res.residual_history is None else res.residual_history.cpu().numpy(),
+    }
+
+
+def sharded_cases_worker(rank, nprocs, device="cpu"):
+    """A rank of a world that runs every sharded case (dense ones with both
+    strategies) on a gloo mesh of ``device``; rank 0's results by case."""
+    from tpucg_torch.comm.mesh import make_mesh
+
+    mesh = make_mesh(device=device, backend="gloo")
+    out = {}
+    for name in DENSE_CASES:
+        for strategy in ("allgather", "overlap"):
+            out[(name, strategy)] = solve_sharded_case(mesh, name, strategy)
+    for name in OPERATOR_CASES:
+        out[(name, None)] = solve_sharded_case(mesh, name)
+    # Mesh.rank_sum of the partials (1 + rank) / 3, as every rank holds it.
+    s = mesh.rank_sum(torch.tensor((1 + rank) / 3, dtype=torch.float32, device=mesh.device))
+    sums = torch.empty(nprocs, dtype=torch.float32, device=mesh.device)
+    mesh.all_gather(sums, s.reshape(1))
+    out["rank_sum"] = sums.tolist()
+    return out
+
+
+def laps_run(k: int) -> int:
+    """Laps ``cg_loop`` runs for a solve that stops after k: chunks of 1, 2,
+    4, ... up to ``CHUNK_MAX`` until one ends past the stop (its last laps
+    frozen)."""
+    from tpucg_torch.solver.cg import CHUNK_MAX
+
+    total, laps = 0, 1
+    while total < max(k, 1):
+        total += laps
+        laps = min(2 * laps, CHUNK_MAX)
+    return total
+
+
+def card_world_worker(rank, nprocs, cases, m, b_poisson, kw):
+    """A rank of a gloo world on cuda:0 (``chip_smoke.py``): each case,
+    ``("dense", strategy)`` on ``generate_spd_system(8192, seed=0)`` or
+    ``("poisson", None)`` / ``("dia", None)`` on the m^3 Laplacian with
+    ``b_poisson`` and ``kw`` (tol, maxiter), solved once to warm up and once
+    timed on the host clock; rank 0's x, laps, ms, laps run, and the
+    transport's calls and host seconds in the timed solve."""
+    import time
+
+    from tpucg_torch.comm.mesh import make_mesh
+    from tpucg_torch.io.generator import generate_spd_system, poisson3d_dia
+    from tpucg_torch.kernels.dispatch import strict_f32
+    from tpucg_torch.solver.operators import PoissonOperator
+    from tpucg_torch.solver.sharded import (
+        distribute_system,
+        sharded_cg_solve,
+        sharded_operator_cg_solve,
+    )
+
+    strict_f32()
+    dev = torch.device("cuda", 0)
+    mesh = make_mesh(device=dev, backend="gloo")
+    out = {"mesh": repr(mesh)}
+    dense = None
+    for kind, strategy in cases:
+        if kind == "dense":
+            dense = generate_spd_system(8192, seed=0) if dense is None else dense
+            system = distribute_system(*dense, mesh, strategy=strategy)
+
+            def solve():
+                return sharded_cg_solve(system, mesh=mesh, strategy=strategy)
+        else:
+            op = PoissonOperator(m, device=dev) if kind == "poisson" else poisson3d_dia(m)
+
+            def solve():
+                return sharded_operator_cg_solve(op, b_poisson, mesh=mesh, **kw)
+        solve()
+        torch.cuda.synchronize()
+        mesh.stats.update(calls=0, seconds=0.0)
+        t0 = time.perf_counter()
+        res = solve()
+        torch.cuda.synchronize()
+        k = int(res.iterations)
+        out[(kind, strategy)] = {
+            "x": res.x.cpu().numpy() if rank == 0 else None, "laps": k,
+            "converged": bool(res.converged), "ms": (time.perf_counter() - t0) * 1e3,
+            "laps_run": laps_run(k), "transport_s": mesh.stats["seconds"],
+            "transport_calls": mesh.stats["calls"],
+        }
+    return out
+
+
 @pytest.fixture
 def cuda_device():
     """The first CUDA device; tests that need the card skip without one."""

@@ -191,11 +191,18 @@ def test_kernel_cuda_on_cpu_raises():
 
 @pytest.mark.parametrize("knob", ["strategy", "pc_block_size", "s_step", "check_every"])
 def test_knobs_of_unported_slices_are_refused(knob):
-    # tpucg's knobs of sharded solves, ca/chebyshev and block_jacobi are not
-    # fields here: passing one fails instead of being ignored.
+    # tpucg's knobs of ca/chebyshev and block_jacobi are not fields here:
+    # passing one fails instead of being ignored. `strategy` is back with the
+    # sharded solves: validated as tpucg validates it, ignored by a serial
+    # solve as tpucg's ignores it.
+    g = GOLDEN_2X2
+    if knob == "strategy":
+        with pytest.raises(ValueError, match="strategy"):
+            CGConfig(strategy="bogus")
+        assert int(cg_solve(g["A"], g["b"], device=CPU, strategy="overlap").iterations) == 2
+        return
     with pytest.raises(TypeError, match=knob):
         CGConfig(**{knob: 2})
-    g = GOLDEN_2X2
     with pytest.raises(TypeError, match=knob):
         cg_solve(g["A"], g["b"], device=CPU, **{knob: 2})
 

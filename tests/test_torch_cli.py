@@ -91,10 +91,13 @@ def test_solve_mtx_bf16_and_dense_array_files(tmp_path, capsys):
     (["--pc-block-size", "32"], "M8"),
 ])
 def test_later_slices_name_their_roadmap_item(tmp_path, flags, item):
-    A, b = SYSTEMS["poisson"]()
+    # A distributed solve of an irregular matrix (promoted to WELL) is still
+    # refused: it needs the WELL shard packers.
+    A, b = SYSTEMS["geometric_shuffled" if "--strategy" in flags else "poisson"]()
     pa, pb = _files(tmp_path, A, b)
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(NotImplementedError, match=item) as err:
         cli.main(["solve", pa, pb, "--device", "cpu"] + flags)
+    assert "--strategy" not in flags or "shard packers" in str(err.value)
 
 
 def test_bf16_refused_for_bsr():
@@ -120,3 +123,52 @@ def test_bench_operators_are_tpucgs_systems(route, kind):
     assert jnnz == nnz
     with pytest.raises(SystemExit, match="bf16"):
         cli._poisson_system(route, 6, torch.bfloat16, "auto", "cpu")
+
+
+@pytest.mark.parametrize("strategy", ["allgather", "overlap"])
+def test_solve_strategy_dense_equals_serial(tmp_path, capsys, strategy):
+    # One rank: the distributed solve is the serial one, lap for lap and bit
+    # for bit (n = 128, the same padding on both paths).
+    from tpucg_torch.io.generator import generate_spd_system
+    from tpucg_torch.io.textio import save_array
+
+    A, b, _ = generate_spd_system(128, seed=4)
+    pa, pb = str(tmp_path / "A.txt"), str(tmp_path / "b.txt")
+    save_array(pa, A, fmt="%r")
+    save_array(pb, b, fmt="%r")
+    outs = {}
+    for how in ("serial", strategy):
+        x = str(tmp_path / f"x_{how}.txt")
+        assert cli.main(["solve", pa, pb, "--device", "cpu", "--strategy", how,
+                         "--precondition", "jacobi", "--output", x]) == 0
+        out = capsys.readouterr().out
+        outs[how] = (int(re.search(r"iterations\s+: (\d+)", out).group(1)),
+                     load_vector(x, n=128), out)
+    assert outs["serial"][0] == outs[strategy][0]
+    np.testing.assert_array_equal(outs["serial"][1], outs[strategy][1])
+    assert f"strategy {strategy}" in outs[strategy][2] and "rank 0 of 1" in outs[strategy][2]
+    assert not torch.distributed.is_initialized()  # the command ended its world of one
+
+
+@pytest.mark.parametrize("case,fmt", [("poisson", "DiaOperator")])
+def test_solve_strategy_mtx_distributes_the_promoted_operator(tmp_path, capsys, case, fmt):
+    A, b = SYSTEMS[case]()
+    pa, pb = _files(tmp_path, A, b)
+    tol = str(1e-5 * float(np.linalg.norm(b)))
+    laps = {}
+    for how in ("serial", "allgather"):
+        rc, out, got_fmt, laps[how] = _run(
+            cli.main, ["solve", pa, pb, "--device", "cpu", "--tol", tol, "--strategy", how,
+                       "--fused", "never"], capsys)
+        assert rc == 0 and got_fmt == fmt, out
+    assert laps["serial"] == laps["allgather"]
+
+
+def test_solve_strategy_summa_and_bench_without_card(tmp_path):
+    A, b = SYSTEMS["poisson"]()
+    pa, pb = _files(tmp_path, A, b)
+    with pytest.raises(NotImplementedError, match="SUMMA"):
+        cli.main(["solve", pa, pb, "--device", "cpu", "--strategy", "summa"])
+    if not torch.cuda.is_available():
+        assert cli.main(["bench", "--compare-strategies", "--n", "128"]) == 2
+        assert cli.main(["bench", "--strategy", "overlap", "--n", "128"]) == 2

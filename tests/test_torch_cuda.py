@@ -619,3 +619,143 @@ def test_bench_sparse_forms_print_one_json_line(cuda_device, route):
     assert len(lines) == 1
     line = json.loads(lines[0])
     assert line["metric"] == f"{route.replace('-', '_')}_cg_solve_time_m8" and line["value"] > 0
+
+
+# ---- the distributed path: K7, K9 and one rank on NCCL --------------------------
+
+
+def _halos(v, r, blk, pad, dev):
+    zero = torch.zeros(pad, device=dev)
+    lo = v[r * blk - pad:r * blk].contiguous() if r > 0 else zero
+    hi = v[(r + 1) * blk:(r + 1) * blk + pad].contiguous() if (r + 1) * blk < v.numel() else zero
+    return lo, hi
+
+
+@pytest.mark.parametrize("m,P", [(64, 1), (64, 2), (64, 4), (10, 5), (2, 2), (33, 3)])
+def test_k9_equals_plain_and_concatenates_to_k8(cuda_device, m, P):
+    from tpucg_torch.kernels.stencil import poisson3d_slab_cuda, poisson3d_slab_torch
+
+    mm = m * m
+    u = _rand(cuda_device, m ** 3, seed=m)
+    blk, parts = m ** 3 // P, []
+    for r in range(P):
+        lo, hi = _halos(u, r, blk, mm, cuda_device)
+        ub = u[r * blk:(r + 1) * blk]
+        y = poisson3d_slab_cuda(ub, lo, hi, m)
+        assert torch.equal(y, poisson3d_slab_torch(ub, lo, hi, m))
+        parts.append(y)
+    assert torch.equal(torch.cat(parts), poisson3d_cuda(u, m))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("band,P", [("poisson32", 1), ("poisson32", 4), ("cross_row", 2),
+                                    ("multi_row", 4)])
+def test_k7_equals_plain_and_concatenates_to_k6(cuda_device, band, P, dtype):
+    from tpucg_torch.kernels.spmv import dia_spmv_halo_cuda, dia_spmv_halo_torch, halo_length
+
+    if band == "poisson32":
+        dia = poisson3d_dia(32)
+        offsets, data = tuple(int(o) for o in dia.offsets), np.asarray(dia.data, np.float32)
+    else:
+        offsets, data, _ = random_banded_dia(4096, BAND_SETS[band], seed=5)
+    d = torch.as_tensor(data, device=cuda_device).to(dtype)
+    x = _rand(cuda_device, d.shape[1], seed=P)
+    pad, blk, parts = halo_length(offsets), d.shape[1] // P, []
+    for r in range(P):
+        lo, hi = _halos(x, r, blk, pad, cuda_device)
+        db, xb = d[:, r * blk:(r + 1) * blk].contiguous(), x[r * blk:(r + 1) * blk]
+        y = dia_spmv_halo_cuda(db, offsets, xb, lo, hi)
+        assert torch.equal(y, dia_spmv_halo_torch(db, offsets, xb, lo, hi))
+        parts.append(y)
+    assert torch.equal(torch.cat(parts), dia_spmv_cuda(d, offsets, x))
+
+
+def test_k7_k9_flag_and_checks_on_card(cuda_device):
+    from tpucg_torch.kernels.spmv import dia_spmv_halo_cuda
+    from tpucg_torch.kernels.stencil import poisson3d_slab_cuda
+
+    u = _rand(cuda_device, 4 * 64)
+    z = torch.zeros(64, device=cuda_device)
+    off = torch.zeros((), dtype=torch.int32, device=cuda_device)
+    before = poisson3d_slab_cuda.launches
+    y = poisson3d_slab_cuda(u, z, z, 8)
+    y0 = y.clone()
+    poisson3d_slab_cuda(u + 1, z, z, 8, active=off)  # flag 0: returns at once
+    assert poisson3d_slab_cuda.launches == before + 2 and torch.equal(y, y0)
+    with pytest.raises(ValueError, match="halo_lo"):
+        poisson3d_slab_cuda(u, z[:-1], z, 8)
+    d = torch.ones(3, 256, device=cuda_device)
+    with pytest.raises(ValueError, match="halos must be 128"):
+        dia_spmv_halo_cuda(d, (-1, 0, 1), u, z, z)
+
+
+@pytest.fixture
+def nccl_one_rank(cuda_device):
+    """This process as a world of one NCCL rank on the card."""
+    from tpucg_torch.comm.mesh import init_distributed, make_mesh
+
+    init_distributed(backend="nccl", device=cuda_device)
+    yield make_mesh(device=cuda_device, backend="nccl")
+    torch.distributed.destroy_process_group()
+
+
+@pytest.mark.parametrize("case", ["dense_allgather", "dense_overlap", "poisson", "dia_f32",
+                                  "dia_bf16", "ell"])
+def test_one_nccl_rank_equals_the_serial_lap_path(nccl_one_rank, case):
+    from tpucg_torch.io.generator import poisson3d_csr
+    from tpucg_torch.kernels.spmv import dia_spmv_halo_cuda, dia_spmv_halo_torch
+    from tpucg_torch.kernels.stencil import poisson3d_slab_cuda, poisson3d_slab_torch
+    from tpucg_torch.solver.operators import EllOperator
+    from tpucg_torch.solver.sharded import sharded_cg_solve, sharded_operator_cg_solve
+
+    dev = nccl_one_rank.device
+    counted = (matvec_cuda, dot_cuda, fused_update_cuda, poisson3d_slab_cuda, dia_spmv_halo_cuda)
+    plain = (matvec_torch, dot_torch, fused_update_torch, poisson3d_slab_torch,
+             dia_spmv_halo_torch)
+    if case.startswith("dense"):
+        A, b, x0 = generate_spd_system(1024, seed=1)
+        want = cg_solve(A, b, x0, device=dev, fused="never", precondition="jacobi")
+        before = [w.launches for w in counted + plain]
+        got = sharded_cg_solve(A, b, x0, mesh=nccl_one_rank, strategy=case.split("_")[1],
+                               precondition="jacobi")
+        kernels = (matvec_cuda, dot_cuda, fused_update_cuda)
+    else:
+        m = 24
+        xt = np.random.default_rng(2).standard_normal(m ** 3).astype(np.float32)
+        b = poisson3d_csr(m).matvec(xt).astype(np.float32)
+        op = {"poisson": lambda: PoissonOperator(m, device=dev),
+              "dia_f32": lambda: DiaOperator.from_dia(poisson3d_dia(m), device=dev),
+              "dia_bf16": lambda: DiaOperator.from_dia(poisson3d_dia(m), device=dev,
+                                                       storage_dtype=torch.bfloat16),
+              "ell": lambda: EllOperator.from_csr(poisson3d_csr(m), device=dev)}[case]()
+        kw = dict(tol=1e-5 * float(np.linalg.norm(b)), maxiter=2000, precondition="poly")
+        want = cg_solve(op, b, fused="never", **kw)
+        before = [w.launches for w in counted + plain]
+        storage = torch.bfloat16 if case == "dia_bf16" else torch.float32
+        got = sharded_operator_cg_solve(op, b, mesh=nccl_one_rank, storage_dtype=storage, **kw)
+        kernels = (dot_cuda, fused_update_cuda) + (
+            (poisson3d_slab_cuda,) if case == "poisson" else
+            (dia_spmv_halo_cuda,) if case.startswith("dia") else ())
+    torch.cuda.synchronize()
+    after = dict(zip(counted + plain, [w.launches - n for w, n in zip(counted + plain, before)]))
+    assert bool(got.converged) and int(got.iterations) == int(want.iterations)
+    assert torch.equal(got.x, want.x)
+    assert all(after[k] > 0 for k in kernels) and all(after[p] == 0 for p in plain)
+
+
+def test_two_gloo_ranks_on_one_card(cuda_device, tmp_path):
+    from _torch_helpers import card_world_worker, run_world
+
+    m = 16
+    xt = np.random.default_rng(0).standard_normal(m ** 3).astype(np.float32)
+    b = poisson3d_dia(m).matvec(xt).astype(np.float32)
+    kw = dict(tol=1e-5 * float(np.linalg.norm(b)), maxiter=1000)
+    got = run_world(2, card_world_worker, args=([("poisson", None), ("dia", None)], m, b, kw),
+                    rendezvous=str(tmp_path / "world"), timeout_s=300)
+    assert "pinned host memory" in got["mesh"]
+    want = cg_solve(PoissonOperator(m, device=cuda_device), b, **kw)
+    for case in (("poisson", None), ("dia", None)):
+        r = got[case]
+        assert r["converged"] and abs(r["laps"] - int(want.iterations)) <= 1
+        assert scaled_err(r["x"], want.x.cpu().numpy()) <= 1e-4
+        assert r["transport_calls"] > 0

@@ -13,10 +13,15 @@ from MatrixMarket files or the generators, go through
 ``best_sparse_operator``, which picks DIA, BSR, WELL (irregular matrices,
 ``WellOperator``, K13 on the lap) or ELL as tpucg does.
 ``cg_solve_batch`` solves B independent systems, in one launch of K5 where
-it applies, and ``cg_solve_batch_banded`` B banded ones (K12). The package
-imports neither ``jax`` nor ``tpucg``.
+it applies, and ``cg_solve_batch_banded`` B banded ones (K12).
+``sharded_cg_solve`` and ``sharded_operator_cg_solve`` distribute a solve's
+rows over the ranks of a ``torch.distributed`` world (``make_mesh``,
+``init_distributed``): dense with the allgather or overlap-ring exchange,
+Poisson on slabs with plane halos (K9), DIA on row blocks with band halos
+(K7), ELL and BSR. The package imports neither ``jax`` nor ``tpucg``.
 """
 
+from tpucg_torch.comm.mesh import Mesh, init_distributed, make_mesh
 from tpucg_torch.config import CGConfig
 from tpucg_torch.io.generator import (
     fem_p1_system,
@@ -41,6 +46,12 @@ from tpucg_torch.solver.operators import (
     best_sparse_operator,
 )
 from tpucg_torch.solver.oracle import oracle_cg
+from tpucg_torch.solver.sharded import (
+    DistributedSystem,
+    distribute_system,
+    sharded_cg_solve,
+    sharded_operator_cg_solve,
+)
 from tpucg_torch.sparse.formats import COOMatrix, CSRMatrix, DIAMatrix, csr_to_dia
 from tpucg_torch.sparse.well import WellMatrix, csr_to_well
 
@@ -52,6 +63,13 @@ __all__ = [
     "cg_solve",
     "cg_solve_batch",
     "cg_solve_batch_banded",
+    "DistributedSystem",
+    "Mesh",
+    "distribute_system",
+    "init_distributed",
+    "make_mesh",
+    "sharded_cg_solve",
+    "sharded_operator_cg_solve",
     "BsrOperator",
     "DenseOperator",
     "DiaOperator",

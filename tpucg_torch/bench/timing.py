@@ -178,10 +178,10 @@ def device_seconds_per_call(fn: Callable[[], object], reps: int = 100) -> float:
     return device_timing(fn, iters=5, reps=reps).median
 
 
-def profile_table(fn: Callable[[], object], reps: int, trace_path: str) -> str:
+def profile_table(fn: Callable[[], object], reps: int, trace_path: Optional[str]) -> str:
     """``trace_calls`` as a table: device time per op name per call, and the
     device's busy share of the window (a lower bound, since the profiler
-    stretches the window)."""
+    stretches the window); the trace goes to ``trace_path`` unless None."""
     wall, ops = trace_calls(fn, reps, trace_path)
     busy_us = sum(us for _, us in ops.values())
     lines = [

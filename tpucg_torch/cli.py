@@ -10,11 +10,19 @@ reorders it (``--rcm``, ``--strength-order``) and promotes it with
 poisson-ell|poisson-bsr|poisson-auto --m M`` solves tpucg's sparse
 flagship, the 3-D Poisson Laplacian on an m^3 grid, in each of tpucg's
 bench forms.
+
+``solve --strategy allgather|overlap`` and ``bench --strategy ...`` /
+``bench --compare-strategies`` (serial, allgather, overlap on the dense
+system, as tpucg's ``cli.py:945-976, 1014-1021``) run the distributed
+solves over ``torch.distributed``: under ``torchrun --nproc-per-node P`` on
+its world, else as a world of one rank. Only rank 0 prints.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import os
 import sys
@@ -30,8 +38,8 @@ def _check_solve_options(args) -> None:
     """Name the ROADMAP item of every solve option this port does not run."""
     if args.two_level is not None:
         raise NotImplementedError("--two-level (the two-level preconditioner) is ROADMAP M12")
-    if args.strategy != "serial":
-        raise NotImplementedError(f"--strategy {args.strategy} (sharded solves) is ROADMAP M14")
+    if args.strategy == "summa":
+        raise NotImplementedError("--strategy summa (the 2-D SUMMA decomposition) is ROADMAP M14")
     if args.method == "minres":
         raise NotImplementedError("--method minres is ROADMAP M12")
     if args.method != "cg":
@@ -39,6 +47,28 @@ def _check_solve_options(args) -> None:
     if args.precondition == "block_jacobi" or args.pc_block_size is not None:
         raise NotImplementedError("block Jacobi (--precondition block_jacobi, "
                                   "--pc-block-size) is ROADMAP M8")
+
+
+def _mesh(device):
+    """The mesh of a distributed solve: torchrun's world, or this process as
+    a world of one rank; on ``device`` (default: the card when there is one,
+    ``cuda:<LOCAL_RANK>``)."""
+    import torch
+
+    from tpucg_torch.comm.mesh import make_mesh
+
+    return make_mesh(device=device or ("cuda" if torch.cuda.is_available() else "cpu"))
+
+
+@contextlib.contextmanager
+def _rank0_prints(mesh):
+    """Ranks other than 0 print nothing (their results are rank 0's): a
+    command whose every rank runs the same calls."""
+    if mesh is None or mesh.rank == 0:
+        yield
+        return
+    with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(io.StringIO()):
+        yield
 
 
 def _load_rhs_any(path: str, n: int):
@@ -88,8 +118,10 @@ def _cmd_solve_mtx(args, t_total0) -> int:
     from tpucg_torch.kernels.dispatch import canonical_device
     from tpucg_torch.solver.cg import cg_solve
     from tpucg_torch.solver.operators import DenseOperator, best_sparse_operator
+    from tpucg_torch.solver.sharded import sharded_cg_solve, sharded_operator_cg_solve
 
-    device = canonical_device(args.device)
+    mesh = None if args.strategy == "serial" else _mesh(args.device)
+    device = canonical_device(args.device) if mesh is None else mesh.device
     t0 = time.perf_counter()
     mat = load_matrix_market(args.matrix)
     perm = csr = None
@@ -117,11 +149,19 @@ def _cmd_solve_mtx(args, t_total0) -> int:
     load_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     if csr is None:
-        op = DenseOperator.create(mat, backend=args.kernel, device=device,
-                                  dtype=torch.bfloat16 if args.storage == "bf16" else torch.float32)
+        op = None if mesh else DenseOperator.create(
+            mat, backend=args.kernel, device=device,
+            dtype=torch.bfloat16 if args.storage == "bf16" else torch.float32)
     else:
-        op = best_sparse_operator(csr, backend=args.kernel, device=device)
+        # A distributed solve promotes on the host: each rank places its own
+        # block of the operator.
+        op = best_sparse_operator(csr, backend="auto" if mesh else args.kernel,
+                                  device="cpu" if mesh else device)
         fmt = type(op).__name__
+        if mesh is not None and fmt == "WellOperator":
+            raise NotImplementedError(
+                f"--strategy {args.strategy} on an irregular matrix (promoted to WELL) needs "
+                "the WELL shard packers (csr_to_well_sharded), ROADMAP M14")
         if perm is not None:
             fmt += "+strength" if args.strength_order is not None else "+rcm"
         if args.storage == "bf16":
@@ -131,16 +171,25 @@ def _cmd_solve_mtx(args, t_total0) -> int:
         torch.cuda.synchronize(device)
     build_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    res = cg_solve(
-        op, b, x0, tol=args.tol, maxiter=args.maxiter, kernel=args.kernel,
-        precondition=args.precondition, poly_degree=args.poly_degree, fused=args.fused,
-        record_residuals=args.residual_history,
-    )
+    kw = dict(tol=args.tol, maxiter=args.maxiter, kernel=args.kernel,
+              precondition=args.precondition, poly_degree=args.poly_degree,
+              record_residuals=args.residual_history)
+    storage = torch.bfloat16 if args.storage == "bf16" else torch.float32
+    if mesh is None:
+        res = cg_solve(op, b, x0, fused=args.fused, **kw)
+    elif csr is None:
+        res = sharded_cg_solve(mat, b, x0, mesh=mesh, strategy=args.strategy,
+                               storage_dtype=storage, **kw)
+    else:
+        res = sharded_operator_cg_solve(op, b, x0, mesh=mesh, storage_dtype=storage, **kw)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     solve_s = time.perf_counter() - t0
+    if mesh is not None and mesh.rank != 0:
+        return 0 if bool(res.converged) else 3  # rank 0 reports and writes x
     print(f"system size          : {n} x {n}  [{fmt}]")
-    print(f"device               : {device} [{op.backend}]")
+    print(f"device               : {device} [{op.backend}]" if mesh is None else
+          f"strategy             : {args.strategy} [{mesh!r}]")
     print(f"data load (s)        : {load_s:.6f}  (parse, reordering)")
     print(f"operator build (s)   : {build_s:.6f}  (promotion, packing, placement)")
     print(f"CG solve (s)         : {solve_s:.6f}")
@@ -183,6 +232,7 @@ def cmd_solve(args) -> int:
     from tpucg_torch.kernels.dispatch import canonical_device
     from tpucg_torch.solver.cg import cg_solve
     from tpucg_torch.solver.operators import DenseOperator
+    from tpucg_torch.solver.sharded import sharded_cg_solve
 
     _check_solve_options(args)
     t_total0 = time.perf_counter()
@@ -191,22 +241,28 @@ def cmd_solve(args) -> int:
     A, b, x0 = load_system(args.matrix, args.rhs, args.x0, n=args.n)
     n = A.shape[0]
     load_s = time.perf_counter() - t_total0
-    device = canonical_device(args.device)
+    mesh = None if args.strategy == "serial" else _mesh(args.device)
+    device = canonical_device(args.device) if mesh is None else mesh.device
+    storage = torch.bfloat16 if args.storage == "bf16" else torch.float32
+    kw = dict(tol=args.tol, maxiter=args.maxiter, kernel=args.kernel,
+              precondition=args.precondition, poly_degree=args.poly_degree,
+              record_residuals=args.residual_history)
     t0 = time.perf_counter()
-    op = DenseOperator.create(
-        A, backend=args.kernel, device=device,
-        dtype=torch.bfloat16 if args.storage == "bf16" else torch.float32,
-    )
-    res = cg_solve(
-        op, b, x0, tol=args.tol, maxiter=args.maxiter, kernel=args.kernel,
-        precondition=args.precondition, poly_degree=args.poly_degree, fused=args.fused,
-        record_residuals=args.residual_history,
-    )
+    if mesh is None:
+        op = DenseOperator.create(A, backend=args.kernel, device=device, dtype=storage)
+        res = cg_solve(op, b, x0, fused=args.fused, **kw)
+        where = f"{device} [{op.backend}]"
+    else:
+        res = sharded_cg_solve(A, b, x0, mesh=mesh, strategy=args.strategy,
+                               storage_dtype=storage, **kw)
+        where = f"{mesh!r}, strategy {args.strategy}"
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     solve_s = time.perf_counter() - t0
+    if mesh is not None and mesh.rank != 0:
+        return 0 if bool(res.converged) else 3  # rank 0 reports and writes x
     print(f"system size          : {n} x {n}")
-    print(f"device               : {device} [{op.backend}]")
+    print(f"device               : {where}")
     print(f"data load (s)        : {load_s:.6f}")
     print(f"CG solve (s)         : {solve_s:.6f}  (includes operator placement)")
     print(f"total (s)            : {time.perf_counter() - t_total0:.6f}")
@@ -328,6 +384,27 @@ def _poisson_system(route: str, m: int, storage, kernel: str, device):
 
 
 def cmd_bench(args) -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("bench measures on the card, and there is no CUDA device", file=sys.stderr)
+        return 2
+    strategies = ("serial", "allgather", "overlap") if args.compare_strategies else (
+        args.strategy,)
+    if args.operator != "dense" and strategies != ("serial",):
+        raise SystemExit("the distributed bench runs the dense system (--operator dense)")
+    mesh = None if strategies == ("serial",) else _mesh("cuda")
+    with _rank0_prints(mesh):
+        # tpucg's --compare-strategies (cli.py:1014-1021): the reference's
+        # question, collective against point-to-point, beside serial; one
+        # report each on stderr, the JSON line of the first arm.
+        lines = [_bench_one(args, strategy, mesh) for strategy in strategies]
+        print(json.dumps(lines[0]))
+    return 0
+
+
+def _bench_one(args, strategy: str, mesh) -> dict:
+    """One bench arm: the report on stderr, the JSON line returned."""
     import numpy as np
     import torch
 
@@ -343,21 +420,29 @@ def cmd_bench(args) -> int:
     from tpucg_torch.io.generator import generate_spd_system
     from tpucg_torch.solver.cg import cg_solve
     from tpucg_torch.solver.operators import DenseOperator
+    from tpucg_torch.solver.sharded import distribute_system, sharded_cg_solve
 
-    if not torch.cuda.is_available():
-        print("bench measures on the card, and there is no CUDA device", file=sys.stderr)
-        return 2
     storage = torch.bfloat16 if args.storage == "bf16" else torch.float32
     t_total0 = time.perf_counter()
+    kw = dict(kernel=args.kernel, precondition=args.precondition, poly_degree=args.poly_degree)
     if args.operator == "dense":
         n = args.n
         A, b, x0 = generate_spd_system(n, seed=0)
         tol, maxiter, nnz = 1.0e-6, None, None
-        # Distribution phase: placing the padded operator on the card (the
-        # reference's MPI_Scatter phase).
+        # Distribution phase: placing the padded operator, or this rank's
+        # block of it, on the card (the reference's MPI_Scatter phase).
         t0 = time.perf_counter()
-        op = DenseOperator.create(A, backend=args.kernel, device="cuda", dtype=storage)
-        mv_bytes = gemv_bytes(op.padded_n, op.padded_n, op.A.element_size())
+        if strategy != "serial":
+            system = distribute_system(A, b, x0, mesh, strategy=strategy, storage_dtype=storage)
+            torch.cuda.synchronize()
+            distribute_s = time.perf_counter() - t0
+
+            def solve():
+                return sharded_cg_solve(system, mesh=mesh, strategy=strategy,
+                                        storage_dtype=storage, tol=tol, **kw)
+        else:
+            op = DenseOperator.create(A, backend=args.kernel, device="cuda", dtype=storage)
+            mv_bytes = gemv_bytes(op.padded_n, op.padded_n, op.A.element_size())
     else:
         t0 = time.perf_counter()  # the slab's generation and placement
         op, b, nnz, mv_bytes = _poisson_system(args.operator, args.m, storage, args.kernel,
@@ -366,23 +451,27 @@ def cmd_bench(args) -> int:
         # Large-norm sparse systems: an absolute 1e-6 is below the f32
         # residual floor (tpucg's choice, cli.py:938-943).
         tol = 1.0e-5 * float(np.linalg.norm(b))
-    bd = torch.as_tensor(b, device="cuda")
-    x0d = None if x0 is None else torch.as_tensor(x0, device="cuda")
-    torch.cuda.synchronize()
-    distribute_s = time.perf_counter() - t0
+    if strategy == "serial":
+        bd = torch.as_tensor(b, device="cuda")
+        x0d = None if x0 is None else torch.as_tensor(x0, device="cuda")
+        torch.cuda.synchronize()
+        distribute_s = time.perf_counter() - t0
 
-    def solve():
-        return cg_solve(op, bd, x0d, kernel=args.kernel, fused=args.fused, tol=tol,
-                        maxiter=maxiter, precondition=args.precondition,
-                        poly_degree=args.poly_degree)
+        def solve():
+            return cg_solve(op, bd, x0d, fused=args.fused, tol=tol, maxiter=maxiter, **kw)
 
     res = solve()
     solve_t = time_fn(solve, warmup=1, iters=args.repeats)
-    v = torch.ones(op.padded_n, device="cuda")
-    op.matvec(v)
-    # The matvec kernel's own device time: back-to-back wrapper calls are
-    # bound by host overhead for the sparse kernels (10-30 us of work).
-    matvec_t = device_timing(lambda: op.matvec(v), iters=args.repeats)
+    matvec_t = None
+    if strategy == "serial":
+        v = torch.ones(op.padded_n, device="cuda")
+        op.matvec(v)
+        # The matvec kernel's own device time: back-to-back wrapper calls are
+        # bound by host overhead for the sparse kernels (10-30 us of work).
+        matvec_t = device_timing(lambda: op.matvec(v), iters=args.repeats)
+        where, padded_n = f"{op.backend} fused={args.fused}", op.padded_n
+    else:
+        where, padded_n = f"{strategy} on {mesh!r}", system.part.n_padded
     report = BenchReport(
         n=n,
         iterations=int(res.iterations),
@@ -391,36 +480,36 @@ def cmd_bench(args) -> int:
         solve=solve_t,
         total_s=time.perf_counter() - t_total0,
         card=nvidia_smi_card(),
-        backend=f"{args.operator} {args.storage} {op.backend} fused={args.fused} "
-                f"precondition={args.precondition}",
-        padded_n=op.padded_n,
+        backend=f"{args.operator} {args.storage} {where} precondition={args.precondition}",
+        padded_n=padded_n,
         matvec=matvec_t,
-        matvec_bytes=mv_bytes,
+        matvec_bytes=None if matvec_t is None else mv_bytes,
         nnz=nnz,
     ).finalize(hbm_peak_bytes_per_s())
     print(report.pretty(), file=sys.stderr)
     if args.profile:
         # A separate traced run: the timed solves above ran with tracing off.
-        os.makedirs(args.profile, exist_ok=True)
-        print(profile_table(solve, 5, os.path.join(args.profile, "trace.json")),
-              file=sys.stderr)
+        # Every rank traces (the solves' collectives need them all); rank 0
+        # writes the trace.
+        path = args.profile if strategy == "serial" else os.path.join(args.profile, strategy)
+        if mesh is None or mesh.rank == 0:
+            os.makedirs(path, exist_ok=True)
+        print(profile_table(solve, 5, os.path.join(path, "trace.json")
+                            if mesh is None or mesh.rank == 0 else None), file=sys.stderr)
     if args.operator == "dense":
         baseline = BASELINE_S.get(n)
-        line = {
+        return {
             "metric": f"dense_cg_solve_time_n{n}",
             "value": round(solve_t.median, 6),
             "unit": "s",
             "vs_baseline": round(baseline / solve_t.median, 2) if baseline else None,
         }
-    else:
-        # The reference C code has no sparse solve: no vs_baseline.
-        line = {
-            "metric": f"{args.operator.replace('-', '_')}_cg_solve_time_m{args.m}",
-            "value": round(solve_t.median, 6),
-            "unit": "s",
-        }
-    print(json.dumps(line))
-    return 0
+    # The reference C code has no sparse solve: no vs_baseline.
+    return {
+        "metric": f"{args.operator.replace('-', '_')}_cg_solve_time_m{args.m}",
+        "value": round(solve_t.median, 6),
+        "unit": "s",
+    }
 
 
 def cmd_info(args) -> int:
@@ -482,7 +571,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="only cg runs in this port (the others: ROADMAP M8, M12)")
     ps.add_argument("--strategy", default="serial",
                     choices=("serial", "allgather", "overlap", "summa"),
-                    help="only serial runs in this port (sharded solves: ROADMAP M14)")
+                    help="distributed row-block solve over torch.distributed (under "
+                         "torchrun, or one rank): allgather or overlap for a dense A, "
+                         "the halo or gather decomposition of a DIA, ELL or BSR .mtx; "
+                         "summa (2-D) is ROADMAP M14")
     ps.add_argument("--two-level", type=int, default=None, metavar="AGG",
                     help="two-level preconditioner (ROADMAP M12)")
     ps.add_argument("--pc-block-size", type=int, default=None,
@@ -505,7 +597,14 @@ def build_parser() -> argparse.ArgumentParser:
     pb.add_argument("--repeats", type=int, default=5, help="timed solves (>= 5)")
     pb.add_argument("--profile", default=None, metavar="DIR",
                     help="also trace 5 solves with torch.profiler: per-kernel device "
-                         "time and busy share to stderr, DIR/trace.json")
+                         "time and busy share to stderr, DIR/trace.json (a distributed arm's in "
+                         "DIR/<strategy>/)")
+    pb.add_argument("--strategy", default="serial", choices=("serial", "allgather", "overlap"),
+                    help="the dense solve on one card, or distributed over torch.distributed "
+                         "(torchrun's world, or one rank)")
+    pb.add_argument("--compare-strategies", action="store_true",
+                    help="serial, allgather and overlap in turn on the dense system: a "
+                         "report each on stderr, the serial arm's JSON line")
     pb.set_defaults(fn=cmd_bench)
 
     pi = sub.add_parser("info", help="device / backend / kernel library")
@@ -532,8 +631,15 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv: Optional[list] = None) -> int:
+    import torch.distributed as dist
+
     from tpucg_torch.kernels.dispatch import strict_f32
 
     args = build_parser().parse_args(argv)
     strict_f32()  # --kernel torch on the card runs the plain f32 references
-    return args.fn(args)
+    started = dist.is_initialized()
+    try:
+        return args.fn(args)
+    finally:
+        if not started and dist.is_initialized():  # a distributed command's world
+            dist.destroy_process_group()

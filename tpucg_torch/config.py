@@ -5,9 +5,10 @@ validation, so a configuration means the same in both packages. ``kernel``
 takes ``"auto"``/``"cuda"``/``"torch"`` (tpucg's ``"auto"``/``"pallas"``/
 ``"xla"``) and ``dtype`` is a torch dtype. Values this slice does not run yet
 pass validation here and raise ``NotImplementedError`` in ``cg_solve``,
-naming their ROADMAP item. tpucg's knobs of sharded solves and of the other
-methods and preconditioners (``strategy``, ``pc_block_size``, ``s_step``,
-``check_every``) return with the slices that read them.
+naming their ROADMAP item. ``strategy`` is read by the sharded solves (serial
+solves ignore it, as tpucg's do); tpucg's knobs of the other methods and
+preconditioners (``pc_block_size``, ``s_step``, ``check_every``) return with
+the slices that read them.
 """
 
 from __future__ import annotations
@@ -29,6 +30,11 @@ class CGConfig:
       maxiter: iteration cap; ``None`` means n.
       dtype: solve dtype, float32 (the reference contract). bf16 is a storage
         dtype of ``DenseOperator.create``, not a solve dtype.
+      strategy: communication of a sharded dense solve: ``"allgather"``
+        gathers the direction vector whole every lap (the reference's
+        collective arm, ``parallel_cg.c:290-291``), ``"overlap"`` passes its
+        blocks around a ring while each rank multiplies the block in hand
+        (tpucg's form of the point-to-point arm).
       kernel: ``"auto"`` runs the CUDA kernels on a CUDA device and their
         plain PyTorch versions elsewhere; ``"cuda"`` / ``"torch"`` force one.
       safe_alpha: treat ``p.Ap == 0`` (exact initial guess) as a zero step
@@ -45,6 +51,7 @@ class CGConfig:
     tol: float = 1.0e-6
     maxiter: Optional[int] = None
     dtype: torch.dtype = torch.float32
+    strategy: str = "allgather"
     kernel: str = "auto"
     safe_alpha: bool = True
     precondition: str = "none"
@@ -53,6 +60,8 @@ class CGConfig:
     poly_degree: int = 3
 
     def __post_init__(self):
+        if self.strategy not in ("allgather", "overlap"):
+            raise ValueError(f"unknown strategy {self.strategy!r}")
         if self.method not in ("cg", "pipelined", "ca", "chebyshev"):
             raise ValueError(f"unknown method {self.method!r}")
         if self.kernel not in ("auto", "cuda", "torch"):

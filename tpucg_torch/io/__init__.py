@@ -9,7 +9,7 @@ from tpucg_torch.io.generator import (
 )
 from tpucg_torch.io.golden import GOLDEN_2X2, GOLDEN_4X4
 from tpucg_torch.io.mmio import load_matrix_market, save_matrix_market
-from tpucg_torch.io.partitioner import pad_identity_tail, round_up
+from tpucg_torch.io.partitioner import RowPartition, pad_identity_tail, pad_system, round_up
 from tpucg_torch.io.textio import load_matrix, load_system, load_vector, save_array
 
 __all__ = [
@@ -21,7 +21,9 @@ __all__ = [
     "load_matrix_market",
     "random_geometric_spd",
     "save_matrix_market",
+    "RowPartition",
     "pad_identity_tail",
+    "pad_system",
     "round_up",
     "load_matrix",
     "load_system",

@@ -3,7 +3,9 @@ kernels' plain PyTorch versions sit beside them; the whole-solve kernels'
 run the solver's loops and live in ``tpucg_torch.solver.fused``.
 
 The lap: K1 ``matvec_cuda`` (dense GEMV), K6 ``dia_spmv_cuda`` (DIA
-SpMV), K8 ``poisson3d_cuda`` (7-point stencil), K13 ``well_spmv_cuda``
+SpMV), K8 ``poisson3d_cuda`` (7-point stencil), K7 ``dia_spmv_halo_cuda``
+and K9 ``poisson3d_slab_cuda`` (K6 and K8 on one rank's block of a
+distributed solve, with halos), K13 ``well_spmv_cuda``
 (WELL SpMV; K14 ``well_spmv_fused_gather`` is the same kernel under
 tpucg's second name), K2 ``fused_update_cuda`` (x/r update and beta =
 r'.r' in one pass) and K3 ``dot_cuda``. The whole solve: K4
@@ -46,10 +48,20 @@ from tpucg_torch.kernels.spmv import (
     bsr_ell_spmv,
     dia_spmv,
     dia_spmv_cuda,
+    dia_spmv_halo,
+    dia_spmv_halo_cuda,
+    dia_spmv_halo_torch,
     dia_spmv_torch,
     ell_spmv,
 )
-from tpucg_torch.kernels.stencil import poisson3d, poisson3d_cuda, poisson3d_torch
+from tpucg_torch.kernels.stencil import (
+    poisson3d,
+    poisson3d_cuda,
+    poisson3d_slab,
+    poisson3d_slab_cuda,
+    poisson3d_slab_torch,
+    poisson3d_torch,
+)
 
 __all__ = [
     "dot_cuda",
@@ -69,10 +81,16 @@ __all__ = [
     "bsr_ell_spmv",
     "dia_spmv",
     "dia_spmv_cuda",
+    "dia_spmv_halo",
+    "dia_spmv_halo_cuda",
+    "dia_spmv_halo_torch",
     "dia_spmv_torch",
     "ell_spmv",
     "poisson3d",
     "poisson3d_cuda",
+    "poisson3d_slab",
+    "poisson3d_slab_cuda",
+    "poisson3d_slab_torch",
     "poisson3d_torch",
     "resolve_backend",
     "MATVEC_ALIGN",

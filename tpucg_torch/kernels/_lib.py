@@ -14,6 +14,7 @@ or load raises with the compiler's output: there is no fallback.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -51,7 +52,12 @@ SIGNATURES = {
     ),
     "tpucg_dia_spmv_f32": (ctypes.c_int, [_PTR, _PTR, ctypes.c_int, _PTR, _PTR, _LEN, _PTR, _PTR]),
     "tpucg_dia_spmv_bf16": (ctypes.c_int, [_PTR, _PTR, ctypes.c_int, _PTR, _PTR, _LEN, _PTR, _PTR]),
+    "tpucg_dia_spmv_halo_f32": (
+        ctypes.c_int, [_PTR, _PTR, ctypes.c_int] + [_PTR] * 4 + [_LEN, _LEN, _PTR, _PTR]),
+    "tpucg_dia_spmv_halo_bf16": (
+        ctypes.c_int, [_PTR, _PTR, ctypes.c_int] + [_PTR] * 4 + [_LEN, _LEN, _PTR, _PTR]),
     "tpucg_poisson3d_f32": (ctypes.c_int, [_PTR, _PTR, _LEN, _PTR, _PTR]),
+    "tpucg_poisson3d_slab_f32": (ctypes.c_int, [_PTR] * 4 + [_LEN, _LEN, _PTR, _PTR]),
     "tpucg_fused_stencil_cg_f32": (
         ctypes.c_int,
         [_PTR] * 6 + [_LEN, ctypes.c_float, _LEN, ctypes.c_int, ctypes.c_int, ctypes.c_int, _PTR],
@@ -111,11 +117,21 @@ def nvcc() -> str:
 def build() -> Path:
     """Compile the library if this source hash has none yet; returns its path.
     The compiler's output (``-Xptxas -v``: registers, spills) is kept beside
-    it as ``.log``."""
+    it as ``.log``. Processes that start together (the ranks of a
+    distributed solve) build one at a time under a file lock beside the
+    build directory: the first builds, the others find its library."""
     path = library_path()
     if path.exists():
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR.with_name(BUILD_DIR.name + ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not path.exists():
+            _compile(path)
+    return path
+
+
+def _compile(path: Path) -> None:
     tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
     objdir = Path(tempfile.mkdtemp(prefix=".objs.", dir=BUILD_DIR))
     try:
@@ -139,7 +155,6 @@ def build() -> Path:
         os.replace(tmp, path)
     finally:
         shutil.rmtree(objdir, ignore_errors=True)
-    return path
 
 
 def load() -> ctypes.CDLL:

@@ -2,7 +2,8 @@
 // tpucg_torch/kernels/_lib.py binds with ctypes, and the fixed-order block
 // reduction that K2 (fused update) and K3 (dot) share. The dense lap (K1-K3)
 // lives in blas.cu, the structured-sparse lap matvecs (K6 DIA SpMV, K8
-// 7-point stencil) in sparse.cu, the irregular one (K13 WELL SpMV) in
+// 7-point stencil, and their row-block forms with halos K7 and K9) in
+// sparse.cu, the irregular one (K13 WELL SpMV) in
 // gather.cu, and the whole solves (K4, K5, K10, K11, K12) in fused.cu.
 //
 // Every entry point takes the launch stream. The lap's kernels also take an
@@ -114,10 +115,30 @@ cudaError_t tpucg_dia_spmv_bf16(const void* data, const void* offsets, int ndiag
                                 const void* x, void* y, long long npad, const void* active,
                                 void* stream);
 
+// K7: K6 on a row block of blk rows whose columns reach past the block:
+// y[i] = sum_d data[d, i] * x_ext[pad + i + offsets[d]] with x_ext = [lo,
+// x, hi], lo and hi f32 (pad,) (the neighbours' halos, zeros at the ends of
+// the chain), pad >= every |offset|; data (ndiag, blk) f32 or bf16.
+cudaError_t tpucg_dia_spmv_halo_f32(const void* data, const void* offsets, int ndiag,
+                                    const void* x, const void* lo, const void* hi, void* y,
+                                    long long blk, long long pad, const void* active,
+                                    void* stream);
+cudaError_t tpucg_dia_spmv_halo_bf16(const void* data, const void* offsets, int ndiag,
+                                     const void* x, const void* lo, const void* hi, void* y,
+                                     long long blk, long long pad, const void* active,
+                                     void* stream);
+
 // K8: y = A u for the 7-point Dirichlet Laplacian on an m^3 grid, flat index
 // x*m^2 + y*m + z; u and y f32 (m^3,), 2 <= m and m^3 < 2^31.
 cudaError_t tpucg_poisson3d_f32(const void* u, void* y, long long m, const void* active,
                                 void* stream);
+
+// K9: K8 on a slab of mp x-planes, u and y f32 (mp * m^2,), the x-neighbours
+// beyond the slab taken from the halo planes lo and hi, f32 (m^2,) (zeros
+// at the grid's edges); m >= 2, mp >= 1, mp * m^2 < 2^31.
+cudaError_t tpucg_poisson3d_slab_f32(const void* u, const void* lo, const void* hi, void* y,
+                                     long long m, long long mp, const void* active,
+                                     void* stream);
 
 // K10: one whole matrix-free Poisson CG (precond 0) or poly-PCG (2) solve on
 // an m^3 grid in one cooperative launch; b, x0, x (m^3,) f32; `scratch`

@@ -1,7 +1,7 @@
 // Row functions of the structured-sparse operators, shared by the lap
-// kernels (sparse.cu: K6 DIA SpMV, K8 7-point stencil) and the whole-solve
-// kernels (fused.cu: K11, K10), so a lap and a whole solve compute one
-// operator the same way.
+// kernels (sparse.cu: K6 DIA SpMV, K7 its row-block form with halos, K8
+// 7-point stencil) and the whole-solve kernels (fused.cu: K11, K10), so a
+// lap and a whole solve compute one operator the same way.
 //
 // Both take the input vector as a functor v(j) (j a flat index inside the
 // vector; the row functions never call it outside [0, n)): the lap kernels
@@ -36,19 +36,26 @@ __device__ __forceinline__ float widen(uint16_t v) {
   return __uint_as_float(static_cast<uint32_t>(v) << 16);
 }
 
-// (A v)[i] for the DIA matrix with slab `data` (ndiag, npad), row-major and
-// read-only for the launch: sum over d, in offsets order from 0, of
-// data[d, i] * v(i + off_d), a column outside [0, npad) giving 0.
+// Row i of the DIA slab `data` (ndiag, npad), row-major and read-only for
+// the launch, against a vector given column by column: sum over d, in
+// offsets order from 0, of data[d, i] * xat(i + off_d). `xat` takes every
+// column the offsets reach, inside [0, npad) or not.
+template <typename T, class X>
+__device__ __forceinline__ float dia_sum(const T* __restrict__ data, long long npad,
+                                         const DiaOffsets& offs, long long i, X xat) {
+  float acc = 0.f;
+  for (int d = 0; d < offs.ndiag; ++d)
+    acc = __fadd_rn(acc, __fmul_rn(widen(__ldg(data + d * npad + i)), xat(i + offs.off[d])));
+  return acc;
+}
+
+// (A v)[i] for the DIA matrix with slab `data`: dia_sum with a column
+// outside [0, npad) giving 0.
 template <typename T, class V>
 __device__ __forceinline__ float dia_row(const T* __restrict__ data, long long npad,
                                          const DiaOffsets& offs, long long i, V v) {
-  float acc = 0.f;
-  for (int d = 0; d < offs.ndiag; ++d) {
-    const long long j = i + offs.off[d];
-    const float xv = (j >= 0 && j < npad) ? v(j) : 0.f;
-    acc = __fadd_rn(acc, __fmul_rn(widen(__ldg(data + d * npad + i)), xv));
-  }
-  return acc;
+  return dia_sum(data, npad, offs, i,
+                 [&](long long j) { return (j >= 0 && j < npad) ? v(j) : 0.f; });
 }
 
 // (A v)[i] of the 7-point Dirichlet Laplacian on an m^3 grid, flat index

@@ -1,9 +1,10 @@
 """Sparse matrix-vector products.
 
 DIA SpMV, y[i] = sum_d data[d, i] * x[i + offsets[d]] with zero fill
-outside [0, n): K6 of the port; ``csrc/sparse.cu`` holds the kernel and its
-design note. The slab is the canonical (ndiag, npad) layout in f32 or bf16,
-with f32 sums. tpucg's row-interleaved packing (``dia_interleave``) was a
+outside [0, n): K6 of the port, and K7, the same on one row block of a
+distributed solve with the columns past the block from the neighbours'
+halos; ``csrc/sparse.cu`` holds the kernels and their design note. The slab
+is the canonical (ndiag, npad) layout in f32 or bf16, with f32 sums. tpucg's row-interleaved packing (``dia_interleave``) was a
 TPU DMA layout; it is kept here, in NumPy, for carrying tpucg's operators
 across only.
 
@@ -153,6 +154,102 @@ def dia_spmv(data: torch.Tensor, offsets: Sequence[int], x: torch.Tensor, backen
     if resolve_backend(backend, data.device) == "cuda":
         return dia_spmv_cuda(data, offsets, x, active=active)
     return dia_spmv_torch(data, offsets, x)
+
+
+# K7: K6 on one rank's row block of a distributed banded solve. The block's
+# rows reach up to max |offset| columns past either end; those come from the
+# neighbouring ranks' halos, ``halo_length(offsets)`` elements each: the
+# last of the rank below (halo_lo) and the first of the rank above
+# (halo_hi), zeros at the ends of the chain.
+
+
+def halo_length(offsets: Sequence[int]) -> int:
+    """Elements of each halo of a DIA row block: max |offset| rounded up to
+    a multiple of 128, at least 128 (tpucg's ``spmv.py:294-300``)."""
+    maxo = max(abs(int(o)) for o in offsets)
+    return max(1, -(-maxo // LANE)) * LANE
+
+
+def _check_halos(offsets: Sequence[int], halo_lo: torch.Tensor, halo_hi: torch.Tensor) -> int:
+    pad = halo_length(offsets)
+    if halo_lo.dim() != 1 or halo_hi.dim() != 1 or halo_lo.numel() != pad \
+            or halo_hi.numel() != pad:
+        raise ValueError(f"halos must be {pad} elements, got "
+                         f"{halo_lo.numel()}/{halo_hi.numel()}")
+    return pad
+
+
+def dia_spmv_halo_torch(data: torch.Tensor, offsets: Sequence[int], x: torch.Tensor,
+                        halo_lo: torch.Tensor, halo_hi: torch.Tensor) -> torch.Tensor:
+    """Plain version of K7 (tpucg's ``dia_spmv_halo_xla``, ``spmv.py:336``,
+    on the canonical slab): x extended by the halos once, then one slice and
+    product per diagonal, added in offsets order from zero; bf16 slabs
+    widened to f32."""
+    dia_spmv_halo_torch.launches += 1
+    pad = _check_halos(offsets, halo_lo, halo_hi)
+    blk = x.shape[0]
+    x_ext = torch.cat([halo_lo, x, halo_hi])
+    y = torch.zeros_like(x)
+    for d, off in enumerate(offsets):
+        y = y + data[d].to(torch.float32) * x_ext[pad + int(off): pad + int(off) + blk]
+    return y
+
+
+dia_spmv_halo_torch.launches = 0
+
+
+def dia_spmv_halo_launch(data: torch.Tensor, offs: np.ndarray, x: torch.Tensor,
+                         halo_lo: torch.Tensor, halo_hi: torch.Tensor, y: torch.Tensor,
+                         active: Optional[int], stream: int) -> None:
+    """Launch K7 with no checks: the caller has checked the operands as
+    ``dia_spmv_halo_cuda`` does and owns y; ``offs`` is
+    ``offsets_array(offsets)``. The one place that counts K7's launches."""
+    lib = _lib.load()
+    fn = lib.tpucg_dia_spmv_halo_f32 if data.dtype == torch.float32 else lib.tpucg_dia_spmv_halo_bf16
+    err = fn(data.data_ptr(), offs.ctypes.data, offs.size, x.data_ptr(), halo_lo.data_ptr(),
+             halo_hi.data_ptr(), y.data_ptr(), data.shape[1], halo_lo.numel(), active, stream)
+    if err:
+        _lib.check(err, "dia_spmv_halo_cuda")
+    dia_spmv_halo_cuda.launches += 1
+
+
+def check_dia_halo(data: torch.Tensor, offsets: Sequence[int], x: torch.Tensor,
+                   halo_lo: torch.Tensor, halo_hi: torch.Tensor) -> None:
+    """K7's operands, as ``dia_spmv_halo_cuda`` checks them: K6's slab and x,
+    and two contiguous f32 halos of ``halo_length(offsets)`` on x's
+    device."""
+    check_dia(data, offsets, x)
+    _check_halos(offsets, halo_lo, halo_hi)
+    for h in (halo_lo, halo_hi):
+        if h.dtype != torch.float32 or not h.is_contiguous() or h.device != x.device:
+            raise ValueError(f"dia_spmv_halo_cuda needs contiguous f32 halos on {x.device}, "
+                             f"got {h.dtype} on {h.device}")
+
+
+def dia_spmv_halo_cuda(data: torch.Tensor, offsets: Sequence[int], x: torch.Tensor,
+                       halo_lo: torch.Tensor, halo_hi: torch.Tensor, *,
+                       active: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K7 on the card. With ``active`` (0-d int32 on the device) the kernel
+    does nothing when the flag is 0, and the returned vector is undefined."""
+    check_dia_halo(data, offsets, x, halo_lo, halo_hi)
+    check_active(active, data)
+    y = torch.empty_like(x)
+    dia_spmv_halo_launch(data, offsets_array(offsets), x, halo_lo, halo_hi, y,
+                         None if active is None else active.data_ptr(), cuda_stream(x))
+    return y
+
+
+dia_spmv_halo_cuda.launches = 0
+
+
+def dia_spmv_halo(data: torch.Tensor, offsets: Sequence[int], x: torch.Tensor,
+                  halo_lo: torch.Tensor, halo_hi: torch.Tensor, backend: str = "auto",
+                  active: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The DIA row-block SpMV with halos: K7 for a CUDA slab (``"auto"``),
+    the plain version for a CPU one; ``active`` is read by K7 only."""
+    if resolve_backend(backend, data.device) == "cuda":
+        return dia_spmv_halo_cuda(data, offsets, x, halo_lo, halo_hi, active=active)
+    return dia_spmv_halo_torch(data, offsets, x, halo_lo, halo_hi)
 
 
 def dia_interleave(data) -> np.ndarray:

@@ -1,6 +1,6 @@
 """CG solver: the chunked device loops, the dense, DIA, Poisson, WELL, BSR
-and ELL operators, the NumPy oracle, and the plain versions of the
-whole-solve kernels."""
+and ELL operators, the distributed solves, the NumPy oracle, and the plain
+versions of the whole-solve kernels."""
 
 from tpucg_torch.solver.cg import (
     CGResult,
@@ -38,6 +38,12 @@ from tpucg_torch.solver.operators import (
     best_sparse_operator,
 )
 from tpucg_torch.solver.oracle import oracle_cg
+from tpucg_torch.solver.sharded import (
+    DistributedSystem,
+    distribute_system,
+    sharded_cg_solve,
+    sharded_operator_cg_solve,
+)
 
 __all__ = [
     "CGResult",
@@ -70,4 +76,8 @@ __all__ = [
     "as_operator",
     "best_sparse_operator",
     "oracle_cg",
+    "DistributedSystem",
+    "distribute_system",
+    "sharded_cg_solve",
+    "sharded_operator_cg_solve",
 ]
