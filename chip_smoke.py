@@ -97,8 +97,19 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    1e-4 of max |x|, Poisson's float64 ||b - A x|| / ||b|| <= 2e-5; the
    host seconds a lap spends in the transport. A failed rank fails the
    phase.
+18. gather probes vs plain: the seven probes of ``benchmarks/probe_gather.py``
+   (P1-P7, ``tpucg_torch.bench.probe_gather``) on the script's inputs
+   (``probe_inputs(0)``), each driven once through its dispatcher with the
+   counts at 0 (its kernel launched once, nothing else), bit-identical to
+   its plain version and to its repeat, P6 also at shifts 5, 0, 127, 128,
+   300 and -3 (and equal to ``torch.roll``); µs per launch (``device_timing``)
+   against the bound, the plain version and the library call. P7 (P1's
+   kernel over 8192 rows) is timed cold, rotating over 8 input sets (96 MB),
+   and its rate must stay under the HBM peak; on one set it stays in L2 and
+   is printed as the L2-resident rate. Then the script's two XLA baselines
+   as library rates.
 
-The line before last is a JSON object of the kernels (K1-K14:
+The line before last is a JSON object of the kernels (K1-K14 and P1-P7:
 launches on the main path, error against the plain version, times, the
 bound and the library call's time); the last line is ``{"ok": true,
 "device": {...}}``. Any failure exits non-zero without it, as does a
@@ -163,6 +174,7 @@ def main() -> int:
         run_world,
     )
 
+    from tpucg_torch.bench import probe_gather as pg
     from tpucg_torch.bench.timing import (
         csr_spmv_bytes,
         device_seconds_per_call,
@@ -259,7 +271,8 @@ def main() -> int:
                 fused_update_cuda, fused_update_torch, dia_spmv_cuda, dia_spmv_torch,
                 poisson3d_cuda, poisson3d_torch, well_spmv_cuda, well_spmv_torch,
                 dia_spmv_halo_cuda, dia_spmv_halo_torch, poisson3d_slab_cuda,
-                poisson3d_slab_torch)
+                poisson3d_slab_torch) + tuple(dict.fromkeys(
+        w for p in pg.PROBES for w in (getattr(pg.kp, p.kernel), p.plain)))
     whole = (fused_cg_solve_cuda, fused_cg_solve_torch, fused_batch_cg_solve_cuda,
              fused_batch_cg_solve_torch, fused_stencil_cg_solve_cuda,
              fused_stencil_cg_solve_torch, fused_dia_cg_solve_cuda, fused_dia_cg_solve_torch,
@@ -1361,6 +1374,44 @@ def main() -> int:
                           f"run, transport {r['transport_s'] * 1e3 / r['laps_run']:.4f} ms a "
                           f"lap over {r['transport_calls']} calls {tag}")
 
+    with phase("gather probes vs plain"):
+        # No solve runs the probes: each is its own path, driven once
+        # through its dispatcher with every count at 0 just before it.
+        pa = pg.probe_inputs(0)
+        pt = pg.device_inputs(pa, dev)
+        print("benchmarks/probe_gather.py's inputs (probe_inputs(0)); device us per launch of "
+              f"100 calls queued behind a spin kernel; bounds: bytes at the HBM peak {tag}")
+        for p in pg.PROBES:
+            out, launched = drive(lambda: p.run(*p.args(pt)))
+            require(only(launched, p.kernel), f"{p.pid} {p.name}: launches {launched}")
+            counts[p.pid] = launched[p.kernel]
+            plain = p.plain(*p.args(pt))
+            e = float((out - plain).abs().max())
+            require(torch.equal(out, plain), f"{p.pid} {p.name}: max abs err {e} against plain")
+            require(torch.equal(out, p.run(*p.args(pt))), f"{p.pid} {p.name}: repeat differs")
+            err[p.pid] = e
+            m = pg.measure(p, pt)
+            times[p.pid], library[p.pid] = (m.kernel, m.plain), m.library
+            nbytes = p.least_bytes(pa)
+            bounds[p.pid] = bound_of(nbytes, p.elems if p.pid == "P5" else 0)
+            require(nbytes / m.kernel <= peak,
+                    f"{p.pid} {p.name}: {nbytes / m.kernel / 1e9:.1f} GB/s is above "
+                    "the HBM peak: a timing fault")
+            print(f"{p.pid}: bit-identical to plain and to its repeat (tol 0), one launch; "
+                  f"{pg.probe_line(p, m, nbytes, peak)} {tag}")
+        for shift in (5, 0, 127, 128, 300, -3):
+            s_dev = torch.tensor([shift], dtype=torch.int32, device=dev)
+            got = pg.kp.roll_dyn_cuda(s_dev, pt["V"])
+            require(torch.equal(got, pg.kp.roll_dyn_torch(s_dev, pt["V"]))
+                    and torch.equal(got, torch.roll(pt["V"], shift, 1)),
+                    f"P6 at shift {shift}: differs from plain or torch.roll")
+        print("P6 at shifts 5, 0, 127, 128, 300, -3: bit-identical to plain and to torch.roll")
+        for label, secs, elems, nbytes in pg.baselines(pt, pa):
+            print(f"library rate, {label}: {secs * 1e6:.3f} us, {elems / secs / 1e9:.2f} "
+                  f"Gelem/s, {nbytes / secs / 1e9:.1f} GB/s {tag}")
+        del pt, pa
+
+    # (id, name, key of its launch count, source, the TPU kernel it replaces)
     meta = (
         ("K1", "gemv", "matvec_cuda", "blas.cu", "tpucg/kernels/matvec.py:108"),
         ("K2", "fused_update", "fused_update_cuda", "blas.cu", "tpucg/kernels/blas1.py:111"),
@@ -1385,15 +1436,20 @@ def main() -> int:
         # K14 is K13's kernel under tpucg's second name: K13's launches.
         ("K14", "well_spmv_fused_gather (K13's kernel)", "well_spmv_cuda", "gather.cu",
          "tpucg/kernels/gather_spmv.py:226"),
+    ) + tuple(
+        # The probes' launches: their own drives' counts, under their ids
+        # (P7 runs P1's kernel).
+        (p.pid, p.name + (" (P1's kernel)" if p.pid == "P7" else ""), p.pid, "probe.cu",
+         f"benchmarks/probe_gather.py:{p.line}") for p in pg.PROBES
     )
     kernels = [
         {"name": f"{kid} {kname}", "route": "cuda",
          "source": f"tpucg_torch/kernels/csrc/{src}", "replaces": replaces,
-         "launches": counts[wrapper], "max_abs_err": err[kid],
+         "launches": counts[count_key], "max_abs_err": err[kid],
          "ms": times[kid][0] * 1e3, "plain_ms": times[kid][1] * 1e3,
          "bound_ms": bounds[kid][0], "bound_by": bounds[kid][1],
          "library_ms": None if library.get(kid) is None else library[kid] * 1e3}
-        for kid, kname, wrapper, src, replaces in meta
+        for kid, kname, count_key, src, replaces in meta
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -759,3 +759,84 @@ def test_two_gloo_ranks_on_one_card(cuda_device, tmp_path):
         assert r["converged"] and abs(r["laps"] - int(want.iterations)) <= 1
         assert scaled_err(r["x"], want.x.cpu().numpy()) <= 1e-4
         assert r["transport_calls"] > 0
+
+
+# ---- the gather probes P1-P7 (benchmarks/probe_gather.py) -----------------------
+
+
+def _probes(dev):
+    from tpucg_torch.bench import probe_gather as drv
+
+    return {p.pid: p for p in drv.PROBES}, drv.device_inputs(drv.probe_inputs(0), dev)
+
+
+@pytest.mark.parametrize("pid", ["P1", "P2", "P3", "P4", "P5", "P6", "P7"])
+def test_probe_kernel_equals_plain(cuda_device, pid):
+    from tpucg_torch.kernels import probe_gather as kp
+
+    probes, t = _probes(cuda_device)
+    p = probes[pid]
+    kernel, plain = getattr(kp, p.kernel), p.plain
+    before = (kernel.launches, plain.launches)
+    got = p.run(*p.args(t))
+    torch.cuda.synchronize()
+    assert (kernel.launches, plain.launches) == (before[0] + 1, before[1])
+    assert torch.equal(got, p.plain(*p.args(t)))  # data moved, P5 summed in k order
+    assert torch.equal(got, p.run(*p.args(t)))
+
+
+@pytest.mark.parametrize("shift", [5, 0, 1, 127, 128, 300, -3])
+def test_roll_dyn_kernel_reads_its_shift_on_the_card(cuda_device, shift):
+    from tpucg_torch.kernels.probe_gather import roll_dyn_cuda, roll_dyn_torch
+
+    _, t = _probes(cuda_device)
+    s = torch.tensor([shift], dtype=torch.int32, device=cuda_device)
+    got = roll_dyn_cuda(s, t["V"])
+    assert torch.equal(got, roll_dyn_torch(s, t["V"]))
+    assert torch.equal(got, torch.roll(t["V"], shift, 1))
+
+
+def test_probe_kernels_off_the_script_shapes(cuda_device):
+    from tpucg_torch.kernels import probe_gather as kp
+
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    v = torch.randn(37, 128, generator=g, device=cuda_device)
+
+    def ints(hi, *shape):
+        return torch.randint(0, hi, shape, generator=g, device=cuda_device, dtype=torch.int32)
+
+    cases = [
+        (kp.lane_gather_cuda, kp.lane_gather_torch, (v, ints(128, 37, 128))),  # ragged block
+        (kp.sub_gather_cuda, kp.sub_gather_torch, (v, ints(37, 5, 128))),
+        (kp.row_gather_cuda, kp.row_gather_torch, (v, ints(37, 11))),
+        (kp.elem_gather_cuda, kp.elem_gather_torch, (v.reshape(-1), ints(37 * 128, 333))),
+        (kp.dynslice_cuda, kp.dynslice_torch, (ints(29, 1), v)),
+        (kp.dynslice_cuda, kp.dynslice_torch, (ints(29, 1024), v)),
+        (kp.roll_dyn_cuda, kp.roll_dyn_torch, (ints(1000, 1) - 500, v)),
+    ]
+    for kernel, plain, args in cases:
+        assert torch.equal(kernel(*args), plain(*args)), kernel.__name__
+
+
+def test_probe_wrappers_refuse_on_the_card(cuda_device):
+    from tpucg_torch.kernels import probe_gather as kp
+
+    v = torch.zeros(8, 128, device=cuda_device)
+    idx = torch.zeros(8, 128, dtype=torch.int32)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        kp.lane_gather_cuda(v, idx)  # idx on the CPU
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kp.row_gather_cuda(v.reshape(-1)[1:129].reshape(1, 128),
+                           torch.zeros(1, dtype=torch.int32, device=cuda_device))
+    with pytest.raises(ValueError, match="must be a contiguous"):
+        kp.roll_dyn_cuda(torch.zeros(1, dtype=torch.int64, device=cuda_device), v)
+
+
+def test_probe_driver_on_the_card(cuda_device, capsys):
+    from tpucg_torch.bench import probe_gather as drv
+
+    assert drv.main([]) == 0
+    out = capsys.readouterr().out
+    for p in drv.PROBES:
+        assert f"\n{p.pid} {p.name}" in out
+    assert out.count("library rate,") == 2 and "ABOVE PEAK" not in out

@@ -37,6 +37,7 @@ def test_import_pulls_in_no_jax_or_tpucg():
         "import tpucg_torch.solver.fused, tpucg_torch.kernels.gather_spmv\n"
         "import tpucg_torch.io.mmio, tpucg_torch.sparse.well, tpucg_torch.sparse.ordering\n"
         "import tpucg_torch.comm, tpucg_torch.solver.sharded\n"
+        "import tpucg_torch.kernels.probe_gather, tpucg_torch.bench.probe_gather\n"
         "new = sorted(set(sys.modules) - before)\n"
         "bad = [m for m in new if m.split('.')[0] in ('jax', 'jaxlib', 'tpucg', 'triton')]\n"
         "print(json.dumps(bad))\n"

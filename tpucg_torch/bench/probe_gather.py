@@ -1,0 +1,363 @@
+"""The gather probes P1-P7 on the card: the counterpart of ``main()`` in
+``benchmarks/probe_gather.py``, at the script's shapes and on its inputs.
+
+    python -m tpucg_torch.bench.probe_gather [--device cuda|cpu]
+
+For each probe it holds the kernel against its plain version (bit for bit)
+and prints one line: µs per launch (``bench.timing.device_timing``: calls
+queued behind a spin kernel), Gelem/s, GB/s of the least bytes it must
+move on these inputs (``Probe.least_bytes``: indices and output once, each
+distinct 32-byte sector it reads from its table once), the least time for
+those bytes at the HBM peak, the plain version's µs and the library
+call's. P7 is timed twice:
+rotating over ``COLD_SETS`` copies of its inputs (96 MB with the outputs,
+above the 50 MB L2), the rate held against the HBM peak, and on one set,
+which stays in L2 (its rate may pass the HBM peak). P4's kernel is also
+timed at K13's scale, on tpucg's FEM 300k system (``fem_scale_lines``).
+Then the script's two XLA baselines (:197-205) as library rates:
+``index_select`` of 2048 rows and ``torch.take`` of 2048 x 128 elements.
+
+Unlike the script, which printed FAIL for a probe Mosaic could not lower
+(:31-33) and ran P7 only after P1 passed (:172), any failure raises and the
+command exits non-zero: a CUDA kernel that fails is a bug. With ``--device
+cpu`` it runs the plain versions, holds them against NumPy indexing, prints
+each probe's least bytes and their time at an H100 SXM's HBM peak, and
+times nothing: there is no card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import functools
+import itertools
+import sys
+from typing import Callable, Dict, Optional, Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from tpucg_torch.bench.timing import (
+    device_seconds_per_call,
+    gather_bytes,
+    hbm_peak_bytes_per_s,
+    nvidia_smi_card,
+)
+from tpucg_torch.kernels import probe_gather as kp
+
+# The script's shapes: (R, 128) tiles, a (XR, 128) table, NW windows of
+# WINDOW rows, P7's (RB, 128) stream.
+R, XR, NW, RB = 256, 2048, 64, 8192
+LANE, WINDOW = kp.LANE, kp.WINDOW
+SHIFT = 5         # the script's roll shift
+BASE_ROWS = 2048  # rows of the script's two XLA baselines
+COLD_SETS = 8     # P7 input sets that rotate in its cold timing (12 MB each)
+
+
+def row_addresses(rows) -> np.ndarray:
+    """Flat addresses of every element of ``rows`` (any shape) of a 128-wide
+    table: what a gather of whole rows reads."""
+    return np.asarray(rows, np.int64)[..., None] * LANE + np.arange(LANE)
+
+
+def window_sum(w: np.ndarray, x2: np.ndarray) -> np.ndarray:
+    """P5 by NumPy: the windows ``x2[w[k]:w[k] + 8]`` added in k order from 0."""
+    acc = np.zeros((WINDOW, LANE), np.float32)
+    for k in w:
+        acc = acc + x2[k:k + WINDOW]
+    return acc
+
+
+@dataclasses.dataclass(frozen=True)
+class Probe:
+    """One probe. ``reference``, ``library`` and ``moved`` take the probe's
+    inputs in ``keys`` order: ``reference`` (NumPy arrays) is NumPy
+    indexing, the CPU run's yardstick; ``library`` (tensors) gives one
+    PyTorch call computing the same function as (function, args, kwargs),
+    the timed yardstick and never the port; ``moved`` (NumPy arrays) is the
+    least bytes the probe must move on these inputs (``gather_bytes``)."""
+
+    pid: str                     # "P1" ... "P7"
+    name: str                    # the script's function name
+    line: int                    # its pl.pallas_call in benchmarks/probe_gather.py
+    keys: tuple                  # the inputs it takes (probe_inputs' names), in order
+    run: Callable                # dispatcher: kernel on the card, plain on the CPU
+    plain: Callable              # plain PyTorch version
+    kernel: str                  # the wrapper that counts its kernel's launches
+    elems: int                   # elements it gathers (the script's count)
+    reference: Callable
+    library: Callable
+    moved: Callable
+
+    def args(self, t: Dict[str, object]) -> tuple:
+        return tuple(t[k] for k in self.keys)
+
+    def least_bytes(self, a: Dict[str, np.ndarray]) -> int:
+        return self.moved(*self.args(a))
+
+    def library_call(self, t: Dict[str, torch.Tensor]):
+        """(label, call): the library call on ``t``, its int64 indices made
+        beforehand where it needs them."""
+        fn, args, kw = self.library(*self.args(t))
+        label = f"{fn.__module__}.{fn.__name__}" + "".join(f"({k}={v!r})" for k, v in kw.items())
+        return label, functools.partial(fn, *args, **kw)
+
+
+def _lane_gather(pid: str, name: str, line: int, keys: tuple, rows: int) -> Probe:
+    """P1, and P7 over more rows: the same function and kernel."""
+    return Probe(
+        pid, name, line, keys, kp.lane_gather, kp.lane_gather_torch, "lane_gather_cuda",
+        rows * LANE,
+        reference=lambda v, i: np.take_along_axis(v, i, 1),
+        library=lambda v, i: (torch.gather, (v, 1, i.long()), {}),
+        moved=lambda v, i: gather_bytes(i.nbytes, 4 * i.size,
+                                        np.arange(len(i))[:, None] * LANE + i))
+
+
+PROBES = (
+    _lane_gather("P1", "lane_gather", 70, ("V", "LI"), R),
+    Probe("P2", "sub_gather", 83, ("V", "SI"), kp.sub_gather, kp.sub_gather_torch,
+          "sub_gather_cuda", R * LANE,
+          reference=lambda v, i: np.take_along_axis(v, i, 0),
+          library=lambda v, i: (torch.gather, (v, 0, i.long()), {}),
+          moved=lambda v, i: gather_bytes(i.nbytes, 4 * i.size, i * LANE + np.arange(LANE))),
+    Probe("P3", "row_gather", 101, ("x2", "ridx"), kp.row_gather, kp.row_gather_torch,
+          "row_gather_cuda", R * LANE,
+          reference=lambda x2, r: x2[r],
+          library=lambda x2, r: (torch.index_select, (x2, 0, r), {}),
+          moved=lambda x2, r: gather_bytes(r.nbytes, 4 * LANE * r.size, row_addresses(r))),
+    Probe("P4", "elem_gather", 117, ("xf", "eidx"), kp.elem_gather, kp.elem_gather_torch,
+          "elem_gather_cuda", R * LANE,
+          reference=lambda xf, e: xf[e],
+          library=lambda xf, e: (torch.take, (xf, e.long()), {}),
+          moved=lambda xf, e: gather_bytes(e.nbytes, 4 * e.size, e)),
+    # The library call sums bag r = rows w[k] + r over the windows k.
+    Probe("P5", "dynslice", 138, ("widx", "x2"), kp.dynslice, kp.dynslice_torch,
+          "dynslice_cuda", NW * WINDOW * LANE,
+          reference=window_sum,
+          library=lambda w, x2: (F.embedding_bag, (
+              torch.arange(WINDOW, device=w.device)[:, None] + w.long()[None, :], x2),
+              {"mode": "sum"}),
+          moved=lambda w, x2: gather_bytes(w.nbytes, 4 * WINDOW * LANE,
+                                           row_addresses(w[:, None] + np.arange(WINDOW)))),
+    Probe("P6", "roll_dyn", 157, ("shift", "V"), kp.roll_dyn, kp.roll_dyn_torch,
+          "roll_dyn_cuda", R * LANE,
+          reference=lambda s, x: np.roll(x, int(s[0]), 1),
+          library=lambda s, x: (torch.roll, (x, int(s[0]), 1), {}),
+          moved=lambda s, x: gather_bytes(s.nbytes, x.nbytes, np.arange(x.size))),
+    # The script's lg_big: P1's function streamed over (8192, 128) in
+    # 512-row blocks on the TPU. The blocks were tiling; here it is P1's
+    # kernel over all the rows.
+    _lane_gather("P7", "lg_big", 184, ("Vb", "LIb"), RB),
+)
+
+
+def probe_inputs(seed: int = 0) -> Dict[str, np.ndarray]:
+    """The script's inputs, drawn from one ``np.random.default_rng(seed)`` in
+    its order (V, LI :63-64; P2's indices :89; x2, ridx :94-95; xf, eidx
+    :110-111; widx :127; Vb, LIb :175-176; the baselines' indices :199,
+    :203), ``standard_normal`` cast to f32 and ``integers`` to int32, as
+    ``jnp.asarray`` cast them: at seed 0 the arrays of the TPU run."""
+    rng = np.random.default_rng(seed)
+
+    def normal(shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    def integers(hi, shape):
+        return rng.integers(0, hi, shape).astype(np.int32)
+
+    a = {}
+    a["V"], a["LI"] = normal((R, LANE)), integers(LANE, (R, LANE))
+    a["SI"] = integers(R, (R, LANE))
+    a["x2"], a["ridx"] = normal((XR, LANE)), integers(XR, (R,))
+    a["xf"], a["eidx"] = normal((XR * LANE,)), integers(XR * LANE, (R, LANE))
+    a["widx"] = integers(XR - WINDOW, (NW,))
+    a["Vb"], a["LIb"] = normal((RB, LANE)), integers(LANE, (RB, LANE))
+    a["base_ridx"] = integers(XR, (BASE_ROWS,))
+    a["base_eidx"] = integers(XR * LANE, (BASE_ROWS, LANE))
+    a["shift"] = np.asarray([SHIFT], np.int32)
+    return a
+
+
+def device_inputs(a: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
+    return {k: torch.as_tensor(v, device=device) for k, v in a.items()}
+
+
+def _rotating(calls: Sequence[Callable[[], torch.Tensor]]) -> Callable[[], None]:
+    """One call of the next of ``calls`` a call; each keeps its output until
+    its turn comes again, so the outputs do not share one buffer either."""
+    ring = itertools.cycle(range(len(calls)))
+    held = [None] * len(calls)
+
+    def call():
+        k = next(ring)
+        held[k] = calls[k]()
+    return call
+
+
+@dataclasses.dataclass
+class Measured:
+    """Device seconds per call of a probe's kernel, plain version and library
+    call (``library_label``); for P7 these rotate over cold input sets, and
+    ``l2`` is the kernel on one set (L2-resident)."""
+
+    kernel: float
+    plain: float
+    library: float
+    library_label: str
+    l2: Optional[float] = None
+
+
+def measure(p: Probe, t: Dict[str, torch.Tensor]) -> Measured:
+    """Time one probe on the card (``device_seconds_per_call``)."""
+    args = p.args(t)
+    label, lib = p.library_call(t)
+    if p.pid != "P7":
+        return Measured(*(device_seconds_per_call(f) for f in (
+            lambda: p.run(*args), lambda: p.plain(*args), lib)), label)
+    sets = [t] + [{k: t[k].clone() for k in p.keys} for _ in range(COLD_SETS - 1)]
+    cold = [_rotating([lambda s=s, f=f: f(*p.args(s)) for s in sets])
+            for f in (p.run, p.plain)]
+    lib = _rotating([p.library_call(s)[1] for s in sets])
+    m = Measured(*(device_seconds_per_call(f) for f in (*cold, lib)), label)
+    m.l2 = device_seconds_per_call(lambda: p.run(*args))
+    return m
+
+
+def baselines(t: Dict[str, torch.Tensor], a: Dict[str, np.ndarray]) -> list:
+    """The script's XLA baselines as library calls: (label, seconds, elements,
+    least bytes moved, ``gather_bytes`` on the inputs ``a`` that ``t``
+    holds)."""
+    ridx, eidx64 = t["base_ridx"], t["base_eidx"].long()
+    out = 4 * BASE_ROWS * LANE
+    return [
+        ("torch.index_select of 2048 rows of x2 (2048, 128)",
+         device_seconds_per_call(lambda: torch.index_select(t["x2"], 0, ridx)),
+         BASE_ROWS * LANE,
+         gather_bytes(a["base_ridx"].nbytes, out, row_addresses(a["base_ridx"]))),
+        ("torch.take of 2048 x 128 elements of xf (262144,)",
+         device_seconds_per_call(lambda: torch.take(t["xf"], eidx64)),
+         BASE_ROWS * LANE, gather_bytes(a["base_eidx"].nbytes, out, a["base_eidx"])),
+    ]
+
+
+FEM_POINTS = 300_000  # tpucg's FEM P1 system: fem_p1_system(300_000, seed=0)
+FEM_SETS = 3          # index sets that rotate (43 MB each with the output at 300k)
+
+
+def fem_scale(dev, n: int, cols: np.ndarray):
+    """P4's kernel at K13's scale: reads of an n-element x (1.2 MB at FEM
+    300k, which stays in L2) at ``cols``, rotating over FEM_SETS copies of
+    them so the indices stream from device memory as K13's do. Returns
+    (kernel s, torch.take s, bytes it must move)."""
+    x = torch.randn(n, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    first = torch.as_tensor(np.asarray(cols, np.int32), device=dev)
+    idx = [first] + [first.clone() for _ in range(FEM_SETS - 1)]
+    check_equal("P4 at FEM scale against plain", kp.elem_gather(x, first),
+                kp.elem_gather_torch(x, first))
+    idx64 = [i.long() for i in idx]
+    tk = device_seconds_per_call(_rotating([lambda i=i: kp.elem_gather(x, i) for i in idx]))
+    tl = device_seconds_per_call(_rotating([lambda i=i: torch.take(x, i) for i in idx64]))
+    m = first.numel()
+    return tk, tl, gather_bytes(4 * m, 4 * m, first)
+
+
+def fem_scale_lines(dev, peak: float) -> list:
+    """P4 at FEM 300k: x read at the matrix's own column indices (CSR order:
+    the x reads of one CSR product, with the mesh's locality), and at as
+    many uniformly random ones (no locality)."""
+    from tpucg_torch.io.generator import fem_p1_system
+
+    A = fem_p1_system(FEM_POINTS, seed=0)[0]
+    n, nnz = A.shape[0], A.nnz
+    rand = np.random.default_rng(0).integers(0, n, nnz)
+    lines = []
+    for label, cols in (("its CSR column indices", A.indices), ("as many random indices", rand)):
+        tk, tl, nbytes = fem_scale(dev, n, cols)
+        lines.append(
+            f"P4 at FEM 300k, {nnz} reads of x ({n},) at {label}, rotating over {FEM_SETS} "
+            f"index sets: {tk * 1e6:.3f} us, {nnz / tk / 1e9:.2f} Gelem/s, "
+            f"{nbytes / tk / 1e9:.1f} GB/s ({100 * nbytes / tk / peak:.1f}% of HBM peak); "
+            f"bound {nbytes / peak * 1e6:.3f} us ({nbytes} bytes); torch.take(x, idx64) "
+            f"{tl * 1e6:.3f} us")
+    return lines
+
+
+def check_equal(what: str, got: torch.Tensor, want) -> None:
+    """Raise unless ``got`` equals ``want`` bit for bit."""
+    want = torch.as_tensor(want, device=got.device)
+    if got.shape != want.shape or not torch.equal(got, want):
+        diff = float((got - want).abs().max()) if got.shape == want.shape else float("nan")
+        raise RuntimeError(f"{what}: differs (shape {tuple(got.shape)} vs {tuple(want.shape)}, "
+                           f"max abs diff {diff})")
+
+
+def probe_line(p: Probe, m: Measured, nbytes: int, peak: float) -> str:
+    """The probe's line: its times against ``nbytes``, the least bytes it
+    must move, at the HBM ``peak``."""
+    bound = nbytes / peak
+    cold = f" cold, rotating over {COLD_SETS} input sets" if m.l2 is not None else ""
+    line = (f"{p.pid} {p.name}{cold}: {m.kernel * 1e6:.3f} us, {p.elems / m.kernel / 1e9:.2f} "
+            f"Gelem/s, {nbytes / m.kernel / 1e9:.1f} GB/s ({100 * nbytes / m.kernel / peak:.1f}% "
+            f"of HBM peak); bound {bound * 1e6:.3f} us ({nbytes} bytes); plain "
+            f"{m.plain * 1e6:.3f} us; {m.library_label} {m.library * 1e6:.3f} us")
+    if nbytes / m.kernel > peak:
+        line += "  ABOVE PEAK: timing fault"
+    if m.l2 is not None:
+        line += (f"\n{p.pid} {p.name} on one set (L2-resident rate): {m.l2 * 1e6:.3f} us, "
+                 f"{nbytes / m.l2 / 1e9:.1f} GB/s")
+    return line
+
+
+def run_cpu() -> None:
+    a = probe_inputs(0)
+    t = device_inputs(a, "cpu")
+    peak = hbm_peak_bytes_per_s("H100 SXM")
+    for p in PROBES:
+        check_equal(f"{p.pid} {p.name} (plain, cpu)", p.run(*p.args(t)), p.reference(*p.args(a)))
+        nbytes = p.least_bytes(a)
+        print(f"{p.pid} {p.name}: plain version equals NumPy indexing bit for bit on the CPU; "
+              f"least bytes {nbytes}, bound {nbytes / peak * 1e6:.3f} us at the H100 SXM's "
+              f"{peak / 1e12:.2f} TB/s")
+    print("no time is taken off the card: the probes' times come from --device cuda")
+
+
+def run_cuda() -> None:
+    if not torch.cuda.is_available():
+        raise RuntimeError("probe_gather measures on the card, and there is no CUDA device")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    card = nvidia_smi_card()
+    peak = hbm_peak_bytes_per_s()
+    print(f"device: {torch.cuda.get_device_name(dev)} [{card}], HBM peak on record "
+          f"{peak / 1e12:.2f} TB/s; inputs probe_inputs(0)")
+    a = probe_inputs(0)
+    t = device_inputs(a, dev)
+    for p in PROBES:
+        args = p.args(t)
+        got = p.run(*args)
+        check_equal(f"{p.pid} {p.name} against plain", got, p.plain(*args))
+        check_equal(f"{p.pid} {p.name} repeat", got, p.run(*args))
+        print(probe_line(p, measure(p, t), p.least_bytes(a), peak), flush=True)
+    for line in fem_scale_lines(dev, peak):
+        print(line, flush=True)
+    for label, s, elems, nbytes in baselines(t, a):
+        print(f"library rate, {label}: {s * 1e6:.3f} us, {elems / s / 1e9:.2f} Gelem/s, "
+              f"{nbytes / s / 1e9:.1f} GB/s")
+    print(card)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    ap = argparse.ArgumentParser(prog="python -m tpucg_torch.bench.probe_gather",
+                                 description=__doc__.split("\n\n")[0])
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    args = ap.parse_args(argv)
+    if args.device == "cpu":
+        run_cpu()
+    else:
+        run_cuda()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

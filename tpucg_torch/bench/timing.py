@@ -224,6 +224,18 @@ def csr_spmv_bytes(nnz: int, n: int, itemsize: int = 4, index_size: int = 4) -> 
     return nnz * (itemsize + index_size) + index_size * (n + 1) + 8 * n
 
 
+SECTOR = 32  # bytes: the least one read from device memory moves
+
+
+def gather_bytes(index_bytes: int, out_bytes: int, addresses, itemsize: int = 4) -> int:
+    """Least bytes a gather must move: its indices and its output once, and
+    each distinct 32-byte sector of the table that holds an element it reads,
+    once (a sector read again comes from L2). ``addresses`` are the flat
+    indices of the table elements read, of any shape, on any device."""
+    flat = torch.as_tensor(addresses).reshape(-1).long()
+    return index_bytes + out_bytes + SECTOR * torch.unique(flat * itemsize // SECTOR).numel()
+
+
 def poisson_nnz(m: int) -> int:
     """Nonzeros of the 7-point Dirichlet Laplacian on an m^3 grid."""
     return 7 * m ** 3 - 6 * m * m

@@ -13,9 +13,11 @@ r'.r' in one pass) and K3 ``dot_cuda``. The whole solve: K4
 ``fused_batch_cg_solve_cuda`` (B dense systems, one launch), K10
 ``fused_stencil_cg_solve_cuda`` (Poisson stencil) and K11
 ``fused_dia_cg_solve_cuda`` (DIA), both cooperative, and K12
-``fused_batch_dia_cg_solve_cuda`` (B banded systems, one launch). The kernel library
-is built by ``nvcc`` at first use (``_lib``); importing this package builds
-nothing.
+``fused_batch_dia_cg_solve_cuda`` (B banded systems, one launch). The gather
+probes P1-P7 of ``benchmarks/probe_gather.py`` (no solve runs them) live in
+``tpucg_torch.kernels.probe_gather`` and are imported from there. The
+kernel library is built by ``nvcc`` at first use (``_lib``); importing this
+package builds nothing.
 """
 
 from tpucg_torch.kernels.blas1 import (

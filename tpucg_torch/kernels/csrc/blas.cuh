@@ -4,7 +4,8 @@
 // lives in blas.cu, the structured-sparse lap matvecs (K6 DIA SpMV, K8
 // 7-point stencil, and their row-block forms with halos K7 and K9) in
 // sparse.cu, the irregular one (K13 WELL SpMV) in
-// gather.cu, and the whole solves (K4, K5, K10, K11, K12) in fused.cu.
+// gather.cu, the whole solves (K4, K5, K10, K11, K12) in fused.cu, and the
+// gather probes P1-P7 (no solve runs them) in probe.cu.
 //
 // Every entry point takes the launch stream. The lap's kernels also take an
 // optional `active` device flag (const int*, may be null). When the flag
@@ -190,6 +191,26 @@ cudaError_t tpucg_well_spmv_f32(const void* vals, const void* lidx, const void* 
 cudaError_t tpucg_well_spmv_bf16(const void* vals, const void* lidx, const void* wrow,
                                  const void* gptr, const void* gsub, const void* x, void* y,
                                  long long ngroups, const void* active, void* stream);
+
+// P1-P7, the gather probes of benchmarks/probe_gather.py (probe.cu): f32
+// rows of 128, int32 indices, none of them checked. P1 (and P7):
+// o[i, j] = v[i, idx[i, j]], all (rows, 128). P2: o[i, j] = v[idx[i, j], j],
+// idx and o (rows, 128). P3: o[i, :] = x2[ridx[i], :], ridx (nrows,), x2
+// and o 16-byte aligned. P4: o[i] = xf[eidx[i]], i < n. P5: o (8, 128) =
+// sum over k < nw of x2[w[k] + r, l], in k order, 1 <= nw <= 1024. P6:
+// o[i, j] = x[i, (j - *shift) mod 128], shift one int32 in device memory.
+cudaError_t tpucg_probe_lane_gather_f32(const void* v, const void* idx, void* o, long long rows,
+                                        void* stream);
+cudaError_t tpucg_probe_sub_gather_f32(const void* v, const void* idx, void* o, long long rows,
+                                       void* stream);
+cudaError_t tpucg_probe_row_gather_f32(const void* x2, const void* ridx, void* o,
+                                       long long nrows, void* stream);
+cudaError_t tpucg_probe_elem_gather_f32(const void* xf, const void* eidx, void* o, long long n,
+                                        void* stream);
+cudaError_t tpucg_probe_dynslice_f32(const void* w, const void* x2, void* o, int nw,
+                                     void* stream);
+cudaError_t tpucg_probe_roll_dyn_f32(const void* shift, const void* x, void* o, long long rows,
+                                     void* stream);
 
 // cudaGetErrorString, for the wrappers' error messages.
 const char* tpucg_error_string(int err);
