@@ -55,19 +55,24 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
 11. whole-solve K10/K11 vs plain at m = 16, 32, 64 with a nonzero x0: laps
    within one, x within 1e-4 of max |x|, repeats bit-identical.
 12. irregular K13 vs plain: tpucg's WELL packing of the P1 FEM stiffness
-   matrix (``fem_p1_system(300_000, seed=0)``, mesh order) and the random
+   matrix (``fem_p1_system(300_000, seed=0)``, mesh order), the random
    geometric graph Laplacian (``random_geometric_spd(1_000_000, seed=0,
-   avg_degree=12.0)``), values f32 and bf16: K13 bit-identical to its plain
-   version and to its repeat (else within 1e-6 of sum |a_ij x_j|), the K14
-   name the same; µs per launch (``device_timing``) against the bound and
-   the torch CSR product, Gnnz/s, the group imbalance.
+   avg_degree=12.0)``) and an SPD arrowhead of n = 5000 (its first row longer
+   than a tile), values f32 and bf16: the operator's layout (live slots,
+   tiles, slots a tile, the longest row, its set-up seconds); K13
+   bit-identical to its plain version, to its repeat, to itself with the
+   layout built by the wrapper and through the operator's launch core, the
+   K14 name the same; µs per launch of the launch core (``device_timing``)
+   against the recounted bound (the function's bytes) and the torch CSR
+   product timed in the same call; for FEM and geometric f32, µs by tile.
 13. FEM .mtx solve: the FEM system written to .mtx and solved through
    ``cli.main(["solve", A.mtx, b.mtx, "--precondition", "jacobi", ...])``
    at tol 1e-5 ||b||: ``best_sparse_operator`` picks ``WellOperator``, K13,
-   K2 and K3 run and no plain version; it converges, its float64 ||b - A
-   x|| / ||b|| is within the bound PERF.md states, its laps within 1% of the
-   plain route's on the card; the median of 3 solves and the load,
-   promotion and packing seconds.
+   K2 and K3 run and no plain version; it converges in 1,720 laps, its
+   float64 ||b - A x|| / ||b|| is within the bound PERF.md states, its laps
+   within 1% of the plain route's on the card; the median of 3 solves, the
+   busy share of a profiled 200-lap window and the load, promotion and
+   packing seconds.
 14. batched banded K12: tpucg's battery of 256 tridiagonal systems of n =
    1024 through ``cg_solve_batch_banded``, none and jacobi, f32 and bf16
    slabs, one K12 launch each; K12 against its plain version (laps within
@@ -167,6 +172,7 @@ def main() -> int:
 
     from _torch_helpers import (
         BAND_SETS,
+        arrowhead_spd,
         banded_battery,
         banded_spectrum_battery,
         card_world_worker,
@@ -219,6 +225,7 @@ def main() -> int:
         fused_stencil_cg_solve_cuda,
     )
     from tpucg_torch.kernels.gather_spmv import (
+        well_rows,
         well_spmv_cuda,
         well_spmv_fused_gather,
         well_spmv_torch,
@@ -935,6 +942,7 @@ def main() -> int:
     # the first run): FEM's b ~ 1/n makes A x cancel, so the float64
     # ||b - A x|| / ||b|| of an f32 x sits near eps32 |A| |x| / |b|.
     fem_residual_bound = 0.25
+    fem_laps = 1720  # the kernel route's laps on the card since the FEM path came (PERF.md)
 
     def torch_csr_of(csr):
         """A host CSR as a torch CSR tensor on the card: the library call
@@ -953,61 +961,97 @@ def main() -> int:
         geo_s = time.perf_counter() - t0
         print(f"built FEM n={A_fem.shape[0]} nnz={A_fem.nnz} in {fem_s:.2f} s, geometric "
               f"n={A_geo.shape[0]} nnz={A_geo.nnz} in {geo_s:.2f} s (host)")
-        counts["well_spmv_cuda"] = 0
         err["K13"] = err["K14"] = 0.0
-        for label, A in (("FEM 300k", A_fem), ("geometric 1M", A_geo)):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        # The arrowhead's first row (5000 entries) is longer than a tile.
+        for label, A in (("FEM 300k", A_fem), ("geometric 1M", A_geo),
+                         ("arrowhead 5000", arrowhead_spd(5000, seed=0))):
+            torch.cuda.synchronize()
             t0 = time.perf_counter()
             op32 = WellOperator.from_csr(A, device=dev)
+            torch.cuda.synchronize()
             pack_s = time.perf_counter() - t0
-            ns, npad = op32.vals.shape[0], op32.padded_n
-            g = torch.diff(op32.gptr.long())[: op32.n_groups].double()
+            layout = (op32.vals, op32.lidx, op32.gidl, op32.wrow, op32.sgb, op32.bg, op32.nsg)
+            t0 = time.perf_counter()
+            well_rows(*layout)
+            torch.cuda.synchronize()
+            rows_s = time.perf_counter() - t0
+            ns, npad, rows = op32.vals.shape[0], op32.padded_n, op32.rows
+            live = rows.cols.numel()
+            ptr = rows.rowptr.long()
+            per_tile = torch.diff(ptr[rows.tptr.long()])
+            # How far a tile's columns spread: a 16-bit column form (a base
+            # a tile) holds only tiles that span at most 65,535 columns.
+            tile_of = torch.repeat_interleave(torch.arange(per_tile.numel(), device=dev),
+                                              per_tile)
+            cols = rows.cols.long()
+            span = (torch.zeros_like(per_tile).scatter_reduce(0, tile_of, cols, "amax")
+                    - torch.zeros_like(per_tile).scatter_reduce(0, tile_of, cols, "amin",
+                                                                include_self=False))
+            per_tile = per_tile.double()
             print(f"{label}: NS={ns} sublanes, BS={op32.gidl.shape[1]}, nsg={op32.nsg}, fill "
-                  f"{A.nnz / (ns * 128):.4f}, groups {op32.n_groups}, sublanes a group max "
-                  f"{int(g.max())} mean {float(g.mean()):.2f} (imbalance "
-                  f"{float(g.max() / g.mean()):.2f}); pack + place {pack_s:.2f} s")
+                  f"{live / (ns * 128):.4f}; layout: {live} live slots, {per_tile.numel()} tiles "
+                  f"of at most {rows.tile}, slots a tile max {int(per_tile.max())} mean "
+                  f"{float(per_tile.mean()):.2f}, longest row {int(torch.diff(ptr).max())}, "
+                  f"widest column span of a tile {int(span.max())} ({int((span > 65535).sum())} "
+                  f"tiles above 65,535); pack + place (the layout included) {pack_s:.2f} s, the "
+                  f"layout alone {rows_s:.3f} s")
             csr_t = torch_csr_of(A)
             x2 = rnd(op32.n_groups, 128)
             xv = x2.reshape(-1)[: A.shape[0]].contiguous()
+            tl = device_seconds_per_call(lambda: csr_t @ xv)
+            ycore = torch.empty(npad, device=dev)
             for dt, dname in ((f32, "f32"), (bf16, "bf16")):
                 op = op32 if dt == f32 else dataclasses.replace(op32, vals=op32.vals.to(bf16))
                 args = (op.vals, op.lidx, op.gidl, op.wrow, op.sgb, x2, op.bg, op.nsg)
-                index = (op.gptr, op.gsub)
-
-                def fk():
-                    return well_spmv_cuda(*args, index=index)
-
-                y, yp = fk(), well_spmv_torch(*args)
-                scale = well_spmv_torch(op.vals.abs(), *args[1:5], x2.abs(), op.bg, op.nsg)
+                index = op.rows
+                what = f"K13 {label} {dname}"
+                y = well_spmv_cuda(*args, index=index)
+                yp = well_spmv_torch(*args, index=index)
                 e = float((y - yp).abs().max())
-                rel = float(((y - yp).abs() / scale.clamp_min(1e-30)).max())
-                same = torch.equal(y, yp)
-                require(same or rel <= 1e-6, f"K13 {label} {dname}: err {e}, {rel} of sum|a x|")
-                require(torch.equal(y, fk()), f"K13 {label} {dname}: repeat differs")
-                yk14 = well_spmv_fused_gather(*args, index=index)
-                require(torch.equal(yk14, y), f"K14 {label} {dname}: differs from K13")
+                require(torch.equal(y, yp), f"{what}: max abs err {e} against plain")
+                require(torch.equal(y, well_spmv_cuda(*args, index=index)), f"{what}: repeat")
+                require(torch.equal(y, well_spmv_cuda(*args)), f"{what}: differs when the "
+                        "wrapper builds the layout itself")
+                require(torch.equal(well_spmv_fused_gather(*args, index=index), y),
+                        f"K14 {label} {dname}: differs from K13")
+                # The main path's call: the operator's launch core, rows [0, npad).
+                core = op.launcher()
+                core(x2.reshape(-1), ycore, None, stream)
+                require(torch.equal(ycore, y.reshape(-1)[:npad]), f"{what}: launch core differs")
                 err["K13"] = max(err["K13"], e)
                 err["K14"] = max(err["K14"], e)
-                tk = device_seconds_per_call(fk)
-                tp = time_fn(lambda: well_spmv_torch(*args), warmup=1, iters=5).median
-                tl = device_seconds_per_call(lambda: csr_t @ xv) if dt == f32 else None
-                nbytes = well_spmv_bytes(ns, op.vals.element_size(), npad)
-                b_ms = bound_of(nbytes, 2 * ns * 128)
-                print(f"K13 {label} {dname}: {'bit-identical to plain' if same else 'within '}"
-                      f"{'' if same else f'{rel:.2e} of sum |a x|'} and to its repeat, K14 "
-                      f"the same; device {tk * 1e6:.2f} us per launch, "
-                      f"{rate_line(nbytes, tk, peak, A.nnz)}, {100 * b_ms[0] / 1e3 / tk:.1f}% of "
-                      f"its {b_ms[0] * 1e3:.2f} us bound; plain {tp * 1e3:.3f} ms (host-timed, "
-                      f"one read back a call)" + (
-                          f"; torch CSR product {tl * 1e6:.2f} us, "
-                          f"{rate_line(csr_spmv_bytes(A.nnz, A.shape[0], 4, 8), tl, peak, A.nnz)}"
-                          if tl is not None else "") + f" {tag}")
+                tk = device_seconds_per_call(lambda: core(x2.reshape(-1), ycore, None, stream))
+                tp = time_fn(lambda: well_spmv_torch(*args, index=index), warmup=1,
+                             iters=5).median
+                nbytes = well_spmv_bytes(live, op.vals.element_size(), npad)
+                b_ms = bound_of(nbytes, 2 * live)
+                print(f"{what}: bit-identical to plain (tol 0) and to its repeat, K14 the same; "
+                      f"device {tk * 1e6:.2f} us per launch, {rate_line(nbytes, tk, peak, live)}, "
+                      f"{100 * b_ms[0] / 1e3 / tk:.1f}% of its {b_ms[0] * 1e3:.2f} us bound "
+                      f"({nbytes} bytes); plain {tp * 1e3:.3f} ms (host-timed, one read back a "
+                      f"call); torch CSR product (f32) {tl * 1e6:.2f} us, "
+                      f"{rate_line(csr_spmv_bytes(A.nnz, A.shape[0], 4, 8), tl, peak, A.nnz)}; "
+                      f"K13 / CSR {tk / tl:.3f} {tag}")
                 if (label, dname) == ("FEM 300k", "f32"):
                     times["K13"], library["K13"], bounds["K13"] = (tk, tp), tl, b_ms
                     tk14 = device_seconds_per_call(
                         lambda: well_spmv_fused_gather(*args, index=index))
                     times["K14"], library["K14"], bounds["K14"] = (tk14, tp), tl, b_ms
                     print(f"K14 (K13's kernel under tpucg's second name) {label} f32: device "
-                          f"{tk14 * 1e6:.2f} us per launch {tag}")
+                          f"{tk14 * 1e6:.2f} us per launch (the checked wrapper) {tag}")
+                if dt == f32 and label != "arrowhead 5000":
+                    cells = []
+                    for tile in (512, 1024, 2048, 4096, 8192):
+                        rt = well_rows(*layout, tile=tile)
+
+                        def by_tile():
+                            return well_spmv_cuda(*args, index=rt)
+
+                        require(torch.equal(by_tile(), y), f"{what}: tile {tile} differs")
+                        cells.append(f"{tile}: {device_seconds_per_call(by_tile) * 1e6:.2f}")
+                    print(f"{what} by tile (slots at most; checked wrapper, all rows), us per "
+                          f"launch: " + ", ".join(cells) + f" {tag}")
             del op32, op, csr_t
         del A_geo
 
@@ -1031,12 +1075,15 @@ def main() -> int:
             require(rc == 0 and "converged            : True" in text,
                     f"FEM .mtx solve: rc {rc}, not converged")
             require(fmt == "WellOperator", f"FEM .mtx solve promoted to {fmt}")
+            # K13 is bit-equal to the kernel before its redesign, and the
+            # dots are unchanged: the lap count the card gave before it.
+            require(laps == fem_laps, f"FEM .mtx solve: {laps} laps, not {fem_laps}")
             require(all(launched[k] > 0 for k in ("well_spmv_cuda", "dot_cuda",
                                                   "fused_update_cuda"))
                     and all(launched[w.__name__] == 0 for w in wrappers + whole
                             if w.__name__.endswith("_torch")),
                     f"FEM .mtx solve: launches {launched}")
-            counts["well_spmv_cuda"] += launched["well_spmv_cuda"]
+            counts["well_spmv_cuda"] = launched["well_spmv_cuda"]
             x = load_vector(px, n=A_fem.shape[0]).astype(np.float64)
             t0 = time.perf_counter()
             csr = load_matrix_market(pa).to_csr()

@@ -186,6 +186,22 @@ def banded_spectrum_battery(nsys: int, n: int, seed: int = 0):
     return data, (-1, 0, 1), b, laps
 
 
+def arrowhead_spd(n: int, seed: int = 0):
+    """An SPD arrowhead CSR: a full first row and column (c ~ U(-1, 1)), a
+    diagonal d ~ 2 + U(0, 1), A[0, 0] = sum c^2 / d + 1, float32. Its first
+    row holds n entries: K13's long-row case."""
+    from tpucg_torch.sparse.formats import COOMatrix
+
+    rng = np.random.default_rng(seed)
+    c = rng.uniform(-1.0, 1.0, n - 1)
+    d = 2.0 + rng.random(n - 1)
+    i = np.arange(1, n)
+    row = np.r_[np.zeros(n, np.int64), i, i]
+    col = np.r_[np.arange(n), np.zeros(n - 1, np.int64), i]
+    data = np.r_[float(np.sum(c * c / d)) + 1.0, c, c, d].astype(np.float32)
+    return COOMatrix(row=row, col=col, data=data, shape=(n, n)).to_csr()
+
+
 def scaled_err(x, want) -> float:
     """max |x - want| / max |want| per system (the last axis), the largest
     over the systems: an error measured against the size of the solution."""

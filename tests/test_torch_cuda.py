@@ -12,6 +12,7 @@ import torch
 
 from _torch_helpers import (  # noqa: F401  (fixture)
     BAND_SETS,
+    arrowhead_spd,
     banded_battery,
     banded_spectrum_battery,
     circulant_spd_batch,
@@ -39,6 +40,7 @@ from tpucg_torch.kernels.fused import (
     fused_stencil_cg_solve_cuda,
 )
 from tpucg_torch.kernels.gather_spmv import (
+    well_rows,
     well_spmv_cuda,
     well_spmv_fused_gather,
     well_spmv_launch,
@@ -489,6 +491,8 @@ def test_cg_solve_sparse_routes_on_card(cuda_device, kind):
 
 
 def _well(kind):
+    if kind == "arrowhead":
+        return arrowhead_spd(5000, seed=0)
     if kind == "fem":
         return fem_p1_system(20_000, seed=0)[0]
     if kind == "geometric_shuffled":
@@ -496,19 +500,24 @@ def _well(kind):
     return random_geometric_spd(30_000, seed=0, avg_degree=12.0)[0]
 
 
-@pytest.mark.parametrize("kind", ["fem", "geometric", "geometric_shuffled"])
+@pytest.mark.parametrize("kind", ["fem", "geometric", "geometric_shuffled", "arrowhead"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_well_spmv_kernel_equals_plain(cuda_device, kind, dtype):
-    # The same products and sums in the same order (each group's sublanes
-    # ascending), each rounded on its own: bit for bit.
+    # The same products and sums in the same order (each row's live slots
+    # in ascending sublane), each rounded on its own: bit for bit; the
+    # arrowhead's first row is longer than a tile.
     op = WellOperator.from_csr(_well(kind), storage_dtype=dtype, device=cuda_device)
     x2 = _rand(cuda_device, op.n_groups, 128, seed=2)
     args = (op.vals, op.lidx, op.gidl, op.wrow, op.sgb, x2, op.bg, op.nsg)
     y = well_spmv_cuda(*args)
     assert torch.equal(y, well_spmv_torch(*args))
-    assert torch.equal(y, well_spmv_cuda(*args, index=(op.gptr, op.gsub)))
+    assert torch.equal(y, well_spmv_cuda(*args, index=op.rows))
+    assert torch.equal(y, well_spmv_cuda(*args, index=op.rows))  # repeat
     assert torch.equal(y, well_spmv_fused_gather(*args))
     assert torch.equal(op.matvec(x2.reshape(-1)), y.reshape(-1)[: op.padded_n])
+    for tile in (2, 64, 4096):  # other tilings, the same sums
+        rows = well_rows(op.vals, op.lidx, op.gidl, op.wrow, op.sgb, op.bg, op.nsg, tile=tile)
+        assert torch.equal(y, well_spmv_cuda(*args, index=rows))
 
 
 def test_well_spmv_counts_and_flag(cuda_device):
@@ -521,9 +530,25 @@ def test_well_spmv_counts_and_flag(cuda_device):
     assert (well_spmv_cuda.launches - before[0], well_spmv_torch.launches - before[1]) == (2, 0)
     y = torch.full_like(x, 7.0)
     off = torch.zeros((), dtype=torch.int32, device=cuda_device)
-    well_spmv_launch(op.vals, op.lidx, op.wrow, op.gptr, op.gsub, x, y, op.n_groups,
-                     off.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    stream = torch.cuda.current_stream().cuda_stream
+    well_spmv_launch(op.rows, x, y, op.padded_n, off.data_ptr(), stream)
     assert bool((y == 7.0).all())
+    # The operator's launch core writes rows [0, padded_n) and no further.
+    big = torch.full((op.nsg * op.bg * 128 + 5,), 7.0, device=cuda_device)
+    op.launcher()(x, big, torch.ones_like(off).data_ptr(), stream)
+    assert torch.equal(big[: op.padded_n], op.matvec(x)) and bool((big[op.padded_n:] == 7.0).all())
+
+
+def test_well_spmv_nan_reaches_only_the_rows_that_read_it(cuda_device):
+    A = _well("geometric")
+    op = WellOperator.from_csr(A, device=cuda_device)
+    x = _rand(cuda_device, op.padded_n, seed=3)
+    x[0] = float("nan")
+    y = op.matvec(x)[: A.shape[0]].cpu().numpy()
+    coo = A.to_coo()
+    readers = np.zeros(A.shape[0], bool)
+    readers[coo.row[(coo.col == 0) & (coo.data != 0)]] = True
+    assert readers.any() and np.array_equal(np.isnan(y), readers)
 
 
 @pytest.mark.parametrize("pc", ["none", "jacobi"])

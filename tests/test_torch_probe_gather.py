@@ -358,6 +358,21 @@ def test_driver_main_on_the_cpu(capsys):
     assert "no time is taken off the card" in out[-1]
 
 
+def test_well_slot_columns_read_every_stored_column_once():
+    # The WELL-order line of the FEM-scale timing reads x once per stored
+    # nonzero (the identity tail included), as the CSR-order line does,
+    # only in slot order.
+    from tpucg_torch.io.generator import fem_p1_system
+
+    A = fem_p1_system(1500, seed=0)[0]
+    cols, npad = drv.well_slot_columns(A)
+    n = A.shape[0]
+    assert npad == -(-n // 128) * 128
+    want = np.r_[A.indices[A.data != 0], np.arange(n, npad)]
+    np.testing.assert_array_equal(np.sort(cols), np.sort(want))
+    assert not np.array_equal(cols, np.sort(cols))  # slot order, not column order
+
+
 def test_driver_on_the_card_needs_one(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

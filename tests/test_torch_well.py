@@ -1,9 +1,11 @@
 """tpucg_torch's WELL path against tpucg on the CPU: ``csr_to_well``'s
-arrays (array-equal), K13's plain version against tpucg's ``well_spmv_xla``
-(bit for bit: both sum each group's sublanes in ascending order) and its
-Pallas ``well_spmv`` in interpret mode (within 1e-6 of sum |a_ij x_j|), the
-K14 name, ``WellOperator`` (diagonal, padding, carried across from tpucg)
-and CG solves on it. K13 itself runs only on the card
+arrays (array-equal), K13's plain version over its ``WellRows`` layout
+against tpucg's ``well_spmv_xla`` (bit for bit on finite x: both sum each
+row in ascending sublane order, and the layout's dropped zero slots add +-0
+to a sum that is never -0) and its Pallas ``well_spmv`` in interpret mode
+(within 1e-6 of sum |a_ij x_j|), the layout itself, the K14 name,
+``WellOperator`` (diagonal, padding, carried across from tpucg) and CG
+solves on it. K13 itself runs only on the card
 (``tests/test_torch_cuda.py``)."""
 
 import jax.numpy as jnp
@@ -14,7 +16,7 @@ import torch
 
 import tpucg
 import tpucg.sparse.well as jwell
-from _torch_helpers import rel_err, scaled_err
+from _torch_helpers import arrowhead_spd, rel_err, scaled_err
 from tpucg.kernels.gather_spmv import well_spmv as j_well_spmv
 from tpucg.kernels.gather_spmv import well_spmv_fused_gather as j_well_spmv_fused_gather
 from tpucg.kernels.gather_spmv import well_spmv_xla
@@ -22,7 +24,8 @@ from tpucg.solver.operators import WellOperator as JWellOperator
 from tpucg_torch.interop import well_operator_from_numpy
 from tpucg_torch.io.generator import fem_p1_system, random_geometric_spd
 from tpucg_torch.kernels.gather_spmv import (
-    group_index,
+    TILE,
+    well_rows,
     well_spmv,
     well_spmv_fused_gather,
     well_spmv_torch,
@@ -125,16 +128,27 @@ def test_auto_block_sublanes_is_tpucgs():
         assert _auto_block_sublanes(total, nsg) == jwell._auto_block_sublanes(total, nsg)
 
 
+def _bf16(targs, jargs):
+    """The arrays with their values rounded to bf16, in both packages."""
+    v16 = targs[0].to(torch.bfloat16)
+    jv16 = jnp.asarray(np.asarray(v16.float()).astype(ml_dtypes.bfloat16))
+    return (v16, *targs[1:]), (jv16, *jargs[1:])
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_plain_well_spmv_is_tpucgs_xla_bit_for_bit(case):
+def test_plain_well_spmv_is_tpucgs_xla_bit_for_bit(case, dtype):
     w = csr_to_well(CASES[case]())
     x = _x(w)
     targs, jargs = _args(w, x)
+    if dtype == "bf16":
+        targs, jargs = _bf16(targs, jargs)
     y = well_spmv_torch(*targs).numpy()
     np.testing.assert_array_equal(y, np.asarray(well_spmv_xla(*jargs)))
-    # And the host oracle (float64 sums) on the logical rows.
-    np.testing.assert_allclose(y.reshape(-1)[: w.shape[0]], w.matvec(x[: w.shape[1]]),
-                               rtol=1e-5, atol=1e-5 * float(np.abs(y).max() + 1))
+    if dtype == "f32":
+        # And the host oracle (float64 sums) on the logical rows.
+        np.testing.assert_allclose(y.reshape(-1)[: w.shape[0]], w.matvec(x[: w.shape[1]]),
+                                   rtol=1e-5, atol=1e-5 * float(np.abs(y).max() + 1))
 
 
 @pytest.mark.parametrize("case", ["geometric", "fem", "shuffled"])
@@ -152,40 +166,133 @@ def test_plain_well_spmv_matches_tpucgs_pallas(case, kernel):
     assert err.max() <= 1e-6
 
 
-def test_plain_well_spmv_propagates_a_nan_through_padding():
-    # Padding sublanes read x[0] (window 0, lane 0): 0 * NaN poisons their
-    # group as tpucg's scatter-add does.
-    w = csr_to_well(CASES["geometric"]())
+def test_plain_well_spmv_propagates_a_nan_to_the_rows_that_read_it():
+    # The intended difference from tpucg (ROADMAP §3): tpucg's padding
+    # slots read x at lane 0 of their window (window 0 for the block
+    # padding), so x[0] = NaN poisons rows that store nothing in column 0.
+    # The layout reads live slots only: the NaN reaches exactly the rows
+    # with a stored nonzero in column 0, as a CSR product does, and every
+    # other row equals tpucg's bit for bit.
+    A = CASES["geometric"]()
+    w = csr_to_well(A)
     x = _x(w)
     x[0] = np.nan
     targs, jargs = _args(w, x)
-    y = well_spmv_torch(*targs).numpy()
-    np.testing.assert_array_equal(np.isnan(y), np.isnan(np.asarray(well_spmv_xla(*jargs))))
-    assert np.isnan(y).any()
+    y = well_spmv_torch(*targs).numpy().reshape(-1)
+    jy = np.asarray(well_spmv_xla(*jargs)).reshape(-1)
+    coo = A.to_coo()
+    readers = np.zeros(y.size, bool)
+    readers[coo.row[(coo.col == 0) & (coo.data != 0)]] = True
+    np.testing.assert_array_equal(np.isnan(y), readers)
+    assert readers.any() and np.isnan(jy).sum() > readers.sum()
+    assert not (np.isnan(y) & ~np.isnan(jy)).any()
+    np.testing.assert_array_equal(y[~np.isnan(jy)], jy[~np.isnan(jy)])
 
 
 def test_bf16_values_widen_exactly():
     w = csr_to_well(CASES["fem"]())
     x = _x(w)
+    targs, jargs = _bf16(*_args(w, x))
+    y = well_spmv_torch(*targs).numpy()
+    np.testing.assert_array_equal(y, np.asarray(well_spmv_xla(*jargs)))
+
+
+def _live_slots(w):
+    """(row, sublane, column, value) of every live slot, by NumPy, in the
+    layout's order: by row, each row's in ascending sublane."""
+    s, lane = np.nonzero(w.vals)
+    row = w.group_of_sublane()[s] * 128 + lane
+    col = w.wrow_per_sublane()[s].astype(np.int64) * 128 + w.lidx[s, lane]
+    order = np.lexsort((s, row))
+    return row[order], s[order], col[order], w.vals[s, lane][order]
+
+
+def _rows_of(w, tile=TILE):
+    t = [torch.from_numpy(getattr(w, f)) for f in ("vals", "lidx", "gidl", "wrow", "sgb")]
+    return well_rows(*t, w.groups_per_super, w.n_supergroups, tile=tile)
+
+
+@pytest.mark.parametrize("tile", [2, 64, TILE])
+@pytest.mark.parametrize("case", ["fem", "shuffled", "random", "empty", "duplicates"])
+def test_well_rows_layout(case, tile):
+    w = csr_to_well(CASES[case]())
+    rows = _rows_of(w, tile)
+    nrows = w.n_supergroups * w.groups_per_super * 128
+    assert rows.tile == tile and rows.rvals.dtype == torch.float32
+    assert all(t.dtype == torch.int32 for t in (rows.rowptr, rows.cols, rows.tptr))
+    ptr = rows.rowptr.numpy().astype(np.int64)
+    assert ptr.shape == (nrows + 1,) and ptr[0] == 0 and (np.diff(ptr) >= 0).all()
+    assert ptr[-1] == np.count_nonzero(w.vals) == rows.cols.numel()
+    row, s, col, val = _live_slots(w)
+    np.testing.assert_array_equal(np.repeat(np.arange(nrows), np.diff(ptr)), row)
+    # Each row's slots in ascending sublane: the order tpucg's scatter-add
+    # and the kernel before the redesign summed in.
+    same_row = row[1:] == row[:-1]
+    assert (s[1:][same_row] > s[:-1][same_row]).all()
+    np.testing.assert_array_equal(rows.cols.numpy(), col)
+    np.testing.assert_array_equal(rows.rvals.numpy(), val)
+    tp = rows.tptr.numpy().astype(np.int64)
+    assert tp[0] == 0 and tp[-1] == nrows and (np.diff(tp) > 0).all()
+    slots = ptr[tp[1:]] - ptr[tp[:-1]]
+    single = np.diff(tp) == 1
+    assert ((slots <= tile) | single).all() and (np.diff(tp) <= tile).all()
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_well_rows_builder_refuses_what_does_not_fit(dtype):
+    w = csr_to_well(CASES["tiny"]())
+    with pytest.raises(ValueError, match="tile"):
+        _rows_of(w, tile=1)
+    with pytest.raises(ValueError, match="tile"):
+        _rows_of(w, tile=12289)
+    t = [torch.from_numpy(getattr(w, f)) for f in ("vals", "lidx", "gidl", "wrow", "sgb")]
+    if dtype == "bf16":
+        t[0] = t[0].to(torch.bfloat16)
+    assert well_rows(*t, 1, 1).rvals.dtype == t[0].dtype
+    with pytest.raises(ValueError, match="int32"):
+        well_rows(*t, 1, 2 ** 24)
+
+
+def test_explicitly_stored_zeros_change_no_bit():
+    # +0 and -0 stored in the CSR: WELL packs them as zero slots, the layout
+    # drops them, tpucg adds their +-0 * x. Bit for bit all the same.
+    A = CASES["geometric"]()
+    data = A.data.copy()
+    rng = np.random.default_rng(3)
+    pick = rng.choice(data.size, size=data.size // 5, replace=False)
+    data[pick[::2]] = 0.0
+    data[pick[1::2]] = -0.0
+    Z = CSRMatrix(indptr=A.indptr, indices=A.indices, data=data, shape=A.shape)
+    w = csr_to_well(Z)
+    assert w.nnz == np.count_nonzero(data) + (w.n_groups * 128 - A.shape[0])
+    x = _x(w)
     targs, jargs = _args(w, x)
-    v16 = targs[0].to(torch.bfloat16)
-    y = well_spmv_torch(v16, *targs[1:]).numpy()
-    jv16 = jnp.asarray(np.asarray(v16.float()).astype(ml_dtypes.bfloat16))
-    np.testing.assert_array_equal(y, np.asarray(well_spmv_xla(jv16, *jargs[1:])))
+    assert _rows_of(w).cols.numel() == w.nnz
+    y = well_spmv_torch(*targs).numpy()
+    np.testing.assert_array_equal(y, np.asarray(well_spmv_xla(*jargs)))
+    np.testing.assert_array_equal(y.reshape(-1)[: A.shape[0]] == 0,
+                                  np.diff(np.r_[0, np.cumsum(data != 0)][A.indptr]) == 0)
 
 
-def test_group_index_lists_every_sublane_in_order():
-    w = csr_to_well(CASES["fem"]())
-    gptr, gsub = group_index(torch.from_numpy(w.gidl), torch.from_numpy(w.sgb),
-                             w.groups_per_super, w.n_supergroups)
-    assert gptr.dtype == gsub.dtype == torch.int32
-    g = w.group_of_sublane()
-    gptr, gsub = gptr.numpy(), gsub.numpy()
-    assert gptr[0] == 0 and gptr[-1] == w.n_sublanes
-    assert sorted(gsub.tolist()) == list(range(w.n_sublanes))
-    for grp in range(gptr.size - 1):
-        subs = gsub[gptr[grp]:gptr[grp + 1]]
-        assert (g[subs] == grp).all() and (np.diff(subs) > 0).all()
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_long_row_arrowhead(dtype):
+    A = arrowhead_spd(TILE + 900)
+    w = csr_to_well(A)
+    rows = _rows_of(w)
+    ptr, tp = rows.rowptr.numpy(), rows.tptr.numpy()
+    assert ptr[1] - ptr[0] == A.shape[0] > TILE and tp[1] == 1  # row 0: a tile of its own
+    x = _x(w)
+    targs, jargs = _args(w, x)
+    if dtype == "bf16":
+        targs, jargs = _bf16(targs, jargs)
+    y = well_spmv_torch(*targs).numpy()
+    np.testing.assert_array_equal(y, np.asarray(well_spmv_xla(*jargs)))
+    if dtype == "f32":
+        # Within the float32 rounding of a sum of len + 1 roundings.
+        lens = np.diff(ptr)[: A.shape[0]]
+        ref = w.matvec(x[: A.shape[1]].astype(np.float64))
+        bound = 1.01 * (lens + 1) * 2.0 ** -24 * _abs_sum(w, x).reshape(-1)[: A.shape[0]]
+        assert (np.abs(y.reshape(-1)[: A.shape[0]] - ref) <= bound + 1e-30).all()
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])

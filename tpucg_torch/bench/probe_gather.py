@@ -263,21 +263,39 @@ def fem_scale(dev, n: int, cols: np.ndarray):
     return tk, tl, gather_bytes(4 * m, 4 * m, first)
 
 
+def well_slot_columns(A) -> tuple:
+    """(columns, padded n): the columns of x that the live slots (value != 0)
+    of ``A``'s WELL packing read, in slot order (sublane-major: a chunk of 8
+    sublanes reads one 512-byte window of x), the identity tail included."""
+    from tpucg_torch.sparse.well import LANE, csr_to_well
+
+    w = csr_to_well(A)
+    s, lane = np.nonzero(w.vals)
+    cols = w.wrow_per_sublane()[s].astype(np.int64) * LANE + w.lidx[s, lane]
+    return cols, w.n_groups * LANE
+
+
 def fem_scale_lines(dev, peak: float) -> list:
     """P4 at FEM 300k: x read at the matrix's own column indices (CSR order:
-    the x reads of one CSR product, with the mesh's locality), and at as
-    many uniformly random ones (no locality)."""
+    the x reads of one CSR product, with the mesh's locality, and of K13's
+    row layout), at the WELL packing's live slots in slot order (the TPU
+    layout's order, 512-byte windows), and at as many uniformly random
+    indices (no locality)."""
     from tpucg_torch.io.generator import fem_p1_system
 
     A = fem_p1_system(FEM_POINTS, seed=0)[0]
-    n, nnz = A.shape[0], A.nnz
-    rand = np.random.default_rng(0).integers(0, n, nnz)
+    n = A.shape[0]
+    well_cols, npad = well_slot_columns(A)
+    rand = np.random.default_rng(0).integers(0, n, A.nnz)
     lines = []
-    for label, cols in (("its CSR column indices", A.indices), ("as many random indices", rand)):
-        tk, tl, nbytes = fem_scale(dev, n, cols)
+    for label, size, cols in (("its CSR column indices", n, A.indices),
+                              ("WELL's live slots in slot order", npad, well_cols),
+                              ("as many random indices", n, rand)):
+        tk, tl, nbytes = fem_scale(dev, size, cols)
+        m = len(cols)
         lines.append(
-            f"P4 at FEM 300k, {nnz} reads of x ({n},) at {label}, rotating over {FEM_SETS} "
-            f"index sets: {tk * 1e6:.3f} us, {nnz / tk / 1e9:.2f} Gelem/s, "
+            f"P4 at FEM 300k, {m} reads of x ({size},) at {label}, rotating over {FEM_SETS} "
+            f"index sets: {tk * 1e6:.3f} us, {m / tk / 1e9:.2f} Gelem/s, "
             f"{nbytes / tk / 1e9:.1f} GB/s ({100 * nbytes / tk / peak:.1f}% of HBM peak); "
             f"bound {nbytes / peak * 1e6:.3f} us ({nbytes} bytes); torch.take(x, idx64) "
             f"{tl * 1e6:.3f} us")

@@ -211,11 +211,12 @@ def stencil_bytes(n: int) -> int:
     return 8 * n
 
 
-def well_spmv_bytes(n_sublanes: int, itemsize: int, npad: int) -> int:
-    """Bytes one WELL SpMV (K13) must move: every slot's value and lane index
-    once, the group index (4 bytes a sublane) and the window ids (4 bytes a
-    chunk of 8 sublanes) once, x read and y written once (f32)."""
-    return n_sublanes * 128 * (itemsize + 1) + 4 * n_sublanes + n_sublanes // 2 + 8 * npad
+def well_spmv_bytes(nnz: int, itemsize: int, npad: int) -> int:
+    """Bytes one WELL SpMV (K13) must move, the least of the function and
+    not of the TPU's slot layout: each stored nonzero's value (``itemsize``)
+    and int32 column once, ``npad + 1`` int32 row offsets, x read and y
+    written once (f32, ``npad`` each)."""
+    return nnz * (itemsize + 4) + 4 * (npad + 1) + 8 * npad
 
 
 def csr_spmv_bytes(nnz: int, n: int, itemsize: int = 4, index_size: int = 4) -> int:

@@ -83,8 +83,8 @@ SIGNATURES = {
         [_PTR, _PTR, ctypes.c_int, ctypes.c_int] + [_PTR] * 5
         + [_LEN, _LEN, ctypes.c_float, _LEN, ctypes.c_int, _PTR],
     ),
-    "tpucg_well_spmv_f32": (ctypes.c_int, [_PTR] * 7 + [_LEN, _PTR, _PTR]),
-    "tpucg_well_spmv_bf16": (ctypes.c_int, [_PTR] * 7 + [_LEN, _PTR, _PTR]),
+    "tpucg_well_spmv_f32": (ctypes.c_int, [_PTR] * 6 + [_LEN, _LEN, ctypes.c_int, _PTR, _PTR]),
+    "tpucg_well_spmv_bf16": (ctypes.c_int, [_PTR] * 6 + [_LEN, _LEN, ctypes.c_int, _PTR, _PTR]),
     "tpucg_probe_lane_gather_f32": (ctypes.c_int, [_PTR, _PTR, _PTR, _LEN, _PTR]),
     "tpucg_probe_sub_gather_f32": (ctypes.c_int, [_PTR, _PTR, _PTR, _LEN, _PTR]),
     "tpucg_probe_row_gather_f32": (ctypes.c_int, [_PTR, _PTR, _PTR, _LEN, _PTR]),

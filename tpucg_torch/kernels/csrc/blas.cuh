@@ -180,17 +180,18 @@ cudaError_t tpucg_fused_batch_dia_cg_bf16(const void* data, const void* offsets,
                                           float tol, long long maxiter, int safe_alpha,
                                           void* stream);
 
-// K13: the WELL SpMV. For each output group g < ngroups, y[g * 128 + l] is
-// the sum, over the group's sublanes s = gsub[j], gptr[g] <= j < gptr[g + 1],
-// in that order, of vals[s, l] * x[wrow[s / 8] * 128 + lidx[s, l]]. vals
-// (NS, 128) f32 or bf16, lidx (NS, 128) int8, wrow (NS / 8,), gptr and gsub
-// int32; x f32, y (ngroups * 128,) f32.
-cudaError_t tpucg_well_spmv_f32(const void* vals, const void* lidx, const void* wrow,
-                                const void* gptr, const void* gsub, const void* x, void* y,
-                                long long ngroups, const void* active, void* stream);
-cudaError_t tpucg_well_spmv_bf16(const void* vals, const void* lidx, const void* wrow,
-                                 const void* gptr, const void* gsub, const void* x, void* y,
-                                 long long ngroups, const void* active, void* stream);
+// K13: the WELL SpMV over its live slots repacked as rows (gather.cu). For
+// each row r < nrows, y[r] is the sum, over j in [rowptr[r], rowptr[r + 1])
+// in order, of rvals[j] * x[cols[j]]; rvals f32 or bf16, cols, rowptr and
+// tptr int32; x and y f32. Tile t's rows are [tptr[t], tptr[t + 1]), t <
+// ntiles; a tile of several rows holds at most `tile` slots, 2 <= tile <=
+// 12288 (its products fill tile * 4 bytes of shared memory).
+cudaError_t tpucg_well_spmv_f32(const void* rvals, const void* cols, const void* rowptr,
+                                const void* tptr, const void* x, void* y, long long nrows,
+                                long long ntiles, int tile, const void* active, void* stream);
+cudaError_t tpucg_well_spmv_bf16(const void* rvals, const void* cols, const void* rowptr,
+                                 const void* tptr, const void* x, void* y, long long nrows,
+                                 long long ntiles, int tile, const void* active, void* stream);
 
 // P1-P7, the gather probes of benchmarks/probe_gather.py (probe.cu): f32
 // rows of 128, int32 indices, none of them checked. P1 (and P7):

@@ -5,15 +5,26 @@
 All take tpucg's packed arrays and return what tpucg's ``well_spmv`` does,
 y2 (nsg * bg, 128) f32: for each slot (s, l), ``vals[s, l] * x2.flat[wrow[s
 // 8] * 128 + lidx[s, l]]`` added into row ``(sgb[s // BS] * bg + gidl[s]) *
-128 + l``. The sums of an output row are taken over its group's sublanes in
-ascending s, from 0, each product and sum rounded on its own: the kernel and
-its plain version ``well_spmv_torch`` agree bit for bit. ``group_index``
-lists each group's sublanes in that order; an operator builds it once.
+128 + l``.
+
+K13 reads a layout built once per operator from those arrays
+(``well_rows``): the live slots (``vals != 0``) alone, row by row, each
+row's in ascending sublane s, and the rows cut into tiles. A row's sum is
+taken over its live slots in that order, from 0, each product and sum
+rounded on its own, so the kernel and its plain version
+``well_spmv_torch`` agree bit for bit. tpucg's ``well_spmv_xla`` sums
+every slot of a row, zeros too, in the same ascending s. On finite x the
+two agree bit for bit all the same: the running sum starts at +0, and under
+round-to-nearest +0 + (-0) and a + (-a) are +0, so it is never -0; adding
++-0 to anything but -0 is exact, so skipping a slot's 0 * x changes no
+bit. A NaN or Inf x_j reaches exactly the rows whose stored entries read
+column j, as in a CSR product (tpucg's padding slots read x at lane 0 of
+their window and carry it to rows that store nothing in that column).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -22,25 +33,71 @@ from tpucg_torch.kernels.dispatch import check_active, cuda_stream, resolve_back
 
 LANE = 128
 CHUNK = 8  # sublanes that share one window
+TILE = 2048  # live slots a tile of several rows holds at most (8 KB of products)
+TILE_MAX = 12288  # 48 KB of products: the shared memory a block takes without opting in
+INT32_MAX = 2 ** 31 - 1
 
 
-def group_of_sublane(gidl: torch.Tensor, sgb: torch.Tensor, bg: int) -> torch.Tensor:
-    """Output group of every sublane, int64 (NS,), on gidl's device."""
-    bs = gidl.shape[1]
-    return sgb.long().repeat_interleave(bs) * bg + gidl.reshape(-1).long()
+class WellRows(NamedTuple):
+    """K13's layout of one operator (``well_rows``): row r's live slots are
+    ``[rowptr[r], rowptr[r + 1])`` of ``cols`` (their columns of x) and
+    ``rvals`` (their values, in the storage dtype), in ascending sublane
+    order; tile t's rows are ``[tptr[t], tptr[t + 1])``. A tile of several
+    rows holds at most ``tile`` live slots; a longer row is a tile of its
+    own."""
+
+    rowptr: torch.Tensor  # int32 (nsg * bg * 128 + 1,)
+    cols: torch.Tensor    # int32 (live slots,)
+    rvals: torch.Tensor   # f32 or bf16 (live slots,)
+    tptr: torch.Tensor    # int32 (tiles + 1,)
+    tile: int
 
 
-def group_index(gidl: torch.Tensor, sgb: torch.Tensor, bg: int,
-                nsg: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(gptr, gsub), int32 on gidl's device: ``gsub`` holds the sublanes
-    sorted by output group, ascending within a group, and group g's are
-    ``gsub[gptr[g]:gptr[g + 1]]`` (``nsg * bg`` groups). Padding sublanes
-    stay in (tpucg adds their 0 * x too)."""
-    g = group_of_sublane(gidl, sgb, bg)
-    gsub = torch.sort(g, stable=True).indices
-    gptr = torch.zeros(nsg * bg + 1, dtype=torch.int64, device=g.device)
-    gptr[1:] = torch.cumsum(torch.bincount(g, minlength=nsg * bg), 0)
-    return gptr.to(torch.int32), gsub.to(torch.int32)
+def well_rows(vals, lidx, gidl, wrow, sgb, bg: int, nsg: int, tile: int = TILE) -> WellRows:
+    """Build K13's layout on the arrays' device with torch ops (one read of a
+    count and of the largest column back to the host). Slot (s, l) with
+    ``vals[s, l] != 0`` goes to row ``(sgb[s // BS] * bg + gidl[s]) * 128 + l``
+    with column ``wrow[s // 8] * 128 + lidx[s, l]``; a stable sort by row of
+    the slots in ``torch.nonzero`` order keeps each row's in ascending s.
+
+    Tiles: with h = tile // 2, a tile starts at row 0, at every row whose
+    first slot lies in another run of h slots than its predecessor's, at
+    every row of more than h slots and at the row after it, and every
+    ``tile`` rows. A tile of several rows then holds rows of at most h slots
+    that all start within one run of h, so fewer than 2 h <= ``tile`` slots,
+    and at most ``tile`` rows; its mean is about h. Raises where a count or
+    a column would not fit int32."""
+    check_well(vals, lidx, gidl, wrow, sgb, bg, nsg)
+    if not 2 <= tile <= TILE_MAX:
+        raise ValueError(f"tile must be in [2, {TILE_MAX}], got {tile}")
+    nrows = nsg * bg * LANE
+    if nrows >= INT32_MAX:
+        raise ValueError(f"{nrows} output rows do not fit the layout's int32 row offsets")
+    live = torch.nonzero(vals.reshape(-1) != 0).reshape(-1)
+    if live.numel() > INT32_MAX:
+        raise ValueError(f"{live.numel()} live slots do not fit the layout's int32 offsets")
+    s = live // LANE
+    row = ((sgb.long()[s // gidl.shape[1]] * bg + gidl.reshape(-1).long()[s]) * LANE
+           + live % LANE)
+    col = wrow.long()[s // CHUNK] * LANE + lidx.reshape(-1)[live].long()
+    if live.numel() and int(col.max()) > INT32_MAX:
+        raise ValueError("a WELL column does not fit the layout's int32 columns")
+    row, order = torch.sort(row, stable=True)
+    rowptr = torch.zeros(nrows + 1, dtype=torch.int64, device=vals.device)
+    rowptr[1:] = torch.cumsum(torch.bincount(row, minlength=nrows), 0)
+
+    starts, lens = rowptr[:-1], torch.diff(rowptr)
+    h = tile // 2
+    idx = torch.arange(nrows, device=vals.device)
+    new = idx % tile == 0
+    new[1:] |= (starts[1:] // h) != (starts[:-1] // h)
+    big = lens > h
+    new |= big
+    new[1:] |= big[:-1]
+    tptr = torch.cat([torch.nonzero(new).reshape(-1), idx.new_full((1,), nrows)])
+    return WellRows(rowptr=rowptr.to(torch.int32), cols=col[order].to(torch.int32),
+                    rvals=vals.reshape(-1)[live][order].contiguous(),
+                    tptr=tptr.to(torch.int32), tile=int(tile))
 
 
 def check_well(vals, lidx, gidl, wrow, sgb, bg: int, nsg: int,
@@ -87,78 +144,81 @@ def check_well_values(lidx, gidl, wrow, sgb, bg: int, nsg: int, ngroups_x: int) 
         raise ValueError("WELL arrays out of range: " + ", ".join(bad))
 
 
-def well_spmv_torch(vals, lidx, gidl, wrow, sgb, x2, bg: int, nsg: int) -> torch.Tensor:
-    """Plain version of K13 (tpucg's ``well_spmv_xla``, ``gather_spmv.py:276``),
-    summing as the kernel does: each group's sublanes in ascending order,
-    from 0. Sublanes whose values are all 0 (padding) add +-0, or NaN from a
-    non-finite x, so they change no running sum but a NaN: they are summed
-    apart, in any order, and added last. The others are summed one sublane
-    rank at a time over all groups at once."""
+def check_rows(rows: WellRows, nrows: int, vals: torch.Tensor) -> None:
+    """A layout's types and shapes for ``nrows`` output rows and values like
+    ``vals``, with no read of its values."""
+    t = (rows.rowptr, rows.cols, rows.tptr)
+    if (any(a.dtype != torch.int32 or a.dim() != 1 for a in t)
+            or rows.rowptr.numel() != nrows + 1 or rows.tptr.numel() < 2
+            or rows.rvals.dtype != vals.dtype or rows.rvals.shape != rows.cols.shape
+            or not 2 <= rows.tile <= TILE_MAX):
+        raise ValueError(f"a WellRows layout for {nrows} rows of {vals.dtype} values, got "
+                         f"rowptr {tuple(rows.rowptr.shape)}, cols {tuple(rows.cols.shape)}, "
+                         f"rvals {rows.rvals.dtype} {tuple(rows.rvals.shape)}, tptr "
+                         f"{tuple(rows.tptr.shape)}, tile {rows.tile}")
+    if any(a.device != vals.device or not a.is_contiguous() for a in t + (rows.rvals,)):
+        raise ValueError(f"a WellRows layout must be contiguous and on {vals.device}")
+
+
+def well_spmv_torch(vals, lidx, gidl, wrow, sgb, x2, bg: int, nsg: int, *,
+                    index: Optional[WellRows] = None) -> torch.Tensor:
+    """Plain version of K13 (tpucg's ``well_spmv_xla``, ``gather_spmv.py:276``)
+    over the same layout (built here when ``index`` is None), summing as the
+    kernel does: the products, then each row's in slot order from 0, one
+    rank of all rows at a time (one read of the longest row back a call)."""
     well_spmv_torch.launches += 1
-    ngroups = nsg * bg
-    x = x2.reshape(-1)
-    cols = wrow.long().repeat_interleave(CHUNK)[:, None] * LANE + lidx.long()
-    prod = vals.float() * x[cols]
-    g = group_of_sublane(gidl, sgb, bg)
-    live = (vals != 0).any(1)
-    zeros = torch.zeros(ngroups, LANE, dtype=torch.float32, device=x.device)
-    nan_or_zero = zeros.index_add(0, g[~live], prod[~live])
-    subs = torch.nonzero(live).reshape(-1)
-    order = torch.sort(g[subs], stable=True).indices
-    subs, gs = subs[order], g[subs][order]
-    counts = torch.bincount(gs, minlength=ngroups)
-    rank = torch.arange(subs.numel(), device=x.device) - (torch.cumsum(counts, 0) - counts)[gs]
-    depth = int(counts.max()) if subs.numel() else 0
-    # table[j, g]: group g's j-th live sublane, or the zero row past its end.
-    table = torch.full((depth, ngroups), prod.shape[0], dtype=torch.int64, device=x.device)
-    table[rank, gs] = subs
-    prod = torch.cat([prod, zeros[:1]])
-    acc = zeros
-    for j in range(depth):
-        acc = acc + prod[table[j]]
-    return acc + nan_or_zero
+    rows = well_rows(vals, lidx, gidl, wrow, sgb, bg, nsg) if index is None else index
+    prod = rows.rvals.float() * x2.reshape(-1)[rows.cols.long()]
+    ptr = rows.rowptr.long()
+    start, lens = ptr[:-1], torch.diff(ptr)
+    acc = torch.zeros(nsg * bg * LANE, dtype=torch.float32, device=x2.device)
+    last = max(prod.numel() - 1, 0)
+    for j in range(int(lens.max())):
+        acc = acc + torch.where(lens > j, prod[(start + j).clamp_max(last)], 0.0)
+    return acc.reshape(nsg * bg, LANE)
 
 
 well_spmv_torch.launches = 0
 
 
-def well_spmv_launch(vals, lidx, wrow, gptr, gsub, x, y, ngroups: int, active: Optional[int],
+def well_spmv_launch(rows: WellRows, x, y, nrows: int, active: Optional[int],
                      stream: int) -> None:
-    """Launch K13 for groups [0, ``ngroups``) into y (``ngroups * 128``
-    floats), with no checks: the caller has checked the arrays as
+    """Launch K13 for output rows [0, ``nrows``) into y (``nrows`` floats),
+    with no checks: the caller has checked the layout and x as
     ``well_spmv_cuda`` does and owns y. The one place that counts K13's
     launches."""
     lib = _lib.load()
-    fn = lib.tpucg_well_spmv_f32 if vals.dtype == torch.float32 else lib.tpucg_well_spmv_bf16
-    err = fn(vals.data_ptr(), lidx.data_ptr(), wrow.data_ptr(), gptr.data_ptr(), gsub.data_ptr(),
-             x.data_ptr(), y.data_ptr(), ngroups, active, stream)
+    fn = lib.tpucg_well_spmv_f32 if rows.rvals.dtype == torch.float32 else lib.tpucg_well_spmv_bf16
+    err = fn(rows.rvals.data_ptr(), rows.cols.data_ptr(), rows.rowptr.data_ptr(),
+             rows.tptr.data_ptr(), x.data_ptr(), y.data_ptr(), nrows, rows.tptr.numel() - 1,
+             rows.tile, active, stream)
     if err:
         _lib.check(err, "well_spmv_cuda")
     well_spmv_cuda.launches += 1
 
 
 def well_spmv_cuda(vals, lidx, gidl, wrow, sgb, x2, bg: int, nsg: int, *,
-                   index: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                   index: Optional[WellRows] = None,
                    active: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """K13 on the card. ``index`` is ``group_index``'s (gptr, gsub) when the
-    caller holds it; without it the index is built and the arrays' values
-    are checked (a read back to the host). With ``active`` (0-d int32 on
-    the device) the kernel does nothing when the flag is 0, and the
-    returned array is undefined."""
+    """K13 on the card. ``index`` is the arrays' ``well_rows`` layout when
+    the caller holds it, and then only the layout is read; without it the
+    arrays' values are checked (a read back to the host) and the layout is
+    built. With ``active`` (0-d int32 on the device) the kernel does
+    nothing when the flag is 0, and the returned array is undefined."""
     check_well(vals, lidx, gidl, wrow, sgb, bg, nsg, x2)
     check_active(active, vals)
     if vals.device.type != "cuda":
         raise ValueError(f"well_spmv_cuda needs the arrays on a CUDA device, got {vals.device}")
+    if x2.numel() > INT32_MAX:
+        raise ValueError(f"x2 of {x2.numel()} elements: K13 indexes x with int32")
     if index is None:
         check_well_values(lidx, gidl, wrow, sgb, bg, nsg, x2.shape[0])
-        index = group_index(gidl, sgb, bg, nsg)
-    gptr, gsub = index
-    if gptr.numel() != nsg * bg + 1 or gsub.numel() != vals.shape[0]:
-        raise ValueError(f"index of {gptr.numel() - 1} groups and {gsub.numel()} sublanes for "
-                         f"{nsg * bg} groups and {vals.shape[0]} sublanes")
+        index = well_rows(vals, lidx, gidl, wrow, sgb, bg, nsg)
+    nrows = nsg * bg * LANE
+    check_rows(index, nrows, vals)
     y = torch.empty((nsg * bg, LANE), dtype=torch.float32, device=vals.device)
-    well_spmv_launch(vals, lidx, wrow, gptr, gsub, x2, y, nsg * bg,
-                     None if active is None else active.data_ptr(), cuda_stream(x2))
+    well_spmv_launch(index, x2, y, nrows, None if active is None else active.data_ptr(),
+                     cuda_stream(x2))
     return y
 
 
@@ -166,12 +226,13 @@ well_spmv_cuda.launches = 0
 
 
 def well_spmv(vals, lidx, gidl, wrow, sgb, x2, bg: int, nsg: int, backend: str = "auto",
-              **kw) -> torch.Tensor:
+              index: Optional[WellRows] = None, **kw) -> torch.Tensor:
     """WELL SpMV: K13 for CUDA arrays (``"auto"``), the plain version for
-    CPU ones; ``index`` and ``active`` are read by K13 only."""
+    CPU ones; both read ``index`` (a ``well_rows`` layout) when given,
+    ``active`` is read by K13 only."""
     if resolve_backend(backend, vals.device) == "cuda":
-        return well_spmv_cuda(vals, lidx, gidl, wrow, sgb, x2, bg, nsg, **kw)
-    return well_spmv_torch(vals, lidx, gidl, wrow, sgb, x2, bg, nsg)
+        return well_spmv_cuda(vals, lidx, gidl, wrow, sgb, x2, bg, nsg, index=index, **kw)
+    return well_spmv_torch(vals, lidx, gidl, wrow, sgb, x2, bg, nsg, index=index)
 
 
 def well_spmv_fused_gather(vals, lidx, gidl, wrow, sgb, x2, bg: int, nsg: int,

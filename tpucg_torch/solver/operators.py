@@ -30,9 +30,10 @@ import torch
 from tpucg_torch.io.partitioner import pad_identity_tail, round_up
 from tpucg_torch.kernels.dispatch import canonical_device, resolve_backend
 from tpucg_torch.kernels.gather_spmv import (
+    WellRows,
     check_well,
     check_well_values,
-    group_index,
+    well_rows,
     well_spmv_cuda,
     well_spmv_launch,
     well_spmv_torch,
@@ -397,10 +398,12 @@ class WellOperator(LinearOperator):
     ``lidx`` (NS, 128) int8, ``gidl`` (NB, BS), ``wrow`` (NS/8,) and ``sgb``
     (NB,) int32, ``dvec`` (padded_n,) f32 = diag(A), built on the host at
     set-up as tpucg builds it; ``n`` the logical size, ``bg``/``nsg``
-    groups per super-group and super-groups. The group index of K13
-    (``gptr``, ``gsub``) is built here, once, on the arrays' device, and the
-    arrays' values are checked once (one read back to the host). On a CUDA
-    device the matvec is K13 or raises; on the CPU its plain version."""
+    groups per super-group and super-groups. These are the form both
+    packages share. K13's layout (``rows``, ``well_rows``: the live slots
+    repacked row by row, in tiles) is built here, once, on the arrays'
+    device, after the arrays' values are checked (reads back to the host).
+    On a CUDA device the matvec is K13 or raises; on the CPU its plain
+    version, over the same layout."""
 
     vals: torch.Tensor
     lidx: torch.Tensor
@@ -412,8 +415,7 @@ class WellOperator(LinearOperator):
     bg: int
     nsg: int
     backend: str = "auto"
-    gptr: torch.Tensor = dataclasses.field(init=False, repr=False)
-    gsub: torch.Tensor = dataclasses.field(init=False, repr=False)
+    rows: WellRows = dataclasses.field(init=False, repr=False)
 
     def __post_init__(self):
         object.__setattr__(self, "backend", resolve_backend(self.backend, self.vals.device))
@@ -427,9 +429,8 @@ class WellOperator(LinearOperator):
                              f"n={self.n}")
         check_well_values(self.lidx, self.gidl, self.wrow, self.sgb, self.bg, self.nsg,
                           self.n_groups)
-        gptr, gsub = group_index(self.gidl, self.sgb, self.bg, self.nsg)
-        object.__setattr__(self, "gptr", gptr)
-        object.__setattr__(self, "gsub", gsub)
+        object.__setattr__(self, "rows", well_rows(self.vals, self.lidx, self.gidl, self.wrow,
+                                                   self.sgb, self.bg, self.nsg))
 
     @classmethod
     def from_csr(cls, csr, backend: str = "auto", storage_dtype=torch.float32, device=None,
@@ -485,9 +486,9 @@ class WellOperator(LinearOperator):
         x2 = x.reshape(self.n_groups, LANE)
         arrays = (self.vals, self.lidx, self.gidl, self.wrow, self.sgb, x2, self.bg, self.nsg)
         if self.backend == "cuda":
-            y2 = well_spmv_cuda(*arrays, index=(self.gptr, self.gsub), active=active)
+            y2 = well_spmv_cuda(*arrays, index=self.rows, active=active)
         else:
-            y2 = well_spmv_torch(*arrays)
+            y2 = well_spmv_torch(*arrays, index=self.rows)
         return y2.reshape(-1)[: self.padded_n]
 
     def matvec_multi(self, X: torch.Tensor) -> torch.Tensor:
@@ -498,10 +499,8 @@ class WellOperator(LinearOperator):
         return self.dvec
 
     def launcher(self) -> Callable:
-        vals, lidx, wrow, gptr, gsub = self.vals, self.lidx, self.wrow, self.gptr, self.gsub
-        ngroups = self.n_groups
-        return lambda x, y, active, stream: well_spmv_launch(vals, lidx, wrow, gptr, gsub, x, y,
-                                                             ngroups, active, stream)
+        rows, nrows = self.rows, self.padded_n
+        return lambda x, y, active, stream: well_spmv_launch(rows, x, y, nrows, active, stream)
 
 
 def best_sparse_operator(csr, backend: str = "auto", max_diags: int = 64,

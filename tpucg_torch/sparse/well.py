@@ -5,7 +5,8 @@ copy of ``tpucg.sparse.well``'s ``WellMatrix``, ``_auto_block_sublanes`` and
 The layout was chosen for the TPU, whose only fast data-dependent reads
 are whole-row DMA and the in-register lane shuffle. The port keeps it
 unchanged, so that an operator packed by either package is the same
-operator, and reads it on the card with K13 (``kernels.gather_spmv``):
+operator; on the card K13 reads a layout repacked from it once per
+operator, its live slots row by row (``kernels.gather_spmv.well_rows``):
 
 - x is seen as ``x2 = x.reshape(G, 128)``; row w is the 128-wide window of
   columns [128 w, 128 (w + 1)).
