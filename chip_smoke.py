@@ -49,11 +49,17 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    version), ``kernel="torch"`` (the plain route on the card, no kernel),
    jacobi on DIA and poly (degree 3) on both; every solve converges with a
    float64 true residual ||b - A x|| / ||b|| <= 2e-5 and within a lap of the
-   plain route; times per solve; then the gate table: ``fused="always"``
-   against ``"never"`` at m = 16 ... 192 (stencil) and 32 ... 160 (DIA f32
-   and bf16), medians of 5, each arm twice in turns.
-11. whole-solve K10/K11 vs plain at m = 16, 32, 64 with a nonzero x0: laps
-   within one, x within 1e-4 of max |x|, repeats bit-identical.
+   plain route; times per solve. K11 (a block owns a run of rows and
+   stages the matvec's input once per element in shared memory) at m = 128
+   f32 without a preconditioner takes 71 laps; its lines give µs a lap, the
+   tile (T, H, the window), the grid, the shared bytes, the slab's µs a lap
+   at the HBM peak and K6's µs a launch, f32 and bf16. Then the gate table:
+   ``fused="always"`` against ``"never"`` at m = 16 ... 192 (stencil) and
+   32 ... 160 (DIA f32 and bf16), medians of 5, each arm twice in turns.
+11. whole-solve K10/K11 vs plain at m = 16, 32, 64 with a nonzero x0, and
+   K11 on a band with far offsets (+-40,000 at n = 100,000, read through L2
+   beside the staged +-1), f32 and bf16: laps within one, x within 1e-4 of
+   max |x|, repeats bit-identical.
 12. irregular K13 vs plain: tpucg's WELL packing of the P1 FEM stiffness
    matrix (``fem_p1_system(300_000, seed=0)``, mesh order), the random
    geometric graph Laplacian (``random_geometric_spd(1_000_000, seed=0,
@@ -172,6 +178,8 @@ def main() -> int:
 
     from _torch_helpers import (
         BAND_SETS,
+        FAR_BAND,
+        FAR_BAND_N,
         arrowhead_spd,
         banded_battery,
         banded_spectrum_battery,
@@ -180,6 +188,7 @@ def main() -> int:
         run_world,
     )
 
+    from tpucg_torch.bench import k11_lap
     from tpucg_torch.bench import probe_gather as pg
     from tpucg_torch.bench.timing import (
         csr_spmv_bytes,
@@ -218,6 +227,7 @@ def main() -> int:
         FUSED_AUTO_MAX_N,
         FUSED_DIA_AUTO_MAX_N,
         FUSED_STENCIL_AUTO_MAX_M,
+        dia_tile_plan,
         fused_batch_cg_solve_cuda,
         fused_batch_dia_cg_solve_cuda,
         fused_cg_solve_cuda,
@@ -727,6 +737,7 @@ def main() -> int:
         require(torch.equal(ops128[f32].matvec(x), ops128[bf16].matvec(x)),
                 "K6 Poisson m=128: bf16 slab differs from f32")
         print("K6 Poisson m=128: the bf16 slab's y equals the f32 slab's bit for bit")
+        k6_us = {}
         for dt, name in ((f32, "f32"), (bf16, "bf16")):
             op = ops128[dt]
             r = kernel_vs_plain(
@@ -735,6 +746,7 @@ def main() -> int:
                 lambda: dia_spmv_torch(op.data, op.offsets, x),
                 dia_spmv_bytes(7, op.padded_n, op.data.element_size()), poisson_nnz(m),
                 csr128, x)
+            k6_us[name] = r[1] * 1e6
             if dt == f32:
                 err["K6"], times["K6"], library["K6"] = r[0], r[1:3], r[3]
                 bounds["K6"] = bound_of(dia_spmv_bytes(7, op.padded_n, 4), 14 * op.padded_n)
@@ -880,6 +892,14 @@ def main() -> int:
                   f"{e:.3e}; {tk.median * 1e3:.4f} ms per solve, {tk.median / int(k) * 1e6:.2f} "
                   f"us per lap; plain {tp.median * 1e3:.4f} ms; bound {bounds[kid][0]:.4f} ms "
                   f"({bounds[kid][1]}) {tag}")
+        # K11's tiles at m = 128, f32 and bf16: its plan and grid, and the lap
+        # beside the slab's bytes at the HBM peak and K6 (phase 9, this call).
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        for dt, name in ((f32, "f32"), (bf16, "bf16")):
+            r = k11_lap.measure(ops128[dt], b, z, tol=tol, maxiter=maxiter, peak=peak)
+            require(dt != f32 or r["laps"] == 71, f"K11 m={m} f32 none: {r['laps']} laps, not 71")
+            print(k11_lap.line(f"K11 m={m} {name} none", r, sms)
+                  + f"; K6 {name} {k6_us[name]:.3f} us a launch {tag}")
 
     with phase("gate table"):
         print("cg_solve fused='always' (K10 / K11) against fused='never' (lap path), tpucg's "
@@ -936,7 +956,31 @@ def main() -> int:
                 err[kid] = max(err[kid], e)
                 print(f"{what}: {int(k)} laps (plain {int(kp)}), max abs err {e:.3e} = {se:.3e} "
                       "of max |x| (bound 1e-4), repeat bit-identical")
-        del ops128
+        # The far band: +-40,000 read through L2 beside the staged +-1.
+        offsets, data, bfar = random_banded_dia(FAR_BAND_N, FAR_BAND, seed=2)
+        plan = dia_tile_plan(FAR_BAND_N, offsets)
+        b = torch.as_tensor(bfar, device=dev)
+        x0 = 0.1 * rnd(FAR_BAND_N)
+        for dt in (f32, bf16):
+            d = torch.as_tensor(data, device=dev).to(dt)
+            for pc in ("none", "jacobi", "poly"):
+                kw = dict(tol=1e-6, maxiter=4000, precondition=pc,
+                          poly_degree=3 if pc == "poly" else 0)
+                fk = lambda: fused_dia_cg_solve_cuda(d, offsets, b, x0, **kw)  # noqa: E731
+                what = (f"K11 far band {offsets} n={FAR_BAND_N} {'f32' if dt == f32 else 'bf16'} "
+                        f"{pc}")
+                (x, k, rr), (xp, kp, _) = fk(), fused_dia_cg_solve_torch(d, offsets, b, x0, **kw)
+                e, se = float((x - xp).abs().max()), scaled_err(x.cpu(), xp.cpu())
+                require(abs(int(k) - int(kp)) <= 1 and float(rr) < 1e-12 and se <= 1e-4,
+                        f"{what}: {int(k)} laps (plain {int(kp)}), rr {float(rr)}, err {se}")
+                again = fk()
+                require(all(torch.equal(u, v) for u, v in zip((x, k, rr), again)),
+                        f"{what}: repeat differs")
+                err["K11"] = max(err["K11"], e)
+                print(f"{what}: near {plan.near}, far {plan.far}; {int(k)} laps (plain {int(kp)}), "
+                      f"max abs err {e:.3e} = {se:.3e} of max |x| (bound 1e-4), repeat "
+                      "bit-identical")
+        del ops128, d
 
     # The f32 true-residual bound of the FEM solve (PERF.md, written before
     # the first run): FEM's b ~ 1/n makes A x cancel, so the float64

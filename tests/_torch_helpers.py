@@ -127,6 +127,21 @@ BAND_SETS = {
 }
 
 
+# A band with far offsets: +-40,000 at n = 100,000 (beyond K11's staged
+# window, read through L2) beside the tridiagonal ones (staged).
+FAR_BAND = (-40_000, -1, 0, 1, 40_000)
+FAR_BAND_N = 100_000
+
+
+def k11_edge_npads(grid: int, tile: int = 1024) -> tuple:
+    """Two padded lengths at which K11's ``grid``-block launch (grid >= 4,
+    below the cap of one block per 256 rows) deals its tiles unevenly: the
+    first has fewer tiles than blocks (the last blocks own no row), the
+    second wraps past the grid twice (blocks own two or three tiles); the
+    last tile of each is partial."""
+    return 300 * grid + 37, (2 * grid + grid // 2) * tile + 333
+
+
 def banded_battery(nsys: int, n: int, seed: int = 0):
     """tpucg's battery of tridiagonal systems (``tests/test_batch.py``
     ``TestBatchBanded._battery``; ``benchmarks/extensions.py:241-254`` at

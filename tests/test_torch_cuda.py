@@ -12,11 +12,14 @@ import torch
 
 from _torch_helpers import (  # noqa: F401  (fixture)
     BAND_SETS,
+    FAR_BAND,
+    FAR_BAND_N,
     arrowhead_spd,
     banded_battery,
     banded_spectrum_battery,
     circulant_spd_batch,
     cuda_device,
+    k11_edge_npads,
     random_banded_dia,
     rel_err,
     scaled_err,
@@ -36,7 +39,9 @@ from tpucg_torch.kernels.fused import (
     fused_batch_cg_solve_cuda,
     fused_batch_dia_cg_solve_cuda,
     fused_cg_solve_cuda,
+    dia_tile_plan,
     fused_dia_cg_solve_cuda,
+    fused_dia_grid,
     fused_stencil_cg_solve_cuda,
 )
 from tpucg_torch.kernels.gather_spmv import (
@@ -420,31 +425,56 @@ def test_k10_matches_plain_on_card(cuda_device, m, pc):
     assert all(torch.equal(u, v) for u, v in zip((x, k, rr), again))
 
 
-@pytest.mark.parametrize("band", list(BAND_SETS) + ["poisson16"])
-@pytest.mark.parametrize("pc", ["none", "jacobi", "poly"])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_k11_matches_plain_on_card(cuda_device, band, pc, dtype):
+def _k11_systems(dev, band, dtype):
+    """(data, offsets, b, x0, tol) of each K11 case, padded; "windows" gives
+    two systems whose staged windows differ, solved in turn in one process."""
+    if band == "windows":
+        return (_k11_systems(dev, "tridiagonal", dtype)
+                + _k11_systems(dev, "multi_row", dtype)
+                + _k11_systems(dev, "tridiagonal", dtype))
+    if band == "edge":
+        # Tiles dealt unevenly: blocks with no row, blocks with three tiles,
+        # a partial last tile (dia_tile_plan, k11_edge_npads).
+        grid = fused_dia_grid(2 ** 24, dtype)
+        systems = []
+        for npad in k11_edge_npads(grid):
+            assert fused_dia_grid(npad, dtype) == grid
+            offsets, data, b = random_banded_dia(npad, BAND_SETS["cross_row"], seed=3)
+            op = DiaOperator(data=torch.as_tensor(data, device=dev).to(dtype), offsets=offsets,
+                             n=npad)
+            assert op.padded_n == npad and npad % dia_tile_plan(npad, offsets).tile
+            systems.append((op, b, 1e-6))
+        return systems
     if band == "poisson16":
         dia = poisson3d_dia(16)
         b = np.random.default_rng(1).standard_normal(16 ** 3).astype(np.float32)
         tol = 1e-5 * float(np.linalg.norm(b))
     else:
-        offsets, data, b = random_banded_dia(1000, BAND_SETS[band], seed=2)
-        dia = DIAMatrix(offsets=np.asarray(offsets), data=data, shape=(1000, 1000))
+        n = FAR_BAND_N if band == "far" else 1000
+        offsets, data, b = random_banded_dia(
+            n, FAR_BAND if band == "far" else BAND_SETS[band], seed=2)
+        dia = DIAMatrix(offsets=np.asarray(offsets), data=data, shape=(n, n))
         tol = 1e-6
-    op = DiaOperator.from_dia(dia, storage_dtype=dtype, device=cuda_device)
-    pad = op.padded_n - op.n
-    bd = torch.nn.functional.pad(torch.as_tensor(b, device=cuda_device), (0, pad))
-    x0 = 0.1 * _rand(cuda_device, op.padded_n, seed=4)
-    x0[op.n:] = 0.0
-    kw = dict(tol=tol, maxiter=4 * op.padded_n, precondition=pc,
-              poly_degree=3 if pc == "poly" else 0)
-    x, k, rr = fused_dia_cg_solve_cuda(op.data, op.offsets, bd, x0, **kw)
-    xp, kp, _ = fused_dia_cg_solve_torch(op.data, op.offsets, bd, x0, **kw)
-    assert abs(int(k) - int(kp)) <= 1 and float(rr) < tol ** 2
-    assert scaled_err(x.cpu(), xp.cpu()) <= 1e-4
-    again = fused_dia_cg_solve_cuda(op.data, op.offsets, bd, x0, **kw)
-    assert all(torch.equal(u, v) for u, v in zip((x, k, rr), again))
+    return [(DiaOperator.from_dia(dia, storage_dtype=dtype, device=dev), b, tol)]
+
+
+@pytest.mark.parametrize("band", list(BAND_SETS) + ["poisson16", "far", "edge", "windows"])
+@pytest.mark.parametrize("pc", ["none", "jacobi", "poly"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k11_matches_plain_on_card(cuda_device, band, pc, dtype):
+    for op, b, tol in _k11_systems(cuda_device, band, dtype):
+        pad = op.padded_n - op.n
+        bd = torch.nn.functional.pad(torch.as_tensor(b, device=cuda_device), (0, pad))
+        x0 = 0.1 * _rand(cuda_device, op.padded_n, seed=4)
+        x0[op.n:] = 0.0
+        kw = dict(tol=tol, maxiter=min(4 * op.padded_n, 4000), precondition=pc,
+                  poly_degree=3 if pc == "poly" else 0)
+        x, k, rr = fused_dia_cg_solve_cuda(op.data, op.offsets, bd, x0, **kw)
+        xp, kp, _ = fused_dia_cg_solve_torch(op.data, op.offsets, bd, x0, **kw)
+        assert abs(int(k) - int(kp)) <= 1 and float(rr) < tol ** 2
+        assert scaled_err(x.cpu(), xp.cpu()) <= 1e-4
+        again = fused_dia_cg_solve_cuda(op.data, op.offsets, bd, x0, **kw)
+        assert all(torch.equal(u, v) for u, v in zip((x, k, rr), again))
 
 
 def test_k10_k11_refuse_what_they_cannot_run_on_card(cuda_device):

@@ -64,14 +64,15 @@ SIGNATURES = {
     ),
     "tpucg_fused_dia_cg_f32": (
         ctypes.c_int,
-        [_PTR, _PTR, ctypes.c_int] + [_PTR] * 7
+        [_PTR, _PTR, ctypes.c_int, ctypes.c_int, ctypes.c_int] + [_PTR] * 7
         + [_LEN, ctypes.c_float, _LEN, ctypes.c_int, ctypes.c_int, ctypes.c_int, _PTR],
     ),
     "tpucg_fused_dia_cg_bf16": (
         ctypes.c_int,
-        [_PTR, _PTR, ctypes.c_int] + [_PTR] * 7
+        [_PTR, _PTR, ctypes.c_int, ctypes.c_int, ctypes.c_int] + [_PTR] * 7
         + [_LEN, ctypes.c_float, _LEN, ctypes.c_int, ctypes.c_int, ctypes.c_int, _PTR],
     ),
+    "tpucg_fused_dia_grid": (ctypes.c_int, [_LEN, ctypes.c_int]),
     "tpucg_fused_sparse_scratch": (ctypes.c_longlong, [_LEN]),
     "tpucg_fused_batch_dia_cg_f32": (
         ctypes.c_int,

@@ -152,17 +152,22 @@ cudaError_t tpucg_fused_stencil_cg_f32(const void* b, const void* x0, void* x, v
 // K11: one whole banded CG / Jacobi (minv, npad floats) / poly-PCG solve of
 // the DIA matrix (data, host `offsets`) in one cooperative launch; b, x0, x
 // (npad,) f32, npad < 2^31; `scratch` holds tpucg_fused_sparse_scratch(npad)
-// floats. The slab is f32 or bf16.
-cudaError_t tpucg_fused_dia_cg_f32(const void* data, const void* offsets, int ndiag,
-                                   const void* b, const void* x0, const void* minv, void* x,
-                                   void* k, void* rr, void* scratch, long long npad, float tol,
-                                   long long maxiter, int safe_alpha, int precond, int degree,
-                                   void* stream);
-cudaError_t tpucg_fused_dia_cg_bf16(const void* data, const void* offsets, int ndiag,
-                                    const void* b, const void* x0, const void* minv, void* x,
-                                    void* k, void* rr, void* scratch, long long npad, float tol,
-                                    long long maxiter, int safe_alpha, int precond, int degree,
-                                    void* stream);
+// floats. The slab is f32 or bf16. [lo, hi] (-1024 <= lo <= 0 <= hi <= 1024,
+// fused.py dia_tile_plan) holds the offsets read from a tile's shared-memory
+// window; the others are read through L2.
+cudaError_t tpucg_fused_dia_cg_f32(const void* data, const void* offsets, int ndiag, int lo,
+                                   int hi, const void* b, const void* x0, const void* minv,
+                                   void* x, void* k, void* rr, void* scratch, long long npad,
+                                   float tol, long long maxiter, int safe_alpha, int precond,
+                                   int degree, void* stream);
+cudaError_t tpucg_fused_dia_cg_bf16(const void* data, const void* offsets, int ndiag, int lo,
+                                    int hi, const void* b, const void* x0, const void* minv,
+                                    void* x, void* k, void* rr, void* scratch, long long npad,
+                                    float tol, long long maxiter, int safe_alpha, int precond,
+                                    int degree, void* stream);
+// K11's cooperative grid for a padded length npad (bf16: the bf16 slab's
+// kernel) on the current device, or minus the CUDA error.
+int tpucg_fused_dia_grid(long long npad, int bf16);
 long long tpucg_fused_sparse_scratch(long long n);
 
 // K12: `batch` independent banded CG (diag = -1) or Jacobi-PCG (diag = the

@@ -20,9 +20,9 @@
 //
 // K4, K10 and K11 are one device recurrence (cg_recurrence, tpucg's shared
 // _cg_while) over an operator policy: DenseOp (K4), StencilOp (K10) and
-// DiaOp (K11). A policy owns the rows of the matvec and says which thread
-// owns which row; the recurrence, its scalars, syncs and preconditioners
-// are written once.
+// DiaTileOp (K11). A policy owns the rows of the matvec and says which
+// thread owns which row; the recurrence, its scalars, syncs and
+// preconditioners are written once.
 //
 // What bounds them on an H100 and what the design does about it:
 //
@@ -34,7 +34,8 @@
 // grid.sync(): two per lap, plus one per extra matvec of the poly
 // preconditioner. The grid is sized by the occupancy calculator times the
 // SM count (K4: capped at one warp per row; K10/K11: at one thread per
-// element): more blocks would own no row and only lengthen every sync.
+// element and kSparseMaxGrid): more blocks would own no row and only
+// lengthen every sync.
 //
 // Every block must take the same branch, or the next grid.sync() hangs. So
 // every scalar (p.Ap, r.r, r.z, the power method's norms) is reduced from
@@ -50,21 +51,46 @@
 // Vectors the launch writes (p, r, z, the power iterate) are read with
 // __ldcg (L2, never the read-only path or L1, which other SMs' writes do not
 // update); A, b, x0, the DIA slab and 1/diag are the only __ldg reads. The
-// matvec of a lap reads p = z + beta p_old on the fly at every row it
-// touches, so p needs no pass (and no sync) of its own: the row's owner
-// writes p to the other of two buffers while other blocks still read the
-// old one; z and the power iterate are double-buffered the same way.
+// matvec of a lap forms p = z + beta p_old on the fly where it reads it (K4
+// and K11: once per element, into shared memory), so p needs no pass (and
+// no sync) of its own: the row's owner writes p to the other of two buffers
+// while other blocks still read the old one; z and the power iterate are
+// double-buffered the same way.
 //
 // K4 (dense, n <= 4096) stages that input vector (<= 16 KB) in shared
 // memory, one warp owns one row (16-byte loads of A, four in flight per
 // lane, a fixed shuffle tree), and lane 0 of the row's warp owns that
 // element in every elementwise step. K10 and K11 keep x, r, p, Ap, z and the
 // power iterate in global memory (8 MiB each at m = 128: the 50 MB L2 holds
-// the lap's working set but not all of them); a thread owns elements in a
-// grid-stride loop and reads neighbours through L2. K10 computes the
-// stencil from the grid coordinates, so its lap moves vectors only; K11
-// streams its slab from device memory every lap (58.7 MB at m = 128 in f32,
-// above L2), the slab staying where the operator put it.
+// the lap's working set but not all of them). K10 computes the stencil from
+// the grid coordinates, so its lap moves vectors only; a thread owns
+// elements in a grid-stride loop and reads neighbours through L2.
+//
+// K11 streams its slab from device memory every lap (58.7 MB at m = 128 in
+// f32, above L2; 17.5 us at 3.35 TB/s), the slab staying where the operator
+// put it. Its lap is bound less by bytes than by chains of dependent loads:
+// at 4 blocks an SM (the recurrence's 64 registers) a thread walks ~16 rows
+// (m = 128) one memory round trip after another in each phase. The design:
+// - tiles of kDiaTileRows rows, dealt to the blocks in turn (DiaTileOp), so
+//   the grid sweeps the rows in order; for each tile the block evaluates the
+//   matvec's input g (p = z + beta p_old, the Neumann z, the power iterate,
+//   x0) once per element into a shared-memory window that spans the tile
+//   widened by the near offsets (|off| <= kDiaHalo: 0, +-1, +-m of the
+//   Poisson matrix), and each row reads those columns there; only the far
+//   offsets (+-m^2) read z and p_old through L2, where the sweep has them;
+// - a thread sums two rows at once and issues the loads of kDiaDiagsAPass
+//   diagonals before it adds them, and the window's loads S at a time;
+// - the slab is read evict-first (__ldcs), so the lap's vectors keep L2;
+// - __launch_bounds__(kBlock, kDiaMinBlocks) holds 4 blocks an SM (without
+//   it some builds took 78-80 registers and 3 blocks, 20-24% slower).
+// The split and the window are planned on the host (fused.py
+// dia_tile_plan); the window's size is fixed, so one occupancy count holds
+// for every launch. One contiguous run of n / grid rows a block, tried
+// first, was 19% slower at m = 160: the far columns left L2 between the
+// block that read them and the block that staged them. Left for later: the
+// update phase's two dependent round trips a row (x, then r: the
+// recurrence's pointers may alias), deferring x's update into the next
+// lap's matvec, keeping Ap of a block's rows in shared memory.
 //
 // K5 solves B independent systems, one block each (grid = B, no grid-wide
 // sync): x, r, p and Ap live in shared memory (4 x 8 KB at n = 2048) and A
@@ -98,6 +124,25 @@ constexpr int kBatchBlock = 1024;          // K5: one block of 32 warps a system
 constexpr int kPowerIters = 12;            // tpucg's in-kernel power method
 constexpr int kMaxDevices = 16;
 constexpr int kSparseMaxGrid = 4096;       // K10/K11: cap on blocks (sizes their partials)
+// K11's tile (tpucg_torch/kernels/fused.py DIA_TILE_ROWS, DIA_TILE_HALO):
+// rows a tile, a multiple of 2 kBlock; the largest |offset| read from the
+// staged window, which covers +-m of the Poisson matrix up to m = 1024;
+// and the window's floats, fixed so that one occupancy count holds for
+// every launch (12 KB: eight blocks an SM, the thread limit, still fit).
+// Tiles of 1024 and 2048 rows ran within 1% of each other at m = 128 and
+// 160, 512 rows 3-5% slower.
+constexpr int kDiaTileRows = 1024;
+constexpr int kDiaHalo = 1024;
+constexpr int kDiaWindow = kDiaTileRows + 2 * kDiaHalo;
+constexpr size_t kDiaSmem = kDiaWindow * sizeof(float);
+constexpr int kDiaDiagsAPass = 4;  // K11: diagonals whose loads a thread issues at once
+constexpr int kDiaStageAPass = 8;  // K11: window elements a thread loads at once
+constexpr int kDiaMinBlocks = 4;   // K11: blocks an SM must hold (64 registers a thread)
+
+// K11's slab read: read-only for the launch and read once a lap, so it is
+// marked evict-first (streaming): the lap's vectors keep their L2 lines.
+__device__ __forceinline__ float dia_slab_load(const float* p) { return __ldcs(p); }
+__device__ __forceinline__ uint16_t dia_slab_load(const uint16_t* p) { return __ldcs(p); }
 
 enum Precond : int { kNone = 0, kJacobi = 1, kPoly = 2 };
 
@@ -211,7 +256,7 @@ struct DenseOp {
   }
 };
 
-// Grid-stride ownership of K10 and K11: thread t owns t, t + T, ...
+// Grid-stride ownership of K10: thread t owns t, t + T, ...
 struct StrideRows {
   int n, tid, nthreads;
   __device__ StrideRows(int n_)
@@ -236,17 +281,98 @@ struct StencilOp : StrideRows {
   }
 };
 
-// K11: the DIA matrix (slab (ndiag, n), f32 or bf16), g evaluated at every
-// column a row touches.
+// K11: the DIA matrix (slab (ndiag, n), f32 or bf16) in tiles of
+// kDiaTileRows contiguous rows: tile k = [k T, min((k + 1) T, n)) belongs to
+// block k % grid (a block may own none), and thread t owns rows
+// k T + t + kBlock j of its tiles in every phase, so the grid sweeps the
+// rows in order like a grid-stride loop and a far column (+-m^2) is read
+// while its neighbours are in L2. matvec stages g over a tile's window
+// [t0 + lo, t1 + hi) in shared memory, once per element (0 outside [0, n),
+// dia_row's rule); a row reads column i + off from there when lo <= off <=
+// hi (the near offsets, all within kDiaHalo) and through g otherwise (the
+// far ones). Each row's sum is dia_sum's, term by term in offsets order, so
+// (A v)_i is dia_row's bit for bit. A thread sums two rows at once and
+// issues the slab and column loads of kDiaDiagsAPass diagonals before it
+// adds them, keeping the slab's raw values until the sum (a bf16 value
+// widened where it lands made each load wait for the last).
 template <typename T>
-struct DiaOp : StrideRows {
+struct DiaTileOp {
   const T* __restrict__ data;
   const DiaOffsets& offs;
-  __device__ DiaOp(const T* data_, const DiaOffsets& offs_, int n_)
-      : StrideRows(n_), data(data_), offs(offs_) {}
+  float* win;  // kDiaWindow floats of dynamic shared memory
+  int n, lo, hi;
+  int first, step;  // this block's first tile's row, the rows between its tiles
+  __device__ DiaTileOp(const T* data_, const DiaOffsets& offs_, float* win_, int n_, int lo_,
+                       int hi_)
+      : data(data_), offs(offs_), win(win_), n(n_), lo(lo_), hi(hi_),
+        first(static_cast<int>(blockIdx.x) * kDiaTileRows),
+        step(static_cast<int>(gridDim.x) * kDiaTileRows) {}
   template <class G, class F>
   __device__ __forceinline__ void matvec(G g, F f) const {
-    for (int i = tid; i < n; i += nthreads) f(i, g(i), dia_row(data, n, offs, i, g));
+    constexpr int D = kDiaDiagsAPass;
+    constexpr int S = kDiaStageAPass;
+    for (int t0 = first; t0 < n; t0 += step) {
+      const int t1 = min(t0 + kDiaTileRows, n);
+      const int base = t0 + lo;
+      const int len = t1 - t0 + hi - lo;
+      if (t0 != first) __syncthreads();  // every row of the last tile is summed
+      for (int j0 = threadIdx.x; j0 < len; j0 += S * kBlock) {
+        // g at an index clamped into [0, n), with no branch around it, so
+        // that every load of the S elements is in flight before any is used.
+        float v[S];
+#pragma unroll
+        for (int u = 0; u < S; ++u) v[u] = g(min(max(base + j0 + u * kBlock, 0), n - 1));
+#pragma unroll
+        for (int u = 0; u < S; ++u) {
+          const int j = j0 + u * kBlock;
+          if (j < len) win[j] = (base + j >= 0 && base + j < n) ? v[u] : 0.f;
+        }
+      }
+      __syncthreads();
+      for (int i0 = t0 + threadIdx.x; i0 < t1; i0 += 2 * kBlock) {
+        const int i1 = i0 + kBlock;
+        const bool has1 = i1 < t1;
+        float acc0 = 0.f, acc1 = 0.f;
+        for (int d0 = 0; d0 < offs.ndiag; d0 += D) {
+          T a0[D], a1[D];  // raw: widened where they are summed
+          float x0[D], x1[D];
+#pragma unroll
+          for (int e = 0; e < D; ++e) {
+            a0[e] = T(0);
+            a1[e] = T(0);
+            x0[e] = 0.f;
+            x1[e] = 0.f;
+            if (d0 + e < offs.ndiag) {
+              const long long off = offs.off[d0 + e];
+              const T* col = data + static_cast<long long>(d0 + e) * n;
+              const long long c0 = i0 + off, c1 = i1 + off;
+              a0[e] = dia_slab_load(col + i0);
+              if (has1) a1[e] = dia_slab_load(col + i1);
+              if (off >= lo && off <= hi) {
+                x0[e] = win[c0 - base];
+                if (has1) x1[e] = win[c1 - base];
+              } else {
+                x0[e] = (c0 >= 0 && c0 < n) ? g(c0) : 0.f;
+                if (has1) x1[e] = (c1 >= 0 && c1 < n) ? g(c1) : 0.f;
+              }
+            }
+          }
+#pragma unroll
+          for (int e = 0; e < D; ++e)
+            if (d0 + e < offs.ndiag) {
+              acc0 = __fadd_rn(acc0, __fmul_rn(widen(a0[e]), x0[e]));
+              acc1 = __fadd_rn(acc1, __fmul_rn(widen(a1[e]), x1[e]));
+            }
+        }
+        f(i0, win[i0 - base], acc0);
+        if (has1) f(i1, win[i1 - base], acc1);
+      }
+    }
+  }
+  template <class F>
+  __device__ __forceinline__ void each(F f) const {
+    for (int t0 = first; t0 < n; t0 += step)
+      for (int i = t0 + threadIdx.x; i < min(t0 + kDiaTileRows, n); i += kBlock) f(i);
   }
 };
 
@@ -440,10 +566,11 @@ fused_stencil_cg_kernel(const __grid_constant__ SolveArgs s, int m) {
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(kBlock, kDiaMinBlocks)
 fused_dia_cg_kernel(const __grid_constant__ SolveArgs s, const T* __restrict__ data,
-                    const __grid_constant__ DiaOffsets offs) {
-  const DiaOp<T> op(data, offs, s.n);
+                    const __grid_constant__ DiaOffsets offs, int lo, int hi) {
+  extern __shared__ float dia_window[];  // kDiaWindow floats
+  const DiaTileOp<T> op(data, offs, dia_window, s.n, lo, hi);
   cg_recurrence(op, s);
 }
 
@@ -736,28 +863,37 @@ SolveArgs solve_args(const void* b, const void* x0, const void* minv, void* x, v
                    safe_alpha, precond, degree};
 }
 
+// K11's cooperative grid at its fixed shared memory (the same for the
+// launch and for tpucg_fused_dia_grid).
 template <typename T>
-cudaError_t launch_fused_dia(const void* data, const void* offsets, int ndiag, const void* b,
-                             const void* x0, const void* minv, void* x, void* k, void* rr,
-                             void* scratch, long long npad, float tol, long long maxiter,
-                             int safe_alpha, int precond, int degree, void* stream, int key) {
+cudaError_t dia_grid(long long npad, int* grid) {
+  return coop_grid((const void*)fused_dia_cg_kernel<T>, kDiaSmem,
+                   sizeof(T) == 2 ? kKeyDiaBf16 : kKeyDiaF32, sparse_grid_cap(npad), grid);
+}
+
+template <typename T>
+cudaError_t launch_fused_dia(const void* data, const void* offsets, int ndiag, int lo, int hi,
+                             const void* b, const void* x0, const void* minv, void* x, void* k,
+                             void* rr, void* scratch, long long npad, float tol,
+                             long long maxiter, int safe_alpha, int precond, int degree,
+                             void* stream) {
   if (ndiag < 1 || ndiag > kDiaMaxDiags || npad <= 0 || npad > kMaxIntRows ||
-      offsets == nullptr || precond < kNone || precond > kPoly ||
-      (precond == kJacobi && minv == nullptr) || (precond == kPoly && degree < 1))
+      offsets == nullptr || lo > 0 || hi < 0 || lo < -kDiaHalo || hi > kDiaHalo ||
+      precond < kNone || precond > kPoly || (precond == kJacobi && minv == nullptr) ||
+      (precond == kPoly && degree < 1))
     return cudaErrorInvalidValue;
   DiaOffsets offs{};
   offs.ndiag = ndiag;
   const long long* host = static_cast<const long long*>(offsets);
   for (int d = 0; d < ndiag; ++d) offs.off[d] = host[d];
-  const void* kernel = (const void*)fused_dia_cg_kernel<T>;
   int grid = 0;
-  cudaError_t err = coop_grid(kernel, 0, key, sparse_grid_cap(npad), &grid);
+  cudaError_t err = dia_grid<T>(npad, &grid);
   if (err != cudaSuccess) return err;
   SolveArgs sa = solve_args(b, x0, minv, x, k, rr, scratch, npad, tol, maxiter, safe_alpha,
                             precond, degree);
   const T* slab = static_cast<const T*>(data);
-  void* args[] = {&sa, &slab, &offs};
-  return coop_launch(kernel, grid, 0, args, stream);
+  void* args[] = {&sa, &slab, &offs, &lo, &hi};
+  return coop_launch((const void*)fused_dia_cg_kernel<T>, grid, kDiaSmem, args, stream);
 }
 
 }  // namespace
@@ -812,25 +948,33 @@ extern "C" cudaError_t tpucg_fused_stencil_cg_f32(const void* b, const void* x0,
 }
 
 extern "C" cudaError_t tpucg_fused_dia_cg_f32(const void* data, const void* offsets, int ndiag,
-                                              const void* b, const void* x0, const void* minv,
-                                              void* x, void* k, void* rr, void* scratch,
-                                              long long npad, float tol, long long maxiter,
-                                              int safe_alpha, int precond, int degree,
-                                              void* stream) {
-  return tpucg::launch_fused_dia<float>(data, offsets, ndiag, b, x0, minv, x, k, rr, scratch,
-                                        npad, tol, maxiter, safe_alpha, precond, degree, stream,
-                                        tpucg::kKeyDiaF32);
+                                              int lo, int hi, const void* b, const void* x0,
+                                              const void* minv, void* x, void* k, void* rr,
+                                              void* scratch, long long npad, float tol,
+                                              long long maxiter, int safe_alpha, int precond,
+                                              int degree, void* stream) {
+  return tpucg::launch_fused_dia<float>(data, offsets, ndiag, lo, hi, b, x0, minv, x, k, rr,
+                                        scratch, npad, tol, maxiter, safe_alpha, precond, degree,
+                                        stream);
 }
 
 extern "C" cudaError_t tpucg_fused_dia_cg_bf16(const void* data, const void* offsets, int ndiag,
-                                               const void* b, const void* x0, const void* minv,
-                                               void* x, void* k, void* rr, void* scratch,
-                                               long long npad, float tol, long long maxiter,
-                                               int safe_alpha, int precond, int degree,
-                                               void* stream) {
-  return tpucg::launch_fused_dia<uint16_t>(data, offsets, ndiag, b, x0, minv, x, k, rr,
+                                               int lo, int hi, const void* b, const void* x0,
+                                               const void* minv, void* x, void* k, void* rr,
+                                               void* scratch, long long npad, float tol,
+                                               long long maxiter, int safe_alpha, int precond,
+                                               int degree, void* stream) {
+  return tpucg::launch_fused_dia<uint16_t>(data, offsets, ndiag, lo, hi, b, x0, minv, x, k, rr,
                                            scratch, npad, tol, maxiter, safe_alpha, precond,
-                                           degree, stream, tpucg::kKeyDiaBf16);
+                                           degree, stream);
+}
+
+extern "C" int tpucg_fused_dia_grid(long long npad, int bf16) {
+  using namespace tpucg;
+  if (npad <= 0 || npad > kMaxIntRows) return -static_cast<int>(cudaErrorInvalidValue);
+  int grid = 0;
+  const cudaError_t err = bf16 ? dia_grid<uint16_t>(npad, &grid) : dia_grid<float>(npad, &grid);
+  return err == cudaSuccess ? grid : -static_cast<int>(err);
 }
 
 extern "C" cudaError_t tpucg_fused_batch_cg_f32(const void* A, const void* b, const void* x0,

@@ -16,6 +16,8 @@ in-kernel GEMV; it has no counterpart on the card and is dropped.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from tpucg_torch.kernels import _lib
@@ -61,6 +63,15 @@ FUSED_DIA_AUTO_MAX_N = 160 ** 3
 # kFusedBatchDiaMaxN). tpucg's VMEM rule (fused_batch_dia_supported,
 # fused.py:680) is a TPU rule and does not apply.
 FUSED_BATCH_DIA_MAX_N = 14464
+
+# K11's tile, compiled into the kernel (csrc/fused.cu kDiaTileRows,
+# kDiaHalo): the rows go in tiles of DIA_TILE_ROWS, dealt to the blocks in
+# turn, and a block stages the matvec's input over each tile's rows widened
+# by the near offsets, those within DIA_TILE_HALO (+-m of the Poisson matrix
+# up to m = 1024), in a fixed window of DIA_TILE_ROWS + 2 DIA_TILE_HALO
+# floats of shared memory.
+DIA_TILE_ROWS = 1024
+DIA_TILE_HALO = 1024
 
 _PRECOND_CODE = {"none": 0, "jacobi": 1, "poly": 2}
 
@@ -239,6 +250,65 @@ def check_fused_dia(data, offsets, b, x0, precondition, poly_degree) -> None:
         _check_vector(name, v, (npad,), data)
 
 
+@dataclasses.dataclass(frozen=True)
+class DiaTilePlan:
+    """How K11 reads a DIA matrix: ``near`` (|offset| <= ``halo``) and
+    ``far`` split ``offsets``, each in offsets order; a tile of rows [t0, t1)
+    stages the matvec's input over [t0 + lo, t1 + hi), lo and hi the least
+    and largest near offset or 0, and reads the far columns through L2."""
+
+    npad: int
+    offsets: tuple
+    near: tuple
+    far: tuple
+    lo: int
+    hi: int
+    tile: int = DIA_TILE_ROWS
+    halo: int = DIA_TILE_HALO
+
+    @property
+    def smem_bytes(self) -> int:
+        """Dynamic shared memory of a block: the fixed window, f32."""
+        return 4 * (self.tile + 2 * self.halo)
+
+    @property
+    def ntiles(self) -> int:
+        return -(-self.npad // self.tile)
+
+    def tiles(self, grid: int):
+        """The kernel's tiles, (block, t0, t1) in row order: tile k = [k tile,
+        min((k + 1) tile, npad)) belongs to block k % ``grid``."""
+        for k in range(self.ntiles):
+            yield k % grid, k * self.tile, min((k + 1) * self.tile, self.npad)
+
+
+def dia_tile_plan(npad: int, offsets) -> DiaTilePlan:
+    """K11's plan for a DIA matrix of padded length ``npad``: the near/far
+    split of ``offsets`` and the window. Raises for what K11 cannot run: no
+    diagonal or more than 64, a length outside [1, ``FUSED_DIA_MAX_N``]."""
+    offsets = tuple(int(o) for o in offsets)
+    if not fused_dia_supported(int(npad), offsets):
+        raise ValueError(
+            f"K11 cannot plan n={npad}, ndiag={len(offsets)} (1 to {DIA_MAX_DIAGS} diagonals, "
+            f"1 <= n <= {FUSED_DIA_MAX_N})"
+        )
+    near = tuple(o for o in offsets if abs(o) <= DIA_TILE_HALO)
+    far = tuple(o for o in offsets if abs(o) > DIA_TILE_HALO)
+    return DiaTilePlan(npad=int(npad), offsets=offsets, near=near, far=far,
+                       lo=min(near + (0,)), hi=max(near + (0,)))
+
+
+def fused_dia_grid(npad: int, dtype=torch.float32) -> int:
+    """The blocks of K11's cooperative launch at padded length ``npad`` on the
+    current CUDA device (``dtype`` the slab's): the occupancy calculator's
+    blocks an SM at the window's shared memory times the SMs, at most one
+    block per 256 rows and 4096."""
+    grid = int(_lib.load().tpucg_fused_dia_grid(int(npad), int(dtype == torch.bfloat16)))
+    if grid < 1:
+        _lib.check(-grid, "fused_dia_grid")
+    return grid
+
+
 def dia_minv(data, offsets) -> torch.Tensor:
     """1/diag from the slab's main diagonal (1 where it is 0), f32: the
     Jacobi inverse K11 and K12 and their plain versions read, as tpucg's
@@ -319,18 +389,21 @@ def fused_dia_cg_solve_cuda(data, offsets, b, x0, *, tol, maxiter, safe_alpha=Tr
     """K11 on the card: one cooperative launch runs the whole banded CG /
     Jacobi / poly-PCG solve of the DIA matrix (``data`` (ndiag, npad) f32 or
     bf16 on the card, ``offsets`` its ndiag offsets). The slab streams from
-    where it lies every lap and is never copied. ``b`` and ``x0`` are
-    (npad,) f32. Raises if the card refuses the launch."""
+    where it lies every lap and is never copied; each block owns a run of
+    rows and reads the near offsets' columns from shared memory
+    (``dia_tile_plan``). ``b`` and ``x0`` are (npad,) f32. Raises if the
+    card refuses the launch."""
     check_fused_dia(data, offsets, b, x0, precondition, poly_degree)
-    _require_cuda("fused_dia_cg_solve_cuda", data, b, x0)
     npad = data.shape[1]
+    plan = dia_tile_plan(npad, offsets)
+    _require_cuda("fused_dia_cg_solve_cuda", data, b, x0)
     minv = dia_minv(data, offsets) if precondition == "jacobi" else None
     offs = offsets_array(offsets)
     x, k, rr, scratch = _solve_outputs(npad, b)
     lib = _lib.load()
     fn = lib.tpucg_fused_dia_cg_f32 if data.dtype == torch.float32 else lib.tpucg_fused_dia_cg_bf16
     err = fn(
-        data.data_ptr(), offs.ctypes.data, offs.size, b.data_ptr(), x0.data_ptr(),
+        data.data_ptr(), offs.ctypes.data, offs.size, plan.lo, plan.hi, b.data_ptr(), x0.data_ptr(),
         None if minv is None else minv.data_ptr(), x.data_ptr(), k.data_ptr(), rr.data_ptr(),
         scratch.data_ptr(), npad, float(tol), int(maxiter), int(bool(safe_alpha)),
         _PRECOND_CODE[precondition], int(poly_degree), cuda_stream(b),
