@@ -49,14 +49,19 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    version), ``kernel="torch"`` (the plain route on the card, no kernel),
    jacobi on DIA and poly (degree 3) on both; every solve converges with a
    float64 true residual ||b - A x|| / ||b|| <= 2e-5 and within a lap of the
-   plain route; times per solve. K11 (a block owns a run of rows and
-   stages the matvec's input once per element in shared memory) at m = 128
-   f32 without a preconditioner takes 71 laps; its lines give µs a lap, the
-   tile (T, H, the window), the grid, the shared bytes, the slab's µs a lap
-   at the HBM peak and K6's µs a launch, f32 and bf16. Then the gate table:
+   plain route; times per solve. K10 and K11 (rows in tiles dealt to the
+   blocks in turn, the matvec's input staged once per element in shared
+   memory) at m = 128 f32 without a preconditioner take 71 laps. K10's line
+   (``bench.k10_lap``) gives µs a lap, the lap's vector bytes at the HBM peak
+   and their share, the tile (T, H, the window), the grid, the shared bytes
+   and K8's µs a launch; K11's lines (``bench.k11_lap``) the same with the
+   slab's µs a lap at the HBM peak and K6's µs a launch, f32 and bf16. Then
+   the gate table:
    ``fused="always"`` against ``"never"`` at m = 16 ... 192 (stencil) and
    32 ... 160 (DIA f32 and bf16), medians of 5, each arm twice in turns.
-11. whole-solve K10/K11 vs plain at m = 16, 32, 64 with a nonzero x0, and
+11. whole-solve K10/K11 vs plain at m = 16, 32, 33, 64 with a nonzero x0
+   (m = 32 stages the +-m^2 neighbours in shared memory, m = 33 reads them
+   through L2), and
    K11 on a band with far offsets (+-40,000 at n = 100,000, read through L2
    beside the staged +-1), f32 and bf16: laps within one, x within 1e-4 of
    max |x|, repeats bit-identical.
@@ -188,7 +193,7 @@ def main() -> int:
         run_world,
     )
 
-    from tpucg_torch.bench import k11_lap
+    from tpucg_torch.bench import k10_lap, k11_lap
     from tpucg_torch.bench import probe_gather as pg
     from tpucg_torch.bench.timing import (
         csr_spmv_bytes,
@@ -871,10 +876,12 @@ def main() -> int:
             require(c > 0, f"main path: {name} never launched")
         counts.update(main)
         print(f"main-path launches: {main}")
-        # K10 / K11 alone against their plain versions at m = 128 (none).
+        # K10 / K11 alone against their plain versions at m = 128 (none);
+        # K10 timed by its lap driver, beside K8 (phase 9, this call).
         z = torch.zeros_like(b)
         kw = dict(tol=tol, maxiter=maxiter)
         opf = ops128[f32]
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
         for kid, fk, fp, mvf, nbytes in (
             ("K10", lambda: fused_stencil_cg_solve_cuda(b, z, m, **kw),
              lambda: fused_stencil_cg_solve_torch(b, z, m, **kw), 7 * m ** 3, 12 * m ** 3),
@@ -885,7 +892,16 @@ def main() -> int:
             (x, k, _), (xp, kp, _) = fk(), fp()
             e = float((x - xp).abs().max())
             err[kid] = max(x_err[kid], e)
-            tk, tp = time_fn(fk, warmup=1, iters=5), time_fn(fp, warmup=0, iters=5)
+            if kid == "K10":
+                r = k10_lap.measure(m, b, z, tol=tol, maxiter=maxiter, peak=peak)
+                require(r["laps"] == int(k) == 71, f"K10 m={m} none: {r['laps']} laps, not 71")
+                require(torch.equal(r["x"], x), f"K10 m={m} none: repeat differs")
+                tk = r["t"]
+                print(k10_lap.line(f"K10 m={m} none", r, sms)
+                      + f"; K8 {times['K8'][0] * 1e6:.3f} us a launch {tag}")
+            else:
+                tk = time_fn(fk, warmup=1, iters=5)
+            tp = time_fn(fp, warmup=0, iters=5)
             times[kid] = (tk.median, tp.median)
             bounds[kid] = bound_of(nbytes, cg_flops(m ** 3, int(k), mvf))
             print(f"{kid} m={m} none: {int(k)} laps (plain {int(kp)}), max abs err vs plain "
@@ -894,7 +910,6 @@ def main() -> int:
                   f"({bounds[kid][1]}) {tag}")
         # K11's tiles at m = 128, f32 and bf16: its plan and grid, and the lap
         # beside the slab's bytes at the HBM peak and K6 (phase 9, this call).
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
         for dt, name in ((f32, "f32"), (bf16, "bf16")):
             r = k11_lap.measure(ops128[dt], b, z, tol=tol, maxiter=maxiter, peak=peak)
             require(dt != f32 or r["laps"] == 71, f"K11 m={m} f32 none: {r['laps']} laps, not 71")
@@ -929,7 +944,8 @@ def main() -> int:
             del op
 
     with phase("whole-solve K10/K11 vs plain"):
-        for mm in (16, 32, 64):
+        # m = 32 stages +-m^2 in the tiles' windows, m = 33 reads it through L2.
+        for mm in (16, 32, 33, 64):
             b, x0 = poisson_rhs(mm, x0_scale=0.1)
             tol, maxiter = 1e-5 * float(b.norm()), poisson_maxiter(mm)
             cases = [("K10", pc, None) for pc in ("none", "poly")]
@@ -942,9 +958,12 @@ def main() -> int:
                     fp = lambda: fused_stencil_cg_solve_torch(b, x0, mm, **kw)  # noqa: E731
                     what = f"K10 m={mm} {pc}"
                 else:
+                    # The slab is padded to a multiple of 128 rows (m = 33),
+                    # its tail the identity: b and x0 get zeros there.
                     op = DiaOperator.from_dia(poisson3d_dia(mm), storage_dtype=dt, device=dev)
-                    fk = lambda: fused_dia_cg_solve_cuda(op.data, op.offsets, b, x0, **kw)  # noqa: E731,E501
-                    fp = lambda: fused_dia_cg_solve_torch(op.data, op.offsets, b, x0, **kw)  # noqa: E731,E501
+                    bd, x0d = (pad_to(t, op.padded_n) for t in (b, x0))
+                    fk = lambda: fused_dia_cg_solve_cuda(op.data, op.offsets, bd, x0d, **kw)  # noqa: E731,E501
+                    fp = lambda: fused_dia_cg_solve_torch(op.data, op.offsets, bd, x0d, **kw)  # noqa: E731,E501
                     what = f"K11 m={mm} {'f32' if dt == f32 else 'bf16'} {pc}"
                 (x, k, rr), (xp, kp, _) = fk(), fp()
                 e, se = float((x - xp).abs().max()), scaled_err(x.cpu(), xp.cpu())

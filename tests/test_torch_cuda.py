@@ -43,6 +43,7 @@ from tpucg_torch.kernels.fused import (
     fused_dia_cg_solve_cuda,
     fused_dia_grid,
     fused_stencil_cg_solve_cuda,
+    fused_stencil_grid,
 )
 from tpucg_torch.kernels.gather_spmv import (
     well_rows,
@@ -410,19 +411,50 @@ def _poisson_rhs(dev, m, seed):
 
 # Whole solves against their plain versions: sums in other orders, so laps
 # within one (tpucg's own bound, tests/test_fused.py:167) and x within 1e-4
-# of max |x|.
-@pytest.mark.parametrize("m", [10, 16, 24])
-@pytest.mark.parametrize("pc", ["none", "poly"])
-def test_k10_matches_plain_on_card(cuda_device, m, pc):
-    b, x0 = _poisson_rhs(cuda_device, m, seed=m)
+# of max |x|. K10's cases: one tile (m = 10), the near/far switch of +-m^2
+# (32: staged, 33: read through L2), a partial last tile (m = 101,
+# 1,030,301 rows); "cache": m = 10 and 101 in turn in one process (one
+# occupancy count for every m).
+def _k10_case(dev, m, pc):
+    b, x0 = _poisson_rhs(dev, m, seed=m)
     tol = 1e-5 * float(b.norm())
-    kw = dict(tol=tol, maxiter=4 * m ** 3, precondition=pc, poly_degree=3 if pc == "poly" else 0)
+    kw = dict(tol=tol, maxiter=min(4 * m ** 3, 4000), precondition=pc,
+              poly_degree=3 if pc == "poly" else 0)
     x, k, rr = fused_stencil_cg_solve_cuda(b, x0, m, **kw)
     xp, kp, _ = fused_stencil_cg_solve_torch(b, x0, m, **kw)
     assert abs(int(k) - int(kp)) <= 1 and float(rr) < tol ** 2
     assert scaled_err(x.cpu(), xp.cpu()) <= 1e-4
     again = fused_stencil_cg_solve_cuda(b, x0, m, **kw)
     assert all(torch.equal(u, v) for u, v in zip((x, k, rr), again))
+
+
+@pytest.mark.parametrize("m", [10, 16, 24, 32, 33, 101, "cache"])
+@pytest.mark.parametrize("pc", ["none", "poly"])
+def test_k10_matches_plain_on_card(cuda_device, m, pc):
+    for mm in ((10, 101, 10) if m == "cache" else (m,)):
+        _k10_case(cuda_device, mm, pc)
+
+
+def test_k10_grid_on_card(cuda_device):
+    # At most one block per 256 rows; else the occupancy count at the
+    # window's shared bytes, at least the 4 blocks an SM of the launch bounds.
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert fused_stencil_grid(10) == 4 and fused_stencil_grid(2) == 1
+    grid = fused_stencil_grid(128)
+    assert grid % sms == 0 and grid // sms >= 4 and grid == fused_stencil_grid(192)
+
+
+# One lap against the plain version: a wrong window or a wrong far column
+# shows in x at once; alpha's sums in another order leave x within 1e-6 of
+# max |x|.
+@pytest.mark.parametrize("m", [2, 10, 32, 33, 101])
+def test_k10_one_lap_matches_plain_on_card(cuda_device, m):
+    b, x0 = _poisson_rhs(cuda_device, m, seed=m + 1)
+    kw = dict(tol=0.0, maxiter=1)
+    x, k, _ = fused_stencil_cg_solve_cuda(b, x0, m, **kw)
+    xp, kp, _ = fused_stencil_cg_solve_torch(b, x0, m, **kw)
+    assert int(k) == int(kp) == 1
+    assert scaled_err(x.cpu(), xp.cpu()) <= 1e-6
 
 
 def _k11_systems(dev, band, dtype):

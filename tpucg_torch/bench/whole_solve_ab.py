@@ -1,0 +1,128 @@
+"""Parent against change for the whole-solve kernels K4, K10 and K11 on one
+card: the same solves run from two checkouts of the package in turns
+(parent, change, change, parent), each run in a process of its own that
+builds that checkout's kernels, and the results set side by side.
+
+    python tpucg_torch/bench/whole_solve_ab.py PARENT_ROOT CHANGE_ROOT
+
+Run it by path, not with ``-m``: a run's process gets its checkout's root as
+``PYTHONPATH`` and working directory, so ``tpucg_torch`` is that
+checkout's, and it calls only entry points both checkouts have. The cases:
+K4 at n = 1000 and 4096 (``generate_spd_system``, seed 0, tol 1e-6) with
+precondition none, jacobi and poly (degree 3); K10 at m = 128 with none and
+poly; K11 at m = 128, f32 and bf16 slabs, none, jacobi and poly (tpucg's
+Poisson bench system, tol 1e-5 ||b||, x0 = 0). For each case it prints the
+laps and the median ms of 5 solves (CUDA events, after one warm-up) of the
+four runs, whether x and the laps of parent and change are bit-identical,
+the largest |x_change - x_parent| over max |x_parent|, and whether each
+checkout repeats itself bit for bit; then the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+from typing import Optional, Sequence
+
+
+def worker(out: str) -> None:
+    """Every case's laps, x and median ms, from the ``tpucg_torch`` on the
+    path, saved to ``out`` with ``torch.save``."""
+    import torch
+
+    from tpucg_torch.bench.k11_lap import poisson_rhs
+    from tpucg_torch.bench.timing import time_fn
+    from tpucg_torch.io.generator import generate_spd_system, poisson3d_dia
+    from tpucg_torch.kernels.dispatch import strict_f32
+    from tpucg_torch.kernels.fused import (
+        fused_cg_solve_cuda,
+        fused_dia_cg_solve_cuda,
+        fused_stencil_cg_solve_cuda,
+    )
+    from tpucg_torch.solver.operators import DenseOperator, DiaOperator
+
+    strict_f32()
+    dev = torch.device("cuda", 0)
+    cases = {}
+    for n in (1000, 4096):
+        A, b, x0 = generate_spd_system(n, seed=0)
+        op = DenseOperator.create(A, device=dev)
+        pad = op.padded_n - n
+        bp = torch.nn.functional.pad(torch.as_tensor(b, device=dev), (0, pad))
+        x0p = torch.nn.functional.pad(torch.as_tensor(x0, device=dev), (0, pad))
+        d = op.diagonal()
+        minv = torch.where(d != 0, 1.0 / d, 1.0)
+        for pc in ("none", "jacobi", "poly"):
+            kw = dict(tol=1e-6, maxiter=n, precondition=pc, poly_degree=3 if pc == "poly" else 0,
+                      minv=minv if pc == "jacobi" else None)
+            cases[f"K4 n={n} {pc}"] = (lambda A_=op.A, b_=bp, x_=x0p, kw_=kw:
+                                       fused_cg_solve_cuda(A_, b_, x_, **kw_))
+    m = 128
+    b = poisson_rhs(m, dev)
+    z = torch.zeros_like(b)
+    tol, maxiter = 1e-5 * float(b.norm()), 8 * m + 200
+    for pc in ("none", "poly"):
+        kw = dict(tol=tol, maxiter=maxiter, precondition=pc, poly_degree=3 if pc == "poly" else 0)
+        cases[f"K10 m={m} {pc}"] = lambda kw_=kw: fused_stencil_cg_solve_cuda(b, z, m, **kw_)
+    for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        op = DiaOperator.from_dia(poisson3d_dia(m), storage_dtype=dt, device=dev)
+        for pc in ("none", "jacobi", "poly"):
+            kw = dict(tol=tol, maxiter=maxiter, precondition=pc,
+                      poly_degree=3 if pc == "poly" else 0)
+            cases[f"K11 m={m} {name} {pc}"] = (
+                lambda op_=op, kw_=kw: fused_dia_cg_solve_cuda(op_.data, op_.offsets, b, z, **kw_))
+    results = {}
+    for label, fn in cases.items():
+        x, k, _ = fn()
+        results[label] = (int(k), x.cpu(), time_fn(fn, warmup=1, iters=5).median * 1e3)
+    torch.save(results, out)
+
+
+def compare(roots: Sequence[str], outs: Sequence[str]) -> None:
+    """Runs 0 and 3 are the parent, 1 and 2 the change."""
+    import torch
+
+    runs = [torch.load(o) for o in outs]
+    print(f"parent {roots[0]}, change {roots[1]}; runs: parent, change, change, parent")
+    for label in runs[0]:
+        (kp, xp, _), (kc, xc, _) = runs[0][label], runs[1][label]
+        err = float((xc - xp).abs().max()) / float(xp.abs().max())
+        ms = " / ".join(f"{r[label][2]:.5f}" for r in runs)
+        laps = " / ".join(str(r[label][0]) for r in runs)
+        same = kp == kc and torch.equal(xp, xc)
+        repeat = all(runs[i][label][0] == runs[j][label][0]
+                     and torch.equal(runs[i][label][1], runs[j][label][1]) for i, j in ((0, 3), (1, 2)))
+        print(f"  {label}: laps {laps}; ms {ms}; parent = change bit for bit: {same}; max |x_c - "
+              f"x_p| / max |x_p| = {err:.3e}; each repeats itself: {repeat}", flush=True)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("roots", nargs="*", help="PARENT_ROOT CHANGE_ROOT")
+    ap.add_argument("--worker", metavar="OUT", help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.worker:
+        worker(args.worker)
+        return 0
+    if len(args.roots) != 2:
+        ap.error("give PARENT_ROOT and CHANGE_ROOT")
+    parent, change = (str(Path(r).resolve()) for r in args.roots)
+    order = (parent, change, change, parent)
+    with tempfile.TemporaryDirectory(dir=change) as tmp:
+        outs = [os.path.join(tmp, f"run{i}.pt") for i in range(4)]
+        for root, out in zip(order, outs):
+            env = dict(os.environ, PYTHONPATH=root)
+            subprocess.run([sys.executable, str(Path(__file__).resolve()), "--worker", out],
+                           cwd=root, env=env, check=True)
+        compare(order, outs)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

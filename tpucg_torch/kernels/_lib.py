@@ -60,8 +60,10 @@ SIGNATURES = {
     "tpucg_poisson3d_slab_f32": (ctypes.c_int, [_PTR] * 4 + [_LEN, _LEN, _PTR, _PTR]),
     "tpucg_fused_stencil_cg_f32": (
         ctypes.c_int,
-        [_PTR] * 6 + [_LEN, ctypes.c_float, _LEN, ctypes.c_int, ctypes.c_int, ctypes.c_int, _PTR],
+        [_PTR] * 6 + [_LEN, ctypes.c_int, ctypes.c_int, ctypes.c_float, _LEN, ctypes.c_int,
+                      ctypes.c_int, ctypes.c_int, _PTR],
     ),
+    "tpucg_fused_stencil_grid": (ctypes.c_int, [_LEN]),
     "tpucg_fused_dia_cg_f32": (
         ctypes.c_int,
         [_PTR, _PTR, ctypes.c_int, ctypes.c_int, ctypes.c_int] + [_PTR] * 7

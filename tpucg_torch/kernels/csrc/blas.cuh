@@ -143,11 +143,17 @@ cudaError_t tpucg_poisson3d_slab_f32(const void* u, const void* lo, const void* 
 
 // K10: one whole matrix-free Poisson CG (precond 0) or poly-PCG (2) solve on
 // an m^3 grid in one cooperative launch; b, x0, x (m^3,) f32; `scratch`
-// holds tpucg_fused_sparse_scratch(m^3) floats.
+// holds tpucg_fused_sparse_scratch(m^3) floats. [lo, hi] = [-hi, hi] (hi
+// one of 1, m, m^2 and <= 1024, fused.py stencil_tile_plan) holds the
+// neighbour offsets read from a tile's shared-memory window; the others are
+// read through L2.
 cudaError_t tpucg_fused_stencil_cg_f32(const void* b, const void* x0, void* x, void* k,
-                                       void* rr, void* scratch, long long m, float tol,
-                                       long long maxiter, int safe_alpha, int precond,
-                                       int degree, void* stream);
+                                       void* rr, void* scratch, long long m, int lo, int hi,
+                                       float tol, long long maxiter, int safe_alpha,
+                                       int precond, int degree, void* stream);
+// K10's cooperative grid for an m^3 grid on the current device, or minus the
+// CUDA error.
+int tpucg_fused_stencil_grid(long long m);
 
 // K11: one whole banded CG / Jacobi (minv, npad floats) / poly-PCG solve of
 // the DIA matrix (data, host `offsets`) in one cooperative launch; b, x0, x

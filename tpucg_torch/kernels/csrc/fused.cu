@@ -19,7 +19,7 @@
 // rsold = r.z; k <= maxiter. They return x, k and the last r.r.
 //
 // K4, K10 and K11 are one device recurrence (cg_recurrence, tpucg's shared
-// _cg_while) over an operator policy: DenseOp (K4), StencilOp (K10) and
+// _cg_while) over an operator policy: DenseOp (K4), StencilTileOp (K10) and
 // DiaTileOp (K11). A policy owns the rows of the matvec and says which
 // thread owns which row; the recurrence, its scalars, syncs and
 // preconditioners are written once.
@@ -51,9 +51,9 @@
 // Vectors the launch writes (p, r, z, the power iterate) are read with
 // __ldcg (L2, never the read-only path or L1, which other SMs' writes do not
 // update); A, b, x0, the DIA slab and 1/diag are the only __ldg reads. The
-// matvec of a lap forms p = z + beta p_old on the fly where it reads it (K4
-// and K11: once per element, into shared memory), so p needs no pass (and
-// no sync) of its own: the row's owner writes p to the other of two buffers
+// matvec of a lap forms p = z + beta p_old on the fly where it reads it
+// (once per element, into shared memory), so p needs no pass (and no sync)
+// of its own: the row's owner writes p to the other of two buffers
 // while other blocks still read the old one; z and the power iterate are
 // double-buffered the same way.
 //
@@ -62,35 +62,51 @@
 // lane, a fixed shuffle tree), and lane 0 of the row's warp owns that
 // element in every elementwise step. K10 and K11 keep x, r, p, Ap, z and the
 // power iterate in global memory (8 MiB each at m = 128: the 50 MB L2 holds
-// the lap's working set but not all of them). K10 computes the stencil from
-// the grid coordinates, so its lap moves vectors only; a thread owns
-// elements in a grid-stride loop and reads neighbours through L2.
+// the lap's five vectors, 42 MB, but not all of them with a slab).
 //
-// K11 streams its slab from device memory every lap (58.7 MB at m = 128 in
-// f32, above L2; 17.5 us at 3.35 TB/s), the slab staying where the operator
-// put it. Its lap is bound less by bytes than by chains of dependent loads:
-// at 4 blocks an SM (the recurrence's 64 registers) a thread walks ~16 rows
-// (m = 128) one memory round trip after another in each phase. The design:
-// - tiles of kDiaTileRows rows, dealt to the blocks in turn (DiaTileOp), so
+// K10 computes the stencil from the grid coordinates, so its lap moves
+// vectors only: r and p_old read, p and Ap written by the matvec, x, p, r
+// and Ap read and x and r written by the update, 40 bytes a row (84 MB at
+// m = 128, 25.0 us at 3.35 TB/s). K11 also streams its slab from device
+// memory every lap (58.7 MB at m = 128 in f32, above L2; 17.5 us), the slab
+// staying where the operator put it. Both laps are bound less by bytes than
+// by chains of dependent loads: at 4 blocks an SM (the recurrence's 64
+// registers) a thread walks ~16 rows (m = 128) one memory round trip after
+// another in each phase. The design, the same for both:
+// - tiles of kDiaTileRows rows, dealt to the blocks in turn (TileRows), so
 //   the grid sweeps the rows in order; for each tile the block evaluates the
 //   matvec's input g (p = z + beta p_old, the Neumann z, the power iterate,
 //   x0) once per element into a shared-memory window that spans the tile
-//   widened by the near offsets (|off| <= kDiaHalo: 0, +-1, +-m of the
-//   Poisson matrix), and each row reads those columns there; only the far
-//   offsets (+-m^2) read z and p_old through L2, where the sweep has them;
-// - a thread sums two rows at once and issues the loads of kDiaDiagsAPass
-//   diagonals before it adds them, and the window's loads S at a time;
-// - the slab is read evict-first (__ldcs), so the lap's vectors keep L2;
+//   widened by the near offsets (|off| <= kDiaHalo: +-1, +-m of the Poisson
+//   matrix up to m = 1024, +-m^2 too up to m = 32), and each row reads those
+//   columns there; only the far offsets (+-m^2) read z and p_old through L2,
+//   where the sweep has them;
+// - a thread sums two rows at once and issues all their loads (K11: of
+//   kDiaDiagsAPass diagonals) before it adds them, and the window's loads S
+//   at a time; K10 selects a neighbour outside the grid as +0 instead of
+//   branching around its load, and which neighbours are near is a template
+//   argument of its rows' pass (chosen at run time for each load, it put a
+//   branch between the loads, and each far load waited for the last: 45.7
+//   against 36.2 us a lap at m = 128);
+// - the update phase loads two rows' x, p, r, Ap (and 1/diag) before it
+//   stores their x and r (each_loaded): the pointers may alias, so a load
+//   after a store waited for it, two round trips a row (K10 36.2 -> 34.3 us
+//   a lap, K11 60.9 -> 58.7; K4 runs the same code a row at a time);
+// - K11's slab is read evict-first (__ldcs), so the lap's vectors keep L2;
 // - __launch_bounds__(kBlock, kDiaMinBlocks) holds 4 blocks an SM (without
-//   it some builds took 78-80 registers and 3 blocks, 20-24% slower).
-// The split and the window are planned on the host (fused.py
-// dia_tile_plan); the window's size is fixed, so one occupancy count holds
-// for every launch. One contiguous run of n / grid rows a block, tried
-// first, was 19% slower at m = 160: the far columns left L2 between the
-// block that read them and the block that staged them. Left for later: the
-// update phase's two dependent round trips a row (x, then r: the
-// recurrence's pointers may alias), deferring x's update into the next
-// lap's matvec, keeping Ap of a block's rows in shared memory.
+//   it some K11 builds took 78-80 registers and 3 blocks, 20-24% slower; K10
+//   at 6 and 8 blocks an SM spilled at 40 and 32 registers and was no
+//   faster, 45.8 and 47.4 against 46.3 us a lap before the template pass).
+// The split and the window are planned on the host (fused.py dia_tile_plan,
+// stencil_tile_plan); the window's size is fixed (12 KB), so one occupancy
+// count a kernel holds for every launch. One contiguous run of n / grid rows
+// a block, tried first for K11, was 19% slower at m = 160: the far columns
+// left L2 between the block that read them and the block that staged them.
+// K10 at m = 128 now takes ~34 us a lap, its vectors' bytes at HBM peak
+// 73% of it (PERF.md, PR 10). Left for later: deferring x's update into the
+// next lap's matvec, keeping Ap of a block's rows in shared memory (both
+// cut bytes), a 2.5-D march over x-planes (K10's far columns from shared
+// memory too), the poly Neumann step's read of r after its store of z.
 //
 // K5 solves B independent systems, one block each (grid = B, no grid-wide
 // sync): x, r, p and Ap live in shared memory (4 x 8 KB at n = 2048) and A
@@ -124,7 +140,8 @@ constexpr int kBatchBlock = 1024;          // K5: one block of 32 warps a system
 constexpr int kPowerIters = 12;            // tpucg's in-kernel power method
 constexpr int kMaxDevices = 16;
 constexpr int kSparseMaxGrid = 4096;       // K10/K11: cap on blocks (sizes their partials)
-// K11's tile (tpucg_torch/kernels/fused.py DIA_TILE_ROWS, DIA_TILE_HALO):
+// K10's and K11's tile (tpucg_torch/kernels/fused.py DIA_TILE_ROWS,
+// DIA_TILE_HALO):
 // rows a tile, a multiple of 2 kBlock; the largest |offset| read from the
 // staged window, which covers +-m of the Poisson matrix up to m = 1024;
 // and the window's floats, fixed so that one occupancy count holds for
@@ -136,8 +153,8 @@ constexpr int kDiaHalo = 1024;
 constexpr int kDiaWindow = kDiaTileRows + 2 * kDiaHalo;
 constexpr size_t kDiaSmem = kDiaWindow * sizeof(float);
 constexpr int kDiaDiagsAPass = 4;  // K11: diagonals whose loads a thread issues at once
-constexpr int kDiaStageAPass = 8;  // K11: window elements a thread loads at once
-constexpr int kDiaMinBlocks = 4;   // K11: blocks an SM must hold (64 registers a thread)
+constexpr int kDiaStageAPass = 8;  // K10/K11: window elements a thread loads at once
+constexpr int kDiaMinBlocks = 4;   // K10/K11: blocks an SM must hold (64 registers a thread)
 
 // K11's slab read: read-only for the launch and read once a lap, so it is
 // marked evict-first (streaming): the lap's vectors keep their L2 lines.
@@ -227,7 +244,9 @@ struct SolveArgs {
 };
 
 // Operator policies. matvec(g, f) calls f(i, v_i, (A v)_i) for every row i
-// this thread owns, where v_j = g(j); each(f) calls f(i) for the same rows.
+// this thread owns, where v_j = g(j); each_loaded(load, store) calls
+// store(i, load(i)) for the same rows (K10, K11: two rows' loads before
+// their stores).
 // A thread owns the same rows in every phase, so an element's owner reads
 // back what it wrote itself; g may read any element. The recurrence ends
 // every matvec with a block-wide sync (end_phase) before the next one.
@@ -249,85 +268,169 @@ struct DenseOp {
       if (lane == 0) f(row, vs[row], av);
     }
   }
-  template <class F>
-  __device__ __forceinline__ void each(F f) const {
+  template <class L, class S>
+  __device__ __forceinline__ void each_loaded(L load, S store) const {
     if (lane == 0)
-      for (int row = gwarp; row < n; row += nwarps) f(row);
+      for (int row = gwarp; row < n; row += nwarps) store(row, load(row));
   }
 };
 
-// Grid-stride ownership of K10: thread t owns t, t + T, ...
-struct StrideRows {
-  int n, tid, nthreads;
-  __device__ StrideRows(int n_)
-      : n(n_), tid(static_cast<int>(blockIdx.x) * kBlock + threadIdx.x),
-        nthreads(static_cast<int>(gridDim.x) * kBlock) {}
-  template <class F>
-  __device__ __forceinline__ void each(F f) const {
-    for (int i = tid; i < n; i += nthreads) f(i);
-  }
-};
-
-// K10: the 7-point stencil on an m^3 grid, g evaluated at every neighbour.
-struct StencilOp : StrideRows {
-  int m;
-  __device__ StencilOp(int m_) : StrideRows(m_ * m_ * m_), m(m_) {}
-  template <class G, class F>
-  __device__ __forceinline__ void matvec(G g, F f) const {
-    for (int i = tid; i < n; i += nthreads) {
-      const float v = g(i);
-      f(i, v, stencil_row(m, i, v, g));
+// Tiles of kDiaTileRows contiguous rows (K10, K11): tile k = [k T,
+// min((k + 1) T, n)) belongs to block k % grid (a block may own none), and
+// thread t owns rows k T + t + kBlock j of its tiles in every phase, so the
+// grid sweeps the rows in order like a grid-stride loop and a far column
+// (+-m^2) is read while its neighbours are in L2.
+struct TileRows {
+  int n;
+  int first, step;  // this block's first tile's row, the rows between its tiles
+  __device__ explicit TileRows(int n_)
+      : n(n_), first(static_cast<int>(blockIdx.x) * kDiaTileRows),
+        step(static_cast<int>(gridDim.x) * kDiaTileRows) {}
+  // A step that loads a row's operands (load(i) -> state) before it stores
+  // (store(i, state)): two rows a pass, both rows' loads first, then the
+  // stores, in row order for each thread.
+  template <class L, class S>
+  __device__ __forceinline__ void each_loaded(L load, S store) const {
+    for (int t0 = first; t0 < n; t0 += step) {
+      const int t1 = min(t0 + kDiaTileRows, n);
+      for (int i0 = t0 + threadIdx.x; i0 < t1; i0 += 2 * kBlock) {
+        const bool has1 = i0 + kBlock < t1;
+        const auto u0 = load(i0);
+        const auto u1 = load(has1 ? i0 + kBlock : i0);
+        store(i0, u0);
+        if (has1) store(i0 + kBlock, u1);
+      }
     }
   }
 };
 
-// K11: the DIA matrix (slab (ndiag, n), f32 or bf16) in tiles of
-// kDiaTileRows contiguous rows: tile k = [k T, min((k + 1) T, n)) belongs to
-// block k % grid (a block may own none), and thread t owns rows
-// k T + t + kBlock j of its tiles in every phase, so the grid sweeps the
-// rows in order like a grid-stride loop and a far column (+-m^2) is read
-// while its neighbours are in L2. matvec stages g over a tile's window
-// [t0 + lo, t1 + hi) in shared memory, once per element (0 outside [0, n),
-// dia_row's rule); a row reads column i + off from there when lo <= off <=
-// hi (the near offsets, all within kDiaHalo) and through g otherwise (the
-// far ones). Each row's sum is dia_sum's, term by term in offsets order, so
-// (A v)_i is dia_row's bit for bit. A thread sums two rows at once and
-// issues the slab and column loads of kDiaDiagsAPass diagonals before it
-// adds them, keeping the slab's raw values until the sum (a bf16 value
-// widened where it lands made each load wait for the last).
-template <typename T>
-struct DiaTileOp {
-  const T* __restrict__ data;
-  const DiaOffsets& offs;
+// Stages g(base + j) into win[j] for j in [0, len), once per element, 0
+// where base + j lies outside [0, n). g is called at an index clamped into
+// [0, n), with no branch around it, so that every load of the S elements a
+// thread takes at once is in flight before any is used.
+template <class G>
+__device__ __forceinline__ void stage_window(float* win, G g, int base, int len, int n) {
+  constexpr int S = kDiaStageAPass;
+  for (int j0 = threadIdx.x; j0 < len; j0 += S * kBlock) {
+    float v[S];
+#pragma unroll
+    for (int u = 0; u < S; ++u) v[u] = g(min(max(base + j0 + u * kBlock, 0), n - 1));
+#pragma unroll
+    for (int u = 0; u < S; ++u) {
+      const int j = j0 + u * kBlock;
+      if (j < len) win[j] = (base + j >= 0 && base + j < n) ? v[u] : 0.f;
+    }
+  }
+}
+
+// K10: the 7-point stencil on an m^3 grid in tiles (TileRows). matvec
+// stages g over a tile's window [t0 + lo, t1 + hi) in shared memory, once
+// per element; [lo, hi] = [-hi, hi] holds the near offsets of the Poisson
+// matrix's (-m^2, -m, -1, 0, 1, m, m^2) (fused.py stencil_tile_plan: +-1
+// always, +-m up to m = 1024, +-m^2 up to m = 32). A row reads a near
+// neighbour from the window and a far one through g (L2) at an index
+// clamped into [0, n). Which offsets are near is a template argument of
+// the rows' pass (chosen once a tile), so a pass is one run of code with no
+// branch between its loads: a thread sums two rows at once, all their loads
+// issued before the first subtraction. Each row's sum is stencil_row's,
+// term by term in its order with __fmul_rn / __fsub_rn, a neighbour outside
+// the grid selected as +0 rather than skipped (acc - (+0) is acc bit for
+// bit, -0 included), so (A v)_i is K8's bit for bit.
+struct StencilTileOp : TileRows {
   float* win;  // kDiaWindow floats of dynamic shared memory
-  int n, lo, hi;
-  int first, step;  // this block's first tile's row, the rows between its tiles
-  __device__ DiaTileOp(const T* data_, const DiaOffsets& offs_, float* win_, int n_, int lo_,
-                       int hi_)
-      : data(data_), offs(offs_), win(win_), n(n_), lo(lo_), hi(hi_),
-        first(static_cast<int>(blockIdx.x) * kDiaTileRows),
-        step(static_cast<int>(gridDim.x) * kDiaTileRows) {}
+  int m, mm, lo, hi;
+  __device__ StencilTileOp(float* win_, int m_, int lo_, int hi_)
+      : TileRows(m_ * m_ * m_), win(win_), m(m_), mm(m_ * m_), lo(lo_), hi(hi_) {}
+
+  // The rows of [t0, t1) this thread owns, the window staged from `base`;
+  // +-m^2 near when XNear, +-m near when YNear.
+  template <bool XNear, bool YNear, class G, class F>
+  __device__ __forceinline__ void rows(G g, F f, int t0, int t1, int base) const {
+    for (int i0 = t0 + threadIdx.x; i0 < t1; i0 += 2 * kBlock) {
+      const bool has1 = i0 + kBlock < t1;
+      // A second row past the tile repeats the first's loads.
+      const int row[2] = {i0, has1 ? i0 + kBlock : i0};
+      float v[2][7];  // v_i, then x+1, x-1, y+1, y-1, z+1, z-1
+      bool in[2][6];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = row[e];
+        const int ix = i / mm;
+        const int rem = i - ix * mm;
+        const int iy = rem / m;
+        const int iz = rem - iy * m;
+        in[e][0] = ix < m - 1;
+        in[e][1] = ix > 0;
+        in[e][2] = iy < m - 1;
+        in[e][3] = iy > 0;
+        in[e][4] = iz < m - 1;
+        in[e][5] = iz > 0;
+        const float* w = win + (i - base);
+        v[e][0] = w[0];
+        v[e][1] = XNear ? w[mm] : g(min(i + mm, n - 1));
+        v[e][2] = XNear ? w[-mm] : g(max(i - mm, 0));
+        v[e][3] = YNear ? w[m] : g(min(i + m, n - 1));
+        v[e][4] = YNear ? w[-m] : g(max(i - m, 0));
+        v[e][5] = w[1];
+        v[e][6] = w[-1];
+      }
+      float acc[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        acc[e] = __fmul_rn(6.f, v[e][0]);
+#pragma unroll
+        for (int t = 0; t < 6; ++t) acc[e] = __fsub_rn(acc[e], in[e][t] ? v[e][t + 1] : 0.f);
+      }
+      f(row[0], v[0][0], acc[0]);
+      if (has1) f(row[1], v[1][0], acc[1]);
+    }
+  }
+
   template <class G, class F>
   __device__ __forceinline__ void matvec(G g, F f) const {
-    constexpr int D = kDiaDiagsAPass;
-    constexpr int S = kDiaStageAPass;
     for (int t0 = first; t0 < n; t0 += step) {
       const int t1 = min(t0 + kDiaTileRows, n);
       const int base = t0 + lo;
-      const int len = t1 - t0 + hi - lo;
       if (t0 != first) __syncthreads();  // every row of the last tile is summed
-      for (int j0 = threadIdx.x; j0 < len; j0 += S * kBlock) {
-        // g at an index clamped into [0, n), with no branch around it, so
-        // that every load of the S elements is in flight before any is used.
-        float v[S];
-#pragma unroll
-        for (int u = 0; u < S; ++u) v[u] = g(min(max(base + j0 + u * kBlock, 0), n - 1));
-#pragma unroll
-        for (int u = 0; u < S; ++u) {
-          const int j = j0 + u * kBlock;
-          if (j < len) win[j] = (base + j >= 0 && base + j < n) ? v[u] : 0.f;
-        }
-      }
+      stage_window(win, g, base, t1 - t0 + hi - lo, n);
+      __syncthreads();
+      if (mm <= hi)
+        rows<true, true>(g, f, t0, t1, base);
+      else if (m <= hi)
+        rows<false, true>(g, f, t0, t1, base);
+      else
+        rows<false, false>(g, f, t0, t1, base);
+    }
+  }
+};
+
+// K11: the DIA matrix (slab (ndiag, n), f32 or bf16) in tiles (TileRows).
+// matvec stages g over a tile's window [t0 + lo, t1 + hi) in shared memory,
+// once per element (0 outside [0, n), dia_row's rule); a row reads column
+// i + off from there when lo <= off <= hi (the near offsets, all within
+// kDiaHalo) and through g otherwise (the far ones). Each row's sum is
+// dia_sum's, term by term in offsets order, so (A v)_i is dia_row's bit for
+// bit. A thread sums two rows at once and issues the slab and column loads
+// of kDiaDiagsAPass diagonals before it adds them, keeping the slab's raw
+// values until the sum (a bf16 value widened where it lands made each load
+// wait for the last).
+template <typename T>
+struct DiaTileOp : TileRows {
+  const T* __restrict__ data;
+  const DiaOffsets& offs;
+  float* win;  // kDiaWindow floats of dynamic shared memory
+  int lo, hi;
+  __device__ DiaTileOp(const T* data_, const DiaOffsets& offs_, float* win_, int n_, int lo_,
+                       int hi_)
+      : TileRows(n_), data(data_), offs(offs_), win(win_), lo(lo_), hi(hi_) {}
+  template <class G, class F>
+  __device__ __forceinline__ void matvec(G g, F f) const {
+    constexpr int D = kDiaDiagsAPass;
+    for (int t0 = first; t0 < n; t0 += step) {
+      const int t1 = min(t0 + kDiaTileRows, n);
+      const int base = t0 + lo;
+      if (t0 != first) __syncthreads();  // every row of the last tile is summed
+      stage_window(win, g, base, t1 - t0 + hi - lo, n);
       __syncthreads();
       for (int i0 = t0 + threadIdx.x; i0 < t1; i0 += 2 * kBlock) {
         const int i1 = i0 + kBlock;
@@ -368,11 +471,6 @@ struct DiaTileOp {
         if (has1) f(i1, win[i1 - base], acc1);
       }
     }
-  }
-  template <class F>
-  __device__ __forceinline__ void each(F f) const {
-    for (int t0 = first; t0 < n; t0 += step)
-      for (int i = t0 + threadIdx.x; i < min(t0 + kDiaTileRows, n); i += kBlock) f(i);
   }
 };
 
@@ -448,11 +546,19 @@ __device__ void cg_recurrence(const Op& op, const SolveArgs& a) {
     w = 0.95f / fmaxf(lam, 1e-30f);
   }
 
-  // z = M^-1 r for the row's owner (jacobi, and the first Neumann term of
-  // poly, z0 = w r); returns the row's share of r.z where it is final.
-  auto first_z = [&](long long row, float rv) -> float {
+  // 1/diag of the row under jacobi (else 0), read before the row's stores.
+  // Keyed on the pointer, which the launches pass for jacobi only: keyed on
+  // the preconditioner, K4's build took 48 registers and spilled (5% slower
+  // at n = 4096).
+  auto minv_of = [&](long long row) -> float {
+    return a.minv != nullptr ? __ldg(a.minv + row) : 0.f;
+  };
+  // z = M^-1 r for the row's owner (jacobi, mv = minv_of(row), and the first
+  // Neumann term of poly, z0 = w r); returns the row's share of r.z where
+  // it is final.
+  auto first_z = [&](long long row, float rv, float mv) -> float {
     if (a.precond == kJacobi) {
-      const float z = __ldg(a.minv + row) * rv;
+      const float z = mv * rv;
       zb[0][row] = z;
       return rv * z;
     }
@@ -489,12 +595,13 @@ __device__ void cg_recurrence(const Op& op, const SolveArgs& a) {
   float s0 = 0.f, s1 = 0.f;
   op.matvec([&](long long j) { return __ldg(a.x0 + j); },
             [&](long long row, float xv, float av) {
+              const float bv = __ldg(a.b + row), mv = minv_of(row);
               a.x[row] = xv;
-              const float rv = __ldg(a.b + row) - av;
+              const float rv = bv - av;
               r[row] = rv;
               pb[0][row] = 0.f;
               s0 += rv * rv;
-              s1 += first_z(row, rv);
+              s1 += first_z(row, rv, mv);
             });
   float rr, rz;
   end_phase(s0, s1, rr, rz);
@@ -525,16 +632,24 @@ __device__ void cg_recurrence(const Op& op, const SolveArgs& a) {
     const float alpha = safe_div(rsold, pap, a.safe_alpha);
 
     // x += alpha p, r -= alpha Ap, r.r and (PCG) z, r.z: row owners only.
+    // Two rows' loads go out before their stores: the pointers may alias,
+    // so a load issued after a store would wait for it (K10 and K11 took
+    // two round trips a row).
     s0 = 0.f;
     s1 = 0.f;
     const float* p = pb[cur];
-    op.each([&](long long row) {
-      a.x[row] = a.x[row] + alpha * p[row];
-      const float rv = r[row] - alpha * ap[row];
-      r[row] = rv;
-      s0 += rv * rv;
-      s1 += first_z(row, rv);
-    });
+    struct RowIn {
+      float x, p, r, ap, mv;
+    };
+    op.each_loaded(
+        [&](long long row) { return RowIn{a.x[row], p[row], r[row], ap[row], minv_of(row)}; },
+        [&](long long row, const RowIn& u) {
+          a.x[row] = u.x + alpha * u.p;
+          const float rv = u.r - alpha * u.ap;
+          r[row] = rv;
+          s0 += rv * rv;
+          s1 += first_z(row, rv, u.mv);
+        });
     end_phase(s0, s1, rr, rz);
     ++k;
     done = rr < tol2;
@@ -559,9 +674,10 @@ fused_cg_kernel(const __grid_constant__ SolveArgs s, const float* __restrict__ A
   cg_recurrence(op, s);
 }
 
-__global__ void __launch_bounds__(kBlock)
-fused_stencil_cg_kernel(const __grid_constant__ SolveArgs s, int m) {
-  const StencilOp op(m);
+__global__ void __launch_bounds__(kBlock, kDiaMinBlocks)
+fused_stencil_cg_kernel(const __grid_constant__ SolveArgs s, int m, int lo, int hi) {
+  extern __shared__ float stencil_window[];  // kDiaWindow floats
+  const StencilTileOp op(stencil_window, m, lo, hi);
   cg_recurrence(op, s);
 }
 
@@ -863,6 +979,13 @@ SolveArgs solve_args(const void* b, const void* x0, const void* minv, void* x, v
                    safe_alpha, precond, degree};
 }
 
+// K10's cooperative grid at the fixed window's shared memory (the same for
+// the launch and for tpucg_fused_stencil_grid).
+cudaError_t stencil_grid(long long m, int* grid) {
+  return coop_grid((const void*)fused_stencil_cg_kernel, kDiaSmem, kKeyStencil,
+                   sparse_grid_cap(m * m * m), grid);
+}
+
 // K11's cooperative grid at its fixed shared memory (the same for the
 // launch and for tpucg_fused_dia_grid).
 template <typename T>
@@ -913,7 +1036,8 @@ extern "C" cudaError_t tpucg_fused_cg_f32(const void* A, const void* b, const vo
                                           long long maxiter, int safe_alpha, int precond,
                                           int degree, void* stream) {
   using namespace tpucg;
-  if (n <= 0 || n % 128 || n > kFusedMaxN) return cudaErrorInvalidValue;
+  if (n <= 0 || n % 128 || n > kFusedMaxN || (precond == kJacobi && minv == nullptr))
+    return cudaErrorInvalidValue;
   const void* kernel = (const void*)fused_cg_kernel;
   const size_t smem = static_cast<size_t>(n) * sizeof(float);
   int grid = 0;
@@ -929,22 +1053,32 @@ extern "C" cudaError_t tpucg_fused_cg_f32(const void* A, const void* b, const vo
 
 extern "C" cudaError_t tpucg_fused_stencil_cg_f32(const void* b, const void* x0, void* x,
                                                   void* k, void* rr, void* scratch, long long m,
-                                                  float tol, long long maxiter, int safe_alpha,
-                                                  int precond, int degree, void* stream) {
+                                                  int lo, int hi, float tol, long long maxiter,
+                                                  int safe_alpha, int precond, int degree,
+                                                  void* stream) {
   using namespace tpucg;
-  if (m < 2 || m > kStencilMaxM || (precond != kNone && precond != kPoly) ||
+  // The window [lo, hi] is symmetric and ends at one of the offsets 1, m
+  // or m^2, within kDiaHalo.
+  if (m < 2 || m > kStencilMaxM || lo != -hi || hi > kDiaHalo ||
+      (hi != 1 && hi != m && hi != m * m) || (precond != kNone && precond != kPoly) ||
       (precond == kPoly && degree < 1))
     return cudaErrorInvalidValue;
-  const long long n = m * m * m;
-  const void* kernel = (const void*)fused_stencil_cg_kernel;
   int grid = 0;
-  cudaError_t err = coop_grid(kernel, 0, kKeyStencil, sparse_grid_cap(n), &grid);
+  cudaError_t err = stencil_grid(m, &grid);
   if (err != cudaSuccess) return err;
-  SolveArgs sa = solve_args(b, x0, nullptr, x, k, rr, scratch, n, tol, maxiter, safe_alpha,
-                            precond, degree);
+  SolveArgs sa = solve_args(b, x0, nullptr, x, k, rr, scratch, m * m * m, tol, maxiter,
+                            safe_alpha, precond, degree);
   int mi = static_cast<int>(m);
-  void* args[] = {&sa, &mi};
-  return coop_launch(kernel, grid, 0, args, stream);
+  void* args[] = {&sa, &mi, &lo, &hi};
+  return coop_launch((const void*)fused_stencil_cg_kernel, grid, kDiaSmem, args, stream);
+}
+
+extern "C" int tpucg_fused_stencil_grid(long long m) {
+  using namespace tpucg;
+  if (m < 2 || m > kStencilMaxM) return -static_cast<int>(cudaErrorInvalidValue);
+  int grid = 0;
+  const cudaError_t err = stencil_grid(m, &grid);
+  return err == cudaSuccess ? grid : -static_cast<int>(err);
 }
 
 extern "C" cudaError_t tpucg_fused_dia_cg_f32(const void* data, const void* offsets, int ndiag,

@@ -1,7 +1,8 @@
 // Row functions of the structured-sparse operators, shared by the lap
 // kernels (sparse.cu: K6 DIA SpMV, K7 its row-block form with halos, K8
-// 7-point stencil) and the whole-solve kernels (fused.cu: K11, K10), so a
-// lap and a whole solve compute one operator the same way.
+// 7-point stencil) and the whole-solve K12 (fused.cu), so a lap and a whole
+// solve compute one operator the same way; K10 and K11 (fused.cu) sum each
+// row term by term in these functions' order.
 //
 // Both take the input vector as a functor v(j) (j a flat index inside the
 // vector; the row functions never call it outside [0, n)): the lap kernels

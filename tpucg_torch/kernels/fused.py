@@ -52,8 +52,9 @@ FUSED_DIA_MAX_N = 2 ** 31 - 1 - 2 ** 22  # csrc/sparse.cuh kMaxIntRows
 # table measured, all won by the whole solve. cg_solve(fused="always")
 # against fused="never" on tpucg's bench system, medians of 5, each arm
 # twice in turns (chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W): the stencil
-# at m = 16 ... 192, 0.42-13.4 ms against 15-63 ms; DIA f32 and bf16 at
-# m = 32 ... 160, 0.51-10.4 ms against 15-42 ms. PERF.md keeps the table.
+# at m = 16 ... 192, 0.38-8.93 ms against 12.9-30.6 ms since K10's tiles
+# (0.42-13.4 against 15-63 before); DIA f32 and bf16 at m = 32 ... 160,
+# 0.74-9.72 ms against 14.9-43.0 ms. PERF.md keeps the table.
 FUSED_STENCIL_AUTO_MAX_M = 192
 FUSED_DIA_AUTO_MAX_N = 160 ** 3
 
@@ -64,12 +65,12 @@ FUSED_DIA_AUTO_MAX_N = 160 ** 3
 # fused.py:680) is a TPU rule and does not apply.
 FUSED_BATCH_DIA_MAX_N = 14464
 
-# K11's tile, compiled into the kernel (csrc/fused.cu kDiaTileRows,
-# kDiaHalo): the rows go in tiles of DIA_TILE_ROWS, dealt to the blocks in
-# turn, and a block stages the matvec's input over each tile's rows widened
-# by the near offsets, those within DIA_TILE_HALO (+-m of the Poisson matrix
-# up to m = 1024), in a fixed window of DIA_TILE_ROWS + 2 DIA_TILE_HALO
-# floats of shared memory.
+# K10's and K11's tile, compiled into the kernels (csrc/fused.cu
+# kDiaTileRows, kDiaHalo): the rows go in tiles of DIA_TILE_ROWS, dealt to
+# the blocks in turn, and a block stages the matvec's input over each tile's
+# rows widened by the near offsets, those within DIA_TILE_HALO (+-m of the
+# Poisson matrix up to m = 1024, +-m^2 up to m = 32), in a fixed window of
+# DIA_TILE_ROWS + 2 DIA_TILE_HALO floats of shared memory.
 DIA_TILE_ROWS = 1024
 DIA_TILE_HALO = 1024
 
@@ -298,15 +299,43 @@ def dia_tile_plan(npad: int, offsets) -> DiaTilePlan:
                        lo=min(near + (0,)), hi=max(near + (0,)))
 
 
+def stencil_offsets(m: int) -> tuple:
+    """The 7-point Laplacian's neighbours on an m^3 grid as DIA offsets (x-1,
+    y-1, z-1, the row, z+1, y+1, x+1 of flat index x m^2 + y m + z), as
+    ``io.generator.poisson3d_dia`` stores them."""
+    return (-m * m, -m, -1, 0, 1, m, m * m)
+
+
+def stencil_tile_plan(m: int) -> DiaTilePlan:
+    """K10's plan for the m^3 grid: ``dia_tile_plan`` of the Poisson
+    matrix's offsets. The window is [-hi, hi]: hi = m^2 up to m = 32, m up
+    to m = 1024, else 1; the other neighbours are read through L2. Raises
+    for an m K10 cannot run."""
+    if not fused_stencil_supported(m):
+        raise ValueError(f"K10 cannot plan m={m} (2 <= m <= {FUSED_STENCIL_MAX_M})")
+    return dia_tile_plan(m ** 3, stencil_offsets(m))
+
+
+def _grid(grid: int, what: str) -> int:
+    if grid < 1:
+        _lib.check(-grid, what)
+    return grid
+
+
+def fused_stencil_grid(m: int) -> int:
+    """The blocks of K10's cooperative launch for the m^3 grid on the current
+    CUDA device: the occupancy calculator's blocks an SM at the window's
+    shared memory times the SMs, at most one block per 256 rows and 4096."""
+    return _grid(int(_lib.load().tpucg_fused_stencil_grid(int(m))), "fused_stencil_grid")
+
+
 def fused_dia_grid(npad: int, dtype=torch.float32) -> int:
     """The blocks of K11's cooperative launch at padded length ``npad`` on the
     current CUDA device (``dtype`` the slab's): the occupancy calculator's
     blocks an SM at the window's shared memory times the SMs, at most one
     block per 256 rows and 4096."""
-    grid = int(_lib.load().tpucg_fused_dia_grid(int(npad), int(dtype == torch.bfloat16)))
-    if grid < 1:
-        _lib.check(-grid, "fused_dia_grid")
-    return grid
+    return _grid(int(_lib.load().tpucg_fused_dia_grid(int(npad), int(dtype == torch.bfloat16))),
+                 "fused_dia_grid")
 
 
 def dia_minv(data, offsets) -> torch.Tensor:
@@ -366,13 +395,17 @@ def fused_stencil_cg_solve_cuda(b, x0, m, *, tol, maxiter, safe_alpha=True,
     """K10 on the card: one cooperative launch runs the whole matrix-free
     Poisson CG (``"none"``) or poly-PCG (``"poly"``, degree ``poly_degree``,
     12 in-kernel power iterations) solve on an m^3 grid. ``b`` and ``x0``
-    are (m^3,) f32 on the card. Raises if the card refuses the launch."""
+    are (m^3,) f32 on the card. Rows go in tiles dealt to the blocks in
+    turn; each tile stages the matvec's input once per element over the
+    near neighbours (``stencil_tile_plan``). Raises if the card refuses the
+    launch."""
     check_fused_stencil(b, x0, m, precondition, poly_degree)
+    plan = stencil_tile_plan(m)
     _require_cuda("fused_stencil_cg_solve_cuda", b, x0)
     x, k, rr, scratch = _solve_outputs(m ** 3, b)
     err = _lib.load().tpucg_fused_stencil_cg_f32(
         b.data_ptr(), x0.data_ptr(), x.data_ptr(), k.data_ptr(), rr.data_ptr(),
-        scratch.data_ptr(), m, float(tol), int(maxiter), int(bool(safe_alpha)),
+        scratch.data_ptr(), m, plan.lo, plan.hi, float(tol), int(maxiter), int(bool(safe_alpha)),
         _PRECOND_CODE[precondition], int(poly_degree), cuda_stream(b),
     )
     if err:
