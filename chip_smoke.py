@@ -24,10 +24,15 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    goldens in 2 and 4 laps through K4; the crossover table of K4 against
    the lap path, n = 128 ... 4096, medians of 7 solves, each arm run twice
    in turns.
-8. batched K5: ``cg_solve_batch`` of 64 systems at n=1000 and 16 at
-   n=2048, none and jacobi, runs one K5 launch and nothing else; repeats
-   are bit-identical; the last system starts at an exact x0 and stops at
-   k=0. Two batches (``tests/_torch_helpers.py``): ``circulant_spd_batch``
+8. batched K5: ``cg_solve_batch`` of 64 systems at n=1000, 16 at n=2048
+   and 256 at n=512 (circulant only), none and jacobi, runs one K5 launch
+   and nothing else; repeats, and K5 forced onto clusters of 1, 2, 4 and 8
+   blocks a system, are bit-identical to the plan's cluster
+   (``batch_cluster_plan``); the last system starts at an exact x0 and
+   stops at k=0. K5 is timed at the three shapes (circulant, none) at the
+   plan's cluster and at each forced one, beside the streaming floor (A
+   re-read by every matvec at the HBM peak) and the table's bound (A read
+   once). Two batches (``tests/_torch_helpers.py``): ``circulant_spd_batch``
    at tol 1e-2, whose lap counts (1 to 6) are set by the spectra, must
    match the plain version's system for system; ``shifted_spd_batch`` at
    tol 1e-6, each system from its own seed and shift, stops where the
@@ -179,7 +184,12 @@ def main() -> int:
 
     # The batch generators of the tests (no counterpart in the package).
     sys.path.insert(0, str(pkg_root / "tests"))
-    from _torch_helpers import circulant_spd_batch, scaled_err, shifted_spd_batch
+    from _torch_helpers import (
+        circulant_spd_batch,
+        padded_batch,
+        scaled_err,
+        shifted_spd_batch,
+    )
 
     from _torch_helpers import (
         BAND_SETS,
@@ -232,8 +242,10 @@ def main() -> int:
         FUSED_AUTO_MAX_N,
         FUSED_DIA_AUTO_MAX_N,
         FUSED_STENCIL_AUTO_MAX_M,
+        batch_cluster_plan,
         dia_tile_plan,
         fused_batch_cg_solve_cuda,
+        fused_batch_clusters,
         fused_batch_dia_cg_solve_cuda,
         fused_cg_solve_cuda,
         fused_dia_cg_solve_cuda,
@@ -585,19 +597,6 @@ def main() -> int:
                   f"{k4[1]:.4f} ms, K4 faster: {max(k4) < min(lap)}")
             del op, A
 
-    def padded_batch(As, bs, X0):
-        """The batch as cg_solve_batch pads it (identity tail), with Jacobi's
-        minv."""
-        nsys, n = bs.shape
-        npad = -(-n // 128) * 128
-        Ad = torch.zeros((nsys, npad, npad), device=dev)
-        Ad[:, :n, :n] = torch.as_tensor(As, device=dev)
-        tail = torch.arange(n, npad, device=dev)
-        Ad[:, tail, tail] = 1.0
-        d = torch.diagonal(Ad, dim1=1, dim2=2)
-        return (Ad, pad_to(torch.as_tensor(bs, device=dev), npad),
-                pad_to(torch.as_tensor(X0, device=dev), npad), torch.where(d != 0, 1.0 / d, 1.0))
-
     def split_report(Ad, bp, x0p, kw, k, kp):
         """For each system where K5 and its plain version stop on different
         laps, r.r / tol^2 at the lap before the earlier stop and at it, from
@@ -637,10 +636,13 @@ def main() -> int:
             # the plain version may stop one lap apart (split_report).
             ("shifted", shifted_spd_batch, 1e-6),
         )
-        for nsys, n in ((64, 1000), (16, 2048)):
-            for kind, make, tol in batches:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        for nsys, n in ((64, 1000), (16, 2048), (256, 512)):
+            for kind, make, tol in batches[:1] if nsys == 256 else batches:
                 As, bs, X0 = make(nsys, n, seed=100)
-                Ad, bp, x0p, minv = padded_batch(As, bs, X0)
+                Ad, bp, x0p, minv = padded_batch(As, bs, X0, dev)
+                npad = Ad.shape[1]
+                plan = batch_cluster_plan(nsys, npad, sms)
                 for pc in ("none", "jacobi"):
                     what = f"K5 {kind} {nsys}x{n} {pc}"
                     res, launched = drive(lambda: cg_solve_batch(As, bs, X0, device=dev,
@@ -662,6 +664,11 @@ def main() -> int:
                     again = fused_batch_cg_solve_cuda(Ad, bp, x0p, **kw)
                     require(all(torch.equal(u, v) for u, v in zip((x, k, rr), again)),
                             f"{what} repeat")
+                    # Every cluster size gives the plan's bits (the one-block order).
+                    for c in (1, 2, 4, 8):
+                        forced = fused_batch_cg_solve_cuda(Ad, bp, x0p, _cluster=c, **kw)
+                        require(all(torch.equal(u, v) for u, v in zip((x, k, rr), forced)),
+                                f"{what}: C = {c} differs from the plan's C = {plan.cluster}")
                     if kind == "circulant":
                         require(laps == kp.tolist() == [1 + i % 6 for i in range(nsys - 1)] + [0],
                                 f"{what}: laps {laps} vs plain {kp.tolist()}")
@@ -676,20 +683,32 @@ def main() -> int:
                     print(f"{what} (tol {tol}): laps min {min(laps[:-1])} max {max(laps)} "
                           f"({len(set(laps))} distinct, system {nsys - 1} at 0), {agree}; "
                           f"max abs err {e:.3e} = {se:.3e} of max |x| (bound 1e-4), repeat "
-                          f"bit-identical")
-                    if (kind, nsys, pc) == ("circulant", 64, "none"):
-                        npad = Ad.shape[1]
-                        bounds["K5"] = bound_of(
-                            4 * nsys * (npad * npad + 3 * npad),
-                            sum(cg_flops(npad, kk, 2 * npad * npad) for kk in laps))
+                          f"and C = 1, 2, 4, 8 bit-identical to the plan's C = {plan.cluster}")
+                    if (kind, pc) == ("circulant", "none"):
+                        # A re-read by every matvec: the streaming floor.
+                        floor = 4 * npad * npad * sum(kk + 1 for kk in laps) / peak
+                        table = bound_of(4 * nsys * (npad * npad + 3 * npad),
+                                         sum(cg_flops(npad, kk, 2 * npad * npad) for kk in laps))
+                        tc = {c: time_fn(lambda c=c: fused_batch_cg_solve_cuda(
+                            Ad, bp, x0p, _cluster=c, **kw), warmup=1, iters=5).median
+                            for c in (1, 2, 4, 8)}
                         tk = time_fn(lambda: fused_batch_cg_solve_cuda(Ad, bp, x0p, **kw),
                                      warmup=1, iters=5)
                         tp = time_fn(lambda: fused_batch_cg_solve_torch(Ad, bp, x0p, **kw),
                                      warmup=1, iters=5)
-                        times["K5"] = (tk.median, tp.median)
-                        print(f"K5 64x1000 none: {tk.median * 1e3:.4f} ms (min "
-                              f"{tk.min * 1e3:.4f}, max {tk.max * 1e3:.4f}) vs plain "
-                              f"{tp.median * 1e3:.4f} ms {tag}")
+                        held = {c: fused_batch_clusters(npad, c) for c in (1, 2, 4, 8)}
+                        print(f"K5 {nsys}x{n} none: {tk.median * 1e3:.5f} ms (min "
+                              f"{tk.min * 1e3:.5f}, max {tk.max * 1e3:.5f}) at the plan's C = "
+                              f"{plan.cluster} ({plan.blocks} blocks of {plan.threads}) vs plain "
+                              f"{tp.median * 1e3:.5f} ms; streaming floor {floor * 1e3:.5f} ms "
+                              f"({floor / tk.median:.1%} of it); the table's bound "
+                              f"{table[0]:.5f} ms ({table[1]}); by C "
+                              + ", ".join(f"{c}: {t * 1e3:.5f} ms" for c, t in tc.items())
+                              + "; clusters the card holds at once by C "
+                              + ", ".join(f"{c}: {h}" for c, h in held.items()) + f" {tag}")
+                        if nsys == 64:
+                            bounds["K5"] = table
+                            times["K5"] = (tk.median, tp.median)
                 del Ad, As, res
         print(f"K4 n=1000 none: {times['K4'][0] * 1e3:.4f} ms vs plain "
               f"{times['K4'][1] * 1e3:.4f} ms {tag}")

@@ -68,6 +68,23 @@ def circulant_spd_batch(nsys: int, n: int, seed: int = 0):
     return A, b, X0
 
 
+def padded_batch(As, bs, X0, device):
+    """A batch as ``cg_solve_batch`` pads it, on ``device``: A (B, npad, npad)
+    with an identity tail to the next multiple of 128, b and x0 (B, npad)
+    padded with zeros, and Jacobi's 1/diag (1 where the diagonal is 0)."""
+    nsys, n = bs.shape
+    npad = -(-n // 128) * 128
+    A = torch.zeros((nsys, npad, npad), device=device)
+    A[:, :n, :n] = torch.as_tensor(As, device=device)
+    tail = torch.arange(n, npad, device=device)
+    A[:, tail, tail] = 1.0
+    pad = (0, npad - n)
+    b = torch.nn.functional.pad(torch.as_tensor(bs, device=device), pad)
+    x0 = torch.nn.functional.pad(torch.as_tensor(X0, device=device), pad)
+    d = torch.diagonal(A, dim1=1, dim2=2)
+    return A, b, x0, torch.where(d != 0, 1.0 / d, 1.0)
+
+
 def shifted_spd_batch(nsys: int, n: int, seed: int = 0):
     """A batch of ``generate_spd_system``-style systems, each from its own
     seed (seed + i) and with its own shift: A = 0.5 (R + R^T) + s_i I with R

@@ -20,6 +20,7 @@ from _torch_helpers import (  # noqa: F401  (fixture)
     circulant_spd_batch,
     cuda_device,
     k11_edge_npads,
+    padded_batch,
     random_banded_dia,
     rel_err,
     scaled_err,
@@ -36,6 +37,7 @@ from tpucg_torch.kernels.blas1 import dot_cuda, dot_torch, fused_update_cuda, fu
 from tpucg_torch.kernels.fused import (
     FUSED_BATCH_MAX_N,
     FUSED_MAX_N,
+    batch_cluster_plan,
     fused_batch_cg_solve_cuda,
     fused_batch_dia_cg_solve_cuda,
     fused_cg_solve_cuda,
@@ -339,6 +341,42 @@ def test_k5_shifted_batch_within_a_lap_on_card(cuda_device, pc):
     assert scaled_err(x.cpu(), xp.cpu()) <= 1e-4
     again = fused_batch_cg_solve_cuda(A, b, x0, **kw)
     assert all(torch.equal(u, v) for u, v in zip((x, k, rr), again))
+
+
+@pytest.mark.parametrize("pc", ["none", "jacobi"])
+@pytest.mark.parametrize("kind", ["circulant", "shifted"])
+@pytest.mark.parametrize("nsys,n", [(12, 1000), (4, 2048)])
+def test_k5_is_bit_identical_for_every_cluster_on_card(cuda_device, nsys, n, kind, pc):
+    # Each system on 1, 2, 4 or 8 blocks: the rows' sums and the scalars'
+    # reductions keep the one-block order, so x, k and r.r keep its bits.
+    make, tol = (circulant_spd_batch, 1e-2) if kind == "circulant" else (shifted_spd_batch, 1e-6)
+    A, b, x0, minv = padded_batch(*make(nsys, n, seed=7), cuda_device)
+    kw = dict(tol=tol, maxiter=n, precondition=pc, minv=minv if pc == "jacobi" else None)
+    planned = fused_batch_cg_solve_cuda(A, b, x0, **kw)
+    assert batch_cluster_plan(nsys, A.shape[1]).cluster == 8
+    for cluster in (1, 2, 4, 8):
+        got = fused_batch_cg_solve_cuda(A, b, x0, _cluster=cluster, **kw)
+        assert all(torch.equal(u, v) for u, v in zip(planned, got)), cluster
+    x, k, _ = planned
+    xp, kp, _ = fused_batch_cg_solve_torch(A, b, x0, **kw)
+    assert int(k[-1]) == 0 and bool(k[:-1].gt(0).all())
+    assert int((k - kp).abs().max()) <= (0 if kind == "circulant" else 1)
+    assert scaled_err(x.cpu(), xp.cpu()) <= 1e-4
+
+
+def test_cg_solve_batch_runs_k5_once_on_a_full_card(cuda_device):
+    # B = 200 fills the card's SMs: one block a system (C = 1), one launch.
+    As, bs, X0 = circulant_spd_batch(200, 256, seed=5)
+    assert batch_cluster_plan(200, 256).cluster == 1
+    before = (fused_batch_cg_solve_cuda.launches, fused_batch_cg_solve_torch.launches)
+    res = cg_solve_batch(As, bs, X0, device=cuda_device, tol=1e-2)
+    assert (fused_batch_cg_solve_cuda.launches - before[0],
+            fused_batch_cg_solve_torch.launches - before[1]) == (1, 0)
+    assert res.iterations.tolist() == [1 + i % 6 for i in range(199)] + [0]
+    A, b, x0, _ = padded_batch(As, bs, X0, cuda_device)
+    xp, kp, _ = fused_batch_cg_solve_torch(A, b, x0, tol=1e-2, maxiter=256)
+    assert res.iterations.tolist() == kp.tolist()
+    assert scaled_err(res.x.cpu(), xp[:, :256].cpu()) <= 1e-4
 
 
 def test_cg_solve_batch_runs_k5_on_card(cuda_device):

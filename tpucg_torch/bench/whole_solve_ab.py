@@ -3,15 +3,19 @@ card: the same solves run from two checkouts of the package in turns
 (parent, change, change, parent), each run in a process of its own that
 builds that checkout's kernels, and the results set side by side.
 
-    python tpucg_torch/bench/whole_solve_ab.py PARENT_ROOT CHANGE_ROOT
+    python tpucg_torch/bench/whole_solve_ab.py PARENT_ROOT CHANGE_ROOT [--only K5]
 
 Run it by path, not with ``-m``: a run's process gets its checkout's root as
 ``PYTHONPATH`` and working directory, so ``tpucg_torch`` is that
 checkout's, and it calls only entry points both checkouts have. The cases:
 K4 at n = 1000 and 4096 (``generate_spd_system``, seed 0, tol 1e-6) with
-precondition none, jacobi and poly (degree 3); K10 at m = 128 with none and
-poly; K11 at m = 128, f32 and bf16 slabs, none, jacobi and poly (tpucg's
-Poisson bench system, tol 1e-5 ||b||, x0 = 0). For each case it prints the
+precondition none, jacobi and poly (degree 3); K5 on the circulant batches
+of ``chip_smoke.py`` phase 8 (``tests/_torch_helpers.py``
+``circulant_spd_batch``, seed 100, tol 1e-2, identity-padded) at 64 x
+1000, 16 x 2048 and 256 x 512 with none and jacobi; K10 at m = 128 with
+none and poly; K11 at m = 128, f32 and bf16 slabs, none, jacobi and poly
+(tpucg's Poisson bench system, tol 1e-5 ||b||, x0 = 0); ``--only`` keeps
+the cases whose label starts with one of its words. For each case it prints the
 laps and the median ms of 5 solves (CUDA events, after one warm-up) of the
 four runs, whether x and the laps of parent and change are bit-identical,
 the largest |x_change - x_parent| over max |x_parent|, and whether each
@@ -29,9 +33,20 @@ from pathlib import Path
 from typing import Optional, Sequence
 
 
-def worker(out: str) -> None:
+def k5_batch(nsys: int, n: int, dev):
+    """``circulant_spd_batch(nsys, n, seed=100)`` as ``cg_solve_batch`` pads
+    it, on ``dev``: A, b, x0 and Jacobi's 1/diag. The helpers come from this
+    script's checkout, so both runs solve the same batch."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[2] / "tests"))
+    from _torch_helpers import circulant_spd_batch, padded_batch
+
+    return padded_batch(*circulant_spd_batch(nsys, n, seed=100), dev)
+
+
+def worker(out: str, only: Sequence[str] = ()) -> None:
     """Every case's laps, x and median ms, from the ``tpucg_torch`` on the
-    path, saved to ``out`` with ``torch.save``."""
+    path, saved to ``out`` with ``torch.save``; with ``only``, the cases
+    whose label starts with one of its words."""
     import torch
 
     from tpucg_torch.bench.k11_lap import poisson_rhs
@@ -39,6 +54,7 @@ def worker(out: str) -> None:
     from tpucg_torch.io.generator import generate_spd_system, poisson3d_dia
     from tpucg_torch.kernels.dispatch import strict_f32
     from tpucg_torch.kernels.fused import (
+        fused_batch_cg_solve_cuda,
         fused_cg_solve_cuda,
         fused_dia_cg_solve_cuda,
         fused_stencil_cg_solve_cuda,
@@ -61,6 +77,12 @@ def worker(out: str) -> None:
                       minv=minv if pc == "jacobi" else None)
             cases[f"K4 n={n} {pc}"] = (lambda A_=op.A, b_=bp, x_=x0p, kw_=kw:
                                        fused_cg_solve_cuda(A_, b_, x_, **kw_))
+    for nsys, n in ((64, 1000), (16, 2048), (256, 512)):
+        A, b, x0, minv = k5_batch(nsys, n, dev)
+        for pc in ("none", "jacobi"):
+            kw = dict(tol=1e-2, maxiter=n, precondition=pc, minv=minv if pc == "jacobi" else None)
+            cases[f"K5 {nsys}x{n} {pc}"] = (lambda A_=A, b_=b, x_=x0, kw_=kw:
+                                            fused_batch_cg_solve_cuda(A_, b_, x_, **kw_))
     m = 128
     b = poisson_rhs(m, dev)
     z = torch.zeros_like(b)
@@ -77,9 +99,16 @@ def worker(out: str) -> None:
                 lambda op_=op, kw_=kw: fused_dia_cg_solve_cuda(op_.data, op_.offsets, b, z, **kw_))
     results = {}
     for label, fn in cases.items():
+        if only and not any(label.startswith(w) for w in only):
+            continue
         x, k, _ = fn()
-        results[label] = (int(k), x.cpu(), time_fn(fn, warmup=1, iters=5).median * 1e3)
+        results[label] = (k.tolist(), x.cpu(), time_fn(fn, warmup=1, iters=5).median * 1e3)
     torch.save(results, out)
+
+
+def _laps(k) -> str:
+    """A solve's laps, or a batch's as its least, largest and sum."""
+    return str(k) if isinstance(k, int) else f"{min(k)}..{max(k)} (sum {sum(k)})"
 
 
 def compare(roots: Sequence[str], outs: Sequence[str]) -> None:
@@ -92,7 +121,7 @@ def compare(roots: Sequence[str], outs: Sequence[str]) -> None:
         (kp, xp, _), (kc, xc, _) = runs[0][label], runs[1][label]
         err = float((xc - xp).abs().max()) / float(xp.abs().max())
         ms = " / ".join(f"{r[label][2]:.5f}" for r in runs)
-        laps = " / ".join(str(r[label][0]) for r in runs)
+        laps = " / ".join(_laps(r[label][0]) for r in runs)
         same = kp == kc and torch.equal(xp, xc)
         repeat = all(runs[i][label][0] == runs[j][label][0]
                      and torch.equal(runs[i][label][1], runs[j][label][1]) for i, j in ((0, 3), (1, 2)))
@@ -103,10 +132,12 @@ def compare(roots: Sequence[str], outs: Sequence[str]) -> None:
 def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("roots", nargs="*", help="PARENT_ROOT CHANGE_ROOT")
+    ap.add_argument("--only", nargs="+", default=(), metavar="PREFIX",
+                    help="run the cases whose label starts with one of these (e.g. K5)")
     ap.add_argument("--worker", metavar="OUT", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.worker:
-        worker(args.worker)
+        worker(args.worker, args.only)
         return 0
     if len(args.roots) != 2:
         ap.error("give PARENT_ROOT and CHANGE_ROOT")
@@ -116,7 +147,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         outs = [os.path.join(tmp, f"run{i}.pt") for i in range(4)]
         for root, out in zip(order, outs):
             env = dict(os.environ, PYTHONPATH=root)
-            subprocess.run([sys.executable, str(Path(__file__).resolve()), "--worker", out],
+            subprocess.run([sys.executable, str(Path(__file__).resolve()), "--worker", out,
+                            *(["--only", *args.only] if args.only else [])],
                            cwd=root, env=env, check=True)
         compare(order, outs)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -48,8 +48,10 @@ SIGNATURES = {
     "tpucg_fused_cg_scratch": (ctypes.c_longlong, [_LEN]),
     "tpucg_fused_batch_cg_f32": (
         ctypes.c_int,
-        [_PTR] * 7 + [_LEN, _LEN, ctypes.c_float, _LEN, ctypes.c_int, ctypes.c_int, _PTR],
+        [_PTR] * 7 + [_LEN, _LEN, ctypes.c_float, _LEN, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_int, _PTR],
     ),
+    "tpucg_fused_batch_clusters": (ctypes.c_int, [_LEN, ctypes.c_int]),
     "tpucg_dia_spmv_f32": (ctypes.c_int, [_PTR, _PTR, ctypes.c_int, _PTR, _PTR, _LEN, _PTR, _PTR]),
     "tpucg_dia_spmv_bf16": (ctypes.c_int, [_PTR, _PTR, ctypes.c_int, _PTR, _PTR, _LEN, _PTR, _PTR]),
     "tpucg_dia_spmv_halo_f32": (

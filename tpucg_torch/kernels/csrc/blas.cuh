@@ -97,14 +97,18 @@ cudaError_t tpucg_fused_cg_f32(const void* A, const void* b, const void* x0, con
                                int degree, void* stream);
 long long tpucg_fused_cg_scratch(long long n);
 
-// K5: `batch` independent solves of A[batch, n, n], one block each, n % 128
-// == 0 and n <= 2048; b, x0, minv (jacobi != 0) and x are (batch, n), k and
-// rr (batch,).
+// K5: `batch` independent solves of A[batch, n, n], each on a cluster of
+// `cluster` blocks (1, 2, 4 or 8), n % 128 == 0 and n <= 2048; b, x0, minv
+// (jacobi != 0) and x are (batch, n), k and rr (batch,). Refuses (and never
+// shrinks) a cluster the card cannot hold.
 cudaError_t tpucg_fused_batch_cg_f32(const void* A, const void* b, const void* x0,
                                      const void* minv, void* x, void* k, void* rr,
                                      long long batch, long long n, float tol,
                                      long long maxiter, int safe_alpha, int jacobi,
-                                     void* stream);
+                                     int cluster, void* stream);
+// K5's clusters of `cluster` blocks the current device holds at once at
+// padded length n (cudaOccupancyMaxActiveClusters), or -error.
+int tpucg_fused_batch_clusters(long long n, int cluster);
 
 // K6: y[i] = sum_d data[d, i] * x[i + offsets[d]] (0 outside [0, npad)),
 // data (ndiag, npad) f32 or bf16 row-major, x and y f32 (npad,). `offsets`

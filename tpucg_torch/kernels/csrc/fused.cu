@@ -108,12 +108,47 @@
 // cut bytes), a 2.5-D march over x-planes (K10's far columns from shared
 // memory too), the poly Neumann step's read of r after its store of z.
 //
-// K5 solves B independent systems, one block each (grid = B, no grid-wide
-// sync): x, r, p and Ap live in shared memory (4 x 8 KB at n = 2048) and A
-// streams from global memory every lap. A block that stops returns; k and
-// r.r are written per system. One SM per system leaves the card underused
-// below B = 132, and a single SM pulls A far below the card's bandwidth: a
-// later redesign splits a system over several blocks.
+// K5 solves B independent dense systems. tpucg's K5 keeps a system's A in
+// VMEM while it iterates; here neither one SM's 227 KB (A is 4 MiB at n =
+// 1024, 16 MiB at 2048) nor the 50 MB L2 (a batch of 64 x 1000 is 268 MB)
+// holds it, so A is re-read from device memory by every matvec. The floor of
+// this streaming is the sum over systems of (laps + 1) n^2 4 bytes at 3.35
+// TB/s: 0.350 ms for the 64 x 1000 circulant batch of chip_smoke.py, 0.321
+// ms for its 16 x 2048 one. One block a system left SMs idle below B = 132
+// and bound the last systems to one SM's rate. So each system runs on a
+// thread-block cluster of C blocks (C = 1, 2, 4 or 8; kernels/fused.py
+// batch_cluster_plan) that stream its rows together:
+// - the one-block design's 1,024 threads become virtual threads, block q of
+//   the cluster running q T ... (q + 1) T - 1 (T = 1024 / C); row r belongs
+//   to virtual warp r % 32 and element i to virtual thread i % 1024, as
+//   before, so the blocks read disjoint rows of A;
+// - a lane keeps U of its row's 16-byte chunks in flight: 4 at C = 1 (as
+//   before), 8 at C = 2 and 4, 16 (a whole row at n = 2048) at C = 8, so an
+//   SM holds 32 KB of A in flight or more at the plan's occupancy (two
+//   blocks an SM for C > 1, one at C = 8 and B <= 16). The registers route,
+//   no ring of bulk copies: C = 1, 4 and 8 take 64, 128 and 158 registers
+//   with no spill; C = 2 spills at its 64 (two blocks of 512 an SM); U = 16
+//   at C = 4 ran 26% slower at 64 x 1000 (PERF.md section 6, K5);
+// - the element's owner keeps x_i and r_i in its shared memory and writes
+//   z_i (r_i, or 1/diag_i r_i) into every block's copy of z; a row's owner
+//   writes Ap_r into the element owner's shared memory (distributed shared
+//   memory: mapa and st.shared::cluster); every block forms the whole of p =
+//   z + beta p itself, the same bits in each, so no copy of p is written
+//   across the cluster;
+// - each scalar (p.Ap, r.r, r.z) is summed in the one-block order: each
+//   warp's shuffle tree, its sum into slot q W + w of every block's 32
+//   slots, the cluster barrier, then the 32 slots' shuffle tree in every
+//   warp. Every block holds the same bits, the cluster leaves on the same
+//   lap, and x, k and r.r are the same bits for every C (a lane sums its
+//   chunks in order, whatever its loads in flight). No float atomics.
+// Two cluster barriers a lap: after p.Ap's slots (Ap at its owners), after
+// r.r's and r.z's (z's copies whole). The slots take two sets (p.Ap's and
+// the update's): a set is rewritten only after the other set's barrier, which
+// every reader of it has passed. A cluster barrier costs a GPU-scope fence
+// (MEMBAR.ALL.GPU in the SASS) besides the barrier. A block that stops
+// returns; no block writes another's shared memory after the last barrier it
+// passes. The plan takes C = 1 once 2 B >= the SMs: a cluster of 2 was
+// never faster than one block a system there (PERF.md section 6, K5).
 //
 // K12 is K5's layout for B banded systems that share one offsets tuple:
 // one block of min(n, 1024) threads per system, x, r, p and Ap in shared
@@ -136,7 +171,9 @@ namespace {
 namespace cgrp = cooperative_groups;
 
 constexpr int kWarps = kBlock / 32;        // K4: 8 warps a block
-constexpr int kBatchBlock = 1024;          // K5: one block of 32 warps a system
+constexpr int kBatchBlock = 1024;          // K5: 32 (virtual) warps a system; K12's block
+constexpr int kBatchMaxCluster = 8;        // K5: blocks a system at most (portable cluster)
+constexpr int kBatchRowChunks = kFusedBatchMaxN / 128;  // K5: a row's float4s a lane at most
 constexpr int kPowerIters = 12;            // tpucg's in-kernel power method
 constexpr int kMaxDevices = 16;
 constexpr int kSparseMaxGrid = 4096;       // K10/K11: cap on blocks (sizes their partials)
@@ -163,18 +200,23 @@ __device__ __forceinline__ uint16_t dia_slab_load(const uint16_t* p) { return __
 
 enum Precond : int { kNone = 0, kJacobi = 1, kPoly = 2 };
 
+// The warp's shuffle-down tree: lane 0 gets the sum of v over the warp.
+__device__ __forceinline__ float warp_sum_down(float v) {
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+  return v;
+}
+
 // Sum of v over a block of `warps` whole warps, returned to every thread:
 // a shuffle tree in each warp, then warp 0 sums the warp results in warp
 // order. `red` is 33 floats of shared memory, free again on return.
 __device__ __forceinline__ float block_allsum_warps(float v, float* red, int warps) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+  v = warp_sum_down(v);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   if (lane == 0) red[warp] = v;
   __syncthreads();
   if (warp == 0) {
-    float s = lane < warps ? red[lane] : 0.f;
-    for (int off = 16; off > 0; off >>= 1) s += __shfl_down_sync(0xffffffffu, s, off);
+    const float s = warp_sum_down(lane < warps ? red[lane] : 0.f);
     if (lane == 0) red[32] = s;
   }
   __syncthreads();
@@ -191,33 +233,38 @@ __device__ __forceinline__ float block_allsum(float v, float* red) {
 
 // One row of A (n floats, 16-byte aligned, read-only for the launch) times
 // the vector staged in shared memory, summed over the warp: every lane gets
-// the result. Lanes take neighbouring 16-byte chunks, four loads in flight.
-__device__ __forceinline__ float row_dot(const float* __restrict__ arow, const float4* v,
-                                         int nchunks, int lane) {
-  const float4* __restrict__ a4 = reinterpret_cast<const float4*>(arow);
-  float acc = 0.f;
-  int c = lane;
-  for (; c + 96 < nchunks; c += 128) {
-    float4 a[4];
+// the result. Lanes take neighbouring 16-byte chunks, U loads in flight,
+// and the row's ragged end V at a time (K4: U = 4, V = 1; K5: V = U, one
+// group whose loads past the row are skipped). A lane sums its chunks c,
+// c + 32, ... in that order whatever U and V are, so the result's bits do
+// not depend on them. row_group sums one group of U chunks of a lane from
+// c on: all of them (Whole) or those below nchunks.
+template <int U, bool Whole>
+__device__ __forceinline__ float row_group(const float4* __restrict__ a4, const float4* v,
+                                           int c, int nchunks, float acc) {
+  float4 a[U];
 #pragma unroll
-    for (int u = 0; u < 4; ++u) a[u] = __ldg(a4 + c + 32 * u);
+  for (int u = 0; u < U; ++u)
+    if (Whole || c + 32 * u < nchunks) a[u] = __ldg(a4 + c + 32 * u);
 #pragma unroll
-    for (int u = 0; u < 4; ++u) {
+  for (int u = 0; u < U; ++u)
+    if (Whole || c + 32 * u < nchunks) {
       const float4 x = v[c + 32 * u];
       acc = fmaf(a[u].x, x.x, acc);
       acc = fmaf(a[u].y, x.y, acc);
       acc = fmaf(a[u].z, x.z, acc);
       acc = fmaf(a[u].w, x.w, acc);
     }
-  }
-  for (; c < nchunks; c += 32) {
-    const float4 a = __ldg(a4 + c);
-    const float4 x = v[c];
-    acc = fmaf(a.x, x.x, acc);
-    acc = fmaf(a.y, x.y, acc);
-    acc = fmaf(a.z, x.z, acc);
-    acc = fmaf(a.w, x.w, acc);
-  }
+  return acc;
+}
+template <int U, int V>
+__device__ __forceinline__ float row_dot(const float* __restrict__ arow, const float4* v,
+                                         int nchunks, int lane) {
+  const float4* __restrict__ a4 = reinterpret_cast<const float4*>(arow);
+  float acc = 0.f;
+  int c = lane;
+  for (; c + 32 * (U - 1) < nchunks; c += 32 * U) acc = row_group<U, true>(a4, v, c, nchunks, acc);
+  for (; c < nchunks; c += 32 * V) acc = row_group<V, V == 1>(a4, v, c, nchunks, acc);
   for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
   return acc;
 }
@@ -264,7 +311,7 @@ struct DenseOp {
     __syncthreads();
     const float4* vs4 = reinterpret_cast<const float4*>(vs);
     for (int row = gwarp; row < n; row += nwarps) {
-      const float av = row_dot(A + static_cast<size_t>(row) * n, vs4, n / 4, lane);
+      const float av = row_dot<4, 1>(A + static_cast<size_t>(row) * n, vs4, n / 4, lane);
       if (lane == 0) f(row, vs[row], av);
     }
   }
@@ -705,88 +752,155 @@ struct BatchArgs {
   int jacobi;
 };
 
-__global__ void __launch_bounds__(kBatchBlock) fused_batch_cg_kernel(BatchArgs a) {
-  extern __shared__ float4 sm4[];  // x | r | p | Ap, n floats each
-  __shared__ float red[33];
+// K5's cluster of C blocks, one system's (C = 1: the block alone, whose
+// barrier is __syncthreads and whose shared memory is its own).
+template <int C>
+struct SystemCluster {
+  __device__ static unsigned rank() {
+    if constexpr (C == 1) return 0;
+    else return cgrp::this_cluster().block_rank();
+  }
+  // Every thread of the C blocks arrives; shared-memory writes to any block
+  // before it are seen by every block after it (release / acquire).
+  __device__ static void sync() {
+    if constexpr (C == 1) __syncthreads();
+    else cgrp::this_cluster().sync();
+  }
+  // Writes v to `local`'s counterpart in block r's shared memory, through
+  // its 32-bit cluster address (mapa; a generic map_shared_rank pointer
+  // holds two registers).
+  __device__ static void put(float* local, unsigned r, float v) {
+    if constexpr (C == 1) {
+      *local = v;
+    } else {
+      const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(local));
+      unsigned remote;
+      asm("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(remote) : "r"(a), "r"(r));
+      asm volatile("st.shared::cluster.f32 [%0], %1;" ::"r"(remote), "f"(v) : "memory");
+    }
+  }
+};
+
+// K5 on a cluster of C blocks of T = kBatchBlock / C threads a system (the
+// design note above): thread t of block q is virtual thread v = q T + t,
+// which owns elements v, v + 1024, ... (x, r, Ap in its block's shared
+// memory); its virtual warp v / 32 owns rows v / 32, v / 32 + 32, ...
+template <int C>
+__global__ void __launch_bounds__(kBatchBlock / C, C == 1 ? 1 : 2)
+fused_batch_cg_kernel(BatchArgs a) {
+  using Cl = SystemCluster<C>;
+  constexpr int T = kBatchBlock / C;
+  constexpr int U = C == 1 ? 4 : C == kBatchMaxCluster ? kBatchRowChunks : 8;
+  extern __shared__ float4 sm4[];     // x | r | p | Ap | z, n floats each (p, z whole)
+  __shared__ float slots[2][2][32];   // [p.Ap | r.r, r.z][sum][virtual warp]
   const int n = a.n;
   const int nchunks = n / 4;
   float* xs = reinterpret_cast<float*>(sm4);
   float* rs = xs + n;
   float* ps = rs + n;
   float* aps = ps + n;
+  float* zs = aps + n;
   const float4* ps4 = sm4 + 2 * nchunks;
-  const size_t sys = blockIdx.x;
+  const size_t sys = blockIdx.x / C;
   const float* A = a.A + sys * n * n;
   const float* b = a.b + sys * n;
   const float* x0 = a.x0 + sys * n;
   const float* minv = a.jacobi ? a.minv + sys * n : nullptr;
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  constexpr int nwarps = kBatchBlock / 32;
+  const int vt = static_cast<int>(Cl::rank()) * T + static_cast<int>(threadIdx.x);
+  const int vw = vt >> 5;
   const float tol2 = a.tol * a.tol;
 
-  // Ap (into aps) for p in ps; lane 0 of the row's warp adds p.Ap's terms.
+  // Ap of this block's rows for p in ps (its own copy), each Ap_r written
+  // to element r's owner; lane 0 of the row's warp adds p.Ap's terms in row
+  // order.
   auto matvec = [&]() -> float {
     float s = 0.f;
-    for (int row = warp; row < n; row += nwarps) {
-      const float av = row_dot(A + static_cast<size_t>(row) * n, ps4, nchunks, lane);
+    for (int row = vw; row < n; row += 32) {
+      const float av = row_dot<U, U>(A + static_cast<size_t>(row) * n, ps4, nchunks, lane);
       if (lane == 0) {
-        aps[row] = av;
+        Cl::put(aps + row, (row & (kBatchBlock - 1)) / T, av);
         s += ps[row] * av;
       }
     }
     return s;
   };
+  // z_i = M^-1 r_i (r_i without jacobi) for the owner of element i, into
+  // every block's copy of z.
+  auto put_z = [&](int i, float rv) -> float {
+    const float z = minv ? __ldg(minv + i) * rv : rv;
+#pragma unroll
+    for (unsigned r = 0; r < C; ++r) Cl::put(zs + i, r, z);
+    return z;
+  };
+  // The sums of s0 (and s1 when `two`) over the 1024 virtual threads in the
+  // one-block order: each warp's shuffle tree into slot vw of slot set `set`
+  // in every block, the cluster barrier, then every warp's tree over the 32
+  // slots. Every block gets the same bits.
+  auto allsum = [&](int set, float s0, float s1, bool two, float& t0, float& t1) {
+    s0 = warp_sum_down(s0);
+    if (two) s1 = warp_sum_down(s1);
+    if (lane == 0) {
+#pragma unroll
+      for (unsigned r = 0; r < C; ++r) {
+        Cl::put(&slots[set][0][vw], r, s0);
+        if (two) Cl::put(&slots[set][1][vw], r, s1);
+      }
+    }
+    Cl::sync();
+    t0 = __shfl_sync(0xffffffffu, warp_sum_down(slots[set][0][lane]), 0);
+    if (two) t1 = __shfl_sync(0xffffffffu, warp_sum_down(slots[set][1][lane]), 0);
+  };
 
-  for (int i = threadIdx.x; i < n; i += kBatchBlock) {
-    const float v = __ldg(x0 + i);
-    xs[i] = v;
-    ps[i] = v;
-  }
-  __syncthreads();
+  for (int i = threadIdx.x; i < n; i += T) ps[i] = __ldg(x0 + i);
+  for (int i = vt; i < n; i += kBatchBlock) xs[i] = __ldg(x0 + i);
+  Cl::sync();  // every block of the cluster runs and holds p = x0
   matvec();
-  __syncthreads();
+  Cl::sync();  // Ap complete at every element's owner
   float s0 = 0.f, s1 = 0.f;
-  for (int i = threadIdx.x; i < n; i += kBatchBlock) {
+  for (int i = vt; i < n; i += kBatchBlock) {
     const float rv = __ldg(b + i) - aps[i];
     rs[i] = rv;
-    const float z = minv ? __ldg(minv + i) * rv : rv;
-    ps[i] = z;
+    const float z = put_z(i, rv);
     s0 += rv * rv;
     s1 += rv * z;
   }
-  float rr = block_allsum<kBatchBlock>(s0, red);
-  float rsold = minv ? block_allsum<kBatchBlock>(s1, red) : rr;
+  float rr, rsold;
+  allsum(1, s0, s1, minv != nullptr, rr, rsold);  // also: every copy of z whole
+  if (!minv) rsold = rr;
+  for (int i = threadIdx.x; i < n; i += T) ps[i] = zs[i];
+  __syncthreads();
   long long k = 0;
   bool done = rr < tol2;
   while (!done && k < a.maxiter) {
-    const float pap = block_allsum<kBatchBlock>(matvec(), red);  // syncs: Ap complete
+    float pap, unused;
+    allsum(0, matvec(), 0.f, false, pap, unused);  // also: Ap complete at the owners
     const float alpha = safe_div(rsold, pap, a.safe_alpha);
     s0 = 0.f;
     s1 = 0.f;
-    for (int i = threadIdx.x; i < n; i += kBatchBlock) {
+    for (int i = vt; i < n; i += kBatchBlock) {
       xs[i] = xs[i] + alpha * ps[i];
       const float rv = rs[i] - alpha * aps[i];
       rs[i] = rv;
+      const float z = put_z(i, rv);
       s0 += rv * rv;
-      s1 += minv ? rv * (__ldg(minv + i) * rv) : 0.f;
+      s1 += minv ? rv * z : 0.f;
     }
-    rr = block_allsum<kBatchBlock>(s0, red);
-    const float rz = minv ? block_allsum<kBatchBlock>(s1, red) : rr;
+    float rz;
+    allsum(1, s0, s1, minv != nullptr, rr, rz);  // also: every copy of z whole
+    if (!minv) rz = rr;
     ++k;
     done = rr < tol2;
     if (done) break;
     const float beta = rz / rsold;
     rsold = rz;
-    for (int i = threadIdx.x; i < n; i += kBatchBlock) {
-      const float z = minv ? __ldg(minv + i) * rs[i] : rs[i];
-      ps[i] = z + beta * ps[i];
-    }
+    // Every block forms the whole of p itself, the same bits in each.
+    for (int i = threadIdx.x; i < n; i += T) ps[i] = zs[i] + beta * ps[i];
     __syncthreads();
   }
   float* x = a.x + sys * n;
-  for (int i = threadIdx.x; i < n; i += kBatchBlock) x[i] = xs[i];
-  if (threadIdx.x == 0) {
+  for (int i = vt; i < n; i += kBatchBlock) x[i] = xs[i];
+  if (vt == 0) {
     a.k_out[sys] = static_cast<int>(k);
     a.rr_out[sys] = rr;
   }
@@ -1019,6 +1133,62 @@ cudaError_t launch_fused_dia(const void* data, const void* offsets, int ndiag, i
   return coop_launch((const void*)fused_dia_cg_kernel<T>, grid, kDiaSmem, args, stream);
 }
 
+// K5's launch of `batch` systems on clusters of C blocks at padded length
+// n (the grid: batch C blocks of kBatchBlock / C threads, 20 n bytes of
+// dynamic shared memory each).
+template <int C>
+cudaLaunchConfig_t batch_config(long long batch, long long n, cudaLaunchAttribute* cluster,
+                                cudaStream_t stream) {
+  cluster->id = cudaLaunchAttributeClusterDimension;
+  cluster->val.clusterDim.x = C;
+  cluster->val.clusterDim.y = 1;
+  cluster->val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(batch * C));
+  cfg.blockDim = dim3(kBatchBlock / C);
+  cfg.dynamicSmemBytes = 5 * static_cast<size_t>(n) * sizeof(float);
+  cfg.stream = stream;
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// The clusters of C blocks the current device holds at once at padded
+// length n (cached per device, C and n / 128).
+template <int C>
+cudaError_t batch_clusters(long long n, int* clusters) {
+  static int cache[kMaxDevices][kBatchRowChunks + 1];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  int* slot = dev < kMaxDevices ? &cache[dev][n / 128] : nullptr;
+  if (slot && *slot > 0) {
+    *clusters = *slot;
+    return cudaSuccess;
+  }
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = batch_config<C>(1, n, &attr, nullptr);
+  err = cudaOccupancyMaxActiveClusters(clusters, fused_batch_cg_kernel<C>, &cfg);
+  if (err != cudaSuccess) return err;
+  if (slot) *slot = *clusters;
+  return cudaSuccess;
+}
+
+// Launches K5 on clusters of C blocks; a cluster the card cannot hold is
+// refused (cudaErrorInvalidClusterSize), never shrunk.
+template <int C>
+cudaError_t launch_fused_batch(const BatchArgs& ba, long long batch, void* stream) {
+  int clusters = 0;
+  cudaError_t err = batch_clusters<C>(ba.n, &clusters);
+  if (err != cudaSuccess) return err;
+  if (clusters < 1) return cudaErrorInvalidClusterSize;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      batch_config<C>(batch, ba.n, &attr, static_cast<cudaStream_t>(stream));
+  err = cudaLaunchKernelEx(&cfg, fused_batch_cg_kernel<C>, ba);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
 }  // namespace
 }  // namespace tpucg
 
@@ -1115,17 +1285,36 @@ extern "C" cudaError_t tpucg_fused_batch_cg_f32(const void* A, const void* b, co
                                                 const void* minv, void* x, void* k, void* rr,
                                                 long long batch, long long n, float tol,
                                                 long long maxiter, int safe_alpha, int jacobi,
-                                                void* stream) {
+                                                int cluster, void* stream) {
   using namespace tpucg;
-  if (batch <= 0 || n <= 0 || n % 128 || n > kFusedBatchMaxN) return cudaErrorInvalidValue;
-  BatchArgs ba{static_cast<const float*>(A), static_cast<const float*>(b),
-               static_cast<const float*>(x0), static_cast<const float*>(minv),
-               static_cast<float*>(x), static_cast<int*>(k), static_cast<float*>(rr),
-               static_cast<int>(n), tol, maxiter, safe_alpha, jacobi};
-  fused_batch_cg_kernel<<<static_cast<unsigned>(batch), kBatchBlock,
-                          4 * static_cast<size_t>(n) * sizeof(float),
-                          static_cast<cudaStream_t>(stream)>>>(ba);
-  return cudaGetLastError();
+  if (batch <= 0 || batch > 0x7fffffffLL / kBatchMaxCluster || n <= 0 || n % 128 ||
+      n > kFusedBatchMaxN || (jacobi && minv == nullptr))
+    return cudaErrorInvalidValue;
+  const BatchArgs ba{static_cast<const float*>(A), static_cast<const float*>(b),
+                     static_cast<const float*>(x0), static_cast<const float*>(minv),
+                     static_cast<float*>(x), static_cast<int*>(k), static_cast<float*>(rr),
+                     static_cast<int>(n), tol, maxiter, safe_alpha, jacobi};
+  switch (cluster) {
+    case 1: return launch_fused_batch<1>(ba, batch, stream);
+    case 2: return launch_fused_batch<2>(ba, batch, stream);
+    case 4: return launch_fused_batch<4>(ba, batch, stream);
+    case kBatchMaxCluster: return launch_fused_batch<kBatchMaxCluster>(ba, batch, stream);
+    default: return cudaErrorInvalidClusterSize;
+  }
+}
+
+extern "C" int tpucg_fused_batch_clusters(long long n, int cluster) {
+  using namespace tpucg;
+  if (n <= 0 || n % 128 || n > kFusedBatchMaxN) return -static_cast<int>(cudaErrorInvalidValue);
+  int clusters = 0;
+  cudaError_t err = cudaErrorInvalidClusterSize;
+  switch (cluster) {
+    case 1: err = batch_clusters<1>(n, &clusters); break;
+    case 2: err = batch_clusters<2>(n, &clusters); break;
+    case 4: err = batch_clusters<4>(n, &clusters); break;
+    case kBatchMaxCluster: err = batch_clusters<kBatchMaxCluster>(n, &clusters); break;
+  }
+  return err == cudaSuccess ? clusters : -static_cast<int>(err);
 }
 
 extern "C" cudaError_t tpucg_fused_batch_dia_cg_f32(const void* data, const void* offsets,

@@ -17,6 +17,7 @@ in-kernel GEMV; it has no counterpart on the card and is dropped.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -73,6 +74,18 @@ FUSED_BATCH_DIA_MAX_N = 14464
 # DIA_TILE_ROWS + 2 DIA_TILE_HALO floats of shared memory.
 DIA_TILE_ROWS = 1024
 DIA_TILE_HALO = 1024
+
+# K5's split of a system over a thread-block cluster, compiled into the
+# kernel (csrc/fused.cu kBatchBlock, kBatchMaxCluster, kBatchRowChunks): a
+# system's BATCH_THREADS virtual threads (32 virtual warps) run on C blocks
+# of BATCH_THREADS / C threads, C at most BATCH_MAX_CLUSTER (the portable
+# cluster size); a lane keeps 4 (C = 1), 8 (C = 2, 4) or BATCH_ROW_CHUNKS
+# (C = 8) 16-byte loads of its row in flight. BATCH_SMS is the H100's SM
+# count, the plan's default.
+BATCH_THREADS = 1024
+BATCH_MAX_CLUSTER = 8
+BATCH_ROW_CHUNKS = FUSED_BATCH_MAX_N // 128
+BATCH_SMS = 132
 
 _PRECOND_CODE = {"none": 0, "jacobi": 1, "poly": 2}
 
@@ -161,16 +174,21 @@ fused_cg_solve_cuda.launches = 0
 
 
 def fused_batch_cg_solve_cuda(A, b, x0, *, tol, maxiter, safe_alpha=True,
-                              precondition="none", minv=None):
-    """K5 on the card: B independent whole solves in one launch, one block
-    per system. ``A`` is (B, npad, npad) f32, npad % 128 == 0 and npad <=
-    ``FUSED_BATCH_MAX_N``; ``b``, ``x0`` and ``minv`` (jacobi) are (B, npad)
-    f32. Returns x (B, npad), k and rr (B,)."""
+                              precondition="none", minv=None, _cluster=None):
+    """K5 on the card: B independent whole solves in one launch, each on a
+    cluster of C blocks that stream its rows of A (``batch_cluster_plan``
+    on the card's SM count). ``A`` is (B, npad, npad) f32, npad % 128 == 0
+    and npad <= ``FUSED_BATCH_MAX_N``; ``b``, ``x0`` and ``minv`` (jacobi)
+    are (B, npad) f32. Returns x (B, npad), k and rr (B,), the same bits for
+    every C. ``_cluster`` forces C (the card's checks); a cluster the card
+    refuses raises."""
     check_fused_batch(A, b, x0, precondition, minv)
     if A.device.type != "cuda" or not A.is_contiguous() or A.data_ptr() % 16:
         raise ValueError(f"fused_batch_cg_solve_cuda needs a contiguous 16-byte aligned A on "
                          f"a CUDA device, got {A.device}")
     B, npad = A.shape[0], A.shape[1]
+    plan = batch_cluster_plan(B, npad, torch.cuda.get_device_properties(A.device)
+                              .multi_processor_count, cluster=_cluster)
     b, x0 = b.contiguous(), x0.contiguous()
     minv = minv.contiguous() if precondition == "jacobi" else None
     x = torch.empty((B, npad), dtype=torch.float32, device=A.device)
@@ -179,7 +197,7 @@ def fused_batch_cg_solve_cuda(A, b, x0, *, tol, maxiter, safe_alpha=True,
     err = _lib.load().tpucg_fused_batch_cg_f32(
         A.data_ptr(), b.data_ptr(), x0.data_ptr(), None if minv is None else minv.data_ptr(),
         x.data_ptr(), k.data_ptr(), rr.data_ptr(), B, npad, float(tol), int(maxiter),
-        int(bool(safe_alpha)), int(precondition == "jacobi"), cuda_stream(A),
+        int(bool(safe_alpha)), int(precondition == "jacobi"), plan.cluster, cuda_stream(A),
     )
     if err:
         _lib.check(err, "fused_batch_cg_solve_cuda")
@@ -299,6 +317,79 @@ def dia_tile_plan(npad: int, offsets) -> DiaTilePlan:
                        lo=min(near + (0,)), hi=max(near + (0,)))
 
 
+@dataclasses.dataclass(frozen=True)
+class BatchClusterPlan:
+    """How K5 spreads each of ``batch`` systems of padded length ``npad``
+    over a cluster of ``cluster`` blocks: block q runs the virtual threads
+    [q threads, (q + 1) threads) of the system's ``BATCH_THREADS``; row r
+    belongs to virtual warp r % 32 and element i to virtual thread i %
+    ``BATCH_THREADS``."""
+
+    batch: int
+    npad: int
+    cluster: int
+
+    @property
+    def threads(self) -> int:
+        """Threads a block."""
+        return BATCH_THREADS // self.cluster
+
+    @property
+    def warps(self) -> int:
+        return self.threads // 32
+
+    @property
+    def blocks(self) -> int:
+        """The grid: ``cluster`` blocks a system."""
+        return self.batch * self.cluster
+
+    @property
+    def loads(self) -> int:
+        """16-byte loads of A a lane keeps in flight."""
+        if self.cluster == 1:
+            return 4
+        return BATCH_ROW_CHUNKS if self.cluster == BATCH_MAX_CLUSTER else 8
+
+    @property
+    def smem_bytes(self) -> int:
+        """Dynamic shared memory of a block: x, r, p (whole), Ap and z (whole),
+        f32."""
+        return 4 * 5 * self.npad
+
+    def row_owner(self, rows):
+        """The block of the cluster that computes each row of A (an int or an
+        array of them)."""
+        return (rows % 32) // self.warps
+
+    def element_owner(self, i):
+        """The block that owns each element (x_i, r_i, Ap_i, and writes
+        z_i into every block's copy)."""
+        return (i % BATCH_THREADS) // self.threads
+
+
+def batch_cluster_plan(batch: int, npad: int, sms: int = BATCH_SMS,
+                       cluster: Optional[int] = None) -> BatchClusterPlan:
+    """K5's plan: C = 1 once one block a system holds half the card's
+    ``sms`` SMs or more (2 ``batch`` >= ``sms``); else the least power of two
+    C with ``batch`` C >= ``sms``, at most ``BATCH_MAX_CLUSTER``, which is 4
+    or 8. A cluster of 2, whose two blocks an SM hold 64 registers a thread,
+    was never faster than one block a system where the rule would take it
+    (PERF.md §6, K5). ``cluster`` forces C (1, 2, 4 or 8). Raises for what
+    K5 cannot run."""
+    if batch < 1 or npad < 128 or npad % 128 or npad > FUSED_BATCH_MAX_N:
+        raise ValueError(f"K5 cannot plan batch={batch}, npad={npad} (batch >= 1, 128-aligned "
+                         f"npad <= {FUSED_BATCH_MAX_N})")
+    if cluster is None:
+        cluster = 1
+        if 2 * batch < sms:
+            cluster = 4
+            while batch * cluster < sms and cluster < BATCH_MAX_CLUSTER:
+                cluster *= 2
+    elif cluster not in (1, 2, 4, BATCH_MAX_CLUSTER):
+        raise ValueError(f"K5's cluster is 1, 2, 4 or {BATCH_MAX_CLUSTER} blocks, got {cluster}")
+    return BatchClusterPlan(batch=int(batch), npad=int(npad), cluster=int(cluster))
+
+
 def stencil_offsets(m: int) -> tuple:
     """The 7-point Laplacian's neighbours on an m^3 grid as DIA offsets (x-1,
     y-1, z-1, the row, z+1, y+1, x+1 of flat index x m^2 + y m + z), as
@@ -336,6 +427,15 @@ def fused_dia_grid(npad: int, dtype=torch.float32) -> int:
     block per 256 rows and 4096."""
     return _grid(int(_lib.load().tpucg_fused_dia_grid(int(npad), int(dtype == torch.bfloat16))),
                  "fused_dia_grid")
+
+
+def fused_batch_clusters(npad: int, cluster: int) -> int:
+    """K5's clusters of ``cluster`` blocks the current CUDA device holds at
+    once at padded length ``npad`` (0: the card refuses that cluster)."""
+    got = int(_lib.load().tpucg_fused_batch_clusters(int(npad), int(cluster)))
+    if got < 0:
+        _lib.check(-got, "fused_batch_clusters")
+    return got
 
 
 def dia_minv(data, offsets) -> torch.Tensor:
