@@ -43,10 +43,13 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
 
 9. sparse kernels vs plain: K6 (DIA SpMV) in f32 and bf16 on the m=128
    Poisson Laplacian in DIA form and on a cross-row band at n=2^20, and K8
-   (7-point stencil) at m=128, 100 and 2, each bit-identical to its plain
-   version and to its own repeat; µs per launch (device time of calls
-   queued behind a spin kernel, ``bench.timing.device_timing``: back-to-back
-   wrapper calls are host-bound at these sizes) against the bound (bytes at the HBM peak) and a torch CSR sparse product.
+   (7-point stencil, the 2.5-D march) at m=128, 100 and 2, each bit-identical
+   to its plain version and to its own repeat; µs per launch (device time of
+   calls queued behind a spin kernel, ``bench.timing.device_timing``:
+   back-to-back wrapper calls are host-bound at these sizes) against the
+   bound (bytes at the HBM peak) and a torch CSR sparse product; K8 also
+   with its march plan (``stencil_march_plan``: tile, grid, ratio of u's
+   reads) and cold (rotating over 8 copies of u, more than L2 holds).
 10. Poisson m=128: tpucg's sparse flagship (``bench --operator
    poisson-free|poisson-dia``) through ``cg_solve`` on the stencil operator
    and on DIA in f32 and bf16: the default route (K10 / K11 in one launch,
@@ -102,7 +105,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    blocks: each bit-identical to its plain version and to its repeat, the
    blocks concatenated bit-identical to K8 / K6 on the whole; µs per launch
    (``device_timing``) against the bound and a torch CSR product on the
-   block with the halos as extra columns.
+   block with the halos as extra columns; K9 also cold (8 copies of its
+   operands) and with its march plan.
 16. sharded, one rank (NCCL): a world of one rank on the card runs
    ``sharded_cg_solve`` on the dense n=8192 system with ``allgather`` and
    ``overlap`` (the oracle's 4 laps) and ``sharded_operator_cg_solve`` on
@@ -204,6 +208,7 @@ def main() -> int:
     )
 
     from tpucg_torch.bench import k10_lap, k11_lap
+    from tpucg_torch.bench.k8_march import cold_seconds as stencil_cold_seconds
     from tpucg_torch.bench import probe_gather as pg
     from tpucg_torch.bench.timing import (
         csr_spmv_bytes,
@@ -270,6 +275,7 @@ def main() -> int:
         poisson3d_slab_cuda,
         poisson3d_slab_torch,
         poisson3d_torch,
+        stencil_march_plan,
     )
     from tpucg_torch.solver.cg import (
         batch_cg_loop,
@@ -796,6 +802,11 @@ def main() -> int:
             r = kernel_vs_plain(f"K8 stencil m={mm} (n={mm ** 3})",
                                 lambda: poisson3d_cuda(u, mm), lambda: poisson3d_torch(u, mm),
                                 stencil_bytes(mm ** 3), poisson_nnz(mm), csr, u)
+            cold = stencil_cold_seconds(lambda v: poisson3d_cuda(v, mm), (u,))
+            b_s = stencil_bytes(mm ** 3) / peak
+            print(f"K8 m={mm} march: {stencil_march_plan(mm).describe()}; warm "
+                  f"{r[1] * 1e6:.3f} us ({b_s / r[1]:.1%} of its bound), cold (8 copies of u) "
+                  f"{cold * 1e6:.3f} us ({b_s / cold:.1%}) {tag}")
             if mm == 128:
                 err["K8"], times["K8"], library["K8"] = r[0], r[1:3], r[3]
                 bounds["K8"] = bound_of(stencil_bytes(mm ** 3), 7 * mm ** 3)
@@ -1333,11 +1344,15 @@ def main() -> int:
             fk, fp = (lambda: poisson3d_slab_cuda(ub, lo, hi, m),
                       lambda: poisson3d_slab_torch(ub, lo, hi, m))
             tk, tp, tl = (device_seconds_per_call(f) for f in (fk, fp, lambda: csr @ u_ext))
+            cold = stencil_cold_seconds(lambda a, b_, c: poisson3d_slab_cuda(a, b_, c, m),
+                                        (ub, lo, hi))
             b9 = bound_of(4 * (2 * blk + 2 * mm), 7 * blk)
             print(f"K9 m={m} mp={m // P} ({P} ranks): bit-identical to plain, to its repeat and, "
                   f"concatenated, to K8; rank 0 device {tk * 1e6:.2f} us per launch, "
-                  f"{100 * b9[0] / 1e3 / tk:.1f}% of its {b9[0] * 1e3:.2f} us bound; plain "
-                  f"{tp * 1e6:.2f} us, torch CSR product {tl * 1e6:.2f} us (queued) {tag}")
+                  f"{100 * b9[0] / 1e3 / tk:.1f}% of its {b9[0] * 1e3:.2f} us bound, cold (8 "
+                  f"copies of its operands) {cold * 1e6:.3f} us ({100 * b9[0] / 1e3 / cold:.1f}%); "
+                  f"plain {tp * 1e6:.2f} us, torch CSR product {tl * 1e6:.2f} us (queued); march: "
+                  f"{stencil_march_plan(m, m // P, halo=True).describe()} {tag}")
             if P == 1:
                 times["K9"], library["K9"], bounds["K9"] = (tk, tp), tl, b9
             del csr

@@ -56,7 +56,12 @@ from tpucg_torch.kernels.gather_spmv import (
 )
 from tpucg_torch.kernels.matvec import matvec_cuda, matvec_torch
 from tpucg_torch.kernels.spmv import dia_spmv_cuda, dia_spmv_torch
-from tpucg_torch.kernels.stencil import poisson3d_cuda, poisson3d_torch
+from tpucg_torch.kernels.stencil import (
+    library_march_tile,
+    poisson3d_cuda,
+    poisson3d_torch,
+    stencil_march_plan,
+)
 from tpucg_torch.solver.cg import (
     cg_loop,
     cg_solve,
@@ -418,6 +423,83 @@ def test_poisson3d_kernel_equals_plain(cuda_device, m):
     assert torch.equal(y, poisson3d_cuda(u, m))
 
 
+# K8/K9's march (csrc/sparse.cu poisson3d_march_kernel): the plan's edge
+# shapes (one tile; lines of 25 and 33 chunks; m % 4 != 0, scalar loads),
+# each forced tile of bench/k8_march.py's sweep, the library's plan against
+# stencil_march_plan, misaligned operands, one-plane and uneven slabs.
+
+
+@pytest.mark.parametrize("m", [2, 3, 10, 33, 100, 129])
+def test_k8_march_at_the_plans_edge_shapes(cuda_device, m):
+    u = _rand(cuda_device, m ** 3, seed=m)
+    y = poisson3d_cuda(u, m)
+    assert torch.equal(y, poisson3d_torch(u, m))
+    assert torch.equal(y, poisson3d_cuda(u, m))
+
+
+def _sweep():
+    from tpucg_torch.bench.k8_march import SWEEP
+    return [(m, tile) for m, tiles in SWEEP.items() for tile in tiles]
+
+
+@pytest.mark.parametrize("m,tile", _sweep())
+def test_k8_on_each_forced_tile_of_the_sweep(cuda_device, m, tile):
+    ty, tz, nx = tile
+    plan = stencil_march_plan(m, ty=ty, tz=tz, nx=nx)
+    u = _rand(cuda_device, m ** 3, seed=m)
+    y = poisson3d_cuda(u, m, _plan=plan)
+    assert torch.equal(y, poisson3d_torch(u, m))
+    assert torch.equal(y, poisson3d_cuda(u, m, _plan=plan))
+
+
+def test_k8_k9_library_plans_stencil_march_plans_tiles(cuda_device):
+    for m in (2, 3, 10, 16, 33, 64, 100, 128, 129, 192, 256, 1000, 1024, 1280):
+        for mp in sorted({1, 2, max(1, m // 4), m}):
+            p = stencil_march_plan(m, mp)
+            assert library_march_tile(m, mp) == (p.tz, p.ty, p.nx), (m, mp)
+
+
+@pytest.mark.parametrize("m,P", [(16, 16), (10, 3), (33, 4), (128, 3), (129, 2)])
+def test_k9_one_plane_and_uneven_slabs_concatenate_to_k8(cuda_device, m, P):
+    from tpucg_torch.kernels.stencil import poisson3d_slab_cuda, poisson3d_slab_torch
+
+    mm = m * m
+    u = _rand(cuda_device, m ** 3, seed=m + P)
+    parts, start = [], 0
+    for r in range(P):
+        mp = m // P + (r < m % P)
+        ub = u[start * mm:(start + mp) * mm]
+        zero = torch.zeros(mm, device=cuda_device)
+        lo = u[(start - 1) * mm:start * mm] if start > 0 else zero
+        hi = u[(start + mp) * mm:(start + mp + 1) * mm] if start + mp < m else zero
+        y = poisson3d_slab_cuda(ub, lo, hi, m)
+        assert torch.equal(y, poisson3d_slab_torch(ub, lo, hi, m))
+        assert torch.equal(y, poisson3d_slab_cuda(ub, lo, hi, m))
+        parts.append(y)
+        start += mp
+    assert torch.equal(torch.cat(parts), poisson3d_cuda(u, m))
+
+
+def test_k8_k9_misaligned_operands_and_forced_plans_on_card(cuda_device):
+    # u 4 bytes past a 16-byte boundary: the march takes scalar loads.
+    from tpucg_torch.kernels.stencil import poisson3d_slab_cuda, poisson3d_slab_torch
+
+    m, mm = 16, 256
+    big = _rand(cuda_device, m ** 3 + 1 + 2 * mm, seed=4)
+    u = big[1:1 + m ** 3]
+    assert u.data_ptr() % 16 == 4
+    assert torch.equal(poisson3d_cuda(u, m), poisson3d_torch(u, m))
+    ub, lo, hi = big[1:1 + 4 * mm], big[1 + 4 * mm:1 + 5 * mm], big[2 + 5 * mm:2 + 6 * mm]
+    assert torch.equal(poisson3d_slab_cuda(ub, lo, hi, m), poisson3d_slab_torch(ub, lo, hi, m))
+    plan = stencil_march_plan(m, 4, halo=True, tz=8, ty=5, nx=3)
+    assert torch.equal(poisson3d_slab_cuda(ub, lo, hi, m, _plan=plan),
+                       poisson3d_slab_torch(ub, lo, hi, m))
+    with pytest.raises(ValueError, match="the plan is for"):
+        poisson3d_cuda(u, m, _plan=stencil_march_plan(m + 1))
+    with pytest.raises(ValueError, match="the plan is for"):
+        poisson3d_slab_cuda(ub, lo, hi, m, _plan=stencil_march_plan(m, 4))
+
+
 def test_bf16_poisson_slab_equals_f32_on_card(cuda_device):
     # 6, -1 and the identity tail are exact in bf16.
     dia = poisson3d_dia(12)
@@ -432,9 +514,14 @@ def test_sparse_active_flag_zero_returns_at_once(cuda_device):
     u = _rand(cuda_device, 8 ** 3)
     y = torch.full_like(u, 7.0)
     from tpucg_torch.kernels.spmv import dia_spmv_launch, offsets_array
-    from tpucg_torch.kernels.stencil import poisson3d_launch
+    from tpucg_torch.kernels.stencil import poisson3d_launch, poisson3d_slab_launch
     stream = torch.cuda.current_stream().cuda_stream
     poisson3d_launch(u, y, 8, off.data_ptr(), stream)
+    poisson3d_launch(u, y, 8, off.data_ptr(), stream, plan=stencil_march_plan(8, tz=4, nx=3))
+    z = torch.zeros(64, device=cuda_device)
+    poisson3d_slab_launch(u, z, z, y, 8, 8, off.data_ptr(), stream)
+    poisson3d_slab_launch(u, z, z, y, 8, 8, off.data_ptr(), stream,
+                          plan=stencil_march_plan(8, 8, halo=True, ty=3, nx=2))
     op = DiaOperator.from_dia(poisson3d_dia(8), device=cuda_device)
     dia_spmv_launch(op.data, offsets_array(op.offsets), u, y, off.data_ptr(), stream)
     assert bool((y == 7.0).all())

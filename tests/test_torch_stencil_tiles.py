@@ -2,7 +2,7 @@
 CPU: the near/far split of the 7-point Laplacian's neighbour offsets, the
 window each tile stages in shared memory, the tiles each block owns and the
 shared bytes; and K10's matvec emulated with NumPy (window and far columns,
-summed in ``stencil_row``'s order in float32), bit-equal to the plain
+summed in K8's order in float32), bit-equal to the plain
 stencil and to tpucg's. K10 itself runs only on the card
 (``tests/test_torch_cuda.py``).
 """
@@ -166,7 +166,8 @@ def emulate_k10_matvec(v: np.ndarray, m: int) -> np.ndarray:
     """K10's matvec as ``StencilTileOp`` reads it: for each tile the window
     [t0 + lo, t1 + hi) of v (0 outside [0, n)), near neighbours from the
     window, far ones from v at an index clamped into [0, n), each selected
-    as +0 outside the grid, summed in ``stencil_row``'s order in float32."""
+    as +0 outside the grid, summed in K8's order (x+1, x-1, y+1, y-1, z+1,
+    z-1) in float32."""
     plan = stencil_tile_plan(m)
     n, mm, lo, hi = m ** 3, m * m, plan.lo, plan.hi
     y = np.empty(n, np.float32)

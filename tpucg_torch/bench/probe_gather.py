@@ -30,7 +30,6 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import functools
-import itertools
 import sys
 from typing import Callable, Dict, Optional, Sequence
 
@@ -43,6 +42,7 @@ from tpucg_torch.bench.timing import (
     gather_bytes,
     hbm_peak_bytes_per_s,
     nvidia_smi_card,
+    rotating,
 )
 from tpucg_torch.kernels import probe_gather as kp
 
@@ -184,18 +184,6 @@ def device_inputs(a: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
     return {k: torch.as_tensor(v, device=device) for k, v in a.items()}
 
 
-def _rotating(calls: Sequence[Callable[[], torch.Tensor]]) -> Callable[[], None]:
-    """One call of the next of ``calls`` a call; each keeps its output until
-    its turn comes again, so the outputs do not share one buffer either."""
-    ring = itertools.cycle(range(len(calls)))
-    held = [None] * len(calls)
-
-    def call():
-        k = next(ring)
-        held[k] = calls[k]()
-    return call
-
-
 @dataclasses.dataclass
 class Measured:
     """Device seconds per call of a probe's kernel, plain version and library
@@ -217,9 +205,9 @@ def measure(p: Probe, t: Dict[str, torch.Tensor]) -> Measured:
         return Measured(*(device_seconds_per_call(f) for f in (
             lambda: p.run(*args), lambda: p.plain(*args), lib)), label)
     sets = [t] + [{k: t[k].clone() for k in p.keys} for _ in range(COLD_SETS - 1)]
-    cold = [_rotating([lambda s=s, f=f: f(*p.args(s)) for s in sets])
+    cold = [rotating([lambda s=s, f=f: f(*p.args(s)) for s in sets])
             for f in (p.run, p.plain)]
-    lib = _rotating([p.library_call(s)[1] for s in sets])
+    lib = rotating([p.library_call(s)[1] for s in sets])
     m = Measured(*(device_seconds_per_call(f) for f in (*cold, lib)), label)
     m.l2 = device_seconds_per_call(lambda: p.run(*args))
     return m
@@ -257,8 +245,8 @@ def fem_scale(dev, n: int, cols: np.ndarray):
     check_equal("P4 at FEM scale against plain", kp.elem_gather(x, first),
                 kp.elem_gather_torch(x, first))
     idx64 = [i.long() for i in idx]
-    tk = device_seconds_per_call(_rotating([lambda i=i: kp.elem_gather(x, i) for i in idx]))
-    tl = device_seconds_per_call(_rotating([lambda i=i: torch.take(x, i) for i in idx64]))
+    tk = device_seconds_per_call(rotating([lambda i=i: kp.elem_gather(x, i) for i in idx]))
+    tl = device_seconds_per_call(rotating([lambda i=i: torch.take(x, i) for i in idx64]))
     m = first.numel()
     return tk, tl, gather_bytes(4 * m, 4 * m, first)
 

@@ -12,10 +12,11 @@ an unknown card raises instead of getting a guessed peak, and a rate above
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import statistics
 import subprocess
 import time
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 import torch
 
@@ -176,6 +177,20 @@ def device_timing(fn: Callable[[], object], iters: int = 5, reps: int = 100) -> 
 def device_seconds_per_call(fn: Callable[[], object], reps: int = 100) -> float:
     """Median device time per call of ``fn`` (``device_timing``)."""
     return device_timing(fn, iters=5, reps=reps).median
+
+
+def rotating(calls: Sequence[Callable[[], object]]) -> Callable[[], None]:
+    """One call of the next of ``calls`` a call, to time operands that are
+    not in L2 (one set a call over sets that L2 cannot hold together); each
+    keeps its output until its turn comes again, so the outputs do not
+    share one buffer either."""
+    ring = itertools.cycle(range(len(calls)))
+    held = [None] * len(calls)
+
+    def call():
+        k = next(ring)
+        held[k] = calls[k]()
+    return call
 
 
 def profile_table(fn: Callable[[], object], reps: int, trace_path: Optional[str]) -> str:

@@ -1,25 +1,33 @@
-"""Parent against change for the whole-solve kernels K4, K10 and K11 on one
-card: the same solves run from two checkouts of the package in turns
-(parent, change, change, parent), each run in a process of its own that
-builds that checkout's kernels, and the results set side by side.
+"""Parent against change for the whole-solve kernels K4, K5, K10 and K11
+and the stencil kernels K8 and K9 on one card: the same cases run from two
+checkouts of the package in turns (parent, change, change, parent), each
+run in a process of its own that builds that checkout's kernels, and the
+results set side by side.
 
     python tpucg_torch/bench/whole_solve_ab.py PARENT_ROOT CHANGE_ROOT [--only K5]
 
 Run it by path, not with ``-m``: a run's process gets its checkout's root as
 ``PYTHONPATH`` and working directory, so ``tpucg_torch`` is that
-checkout's, and it calls only entry points both checkouts have. The cases:
-K4 at n = 1000 and 4096 (``generate_spd_system``, seed 0, tol 1e-6) with
-precondition none, jacobi and poly (degree 3); K5 on the circulant batches
-of ``chip_smoke.py`` phase 8 (``tests/_torch_helpers.py``
+checkout's, and it calls only entry points both checkouts have. The solve
+cases: K4 at n = 1000 and 4096 (``generate_spd_system``, seed 0, tol 1e-6)
+with precondition none, jacobi and poly (degree 3); K5 on the circulant
+batches of ``chip_smoke.py`` phase 8 (``tests/_torch_helpers.py``
 ``circulant_spd_batch``, seed 100, tol 1e-2, identity-padded) at 64 x
 1000, 16 x 2048 and 256 x 512 with none and jacobi; K10 at m = 128 with
-none and poly; K11 at m = 128, f32 and bf16 slabs, none, jacobi and poly
-(tpucg's Poisson bench system, tol 1e-5 ||b||, x0 = 0); ``--only`` keeps
-the cases whose label starts with one of its words. For each case it prints the
-laps and the median ms of 5 solves (CUDA events, after one warm-up) of the
-four runs, whether x and the laps of parent and change are bit-identical,
-the largest |x_change - x_parent| over max |x_parent|, and whether each
-checkout repeats itself bit for bit; then the card's name and power limit.
+none and poly; K11 at m = 128, f32 and bf16 slabs, none, jacobi and poly;
+the Poisson lap route at m = 128 ("K8 lap route": ``cg_solve(
+PoissonOperator(128), b, fused="never")``, K8 with K2 and K3), all on tpucg's Poisson bench system
+(tol 1e-5 ||b||, x0 = 0). For each it prints the laps and the median ms of
+5 solves (CUDA events, after one warm-up) of the four runs. The kernel
+cases: K8 at m = 64, 100, 128, 192 and 256 and K9 at m = 128 on the slabs
+of P = 1, 2 and 4 ranks (rank 0 and rank P // 2, halos cut from u), u
+standard normal (``default_rng(m)``); for each, µs a launch warm (queued
+calls on one u) and cold (rotating over 8 copies of the operands). Then,
+for every case, whether x (a kernel's y) and the laps of parent and change
+are bit-identical, the largest |x_change - x_parent| over max |x_parent|,
+and whether each checkout repeats itself bit for bit; then the card's name
+and power limit. ``--only`` keeps the cases whose label starts with one of
+its words.
 """
 
 from __future__ import annotations
@@ -43,6 +51,53 @@ def k5_batch(nsys: int, n: int, dev):
     return padded_batch(*circulant_spd_batch(nsys, n, seed=100), dev)
 
 
+COLD_SETS = 8  # copies of a kernel case's operands its cold timing rotates over
+
+
+def _rotating(calls):
+    """One call of the next of ``calls`` a call, each output kept until its
+    turn comes again. (Here and not imported: the parent's package may not
+    have ``bench.k8_march``.)"""
+    held, turn = [None] * len(calls), [0]
+
+    def call():
+        k = turn[0]
+        held[k] = calls[k]()
+        turn[0] = (k + 1) % len(calls)
+    return call
+
+
+def stencil_cases(dev) -> dict:
+    """K8 and K9's cases: label -> (launch, operands); ``launch(*operands)``
+    returns y."""
+    import numpy as np
+    import torch
+
+    from tpucg_torch.kernels.stencil import poisson3d_cuda, poisson3d_slab_cuda
+
+    def u_of(m):
+        return torch.as_tensor(np.random.default_rng(m).standard_normal(m ** 3)
+                               .astype(np.float32), device=dev)
+
+    cases = {}
+    for m in (64, 100, 128, 192, 256):
+        cases[f"K8 m={m}"] = (lambda v, m_=m: poisson3d_cuda(v, m_), lambda m_=m: (u_of(m_),))
+    m, mm = 128, 128 * 128
+    for P in (1, 2, 4):
+        blk = m ** 3 // P
+        for r in sorted({0, P // 2}):
+            def operands(r_=r, blk_=blk):
+                u = u_of(m)
+                zero = torch.zeros(mm, device=dev)
+                lo = u[r_ * blk_ - mm:r_ * blk_].clone() if r_ > 0 else zero
+                hi = u[(r_ + 1) * blk_:(r_ + 1) * blk_ + mm].clone() if (r_ + 1) * blk_ < m ** 3 \
+                    else zero.clone()
+                return u[r_ * blk_:(r_ + 1) * blk_].clone(), lo, hi
+            cases[f"K9 m={m} P={P} rank {r}"] = (
+                lambda ub, lo, hi: poisson3d_slab_cuda(ub, lo, hi, m), operands)
+    return cases
+
+
 def worker(out: str, only: Sequence[str] = ()) -> None:
     """Every case's laps, x and median ms, from the ``tpucg_torch`` on the
     path, saved to ``out`` with ``torch.save``; with ``only``, the cases
@@ -50,7 +105,7 @@ def worker(out: str, only: Sequence[str] = ()) -> None:
     import torch
 
     from tpucg_torch.bench.k11_lap import poisson_rhs
-    from tpucg_torch.bench.timing import time_fn
+    from tpucg_torch.bench.timing import device_seconds_per_call, time_fn
     from tpucg_torch.io.generator import generate_spd_system, poisson3d_dia
     from tpucg_torch.kernels.dispatch import strict_f32
     from tpucg_torch.kernels.fused import (
@@ -59,7 +114,8 @@ def worker(out: str, only: Sequence[str] = ()) -> None:
         fused_dia_cg_solve_cuda,
         fused_stencil_cg_solve_cuda,
     )
-    from tpucg_torch.solver.operators import DenseOperator, DiaOperator
+    from tpucg_torch.solver.cg import cg_solve
+    from tpucg_torch.solver.operators import DenseOperator, DiaOperator, PoissonOperator
 
     strict_f32()
     dev = torch.device("cuda", 0)
@@ -97,12 +153,29 @@ def worker(out: str, only: Sequence[str] = ()) -> None:
                       poly_degree=3 if pc == "poly" else 0)
             cases[f"K11 m={m} {name} {pc}"] = (
                 lambda op_=op, kw_=kw: fused_dia_cg_solve_cuda(op_.data, op_.offsets, b, z, **kw_))
+    lap_op = PoissonOperator(m, device=dev)
+
+    def lap_route():
+        res = cg_solve(lap_op, b, fused="never", tol=tol, maxiter=maxiter)
+        return res.x, res.iterations, None
+    cases[f"K8 lap route m={m}"] = lap_route
+    wanted = lambda label: not only or any(label.startswith(w) for w in only)  # noqa: E731
     results = {}
     for label, fn in cases.items():
-        if only and not any(label.startswith(w) for w in only):
+        if not wanted(label):
             continue
         x, k, _ = fn()
         results[label] = (k.tolist(), x.cpu(), time_fn(fn, warmup=1, iters=5).median * 1e3)
+    for label, (launch, operands) in stencil_cases(dev).items():
+        if not wanted(label):
+            continue
+        args = operands()
+        copies = [args] + [tuple(a.clone() for a in args) for _ in range(COLD_SETS - 1)]
+        warm = device_seconds_per_call(lambda: launch(*args))
+        cold = device_seconds_per_call(_rotating([lambda c=c: launch(*c) for c in copies]))
+        results[label] = (None, launch(*args).cpu(), (warm * 1e6, cold * 1e6))
+        del args, copies
+        torch.cuda.empty_cache()
     torch.save(results, out)
 
 
@@ -120,12 +193,16 @@ def compare(roots: Sequence[str], outs: Sequence[str]) -> None:
     for label in runs[0]:
         (kp, xp, _), (kc, xc, _) = runs[0][label], runs[1][label]
         err = float((xc - xp).abs().max()) / float(xp.abs().max())
-        ms = " / ".join(f"{r[label][2]:.5f}" for r in runs)
-        laps = " / ".join(_laps(r[label][0]) for r in runs)
+        if kp is None:  # a kernel: y, and µs warm and cold
+            times = "; ".join(f"{name} us " + " / ".join(f"{r[label][2][i]:.3f}" for r in runs)
+                              for i, name in enumerate(("warm", "cold")))
+        else:
+            times = ("laps " + " / ".join(_laps(r[label][0]) for r in runs) + "; ms "
+                     + " / ".join(f"{r[label][2]:.5f}" for r in runs))
         same = kp == kc and torch.equal(xp, xc)
         repeat = all(runs[i][label][0] == runs[j][label][0]
                      and torch.equal(runs[i][label][1], runs[j][label][1]) for i, j in ((0, 3), (1, 2)))
-        print(f"  {label}: laps {laps}; ms {ms}; parent = change bit for bit: {same}; max |x_c - "
+        print(f"  {label}: {times}; parent = change bit for bit: {same}; max |x_c - "
               f"x_p| / max |x_p| = {err:.3e}; each repeats itself: {repeat}", flush=True)
 
 

@@ -60,6 +60,9 @@ SIGNATURES = {
         ctypes.c_int, [_PTR, _PTR, ctypes.c_int] + [_PTR] * 4 + [_LEN, _LEN, _PTR, _PTR]),
     "tpucg_poisson3d_f32": (ctypes.c_int, [_PTR, _PTR, _LEN, _PTR, _PTR]),
     "tpucg_poisson3d_slab_f32": (ctypes.c_int, [_PTR] * 4 + [_LEN, _LEN, _PTR, _PTR]),
+    "tpucg_poisson3d_march_f32": (
+        ctypes.c_int, [_PTR] * 4 + [_LEN, _LEN] + [ctypes.c_int] * 3 + [_PTR, _PTR]),
+    "tpucg_poisson3d_march_plan": (ctypes.c_int, [_LEN, _LEN, _PTR]),
     "tpucg_fused_stencil_cg_f32": (
         ctypes.c_int,
         [_PTR] * 6 + [_LEN, ctypes.c_int, ctypes.c_int, ctypes.c_float, _LEN, ctypes.c_int,

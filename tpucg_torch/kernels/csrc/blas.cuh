@@ -134,7 +134,7 @@ cudaError_t tpucg_dia_spmv_halo_bf16(const void* data, const void* offsets, int 
                                      void* stream);
 
 // K8: y = A u for the 7-point Dirichlet Laplacian on an m^3 grid, flat index
-// x*m^2 + y*m + z; u and y f32 (m^3,), 2 <= m and m^3 < 2^31.
+// x*m^2 + y*m + z; u and y f32 (m^3,), 2 <= m <= 1280.
 cudaError_t tpucg_poisson3d_f32(const void* u, void* y, long long m, const void* active,
                                 void* stream);
 
@@ -144,6 +144,17 @@ cudaError_t tpucg_poisson3d_f32(const void* u, void* y, long long m, const void*
 cudaError_t tpucg_poisson3d_slab_f32(const void* u, const void* lo, const void* hi, void* y,
                                      long long m, long long mp, const void* active,
                                      void* stream);
+
+// K8 (lo = hi = null, mp = m) or K9 on a tile forced to tz (a multiple of 4,
+// at most 128) x ty lines x nx planes a block, in place of the plan's (the
+// card checks and the tile sweep, bench/k8_march.py).
+cudaError_t tpucg_poisson3d_march_f32(const void* u, const void* lo, const void* hi, void* y,
+                                      long long m, long long mp, int tz, int ty, int nx,
+                                      const void* active, void* stream);
+// K8/K9's plan for a slab of mp planes of the m^3 grid: writes its tz, ty
+// and nx to out (int[3]), as kernels/stencil.py stencil_march_plan gives
+// them.
+cudaError_t tpucg_poisson3d_march_plan(long long m, long long mp, void* out);
 
 // K10: one whole matrix-free Poisson CG (precond 0) or poly-PCG (2) solve on
 // an m^3 grid in one cooperative launch; b, x0, x (m^3,) f32; `scratch`

@@ -379,7 +379,7 @@ __device__ __forceinline__ void stage_window(float* win, G g, int base, int len,
 // clamped into [0, n). Which offsets are near is a template argument of
 // the rows' pass (chosen once a tile), so a pass is one run of code with no
 // branch between its loads: a thread sums two rows at once, all their loads
-// issued before the first subtraction. Each row's sum is stencil_row's,
+// issued before the first subtraction. Each row's sum is K8's (sparse.cu),
 // term by term in its order with __fmul_rn / __fsub_rn, a neighbour outside
 // the grid selected as +0 rather than skipped (acc - (+0) is acc bit for
 // bit, -0 included), so (A v)_i is K8's bit for bit.

@@ -1,8 +1,9 @@
-// Row functions of the structured-sparse operators, shared by the lap
-// kernels (sparse.cu: K6 DIA SpMV, K7 its row-block form with halos, K8
-// 7-point stencil) and the whole-solve K12 (fused.cu), so a lap and a whole
-// solve compute one operator the same way; K10 and K11 (fused.cu) sum each
-// row term by term in these functions' order.
+// Row functions of the DIA operators, shared by the lap kernels (sparse.cu:
+// K6 DIA SpMV, K7 its row-block form with halos) and the whole-solve K12
+// (fused.cu), so a lap and a whole solve compute one operator the same way;
+// K11 (fused.cu) sums each row term by term in these functions' order, and
+// K8/K9 (sparse.cu) and K10 (fused.cu) sum the 7-point stencil in one order,
+// tpucg's x+1, x-1, y+1, y-1, z+1, z-1 (stencil.py:60-80).
 //
 // Both take the input vector as a functor v(j) (j a flat index inside the
 // vector; the row functions never call it outside [0, n)): the lap kernels
@@ -59,28 +60,8 @@ __device__ __forceinline__ float dia_row(const T* __restrict__ data, long long n
                  [&](long long j) { return (j >= 0 && j < npad) ? v(j) : 0.f; });
 }
 
-// (A v)[i] of the 7-point Dirichlet Laplacian on an m^3 grid, flat index
-// i = x*m^2 + y*m + z, given vi = v(i): 6 vi minus each in-grid neighbour,
-// in tpucg's order x+1, x-1, y+1, y-1, z+1, z-1 (stencil.py:60-80).
-template <class V>
-__device__ __forceinline__ float stencil_row(int m, int i, float vi, V v) {
-  const int mm = m * m;
-  const int ix = i / mm;
-  const int rem = i - ix * mm;
-  const int iy = rem / m;
-  const int iz = rem - iy * m;
-  float acc = __fmul_rn(6.f, vi);
-  if (ix < m - 1) acc = __fsub_rn(acc, v(i + mm));
-  if (ix > 0) acc = __fsub_rn(acc, v(i - mm));
-  if (iy < m - 1) acc = __fsub_rn(acc, v(i + m));
-  if (iy > 0) acc = __fsub_rn(acc, v(i - m));
-  if (iz < m - 1) acc = __fsub_rn(acc, v(i + 1));
-  if (iz > 0) acc = __fsub_rn(acc, v(i - 1));
-  return acc;
-}
-
 // Sizes the kernels index with int: a grid-stride loop's i + stride must
-// stay below 2^31 for up to 2^22 threads.
+// stay below 2^31 for up to 2^22 threads (K8/K9 keep the same cap).
 constexpr long long kMaxIntRows = 0x7fffffffLL - (1LL << 22);
 constexpr long long kStencilMaxM = 1280;  // 1280^3 <= kMaxIntRows
 
