@@ -17,10 +17,14 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    not. Then n=16384.
 6. times: the n=8192 solve and each kernel beside its plain version, with
    the card's name and power limit.
-7. whole-solve K4: ``cg_solve(fused="always")`` at n=1000 and 4096 with
-   precondition none, jacobi and poly runs one K4 launch and nothing else,
-   at the plain version's lap count (and the oracle's for none), x within
-   a bound scaled to x of the plain version's, repeats bit-identical; the
+7. whole-solve K4: ``cg_solve(fused="always")`` at n=1000, 2048 and 4096
+   with precondition none, jacobi and poly runs one K4 launch and nothing
+   else, at the plain version's lap count (and the oracle's for none), x
+   within a bound scaled to x of the plain version's, repeats
+   bit-identical; at each n the plan (``dense_resident_plan``: A's rows in
+   shared memory and L2), µs a lap (the slope of the queued device time
+   between tol = 0 runs of 8 and 40 laps) and the solve's wrapper time
+   beside its queued device time; the
    goldens in 2 and 4 laps through K4; the crossover table of K4 against
    the lap path, n = 128 ... 4096, medians of 7 solves, each arm run twice
    in turns.
@@ -96,7 +100,12 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    1024 through ``cg_solve_batch_banded``, none and jacobi, f32 and bf16
    slabs, one K12 launch each; K12 against its plain version (laps within
    one, x within 1e-4 of max |x|, repeats bit-identical) and laps equal on
-   a battery whose spectra set them; ms per battery against the plain loop.
+   a battery whose spectra set them; ms per battery (wrapper, and queued
+   device time) against the plain loop, with the plan
+   (``batch_dia_warps_plan``); then K12 on 8 x 256, f32 and bf16, none and
+   jacobi, at the plan's W and forced to W = 4 and 8: x, k and r.r equal
+   bit for bit to its NumPy emulation (``tests/_torch_helpers.py``
+   ``batch_dia_cg_emulated``).
 
 15. halo kernels vs plain: K9 (the stencil on a slab with halo planes) at
    m=128 on slabs of mp = 128, 64 and 32 planes (1, 2 and 4 ranks), halos
@@ -197,6 +206,7 @@ def main() -> int:
 
     from _torch_helpers import (
         BAND_SETS,
+        batch_dia_cg_emulated,
         FAR_BAND,
         FAR_BAND_N,
         arrowhead_spd,
@@ -207,7 +217,7 @@ def main() -> int:
         run_world,
     )
 
-    from tpucg_torch.bench import k10_lap, k11_lap
+    from tpucg_torch.bench import k4_resident, k10_lap, k11_lap
     from tpucg_torch.bench.k8_march import cold_seconds as stencil_cold_seconds
     from tpucg_torch.bench import probe_gather as pg
     from tpucg_torch.bench.timing import (
@@ -248,6 +258,8 @@ def main() -> int:
         FUSED_DIA_AUTO_MAX_N,
         FUSED_STENCIL_AUTO_MAX_M,
         batch_cluster_plan,
+        batch_dia_warps_plan,
+        dense_resident_plan,
         dia_tile_plan,
         fused_batch_cg_solve_cuda,
         fused_batch_clusters,
@@ -523,7 +535,8 @@ def main() -> int:
     with phase("whole-solve K4"):
         counts["fused_cg_solve_cuda"] = 0
         err["K4"] = 0.0
-        for n in (1000, 4096):
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        for n in (1000, 2048, 4096):
             A, b, x0 = generate_spd_system(n, seed=0)
             k_ref = oracle_cg(A, b, x0)[1]
             op = DenseOperator.create(A, device=dev)
@@ -564,14 +577,25 @@ def main() -> int:
                       + (f", oracle {k_ref}" if pc == "none" else "")
                       + f"), ||r|| {float(rr) ** 0.5:.3e}, max abs err vs plain {e:.3e} = "
                       f"{se:.3e} of max |x| (bound {bound}), repeat bit-identical")
+            # µs a lap: the slope of the queued device time between tol = 0
+            # runs of 8 and 40 laps (no lap passes the stopping test); the
+            # wrapper beside the queued device time of the tol 1e-6 solve.
+            kw = dict(tol=1e-6, maxiter=n)
+            slope, fixed = k4_resident.lap_slope(lambda m: fused_cg_solve_cuda(
+                op.A, bp, x0p, tol=0.0, maxiter=m))
+            wrapper = time_fn(lambda: fused_cg_solve_cuda(op.A, bp, x0p, **kw),
+                              warmup=2, iters=7).median
+            queued = device_seconds_per_call(lambda: fused_cg_solve_cuda(op.A, bp, x0p, **kw),
+                                             reps=50)
+            print(f"K4 n={n}: plan {dense_resident_plan(op.padded_n, sms).describe()}; "
+                  f"{slope:.3f} us a lap, launch + set-up {fixed:.3f} us; solve: wrapper "
+                  f"{wrapper * 1e3:.5f} ms, queued device {queued * 1e3:.5f} ms {tag}")
             if n == 1000:
                 k4_laps = int(fused_cg_solve_cuda(op.A, bp, x0p, tol=1e-6, maxiter=n)[1])
                 npad = op.padded_n
                 bounds["K4"] = bound_of(4 * (npad * npad + 3 * npad),
                                      cg_flops(npad, k4_laps, 2 * npad * npad))
-                kw = dict(tol=1e-6, maxiter=n)
-                times["K4"] = (time_fn(lambda: fused_cg_solve_cuda(op.A, bp, x0p, **kw),
-                                       warmup=2, iters=7).median,
+                times["K4"] = (wrapper,
                                time_fn(lambda: fused_cg_solve_torch(op.A, bp, x0p, **kw),
                                        warmup=2, iters=7).median)
             del op, A
@@ -1240,6 +1264,7 @@ def main() -> int:
     with phase("batched banded K12"):
         counts["fused_batch_dia_cg_solve_cuda"] = 0
         err["K12"] = 0.0
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
         nsys, nb = 256, 1024
         # tpucg's battery at its tol (laps within one of the plain version),
         # and one whose spectra set the laps (tol 1e-2: equal laps).
@@ -1278,6 +1303,8 @@ def main() -> int:
                     split = int((k != kp).sum())
                     tk = time_fn(lambda: fused_batch_dia_cg_solve_cuda(d, offs, bd, z, **kw),
                                  warmup=1, iters=5)
+                    tq = device_seconds_per_call(
+                        lambda: fused_batch_dia_cg_solve_cuda(d, offs, bd, z, **kw), reps=50)
                     tp = time_fn(lambda: fused_batch_dia_cg_solve_torch(d, offs, bd, z, **kw),
                                  warmup=1, iters=5)
                     print(f"{what}: laps {min(laps)}-{max(laps)}, "
@@ -1285,13 +1312,33 @@ def main() -> int:
                              f"{split} of {nsys} a lap apart from plain")
                           + f"; max abs err {e:.3e} = {se:.3e} of max |x|, repeat "
                           f"bit-identical; {tk.median * 1e3:.4f} ms per battery (min "
-                          f"{tk.min * 1e3:.4f}), plain loop {tp.median * 1e3:.4f} ms {tag}")
+                          f"{tk.min * 1e3:.4f}), queued device {tq * 1e3:.5f} ms, plain loop "
+                          f"{tp.median * 1e3:.4f} ms; plan "
+                          f"{batch_dia_warps_plan(nsys, nb, len(offs), dt, sms).describe()} {tag}")
                     if (name, dname, pc) == ("tpucg", "f32", "none"):
                         times["K12"] = (tk.median, tp.median)
                         npad = nb
                         bounds["K12"] = bound_of(
                             nsys * (3 * npad * 4 + 3 * npad * 4 + 8),
                             sum(cg_flops(npad, kk, 2 * 3 * npad) for kk in laps))
+        # K12 against its NumPy emulation (tests/_torch_helpers.py: today's
+        # operations and sum order, FFMA where the kernel fuses), bit for
+        # bit, on a small battery, at the plan's W and at each forced W.
+        data_e, offs_e, b_e = banded_battery(8, 256, seed=3)
+        be = torch.as_tensor(b_e, device=dev)
+        for dt, dname in ((f32, "f32"), (bf16, "bf16")):
+            d = torch.as_tensor(data_e, device=dev).to(dt)
+            for pc in ("none", "jacobi"):
+                want = batch_dia_cg_emulated(d.float().cpu().numpy(), offs_e, b_e,
+                                             np.zeros_like(b_e), 1e-5, 256, jacobi=pc == "jacobi")
+                for w in (None, 4, 8):
+                    got = fused_batch_dia_cg_solve_cuda(
+                        d, offs_e, be, torch.zeros_like(be), tol=1e-5, maxiter=256,
+                        precondition=pc, **({} if w is None else {"_plan": (w, True)}))
+                    require(all(np.array_equal(u.cpu().numpy(), v) for u, v in zip(got, want)),
+                            f"K12 8x256 {dname} {pc} W={w}: differs from the NumPy emulation")
+                print(f"K12 8x256 {dname} {pc}: x, k, r.r equal to the NumPy emulation bit for "
+                      f"bit at the plan's W and at W = 4 and 8 (laps {want[1].tolist()})")
 
     def halo_csr(data, offsets, pad):
         """A row block of a DIA matrix as a torch CSR tensor on the card over

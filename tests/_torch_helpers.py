@@ -505,6 +505,147 @@ def card_world_worker(rank, nprocs, cases, m, b_poisson, kw):
     return out
 
 
+def fma32(a, b, c):
+    """float32 a * b + c rounded once (CUDA's FFMA), in NumPy: the product
+    is exact in float64, TwoSum keeps the sum's error, and a float64 sum
+    that falls on a midpoint between two float32 values is broken by that
+    error's sign instead of to even."""
+    a, b, c = (np.asarray(v, np.float32) for v in (a, b, c))
+    p = a.astype(np.float64) * b.astype(np.float64)
+    c64 = c.astype(np.float64)
+    s = p + c64
+    bb = s - p
+    err = (p - (s - bb)) + (c64 - bb)  # s + err == p + c exactly
+    r = s.astype(np.float32)
+    r64 = r.astype(np.float64)
+    other = np.where(s > r64, np.nextafter(r, np.float32(np.inf)),
+                     np.nextafter(r, np.float32(-np.inf)))
+    tie = (s != r64) & (s == (r64 + other.astype(np.float64)) / 2) & (err != 0)
+    broken = np.where(err > 0, np.maximum(r, other), np.minimum(r, other))
+    return np.where(tie, broken, r).astype(np.float32)
+
+
+def _tree32(v):
+    """The shuffle-down tree over the last axis (32, or a power of two
+    below it): lane 0's sum, f32."""
+    v = np.asarray(v, np.float32)
+    w = v.shape[-1]
+    while w > 1:
+        w //= 2
+        v = (v[..., :w] + v[..., w:2 * w]).astype(np.float32)
+    return v[..., 0]
+
+
+def batch_dia_partials(a, b=None):
+    """Today's K12 thread partials over a system's rows (length npad): VT =
+    min(npad, 1024) threads, thread t accumulating rows t, t + VT, ... in
+    order, each by fma(a_i, b_i, acc) (b given) or acc + a_i. Returns
+    (VT,) f32."""
+    a = np.asarray(a, np.float32)
+    n = a.shape[-1]
+    vt = min(n, 1024)
+    acc = np.zeros(vt, np.float32)
+    for q in range(-(-n // vt)):
+        rows = np.arange(vt) + vt * q
+        live = rows < n
+        i = rows[live]
+        acc[live] = (fma32(a[i], b[i], acc[live]) if b is not None
+                     else (acc[live] + a[i]).astype(np.float32))
+    return acc
+
+
+def batch_dia_sum(partials):
+    """Today's K12 block sum of the thread partials: each warp's
+    shuffle-down tree, then the tree over 32 slots (zeros past the warps)."""
+    vw = partials.shape[-1] // 32
+    slots = np.zeros(32, np.float32)
+    slots[:vw] = _tree32(partials.reshape(vw, 32))
+    return np.float32(_tree32(slots))
+
+
+def batch_dia_warps_sum(partials, warps):
+    """The same sum the way the W-warp K12 takes it: the G = 32 W / VW lanes
+    of a virtual warp take its virtual lanes g, g + G, ... (lane g); each
+    lane runs the tree's steps of offset G and more over its own virtual
+    lanes, the G lanes then the steps below G, and the virtual warps' sums
+    the 32-slot tree."""
+    vw = partials.shape[-1] // 32
+    g = 32 * warps // vw
+    # [virtual warp, lane g, its j-th virtual lane g + G j]
+    m = partials.reshape(vw, 32 // g, g).transpose(0, 2, 1)
+    own = _tree32(m)        # steps of offset G and more, in a lane's registers
+    sums = _tree32(own)     # steps below G, across the G lanes
+    slots = np.zeros(32, np.float32)
+    slots[:vw] = sums
+    return np.float32(_tree32(slots))
+
+
+def dia_apply32(slab, offsets, v):
+    """K12's Ap for one system: row i sums slab[d, i] * v[i + off_d] in
+    offsets order, each product and sum rounded on its own, 0 outside."""
+    n = v.shape[0]
+    acc = np.zeros(n, np.float32)
+    rows = np.arange(n)
+    for d, off in enumerate(offsets):
+        c = rows + off
+        xv = np.where((c >= 0) & (c < n), v[np.clip(c, 0, n - 1)], 0).astype(np.float32)
+        acc = (acc + (slab[d] * xv).astype(np.float32)).astype(np.float32)
+    return acc
+
+
+def batch_dia_cg_emulated(data, offsets, b, x0, tol, maxiter, jacobi=False, safe_alpha=True):
+    """K12 in float32 NumPy, operation for operation as the kernel (and the
+    one-block kernel before it) computes: FFMA where it fuses (fma32),
+    products and sums rounded on their own elsewhere, IEEE division, the
+    sums in today's order (batch_dia_partials, batch_dia_sum). ``data`` is
+    (B, ndiag, n) f32 (a bf16 slab widened exactly); returns x (B, n), k and
+    rr (B,)."""
+    data = np.asarray(data, np.float32)
+    B, _, n = data.shape
+    tol2 = np.float32(tol) * np.float32(tol)
+    X = np.zeros((B, n), np.float32)
+    K = np.zeros(B, np.int32)
+    RR = np.zeros(B, np.float32)
+    one = np.float32(1)
+
+    def total(a, b_=None):
+        return batch_dia_sum(batch_dia_partials(a, b_))
+
+    for s in range(B):
+        slab = data[s]
+        x = np.asarray(x0[s], np.float32).copy()
+        minv = None
+        if jacobi:
+            dg = slab[list(offsets).index(0)]
+            minv = np.where(dg != 0, one / np.where(dg != 0, dg, one), one).astype(np.float32)
+        ap = dia_apply32(slab, offsets, x)
+        r = (np.asarray(b[s], np.float32) - ap).astype(np.float32)
+        z = (minv * r).astype(np.float32) if jacobi else r
+        p = z
+        rr = total(r, r)
+        rsold = total(r, z) if jacobi else rr
+        k = 0
+        done = rr < tol2
+        while not done and k < maxiter:
+            ap = dia_apply32(slab, offsets, p)
+            pap = total(p, ap)
+            alpha = np.float32(0) if (safe_alpha and pap == 0) else np.float32(rsold / pap)
+            x = fma32(alpha, p, x)
+            r = fma32(-alpha, ap, r)
+            rr = total(r, r)
+            rz = total((r * (minv * r).astype(np.float32)).astype(np.float32)) if jacobi else rr
+            k += 1
+            done = rr < tol2
+            if done:
+                break
+            beta = np.float32(rz / rsold)
+            rsold = rz
+            z = (minv * r).astype(np.float32) if jacobi else r
+            p = fma32(beta, p, z)
+        X[s], K[s], RR[s] = x, k, rr
+    return X, K, RR
+
+
 @pytest.fixture
 def cuda_device():
     """The first CUDA device; tests that need the card skip without one."""

@@ -17,6 +17,7 @@ from _torch_helpers import (  # noqa: F401  (fixture)
     arrowhead_spd,
     banded_battery,
     banded_spectrum_battery,
+    batch_dia_cg_emulated,
     circulant_spd_batch,
     cuda_device,
     k11_edge_npads,
@@ -35,11 +36,17 @@ from tpucg_torch.io.generator import (
 from tpucg_torch.io.golden import GOLDEN_2X2, GOLDEN_4X4
 from tpucg_torch.kernels.blas1 import dot_cuda, dot_torch, fused_update_cuda, fused_update_torch
 from tpucg_torch.kernels.fused import (
+    BATCH_DIA_WARPS,
     FUSED_BATCH_MAX_N,
     FUSED_MAX_N,
     batch_cluster_plan,
+    batch_dia_warps_plan,
+    dense_resident_plan,
+    dense_resident_plans,
     fused_batch_cg_solve_cuda,
     fused_batch_dia_cg_solve_cuda,
+    fused_batch_dia_plan,
+    fused_cg_plan,
     fused_cg_solve_cuda,
     dia_tile_plan,
     fused_dia_cg_solve_cuda,
@@ -234,7 +241,8 @@ def _x_bound(pc):
     return 1e-4 if pc == "poly" else 1e-5
 
 
-@pytest.mark.parametrize("n", [100, 1000, 4096], ids=["npad128", "npad1024", "npad4096"])
+@pytest.mark.parametrize("n", [100, 1000, 2048, 4096],
+                         ids=["npad128", "npad1024", "npad2048", "npad4096"])
 @pytest.mark.parametrize("pc", ["none", "jacobi", "poly"])
 def test_k4_matches_plain_on_card(cuda_device, n, pc):
     (A, b, x0), op, bd, x0d, minv = _k4_operands(cuda_device, n)
@@ -249,6 +257,51 @@ def test_k4_matches_plain_on_card(cuda_device, n, pc):
     assert all(torch.equal(u, v) for u, v in zip((x, k, rr), again))
     if pc == "none":
         assert int(k) == oracle_cg(A, b, x0)[1]
+
+
+@pytest.mark.parametrize("npad", [128, 256, 1024, 1152, 2048, 2176, 3072, 4096])
+def test_k4_library_plan_is_dense_resident_plan(cuda_device, npad):
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for plan in [dense_resident_plan(npad, sms)] + dense_resident_plans(npad, sms):
+        forced = None if plan == dense_resident_plan(npad, sms) else (plan.blocks_per_sm,
+                                                                      plan.resident)
+        assert fused_cg_plan(npad, forced) == (plan.blocks_per_sm, plan.grid, plan.resident,
+                                               plan.smem_bytes)
+
+
+@pytest.mark.parametrize("n", [2048, 4096])
+@pytest.mark.parametrize("pc", ["none", "poly"])
+def test_k4_every_forced_plan_takes_the_plans_laps(cuda_device, n, pc):
+    (A, b, x0), op, bd, x0d, minv = _k4_operands(cuda_device, n)
+    kw = dict(tol=1e-6, maxiter=n, precondition=pc, poly_degree=3 if pc == "poly" else 0)
+    x, k, rr = fused_cg_solve_cuda(op.A, bd, x0d, **kw)
+    xp, kp, _ = fused_cg_solve_torch(op.A, bd, x0d, **kw)
+    assert int(k) == int(kp)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for plan in dense_resident_plans(op.padded_n, sms):
+        try:
+            got = fused_cg_solve_cuda(op.A, bd, x0d, _plan=(plan.blocks_per_sm, plan.resident),
+                                      **kw)
+        except RuntimeError as e:
+            # Only a grid the card cannot hold at once (registers) may be
+            # refused; the plan's own grid never is.
+            assert "cooperative" in str(e) and plan.grid != dense_resident_plan(
+                op.padded_n, sms).grid, (plan.describe(), e)
+            continue
+        assert int(got[1]) == int(k), plan.describe()
+        assert scaled_err(got[0].cpu(), xp.cpu()) <= _x_bound(pc), plan.describe()
+        if plan.grid == dense_resident_plan(op.padded_n, sms).grid:
+            # The same grid sums the partials in the same order, wherever
+            # the rows lie.
+            assert all(torch.equal(u, v) for u, v in zip((x, k, rr), got)), plan.describe()
+
+
+def test_k4_refuses_a_forced_plan_that_does_not_fit(cuda_device):
+    (_, _, _), op, bd, x0d, _ = _k4_operands(cuda_device, 4096)
+    with pytest.raises(RuntimeError, match="fused_cg_solve_cuda"):
+        fused_cg_solve_cuda(op.A, bd, x0d, tol=1e-6, maxiter=8, _plan=(1, 40))
+    with pytest.raises(RuntimeError, match="fused_cg_plan"):
+        fused_cg_plan(4096, (9, 0))
 
 
 def test_k4_maxiter_cap_and_exact_guess_on_card(cuda_device):
@@ -793,6 +846,66 @@ def test_k12_matches_plain_on_card(cuda_device, pc, dtype, battery):
     assert bool((rr < tol ** 2).all()) and scaled_err(x.cpu(), xp.cpu()) <= 1e-4
     again = fused_batch_dia_cg_solve_cuda(d, offsets, bd, z, **kw)
     assert all(torch.equal(u, v) for u, v in zip((x, k, rr), again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pc", ["none", "jacobi"])
+def test_k12_equals_the_emulation_bit_for_bit_on_card(cuda_device, pc, dtype):
+    data, offsets, b = banded_battery(8, 256, seed=3)
+    d = torch.as_tensor(data, device=cuda_device).to(dtype)
+    bd = torch.as_tensor(b, device=cuda_device)
+    z = torch.zeros_like(bd)
+    kw = dict(tol=1e-5, maxiter=256, precondition=pc)
+    want = batch_dia_cg_emulated(d.float().cpu().numpy(), offsets, b, np.zeros_like(b), 1e-5, 256,
+                                 jacobi=pc == "jacobi")
+    for w in (None,) + BATCH_DIA_WARPS:
+        got = fused_batch_dia_cg_solve_cuda(d, offsets, bd, z, **kw,
+                                            **({} if w is None else {"_plan": (w, True)}))
+        for u, v in zip(got, want):
+            assert np.array_equal(u.cpu().numpy(), v), (w, pc, dtype)
+
+
+@pytest.mark.parametrize("shape", [(64, 1024, 3), (8, 2048, 5), (4, 128, 3), (3, 14464, 3)])
+def test_k12_every_forced_plan_is_the_plans_bits_on_card(cuda_device, shape):
+    nsys, n, ndiag = shape
+    offsets = tuple(range(-(ndiag // 2), ndiag // 2 + 1))
+    # One SPD band, scaled by a factor a system.
+    data = random_banded_dia(n, offsets, seed=n)[1][None].repeat(nsys, 0)
+    data = data * np.random.default_rng(n).uniform(0.8, 1.2, (nsys, 1, 1)).astype(np.float32)
+    b = np.random.default_rng(n + 1).standard_normal((nsys, n)).astype(np.float32)
+    d = torch.as_tensor(data, device=cuda_device)
+    bd = torch.as_tensor(b, device=cuda_device)
+    z = torch.zeros_like(bd)
+    for pc in ("none", "jacobi"):
+        kw = dict(tol=1e-5, maxiter=n, precondition=pc)
+        ref = fused_batch_dia_cg_solve_cuda(d, offsets, bd, z, **kw)
+        for w in BATCH_DIA_WARPS:
+            for slab in (True, False):
+                try:
+                    batch_dia_warps_plan(nsys, n, ndiag, warps=w, slab=slab)
+                except ValueError:
+                    continue  # W above the virtual warps, or a slab that does not fit
+                got = fused_batch_dia_cg_solve_cuda(d, offsets, bd, z, _plan=(w, slab), **kw)
+                assert all(torch.equal(u, v) for u, v in zip(ref, got)), (shape, pc, w, slab)
+
+
+@pytest.mark.parametrize("shape", [(256, 1024, 3, torch.float32), (256, 1024, 3, torch.bfloat16),
+                                   (8, 256, 3, torch.float32), (5, 14464, 3, torch.float32),
+                                   (100000, 128, 3, torch.float32), (64, 2048, 7, torch.bfloat16)])
+def test_k12_library_plan_is_batch_dia_warps_plan(cuda_device, shape):
+    nsys, n, ndiag, dtype = shape
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for w, slab in [(None, None)] + [(w, s) for w in BATCH_DIA_WARPS for s in (True, False)]:
+        try:
+            plan = batch_dia_warps_plan(nsys, n, ndiag, dtype, sms, warps=w, slab=slab)
+        except ValueError:
+            with pytest.raises(RuntimeError, match="fused_batch_dia_plan"):
+                fused_batch_dia_plan(nsys, n, ndiag, dtype, (w, slab))
+            continue
+        forced = None if w is None else (w, slab)
+        assert fused_batch_dia_plan(nsys, n, ndiag, dtype, forced) == (
+            plan.warps, int(plan.regs), plan.systems, plan.grid, plan.threads, plan.smem_bytes,
+            plan.pad, int(plan.slab), plan.sys_bytes), (shape, w, slab)
 
 
 @pytest.mark.parametrize("n", [128, 1000, 4096, 14464])

@@ -1,5 +1,5 @@
-"""Parent against change for the whole-solve kernels K4, K5, K10 and K11
-and the stencil kernels K8 and K9 on one card: the same cases run from two
+"""Parent against change for the whole-solve kernels K4, K5, K10, K11 and
+K12 and the stencil kernels K8 and K9 on one card: the same cases run from two
 checkouts of the package in turns (parent, change, change, parent), each
 run in a process of its own that builds that checkout's kernels, and the
 results set side by side.
@@ -9,16 +9,26 @@ results set side by side.
 Run it by path, not with ``-m``: a run's process gets its checkout's root as
 ``PYTHONPATH`` and working directory, so ``tpucg_torch`` is that
 checkout's, and it calls only entry points both checkouts have. The solve
-cases: K4 at n = 1000 and 4096 (``generate_spd_system``, seed 0, tol 1e-6)
-with precondition none, jacobi and poly (degree 3); K5 on the circulant
+cases: K4 at n = 1000, 2048 and 4096 (``generate_spd_system``, seed 0, tol
+1e-6) with precondition none, jacobi and poly (degree 3); K5 on the circulant
 batches of ``chip_smoke.py`` phase 8 (``tests/_torch_helpers.py``
 ``circulant_spd_batch``, seed 100, tol 1e-2, identity-padded) at 64 x
 1000, 16 x 2048 and 256 x 512 with none and jacobi; K10 at m = 128 with
 none and poly; K11 at m = 128, f32 and bf16 slabs, none, jacobi and poly;
 the Poisson lap route at m = 128 ("K8 lap route": ``cg_solve(
 PoissonOperator(128), b, fused="never")``, K8 with K2 and K3), all on tpucg's Poisson bench system
-(tol 1e-5 ||b||, x0 = 0). For each it prints the laps and the median ms of
-5 solves (CUDA events, after one warm-up) of the four runs. The kernel
+(tol 1e-5 ||b||, x0 = 0); K12 on tpucg's battery of 256 tridiagonal systems
+of n = 1024 (``tests/_torch_helpers.py`` ``banded_battery``, seed 0, tol
+1e-5, x0 = 0), f32 and bf16 slabs, none and jacobi. For each it prints the
+laps and the median ms of 5 solves (CUDA events, after one warm-up) of the
+four runs, and for K4 and K12 also the queued device ms (calls queued
+behind a spin kernel, ``bench.timing.device_timing``) and the host ms a
+call (the wrapper's own work, timed while a spin kernel holds the card).
+The lap cases ("K4
+lap"): K4 at n = 1000, 2048 and 4096, none, jacobi and poly, at tol = 0
+(no lap passes the stopping test), µs a lap as the slope of the queued
+device time between maxiter = 8 and 40 and the intercept (launch and
+set-up); their x is not compared. The kernel
 cases: K8 at m = 64, 100, 128, 192 and 256 and K9 at m = 128 on the slabs
 of P = 1, 2 and 4 ranks (rank 0 and rank P // 2, halos cut from u), u
 standard normal (``default_rng(m)``); for each, µs a launch warm (queued
@@ -98,6 +108,56 @@ def stencil_cases(dev) -> dict:
     return cases
 
 
+def banded(nsys: int, n: int, dev):
+    """tpucg's battery (``banded_battery(nsys, n, seed=0)``) on ``dev``: the
+    f32 slab, its offsets, b and x0 = 0."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[2] / "tests"))
+    from _torch_helpers import banded_battery
+
+    import torch
+
+    data, offsets, b = banded_battery(nsys, n, seed=0)
+    bd = torch.as_tensor(b, device=dev)
+    return torch.as_tensor(data, device=dev), offsets, bd, torch.zeros_like(bd)
+
+
+def host_seconds_per_call(fn, reps: int = 100) -> float:
+    """The host's time a call of ``fn`` (the wrapper's own work: checks,
+    allocation, the launch) while a spin kernel holds the card, so the host
+    never waits on the queue: the median of 5 windows of ``reps`` calls.
+    (Here and not in ``bench.timing``: the parent's package may not have
+    it.)"""
+    import statistics
+    import time
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    windows = []
+    for _ in range(5):
+        torch.cuda._sleep(int(4e9 * reps * 1e-4))  # ~0.2 ms a call at 2 GHz at least
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        windows.append((time.perf_counter() - t0) / reps)
+        torch.cuda.synchronize()
+    return statistics.median(windows)
+
+
+LAPS = (8, 40)  # maxiter of the two tol = 0 runs whose slope is a lap
+
+
+def lap_slope(solve) -> tuple:
+    """(µs a lap, µs of launch and set-up) from the queued device time of
+    ``solve(maxiter)`` at the two maxiters of ``LAPS``."""
+    from tpucg_torch.bench.timing import device_timing
+
+    t = [device_timing(lambda m=m: solve(m), iters=5, reps=20).median * 1e6 for m in LAPS]
+    slope = (t[1] - t[0]) / (LAPS[1] - LAPS[0])
+    return slope, t[0] - LAPS[0] * slope
+
+
 def worker(out: str, only: Sequence[str] = ()) -> None:
     """Every case's laps, x and median ms, from the ``tpucg_torch`` on the
     path, saved to ``out`` with ``torch.save``; with ``only``, the cases
@@ -110,6 +170,7 @@ def worker(out: str, only: Sequence[str] = ()) -> None:
     from tpucg_torch.kernels.dispatch import strict_f32
     from tpucg_torch.kernels.fused import (
         fused_batch_cg_solve_cuda,
+        fused_batch_dia_cg_solve_cuda,
         fused_cg_solve_cuda,
         fused_dia_cg_solve_cuda,
         fused_stencil_cg_solve_cuda,
@@ -119,8 +180,8 @@ def worker(out: str, only: Sequence[str] = ()) -> None:
 
     strict_f32()
     dev = torch.device("cuda", 0)
-    cases = {}
-    for n in (1000, 4096):
+    cases, slopes = {}, {}
+    for n in (1000, 2048, 4096):
         A, b, x0 = generate_spd_system(n, seed=0)
         op = DenseOperator.create(A, device=dev)
         pad = op.padded_n - n
@@ -133,6 +194,9 @@ def worker(out: str, only: Sequence[str] = ()) -> None:
                       minv=minv if pc == "jacobi" else None)
             cases[f"K4 n={n} {pc}"] = (lambda A_=op.A, b_=bp, x_=x0p, kw_=kw:
                                        fused_cg_solve_cuda(A_, b_, x_, **kw_))
+            slopes[f"K4 lap n={n} {pc}"] = (lambda m, A_=op.A, b_=bp, x_=x0p, kw_=kw:
+                                            fused_cg_solve_cuda(A_, b_, x_,
+                                                                **dict(kw_, tol=0.0, maxiter=m)))
     for nsys, n in ((64, 1000), (16, 2048), (256, 512)):
         A, b, x0, minv = k5_batch(nsys, n, dev)
         for pc in ("none", "jacobi"):
@@ -159,13 +223,28 @@ def worker(out: str, only: Sequence[str] = ()) -> None:
         res = cg_solve(lap_op, b, fused="never", tol=tol, maxiter=maxiter)
         return res.x, res.iterations, None
     cases[f"K8 lap route m={m}"] = lap_route
+    d32, offsets, bb, zb = banded(256, 1024, dev)
+    for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        d = d32.to(dt)
+        for pc in ("none", "jacobi"):
+            kw = dict(tol=1e-5, maxiter=1024, precondition=pc)
+            cases[f"K12 256x1024 {name} {pc}"] = (
+                lambda d_=d, kw_=kw: fused_batch_dia_cg_solve_cuda(d_, offsets, bb, zb, **kw_))
     wanted = lambda label: not only or any(label.startswith(w) for w in only)  # noqa: E731
     results = {}
     for label, fn in cases.items():
         if not wanted(label):
             continue
-        x, k, _ = fn()
-        results[label] = (k.tolist(), x.cpu(), time_fn(fn, warmup=1, iters=5).median * 1e3)
+        x, k, rr = fn()
+        times = {"ms": time_fn(fn, warmup=1, iters=5).median * 1e3}
+        if label.startswith(("K4", "K12")):
+            times["device ms"] = device_seconds_per_call(fn, reps=50) * 1e3
+            times["host ms"] = host_seconds_per_call(fn) * 1e3
+        results[label] = (k.tolist(), x.cpu() if rr is None else (x.cpu(), rr.cpu()), times)
+    for label, solve in slopes.items():
+        if wanted(label):
+            slope, fixed = lap_slope(solve)
+            results[label] = (None, None, {"us a lap": slope, "set-up us": fixed})
     for label, (launch, operands) in stencil_cases(dev).items():
         if not wanted(label):
             continue
@@ -173,7 +252,7 @@ def worker(out: str, only: Sequence[str] = ()) -> None:
         copies = [args] + [tuple(a.clone() for a in args) for _ in range(COLD_SETS - 1)]
         warm = device_seconds_per_call(lambda: launch(*args))
         cold = device_seconds_per_call(_rotating([lambda c=c: launch(*c) for c in copies]))
-        results[label] = (None, launch(*args).cpu(), (warm * 1e6, cold * 1e6))
+        results[label] = (None, launch(*args).cpu(), {"warm us": warm * 1e6, "cold us": cold * 1e6})
         del args, copies
         torch.cuda.empty_cache()
     torch.save(results, out)
@@ -184,24 +263,37 @@ def _laps(k) -> str:
     return str(k) if isinstance(k, int) else f"{min(k)}..{max(k)} (sum {sum(k)})"
 
 
+def _equal(a, b) -> bool:
+    """Bit for bit: two tensors, or two tuples of them."""
+    import torch
+
+    if isinstance(a, tuple):
+        return all(_equal(u, v) for u, v in zip(a, b))
+    return torch.equal(a, b)
+
+
 def compare(roots: Sequence[str], outs: Sequence[str]) -> None:
-    """Runs 0 and 3 are the parent, 1 and 2 the change."""
+    """Runs 0 and 3 are the parent, 1 and 2 the change. A solve's x (and
+    r.r) and laps are compared bit for bit, a kernel's y; a lap case has
+    times only."""
     import torch
 
     runs = [torch.load(o) for o in outs]
     print(f"parent {roots[0]}, change {roots[1]}; runs: parent, change, change, parent")
     for label in runs[0]:
-        (kp, xp, _), (kc, xc, _) = runs[0][label], runs[1][label]
-        err = float((xc - xp).abs().max()) / float(xp.abs().max())
-        if kp is None:  # a kernel: y, and µs warm and cold
-            times = "; ".join(f"{name} us " + " / ".join(f"{r[label][2][i]:.3f}" for r in runs)
-                              for i, name in enumerate(("warm", "cold")))
-        else:
-            times = ("laps " + " / ".join(_laps(r[label][0]) for r in runs) + "; ms "
-                     + " / ".join(f"{r[label][2]:.5f}" for r in runs))
-        same = kp == kc and torch.equal(xp, xc)
+        (kp, xp, names), (kc, xc, _) = runs[0][label], runs[1][label]
+        times = "; ".join(f"{name} " + " / ".join(f"{r[label][2][name]:.5f}" for r in runs)
+                          for name in names)
+        if xp is None:
+            print(f"  {label}: {times}", flush=True)
+            continue
+        if kp is not None:
+            times = "laps " + " / ".join(_laps(r[label][0]) for r in runs) + "; " + times
+        x0p, x0c = (xp[0], xc[0]) if isinstance(xp, tuple) else (xp, xc)
+        err = float((x0c - x0p).abs().max()) / float(x0p.abs().max())
+        same = kp == kc and _equal(xp, xc)
         repeat = all(runs[i][label][0] == runs[j][label][0]
-                     and torch.equal(runs[i][label][1], runs[j][label][1]) for i, j in ((0, 3), (1, 2)))
+                     and _equal(runs[i][label][1], runs[j][label][1]) for i, j in ((0, 3), (1, 2)))
         print(f"  {label}: {times}; parent = change bit for bit: {same}; max |x_c - "
               f"x_p| / max |x_p| = {err:.3e}; each repeats itself: {repeat}", flush=True)
 

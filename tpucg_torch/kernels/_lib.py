@@ -43,8 +43,9 @@ SIGNATURES = {
     "tpucg_reduce_blocks": (ctypes.c_int, [_LEN]),
     "tpucg_fused_cg_f32": (
         ctypes.c_int,
-        [_PTR] * 8 + [_LEN, ctypes.c_float, _LEN, ctypes.c_int, ctypes.c_int, ctypes.c_int, _PTR],
+        [_PTR] * 8 + [_LEN, ctypes.c_float, _LEN] + [ctypes.c_int] * 5 + [_PTR],
     ),
+    "tpucg_fused_cg_plan": (ctypes.c_int, [_LEN, ctypes.c_int, ctypes.c_int, _PTR]),
     "tpucg_fused_cg_scratch": (ctypes.c_longlong, [_LEN]),
     "tpucg_fused_batch_cg_f32": (
         ctypes.c_int,
@@ -84,13 +85,15 @@ SIGNATURES = {
     "tpucg_fused_batch_dia_cg_f32": (
         ctypes.c_int,
         [_PTR, _PTR, ctypes.c_int, ctypes.c_int] + [_PTR] * 5
-        + [_LEN, _LEN, ctypes.c_float, _LEN, ctypes.c_int, _PTR],
+        + [_LEN, _LEN, ctypes.c_float, _LEN] + [ctypes.c_int] * 3 + [_PTR],
     ),
     "tpucg_fused_batch_dia_cg_bf16": (
         ctypes.c_int,
         [_PTR, _PTR, ctypes.c_int, ctypes.c_int] + [_PTR] * 5
-        + [_LEN, _LEN, ctypes.c_float, _LEN, ctypes.c_int, _PTR],
+        + [_LEN, _LEN, ctypes.c_float, _LEN] + [ctypes.c_int] * 3 + [_PTR],
     ),
+    "tpucg_fused_batch_dia_plan": (
+        ctypes.c_int, [_LEN, _LEN] + [ctypes.c_int] * 4 + [_PTR]),
     "tpucg_well_spmv_f32": (ctypes.c_int, [_PTR] * 6 + [_LEN, _LEN, ctypes.c_int, _PTR, _PTR]),
     "tpucg_well_spmv_bf16": (ctypes.c_int, [_PTR] * 6 + [_LEN, _LEN, ctypes.c_int, _PTR, _PTR]),
     "tpucg_probe_lane_gather_f32": (ctypes.c_int, [_PTR, _PTR, _PTR, _LEN, _PTR]),

@@ -23,8 +23,8 @@ constexpr int kBlock = 256;          // threads per block, K1-K4
 constexpr int kMaxPartials = 1024;   // cap on stage-1 blocks of a reduction
 constexpr int kFusedMaxN = 4096;     // K4's largest n (tpucg's FUSED_MAX_N)
 constexpr int kFusedBatchMaxN = 2048;  // K5's (tpucg's FUSED_BATCH_MAX_N)
-// K12's: the largest multiple of 128 whose four f32 vectors, with the 132
-// bytes of the block reduction, fit the 232,448 bytes of shared memory an
+// K12's: the largest multiple of 128 whose four f32 vectors, with the 512
+// bytes of the reductions' slots, fit the 232,448 bytes of shared memory an
 // H100 block may take.
 constexpr int kFusedBatchDiaMaxN = 14464;
 
@@ -89,12 +89,20 @@ int tpucg_reduce_blocks(long long n);
 // n % 128 == 0 and n <= 4096, A f32 and 16-byte aligned. precond: 0 none,
 // 1 jacobi (minv = 1/diag, n floats), 2 poly of degree `degree` (>= 1). Writes
 // x[n], *k (int) and *rr (the last r.r); `scratch` holds
-// tpucg_fused_cg_scratch(n) floats. A device without cooperative launch, or
-// a refused launch, returns the CUDA error.
+// tpucg_fused_cg_scratch(n) floats. A stays on chip for the whole solve:
+// each block's first `slots` rows in shared memory, the rest in L2
+// (fused.py dense_resident_plan). blocks_per_sm <= 0 and slots < 0 take the
+// plan's; others force them, and a forced plan that does not fit is
+// refused. A device without cooperative launch, or a refused launch,
+// returns the CUDA error.
 cudaError_t tpucg_fused_cg_f32(const void* A, const void* b, const void* x0, const void* minv,
                                void* x, void* k, void* rr, void* scratch, long long n,
                                float tol, long long maxiter, int safe_alpha, int precond,
-                               int degree, void* stream);
+                               int degree, int blocks_per_sm, int slots, void* stream);
+// K4's plan on the current device (blocks_per_sm and slots as above): writes
+// its blocks an SM, grid, resident rows a block and dynamic shared bytes to
+// out (int[4]).
+cudaError_t tpucg_fused_cg_plan(long long n, int blocks_per_sm, int slots, void* out);
 long long tpucg_fused_cg_scratch(long long n);
 
 // K5: `batch` independent solves of A[batch, n, n], each on a cluster of
@@ -192,19 +200,30 @@ int tpucg_fused_dia_grid(long long npad, int bf16);
 long long tpucg_fused_sparse_scratch(long long n);
 
 // K12: `batch` independent banded CG (diag = -1) or Jacobi-PCG (diag = the
-// slab row of offset 0) solves, one block each; data (batch, ndiag, npad) f32
-// or bf16 with one host `offsets` array of ndiag int64 for all, npad % 128 ==
-// 0 and npad <= 14464; b, x0 and x (batch, npad) f32, k and rr (batch,).
+// slab row of offset 0) solves, each on W warps; data (batch, ndiag, npad)
+// f32 or bf16 with one host `offsets` array of ndiag int64 for all, npad %
+// 128 == 0 and npad <= 14464; b, x0 and x (batch, npad) f32, k and rr
+// (batch,). warps <= 0 and slab < 0 take the plan's (fused.py
+// batch_dia_warps_plan); others force W (1, 2, 4 or 8) and whether the slab
+// is copied into shared memory, and a forced plan that cannot run is
+// refused.
 cudaError_t tpucg_fused_batch_dia_cg_f32(const void* data, const void* offsets, int ndiag,
                                          int diag, const void* b, const void* x0, void* x,
                                          void* k, void* rr, long long batch, long long npad,
                                          float tol, long long maxiter, int safe_alpha,
-                                         void* stream);
+                                         int warps, int slab, void* stream);
 cudaError_t tpucg_fused_batch_dia_cg_bf16(const void* data, const void* offsets, int ndiag,
                                           int diag, const void* b, const void* x0, void* x,
                                           void* k, void* rr, long long batch, long long npad,
                                           float tol, long long maxiter, int safe_alpha,
-                                          void* stream);
+                                          int warps, int slab, void* stream);
+// K12's plan on the current device for a slab of `itemsize` bytes an
+// element (warps and slab as above): writes W, x/r/Ap in registers (0/1),
+// systems a block, grid, threads a block, dynamic shared bytes a block,
+// the vectors' padding, the slab resident (0/1) and a system's shared bytes
+// to out (int[9]).
+cudaError_t tpucg_fused_batch_dia_plan(long long batch, long long npad, int ndiag, int itemsize,
+                                       int warps, int slab, void* out);
 
 // K13: the WELL SpMV over its live slots repacked as rows (gather.cu). For
 // each row r < nrows, y[r] is the sum, over j in [rowptr[r], rowptr[r + 1])

@@ -60,9 +60,23 @@
 // K4 (dense, n <= 4096) stages that input vector (<= 16 KB) in shared
 // memory, one warp owns one row (16-byte loads of A, four in flight per
 // lane, a fixed shuffle tree), and lane 0 of the row's warp owns that
-// element in every elementwise step. K10 and K11 keep x, r, p, Ap, z and the
-// power iterate in global memory (8 MiB each at m = 128: the 50 MB L2 holds
-// the lap's five vectors, 42 MB, but not all of them with a slab).
+// element in every elementwise step. Like tpucg's K4, which holds A in VMEM
+// for the whole solve, it keeps A on chip (DenseResidentOp): a block's rows
+// go to its shared memory once, by bulk copies (cp.async.bulk, one mbarrier
+// a row) that the first matvec waits on, and every later matvec (each lap,
+// the 13 power iterations and the Neumann terms under poly) reads them
+// there; the rows that do not fit are read through L2 under an evict_last
+// policy and put back to the normal priority when the solve ends. The plan
+// (fused.py dense_resident_plan, dense_plan below) keeps the one-warp-a-row
+// grid of n / 8 blocks where all its rows fit (n <= 2048 on an H100: 72 KB
+// a block at 2048), so the partials sum as before and x, k and r.r keep
+// their bits; at n = 4096 (64 MiB of A) it takes two blocks an SM with 6
+// of each block's ~16 rows resident (39 MiB through L2), the fastest of the
+// sweep (bench/k4_resident.py; PERF.md section 6, K4).
+//
+// K10 and K11 keep x, r, p, Ap, z and the power iterate in global memory (8
+// MiB each at m = 128: the 50 MB L2 holds the lap's five vectors, 42 MB,
+// but not all of them with a slab).
 //
 // K10 computes the stencil from the grid coordinates, so its lap moves
 // vectors only: r and p_old read, p and Ap written by the matvec, x, p, r
@@ -150,16 +164,21 @@
 // passes. The plan takes C = 1 once 2 B >= the SMs: a cluster of 2 was
 // never faster than one block a system there (PERF.md section 6, K5).
 //
-// K12 is K5's layout for B banded systems that share one offsets tuple:
-// one block of min(n, 1024) threads per system, x, r, p and Ap in shared
-// memory (16 KB at n = 1024), the matvec K11's DIA row function over the
-// system's (ndiag, n) slab, which streams from device memory (through the
-// read-only path) every lap in f32 or bf16; jacobi reads 1/diag from the
-// slab's main-diagonal row. Its cap is the card's: the n whose four vectors
-// fit the 227 KB of shared memory a block may take (kFusedBatchDiaMaxN). A
-// lap reads the slab (ndiag x n elements) and touches shared memory only,
-// so at tpucg's battery (256 x 1024, 3 diagonals) every SM holds two
-// systems and the slab's 3 MB (f32) stays in L2 across laps.
+// K12 solves B banded systems that share one offsets tuple, each on a few
+// warps (W = 4 or 8; fused.py batch_dia_warps_plan) and never a whole
+// block: at tpucg's battery (256 x 1024, 3 diagonals) a lap is ~3 us of
+// latency, not bytes (its slab, 3 MB, sits in L2), and the kernel before
+// this one spent it on one block of 1,024 threads a system: a slab read
+// from L2 a lap and seven __syncthreads across 32 warps. Now a system's
+// barrier spans its own W warps (a named barrier), three a
+// lap; its slab is copied into shared memory once where it fits beside p,
+// in its storage type; x, r and Ap of a row stay in the owner's registers
+// (n <= 1024); r.r and r.z go through one pass. The sums keep today's
+// order through virtual threads (the kernel's note), so x, k and r.r are
+// the same bits as before for every W. Its cap is the card's: the n whose
+// four vectors fit the 227 KB of shared memory a block may take
+// (kFusedBatchDiaMaxN), where x, r and Ap go to shared memory and the slab
+// streams from device memory.
 #include "blas.cuh"
 #include "sparse.cuh"
 
@@ -171,11 +190,16 @@ namespace {
 namespace cgrp = cooperative_groups;
 
 constexpr int kWarps = kBlock / 32;        // K4: 8 warps a block
-constexpr int kBatchBlock = 1024;          // K5: 32 (virtual) warps a system; K12's block
+constexpr int kBatchBlock = 1024;          // K5, K12: 32 (virtual) warps a system
 constexpr int kBatchMaxCluster = 8;        // K5: blocks a system at most (portable cluster)
 constexpr int kBatchRowChunks = kFusedBatchMaxN / 128;  // K5: a row's float4s a lane at most
 constexpr int kPowerIters = 12;            // tpucg's in-kernel power method
 constexpr int kMaxDevices = 16;
+constexpr int kSmemPerSm = 233472;         // H100: 228 KB of shared memory an SM
+constexpr int kSmemPerBlock = 232448;      // and at most 227 KB a block
+constexpr int kSmemReserved = 1024;        // the runtime's share of each block
+constexpr int kBatchDiaBlock = 256;        // K12: threads a block at most (systems x W warps)
+constexpr int kBatchDiaSlots = 128;        // K12: floats, two sets of two sums of 32 virtual warps
 constexpr int kSparseMaxGrid = 4096;       // K10/K11: cap on blocks (sizes their partials)
 // K10's and K11's tile (tpucg_torch/kernels/fused.py DIA_TILE_ROWS,
 // DIA_TILE_HALO):
@@ -206,10 +230,13 @@ __device__ __forceinline__ float warp_sum_down(float v) {
   return v;
 }
 
-// Sum of v over a block of `warps` whole warps, returned to every thread:
-// a shuffle tree in each warp, then warp 0 sums the warp results in warp
-// order. `red` is 33 floats of shared memory, free again on return.
-__device__ __forceinline__ float block_allsum_warps(float v, float* red, int warps) {
+// Sum of v over a block of `threads` threads (whole warps), returned to
+// every thread: a shuffle tree in each warp, then warp 0 sums the warp
+// results in warp order. `red` is 33 floats of shared memory, free again on
+// return.
+template <int threads>
+__device__ __forceinline__ float block_allsum(float v, float* red) {
+  constexpr int warps = threads / 32;
   v = warp_sum_down(v);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -225,27 +252,26 @@ __device__ __forceinline__ float block_allsum_warps(float v, float* red, int war
   return out;
 }
 
-// The same over a block of `threads` threads (a compile-time count).
-template <int threads>
-__device__ __forceinline__ float block_allsum(float v, float* red) {
-  return block_allsum_warps(v, red, threads / 32);
-}
-
 // One row of A (n floats, 16-byte aligned, read-only for the launch) times
 // the vector staged in shared memory, summed over the warp: every lane gets
-// the result. Lanes take neighbouring 16-byte chunks, U loads in flight,
+// the result. `load(c)` gives the row's 16-byte chunk c from wherever the
+// row lies (device memory through the read-only path, shared memory, or L2
+// under a cache policy). Lanes take neighbouring chunks, U loads in flight,
 // and the row's ragged end V at a time (K4: U = 4, V = 1; K5: V = U, one
 // group whose loads past the row are skipped). A lane sums its chunks c,
-// c + 32, ... in that order whatever U and V are, so the result's bits do
-// not depend on them. row_group sums one group of U chunks of a lane from
-// c on: all of them (Whole) or those below nchunks.
-template <int U, bool Whole>
-__device__ __forceinline__ float row_group(const float4* __restrict__ a4, const float4* v,
-                                           int c, int nchunks, float acc) {
+// c + 32, ... in that order whatever U and V are and wherever the row lies,
+// so the result's bits depend on neither. row_group sums one group of U
+// chunks of a lane from c on: all of them (Whole) or those below nchunks.
+// The loops' unrolling is fixed: left to the compiler, K4's build took 128
+// registers and spilled; pinned to 1, it ran 6-8% slower at n = 4096
+// (PERF.md section 6, K4).
+template <int U, bool Whole, class L>
+__device__ __forceinline__ float row_group(L load, const float4* v, int c, int nchunks,
+                                           float acc) {
   float4 a[U];
 #pragma unroll
   for (int u = 0; u < U; ++u)
-    if (Whole || c + 32 * u < nchunks) a[u] = __ldg(a4 + c + 32 * u);
+    if (Whole || c + 32 * u < nchunks) a[u] = load(c + 32 * u);
 #pragma unroll
   for (int u = 0; u < U; ++u)
     if (Whole || c + 32 * u < nchunks) {
@@ -257,17 +283,23 @@ __device__ __forceinline__ float row_group(const float4* __restrict__ a4, const 
     }
   return acc;
 }
-template <int U, int V>
-__device__ __forceinline__ float row_dot(const float* __restrict__ arow, const float4* v,
-                                         int nchunks, int lane) {
-  const float4* __restrict__ a4 = reinterpret_cast<const float4*>(arow);
+template <int U, int V, class L>
+__device__ __forceinline__ float row_dot(L load, const float4* v, int nchunks, int lane) {
   float acc = 0.f;
   int c = lane;
-  for (; c + 32 * (U - 1) < nchunks; c += 32 * U) acc = row_group<U, true>(a4, v, c, nchunks, acc);
-  for (; c < nchunks; c += 32 * V) acc = row_group<V, V == 1>(a4, v, c, nchunks, acc);
+#pragma unroll 2
+  for (; c + 32 * (U - 1) < nchunks; c += 32 * U)
+    acc = row_group<U, true>(load, v, c, nchunks, acc);
+#pragma unroll 1
+  for (; c < nchunks; c += 32 * V) acc = row_group<V, V == 1>(load, v, c, nchunks, acc);
   for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
   return acc;
 }
+// A row of A read through the read-only path (K5).
+struct LdgRow {
+  const float4* __restrict__ a4;
+  __device__ float4 operator()(int c) const { return __ldg(a4 + c); }
+};
 
 __device__ __forceinline__ float safe_div(float num, float den, int safe) {
   return (safe && den == 0.f) ? 0.f : num / den;
@@ -298,20 +330,109 @@ struct SolveArgs {
 // back what it wrote itself; g may read any element. The recurrence ends
 // every matvec with a block-wide sync (end_phase) before the next one.
 
-// K4: one warp a row; g is evaluated once per element into shared memory.
-struct DenseOp {
-  const float* __restrict__ A;
-  float* vs;  // n floats of dynamic shared memory
-  int n;
-  int lane, gwarp, nwarps;
+// K4's on-chip A: bulk copies global -> shared completed on an mbarrier,
+// and L2 reads under an evict_last policy (PTX, sm_90).
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+// Copies `bytes` (a multiple of 16, both addresses 16-byte aligned) from
+// global `src` to shared `dst`; `bar`, initialised for one arrival, completes
+// its phase 0 when they have landed.
+__device__ __forceinline__ void bulk_copy_to_shared(void* dst, const void* src, unsigned bytes,
+                                                    uint64_t* bar) {
+  const unsigned b = smem_addr(bar);
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(b), "r"(1u) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(b), "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(b)
+      : "memory");
+}
+// Waits until `bar`'s phase 0 has completed (at once ever after).
+__device__ __forceinline__ void wait_phase0(uint64_t* bar) {
+  unsigned done = 0;
+  while (!done)
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(0u)
+        : "memory");
+}
+__device__ __forceinline__ uint64_t l2_evict_last_policy() {
+  uint64_t policy;
+  asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(policy));
+  return policy;
+}
+// A row of A read through the read-only path, its lines kept in L2 under
+// `policy` (evict_last), so that a row read every matvec stays there.
+struct L2Row {
+  const float4* a4;
+  uint64_t policy;
+  __device__ float4 operator()(int c) const {
+    float4 v;
+    asm("ld.global.nc.L2::cache_hint.v4.f32 {%0, %1, %2, %3}, [%4], %5;"
+                 : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+                 : "l"(a4 + c), "l"(policy));
+    return v;
+  }
+};
+// A row of A resident in shared memory.
+struct SmemRow {
+  const float4* a4;
+  __device__ float4 operator()(int c) const { return a4[c]; }
+};
 
+// K4: one warp a row, rows gwarp, gwarp + nwarps, ... (the grid's warps in
+// turn); g is evaluated once per element into shared memory. The warp's
+// j-th row is its block's row q = j kWarps + warp: rows q < slots are
+// resident in shared memory, copied there once by the launch's first
+// matvec (stage(), a bulk copy a row completed on the row's mbarrier, which
+// that first matvec waits on); the others are read through L2 under
+// evict_last in every matvec. Whatever the row's place, row_dot sums the
+// same chunks in the same order, so (A v)_row has the same bits.
+struct DenseResidentOp {
+  const float* __restrict__ A;
+  float* vs;           // n floats of dynamic shared memory: the staged matvec input
+  const float* rows;   // slots x n floats of dynamic shared memory: the resident rows
+  uint64_t* bars;      // slots mbarriers: row q has landed
+  int n, slots;
+  int lane, warp, gwarp, nwarps;
+  uint64_t policy;     // L2 evict_last, for the rows read through L2
+
+  // The power method's seed element j, written before the launch into the
+  // buffer its first step reads (power_seed_kernel).
+  __device__ __forceinline__ float power_seed(long long j, const float* seed) const {
+    return __ldcg(seed + j);
+  }
+  // Lane 0 of each warp starts the bulk copies of its resident rows.
+  __device__ void stage() const {
+    if (lane == 0)
+      for (int row = gwarp, q = warp; row < n && q < slots; row += nwarps, q += kWarps)
+        bulk_copy_to_shared(const_cast<float*>(rows) + static_cast<size_t>(q) * n,
+                            A + static_cast<size_t>(row) * n, 4u * n, bars + q);
+    __syncwarp();
+  }
   template <class G, class F>
   __device__ __forceinline__ void matvec(G g, F f) const {
     for (int i = threadIdx.x; i < n; i += kBlock) vs[i] = g(i);
     __syncthreads();
     const float4* vs4 = reinterpret_cast<const float4*>(vs);
-    for (int row = gwarp; row < n; row += nwarps) {
-      const float av = row_dot<4, 1>(A + static_cast<size_t>(row) * n, vs4, n / 4, lane);
+    for (int row = gwarp, q = warp; row < n; row += nwarps, q += kWarps) {
+      float av;
+      if (q < slots) {
+        wait_phase0(bars + q);
+        const float* arow = rows + static_cast<size_t>(q) * n;
+        av = row_dot<4, 1>(SmemRow{reinterpret_cast<const float4*>(arow)}, vs4, n / 4, lane);
+      } else {
+        const float* arow = A + static_cast<size_t>(row) * n;
+        av = row_dot<4, 1>(L2Row{reinterpret_cast<const float4*>(arow), policy}, vs4, n / 4,
+                           lane);
+      }
       if (lane == 0) f(row, vs[row], av);
     }
   }
@@ -319,6 +440,17 @@ struct DenseOp {
   __device__ __forceinline__ void each_loaded(L load, S store) const {
     if (lane == 0)
       for (int row = gwarp; row < n; row += nwarps) store(row, load(row));
+  }
+  // Puts the lines of the rows read through L2 back to the normal eviction
+  // priority, so that nothing of the launch's policy outlives it.
+  __device__ void release() const {
+    int q = warp;
+    for (int row = gwarp; row < n; row += nwarps, q += kWarps)
+      if (q >= slots)
+        for (int line = lane; line < n / 32; line += 32)
+          asm volatile("applypriority.global.L2::evict_normal [%0], 128;"
+                       ::"l"(A + static_cast<size_t>(row) * n + 32 * line)
+                       : "memory");
   }
 };
 
@@ -333,6 +465,10 @@ struct TileRows {
   __device__ explicit TileRows(int n_)
       : n(n_), first(static_cast<int>(blockIdx.x) * kDiaTileRows),
         step(static_cast<int>(gridDim.x) * kDiaTileRows) {}
+  // The power method's seed element j, cos(0.7 j) + 0.1.
+  __device__ __forceinline__ float power_seed(long long j, const float*) const {
+    return cosf(static_cast<float>(j) * 0.7f) + 0.1f;
+  }
   // A step that loads a row's operands (load(i) -> state) before it stores
   // (store(i, state)): two rows a pass, both rows' loads first, then the
   // stores, in row order for each thread.
@@ -532,10 +668,13 @@ __device__ void cg_recurrence(const Op& op, const SolveArgs& a) {
 
   // Scratch: r | p[2] | ap | z[2] | y[2] | partials: 2 slots x 2 sums x grid.
   float* r = a.scratch;
-  float* pb[2] = {r + n, r + 2 * n};
+  // Buffer i of p, z and y, by its offset: an array of pointers indexed at
+  // run time lives on the stack, and a choice between two pointers keeps
+  // both in registers (K4 spilled).
+  auto pb = [&](int i) { return r + (1 + i) * n; };
   float* ap = r + 3 * n;
-  float* zb[2] = {r + 4 * n, r + 5 * n};
-  float* yb[2] = {r + 6 * n, r + 7 * n};
+  auto zb = [&](int i) { return r + (4 + i) * n; };
+  auto yb = [&](int i) { return r + (6 + i) * n; };
   float* partials = r + 8 * n;
   int slot = 0;
 
@@ -566,13 +705,12 @@ __device__ void cg_recurrence(const Op& op, const SolveArgs& a) {
   if (a.precond == kPoly) {
     float scale = 0.f, lam = 0.f;
     for (int it = 0; it <= kPowerIters; ++it) {
-      const float* yprev = yb[(it + 1) & 1];
-      float* ynext = yb[it & 1];
+      const float* yprev = yb((it + 1) & 1);
+      float* ynext = yb(it & 1);
       float s0 = 0.f, s1 = 0.f;
       op.matvec(
           [&](long long j) {
-            return it == 0 ? cosf(static_cast<float>(j) * 0.7f) + 0.1f
-                           : __ldcg(yprev + j) * scale;
+            return it == 0 ? op.power_seed(j, yprev) : __ldcg(yprev + j) * scale;
           },
           [&](long long row, float v, float av) {
             if (it < kPowerIters) {
@@ -606,12 +744,12 @@ __device__ void cg_recurrence(const Op& op, const SolveArgs& a) {
   auto first_z = [&](long long row, float rv, float mv) -> float {
     if (a.precond == kJacobi) {
       const float z = mv * rv;
-      zb[0][row] = z;
+      zb(0)[row] = z;
       return rv * z;
     }
     if (a.precond == kPoly) {
       const float z = w * rv;
-      zb[0][row] = z;
+      zb(0)[row] = z;
       return a.degree <= 1 ? rv * z : 0.f;
     }
     return 0.f;
@@ -621,8 +759,8 @@ __device__ void cg_recurrence(const Op& op, const SolveArgs& a) {
   auto neumann = [&](float rz, int& zi) -> float {
     zi = 0;
     for (int j = 1; j < a.degree; ++j) {
-      const float* zsrc = zb[zi];
-      float* zdst = zb[zi ^ 1];
+      const float* zsrc = zb(zi);
+      float* zdst = zb(zi ^ 1);
       float s1 = 0.f;
       op.matvec([&](long long i) { return __ldcg(zsrc + i); },
                 [&](long long row, float zv, float az) {
@@ -646,7 +784,7 @@ __device__ void cg_recurrence(const Op& op, const SolveArgs& a) {
               a.x[row] = xv;
               const float rv = bv - av;
               r[row] = rv;
-              pb[0][row] = 0.f;
+              pb(0)[row] = 0.f;
               s0 += rv * rv;
               s1 += first_z(row, rv, mv);
             });
@@ -656,16 +794,16 @@ __device__ void cg_recurrence(const Op& op, const SolveArgs& a) {
   if (a.precond == kPoly && a.degree > 1) rz = neumann(rz, zi);
   if (a.precond == kNone) rz = rr;
   float rsold = rz, beta = 0.f;
-  int cur = 0;  // pb[cur] holds p
+  int cur = 0;  // pb(cur) holds p
   long long k = 0;
   bool done = rr < tol2;
 
   while (!done && k < a.maxiter) {
     // p = z + beta p_old, evaluated where the matvec reads it; the row
     // owners write it to the other buffer. Ap and p.Ap.
-    const float* zsrc = a.precond == kNone ? r : zb[zi];
-    const float* pold = pb[cur];
-    float* pnew = pb[cur ^ 1];
+    const float* zsrc = a.precond == kNone ? r : zb(zi);
+    const float* pold = pb(cur);
+    float* pnew = pb(cur ^ 1);
     s0 = 0.f;
     op.matvec([&](long long j) { return __ldcg(zsrc + j) + beta * __ldcg(pold + j); },
               [&](long long row, float pv, float av) {
@@ -684,7 +822,7 @@ __device__ void cg_recurrence(const Op& op, const SolveArgs& a) {
     // two round trips a row).
     s0 = 0.f;
     s1 = 0.f;
-    const float* p = pb[cur];
+    const float* p = pb(cur);
     struct RowIn {
       float x, p, r, ap, mv;
     };
@@ -712,13 +850,32 @@ __device__ void cg_recurrence(const Op& op, const SolveArgs& a) {
   }
 }
 
-__global__ void __launch_bounds__(kBlock)
-fused_cg_kernel(const __grid_constant__ SolveArgs s, const float* __restrict__ A) {
-  extern __shared__ float4 vs4[];  // the staged matvec input, n floats
+// K4 under poly: the power method's seed, cos(0.7 j) + 0.1, written into
+// the scratch's second y buffer (which the power method's first step reads
+// and its second overwrites) by a kernel of its own before the solve's
+// launch: cosf's reduction of a large argument keeps a 28-byte array on the
+// stack, which would otherwise sit in K4 (0.7 j < 2868 never takes it).
+__global__ void __launch_bounds__(kBlock) power_seed_kernel(float* seed, int n) {
+  const int j = static_cast<int>(blockIdx.x) * kBlock + static_cast<int>(threadIdx.x);
+  if (j < n) seed[j] = cosf(static_cast<float>(j) * 0.7f) + 0.1f;
+}
+
+// K4's dynamic shared memory (dense_smem): the rows' mbarriers (padded to
+// 16 bytes), the staged input (n floats), the resident rows (slots x n).
+// Two blocks an SM at most (the plan's): without a minimum, ptxas held the
+// kernel to 64 registers and spilled.
+__global__ void __launch_bounds__(kBlock, 2)
+fused_cg_kernel(const __grid_constant__ SolveArgs s, const float* __restrict__ A, int slots) {
+  extern __shared__ float4 dense_smem4[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(dense_smem4);
+  float* vs = reinterpret_cast<float*>(dense_smem4 + (slots + 1) / 2);
   const int gwarp = static_cast<int>((blockIdx.x * kBlock + threadIdx.x) >> 5);
-  const DenseOp op{A, reinterpret_cast<float*>(vs4), s.n, static_cast<int>(threadIdx.x & 31),
-                   gwarp, static_cast<int>(gridDim.x) * kWarps};
+  const DenseResidentOp op{A, vs, vs + s.n, bars, s.n, slots,
+                           static_cast<int>(threadIdx.x & 31), static_cast<int>(threadIdx.x >> 5),
+                           gwarp, static_cast<int>(gridDim.x) * kWarps, l2_evict_last_policy()};
+  op.stage();
   cg_recurrence(op, s);
+  op.release();
 }
 
 __global__ void __launch_bounds__(kBlock, kDiaMinBlocks)
@@ -817,7 +974,9 @@ fused_batch_cg_kernel(BatchArgs a) {
   auto matvec = [&]() -> float {
     float s = 0.f;
     for (int row = vw; row < n; row += 32) {
-      const float av = row_dot<U, U>(A + static_cast<size_t>(row) * n, ps4, nchunks, lane);
+      const float av = row_dot<U, U>(
+          LdgRow{reinterpret_cast<const float4*>(A + static_cast<size_t>(row) * n)}, ps4,
+          nchunks, lane);
       if (lane == 0) {
         Cl::put(aps + row, (row & (kBatchBlock - 1)) / T, av);
         s += ps[row] * av;
@@ -919,104 +1078,360 @@ struct BatchDiaArgs {
   int safe_alpha;
 };
 
-// K12: K5's recurrence with K11's DIA row function as the matvec, one block
-// of min(n, 1024) threads per system; `data` is (B, ndiag, n) and every
-// system shares `offs`. Thread t owns rows t, t + blockDim, ...
-template <typename T>
-__global__ void __launch_bounds__(kBatchBlock)
-fused_batch_dia_cg_kernel(const __grid_constant__ BatchDiaArgs a, const T* __restrict__ data,
-                          const __grid_constant__ DiaOffsets offs) {
-  extern __shared__ float4 sm4[];  // x | r | p | Ap, n floats each
-  __shared__ float red[33];
+// K12's layout of a launch (kernels/fused.py batch_dia_warps_plan mirrors
+// batch_dia_plan, below): `systems` systems a block, each on W warps; a
+// vector of the system takes `len` floats of shared memory, padded by `pad`
+// floats after every 32 rows so that the lanes of a warp, which own rows G
+// apart (G lanes a virtual warp), fall in distinct banks; `slab` says
+// whether the slab is copied into shared memory (else read from device
+// memory every lap); `sys_bytes` is a system's dynamic shared memory.
+struct BatchDiaLayout {
+  int systems, pad, len, slab, sys_bytes;
+};
+
+// K12: B banded systems, one on each group of W warps (a block holds
+// `systems` of them), with today's sums bit for bit. Today's kernel ran a
+// system on one block of VT = min(n, 1024) threads: thread t summed rows t,
+// t + VT, ... in order, each warp its 32 threads by the shuffle-down tree,
+// warp 0 the VW = VT / 32 warps' sums by the same tree over 32 slots (zeros
+// past VW). Here those are virtual threads and warps: the G = 32 W / VW
+// lanes of virtual warp v take its 32 virtual lanes in turn (lane g the
+// virtual lanes g, g + G, ...: V = 32 / G of them), so the tree's steps of
+// offset G and more join a lane's own virtual lanes, in its registers, and
+// the steps below G join the G lanes by shuffles; the virtual warps' sums
+// then go through the 32-slot tree, by shared slots and the system's named
+// barrier. Row i's sum, the
+// arithmetic of each step and every scalar are today's, so x, k and r.r are
+// today's bits for every W. The system's rows of x, r and Ap stay in their
+// owner's registers (Regs: n <= 1024, at most 16 rows a lane) or in shared
+// memory; p is in shared memory, where the neighbouring rows read it, as is
+// the slab when it fits (read every lap, not from L2). A lap takes three
+// barriers of the system's W warps: after p.Ap's slots, after r.r's and
+// r.z's, after p. W = 1 and 2 (32 and 16 rows a lane) ran 2.5-6 times
+// slower than W = 8 at tpucg's battery (PERF.md section 6, K12).
+template <typename T, int W, bool Regs>
+__global__ void __launch_bounds__(kBatchDiaBlock, 1)
+fused_batch_dia_cg_kernel(const __grid_constant__ BatchDiaArgs a, long long batch,
+                          const T* __restrict__ data, const __grid_constant__ DiaOffsets offs,
+                          const __grid_constant__ BatchDiaLayout lay) {
+  static_assert(W == 4 || W == 8, "K12 runs 4 or 8 warps a system");
+  constexpr int J = 32 / W;  // virtual threads a lane at most (G = W at n >= 1024)
+  constexpr int kLogJ = W == 4 ? 3 : 2;
+  extern __shared__ float4 batch_dia_smem4[];
   const int n = a.n;
-  const int nthreads = static_cast<int>(blockDim.x);
-  const int warps = nthreads >> 5;
-  float* xs = reinterpret_cast<float*>(sm4);
-  float* rs = xs + n;
-  float* ps = rs + n;
-  float* aps = ps + n;
-  const size_t sys = blockIdx.x;
-  const T* slab = data + sys * offs.ndiag * n;
+  const int local = static_cast<int>(threadIdx.x) / (32 * W);  // the block's system
+  const long long sys = static_cast<long long>(blockIdx.x) * lay.systems + local;
+  if (sys >= batch) return;  // no barrier spans systems
+  const int L = static_cast<int>(threadIdx.x) % (32 * W);  // the system's lane
+  const int lane = L & 31;
+  const int vt = n < kBatchBlock ? n : kBatchBlock;        // VT
+  const int vwarps = vt >> 5;                              // VW
+  const int G = 32 * W / vwarps;                           // lanes a virtual warp
+  const int V = 32 / G;                                    // virtual threads a lane
+  const int vw = L / G, g = L % G;
+  const int vbase = 32 * vw + g;  // virtual thread of j: vbase + G j; its rows + VT q
+  const int Q = Regs ? 1 : (n + vt - 1) / vt;
+
+  char* base = reinterpret_cast<char*>(batch_dia_smem4) + local * lay.sys_bytes;
+  float* slots = reinterpret_cast<float*>(base);  // [set][sum][virtual warp]
+  float* ps = slots + kBatchDiaSlots;
+  float* xs = ps + lay.len;  // x, r, Ap: shared memory unless Regs
+  float* rs = xs + lay.len;
+  float* aps = rs + lay.len;
+  T* slab_s = reinterpret_cast<T*>(Regs ? xs : aps + lay.len);
+  const T* slab_g = data + sys * offs.ndiag * n;
+  auto at = [&](int i) { return i + lay.pad * (i >> 5); };
+  // The slab where it lies, read through one pointer (chosen here, not at
+  // each load: a choice between two loads issued both): shared memory in
+  // the vectors' padded layout, or device memory as it is.
+  const T* sl = lay.slab ? slab_s : slab_g;
+  const int slen = lay.slab ? lay.len : n;
+  const int spad = lay.slab ? lay.pad : 0;
+  auto slab_at = [&](int d, int i) -> float { return widen(sl[d * slen + i + spad * (i >> 5)]); };
   const float* b = a.b + sys * n;
   const float* x0 = a.x0 + sys * n;
-  const T* dmain = a.diag >= 0 ? slab + static_cast<size_t>(a.diag) * n : nullptr;
+  const bool jacobi = a.diag >= 0;
   const float tol2 = a.tol * a.tol;
 
+  // The system's barrier: its W warps (named barrier 1 + local).
+  auto sync = [&]() {
+    asm volatile("bar.sync %0, %1;" ::"r"(1 + local), "r"(32 * W) : "memory");
+  };
+  // f(j, row) for each row of this lane, in each virtual thread's order.
+  auto each_row = [&](auto f) {
+    for (int q = 0; q < Q; ++q)
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const int row = vbase + G * j + vt * q;
+        if (j < V && row < n) f(j, row);
+      }
+  };
   // 1/diag of row i, 1 where the diagonal is 0 (tpucg's fused.py:707-711).
   auto minv = [&](int i) -> float {
-    const float d = widen(__ldg(dmain + i));
+    const float d = slab_at(a.diag, i);
     return d != 0.f ? 1.f / d : 1.f;
   };
-  // Ap (into aps) for p in ps; returns this thread's share of p.Ap.
-  auto matvec = [&]() -> float {
-    float s = 0.f;
-    for (int i = threadIdx.x; i < n; i += nthreads) {
-      const float av = dia_row(slab, n, offs, i, [&](long long j) { return ps[j]; });
-      aps[i] = av;
-      s += ps[i] * av;
+  // Ap of this lane's rows of pass q into acc[j]: each row dia_row's sum,
+  // term by term in offsets order, a diagonal at a time for all the rows
+  // (their loads go out together). An offset beyond +-n reads no column.
+  auto matvec = [&](int q, float (&acc)[J]) {
+#pragma unroll
+    for (int j = 0; j < J; ++j) acc[j] = 0.f;
+    for (int d = 0; d < offs.ndiag; ++d) {
+      const long long o = offs.off[d];
+      const int off = static_cast<int>(o < -n ? -n : o > n ? n : o);
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const int row = vbase + G * j + vt * q;
+        if (j < V && row < n) {
+          const int c = row + off;
+          const float xv = (c >= 0 && c < n) ? ps[at(c)] : 0.f;
+          acc[j] = __fadd_rn(acc[j], __fmul_rn(slab_at(d, row), xv));
+        }
+      }
     }
+  };
+  // A virtual warp's sum of v[j] (j < V): the tree's steps of offset G and
+  // more in registers, then the G lanes' shuffles; valid at g = 0.
+  auto vwarp_sum = [&](float (&v)[J]) -> float {
+#pragma unroll
+    for (int k = 1; k <= kLogJ; ++k) {  // offsets J / 2, ..., 1
+      const int off = J >> k;
+      if (off < V)
+#pragma unroll
+        for (int j = 0; j < off; ++j) v[j] = v[j] + v[j + off];
+    }
+    float s = v[0];
+    for (int off = G / 2; off >= 1; off >>= 1) s = s + __shfl_down_sync(0xffffffffu, s, off);
     return s;
   };
+  // Today's sum over the system of v0 (and v1 when `two`), returned to every
+  // lane: the virtual warps' sums into slot set `set`, then the 32-slot tree.
+  auto allsum = [&](int set, float (&v0)[J], float (&v1)[J], bool two, float& t0, float& t1) {
+    const float s0 = vwarp_sum(v0);
+    const float s1 = two ? vwarp_sum(v1) : 0.f;
+    float* sl = slots + 64 * set;
+    if (g == 0) {
+      sl[vw] = s0;
+      if (two) sl[32 + vw] = s1;
+    }
+    sync();
+    const float u0 = sl[lane];
+    const float u1 = two ? sl[32 + lane] : 0.f;
+    t0 = __shfl_sync(0xffffffffu, warp_sum_down(lane < vwarps ? u0 : 0.f), 0);
+    if (two) t1 = __shfl_sync(0xffffffffu, warp_sum_down(lane < vwarps ? u1 : 0.f), 0);
+  };
 
-  for (int i = threadIdx.x; i < n; i += nthreads) {
-    const float v = __ldg(x0 + i);
-    xs[i] = v;
-    ps[i] = v;
+  // x, r and Ap of this lane's row (its j-th virtual thread's): registers
+  // (Regs) or shared memory.
+  float xr[Regs ? J : 1], rr_[Regs ? J : 1], apr[Regs ? J : 1];
+  auto x_of = [&](int j, int row) -> float& {
+    if constexpr (Regs) return xr[j];
+    else return xs[at(row)];
+  };
+  auto r_of = [&](int j, int row) -> float& {
+    if constexpr (Regs) return rr_[j];
+    else return rs[at(row)];
+  };
+  auto ap_of = [&](int j, int row) -> float& {
+    if constexpr (Regs) return apr[j];
+    else return aps[at(row)];
+  };
+
+  if (lay.slab)
+    for (int e = L; e < offs.ndiag * n; e += 32 * W) {
+      const int d = e / n, i = e - d * n;
+      slab_s[d * lay.len + at(i)] = __ldg(slab_g + e);
+    }
+  each_row([&](int j, int row) {
+    const float v = __ldg(x0 + row);
+    x_of(j, row) = v;
+    ps[at(row)] = v;
+  });
+  sync();
+  float acc[J];
+  for (int q = 0; q < Q; ++q) {
+    matvec(q, acc);
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const int row = vbase + G * j + vt * q;
+      if (j < V && row < n) ap_of(j, row) = acc[j];
+    }
   }
-  __syncthreads();
-  matvec();
-  __syncthreads();
-  float s0 = 0.f, s1 = 0.f;
-  for (int i = threadIdx.x; i < n; i += nthreads) {
-    const float rv = __ldg(b + i) - aps[i];
-    rs[i] = rv;
-    const float z = dmain ? minv(i) * rv : rv;
-    ps[i] = z;
-    s0 += rv * rv;
-    s1 += rv * z;
-  }
-  float rr = block_allsum_warps(s0, red, warps);
-  float rsold = dmain ? block_allsum_warps(s1, red, warps) : rr;
+  sync();  // every read of p = x0 is done
+  float s0[J], s1[J];
+#pragma unroll
+  for (int j = 0; j < J; ++j) s0[j] = s1[j] = 0.f;
+  each_row([&](int j, int row) {
+    const float rv = __ldg(b + row) - ap_of(j, row);
+    r_of(j, row) = rv;
+    const float z = jacobi ? minv(row) * rv : rv;
+    ps[at(row)] = z;
+    s0[j] = __fmaf_rn(rv, rv, s0[j]);
+    s1[j] = __fmaf_rn(rv, z, s1[j]);
+  });
+  float rr, rsold;
+  allsum(1, s0, s1, jacobi, rr, rsold);  // also: every lane's p = z is written
+  if (!jacobi) rsold = rr;
   long long k = 0;
   bool done = rr < tol2;
   while (!done && k < a.maxiter) {
-    const float pap = block_allsum_warps(matvec(), red, warps);  // syncs: Ap complete
-    const float alpha = safe_div(rsold, pap, a.safe_alpha);
-    s0 = 0.f;
-    s1 = 0.f;
-    for (int i = threadIdx.x; i < n; i += nthreads) {
-      xs[i] = xs[i] + alpha * ps[i];
-      const float rv = rs[i] - alpha * aps[i];
-      rs[i] = rv;
-      s0 += rv * rv;
-      s1 += dmain ? rv * (minv(i) * rv) : 0.f;
+#pragma unroll
+    for (int j = 0; j < J; ++j) s0[j] = 0.f;
+    for (int q = 0; q < Q; ++q) {
+      matvec(q, acc);
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const int row = vbase + G * j + vt * q;
+        if (j < V && row < n) {
+          ap_of(j, row) = acc[j];
+          s0[j] = __fmaf_rn(ps[at(row)], acc[j], s0[j]);
+        }
+      }
     }
-    rr = block_allsum_warps(s0, red, warps);
-    const float rz = dmain ? block_allsum_warps(s1, red, warps) : rr;
+    float pap, unused;
+    allsum(0, s0, s1, false, pap, unused);  // also: every read of p is done
+    const float alpha = safe_div(rsold, pap, a.safe_alpha);
+#pragma unroll
+    for (int j = 0; j < J; ++j) s0[j] = s1[j] = 0.f;
+    each_row([&](int j, int row) {
+      x_of(j, row) = __fmaf_rn(alpha, ps[at(row)], x_of(j, row));
+      const float rv = __fmaf_rn(-alpha, ap_of(j, row), r_of(j, row));
+      r_of(j, row) = rv;
+      s0[j] = __fmaf_rn(rv, rv, s0[j]);
+      if (jacobi) s1[j] = __fadd_rn(s1[j], __fmul_rn(rv, __fmul_rn(minv(row), rv)));
+    });
+    float rz;
+    allsum(1, s0, s1, jacobi, rr, rz);
+    if (!jacobi) rz = rr;
     ++k;
     done = rr < tol2;
     if (done) break;
     const float beta = rz / rsold;
     rsold = rz;
-    for (int i = threadIdx.x; i < n; i += nthreads) {
-      const float z = dmain ? minv(i) * rs[i] : rs[i];
-      ps[i] = z + beta * ps[i];
-    }
-    __syncthreads();
+    each_row([&](int j, int row) {
+      const float rv = r_of(j, row);
+      const float z = jacobi ? minv(row) * rv : rv;
+      ps[at(row)] = __fmaf_rn(beta, ps[at(row)], z);
+    });
+    sync();  // p is whole
   }
   float* x = a.x + sys * n;
-  for (int i = threadIdx.x; i < n; i += nthreads) x[i] = xs[i];
-  if (threadIdx.x == 0) {
+  each_row([&](int j, int row) { x[row] = x_of(j, row); });
+  if (L == 0) {
     a.k_out[sys] = static_cast<int>(k);
     a.rr_out[sys] = rr;
   }
+}
+
+// The current device, its SM count and whether it takes cooperative
+// launches, read once a device (the first kMaxDevices devices; others are
+// asked every call).
+struct DeviceInfo {
+  int dev, sms, coop;
+};
+cudaError_t device_info(DeviceInfo* info) {
+  static DeviceInfo cache[kMaxDevices];
+  cudaError_t err = cudaGetDevice(&info->dev);
+  if (err != cudaSuccess) return err;
+  DeviceInfo* slot = info->dev < kMaxDevices ? &cache[info->dev] : nullptr;
+  if (slot && slot->sms > 0) {
+    *info = *slot;
+    return cudaSuccess;
+  }
+  err = cudaDeviceGetAttribute(&info->coop, cudaDevAttrCooperativeLaunch, info->dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&info->sms, cudaDevAttrMultiProcessorCount, info->dev);
+  if (err != cudaSuccess) return err;
+  if (slot) *slot = *info;
+  return cudaSuccess;
+}
+
+// K12's plan (tpucg_torch/kernels/fused.py batch_dia_warps_plan mirrors it):
+// W warps a system (kBatchDiaWarps unless forced, 4 or 8, at most the VW
+// virtual warps); x, r and Ap in registers when n <= 1024 (at most 8 rows
+// a lane), else in shared memory; each vector padded by G floats
+// every 32 rows where that fits; the slab in shared memory where it fits
+// beside them (unless forced); `systems` systems a block once the batch
+// would fill 32 blocks an SM (the card's limit) with one.
+constexpr int kBatchDiaWarps = 8;
+
+struct BatchDiaPlan {
+  int warps, regs, systems, grid, threads, smem;
+  BatchDiaLayout lay;
+};
+long long batch_dia_sys_bytes(long long n, int ndiag, int itemsize, int warps, bool regs, int pad,
+                              bool slab) {
+  const long long len = n + pad * (n / 32);
+  const long long bytes = 4 * kBatchDiaSlots + 4 * len * (regs ? 1 : 4) +
+                          (slab ? static_cast<long long>(itemsize) * ndiag * len : 0);
+  return 16 * ((bytes + 15) / 16);
+}
+// warps <= 0 and slab < 0 take the plan's; others force them, and a forced
+// plan that cannot run is refused.
+cudaError_t batch_dia_plan(long long batch, long long n, int ndiag, int itemsize, int sms,
+                           int warps, int slab, BatchDiaPlan* p) {
+  const int vwarps = static_cast<int>((n < kBatchBlock ? n : kBatchBlock) / 32);
+  if (warps <= 0) warps = kBatchDiaWarps < vwarps ? kBatchDiaWarps : vwarps;
+  if ((warps != 4 && warps != 8) || warps > vwarps) return cudaErrorInvalidValue;
+  const bool regs = n <= kBatchBlock;
+  const int g = 32 * warps / vwarps;
+  long long bytes = -1;
+  int pad = 0, with_slab = 0;
+  const int pads[2] = {g % 32, 0};  // G = 32: a warp's lanes own 32 rows in a row
+  for (int s = 1; s >= 0 && bytes < 0; --s) {
+    if (slab >= 0 && s != slab) continue;
+    for (int k = 0; k < 2 && bytes < 0; ++k) {
+      const long long b = batch_dia_sys_bytes(n, ndiag, itemsize, warps, regs, pads[k], s);
+      if (b <= kSmemPerBlock) {
+        bytes = b;
+        pad = pads[k];
+        with_slab = s;
+      }
+    }
+  }
+  if (bytes < 0) return cudaErrorInvalidValue;
+  int systems = 1;
+  while (2 * systems * warps * 32 <= kBatchDiaBlock && 2 * systems * bytes <= kSmemPerBlock &&
+         batch > 32LL * sms * systems)
+    systems *= 2;
+  p->warps = warps;
+  p->regs = regs;
+  p->systems = systems;
+  p->grid = static_cast<int>((batch + systems - 1) / systems);
+  p->threads = 32 * warps * systems;
+  p->smem = static_cast<int>(systems * bytes);
+  p->lay = BatchDiaLayout{systems, pad, static_cast<int>(n + pad * (n / 32)), with_slab,
+                          static_cast<int>(bytes)};
+  return cudaSuccess;
+}
+
+// Launches one instantiation; its dynamic shared memory limit is raised to
+// the card's once a device.
+template <typename T, int W, bool Regs>
+cudaError_t launch_batch_dia_kernel(const BatchDiaArgs& ba, long long batch, const T* data,
+                                    const DiaOffsets& offs, const BatchDiaPlan& plan, int dev,
+                                    cudaStream_t stream) {
+  static bool granted[kMaxDevices];
+  const bool cached = dev < kMaxDevices;
+  if (!cached || !granted[dev]) {
+    const cudaError_t err = cudaFuncSetAttribute(fused_batch_dia_cg_kernel<T, W, Regs>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 kSmemPerBlock);
+    if (err != cudaSuccess) return err;
+    if (cached) granted[dev] = true;
+  }
+  fused_batch_dia_cg_kernel<T, W, Regs><<<plan.grid, plan.threads, plan.smem, stream>>>(
+      ba, batch, data, offs, plan.lay);
+  return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_fused_batch_dia(const void* data, const void* offsets, int ndiag, int diag,
                                    const void* b, const void* x0, void* x, void* k, void* rr,
                                    long long batch, long long npad, float tol,
-                                   long long maxiter, int safe_alpha, void* stream) {
+                                   long long maxiter, int safe_alpha, int warps, int slab,
+                                   void* stream) {
   if (batch <= 0 || batch > 0x7fffffffLL || npad <= 0 || npad % 128 ||
       npad > kFusedBatchDiaMaxN || ndiag < 1 || ndiag > kDiaMaxDiags || offsets == nullptr ||
       diag < -1 || diag >= ndiag)
@@ -1025,40 +1440,42 @@ cudaError_t launch_fused_batch_dia(const void* data, const void* offsets, int nd
   offs.ndiag = ndiag;
   const long long* host = static_cast<const long long*>(offsets);
   for (int d = 0; d < ndiag; ++d) offs.off[d] = host[d];
-  const int threads = static_cast<int>(npad < kBatchBlock ? npad : kBatchBlock);
-  const int smem = static_cast<int>(4 * npad * sizeof(float));
-  // Above 48 KB a block takes dynamic shared memory only when asked.
-  cudaError_t err = cudaFuncSetAttribute(fused_batch_dia_cg_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  DeviceInfo di;
+  cudaError_t err = device_info(&di);
   if (err != cudaSuccess) return err;
-  BatchDiaArgs ba{static_cast<const float*>(b), static_cast<const float*>(x0),
-                  static_cast<float*>(x), static_cast<int*>(k), static_cast<float*>(rr),
-                  static_cast<int>(npad), diag, tol, maxiter, safe_alpha};
-  fused_batch_dia_cg_kernel<T><<<static_cast<unsigned>(batch), threads, smem,
-                                 static_cast<cudaStream_t>(stream)>>>(
-      ba, static_cast<const T*>(data), offs);
-  return cudaGetLastError();
+  BatchDiaPlan plan;
+  err = batch_dia_plan(batch, npad, ndiag, sizeof(T), di.sms, warps, slab, &plan);
+  if (err != cudaSuccess) return err;
+  const BatchDiaArgs ba{static_cast<const float*>(b), static_cast<const float*>(x0),
+                        static_cast<float*>(x), static_cast<int*>(k), static_cast<float*>(rr),
+                        static_cast<int>(npad), diag, tol, maxiter, safe_alpha};
+  const T* d = static_cast<const T*>(data);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (plan.warps * 2 + plan.regs) {
+    case 8: return launch_batch_dia_kernel<T, 4, false>(ba, batch, d, offs, plan, di.dev, s);
+    case 9: return launch_batch_dia_kernel<T, 4, true>(ba, batch, d, offs, plan, di.dev, s);
+    case 16: return launch_batch_dia_kernel<T, 8, false>(ba, batch, d, offs, plan, di.dev, s);
+    case 17: return launch_batch_dia_kernel<T, 8, true>(ba, batch, d, offs, plan, di.dev, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // Cooperative grid of `kernel` (kBlock threads, `smem` dynamic bytes): the
 // blocks an SM holds at once (cached per device and `key`) times the SM
 // count, at most `cap`. A device without cooperative launch refuses.
-constexpr int kGridKeys = kFusedMaxN / 128 + 4;  // K4 by n / 128, then K10, K11 f32/bf16
-constexpr int kKeyStencil = kFusedMaxN / 128 + 1;
-constexpr int kKeyDiaF32 = kFusedMaxN / 128 + 2;
-constexpr int kKeyDiaBf16 = kFusedMaxN / 128 + 3;
+constexpr int kGridKeys = 3;  // K10, K11 f32, K11 bf16
+constexpr int kKeyStencil = 0;
+constexpr int kKeyDiaF32 = 1;
+constexpr int kKeyDiaBf16 = 2;
 
 cudaError_t coop_grid(const void* kernel, size_t smem, int key, long long cap, int* grid) {
   static int cache[kMaxDevices][kGridKeys];
-  int dev = 0, coop = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  DeviceInfo di;
+  cudaError_t err = device_info(&di);
   if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (err != cudaSuccess) return err;
-  if (!coop) return cudaErrorNotSupported;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  int* slot = dev < kMaxDevices ? &cache[dev][key] : nullptr;
+  if (!di.coop) return cudaErrorNotSupported;
+  int per_sm = 0;
+  int* slot = di.dev < kMaxDevices ? &cache[di.dev][key] : nullptr;
   if (slot && *slot > 0) {
     per_sm = *slot;
   } else {
@@ -1066,10 +1483,11 @@ cudaError_t coop_grid(const void* kernel, size_t smem, int key, long long cap, i
     if (err != cudaSuccess) return err;
     if (slot) *slot = per_sm;
   }
-  const long long g = static_cast<long long>(per_sm) * sms;
+  const long long g = static_cast<long long>(per_sm) * di.sms;
   *grid = static_cast<int>(g < cap ? g : cap);
   return *grid < 1 ? cudaErrorCooperativeLaunchTooLarge : cudaSuccess;
 }
+
 
 // K10/K11: at most one thread per element and kSparseMaxGrid blocks.
 long long sparse_grid_cap(long long n) {
@@ -1091,6 +1509,101 @@ SolveArgs solve_args(const void* b, const void* x0, const void* minv, void* x, v
                    static_cast<int*>(k), static_cast<float*>(rr),
                    static_cast<float*>(scratch), static_cast<int>(n), tol, maxiter,
                    safe_alpha, precond, degree};
+}
+
+// K4's plan (tpucg_torch/kernels/fused.py dense_resident_plan mirrors it):
+// the grid, the resident rows a block (slots) and the dynamic shared bytes.
+// The kernel before A was kept on chip ran one warp a row, n / kWarps
+// blocks (its occupancy times the SMs exceeded that at every n); where that
+// grid holds with each of its blocks' kWarps rows resident, the plan keeps
+// it, so the partials sum as before and x, k and r.r keep their bits. Else
+// kDenseBlocksPerSm blocks an SM (at most n / kWarps), each with as many of
+// its rows resident as its share of the SM's shared memory holds.
+constexpr int kDenseStatic = 256;      // K4's static shared memory, at most
+constexpr int kDenseBlocksPerSm = 2;   // where today's grid cannot hold A
+constexpr int kDenseMaxBlocksPerSm = 2048 / kBlock;
+constexpr int kDenseMaxSlots = 64;     // resident rows a block, at most (the occupancy cache)
+
+struct DensePlan {
+  int blocks_per_sm, grid, slots, smem;
+};
+// Dynamic shared bytes a block: the mbarriers (16-byte padded), the staged
+// input and the resident rows.
+long long dense_smem(long long n, long long slots) {
+  return 16 * ((slots + 1) / 2) + 4 * n * (1 + slots);
+}
+long long dense_budget(int blocks_per_sm) {
+  const long long share = kSmemPerSm / blocks_per_sm - kSmemReserved;
+  return (share < kSmemPerBlock ? share : kSmemPerBlock) - kDenseStatic;
+}
+// blocks_per_sm <= 0 and slots < 0 take the plan's; others force them (the
+// sweep), and a forced plan that does not fit is refused.
+cudaError_t dense_plan(long long n, int sms, int blocks_per_sm, int slots, DensePlan* p) {
+  const long long today = n / kWarps;
+  if (blocks_per_sm <= 0) {
+    blocks_per_sm = static_cast<int>((today + sms - 1) / sms);
+    if (blocks_per_sm > kDenseMaxBlocksPerSm ||
+        dense_smem(n, kWarps) > dense_budget(blocks_per_sm))
+      blocks_per_sm = kDenseBlocksPerSm;
+  }
+  if (blocks_per_sm > kDenseMaxBlocksPerSm) return cudaErrorInvalidValue;
+  const long long g = static_cast<long long>(blocks_per_sm) * sms;
+  p->blocks_per_sm = blocks_per_sm;
+  p->grid = static_cast<int>(g < today ? g : today);
+  const long long warps = static_cast<long long>(p->grid) * kWarps;
+  long long most = kWarps * ((n + warps - 1) / warps);  // rows block 0 owns
+  const long long budget = dense_budget(blocks_per_sm);
+  long long fit = 0;
+  while (fit < most && dense_smem(n, fit + 1) <= budget) ++fit;
+  if (most > kDenseMaxSlots) most = kDenseMaxSlots;
+  if (fit > most) fit = most;
+  if (slots < 0) slots = static_cast<int>(fit);
+  if (slots > fit) return cudaErrorInvalidValue;
+  p->slots = slots;
+  p->smem = static_cast<int>(dense_smem(n, slots));
+  return cudaSuccess;
+}
+
+// K4's launch: the plan on the current device, checked against the
+// occupancy calculator (cached per device, n / 128 and slots); dynamic
+// shared memory above 48 KB is granted once a device.
+cudaError_t launch_fused_cg(const SolveArgs& sa, const float* A, int blocks_per_sm, int slots,
+                            void* stream) {
+  static int occupancy[kMaxDevices][kFusedMaxN / 128 + 1][kDenseMaxSlots + 1];
+  static bool granted[kMaxDevices];
+  DeviceInfo di;
+  cudaError_t err = device_info(&di);
+  if (err != cudaSuccess) return err;
+  if (!di.coop) return cudaErrorNotSupported;
+  DensePlan plan;
+  err = dense_plan(sa.n, di.sms, blocks_per_sm, slots, &plan);
+  if (err != cudaSuccess) return err;
+  const void* kernel = (const void*)fused_cg_kernel;
+  const bool cached = di.dev < kMaxDevices;
+  if (!cached || !granted[di.dev]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(dense_budget(1)));
+    if (err != cudaSuccess) return err;
+    if (cached) granted[di.dev] = true;
+  }
+  int* held = cached ? &occupancy[di.dev][sa.n / 128][plan.slots] : nullptr;
+  int per_sm = held ? *held : 0;
+  if (per_sm <= 0) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kBlock, plan.smem);
+    if (err != cudaSuccess) return err;
+    if (held) *held = per_sm;
+  }
+  if (static_cast<long long>(per_sm) * di.sms < plan.grid)
+    return cudaErrorCooperativeLaunchTooLarge;
+  if (sa.precond == kPoly) {
+    float* seed = sa.scratch + 7 * static_cast<size_t>(sa.n);
+    power_seed_kernel<<<(sa.n + kBlock - 1) / kBlock, kBlock, 0,
+                        static_cast<cudaStream_t>(stream)>>>(seed, sa.n);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  void* args[] = {const_cast<SolveArgs*>(&sa), &A, &plan.slots};
+  return coop_launch(kernel, plan.grid, plan.smem, args, stream);
 }
 
 // K10's cooperative grid at the fixed window's shared memory (the same for
@@ -1204,21 +1717,31 @@ extern "C" cudaError_t tpucg_fused_cg_f32(const void* A, const void* b, const vo
                                           const void* minv, void* x, void* k, void* rr,
                                           void* scratch, long long n, float tol,
                                           long long maxiter, int safe_alpha, int precond,
-                                          int degree, void* stream) {
+                                          int degree, int blocks_per_sm, int slots,
+                                          void* stream) {
   using namespace tpucg;
   if (n <= 0 || n % 128 || n > kFusedMaxN || (precond == kJacobi && minv == nullptr))
     return cudaErrorInvalidValue;
-  const void* kernel = (const void*)fused_cg_kernel;
-  const size_t smem = static_cast<size_t>(n) * sizeof(float);
-  int grid = 0;
-  cudaError_t err = coop_grid(kernel, smem, static_cast<int>(n / 128), (n + kWarps - 1) / kWarps,
-                              &grid);
+  const SolveArgs sa = solve_args(b, x0, minv, x, k, rr, scratch, n, tol, maxiter, safe_alpha,
+                                  precond, degree);
+  return launch_fused_cg(sa, static_cast<const float*>(A), blocks_per_sm, slots, stream);
+}
+
+extern "C" cudaError_t tpucg_fused_cg_plan(long long n, int blocks_per_sm, int slots, void* out) {
+  using namespace tpucg;
+  if (n <= 0 || n % 128 || n > kFusedMaxN || out == nullptr) return cudaErrorInvalidValue;
+  DeviceInfo di;
+  cudaError_t err = device_info(&di);
   if (err != cudaSuccess) return err;
-  SolveArgs sa = solve_args(b, x0, minv, x, k, rr, scratch, n, tol, maxiter, safe_alpha,
-                            precond, degree);
-  const float* Af = static_cast<const float*>(A);
-  void* args[] = {&sa, &Af};
-  return coop_launch(kernel, grid, smem, args, stream);
+  DensePlan plan;
+  err = dense_plan(n, di.sms, blocks_per_sm, slots, &plan);
+  if (err != cudaSuccess) return err;
+  int* o = static_cast<int*>(out);
+  o[0] = plan.blocks_per_sm;
+  o[1] = plan.grid;
+  o[2] = plan.slots;
+  o[3] = plan.smem;
+  return cudaSuccess;
 }
 
 extern "C" cudaError_t tpucg_fused_stencil_cg_f32(const void* b, const void* x0, void* x,
@@ -1321,18 +1844,38 @@ extern "C" cudaError_t tpucg_fused_batch_dia_cg_f32(const void* data, const void
                                                     int ndiag, int diag, const void* b,
                                                     const void* x0, void* x, void* k, void* rr,
                                                     long long batch, long long npad, float tol,
-                                                    long long maxiter, int safe_alpha,
-                                                    void* stream) {
+                                                    long long maxiter, int safe_alpha, int warps,
+                                                    int slab, void* stream) {
   return tpucg::launch_fused_batch_dia<float>(data, offsets, ndiag, diag, b, x0, x, k, rr, batch,
-                                              npad, tol, maxiter, safe_alpha, stream);
+                                              npad, tol, maxiter, safe_alpha, warps, slab, stream);
 }
 
 extern "C" cudaError_t tpucg_fused_batch_dia_cg_bf16(const void* data, const void* offsets,
                                                      int ndiag, int diag, const void* b,
                                                      const void* x0, void* x, void* k, void* rr,
                                                      long long batch, long long npad, float tol,
-                                                     long long maxiter, int safe_alpha,
-                                                     void* stream) {
+                                                     long long maxiter, int safe_alpha, int warps,
+                                                     int slab, void* stream) {
   return tpucg::launch_fused_batch_dia<uint16_t>(data, offsets, ndiag, diag, b, x0, x, k, rr,
-                                                 batch, npad, tol, maxiter, safe_alpha, stream);
+                                                 batch, npad, tol, maxiter, safe_alpha, warps,
+                                                 slab, stream);
+}
+
+extern "C" cudaError_t tpucg_fused_batch_dia_plan(long long batch, long long npad, int ndiag,
+                                                  int itemsize, int warps, int slab, void* out) {
+  using namespace tpucg;
+  if (batch <= 0 || npad <= 0 || npad % 128 || npad > kFusedBatchDiaMaxN || ndiag < 1 ||
+      ndiag > kDiaMaxDiags || (itemsize != 2 && itemsize != 4) || out == nullptr)
+    return cudaErrorInvalidValue;
+  DeviceInfo di;
+  cudaError_t err = device_info(&di);
+  if (err != cudaSuccess) return err;
+  BatchDiaPlan plan;
+  err = batch_dia_plan(batch, npad, ndiag, itemsize, di.sms, warps, slab, &plan);
+  if (err != cudaSuccess) return err;
+  int* o = static_cast<int*>(out);
+  const int vals[9] = {plan.warps,   plan.regs,    plan.systems, plan.grid,        plan.threads,
+                       plan.smem,    plan.lay.pad, plan.lay.slab, plan.lay.sys_bytes};
+  for (int i = 0; i < 9; ++i) o[i] = vals[i];
+  return cudaSuccess;
 }

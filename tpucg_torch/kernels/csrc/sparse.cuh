@@ -1,15 +1,13 @@
-// Row functions of the DIA operators, shared by the lap kernels (sparse.cu:
-// K6 DIA SpMV, K7 its row-block form with halos) and the whole-solve K12
-// (fused.cu), so a lap and a whole solve compute one operator the same way;
-// K11 (fused.cu) sums each row term by term in these functions' order, and
-// K8/K9 (sparse.cu) and K10 (fused.cu) sum the 7-point stencil in one order,
+// Row functions of the DIA operators, used by the lap kernels (sparse.cu:
+// K6 DIA SpMV, K7 its row-block form with halos); the whole solves K11 and
+// K12 (fused.cu) sum each row term by term in these functions' order, so a
+// lap and a whole solve compute one operator the same way, and K8/K9
+// (sparse.cu) and K10 (fused.cu) sum the 7-point stencil in one order,
 // tpucg's x+1, x-1, y+1, y-1, z+1, z-1 (stencil.py:60-80).
 //
 // Both take the input vector as a functor v(j) (j a flat index inside the
 // vector; the row functions never call it outside [0, n)): the lap kernels
-// pass a read through the read-only cache, the whole-solve kernels a read
-// of a vector the same launch writes (never through that cache), possibly
-// combined on the fly (p = z + beta p_old).
+// pass a read through the read-only cache.
 //
 // The sums are taken in the plain version's order, each product and each
 // sum rounded on its own (__fmul_rn / __fadd_rn / __fsub_rn keep nvcc from

@@ -16,7 +16,9 @@ in-kernel GEMV; it has no counterpart on the card and is dropped.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -61,10 +63,22 @@ FUSED_DIA_AUTO_MAX_N = 160 ** 3
 
 # K12's cap, the card's own: the largest padded n (a multiple of 128) whose
 # four f32 vectors fit the shared memory an H100 grants one block (232,448
-# bytes, less K12's 132-byte reduction buffer; csrc/blas.cuh
+# bytes, less the 512 bytes of K12's reduction slots; csrc/blas.cuh
 # kFusedBatchDiaMaxN). tpucg's VMEM rule (fused_batch_dia_supported,
 # fused.py:680) is a TPU rule and does not apply.
 FUSED_BATCH_DIA_MAX_N = 14464
+
+# K12's plan, compiled into its launch (csrc/fused.cu batch_dia_plan:
+# kBatchDiaWarps, kBatchDiaBlock, kBatchDiaSlots; kBatchBlock): a system runs
+# on W warps (BATCH_DIA_WARPS; BATCH_DIA_DEFAULT_WARPS unless forced, at most
+# its virtual warps, of which there are 4 or more), a block of at most
+# BATCH_DIA_BLOCK threads holds one or more systems, and a system's scalars
+# go through BATCH_DIA_SLOTS floats of slots. W = 1 and 2 ran 2.5-6 times
+# slower than W = 8 (PERF.md section 6, K12) and are not built.
+BATCH_DIA_WARPS = (4, 8)
+BATCH_DIA_DEFAULT_WARPS = 8
+BATCH_DIA_BLOCK = 256
+BATCH_DIA_SLOTS = 128
 
 # K10's and K11's tile, compiled into the kernels (csrc/fused.cu
 # kDiaTileRows, kDiaHalo): the rows go in tiles of DIA_TILE_ROWS, dealt to
@@ -88,6 +102,156 @@ BATCH_ROW_CHUNKS = FUSED_BATCH_MAX_N // 128
 BATCH_SMS = 132
 
 _PRECOND_CODE = {"none": 0, "jacobi": 1, "poly": 2}
+
+# K4's resident-A plan, compiled into its launch (csrc/fused.cu dense_plan:
+# kSmemPerSm, kSmemPerBlock, kSmemReserved, kDenseStatic,
+# kDenseBlocksPerSm, kDenseMaxBlocksPerSm, kDenseMaxSlots; csrc/blas.cuh
+# kBlock). The H100's shared memory: 228 KB an SM, at most 227 KB a block,
+# 1 KB of each block the runtime's; K4's static shared memory is at most
+# DENSE_STATIC_SMEM bytes. A block of DENSE_BLOCK threads runs DENSE_WARPS
+# warps, one a row.
+SMEM_PER_SM = 233472
+SMEM_PER_BLOCK = 232448
+SMEM_RESERVED = 1024
+DENSE_STATIC_SMEM = 256
+DENSE_BLOCK = 256
+DENSE_WARPS = DENSE_BLOCK // 32
+DENSE_BLOCKS_PER_SM = 2
+DENSE_MAX_BLOCKS_PER_SM = 2048 // DENSE_BLOCK
+DENSE_MAX_SLOTS = 64
+
+
+def dense_smem(npad: int, slots: int) -> int:
+    """K4's dynamic shared bytes a block: the resident rows' mbarriers (8
+    bytes each, padded to 16), the staged matvec input and ``slots`` rows
+    of A, f32."""
+    return 16 * ((slots + 1) // 2) + 4 * npad * (1 + slots)
+
+
+def dense_budget(blocks_per_sm: int) -> int:
+    """The dynamic shared bytes a K4 block may take at ``blocks_per_sm``
+    blocks an SM."""
+    return min(SMEM_PER_SM // blocks_per_sm - SMEM_RESERVED, SMEM_PER_BLOCK) - DENSE_STATIC_SMEM
+
+
+@dataclasses.dataclass(frozen=True)
+class DenseResidentPlan:
+    """How K4 keeps A on chip: ``grid`` blocks (``blocks_per_sm`` an SM) of
+    ``DENSE_WARPS`` warps; warp w of block b (grid warp g = b DENSE_WARPS +
+    w) owns rows g, g + warps, ...; its j-th row is its block's row q = j
+    DENSE_WARPS + w, resident in shared memory when q < ``resident`` and
+    read through L2 (evict_last) otherwise."""
+
+    npad: int
+    sms: int
+    blocks_per_sm: int
+    grid: int
+    resident: int
+
+    @property
+    def warps(self) -> int:
+        return self.grid * DENSE_WARPS
+
+    @property
+    def smem_bytes(self) -> int:
+        """Dynamic shared memory of a block."""
+        return dense_smem(self.npad, self.resident)
+
+    @property
+    def smem_blocks_per_sm(self) -> int:
+        """The blocks an SM's shared memory holds at this plan's bytes."""
+        return SMEM_PER_SM // (self.smem_bytes + DENSE_STATIC_SMEM + SMEM_RESERVED)
+
+    @property
+    def today(self) -> bool:
+        """The grid of the kernel before A was kept on chip, one warp a row:
+        the partials sum in its order, so x, k and r.r keep their bits."""
+        return self.grid == self.npad // DENSE_WARPS
+
+    def rows_of(self, block: int):
+        """The (q, row) block ``block`` owns, q its place in the block."""
+        out = []
+        for w in range(DENSE_WARPS):
+            for j, row in enumerate(range(block * DENSE_WARPS + w, self.npad, self.warps)):
+                out.append((j * DENSE_WARPS + w, row))
+        return sorted(out)
+
+    @property
+    def resident_rows(self) -> int:
+        """Rows of A in shared memory, over the grid."""
+        return sum(q < self.resident for b in range(self.grid) for q, _ in self.rows_of(b))
+
+    def describe(self) -> str:
+        streamed = self.npad - self.resident_rows
+        return (f"{self.grid} blocks ({self.blocks_per_sm} an SM) of {DENSE_WARPS} warps, "
+                f"{self.resident} resident rows a block, {self.resident_rows} rows in shared "
+                f"memory and {streamed} ({4 * streamed * self.npad / 2 ** 20:.2f} MiB) through "
+                f"L2, {self.smem_bytes} shared bytes a block, "
+                + ("today's grid (bit-equal)" if self.today else "grid changed"))
+
+
+def dense_resident_plan(npad: int, sms: int = BATCH_SMS, blocks_per_sm: Optional[int] = None,
+                        resident: Optional[int] = None) -> DenseResidentPlan:
+    """K4's plan at padded length ``npad`` on a card of ``sms`` SMs, as its
+    launch takes it (csrc/fused.cu dense_plan). Where the one-warp-a-row
+    grid (npad / 8 blocks) holds with all eight rows of each block resident
+    (npad <= 2048 on an H100), it is kept: x, k and r.r are the same bits
+    as before A was kept on chip. Else ``DENSE_BLOCKS_PER_SM`` blocks an
+    SM, each with as many of its rows resident as its share of the SM's
+    shared memory holds, the rest read through L2. ``blocks_per_sm`` and
+    ``resident`` force the plan (the sweep); raises where it does not
+    fit."""
+    if npad < 128 or npad % 128 or npad > FUSED_MAX_N:
+        raise ValueError(f"K4 cannot plan npad={npad} (128-aligned, <= {FUSED_MAX_N})")
+    today = npad // DENSE_WARPS
+    if blocks_per_sm is None:
+        blocks_per_sm = -(-today // sms)
+        if (blocks_per_sm > DENSE_MAX_BLOCKS_PER_SM
+                or dense_smem(npad, DENSE_WARPS) > dense_budget(blocks_per_sm)):
+            blocks_per_sm = DENSE_BLOCKS_PER_SM
+    if not 1 <= blocks_per_sm <= DENSE_MAX_BLOCKS_PER_SM:
+        raise ValueError(f"K4 takes 1 to {DENSE_MAX_BLOCKS_PER_SM} blocks an SM, "
+                         f"got {blocks_per_sm}")
+    grid = min(blocks_per_sm * sms, today)
+    most = DENSE_WARPS * -(-npad // (grid * DENSE_WARPS))  # rows block 0 owns
+    budget = dense_budget(blocks_per_sm)
+    fit = 0
+    while fit < most and dense_smem(npad, fit + 1) <= budget:
+        fit += 1
+    fit = min(fit, DENSE_MAX_SLOTS)
+    if resident is None:
+        resident = fit
+    if not 0 <= resident <= fit:
+        raise ValueError(f"K4 at npad={npad}, {blocks_per_sm} blocks an SM holds 0 to {fit} "
+                         f"resident rows a block, got {resident}")
+    return DenseResidentPlan(npad=int(npad), sms=int(sms), blocks_per_sm=int(blocks_per_sm),
+                             grid=int(grid), resident=int(resident))
+
+
+def dense_resident_plans(npad: int, sms: int = BATCH_SMS) -> list:
+    """The sweep's plans at ``npad``: for each distinct grid of 1 to 4
+    blocks an SM, no row, half the rows and all the rows a block's share
+    of shared memory holds resident."""
+    plans, grids = [], set()
+    for bps in range(1, 5):
+        top = dense_resident_plan(npad, sms, blocks_per_sm=bps)
+        if top.grid in grids:
+            continue
+        grids.add(top.grid)
+        for resident in sorted({0, top.resident // 2, top.resident}):
+            plans.append(dense_resident_plan(npad, sms, blocks_per_sm=bps, resident=resident))
+    return plans
+
+
+def fused_cg_plan(npad: int, plan: Optional[tuple] = None) -> tuple:
+    """K4's plan as the library takes it on the current CUDA device: (blocks
+    an SM, grid, resident rows a block, dynamic shared bytes); ``plan``
+    (blocks an SM, resident rows) forces one as ``_plan`` does."""
+    out = (ctypes.c_int * 4)()
+    blocks_per_sm, slots = (0, -1) if plan is None else plan
+    _lib.check(_lib.load().tpucg_fused_cg_plan(int(npad), int(blocks_per_sm), int(slots), out),
+               "fused_cg_plan")
+    return tuple(out)
 
 
 def _check_vector(name: str, v: torch.Tensor, shape, like: torch.Tensor) -> None:
@@ -137,14 +301,25 @@ def check_fused_batch(A, b, x0, precondition, minv) -> None:
         _check_vector(name, v, (B, npad), A)
 
 
+@functools.lru_cache(maxsize=None)
+def _fused_cg_scratch(npad: int) -> int:
+    """K4's scratch floats at padded length ``npad`` (asked of the library
+    once a length)."""
+    return int(_lib.load().tpucg_fused_cg_scratch(npad))
+
+
 def fused_cg_solve_cuda(A, b, x0, *, tol, maxiter, safe_alpha=True, precondition="none",
-                        poly_degree=0, minv=None):
-    """K4 on the card: one cooperative launch runs the whole solve.
+                        poly_degree=0, minv=None, _plan=None):
+    """K4 on the card: one cooperative launch runs the whole solve, with A on
+    chip from its first matvec to its last (``dense_resident_plan``).
     ``A`` is (npad, npad) f32, npad % 128 == 0 and npad <= ``FUSED_MAX_N``;
     ``b``, ``x0`` and ``minv`` (jacobi) are (npad,) f32 on A's device.
     ``precondition="poly"`` builds the truncated-Neumann polynomial of
     degree ``poly_degree`` inside the kernel (12 power iterations for
-    lambda_max). Raises if the card refuses the cooperative launch."""
+    lambda_max). x, k and rr are views of one allocation. ``_plan``
+    (blocks an SM, resident rows a block) forces a plan (the sweep); one
+    that does not fit is refused. Raises if the card refuses the
+    cooperative launch."""
     check_fused(A, b, x0, precondition, poly_degree, minv)
     if A.device.type != "cuda" or not A.is_contiguous() or A.data_ptr() % 16:
         raise ValueError(f"fused_cg_solve_cuda needs a contiguous 16-byte aligned A on a "
@@ -152,17 +327,16 @@ def fused_cg_solve_cuda(A, b, x0, *, tol, maxiter, safe_alpha=True, precondition
     npad = A.shape[0]
     b, x0 = b.contiguous(), x0.contiguous()
     minv = minv.contiguous() if precondition == "jacobi" else None
-    x = torch.empty(npad, dtype=torch.float32, device=A.device)
-    k = torch.empty((), dtype=torch.int32, device=A.device)
-    rr = torch.empty((), dtype=torch.float32, device=A.device)
-    lib = _lib.load()
-    scratch = torch.empty(int(lib.tpucg_fused_cg_scratch(npad)), dtype=torch.float32,
-                          device=A.device)
-    err = lib.tpucg_fused_cg_f32(
+    nscratch = _fused_cg_scratch(npad)
+    # x | scratch | k | rr: x and the scratch start 16-byte aligned.
+    out = torch.empty(npad + nscratch + 2, dtype=torch.float32, device=A.device)
+    x, k, rr = out[:npad], out.view(torch.int32)[-2], out[-1]
+    blocks_per_sm, slots = (0, -1) if _plan is None else _plan
+    err = _lib.load().tpucg_fused_cg_f32(
         A.data_ptr(), b.data_ptr(), x0.data_ptr(), None if minv is None else minv.data_ptr(),
-        x.data_ptr(), k.data_ptr(), rr.data_ptr(), scratch.data_ptr(), npad, float(tol),
+        x.data_ptr(), k.data_ptr(), rr.data_ptr(), out.data_ptr() + 4 * npad, npad, float(tol),
         int(maxiter), int(bool(safe_alpha)), _PRECOND_CODE[precondition], int(poly_degree),
-        cuda_stream(A),
+        int(blocks_per_sm), int(slots), cuda_stream(A),
     )
     if err:
         _lib.check(err, "fused_cg_solve_cuda")
@@ -476,6 +650,149 @@ def check_fused_batch_dia(data, offsets, b, x0, precondition) -> None:
         _check_vector(name, v, (B, npad), data)
 
 
+def _batch_dia_sys_bytes(npad, ndiag, itemsize, warps, regs, pad, slab) -> int:
+    vlen = npad + pad * (npad // 32)
+    nbytes = (4 * BATCH_DIA_SLOTS + 4 * vlen * (1 if regs else 4)
+              + (itemsize * ndiag * vlen if slab else 0))
+    return 16 * -(-nbytes // 16)
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchDiaWarpsPlan:
+    """How K12 runs a batch: each system on ``warps`` warps (W), ``systems``
+    systems a block of ``threads`` threads, ``grid`` blocks. Today's sums
+    are kept through virtual threads: the system's VT = min(npad, 1024)
+    virtual threads (thread t sums rows t, t + VT, ...) in VW = VT / 32
+    virtual warps, each taken by G = 32 W / VW lanes, lane g of them its
+    virtual lanes g, g + G, ... (``lane_rows``). x, r and Ap sit in their
+    owner's registers when ``regs`` (npad <= 1024), else in shared
+    memory with p; the slab is copied into shared memory when ``slab``; each
+    vector is padded by ``pad`` floats after every 32 rows."""
+
+    batch: int
+    npad: int
+    ndiag: int
+    itemsize: int
+    warps: int
+    regs: bool
+    systems: int
+    pad: int
+    slab: bool
+
+    @property
+    def vthreads(self) -> int:
+        return min(self.npad, BATCH_THREADS)
+
+    @property
+    def vwarps(self) -> int:
+        return self.vthreads // 32
+
+    @property
+    def group(self) -> int:
+        """G: the lanes that take one virtual warp."""
+        return 32 * self.warps // self.vwarps
+
+    @property
+    def threads(self) -> int:
+        return 32 * self.warps * self.systems
+
+    @property
+    def grid(self) -> int:
+        return -(-self.batch // self.systems)
+
+    @property
+    def sys_bytes(self) -> int:
+        """Dynamic shared bytes of one system."""
+        return _batch_dia_sys_bytes(self.npad, self.ndiag, self.itemsize, self.warps,
+                                    self.regs, self.pad, self.slab)
+
+    @property
+    def smem_bytes(self) -> int:
+        """Dynamic shared bytes of a block."""
+        return self.systems * self.sys_bytes
+
+    def lane_rows(self, lane: int):
+        """The rows system lane ``lane`` (0 <= lane < 32 W) owns, as (j, row)
+        in the order it sums them: for each q, its virtual threads j = 0,
+        1, ... (virtual thread 32 v + g + G j of virtual warp v = lane // G,
+        g = lane % G), row = that virtual thread + VT q."""
+        g, vw = lane % self.group, lane // self.group
+        out = []
+        for q in range(-(-self.npad // self.vthreads)):
+            for j in range(32 // self.group):
+                row = 32 * vw + g + self.group * j + self.vthreads * q
+                if row < self.npad:
+                    out.append((j, row))
+        return out
+
+    def describe(self) -> str:
+        return (f"W = {self.warps} warps a system, {self.systems} a block ({self.grid} blocks "
+                f"of {self.threads} threads), G = {self.group} lanes a virtual warp, x/r/Ap in "
+                + ("registers" if self.regs else "shared memory")
+                + f", slab {'in shared memory' if self.slab else 'streamed'}, pad {self.pad}, "
+                f"{self.smem_bytes} shared bytes a block")
+
+
+def batch_dia_warps_plan(batch: int, npad: int, ndiag: int, dtype=torch.float32,
+                         sms: int = BATCH_SMS, warps: Optional[int] = None,
+                         slab: Optional[bool] = None) -> BatchDiaWarpsPlan:
+    """K12's plan for ``batch`` systems of padded length ``npad`` with
+    ``ndiag`` diagonals stored in ``dtype`` (csrc/fused.cu batch_dia_plan):
+    W = ``BATCH_DIA_DEFAULT_WARPS`` warps a system (at most its virtual
+    warps); x, r and Ap in registers where npad <= 1024; the
+    vectors padded by G floats every 32 rows and the slab in shared memory
+    where they fit (the slab first, then the padding give way); one system
+    a block until the batch would fill the card's 32 blocks an SM, then two,
+    four, ... ``warps`` and ``slab`` force W and the slab's place (the sweep);
+    raises for a plan K12 cannot run."""
+    if batch < 1 or npad < 128 or npad % 128 or npad > FUSED_BATCH_DIA_MAX_N or not (
+            1 <= ndiag <= DIA_MAX_DIAGS):
+        raise ValueError(f"K12 cannot plan batch={batch}, npad={npad}, ndiag={ndiag}")
+    itemsize = 2 if dtype == torch.bfloat16 else 4
+    vwarps = min(npad, BATCH_THREADS) // 32
+    if warps is None:
+        warps = min(BATCH_DIA_DEFAULT_WARPS, vwarps)
+    if warps not in BATCH_DIA_WARPS or warps > vwarps:
+        raise ValueError(f"K12 runs W in {BATCH_DIA_WARPS} warps a system, at most "
+                         f"{vwarps} at npad={npad}, got {warps}")
+    regs = npad <= BATCH_THREADS
+    group = 32 * warps // vwarps
+    choice = None
+    for s in ((True, False) if slab is None else (bool(slab),)):
+        for pad in (group % 32, 0):  # G = 32: a warp's lanes own 32 rows in a row
+            if _batch_dia_sys_bytes(npad, ndiag, itemsize, warps, regs, pad, s) <= SMEM_PER_BLOCK:
+                choice = (pad, s)
+                break
+        if choice:
+            break
+    if choice is None:
+        raise ValueError(f"K12 at npad={npad}, ndiag={ndiag}, W={warps}: the slab does not "
+                         f"fit in shared memory")
+    nbytes = _batch_dia_sys_bytes(npad, ndiag, itemsize, warps, regs, *choice)
+    systems = 1
+    while (2 * systems * warps * 32 <= BATCH_DIA_BLOCK and 2 * systems * nbytes <= SMEM_PER_BLOCK
+           and batch > 32 * sms * systems):
+        systems *= 2
+    return BatchDiaWarpsPlan(batch=int(batch), npad=int(npad), ndiag=int(ndiag),
+                             itemsize=itemsize, warps=int(warps), regs=regs, systems=systems,
+                             pad=choice[0], slab=choice[1])
+
+
+def fused_batch_dia_plan(batch: int, npad: int, ndiag: int, dtype=torch.float32,
+                         plan: Optional[tuple] = None) -> tuple:
+    """K12's plan as the library takes it on the current CUDA device: (W,
+    regs, systems a block, grid, threads, shared bytes a block, pad, slab
+    resident, a system's shared bytes); ``plan`` (W, slab) forces one as
+    ``_plan`` does."""
+    out = (ctypes.c_int * 9)()
+    warps, slab = (0, -1) if plan is None else (plan[0], int(plan[1]))
+    itemsize = 2 if dtype == torch.bfloat16 else 4
+    _lib.check(_lib.load().tpucg_fused_batch_dia_plan(int(batch), int(npad), int(ndiag), itemsize,
+                                                       int(warps), slab, out),
+               "fused_batch_dia_plan")
+    return tuple(out)
+
+
 def _solve_outputs(n, like):
     return (torch.empty(n, dtype=torch.float32, device=like.device),
             torch.empty((), dtype=torch.int32, device=like.device),
@@ -550,21 +867,32 @@ def fused_dia_cg_solve_cuda(data, offsets, b, x0, *, tol, maxiter, safe_alpha=Tr
 fused_dia_cg_solve_cuda.launches = 0
 
 
+@functools.lru_cache(maxsize=64)
+def _offsets(offsets: tuple):
+    """The offsets as the launch takes them (an int64 host array), once a
+    tuple."""
+    return offsets_array(offsets)
+
+
 def fused_batch_dia_cg_solve_cuda(data, offsets, b, x0, *, tol, maxiter, safe_alpha=True,
-                                  precondition="none"):
+                                  precondition="none", _plan=None):
     """K12 on the card: B independent banded CG (``"none"``) or Jacobi-PCG
     (``"jacobi"``, 1/diag read from each slab's main diagonal) solves in one
-    launch, one block per system. ``data`` is (B, ndiag, npad) f32 or bf16
-    on the card, every system with the same ``offsets``; ``b`` and ``x0``
-    (B, npad) f32. Returns x (B, npad), k and rr (B,)."""
+    launch, each system on a few warps with its slab in shared memory where
+    it fits (``batch_dia_warps_plan``), the sums in today's order. ``data``
+    is (B, ndiag, npad) f32 or bf16 on the card, every system with the same
+    ``offsets``; ``b`` and ``x0`` (B, npad) f32. Returns x (B, npad), k and
+    rr (B,), views of one allocation. ``_plan`` (W, slab in shared memory)
+    forces a plan (the sweep); one that cannot run is refused."""
     check_fused_batch_dia(data, offsets, b, x0, precondition)
     _require_cuda("fused_batch_dia_cg_solve_cuda", data, b, x0)
     B, npad = data.shape[0], data.shape[2]
     offsets = tuple(int(o) for o in offsets)
-    offs = offsets_array(offsets)
-    x = torch.empty((B, npad), dtype=torch.float32, device=data.device)
-    k = torch.empty(B, dtype=torch.int32, device=data.device)
-    rr = torch.empty(B, dtype=torch.float32, device=data.device)
+    offs = _offsets(offsets)
+    out = torch.empty(B * (npad + 2), dtype=torch.float32, device=data.device)
+    x = out[:B * npad].view(B, npad)
+    k, rr = out.view(torch.int32)[B * npad:B * (npad + 1)], out[B * (npad + 1):]
+    warps, slab = (0, -1) if _plan is None else (_plan[0], int(_plan[1]))
     lib = _lib.load()
     fn = (lib.tpucg_fused_batch_dia_cg_f32 if data.dtype == torch.float32
           else lib.tpucg_fused_batch_dia_cg_bf16)
@@ -572,7 +900,7 @@ def fused_batch_dia_cg_solve_cuda(data, offsets, b, x0, *, tol, maxiter, safe_al
         data.data_ptr(), offs.ctypes.data, offs.size,
         offsets.index(0) if precondition == "jacobi" else -1, b.data_ptr(), x0.data_ptr(),
         x.data_ptr(), k.data_ptr(), rr.data_ptr(), B, npad, float(tol), int(maxiter),
-        int(bool(safe_alpha)), cuda_stream(data),
+        int(bool(safe_alpha)), int(warps), slab, cuda_stream(data),
     )
     if err:
         _lib.check(err, "fused_batch_dia_cg_solve_cuda")
