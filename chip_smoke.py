@@ -9,14 +9,23 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
 3. kernels: K1 (GEMV, f32 and bf16 A), K2 (fused update) and K3 (dot)
    against their plain PyTorch versions on the card, at the main path's
    shapes, with the tolerances printed; repeat launches are bit-identical.
+   K2 and K3 (one launch each) equal the NumPy emulation of their order
+   (``tests/_torch_helpers.py`` ``fused_update_emulated``, ``dot_emulated``)
+   bit for bit, K3's alpha mode too; p's update equals its plain version.
 4. goldens: the reference's 2x2 and 4x4 systems in 2 and 4 laps through
    the lap path (``fused="never"``).
 5. flagship: the dense n=8192 system of the reference's benchmark through
    ``DenseOperator`` and ``cg_solve`` on the card, at the NumPy oracle's lap
    count; the kernels' launch counters advance and the plain versions' do
-   not. Then n=16384.
+   not. Then n=16384. Then the lap route's device ops a lap at n=8192
+   (none, jacobi, poly): two capped solves 32 laps apart, profiled; kernel
+   launches and device ops a lap, the busy share, the lap's kernels by
+   name. Without a preconditioner a lap is at most 4 launches, all this
+   package's kernels (no torch op).
 6. times: the n=8192 solve and each kernel beside its plain version, with
-   the card's name and power limit.
+   the card's name and power limit; K2 and K3 through their launch cores
+   (K2 alone and with the lap's tail and p's update, K3 alone and in alpha
+   mode) and ``torch.dot``.
 7. whole-solve K4: ``cg_solve(fused="always")`` at n=1000, 2048 and 4096
    with precondition none, jacobi and poly runs one K4 launch and nothing
    else, at the plain version's lap count (and the oracle's for none), x
@@ -207,6 +216,8 @@ def main() -> int:
     from _torch_helpers import (
         BAND_SETS,
         batch_dia_cg_emulated,
+        dot_emulated,
+        fused_update_emulated,
         FAR_BAND,
         FAR_BAND_N,
         arrowhead_spd,
@@ -247,11 +258,25 @@ def main() -> int:
     from tpucg_torch.io.golden import GOLDEN_2X2, GOLDEN_4X4
     from tpucg_torch.kernels import _lib
     from tpucg_torch.kernels.blas1 import (
+        CudaLapTail,
+        dot_alpha_cuda,
+        dot_alpha_torch,
+        dot_alpha_launch,
         dot_cuda,
+        dot_launch,
         dot_torch,
         fused_update_cuda,
+        fused_update_launch,
+        fused_update_tail_launch,
         fused_update_torch,
+        lap_tail_torch,
+        LapTail,
+        p_update_cuda,
+        p_update_launch,
+        p_update_torch,
+        scratch_for,
     )
+    from tpucg_torch.kernels.dispatch import cuda_stream
     from tpucg_torch.kernels.dispatch import strict_f32
     from tpucg_torch.kernels.fused import (
         FUSED_AUTO_MAX_N,
@@ -319,8 +344,9 @@ def main() -> int:
     from tpucg_torch.sparse.well import csr_to_well
     from tpucg_torch.comm.mesh import init_distributed, make_mesh
 
-    wrappers = (matvec_cuda, matvec_torch, dot_cuda, dot_torch,
-                fused_update_cuda, fused_update_torch, dia_spmv_cuda, dia_spmv_torch,
+    wrappers = (matvec_cuda, matvec_torch, dot_cuda, dot_torch, dot_alpha_torch,
+                fused_update_cuda, fused_update_torch, p_update_cuda, p_update_torch,
+                lap_tail_torch, dia_spmv_cuda, dia_spmv_torch,
                 poisson3d_cuda, poisson3d_torch, well_spmv_cuda, well_spmv_torch,
                 dia_spmv_halo_cuda, dia_spmv_halo_torch, poisson3d_slab_cuda,
                 poisson3d_slab_torch) + tuple(dict.fromkeys(
@@ -392,31 +418,57 @@ def main() -> int:
                       "repeat bit-identical")
                 if label == "8192x8192" and A.dtype == torch.float32:
                     err["K1"] = e
+        # K2 and K3 (one launch each) against the NumPy emulation of their
+        # order (tests/_torch_helpers.py), bit for bit, and against the plain
+        # versions (f32 sums in two orders; one FMA rounding against two).
         for n in (8192, 16384):
-            x, r, p, ap = (rnd(n) for _ in range(4))
-            alpha = torch.tensor(0.37, device=dev)
-            xo, ro, beta = fused_update_cuda(x, r, p, ap, alpha)
+            vs = [np.random.default_rng(n + s).standard_normal(n).astype(np.float32)
+                  for s in range(4)]
+            x, r, p, ap = (torch.from_numpy(v).to(dev) for v in vs)
+            a32 = np.float32(0.37)
+            alpha = torch.tensor(a32, device=dev)
+            xo, ro, rr_k = fused_update_cuda(x, r, p, ap, alpha)
+            emu = fused_update_emulated(*vs, a32)
+            require(all(np.array_equal(t.cpu().numpy().view(np.int32),
+                                       np.asarray(e, np.float32).view(np.int32))
+                        for t, e in zip((xo, ro, rr_k), emu)),
+                    f"K2 n={n}: differs from the emulation of its order")
             xr, rr, beta_r = fused_update_torch(x, r, p, ap, alpha)
-            # x', r': one FMA rounding vs two roundings; beta: f32 sums in
-            # two orders.
             ex = float((xo - xr).abs().max())
             er = float((ro - rr).abs().max())
-            eb = abs(float(beta) - float(beta_r))
+            eb = abs(float(rr_k) - float(beta_r))
             require(torch.allclose(xo, xr, rtol=1e-5, atol=1e-6), f"K2 x' n={n}: {ex}")
             require(torch.allclose(ro, rr, rtol=1e-5, atol=1e-6), f"K2 r' n={n}: {er}")
-            require(eb <= 1e-5 * float(beta_r), f"K2 beta n={n}: {eb}")
+            require(eb <= 1e-5 * float(beta_r), f"K2 r'.r' n={n}: {eb}")
             again = fused_update_cuda(x, r, p, ap, alpha)
-            require(all(torch.equal(a, b) for a, b in zip((xo, ro, beta), again)),
+            require(all(torch.equal(a, b) for a, b in zip((xo, ro, rr_k), again)),
                     f"K2 n={n} repeat")
             d = dot_cuda(p, ap)
+            d_emu = dot_emulated(vs[2], vs[3])
+            require(np.float32(float(d)).view(np.int32) == d_emu.view(np.int32),
+                    f"K3 n={n}: {float(d)!r} against the emulation's {float(d_emu)!r}")
+            rsold = torch.tensor(2.5, device=dev)
+            pap, al = dot_alpha_cuda(p, ap, rsold)
+            pap_p, al_p = dot_alpha_torch(p, ap, rsold)
+            require(torch.equal(pap, d) and float(al) == float(np.float32(2.5) / d_emu),
+                    f"K3 alpha n={n}: {float(al)!r}")
             d_ref = dot_torch(p, ap)
             ed = abs(float(d) - float(d_ref))
             scale = float(torch.dot(p.abs(), ap.abs()))
             require(ed <= 1e-5 * scale, f"K3 n={n}: {ed} scale {scale}")
+            require(abs(float(al) - float(al_p)) <= 1e-5 * abs(float(al_p)), f"alpha n={n}")
             require(torch.equal(d, dot_cuda(p, ap)), f"K3 n={n} repeat")
-            print(f"K2 n={n}: max abs err x' {ex:.3e} r' {er:.3e} beta {eb:.3e} "
-                  f"(rtol 1e-5, atol 1e-6; beta rtol 1e-5), repeat bit-identical")
-            print(f"K3 n={n}: abs err {ed:.3e} (tol {1e-5 * scale:.3e}), repeat bit-identical")
+            beta = torch.tensor(0.61, device=dev)
+            step = torch.ones((), dtype=torch.int32, device=dev)
+            pp = p_update_cuda(r, p.clone(), beta, step)
+            require(torch.equal(pp, p_update_torch(r, p, beta, torch.tensor(True, device=dev)))
+                    and int(step) == 0, f"p update n={n}: differs from plain or kept its flag")
+            print(f"K2 n={n}: x', r', r'.r' bit-identical to the emulation of its order; "
+                  f"against plain: max abs err x' {ex:.3e} r' {er:.3e} r'.r' {eb:.3e} (rtol "
+                  "1e-5, atol 1e-6; r'.r' rtol 1e-5), repeat bit-identical")
+            print(f"K3 n={n}: bit-identical to the emulation (alpha mode too); against plain "
+                  f"abs err {ed:.3e} (tol {1e-5 * scale:.3e}), repeat bit-identical; p update "
+                  "bit-identical to plain, its flag cleared")
             if n == 8192:
                 err["K2"] = max(ex, er, eb)
                 err["K3"] = ed
@@ -457,13 +509,52 @@ def main() -> int:
             require(k == k_ref and bool(res.converged), f"n={n}: {k} laps vs oracle {k_ref}")
             require(np.isfinite(x).all() and x.shape == (n,), f"n={n}: x not finite")
             require(rel <= 1e-5, f"n={n}: rel err {rel}")
-            for kern in ("matvec_cuda", "dot_cuda", "fused_update_cuda"):
+            for kern in ("matvec_cuda", "dot_cuda", "fused_update_cuda", "p_update_cuda"):
                 require(launched[kern] > 0, f"n={n}: {kern} never launched")
-            for plain in ("matvec_torch", "dot_torch", "fused_update_torch"):
+            for plain in ("matvec_torch", "dot_torch", "fused_update_torch", "dot_alpha_torch",
+                          "lap_tail_torch", "p_update_torch"):
                 require(launched[plain] == 0, f"n={n}: plain {plain} ran on the main path")
             if n == 8192:
                 flagship = (op, bd, x0d, k)
             del op, bd, x0d, res
+
+        def kernel_counts(ops):
+            return {name: c for name, (c, _) in ops.items()
+                    if not name.startswith(("Memcpy", "Memset"))}
+
+        # The lap route's device ops a lap: two capped solves (tol = 1e-30,
+        # whose square is 0 in f32, and chunks of 8, so every lap enqueued
+        # runs) 32 laps apart, each profiled (a
+        # trace with no device event is taken again, at most three times).
+        op, bd, x0d, k = flagship
+        for pc in ("none", "jacobi", "poly"):
+            windows = []
+            for laps in (16, 48):
+                for _ in range(3):
+                    wall, ops = trace_calls(lambda: cg_solve(
+                        op, bd, x0d, tol=1e-30, maxiter=laps, chunk=8, precondition=pc,
+                        poly_degree=3), 1)
+                    if ops:
+                        break
+                require(ops, f"lap ops {pc}: the profiler's trace held no device event")
+                windows.append((wall, ops))
+            (_, o16), (w48, o48) = windows
+            k16, k48 = kernel_counts(o16), kernel_counts(o48)
+            lap_kernels = {name: (c - k16.get(name, 0)) / 32 for name, c in k48.items()
+                           if c != k16.get(name, 0)}
+            kernels_a_lap = sum(lap_kernels.values())
+            ops_a_lap = (sum(c for c, _ in o48.values()) - sum(c for c, _ in o16.values())) / 32
+            busy = sum(us for _, us in o48.values())
+            print(f"lap route n=8192 {pc}: {kernels_a_lap:g} kernel launches a lap, "
+                  f"{ops_a_lap:g} device ops a lap (memcpy included), busy share "
+                  f"{busy / 1e6 / w48:.3f} of a profiled 48-lap solve ({w48 * 1e3:.3f} ms host "
+                  "wall); a lap's kernels: " + "; ".join(
+                      f"{name[:60]} x {c:g}" for name, c in sorted(lap_kernels.items()))
+                  + f" {tag}")
+            if pc == "none":
+                require(kernels_a_lap <= 4 and all("tpucg" in name for name in lap_kernels),
+                        f"lap route none: {kernels_a_lap} kernels a lap ({lap_kernels})")
+        del op, bd, x0d
 
     times, library, bounds = {}, {}, {}
     f32_peak = 67e12  # FLOP/s outside the tensor cores (H100 SXM data sheet)
@@ -482,7 +573,8 @@ def main() -> int:
 
     n8 = 8192
     bounds["K1"] = bound_of(gemv_bytes(n8, n8, 4), 2 * n8 * n8)
-    bounds["K2"] = bound_of(4 * (6 * n8 + 1), 5 * n8)  # x, r, p, Ap in; x', r', beta out
+    # K2 with p's update: x, r, p, Ap in, x', r', r'.r' out; then z, p in, p out.
+    bounds["K2"] = bound_of(4 * (6 * n8 + 1) + 4 * 3 * n8, 7 * n8)
     bounds["K3"] = bound_of(4 * (2 * n8 + 1), 2 * n8)
     with phase("times"):
         op, bd, x0d, k = flagship
@@ -508,26 +600,66 @@ def main() -> int:
                 times["K1"] = (tk.median, tp.median)
                 library["K1"] = tl.median
                 print(f"torch.mv (cuBLAS) f32 8192x8192: {tl.median * 1e6:.2f} us {tag}")
+        # K2 and K3 through their launch cores, as the lap calls them (one
+        # scratch, zeroed once): K2 alone, and K2 with the lap's tail and then
+        # p's update, the lap's pair (tol2 = 0, so the tail never stops);
+        # K3 alone and in alpha mode. Each beside its plain version.
         x, r, p, ap = (rnd(8192) for _ in range(4))
+        p2 = p.clone()
         alpha = torch.tensor(0.37, device=dev)
+        rsold = torch.tensor(2.5, device=dev)
+        stream = cuda_stream(x)
+        scratch = scratch_for(x)
+        out, out2, rr_o = (torch.empty((), device=dev) for _ in range(3))
+        xo, ro = torch.empty_like(x), torch.empty_like(r)
+        big = 2 ** 31 - 1
+        tail = CudaLapTail(dev)
+        tol2_0 = torch.zeros((), device=dev)
+        tail.load(torch.tensor(0), torch.tensor(1.0), torch.tensor(1.0), torch.tensor(False),
+                  tol2_0, big)
+        plain_tail = LapTail(k=torch.zeros((), dtype=torch.int32, device=dev),
+                             rsold=torch.ones((), device=dev), rslast=torch.ones((), device=dev),
+                             done=torch.zeros((), dtype=torch.bool, device=dev),
+                             active=torch.ones((), dtype=torch.bool, device=dev))
+
+        def k2_lap():
+            fused_update_tail_launch(x, r, p2, ap, alpha, xo, ro, scratch, tail.rr,
+                                     tail.address, stream)
+            p_update_launch(ro, p2, tail.beta, tail.step, scratch, stream)
+
+        def k2_lap_plain():
+            _, rn, rr_ = fused_update_torch(x, r, p, ap, alpha)
+            t = lap_tail_torch(plain_tail, rr_, rr_, tol2_0, big)
+            return p_update_torch(rn, p, t.beta, t.step)
+
         pairs = {
-            "K2": (lambda: fused_update_cuda(x, r, p, ap, alpha),
+            "K2": (lambda: fused_update_launch(x, r, p, ap, alpha, xo, ro, scratch, rr_o, None,
+                                               stream),
                    lambda: fused_update_torch(x, r, p, ap, alpha)),
-            "K3": (lambda: dot_cuda(p, ap), lambda: dot_torch(p, ap)),
+            "K2 + tail + p update": (k2_lap, k2_lap_plain),
+            "K3": (lambda: dot_launch(p, ap, scratch, out, None, stream),
+                   lambda: dot_torch(p, ap)),
+            "K3 alpha": (lambda: dot_alpha_launch(p, ap, scratch, out, rsold, out2, True, None,
+                                                  stream),
+                         lambda: dot_alpha_torch(p, ap, rsold)),
         }
         for kname, (fk, fp) in pairs.items():
-            # Back-to-back wrapper calls are bound by host overhead at this
-            # size; calls queued behind a spin kernel give the device time.
-            tk = time_fn(fk, warmup=3, iters=7, reps=200)
-            tp = time_fn(fp, warmup=3, iters=7, reps=200)
+            # Back-to-back calls are bound by host overhead at this size;
+            # calls queued behind a spin kernel give the device time.
             dk, dp = device_seconds_per_call(fk), device_seconds_per_call(fp)
-            times[kname] = (dk, dp)
             if kname == "K3":
+                times["K3"] = (dk, dp)
                 library["K3"] = device_seconds_per_call(lambda: torch.dot(p, ap))
-                print(f"torch.dot n=8192: device {library['K3'] * 1e6:.2f} us per call {tag}")
-            print(f"{kname} n=8192: device {dk * 1e6:.2f} us per call, plain {dp * 1e6:.2f} us "
-                  f"(queued); back to back {tk.median * 1e6:.2f} us per call, plain "
-                  f"{tp.median * 1e6:.2f} us (host-bound) {tag}")
+                print(f"torch.dot n=8192: device {library['K3'] * 1e6:.3f} us per call {tag}")
+            if kname == "K2 + tail + p update":
+                times["K2"] = (dk, dp)
+            print(f"{kname} n=8192: device {dk * 1e6:.3f} us per call, plain {dp * 1e6:.3f} us "
+                  f"(queued) {tag}")
+        for kname, fk in (("K3 checked wrapper", lambda: dot_cuda(p, ap)),
+                          ("K2 checked wrapper", lambda: fused_update_cuda(x, r, p, ap, alpha))):
+            print(f"{kname} n=8192 (a zeroed scratch a call): device "
+                  f"{device_seconds_per_call(fk) * 1e6:.3f} us per call {tag}")
+        del tail
 
     def pad_to(t, npad):
         return torch.nn.functional.pad(t, (0, npad - t.shape[-1]))
@@ -1481,7 +1613,10 @@ def main() -> int:
             require(torch.equal(res.x, ser.x), f"{label}: x differs from the serial lap path")
             for kern in list(kerns) + ["dot_cuda", "fused_update_cuda"]:
                 require(launched[kern] > 0, f"{label}: {kern} never launched ({launched})")
-            require(all(launched[c] == 0 for c in plain_names),
+            # The sharded lap's scalars come from rank_sum: its tail and p's
+            # update stay in torch ops (TorchLap), the only plain ones it runs.
+            require(all(launched[c] == 0 for c in plain_names
+                        if c not in ("lap_tail_torch", "p_update_torch")),
                     f"{label}: a plain version ran ({launched})")
             if "n=8192" in label:
                 require(k == k_ref, f"{label}: {k} laps, oracle {k_ref}")
@@ -1605,7 +1740,7 @@ def main() -> int:
     # (id, name, key of its launch count, source, the TPU kernel it replaces)
     meta = (
         ("K1", "gemv", "matvec_cuda", "blas.cu", "tpucg/kernels/matvec.py:108"),
-        ("K2", "fused_update", "fused_update_cuda", "blas.cu", "tpucg/kernels/blas1.py:111"),
+        ("K2", "fused_update (+ p_update)", "K2", "blas.cu", "tpucg/kernels/blas1.py:111"),
         ("K3", "dot", "dot_cuda", "blas.cu", "tpucg/kernels/blas1.py:68"),
         ("K4", "fused_cg_solve", "fused_cg_solve_cuda", "fused.cu",
          "tpucg/kernels/fused.py:234"),
@@ -1633,6 +1768,8 @@ def main() -> int:
         (p.pid, p.name + (" (P1's kernel)" if p.pid == "P7" else ""), p.pid, "probe.cu",
          f"benchmarks/probe_gather.py:{p.line}") for p in pg.PROBES
     )
+    # K2's row: its launches and p's update's (the lap's pair) on the main path.
+    counts["K2"] = counts["fused_update_cuda"] + counts["p_update_cuda"]
     kernels = [
         {"name": f"{kid} {kname}", "route": "cuda",
          "source": f"tpucg_torch/kernels/csrc/{src}", "replaces": replaces,

@@ -646,6 +646,72 @@ def batch_dia_cg_emulated(data, offsets, b, x0, tol, maxiter, jacobi=False, safe
     return X, K, RR
 
 
+# K2 and K3's reduction (csrc/blas.cuh, csrc/blas.cu): blocks of BLAS_BLOCK
+# threads, at most BLAS_MAX_PARTIALS of them, one per BLAS_PER_BLOCK
+# elements (tests/test_torch_lap_tail.py reads the three from the source).
+BLAS_BLOCK = 256
+BLAS_MAX_PARTIALS = 1024
+BLAS_PER_BLOCK = 4 * BLAS_BLOCK
+
+
+def blas_reduce_blocks(n: int) -> int:
+    """``reduce_blocks(n)``: the blocks (and partials) of an n-element sum."""
+    return max(1, min(BLAS_MAX_PARTIALS, -(-n // BLAS_PER_BLOCK)))
+
+
+def blas_block_sum(v):
+    """``block_sum`` over the last axis (BLAS_BLOCK threads): each warp's
+    shuffle-down tree, then warp 0's tree over the warp sums in its first
+    lanes (zeros in the rest)."""
+    v = np.asarray(v, np.float32)
+    warps = _tree32(v.reshape(v.shape[:-1] + (BLAS_BLOCK // 32, 32)))
+    slots = np.zeros(v.shape[:-1] + (32,), np.float32)
+    slots[..., :BLAS_BLOCK // 32] = warps
+    return _tree32(slots)
+
+
+def blas_partials(u, v):
+    """K2/K3's stage 1: block b's thread t takes elements b BLAS_BLOCK + t,
+    + nb BLAS_BLOCK, ... in order, each by fma(u_i, v_i, acc) from 0; each
+    block's partial is its block sum. Returns (nb,) f32."""
+    u, v = np.asarray(u, np.float32), np.asarray(v, np.float32)
+    n = u.shape[0]
+    nb = blas_reduce_blocks(n)
+    lane = np.arange(nb * BLAS_BLOCK)
+    acc = np.zeros(nb * BLAS_BLOCK, np.float32)
+    for start in range(0, n, nb * BLAS_BLOCK):
+        i = lane + start
+        live = i < n
+        acc[live] = fma32(u[i[live]], v[i[live]], acc[live])
+    return blas_block_sum(acc.reshape(nb, BLAS_BLOCK))
+
+
+def blas_last_block_sum(partials):
+    """Stage 2, in the block that draws the last ticket (and in the second
+    launch before it): thread t adds partials t, t + BLAS_BLOCK, ... to 0 in
+    order, then the block sum."""
+    partials = np.asarray(partials, np.float32)
+    acc = np.zeros(BLAS_BLOCK, np.float32)
+    for start in range(0, partials.shape[0], BLAS_BLOCK):
+        part = partials[start:start + BLAS_BLOCK]
+        acc[:part.shape[0]] = (acc[:part.shape[0]] + part).astype(np.float32)
+    return np.float32(blas_block_sum(acc))
+
+
+def dot_emulated(u, v):
+    """K3's u . v in float32 NumPy, in the kernel's order."""
+    return blas_last_block_sum(blas_partials(u, v))
+
+
+def fused_update_emulated(x, r, p, ap, alpha):
+    """K2 in float32 NumPy: x' = fma(alpha, p, x), r' = fma(-alpha, ap, r)
+    and r'.r' in K3's order."""
+    a = np.float32(alpha)
+    xn = fma32(a, p, x)
+    rn = fma32(-a, ap, r)
+    return xn, rn, dot_emulated(rn, rn)
+
+
 @pytest.fixture
 def cuda_device():
     """The first CUDA device; tests that need the card skip without one."""

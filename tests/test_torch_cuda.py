@@ -20,6 +20,8 @@ from _torch_helpers import (  # noqa: F401  (fixture)
     batch_dia_cg_emulated,
     circulant_spd_batch,
     cuda_device,
+    dot_emulated,
+    fused_update_emulated,
     k11_edge_npads,
     padded_batch,
     random_banded_dia,
@@ -34,7 +36,27 @@ from tpucg_torch.io.generator import (
     random_geometric_spd,
 )
 from tpucg_torch.io.golden import GOLDEN_2X2, GOLDEN_4X4
-from tpucg_torch.kernels.blas1 import dot_cuda, dot_torch, fused_update_cuda, fused_update_torch
+from tpucg_torch.kernels.blas1 import (
+    CudaLapTail,
+    LapTail,
+    alpha_torch,
+    dot_alpha_cuda,
+    dot_alpha_launch,
+    dot_cuda,
+    dot_launch,
+    dot_tail_launch,
+    dot_torch,
+    fused_update_cuda,
+    fused_update_tail_launch,
+    fused_update_torch,
+    lap_tail_torch,
+    p_update_cuda,
+    p_update_launch,
+    p_update_torch,
+    scratch_for,
+)
+from tpucg_torch.bench.timing import trace_calls
+from tpucg_torch.kernels.dispatch import cuda_stream
 from tpucg_torch.kernels.fused import (
     BATCH_DIA_WARPS,
     FUSED_BATCH_MAX_N,
@@ -75,6 +97,7 @@ from tpucg_torch.solver.cg import (
     cg_solve_batch,
     cg_solve_batch_banded,
     lap_ops,
+    make_precond,
 )
 from tpucg_torch.solver.fused import (
     fused_batch_cg_solve_torch,
@@ -217,6 +240,210 @@ def test_lap_buffers_do_not_leak_into_the_state(cuda_device):
     for a, b_ in zip(first, kept):
         if a is not None:
             assert torch.equal(a, b_)
+
+
+# ---- K2 and K3 in one launch each, with the lap's scalar work -----------------
+
+N_ONE_LAUNCH = [1, 255, 8192, 16384, 128 ** 3, 299_964]
+
+
+def _f32_bits(t):
+    return np.asarray(t.cpu() if isinstance(t, torch.Tensor) else t, np.float32).view(np.int32)
+
+
+def _np_vectors(n, count, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(n).astype(np.float32) for _ in range(count)]
+
+
+@pytest.mark.parametrize("n", N_ONE_LAUNCH)
+def test_k3_k2_equal_the_emulation_bit_for_bit_on_card(cuda_device, n):
+    x, r, p, ap = _np_vectors(n, 4, n)
+    xd, rd, pd, apd = (torch.from_numpy(v).to(cuda_device) for v in (x, r, p, ap))
+    want = dot_emulated(p, ap)
+    for _ in range(2):  # the second launch finds the ticket put back to 0
+        np.testing.assert_array_equal(_f32_bits(dot_cuda(pd, apd)), _f32_bits(want))
+    rsold = np.float32(2.5)
+    pap, alpha = dot_alpha_cuda(pd, apd, torch.tensor(rsold, device=cuda_device))
+    np.testing.assert_array_equal(_f32_bits(pap), _f32_bits(want))
+    np.testing.assert_array_equal(_f32_bits(alpha), _f32_bits(np.float32(rsold / want)))
+    a = np.float32(0.37)
+    got = fused_update_cuda(xd, rd, pd, apd, torch.tensor(a, device=cuda_device))
+    for g, w in zip(got, fused_update_emulated(x, r, p, ap, a)):
+        np.testing.assert_array_equal(_f32_bits(g), _f32_bits(w))
+
+
+def _kernel_events(fn):
+    """{device kernel name: launches} of one call of ``fn`` (memcpy and
+    memset left out), retried when the trace holds no device event."""
+    for _ in range(3):
+        _, ops = trace_calls(fn, 1)
+        kernels = {k: c for k, (c, _) in ops.items() if not k.startswith(("Memcpy", "Memset"))}
+        if kernels:
+            return kernels
+    pytest.fail("the profiler's trace held no device event")
+
+
+def test_k2_k3_and_p_update_are_one_launch_each_on_card(cuda_device):
+    n = 8192
+    x, r, p, ap = (_rand(cuda_device, n, seed=s) for s in range(4))
+    scratch, out, alpha, rr, beta = (scratch_for(x),) + tuple(
+        torch.full((), 0.5, device=cuda_device) for _ in range(4))
+    step = torch.ones((), dtype=torch.int32, device=cuda_device)
+    s = CudaLapTail(cuda_device)
+    tol2 = torch.zeros((), device=cuda_device)
+    stream = cuda_stream(x)
+    s.load(torch.tensor(0), torch.tensor(1.0), torch.tensor(1.0), torch.tensor(False), tol2, 10)
+    calls = {
+        "dot": lambda: dot_launch(x, p, scratch, out, None, stream),
+        "alpha": lambda: dot_alpha_launch(p, ap, scratch, out, s.rsold, alpha, True, None,
+                                          stream),
+        "tail": lambda: dot_tail_launch(r, x, scratch, out, s.address, stream),
+        "update": lambda: fused_update_tail_launch(x, r, p, ap, alpha, x, r, scratch, rr,
+                                                   s.address, stream),
+        "p": lambda: p_update_launch(r, p, beta, step, scratch, stream),
+    }
+    for what, fn in calls.items():
+        step.fill_(1)
+        kernels = _kernel_events(fn)
+        assert sum(kernels.values()) == 1, (what, kernels)
+        assert not any("sum_partials" in k for k in kernels), kernels
+
+
+def _tail_on_card(dev, k, rsold, done, maxiter, hist_n=16):
+    s = CudaLapTail(dev)
+    hist = torch.full((hist_n,), float("nan"), device=dev)
+    s.load(torch.tensor(k, dtype=torch.int32), torch.tensor(rsold), torch.tensor(7.0),
+           torch.tensor(done), torch.tensor(1e-3, device=dev) ** 2, maxiter, hist)
+    plain = LapTail(k=s.k.clone(), rsold=s.rsold.clone(), rslast=s.rslast.clone(),
+                    done=s.done.clone(), active=s.active.bool(), hist=hist.clone())
+    return s, plain
+
+
+def _same_bits(a, b):
+    """Equal bit for bit (f32 compared as int32, so NaNs compare too)."""
+    if a.dtype == torch.float32:
+        a, b = a.reshape(-1).view(torch.int32), b.reshape(-1).view(torch.int32)
+    return a.dtype == b.dtype and torch.equal(a, b)
+
+
+def _assert_tail_equal(s, t):
+    """The card's tail buffers ``s`` against ``lap_tail_torch``'s ``t``."""
+    for f in ("k", "rsold", "rslast", "done", "beta", "hist"):
+        assert _same_bits(getattr(s, f), getattr(t, f).to(s.hist.device)), f
+    assert bool(s.active) == bool(t.active) and bool(s.step) == bool(t.step)
+
+
+@pytest.mark.parametrize("k, maxiter, scale", [(3, 100, 1.0), (3, 100, 1e-6), (99, 100, 1.0)],
+                         ids=["steps", "stops", "reaches-maxiter"])
+def test_tails_and_alpha_equal_the_plain_versions_on_card(cuda_device, k, maxiter, scale):
+    n = 8192
+    x, r, p, ap, z = (_rand(cuda_device, n, seed=s) for s in range(5))
+    r = r * scale
+    ap = ap * scale
+    stream = cuda_stream(x)
+    for safe in (True, False):
+        s, plain = _tail_on_card(cuda_device, k, 2.0, False, maxiter)
+        scratch = scratch_for(x)
+        out, alpha = (torch.empty((), device=cuda_device) for _ in range(2))
+        dot_alpha_launch(p, ap, scratch, out, s.rsold, alpha, safe, s.active.data_ptr(), stream)
+        assert torch.equal(alpha, alpha_torch(out, plain.rsold, safe))
+        xo, ro = x.clone(), r.clone()
+        fused_update_tail_launch(xo, ro, p, ap, alpha, xo, ro, scratch, s.rr, s.address, stream)
+        want = fused_update_cuda(x, r, p, ap, alpha)
+        assert torch.equal(xo, want[0]) and torch.equal(ro, want[1])
+        assert torch.equal(s.rr, want[2])
+        _assert_tail_equal(s, lap_tail_torch(plain, s.rr, s.rr, s.tol2, maxiter))
+        # p's update, then its flag is cleared
+        beta, step = s.beta.clone(), s.step.bool()
+        pp = p.clone()
+        p_update_launch(ro, pp, s.beta, s.step, scratch, stream)
+        assert torch.equal(pp, p_update_torch(ro, p, beta, step))
+        assert int(s.step) == 0
+    # K3's tail: rs_new = r.z, the lap's r.r from its slot
+    s, plain = _tail_on_card(cuda_device, k, 2.0, False, maxiter)
+    s.rr.copy_(torch.dot(r, r))
+    out = torch.empty((), device=cuda_device)
+    dot_tail_launch(r, z, scratch_for(r), out, s.address, stream)
+    assert torch.equal(out, dot_cuda(r, z))
+    _assert_tail_equal(s, lap_tail_torch(plain, s.rr, out, s.tol2, maxiter))
+
+
+def test_a_frozen_lap_changes_no_buffer_on_card(cuda_device):
+    n = 8192
+    x, r, p, ap = (_rand(cuda_device, n, seed=s) for s in range(4))
+    s, _ = _tail_on_card(cuda_device, 5, 2.0, True, 100)  # done: frozen
+    assert int(s.active) == 0
+    scratch = scratch_for(x)
+    out, alpha = torch.zeros((), device=cuda_device), torch.full((), 0.5, device=cuda_device)
+    stream = cuda_stream(x)
+    held = [t.clone() for t in (x, r, p, ap, scratch, out, alpha, s.k, s.rsold, s.rslast,
+                                s.done, s.active, s.beta, s.step, s.rr, s.hist)]
+    before = dot_cuda.launches, fused_update_cuda.launches, p_update_cuda.launches
+    dot_alpha_launch(p, ap, scratch, out, s.rsold, alpha, True, s.active.data_ptr(), stream)
+    fused_update_tail_launch(x, r, p, ap, alpha, x, r, scratch, s.rr, s.address, stream)
+    dot_tail_launch(r, x, scratch, out, s.address, stream)
+    p_update_launch(r, p, s.beta, s.step, scratch, stream)
+    torch.cuda.synchronize()
+    assert (dot_cuda.launches, fused_update_cuda.launches, p_update_cuda.launches) == tuple(
+        b + c for b, c in zip(before, (2, 1, 1)))
+    for a, b in zip((x, r, p, ap, scratch, out, alpha, s.k, s.rsold, s.rslast, s.done,
+                     s.active, s.beta, s.step, s.rr, s.hist), held):
+        assert _same_bits(a, b)
+
+
+@pytest.mark.parametrize("pc", ["none", "jacobi", "poly"])
+def test_a_second_solve_on_the_same_lap_repeats_on_card(cuda_device, pc):
+    A, b, x0 = generate_spd_system(1000, seed=2)
+    op = DenseOperator.create(A, device=cuda_device)
+    bd = torch.nn.functional.pad(torch.as_tensor(b, device=cuda_device), (0, 24))
+    matvec, dot, lap = lap_ops(op, "cuda")
+    d = op.diagonal()
+    minv = torch.where(d != 0, 1.0 / d, 1.0)
+    precond = make_precond(pc, minv, matvec, dot, bd, 3)
+    runs = [cg_loop(matvec, dot, lap, bd, torch.zeros_like(bd), tol=1e-6, maxiter=1000,
+                    precond=precond, hist_len=1000) for _ in range(2)]
+    assert bool(runs[0].done)
+    for a, b_ in zip(*runs):
+        assert _same_bits(a, b_)
+
+
+@pytest.mark.parametrize("pc", ["none", "jacobi", "poly"])
+def test_maxiter_cut_p_is_the_same_for_every_chunk_on_card(cuda_device, pc):
+    # The lap that reaches maxiter steps p; the frozen laps after it (in a
+    # chunk that outlasts it) must not step it again.
+    A, b, x0 = generate_spd_system(1000, seed=4)
+    runs = [cg_solve(A, b, x0, device=cuda_device, precondition=pc, poly_degree=3,
+                     fused="never", tol=1e-12, maxiter=5, chunk=c) for c in (1, 8, None)]
+    op = DenseOperator.create(A, device=cuda_device)
+    bd = torch.nn.functional.pad(torch.as_tensor(b, device=cuda_device), (0, 24))
+    x0d = torch.nn.functional.pad(torch.as_tensor(x0, device=cuda_device), (0, 24))
+    matvec, dot, lap = lap_ops(op, "cuda")
+    d = op.diagonal()
+    precond = make_precond(pc, torch.where(d != 0, 1.0 / d, 1.0), matvec, dot, bd, 3)
+    states = [cg_loop(matvec, dot, lap, bd, x0d, tol=1e-12, maxiter=5, precond=precond,
+                      chunk=c) for c in (1, 8)]
+    assert int(states[0].k) == 5 and not bool(states[0].done)
+    for f in ("k", "x", "r", "p", "rsold", "rslast", "done"):
+        assert torch.equal(getattr(states[0], f), getattr(states[1], f)), f
+    for res in runs[1:]:
+        assert torch.equal(res.x, runs[0].x) and torch.equal(res.iterations, runs[0].iterations)
+
+
+def test_lap_route_is_four_launches_a_lap_on_card(cuda_device):
+    A, b, x0 = generate_spd_system(8192, seed=0)
+    op = DenseOperator.create(A, device=cuda_device)
+    del A
+    bd = torch.as_tensor(b, device=cuda_device)
+
+    def kernels(laps):
+        return _kernel_events(lambda: cg_solve(op, bd, tol=1e-30, maxiter=laps, chunk=8))
+
+    short, long = kernels(16), kernels(48)
+    per_lap = (sum(long.values()) - sum(short.values())) / 32
+    assert per_lap == 4, (short, long)
+    counts = {k: long.get(k, 0) - short.get(k, 0) for k in long}
+    assert sorted(c for c in counts.values() if c) == [32, 32, 32, 32], counts
 
 
 # ---- the whole solve: K4 (one system) and K5 (a batch) -----------------------

@@ -88,7 +88,15 @@ def test_bound_entry_points_exist_in_csrc():
     declared = set(re.findall(r"\b(tpucg_\w+)\s*\(", block))
     defined = set(re.findall(r'extern "C" [\w\s\*]+?\b(tpucg_\w+)\s*\(', csrc))
     assert set(_lib.SIGNATURES) == declared == defined
-    assert "atomicAdd" not in csrc  # reductions are fixed-order, no atomics
+    # Reductions are fixed-order: the only atomics draw integer tickets (K2,
+    # K3 and p's update finish in the block that draws the last), never a
+    # float sum.
+    atomics = re.findall(r"\batomic\w*\(([^,]*),\s*([^)]*)\)", csrc)
+    assert atomics and all(a == ("ticket", "1") for a in atomics), atomics
+    ptx_atoms = re.findall(r"\batom\.[\w.]+", csrc)
+    assert ptx_atoms and all(a.endswith(".add.s32") for a in ptx_atoms), ptx_atoms
+    assert len(re.findall(r"\bint\* ticket\b", csrc)) >= 3
+    assert not re.search(r"float\* ticket", csrc)
     assert "sm_90a" in " ".join(_lib.NVCC_FLAGS)
     assert "use_fast_math" not in " ".join(_lib.NVCC_FLAGS)
 

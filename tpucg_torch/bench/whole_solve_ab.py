@@ -1,5 +1,6 @@
 """Parent against change for the whole-solve kernels K4, K5, K10, K11 and
-K12 and the stencil kernels K8 and K9 on one card: the same cases run from two
+K12, the stencil kernels K8 and K9, K2 and K3, and the lap routes on one
+card: the same cases run from two
 checkouts of the package in turns (parent, change, change, parent), each
 run in a process of its own that builds that checkout's kernels, and the
 results set side by side.
@@ -15,16 +16,23 @@ batches of ``chip_smoke.py`` phase 8 (``tests/_torch_helpers.py``
 ``circulant_spd_batch``, seed 100, tol 1e-2, identity-padded) at 64 x
 1000, 16 x 2048 and 256 x 512 with none and jacobi; K10 at m = 128 with
 none and poly; K11 at m = 128, f32 and bf16 slabs, none, jacobi and poly;
-the Poisson lap route at m = 128 ("K8 lap route": ``cg_solve(
-PoissonOperator(128), b, fused="never")``, K8 with K2 and K3), all on tpucg's Poisson bench system
-(tol 1e-5 ||b||, x0 = 0); K12 on tpucg's battery of 256 tridiagonal systems
+the lap routes (``lap_route``: ``lap_ops`` and ``cg_loop`` as ``cg_solve``
+runs them with ``fused="never"``): "K8 lap route" (``PoissonOperator(128)``)
+and "lap K6" (its DIA form, f32), all on tpucg's Poisson bench system (tol
+1e-5 ||b||, x0 = 0), "lap dense n=8192" (the reference's system, tol 1e-6,
+none, jacobi and poly) and "lap FEM 300k jacobi" (``fem_p1_system(300_000,
+seed=0)`` through ``best_sparse_operator``, K13, tol 1e-5 ||b||), each
+also with its busy share, device ops and kernel launches a lap (one
+profiled solve over the laps its chunks enqueued); K12 on tpucg's battery of 256 tridiagonal systems
 of n = 1024 (``tests/_torch_helpers.py`` ``banded_battery``, seed 0, tol
 1e-5, x0 = 0), f32 and bf16 slabs, none and jacobi. For each it prints the
 laps and the median ms of 5 solves (CUDA events, after one warm-up) of the
 four runs, and for K4 and K12 also the queued device ms (calls queued
 behind a spin kernel, ``bench.timing.device_timing``) and the host ms a
 call (the wrapper's own work, timed while a spin kernel holds the card).
-The lap cases ("K4
+K3 and K2 at n =
+8192 through their launch cores (one scratch), µs a call queued, with
+``torch.dot`` beside K3. The lap cases ("K4
 lap"): K4 at n = 1000, 2048 and 4096, none, jacobi and poly, at tol = 0
 (no lap passes the stopping test), µs a lap as the slope of the queued
 device time between maxiter = 8 and 40 and the intercept (launch and
@@ -108,6 +116,34 @@ def stencil_cases(dev) -> dict:
     return cases
 
 
+def blas_cases(dev) -> dict:
+    """K3 and K2 at n = 8192 through their launch cores, as the lap calls
+    them (one scratch, made once): label -> (launch, the library call or
+    None); ``launch()`` returns its outputs."""
+    import numpy as np
+    import torch
+
+    from tpucg_torch.kernels.blas1 import dot_launch, fused_update_launch, scratch_for
+    from tpucg_torch.kernels.dispatch import cuda_stream
+
+    rng = np.random.default_rng(8192)
+    x, r, p, ap = (torch.as_tensor(rng.standard_normal(8192).astype(np.float32), device=dev)
+                   for _ in range(4))
+    alpha = torch.tensor(0.37, device=dev)
+    stream, scratch = cuda_stream(x), scratch_for(x)
+    out, rr = torch.empty((), device=dev), torch.empty((), device=dev)
+    xo, ro = torch.empty_like(x), torch.empty_like(r)
+
+    def k3():
+        dot_launch(p, ap, scratch, out, None, stream)
+        return (out,)
+
+    def k2():
+        fused_update_launch(x, r, p, ap, alpha, xo, ro, scratch, rr, None, stream)
+        return xo, ro, rr
+    return {"K3 n=8192": (k3, lambda: torch.dot(p, ap)), "K2 n=8192": (k2, None)}
+
+
 def banded(nsys: int, n: int, dev):
     """tpucg's battery (``banded_battery(nsys, n, seed=0)``) on ``dev``: the
     f32 slab, its offsets, b and x0 = 0."""
@@ -145,6 +181,54 @@ def host_seconds_per_call(fn, reps: int = 100) -> float:
     return statistics.median(windows)
 
 
+def lap_route(op, b, pc: str, tol: float, maxiter: int):
+    """A lap-route solve of ``op`` as ``cg_solve`` runs it (b padded, x0 =
+    0, jacobi's 1/diag, poly of degree 3 estimated in the call), through
+    ``lap_ops`` and ``cg_loop``, which both checkouts have: returns a call
+    that gives (x, k, r.r)."""
+    import torch
+
+    from tpucg_torch.solver.cg import cg_loop, lap_ops, make_precond
+
+    b = torch.nn.functional.pad(b, (0, op.padded_n - b.shape[0]))
+    minv = None
+    if pc == "jacobi":
+        d = op.diagonal()
+        minv = torch.where(d != 0, 1.0 / d, 1.0)
+
+    def solve():
+        matvec, dot, lap = lap_ops(op, "cuda")
+        precond = make_precond(pc, minv, matvec, dot, b, 3)
+        s = cg_loop(matvec, dot, lap, b, torch.zeros_like(b), tol=tol, maxiter=maxiter,
+                    precond=precond)
+        return s.x, s.k, s.rslast
+    return solve
+
+
+def profile_solve(fn, laps: int) -> dict:
+    """One profiled call of a lap-route solve that stopped after ``laps``:
+    the device's busy share of the host's wall, and its device ops and
+    kernel launches (memcpy and memset left out) over the laps the chunks
+    enqueued (``tests/_torch_helpers.py`` ``laps_run``). A trace with no
+    device event is taken again, at most three times."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[2] / "tests"))
+    from _torch_helpers import laps_run
+
+    from tpucg_torch.bench.timing import trace_calls
+
+    enqueued = laps_run(laps)
+    for _ in range(3):
+        wall, ops = trace_calls(fn, 1)
+        if ops:
+            break
+    if not ops:
+        return {}
+    kernels = sum(c for name, (c, _) in ops.items() if not name.startswith(("Memcpy", "Memset")))
+    return {"busy share": sum(us for _, us in ops.values()) / 1e6 / wall,
+            "device ops a lap": sum(c for c, _ in ops.values()) / enqueued,
+            "kernels a lap": kernels / enqueued}
+
+
 LAPS = (8, 40)  # maxiter of the two tol = 0 runs whose slope is a lap
 
 
@@ -166,7 +250,9 @@ def worker(out: str, only: Sequence[str] = ()) -> None:
 
     from tpucg_torch.bench.k11_lap import poisson_rhs
     from tpucg_torch.bench.timing import device_seconds_per_call, time_fn
-    from tpucg_torch.io.generator import generate_spd_system, poisson3d_dia
+    import numpy as np
+
+    from tpucg_torch.io.generator import fem_p1_system, generate_spd_system, poisson3d_dia
     from tpucg_torch.kernels.dispatch import strict_f32
     from tpucg_torch.kernels.fused import (
         fused_batch_cg_solve_cuda,
@@ -175,11 +261,16 @@ def worker(out: str, only: Sequence[str] = ()) -> None:
         fused_dia_cg_solve_cuda,
         fused_stencil_cg_solve_cuda,
     )
-    from tpucg_torch.solver.cg import cg_solve
-    from tpucg_torch.solver.operators import DenseOperator, DiaOperator, PoissonOperator
+    from tpucg_torch.solver.operators import (
+        DenseOperator,
+        DiaOperator,
+        PoissonOperator,
+        best_sparse_operator,
+    )
 
     strict_f32()
     dev = torch.device("cuda", 0)
+    wanted = lambda label: not only or any(label.startswith(w) for w in only)  # noqa: E731
     cases, slopes = {}, {}
     for n in (1000, 2048, 4096):
         A, b, x0 = generate_spd_system(n, seed=0)
@@ -217,12 +308,22 @@ def worker(out: str, only: Sequence[str] = ()) -> None:
                       poly_degree=3 if pc == "poly" else 0)
             cases[f"K11 m={m} {name} {pc}"] = (
                 lambda op_=op, kw_=kw: fused_dia_cg_solve_cuda(op_.data, op_.offsets, b, z, **kw_))
-    lap_op = PoissonOperator(m, device=dev)
-
-    def lap_route():
-        res = cg_solve(lap_op, b, fused="never", tol=tol, maxiter=maxiter)
-        return res.x, res.iterations, None
-    cases[f"K8 lap route m={m}"] = lap_route
+    cases[f"K8 lap route m={m}"] = lap_route(PoissonOperator(m, device=dev), b, "none", tol,
+                                             maxiter)
+    cases[f"lap K6 m={m} f32"] = lap_route(DiaOperator.from_dia(poisson3d_dia(m), device=dev), b,
+                                           "none", tol, maxiter)
+    if wanted("lap dense") or wanted("lap FEM"):
+        A, bn, _ = generate_spd_system(8192, seed=0)
+        op8 = DenseOperator.create(A, device=dev)
+        del A
+        b8 = torch.as_tensor(bn, device=dev)
+        for pc in ("none", "jacobi", "poly"):
+            cases[f"lap dense n=8192 {pc}"] = lap_route(op8, b8, pc, 1e-6, 8192)
+        A_fem, b_fem, _ = fem_p1_system(300_000, seed=0)
+        bf = torch.as_tensor(b_fem, device=dev)
+        cases["lap FEM 300k jacobi"] = lap_route(
+            best_sparse_operator(A_fem, device=dev), bf, "jacobi",
+            1e-5 * float(np.linalg.norm(b_fem.astype(np.float64))), 4000)
     d32, offsets, bb, zb = banded(256, 1024, dev)
     for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         d = d32.to(dt)
@@ -230,7 +331,6 @@ def worker(out: str, only: Sequence[str] = ()) -> None:
             kw = dict(tol=1e-5, maxiter=1024, precondition=pc)
             cases[f"K12 256x1024 {name} {pc}"] = (
                 lambda d_=d, kw_=kw: fused_batch_dia_cg_solve_cuda(d_, offsets, bb, zb, **kw_))
-    wanted = lambda label: not only or any(label.startswith(w) for w in only)  # noqa: E731
     results = {}
     for label, fn in cases.items():
         if not wanted(label):
@@ -240,7 +340,15 @@ def worker(out: str, only: Sequence[str] = ()) -> None:
         if label.startswith(("K4", "K12")):
             times["device ms"] = device_seconds_per_call(fn, reps=50) * 1e3
             times["host ms"] = host_seconds_per_call(fn) * 1e3
+        if label.startswith(("lap", "K8 lap")):
+            times.update(profile_solve(fn, int(k)))
         results[label] = (k.tolist(), x.cpu() if rr is None else (x.cpu(), rr.cpu()), times)
+    for label, (launch, library) in blas_cases(dev).items():
+        if wanted(label):
+            times = {"device us": device_seconds_per_call(launch) * 1e6}
+            if library is not None:
+                times["torch.dot us"] = device_seconds_per_call(library) * 1e6
+            results[label] = (None, tuple(t.cpu() for t in launch()), times)
     for label, solve in slopes.items():
         if wanted(label):
             slope, fixed = lap_slope(solve)
@@ -282,8 +390,8 @@ def compare(roots: Sequence[str], outs: Sequence[str]) -> None:
     print(f"parent {roots[0]}, change {roots[1]}; runs: parent, change, change, parent")
     for label in runs[0]:
         (kp, xp, names), (kc, xc, _) = runs[0][label], runs[1][label]
-        times = "; ".join(f"{name} " + " / ".join(f"{r[label][2][name]:.5f}" for r in runs)
-                          for name in names)
+        times = "; ".join(f"{name} " + " / ".join(
+            f"{r[label][2].get(name, float('nan')):.5f}" for r in runs) for name in names)
         if xp is None:
             print(f"  {label}: {times}", flush=True)
             continue

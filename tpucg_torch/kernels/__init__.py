@@ -7,8 +7,11 @@ SpMV), K8 ``poisson3d_cuda`` (7-point stencil), K7 ``dia_spmv_halo_cuda``
 and K9 ``poisson3d_slab_cuda`` (K6 and K8 on one rank's block of a
 distributed solve, with halos), K13 ``well_spmv_cuda``
 (WELL SpMV; K14 ``well_spmv_fused_gather`` is the same kernel under
-tpucg's second name), K2 ``fused_update_cuda`` (x/r update and beta =
-r'.r' in one pass) and K3 ``dot_cuda``. The whole solve: K4
+tpucg's second name), K2 ``fused_update_cuda`` (x/r update and r'.r' in
+one pass) with ``p_update_cuda`` (p's update), and K3 ``dot_cuda`` (with
+``dot_alpha_cuda``, its alpha mode); each of K2 and K3 is one launch that
+can also run the lap's scalar tail (``lap_tail_torch`` is its plain
+version). The whole solve: K4
 ``fused_cg_solve_cuda`` (one dense system, one cooperative launch), K5
 ``fused_batch_cg_solve_cuda`` (B dense systems, one launch), K10
 ``fused_stencil_cg_solve_cuda`` (Poisson stencil) and K11
@@ -21,11 +24,16 @@ package builds nothing.
 """
 
 from tpucg_torch.kernels.blas1 import (
+    dot_alpha_cuda,
+    dot_alpha_torch,
     dot_cuda,
     dot_torch,
     fused_update,
     fused_update_cuda,
     fused_update_torch,
+    lap_tail_torch,
+    p_update_cuda,
+    p_update_torch,
 )
 from tpucg_torch.kernels.dispatch import resolve_backend
 from tpucg_torch.kernels.fused import (
@@ -66,11 +74,16 @@ from tpucg_torch.kernels.stencil import (
 )
 
 __all__ = [
+    "dot_alpha_cuda",
+    "dot_alpha_torch",
     "dot_cuda",
     "dot_torch",
     "fused_update",
     "fused_update_cuda",
     "fused_update_torch",
+    "lap_tail_torch",
+    "p_update_cuda",
+    "p_update_torch",
     "FUSED_AUTO_MAX_N",
     "FUSED_BATCH_DIA_MAX_N",
     "FUSED_BATCH_MAX_N",

@@ -36,10 +36,15 @@ SIGNATURES = {
     "tpucg_gemv_f32": (ctypes.c_int, [_PTR, _PTR, _PTR, _LEN, _LEN, _PTR, _PTR]),
     "tpucg_gemv_bf16": (ctypes.c_int, [_PTR, _PTR, _PTR, _LEN, _LEN, _PTR, _PTR]),
     "tpucg_dot_f32": (ctypes.c_int, [_PTR, _PTR, _PTR, _PTR, _LEN, _PTR, _PTR]),
+    "tpucg_dot_alpha_f32": (
+        ctypes.c_int, [_PTR] * 6 + [ctypes.c_int, _LEN, _PTR, _PTR]),
+    "tpucg_dot_tail_f32": (ctypes.c_int, [_PTR] * 5 + [_LEN, _PTR]),
     "tpucg_fused_update_f32": (
         ctypes.c_int,
         [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _LEN, _PTR, _PTR],
     ),
+    "tpucg_fused_update_tail_f32": (ctypes.c_int, [_PTR] * 10 + [_LEN, _PTR]),
+    "tpucg_p_update_f32": (ctypes.c_int, [_PTR] * 5 + [_LEN, _PTR]),
     "tpucg_reduce_blocks": (ctypes.c_int, [_LEN]),
     "tpucg_fused_cg_f32": (
         ctypes.c_int,
@@ -189,7 +194,8 @@ def load() -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=None)
 def reduce_blocks(n: int) -> int:
-    """Length of the partial-sum scratch of an n-element K2/K3 reduction."""
+    """Partials of an n-element K2/K3 reduction (their scratch holds one int
+    more: the ticket)."""
     return int(load().tpucg_reduce_blocks(n))
 
 

@@ -44,7 +44,9 @@ __host__ __device__ inline int reduce_blocks(long long n) {
 
 // Sum of `v` over a kBlock-thread block in a fixed order: a shuffle tree in
 // each warp, then warp 0 sums the warp results in warp order. The result is
-// valid in thread 0. Called at most once per kernel (one shared buffer).
+// valid in thread 0. Each Slot has one shared buffer: a kernel calls each
+// Slot at most once (K2 and K3 sum twice: slots 0 and 1).
+template <int Slot = 0>
 __device__ inline float block_sum(float v) {
   __shared__ float warp_sums[kBlock / 32];
   for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
@@ -60,6 +62,28 @@ __device__ inline float block_sum(float v) {
   return s;
 }
 
+// The CG lap's scalars in device memory, as K2's and K3's tails read and
+// write them (kernels/blas1.py LapPointers holds the same fields in this
+// order): k, rsold (r.z, or r.r without a preconditioner), rslast (the last
+// r.r), done (one byte), active (the lap kernels' flag), beta and step (p's
+// update), tol2 (tol^2), rr (the slot K2 writes the lap's r'.r' to, which
+// K3's tail reads), hist (||r|| by lap, hist_n floats; may be null) and
+// maxiter.
+struct LapScalars {
+  int* k;
+  float* rsold;
+  float* rslast;
+  unsigned char* done;
+  int* active;
+  float* beta;
+  int* step;
+  const float* tol2;
+  const float* rr;
+  float* hist;
+  long long hist_n;
+  long long maxiter;
+};
+
 }  // namespace tpucg
 
 extern "C" {
@@ -71,18 +95,42 @@ cudaError_t tpucg_gemv_f32(const void* A, const void* x, void* y, long long rows
 cudaError_t tpucg_gemv_bf16(const void* A, const void* x, void* y, long long rows,
                             long long cols, const void* active, void* stream);
 
-// K3: *out = u . v over n f32; `partials` holds tpucg_reduce_blocks(n) floats.
-cudaError_t tpucg_dot_f32(const void* u, const void* v, void* partials, void* out,
+// K2, K3 and p's update each run as one launch. `scratch` holds
+// tpucg_reduce_blocks(n) floats of partials, then the int ticket, which must
+// be 0 at the first launch (each launch puts it back to 0); launches that
+// share a scratch run in stream order.
+//
+// K3: *out = u . v over n f32.
+cudaError_t tpucg_dot_f32(const void* u, const void* v, void* scratch, void* out,
                           long long n, const void* active, void* stream);
+// K3, alpha mode: also *alpha = *rsold / *out (0 where *out is 0 and
+// safe_alpha is set).
+cudaError_t tpucg_dot_alpha_f32(const void* u, const void* v, void* scratch, void* out,
+                                const void* rsold, void* alpha, int safe_alpha, long long n,
+                                const void* active, void* stream);
+// K3, tail mode: *out = rs_new = u . v (r . z), then the lap's tail with the
+// lap's r'.r' read from lap->rr; `lap` is a host LapScalars, its active the
+// flag.
+cudaError_t tpucg_dot_tail_f32(const void* u, const void* v, void* scratch, void* out,
+                               const void* lap, long long n, void* stream);
 
-// K2: xo = x + alpha p, ro = r - alpha ap, *beta = ro . ro, with alpha read
+// K2: xo = x + alpha p, ro = r - alpha ap, *rr = ro . ro, with alpha read
 // from device memory. xo may alias x and ro may alias r (in-place update).
 cudaError_t tpucg_fused_update_f32(const void* x, const void* r, const void* p,
                                    const void* ap, const void* alpha, void* xo,
-                                   void* ro, void* partials, void* beta, long long n,
+                                   void* ro, void* scratch, void* rr, long long n,
                                    const void* active, void* stream);
+// K2, tail mode: the same, then the lap's tail with rs_new = rr.
+cudaError_t tpucg_fused_update_tail_f32(const void* x, const void* r, const void* p,
+                                        const void* ap, const void* alpha, void* xo, void* ro,
+                                        void* scratch, void* rr, const void* lap, long long n,
+                                        void* stream);
+// p = z + *beta p (two roundings) when *step is set, which it then clears;
+// nothing when it is 0. z and p f32 (n,), p updated in place.
+cudaError_t tpucg_p_update_f32(const void* z, void* p, const void* beta, void* step,
+                               void* scratch, long long n, void* stream);
 
-// Length of the `partials` scratch for an n-element reduction.
+// Partials of an n-element reduction (the scratch holds one int more).
 int tpucg_reduce_blocks(long long n);
 
 // K4: one whole CG / PCG solve of A[n, n] x = b in one cooperative launch,

@@ -14,14 +14,18 @@ enqueues laps in chunks of 1, 2, 4, ... up to ``CHUNK_MAX`` and reads the 0-d
 ``active`` flag once per chunk, so a 4-lap solve costs 3 host reads. Every
 loop scalar stays a 0-d device tensor. A lap enqueued after the solve has
 stopped changes nothing (k, x, r, p, rsold, rslast, done): on the cuda
-backend its kernels read ``active`` on the device and return at once, and on
-the torch backend ``torch.where`` keeps the old values. Lap counts and
-results therefore do not depend on the chunk size.
+backend its kernels read ``active`` on the device and return at once (p's
+update reads the ``step`` the last running lap's tail set and cleared),
+and on the torch backend ``torch.where`` keeps the old values. Lap counts
+and results therefore do not depend on the chunk size.
 
 The lap's matvec is the operator's kernel: K1 for a ``DenseOperator``, K6
 for a ``DiaOperator``, K8 for a ``PoissonOperator``, K13 for a
 ``WellOperator`` (and a plain torch product for ``BsrOperator`` and
-``EllOperator``, as in tpucg); K2 and K3 do the rest.
+``EllOperator``, as in tpucg); K3, K2 and p's update do the rest, with the
+lap's scalar work (alpha, the stop test, beta, rsold, rslast, the history,
+done, k, active) in K3's and K2's last blocks: four launches a lap without
+a preconditioner, and no torch op.
 A plain f32 solve that ``_fused_eligible`` admits on the cuda backend skips
 the lap loop: a whole-solve kernel runs it in one launch, K4 (dense), K10
 (Poisson stencil) or K11 (DIA). ``cg_solve_batch`` solves B independent
@@ -41,11 +45,20 @@ import torch.nn.functional as F
 from tpucg_torch.config import CGConfig
 from tpucg_torch.io.partitioner import round_up
 from tpucg_torch.kernels.blas1 import (
+    CudaLapTail,
+    LapTail,
+    alpha_torch,
+    dot_alpha_launch,
     dot_cuda,
     dot_launch,
+    dot_tail_launch,
     dot_torch,
     fused_update_launch,
+    fused_update_tail_launch,
     fused_update_torch,
+    lap_tail_torch,
+    p_update_launch,
+    p_update_torch,
     scratch_for,
 )
 from tpucg_torch.kernels.dispatch import canonical_device, cuda_stream, resolve_backend
@@ -195,18 +208,19 @@ def _require_backend(op: LinearOperator, backend: str) -> None:
 
 
 def lap_ops(op: LinearOperator, backend: str):
-    """The (matvec, dot, update) closures that ``cg_loop`` runs for ``op`` on
-    ``backend``. Each takes the lap's ``active`` flag last: a 0-d int32
-    tensor, or None (always run) in ``init_state``. The operator's own
-    backend must be ``backend``: one choice runs the whole lap, and a
-    mismatch raises instead of mixing plain and hand-written kernels.
+    """The ``(matvec, dot, lap)`` that ``cg_loop`` runs for ``op`` on
+    ``backend``: ``matvec(x, act)`` and ``dot(u, v, act)`` take the lap's
+    ``active`` flag last (a 0-d int32 tensor, or None in ``init_state`` and
+    the power method: always run), and ``lap`` does the rest of a lap
+    (``TorchLap`` or the CUDA lap). The operator's own backend must be
+    ``backend``: one choice runs the whole lap, and a mismatch raises
+    instead of mixing plain and hand-written kernels.
 
     On ``"cuda"`` the matvec is the operator's kernel (``op.launcher()``:
-    K1, K6 or K8) and the kernels read the flag on the device and return at
-    once when it is 0, leaving their outputs undefined (every consumer in
-    ``cg_loop`` is masked by the flag), and the update writes x and r in
-    place, so a frozen lap costs launches and nothing else. On ``"torch"``
-    the plain versions run and the update keeps x and r with ``torch.where``.
+    K1, K6, K8 or K13) and the lap's kernels read the flag on the device and
+    return at once when it is 0, so a frozen lap costs launches and nothing
+    else. On ``"torch"`` the plain versions run and ``torch.where`` keeps
+    what a frozen lap would change.
     """
     _require_backend(op, backend)
     if backend == "cuda":
@@ -219,18 +233,62 @@ def lap_ops(op: LinearOperator, backend: str):
         xn, rn, rr = fused_update_torch(x, r, p, ap, alpha)
         keep = act.bool()
         return torch.where(keep, xn, x), torch.where(keep, rn, r), rr
-    return op.matvec, dot, update
+    return op.matvec, dot, TorchLap(dot, update)
+
+
+class TorchLap:
+    """A lap after its matvec with the scalar work in plain torch ops, over
+    ``dot(u, v, act)`` and ``update(x, r, p, ap, alpha, act) -> (x, r,
+    r'.r')``: the plain route's, and the sharded routes' (their dot and
+    update sum over the ranks). alpha is ``alpha_torch``, the tail
+    ``lap_tail_torch`` (after the update without a preconditioner, else
+    after r.z) and p's update ``p_update_torch``; the loop's scalars are the
+    ``LapTail`` ``t``, rebound a lap."""
+
+    def __init__(self, dot: Callable, update: Callable):
+        self.dot, self._update = dot, update
+
+    def start(self, state: _State, tol2, maxiter: int, safe_alpha: bool,
+              preconditioned: bool) -> None:
+        self.tol2, self.maxiter, self.safe_alpha = tol2, maxiter, safe_alpha
+        self.preconditioned = preconditioned
+        self.t = LapTail(k=state.k, rsold=state.rsold, rslast=state.rslast, done=state.done,
+                         active=~state.done & (state.k < maxiter), hist=state.hist)
+
+    def flag(self) -> torch.Tensor:
+        return self.t.active.to(torch.int32)
+
+    def alpha(self, p, ap, act):
+        return alpha_torch(self.dot(p, ap, act), self.t.rsold, self.safe_alpha)
+
+    def update(self, x, r, p, ap, alpha, act):
+        x, r, self.rr = self._update(x, r, p, ap, alpha, act)
+        if not self.preconditioned:
+            self.t = lap_tail_torch(self.t, self.rr, self.rr, self.tol2, self.maxiter)
+        return x, r
+
+    def tail(self, r, z, act) -> None:
+        self.t = lap_tail_torch(self.t, self.rr, self.dot(r, z, act), self.tol2, self.maxiter)
+
+    def p_update(self, z, p):
+        return p_update_torch(z, p, self.t.beta, self.t.step)
+
+    def running(self) -> bool:
+        return bool(self.t.active)
+
+    def finish(self) -> LapTail:
+        return self.t
 
 
 def _cuda_lap_ops(op: LinearOperator):
-    """The operator's matvec kernel (K1, K6 or K8) and K2/K3 for
+    """The operator's matvec kernel (K1, K6, K8 or K13), K3 and the lap for
     ``cg_loop``, with the per-call host work moved out of the lap: the
     operator is checked (``op.launcher()``), the stream taken and every
     buffer allocated once, here, and the laps call the launch cores. A lap's
-    outputs (Ap, the dots, beta) live in these buffers and the next lap
-    overwrites them; every consumer in ``cg_loop`` reads them in the same
-    lap, in stream order. Calls without a flag (``init_state``) go through
-    the checked wrappers and get fresh outputs, which the state keeps.
+    outputs (Ap, the dots) live in these buffers and the next lap overwrites
+    them; every consumer reads them in the same lap, in stream order. Calls
+    without a flag (``init_state``, the power method) go through the
+    checked wrappers and get fresh outputs, which the state keeps.
     ``cg_loop`` checks its vectors once; the matvec checks x's length every
     lap, so no launch reads past the operator.
     """
@@ -238,9 +296,6 @@ def _cuda_lap_ops(op: LinearOperator):
     n, dev = op.padded_n, op.device
     y = torch.empty(n, dtype=torch.float32, device=dev)
     stream = cuda_stream(y)
-    d = torch.empty((), dtype=torch.float32, device=dev)
-    beta = torch.empty((), dtype=torch.float32, device=dev)
-    scratch = scratch_for(y)  # K2 and K3 run one after the other on `stream`
 
     def matvec(x, act):
         if act is None:
@@ -253,13 +308,74 @@ def _cuda_lap_ops(op: LinearOperator):
     def dot(u, v, act):
         if act is None:
             return dot_cuda(u, v)
-        dot_launch(u, v, scratch, d, act.data_ptr(), stream)
-        return d
+        dot_launch(u, v, lap.scratch, lap.d, act.data_ptr(), stream)
+        return lap.d
 
-    def update(x, r, p, ap, alpha, act):
-        fused_update_launch(x, r, p, ap, alpha, x, r, scratch, beta, act.data_ptr(), stream)
-        return x, r, beta
-    return matvec, dot, update
+    lap = _CudaLap(y, stream)
+    return matvec, dot, lap
+
+
+class _CudaLap:
+    """The lap after its matvec on the card, four launches and no torch op
+    without a preconditioner: K3 in alpha mode (p.Ap, alpha), K2 with the
+    lap's tail (in place on x and r) and p's update (in place on the loop's
+    p). With one, K2 stores r'.r', the preconditioner runs, and K3 in tail
+    mode takes r'.z and the tail. The loop's scalars live in ``CudaLapTail``
+    buffers owned here, with the one scratch (partials and ticket, zeroed
+    once) that these launches share in stream order; ``finish`` hands out
+    copies, so what a state keeps is never a buffer a later solve
+    overwrites."""
+
+    def __init__(self, like: torch.Tensor, stream: int):
+        self.stream = stream
+        self.scratch = scratch_for(like)
+        self.d, self.alpha_out = (torch.empty((), dtype=torch.float32, device=like.device)
+                                  for _ in range(2))
+        self.s = CudaLapTail(like.device)
+
+    def start(self, state: _State, tol2, maxiter: int, safe_alpha: bool,
+              preconditioned: bool) -> None:
+        self.safe_alpha, self.preconditioned = safe_alpha, preconditioned
+        hist = state.hist
+        if hist is not None:
+            if hist.dtype != torch.float32 or hist.dim() != 1 or hist.device != tol2.device:
+                raise ValueError(f"a residual history the kernels write must be a 1-D f32 "
+                                 f"vector on {tol2.device}, got {hist.dtype} "
+                                 f"{tuple(hist.shape)} on {hist.device}")
+            hist = hist.clone(memory_format=torch.contiguous_format)
+        self.s.load(state.k, state.rsold, state.rslast, state.done, tol2, maxiter, hist)
+
+    def flag(self) -> torch.Tensor:
+        return self.s.active
+
+    def alpha(self, p, ap, act):
+        dot_alpha_launch(p, ap, self.scratch, self.d, self.s.rsold, self.alpha_out,
+                         self.safe_alpha, act.data_ptr(), self.stream)
+        return self.alpha_out
+
+    def update(self, x, r, p, ap, alpha, act):
+        if self.preconditioned:
+            fused_update_launch(x, r, p, ap, alpha, x, r, self.scratch, self.s.rr,
+                                act.data_ptr(), self.stream)
+        else:
+            fused_update_tail_launch(x, r, p, ap, alpha, x, r, self.scratch, self.s.rr,
+                                     self.s.address, self.stream)
+        return x, r
+
+    def tail(self, r, z, act) -> None:
+        dot_tail_launch(r, z, self.scratch, self.d, self.s.address, self.stream)
+
+    def p_update(self, z, p):
+        p_update_launch(z, p, self.s.beta, self.s.step, self.scratch, self.stream)
+        return p
+
+    def running(self) -> bool:
+        return bool(self.s.active)
+
+    def finish(self) -> LapTail:
+        s = self.s
+        return LapTail(k=s.k.clone(), rsold=s.rsold.clone(), rslast=s.rslast.clone(),
+                       done=s.done.clone(), active=s.active.bool(), hist=s.hist)
 
 
 def _check_state(x, r, p, rsold, rslast) -> None:
@@ -282,7 +398,7 @@ def _check_state(x, r, p, rsold, rslast) -> None:
 def cg_loop(
     matvec: Callable,
     dot: Callable,
-    update: Callable,
+    lap,
     b: Optional[torch.Tensor],
     x0: Optional[torch.Tensor],
     *,
@@ -298,12 +414,14 @@ def cg_loop(
 ) -> _State:
     """Run CG laps until ``sqrt(r.r) < tol`` or k == ``maxiter``.
 
-    ``matvec``/``dot``/``update`` come from ``lap_ops``. ``state`` resumes a
-    previous run (``maxiter`` bounds the cumulative k); its tensors are not
-    modified. ``precond`` (``precond(r, act)`` gives z = M^-1 r, ``act`` the
-    lap's flag as ``matvec`` takes it) switches to preconditioned CG with the
-    same stopping test on the true residual. ``chunk`` fixes the laps per
-    host read (default: 1, 2, 4, ... up to ``CHUNK_MAX``).
+    ``matvec``/``dot``/``lap`` come from ``lap_ops`` (or a sharded route).
+    A lap: Ap = matvec(p); alpha from p.Ap; x and r updated, r'.r'; with
+    ``precond`` (``precond(r, act)`` gives z = M^-1 r, ``act`` the lap's
+    flag as ``matvec`` takes it) z and r'.z; the tail (stop, beta, rsold,
+    rslast, hist, done, k, active); then p = z + beta p where the lap
+    stepped. ``state`` resumes a previous run (``maxiter`` bounds the
+    cumulative k); its tensors are not modified. ``chunk`` fixes the laps
+    per host read (default: 1, 2, 4, ... up to ``CHUNK_MAX``).
     """
     if replace_every or check_true_every:
         raise NotImplementedError(
@@ -314,43 +432,32 @@ def cg_loop(
         raise ValueError("chunk must be >= 1")
     if state is None:
         state = init_state(matvec, dot, b, x0, tol, precond=precond, hist_len=hist_len)
-    k, _, _, p, rsold, rslast, done, hist = state
-    # The cuda update writes x and r in place: the loop owns its copies.
-    x = state.x.clone(memory_format=torch.contiguous_format)
-    r = state.r.clone(memory_format=torch.contiguous_format)
-    p = p.contiguous()
-    _check_state(x, r, p, rsold, rslast)
+    # The cuda lap updates x, r and p in place: the loop owns its copies.
+    x, r, p = (v.clone(memory_format=torch.contiguous_format)
+               for v in (state.x, state.r, state.p))
+    _check_state(x, r, p, state.rsold, state.rslast)
     tol2 = torch.tensor(tol, dtype=r.dtype, device=r.device) ** 2
-    pos = None if hist is None else torch.arange(hist.numel(), device=r.device)
-    active = ~done & (k < maxiter)
+    lap.start(state, tol2, maxiter, safe_alpha, precond is not None)
     laps = 1 if chunk is None else chunk
     while True:
         for _ in range(laps):
-            act = active.to(torch.int32)
+            act = lap.flag()
             ap = matvec(p, act)
-            pap = dot(p, ap, act)
-            alpha = torch.where(pap != 0, rsold / pap, 0.0) if safe_alpha else rsold / pap
-            x, r, rr = update(x, r, p, ap, alpha, act)
-            stop = rr < tol2
+            alpha = lap.alpha(p, ap, act)
+            x, r = lap.update(x, r, p, ap, alpha, act)  # and the tail, unpreconditioned
             if precond is None:
-                z, rs_new = r, rr
+                z = r
             else:
                 z = precond(r, act)
-                rs_new = dot(r, z, act)
-            step = active & ~stop
-            p = torch.where(step, z + (rs_new / rsold) * p, p)
-            rsold = torch.where(step, rs_new, rsold)
-            rslast = torch.where(active, rr, rslast)
-            if hist is not None:
-                hist = torch.where(active & (pos == k + 1), rr.sqrt(), hist)
-            done = done | (active & stop)
-            k = k + act
-            active = ~done & (k < maxiter)
-        if not bool(active):  # the one host read of the chunk
+                lap.tail(r, z, act)
+            p = lap.p_update(z, p)
+        if not lap.running():  # the one host read of the chunk
             break
         if chunk is None:
             laps = min(2 * laps, CHUNK_MAX)
-    return _State(k=k, x=x, r=r, p=p, rsold=rsold, rslast=rslast, done=done, hist=hist)
+    t = lap.finish()
+    return _State(k=t.k, x=x, r=r, p=p, rsold=t.rsold, rslast=t.rslast, done=t.done,
+                  hist=t.hist)
 
 
 class _BatchState(NamedTuple):
@@ -608,10 +715,10 @@ def cg_solve(
         else:
             x, k, rr = fused_dia_cg_solve_cuda(op.data, op.offsets, b, x0, **kw)
         return _fused_result(x[:n], k, rr, tol)
-    matvec, dot, update = lap_ops(op, backend)
+    matvec, dot, lap = lap_ops(op, backend)
     precond = make_precond(config.precondition, minv, matvec, dot, b, config.poly_degree)
     s = cg_loop(
-        matvec, dot, update, b, x0,
+        matvec, dot, lap, b, x0,
         tol=tol, maxiter=maxiter, safe_alpha=bool(config.safe_alpha), precond=precond,
         hist_len=maxiter if record_residuals else None,
         chunk=chunk,

@@ -57,9 +57,9 @@ def fused_cg_solve_torch(A, b, x0, *, tol, maxiter, safe_alpha=True, preconditio
 
 def _plain_solve(op, b, x0, minv, *, tol, maxiter, safe_alpha, precondition, poly_degree):
     """``cg_loop`` on ``op``'s plain lap kernels: the plain K4/K10/K11."""
-    matvec, dot, update = lap_ops(op, "torch")
+    matvec, dot, lap = lap_ops(op, "torch")
     precond = make_precond(precondition, minv, matvec, dot, b, poly_degree)
-    s = cg_loop(matvec, dot, update, b, x0, tol=tol, maxiter=maxiter,
+    s = cg_loop(matvec, dot, lap, b, x0, tol=tol, maxiter=maxiter,
                 safe_alpha=safe_alpha, precond=precond)
     return s.x, s.k, s.rslast
 

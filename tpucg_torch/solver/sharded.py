@@ -73,7 +73,7 @@ from tpucg_torch.kernels.stencil import (
     poisson3d_slab_launch,
     poisson3d_slab_torch,
 )
-from tpucg_torch.solver.cg import CGResult, _configure, cg_loop, make_precond
+from tpucg_torch.solver.cg import CGResult, TorchLap, _configure, cg_loop, make_precond
 from tpucg_torch.solver.operators import (
     BsrOperator,
     DiaOperator,
@@ -109,14 +109,16 @@ def _check_supported(config: CGConfig, interval=None, two_level=None) -> None:
 
 
 def _reductions(mesh: Mesh, backend: str, like: torch.Tensor):
-    """``dot`` and ``update`` for ``cg_loop``: K3 or K2 on this rank's block
-    (their plain versions on the torch backend), then ``Mesh.rank_sum``. On
-    cuda the lap's calls write the partials into buffers owned here, and K2
-    updates x and r in place, as ``cg._cuda_lap_ops`` does."""
+    """``dot`` and ``update`` for ``cg_loop``'s ``TorchLap``: K3 or K2 on
+    this rank's block (their plain versions on the torch backend), one
+    launch each, then ``Mesh.rank_sum``; the lap's scalars stay in torch ops
+    on the summed values. On cuda the lap's calls write their sums into
+    buffers owned here, and K2 updates x and r in place, as the serial cuda
+    lap does."""
     if backend == "cuda":
         stream = cuda_stream(like)
         d = torch.empty((), dtype=_F32, device=like.device)
-        beta = torch.empty((), dtype=_F32, device=like.device)
+        rr = torch.empty((), dtype=_F32, device=like.device)
         scratch = scratch_for(like)
 
         def dot(u, v, act):
@@ -126,8 +128,8 @@ def _reductions(mesh: Mesh, backend: str, like: torch.Tensor):
             return mesh.rank_sum(d)
 
         def update(x, r, p, ap, alpha, act):
-            fused_update_launch(x, r, p, ap, alpha, x, r, scratch, beta, act.data_ptr(), stream)
-            return x, r, mesh.rank_sum(beta)
+            fused_update_launch(x, r, p, ap, alpha, x, r, scratch, rr, act.data_ptr(), stream)
+            return x, r, mesh.rank_sum(rr)
         return dot, update
 
     def dot(u, v, act):
@@ -315,7 +317,8 @@ def _solve(matvec, mesh: Mesh, backend: str, b_blk, x0_blk, diag, config: CGConf
     if config.precondition == "jacobi":
         minv = torch.where(diag != 0, 1.0 / diag, 1.0)
     precond = make_precond(config.precondition, minv, matvec, dot, b_blk, config.poly_degree)
-    s = cg_loop(matvec, dot, update, b_blk, x0_blk, tol=float(config.tol), maxiter=maxiter,
+    s = cg_loop(matvec, dot, TorchLap(dot, update), b_blk, x0_blk, tol=float(config.tol),
+                maxiter=maxiter,
                 safe_alpha=bool(config.safe_alpha), precond=precond,
                 hist_len=maxiter if record_residuals else None, chunk=chunk)
     x_full = torch.empty(b_blk.shape[0] * mesh.size, dtype=_F32, device=b_blk.device)
