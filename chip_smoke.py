@@ -150,7 +150,14 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    kernel over 8192 rows) is timed cold, rotating over 8 input sets (96 MB),
    and its rate must stay under the HBM peak; on one set it stays in L2 and
    is printed as the L2-resident rate. Then the script's two XLA baselines
-   as library rates.
+   as library rates, the plans of P1/P7's and P5's kernels
+   (``lane_gather_plan``, ``dynslice_plan``), P1/P7's kernel at 13 row
+   counts from 1 to 65,536 (random lanes, and every lane 0 or 127) and
+   P5's at 1 ... 1,024 windows (overlapping, the table's last window),
+   each bit-identical to its plain version and to its repeat
+   (``bench.probe_gather.edge_checks``), and one launch's floor: a
+   one-element ``fill_`` queued the same way, beside each launch-bound
+   probe's time over it.
 
 The line before last is a JSON object of the kernels (K1-K14 and P1-P7:
 launches on the main path, error against the plain version, times, the
@@ -1735,6 +1742,14 @@ def main() -> int:
         for label, secs, elems, nbytes in pg.baselines(pt, pa):
             print(f"library rate, {label}: {secs * 1e6:.3f} us, {elems / secs / 1e9:.2f} "
                   f"Gelem/s, {nbytes / secs / 1e9:.1f} GB/s {tag}")
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        for line in pg.plan_lines(sms) + pg.edge_checks(dev):
+            print(f"{line} {tag}")
+        floor_s = pg.launch_floor(dev)
+        print(f"one launch's floor (a one-element fill_, queued): {floor_s * 1e6:.3f} us; "
+              "P1-P6 over it: " + ", ".join(
+                  f"{pid} +{(times[pid][0] - floor_s) * 1e6:.3f}"
+                  for pid in ("P1", "P2", "P3", "P4", "P5", "P6")) + f" us {tag}")
         del pt, pa
 
     # (id, name, key of its launch count, source, the TPU kernel it replaces)

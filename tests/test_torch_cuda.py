@@ -55,6 +55,7 @@ from tpucg_torch.kernels.blas1 import (
     p_update_torch,
     scratch_for,
 )
+from tpucg_torch.bench.probe_gather import EDGE_NWS, EDGE_ROWS, edge_windows
 from tpucg_torch.bench.timing import trace_calls
 from tpucg_torch.kernels.dispatch import cuda_stream
 from tpucg_torch.kernels.fused import (
@@ -1392,3 +1393,81 @@ def test_probe_driver_on_the_card(cuda_device, capsys):
     for p in drv.PROBES:
         assert f"\n{p.pid} {p.name}" in out
     assert out.count("library rate,") == 2 and "ABOVE PEAK" not in out
+
+
+# ---- P1/P7 a warp a row, 16 bytes a thread; P5 with every window in flight --------
+
+def _lane_case(dev, rows, fill):
+    g = torch.Generator(device=dev).manual_seed(rows)
+    v = torch.randn(rows, 128, generator=g, device=dev)
+    if fill is None:
+        idx = torch.randint(0, 128, (rows, 128), generator=g, device=dev, dtype=torch.int32)
+    else:  # every lane of a warp on one bank
+        idx = torch.full((rows, 128), fill, dtype=torch.int32, device=dev)
+    return v, idx
+
+
+@pytest.mark.parametrize("fill", [None, 0, 127])
+@pytest.mark.parametrize("rows", EDGE_ROWS)
+def test_lane_gather_kernel_equals_plain_at_every_row_count(cuda_device, rows, fill):
+    from tpucg_torch.kernels import probe_gather as kp
+
+    v, idx = _lane_case(cuda_device, rows, fill)
+    before = (kp.lane_gather_cuda.launches, kp.lane_gather_torch.launches)
+    got = kp.lane_gather(v, idx)
+    torch.cuda.synchronize()
+    assert (kp.lane_gather_cuda.launches, kp.lane_gather_torch.launches) == (
+        before[0] + 1, before[1])
+    assert torch.equal(got, kp.lane_gather_torch(v, idx))
+    assert torch.equal(got, kp.lane_gather_cuda(v, idx))
+
+
+@pytest.mark.parametrize("rows", [3, 8193, 65536])
+def test_lane_gather_forced_plans_equal_plain(cuda_device, rows):
+    # Every block width, a ragged last block among them.
+    from tpucg_torch.kernels import probe_gather as kp
+
+    v, idx = _lane_case(cuda_device, rows, None)
+    want = kp.lane_gather_torch(v, idx)
+    for warps in (1, 2, 4, 8, 16):
+        plan = kp.LaneGatherPlan(rows, warps)
+        got = kp.lane_gather_cuda(v, idx, _plan=plan)
+        assert torch.equal(got, want), str(plan)
+        assert torch.equal(got, kp.lane_gather_cuda(v, idx, _plan=plan)), str(plan)
+
+
+def test_lane_gather_library_refuses_a_block_too_wide(cuda_device):
+    from tpucg_torch.kernels import probe_gather as kp
+
+    v, idx = _lane_case(cuda_device, 64, None)
+    with pytest.raises(RuntimeError):
+        kp.lane_gather_cuda(v, idx, _plan=kp.LaneGatherPlan(64, kp.LG_MAX_WARPS + 1))
+
+
+@pytest.mark.parametrize("nw", EDGE_NWS)
+def test_dynslice_kernel_equals_plain_bit_for_bit(cuda_device, nw):
+    from tpucg_torch.kernels import probe_gather as kp
+
+    g = torch.Generator(device=cuda_device).manual_seed(nw)
+    x2 = torch.randn(2048, 128, generator=g, device=cuda_device)
+    w = torch.as_tensor(edge_windows(nw, 2048, nw), device=cuda_device)
+    got = kp.dynslice_cuda(w, x2)
+    assert torch.equal(got, kp.dynslice_torch(w, x2))
+    assert torch.equal(got, kp.dynslice_cuda(w, x2))
+    before = (kp.dynslice_cuda.launches, kp.dynslice_torch.launches)
+    assert torch.equal(kp.dynslice(w, x2), got)  # through the dispatcher
+    assert (kp.dynslice_cuda.launches, kp.dynslice_torch.launches) == (before[0] + 1, before[1])
+
+
+def test_staged_probes_refuse_on_the_card(cuda_device):
+    from tpucg_torch.kernels import probe_gather as kp
+
+    v = torch.zeros(8 * 128 + 4, device=cuda_device)
+    off = v[1:1 + 8 * 128].view(8, 128)  # 4 bytes off a 16-byte boundary
+    idx = torch.zeros(8, 128, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kp.lane_gather_cuda(off, idx)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kp.dynslice_cuda(torch.zeros(2, dtype=torch.int32, device=cuda_device), off)
+    with pytest.raises(ValueError, match="a plan for 9 rows"):
+        kp.lane_gather_cuda(v[:1024].view(8, 128), idx, _plan=kp.lane_gather_plan(9))

@@ -16,6 +16,13 @@ which stays in L2 (its rate may pass the HBM peak). P4's kernel is also
 timed at K13's scale, on tpucg's FEM 300k system (``fem_scale_lines``).
 Then the script's two XLA baselines (:197-205) as library rates:
 ``index_select`` of 2048 rows and ``torch.take`` of 2048 x 128 elements.
+Then the plans of P1/P7 and P5 (``lane_gather_plan``, ``dynslice_plan``),
+P5 at 1,024 windows, P1 and P7 (cold and L2-resident) on 1 … 16 warps a
+block beside a streaming reference at P7's bytes (``torch.add`` of two
+(8192, 128) f32 tensors, cold), the edge shapes of both kernels bit for
+bit (``edge_checks``), and one launch's floor (``launch_floor``: a
+one-element ``fill_`` queued the same way), which no launch-bound probe
+can beat.
 
 Unlike the script, which printed FAIL for a probe Mosaic could not lower
 (:31-33) and ran P7 only after P1 passed (:172), any failure raises and the
@@ -53,6 +60,11 @@ LANE, WINDOW = kp.LANE, kp.WINDOW
 SHIFT = 5         # the script's roll shift
 BASE_ROWS = 2048  # rows of the script's two XLA baselines
 COLD_SETS = 8     # P7 input sets that rotate in its cold timing (12 MB each)
+# The edge shapes of P1/P7's kernel (row counts: one row, a ragged last
+# block, more blocks than fit the card at once) and of P5's (window
+# counts: a ragged stage, a ring from 257).
+EDGE_ROWS = (1, 3, 4, 37, 63, 64, 65, 255, 256, 8191, 8192, 8193, 65536)
+EDGE_NWS = (1, 2, 63, 64, 65, 511, 1024)
 
 
 def row_addresses(rows) -> np.ndarray:
@@ -67,6 +79,18 @@ def window_sum(w: np.ndarray, x2: np.ndarray) -> np.ndarray:
     for k in w:
         acc = acc + x2[k:k + WINDOW]
     return acc
+
+
+def edge_windows(nw: int, xr: int, seed: int) -> np.ndarray:
+    """``nw`` window offsets into a table of ``xr`` rows: random, with
+    overlaps (a repeat, and a neighbour one row on), the first row and the
+    last window the table holds."""
+    rng = np.random.default_rng(seed)
+    w = rng.integers(0, xr - WINDOW + 1, nw).astype(np.int32)
+    w[: min(nw, 3)] = [xr - WINDOW, 0, xr - WINDOW][: min(nw, 3)]
+    if nw > 4:
+        w[4] = w[3] + 1
+    return w
 
 
 @dataclasses.dataclass(frozen=True)
@@ -197,6 +221,11 @@ class Measured:
     l2: Optional[float] = None
 
 
+def cold_sets(p: Probe, t: Dict[str, torch.Tensor]) -> list:
+    """``t`` and ``COLD_SETS - 1`` copies of the probe's inputs."""
+    return [t] + [{k: t[k].clone() for k in p.keys} for _ in range(COLD_SETS - 1)]
+
+
 def measure(p: Probe, t: Dict[str, torch.Tensor]) -> Measured:
     """Time one probe on the card (``device_seconds_per_call``)."""
     args = p.args(t)
@@ -204,7 +233,7 @@ def measure(p: Probe, t: Dict[str, torch.Tensor]) -> Measured:
     if p.pid != "P7":
         return Measured(*(device_seconds_per_call(f) for f in (
             lambda: p.run(*args), lambda: p.plain(*args), lib)), label)
-    sets = [t] + [{k: t[k].clone() for k in p.keys} for _ in range(COLD_SETS - 1)]
+    sets = cold_sets(p, t)
     cold = [rotating([lambda s=s, f=f: f(*p.args(s)) for s in sets])
             for f in (p.run, p.plain)]
     lib = rotating([p.library_call(s)[1] for s in sets])
@@ -316,6 +345,83 @@ def probe_line(p: Probe, m: Measured, nbytes: int, peak: float) -> str:
     return line
 
 
+def launch_floor(dev) -> float:
+    """Device seconds of a launch that moves next to nothing: a one-element
+    ``fill_``, queued behind the spin kernel as the probes are."""
+    one = torch.empty(1, device=dev)
+    return device_seconds_per_call(lambda: one.fill_(1.0))
+
+
+def plan_lines(sms: int) -> list:
+    """The plans of P1/P7's and P5's kernels at the script's shapes."""
+    return [f"plan P1 ({R} rows): {kp.lane_gather_plan(R, sms)}",
+            f"plan P7 ({RB} rows): {kp.lane_gather_plan(RB, sms)}",
+            f"plan P5 ({NW} windows): {kp.dynslice_plan(NW)}"]
+
+
+def edge_checks(dev) -> list:
+    """P1/P7's kernel at ``EDGE_ROWS`` (random lanes, and every lane 0 or
+    127: one bank a warp) and P5's at ``EDGE_NWS``, each held to its plain
+    version and to its repeat bit for bit; raises on a difference. Returns
+    one line for each."""
+    g = torch.Generator(device=dev).manual_seed(15)
+    for rows in EDGE_ROWS:
+        v = torch.randn(rows, LANE, generator=g, device=dev)
+        for fill in (None, 0, LANE - 1):
+            idx = (torch.randint(0, LANE, (rows, LANE), generator=g, device=dev,
+                                 dtype=torch.int32) if fill is None
+                   else torch.full((rows, LANE), fill, dtype=torch.int32, device=dev))
+            got = kp.lane_gather_cuda(v, idx)
+            check_equal(f"P1/P7 at {rows} rows, lanes {fill}", got, kp.lane_gather_torch(v, idx))
+            check_equal(f"P1/P7 at {rows} rows, lanes {fill}: repeat", got,
+                        kp.lane_gather_cuda(v, idx))
+    lines = [f"P1/P7's kernel at {len(EDGE_ROWS)} row counts ({EDGE_ROWS[0]} ... "
+             f"{EDGE_ROWS[-1]}), random lanes and every lane 0 or 127: bit-identical to plain "
+             "and to its repeat"]
+    x2 = torch.randn(2 * XR, LANE, generator=g, device=dev)
+    for nw in EDGE_NWS:
+        w = torch.as_tensor(edge_windows(nw, 2 * XR, nw), device=dev)
+        got = kp.dynslice_cuda(w, x2)
+        check_equal(f"P5 at {nw} windows", got, kp.dynslice_torch(w, x2))
+        check_equal(f"P5 at {nw} windows: repeat", got, kp.dynslice_cuda(w, x2))
+    lines.append(f"P5 at {', '.join(map(str, EDGE_NWS))} windows (overlapping, the last "
+                 "window of the table): bit-identical to plain and to its repeat")
+    return lines
+
+
+def staged_lines(t: Dict[str, torch.Tensor], a: Dict[str, np.ndarray], peak: float) -> list:
+    """P5 at 1,024 windows; P1, P7 cold and P7 on one set (L2-resident) on
+    1, 2, 4, 8 and 16 warps a block; and ``torch.add`` of two (8192, 128)
+    f32 tensors, cold: the library's streaming rate at P7's bytes. µs per
+    launch, queued."""
+    p1, p7 = (next(p for p in PROBES if p.pid == pid) for pid in ("P1", "P7"))
+    w = torch.as_tensor(edge_windows(kp.MAX_WINDOWS, 2 * XR, 0), device=t["x2"].device)
+    x2 = torch.cat([t["x2"], t["x2"]])
+    check_equal("P5 at 1024 windows", kp.dynslice_cuda(w, x2), kp.dynslice_torch(w, x2))
+    s = device_seconds_per_call(lambda: kp.dynslice_cuda(w, x2))
+    lines = [f"P5 at {w.shape[0]} windows ({kp.dynslice_plan(w.shape[0])}): {s * 1e6:.3f} us"]
+    nbytes = p7.least_bytes(a)
+    sets = cold_sets(p7, t)
+    for warps in (1, 2, 4, 8, 16):
+        plans = [kp.LaneGatherPlan(rows, warps) for rows in (R, RB)]
+        p1_at, p7_at = (lambda u, p=p, q=q: kp.lane_gather_cuda(*p.args(u), _plan=q)
+                        for p, q in ((p1, plans[0]), (p7, plans[1])))
+        check_equal(f"P7 on {warps} warps a block", p7_at(t), kp.lane_gather_torch(*p7.args(t)))
+        small = device_seconds_per_call(lambda: p1_at(t))
+        cold = device_seconds_per_call(rotating([lambda u=u: p7_at(u) for u in sets]))
+        l2 = device_seconds_per_call(lambda: p7_at(t))
+        lines.append(f"{warps} warps a block: P1 {small * 1e6:.3f} us; P7 cold "
+                     f"{cold * 1e6:.3f} us, {100 * nbytes / cold / peak:.1f}% of HBM peak; "
+                     f"P7 L2-resident {l2 * 1e6:.3f} us")
+    g = torch.Generator(device=t["Vb"].device).manual_seed(7)
+    pairs = [tuple(torch.randn(RB, LANE, generator=g, device=t["Vb"].device) for _ in range(2))
+             for _ in range(COLD_SETS)]
+    s = device_seconds_per_call(rotating([lambda q=q: torch.add(*q) for q in pairs]))
+    lines.append(f"streaming reference at P7's bytes, torch.add of two ({RB}, {LANE}) f32, cold: "
+                 f"{s * 1e6:.3f} us, {100 * 3 * RB * LANE * 4 / s / peak:.1f}% of HBM peak")
+    return lines
+
+
 def run_cpu() -> None:
     a = probe_inputs(0)
     t = device_inputs(a, "cpu")
@@ -350,6 +456,10 @@ def run_cuda() -> None:
     for label, s, elems, nbytes in baselines(t, a):
         print(f"library rate, {label}: {s * 1e6:.3f} us, {elems / s / 1e9:.2f} Gelem/s, "
               f"{nbytes / s / 1e9:.1f} GB/s")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for line in plan_lines(sms) + staged_lines(t, a, peak) + edge_checks(dev):
+        print(line, flush=True)
+    print(f"launch floor (a one-element fill_, queued): {launch_floor(dev) * 1e6:.3f} us")
     print(card)
 
 

@@ -1,6 +1,6 @@
 """Parent against change for the whole-solve kernels K4, K5, K10, K11 and
-K12, the stencil kernels K8 and K9, K2 and K3, and the lap routes on one
-card: the same cases run from two
+K12, the stencil kernels K8 and K9, K2 and K3, the lap routes and the
+probes P1, P5 and P7 on one card: the same cases run from two
 checkouts of the package in turns (parent, change, change, parent), each
 run in a process of its own that builds that checkout's kernels, and the
 results set side by side.
@@ -44,8 +44,14 @@ calls on one u) and cold (rotating over 8 copies of the operands). Then,
 for every case, whether x (a kernel's y) and the laps of parent and change
 are bit-identical, the largest |x_change - x_parent| over max |x_parent|,
 and whether each checkout repeats itself bit for bit; then the card's name
-and power limit. ``--only`` keeps the cases whose label starts with one of
-its words.
+and power limit. The probe cases, on ``probe_inputs(0)`` through the
+checked wrappers ``lane_gather_cuda`` and ``dynslice_cuda`` (their
+default plans): "P1" (256 x 128), "P5" at the script's 64 windows and at
+1,024 (random offsets into a 4096-row table), "P7 cold" (rotating over
+8 copies of its 12 MB) and "P7 L2" (one set), µs a call queued, their
+outputs compared bit for bit; with any of them, "launch floor": a
+one-element ``fill_`` queued the same way. ``--only`` keeps the cases
+whose label starts with one of its words.
 """
 
 from __future__ import annotations
@@ -142,6 +148,32 @@ def blas_cases(dev) -> dict:
         fused_update_launch(x, r, p, ap, alpha, xo, ro, scratch, rr, None, stream)
         return xo, ro, rr
     return {"K3 n=8192": (k3, lambda: torch.dot(p, ap)), "K2 n=8192": (k2, None)}
+
+
+def probe_cases(dev) -> dict:
+    """P1, P5 and P7's cases: label -> (launch, operand sets); the timed
+    call rotates over the sets, and the output compared is the first
+    set's."""
+    import numpy as np
+    import torch
+
+    from tpucg_torch.bench.probe_gather import device_inputs, probe_inputs
+    from tpucg_torch.kernels.probe_gather import dynslice_cuda, lane_gather_cuda
+
+    t = device_inputs(probe_inputs(0), dev)
+    rng = np.random.default_rng(1024)
+    table = torch.randn(4096, 128, generator=torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    w1024 = torch.as_tensor(rng.integers(0, 4096 - 8 + 1, 1024).astype(np.int32), device=dev)
+    big = (t["Vb"], t["LIb"])
+    return {
+        "P1 256x128": (lane_gather_cuda, [(t["V"], t["LI"])]),
+        "P5 nw=64": (dynslice_cuda, [(t["widx"], t["x2"])]),
+        "P5 nw=1024": (dynslice_cuda, [(w1024, table)]),
+        "P7 cold 8192x128": (lane_gather_cuda,
+                             [big] + [tuple(a.clone() for a in big) for _ in range(COLD_SETS - 1)]),
+        "P7 L2 8192x128": (lane_gather_cuda, [big]),
+    }
 
 
 def banded(nsys: int, n: int, dev):
@@ -363,6 +395,16 @@ def worker(out: str, only: Sequence[str] = ()) -> None:
         results[label] = (None, launch(*args).cpu(), {"warm us": warm * 1e6, "cold us": cold * 1e6})
         del args, copies
         torch.cuda.empty_cache()
+    probes = {label: case for label, case in probe_cases(dev).items() if wanted(label)}
+    for label, (launch, sets) in probes.items():
+        calls = [lambda a=a: launch(*a) for a in sets]
+        call = calls[0] if len(calls) == 1 else _rotating(calls)
+        results[label] = (None, launch(*sets[0]).cpu(),
+                          {"device us": device_seconds_per_call(call) * 1e6})
+    if probes:
+        one = torch.empty(1, device=dev)
+        results["launch floor"] = (None, None, {"device us": device_seconds_per_call(
+            lambda: one.fill_(1.0)) * 1e6})
     torch.save(results, out)
 
 

@@ -8,13 +8,15 @@ solve runs them. All rows are 128 f32 wide and all indices int32:
 
 - P1 ``lane_gather``: ``o[i, j] = v[i, idx[i, j]]`` (a lane gather in
   shared memory); P7 (the script's ``lg_big``) is the same function, and
-  kernel, over 8192 rows.
+  kernel, over 8192 rows: a warp a row, 16-byte loads and stores;
+  ``lane_gather_plan`` picks the warps a block.
 - P2 ``sub_gather``: ``o[i, j] = v[idx[i, j], j]`` (a gather down the
   columns).
 - P3 ``row_gather``: ``o[i, :] = x2[ridx[i], :]`` (whole rows).
 - P4 ``elem_gather``: ``o = xf[eidx]`` (single elements of a flat vector).
 - P5 ``dynslice``: ``o = sum_k x2[w[k]:w[k] + 8, :]``, summed in k order
-  from 0 (windows at offsets known only at run time).
+  from 0 (windows at offsets known only at run time); ``dynslice_plan``
+  says how its windows are brought in by bulk copies before the first add.
 - P6 ``roll_dyn``: ``o[i, j] = x[i, (j - s) mod 128]`` with ``s`` a
   one-element int32 tensor read by the kernel (``pltpu.roll``'s direction,
   which is ``jnp.roll``'s).
@@ -25,9 +27,14 @@ kernel and CPU tensors to the plain version. Every wrapper and plain
 version counts its calls in ``.launches``. Indices are not checked, on
 the card or off it, as the TPU probes did not check them: an index out of
 range reads outside the table on the card and raises in the plain version.
+The tensors read or written 16 bytes at a time or by bulk copies (P1's v,
+idx and o, P3's and P5's x2) must be 16-byte aligned: a misaligned view is
+refused, never copied.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -35,8 +42,19 @@ from tpucg_torch.kernels import _lib
 from tpucg_torch.kernels.dispatch import cuda_stream, resolve_backend
 
 LANE = 128
+ROW_BYTES = 4 * LANE
 WINDOW = 8          # rows of a P5 window
 MAX_WINDOWS = 1024  # P5 windows a launch (csrc/probe.cu kMaxWindows)
+SMS = 132           # an H100 SXM's SMs: the plans' default
+
+# P1/P7 (csrc/probe.cu kLgMaxWarps): a warp a row, at most LG_MAX_WARPS
+# warps a block; the plan takes LG_WARPS, or half as many for small inputs.
+LG_MAX_WARPS = 16
+LG_WARPS = 8
+# P5's (kDs*): windows a stage, stages in flight, their mbarriers.
+DS_STAGE_WINDOWS = 64
+DS_MAX_SLOTS = 4
+DS_BAR_BYTES = 8 * DS_MAX_SLOTS
 
 
 def _check(fn: str, name: str, t: torch.Tensor, dtype: torch.dtype, shape) -> None:
@@ -50,13 +68,27 @@ def _check(fn: str, name: str, t: torch.Tensor, dtype: torch.dtype, shape) -> No
                          f"{t.dtype} {tuple(t.shape)}")
 
 
-def _launch(fn: str, entry: str, tensors, count: int, like: torch.Tensor) -> None:
-    """Launch the C entry point ``entry`` on ``tensors`` (pointers, in order)
-    and ``count`` on the current stream; raise on a refused launch."""
+def _aligned(fn: str, **tensors: torch.Tensor) -> None:
+    """Raise unless every tensor starts on a 16-byte boundary (16-byte
+    accesses and bulk copies touch it)."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{fn}: {name} must be 16-byte aligned, got a view "
+                             f"{t.data_ptr() % 16} bytes off")
+
+
+def _on_card(fn: str, tensors, like: torch.Tensor) -> None:
     if any(t.device != like.device for t in tensors) or like.device.type != "cuda":
         raise ValueError(f"{fn} needs its tensors on one CUDA device, got "
                          f"{[str(t.device) for t in tensors]}")
-    err = getattr(_lib.load(), entry)(*(t.data_ptr() for t in tensors), count, cuda_stream(like))
+
+
+def _launch(fn: str, entry: str, tensors, args, like: torch.Tensor) -> None:
+    """Launch the C entry point ``entry`` on ``tensors`` (pointers, in order)
+    and the integers ``args`` on the current stream; raise on a refused
+    launch."""
+    _on_card(fn, tensors, like)
+    err = getattr(_lib.load(), entry)(*(t.data_ptr() for t in tensors), *args, cuda_stream(like))
     if err:
         _lib.check(err, fn)
 
@@ -70,12 +102,60 @@ def lane_gather_torch(v: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(v, 1, idx.long())
 
 
-def lane_gather_cuda(v: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """P1 on the card: v f32 and idx int32, both (rows, 128)."""
+@dataclasses.dataclass(frozen=True)
+class LaneGatherPlan:
+    """How P1/P7's kernel covers ``rows`` rows: a warp a row, ``warps``
+    warps a block, warp w of block b taking row ``b * warps + w``."""
+
+    rows: int
+    warps: int
+
+    @property
+    def blocks(self) -> int:
+        return -(-self.rows // self.warps)
+
+    def row(self, b: int, w: int) -> int:
+        """The row of warp w of block b (``rows`` or more: none)."""
+        return b * self.warps + w
+
+    @property
+    def smem(self) -> int:
+        """Dynamic shared memory a block: a 512-byte row a warp."""
+        return self.warps * ROW_BYTES
+
+    def __str__(self) -> str:
+        return (f"{self.blocks} blocks of {self.warps} warps, a row a warp, "
+                f"{self.smem} shared bytes a block")
+
+
+def lane_gather_plan(rows: int, sms: int = SMS) -> LaneGatherPlan:
+    """P1/P7's plan: ``LG_WARPS`` warps a block where that gives every one
+    of ``sms`` SMs a block (P7's 8192 rows: 1024 blocks), else half as many
+    (P1's 256 rows: 64 blocks of 4 warps, not 32 of 8)."""
+    if rows < 1 or sms < 1:
+        raise ValueError(f"lane_gather_plan needs rows and sms >= 1, got {rows}, {sms}")
+    return LaneGatherPlan(rows, LG_WARPS if rows >= LG_WARPS * sms else LG_WARPS // 2)
+
+
+def _sms(t: torch.Tensor) -> int:
+    return torch.cuda.get_device_properties(t.device).multi_processor_count
+
+
+def lane_gather_cuda(v: torch.Tensor, idx: torch.Tensor,
+                     _plan: LaneGatherPlan | None = None) -> torch.Tensor:
+    """P1 on the card: v f32 and idx int32, both (rows, 128) and 16-byte
+    aligned, on ``lane_gather_plan`` (``_plan`` forces one)."""
     _check("lane_gather_cuda", "v", v, torch.float32, (None, LANE))
     _check("lane_gather_cuda", "idx", idx, torch.int32, tuple(v.shape))
+    _aligned("lane_gather_cuda", v=v, idx=idx)
+    _on_card("lane_gather_cuda", (v, idx), v)
+    rows = v.shape[0]
+    plan = _plan or lane_gather_plan(rows, _sms(v))
+    if plan.rows != rows:
+        raise ValueError(f"lane_gather_cuda: a plan for {plan.rows} rows, given {rows}")
     o = torch.empty_like(v)
-    _launch("lane_gather_cuda", "tpucg_probe_lane_gather_f32", (v, idx, o), v.shape[0], v)
+    _aligned("lane_gather_cuda", o=o)
+    _launch("lane_gather_cuda", "tpucg_probe_lane_gather_f32", (v, idx, o), (rows, plan.warps), v)
     lane_gather_cuda.launches += 1
     return o
 
@@ -102,7 +182,7 @@ def sub_gather_cuda(v: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     _check("sub_gather_cuda", "v", v, torch.float32, (None, LANE))
     _check("sub_gather_cuda", "idx", idx, torch.int32, (None, LANE))
     o = torch.empty(idx.shape, dtype=torch.float32, device=idx.device)
-    _launch("sub_gather_cuda", "tpucg_probe_sub_gather_f32", (v, idx, o), idx.shape[0], v)
+    _launch("sub_gather_cuda", "tpucg_probe_sub_gather_f32", (v, idx, o), (idx.shape[0],), v)
     sub_gather_cuda.launches += 1
     return o
 
@@ -131,7 +211,7 @@ def row_gather_cuda(x2: torch.Tensor, ridx: torch.Tensor) -> torch.Tensor:
     if x2.data_ptr() % 16:
         raise ValueError("row_gather_cuda: x2 must be 16-byte aligned (float4 row loads)")
     o = torch.empty((ridx.shape[0], LANE), dtype=torch.float32, device=ridx.device)
-    _launch("row_gather_cuda", "tpucg_probe_row_gather_f32", (x2, ridx, o), ridx.shape[0], x2)
+    _launch("row_gather_cuda", "tpucg_probe_row_gather_f32", (x2, ridx, o), (ridx.shape[0],), x2)
     row_gather_cuda.launches += 1
     return o
 
@@ -157,7 +237,8 @@ def elem_gather_cuda(xf: torch.Tensor, eidx: torch.Tensor) -> torch.Tensor:
     _check("elem_gather_cuda", "xf", xf, torch.float32, (None,))
     _check("elem_gather_cuda", "eidx", eidx, torch.int32, (None,) * eidx.dim())
     o = torch.empty(eidx.shape, dtype=torch.float32, device=eidx.device)
-    _launch("elem_gather_cuda", "tpucg_probe_elem_gather_f32", (xf, eidx, o), eidx.numel(), xf)
+    _launch("elem_gather_cuda", "tpucg_probe_elem_gather_f32", (xf, eidx, o), (eidx.numel(),),
+            xf)
     elem_gather_cuda.launches += 1
     return o
 
@@ -185,15 +266,53 @@ def dynslice_torch(w: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+@dataclasses.dataclass(frozen=True)
+class DynslicePlan:
+    """How P5's kernel brings in ``nw`` windows: 8 blocks, block r summing
+    output row r, one bulk copy a window into shared memory, ``stages``
+    stages of ``DS_STAGE_WINDOWS`` windows, ``slots`` of them in flight;
+    the adds run in k order."""
+
+    nw: int
+    stages: int
+    slots: int
+
+    def windows(self, c: int) -> range:
+        """The windows of stage c."""
+        return range(c * DS_STAGE_WINDOWS, min(self.nw, (c + 1) * DS_STAGE_WINDOWS))
+
+    @property
+    def smem(self) -> int:
+        """Dynamic shared memory a block: the slots, the offsets and the
+        mbarriers."""
+        return self.slots * DS_STAGE_WINDOWS * ROW_BYTES + 4 * MAX_WINDOWS + DS_BAR_BYTES
+
+    def __str__(self) -> str:
+        return (f"8 blocks, {self.stages} stages of {DS_STAGE_WINDOWS} windows by bulk copies, "
+                f"{self.slots} in flight, {self.smem} shared bytes a block")
+
+
+def dynslice_plan(nw: int) -> DynslicePlan:
+    """P5's plan for ``1 <= nw <= MAX_WINDOWS`` windows: up to
+    ``DS_MAX_SLOTS`` stages (128 KB) in flight, so 256 windows are
+    requested at once and 1024 walk a ring of 4."""
+    if not 1 <= nw <= MAX_WINDOWS:
+        raise ValueError(f"dynslice_plan takes 1 <= nw <= {MAX_WINDOWS}, got {nw}")
+    stages = -(-nw // DS_STAGE_WINDOWS)
+    return DynslicePlan(nw, stages, min(stages, DS_MAX_SLOTS))
+
+
 def dynslice_cuda(w: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
     """P5 on the card: w int32 (nw,), 1 <= nw <= 1024, x2 f32 (rows, 128)
-    -> (8, 128)."""
+    and 16-byte aligned -> (8, 128)."""
     _check("dynslice_cuda", "w", w, torch.int32, (None,))
     _check("dynslice_cuda", "x2", x2, torch.float32, (None, LANE))
     if w.shape[0] > MAX_WINDOWS:
         raise ValueError(f"dynslice_cuda takes at most {MAX_WINDOWS} windows, got {w.shape[0]}")
+    _aligned("dynslice_cuda", x2=x2)
+    plan = dynslice_plan(w.shape[0])
     o = torch.empty((WINDOW, LANE), dtype=torch.float32, device=x2.device)
-    _launch("dynslice_cuda", "tpucg_probe_dynslice_f32", (w, x2, o), w.shape[0], x2)
+    _launch("dynslice_cuda", "tpucg_probe_dynslice_f32", (w, x2, o), (plan.nw, plan.slots), x2)
     dynslice_cuda.launches += 1
     return o
 
@@ -221,7 +340,7 @@ def roll_dyn_cuda(s: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     _check("roll_dyn_cuda", "s", s, torch.int32, (1,))
     _check("roll_dyn_cuda", "x", x, torch.float32, (None, LANE))
     o = torch.empty_like(x)
-    _launch("roll_dyn_cuda", "tpucg_probe_roll_dyn_f32", (s, x, o), x.shape[0], x)
+    _launch("roll_dyn_cuda", "tpucg_probe_roll_dyn_f32", (s, x, o), (x.shape[0],), x)
     roll_dyn_cuda.launches += 1
     return o
 
