@@ -145,16 +145,21 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    (``probe_inputs(0)``), each driven once through its dispatcher with the
    counts at 0 (its kernel launched once, nothing else), bit-identical to
    its plain version and to its repeat, P6 also at shifts 5, 0, 127, 128,
-   300 and -3 (and equal to ``torch.roll``); µs per launch (``device_timing``)
-   against the bound, the plain version and the library call. P7 (P1's
-   kernel over 8192 rows) is timed cold, rotating over 8 input sets (96 MB),
-   and its rate must stay under the HBM peak; on one set it stays in L2 and
-   is printed as the L2-resident rate. Then the script's two XLA baselines
-   as library rates, the plans of P1/P7's and P5's kernels
-   (``lane_gather_plan``, ``dynslice_plan``), P1/P7's kernel at 13 row
-   counts from 1 to 65,536 (random lanes, and every lane 0 or 127) and
-   P5's at 1 ... 1,024 windows (overlapping, the table's last window),
-   each bit-identical to its plain version and to its repeat
+   300, -3, -2^31 and 2^31 - 1 (and equal to ``torch.roll``); µs per
+   launch (``device_timing``) against the bound, the plain version and the
+   library call. P7 (P1's kernel over 8192 rows) is timed cold, rotating
+   over 8 input sets (96 MB), and its rate must stay under the HBM peak; on
+   one set it stays in L2 and is printed as the L2-resident rate. Then the
+   script's two XLA baselines as library rates, the plans of P1/P7's, P2's
+   (which form: direct at the script's shape and at a 16,384-row v, staged
+   at 8192 idx rows of a 2048-row v), P5's and P6's kernels
+   (``lane_gather_plan``, ``sub_gather_plan``, ``dynslice_plan``), P1/P7's
+   kernel at 13 row counts from 1 to 65,536 (random lanes, and every lane
+   0 or 127), P2's at 9 heights of v on both sides of the staged form's
+   cap x 9 counts of idx rows (random rows, and every row 0 or the last),
+   P5's at 1 ... 1,024 windows (overlapping, the table's last window) and
+   P6's at 8 row counts x 11 shifts (to the ends of int32, also against
+   ``torch.roll``), each bit-identical to its plain version and to its repeat
    (``bench.probe_gather.edge_checks``), and one launch's floor: a
    one-element ``fill_`` queued the same way, beside each launch-bound
    probe's time over it.
@@ -1732,13 +1737,15 @@ def main() -> int:
                     "the HBM peak: a timing fault")
             print(f"{p.pid}: bit-identical to plain and to its repeat (tol 0), one launch; "
                   f"{pg.probe_line(p, m, nbytes, peak)} {tag}")
-        for shift in (5, 0, 127, 128, 300, -3):
+        shifts = (5, 0, 127, 128, 300, -3, -2 ** 31, 2 ** 31 - 1)
+        for shift in shifts:
             s_dev = torch.tensor([shift], dtype=torch.int32, device=dev)
             got = pg.kp.roll_dyn_cuda(s_dev, pt["V"])
             require(torch.equal(got, pg.kp.roll_dyn_torch(s_dev, pt["V"]))
                     and torch.equal(got, torch.roll(pt["V"], shift, 1)),
                     f"P6 at shift {shift}: differs from plain or torch.roll")
-        print("P6 at shifts 5, 0, 127, 128, 300, -3: bit-identical to plain and to torch.roll")
+        print(f"P6 at shifts {', '.join(map(str, shifts))}: bit-identical to plain and to "
+              "torch.roll")
         for label, secs, elems, nbytes in pg.baselines(pt, pa):
             print(f"library rate, {label}: {secs * 1e6:.3f} us, {elems / secs / 1e9:.2f} "
                   f"Gelem/s, {nbytes / secs / 1e9:.1f} GB/s {tag}")

@@ -55,7 +55,15 @@ from tpucg_torch.kernels.blas1 import (
     p_update_torch,
     scratch_for,
 )
-from tpucg_torch.bench.probe_gather import EDGE_NWS, EDGE_ROWS, edge_windows
+from tpucg_torch.bench.probe_gather import (
+    EDGE_NWS,
+    EDGE_ROWS,
+    ROLL_EDGE_ROWS,
+    ROLL_SHIFTS,
+    SG_EDGE_ROWS,
+    SG_EDGE_VROWS,
+    edge_windows,
+)
 from tpucg_torch.bench.timing import trace_calls
 from tpucg_torch.kernels.dispatch import cuda_stream
 from tpucg_torch.kernels.fused import (
@@ -1471,3 +1479,103 @@ def test_staged_probes_refuse_on_the_card(cuda_device):
         kp.dynslice_cuda(torch.zeros(2, dtype=torch.int32, device=cuda_device), off)
     with pytest.raises(ValueError, match="a plan for 9 rows"):
         kp.lane_gather_cuda(v[:1024].view(8, 128), idx, _plan=kp.lane_gather_plan(9))
+
+
+# ---- P2 staged (or direct above its cap); P6 a warp a row, rotated by shuffles ----
+
+
+def _sub_case(dev, v_rows, m, fill, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    v = torch.randn(v_rows, 128, generator=g, device=dev)
+    if fill is None:
+        idx = torch.randint(0, v_rows, (m, 128), generator=g, device=dev, dtype=torch.int32)
+    else:
+        idx = torch.full((m, 128), fill, dtype=torch.int32, device=dev)
+    return v, idx
+
+
+@pytest.mark.parametrize("v_rows", SG_EDGE_VROWS)
+def test_sub_gather_kernel_equals_plain_at_every_shape(cuda_device, v_rows):
+    from tpucg_torch.kernels import probe_gather as kp
+
+    for m in SG_EDGE_ROWS:
+        for fill in (None, 0, v_rows - 1):
+            v, idx = _sub_case(cuda_device, v_rows, m, fill, v_rows + m)
+            before = (kp.sub_gather_cuda.launches, kp.sub_gather_torch.launches)
+            got = kp.sub_gather(v, idx)
+            torch.cuda.synchronize()
+            assert (kp.sub_gather_cuda.launches, kp.sub_gather_torch.launches) == (
+                before[0] + 1, before[1])
+            what = f"{kp.sub_gather_plan(v_rows, m, kp._sms(v))}, rows {fill}"
+            assert torch.equal(got, kp.sub_gather_torch(v, idx)), what
+            assert torch.equal(got, kp.sub_gather_cuda(v, idx)), what
+
+
+@pytest.mark.parametrize("v_rows,m", [(1, 3), (256, 256), (300, 1000), (2048, 8192),
+                                      (7264, 33), (7265, 257)])
+def test_sub_gather_forced_plans_equal_plain(cuda_device, v_rows, m):
+    # Both forms below the cap, staged blocks of 1 ... 8 warps and runs
+    # from one row to all of them; the direct form on 32 ... 256 threads.
+    from tpucg_torch.kernels import probe_gather as kp
+
+    v, idx = _sub_case(cuda_device, v_rows, m, None, m)
+    want = kp.sub_gather_torch(v, idx)
+    plans = [kp.SubGatherPlan(v_rows, m, 0, threads) for threads in (32, 96, 256)]
+    if v_rows <= kp.SG_MAX_ROWS:
+        plans += [kp.SubGatherPlan(v_rows, m, run, threads)
+                  for run in sorted({1, 7, -(-m // 8), m}) for threads in (32, 64, 160, 256)]
+    for plan in plans:
+        got = kp.sub_gather_cuda(v, idx, _plan=plan)
+        assert torch.equal(got, want), str(plan)
+        assert torch.equal(got, kp.sub_gather_cuda(v, idx, _plan=plan)), str(plan)
+
+
+def test_sub_gather_library_refuses_what_it_cannot_run(cuda_device):
+    from tpucg_torch.kernels import probe_gather as kp
+
+    cap = kp.SG_MAX_ROWS
+    v, idx = _sub_case(cuda_device, cap + 1, 4, None, 0)
+    with pytest.raises(RuntimeError):  # a slab above 227 KB
+        kp.sub_gather_cuda(v, idx, _plan=kp.SubGatherPlan(cap + 1, 4, 4, 256))
+    for threads in (0, 48, 288):
+        with pytest.raises(RuntimeError):
+            kp.sub_gather_cuda(v, idx, _plan=kp.SubGatherPlan(cap + 1, 4, 0, threads))
+    with pytest.raises(ValueError, match="a plan for v of"):
+        kp.sub_gather_cuda(v, idx, _plan=kp.sub_gather_plan(cap, 4))
+
+
+@pytest.mark.parametrize("rows", ROLL_EDGE_ROWS)
+def test_roll_dyn_kernel_at_every_row_count_and_shift(cuda_device, rows):
+    from tpucg_torch.kernels import probe_gather as kp
+
+    x = torch.randn(rows, 128, generator=torch.Generator(device=cuda_device).manual_seed(rows),
+                    device=cuda_device)
+    for shift in ROLL_SHIFTS:
+        s = torch.tensor([shift], dtype=torch.int32, device=cuda_device)
+        before = (kp.roll_dyn_cuda.launches, kp.roll_dyn_torch.launches)
+        got = kp.roll_dyn(s, x)
+        torch.cuda.synchronize()
+        assert (kp.roll_dyn_cuda.launches, kp.roll_dyn_torch.launches) == (
+            before[0] + 1, before[1])
+        assert torch.equal(got, kp.roll_dyn_torch(s, x)), shift
+        assert torch.equal(got, torch.roll(x, shift, 1)), shift
+        assert torch.equal(got, kp.roll_dyn_cuda(s, x)), shift
+
+
+def test_sub_gather_and_roll_refuse_on_the_card(cuda_device):
+    from tpucg_torch.kernels import probe_gather as kp
+
+    flat = torch.zeros(8 * 128 + 4, device=cuda_device)
+    off = flat[1:1 + 8 * 128].view(8, 128)  # 4 bytes off a 16-byte boundary
+    iflat = torch.zeros(8 * 128 + 4, dtype=torch.int32, device=cuda_device)
+    ioff = iflat[1:1 + 8 * 128].view(8, 128)
+    v, idx = flat[:1024].view(8, 128), iflat[:1024].view(8, 128)
+    s = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    before = (kp.sub_gather_cuda.launches, kp.roll_dyn_cuda.launches)
+    for call in (lambda: kp.sub_gather_cuda(off, idx), lambda: kp.sub_gather_cuda(v, ioff),
+                 lambda: kp.roll_dyn_cuda(s, off)):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            call()
+    assert (kp.sub_gather_cuda.launches, kp.roll_dyn_cuda.launches) == before
+    with pytest.raises(ValueError, match="one CUDA device"):
+        kp.roll_dyn_cuda(s.cpu(), v)

@@ -16,13 +16,15 @@ which stays in L2 (its rate may pass the HBM peak). P4's kernel is also
 timed at K13's scale, on tpucg's FEM 300k system (``fem_scale_lines``).
 Then the script's two XLA baselines (:197-205) as library rates:
 ``index_select`` of 2048 rows and ``torch.take`` of 2048 x 128 elements.
-Then the plans of P1/P7 and P5 (``lane_gather_plan``, ``dynslice_plan``),
+Then the plans of P1/P7, P2, P5 and P6 (``lane_gather_plan``,
+``sub_gather_plan`` at the script's shape, at 8192 idx rows of a 2048-row
+v and at a tall v, ``dynslice_plan``),
 P5 at 1,024 windows, P1 and P7 (cold and L2-resident) on 1 … 16 warps a
 block beside a streaming reference at P7's bytes (``torch.add`` of two
-(8192, 128) f32 tensors, cold), the edge shapes of both kernels bit for
-bit (``edge_checks``), and one launch's floor (``launch_floor``: a
-one-element ``fill_`` queued the same way), which no launch-bound probe
-can beat.
+(8192, 128) f32 tensors, cold), the edge shapes of P1/P7's, P2's, P5's and
+P6's kernels bit for bit (``edge_checks``), and one launch's floor
+(``launch_floor``: a one-element ``fill_`` queued the same way), which no
+launch-bound probe can beat.
 
 Unlike the script, which printed FAIL for a probe Mosaic could not lower
 (:31-33) and ran P7 only after P1 passed (:172), any failure raises and the
@@ -65,6 +67,15 @@ COLD_SETS = 8     # P7 input sets that rotate in its cold timing (12 MB each)
 # counts: a ragged stage, a ring from 257).
 EDGE_ROWS = (1, 3, 4, 37, 63, 64, 65, 255, 256, 8191, 8192, 8193, 65536)
 EDGE_NWS = (1, 2, 63, 64, 65, 511, 1024)
+# P2's (v's rows on both sides of the staged form's cap, idx's rows: a
+# ragged run, more runs than rows) and P6's (rows; shifts within the row,
+# past it, negative, and the ends of int32).
+SG_EDGE_VROWS = (1, 2, 255, 256, 257, kp.SG_MAX_ROWS - 1, kp.SG_MAX_ROWS, kp.SG_MAX_ROWS + 1,
+                 16384)
+SG_EDGE_ROWS = (1, 3, 31, 32, 33, 255, 256, 257, 8192)
+ROLL_EDGE_ROWS = (1, 3, 31, 32, 33, 256, 8192, 65536)
+ROLL_SHIFTS = (0, 1, 3, 4, 5, 127, 128, 300, -3, -2 ** 31, 2 ** 31 - 1)
+TALL_ROWS = 16384  # v's rows in the direct form's case
 
 
 def row_addresses(rows) -> np.ndarray:
@@ -353,15 +364,24 @@ def launch_floor(dev) -> float:
 
 
 def plan_lines(sms: int) -> list:
-    """The plans of P1/P7's and P5's kernels at the script's shapes."""
+    """The plans of P1/P7's, P2's, P5's and P6's kernels at the script's
+    shapes, and P2's at 8192 idx rows of the script's 2048-row ``x2`` and at
+    a tall v."""
     return [f"plan P1 ({R} rows): {kp.lane_gather_plan(R, sms)}",
             f"plan P7 ({RB} rows): {kp.lane_gather_plan(RB, sms)}",
-            f"plan P5 ({NW} windows): {kp.dynslice_plan(NW)}"]
+            f"plan P2 (v {R} rows, idx {R} rows): {kp.sub_gather_plan(R, R, sms)}",
+            f"plan P2 (v {XR} rows, idx {RB} rows): {kp.sub_gather_plan(XR, RB, sms)}",
+            f"plan P2 (v {TALL_ROWS} rows, idx {R} rows): {kp.sub_gather_plan(TALL_ROWS, R, sms)}",
+            f"plan P5 ({NW} windows): {kp.dynslice_plan(NW)}",
+            f"plan P6 ({R} rows): {kp.lane_gather_plan(R, sms)}"]
 
 
 def edge_checks(dev) -> list:
     """P1/P7's kernel at ``EDGE_ROWS`` (random lanes, and every lane 0 or
-    127: one bank a warp) and P5's at ``EDGE_NWS``, each held to its plain
+    127: one bank a warp), P2's at every pair of ``SG_EDGE_VROWS`` and
+    ``SG_EDGE_ROWS`` (random rows, and every index 0 or v_rows - 1 at 256
+    and 8192 idx rows), P5's at ``EDGE_NWS`` and P6's at ``ROLL_EDGE_ROWS``
+    x ``ROLL_SHIFTS`` (also equal to ``torch.roll``), each held to its plain
     version and to its repeat bit for bit; raises on a difference. Returns
     one line for each."""
     g = torch.Generator(device=dev).manual_seed(15)
@@ -378,6 +398,23 @@ def edge_checks(dev) -> list:
     lines = [f"P1/P7's kernel at {len(EDGE_ROWS)} row counts ({EDGE_ROWS[0]} ... "
              f"{EDGE_ROWS[-1]}), random lanes and every lane 0 or 127: bit-identical to plain "
              "and to its repeat"]
+    forms = set()
+    for vr in SG_EDGE_VROWS:
+        v = torch.randn(vr, LANE, generator=g, device=dev)
+        for m in SG_EDGE_ROWS:
+            for fill in (None, 0, vr - 1) if m in (R, RB) else (None,):
+                idx = (torch.randint(0, vr, (m, LANE), generator=g, device=dev,
+                                     dtype=torch.int32) if fill is None
+                       else torch.full((m, LANE), fill, dtype=torch.int32, device=dev))
+                what = f"P2 at v {vr} rows, idx {m} rows, rows {fill}"
+                got = kp.sub_gather_cuda(v, idx)
+                check_equal(what, got, kp.sub_gather_torch(v, idx))
+                check_equal(f"{what}: repeat", got, kp.sub_gather_cuda(v, idx))
+            forms.add("staged" if kp.sub_gather_plan(vr, m, kp._sms(v)).staged else "direct")
+    lines.append(f"P2 at v {', '.join(map(str, SG_EDGE_VROWS))} rows x idx "
+                 f"{', '.join(map(str, SG_EDGE_ROWS))} rows ({' and '.join(sorted(forms))} "
+                 "forms), random rows and every row 0 or v_rows - 1: bit-identical to plain and "
+                 "to its repeat")
     x2 = torch.randn(2 * XR, LANE, generator=g, device=dev)
     for nw in EDGE_NWS:
         w = torch.as_tensor(edge_windows(nw, 2 * XR, nw), device=dev)
@@ -386,6 +423,18 @@ def edge_checks(dev) -> list:
         check_equal(f"P5 at {nw} windows: repeat", got, kp.dynslice_cuda(w, x2))
     lines.append(f"P5 at {', '.join(map(str, EDGE_NWS))} windows (overlapping, the last "
                  "window of the table): bit-identical to plain and to its repeat")
+    for rows in ROLL_EDGE_ROWS:
+        x = torch.randn(rows, LANE, generator=g, device=dev)
+        for shift in ROLL_SHIFTS:
+            s = torch.tensor([shift], dtype=torch.int32, device=dev)
+            got = kp.roll_dyn_cuda(s, x)
+            check_equal(f"P6 at {rows} rows, shift {shift}", got, kp.roll_dyn_torch(s, x))
+            check_equal(f"P6 at {rows} rows, shift {shift}: torch.roll", got,
+                        torch.roll(x, shift, 1))
+            check_equal(f"P6 at {rows} rows, shift {shift}: repeat", got, kp.roll_dyn_cuda(s, x))
+    lines.append(f"P6 at {', '.join(map(str, ROLL_EDGE_ROWS))} rows x shifts "
+                 f"{', '.join(map(str, ROLL_SHIFTS))}: bit-identical to plain, to torch.roll and "
+                 "to its repeat")
     return lines
 
 

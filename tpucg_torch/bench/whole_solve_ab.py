@@ -1,6 +1,6 @@
 """Parent against change for the whole-solve kernels K4, K5, K10, K11 and
 K12, the stencil kernels K8 and K9, K2 and K3, the lap routes and the
-probes P1, P5 and P7 on one card: the same cases run from two
+probes P1-P7 on one card: the same cases run from two
 checkouts of the package in turns (parent, change, change, parent), each
 run in a process of its own that builds that checkout's kernels, and the
 results set side by side.
@@ -45,12 +45,14 @@ for every case, whether x (a kernel's y) and the laps of parent and change
 are bit-identical, the largest |x_change - x_parent| over max |x_parent|,
 and whether each checkout repeats itself bit for bit; then the card's name
 and power limit. The probe cases, on ``probe_inputs(0)`` through the
-checked wrappers ``lane_gather_cuda`` and ``dynslice_cuda`` (their
-default plans): "P1" (256 x 128), "P5" at the script's 64 windows and at
-1,024 (random offsets into a 4096-row table), "P7 cold" (rotating over
-8 copies of its 12 MB) and "P7 L2" (one set), µs a call queued, their
-outputs compared bit for bit; with any of them, "launch floor": a
-one-element ``fill_`` queued the same way. ``--only`` keeps the cases
+checked wrappers (their default plans): "P1" (256 x 128), "P2" at the
+script's shape, at 8192 idx rows of its 2048-row ``x2`` and at 256 idx
+rows of a 16,384-row v, "P3" and "P4" at the script's shapes, "P5" at the
+script's 64 windows and at 1,024 (random offsets into a 4096-row table),
+"P6" at 256 and 8192 rows (shift 5), "P7 cold" (rotating over 8 copies of
+its 12 MB) and "P7 L2" (one set), µs a call queued, their outputs compared
+bit for bit; with any of them, "launch floor": a one-element ``fill_``
+queued the same way. ``--only`` keeps the cases
 whose label starts with one of its words.
 """
 
@@ -151,14 +153,21 @@ def blas_cases(dev) -> dict:
 
 
 def probe_cases(dev) -> dict:
-    """P1, P5 and P7's cases: label -> (launch, operand sets); the timed
-    call rotates over the sets, and the output compared is the first
+    """P1, P2, P5, P6 and P7's cases: label -> (launch, operand sets); the
+    timed call rotates over the sets, and the output compared is the first
     set's."""
     import numpy as np
     import torch
 
     from tpucg_torch.bench.probe_gather import device_inputs, probe_inputs
-    from tpucg_torch.kernels.probe_gather import dynslice_cuda, lane_gather_cuda
+    from tpucg_torch.kernels.probe_gather import (
+        dynslice_cuda,
+        elem_gather_cuda,
+        lane_gather_cuda,
+        roll_dyn_cuda,
+        row_gather_cuda,
+        sub_gather_cuda,
+    )
 
     t = device_inputs(probe_inputs(0), dev)
     rng = np.random.default_rng(1024)
@@ -166,8 +175,20 @@ def probe_cases(dev) -> dict:
                         device=dev)
     w1024 = torch.as_tensor(rng.integers(0, 4096 - 8 + 1, 1024).astype(np.int32), device=dev)
     big = (t["Vb"], t["LIb"])
+    tall = torch.randn(16384, 128, generator=torch.Generator(device=dev).manual_seed(1),
+                       device=dev)
+
+    def rows_of(hi, m):
+        return torch.as_tensor(rng.integers(0, hi, (m, 128)).astype(np.int32), device=dev)
     return {
         "P1 256x128": (lane_gather_cuda, [(t["V"], t["LI"])]),
+        "P2 256x128": (sub_gather_cuda, [(t["V"], t["SI"])]),
+        "P2 8192x128": (sub_gather_cuda, [(t["x2"], rows_of(2048, 8192))]),
+        "P2 tall": (sub_gather_cuda, [(tall, rows_of(16384, 256))]),
+        "P3 256 rows": (row_gather_cuda, [(t["x2"], t["ridx"])]),
+        "P4 256x128": (elem_gather_cuda, [(t["xf"], t["eidx"])]),
+        "P6 256x128": (roll_dyn_cuda, [(t["shift"], t["V"])]),
+        "P6 8192x128": (roll_dyn_cuda, [(t["shift"], t["Vb"])]),
         "P5 nw=64": (dynslice_cuda, [(t["widx"], t["x2"])]),
         "P5 nw=1024": (dynslice_cuda, [(w1024, table)]),
         "P7 cold 8192x128": (lane_gather_cuda,

@@ -290,15 +290,20 @@ cudaError_t tpucg_well_spmv_bf16(const void* rvals, const void* cols, const void
 // rows of 128, int32 indices, none of them checked. P1 (and P7):
 // o[i, j] = v[i, idx[i, j]], all (rows, 128) and 16-byte aligned, a row a
 // warp in blocks of `warps` warps (1 <= warps <= 16). P2: o[i, j] =
-// v[idx[i, j], j], idx and o (rows, 128). P3: o[i, :] = x2[ridx[i], :], ridx
+// v[idx[i, j], j], v (v_rows, 128), idx and o (rows, 128), all 16-byte
+// aligned; run > 0: the staged form, `run` idx rows a block (v_rows <=
+// 7264), run == 0: the direct form, an element a thread; `threads` a
+// block, a multiple of 32 up to 256. P3: o[i, :] = x2[ridx[i], :], ridx
 // (nrows,), x2 and o 16-byte aligned. P4: o[i] = xf[eidx[i]], i < n. P5: o
 // (8, 128) = sum over k < nw of x2[w[k] + r, l], in k order, 1 <= nw <= 1024,
 // by bulk copies with `slots` stages of 64 windows in flight (1 <= slots <=
 // 4; x2 16-byte aligned). P6: o[i, j] = x[i, (j - *shift) mod 128], shift
-// one int32 in device memory.
+// one int32 in device memory, x and o 16-byte aligned, a row a warp in
+// blocks of `warps` warps (1 <= warps <= 16).
 cudaError_t tpucg_probe_lane_gather_f32(const void* v, const void* idx, void* o, long long rows,
                                         int warps, void* stream);
-cudaError_t tpucg_probe_sub_gather_f32(const void* v, const void* idx, void* o, long long rows,
+cudaError_t tpucg_probe_sub_gather_f32(const void* v, const void* idx, void* o,
+                                       long long v_rows, long long rows, int run, int threads,
                                        void* stream);
 cudaError_t tpucg_probe_row_gather_f32(const void* x2, const void* ridx, void* o,
                                        long long nrows, void* stream);
@@ -307,7 +312,7 @@ cudaError_t tpucg_probe_elem_gather_f32(const void* xf, const void* eidx, void* 
 cudaError_t tpucg_probe_dynslice_f32(const void* w, const void* x2, void* o, int nw, int slots,
                                      void* stream);
 cudaError_t tpucg_probe_roll_dyn_f32(const void* shift, const void* x, void* o, long long rows,
-                                     void* stream);
+                                     int warps, void* stream);
 
 // cudaGetErrorString, for the wrappers' error messages.
 const char* tpucg_error_string(int err);

@@ -4,7 +4,8 @@
 // P1  lane_gather_kernel  replaces benchmarks/probe_gather.py:70 lane_gather
 //                         (lane_gather_kernel :66), and under P7's name
 //                         :184 lg_big (lg_big_kernel :178): one function
-// P2  sub_gather_kernel   replaces probe_gather.py:83 sub_gather (:79)
+// P2  sub_gather_staged_kernel and sub_gather_direct_kernel (one function,
+//                         two forms) replace probe_gather.py:83 sub_gather (:79)
 // P3  row_gather_kernel   replaces probe_gather.py:101 row_gather (:97)
 // P4  elem_gather_kernel  replaces probe_gather.py:117 elem_gather (:113)
 // P5  dynslice_kernel     replaces probe_gather.py:138 dynslice (:129)
@@ -45,12 +46,35 @@
 //   requested at launch) was tried and was slower at P1 and P7: one thread
 //   issues, the block waits on each stage in order, and a bulk copy's round
 //   trip is longer than a load's.
-// P2 sub_gather_kernel: o[i, j] = v[idx[i, j], j]. Each thread reads its
-//   element of v through the read-only path (__ldg: L1, then L2), never
-//   staged in shared memory: the whole 128 KB tile would have to be copied
-//   into every block (above 48 KB only as opt-in dynamic shared memory) to
-//   serve 1 KB of reads a block. Each lane reads its own column, so a warp's
-//   32 reads fall in 32 other rows: 32 sectors a warp.
+// P2 sub_gather: o[i, j] = v[idx[i, j], j], in one of two forms that
+//   sub_gather_plan (kernels/probe_gather.py) picks by the shape. The
+//   parent's kernel took an element a thread and made two dependent L2
+//   round trips before its store: idx, then v at an address that waits on
+//   it; a warp's 32 reads fell in 32 rows.
+//   sub_gather_staged_kernel: a block owns one column group of kSgCols = 8
+//   columns (one 32-byte sector a row of v) over a run of idx rows, so it
+//   needs only its group's slab of v (v_rows x 32 bytes), not the whole
+//   table. It issues the slab's 16-byte cp.async copies into shared memory
+//   and its first kSgIdx int4s of idx into registers together, before it
+//   uses either, so one round trip is left; after one __syncthreads each
+//   thread gathers its 4 elements from the slab and stores one float4. The
+//   gather's 4 scalar shared reads fall on 8 banks a warp (the row's index
+//   mod 4 and the half of the group): up to 4-way conflicts, a few cycles.
+//   What bounds it is the slab: every block reads its v_rows sectors
+//   through L2 and its SM's load pipe, which costs as much as the round
+//   trip it saves unless the block reuses the slab over enough idx rows
+//   (the time grows with blocks x v_rows, bench/p2_forms.py). So the plan
+//   stages only where v_rows <= 0.75 x idx rows (at the script's 256 x 256
+//   the two forms tie), on the runs that balance the slab's reads against
+//   a block's share of idx (bench/p2_forms.py): at 8192 idx rows of a
+//   2048-row v it is 1.5x faster than the direct form.
+//   sub_gather_direct_kernel (every other shape, and any v taller than a
+//   slab can hold, kSgMaxRows = 7,264 rows in 227 KB): the parent's walk,
+//   an element a thread, __ldg(idx) then __ldg(v) through L2. Its two
+//   dependent round trips stay. Four elements a thread (an int4 of idx, 4
+//   gathers in flight, a float4 store) was tried and ran slower than this
+//   walk at the script's shape and at a 16,384-row v (PERF.md, section 6): a
+//   warp's 4 gathers of 32 rows each leave the load pipe one after another.
 // P3 row_gather_kernel: o[i, :] = x2[ridx[i], :]. One warp a row, each lane
 //   moving 16 bytes (float4): one 512-byte read and one 512-byte write a
 //   warp, from L2 or device memory.
@@ -77,10 +101,20 @@
 //   windows at a time, was tried and was slower: 8,192 4-byte loads a block
 //   against 64 bulk copies.
 // P6 roll_dyn_kernel: o[i, j] = x[i, (j - s) mod 128], pltpu.roll's (and
-//   jnp.roll's) direction. The shift s is read from device memory by every
-//   thread (one broadcast load): the probe exists to test a shift known only
-//   at run time, so it is never a host argument. Reads of x are coalesced
-//   up to one rotation within the row.
+//   jnp.roll's) direction. The shift s is read from device memory (one
+//   broadcast load): the probe exists to test a shift known only at run
+//   time, so it is never a host argument. The parent's threads each read s
+//   and then their element of x at an address that waited on it: two
+//   dependent round trips. A roll moves elements only within their row, so
+//   the row is known before s arrives: a warp takes a row, as P1 does, and
+//   each lane issues its 16-byte load of x (__ldcs) and the load of s
+//   together. The row is then rotated in registers: lane l's elements 4l ...
+//   4l + 3 come from x's elements d ... d + 3, d = (4l - s) mod 128, that is
+//   from lanes d / 4 and d / 4 + 1 (mod 32) at an offset d mod 4 that is the
+//   same for the whole warp: 8 __shfl_sync and a select, no shared memory
+//   and so no bank conflict, and one 16-byte store (__stcs). s mod 128 is
+//   taken as ((s % 128) + 128) % 128, which holds for every int32. Its plan
+//   is lane_gather_plan's: 8 warps a block, 4 for small inputs.
 #include "blas.cuh"
 
 #include <cstdint>
@@ -92,14 +126,22 @@ constexpr int kLane = 128;        // elements in a row
 constexpr int kRowBytes = 4 * kLane;
 constexpr int kWindow = 8;        // rows of a P5 window
 constexpr int kMaxWindows = 1024; // P5 windows a launch (shared offsets)
-constexpr int kThreads = 256;     // threads of a P2, P4 and P6 block
+constexpr int kThreads = 256;     // threads of a P3 and P4 block (P3: a warp a row)
 constexpr int kMaxDevices = 16;   // devices whose shared memory limit is raised once
+constexpr int kMaxSmem = 232448;  // shared memory a block may take (227 KB)
 
 constexpr int kLgMaxWarps = 16;                    // P1/P7: warps of a block, a row each
 // P5: a block an output row, a thread a column.
 constexpr int kDsStageWindows = 64;                // windows a stage (32 KB), <= kLane
 constexpr int kDsMaxSlots = 4;                     // stages in flight a block
 constexpr int kDsBarBytes = 8 * kDsMaxSlots;
+// P2: a staged block owns kSgCols columns of v; a block takes up to
+// kSgMaxThreads threads, and a staged thread kSgIdx int4s of idx at once.
+constexpr int kSgCols = 8;
+constexpr int kSgGroups = kLane / kSgCols;
+constexpr int kSgMaxRows = kMaxSmem / (4 * kSgCols);  // rows of v a slab may hold (7,264)
+constexpr int kSgMaxThreads = 256;
+constexpr int kSgIdx = 8;
 
 // Bulk copies global -> shared completed on mbarriers (PTX, sm_90).
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -129,6 +171,14 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned b
       ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
 }
+// Copies 16 bytes from global `src` to shared `dst` (both 16-byte
+// aligned), through L2 only (cp.async.cg, sm_80 and later).
+__device__ __forceinline__ void copy16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+// Waits for every cp.async this thread issued.
+__device__ __forceinline__ void copies_done() { asm volatile("cp.async.wait_all;" ::: "memory"); }
 // Waits until the phase of `bar` with this parity has completed.
 __device__ __forceinline__ void wait_parity(uint64_t* bar, unsigned parity) {
   unsigned done = 0;
@@ -161,13 +211,51 @@ lane_gather_kernel(const float4* __restrict__ v, const int4* __restrict__ idx,
   __stcs(o + at, make_float4(r[l.x], r[l.y], r[l.z], r[l.w]));
 }
 
-__global__ void __launch_bounds__(kThreads)
-sub_gather_kernel(const float* __restrict__ v, const int* __restrict__ idx,
-                  float* __restrict__ o, long long n) {
-  const long long at = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+// P2, staged. Block b takes column group g = b % kSgGroups (columns 8g ...
+// 8g + 7) over `run` idx rows from (b / kSgGroups) * run. Dynamic shared
+// memory: the group's slab of v, row r's 8 columns at 8r. Item it of the
+// block is o's float4 at its row it / 2, columns 8g + 4 (it % 2) ... + 3.
+__global__ void __launch_bounds__(kSgMaxThreads)
+sub_gather_staged_kernel(const float4* __restrict__ v, const int4* __restrict__ idx,
+                         float4* __restrict__ o, int v_rows, long long rows, int run) {
+  extern __shared__ float4 sg_slab[];
+  const int g = blockIdx.x % kSgGroups, t = threadIdx.x, threads = blockDim.x;
+  const long long first = static_cast<long long>(blockIdx.x / kSgGroups) * run;
+  const int items = 2 * static_cast<int>(min(static_cast<long long>(run), rows - first));
+  const auto at = [&](int it) { return (first + (it >> 1)) * (kLane / 4) + 2 * g + (it & 1); };
+  for (int k = t; k < 2 * v_rows; k += threads)
+    copy16(sg_slab + k, v + static_cast<long long>(k >> 1) * (kLane / 4) + 2 * g + (k & 1));
+  const float* slab = reinterpret_cast<const float*>(sg_slab);
+  for (int base = 0; base < items; base += kSgIdx * threads) {  // items > 0: every thread enters
+    int4 l[kSgIdx];
+#pragma unroll
+    for (int j = 0; j < kSgIdx; ++j) {
+      const int it = base + t + j * threads;
+      if (it < items) l[j] = __ldg(idx + at(it));
+    }
+    if (base == 0) {  // the slab and the first indices were in flight together
+      copies_done();
+      __syncthreads();
+    }
+#pragma unroll
+    for (int j = 0; j < kSgIdx; ++j) {
+      const int it = base + t + j * threads;
+      if (it < items) {
+        const float* s = slab + 4 * (it & 1);
+        o[at(it)] = make_float4(s[8 * l[j].x], s[8 * l[j].y + 1], s[8 * l[j].z + 2],
+                                s[8 * l[j].w + 3]);
+      }
+    }
+  }
+}
+
+// P2, direct. Thread `at` takes o's element `at`.
+__global__ void __launch_bounds__(kSgMaxThreads)
+sub_gather_direct_kernel(const float* __restrict__ v, const int* __restrict__ idx,
+                         float* __restrict__ o, long long n) {
+  const long long at = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (at >= n) return;
-  const long long col = at % kLane;
-  o[at] = __ldg(v + static_cast<long long>(__ldg(idx + at)) * kLane + col);
+  o[at] = __ldg(v + static_cast<long long>(__ldg(idx + at)) * kLane + (at & (kLane - 1)));
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -269,15 +357,29 @@ dynslice_kernel(const int* __restrict__ w, const float* __restrict__ x2, float* 
   o[blockIdx.x * kLane + l] = acc;
 }
 
-__global__ void __launch_bounds__(kThreads)
-roll_dyn_kernel(const int* __restrict__ shift, const float* __restrict__ x,
-                float* __restrict__ o, long long n) {
-  const long long at = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (at >= n) return;
-  const long long s = __ldg(shift);
-  const long long j = at % kLane;
-  const long long src = ((j - s) % kLane + kLane) % kLane;
-  o[at] = __ldg(x + (at - j) + src);
+// P6. Warp w of block b takes row b * warps + w, lane l its float4 l.
+__global__ void __launch_bounds__(kLgMaxWarps * 32)
+roll_dyn_kernel(const int* __restrict__ shift, const float4* __restrict__ x,
+                float4* __restrict__ o, long long rows) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long row = static_cast<long long>(blockIdx.x) * (blockDim.x >> 5) + warp;
+  if (row >= rows) return;  // the whole warp: its shuffles below have every lane
+  const long long at = row * (kLane / 4) + lane;
+  const int s = __ldg(shift);
+  const float4 mine = __ldcs(x + at);
+  const int r = ((s % kLane) + kLane) % kLane;
+  const int d = (4 * lane - r) & (kLane - 1);  // the source of element 4 lane
+  const int a = d >> 2, b = d & 3;             // b: the same for every lane
+  const int a1 = (a + 1) & 31;
+  const float4 lo = make_float4(__shfl_sync(~0u, mine.x, a), __shfl_sync(~0u, mine.y, a),
+                                __shfl_sync(~0u, mine.z, a), __shfl_sync(~0u, mine.w, a));
+  const float4 hi = make_float4(__shfl_sync(~0u, mine.x, a1), __shfl_sync(~0u, mine.y, a1),
+                                __shfl_sync(~0u, mine.z, a1), __shfl_sync(~0u, mine.w, a1));
+  const float4 out = b == 0   ? lo
+                     : b == 1 ? make_float4(lo.y, lo.z, lo.w, hi.x)
+                     : b == 2 ? make_float4(lo.z, lo.w, hi.x, hi.y)
+                              : make_float4(lo.w, hi.x, hi.y, hi.z);
+  __stcs(o + at, out);
 }
 
 // Blocks of `per` work items covering n, or 0 when n is out of range.
@@ -315,12 +417,30 @@ extern "C" cudaError_t tpucg_probe_lane_gather_f32(const void* v, const void* id
 }
 
 extern "C" cudaError_t tpucg_probe_sub_gather_f32(const void* v, const void* idx, void* o,
-                                                  long long rows, void* stream) {
-  const unsigned grid = tpucg::blocks_for(rows * kLane, tpucg::kThreads);
-  if (grid == 0) return cudaErrorInvalidValue;
-  tpucg::sub_gather_kernel<<<grid, tpucg::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(v), static_cast<const int*>(idx), static_cast<float*>(o),
-      rows * kLane);
+                                                  long long v_rows, long long rows, int run,
+                                                  int threads, void* stream) {
+  using namespace tpucg;
+  static bool granted[kMaxDevices];
+  if (v_rows < 1 || run < 0 || threads < 32 || threads > kSgMaxThreads || threads % 32)
+    return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (run == 0) {
+    const unsigned grid = blocks_for(rows * kLane, threads);
+    if (grid == 0) return cudaErrorInvalidValue;
+    sub_gather_direct_kernel<<<grid, threads, 0, s>>>(
+        static_cast<const float*>(v), static_cast<const int*>(idx), static_cast<float*>(o),
+        rows * kLane);
+    return cudaGetLastError();
+  }
+  const unsigned runs = blocks_for(rows, run);
+  if (v_rows > kSgMaxRows || runs == 0 || runs > 0x7fffffffu / kSgGroups)
+    return cudaErrorInvalidValue;
+  const cudaError_t err =
+      grant_smem((const void*)sub_gather_staged_kernel, kSgMaxRows * 4 * kSgCols, granted);
+  if (err != cudaSuccess) return err;
+  sub_gather_staged_kernel<<<runs * kSgGroups, threads, static_cast<int>(v_rows) * 4 * kSgCols,
+                             s>>>(static_cast<const float4*>(v), static_cast<const int4*>(idx),
+                                  static_cast<float4*>(o), static_cast<int>(v_rows), rows, run);
   return cudaGetLastError();
 }
 
@@ -358,11 +478,12 @@ extern "C" cudaError_t tpucg_probe_dynslice_f32(const void* w, const void* x2, v
 }
 
 extern "C" cudaError_t tpucg_probe_roll_dyn_f32(const void* shift, const void* x, void* o,
-                                                long long rows, void* stream) {
-  const unsigned grid = tpucg::blocks_for(rows * kLane, tpucg::kThreads);
+                                                long long rows, int warps, void* stream) {
+  using namespace tpucg;
+  if (warps < 1 || warps > kLgMaxWarps) return cudaErrorInvalidValue;
+  const unsigned grid = blocks_for(rows, warps);
   if (grid == 0) return cudaErrorInvalidValue;
-  tpucg::roll_dyn_kernel<<<grid, tpucg::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(shift), static_cast<const float*>(x), static_cast<float*>(o),
-      rows * kLane);
+  roll_dyn_kernel<<<grid, warps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(shift), static_cast<const float4*>(x), static_cast<float4*>(o), rows);
   return cudaGetLastError();
 }

@@ -11,7 +11,9 @@ solve runs them. All rows are 128 f32 wide and all indices int32:
   kernel, over 8192 rows: a warp a row, 16-byte loads and stores;
   ``lane_gather_plan`` picks the warps a block.
 - P2 ``sub_gather``: ``o[i, j] = v[idx[i, j], j]`` (a gather down the
-  columns).
+  columns); ``sub_gather_plan`` picks its form by the shape: a block stages
+  its 8 columns of v in shared memory where it reuses them over enough
+  rows of idx, else each thread gathers an element from L2.
 - P3 ``row_gather``: ``o[i, :] = x2[ridx[i], :]`` (whole rows).
 - P4 ``elem_gather``: ``o = xf[eidx]`` (single elements of a flat vector).
 - P5 ``dynslice``: ``o = sum_k x2[w[k]:w[k] + 8, :]``, summed in k order
@@ -19,7 +21,8 @@ solve runs them. All rows are 128 f32 wide and all indices int32:
   says how its windows are brought in by bulk copies before the first add.
 - P6 ``roll_dyn``: ``o[i, j] = x[i, (j - s) mod 128]`` with ``s`` a
   one-element int32 tensor read by the kernel (``pltpu.roll``'s direction,
-  which is ``jnp.roll``'s).
+  which is ``jnp.roll``'s): a warp a row on ``lane_gather_plan``, the row
+  rotated by shuffles.
 
 Each probe has a checked ``*_cuda`` wrapper, a plain ``*_torch`` version
 (no read back to the host) and a dispatcher that sends CUDA tensors to the
@@ -27,9 +30,9 @@ kernel and CPU tensors to the plain version. Every wrapper and plain
 version counts its calls in ``.launches``. Indices are not checked, on
 the card or off it, as the TPU probes did not check them: an index out of
 range reads outside the table on the card and raises in the plain version.
-The tensors read or written 16 bytes at a time or by bulk copies (P1's v,
-idx and o, P3's and P5's x2) must be 16-byte aligned: a misaligned view is
-refused, never copied.
+The tensors read or written 16 bytes at a time or by bulk copies (P1's and
+P2's v, idx and o, P3's and P5's x2, P6's x and o) must be 16-byte
+aligned: a misaligned view is refused, never copied.
 """
 
 from __future__ import annotations
@@ -55,6 +58,19 @@ LG_WARPS = 8
 DS_STAGE_WINDOWS = 64
 DS_MAX_SLOTS = 4
 DS_BAR_BYTES = 8 * DS_MAX_SLOTS
+# P2's (kSg*): a staged block owns SG_COLS columns of v, so its slab is
+# v_rows x 32 bytes and holds at most SG_MAX_ROWS rows within a block's
+# BLOCK_SMEM; a block takes up to SG_MAX_THREADS threads.
+BLOCK_SMEM = 232_448  # 227 KB (csrc/probe.cu kMaxSmem)
+SG_COLS = 8
+SG_GROUPS = LANE // SG_COLS
+SG_MAX_ROWS = BLOCK_SMEM // (4 * SG_COLS)
+SG_MAX_THREADS = 256
+# sub_gather_plan's rule, fitted to bench/p2_forms.py's sweep on an H100:
+# the staged form where v_rows <= SG_STAGED_RATIO * rows, on a power of two
+# of runs near sqrt(SG_RUN_BALANCE * rows / v_rows).
+SG_STAGED_RATIO = 0.75
+SG_RUN_BALANCE = 17
 
 
 def _check(fn: str, name: str, t: torch.Tensor, dtype: torch.dtype, shape) -> None:
@@ -177,12 +193,97 @@ def sub_gather_torch(v: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(v, 0, idx.long())
 
 
-def sub_gather_cuda(v: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """P2 on the card: v f32 (rows, 128), idx int32 (m, 128) -> (m, 128)."""
+@dataclasses.dataclass(frozen=True)
+class SubGatherPlan:
+    """How P2's kernel covers o (``rows`` x 128) from a v of ``v_rows``
+    rows, in blocks of ``threads`` threads (a multiple of 32). ``run > 0``:
+    the staged form, block b owning column group ``b % SG_GROUPS``
+    (``SG_COLS`` columns) over ``run`` rows of idx from ``(b // SG_GROUPS)
+    * run``, its group's slab of v in shared memory. ``run == 0``: the
+    direct form, thread t of block b taking o's element ``b * threads +
+    t``."""
+
+    v_rows: int
+    rows: int
+    run: int
+    threads: int
+
+    @property
+    def staged(self) -> bool:
+        return self.run > 0
+
+    @property
+    def blocks(self) -> int:
+        if self.staged:
+            return SG_GROUPS * -(-self.rows // self.run)
+        return -(-self.rows * LANE // self.threads)
+
+    @property
+    def smem(self) -> int:
+        """Dynamic shared memory a block: the staged form's slab."""
+        return self.v_rows * 4 * SG_COLS if self.staged else 0
+
+    def quads(self, b: int):
+        """(rows, columns) of the runs of 4 elements of o that block b
+        writes, o[r, c:c + 4] (a direct block's threads cover whole runs)."""
+        if self.staged:
+            first = b // SG_GROUPS * self.run
+            it = torch.arange(2 * min(self.run, self.rows - first))
+            return first + it // 2, SG_COLS * (b % SG_GROUPS) + 4 * (it % 2)
+        at = torch.arange(b * self.threads, min((b + 1) * self.threads, self.rows * LANE), 4)
+        return at // LANE, at % LANE
+
+    def __str__(self) -> str:
+        if self.staged:
+            return (f"staged: {self.blocks} blocks of {self.threads} threads, {SG_GROUPS} column "
+                    f"groups of {SG_COLS} x {self.blocks // SG_GROUPS} runs of {self.run} idx "
+                    f"rows, the group's slab of v in shared memory ({self.v_rows} rows, "
+                    f"{self.smem} bytes a block)")
+        return (f"direct: {self.blocks} blocks of {self.threads} threads, an element a thread "
+                f"gathered from L2; v's {self.v_rows} rows (a slab holds at most "
+                f"{SG_MAX_ROWS})")
+
+
+def sub_gather_plan(v_rows: int, rows: int, sms: int = SMS) -> SubGatherPlan:
+    """P2's plan for a v of ``v_rows`` rows and an idx of ``rows`` rows.
+
+    Every staged block reads its group's whole slab of v (v_rows x 32
+    bytes) through L2, so the staged form pays where each block reuses its
+    slab over enough idx rows: where ``v_rows <= SG_STAGED_RATIO * rows``
+    (and the slab fits, ``v_rows <= SG_MAX_ROWS``). Its runs balance the
+    slab's reads (16 x runs slabs) against a block's serial share of idx (rows
+    / runs): the largest power of two at most sqrt(SG_RUN_BALANCE x rows /
+    v_rows), at most ``sms // 16`` (one wave), 256 threads a block. Else
+    the direct form, each thread gathering an element from L2, on blocks
+    of ``SG_MAX_THREADS``."""
+    if v_rows < 1 or rows < 1 or sms < 1:
+        raise ValueError(f"sub_gather_plan needs v_rows, rows and sms >= 1, got {v_rows}, "
+                         f"{rows}, {sms}")
+    if v_rows <= SG_MAX_ROWS and v_rows <= SG_STAGED_RATIO * rows:
+        runs, most = 1, max(1, sms // SG_GROUPS)
+        while 2 * runs <= most and (2 * runs) ** 2 * v_rows <= SG_RUN_BALANCE * rows:
+            runs *= 2
+        return SubGatherPlan(v_rows, rows, -(-rows // runs), SG_MAX_THREADS)
+    return SubGatherPlan(v_rows, rows, 0, SG_MAX_THREADS)
+
+
+def sub_gather_cuda(v: torch.Tensor, idx: torch.Tensor,
+                    _plan: SubGatherPlan | None = None) -> torch.Tensor:
+    """P2 on the card: v f32 (v_rows, 128), idx int32 (m, 128), both
+    16-byte aligned, -> (m, 128), on ``sub_gather_plan`` (``_plan`` forces
+    one)."""
     _check("sub_gather_cuda", "v", v, torch.float32, (None, LANE))
     _check("sub_gather_cuda", "idx", idx, torch.int32, (None, LANE))
+    _aligned("sub_gather_cuda", v=v, idx=idx)
+    _on_card("sub_gather_cuda", (v, idx), v)
+    plan = _plan or sub_gather_plan(v.shape[0], idx.shape[0], _sms(v))
+    if (plan.v_rows, plan.rows) != (v.shape[0], idx.shape[0]):
+        raise ValueError(f"sub_gather_cuda: a plan for v of {plan.v_rows} rows and idx of "
+                         f"{plan.rows}, given {v.shape[0]} and {idx.shape[0]}")
     o = torch.empty(idx.shape, dtype=torch.float32, device=idx.device)
-    _launch("sub_gather_cuda", "tpucg_probe_sub_gather_f32", (v, idx, o), (idx.shape[0],), v)
+    _aligned("sub_gather_cuda", o=o)
+    _launch("sub_gather_cuda", "tpucg_probe_sub_gather_f32", (v, idx, o),
+            (plan.v_rows, plan.rows, plan.run, plan.threads), v)
     sub_gather_cuda.launches += 1
     return o
 
@@ -336,11 +437,17 @@ def roll_dyn_torch(s: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 def roll_dyn_cuda(s: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """P6 on the card: s int32 (1,) on the card, x f32 (rows, 128)."""
+    """P6 on the card: s int32 (1,) on the card, x f32 (rows, 128) and
+    16-byte aligned, a warp a row on ``lane_gather_plan``."""
     _check("roll_dyn_cuda", "s", s, torch.int32, (1,))
     _check("roll_dyn_cuda", "x", x, torch.float32, (None, LANE))
+    _aligned("roll_dyn_cuda", x=x)
+    _on_card("roll_dyn_cuda", (s, x), x)
+    rows = x.shape[0]
+    plan = lane_gather_plan(rows, _sms(x))
     o = torch.empty_like(x)
-    _launch("roll_dyn_cuda", "tpucg_probe_roll_dyn_f32", (s, x, o), (x.shape[0],), x)
+    _aligned("roll_dyn_cuda", o=o)
+    _launch("roll_dyn_cuda", "tpucg_probe_roll_dyn_f32", (s, x, o), (rows, plan.warps), x)
     roll_dyn_cuda.launches += 1
     return o
 
