@@ -150,16 +150,21 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    library call. P7 (P1's kernel over 8192 rows) is timed cold, rotating
    over 8 input sets (96 MB), and its rate must stay under the HBM peak; on
    one set it stays in L2 and is printed as the L2-resident rate. Then the
-   script's two XLA baselines as library rates, the plans of P1/P7's, P2's
-   (which form: direct at the script's shape and at a 16,384-row v, staged
-   at 8192 idx rows of a 2048-row v), P5's and P6's kernels
-   (``lane_gather_plan``, ``sub_gather_plan``, ``dynslice_plan``), P1/P7's
-   kernel at 13 row counts from 1 to 65,536 (random lanes, and every lane
-   0 or 127), P2's at 9 heights of v on both sides of the staged form's
-   cap x 9 counts of idx rows (random rows, and every row 0 or the last),
-   P5's at 1 ... 1,024 windows (overlapping, the table's last window) and
-   P6's at 8 row counts x 11 shifts (to the ends of int32, also against
-   ``torch.roll``), each bit-identical to its plain version and to its repeat
+   script's two XLA baselines as library rates, each beside the probe's
+   kernel at that shape (P3 at 2048 rows, P4 at 2048 x 128 elements, each
+   bit-identical to plain first), the plans of every probe's kernel
+   (``lane_gather_plan``, ``sub_gather_plan``: direct at the script's shape
+   and at a 16,384-row v, staged at 8192 idx rows of a 2048-row v;
+   ``row_gather_plan`` and ``elem_gather_plan`` at the script's shapes and
+   the baselines'; ``dynslice_plan``), P1/P7's kernel at 13 row counts from
+   1 to 65,536 (random lanes, and every lane 0 or 127), P2's at 9 heights of
+   v on both sides of the staged form's cap x 9 counts of idx rows (random
+   rows, and every row 0 or the last), P5's at 1 ... 1,024 windows
+   (overlapping, the table's last window), P6's at 8 row counts x 11 shifts
+   (to the ends of int32, also against ``torch.roll``), P3's at 10 row
+   counts from 1 to 8,192 and P4's at 10 element counts from 1 to 262,144
+   (random indices, and every index 0 or the table's last), each
+   bit-identical to its plain version and to its repeat
    (``bench.probe_gather.edge_checks``), and one launch's floor: a
    one-element ``fill_`` queued the same way, beside each launch-bound
    probe's time over it.
@@ -1746,9 +1751,8 @@ def main() -> int:
                     f"P6 at shift {shift}: differs from plain or torch.roll")
         print(f"P6 at shifts {', '.join(map(str, shifts))}: bit-identical to plain and to "
               "torch.roll")
-        for label, secs, elems, nbytes in pg.baselines(pt, pa):
-            print(f"library rate, {label}: {secs * 1e6:.3f} us, {elems / secs / 1e9:.2f} "
-                  f"Gelem/s, {nbytes / secs / 1e9:.1f} GB/s {tag}")
+        for line in pg.baselines(pt, pa):
+            print(f"{pg.baseline_line(*line)} {tag}")
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
         for line in pg.plan_lines(sms) + pg.edge_checks(dev):
             print(f"{line} {tag}")

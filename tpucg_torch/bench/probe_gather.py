@@ -76,6 +76,12 @@ SG_EDGE_ROWS = (1, 3, 31, 32, 33, 255, 256, 257, 8192)
 ROLL_EDGE_ROWS = (1, 3, 31, 32, 33, 256, 8192, 65536)
 ROLL_SHIFTS = (0, 1, 3, 4, 5, 127, 128, 300, -3, -2 ** 31, 2 ** 31 - 1)
 TALL_ROWS = 16384  # v's rows in the direct form's case
+# P3's (rows of o: one, a ragged warp and block, the script's 256 and its
+# baseline's 2048, more rows than the card holds warps) and P4's (elements:
+# one, a ragged warp and block, the script's 32,768 and all of xf's
+# 262,144).
+RG_EDGE_ROWS = (1, 3, 31, 32, 33, 255, 256, 257, 2048, 8192)
+EG_EDGE_N = (1, 31, 32, 33, 255, 256, 257, 2048, 32768, 262144)
 
 
 def row_addresses(rows) -> np.ndarray:
@@ -254,20 +260,39 @@ def measure(p: Probe, t: Dict[str, torch.Tensor]) -> Measured:
 
 
 def baselines(t: Dict[str, torch.Tensor], a: Dict[str, np.ndarray]) -> list:
-    """The script's XLA baselines as library calls: (label, seconds, elements,
-    least bytes moved, ``gather_bytes`` on the inputs ``a`` that ``t``
-    holds)."""
-    ridx, eidx64 = t["base_ridx"], t["base_eidx"].long()
+    """The script's XLA baselines as library calls, each beside the probe's
+    kernel on the same inputs (held to its plain version bit for bit
+    first): (label, library seconds, elements, least bytes moved
+    (``gather_bytes`` on the inputs ``a`` that ``t`` holds), the kernel's
+    label, its seconds)."""
+    ridx, eidx = t["base_ridx"], t["base_eidx"]
+    eidx64 = eidx.long()
     out = 4 * BASE_ROWS * LANE
+    check_equal("P3 at 2048 rows against plain", kp.row_gather_cuda(t["x2"], ridx),
+                kp.row_gather_torch(t["x2"], ridx))
+    check_equal("P4 at 2048 x 128 against plain", kp.elem_gather_cuda(t["xf"], eidx),
+                kp.elem_gather_torch(t["xf"], eidx))
     return [
         ("torch.index_select of 2048 rows of x2 (2048, 128)",
          device_seconds_per_call(lambda: torch.index_select(t["x2"], 0, ridx)),
          BASE_ROWS * LANE,
-         gather_bytes(a["base_ridx"].nbytes, out, row_addresses(a["base_ridx"]))),
+         gather_bytes(a["base_ridx"].nbytes, out, row_addresses(a["base_ridx"])),
+         f"P3's kernel ({kp.row_gather_plan(BASE_ROWS)})",
+         device_seconds_per_call(lambda: kp.row_gather_cuda(t["x2"], ridx))),
         ("torch.take of 2048 x 128 elements of xf (262144,)",
          device_seconds_per_call(lambda: torch.take(t["xf"], eidx64)),
-         BASE_ROWS * LANE, gather_bytes(a["base_eidx"].nbytes, out, a["base_eidx"])),
+         BASE_ROWS * LANE, gather_bytes(a["base_eidx"].nbytes, out, a["base_eidx"]),
+         f"P4's kernel ({kp.elem_gather_plan(BASE_ROWS * LANE, kp._sms(eidx))})",
+         device_seconds_per_call(lambda: kp.elem_gather_cuda(t["xf"], eidx))),
     ]
+
+
+def baseline_line(label: str, s: float, elems: int, nbytes: int, klabel: str,
+                  ks: float) -> str:
+    """A baseline's library rate and the probe's kernel beside it."""
+    return (f"library rate, {label}: {s * 1e6:.3f} us, {elems / s / 1e9:.2f} Gelem/s, "
+            f"{nbytes / s / 1e9:.1f} GB/s; {klabel} {ks * 1e6:.3f} us, "
+            f"{nbytes / ks / 1e9:.1f} GB/s")
 
 
 FEM_POINTS = 300_000  # tpucg's FEM P1 system: fem_p1_system(300_000, seed=0)
@@ -364,14 +389,19 @@ def launch_floor(dev) -> float:
 
 
 def plan_lines(sms: int) -> list:
-    """The plans of P1/P7's, P2's, P5's and P6's kernels at the script's
-    shapes, and P2's at 8192 idx rows of the script's 2048-row ``x2`` and at
-    a tall v."""
+    """The plans of every probe's kernel at the script's shapes, P2's at
+    8192 idx rows of the script's 2048-row ``x2`` and at a tall v, and P3's
+    and P4's at their baselines' shapes."""
     return [f"plan P1 ({R} rows): {kp.lane_gather_plan(R, sms)}",
             f"plan P7 ({RB} rows): {kp.lane_gather_plan(RB, sms)}",
             f"plan P2 (v {R} rows, idx {R} rows): {kp.sub_gather_plan(R, R, sms)}",
             f"plan P2 (v {XR} rows, idx {RB} rows): {kp.sub_gather_plan(XR, RB, sms)}",
             f"plan P2 (v {TALL_ROWS} rows, idx {R} rows): {kp.sub_gather_plan(TALL_ROWS, R, sms)}",
+            f"plan P3 ({R} rows): {kp.row_gather_plan(R)}",
+            f"plan P3 ({BASE_ROWS} rows): {kp.row_gather_plan(BASE_ROWS)}",
+            f"plan P4 ({R * LANE} elements): {kp.elem_gather_plan(R * LANE, sms)}",
+            f"plan P4 ({BASE_ROWS * LANE} elements): "
+            f"{kp.elem_gather_plan(BASE_ROWS * LANE, sms)}",
             f"plan P5 ({NW} windows): {kp.dynslice_plan(NW)}",
             f"plan P6 ({R} rows): {kp.lane_gather_plan(R, sms)}"]
 
@@ -380,10 +410,12 @@ def edge_checks(dev) -> list:
     """P1/P7's kernel at ``EDGE_ROWS`` (random lanes, and every lane 0 or
     127: one bank a warp), P2's at every pair of ``SG_EDGE_VROWS`` and
     ``SG_EDGE_ROWS`` (random rows, and every index 0 or v_rows - 1 at 256
-    and 8192 idx rows), P5's at ``EDGE_NWS`` and P6's at ``ROLL_EDGE_ROWS``
-    x ``ROLL_SHIFTS`` (also equal to ``torch.roll``), each held to its plain
-    version and to its repeat bit for bit; raises on a difference. Returns
-    one line for each."""
+    and 8192 idx rows), P5's at ``EDGE_NWS``, P6's at ``ROLL_EDGE_ROWS`` x
+    ``ROLL_SHIFTS`` (also equal to ``torch.roll``), P3's at
+    ``RG_EDGE_ROWS`` and P4's at ``EG_EDGE_N`` (random indices, and every
+    index 0 or the table's last), each held to its plain version and to its
+    repeat bit for bit; raises on a difference. Returns one line for
+    each."""
     g = torch.Generator(device=dev).manual_seed(15)
     for rows in EDGE_ROWS:
         v = torch.randn(rows, LANE, generator=g, device=dev)
@@ -435,7 +467,33 @@ def edge_checks(dev) -> list:
     lines.append(f"P6 at {', '.join(map(str, ROLL_EDGE_ROWS))} rows x shifts "
                  f"{', '.join(map(str, ROLL_SHIFTS))}: bit-identical to plain, to torch.roll and "
                  "to its repeat")
+    x2 = torch.randn(XR, LANE, generator=g, device=dev)
+    xf = x2.reshape(-1)
+    for rows in RG_EDGE_ROWS:
+        for ridx in index_cases(XR, (rows,), g, dev):
+            what = f"P3 at {rows} rows, rows {int(ridx[0])}..."
+            got = kp.row_gather_cuda(x2, ridx)
+            check_equal(what, got, kp.row_gather_torch(x2, ridx))
+            check_equal(f"{what}: repeat", got, kp.row_gather_cuda(x2, ridx))
+    lines.append(f"P3 at {', '.join(map(str, RG_EDGE_ROWS))} rows of x2 ({XR}, {LANE}), random "
+                 "rows and every row 0 or the last: bit-identical to plain and to its repeat")
+    for n in EG_EDGE_N:
+        for eidx in index_cases(xf.numel(), (n,), g, dev):
+            what = f"P4 at {n} elements, indices {int(eidx[0])}..."
+            got = kp.elem_gather_cuda(xf, eidx)
+            check_equal(what, got, kp.elem_gather_torch(xf, eidx))
+            check_equal(f"{what}: repeat", got, kp.elem_gather_cuda(xf, eidx))
+    lines.append(f"P4 at {', '.join(map(str, EG_EDGE_N))} elements of xf ({xf.numel()},), random "
+                 "indices and every index 0 or the last: bit-identical to plain and to its "
+                 "repeat")
     return lines
+
+
+def index_cases(hi: int, shape: tuple, g: torch.Generator, dev) -> list:
+    """int32 indices of ``shape`` into a table of ``hi`` rows or elements:
+    random, every one 0, and every one the last."""
+    return [torch.randint(0, hi, shape, generator=g, device=dev, dtype=torch.int32)] + [
+        torch.full(shape, fill, dtype=torch.int32, device=dev) for fill in (0, hi - 1)]
 
 
 def staged_lines(t: Dict[str, torch.Tensor], a: Dict[str, np.ndarray], peak: float) -> list:
@@ -502,9 +560,8 @@ def run_cuda() -> None:
         print(probe_line(p, measure(p, t), p.least_bytes(a), peak), flush=True)
     for line in fem_scale_lines(dev, peak):
         print(line, flush=True)
-    for label, s, elems, nbytes in baselines(t, a):
-        print(f"library rate, {label}: {s * 1e6:.3f} us, {elems / s / 1e9:.2f} Gelem/s, "
-              f"{nbytes / s / 1e9:.1f} GB/s")
+    for line in baselines(t, a):
+        print(baseline_line(*line), flush=True)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for line in plan_lines(sms) + staged_lines(t, a, peak) + edge_checks(dev):
         print(line, flush=True)

@@ -47,7 +47,10 @@ and whether each checkout repeats itself bit for bit; then the card's name
 and power limit. The probe cases, on ``probe_inputs(0)`` through the
 checked wrappers (their default plans): "P1" (256 x 128), "P2" at the
 script's shape, at 8192 idx rows of its 2048-row ``x2`` and at 256 idx
-rows of a 16,384-row v, "P3" and "P4" at the script's shapes, "P5" at the
+rows of a 16,384-row v, "P3" at the script's 256 rows and at the 2048
+of its ``index_select`` baseline, "P4" at the script's 256 x 128 elements,
+at the 2048 x 128 of its ``torch.take`` baseline and at FEM 300k's three
+index orders (``fem_probe_cases``, rotating over 3 index sets), "P5" at the
 script's 64 windows and at 1,024 (random offsets into a 4096-row table),
 "P6" at 256 and 8192 rows (shift 5), "P7 cold" (rotating over 8 copies of
 its 12 MB) and "P7 L2" (one set), µs a call queued, their outputs compared
@@ -153,9 +156,9 @@ def blas_cases(dev) -> dict:
 
 
 def probe_cases(dev) -> dict:
-    """P1, P2, P5, P6 and P7's cases: label -> (launch, operand sets); the
-    timed call rotates over the sets, and the output compared is the first
-    set's."""
+    """The probes' cases at the script's shapes and beside them: label ->
+    (launch, operand sets); the timed call rotates over the sets, and the
+    output compared is the first set's."""
     import numpy as np
     import torch
 
@@ -186,7 +189,9 @@ def probe_cases(dev) -> dict:
         "P2 8192x128": (sub_gather_cuda, [(t["x2"], rows_of(2048, 8192))]),
         "P2 tall": (sub_gather_cuda, [(tall, rows_of(16384, 256))]),
         "P3 256 rows": (row_gather_cuda, [(t["x2"], t["ridx"])]),
+        "P3 2048 rows": (row_gather_cuda, [(t["x2"], t["base_ridx"])]),
         "P4 256x128": (elem_gather_cuda, [(t["xf"], t["eidx"])]),
+        "P4 2048x128": (elem_gather_cuda, [(t["xf"], t["base_eidx"])]),
         "P6 256x128": (roll_dyn_cuda, [(t["shift"], t["V"])]),
         "P6 8192x128": (roll_dyn_cuda, [(t["shift"], t["Vb"])]),
         "P5 nw=64": (dynslice_cuda, [(t["widx"], t["x2"])]),
@@ -195,6 +200,35 @@ def probe_cases(dev) -> dict:
                              [big] + [tuple(a.clone() for a in big) for _ in range(COLD_SETS - 1)]),
         "P7 L2 8192x128": (lane_gather_cuda, [big]),
     }
+
+
+FEM_PROBES = ("P4 FEM 300k CSR", "P4 FEM 300k WELL", "P4 FEM 300k random")
+
+
+def fem_probe_cases(dev) -> dict:
+    """P4 at FEM 300k, as ``bench.probe_gather.fem_scale_lines`` drives it:
+    x read at the matrix's CSR column indices, at its WELL packing's live
+    slots in slot order, and at as many uniformly random indices, each
+    rotating over ``FEM_SETS`` copies of its indices: label -> (launch,
+    operand sets)."""
+    import numpy as np
+    import torch
+
+    from tpucg_torch.bench.probe_gather import FEM_POINTS, FEM_SETS, well_slot_columns
+    from tpucg_torch.io.generator import fem_p1_system
+    from tpucg_torch.kernels.probe_gather import elem_gather_cuda
+
+    A = fem_p1_system(FEM_POINTS, seed=0)[0]
+    n = A.shape[0]
+    well_cols, npad = well_slot_columns(A)
+    rand = np.random.default_rng(0).integers(0, n, A.nnz)
+    cases = {}
+    for label, size, cols in zip(FEM_PROBES, (n, npad, n), (A.indices, well_cols, rand)):
+        x = torch.randn(size, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+        first = torch.as_tensor(np.asarray(cols, np.int32), device=dev)
+        cases[label] = (elem_gather_cuda,
+                        [(x, first)] + [(x, first.clone()) for _ in range(FEM_SETS - 1)])
+    return cases
 
 
 def banded(nsys: int, n: int, dev):
@@ -417,6 +451,9 @@ def worker(out: str, only: Sequence[str] = ()) -> None:
         del args, copies
         torch.cuda.empty_cache()
     probes = {label: case for label, case in probe_cases(dev).items() if wanted(label)}
+    if any(wanted(label) for label in FEM_PROBES):
+        probes.update((label, case) for label, case in fem_probe_cases(dev).items()
+                      if wanted(label))
     for label, (launch, sets) in probes.items():
         calls = [lambda a=a: launch(*a) for a in sets]
         call = calls[0] if len(calls) == 1 else _rotating(calls)

@@ -14,8 +14,17 @@ solve runs them. All rows are 128 f32 wide and all indices int32:
   columns); ``sub_gather_plan`` picks its form by the shape: a block stages
   its 8 columns of v in shared memory where it reuses them over enough
   rows of idx, else each thread gathers an element from L2.
-- P3 ``row_gather``: ``o[i, :] = x2[ridx[i], :]`` (whole rows).
-- P4 ``elem_gather``: ``o = xf[eidx]`` (single elements of a flat vector).
+- P3 ``row_gather``: ``o[i, :] = x2[ridx[i], :]`` (whole rows), a warp a
+  row on ``row_gather_plan``; bound by two dependent round trips to L2
+  (the index, then the row). The parent's 8 warps a block are kept: fewer
+  warps, several rows a warp and L2-only reads tied or lost.
+- P4 ``elem_gather``: ``o = xf[eidx]`` (single elements of a flat vector),
+  bound by the same two round trips and a 32-byte sector through L2 an
+  element. ``elem_gather_plan`` keeps the parent's element a thread below
+  2 waves of threads, and from there streams: 2 elements a thread, the
+  indices and o evict-first, so the table stays in L2 (FEM 300k 1.5x).
+  Smaller blocks, L2-only table reads and more elements a thread at the
+  script's shape lost.
 - P5 ``dynslice``: ``o = sum_k x2[w[k]:w[k] + 8, :]``, summed in k order
   from 0 (windows at offsets known only at run time); ``dynslice_plan``
   says how its windows are brought in by bulk copies before the first add.
@@ -32,7 +41,8 @@ the card or off it, as the TPU probes did not check them: an index out of
 range reads outside the table on the card and raises in the plain version.
 The tensors read or written 16 bytes at a time or by bulk copies (P1's and
 P2's v, idx and o, P3's and P5's x2, P6's x and o) must be 16-byte
-aligned: a misaligned view is refused, never copied.
+aligned: a misaligned view is refused, never copied. What each kernel
+tried and lost, with its times, is in ``csrc/probe.cu``'s note.
 """
 
 from __future__ import annotations
@@ -71,6 +81,18 @@ SG_MAX_THREADS = 256
 # of runs near sqrt(SG_RUN_BALANCE * rows / v_rows).
 SG_STAGED_RATIO = 0.75
 SG_RUN_BALANCE = 17
+# P3's (kRg*): a warp a row, 1, 2, 4 ... RG_MAX_WARPS warps a block; the
+# plan takes RG_WARPS. P4's (kEg*): EG_MIN_THREADS, twice as many ...
+# EG_MAX_THREADS threads a block, up to EG_MAX_PER elements a thread; the
+# plan takes EG_THREADS threads, and streams from EG_STREAM_PER_SM elements
+# an SM.
+RG_MAX_WARPS = 16
+RG_WARPS = 8
+EG_MIN_THREADS = 64
+EG_MAX_THREADS = 256
+EG_MAX_PER = 2
+EG_THREADS = 256
+EG_STREAM_PER_SM = 2 * 2048
 
 
 def _check(fn: str, name: str, t: torch.Tensor, dtype: torch.dtype, shape) -> None:
@@ -304,15 +326,50 @@ def row_gather_torch(x2: torch.Tensor, ridx: torch.Tensor) -> torch.Tensor:
     return x2[ridx.long()]
 
 
-def row_gather_cuda(x2: torch.Tensor, ridx: torch.Tensor) -> torch.Tensor:
+@dataclasses.dataclass(frozen=True)
+class RowGatherPlan:
+    """How P3's kernel covers ``rows`` rows of o: a warp a row, ``warps``
+    warps a block, warp w of block b taking row ``b * warps + w``."""
+
+    rows: int
+    warps: int
+
+    @property
+    def blocks(self) -> int:
+        return -(-self.rows // self.warps)
+
+    def row(self, b: int, w: int) -> int:
+        """The row of warp w of block b (``rows`` or more: none)."""
+        return b * self.warps + w
+
+    def __str__(self) -> str:
+        return f"{self.blocks} blocks of {self.warps} warps, a row a warp"
+
+
+def row_gather_plan(rows: int) -> RowGatherPlan:
+    """P3's plan: ``RG_WARPS`` warps a block at every size, the parent's
+    walk. Fewer warps a block (the rows on more SMs) tied at 256 rows and
+    lost at 2048; more rows a warp, or the rows read through L2 only, tied
+    or lost at both (``bench/p3p4_forms.py``, PERF.md section 6, PR 17)."""
+    if rows < 1:
+        raise ValueError(f"row_gather_plan needs rows >= 1, got {rows}")
+    return RowGatherPlan(rows, RG_WARPS)
+
+
+def row_gather_cuda(x2: torch.Tensor, ridx: torch.Tensor,
+                    _plan: RowGatherPlan | None = None) -> torch.Tensor:
     """P3 on the card: x2 f32 (rows, 128), 16-byte aligned, ridx int32 (m,)
-    -> (m, 128)."""
+    -> (m, 128), on ``row_gather_plan`` (``_plan`` forces one)."""
     _check("row_gather_cuda", "x2", x2, torch.float32, (None, LANE))
     _check("row_gather_cuda", "ridx", ridx, torch.int32, (None,))
-    if x2.data_ptr() % 16:
-        raise ValueError("row_gather_cuda: x2 must be 16-byte aligned (float4 row loads)")
-    o = torch.empty((ridx.shape[0], LANE), dtype=torch.float32, device=ridx.device)
-    _launch("row_gather_cuda", "tpucg_probe_row_gather_f32", (x2, ridx, o), (ridx.shape[0],), x2)
+    _aligned("row_gather_cuda", x2=x2)
+    _on_card("row_gather_cuda", (x2, ridx), x2)
+    m = ridx.shape[0]
+    plan = _plan or row_gather_plan(m)
+    if plan.rows != m:
+        raise ValueError(f"row_gather_cuda: a plan for {plan.rows} rows, given {m}")
+    o = torch.empty((m, LANE), dtype=torch.float32, device=ridx.device)
+    _launch("row_gather_cuda", "tpucg_probe_row_gather_f32", (x2, ridx, o), (m, plan.warps), x2)
     row_gather_cuda.launches += 1
     return o
 
@@ -333,13 +390,65 @@ def elem_gather_torch(xf: torch.Tensor, eidx: torch.Tensor) -> torch.Tensor:
     return xf[eidx.long()]
 
 
-def elem_gather_cuda(xf: torch.Tensor, eidx: torch.Tensor) -> torch.Tensor:
-    """P4 on the card: xf f32 (n,), eidx int32 of any shape -> eidx's shape."""
+@dataclasses.dataclass(frozen=True)
+class ElemGatherPlan:
+    """How P4's kernel covers ``n`` elements of o: blocks of ``threads``
+    threads, thread t of block b taking the ``per`` elements ``b * threads
+    * per + j * threads + t`` (their indices loaded, then their gathers
+    issued, before the first store); ``stream``: the indices read and o
+    written evict-first."""
+
+    n: int
+    threads: int
+    per: int = 1
+    stream: bool = False
+
+    @property
+    def blocks(self) -> int:
+        return -(-self.n // (self.threads * self.per))
+
+    def taken(self, b: int, t: int) -> list:
+        """The elements of thread t of block b (none at ``n`` or past it)."""
+        first = b * self.threads * self.per + t
+        return [e for e in range(first, first + self.per * self.threads, self.threads)
+                if e < self.n]
+
+    def __str__(self) -> str:
+        walk = (f"{self.per} elements a thread, indices and o evict-first" if self.stream
+                else f"{self.per} element{'s' if self.per > 1 else ''} a thread")
+        return f"{self.blocks} blocks of {self.threads} threads, {walk}"
+
+
+def elem_gather_plan(n: int, sms: int = SMS) -> ElemGatherPlan:
+    """P4's plan for ``n`` elements on ``sms`` SMs: the parent's walk (an
+    element a thread, ``EG_THREADS`` a block) below ``EG_STREAM_PER_SM x
+    sms`` elements (2 waves of 2048 threads an SM); from there the
+    streaming walk, 2 elements a thread with the indices and o evict-first,
+    which keeps the table in L2 while the indices stream through (FEM
+    300k's CSR columns 1.5x, 1-2 M random reads 2.5%; it loses at the
+    script's 32,768, where it leaves half the warps; ``bench/p3p4_forms.py``,
+    PERF.md section 6, PR 17)."""
+    if n < 1 or sms < 1:
+        raise ValueError(f"elem_gather_plan needs n and sms >= 1, got {n}, {sms}")
+    if n >= EG_STREAM_PER_SM * sms:
+        return ElemGatherPlan(n, EG_THREADS, EG_MAX_PER, True)
+    return ElemGatherPlan(n, EG_THREADS)
+
+
+def elem_gather_cuda(xf: torch.Tensor, eidx: torch.Tensor,
+                     _plan: ElemGatherPlan | None = None) -> torch.Tensor:
+    """P4 on the card: xf f32 (n,), eidx int32 of any shape -> eidx's shape,
+    on ``elem_gather_plan`` (``_plan`` forces one)."""
     _check("elem_gather_cuda", "xf", xf, torch.float32, (None,))
     _check("elem_gather_cuda", "eidx", eidx, torch.int32, (None,) * eidx.dim())
+    _on_card("elem_gather_cuda", (xf, eidx), xf)
+    n = eidx.numel()
+    plan = _plan or elem_gather_plan(n, _sms(xf))
+    if plan.n != n:
+        raise ValueError(f"elem_gather_cuda: a plan for {plan.n} elements, given {n}")
     o = torch.empty(eidx.shape, dtype=torch.float32, device=eidx.device)
-    _launch("elem_gather_cuda", "tpucg_probe_elem_gather_f32", (xf, eidx, o), (eidx.numel(),),
-            xf)
+    _launch("elem_gather_cuda", "tpucg_probe_elem_gather_f32", (xf, eidx, o),
+            (n, plan.threads, plan.per, int(plan.stream)), xf)
     elem_gather_cuda.launches += 1
     return o
 
