@@ -155,17 +155,19 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    bit-identical to plain first), the plans of every probe's kernel
    (``lane_gather_plan``, ``sub_gather_plan``: direct at the script's shape
    and at a 16,384-row v, staged at 8192 idx rows of a 2048-row v;
-   ``row_gather_plan`` and ``elem_gather_plan`` at the script's shapes and
-   the baselines'; ``dynslice_plan``), P1/P7's kernel at 13 row counts from
+   ``elem_gather_plan`` at the script's shape, the baseline's and its
+   first streamed size; ``dynslice_plan``), P1/P7's kernel at 13 row counts from
    1 to 65,536 (random lanes, and every lane 0 or 127), P2's at 9 heights of
    v on both sides of the staged form's cap x 9 counts of idx rows (random
    rows, and every row 0 or the last), P5's at 1 ... 1,024 windows
    (overlapping, the table's last window), P6's at 8 row counts x 11 shifts
    (to the ends of int32, also against ``torch.roll``), P3's at 10 row
    counts from 1 to 8,192 and P4's at 10 element counts from 1 to 262,144
-   (random indices, and every index 0 or the table's last), each
-   bit-identical to its plain version and to its repeat
-   (``bench.probe_gather.edge_checks``), and one launch's floor: a
+   and on both sides of its first streamed size (random indices, and every
+   index 0 or the table's last), each bit-identical to its plain version
+   and to its repeat (``bench.probe_gather.edge_checks``, with the walks
+   P4 took), P4 at FEM 300k's 5.4 M CSR column indices (the streaming
+   walk; ``bench.probe_gather.fem_check``), and one launch's floor: a
    one-element ``fill_`` queued the same way, beside each launch-bound
    probe's time over it.
 
@@ -1208,6 +1210,7 @@ def main() -> int:
     # the first run): FEM's b ~ 1/n makes A x cancel, so the float64
     # ||b - A x|| / ||b|| of an f32 x sits near eps32 |A| |x| / |b|.
     fem_residual_bound = 0.25
+    fem_cols = None  # (n, FEM 300k's CSR column indices), kept for phase 18
     fem_laps = 1720  # the kernel route's laps on the card since the FEM path came (PERF.md)
 
     def torch_csr_of(csr):
@@ -1221,6 +1224,7 @@ def main() -> int:
     with phase("irregular K13 vs plain"):
         t0 = time.perf_counter()
         A_fem, b_fem, _ = fem_p1_system(300_000, seed=0)
+        fem_cols = (A_fem.shape[0], A_fem.indices)  # phase 18's P4 at FEM scale
         fem_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         A_geo, _, _ = random_geometric_spd(1_000_000, seed=0, avg_degree=12.0)
@@ -1756,6 +1760,10 @@ def main() -> int:
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
         for line in pg.plan_lines(sms) + pg.edge_checks(dev):
             print(f"{line} {tag}")
+        if fem_cols is None:
+            A = fem_p1_system(300_000, seed=0)[0]
+            fem_cols = (A.shape[0], A.indices)
+        print(f"{pg.fem_check(dev, *fem_cols)} {tag}")
         floor_s = pg.launch_floor(dev)
         print(f"one launch's floor (a one-element fill_, queued): {floor_s * 1e6:.3f} us; "
               "P1-P6 over it: " + ", ".join(

@@ -66,6 +66,7 @@ from tpucg_torch.bench.probe_gather import (
     SG_EDGE_VROWS,
     edge_windows,
     index_cases,
+    stream_edges,
 )
 from tpucg_torch.bench.timing import trace_calls
 from tpucg_torch.kernels.dispatch import cuda_stream
@@ -1584,19 +1585,15 @@ def test_sub_gather_and_roll_refuse_on_the_card(cuda_device):
         kp.roll_dyn_cuda(s.cpu(), v)
 
 
-# ---- P3 and P4: every plan at every edge size, bit for bit ----------------------
-
-RG_FORCED = (1, 2, 4, 8, 16)
-EG_FORCED = [(t, e, s) for t in (64, 128, 256) for e in (1, 2) for s in (False, True)]
+# ---- P3 and P4: every walk at every edge size, bit for bit ---------------------
 
 
 @pytest.mark.parametrize("rows", RG_EDGE_ROWS)
-def test_row_gather_kernel_at_every_size_and_plan(cuda_device, rows):
+def test_row_gather_kernel_at_every_size(cuda_device, rows):
     from tpucg_torch.kernels import probe_gather as kp
 
     g = torch.Generator(device=cuda_device).manual_seed(rows)
     x2 = torch.randn(2048, 128, generator=g, device=cuda_device)
-    plans = [kp.row_gather_plan(rows)] + [kp.RowGatherPlan(rows, w) for w in RG_FORCED]
     for ridx in index_cases(2048, (rows,), g, cuda_device):
         want = kp.row_gather_torch(x2, ridx)
         before = (kp.row_gather_cuda.launches, kp.row_gather_torch.launches)
@@ -1605,20 +1602,16 @@ def test_row_gather_kernel_at_every_size_and_plan(cuda_device, rows):
         assert (kp.row_gather_cuda.launches, kp.row_gather_torch.launches) == (
             before[0] + 1, before[1])
         assert torch.equal(got, want)
-        for plan in plans:
-            got = kp.row_gather_cuda(x2, ridx, _plan=plan)
-            assert torch.equal(got, want), str(plan)
-            assert torch.equal(got, kp.row_gather_cuda(x2, ridx, _plan=plan)), str(plan)
+        assert torch.equal(got, kp.row_gather_cuda(x2, ridx))
 
 
-@pytest.mark.parametrize("n", EG_EDGE_N)
+@pytest.mark.parametrize("n", EG_EDGE_N + stream_edges(132))
 def test_elem_gather_kernel_at_every_size_and_plan(cuda_device, n):
     from tpucg_torch.kernels import probe_gather as kp
 
     g = torch.Generator(device=cuda_device).manual_seed(n)
     xf = torch.randn(262144, generator=g, device=cuda_device)
-    plans = [kp.elem_gather_plan(n, sms) for sms in (1, 7, 132)]
-    plans += [kp.ElemGatherPlan(n, *form) for form in EG_FORCED]
+    plans = [kp.ElemGatherPlan(n, False), kp.ElemGatherPlan(n, True)]
     for eidx in index_cases(xf.numel(), (n,), g, cuda_device):
         want = kp.elem_gather_torch(xf, eidx)
         before = (kp.elem_gather_cuda.launches, kp.elem_gather_torch.launches)
@@ -1633,22 +1626,38 @@ def test_elem_gather_kernel_at_every_size_and_plan(cuda_device, n):
             assert torch.equal(got, kp.elem_gather_cuda(xf, eidx, _plan=plan)), str(plan)
 
 
+def test_elem_gather_kernel_at_fem_300k(cuda_device):
+    """P4 at FEM 300k's CSR column indices (its default plan streams) and in
+    both walks, bit-equal to plain and to its repeat."""
+    from tpucg_torch.io.generator import fem_p1_system
+    from tpucg_torch.kernels import probe_gather as kp
+
+    A = fem_p1_system(300_000, seed=0)[0]
+    xf = torch.randn(A.shape[0], generator=torch.Generator(device=cuda_device).manual_seed(0),
+                     device=cuda_device)
+    eidx = torch.as_tensor(A.indices.astype(np.int32), device=cuda_device)
+    assert kp.elem_gather_plan(eidx.numel(), kp._sms(xf)).stream
+    want = kp.elem_gather_torch(xf, eidx)
+    for plan in (None, kp.ElemGatherPlan(eidx.numel(), False),
+                 kp.ElemGatherPlan(eidx.numel(), True)):
+        got = kp.elem_gather_cuda(xf, eidx, _plan=plan)
+        assert torch.equal(got, want), str(plan)
+        assert torch.equal(got, kp.elem_gather_cuda(xf, eidx, _plan=plan)), str(plan)
+
+
 def test_row_and_elem_gather_refuse_what_they_cannot_run(cuda_device):
     from tpucg_torch.kernels import probe_gather as kp
 
     x2 = torch.zeros(16, 128, device=cuda_device)
     ridx = torch.zeros(5, dtype=torch.int32, device=cuda_device)
-    for plan in (kp.RowGatherPlan(5, kp.RG_MAX_WARPS * 2), kp.RowGatherPlan(5, 3),
-                 kp.RowGatherPlan(5, 0)):
-        with pytest.raises(RuntimeError):
-            kp.row_gather_cuda(x2, ridx, _plan=plan)
-    with pytest.raises(ValueError, match="a plan for 6 rows"):
-        kp.row_gather_cuda(x2, ridx, _plan=kp.row_gather_plan(6))
+    before = (kp.row_gather_cuda.launches, kp.elem_gather_cuda.launches)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kp.row_gather_cuda(x2.reshape(-1)[1:1 + 8 * 128].view(8, 128), ridx)
+    with pytest.raises(ValueError, match="CUDA device"):
+        kp.row_gather_cuda(x2, ridx.cpu())
     xf, eidx = x2.reshape(-1), ridx
-    for plan in (kp.ElemGatherPlan(5, 32), kp.ElemGatherPlan(5, 96),
-                 kp.ElemGatherPlan(5, kp.EG_MAX_THREADS * 2),
-                 kp.ElemGatherPlan(5, 64, kp.EG_MAX_PER + 1), kp.ElemGatherPlan(5, 64, 0)):
-        with pytest.raises(RuntimeError):
-            kp.elem_gather_cuda(xf, eidx, _plan=plan)
     with pytest.raises(ValueError, match="a plan for 6 elements"):
         kp.elem_gather_cuda(xf, eidx, _plan=kp.elem_gather_plan(6))
+    with pytest.raises(ValueError, match="CUDA device"):
+        kp.elem_gather_cuda(xf.cpu(), eidx)
+    assert (kp.row_gather_cuda.launches, kp.elem_gather_cuda.launches) == before

@@ -1,17 +1,23 @@
-"""P3's and P4's kernels on the CPU: their plans (``row_gather_plan``,
-``elem_gather_plan``) and NumPy emulations of the kernels' walks in
+"""P3's and P4's kernels on the CPU: P3's walk, P4's plan
+(``elem_gather_plan``) and NumPy emulations of the kernels' walks in
 ``csrc/probe.cu``.
 
-Each plan must write every row (P3) or element (P4) of o exactly once at
-the edge sizes, on 132 SMs and on fewer; P4's must keep the parent's walk
-up to its streaming threshold and stream past it. The emulations (this
-warp reads this row's index, then this float4 of the row; this thread
-reads these indices, then these elements, then stores them) equal
-``np.take``, the plain version and the script's Pallas body in interpret
-mode. The constants are ``csrc/probe.cu``'s, the plans refuse bad sizes,
-and the parent-against-change cases hold the second shapes. The kernels
-themselves run only on the card (``tests/test_torch_cuda.py``).
+P3's fixed walk (a warp a row, ``THREADS`` / 32 warps a block) and each of
+P4's two plans must write every row (P3) or element (P4) of o exactly once
+at the edge sizes, P4's on 132 SMs and on fewer; P4's plan must keep the
+parent's walk up to its streaming threshold and stream past it. The
+emulations (this warp reads this row's index, then this float4 of the row;
+this thread reads these indices, then these elements, then stores them)
+equal ``np.take``, the plain version and the script's Pallas body in
+interpret mode. The constants are ``csrc/probe.cu``'s, the plan refuses bad
+sizes, the parent-against-change cases hold the second shapes, and
+``bench/probe_ab.py`` imports a parent checkout's wrappers beside this
+one's. The kernels themselves run only on the card
+(``tests/test_torch_cuda.py``).
 """
+
+import shutil
+import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -21,12 +27,13 @@ import torch
 from _torch_helpers import rel_err  # noqa: F401  (sets torch threads)
 from test_torch_probe_gather import PALLAS
 from test_torch_probe_stage import PROBE_CU, _bits_equal, _constants
-from tpucg_torch.bench import p3p4_forms
+from tpucg_torch.bench import probe_ab
 from tpucg_torch.bench import probe_gather as drv
 from tpucg_torch.bench import whole_solve_ab
 from tpucg_torch.kernels import probe_gather as kp
 
 LANE = kp.LANE
+WARPS = kp.THREADS // 32  # P3's warps a block, a row each
 RG_ROWS = (1, 3, 31, 32, 33, 255, 256, 257, 2048, 8192)
 EG_N = (1, 31, 32, 33, 255, 256, 257, 2048, 32768, 262144)
 SMS = (1, 7, 66, 132)
@@ -34,44 +41,47 @@ SMS = (1, 7, 66, 132)
 
 def test_constants_are_the_kernels():
     c = _constants()
-    assert c["kRgMaxWarps"] == kp.RG_MAX_WARPS
-    assert (c["kEgMinThreads"], c["kEgMaxThreads"], c["kEgMaxPer"]) == (
-        kp.EG_MIN_THREADS, kp.EG_MAX_THREADS, kp.EG_MAX_PER)
-    # The widths the library builds: powers of two, the plans' among them.
-    assert kp.RG_WARPS in (1, 2, 4, 8, 16) and kp.RG_MAX_WARPS == 16
-    assert kp.EG_THREADS in (64, 128, 256) and kp.EG_MIN_THREADS % 32 == 0
+    assert (c["kThreads"], c["kEgStreamPer"]) == (kp.THREADS, kp.EG_STREAM_PER)
+    assert kp.THREADS % 32 == 0 and WARPS == 8  # the parent's 8 warps a P3 block
     assert kp.EG_STREAM_PER_SM == 2 * 2048  # 2 waves of a full SM's threads
-    # The plans replace the shared block width the two kernels once had.
-    assert "kThreads" not in c and "kThreads" not in PROBE_CU.read_text()
+    # P4 builds exactly two walks; P3 one, the parent's.
+    src = PROBE_CU.read_text()
+    assert src.count("elem_gather_kernel<kEgStreamPer><<<") == 1
+    assert src.count("elem_gather_kernel<1><<<") == 1
+    assert src.count("row_gather_kernel<") == src.count("row_gather_kernel<<<") == 1
 
 
 def test_the_edge_sets_are_the_kernels_edges():
     assert drv.RG_EDGE_ROWS == RG_ROWS and drv.EG_EDGE_N == EG_N
+    assert drv.stream_edges(132) == (540671, 540672, 540673)
+    for sms in SMS:
+        last, first, ragged = (kp.elem_gather_plan(n, sms) for n in drv.stream_edges(sms))
+        assert (last.stream, first.stream, ragged.stream) == (False, True, True)
+        assert ragged.n % (kp.THREADS * kp.EG_STREAM_PER) == 1  # one thread with one element
 
 
-# ---- P3: the plan -----------------------------------------------------------
+# ---- P3: the walk -----------------------------------------------------------
 
 
-def rows_written(plan) -> np.ndarray:
-    """How often the plan's warps write each row of o."""
-    rows = np.arange(plan.blocks)[:, None] * plan.warps + np.arange(plan.warps)
-    return np.bincount(rows[rows < plan.rows], minlength=plan.rows)
+def row_blocks(rows: int) -> int:
+    """P3's grid: ``blocks_for(nrows * kLane, kThreads / 32 * kLane)``."""
+    return -(-rows * LANE // (WARPS * LANE))
+
+
+def rows_written(rows: int) -> np.ndarray:
+    """How often P3's warps write each row of o."""
+    at = np.arange(row_blocks(rows))[:, None] * WARPS + np.arange(WARPS)
+    return np.bincount(at[at < rows], minlength=rows)
 
 
 @pytest.mark.parametrize("rows", RG_ROWS)
-def test_row_gather_plan_writes_every_row_once(rows):
-    plan = kp.row_gather_plan(rows)
-    assert plan.rows == rows and plan.warps == kp.RG_WARPS  # the parent's 8 warps
-    assert np.all(rows_written(plan) == 1)
-    assert plan.blocks * plan.warps - rows < plan.warps  # only the last block ragged
-    assert plan.row(0, 0) == 0 and plan.row(plan.blocks - 1, plan.warps - 1) >= rows - 1
-    for warps in (1, 2, 4, 16):  # every other block width the library builds
-        assert np.all(rows_written(kp.RowGatherPlan(rows, warps)) == 1), warps
+def test_row_gather_writes_every_row_once(rows):
+    assert np.all(rows_written(rows) == 1)
+    assert row_blocks(rows) * WARPS - rows < WARPS  # only the last block ragged
 
 
-def test_row_gather_plan_at_the_scripts_and_the_baselines_shapes():
-    assert (kp.row_gather_plan(256).blocks, kp.row_gather_plan(2048).blocks) == (32, 256)
-    assert str(kp.row_gather_plan(256)) == "32 blocks of 8 warps, a row a warp"
+def test_row_gather_blocks_at_the_scripts_and_the_baselines_shapes():
+    assert (row_blocks(256), row_blocks(2048)) == (32, 256)
 
 
 # ---- P4: the plan -----------------------------------------------------------
@@ -90,11 +100,11 @@ def elements_written(plan) -> np.ndarray:
 @pytest.mark.parametrize("n", EG_N)
 def test_elem_gather_plan_writes_every_element_once(n, sms):
     plan = kp.elem_gather_plan(n, sms)
-    assert plan.n == n and plan.threads == kp.EG_THREADS
+    assert plan.n == n and plan.threads == kp.THREADS
     assert np.all(elements_written(plan) == 1)
     # The parent's walk up to the threshold, the streaming walk past it.
     streams = n >= kp.EG_STREAM_PER_SM * sms
-    assert (plan.per, plan.stream) == ((kp.EG_MAX_PER, True) if streams else (1, False))
+    assert (plan.per, plan.stream) == ((kp.EG_STREAM_PER, True) if streams else (1, False))
     assert plan.blocks * plan.threads * plan.per - n < plan.threads * plan.per
     # taken() is the same walk, thread by thread.
     for b, t in ((0, 0), (plan.blocks - 1, plan.threads - 1), (plan.blocks // 2, 5)):
@@ -102,53 +112,58 @@ def test_elem_gather_plan_writes_every_element_once(n, sms):
             assert e < n and (e // (plan.threads * plan.per), e % plan.threads) == (b, t)
 
 
-@pytest.mark.parametrize("form", [(64, 1, False), (128, 2, True), (256, 2, False), (64, 1, True)])
-def test_every_forced_elem_plan_writes_every_element_once(form):
-    for n in (1, 33, 257, 32768):
-        assert np.all(elements_written(kp.ElemGatherPlan(n, *form)) == 1), (n, form)
+@pytest.mark.parametrize("stream", [False, True])
+def test_every_forced_elem_plan_writes_every_element_once(stream):
+    for n in (1, 33, 257, 513, 32768, 540673):
+        assert np.all(elements_written(kp.ElemGatherPlan(n, stream)) == 1), (n, stream)
 
 
 def test_elem_gather_plan_at_the_scripts_the_baselines_and_fem_scale():
     # The script's and the baseline's shapes keep the parent's walk.
-    assert kp.elem_gather_plan(32768) == kp.ElemGatherPlan(32768, 256)
+    assert kp.elem_gather_plan(32768) == kp.ElemGatherPlan(32768, False)
     assert kp.elem_gather_plan(262144).blocks == 1024
     # FEM 300k's 5,398,135 reads stream, 2 elements a thread.
     fem = kp.elem_gather_plan(5398135)
     assert (fem.per, fem.stream, fem.blocks) == (2, True, 10544)
     assert str(fem) == ("10544 blocks of 256 threads, 2 elements a thread, indices and o "
                         "evict-first")
+    assert str(kp.elem_gather_plan(32768)) == "128 blocks of 256 threads, 1 element a thread"
     edge = kp.EG_STREAM_PER_SM * kp.SMS
     assert not kp.elem_gather_plan(edge - 1).stream and kp.elem_gather_plan(edge).stream
     assert kp.elem_gather_plan(32768, 1).stream  # a one-SM card streams sooner
 
 
-@pytest.mark.parametrize("bad", [lambda: kp.row_gather_plan(0), lambda: kp.row_gather_plan(-3),
-                                 lambda: kp.elem_gather_plan(0), lambda: kp.elem_gather_plan(5, 0)])
+@pytest.mark.parametrize("bad", [lambda: kp.elem_gather_plan(0), lambda: kp.elem_gather_plan(-3),
+                                 lambda: kp.elem_gather_plan(5, 0),
+                                 lambda: kp.elem_gather_plan(5, -1)])
 def test_plans_refuse_bad_sizes(bad):
     with pytest.raises(ValueError, match="_gather_plan needs"):
         bad()
 
 
-def test_plan_lines_name_the_p3_and_p4_plans():
+def test_plan_lines_name_the_p4_plans():
     lines = drv.plan_lines(132)
-    assert "plan P3 (256 rows): 32 blocks of 8 warps, a row a warp" in lines
     assert "plan P4 (32768 elements): 128 blocks of 256 threads, 1 element a thread" in lines
-    assert sum(ln.startswith(("plan P3", "plan P4")) for ln in lines) == 4
+    assert ("plan P4 (540672 elements): 1056 blocks of 256 threads, 2 elements a thread, "
+            "indices and o evict-first") in lines
+    assert sum(ln.startswith("plan P4") for ln in lines) == 3
+    assert not any(ln.startswith("plan P3") for ln in lines)  # P3 has one walk
 
 
 # ---- the kernels' walks -----------------------------------------------------
 
 
-def row_walk(plan, x2, ridx):
-    """P3's kernel in NumPy: warp w of block b takes row r = b * warps + w;
+def row_walk(x2, ridx):
+    """P3's kernel in NumPy: warp w of block b takes row r = b * WARPS + w;
     each lane reads ridx[r] (a broadcast), then its float4 of x2's row and
     stores it. Returns o (NaN where none wrote) and the writes a row."""
-    o = np.full((plan.rows, LANE), np.nan, np.float32)
-    writes = np.zeros(plan.rows, np.int64)
-    for b in range(plan.blocks):
-        for w in range(plan.warps):
-            r = plan.row(b, w)
-            if r >= plan.rows:
+    rows = ridx.size
+    o = np.full((rows, LANE), np.nan, np.float32)
+    writes = np.zeros(rows, np.int64)
+    for b in range(row_blocks(rows)):
+        for w in range(WARPS):
+            r = b * WARPS + w
+            if r >= rows:
                 continue
             src = ridx[r]
             for lane in range(32):
@@ -183,14 +198,13 @@ def _p3_inputs(rows, seed, fill=None):
     return x2, ridx
 
 
-@pytest.mark.parametrize("rows,fill,warps", [
-    (1, None, None), (3, None, None), (33, None, None), (257, None, None), (256, 0, None),
-    (256, 2047, None), (2048, None, None), (33, None, 1), (257, None, 4), (31, None, 16),
+@pytest.mark.parametrize("rows,fill", [
+    (1, None), (3, None), (31, None), (33, None), (257, None), (256, 0), (256, 2047),
+    (2048, None), (255, None), (8, None),
 ])
-def test_row_walk_equals_take_and_plain(rows, fill, warps):
+def test_row_walk_equals_take_and_plain(rows, fill):
     x2, ridx = _p3_inputs(rows, rows, fill)
-    plan = kp.row_gather_plan(rows) if warps is None else kp.RowGatherPlan(rows, warps)
-    got, writes = row_walk(plan, x2, ridx)
+    got, writes = row_walk(x2, ridx)
     assert np.all(writes == 1)
     assert _bits_equal(got, np.take(x2, ridx, axis=0))
     assert _bits_equal(got, kp.row_gather_torch(torch.from_numpy(x2), torch.from_numpy(ridx)))
@@ -203,14 +217,14 @@ def _p4_inputs(n, seed, fill=None, size=262144):
     return xf, eidx
 
 
-@pytest.mark.parametrize("n,fill,form", [
+@pytest.mark.parametrize("n,fill,stream", [
     (1, None, None), (31, None, None), (33, None, None), (257, None, None),
-    (2048, 0, None), (2048, 262143, None), (4097, None, (256, 2, True)),
-    (33, None, (64, 2, False)), (257, None, (128, 1, True)), (300, None, (64, 2, True)),
+    (2048, 0, None), (2048, 262143, None), (4097, None, True),
+    (33, None, True), (257, None, False), (513, None, True),
 ])
-def test_elem_walk_equals_take_and_plain(n, fill, form):
+def test_elem_walk_equals_take_and_plain(n, fill, stream):
     xf, eidx = _p4_inputs(n, n, fill)
-    plan = kp.elem_gather_plan(n) if form is None else kp.ElemGatherPlan(n, *form)
+    plan = kp.elem_gather_plan(n) if stream is None else kp.ElemGatherPlan(n, stream)
     got, writes = elem_walk(plan, xf, eidx)
     assert np.all(writes == 1)
     assert _bits_equal(got, np.take(xf, eidx))
@@ -222,19 +236,19 @@ def test_elem_walk_on_the_scripts_2d_indices_equals_the_interpreted_pallas_body(
     a = drv.probe_inputs(0)
     xf, eidx = a["xf"], a["eidx"]
     n = eidx.size
-    plan = kp.elem_gather_plan(n) if walk == "parent" else kp.ElemGatherPlan(n, 256, 2, True)
+    plan = kp.elem_gather_plan(n) if walk == "parent" else kp.ElemGatherPlan(n, True)
     assert plan.stream == (walk == "streaming")
     want = np.asarray(PALLAS["P4"](jnp.asarray(xf), jnp.asarray(eidx)))
     assert _bits_equal(elem_walk(plan, xf, eidx)[0], want)
 
 
-@pytest.mark.parametrize("warps", [8, 1])
-def test_row_walk_equals_the_interpreted_pallas_body(warps):
+@pytest.mark.parametrize("ridx_of", ["script", "last row"])
+def test_row_walk_equals_the_interpreted_pallas_body(ridx_of):
     a = drv.probe_inputs(0)
-    x2, ridx = a["x2"], a["ridx"]
-    plan = kp.RowGatherPlan(ridx.size, warps)
+    x2 = a["x2"]
+    ridx = a["ridx"] if ridx_of == "script" else np.full_like(a["ridx"], x2.shape[0] - 1)
     want = np.asarray(PALLAS["P3"](jnp.asarray(x2), jnp.asarray(ridx)))
-    assert _bits_equal(row_walk(plan, x2, ridx)[0], want)
+    assert _bits_equal(row_walk(x2, ridx)[0], want)
 
 
 def test_index_cases_are_random_first_and_last():
@@ -258,20 +272,19 @@ def test_row_gather_refuses_a_misaligned_table_before_any_launch():
 
 
 @pytest.mark.parametrize("wrapper", ["row_gather_cuda", "elem_gather_cuda"])
-def test_a_forced_plan_is_refused_off_the_card(wrapper):
+def test_the_card_wrappers_refuse_cpu_tensors_before_any_launch(wrapper):
     fn = getattr(kp, wrapper)
     before = fn.launches
     with pytest.raises(ValueError, match="CUDA device"):
         if wrapper == "row_gather_cuda":
-            fn(torch.zeros(4, LANE), torch.zeros(3, dtype=torch.int32),
-               _plan=kp.RowGatherPlan(3, 1))
+            fn(torch.zeros(4, LANE), torch.zeros(3, dtype=torch.int32))
         else:
             fn(torch.zeros(64), torch.zeros(3, dtype=torch.int32),
-               _plan=kp.ElemGatherPlan(3, 64, 2, True))
+               _plan=kp.ElemGatherPlan(3, True))
     assert fn.launches == before
 
 
-# ---- the parent-against-change cases and the forms sweep --------------------
+# ---- the parent-against-change cases ----------------------------------------
 
 
 def test_ab_probe_cases_hold_the_second_shapes():
@@ -287,12 +300,22 @@ def test_ab_probe_cases_hold_the_second_shapes():
                                          "P4 FEM 300k random")
 
 
-def test_the_forms_sweep_holds_the_parents_form_and_every_kept_one():
-    assert p3p4_forms.PARENT == {"P3": (kp.RG_WARPS,), "P4": (kp.EG_THREADS, 1, False)}
-    assert set(p3p4_forms.PARENT.values()) <= set(p3p4_forms.RG_FORMS + p3p4_forms.EG_FORMS)
-    assert (kp.EG_THREADS, kp.EG_MAX_PER, True) in p3p4_forms.EG_FORMS
-    for form in p3p4_forms.EG_FORMS:
-        plan = kp.ElemGatherPlan(32768, *form)
-        assert plan.threads <= kp.EG_MAX_THREADS and plan.per <= kp.EG_MAX_PER
-    assert [p3p4_forms._label(f) for f in ((8,), (256, 2, True), (64, 1, False))] == [
-        "8 warps", "256x2 stream", "64x1"]
+def test_probe_ab_imports_the_parents_wrappers_beside_these(tmp_path):
+    root = tmp_path / "parent"
+    shutil.copytree(drv.__file__.rsplit("/bench/", 1)[0], root / "tpucg_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    before = {k: v for k, v in sys.modules.items() if k.startswith("tpucg_torch")}
+    parent = probe_ab.parent_probes(str(root))
+    assert parent is not kp and parent.__file__.startswith(str(root))
+    # This checkout's modules are back, as they were.
+    assert {k: v for k, v in sys.modules.items() if k.startswith("tpucg_torch")} == before
+    assert sys.modules["tpucg_torch.kernels.probe_gather"] is kp
+    # The parent's wrappers are its own, and they run (here, their plain versions).
+    assert parent.elem_gather is not kp.elem_gather
+    assert parent._lib is not kp._lib and str(parent._lib.BUILD_DIR).startswith(str(root))
+    xf, eidx = _p4_inputs(300, 3)
+    x2, ridx = _p3_inputs(40, 4)
+    assert torch.equal(parent.elem_gather(torch.from_numpy(xf), torch.from_numpy(eidx)),
+                       kp.elem_gather(torch.from_numpy(xf), torch.from_numpy(eidx)))
+    assert torch.equal(parent.row_gather(torch.from_numpy(x2), torch.from_numpy(ridx)),
+                       kp.row_gather(torch.from_numpy(x2), torch.from_numpy(ridx)))

@@ -79,9 +79,16 @@ TALL_ROWS = 16384  # v's rows in the direct form's case
 # P3's (rows of o: one, a ragged warp and block, the script's 256 and its
 # baseline's 2048, more rows than the card holds warps) and P4's (elements:
 # one, a ragged warp and block, the script's 32,768 and all of xf's
-# 262,144).
+# 262,144; ``stream_edges`` adds those around the first streamed size).
 RG_EDGE_ROWS = (1, 3, 31, 32, 33, 255, 256, 257, 2048, 8192)
 EG_EDGE_N = (1, 31, 32, 33, 255, 256, 257, 2048, 32768, 262144)
+
+
+def stream_edges(sms: int) -> tuple:
+    """P4's element counts around its first streamed size on ``sms`` SMs:
+    the last of the parent's walk, the first streamed, a ragged thread."""
+    first = kp.EG_STREAM_PER_SM * sms
+    return first - 1, first, first + 1
 
 
 def row_addresses(rows) -> np.ndarray:
@@ -277,7 +284,7 @@ def baselines(t: Dict[str, torch.Tensor], a: Dict[str, np.ndarray]) -> list:
          device_seconds_per_call(lambda: torch.index_select(t["x2"], 0, ridx)),
          BASE_ROWS * LANE,
          gather_bytes(a["base_ridx"].nbytes, out, row_addresses(a["base_ridx"])),
-         f"P3's kernel ({kp.row_gather_plan(BASE_ROWS)})",
+         "P3's kernel",
          device_seconds_per_call(lambda: kp.row_gather_cuda(t["x2"], ridx))),
         ("torch.take of 2048 x 128 elements of xf (262144,)",
          device_seconds_per_call(lambda: torch.take(t["xf"], eidx64)),
@@ -314,6 +321,21 @@ def fem_scale(dev, n: int, cols: np.ndarray):
     tl = device_seconds_per_call(rotating([lambda i=i: torch.take(x, i) for i in idx64]))
     m = first.numel()
     return tk, tl, gather_bytes(4 * m, 4 * m, first)
+
+
+def fem_check(dev, n: int, cols) -> str:
+    """P4 through its dispatcher at FEM 300k's CSR column indices (``cols``
+    into an ``n``-element x) held to its plain version and to its repeat,
+    bit for bit; raises on a difference. Returns a line with the plan it
+    took."""
+    x = torch.randn(n, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    idx = torch.as_tensor(np.asarray(cols, np.int32), device=dev)
+    got = kp.elem_gather(x, idx)
+    check_equal("P4 at FEM 300k's CSR columns against plain", got, kp.elem_gather_torch(x, idx))
+    check_equal("P4 at FEM 300k's CSR columns: repeat", got, kp.elem_gather(x, idx))
+    return (f"P4 at FEM 300k's {idx.numel()} CSR column indices into x ({n},), "
+            f"{kp.elem_gather_plan(idx.numel(), kp._sms(x))}: bit-identical to plain and to "
+            "its repeat")
 
 
 def well_slot_columns(A) -> tuple:
@@ -389,19 +411,20 @@ def launch_floor(dev) -> float:
 
 
 def plan_lines(sms: int) -> list:
-    """The plans of every probe's kernel at the script's shapes, P2's at
-    8192 idx rows of the script's 2048-row ``x2`` and at a tall v, and P3's
-    and P4's at their baselines' shapes."""
+    """The plans of every probe's kernel that has one at the script's
+    shapes, P2's at 8192 idx rows of the script's 2048-row ``x2`` and at a
+    tall v, and P4's at its baseline's shape and at its first streamed
+    size."""
     return [f"plan P1 ({R} rows): {kp.lane_gather_plan(R, sms)}",
             f"plan P7 ({RB} rows): {kp.lane_gather_plan(RB, sms)}",
             f"plan P2 (v {R} rows, idx {R} rows): {kp.sub_gather_plan(R, R, sms)}",
             f"plan P2 (v {XR} rows, idx {RB} rows): {kp.sub_gather_plan(XR, RB, sms)}",
             f"plan P2 (v {TALL_ROWS} rows, idx {R} rows): {kp.sub_gather_plan(TALL_ROWS, R, sms)}",
-            f"plan P3 ({R} rows): {kp.row_gather_plan(R)}",
-            f"plan P3 ({BASE_ROWS} rows): {kp.row_gather_plan(BASE_ROWS)}",
             f"plan P4 ({R * LANE} elements): {kp.elem_gather_plan(R * LANE, sms)}",
             f"plan P4 ({BASE_ROWS * LANE} elements): "
             f"{kp.elem_gather_plan(BASE_ROWS * LANE, sms)}",
+            f"plan P4 ({kp.EG_STREAM_PER_SM * sms} elements): "
+            f"{kp.elem_gather_plan(kp.EG_STREAM_PER_SM * sms, sms)}",
             f"plan P5 ({NW} windows): {kp.dynslice_plan(NW)}",
             f"plan P6 ({R} rows): {kp.lane_gather_plan(R, sms)}"]
 
@@ -412,10 +435,11 @@ def edge_checks(dev) -> list:
     ``SG_EDGE_ROWS`` (random rows, and every index 0 or v_rows - 1 at 256
     and 8192 idx rows), P5's at ``EDGE_NWS``, P6's at ``ROLL_EDGE_ROWS`` x
     ``ROLL_SHIFTS`` (also equal to ``torch.roll``), P3's at
-    ``RG_EDGE_ROWS`` and P4's at ``EG_EDGE_N`` (random indices, and every
-    index 0 or the table's last), each held to its plain version and to its
-    repeat bit for bit; raises on a difference. Returns one line for
-    each."""
+    ``RG_EDGE_ROWS`` and P4's at ``EG_EDGE_N`` and the card's
+    ``stream_edges`` (random indices, and every index 0 or the table's
+    last), each held to its plain version and to its repeat bit for bit;
+    raises on a difference. Returns one line for each, P4's with the plans
+    it took."""
     g = torch.Generator(device=dev).manual_seed(15)
     for rows in EDGE_ROWS:
         v = torch.randn(rows, LANE, generator=g, device=dev)
@@ -477,15 +501,17 @@ def edge_checks(dev) -> list:
             check_equal(f"{what}: repeat", got, kp.row_gather_cuda(x2, ridx))
     lines.append(f"P3 at {', '.join(map(str, RG_EDGE_ROWS))} rows of x2 ({XR}, {LANE}), random "
                  "rows and every row 0 or the last: bit-identical to plain and to its repeat")
-    for n in EG_EDGE_N:
+    sizes = EG_EDGE_N + stream_edges(kp._sms(xf))
+    for n in sizes:
         for eidx in index_cases(xf.numel(), (n,), g, dev):
             what = f"P4 at {n} elements, indices {int(eidx[0])}..."
             got = kp.elem_gather_cuda(xf, eidx)
             check_equal(what, got, kp.elem_gather_torch(xf, eidx))
             check_equal(f"{what}: repeat", got, kp.elem_gather_cuda(xf, eidx))
-    lines.append(f"P4 at {', '.join(map(str, EG_EDGE_N))} elements of xf ({xf.numel()},), random "
+    walks = sorted({str(kp.elem_gather_plan(n, kp._sms(xf))).split(", ", 1)[1] for n in sizes})
+    lines.append(f"P4 at {', '.join(map(str, sizes))} elements of xf ({xf.numel()},), random "
                  "indices and every index 0 or the last: bit-identical to plain and to its "
-                 "repeat")
+                 f"repeat, on the walks {'; '.join(walks)}")
     return lines
 
 

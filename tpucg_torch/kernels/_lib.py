@@ -104,9 +104,8 @@ SIGNATURES = {
     "tpucg_probe_lane_gather_f32": (ctypes.c_int, [_PTR, _PTR, _PTR, _LEN, ctypes.c_int, _PTR]),
     "tpucg_probe_sub_gather_f32": (
         ctypes.c_int, [_PTR, _PTR, _PTR, _LEN, _LEN, ctypes.c_int, ctypes.c_int, _PTR]),
-    "tpucg_probe_row_gather_f32": (ctypes.c_int, [_PTR, _PTR, _PTR, _LEN, ctypes.c_int, _PTR]),
-    "tpucg_probe_elem_gather_f32": (
-        ctypes.c_int, [_PTR, _PTR, _PTR, _LEN] + [ctypes.c_int] * 3 + [_PTR]),
+    "tpucg_probe_row_gather_f32": (ctypes.c_int, [_PTR, _PTR, _PTR, _LEN, _PTR]),
+    "tpucg_probe_elem_gather_f32": (ctypes.c_int, [_PTR, _PTR, _PTR, _LEN, ctypes.c_int, _PTR]),
     "tpucg_probe_dynslice_f32": (
         ctypes.c_int, [_PTR, _PTR, _PTR, ctypes.c_int, ctypes.c_int, _PTR]),
     "tpucg_probe_roll_dyn_f32": (ctypes.c_int, [_PTR, _PTR, _PTR, _LEN, ctypes.c_int, _PTR]),

@@ -294,10 +294,8 @@ cudaError_t tpucg_well_spmv_bf16(const void* rvals, const void* cols, const void
 // aligned; run > 0: the staged form, `run` idx rows a block (v_rows <=
 // 7264), run == 0: the direct form, an element a thread; `threads` a
 // block, a multiple of 32 up to 256. P3: o[i, :] = x2[ridx[i], :], ridx
-// (nrows,), x2 and o 16-byte aligned, a row a warp in blocks of `warps`
-// warps (1, 2, 4, 8 or 16). P4: o[i] = xf[eidx[i]], i < n, `per` (1 or 2)
-// elements a thread in blocks of `threads` (64, 128 or 256), stream_io !=
-// 0: the indices and o evict-first. P5: o
+// (nrows,), x2 and o 16-byte aligned. P4: o[i] = xf[eidx[i]], i < n;
+// streamed != 0: 2 elements a thread, the indices and o evict-first. P5: o
 // (8, 128) = sum over k < nw of x2[w[k] + r, l], in k order, 1 <= nw <= 1024,
 // by bulk copies with `slots` stages of 64 windows in flight (1 <= slots <=
 // 4; x2 16-byte aligned). P6: o[i, j] = x[i, (j - *shift) mod 128], shift
@@ -309,9 +307,9 @@ cudaError_t tpucg_probe_sub_gather_f32(const void* v, const void* idx, void* o,
                                        long long v_rows, long long rows, int run, int threads,
                                        void* stream);
 cudaError_t tpucg_probe_row_gather_f32(const void* x2, const void* ridx, void* o,
-                                       long long nrows, int warps, void* stream);
+                                       long long nrows, void* stream);
 cudaError_t tpucg_probe_elem_gather_f32(const void* xf, const void* eidx, void* o, long long n,
-                                        int threads, int per, int stream_io, void* stream);
+                                        int streamed, void* stream);
 cudaError_t tpucg_probe_dynslice_f32(const void* w, const void* x2, void* o, int nw, int slots,
                                      void* stream);
 cudaError_t tpucg_probe_roll_dyn_f32(const void* shift, const void* x, void* o, long long rows,

@@ -76,44 +76,41 @@
 //   gathers in flight, a float4 store) was tried and ran slower than this
 //   walk at the script's shape and at a 16,384-row v (PERF.md, section 6): a
 //   warp's 4 gathers of 32 rows each leave the load pipe one after another.
-// P3 row_gather_kernel<Warps>: o[i, :] = x2[ridx[i], :]. The parent's walk,
-//   kept: a warp a row, every lane loading the row's index (one broadcast),
-//   then its float4 of the row (__ldg), and storing it; a 512-byte read and
-//   write a warp. What bounds it is two dependent round trips to L2, the
-//   index and then the row, after the launch: x2 (1 MB) fits no block's
-//   shared memory, so no row can be asked for before its index arrives.
-//   row_gather_plan keeps the parent's 8 warps a block; the width is a
-//   template argument, as the parent's was (read from blockDim, the same
-//   walk ran 0.03 us slower at 256 rows and 0.10-0.19 at 2048). Tried and
-//   lost or tied (bench/p3p4_forms.py; PERF.md section 6, PR 17): fewer
-//   warps a block, the rows on every SM (256 rows: 1 or 2 warps 2.36 us,
-//   4 2.32, 8 2.31; 2048 rows: 1, 2, 4 warps 3.47, 2.85, 2.55 against 2.36;
-//   16 warps 2.32 and 2.46), 2 or 4 rows a warp with every index loaded
-//   first (lane r loads row r's, shuffled out; +0.08 to +0.57 us), and the
-//   row read through L2 only with an evict-first store (__ldcg, __stcs:
-//   within 0.01 us).
-// P4 elem_gather_kernel<Threads, Per, Stream>: o = xf[eidx]. Each element
-//   is a random 4-byte read of a 1 MB vector: one 32-byte sector through L2
-//   for 4 useful bytes, asked for only once its index has arrived, so two
-//   dependent round trips and, at the script's 32,768 elements, 1 MB of
-//   sectors (256 requests on each SM's load unit). Two walks, chosen by
-//   elem_gather_plan (kernels/probe_gather.py). Below 2 waves of 2048
-//   threads an SM, the parent's: an element a thread, 256 threads a block,
-//   __ldg of the index and of xf, a plain store (the script's shape and
-//   2048 x 128 elements: the parent's time). From 2 waves, the streaming
-//   walk: 2 elements a thread (both indices, then both gathers, then both
-//   stores) with the indices read and o written evict-first (__ldcs,
+// P3 row_gather_kernel: o[i, :] = x2[ridx[i], :]. The parent's kernel,
+//   unchanged: a warp a row in blocks of 8 warps, every lane loading the
+//   row's index (one broadcast), then its float4 of the row (__ldg), and
+//   storing it; a 512-byte read and write a warp. What bounds it is two
+//   dependent round trips to L2, the index and then the row, after the
+//   launch: x2 (1 MB) fits no block's shared memory, so no row can be asked
+//   for before its index arrives. At its floor: tried and lost or tied
+//   (PERF.md section 6): fewer warps a block, the rows on every SM
+//   (256 rows: 1 or 2 warps 2.36 us, 4 2.32, 8 2.31; 2048 rows: 1, 2, 4
+//   warps 3.47, 2.85, 2.55 against 2.36; 16 warps 2.32 and 2.46), 2 or 4
+//   rows a warp with every index loaded first (lane r loads row r's,
+//   shuffled out; +0.08 to +0.57 us), the row read through L2 only with an
+//   evict-first store (__ldcg, __stcs: within 0.01 us), and the block width
+//   read from blockDim (+0.03 us at 256 rows, +0.10-0.19 at 2048).
+// P4 elem_gather_kernel<Per>: o = xf[eidx]. Each element is a random
+//   4-byte read of a 1 MB vector: one 32-byte sector through L2 for 4 useful
+//   bytes, asked for only once its index has arrived, so two dependent round
+//   trips and, at the script's 32,768 elements, 1 MB of sectors (256
+//   requests on each SM's load unit). Two walks, chosen by elem_gather_plan
+//   (kernels/probe_gather.py), both in blocks of kThreads. Below 2 waves of
+//   2048 threads an SM, the parent's: an element a thread, __ldg of the
+//   index and of xf, a plain store (the script's shape and 2048 x 128
+//   elements: the parent's time). From 2 waves, the streaming walk:
+//   kEgStreamPer elements a thread (both indices, then both gathers, then
+//   both stores) with the indices read and o written evict-first (__ldcs,
 //   __stcs), so the table stays in L2 while the indices and o stream
 //   through device memory: FEM 300k's 5.4 M reads in CSR order 27.0 -> 18.0
-//   us, 2.5% faster at 1-2 M random reads. Tried and lost
-//   (bench/p3p4_forms.py; PERF.md section 6, PR 17): blocks of 64 or 128
-//   threads, the elements spread over every SM (within +-0.1 us at the
-//   script's shape across calls, 4.97 us against 4.23 at 262,144 at 64,
-//   2x slower at FEM at 64); xf through L2 only (__ldcg: no gain at the
-//   script's shape, 1-3% slower at 262,144 and at FEM than __ldg); 2 or 4
-//   elements a thread at the script's shape (fewer warps, +0.03 to +0.3
-//   us); 4 elements a thread streamed (16.8 us at FEM's CSR order, but
-//   slower than the parent's walk on 4 M random reads).
+//   us, 2.5% faster at 1-2 M random reads. Tried and lost (PERF.md section
+//   6): blocks of 64 or 128 threads, the elements spread over every
+//   SM (within +-0.1 us at the script's shape across calls, 4.97 us against
+//   4.23 at 262,144 at 64, 2x slower at FEM at 64); xf through L2 only
+//   (__ldcg: no gain at the script's shape, 1-3% slower at 262,144 and at
+//   FEM than __ldg); 2 or 4 elements a thread at the script's shape (fewer
+//   warps, +0.03 to +0.3 us); 4 elements a thread streamed (16.8 us at FEM's
+//   CSR order, but slower than the parent's walk on 4 M random reads).
 // P5 dynslice_kernel: o = sum over k of x2[w[k] : w[k] + 8, :], in k order.
 //   The parent ran one block of 8 x 128 threads whose 64 window loads each
 //   fed an add that waits on the one before, so only the few loads the
@@ -159,6 +156,8 @@ constexpr int kLane = 128;        // elements in a row
 constexpr int kRowBytes = 4 * kLane;
 constexpr int kWindow = 8;        // rows of a P5 window
 constexpr int kMaxWindows = 1024; // P5 windows a launch (shared offsets)
+constexpr int kThreads = 256;     // threads of a P3 and P4 block (P3: a warp a row)
+constexpr int kEgStreamPer = 2;   // elements a thread of P4's streaming walk
 constexpr int kMaxDevices = 16;   // devices whose shared memory limit is raised once
 constexpr int kMaxSmem = 232448;  // shared memory a block may take (227 KB)
 
@@ -174,14 +173,6 @@ constexpr int kSgGroups = kLane / kSgCols;
 constexpr int kSgMaxRows = kMaxSmem / (4 * kSgCols);  // rows of v a slab may hold (7,264)
 constexpr int kSgMaxThreads = 256;
 constexpr int kSgIdx = 8;
-// P3: a block takes 1, 2, 4, ... kRgMaxWarps warps, a row each. P4: a block
-// takes kEgMinThreads, 2 kEgMinThreads, ... kEgMaxThreads threads, a thread
-// up to kEgMaxPer elements. Each width is a template argument, as the
-// parents' were: read from blockDim, the same walks ran up to 0.19 us slower.
-constexpr int kRgMaxWarps = 16;
-constexpr int kEgMinThreads = 64;
-constexpr int kEgMaxThreads = 256;
-constexpr int kEgMaxPer = 2;
 
 // Bulk copies global -> shared completed on mbarriers (PTX, sm_90).
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -298,13 +289,10 @@ sub_gather_direct_kernel(const float* __restrict__ v, const int* __restrict__ id
   o[at] = __ldg(v + static_cast<long long>(__ldg(idx + at)) * kLane + (at & (kLane - 1)));
 }
 
-// P3. Warp w of block b takes row b * Warps + w: every lane loads the row's
-// index (one broadcast), then its float4 of the row.
-template <int Warps>
-__global__ void __launch_bounds__(Warps * 32)
+__global__ void __launch_bounds__(kThreads)
 row_gather_kernel(const float* __restrict__ x2, const int* __restrict__ ridx,
                   float* __restrict__ o, long long nrows) {
-  const long long row = static_cast<long long>(blockIdx.x) * Warps + threadIdx.x / 32;
+  const long long row = static_cast<long long>(blockIdx.x) * (kThreads / 32) + threadIdx.x / 32;
   if (row >= nrows) return;
   const int lane = threadIdx.x & 31;
   const long long src = static_cast<long long>(__ldg(ridx + row));
@@ -312,32 +300,34 @@ row_gather_kernel(const float* __restrict__ x2, const int* __restrict__ ridx,
   reinterpret_cast<float4*>(o + row * kLane)[lane] = val;
 }
 
-// P4. Thread t of block b takes the Per elements b * Threads * Per + j *
-// Threads + t, j < Per: their indices loaded, then their gathers issued,
-// before the first store. Stream: the indices read and o written
-// evict-first (__ldcs, __stcs); xf is read through __ldg in both walks.
-template <int Threads, int Per, bool Stream>
-__global__ void __launch_bounds__(Threads)
+// P4. Thread t of block b takes the Per elements b * kThreads * Per + j *
+// kThreads + t, j < Per: their indices loaded, then their gathers issued,
+// before the first store. Per = 1 is the parent's walk; Per =
+// kEgStreamPer the streaming walk, the indices read and o written
+// evict-first (__ldcs, __stcs). xf is read through __ldg in both.
+template <int Per>
+__global__ void __launch_bounds__(kThreads)
 elem_gather_kernel(const float* __restrict__ xf, const int* __restrict__ eidx,
                    float* __restrict__ o, long long n) {
-  const long long first = static_cast<long long>(blockIdx.x) * (Threads * Per) + threadIdx.x;
+  constexpr bool Stream = Per > 1;
+  const long long first = static_cast<long long>(blockIdx.x) * (kThreads * Per) + threadIdx.x;
   if (first >= n) return;  // the thread's elements all lie at first or past it
   int e[Per];
   float v[Per];
 #pragma unroll
   for (int j = 0; j < Per; ++j)
-    if (first + j * Threads < n) e[j] = Stream ? __ldcs(eidx + first + j * Threads)
-                                               : __ldg(eidx + first + j * Threads);
+    if (first + j * kThreads < n) e[j] = Stream ? __ldcs(eidx + first + j * kThreads)
+                                                : __ldg(eidx + first + j * kThreads);
 #pragma unroll
   for (int j = 0; j < Per; ++j)
-    if (first + j * Threads < n) v[j] = __ldg(xf + e[j]);
+    if (first + j * kThreads < n) v[j] = __ldg(xf + e[j]);
 #pragma unroll
   for (int j = 0; j < Per; ++j) {
-    if (first + j * Threads >= n) continue;
+    if (first + j * kThreads >= n) continue;
     if (Stream)
-      __stcs(o + first + j * Threads, v[j]);
+      __stcs(o + first + j * kThreads, v[j]);
     else
-      o[first + j * Threads] = v[j];
+      o[first + j * kThreads] = v[j];
   }
 }
 
@@ -508,58 +498,31 @@ extern "C" cudaError_t tpucg_probe_sub_gather_f32(const void* v, const void* idx
   return cudaGetLastError();
 }
 
-namespace tpucg {
-namespace {
-
-// P3 on blocks of Warps warps, or on the next width down from `warps`.
-template <int Warps>
-cudaError_t launch_row_gather(int warps, const void* x2, const void* ridx, void* o,
-                              long long nrows, cudaStream_t s) {
-  if constexpr (Warps > 1)
-    if (warps < Warps) return launch_row_gather<Warps / 2>(warps, x2, ridx, o, nrows, s);
-  if (warps != Warps) return cudaErrorInvalidValue;
-  const unsigned grid = blocks_for(nrows, Warps);
+extern "C" cudaError_t tpucg_probe_row_gather_f32(const void* x2, const void* ridx, void* o,
+                                                  long long nrows, void* stream) {
+  const unsigned grid = tpucg::blocks_for(nrows * kLane, tpucg::kThreads / 32 * kLane);
   if (grid == 0) return cudaErrorInvalidValue;
-  row_gather_kernel<Warps><<<grid, Warps * 32, 0, s>>>(
-      static_cast<const float*>(x2), static_cast<const int*>(ridx), static_cast<float*>(o), nrows);
+  tpucg::row_gather_kernel<<<grid, tpucg::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x2), static_cast<const int*>(ridx), static_cast<float*>(o),
+      nrows);
   return cudaGetLastError();
 }
 
-// P4 on blocks of Threads threads, or on the next width down from `threads`.
-template <int Threads>
-cudaError_t launch_elem_gather(int threads, int per, bool stream_io, const void* xf,
-                               const void* eidx, void* o, long long n, cudaStream_t s) {
-  if constexpr (Threads > kEgMinThreads)
-    if (threads < Threads)
-      return launch_elem_gather<Threads / 2>(threads, per, stream_io, xf, eidx, o, n, s);
-  if (threads != Threads || per < 1 || per > kEgMaxPer) return cudaErrorInvalidValue;
-  const unsigned grid = blocks_for(n, static_cast<long long>(Threads) * per);
+extern "C" cudaError_t tpucg_probe_elem_gather_f32(const void* xf, const void* eidx, void* o,
+                                                   long long n, int streamed, void* stream) {
+  using namespace tpucg;
+  const unsigned grid = blocks_for(n, static_cast<long long>(kThreads) *
+                                          (streamed ? kEgStreamPer : 1));
   if (grid == 0) return cudaErrorInvalidValue;
   const auto* x = static_cast<const float*>(xf);
   const auto* e = static_cast<const int*>(eidx);
   auto* out = static_cast<float*>(o);
-  const dim3 g(grid), b(Threads);
-  if (per == 1 && !stream_io) elem_gather_kernel<Threads, 1, false><<<g, b, 0, s>>>(x, e, out, n);
-  if (per == 1 && stream_io) elem_gather_kernel<Threads, 1, true><<<g, b, 0, s>>>(x, e, out, n);
-  if (per == 2 && !stream_io) elem_gather_kernel<Threads, 2, false><<<g, b, 0, s>>>(x, e, out, n);
-  if (per == 2 && stream_io) elem_gather_kernel<Threads, 2, true><<<g, b, 0, s>>>(x, e, out, n);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (streamed)
+    elem_gather_kernel<kEgStreamPer><<<grid, kThreads, 0, s>>>(x, e, out, n);
+  else
+    elem_gather_kernel<1><<<grid, kThreads, 0, s>>>(x, e, out, n);
   return cudaGetLastError();
-}
-
-}  // namespace
-}  // namespace tpucg
-
-extern "C" cudaError_t tpucg_probe_row_gather_f32(const void* x2, const void* ridx, void* o,
-                                                  long long nrows, int warps, void* stream) {
-  return tpucg::launch_row_gather<tpucg::kRgMaxWarps>(warps, x2, ridx, o, nrows,
-                                                      static_cast<cudaStream_t>(stream));
-}
-
-extern "C" cudaError_t tpucg_probe_elem_gather_f32(const void* xf, const void* eidx, void* o,
-                                                   long long n, int threads, int per, int stream_io,
-                                                   void* stream) {
-  return tpucg::launch_elem_gather<tpucg::kEgMaxThreads>(threads, per, stream_io != 0, xf, eidx,
-                                                         o, n, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" cudaError_t tpucg_probe_dynslice_f32(const void* w, const void* x2, void* o, int nw,

@@ -15,9 +15,9 @@ solve runs them. All rows are 128 f32 wide and all indices int32:
   its 8 columns of v in shared memory where it reuses them over enough
   rows of idx, else each thread gathers an element from L2.
 - P3 ``row_gather``: ``o[i, :] = x2[ridx[i], :]`` (whole rows), a warp a
-  row on ``row_gather_plan``; bound by two dependent round trips to L2
-  (the index, then the row). The parent's 8 warps a block are kept: fewer
-  warps, several rows a warp and L2-only reads tied or lost.
+  row in blocks of 8 warps; bound by two dependent round trips to L2 (the
+  index, then the row). At its floor: fewer warps a block, several rows a
+  warp and L2-only reads tied or lost.
 - P4 ``elem_gather``: ``o = xf[eidx]`` (single elements of a flat vector),
   bound by the same two round trips and a 32-byte sector through L2 an
   element. ``elem_gather_plan`` keeps the parent's element a thread below
@@ -81,17 +81,11 @@ SG_MAX_THREADS = 256
 # of runs near sqrt(SG_RUN_BALANCE * rows / v_rows).
 SG_STAGED_RATIO = 0.75
 SG_RUN_BALANCE = 17
-# P3's (kRg*): a warp a row, 1, 2, 4 ... RG_MAX_WARPS warps a block; the
-# plan takes RG_WARPS. P4's (kEg*): EG_MIN_THREADS, twice as many ...
-# EG_MAX_THREADS threads a block, up to EG_MAX_PER elements a thread; the
-# plan takes EG_THREADS threads, and streams from EG_STREAM_PER_SM elements
-# an SM.
-RG_MAX_WARPS = 16
-RG_WARPS = 8
-EG_MIN_THREADS = 64
-EG_MAX_THREADS = 256
-EG_MAX_PER = 2
-EG_THREADS = 256
+# P3's and P4's block (kThreads; P3: a warp a row), and the elements a
+# thread of P4's streaming walk (kEgStreamPer), which its plan takes from
+# EG_STREAM_PER_SM elements an SM (2 waves of 2048 threads).
+THREADS = 256
+EG_STREAM_PER = 2
 EG_STREAM_PER_SM = 2 * 2048
 
 
@@ -326,50 +320,15 @@ def row_gather_torch(x2: torch.Tensor, ridx: torch.Tensor) -> torch.Tensor:
     return x2[ridx.long()]
 
 
-@dataclasses.dataclass(frozen=True)
-class RowGatherPlan:
-    """How P3's kernel covers ``rows`` rows of o: a warp a row, ``warps``
-    warps a block, warp w of block b taking row ``b * warps + w``."""
-
-    rows: int
-    warps: int
-
-    @property
-    def blocks(self) -> int:
-        return -(-self.rows // self.warps)
-
-    def row(self, b: int, w: int) -> int:
-        """The row of warp w of block b (``rows`` or more: none)."""
-        return b * self.warps + w
-
-    def __str__(self) -> str:
-        return f"{self.blocks} blocks of {self.warps} warps, a row a warp"
-
-
-def row_gather_plan(rows: int) -> RowGatherPlan:
-    """P3's plan: ``RG_WARPS`` warps a block at every size, the parent's
-    walk. Fewer warps a block (the rows on more SMs) tied at 256 rows and
-    lost at 2048; more rows a warp, or the rows read through L2 only, tied
-    or lost at both (``bench/p3p4_forms.py``, PERF.md section 6, PR 17)."""
-    if rows < 1:
-        raise ValueError(f"row_gather_plan needs rows >= 1, got {rows}")
-    return RowGatherPlan(rows, RG_WARPS)
-
-
-def row_gather_cuda(x2: torch.Tensor, ridx: torch.Tensor,
-                    _plan: RowGatherPlan | None = None) -> torch.Tensor:
+def row_gather_cuda(x2: torch.Tensor, ridx: torch.Tensor) -> torch.Tensor:
     """P3 on the card: x2 f32 (rows, 128), 16-byte aligned, ridx int32 (m,)
-    -> (m, 128), on ``row_gather_plan`` (``_plan`` forces one)."""
+    -> (m, 128)."""
     _check("row_gather_cuda", "x2", x2, torch.float32, (None, LANE))
     _check("row_gather_cuda", "ridx", ridx, torch.int32, (None,))
-    _aligned("row_gather_cuda", x2=x2)
-    _on_card("row_gather_cuda", (x2, ridx), x2)
-    m = ridx.shape[0]
-    plan = _plan or row_gather_plan(m)
-    if plan.rows != m:
-        raise ValueError(f"row_gather_cuda: a plan for {plan.rows} rows, given {m}")
-    o = torch.empty((m, LANE), dtype=torch.float32, device=ridx.device)
-    _launch("row_gather_cuda", "tpucg_probe_row_gather_f32", (x2, ridx, o), (m, plan.warps), x2)
+    if x2.data_ptr() % 16:
+        raise ValueError("row_gather_cuda: x2 must be 16-byte aligned (float4 row loads)")
+    o = torch.empty((ridx.shape[0], LANE), dtype=torch.float32, device=ridx.device)
+    _launch("row_gather_cuda", "tpucg_probe_row_gather_f32", (x2, ridx, o), (ridx.shape[0],), x2)
     row_gather_cuda.launches += 1
     return o
 
@@ -392,16 +351,20 @@ def elem_gather_torch(xf: torch.Tensor, eidx: torch.Tensor) -> torch.Tensor:
 
 @dataclasses.dataclass(frozen=True)
 class ElemGatherPlan:
-    """How P4's kernel covers ``n`` elements of o: blocks of ``threads``
-    threads, thread t of block b taking the ``per`` elements ``b * threads
-    * per + j * threads + t`` (their indices loaded, then their gathers
-    issued, before the first store); ``stream``: the indices read and o
-    written evict-first."""
+    """How P4's kernel covers ``n`` elements of o: blocks of ``THREADS``
+    threads, thread t of block b taking the ``per`` elements ``b * THREADS
+    * per + j * THREADS + t`` (their indices loaded, then their gathers
+    issued, before the first store); ``stream``: ``EG_STREAM_PER`` elements
+    a thread, the indices read and o written evict-first, else one."""
 
     n: int
-    threads: int
-    per: int = 1
     stream: bool = False
+
+    threads = THREADS
+
+    @property
+    def per(self) -> int:
+        return EG_STREAM_PER if self.stream else 1
 
     @property
     def blocks(self) -> int:
@@ -415,24 +378,21 @@ class ElemGatherPlan:
 
     def __str__(self) -> str:
         walk = (f"{self.per} elements a thread, indices and o evict-first" if self.stream
-                else f"{self.per} element{'s' if self.per > 1 else ''} a thread")
+                else "1 element a thread")
         return f"{self.blocks} blocks of {self.threads} threads, {walk}"
 
 
 def elem_gather_plan(n: int, sms: int = SMS) -> ElemGatherPlan:
     """P4's plan for ``n`` elements on ``sms`` SMs: the parent's walk (an
-    element a thread, ``EG_THREADS`` a block) below ``EG_STREAM_PER_SM x
-    sms`` elements (2 waves of 2048 threads an SM); from there the
-    streaming walk, 2 elements a thread with the indices and o evict-first,
-    which keeps the table in L2 while the indices stream through (FEM
-    300k's CSR columns 1.5x, 1-2 M random reads 2.5%; it loses at the
-    script's 32,768, where it leaves half the warps; ``bench/p3p4_forms.py``,
-    PERF.md section 6, PR 17)."""
+    element a thread) below ``EG_STREAM_PER_SM x sms`` elements (2 waves of
+    2048 threads an SM); from there the streaming walk, ``EG_STREAM_PER``
+    elements a thread with the indices and o evict-first, which keeps the
+    table in L2 while the indices stream through (FEM 300k's CSR columns
+    1.5x, 1-2 M random reads 2.5%; it loses at the script's 32,768, where it
+    leaves half the warps; PERF.md section 6)."""
     if n < 1 or sms < 1:
         raise ValueError(f"elem_gather_plan needs n and sms >= 1, got {n}, {sms}")
-    if n >= EG_STREAM_PER_SM * sms:
-        return ElemGatherPlan(n, EG_THREADS, EG_MAX_PER, True)
-    return ElemGatherPlan(n, EG_THREADS)
+    return ElemGatherPlan(n, n >= EG_STREAM_PER_SM * sms)
 
 
 def elem_gather_cuda(xf: torch.Tensor, eidx: torch.Tensor,
@@ -448,7 +408,7 @@ def elem_gather_cuda(xf: torch.Tensor, eidx: torch.Tensor,
         raise ValueError(f"elem_gather_cuda: a plan for {plan.n} elements, given {n}")
     o = torch.empty(eidx.shape, dtype=torch.float32, device=eidx.device)
     _launch("elem_gather_cuda", "tpucg_probe_elem_gather_f32", (xf, eidx, o),
-            (n, plan.threads, plan.per, int(plan.stream)), xf)
+            (n, int(plan.stream)), xf)
     elem_gather_cuda.launches += 1
     return o
 
