@@ -31,6 +31,52 @@ def spd_kappa(n: int, kappa: float, seed: int):
     return A, b
 
 
+def tpucg_padded_dense(A):
+    """tpucg's XLA ``DenseOperator`` of A padded as the port pads it (an
+    identity tail to a multiple of 128), so both packages solve the same
+    operator: the spectrum (and the interval estimates of CA and
+    Chebyshev) includes the tail's eigenvalue 1. Imports tpucg (jax) when
+    called."""
+    import jax.numpy as jnp
+
+    import tpucg
+    from tpucg.io.partitioner import pad_identity_tail
+
+    A = np.asarray(A, np.float32)
+    n = A.shape[0]
+    npad = -(-n // 128) * 128
+    return tpucg.DenseOperator(A=jnp.asarray(pad_identity_tail(A, npad)), n=n, backend="xla")
+
+
+def held_to(port, ref, laps: int, x_true=None) -> int:
+    """Hold a port solve to tpucg's (``CGResult``s): laps within ``laps``,
+    the same ``converged``, and where the laps are equal x within 1e-5 of
+    max |x|, or, where tpucg's own x is further than that from ``x_true``
+    (an ill-conditioned system), within tpucg's distance to it and no
+    further from it than twice that: two f32 solves of one system agree
+    only to their rounding carried through its condition number (XLA on
+    the CPU also fuses each axpy into one FMA, torch does not). Returns the
+    port's laps."""
+    kp, kr = int(port.iterations), int(ref.iterations)
+    assert abs(kp - kr) <= laps, (kp, kr)
+    assert bool(port.converged) == bool(ref.converged)
+    if kp == kr:
+        x, xr = np.asarray(port.x.cpu()), np.asarray(ref.x)
+        bound = 1e-5
+        if x_true is not None:
+            own = scaled_err(xr, x_true)
+            bound = max(bound, own)
+            assert scaled_err(x, x_true) <= 2 * own
+        assert scaled_err(x, xr) <= bound, (scaled_err(x, xr), bound)
+    return kp
+
+
+def laplacian1d(n: int):
+    """The 1-D Laplacian tridiag(-1, 2, -1), float32: a constant-diagonal
+    band where point Jacobi changes nothing and block Jacobi does."""
+    return (2 * np.eye(n) - np.eye(n, k=1) - np.eye(n, k=-1)).astype(np.float32)
+
+
 def circulant_spd_batch(nsys: int, n: int, seed: int = 0):
     """A batch of dense SPD systems whose lap counts are fixed by their
     spectra, not by rounding: (A (nsys, n, n), b (nsys, n), X0 (nsys, n)),

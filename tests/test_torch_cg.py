@@ -155,31 +155,42 @@ def test_operator_padding_matches_tpucg(n, npad):
 
 
 @pytest.mark.parametrize(
-    "kw",
+    "kw, laps",
     [
-        dict(method="pipelined"),
-        dict(method="ca"),
-        dict(method="chebyshev"),
-        dict(precondition="block_jacobi"),
-        dict(dtype=torch.float64),
-        dict(two_level=object()),
-        dict(interval=(1.0, 2.0)),
+        (dict(method="pipelined"), 0),
+        (dict(method="ca"), 3),
+        (dict(method="chebyshev"), 8),
+        (dict(precondition="block_jacobi"), 0),
+        (dict(dtype=torch.float64), None),
+        (dict(two_level=object()), None),
+        (dict(method="ca", interval=(1.0, 5.0)), 3),
     ],
     ids=["pipelined", "ca", "chebyshev", "block_jacobi", "f64", "two_level", "interval"],
 )
-def test_unported_options_name_their_roadmap_item(kw):
+def test_unported_options_name_their_roadmap_item(kw, laps):
+    # f64 solves (M9) and two-level PCG (M12) still name their ROADMAP item;
+    # M8's methods, block Jacobi and cached intervals solve the 2x2 golden
+    # as tpucg does: its laps (within a CA block or a Chebyshev check) and x.
     g = GOLDEN_2X2
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cg_solve(g["A"], g["b"], device=CPU, **kw)
+    if laps is None:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            cg_solve(g["A"], g["b"], device=CPU, **kw)
+        return
+    port = cg_solve(g["A"], g["b"], g["x0"], device=CPU, maxiter=256, **kw)
+    ref = tpucg.cg_solve(g["A"], g["b"], g["x0"], kernel="xla", maxiter=256, **kw)
+    assert bool(port.converged) and bool(ref.converged)
+    assert abs(int(port.iterations) - int(ref.iterations)) <= laps
+    np.testing.assert_allclose(port.x.numpy(), g["x_star"], atol=2e-3)
+    np.testing.assert_allclose(port.x.numpy(), np.asarray(ref.x), atol=2e-3)
 
 
 def test_sparse_input_names_its_roadmap_slice():
-    # A bare CSR solves through tpucg's ELL operator; what sparse solves
-    # still lack names its ROADMAP item (block Jacobi's blocks: M8).
+    # A bare CSR solves through tpucg's ELL operator, which stores no
+    # addressable diagonal blocks: block Jacobi meets tpucg's own refusal.
     csr = poisson3d_csr(4)
     res = cg_solve(csr, np.ones(64, np.float32), device=CPU)
     assert bool(res.converged) and res.x.shape == (64,)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="does not expose diagonal blocks"):
         cg_solve(csr, np.ones(64, np.float32), device=CPU, precondition="block_jacobi")
 
 
@@ -191,20 +202,19 @@ def test_kernel_cuda_on_cpu_raises():
 
 @pytest.mark.parametrize("knob", ["strategy", "pc_block_size", "s_step", "check_every"])
 def test_knobs_of_unported_slices_are_refused(knob):
-    # tpucg's knobs of ca/chebyshev and block_jacobi are not fields here:
-    # passing one fails instead of being ignored. `strategy` is back with the
-    # sharded solves: validated as tpucg validates it, ignored by a serial
-    # solve as tpucg's ignores it.
+    # Each knob is validated as tpucg validates it (tpucg's defaults and
+    # bounds: pc_block_size 64 >= 2, s_step 3 >= 1, check_every 8 >= 1); a
+    # solve that does not read it ignores it, as tpucg's does (`strategy`:
+    # the sharded solves).
     g = GOLDEN_2X2
-    if knob == "strategy":
-        with pytest.raises(ValueError, match="strategy"):
-            CGConfig(strategy="bogus")
-        assert int(cg_solve(g["A"], g["b"], device=CPU, strategy="overlap").iterations) == 2
-        return
-    with pytest.raises(TypeError, match=knob):
-        CGConfig(**{knob: 2})
-    with pytest.raises(TypeError, match=knob):
-        cg_solve(g["A"], g["b"], device=CPU, **{knob: 2})
+    bad, good = {"strategy": ("bogus", "overlap"), "pc_block_size": (1, 2), "s_step": (0, 2),
+                 "check_every": (0, 2)}[knob]
+    assert getattr(CGConfig(), knob) == getattr(tpucg.CGConfig(), knob)
+    with pytest.raises(ValueError, match=knob):
+        CGConfig(**{knob: bad})
+    with pytest.raises(ValueError, match=knob):
+        cg_solve(g["A"], g["b"], device=CPU, **{knob: bad})
+    assert int(cg_solve(g["A"], g["b"], device=CPU, **{knob: good}).iterations) == 2
 
 
 def test_operator_backend_resolves_from_its_device():

@@ -1,7 +1,8 @@
 """``python -m tpucg_torch solve A.mtx b.mtx`` against tpucg's CLI, both run
 in-process on the CPU: the same operator class, laps within one and x
 within 1e-4 of max |x|, with and without a reordering; the bench forms of
-tpucg's sparse operators; the options that later slices bring."""
+tpucg's sparse operators; the methods, block Jacobi and cached intervals
+against tpucg's CLI; the options that later slices bring."""
 
 import re
 
@@ -90,14 +91,83 @@ def test_solve_mtx_bf16_and_dense_array_files(tmp_path, capsys):
     (["--precondition", "block_jacobi"], "M8"),
     (["--pc-block-size", "32"], "M8"),
 ])
-def test_later_slices_name_their_roadmap_item(tmp_path, flags, item):
-    # A distributed solve of an irregular matrix (promoted to WELL) is still
+def test_later_slices_name_their_roadmap_item(tmp_path, capsys, flags, item):
+    # M8's options (method, block Jacobi) now solve, as tpucg's CLI does. A
+    # distributed solve of an irregular matrix (promoted to WELL) is still
     # refused: it needs the WELL shard packers.
     A, b = SYSTEMS["geometric_shuffled" if "--strategy" in flags else "poisson"]()
     pa, pb = _files(tmp_path, A, b)
+    if item == "M8":
+        _held_to_tpucgs_cli(tmp_path, capsys, pa, pb, A, b, flags, laps=3)
+        return
     with pytest.raises(NotImplementedError, match=item) as err:
         cli.main(["solve", pa, pb, "--device", "cpu"] + flags)
     assert "--strategy" not in flags or "shard packers" in str(err.value)
+
+
+def _held_to_tpucgs_cli(tmp_path, capsys, pa, pb, A, b, flags, laps):
+    """One solve through both CLIs at tol 1e-5 ||b||: rc 0, the same
+    operator class, laps within ``laps`` (for CA: no more than ``laps``
+    over tpucg's, since the port's Gram, summed in f64, refutes fewer of
+    the tentative stops that tpucg's f32 Gram fires), x within 1e-4 of
+    max |x|."""
+    common = ["solve", pa, pb, "--tol", str(1e-5 * float(np.linalg.norm(b))),
+              "--maxiter", "3000"] + flags
+    x_ours, x_theirs = str(tmp_path / "x.txt"), str(tmp_path / "jx.txt")
+    rc, out, fmt, k = _run(cli.main, common + ["--device", "cpu", "--output", x_ours], capsys)
+    jrc, jout, jfmt_, jk = _run(jcli.main, common + ["--output", x_theirs], capsys)
+    assert rc == jrc == 0, out + jout
+    assert fmt == jfmt_
+    assert (k - jk <= laps if "ca" in flags else abs(k - jk) <= laps), (k, jk)
+    n = A.shape[0]
+    assert scaled_err(load_vector(x_ours, n=n), load_vector(x_theirs, n=n)) <= 1e-4
+    return out
+
+
+@pytest.mark.parametrize("flags,laps", [
+    (["--method", "pipelined", "--precondition", "jacobi"], 1),
+    (["--method", "ca", "--s-step", "4"], 4),
+    (["--method", "chebyshev", "--check-every", "4"], 4),
+    (["--method", "chebyshev", "--interval", "0.3", "12.0"], 8),
+    (["--method", "ca", "--interval", "0.3", "12.0"], 3),
+    (["--precondition", "block_jacobi", "--pc-block-size", "36"], 1),
+    (["--method", "pipelined", "--precondition", "block_jacobi"], 1),
+])
+def test_solve_methods_match_tpucgs_cli(tmp_path, capsys, flags, laps):
+    # The Poisson m = 6 Laplacian (promoted to DIA; its spectrum lies in
+    # [0.3, 12]).
+    A, b = SYSTEMS["poisson"]()
+    pa, pb = _files(tmp_path, A, b)
+    out = _held_to_tpucgs_cli(tmp_path, capsys, pa, pb, A, b, flags, laps)
+    assert "DiaOperator" in out
+
+
+def test_solve_fem_block_jacobi_carries_the_blocks_to_well(tmp_path, capsys):
+    # An irregular .mtx promoted to WELL: the promotion takes block Jacobi's
+    # blocks from the CSR, as tpucg's does.
+    A, b = SYSTEMS["fem"]()
+    pa, pb = _files(tmp_path, A, b)
+    out = _held_to_tpucgs_cli(tmp_path, capsys, pa, pb, A, b,
+                              ["--precondition", "block_jacobi", "--pc-block-size", "32"], 1)
+    assert "[WellOperator]" in out
+
+
+def test_residual_history_needs_method_cg(tmp_path, capsys):
+    A, b = SYSTEMS["poisson"]()
+    pa, pb = _files(tmp_path, A, b)
+    rc, out, _, _ = _run(cli.main, ["solve", pa, pb, "--device", "cpu", "--method", "ca",
+                                    "--residual-history"], capsys)
+    assert rc == 0 and "requires --method cg" in out and "||r_0||" not in out
+
+
+def test_distributed_methods_name_m14(tmp_path):
+    pa, pb = str(tmp_path / "A.npy"), str(tmp_path / "b.npy")
+    np.save(pa, np.eye(16, dtype=np.float32))
+    np.save(pb, np.ones(16, np.float32))
+    for flags in (["--method", "pipelined"], ["--precondition", "block_jacobi"],
+                  ["--method", "ca", "--interval", "1", "2"]):
+        with pytest.raises(NotImplementedError, match="M14"):
+            cli.main(["solve", pa, pb, "--device", "cpu", "--strategy", "allgather"] + flags)
 
 
 def test_bf16_refused_for_bsr():

@@ -41,6 +41,7 @@ from tpucg_torch.kernels.blas1 import (
     LapTail,
     alpha_torch,
     dot_alpha_cuda,
+    dot_alpha_torch,
     dot_alpha_launch,
     dot_cuda,
     dot_launch,
@@ -1661,3 +1662,115 @@ def test_row_and_elem_gather_refuse_what_they_cannot_run(cuda_device):
     with pytest.raises(ValueError, match="CUDA device"):
         kp.elem_gather_cuda(xf.cpu(), eidx)
     assert (kp.row_gather_cuda.launches, kp.elem_gather_cuda.launches) == before
+
+
+# ---- M8 on the card: pipelined, CA, Chebyshev, block Jacobi, intervals --------
+
+M8_CUDA = (matvec_cuda, dot_cuda, poisson3d_cuda, well_spmv_cuda, fused_update_cuda)
+M8_PLAIN = (matvec_torch, dot_torch, poisson3d_torch, well_spmv_torch, fused_update_torch,
+            dot_alpha_torch, lap_tail_torch, p_update_torch)
+
+
+def _counted(fn):
+    """fn() with the launch counts of the kernels and plain versions around
+    it: (result, {name: launches of the kernels}, launches of the plain
+    versions)."""
+    before = {w: w.launches for w in M8_CUDA + M8_PLAIN}
+    out = fn()
+    torch.cuda.synchronize()
+    moved = {w: w.launches - before[w] for w in before}
+    return (out, {w.__name__: moved[w] for w in M8_CUDA},
+            sum(moved[w] for w in M8_PLAIN))
+
+
+def _m8_held(card, plain, laps):
+    assert bool(card.converged) and bool(plain.converged)
+    assert abs(int(card.iterations) - int(plain.iterations)) <= laps
+    assert scaled_err(card.x.cpu().numpy(), plain.x.cpu().numpy()) <= 1e-4
+
+
+@pytest.mark.parametrize("method, pc, laps", [
+    ("pipelined", "none", 1), ("pipelined", "jacobi", 1), ("pipelined", "block_jacobi", 1),
+    ("ca", "none", 3), ("chebyshev", "none", 8), ("chebyshev", "block_jacobi", 8),
+    ("cg", "block_jacobi", 1),
+])
+def test_m8_dense_on_card_matches_plain(cuda_device, method, pc, laps):
+    A, b, x0 = generate_spd_system(1000, seed=2)
+    kw = dict(method=method, precondition=pc, pc_block_size=64, maxiter=2000,
+              tol=1e-5 * float(np.linalg.norm(b)))
+    op = DenseOperator.create(A, device=cuda_device)
+    card, k, plain_runs = _counted(lambda: cg_solve(op, b, x0, **kw))
+    plain = cg_solve(DenseOperator(A=op.A, n=op.n, backend="torch"), b, x0, kernel="torch",
+                     **kw)
+    _m8_held(card, plain, laps)
+    assert k["matvec_cuda"] > 0 and k["dot_cuda"] > 0 and plain_runs == 0
+    assert (k["fused_update_cuda"] > 0) == (method == "cg")
+    assert card.x.device == cuda_device
+
+
+@pytest.mark.parametrize("method, pc, laps", [
+    ("pipelined", "none", 1), ("chebyshev", "none", 8), ("ca", "none", 3),
+    ("cg", "block_jacobi", 1),
+])
+def test_m8_poisson_on_card_matches_plain(cuda_device, method, pc, laps):
+    m = 24
+    rng = np.random.default_rng(0)
+    xt = torch.as_tensor(rng.standard_normal(m ** 3).astype(np.float32), device=cuda_device)
+    b = poisson3d_torch(xt, m)
+    kw = dict(method=method, precondition=pc, maxiter=4000, tol=1e-5 * float(b.norm()))
+    op = PoissonOperator(m, device=cuda_device)
+    if method == "chebyshev":  # one interval, reused
+        from tpucg_torch.solver.cg import spectral_interval
+
+        kw["interval"] = spectral_interval(op)[:2]
+    card, k, plain_runs = _counted(lambda: cg_solve(op, b, **kw))
+    plain = cg_solve(PoissonOperator(m, backend="torch", device=cuda_device), b,
+                     kernel="torch", **kw)
+    _m8_held(card, plain, laps)
+    assert k["poisson3d_cuda"] > 0 and k["dot_cuda"] > 0 and plain_runs == 0
+    true = float((b.double() - poisson3d_torch(card.x.double(), m)).norm() / b.double().norm())
+    # Unpreconditioned pipelined CG has no residual replacement: its
+    # recurrence drifts to a true residual near 1e-4 ||b|| (tpucg's too).
+    assert true <= (2e-4 if (method, pc) == ("pipelined", "none") else 2e-5)
+
+
+def test_m8_well_block_jacobi_on_card_matches_plain(cuda_device):
+    import dataclasses
+
+    A, b, _ = fem_p1_system(3000, seed=0)
+    op = best_sparse_operator(A, device=cuda_device, pc_block_size=64)
+    assert isinstance(op, WellOperator) and op.dblk.device == cuda_device
+    kw = dict(tol=1e-5 * float(np.linalg.norm(b)), maxiter=4000, precondition="block_jacobi")
+    card, k, plain_runs = _counted(lambda: cg_solve(op, b, **kw))
+    plain = cg_solve(dataclasses.replace(op, backend="torch"), b, kernel="torch", **kw)
+    assert bool(card.converged) and bool(plain.converged)
+    assert abs(int(card.iterations) - int(plain.iterations)) <= 0.01 * int(plain.iterations) + 1
+    assert k["well_spmv_cuda"] > 0 and k["fused_update_cuda"] > 0 and plain_runs == 0
+
+
+@pytest.mark.parametrize("method", ["pipelined", "ca", "chebyshev"])
+def test_m8_chunk_sizes_bit_identical_on_card(cuda_device, method):
+    # A step enqueued after the stop (or past maxiter) changes nothing.
+    A, b, x0 = generate_spd_system(1000, seed=4)
+    kw = dict(method=method, tol=1e-5 * float(np.linalg.norm(b)), maxiter=500,
+              precondition="jacobi" if method == "pipelined" else "none")
+    runs = [cg_solve(A, b, x0, device=cuda_device, chunk=c, **kw) for c in (None, 1, 5, 64)]
+    for r in runs[1:]:
+        for f in ("x", "iterations", "residual_norm", "converged"):
+            assert torch.equal(getattr(r, f), getattr(runs[0], f)), f
+
+
+def test_m8_block_products_run_in_full_f32_on_card(cuda_device):
+    # strict_f32 (the fixture) keeps the block products and CA's Gram
+    # product off TF32: the card's block apply equals a float64 product to
+    # f32 rounding.
+    from tpucg_torch.solver.cg import block_jacobi_minv, make_block_precond
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    A, _, _ = generate_spd_system(1000, seed=3)
+    op = DenseOperator.create(A, device=cuda_device)
+    minv = block_jacobi_minv(op, 64)
+    r = _rand(cuda_device, op.padded_n, seed=5)
+    z = make_block_precond(minv, op.padded_n)(r)
+    want = torch.bmm(minv.double(), r.double().reshape(-1, 64, 1)).reshape(-1)
+    assert float((z.double() - want).abs().max()) <= 1e-5 * float(want.abs().max())

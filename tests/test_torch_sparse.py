@@ -206,8 +206,11 @@ def test_dia_operator_refuses_bad_input():
         DiaOperator(data=torch.zeros(2, 256), offsets=(-1, 0, 1), n=256)
     with pytest.raises(RuntimeError, match="CUDA"):
         DiaOperator.from_dia(dia, backend="cuda", device=CPU)
-    with pytest.raises(NotImplementedError, match="M8"):
-        DiaOperator.from_dia(dia, device=CPU).diagonal_blocks(8)
+    # Block Jacobi's blocks (once refused): tpucg's, bit for bit.
+    jdia = jfmt.DIAMatrix(offsets=np.asarray(dia.offsets), data=dia.data, shape=dia.shape)
+    np.testing.assert_array_equal(
+        DiaOperator.from_dia(dia, device=CPU).diagonal_blocks(8).numpy(),
+        np.asarray(JDiaOperator.from_dia(jdia, backend="pallas").diagonal_blocks(8)))
 
 
 def test_as_operator_takes_both_packages_dia():

@@ -159,9 +159,14 @@ def test_best_sparse_operator_picks_as_tpucg(case):
 
 
 def test_best_sparse_operator_pc_block_size_names_m8():
+    # pc_block_size (once refused as M8) has the WELL operator carry block
+    # Jacobi's blocks, taken from the CSR as tpucg takes them.
     A, _, _ = random_geometric_spd(600, seed=8)
-    with pytest.raises(NotImplementedError, match="M8"):
-        best_sparse_operator(A, pc_block_size=32, device=CPU)
+    op = best_sparse_operator(A, pc_block_size=32, device=CPU)
+    jop = jops.best_sparse_operator(_tpucg_csr(A), backend="xla", pc_block_size=32)
+    assert isinstance(op, WellOperator) and isinstance(jop, jops.WellOperator)
+    np.testing.assert_array_equal(op.diagonal_blocks(32).numpy(), np.asarray(jop.dblk))
+    assert best_sparse_operator(A, device=CPU).dblk is None
 
 
 def _tpucg_csr(csr):

@@ -69,8 +69,8 @@ def test_poisson_operator_surface():
     assert (op.n, op.padded_n, op.backend, op.device) == (1000, 1000, "torch", CPU)
     assert torch.equal(op.diagonal(), torch.full((1000,), 6.0))
     assert np.array_equal(np.asarray(JPoissonOperator(m=10).diagonal()), op.diagonal().numpy())
-    with pytest.raises(NotImplementedError, match="M8"):
-        op.diagonal_blocks(8)
+    np.testing.assert_array_equal(op.diagonal_blocks(8).numpy(),
+                                  np.asarray(JPoissonOperator(m=10).diagonal_blocks(8)))
     with pytest.raises(ValueError, match="2 <= m"):
         PoissonOperator(1, device=CPU)
     with pytest.raises(RuntimeError, match="CUDA"):

@@ -325,13 +325,17 @@ def test_well_operator_diagonal_and_tail():
 
 
 def test_well_operator_refuses_what_later_slices_bring():
+    # Block Jacobi's blocks (once refused as M8) come from the CSR, as
+    # tpucg's do; an operator built without them refuses with tpucg's
+    # message. The multi-RHS product is M9's.
     A = _random_csr(200, 0.03, seed=1)
-    with pytest.raises(NotImplementedError, match="M8"):
-        WellOperator.from_csr(A, pc_block_size=16, device=CPU)
+    blocked = WellOperator.from_csr(A, pc_block_size=16, device=CPU)
+    np.testing.assert_array_equal(blocked.diagonal_blocks(16).numpy(), np.asarray(
+        JWellOperator.from_csr(A, backend="xla", pc_block_size=16).dblk))
     op = WellOperator.from_csr(A, device=CPU)
     with pytest.raises(NotImplementedError, match="M9"):
         op.matvec_multi(torch.zeros(op.padded_n, 2))
-    with pytest.raises(NotImplementedError, match="M8"):
+    with pytest.raises(NotImplementedError, match="pc_block_size=bs"):
         op.diagonal_blocks(16)
     with pytest.raises(ValueError, match="square"):
         WellOperator.from_csr(CSRMatrix(indptr=np.zeros(3, np.int64),

@@ -3,7 +3,10 @@
 A port of the JAX package ``tpucg`` (which stays as the reference) to one
 NVIDIA H100. A dense SPD system (generated or loaded) goes through
 ``DenseOperator`` (identity-tail padding, f32 or bf16 storage) into
-``cg_solve`` (CG, Jacobi or polynomial PCG). Small solves run whole in one
+``cg_solve``: classic CG, or tpucg's pipelined, s-step (CA) and Chebyshev
+methods, unpreconditioned or with Jacobi, block-Jacobi or polynomial
+preconditioning (``spectral_interval`` gives CA and Chebyshev their
+interval once). Small solves run whole in one
 launch of a hand-written CUDA kernel for Hopper (K4); the others run laps of
 three: the GEMV (K1), the fused x/r update with beta (K2) and the dot (K3).
 The 3-D Poisson Laplacian runs as a stencil (``PoissonOperator``, K8 on the
@@ -33,7 +36,13 @@ from tpucg_torch.io.generator import (
 )
 from tpucg_torch.io.mmio import load_matrix_market, save_matrix_market
 from tpucg_torch.io.textio import load_matrix, load_system, load_vector, save_array
-from tpucg_torch.solver.cg import CGResult, cg_solve, cg_solve_batch, cg_solve_batch_banded
+from tpucg_torch.solver.cg import (
+    CGResult,
+    cg_solve,
+    cg_solve_batch,
+    cg_solve_batch_banded,
+    spectral_interval,
+)
 from tpucg_torch.solver.operators import (
     BsrOperator,
     DenseOperator,
@@ -63,6 +72,7 @@ __all__ = [
     "cg_solve",
     "cg_solve_batch",
     "cg_solve_batch_banded",
+    "spectral_interval",
     "DistributedSystem",
     "Mesh",
     "distribute_system",

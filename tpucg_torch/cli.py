@@ -11,6 +11,13 @@ poisson-ell|poisson-bsr|poisson-auto --m M`` solves tpucg's sparse
 flagship, the 3-D Poisson Laplacian on an m^3 grid, in each of tpucg's
 bench forms.
 
+Both take tpucg's method options (``cli.py:41-80``): ``--method
+cg|pipelined|ca|chebyshev`` with ``--s-step`` (ca), ``--check-every``
+(chebyshev) and ``--interval LAM_LO LAM_HI`` (ca and chebyshev: cached
+spectrum bounds), and ``--precondition block_jacobi`` with
+``--pc-block-size`` (an irregular ``.mtx`` promoted to WELL carries the
+blocks taken from its CSR).
+
 ``solve --strategy allgather|overlap`` and ``bench --strategy ...`` /
 ``bench --compare-strategies`` (serial, allgather, overlap on the dense
 system, as tpucg's ``cli.py:945-976, 1014-1021``) run the distributed
@@ -42,11 +49,20 @@ def _check_solve_options(args) -> None:
         raise NotImplementedError("--strategy summa (the 2-D SUMMA decomposition) is ROADMAP M14")
     if args.method == "minres":
         raise NotImplementedError("--method minres is ROADMAP M12")
-    if args.method != "cg":
-        raise NotImplementedError(f"--method {args.method} is ROADMAP M8")
-    if args.precondition == "block_jacobi" or args.pc_block_size is not None:
-        raise NotImplementedError("block Jacobi (--precondition block_jacobi, "
-                                  "--pc-block-size) is ROADMAP M8")
+    if args.strategy != "serial" and (args.method != "cg" or args.precondition == "block_jacobi"
+                                      or args.interval is not None):
+        raise NotImplementedError("the distributed pipelined, CA and Chebyshev methods and "
+                                  "block Jacobi are ROADMAP M14")
+
+
+def _method_kw(args) -> dict:
+    """The method options of a solve (tpucg's ``s_step``, ``check_every``,
+    ``pc_block_size`` and ``interval=``), as ``cg_solve`` takes them."""
+    kw = dict(method=args.method, s_step=args.s_step, check_every=args.check_every,
+              pc_block_size=args.pc_block_size)
+    if args.interval is not None:
+        kw["interval"] = tuple(args.interval)
+    return kw
 
 
 def _mesh(device):
@@ -155,8 +171,11 @@ def _cmd_solve_mtx(args, t_total0) -> int:
     else:
         # A distributed solve promotes on the host: each rank places its own
         # block of the operator.
-        op = best_sparse_operator(csr, backend="auto" if mesh else args.kernel,
-                                  device="cpu" if mesh else device)
+        # A WELL operator carries block Jacobi's blocks, taken from the CSR
+        # (its packed slabs are not addressable by (row, column)).
+        op = best_sparse_operator(
+            csr, backend="auto" if mesh else args.kernel, device="cpu" if mesh else device,
+            pc_block_size=args.pc_block_size if args.precondition == "block_jacobi" else None)
         fmt = type(op).__name__
         if mesh is not None and fmt == "WellOperator":
             raise NotImplementedError(
@@ -173,10 +192,10 @@ def _cmd_solve_mtx(args, t_total0) -> int:
     t0 = time.perf_counter()
     kw = dict(tol=args.tol, maxiter=args.maxiter, kernel=args.kernel,
               precondition=args.precondition, poly_degree=args.poly_degree,
-              record_residuals=args.residual_history)
+              record_residuals=_record(args))
     storage = torch.bfloat16 if args.storage == "bf16" else torch.float32
     if mesh is None:
-        res = cg_solve(op, b, x0, fused=args.fused, **kw)
+        res = cg_solve(op, b, x0, fused=args.fused, **kw, **_method_kw(args))
     elif csr is None:
         res = sharded_cg_solve(mat, b, x0, mesh=mesh, strategy=args.strategy,
                                storage_dtype=storage, **kw)
@@ -195,6 +214,15 @@ def _cmd_solve_mtx(args, t_total0) -> int:
     print(f"CG solve (s)         : {solve_s:.6f}")
     print(f"total (s)            : {time.perf_counter() - t_total0:.6f}")
     return _report(args, res, perm, n)
+
+
+def _record(args) -> bool:
+    """``--residual-history`` records with ``--method cg`` only; elsewhere it
+    says so and records none, as tpucg's CLI does."""
+    if args.residual_history and args.method != "cg":
+        print("note: --residual-history requires --method cg; no history will be recorded")
+        return False
+    return args.residual_history
 
 
 def _report(args, res, perm, n) -> int:
@@ -246,11 +274,11 @@ def cmd_solve(args) -> int:
     storage = torch.bfloat16 if args.storage == "bf16" else torch.float32
     kw = dict(tol=args.tol, maxiter=args.maxiter, kernel=args.kernel,
               precondition=args.precondition, poly_degree=args.poly_degree,
-              record_residuals=args.residual_history)
+              record_residuals=_record(args))
     t0 = time.perf_counter()
     if mesh is None:
         op = DenseOperator.create(A, backend=args.kernel, device=device, dtype=storage)
-        res = cg_solve(op, b, x0, fused=args.fused, **kw)
+        res = cg_solve(op, b, x0, fused=args.fused, **kw, **_method_kw(args))
         where = f"{device} [{op.backend}]"
     else:
         res = sharded_cg_solve(A, b, x0, mesh=mesh, strategy=args.strategy,
@@ -425,6 +453,11 @@ def _bench_one(args, strategy: str, mesh) -> dict:
     storage = torch.bfloat16 if args.storage == "bf16" else torch.float32
     t_total0 = time.perf_counter()
     kw = dict(kernel=args.kernel, precondition=args.precondition, poly_degree=args.poly_degree)
+    if strategy == "serial":
+        kw.update(_method_kw(args))
+    elif args.method != "cg" or args.precondition == "block_jacobi" or args.interval is not None:
+        raise NotImplementedError("the distributed pipelined, CA and Chebyshev methods and "
+                                  "block Jacobi are ROADMAP M14")
     if args.operator == "dense":
         n = args.n
         A, b, x0 = generate_spd_system(n, seed=0)
@@ -480,7 +513,8 @@ def _bench_one(args, strategy: str, mesh) -> dict:
         solve=solve_t,
         total_s=time.perf_counter() - t_total0,
         card=nvidia_smi_card(),
-        backend=f"{args.operator} {args.storage} {where} precondition={args.precondition}",
+        backend=(f"{args.operator} {args.storage} {where} method={args.method} "
+                 f"precondition={args.precondition}"),
         padded_n=padded_n,
         matvec=matvec_t,
         matvec_bytes=None if matvec_t is None else mv_bytes,
@@ -568,7 +602,10 @@ def build_parser() -> argparse.ArgumentParser:
                                           "(|a_ij| >= THETA sqrt(|a_ii a_jj|), default 0.25)")
     ps.add_argument("--method", default="cg",
                     choices=("cg", "pipelined", "ca", "chebyshev", "minres"),
-                    help="only cg runs in this port (the others: ROADMAP M8, M12)")
+                    help="pipelined = Ghysels-Vanroose CG (a lap's dots independent of "
+                         "its matvec); ca = s-step CG (one Gram product per --s-step "
+                         "laps); chebyshev = Chebyshev iteration (no dot inside a lap, a "
+                         "check every --check-every laps); minres is ROADMAP M12")
     ps.add_argument("--strategy", default="serial",
                     choices=("serial", "allgather", "overlap", "summa"),
                     help="distributed row-block solve over torch.distributed (under "
@@ -577,8 +614,6 @@ def build_parser() -> argparse.ArgumentParser:
                          "summa (2-D) is ROADMAP M14")
     ps.add_argument("--two-level", type=int, default=None, metavar="AGG",
                     help="two-level preconditioner (ROADMAP M12)")
-    ps.add_argument("--pc-block-size", type=int, default=None,
-                    help="block size of block Jacobi (ROADMAP M8)")
     ps.set_defaults(fn=cmd_solve)
 
     pt = sub.add_parser("selftest", help="goldens + oracle checks")
@@ -605,6 +640,8 @@ def build_parser() -> argparse.ArgumentParser:
     pb.add_argument("--compare-strategies", action="store_true",
                     help="serial, allgather and overlap in turn on the dense system: a "
                          "report each on stderr, the serial arm's JSON line")
+    pb.add_argument("--method", default="cg", choices=("cg", "pipelined", "ca", "chebyshev"),
+                    help="the serial solve's method (see solve --method)")
     pb.set_defaults(fn=cmd_bench)
 
     pi = sub.add_parser("info", help="device / backend / kernel library")
@@ -618,13 +655,23 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--fused", default="auto", choices=("auto", "always", "never"),
                         help="whole-solve kernels K4/K10/K11 (auto: up to the card's "
                              "measured crossovers; never: the lap path)")
-    ps.add_argument("--precondition", default="none",
-                    choices=("none", "jacobi", "poly", "block_jacobi"),
-                    help="block_jacobi is ROADMAP M8")
-    pb.add_argument("--precondition", default="none", choices=("none", "jacobi", "poly"))
     for sp in (ps, pb):
+        sp.add_argument("--precondition", default="none",
+                        choices=("none", "jacobi", "block_jacobi", "poly"))
         sp.add_argument("--poly-degree", type=int, default=3,
                         help="degree for --precondition poly (truncated Neumann)")
+        sp.add_argument("--pc-block-size", type=int, default=64, dest="pc_block_size",
+                        help="diagonal-block size for --precondition block_jacobi "
+                             "(inverted once, applied as one batched block product a lap)")
+        sp.add_argument("--s-step", type=int, default=3, dest="s_step",
+                        help="block size s for --method ca (3-4 suit f32)")
+        sp.add_argument("--check-every", type=int, default=8, dest="check_every",
+                        help="laps between exact residual checks for --method chebyshev")
+        sp.add_argument("--interval", type=float, nargs=2, default=None,
+                        metavar=("LAM_LO", "LAM_HI"),
+                        help="cached spectrum bounds for --method ca/chebyshev (e.g. from "
+                             "tpucg_torch.spectral_interval): skips the per-solve "
+                             "power-method set-up")
     for sp in (ps, pt):
         sp.add_argument("--device", default=None, help="torch device (default: the card if any)")
     return p

@@ -86,10 +86,11 @@ def dia_operator_from_numpy(data: np.ndarray, offsets, n: int, interleaved: bool
 
 
 def well_operator_from_numpy(vals, lidx, gidl, wrow, sgb, dvec, n: int, bg: int, nsg: int,
-                             device="cpu") -> WellOperator:
+                             device="cpu", dblk=None) -> WellOperator:
     """The port's WellOperator for a tpucg ``WellOperator``'s fields: its
     packed arrays (``vals`` f32 or bf16), ``dvec`` (diag(A) over the padded
-    length), ``n``, ``bg`` and ``nsg``."""
+    length), ``n``, ``bg``, ``nsg`` and, when it has them, its ``dblk``
+    (the (nb, bs, bs) diagonal blocks of block Jacobi)."""
     vals = np.asarray(vals)
     dtype = torch.bfloat16 if vals.dtype.name == "bfloat16" else torch.float32
 
@@ -99,7 +100,8 @@ def well_operator_from_numpy(vals, lidx, gidl, wrow, sgb, dvec, n: int, bg: int,
     return WellOperator(vals=put(vals, np.float32).to(dtype), lidx=put(lidx, np.int8),
                         gidl=put(gidl, np.int32), wrow=put(wrow, np.int32),
                         sgb=put(sgb, np.int32), dvec=put(dvec, np.float32), n=int(n),
-                        bg=int(bg), nsg=int(nsg))
+                        bg=int(bg), nsg=int(nsg),
+                        dblk=None if dblk is None else put(dblk, np.float32))
 
 
 def ell_operator_from_numpy(values, indices, n: int, device="cpu") -> EllOperator:

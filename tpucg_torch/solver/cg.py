@@ -9,15 +9,25 @@ Contract (reference ``serialConjugate.c:180-259``, as in tpucg):
   update, so on convergence p and rsold are left as they were);
   else p = r + (beta/rsold) p; rsold = beta. At most n laps.
 
-tpucg runs the loop as one ``lax.while_loop`` on the device. Here the host
-enqueues laps in chunks of 1, 2, 4, ... up to ``CHUNK_MAX`` and reads the 0-d
+tpucg runs each loop as one ``lax.while_loop`` on the device. Here one
+chunk runner (``run_chunks``) serves every loop: the host enqueues laps in
+chunks of 1, 2, 4, ... up to ``CHUNK_MAX`` and reads the loop's 0-d
 ``active`` flag once per chunk, so a 4-lap solve costs 3 host reads. Every
 loop scalar stays a 0-d device tensor. A lap enqueued after the solve has
 stopped changes nothing (k, x, r, p, rsold, rslast, done): on the cuda
-backend its kernels read ``active`` on the device and return at once (p's
-update reads the ``step`` the last running lap's tail set and cleared),
-and on the torch backend ``torch.where`` keeps the old values. Lap counts
+backend the classic lap's kernels read ``active`` on the device and return
+at once (p's update reads the ``step`` the last running lap's tail set and
+cleared), and elsewhere ``torch.where`` keeps the old values. Lap counts
 and results therefore do not depend on the chunk size.
+
+Beside the classic loop (``cg_loop``) are tpucg's other methods:
+``pipelined_cg_loop`` (Ghysels-Vanroose), ``ca_cg_loop`` (s-step CG on a
+Chebyshev basis) and ``chebyshev_loop``, each enqueued in masked steps (a
+lap, a block of s laps, a chunk of ``check_every`` laps) through the same
+runner; their matvecs and dots are the operator's kernel and K3, called
+without a flag, so each product is a fresh tensor. Block Jacobi
+(``block_jacobi_minv``, ``make_block_precond``) and the spectral interval
+(``spectral_interval_estimate``, ``spectral_interval``) serve them.
 
 The lap's matvec is the operator's kernel: K1 for a ``DenseOperator``, K6
 for a ``DiaOperator``, K8 for a ``PoissonOperator``, K13 for a
@@ -39,6 +49,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -105,16 +116,40 @@ class CGResult(NamedTuple):
     residual_history: Optional[torch.Tensor] = None
 
 
+def run_chunks(step: Callable[[], None], running: Callable[[], bool],
+               chunk: Optional[int] = None, laps_per_step: int = 1) -> None:
+    """The one chunk runner under every loop: enqueue ``step`` (one masked
+    step of ``laps_per_step`` laps: a lap, a CA block, a Chebyshev chunk)
+    in chunks of 1, 2, 4, ... up to ``CHUNK_MAX`` laps, or of a fixed
+    ``chunk`` laps, each rounded down to whole steps (at least one), and
+    read ``running()`` (the loop's device flag) once per chunk. A step
+    must read nothing back to the host and must change nothing once the
+    loop has stopped, so the chunk size moves no result."""
+    if chunk is not None and chunk < 1:
+        raise ValueError("chunk must be >= 1")
+    laps = 1 if chunk is None else chunk
+    while True:
+        for _ in range(max(1, laps // laps_per_step)):
+            step()
+        if not running():  # the one host read of the chunk
+            return
+        if chunk is None:
+            laps = min(2 * laps, CHUNK_MAX)
+
+
 def lambda_max_estimate(matvec: Callable, dot: Callable, like: torch.Tensor,
-                        power_iters: int = POWER_ITERS) -> torch.Tensor:
+                        power_iters: int = POWER_ITERS,
+                        absolute: bool = False) -> torch.Tensor:
     """Fixed-iteration power-method estimate of lambda_max(A) (tpucg's).
 
     ``matvec``/``dot`` are ``lap_ops``'s closures, called with no flag, or
     batched closures over (B, n) whose dot gives (B,): then each system gets
     its own estimate. The seed is the fixed oscillation cos(0.7 i) + 0.1
     over ``like``'s (padded) length, never derived from the rhs, which can
-    vanish or live in the identity-tail pad. No host read: these are
-    ``power_iters`` + 1 enqueued matvecs."""
+    vanish or live in the identity-tail pad. ``absolute`` estimates the
+    spectral radius instead (the Rayleigh quotient's magnitude), for an
+    operator whose dominant eigenvalue may be negative. No host read: these
+    are ``power_iters`` + 1 enqueued matvecs."""
     n = like.shape[-1]
     v = torch.cos(torch.arange(n, dtype=like.dtype, device=like.device) * 0.7) + 0.1
     v = v.expand(like.shape).contiguous()
@@ -122,7 +157,26 @@ def lambda_max_estimate(matvec: Callable, dot: Callable, like: torch.Tensor,
         y = matvec(v, None)
         v = y * torch.rsqrt(dot(y, y, None) + 1e-30)[..., None]
     lam = dot(v, matvec(v, None), None) / (dot(v, v, None) + 1e-30)
+    if absolute:
+        lam = lam.abs()
     return torch.clamp(lam, min=1e-30)
+
+
+def spectral_interval_estimate(matvec: Callable, dot: Callable, like: torch.Tensor,
+                               power_iters: int = 16):
+    """Two-sided power-method bounds ``(lam_lo, lam_hi)`` of an SPD operator
+    (tpucg's): ``lam_hi`` from a direct power iteration, ``lam_lo`` from one
+    on the reflected operator lam_hi I - A, whose dominant eigenvalue is
+    lam_hi - lam_min. Both are estimates: lam_hi is typically a little
+    under, lam_lo a little over, so each consumer pads them. ``matvec`` and
+    ``dot`` take ``lap_ops``'s ``(v, act)`` form."""
+    lam_hi = lambda_max_estimate(matvec, dot, like, power_iters)
+
+    def reflected(v, act=None):
+        return lam_hi * v - matvec(v, act)
+    refl = lambda_max_estimate(reflected, dot, like, power_iters, absolute=True)
+    lam_lo = torch.minimum(torch.clamp(lam_hi - refl, min=0.0), lam_hi)
+    return lam_lo, lam_hi
 
 
 def make_poly_precond(matvec: Callable, dot: Callable, b: torch.Tensor, degree: int,
@@ -146,13 +200,54 @@ def make_poly_precond(matvec: Callable, dot: Callable, b: torch.Tensor, degree: 
     return precond
 
 
+def invert_blocks(blocks: torch.Tensor) -> torch.Tensor:
+    """Block Jacobi's set-up on an extracted (nb, bs, bs) batch (tpucg's):
+    each block plus a small trace-relative ridge, inverted once by
+    ``torch.linalg.inv`` and symmetrized. Only the preconditioner's quality
+    depends on this inverse (PCG needs M fixed and SPD, and the stopping
+    test stays on the true residual), so the library's LU is used here as
+    tpucg uses XLA's."""
+    bs = blocks.shape[1]
+    tr = torch.diagonal(blocks, dim1=1, dim2=2).sum(-1) / bs
+    ridge = 1e-6 * tr + 1e-30
+    eye = torch.eye(bs, dtype=blocks.dtype, device=blocks.device)
+    minv = torch.linalg.inv(blocks + ridge[:, None, None] * eye[None])
+    return 0.5 * (minv + minv.transpose(1, 2))
+
+
+def block_jacobi_minv(op: LinearOperator, bs: int) -> torch.Tensor:
+    """The (nb, bs, bs) inverted diagonal blocks of A: block Jacobi's
+    M^-1, which also absorbs the coupling inside each block (bands,
+    per-node blocks) where point Jacobi undoes only the scaling."""
+    return invert_blocks(op.diagonal_blocks(bs))
+
+
+def make_block_precond(minv: torch.Tensor, npad: int) -> Callable:
+    """z = M^-1 r for block Jacobi's ``minv`` (nb, bs, bs): one batched
+    (bs, bs) x (bs,) product a call (a ``torch`` call, full f32 with TF32
+    off). r is padded when bs does not divide its length; the pad blocks
+    are identity, so pad coordinates pass through."""
+    nb, bs, _ = minv.shape
+    pad = nb * bs - npad
+
+    def precond(r, act=None):
+        rp = F.pad(r, (0, pad)) if pad else r
+        z = torch.bmm(minv, rp.reshape(nb, bs, 1)).reshape(-1)
+        return z[:npad] if pad else z
+    return precond
+
+
 def make_precond(precondition: str, minv: Optional[torch.Tensor], matvec: Callable,
                  dot: Callable, b: torch.Tensor, degree: int) -> Optional[Callable]:
-    """The ``precond(r, act)`` that ``cg_loop`` and ``batch_cg_loop`` take:
-    None for ``"none"``, z = minv r for ``"jacobi"``, and for ``"poly"``
-    ``make_poly_precond`` on ``matvec``/``dot`` (one system, or a batch)."""
+    """The ``precond(r, act)`` that the loops take: None for ``"none"``,
+    z = minv r for ``"jacobi"``, the batched block product of
+    ``make_block_precond`` for ``"block_jacobi"`` (``minv`` (nb, bs, bs)),
+    and for ``"poly"`` ``make_poly_precond`` on ``matvec``/``dot`` (one
+    system, or a batch)."""
     if precondition == "jacobi":
         return lambda r, act=None: minv * r
+    if precondition == "block_jacobi":
+        return make_block_precond(minv, b.shape[-1])
     if precondition == "poly":
         return make_poly_precond(matvec, dot, b, degree)
     return None
@@ -421,15 +516,14 @@ def cg_loop(
     rslast, hist, done, k, active); then p = z + beta p where the lap
     stepped. ``state`` resumes a previous run (``maxiter`` bounds the
     cumulative k); its tensors are not modified. ``chunk`` fixes the laps
-    per host read (default: 1, 2, 4, ... up to ``CHUNK_MAX``).
+    per host read (``run_chunks``; default: 1, 2, 4, ... up to
+    ``CHUNK_MAX``).
     """
     if replace_every or check_true_every:
         raise NotImplementedError(
             "replace_every/check_true_every serve two-level and deflated "
             "solves: ROADMAP M12"
         )
-    if chunk is not None and chunk < 1:
-        raise ValueError("chunk must be >= 1")
     if state is None:
         state = init_state(matvec, dot, b, x0, tol, precond=precond, hist_len=hist_len)
     # The cuda lap updates x, r and p in place: the loop owns its copies.
@@ -438,23 +532,20 @@ def cg_loop(
     _check_state(x, r, p, state.rsold, state.rslast)
     tol2 = torch.tensor(tol, dtype=r.dtype, device=r.device) ** 2
     lap.start(state, tol2, maxiter, safe_alpha, precond is not None)
-    laps = 1 if chunk is None else chunk
-    while True:
-        for _ in range(laps):
-            act = lap.flag()
-            ap = matvec(p, act)
-            alpha = lap.alpha(p, ap, act)
-            x, r = lap.update(x, r, p, ap, alpha, act)  # and the tail, unpreconditioned
-            if precond is None:
-                z = r
-            else:
-                z = precond(r, act)
-                lap.tail(r, z, act)
-            p = lap.p_update(z, p)
-        if not lap.running():  # the one host read of the chunk
-            break
-        if chunk is None:
-            laps = min(2 * laps, CHUNK_MAX)
+
+    def step():
+        nonlocal x, r, p
+        act = lap.flag()
+        ap = matvec(p, act)
+        alpha = lap.alpha(p, ap, act)
+        x, r = lap.update(x, r, p, ap, alpha, act)  # and the tail, unpreconditioned
+        if precond is None:
+            z = r
+        else:
+            z = precond(r, act)
+            lap.tail(r, z, act)
+        p = lap.p_update(z, p)
+    run_chunks(step, lap.running, chunk)
     t = lap.finish()
     return _State(k=t.k, x=x, r=r, p=p, rsold=t.rsold, rslast=t.rslast, done=t.done,
                   hist=t.hist)
@@ -508,8 +599,6 @@ def batch_cg_loop(
     have stopped with ``torch.where``, so they change nothing. As in
     ``cg_loop``, the host reads whether any system is still running once
     per chunk of laps (1, 2, 4, ... up to ``CHUNK_MAX``, or ``chunk``)."""
-    if chunk is not None and chunk < 1:
-        raise ValueError("chunk must be >= 1")
     dot = _batch_dot
     x = x0.clone()
     r = b - matvec(x, None)
@@ -523,46 +612,450 @@ def batch_cg_loop(
     k = torch.zeros(b.shape[0], dtype=torch.int32, device=b.device)
     rslast, done = rr, rr < tol2
     active = ~done & (k < maxiter)
-    laps = 1 if chunk is None else chunk
-    while True:
-        for _ in range(laps):
-            ap = matvec(p, None)
-            pap = dot(p, ap)
-            alpha = torch.where(pap != 0, rsold / pap, 0.0) if safe_alpha else rsold / pap
-            on = active[:, None]
-            x = torch.where(on, x + alpha[:, None] * p, x)
-            r = torch.where(on, r - alpha[:, None] * ap, r)
-            rr = dot(r, r)
-            stop = rr < tol2
-            if precond is None:
-                z, rs_new = r, rr
-            else:
-                z = precond(r, None)
-                rs_new = dot(r, z)
-            step = active & ~stop
-            p = torch.where(step[:, None], z + (rs_new / rsold)[:, None] * p, p)
-            rsold = torch.where(step, rs_new, rsold)
-            rslast = torch.where(active, rr, rslast)
-            done = done | (active & stop)
-            k = k + active.to(torch.int32)
-            active = ~done & (k < maxiter)
-        if not bool(active.any()):  # the one host read of the chunk
-            break
-        if chunk is None:
-            laps = min(2 * laps, CHUNK_MAX)
+
+    def lap():
+        nonlocal x, r, p, rsold, rslast, done, k, active
+        ap = matvec(p, None)
+        pap = dot(p, ap)
+        alpha = torch.where(pap != 0, rsold / pap, 0.0) if safe_alpha else rsold / pap
+        on = active[:, None]
+        x = torch.where(on, x + alpha[:, None] * p, x)
+        r = torch.where(on, r - alpha[:, None] * ap, r)
+        rr = dot(r, r)
+        stop = rr < tol2
+        if precond is None:
+            z, rs_new = r, rr
+        else:
+            z = precond(r, None)
+            rs_new = dot(r, z)
+        step = active & ~stop
+        p = torch.where(step[:, None], z + (rs_new / rsold)[:, None] * p, p)
+        rsold = torch.where(step, rs_new, rsold)
+        rslast = torch.where(active, rr, rslast)
+        done = done | (active & stop)
+        k = k + active.to(torch.int32)
+        active = ~done & (k < maxiter)
+    run_chunks(lap, lambda: bool(active.any()), chunk)
     return _BatchState(k=k, x=x, r=r, p=p, rsold=rsold, rslast=rslast, done=done)
 
 
-def _check_supported(config: CGConfig, interval, two_level) -> None:
-    """Name the ROADMAP item of every configuration this slice does not run."""
-    if config.method != "cg":
-        raise NotImplementedError(f"method={config.method!r} is ROADMAP M8")
-    if config.precondition == "block_jacobi":
-        raise NotImplementedError("precondition='block_jacobi' is ROADMAP M8")
+# Residual replacement of PRECONDITIONED pipelined CG (tpucg's cadence): its
+# r/w recurrences drift as ||M^-1|| grows, so every that-many laps they are
+# recomputed from their definitions.
+PIPE_REPLACE_EVERY = 25
+
+
+def _keep(on: torch.Tensor, new, old):
+    """``new`` where the 0-d flag ``on`` is set, else ``old`` (None stays)."""
+    return None if new is None else torch.where(on, new, old)
+
+
+class _PipeState(NamedTuple):
+    """``pipelined_cg_loop``'s state, with tpucg's field names."""
+
+    k: torch.Tensor
+    x: torch.Tensor
+    r: torch.Tensor
+    w: torch.Tensor       # A M^-1 r (recurrence-maintained)
+    p: torch.Tensor
+    s: torch.Tensor       # A p
+    z: torch.Tensor       # A M^-1 s
+    gamma: torch.Tensor   # r.u of the previous lap (u = M^-1 r; r.r when M = I)
+    alpha: torch.Tensor
+    rslast: torch.Tensor
+    done: torch.Tensor
+    u: Optional[torch.Tensor] = None  # M^-1 r (preconditioned only)
+    q: Optional[torch.Tensor] = None  # M^-1 s (preconditioned only)
+
+
+def pipelined_cg_loop(
+    matvec: Callable,
+    dots: Callable,
+    b: torch.Tensor,
+    x0: torch.Tensor,
+    *,
+    tol: float,
+    maxiter: int,
+    safe_alpha: bool = True,
+    precond: Optional[Callable] = None,
+    replace_every: Optional[int] = None,
+    chunk: Optional[int] = None,
+) -> _PipeState:
+    """Pipelined CG/PCG (Ghysels & Vanroose 2014; tpucg's
+    ``pipelined_cg_loop``): classic CG's Krylov iterates with every dot of
+    a lap in one ``dots(pairs)`` call whose inputs do not depend on the
+    lap's matvec, so a distributed lap can reduce them in one collective
+    that overlaps the product. ``matvec(v, act)`` and ``precond(r, act)``
+    are called without a flag; ``dots`` maps a list of (u, v) pairs to
+    their dots.
+
+    The lap's scalars are breakdown-safe (a gamma <= 0 restarts the
+    direction, a denom <= 0 freezes the step), and the conjugation term
+    is the measured (p, s) pair, not the recursive gamma/alpha proxy.
+    ``replace_every`` (tpucg's serial solve passes ``PIPE_REPLACE_EVERY``
+    when preconditioned) recomputes r, u, w, s, q, z from their definitions
+    after every lap whose k is a multiple of it or reaches ``maxiter``, as
+    tpucg's segmented loop does; the refresh is guarded by ``done`` only
+    and is a function of x and p, so it changes nothing on frozen state.
+    Convergence is tested at the top of the next lap; ``k`` counts x
+    updates, so lap counts match the classic loop's.
+
+    Each lap is one masked step of ``run_chunks``: a lap enqueued after the
+    stop (or past ``maxiter``) keeps every field.
+    """
+    def mv(v):
+        return matvec(v, None)
+
+    pc = None if precond is None else (lambda v: precond(v, None))
+    r0 = b - mv(x0)
+    dev = r0.device
+    tol2 = torch.tensor(tol, dtype=r0.dtype, device=dev) ** 2
+    u0 = None if pc is None else pc(r0)
+    w0 = mv(r0 if pc is None else u0)
+    zeros = torch.zeros_like(r0)
+    one = torch.ones((), dtype=r0.dtype, device=dev)
+    st = _PipeState(
+        k=torch.zeros((), dtype=torch.int32, device=dev), x=x0, r=r0, w=w0, p=zeros,
+        s=zeros, z=zeros, gamma=one, alpha=one, rslast=one,
+        done=torch.zeros((), dtype=torch.bool, device=dev),
+        u=u0, q=None if pc is None else zeros,
+    )
+
+    def lap(st: _PipeState, ran: torch.Tensor) -> _PipeState:
+        # tpucg's body under its while_loop's condition `ran`: the fields
+        # move where the lap ran and did not stop (its `done` is tested at
+        # the lap's top), rslast and done where it ran.
+        if pc is None:
+            gamma, delta, ps = dots([(st.r, st.r), (st.w, st.r), (st.p, st.s)])
+            rr = gamma
+        else:
+            gamma, delta, rr, ps = dots([(st.r, st.u), (st.w, st.u), (st.r, st.r),
+                                         (st.p, st.s)])
+        done = rr < tol2
+        m = st.w if pc is None else pc(st.w)
+        nv = mv(m)
+        restart = (st.k == 0) | (gamma <= 0)
+        beta = torch.where(restart, torch.zeros_like(gamma), gamma / st.gamma)
+        denom = delta - beta * beta * ps
+        if safe_alpha:
+            alpha = torch.where(denom > 0, gamma / denom, torch.zeros_like(gamma))
+        else:
+            alpha = gamma / denom
+        ubase = st.r if pc is None else st.u
+        p = ubase + beta * st.p
+        s = st.w + beta * st.s
+        z = nv + beta * st.z
+        x = st.x + alpha * p
+        r = st.r - alpha * s
+        w = st.w - alpha * z
+        q = None if pc is None else m + beta * st.q
+        u = None if pc is None else st.u - alpha * q
+        step = ran & ~done
+        return _PipeState(
+            k=torch.where(step, st.k + 1, st.k),
+            x=_keep(step, x, st.x), r=_keep(step, r, st.r), w=_keep(step, w, st.w),
+            p=_keep(step, p, st.p), s=_keep(step, s, st.s), z=_keep(step, z, st.z),
+            gamma=_keep(step, gamma, st.gamma), alpha=_keep(step, alpha, st.alpha),
+            rslast=_keep(ran, rr, st.rslast), done=_keep(ran, done, st.done),
+            u=_keep(step, u, st.u), q=_keep(step, q, st.q),
+        )
+
+    def refresh(s2: _PipeState, on: torch.Tensor) -> _PipeState:
+        r_ = b - mv(s2.x)
+        u_ = None if pc is None else pc(r_)
+        w_ = mv(r_ if pc is None else u_)
+        s_ = mv(s2.p)
+        q_ = None if pc is None else pc(s_)
+        z_ = mv(s_ if pc is None else q_)
+        return s2._replace(r=_keep(on, r_, s2.r), w=_keep(on, w_, s2.w),
+                           s=_keep(on, s_, s2.s), z=_keep(on, z_, s2.z),
+                           u=_keep(on, u_, s2.u), q=_keep(on, q_, s2.q))
+
+    laps = 0  # laps enqueued: a lap that runs leaves k = laps (or stops the loop)
+
+    def step():
+        nonlocal st, laps
+        laps += 1
+        ran = (st.k < maxiter) & ~st.done
+        st = lap(st, ran)
+        if replace_every and laps <= maxiter and (laps % replace_every == 0
+                                                   or laps == maxiter):
+            # tpucg's segment end: k a multiple of replace_every, or the cap.
+            st = refresh(st, ran & ~st.done)
+    run_chunks(step, lambda: bool((st.k < maxiter) & ~st.done), chunk)
+    return st
+
+
+# CA-CG's least basis half-width, relative to lam_hi (see ``ca_cg_loop``).
+CA_WIDTH_FLOOR = 1e-5
+
+
+def gram_f32(V: torch.Tensor) -> torch.Tensor:
+    """CA-CG's Gram product V^T V of an (n, 2s+1) basis, summed in float64
+    and rounded to f32: the f32 Gram of the exact sums (tpucg asks XLA for
+    its highest f32 precision). A block's Gram can be singular (the first
+    block's towers start from p = r), and there the coordinate laps follow
+    its rounding: summed in f32 in MKL's or cuBLAS's order, a padded dense
+    solve (n = 1000) diverged where XLA's order converged."""
+    return (V.T.to(torch.float64) @ V.to(torch.float64)).to(V.dtype)
+
+
+def ca_cg_loop(
+    matvec: Callable,
+    dot: Callable,
+    gram: Callable,
+    b: torch.Tensor,
+    x0: torch.Tensor,
+    *,
+    s: int,
+    tol: float,
+    maxiter: int,
+    safe_alpha: bool = True,
+    power_iters: int = 12,
+    interval=None,
+    chunk: Optional[int] = None,
+) -> _State:
+    """Communication-avoiding (s-step) CG on a Chebyshev basis (tpucg's
+    ``ca_cg_loop``; Chronopoulos & Gear 1989, Hoemmen 2010). A block builds
+    the basis V = [T_0(t(A)) p, ..., T_s p, T_0 r, ..., T_{s-1} r] ((n,
+    2s+1), 2s - 1 matvecs) with t(A) = (A - c I)/h on the estimated
+    interval padded 5%, takes G = V^T V in one product (``gram``), runs s
+    CG laps in (2s+1)-coordinate space through the change of basis B = h S1
+    + (h/2) S2 + c D, and rebuilds x, r, p from V. The Gram forms carry an
+    f32 floor far above tol^2, so a stop inside the block is tentative:
+    an exact ``dot(r, r)`` at the block's end confirms it or refutes it
+    (then p restarts at r). ``rslast`` is that exact r.r.
+
+    ``interval=(lam_lo, lam_hi)`` skips the 2 x ``power_iters`` power
+    iterations of ``spectral_interval_estimate``; it moves only the
+    basis's conditioning, never the result's correctness. Each block is one
+    masked step of ``run_chunks``; inside it a lap runs while no stop is
+    tentative and k < ``maxiter``.
+    """
+    if s < 1:
+        raise ValueError("ca s-step count must be >= 1")
+    m = 2 * s + 1  # p tower degrees 0..s, r tower degrees 0..s-1
+    f32, dev = b.dtype, b.device
+
+    def mv(v):
+        return matvec(v, None)
+
+    # The change of basis: per tower, A v_0 = h v_1 + c v_0 and A v_i =
+    # (h/2) v_{i+1} + c v_i + (h/2) v_{i-1}; each tower's top column is never
+    # multiplied by B, so those columns stay zero.
+    S1 = np.zeros((m, m), np.float32)
+    S2 = np.zeros((m, m), np.float32)
+    D = np.zeros((m, m), np.float32)
+    for base, depth in ((0, s + 1), (s + 1, s)):  # p tower, r tower
+        if depth >= 2:
+            S1[base + 1, base] = 1.0
+            D[base, base] = 1.0
+        for i in range(1, depth - 1):
+            S2[base + i + 1, base + i] = 1.0
+            S2[base + i - 1, base + i] = 1.0
+            D[base + i, base + i] = 1.0
+    S1, S2, D = (torch.from_numpy(a).to(dev) for a in (S1, S2, D))
+    if interval is None:
+        lam_lo, lam_hi = spectral_interval_estimate(matvec, dot, b, power_iters)
+    else:
+        lam_lo = torch.as_tensor(interval[0], dtype=f32, device=dev)
+        lam_hi = torch.as_tensor(interval[1], dtype=f32, device=dev)
+    # 5% pad for the power method's under/over-shoot. The width floor keeps
+    # a near-scalar A = c I finite: there the f32 Rayleigh quotient puts c a
+    # few ulps off the one eigenvalue, and (A - c I) v / h must stay O(v).
+    # tpucg's floor, 1e-20 lam_hi, amplifies that rounding 1e20-fold a
+    # column (NaN by the third); 1e-5 lam_hi acts only on an interval
+    # narrower than 2e-5 lam_hi and leaves every other basis as tpucg's.
+    pad = 0.05 * (lam_hi - lam_lo)
+    aa = torch.clamp(lam_lo - pad, min=0.0)
+    bb = lam_hi + pad
+    c = 0.5 * (aa + bb)
+    h = torch.maximum(0.5 * (bb - aa), CA_WIDTH_FLOOR * lam_hi)
+    inv_h = 1.0 / h
+    B = h * S1 + (0.5 * h) * S2 + c * D
+
+    r0 = b - mv(x0)
+    tol2 = torch.tensor(tol, dtype=f32, device=dev) ** 2
+    rr0 = dot(r0, r0, None)
+    st = _State(k=torch.zeros((), dtype=torch.int32, device=dev), x=x0, r=r0, p=r0,
+                rsold=rr0, rslast=rr0, done=rr0 < tol2)
+    e = torch.eye(m, dtype=f32, device=dev)
+    ep, er = e[0], e[s + 1]
+
+    def tower(v0, depth):
+        # The Chebyshev three-term column build: depth - 1 matvecs, no dot.
+        cols = [v0]
+        if depth >= 2:
+            cols.append((mv(v0) - c * v0) * inv_h)
+        for _ in range(2, depth):
+            v = cols[-1]
+            cols.append(2.0 * ((mv(v) - c * v) * inv_h) - cols[-2])
+        return cols
+
+    def body(st: _State) -> _State:
+        V = torch.stack(tower(st.p, s + 1) + tower(st.r, s), dim=1)  # (n, 2s+1)
+        G = gram(V)
+        rsold, k = st.rsold, st.k
+        tentative = torch.zeros((), dtype=torch.bool, device=dev)
+        p_hat, r_hat, x_hat = ep, er, torch.zeros(m, dtype=f32, device=dev)
+        for _ in range(s):
+            active = ~tentative & (k < maxiter)
+            Bp = B @ p_hat
+            pap = p_hat @ (G @ Bp)
+            if safe_alpha:
+                alpha = torch.where(pap != 0, rsold / pap, torch.zeros_like(pap))
+            else:
+                alpha = rsold / pap
+            x_new = x_hat + alpha * p_hat
+            r_new = r_hat - alpha * Bp
+            # The Gram form of a near-converged residual can round below 0.
+            rr = torch.clamp(r_new @ (G @ r_new), min=0.0)
+            conv = rr < tol2
+            x_hat = torch.where(active, x_new, x_hat)
+            r_hat = torch.where(active, r_new, r_hat)
+            k = k + active.to(torch.int32)
+            upd = active & ~conv  # a (tentative) stop leaves p and rsold
+            p_hat = torch.where(upd, r_new + (rr / rsold) * p_hat, p_hat)
+            rsold = torch.where(upd, rr, rsold)
+            tentative = tentative | (active & conv)
+        x = st.x + V @ x_hat
+        r = V @ r_hat
+        p = V @ p_hat
+        rr_true = dot(r, r, None)  # the block's exact check
+        done = rr_true < tol2
+        p = torch.where(tentative & ~done, r, p)  # refuted: restart at p = r
+        rsold = torch.where(done, rsold, rr_true)
+        return _State(k=k, x=x, r=r, p=p, rsold=rsold, rslast=rr_true, done=done)
+
+    def step():
+        nonlocal st
+        ran = (st.k < maxiter) & ~st.done
+        st = _State(*(_keep(ran, a, o) for a, o in zip(body(st), st)))
+    run_chunks(step, lambda: bool((st.k < maxiter) & ~st.done), chunk, laps_per_step=s)
+    return st
+
+
+def chebyshev_loop(
+    matvec: Callable,
+    dot: Callable,
+    b: torch.Tensor,
+    x0: torch.Tensor,
+    *,
+    tol: float,
+    maxiter: int,
+    check_every: int = 8,
+    power_iters: int = 16,
+    precond: Optional[Callable] = None,
+    interval=None,
+    chunk: Optional[int] = None,
+) -> _State:
+    """Chebyshev iteration (Saad, alg. 12.1; tpucg's ``chebyshev_loop``): no
+    dot inside a lap, every scalar from a recurrence on the spectral
+    interval [a, bnd]; two dots and a true residual every ``check_every``
+    laps, so lap counts round up to a multiple of it.
+
+    The interval (``spectral_interval_estimate`` on M^-1 A, or
+    ``interval=``) is padded asymmetrically: bnd up 10%, a down 25% (the
+    reflected power method overestimates lambda_min). A chunk's recurrence
+    stop is confirmed by the true residual, or accepted when the true
+    residual has stopped improving since the last refute (the f32 floor);
+    a refuted stop or a stalled chunk re-anchors r to b - A x and restarts
+    the direction, and a chunk that grew r.r 1.5x also widens the interval
+    (a halves, bnd grows 25%). Inside a chunk a lap runs while k <
+    ``maxiter``. Each chunk is one masked step of ``run_chunks``. The
+    result's ``rslast`` (and ``rsold``) is the loop's carried r.r, its
+    ``p`` the direction d.
+    """
+    f32, dev = b.dtype, b.device
+
+    def mv(v):
+        return matvec(v, None)
+
+    pc = None if precond is None else (lambda v: precond(v, None))
+    pmv = matvec if pc is None else (lambda v, act=None: pc(mv(v)))
+    tol2 = torch.tensor(tol, dtype=f32, device=dev) ** 2
+    if interval is None:
+        lam_lo, lam_hi = spectral_interval_estimate(pmv, dot, b, power_iters)
+    else:
+        lam_lo = torch.as_tensor(interval[0], dtype=f32, device=dev)
+        lam_hi = torch.as_tensor(interval[1], dtype=f32, device=dev)
+    bnd0 = 1.10 * lam_hi
+    a0 = torch.maximum(0.75 * lam_lo, 1e-8 * lam_hi)
+
+    def scalars(a, bnd):
+        theta = 0.5 * (bnd + a)
+        # The width floor keeps A = c I (delta = 0) finite.
+        delta = torch.maximum(0.5 * (bnd - a), 1e-20 * bnd)
+        return theta, delta, theta / delta
+
+    r0 = b - mv(x0)
+    rr0 = dot(r0, r0, None)
+    theta0, _, sigma0 = scalars(a0, bnd0)
+    z0 = r0 if pc is None else pc(r0)
+    st = (torch.zeros((), dtype=torch.int32, device=dev), rr0 < tol2, x0, r0, z0 / theta0,
+          1.0 / sigma0, a0, bnd0, rr0, torch.full((), float("inf"), dtype=f32, device=dev))
+
+    def body(s):
+        k, done, x, r, d, rho, a, bnd, rr_prev, refute_rr = s
+        theta, delta, sigma1 = scalars(a, bnd)
+        for _ in range(check_every):
+            active = k < maxiter
+            xn = x + d
+            rn = r - mv(d)
+            zn = rn if pc is None else pc(rn)
+            rho_n = 1.0 / (2.0 * sigma1 - rho)
+            dn = rho_n * rho * d + (2.0 * rho_n / delta) * zn
+            x = torch.where(active, xn, x)
+            r = torch.where(active, rn, r)
+            d = torch.where(active, dn, d)
+            rho = torch.where(active, rho_n, rho)
+            k = k + active.to(torch.int32)
+        # The stop is tested on the recurrence residual (classic CG's
+        # contract quantity) and confirmed against the true one.
+        rr = dot(r, r, None)
+        r_true = b - mv(x)
+        rr_true = dot(r_true, r_true, None)
+        tentative = rr < tol2
+        confirmed = tentative & (rr_true < tol2)
+        floor_hit = tentative & (rr_true >= 0.81 * refute_rr)  # (0.9)^2 on squared norms
+        done = confirmed | floor_hit
+        refuted = tentative & ~done
+        stall = ~tentative & (rr >= rr_prev)
+        div = ~tentative & (rr > 1.5 * rr_prev)
+        a = torch.where(div, 0.5 * a, a)
+        bnd = torch.where(div, 1.25 * bnd, bnd)
+        reanchor = stall | refuted
+        r = torch.where(reanchor, r_true, r)
+        theta_r, _, sigma_r = scalars(a, bnd)
+        z = r if pc is None else pc(r)
+        d = torch.where(reanchor, z / theta_r, d)
+        rho = torch.where(reanchor, 1.0 / sigma_r, rho)
+        rr_prev = torch.where(reanchor, rr_true, rr)
+        refute_rr = torch.where(refuted, rr_true, refute_rr)
+        return (k, done, x, r, d, rho, a, bnd, rr_prev, refute_rr)
+
+    def step():
+        nonlocal st
+        ran = (st[0] < maxiter) & ~st[1]
+        st = tuple(torch.where(ran, a, o) for a, o in zip(body(st), st))
+    run_chunks(step, lambda: bool((st[0] < maxiter) & ~st[1]), chunk,
+               laps_per_step=check_every)
+    k, done, x, r, d, _, _, _, rr, _ = st
+    return _State(k=k, x=x, r=r, p=d, rsold=rr, rslast=rr, done=done)
+
+
+def _run_chebyshev(matvec, dot, b, x0, *, tol, maxiter, check_every, precond=None,
+                   interval=None, chunk=None):
+    """``chebyshev_loop`` -> (x, k, ||r||, done), tpucg's result tuple."""
+    st = chebyshev_loop(matvec, dot, b, x0, tol=tol, maxiter=maxiter, check_every=check_every,
+                        precond=precond, interval=interval, chunk=chunk)
+    return st.x, st.k, st.rslast.sqrt(), st.done
+
+
+def _check_supported(config: CGConfig, two_level) -> None:
+    """Name the ROADMAP item of every configuration the port does not run."""
     if config.dtype != torch.float32:
         raise NotImplementedError(f"solve dtype {config.dtype} is ROADMAP M9")
-    if interval is not None:
-        raise NotImplementedError("interval= serves method='ca'/'chebyshev': ROADMAP M8")
     if two_level is not None:
         raise NotImplementedError("two_level= is ROADMAP M12")
 
@@ -653,8 +1146,8 @@ def cg_solve(
     chunk: Optional[int] = None,
     **overrides,
 ) -> CGResult:
-    """Solve the SPD system A x = b (tpucg's ``cg_solve`` with the
-    classic-CG branch of its ``_cg_jit``).
+    """Solve the SPD system A x = b (tpucg's ``cg_solve`` and the serial
+    branches of its ``_cg_jit``).
 
     ``A`` is a dense array or tensor, a sparse container (a ``CSRMatrix``
     becomes an ``EllOperator`` as in tpucg; ``best_sparse_operator`` picks a
@@ -667,12 +1160,25 @@ def cg_solve(
     ``_fused_eligible`` admits runs as one launch of K4, K10 or K11; every
     other solve, and ``fused="never"``, takes the lap path (``cg_loop`` on
     the operator's matvec kernel, K2 and K3). ``precondition`` is
-    ``"none"``, ``"jacobi"`` or ``"poly"`` (degree ``poly_degree``).
-    ``record_residuals`` returns the per-lap ||r|| in
-    ``residual_history``; ``chunk`` is ``cg_loop``'s.
+    ``"none"``, ``"jacobi"``, ``"block_jacobi"`` (blocks of
+    ``pc_block_size``) or ``"poly"`` (degree ``poly_degree``).
+    ``method`` ``"pipelined"``, ``"ca"`` (``s_step``) and ``"chebyshev"``
+    (``check_every``) run ``pipelined_cg_loop``, ``ca_cg_loop`` and
+    ``chebyshev_loop`` on the operator's matvec kernel and K3, each
+    reporting ``iterations``, ``residual_norm`` and ``converged`` as
+    tpucg's does. ``interval=(lam_lo, lam_hi)`` (ca and chebyshev only;
+    e.g. from ``spectral_interval``; for preconditioned Chebyshev the
+    bounds of M^-1 A) skips their power-method set-up.
+    ``record_residuals`` (cg only) returns the per-lap ||r|| in
+    ``residual_history``; ``chunk`` is ``run_chunks``'s.
     """
     config = _configure(config, overrides)
-    _check_supported(config, interval, two_level)
+    _check_supported(config, two_level)
+    if record_residuals and config.method != "cg":
+        raise ValueError("record_residuals requires method='cg'")
+    if interval is not None and config.method not in ("ca", "chebyshev"):
+        raise ValueError("interval=(lam_lo, lam_hi) applies to method='ca'/'chebyshev' "
+                         f"(got method={config.method!r})")
     if device is None and isinstance(A, (LinearOperator, torch.Tensor)):
         device = A.device
     device = canonical_device(device)
@@ -701,6 +1207,8 @@ def cg_solve(
     if config.precondition == "jacobi":
         d = op.diagonal()
         minv = torch.where(d != 0, 1.0 / d, 1.0)
+    elif config.precondition == "block_jacobi":
+        minv = block_jacobi_minv(op, int(config.pc_block_size))
     tol = float(config.tol)
     poly = config.precondition == "poly"
     kind = _fused_eligible(config, op, backend, config.dtype, record_residuals)
@@ -717,9 +1225,33 @@ def cg_solve(
         return _fused_result(x[:n], k, rr, tol)
     matvec, dot, lap = lap_ops(op, backend)
     precond = make_precond(config.precondition, minv, matvec, dot, b, config.poly_degree)
+    safe_alpha = bool(config.safe_alpha)
+    tol2 = torch.tensor(tol, dtype=torch.float32, device=device) ** 2
+    if config.method == "pipelined":
+        s = pipelined_cg_loop(
+            matvec, lambda pairs: tuple(dot(u, v, None) for u, v in pairs), b, x0,
+            tol=tol, maxiter=maxiter, safe_alpha=safe_alpha, precond=precond,
+            replace_every=None if precond is None else PIPE_REPLACE_EVERY, chunk=chunk,
+        )
+        # Convergence is tested a lap late: a solve cut by maxiter reports
+        # its final r.r.
+        rr = torch.where(s.done, s.rslast, dot(s.r, s.r, None))
+        return CGResult(x=s.x[:n], iterations=s.k, residual_norm=rr.sqrt(),
+                        converged=s.done | (rr < tol2))
+    if config.method == "ca":
+        s = ca_cg_loop(matvec, dot, gram_f32, b, x0, s=int(config.s_step), tol=tol,
+                       maxiter=maxiter, safe_alpha=safe_alpha, interval=interval, chunk=chunk)
+        # rslast is the exact (verified) block-end r.r.
+        return CGResult(x=s.x[:n], iterations=s.k, residual_norm=s.rslast.sqrt(),
+                        converged=s.done)
+    if config.method == "chebyshev":
+        x, k, rn, done = _run_chebyshev(matvec, dot, b, x0, tol=tol, maxiter=maxiter,
+                                        check_every=int(config.check_every), precond=precond,
+                                        interval=interval, chunk=chunk)
+        return CGResult(x=x[:n], iterations=k, residual_norm=rn, converged=done)
     s = cg_loop(
         matvec, dot, lap, b, x0,
-        tol=tol, maxiter=maxiter, safe_alpha=bool(config.safe_alpha), precond=precond,
+        tol=tol, maxiter=maxiter, safe_alpha=safe_alpha, precond=precond,
         hist_len=maxiter if record_residuals else None,
         chunk=chunk,
     )
@@ -727,9 +1259,30 @@ def cg_solve(
         x=s.x[:n],
         iterations=s.k,
         residual_norm=s.rslast.sqrt(),
-        converged=s.rslast < torch.tensor(tol, dtype=s.rslast.dtype, device=device) ** 2,
+        converged=s.rslast < tol2,
         residual_history=s.hist,
     )
+
+
+def spectral_interval(A, power_iters: int = 16, *, device=None):
+    """Estimate an SPD operator's spectrum bounds: ``(lam_lo, lam_hi,
+    kappa)`` as floats from ``spectral_interval_estimate`` over the
+    operator's padded length (tpucg's ``spectral_interval``). The bounds
+    are what CA-CG's basis and the Chebyshev iteration derive their
+    scalars from; pass the first two as a solve's ``interval=`` to skip
+    their set-up. Estimates: lam_hi is typically a little under, lam_lo a
+    little over; an identity-padded operator's tail adds the eigenvalue 1,
+    as in the solves' own estimates. ``device`` defaults as in
+    ``cg_solve``; the estimate runs on its kernels."""
+    if device is None and isinstance(A, (LinearOperator, torch.Tensor)):
+        device = A.device
+    device = canonical_device(device)
+    op = as_operator(A, backend=resolve_backend("auto", device), device=device)
+    matvec, dot, _ = lap_ops(op, op.backend)
+    like = torch.zeros(op.padded_n, dtype=torch.float32, device=device)
+    lam_lo, lam_hi = spectral_interval_estimate(matvec, dot, like, int(power_iters))
+    lo, hi = float(lam_lo), float(lam_hi)
+    return lo, hi, hi / max(lo, 1e-30)
 
 
 def cg_solve_batch(

@@ -17,6 +17,12 @@ does.
 Each operator's ``launcher()`` checks its stored operands once and returns
 its matvec's launch core, ``launch(x, y, active, stream)``, which the CUDA
 lap (``cg._cuda_lap_ops``) calls every lap.
+
+``diagonal_blocks(bs)`` gives block Jacobi its (nb, bs, bs) diagonal blocks
+where the format stores them addressably, as tpucg's operators do: dense,
+DIA and Poisson extract theirs, a ``WellOperator`` carries the blocks taken
+from its source CSR at construction (``from_csr(pc_block_size=)``), and
+ELL and BSR refuse with tpucg's message.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from tpucg_torch.io.partitioner import pad_identity_tail, round_up
 from tpucg_torch.kernels.dispatch import canonical_device, resolve_backend
@@ -81,15 +88,45 @@ class LinearOperator:
         )
 
     def diagonal_blocks(self, bs: int) -> torch.Tensor:
-        """The (nb, bs, bs) diagonal blocks of block Jacobi."""
+        """The (ceil(padded_n/bs), bs, bs) diagonal blocks of A, for block
+        Jacobi; rows past padded_n (when bs does not divide it) are
+        identity. Only formats that store their diagonal-block entries
+        addressably implement it (probing with strided basis vectors would
+        alias off-block entries)."""
         raise NotImplementedError(
-            f"{type(self).__name__}.diagonal_blocks serves block Jacobi: ROADMAP M8"
+            f"{type(self).__name__} does not expose diagonal blocks; "
+            "precondition='block_jacobi' is unavailable for it"
         )
 
     def launcher(self) -> Callable:
         """Check the stored operands once and return the kernel's launch core
         ``launch(x, y, active, stream)`` (cuda backend only)."""
         raise NotImplementedError(f"{type(self).__name__} has no CUDA lap kernel")
+
+
+def _blocks_from_diag_data(offsets, data: torch.Tensor, bs: int) -> torch.Tensor:
+    """(nb, bs, bs) diagonal blocks from canonical DIA storage ``data[d, i] =
+    A[i, i + offsets[d]]`` (ndiag, N), as tpucg assembles them: an entry
+    lands in a block iff its row and column share the block, so offsets
+    with |off| >= bs never contribute; rows in the bs-alignment tail (>= N)
+    get identity. bf16 storage is widened to f32."""
+    N = data.shape[1]
+    nb = -(-N // bs)
+    data = data.to(torch.float32)
+    if nb * bs != N:
+        data = F.pad(data, (0, nb * bs - N))
+    blocks = torch.zeros((nb, bs, bs), dtype=torch.float32, device=data.device)
+    for d, off in enumerate(int(o) for o in offsets):
+        if abs(off) >= bs:
+            continue
+        rs = torch.arange(max(0, -off), bs - max(0, off), device=data.device)
+        blocks[:, rs, rs + off] = data[d].reshape(nb, bs)[:, rs]
+    if nb * bs != N:
+        tail = torch.arange(nb * bs, device=data.device).reshape(nb, bs) >= N
+        eye = torch.eye(bs, dtype=torch.float32, device=data.device)
+        blocks = (torch.where(tail[:, :, None] | tail[:, None, :], 0.0, blocks)
+                  + eye[None] * tail[:, :, None])
+    return blocks
 
 
 @dataclasses.dataclass(frozen=True)
@@ -143,6 +180,20 @@ class DenseOperator(LinearOperator):
     def diagonal(self) -> torch.Tensor:
         # The identity tail gives 1.0 there, safe to invert; bf16 widened.
         return torch.diagonal(self.A).to(torch.float32)
+
+    def diagonal_blocks(self, bs: int) -> torch.Tensor:
+        # One gather of (nb, bs, bs) entries; tail indices (bs not dividing
+        # padded_n) clamp, are zeroed by the validity mask and take identity
+        # diagonals.
+        N, dev = self.padded_n, self.device
+        nb = -(-N // bs)
+        idx = torch.arange(nb * bs, device=dev)
+        valid = (idx < N).reshape(nb, bs)
+        idxc = idx.clamp(max=N - 1).reshape(nb, bs)
+        blocks = self.A[idxc[:, :, None], idxc[:, None, :]].to(torch.float32)
+        blocks = torch.where(valid[:, :, None] & valid[:, None, :], blocks, 0.0)
+        return blocks + torch.eye(bs, dtype=torch.float32, device=dev)[None] * (
+            ~valid[:, :, None])
 
     def launcher(self) -> Callable:
         A = self.A
@@ -225,6 +276,10 @@ class DiaOperator(LinearOperator):
             return torch.zeros(self.padded_n, dtype=torch.float32, device=self.device)
         return self.data[self.offsets.index(0)].to(torch.float32)  # bf16 widened
 
+    def diagonal_blocks(self, bs: int) -> torch.Tensor:
+        # The slab is canonical (tpucg de-interleaves its packed slab first).
+        return _blocks_from_diag_data(self.offsets, self.data, bs)
+
     def launcher(self) -> Callable:
         data = self.data
         check_dia(data, self.offsets)
@@ -261,6 +316,23 @@ class PoissonOperator(LinearOperator):
 
     def diagonal(self) -> torch.Tensor:
         return torch.full((self.n,), 6.0, dtype=torch.float32, device=self.device)
+
+    def diagonal_blocks(self, bs: int) -> torch.Tensor:
+        # The stencil's offsets are +-1 (x, broken at each x-line end), +-m (y,
+        # broken at slab ends) and +-m^2 (z): their DIA rows with the grid's
+        # boundary masks, assembled like any banded operator's.
+        m, N = self.m, self.n
+        i = torch.arange(N, device=self.device)
+        offsets, rows = [0], [torch.full((N,), 6.0, dtype=torch.float32, device=self.device)]
+        for off, ok_fwd in ((1, (i % m) != m - 1), (m, ((i // m) % m) != m - 1),
+                            (m * m, (i // (m * m)) != m - 1)):
+            if off >= bs:
+                continue  # never lands inside a bs-block
+            fwd = torch.where(ok_fwd & (i + off < N), -1.0, 0.0)
+            bwd = torch.where((i >= off) & torch.roll(ok_fwd, off), -1.0, 0.0)
+            offsets += [off, -off]
+            rows += [fwd, bwd]
+        return _blocks_from_diag_data(offsets, torch.stack(rows), bs)
 
     def launcher(self) -> Callable:
         m = self.m
@@ -398,8 +470,10 @@ class WellOperator(LinearOperator):
     ``lidx`` (NS, 128) int8, ``gidl`` (NB, BS), ``wrow`` (NS/8,) and ``sgb``
     (NB,) int32, ``dvec`` (padded_n,) f32 = diag(A), built on the host at
     set-up as tpucg builds it; ``n`` the logical size, ``bg``/``nsg``
-    groups per super-group and super-groups. These are the form both
-    packages share. K13's layout (``rows``, ``well_rows``: the live slots
+    groups per super-group and super-groups; ``dblk`` the optional (nb, bs,
+    bs) f32 diagonal blocks of block Jacobi, taken from the source CSR
+    (``from_csr(pc_block_size=)``: the packed slabs are not addressable by
+    (row, column)). These are the form both packages share. K13's layout (``rows``, ``well_rows``: the live slots
     repacked row by row, in tiles) is built here, once, on the arrays'
     device, after the arrays' values are checked (reads back to the host).
     On a CUDA device the matvec is K13 or raises; on the CPU its plain
@@ -415,6 +489,7 @@ class WellOperator(LinearOperator):
     bg: int
     nsg: int
     backend: str = "auto"
+    dblk: Optional[torch.Tensor] = None
     rows: WellRows = dataclasses.field(init=False, repr=False)
 
     def __post_init__(self):
@@ -427,6 +502,14 @@ class WellOperator(LinearOperator):
         if self.nsg * self.bg < self.n_groups:
             raise ValueError(f"{self.nsg} super-groups of {self.bg} groups do not cover "
                              f"n={self.n}")
+        if self.dblk is not None and (
+                self.dblk.dtype != torch.float32 or self.dblk.dim() != 3
+                or self.dblk.shape[1] != self.dblk.shape[2]
+                or self.dblk.shape[0] * self.dblk.shape[1] < self.padded_n
+                or self.dblk.device != self.vals.device):
+            raise ValueError(f"dblk must be f32 (nb, bs, bs) blocks covering {self.padded_n} "
+                             f"rows on {self.vals.device}, got {self.dblk.dtype} "
+                             f"{tuple(self.dblk.shape)} on {self.dblk.device}")
         check_well_values(self.lidx, self.gidl, self.wrow, self.sgb, self.bg, self.nsg,
                           self.n_groups)
         object.__setattr__(self, "rows", well_rows(self.vals, self.lidx, self.gidl, self.wrow,
@@ -435,25 +518,29 @@ class WellOperator(LinearOperator):
     @classmethod
     def from_csr(cls, csr, backend: str = "auto", storage_dtype=torch.float32, device=None,
                  pc_block_size=None, **well_kwargs) -> "WellOperator":
-        """Pack a square CSR (``csr_to_well``, keyword arguments forwarded)."""
+        """Pack a square CSR (``csr_to_well``, keyword arguments forwarded).
+        ``pc_block_size`` takes the (nb, bs, bs) diagonal blocks from the CSR
+        (``csr_diagonal_blocks``) so that block Jacobi runs on it."""
+        from tpucg_torch.sparse.formats import csr_diagonal_blocks
         from tpucg_torch.sparse.well import csr_to_well
 
         if csr.shape[0] != csr.shape[1]:
             raise ValueError(f"WellOperator needs a square matrix, got {csr.shape}")
+        dblk = None
         if pc_block_size is not None:
-            raise NotImplementedError(
-                "pc_block_size (the diagonal blocks of block Jacobi) is ROADMAP M8")
+            dblk = csr_diagonal_blocks(csr, int(pc_block_size), npad=round_up(csr.shape[0], LANE))
         return cls.from_well(csr_to_well(csr, **well_kwargs), backend=backend,
-                             storage_dtype=storage_dtype, device=device)
+                             storage_dtype=storage_dtype, device=device, dblk=dblk)
 
     @classmethod
     def from_well(cls, well, backend: str = "auto", storage_dtype=torch.float32,
-                  device=None) -> "WellOperator":
+                  device=None, dblk=None) -> "WellOperator":
         """``well`` is a ``WellMatrix`` (this package's or tpucg's).
         ``storage_dtype=torch.bfloat16`` stores the values in bf16 (3.5
         streamed bytes a slot instead of 5.5; f32 products and sums; the
         solve meets the f32 contract on the bf16-rounded system). ``device``
-        defaults to the card when there is one."""
+        defaults to the card when there is one; ``dblk`` (an array) the
+        diagonal blocks of block Jacobi."""
         if storage_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"storage_dtype must be float32 or bfloat16, got {storage_dtype}")
         device = canonical_device(device)
@@ -467,6 +554,7 @@ class WellOperator(LinearOperator):
             wrow=put(well.wrow, np.int32), sgb=put(well.sgb, np.int32),
             dvec=put(well.diagonal(), np.float32), n=int(well.shape[0]),
             bg=int(well.groups_per_super), nsg=int(well.n_supergroups), backend=backend,
+            dblk=None if dblk is None else put(dblk, np.float32),
         )
 
     @property
@@ -498,6 +586,18 @@ class WellOperator(LinearOperator):
     def diagonal(self) -> torch.Tensor:
         return self.dvec
 
+    def diagonal_blocks(self, bs: int) -> torch.Tensor:
+        if self.dblk is None:
+            raise NotImplementedError(
+                "block Jacobi on a WellOperator needs the diagonal blocks extracted from the "
+                "source CSR at construction: use WellOperator.from_csr(csr, pc_block_size=bs) "
+                "(or best_sparse_operator(csr, pc_block_size=bs))"
+            )
+        if self.dblk.shape[1] != bs:
+            raise ValueError(f"this WellOperator was built with pc_block_size="
+                             f"{self.dblk.shape[1]}, solve requested {bs}")
+        return self.dblk
+
     def launcher(self) -> Callable:
         rows, nrows = self.rows, self.padded_n
         return lambda x, y, active, stream: well_spmv_launch(rows, x, y, nrows, active, stream)
@@ -518,7 +618,9 @@ def best_sparse_operator(csr, backend: str = "auto", max_diags: int = 64,
 
     ``device`` defaults to the card when there is one; every operator's
     backend resolves against it (tpucg's "xla" operators have no
-    counterpart). ``pc_block_size`` serves block Jacobi (ROADMAP M8)."""
+    counterpart). ``pc_block_size`` has a WELL operator carry the diagonal
+    blocks of block Jacobi, taken from the CSR (DIA, BSR and dense extract
+    theirs from addressable storage)."""
     from tpucg_torch.sparse.formats import CSRMatrix, csr_to_bsr, csr_to_dia
 
     n = csr.shape[0]

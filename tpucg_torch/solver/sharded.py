@@ -94,13 +94,16 @@ ROW_ALIGN = 8
 
 def _check_supported(config: CGConfig, interval=None, two_level=None) -> None:
     if config.method != "cg":
-        raise NotImplementedError(f"sharded method={config.method!r} is ROADMAP M8")
+        raise NotImplementedError(f"sharded method={config.method!r} is ROADMAP M14 step 2 "
+                                  "(M8's loops on the mesh)")
     if config.precondition == "block_jacobi":
-        raise NotImplementedError("sharded precondition='block_jacobi' is ROADMAP M8")
+        raise NotImplementedError("sharded precondition='block_jacobi' is ROADMAP M14 step 2 "
+                                  "(M8's block Jacobi on the mesh)")
     if config.dtype != _F32:
         raise NotImplementedError(f"solve dtype {config.dtype} is ROADMAP M9")
     if interval is not None:
-        raise NotImplementedError("interval= serves method='ca'/'chebyshev': ROADMAP M8")
+        raise NotImplementedError("sharded interval= serves method='ca'/'chebyshev': ROADMAP "
+                                  "M14 step 2 (M8's loops on the mesh)")
     if two_level is not None:
         raise NotImplementedError("two_level= (distributed two-level PCG) is ROADMAP M12")
 
