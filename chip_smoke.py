@@ -189,7 +189,31 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    blocks, K13, K2 and K3, its true residual within the FEM bound, laps
    within 1% of the plain route's, timed beside the Jacobi lap route.
 
-The line before last is a JSON object of the kernels (K1-K14 and P1-P7:
+20. M9: the k-column kernels K6 x k (DIA, Poisson m = 128), K8 x k (m =
+   128, and m = 2 and 33 for the edges) and K13 x k (FEM 300k, geometric
+   100k) at k = 1, 3, 8 and 32, each bit-identical to its plain k-column
+   version, to its repeat and, column by column, to the single-column
+   kernel; µs a launch (queued) beside k single-column launches, the plain
+   version, the bound and (k = 8) a torch CSR product on the block. Then
+   ``cg_solve_multi`` at k = 8 on dense n = 8192 (none, jacobi; tol 1e-6),
+   Poisson m = 128 as a stencil and as DIA and the geometric 100k graph on
+   WELL (tol 1e-5 ||B[:, 0]||), each column within a lap of the port's
+   single-vector solve and x within 1e-4 of max |x| of it, the k-column
+   kernel launched and no plain version; ``cg_solve_block`` at k = 8 on
+   dense n = 8192, Poisson m = 128 (none, poly) and geometric 100k, every
+   column converged with its float64 true residual within 2 tol (4 tol
+   under poly: the weighted norm's contract), the block laps beside
+   multi's, and the duplicate-column and zero-column blocks finite;
+   ``cg_solve_ir`` on tpucg's conditioned n = 8192 system (tol 1e-5
+   ||b||): converged below tol on the true f32 residual, K1 launched with
+   bf16 A and with f32 A, its rounds and inner laps (``ir_loop`` run
+   directly, equal to the entry point's) beside a plain f32 solve; f64 on
+   dense n = 8192 (tol 1e-12) and Poisson m = 128: x float64 on the card,
+   its residual below the f32 solve's, no kernel launched, and
+   ``kernel="cuda"`` with f64 raising. Times: ms a solve, CUDA events.
+
+The line before last is a JSON object of the kernels (K1-K14, K6xk, K8xk,
+K13xk and P1-P7:
 launches on the main path, error against the plain version, times, the
 bound and the library call's time); the last line is ``{"ok": true,
 "device": {...}}``. Any failure exits non-zero without it, as does a
@@ -334,6 +358,8 @@ def main() -> int:
         well_rows,
         well_spmv_cuda,
         well_spmv_fused_gather,
+        well_spmv_multi_cuda,
+        well_spmv_multi_torch,
         well_spmv_torch,
     )
     from tpucg_torch.kernels.matvec import matvec_cuda, matvec_torch
@@ -341,11 +367,15 @@ def main() -> int:
         dia_spmv_cuda,
         dia_spmv_halo_cuda,
         dia_spmv_halo_torch,
+        dia_spmv_multi_cuda,
+        dia_spmv_multi_torch,
         dia_spmv_torch,
         halo_length,
     )
     from tpucg_torch.kernels.stencil import (
         poisson3d_cuda,
+        poisson3d_multi_cuda,
+        poisson3d_multi_torch,
         poisson3d_slab_cuda,
         poisson3d_slab_torch,
         poisson3d_torch,
@@ -354,11 +384,16 @@ def main() -> int:
     from tpucg_torch.solver.cg import (
         batch_cg_loop,
         batch_matvec,
+        cg_loop,
         cg_solve,
         cg_solve_batch,
         cg_solve_batch_banded,
+        cg_solve_block,
+        cg_solve_multi,
+        lap_ops,
         spectral_interval,
     )
+    from tpucg_torch.solver.ir import cg_solve_ir, ir_loop
     from tpucg_torch.solver.fused import (
         fused_batch_cg_solve_torch,
         fused_batch_dia_cg_solve_torch,
@@ -387,7 +422,9 @@ def main() -> int:
                 lap_tail_torch, dia_spmv_cuda, dia_spmv_torch,
                 poisson3d_cuda, poisson3d_torch, well_spmv_cuda, well_spmv_torch,
                 dia_spmv_halo_cuda, dia_spmv_halo_torch, poisson3d_slab_cuda,
-                poisson3d_slab_torch) + tuple(dict.fromkeys(
+                poisson3d_slab_torch, dia_spmv_multi_cuda, dia_spmv_multi_torch,
+                poisson3d_multi_cuda, poisson3d_multi_torch, well_spmv_multi_cuda,
+                well_spmv_multi_torch) + tuple(dict.fromkeys(
         w for p in pg.PROBES for w in (getattr(pg.kp, p.kernel), p.plain)))
     whole = (fused_cg_solve_cuda, fused_cg_solve_torch, fused_batch_cg_solve_cuda,
              fused_batch_cg_solve_torch, fused_stencil_cg_solve_cuda,
@@ -1931,6 +1968,320 @@ def main() -> int:
                   f"{w} {c}" for w, c in sorted(launched.items()) if c) + f") {tag}")
         del op, bd, csr, res_p
 
+    # M9's k-column kernels and solves. Every k-column launch a drive makes
+    # is added here (the kernels line's launches of K6xk, K8xk and K13xk).
+    m9_counts = dict.fromkeys(("dia_spmv_multi_cuda", "poisson3d_multi_cuda",
+                               "well_spmv_multi_cuda"), 0)
+
+    def m9_drive(solve):
+        """drive() of one M9 solve, its k-column launches added up."""
+        res, launched = drive(solve)
+        for key in m9_counts:
+            m9_counts[key] += launched[key]
+        return res, launched
+
+    def multi_vs_plain(label, fk, fp, single, X, nbytes, flops, csr=None, timed=True,
+                       plain_synced=False):
+        """A k-column kernel against its plain k-column version on the block
+        X: bit-identical, repeat bit-identical, and column j bit-identical to
+        the single-column kernel on column j; then the device µs a launch
+        (queued, ``device_timing``) beside k launches of the single-column
+        kernel, the plain version, the bound (bytes at the HBM peak) and the
+        torch CSR product on the same block. Returns (err, times)."""
+        k = X.shape[1]
+        Y, Yp = fk(X), fp(X)
+        e = float((Y - Yp).abs().max())
+        require(torch.equal(Y, Yp), f"{label}: max abs err {e} against plain")
+        require(torch.equal(Y, fk(X)), f"{label}: repeat differs")
+        cols = [X[:, j].contiguous() for j in range(k)]
+        for j, c in enumerate(cols):
+            require(torch.equal(Y[:, j], single(c)),
+                    f"{label}: column {j} differs from the single-column kernel")
+        if not timed:
+            print(f"{label}: bit-identical to plain (tol 0), to its repeat and, column by "
+                  "column, to the single-column kernel")
+            return e, None
+        tk = device_seconds_per_call(lambda: fk(X))
+        ts = device_seconds_per_call(lambda: [single(c) for c in cols], reps=max(4, 100 // k))
+        tp = (time_fn(lambda: fp(X), warmup=1, iters=5).median if plain_synced
+              else device_seconds_per_call(lambda: fp(X), reps=20))
+        tl = None if csr is None else device_seconds_per_call(lambda: csr @ X[:csr.shape[1]])
+        bms = bound_of(nbytes, flops)[0] * 1e-3
+        print(f"{label}: bit-identical to plain (tol 0), to its repeat and, column by column, "
+              f"to the single-column kernel; device {tk * 1e6:.2f} us a launch "
+              f"({bms / tk:.1%} of its {bms * 1e6:.2f} us bound, {rate_line(nbytes, tk, peak)}), "
+              f"{k} single-column launches {ts * 1e6:.2f} us ({ts / tk:.2f}x), plain "
+              f"{tp * 1e6:.2f} us" + ("" if tl is None else
+                                      f", torch CSR @ the (n, {k}) block {tl * 1e6:.2f} us")
+              + f" {tag}")
+        return e, (tk, tp, tl, ts)
+
+    def multi_held(label, res, singles, launched, need, within=1, x_tol=1e-4):
+        """A multi-RHS solve against the port's single-vector solves of its
+        columns: every column converged, laps within `within` (the rounding
+        of r at the stop is of the order of tol), x within `x_tol` of max
+        |x|, the k-column kernel `need` launched and no plain version."""
+        its = res.iterations.tolist()
+        kp = [int(s.iterations) for s in singles]
+        require(bool(res.converged.all()) and all(bool(s.converged) for s in singles),
+                f"{label}: converged {res.converged.tolist()}")
+        require(all(abs(a - c) <= within for a, c in zip(its, kp)),
+                f"{label}: laps {its}, single solves {kp}")
+        xs = torch.stack([s.x for s in singles], 1)
+        scale = float(xs.abs().max())
+        e = float((res.x - xs).abs().max())
+        require(e <= x_tol * scale, f"{label}: x {e:.3e} from the single solves' "
+                                    f"(max {scale:.3e})")
+        require(all(launched[w] > 0 for w in need)
+                and all(c == 0 for w, c in launched.items() if w.endswith("_torch")),
+                f"{label}: launches {launched}")
+        return its, kp, e / scale
+
+    with phase("M9: multi-RHS, block CG, f64, refinement"):
+        t_phase = time.perf_counter()
+        # The k-column kernels against their plain versions, k = 1, 3, 8, 32.
+        op_dia = DiaOperator.from_dia(poisson3d_dia(128), device=dev)
+        npd = op_dia.padded_n
+        csr_dia = torch_csr(op_dia.data, op_dia.offsets)
+        A_geo, _, _ = random_geometric_spd(100_000, seed=0, avg_degree=12.0)
+        wells = {"FEM 300k": (A_fem, WellOperator.from_csr(A_fem, device=dev)),
+                 "geometric 100k": (A_geo, WellOperator.from_csr(A_geo, device=dev))}
+        m9_times = {}
+        err["K6xk"] = err["K8xk"] = err["K13xk"] = 0.0
+        for k in (1, 3, 8, 32):
+            X = rnd(npd, k)
+            e, t = multi_vs_plain(
+                f"K6 x {k} Poisson m=128 DIA f32 (n={npd})",
+                lambda Z: dia_spmv_multi_cuda(op_dia.data, op_dia.offsets, Z),
+                lambda Z: dia_spmv_multi_torch(op_dia.data, op_dia.offsets, Z),
+                lambda c: dia_spmv_cuda(op_dia.data, op_dia.offsets, c), X,
+                4 * 7 * npd + 8 * npd * k, 14 * npd * k, csr=csr_dia if k == 8 else None)
+            err["K6xk"] = max(err["K6xk"], e)
+            if k == 8:
+                m9_times["K6xk"] = t
+                bounds["K6xk"] = bound_of(4 * 7 * npd + 8 * npd * k, 14 * npd * k)
+            e, t = multi_vs_plain(
+                f"K8 x {k} stencil m=128 (n={npd})", lambda Z: poisson3d_multi_cuda(Z, 128),
+                lambda Z: poisson3d_multi_torch(Z, 128), lambda c: poisson3d_cuda(c, 128), X,
+                8 * npd * k, 7 * npd * k, csr=csr_dia if k == 8 else None)
+            err["K8xk"] = max(err["K8xk"], e)
+            if k == 8:
+                m9_times["K8xk"] = t
+                bounds["K8xk"] = bound_of(8 * npd * k, 7 * npd * k)
+            for mm in (2, 33):
+                e, _ = multi_vs_plain(f"K8 x {k} stencil m={mm}",
+                                      lambda Z: poisson3d_multi_cuda(Z, mm),
+                                      lambda Z: poisson3d_multi_torch(Z, mm),
+                                      lambda c: poisson3d_cuda(c, mm), rnd(mm ** 3, k), 0, 0,
+                                      timed=False)
+                err["K8xk"] = max(err["K8xk"], e)
+            for label, (A, op) in wells.items():
+                nnz, nw = op.rows.cols.numel(), op.padded_n
+                nbytes = nnz * 8 + 4 * (nw + 1) + 8 * nw * k
+                Xw = rnd(nw, k)
+                Xw[A.shape[0]:] = 0.0
+                e, t = multi_vs_plain(
+                    f"K13 x {k} {label} f32 (n={A.shape[0]}, {nnz} live slots)",
+                    lambda Z: well_spmv_multi_cuda(op.rows, Z, nw),
+                    lambda Z: well_spmv_multi_torch(op.rows, Z, nw), op.matvec, Xw, nbytes,
+                    2 * nnz * k, csr=torch_csr_of(A) if k == 8 else None, plain_synced=True)
+                err["K13xk"] = max(err["K13xk"], e)
+                if k == 8 and label == "FEM 300k":
+                    m9_times["K13xk"] = t
+                    bounds["K13xk"] = bound_of(nbytes, 2 * nnz * k)
+            del X
+        for kid, (tk, tp, tl, _) in m9_times.items():
+            times[kid], library[kid] = (tk, tp), tl
+        del csr_dia
+        print(f"k-column kernels: {time.perf_counter() - t_phase:.1f} s so far")
+
+        # Multi-RHS, k = 8: the dense flagship (B's columns U(0, 1), as the
+        # generator draws b), Poisson m = 128 as a stencil and as DIA, and the
+        # geometric 100k graph on WELL, each against the port's
+        # single-vector solves of its columns.
+        kk = 8
+        rng = np.random.default_rng(0)
+        op_d, bd, x0d, _ = flagship
+        B_d = torch.as_tensor(rng.random((op_d.n, kk)).astype(np.float32), device=dev)
+        B_p = torch.as_tensor(rng.standard_normal((128 ** 3, kk)).astype(np.float32),
+                              device=dev)
+        n_geo = A_geo.shape[0]
+        B_g = torch.as_tensor(rng.standard_normal((n_geo, kk)).astype(np.float32), device=dev)
+        op_p = PoissonOperator(128, device=dev)
+        op_g = wells["geometric 100k"][1]
+        systems = {
+            "dense n=8192 none": (op_d, B_d, dict(tol=1e-6), ()),
+            "dense n=8192 jacobi": (op_d, B_d, dict(tol=1e-6, precondition="jacobi"), ()),
+            "Poisson m=128 stencil": (op_p, B_p, dict(tol=1e-5 * float(B_p[:, 0].norm()),
+                                                      maxiter=poisson_maxiter(128)),
+                                      ("poisson3d_multi_cuda",)),
+            "Poisson m=128 DIA": (op_dia, B_p, dict(tol=1e-5 * float(B_p[:, 0].norm()),
+                                                    maxiter=poisson_maxiter(128)),
+                                  ("dia_spmv_multi_cuda",)),
+            "geometric 100k WELL": (op_g, B_g, dict(tol=1e-5 * float(B_g[:, 0].norm()),
+                                                    maxiter=min(4 * n_geo, 4096)),
+                                    ("well_spmv_multi_cuda",)),
+        }
+        multi_laps = {}
+        for label, (op, B, kw, need) in systems.items():
+            res, launched = m9_drive(lambda: cg_solve_multi(op, B, **kw))
+            singles = [cg_solve(op, B[:, j].contiguous(), **kw) for j in range(kk)]
+            its, kp, ex = multi_held(f"multi {label}", res, singles, launched, need)
+            multi_laps[label] = max(its)
+            t = time_fn(lambda: cg_solve_multi(op, B, **kw), warmup=0, iters=5)
+            ts = time_fn(lambda: [cg_solve(op, B[:, j].contiguous(), **kw) for j in range(kk)],
+                         warmup=0, iters=5)
+            total = sum(c for w, c in launched.items() if c)
+            print(f"multi k={kk} {label}: laps {its} (single solves {kp}), x within {ex:.2e} "
+                  f"of max |x|; {t.median * 1e3:.3f} ms a solve (min {t.min * 1e3:.3f}), "
+                  f"{kk} single solves {ts.median * 1e3:.3f} ms; {total} kernel launches ("
+                  + ", ".join(f"{w} {c}" for w, c in sorted(launched.items()) if c) + f") {tag}")
+        print(f"multi-RHS: {time.perf_counter() - t_phase:.1f} s so far")
+
+        # Block CG, k = 8, on the same B at tol 1e-5 ||B[:, 0]||: its float64
+        # true residual by column within the contract (the poly route's is
+        # M^-1/2-weighted: the unweighted one lies within ||M^1/2|| < 3.5 of
+        # it for degree 3 on the Laplacian, so it is held to 4 tol).
+        def residuals64(op, B, X):
+            if isinstance(op, DenseOperator):
+                AX = op.A[:op.n, :op.n].double() @ X.double()
+            elif isinstance(op, PoissonOperator):
+                AX = poisson3d_multi_torch(X.double(), op.m)
+            else:
+                AX = torch.stack([torch.as_tensor(A_geo.matvec(
+                    X[:, j].double().cpu().numpy()), device=dev) for j in range(X.shape[1])], 1)
+            return (B.double() - AX).norm(dim=0)
+
+        blocks = {
+            "dense n=8192": (op_d, B_d, dict(), (), "dense n=8192 none", 2),
+            "Poisson m=128 stencil": (op_p, B_p, dict(maxiter=poisson_maxiter(128)),
+                                      ("poisson3d_multi_cuda",), "Poisson m=128 stencil", 2),
+            "Poisson m=128 stencil poly": (op_p, B_p, dict(maxiter=poisson_maxiter(128),
+                                                           precondition="poly"),
+                                           ("poisson3d_multi_cuda",), None, 4),
+            "geometric 100k WELL": (op_g, B_g, dict(maxiter=min(4 * n_geo, 4096)),
+                                    ("well_spmv_multi_cuda",), "geometric 100k WELL", 2),
+        }
+        for label, (op, B, kw, need, multi_key, factor) in blocks.items():
+            tol = 1e-5 * float(B[:, 0].norm())
+            kw = dict(kw, tol=tol)
+            res, launched = m9_drive(lambda: cg_solve_block(op, B, **kw))
+            require(bool(res.converged.all()) and bool(torch.isfinite(res.x).all()),
+                    f"block {label}: converged {res.converged.tolist()}")
+            require(all(launched[w] > 0 for w in need)
+                    and all(c == 0 for w, c in launched.items() if w.endswith("_torch")),
+                    f"block {label}: launches {launched}")
+            rn = residuals64(op, B, res.x)
+            require(bool((rn <= factor * tol).all()),
+                    f"block {label}: float64 ||B - A X|| by column {rn.tolist()} > {factor} tol")
+            t = time_fn(lambda: cg_solve_block(op, B, **kw), warmup=0, iters=5)
+            laps = int(res.iterations)
+            beside = "" if multi_key is None else f" (multi's {multi_laps[multi_key]})"
+            print(f"block k={kk} {label}: {laps} laps{beside}, float64 ||B - A X|| / tol by "
+                  f"column max {float(rn.max()) / tol:.3f} (bound {factor}); "
+                  f"{t.median * 1e3:.3f} ms a solve (min {t.min * 1e3:.3f}), "
+                  f"{t.median * 1e3 / max(laps, 1):.3f} ms a lap {tag}")
+        # The rank-deficient block (duplicate columns) and a zero column.
+        for label, B2 in (("duplicate columns", torch.stack([bd, bd], 1)),
+                          ("a zero column", torch.stack([torch.zeros_like(bd), bd], 1))):
+            res = cg_solve_block(op_d, B2, tol=1e-5 * float(bd.norm()))
+            require(bool(res.converged.all()) and bool(torch.isfinite(res.x).all()),
+                    f"block {label}: converged {res.converged.tolist()}, finite "
+                    f"{bool(torch.isfinite(res.x).all())}")
+            print(f"block dense n=8192 {label}: {int(res.iterations)} laps, x finite, "
+                  f"converged {res.converged.tolist()}")
+        del B_p, B_g
+        print(f"block CG: {time.perf_counter() - t_phase:.1f} s so far")
+
+        # Refinement on tpucg's conditioned system: the generator's A shifted
+        # down by (n - n/32) I, ~25 laps, tol 1e-5 ||b||.
+        n = 8192
+        A, b, x0 = generate_spd_system(n, seed=0)
+        A = (A - (n - n / 32.0) * np.eye(n, dtype=np.float32)).astype(np.float32)
+        tol = 1e-5 * float(np.linalg.norm(b))
+        matvec_cuda.bf16_launches = 0
+        res, launched = drive(lambda: cg_solve_ir(A, b, x0, tol=tol, device=dev))
+        k16 = matvec_cuda.bf16_launches
+        require(bool(res.converged) and float(res.residual_norm) < tol,
+                f"IR: converged {bool(res.converged)}, ||r|| {float(res.residual_norm):.3e}")
+        require(k16 > 0 and launched["matvec_cuda"] > k16 and launched["dot_cuda"] > 0
+                and launched["fused_update_cuda"] > 0
+                and all(c == 0 for w, c in launched.items() if w.endswith("_torch")),
+                f"IR: launches {launched}, K1 with bf16 A {k16}")
+        r64 = float(np.linalg.norm(b.astype(np.float64) - A.astype(np.float64)
+                                   @ res.x.double().cpu().numpy()))
+        op16 = DenseOperator.create(A, dtype=torch.bfloat16, device=dev)
+        op32 = DenseOperator.create(A, device=dev)
+        del A
+        b_d, x0_d = torch.as_tensor(b, device=dev), torch.as_tensor(x0, device=dev)
+        mv16, dot16, lap16 = lap_ops(op16, "cuda")
+
+        def ir():
+            return ir_loop(op32.matvec, dot16,
+                           lambda rhs: cg_loop(mv16, dot16, lap16, rhs, torch.zeros_like(rhs),
+                                               tol=3e-2, maxiter=n),
+                           b_d, x0_d, tol=tol, max_refine=6)
+        s = ir()
+        require(int(s.inner_total) == int(res.iterations) and torch.equal(s.x, res.x),
+                f"IR: ir_loop's {int(s.inner_total)} laps against cg_solve_ir's "
+                f"{int(res.iterations)}")
+        plain = cg_solve(op32, b_d, x0_d, tol=tol, maxiter=4 * n)
+        require(bool(plain.converged), "IR: the plain f32 solve did not converge")
+        t_ir = time_fn(ir, warmup=0, iters=5)
+        t_f32 = time_fn(lambda: cg_solve(op32, b_d, x0_d, tol=tol, maxiter=4 * n), warmup=0,
+                        iters=5)
+        print(f"IR n={n} conditioned (A - (n - n/32) I, tol 1e-5 ||b||): {s.j} rounds, "
+              f"{int(res.iterations)} inner laps (K1 with bf16 A {k16} launches, with f32 A "
+              f"{launched['matvec_cuda'] - k16}); f32 true ||r|| {float(res.residual_norm):.4e} "
+              f"(float64 {r64:.4e}) < tol {tol:.4e}; {t_ir.median * 1e3:.3f} ms a solve (min "
+              f"{t_ir.min * 1e3:.3f}); plain f32 cg_solve {int(plain.iterations)} laps, "
+              f"{t_f32.median * 1e3:.3f} ms {tag}")
+        del op16, op32, lap16, mv16
+
+        # f64: dense n = 8192 at tol 1e-12 and Poisson m = 128, on plain
+        # torch ops on the card (no kernel is f64).
+        A, b, x0 = generate_spd_system(n, seed=0)
+        op64 = DenseOperator.create(A, dtype=torch.float64, device=dev)
+        b64, x064 = (torch.as_tensor(v, dtype=torch.float64, device=dev) for v in (b, x0))
+        res, launched = drive(lambda: cg_solve(op64, b64, x064, dtype=torch.float64, tol=1e-12))
+        require(res.x.dtype == torch.float64 and res.x.device == dev and bool(res.converged),
+                f"f64 dense: {res.x.dtype} on {res.x.device}, converged {bool(res.converged)}")
+        require(all(c == 0 for w, c in launched.items() if w.endswith("_cuda")),
+                f"f64 dense: a kernel launched: {launched}")
+        A64 = op64.A[:n, :n]
+        r64 = float((b64 - A64 @ res.x).norm())
+        x32 = cg_solve(op_d, bd, x0d).x  # the f32 flagship solve (tol 1e-6)
+        r32 = float((b64 - A64 @ x32.double()).norm())
+        require(r64 < r32, f"f64 dense: ||b - A x|| {r64:.3e} not below the f32 solve's {r32:.3e}")
+        try:
+            cg_solve(op64, b64, dtype=torch.float64, kernel="cuda")
+            require(False, "f64 with kernel='cuda' did not raise")
+        except ValueError as exc:
+            require("f64" in str(exc), f"f64 with kernel='cuda': {exc}")
+        t64 = time_fn(lambda: cg_solve(op64, b64, x064, dtype=torch.float64, tol=1e-12),
+                      warmup=0, iters=5)
+        print(f"f64 dense n={n} tol 1e-12: {int(res.iterations)} laps, x float64 on {dev}, "
+              f"float64 ||b - A x|| {r64:.3e} (the f32 solve's {r32:.3e}), no kernel launched; "
+              f"{t64.median * 1e3:.3f} ms a solve; kernel='cuda' raises {tag}")
+        del op64, A64, A
+        bp, _ = poisson_rhs(128)
+        bp64 = bp.double()
+        kw64 = dict(dtype=torch.float64, tol=1e-8 * float(bp64.norm()), maxiter=4000)
+        res, launched = drive(lambda: cg_solve(op_p, bp64, **kw64))
+        require(res.x.dtype == torch.float64 and bool(res.converged)
+                and all(c == 0 for w, c in launched.items() if w.endswith("_cuda")),
+                f"f64 Poisson: {res.x.dtype}, converged {bool(res.converged)}, {launched}")
+        r64 = float((bp64 - poisson3d_torch(res.x, 128)).norm() / bp64.norm())
+        res32 = cg_solve(op_p, bp, tol=1e-5 * float(bp.norm()), maxiter=poisson_maxiter(128))
+        r32 = true_residual(op_p, bp, res32.x)
+        require(r64 < r32, f"f64 Poisson: {r64:.3e} not below the f32 solve's {r32:.3e}")
+        t64 = time_fn(lambda: cg_solve(op_p, bp64, **kw64), warmup=0, iters=5)
+        print(f"f64 Poisson m=128 tol 1e-8 ||b||: {int(res.iterations)} laps, float64 "
+              f"||b - A x|| / ||b|| {r64:.3e} (the f32 solve's {r32:.3e}), no kernel launched; "
+              f"{t64.median * 1e3:.3f} ms a solve {tag}")
+        del op_dia, wells, op_g, op_p, bp, bp64
+        print(f"M9: {time.perf_counter() - t_phase:.1f} s")
+
     # (id, name, key of its launch count, source, the TPU kernel it replaces)
     meta = (
         ("K1", "gemv", "matvec_cuda", "blas.cu", "tpucg/kernels/matvec.py:108"),
@@ -1956,6 +2307,13 @@ def main() -> int:
         # K14 is K13's kernel under tpucg's second name: K13's launches.
         ("K14", "well_spmv_fused_gather (K13's kernel)", "well_spmv_cuda", "gather.cu",
          "tpucg/kernels/gather_spmv.py:226"),
+        # The k-column forms (M9): tpucg vmaps K6, K8 and K13 over the columns.
+        ("K6xk", "dia_spmv_multi (K6 x k, k = 8)", "dia_spmv_multi_cuda", "sparse.cu",
+         "tpucg/kernels/spmv.py:221"),
+        ("K8xk", "poisson3d_multi (K8 x k, k = 8)", "poisson3d_multi_cuda", "sparse.cu",
+         "tpucg/kernels/stencil.py:152"),
+        ("K13xk", "well_spmv_multi (K13 x k, k = 8)", "well_spmv_multi_cuda", "gather.cu",
+         "tpucg/kernels/gather_spmv.py:97"),
     ) + tuple(
         # The probes' launches: their own drives' counts, under their ids
         # (P7 runs P1's kernel).
@@ -1964,6 +2322,7 @@ def main() -> int:
     )
     # K2's row: its launches and p's update's (the lap's pair) on the main path.
     counts["K2"] = counts["fused_update_cuda"] + counts["p_update_cuda"]
+    counts.update(m9_counts)  # the k-column forms: phase 20's solves
     kernels = [
         {"name": f"{kid} {kname}", "route": "cuda",
          "source": f"tpucg_torch/kernels/csrc/{src}", "replaces": replaces,

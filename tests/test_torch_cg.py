@@ -161,23 +161,33 @@ def test_operator_padding_matches_tpucg(n, npad):
         (dict(method="ca"), 3),
         (dict(method="chebyshev"), 8),
         (dict(precondition="block_jacobi"), 0),
-        (dict(dtype=torch.float64), None),
+        (dict(dtype=torch.float64), 0),
         (dict(two_level=object()), None),
         (dict(method="ca", interval=(1.0, 5.0)), 3),
     ],
     ids=["pipelined", "ca", "chebyshev", "block_jacobi", "f64", "two_level", "interval"],
 )
 def test_unported_options_name_their_roadmap_item(kw, laps):
-    # f64 solves (M9) and two-level PCG (M12) still name their ROADMAP item;
-    # M8's methods, block Jacobi and cached intervals solve the 2x2 golden
-    # as tpucg does: its laps (within a CA block or a Chebyshev check) and x.
+    # Two-level PCG (M12) still names its ROADMAP item; M8's methods, block
+    # Jacobi, cached intervals and f64 solves (M9; tpucg's under its x64
+    # mode) solve the 2x2 golden as tpucg does: its laps (within a CA block
+    # or a Chebyshev check) and x.
+    import contextlib
+
+    import jax
+    import jax.numpy as jnp
+
     g = GOLDEN_2X2
     if laps is None:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             cg_solve(g["A"], g["b"], device=CPU, **kw)
         return
     port = cg_solve(g["A"], g["b"], g["x0"], device=CPU, maxiter=256, **kw)
-    ref = tpucg.cg_solve(g["A"], g["b"], g["x0"], kernel="xla", maxiter=256, **kw)
+    f64 = kw.get("dtype") == torch.float64
+    jkw = dict(kw, dtype=jnp.float64) if f64 else kw
+    with jax.enable_x64() if f64 else contextlib.nullcontext():
+        ref = tpucg.cg_solve(g["A"], g["b"], g["x0"], kernel="xla", maxiter=256, **jkw)
+        ref = ref._replace(x=np.asarray(ref.x))
     assert bool(port.converged) and bool(ref.converged)
     assert abs(int(port.iterations) - int(ref.iterations)) <= laps
     np.testing.assert_allclose(port.x.numpy(), g["x_star"], atol=2e-3)

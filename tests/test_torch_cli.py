@@ -242,3 +242,13 @@ def test_solve_strategy_summa_and_bench_without_card(tmp_path):
     if not torch.cuda.is_available():
         assert cli.main(["bench", "--compare-strategies", "--n", "128"]) == 2
         assert cli.main(["bench", "--strategy", "overlap", "--n", "128"]) == 2
+
+
+def test_selftest_runs_tpucgs_multi_rhs_check(capsys):
+    # tpucg's selftest checks a k=2 multi-RHS solve (b and b/2) against the
+    # oracle; the port's runs the same check through cg_solve_multi.
+    rc = cli.main(["selftest", "--device", "cpu", "--n", "64"])
+    out = capsys.readouterr().out
+    assert rc == 0, out
+    line = next(ln for ln in out.splitlines() if "multi-RHS (k=2)" in ln)
+    assert "[ok]" in line and "iters [" in line

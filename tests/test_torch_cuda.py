@@ -1774,3 +1774,192 @@ def test_m8_block_products_run_in_full_f32_on_card(cuda_device):
     z = make_block_precond(minv, op.padded_n)(r)
     want = torch.bmm(minv.double(), r.double().reshape(-1, 64, 1)).reshape(-1)
     assert float((z.double() - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+# M9: the k-column forms K6 x k, K8 x k and K13 x k, and the multi-RHS,
+# block, f64 and refinement solves on the card.
+
+from tpucg_torch.kernels.gather_spmv import (  # noqa: E402
+    TILE_MAX,
+    well_spmv_multi_cuda,
+    well_spmv_multi_launch,
+    well_spmv_multi_torch,
+)
+from tpucg_torch.kernels.spmv import (  # noqa: E402
+    dia_spmv_multi_cuda,
+    dia_spmv_multi_torch,
+)
+from tpucg_torch.kernels.stencil import (  # noqa: E402
+    poisson3d_multi_cuda,
+    poisson3d_multi_torch,
+)
+
+M9_K = (1, 3, 8, 32, 33)
+
+
+def _m9_columns_equal(Y, single, X):
+    """Each column of Y equals the single-column kernel on X's column."""
+    for j in range(X.shape[1]):
+        assert torch.equal(Y[:, j], single(X[:, j].contiguous())), j
+
+
+@pytest.mark.parametrize("k", M9_K)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n, offsets", [(1000, (-7, -1, 0, 1, 7)), (129, (0,)),
+                                        (4096, (-1000, -64, 0, 64, 1000))])
+def test_m9_dia_multi_equals_plain_and_k6(cuda_device, k, dtype, n, offsets):
+    _, data, _ = random_banded_dia(n, offsets, seed=k)
+    data = torch.as_tensor(data, device=cuda_device).to(dtype)
+    X = _rand(cuda_device, n, k, seed=k)
+    Y = dia_spmv_multi_cuda(data, offsets, X)
+    assert torch.equal(Y, dia_spmv_multi_torch(data, offsets, X))
+    assert torch.equal(Y, dia_spmv_multi_cuda(data, offsets, X))
+    _m9_columns_equal(Y, lambda x: dia_spmv_cuda(data, offsets, x), X)
+
+
+@pytest.mark.parametrize("k", M9_K)
+@pytest.mark.parametrize("m", [2, 3, 33, 64])
+def test_m9_poisson_multi_equals_plain_and_k8(cuda_device, k, m):
+    U = _rand(cuda_device, m ** 3, k, seed=m + k)
+    Y = poisson3d_multi_cuda(U, m)
+    assert torch.equal(Y, poisson3d_multi_torch(U, m))
+    assert torch.equal(Y, poisson3d_multi_cuda(U, m))
+    _m9_columns_equal(Y, lambda u: poisson3d_cuda(u, m), U)
+
+
+@pytest.mark.parametrize("k", M9_K)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["geometric", "arrowhead", "fem"])
+def test_m9_well_multi_equals_plain_and_k13(cuda_device, k, dtype, kind):
+    A = {"geometric": lambda: random_geometric_spd(3000, seed=2)[0],
+         "arrowhead": lambda: arrowhead_spd(5000, seed=1),
+         "fem": lambda: fem_p1_system(2000, seed=0)[0]}[kind]()
+    op = WellOperator.from_csr(A, device=cuda_device, storage_dtype=dtype)
+    X = _rand(cuda_device, op.padded_n, k, seed=k)
+    Y = op.matvec_multi(X)
+    assert torch.equal(Y, well_spmv_multi_torch(op.rows, X, op.padded_n))
+    assert torch.equal(Y, op.matvec_multi(X))
+    _m9_columns_equal(Y, op.matvec, X)
+    # The largest tile (8 bytes a slot past 48 KB: the launch opts in).
+    big = well_rows(op.vals, op.lidx, op.gidl, op.wrow, op.sgb, op.bg, op.nsg, tile=TILE_MAX)
+    assert torch.equal(well_spmv_multi_cuda(big, X, op.padded_n), Y)
+
+
+def test_m9_multi_kernels_flag_zero_write_nothing(cuda_device):
+    from tpucg_torch.kernels.spmv import dia_spmv_multi_launch, offsets_array
+    from tpucg_torch.kernels.stencil import poisson3d_multi_launch
+
+    off = torch.zeros((), dtype=torch.int32, device=cuda_device)
+    stream = cuda_stream(off)
+    m, k = 16, 4
+    U = _rand(cuda_device, m ** 3, k)
+    Y = torch.full_like(U, 7.0)
+    poisson3d_multi_launch(U, Y, m, off.data_ptr(), stream)
+    _, data, _ = random_banded_dia(m ** 3, (-1, 0, 1), seed=0)
+    data = torch.as_tensor(data, device=cuda_device)
+    dia_spmv_multi_launch(data, offsets_array((-1, 0, 1)), U, Y, off.data_ptr(), stream)
+    op = WellOperator.from_csr(random_geometric_spd(3000, seed=2)[0], device=cuda_device)
+    Xw = _rand(cuda_device, op.padded_n, k)
+    Yw = torch.full_like(Xw, 7.0)
+    well_spmv_multi_launch(op.rows, Xw, Yw, op.padded_n, off.data_ptr(), stream)
+    torch.cuda.synchronize()
+    assert bool((Y == 7.0).all()) and bool((Yw == 7.0).all())
+
+
+M9_CUDA = (matvec_cuda, dot_cuda, fused_update_cuda, p_update_cuda, dia_spmv_cuda,
+           poisson3d_cuda, well_spmv_cuda, dia_spmv_multi_cuda, poisson3d_multi_cuda,
+           well_spmv_multi_cuda)
+M9_PLAIN = (matvec_torch, dot_torch, fused_update_torch, p_update_torch, dia_spmv_torch,
+            poisson3d_torch, well_spmv_torch, dia_spmv_multi_torch, poisson3d_multi_torch,
+            well_spmv_multi_torch)
+
+
+def _m9_counted(fn):
+    before = {w: w.launches for w in M9_CUDA + M9_PLAIN}
+    out = fn()
+    torch.cuda.synchronize()
+    moved = {w.__name__: w.launches - before[w] for w in before}
+    return out, moved
+
+
+def _m9_operator(kind, dev, backend="auto"):
+    if kind == "poisson":
+        return PoissonOperator(16, backend=backend, device=dev)
+    if kind == "dia":
+        return DiaOperator.from_dia(poisson3d_dia(16), backend=backend, device=dev)
+    A = random_geometric_spd(3000, seed=2)[0]
+    return WellOperator.from_csr(A, backend=backend, device=dev, pc_block_size=16)
+
+
+@pytest.mark.parametrize("kind, kernel", [("poisson", "poisson3d_multi_cuda"),
+                                          ("dia", "dia_spmv_multi_cuda"),
+                                          ("well", "well_spmv_multi_cuda")])
+@pytest.mark.parametrize("solver, pc", [("multi", "none"), ("multi", "jacobi"),
+                                        ("multi", "poly"), ("block", "none"),
+                                        ("block", "block_jacobi"), ("block", "poly")])
+def test_m9_solves_on_card_run_the_k_column_kernels(cuda_device, kind, kernel, solver, pc):
+    from tpucg_torch.solver.cg import cg_solve_block, cg_solve_multi
+
+    op = _m9_operator(kind, cuda_device)
+    plain = _m9_operator(kind, cuda_device, backend="torch")
+    rng = np.random.default_rng(0)
+    B = np.zeros((op.n, 4), np.float32)
+    B[:] = rng.standard_normal((op.n, 4))
+    kw = dict(tol=1e-5 * float(np.linalg.norm(B[:, 0])), maxiter=2000, precondition=pc,
+              pc_block_size=16)
+    fn = cg_solve_multi if solver == "multi" else cg_solve_block
+    card, moved = _m9_counted(lambda: fn(op, B, **kw))
+    ref, moved_p = _m9_counted(lambda: fn(plain, B, kernel="torch", **kw))
+    assert moved[kernel] > 0 and all(c == 0 for w, c in moved.items() if w.endswith("_torch"))
+    assert all(c == 0 for w, c in moved_p.items() if w.endswith("_cuda"))
+    assert bool(card.converged.all()) and bool(ref.converged.all())
+    assert int((card.iterations - ref.iterations).abs().max()) <= 1
+    assert scaled_err(card.x.cpu().numpy(), ref.x.cpu().numpy()) <= 1e-4
+
+
+@pytest.mark.parametrize("solver", ["multi", "block"])
+def test_m9_chunk_sizes_bit_identical_on_card(cuda_device, solver):
+    from tpucg_torch.solver.cg import cg_solve_block, cg_solve_multi
+
+    op = PoissonOperator(16, device=cuda_device)
+    B = np.random.default_rng(1).standard_normal((op.n, 3)).astype(np.float32)
+    fn = cg_solve_multi if solver == "multi" else cg_solve_block
+    kw = dict(tol=1e-5 * float(np.linalg.norm(B[:, 0])), maxiter=500)
+    runs = [fn(op, B, chunk=c, **kw) for c in (None, 1, 7, 64)]
+    for r in runs[1:]:
+        for f in ("x", "iterations", "residual_norm", "converged"):
+            assert torch.equal(getattr(r, f), getattr(runs[0], f)), f
+
+
+def test_m9_f64_solves_on_card_run_no_kernel(cuda_device):
+    A, b, x0 = generate_spd_system(512, seed=3)
+    res, moved = _m9_counted(lambda: cg_solve(A, b, x0, device=cuda_device,
+                                              dtype=torch.float64, tol=1e-12))
+    assert res.x.dtype == torch.float64 and res.x.device == cuda_device
+    assert bool(res.converged) and all(c == 0 for w, c in moved.items() if w.endswith("_cuda"))
+    resid = np.linalg.norm(b - A.astype(np.float64) @ res.x.cpu().numpy())
+    assert resid < 1e-10
+    op = PoissonOperator(16, device=cuda_device)
+    bp = np.ones(op.n)
+    rp, moved = _m9_counted(lambda: cg_solve(op, bp, dtype=torch.float64, tol=1e-10,
+                                             maxiter=2000))
+    assert bool(rp.converged) and rp.x.dtype == torch.float64
+    assert all(c == 0 for w, c in moved.items() if w.endswith("_cuda"))
+    with pytest.raises(ValueError, match="f64"):
+        cg_solve(A, b, device=cuda_device, dtype=torch.float64, kernel="cuda")
+
+
+def test_m9_ir_on_card_runs_k1_bf16_and_f32(cuda_device):
+    from tpucg_torch.solver.ir import cg_solve_ir
+
+    n = 1024
+    A, b, x0 = generate_spd_system(n, seed=5)
+    A = (A - (n - n / 32.0) * np.eye(n)).astype(np.float32)
+    tol = 1e-5 * float(np.linalg.norm(b))
+    res, moved = _m9_counted(lambda: cg_solve_ir(A, b, x0, tol=tol, device=cuda_device))
+    assert bool(res.converged) and float(res.residual_norm) < tol
+    assert moved["matvec_cuda"] > 0 and moved["dot_cuda"] > 0 and moved["fused_update_cuda"] > 0
+    assert all(c == 0 for w, c in moved.items() if w.endswith("_torch"))
+    plain = cg_solve_ir(A, b, x0, tol=tol, device=cuda_device, kernel="torch")
+    assert bool(plain.converged)
+    assert abs(int(res.iterations) - int(plain.iterations)) <= 4

@@ -327,14 +327,18 @@ def test_well_operator_diagonal_and_tail():
 def test_well_operator_refuses_what_later_slices_bring():
     # Block Jacobi's blocks (once refused as M8) come from the CSR, as
     # tpucg's do; an operator built without them refuses with tpucg's
-    # message. The multi-RHS product is M9's.
+    # message. The multi-RHS product (once refused as M9) is the
+    # single-column product on each column, bit for bit.
     A = _random_csr(200, 0.03, seed=1)
     blocked = WellOperator.from_csr(A, pc_block_size=16, device=CPU)
     np.testing.assert_array_equal(blocked.diagonal_blocks(16).numpy(), np.asarray(
         JWellOperator.from_csr(A, backend="xla", pc_block_size=16).dblk))
     op = WellOperator.from_csr(A, device=CPU)
-    with pytest.raises(NotImplementedError, match="M9"):
-        op.matvec_multi(torch.zeros(op.padded_n, 2))
+    X = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (op.padded_n, 2)).astype(np.float32))
+    Y = op.matvec_multi(X)
+    for j in range(2):
+        assert torch.equal(Y[:, j], op.matvec(X[:, j].contiguous()))
     with pytest.raises(NotImplementedError, match="pc_block_size=bs"):
         op.diagonal_blocks(16)
     with pytest.raises(ValueError, match="square"):

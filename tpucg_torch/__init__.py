@@ -17,6 +17,11 @@ from MatrixMarket files or the generators, go through
 ``WellOperator``, K13 on the lap) or ELL as tpucg does.
 ``cg_solve_batch`` solves B independent systems, in one launch of K5 where
 it applies, and ``cg_solve_batch_banded`` B banded ones (K12).
+``cg_solve_multi`` solves k right-hand sides of one system in lockstep and
+``cg_solve_block`` by true block CG, both on the operators' k-column
+products (K6 x k, K8 x k, K13 x k); ``cg_solve(dtype=torch.float64)``
+solves in f64 on plain torch ops, and ``cg_solve_ir`` refines a bf16-rate
+dense solve to the f32 contract.
 ``sharded_cg_solve`` and ``sharded_operator_cg_solve`` distribute a solve's
 rows over the ranks of a ``torch.distributed`` world (``make_mesh``,
 ``init_distributed``): dense with the allgather or overlap-ring exchange,
@@ -37,12 +42,16 @@ from tpucg_torch.io.generator import (
 from tpucg_torch.io.mmio import load_matrix_market, save_matrix_market
 from tpucg_torch.io.textio import load_matrix, load_system, load_vector, save_array
 from tpucg_torch.solver.cg import (
+    BLOCK_CG_MAX_K,
     CGResult,
     cg_solve,
     cg_solve_batch,
     cg_solve_batch_banded,
+    cg_solve_block,
+    cg_solve_multi,
     spectral_interval,
 )
+from tpucg_torch.solver.ir import cg_solve_ir
 from tpucg_torch.solver.operators import (
     BsrOperator,
     DenseOperator,
@@ -72,6 +81,10 @@ __all__ = [
     "cg_solve",
     "cg_solve_batch",
     "cg_solve_batch_banded",
+    "cg_solve_block",
+    "cg_solve_ir",
+    "cg_solve_multi",
+    "BLOCK_CG_MAX_K",
     "spectral_interval",
     "DistributedSystem",
     "Mesh",

@@ -305,7 +305,7 @@ def cmd_selftest(args) -> int:
     from tpucg_torch.io.generator import generate_spd_system
     from tpucg_torch.io.golden import GOLDEN_2X2, GOLDEN_4X4
     from tpucg_torch.kernels.dispatch import canonical_device, resolve_backend
-    from tpucg_torch.solver.cg import cg_solve
+    from tpucg_torch.solver.cg import cg_solve, cg_solve_multi
     from tpucg_torch.solver.oracle import oracle_cg
 
     device = canonical_device(args.device)
@@ -350,6 +350,11 @@ def cmd_selftest(args) -> int:
             and (pc != "none" or int(r.iterations) == k_ref),
             f"{int(r.iterations)} iters (oracle {k_ref})",
         )
+    B = np.stack([b, 0.5 * b], axis=1).astype(np.float32)
+    rm = cg_solve_multi(A, B, kernel=args.kernel, device=device)
+    check("multi-RHS (k=2)", bool(rm.converged.all())
+          and np.allclose(rm.x[:, 0].cpu().numpy(), x_ref, atol=1e-4),
+          f"iters {[int(i) for i in rm.iterations]}")
     native = _native._load() is not None
     print(f"  [{'ok' if native else '--'}] native fast parser "
           f"({'loaded' if native else 'unavailable; NumPy parser in use'})")

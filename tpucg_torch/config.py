@@ -26,8 +26,10 @@ class CGConfig:
         contract is ``sqrt(r.r) < 1e-6``, tested after the x/r update and
         before the p update.
       maxiter: iteration cap; ``None`` means n.
-      dtype: solve dtype, float32 (the reference contract). bf16 is a storage
-        dtype of ``DenseOperator.create``, not a solve dtype.
+      dtype: solve dtype, float32 (the reference contract) or float64
+        (tpucg's extension: plain torch ops on the solve's device, no
+        kernel). bf16 is a storage dtype of ``DenseOperator.create``, not a
+        solve dtype.
       strategy: communication of a sharded dense solve: ``"allgather"``
         gathers the direction vector whole every lap (the reference's
         collective arm, ``parallel_cg.c:290-291``), ``"overlap"`` passes its

@@ -33,8 +33,8 @@ STATE_FIELDS = ("k", "x", "r", "p", "rsold", "rslast", "done")
 
 
 def dense_operator_from_numpy(A_padded: np.ndarray, n: int, device="cpu") -> DenseOperator:
-    """The port's DenseOperator for an already padded (npad, npad) f32 or
-    bf16 array of logical size ``n``. The padding must be the port's: npad
+    """The port's DenseOperator for an already padded (npad, npad) f32, bf16
+    or f64 array of logical size ``n``. The padding must be the port's: npad
     the multiple of 128 above n, identity on the tail, zeros beside it."""
     A = np.asarray(A_padded)
     npad = padded_size(n)
@@ -47,6 +47,9 @@ def dense_operator_from_numpy(A_padded: np.ndarray, n: int, device="cpu") -> Den
         or np.any(A[n:, :n].astype(np.float32))
     ):
         raise ValueError("A_padded does not end in a decoupled identity tail")
+    if A.dtype == np.float64:
+        # An f64 A (tpucg's x64 operator) stays f64, on the "torch" backend.
+        return DenseOperator(A=torch.from_numpy(np.ascontiguousarray(A)).to(device), n=n)
     dtype = torch.bfloat16 if A.dtype.name == "bfloat16" else torch.float32
     t = torch.from_numpy(A.astype(np.float32)).to(device=device, dtype=dtype)
     return DenseOperator(A=t, n=n)

@@ -7,7 +7,9 @@ SpMV), K8 ``poisson3d_cuda`` (7-point stencil), K7 ``dia_spmv_halo_cuda``
 and K9 ``poisson3d_slab_cuda`` (K6 and K8 on one rank's block of a
 distributed solve, with halos), K13 ``well_spmv_cuda``
 (WELL SpMV; K14 ``well_spmv_fused_gather`` is the same kernel under
-tpucg's second name), K2 ``fused_update_cuda`` (x/r update and r'.r' in
+tpucg's second name), the k-column forms K6 x k ``dia_spmv_multi_cuda``,
+K8 x k ``poisson3d_multi_cuda`` and K13 x k ``well_spmv_multi_cuda`` (the
+multi-RHS and block solves' products), K2 ``fused_update_cuda`` (x/r update and r'.r' in
 one pass) with ``p_update_cuda`` (p's update), and K3 ``dot_cuda`` (with
 ``dot_alpha_cuda``, its alpha mode); each of K2 and K3 is one launch that
 can also run the lap's scalar tail (``lap_tail_torch`` is its plain
@@ -51,6 +53,9 @@ from tpucg_torch.kernels.gather_spmv import (
     well_spmv,
     well_spmv_cuda,
     well_spmv_fused_gather,
+    well_spmv_multi,
+    well_spmv_multi_cuda,
+    well_spmv_multi_torch,
     well_spmv_torch,
 )
 from tpucg_torch.kernels.matvec import MATVEC_ALIGN, matvec, matvec_cuda, matvec_torch
@@ -61,12 +66,18 @@ from tpucg_torch.kernels.spmv import (
     dia_spmv_halo,
     dia_spmv_halo_cuda,
     dia_spmv_halo_torch,
+    dia_spmv_multi,
+    dia_spmv_multi_cuda,
+    dia_spmv_multi_torch,
     dia_spmv_torch,
     ell_spmv,
 )
 from tpucg_torch.kernels.stencil import (
     poisson3d,
     poisson3d_cuda,
+    poisson3d_multi,
+    poisson3d_multi_cuda,
+    poisson3d_multi_torch,
     poisson3d_slab,
     poisson3d_slab_cuda,
     poisson3d_slab_torch,
@@ -99,10 +110,16 @@ __all__ = [
     "dia_spmv_halo",
     "dia_spmv_halo_cuda",
     "dia_spmv_halo_torch",
+    "dia_spmv_multi",
+    "dia_spmv_multi_cuda",
+    "dia_spmv_multi_torch",
     "dia_spmv_torch",
     "ell_spmv",
     "poisson3d",
     "poisson3d_cuda",
+    "poisson3d_multi",
+    "poisson3d_multi_cuda",
+    "poisson3d_multi_torch",
     "poisson3d_slab",
     "poisson3d_slab_cuda",
     "poisson3d_slab_torch",
@@ -115,5 +132,8 @@ __all__ = [
     "well_spmv",
     "well_spmv_cuda",
     "well_spmv_fused_gather",
+    "well_spmv_multi",
+    "well_spmv_multi_cuda",
+    "well_spmv_multi_torch",
     "well_spmv_torch",
 ]

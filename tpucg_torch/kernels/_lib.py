@@ -64,7 +64,12 @@ SIGNATURES = {
         ctypes.c_int, [_PTR, _PTR, ctypes.c_int] + [_PTR] * 4 + [_LEN, _LEN, _PTR, _PTR]),
     "tpucg_dia_spmv_halo_bf16": (
         ctypes.c_int, [_PTR, _PTR, ctypes.c_int] + [_PTR] * 4 + [_LEN, _LEN, _PTR, _PTR]),
+    "tpucg_dia_spmv_multi_f32": (
+        ctypes.c_int, [_PTR, _PTR, ctypes.c_int, _PTR, _PTR, _LEN, _LEN, _PTR, _PTR]),
+    "tpucg_dia_spmv_multi_bf16": (
+        ctypes.c_int, [_PTR, _PTR, ctypes.c_int, _PTR, _PTR, _LEN, _LEN, _PTR, _PTR]),
     "tpucg_poisson3d_f32": (ctypes.c_int, [_PTR, _PTR, _LEN, _PTR, _PTR]),
+    "tpucg_poisson3d_multi_f32": (ctypes.c_int, [_PTR, _PTR, _LEN, _LEN, _PTR, _PTR]),
     "tpucg_poisson3d_slab_f32": (ctypes.c_int, [_PTR] * 4 + [_LEN, _LEN, _PTR, _PTR]),
     "tpucg_poisson3d_march_f32": (
         ctypes.c_int, [_PTR] * 4 + [_LEN, _LEN] + [ctypes.c_int] * 3 + [_PTR, _PTR]),
@@ -101,6 +106,10 @@ SIGNATURES = {
         ctypes.c_int, [_LEN, _LEN] + [ctypes.c_int] * 4 + [_PTR]),
     "tpucg_well_spmv_f32": (ctypes.c_int, [_PTR] * 6 + [_LEN, _LEN, ctypes.c_int, _PTR, _PTR]),
     "tpucg_well_spmv_bf16": (ctypes.c_int, [_PTR] * 6 + [_LEN, _LEN, ctypes.c_int, _PTR, _PTR]),
+    "tpucg_well_spmv_multi_f32": (
+        ctypes.c_int, [_PTR] * 6 + [_LEN, _LEN, ctypes.c_int, _LEN, _PTR, _PTR]),
+    "tpucg_well_spmv_multi_bf16": (
+        ctypes.c_int, [_PTR] * 6 + [_LEN, _LEN, ctypes.c_int, _LEN, _PTR, _PTR]),
     "tpucg_probe_lane_gather_f32": (ctypes.c_int, [_PTR, _PTR, _PTR, _LEN, ctypes.c_int, _PTR]),
     "tpucg_probe_sub_gather_f32": (
         ctypes.c_int, [_PTR, _PTR, _PTR, _LEN, _LEN, ctypes.c_int, ctypes.c_int, _PTR]),

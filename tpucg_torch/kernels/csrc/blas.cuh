@@ -2,10 +2,11 @@
 // tpucg_torch/kernels/_lib.py binds with ctypes, and the fixed-order block
 // reduction that K2 (fused update) and K3 (dot) share. The dense lap (K1-K3)
 // lives in blas.cu, the structured-sparse lap matvecs (K6 DIA SpMV, K8
-// 7-point stencil, and their row-block forms with halos K7 and K9) in
-// sparse.cu, the irregular one (K13 WELL SpMV) in
-// gather.cu, the whole solves (K4, K5, K10, K11, K12) in fused.cu, and the
-// gather probes P1-P7 (no solve runs them) in probe.cu.
+// 7-point stencil, their row-block forms with halos K7 and K9, and the
+// k-column forms K6 x k and K8 x k) in sparse.cu, the irregular one (K13
+// WELL SpMV, and K13 x k) in gather.cu, the whole solves (K4, K5, K10,
+// K11, K12) in fused.cu, and the gather probes P1-P7 (no solve runs them)
+// in probe.cu.
 //
 // Every entry point takes the launch stream. The lap's kernels also take an
 // optional `active` device flag (const int*, may be null). When the flag
@@ -189,6 +190,20 @@ cudaError_t tpucg_dia_spmv_halo_bf16(const void* data, const void* offsets, int 
                                      long long blk, long long pad, const void* active,
                                      void* stream);
 
+// K6 x k: Y = A X for X and Y f32 (npad, k) row-major, K6's sum for every
+// column (column j of Y is K6's y on column j of X, bit for bit); k >= 1.
+cudaError_t tpucg_dia_spmv_multi_f32(const void* data, const void* offsets, int ndiag,
+                                     const void* x, void* y, long long npad, long long k,
+                                     const void* active, void* stream);
+cudaError_t tpucg_dia_spmv_multi_bf16(const void* data, const void* offsets, int ndiag,
+                                      const void* x, void* y, long long npad, long long k,
+                                      const void* active, void* stream);
+
+// K8 x k: Y = A U for U and Y f32 (m^3, k) row-major, K8's sum for every
+// column; 2 <= m <= 1280, k >= 1.
+cudaError_t tpucg_poisson3d_multi_f32(const void* u, void* y, long long m, long long k,
+                                      const void* active, void* stream);
+
 // K8: y = A u for the 7-point Dirichlet Laplacian on an m^3 grid, flat index
 // x*m^2 + y*m + z; u and y f32 (m^3,), 2 <= m <= 1280.
 cudaError_t tpucg_poisson3d_f32(const void* u, void* y, long long m, const void* active,
@@ -285,6 +300,16 @@ cudaError_t tpucg_well_spmv_f32(const void* rvals, const void* cols, const void*
 cudaError_t tpucg_well_spmv_bf16(const void* rvals, const void* cols, const void* rowptr,
                                  const void* tptr, const void* x, void* y, long long nrows,
                                  long long ntiles, int tile, const void* active, void* stream);
+// K13 x k: Y = A X over the same layout, X f32 (columns, k) and Y f32
+// (nrows, k) row-major, K13's products and sums for every column; k >= 1.
+cudaError_t tpucg_well_spmv_multi_f32(const void* rvals, const void* cols, const void* rowptr,
+                                      const void* tptr, const void* x, void* y, long long nrows,
+                                      long long ntiles, int tile, long long k,
+                                      const void* active, void* stream);
+cudaError_t tpucg_well_spmv_multi_bf16(const void* rvals, const void* cols, const void* rowptr,
+                                       const void* tptr, const void* x, void* y,
+                                       long long nrows, long long ntiles, int tile, long long k,
+                                       const void* active, void* stream);
 
 // P1-P7, the gather probes of benchmarks/probe_gather.py (probe.cu): f32
 // rows of 128, int32 indices, none of them checked. P1 (and P7):

@@ -54,8 +54,26 @@
 // ends the same way in both: the diagonal is stored, so a non-finite p
 // makes p.Ap non-finite either way.)
 //
-// It reads the lap's `active` flag first and returns at once when it is 0,
-// and writes rows [0, nrows) only.
+// K13 x k (well_rows_spmv_multi_kernel) replaces tpucg's vmap of the same
+// kernel (WellOperator.matvec_multi, the multi-RHS and block solves'
+// batched matvec): Y (nrows, k) = A X over the same layout, X and Y
+// row-major, so a gathered row of X is k contiguous floats. K13's design
+// would stage a tile's products, tile x k floats: 64 KB for the 2,048-slot
+// tile at k = 8 and 256 KB at k = 32, past the 227 KB a block can take. So a
+// tile stages what the k columns share instead, each live slot's value
+// (widened to f32) and column, 8 bytes a slot whatever k is (16 KB a tile;
+// a tile of up to TILE_MAX slots opts in to 96 KB): the layout is read once
+// for all k columns. Then each thread takes V neighbouring columns of one
+// of the tile's rows (V = 4, one 16-byte gather of X's row a slot, where k
+// % 4 == 0 and X and Y are 16-byte aligned, else V = 1), and every
+// kThreads-th such group after it, and sums __fmul_rn of the staged value
+// and X[col, j] over the row's slots in order, from 0, with __fadd_rn:
+// K13's products and K13's sums. A row longer than a tile is staged a
+// tile at a time, each thread carrying its columns' sums across them. So
+// column j of Y is K13's y on column j of X, bit for bit, for any k and V.
+//
+// Both read the lap's `active` flag first and return at once when it is 0,
+// and write rows [0, nrows) only.
 #include "blas.cuh"
 #include "sparse.cuh"
 
@@ -140,6 +158,116 @@ well_rows_spmv_kernel(const T* __restrict__ rvals, const int* __restrict__ cols,
   if (t == 0) y[r0] = acc;
 }
 
+// Values (widened) and columns of slots [s0, s1) into sv and sc.
+template <typename T>
+__device__ __forceinline__ void stage_slots(const T* __restrict__ rvals,
+                                            const int* __restrict__ cols, float* sv, int* sc,
+                                            int s0, int s1) {
+  for (int i = threadIdx.x; i < s1 - s0; i += kThreads) {
+    sv[i] = widen(__ldg(rvals + s0 + i));
+    sc[i] = __ldg(cols + s0 + i);
+  }
+}
+
+// Columns [c0, c0 + V) of row r over its staged slots [a, b): K13's
+// products and sums, column by column.
+template <int V>
+__device__ __forceinline__ void row_sums(const float* sv, const int* sc, int a, int b,
+                                         const float* __restrict__ xc, int k, float (&acc)[V]) {
+  for (int q = a; q < b; ++q) {
+    const float s = sv[q];
+    const Cols<V> x = load_cols<V>(xc + static_cast<long long>(sc[q]) * k);
+#pragma unroll
+    for (int v = 0; v < V; ++v) acc[v] = __fadd_rn(acc[v], __fmul_rn(s, x.v[v]));
+  }
+}
+
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads)
+well_rows_spmv_multi_kernel(const T* __restrict__ rvals, const int* __restrict__ cols,
+                            const int* __restrict__ rowptr, const int* __restrict__ tptr,
+                            const float* __restrict__ X, float* __restrict__ Y, int nrows,
+                            int tile, int k, const int* __restrict__ active) {
+  extern __shared__ float staged[];
+  float* const sv = staged;
+  int* const sc = reinterpret_cast<int*>(staged + tile);
+  if (inactive(active)) return;
+  const int r0 = __ldg(tptr + blockIdx.x);
+  if (r0 >= nrows) return;
+  const int r1 = min(__ldg(tptr + blockIdx.x + 1), nrows);
+  const int s0 = __ldg(rowptr + r0);
+  const int s1 = __ldg(rowptr + r1);
+  const int groups = k / V;
+  if (s1 - s0 <= tile) {
+    stage_slots(rvals, cols, sv, sc, s0, s1);
+    __syncthreads();
+    const long long work = static_cast<long long>(r1 - r0) * groups;
+    for (long long w = threadIdx.x; w < work; w += kThreads) {
+      const int r = r0 + static_cast<int>(w / groups);
+      const int c0 = V * static_cast<int>(w - static_cast<long long>(r - r0) * groups);
+      const int a = __ldg(rowptr + r) - s0, b = __ldg(rowptr + r + 1) - s0;
+      float acc[V];
+#pragma unroll
+      for (int v = 0; v < V; ++v) acc[v] = 0.f;
+      row_sums<V>(sv, sc, a, b, X + c0, k, acc);
+      store_cols<V>(Y + static_cast<long long>(r) * k + c0, acc);
+    }
+    return;
+  }
+  // One row longer than a tile: a tile of its slots at a time, kThreads
+  // column groups at a time.
+  for (int g0 = 0; g0 < groups; g0 += kThreads) {
+    const int g = g0 + static_cast<int>(threadIdx.x);
+    float acc[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) acc[v] = 0.f;
+    for (int c = s0; c < s1; c += tile) {
+      const int e = min(c + tile, s1);
+      stage_slots(rvals, cols, sv, sc, c, e);
+      __syncthreads();
+      if (g < groups) row_sums<V>(sv, sc, 0, e - c, X + V * g, k, acc);
+      __syncthreads();
+    }
+    if (g < groups) store_cols<V>(Y + static_cast<long long>(r0) * k + V * g, acc);
+  }
+}
+
+template <typename T, int V>
+cudaError_t launch_well_multi_v(const void* rvals, const void* cols, const void* rowptr,
+                                const void* tptr, const void* x, void* y, long long nrows,
+                                long long ntiles, int tile, long long k, const void* active,
+                                void* stream, size_t smem) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(well_rows_spmv_multi_kernel<T, V>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  well_rows_spmv_multi_kernel<T, V><<<static_cast<unsigned>(ntiles), kThreads, smem,
+                                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(rvals), static_cast<const int*>(cols),
+      static_cast<const int*>(rowptr), static_cast<const int*>(tptr),
+      static_cast<const float*>(x), static_cast<float*>(y), static_cast<int>(nrows), tile,
+      static_cast<int>(k), static_cast<const int*>(active));
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_well_spmv_multi(const void* rvals, const void* cols, const void* rowptr,
+                                   const void* tptr, const void* x, void* y, long long nrows,
+                                   long long ntiles, int tile, long long k, const void* active,
+                                   void* stream) {
+  const size_t smem = static_cast<size_t>(tile) * (sizeof(float) + sizeof(int));
+  if (nrows <= 0 || nrows > 0x7ffffffeLL || ntiles <= 0 || ntiles > 0x7fffffffLL ||
+      tile < 2 || smem > 227 * 1024 || k < 1 || k > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  if (cols_a_thread(k, x, y) == 4)
+    return launch_well_multi_v<T, 4>(rvals, cols, rowptr, tptr, x, y, nrows, ntiles, tile, k,
+                                     active, stream, smem);
+  return launch_well_multi_v<T, 1>(rvals, cols, rowptr, tptr, x, y, nrows, ntiles, tile, k,
+                                   active, stream, smem);
+}
+
 template <typename T>
 cudaError_t launch_well_spmv(const void* rvals, const void* cols, const void* rowptr,
                              const void* tptr, const void* x, void* y, long long nrows,
@@ -173,4 +301,22 @@ extern "C" cudaError_t tpucg_well_spmv_bf16(const void* rvals, const void* cols,
                                             const void* active, void* stream) {
   return tpucg::launch_well_spmv<uint16_t>(rvals, cols, rowptr, tptr, x, y, nrows, ntiles,
                                            tile, active, stream);
+}
+
+extern "C" cudaError_t tpucg_well_spmv_multi_f32(const void* rvals, const void* cols,
+                                                 const void* rowptr, const void* tptr,
+                                                 const void* x, void* y, long long nrows,
+                                                 long long ntiles, int tile, long long k,
+                                                 const void* active, void* stream) {
+  return tpucg::launch_well_spmv_multi<float>(rvals, cols, rowptr, tptr, x, y, nrows, ntiles,
+                                              tile, k, active, stream);
+}
+
+extern "C" cudaError_t tpucg_well_spmv_multi_bf16(const void* rvals, const void* cols,
+                                                  const void* rowptr, const void* tptr,
+                                                  const void* x, void* y, long long nrows,
+                                                  long long ntiles, int tile, long long k,
+                                                  const void* active, void* stream) {
+  return tpucg::launch_well_spmv_multi<uint16_t>(rvals, cols, rowptr, tptr, x, y, nrows,
+                                                 ntiles, tile, k, active, stream);
 }

@@ -74,6 +74,23 @@
 // rank with zero halos is K6 or K8. tpucg's slab_supported (stencil.py:88)
 // is a VMEM and lane rule: K9 takes any m >= 2 and mp >= 1.
 //
+// The k-column forms, K6 x k (dia_spmv_multi_kernel) and K8 x k
+// (poisson3d_multi_kernel), replace tpucg's vmap of the same Pallas kernels
+// (the multi-RHS and block solves' batched matvec): Y (npad, k) = A X with
+// X and Y row-major, so row i's k values lie side by side. A thread owns
+// V neighbouring columns of one row of Y (V = 4, 16-byte loads and stores,
+// where k % 4 == 0 and X and Y are 16-byte aligned, else V = 1); a warp's
+// threads own neighbouring groups, so its loads of X and its stores of Y
+// are contiguous, and each stored diagonal value is loaded once for a
+// thread's V columns (the threads of row i read it at one address, one
+// transaction for all k). Each column sums as its single-column kernel
+// sums row i: K6 x k in dia_row's order (a column outside [0, npad) as +0),
+// K8 x k 6u and then x+1, x-1, y+1, y-1, z+1, z-1, each rounded on its own,
+// an absent neighbour as +0. So column j of Y is K6's (K8's) y on column j
+// of X, bit for bit, for any k and V. K8 x k loads a cell's seven rows
+// with no march: it saves the k - 1 launches of k K8 calls, and a 2.5-D
+// march over k columns is later work.
+//
 // All read the lap's `active` flag first and return at once when it is 0.
 #include <algorithm>
 
@@ -126,6 +143,94 @@ dia_spmv_halo_kernel(const T* __restrict__ data, const float* __restrict__ x,
     y[i] = dia_sum(data, blk, offs, i, [&](long long j) {
       return j < 0 ? __ldg(lo + pad + j) : (j < blk ? __ldg(x + j) : __ldg(hi + (j - blk)));
     });
+}
+
+// Element g of a row-major (rows, k) block over a grid-stride loop: (i, j)
+// with i = g / k and j = g % k, stepped by the loop's stride without a
+// division per element.
+struct RowCol {
+  long long i;
+  long long j;
+  long long di, dj;  // the stride as rows and columns
+  int k;
+  __device__ __forceinline__ explicit RowCol(int k_) : k(k_) {
+    const long long g = static_cast<long long>(blockIdx.x) * kBlock + threadIdx.x;
+    const long long s = static_cast<long long>(gridDim.x) * kBlock;
+    i = g / k;
+    j = g - i * k;
+    di = s / k;
+    dj = s - di * k;
+  }
+  __device__ __forceinline__ void next() {
+    i += di;
+    j += dj;
+    if (j >= k) {
+      j -= k;
+      ++i;
+    }
+  }
+};
+
+// K6 x k: Y[i, j] = sum_d data[d, i] * X[i + offsets[d], j] (0 outside
+// [0, npad)), dia_row's order for every column. A thread owns V columns
+// of row i: each slab value is loaded once for them.
+template <typename T, int V>
+__global__ void __launch_bounds__(kBlock)
+dia_spmv_multi_kernel(const T* __restrict__ data, const float* __restrict__ X,
+                      float* __restrict__ Y, long long npad, int k,
+                      const __grid_constant__ DiaOffsets offs, const int* __restrict__ active) {
+  if (inactive(active)) return;
+  for (RowCol e(k / V); e.i < npad; e.next()) {
+    const long long c0 = e.j * V;
+    float acc[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) acc[v] = 0.f;
+    for (int d = 0; d < offs.ndiag; ++d) {
+      const long long c = e.i + offs.off[d];
+      const float a = widen(__ldg(data + d * npad + e.i));
+      const Cols<V> x = (c >= 0 && c < npad) ? load_cols<V>(X + c * k + c0) : Cols<V>{};
+#pragma unroll
+      for (int v = 0; v < V; ++v) acc[v] = __fadd_rn(acc[v], __fmul_rn(a, x.v[v]));
+    }
+    store_cols<V>(Y + e.i * k + c0, acc);
+  }
+}
+
+// K8 x k: Y[c, j] = (A U[:, j])[c] for the 7-point Laplacian on the m^3 grid
+// (cell c = x m^2 + y m + z), in K8's order: 6u, then x+1, x-1, y+1, y-1,
+// z+1, z-1, each __fsub_rn, a neighbour outside the grid +0. A thread owns
+// V columns of cell c and loads its seven rows before it sums.
+template <int V>
+__global__ void __launch_bounds__(kBlock)
+poisson3d_multi_kernel(const float* __restrict__ U, float* __restrict__ Y, int m, int k,
+                       const int* __restrict__ active) {
+  if (inactive(active)) return;
+  const int mm = m * m;
+  const long long cells = static_cast<long long>(mm) * m;
+  for (RowCol e(k / V); e.i < cells; e.next()) {
+    const int c = static_cast<int>(e.i);
+    const int x = c / mm, y = (c - x * mm) / m, z = c - x * mm - y * m;
+    const float* const u = U + e.j * V;
+    auto at = [&](bool in, int cell) {
+      return in ? load_cols<V>(u + static_cast<long long>(cell) * k) : Cols<V>{};
+    };
+    const Cols<V> uc = at(true, c), xp = at(x + 1 < m, c + mm), xm = at(x > 0, c - mm),
+                  yp = at(y + 1 < m, c + m), ym = at(y > 0, c - m), zp = at(z + 1 < m, c + 1),
+                  zm = at(z > 0, c - 1);
+    float acc[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      float a = __fmul_rn(6.f, uc.v[v]);
+      a = __fsub_rn(a, xp.v[v]);
+      a = __fsub_rn(a, xm.v[v]);
+      a = __fsub_rn(a, yp.v[v]);
+      a = __fsub_rn(a, ym.v[v]);
+      a = __fsub_rn(a, zp.v[v]);
+      a = __fsub_rn(a, zm.v[v]);
+      acc[v] = a;
+    }
+    store_cols<V>(Y + e.i * k + e.j * V, acc);
+  }
 }
 
 // One plane's cells of a thread: its chunk, and its z halo before (l) and
@@ -310,6 +415,31 @@ cudaError_t launch_dia_spmv_halo(const void* data, const void* offsets, int ndia
   return cudaGetLastError();
 }
 
+template <typename T>
+cudaError_t launch_dia_spmv_multi(const void* data, const void* offsets, int ndiag,
+                                  const void* x, void* y, long long npad, long long k,
+                                  const void* active, void* stream) {
+  DiaOffsets offs;
+  long long reach;
+  if (!copy_offsets(offsets, ndiag, &offs, &reach) || npad <= 0 || k < 1 ||
+      k > 0x7fffffffLL || npad > (1LL << 62) / k)
+    return cudaErrorInvalidValue;
+  const int v = cols_a_thread(k, x, y);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* d = static_cast<const T*>(data);
+  const auto* fx = static_cast<const float*>(x);
+  auto* fy = static_cast<float*>(y);
+  const auto* flag = static_cast<const int*>(active);
+  const int ik = static_cast<int>(k);
+  if (v == 4)
+    dia_spmv_multi_kernel<T, 4><<<stride_blocks(npad * (k / 4)), kBlock, 0, st>>>(
+        d, fx, fy, npad, ik, offs, flag);
+  else
+    dia_spmv_multi_kernel<T, 1><<<stride_blocks(npad * k), kBlock, 0, st>>>(d, fx, fy, npad,
+                                                                           ik, offs, flag);
+  return cudaGetLastError();
+}
+
 // A slab K8/K9 can index: 2 <= m <= kStencilMaxM, mp >= 1, mp m^2 <= kMaxIntRows.
 bool march_shape(long long m, long long mp) {
   return m >= 2 && m <= kStencilMaxM && mp >= 1 && mp <= kMaxIntRows / (m * m);
@@ -444,4 +574,40 @@ extern "C" cudaError_t tpucg_poisson3d_march_plan(long long m, long long mp, voi
   o[1] = t.ty;
   o[2] = t.nx;
   return cudaSuccess;
+}
+
+extern "C" cudaError_t tpucg_dia_spmv_multi_f32(const void* data, const void* offsets, int ndiag,
+                                                const void* x, void* y, long long npad,
+                                                long long k, const void* active,
+                                                void* stream) {
+  return tpucg::launch_dia_spmv_multi<float>(data, offsets, ndiag, x, y, npad, k, active,
+                                             stream);
+}
+
+extern "C" cudaError_t tpucg_dia_spmv_multi_bf16(const void* data, const void* offsets,
+                                                 int ndiag, const void* x, void* y,
+                                                 long long npad, long long k,
+                                                 const void* active, void* stream) {
+  return tpucg::launch_dia_spmv_multi<uint16_t>(data, offsets, ndiag, x, y, npad, k, active,
+                                                stream);
+}
+
+extern "C" cudaError_t tpucg_poisson3d_multi_f32(const void* u, void* y, long long m,
+                                                 long long k, const void* active,
+                                                 void* stream) {
+  using namespace tpucg;
+  if (!march_shape(m, m) || k < 1 || k > 0x7fffffffLL || m * m * m > (1LL << 62) / k)
+    return cudaErrorInvalidValue;
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* fu = static_cast<const float*>(u);
+  auto* fy = static_cast<float*>(y);
+  const auto* flag = static_cast<const int*>(active);
+  const int im = static_cast<int>(m), ik = static_cast<int>(k);
+  if (cols_a_thread(k, u, y) == 4)
+    poisson3d_multi_kernel<4><<<stride_blocks(m * m * m * (k / 4)), kBlock, 0, st>>>(
+        fu, fy, im, ik, flag);
+  else
+    poisson3d_multi_kernel<1><<<stride_blocks(m * m * m * k), kBlock, 0, st>>>(fu, fy, im, ik,
+                                                                              flag);
+  return cudaGetLastError();
 }

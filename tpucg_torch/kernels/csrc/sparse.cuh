@@ -58,6 +58,49 @@ __device__ __forceinline__ float dia_row(const T* __restrict__ data, long long n
                  [&](long long j) { return (j >= 0 && j < npad) ? v(j) : 0.f; });
 }
 
+// V neighbouring columns of one row of a row-major (rows, k) block, the
+// k-column kernels' unit of work (sparse.cu, gather.cu): V = 4 is one
+// 16-byte load or store (k % 4 == 0 and the block 16-byte aligned), V = 1
+// a float. Cols<V>{} is V zeros (+0), a row outside the block.
+template <int V>
+struct Cols {
+  float v[V];
+};
+
+template <int V>
+__device__ __forceinline__ Cols<V> load_cols(const float* __restrict__ p) {
+  Cols<V> c;
+  if constexpr (V == 4) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+    c.v[0] = q.x;
+    c.v[1] = q.y;
+    c.v[2] = q.z;
+    c.v[3] = q.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < V; ++j) c.v[j] = __ldg(p + j);
+  }
+  return c;
+}
+
+template <int V>
+__device__ __forceinline__ void store_cols(float* p, const float (&a)[V]) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(a[0], a[1], a[2], a[3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < V; ++j) p[j] = a[j];
+  }
+}
+
+// The columns a thread of a k-column kernel takes: 4 where k % 4 == 0 and
+// the input and output blocks are 16-byte aligned, else 1.
+inline int cols_a_thread(long long k, const void* x, const void* y) {
+  const bool a16 = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(y) % 16 == 0;
+  return k % 4 == 0 && a16 ? 4 : 1;
+}
+
 // Sizes the kernels index with int: a grid-stride loop's i + stride must
 // stay below 2^31 for up to 2^22 threads (K8/K9 keep the same cap).
 constexpr long long kMaxIntRows = 0x7fffffffLL - (1LL << 22);

@@ -20,6 +20,13 @@ round-to-nearest +0 + (-0) and a + (-a) are +0, so it is never -0; adding
 bit. A NaN or Inf x_j reaches exactly the rows whose stored entries read
 column j, as in a CSR product (tpucg's padding slots read x at lane 0 of
 their window and carry it to rows that store nothing in that column).
+
+K13 x k (``well_spmv_multi``) is the same product on the k columns of a
+row-major block X (padded n, k) over the same layout, each live slot's
+value and column read once for all k columns and each column summed in
+K13's order, so column j equals K13 on column j bit for bit: the multi-RHS
+and block solves' matvec (``WellOperator.matvec_multi``), where tpucg vmaps
+its Pallas kernel.
 """
 
 from __future__ import annotations
@@ -233,6 +240,81 @@ def well_spmv(vals, lidx, gidl, wrow, sgb, x2, bg: int, nsg: int, backend: str =
     if resolve_backend(backend, vals.device) == "cuda":
         return well_spmv_cuda(vals, lidx, gidl, wrow, sgb, x2, bg, nsg, index=index, **kw)
     return well_spmv_torch(vals, lidx, gidl, wrow, sgb, x2, bg, nsg, index=index)
+
+
+def well_spmv_multi_torch(rows: WellRows, X: torch.Tensor, nrows: int) -> torch.Tensor:
+    """Plain version of K13 x k: ``well_spmv_torch``'s products and sums over
+    the layout ``rows`` on the k columns of X (columns of A, k) at once, for
+    output rows [0, ``nrows``): column j equals ``well_spmv_torch`` on
+    column j bit for bit (one read of the longest row back a call)."""
+    well_spmv_multi_torch.launches += 1
+    prod = rows.rvals.float()[:, None] * X[rows.cols.long()]
+    ptr = rows.rowptr[: nrows + 1].long()
+    start, lens = ptr[:-1], torch.diff(ptr)
+    acc = torch.zeros((nrows, X.shape[1]), dtype=torch.float32, device=X.device)
+    last = max(prod.shape[0] - 1, 0)
+    on = lens[:, None]
+    for j in range(int(lens.max()) if nrows else 0):
+        acc = acc + torch.where(on > j, prod[(start + j).clamp_max(last)], 0.0)
+    return acc
+
+
+well_spmv_multi_torch.launches = 0
+
+
+def well_spmv_multi_launch(rows: WellRows, X, Y, nrows: int, active: Optional[int],
+                           stream: int) -> None:
+    """Launch K13 x k for output rows [0, ``nrows``) into Y (``nrows``, k),
+    with no checks: the caller has checked the layout and X as
+    ``well_spmv_multi_cuda`` does and owns Y. The one place that counts
+    K13 x k's launches."""
+    lib = _lib.load()
+    fn = (lib.tpucg_well_spmv_multi_f32 if rows.rvals.dtype == torch.float32
+          else lib.tpucg_well_spmv_multi_bf16)
+    err = fn(rows.rvals.data_ptr(), rows.cols.data_ptr(), rows.rowptr.data_ptr(),
+             rows.tptr.data_ptr(), X.data_ptr(), Y.data_ptr(), nrows, rows.tptr.numel() - 1,
+             rows.tile, X.shape[1], active, stream)
+    if err:
+        _lib.check(err, "well_spmv_multi_cuda")
+    well_spmv_multi_cuda.launches += 1
+
+
+def well_spmv_multi_cuda(rows: WellRows, X: torch.Tensor, nrows: int, *,
+                         active: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K13 x k on the card over a square operator's layout ``rows``: Y
+    (``nrows``, k) = A X for X a contiguous f32 (``nrows``, k) block; the
+    operator checked the layout's columns against its length when it built
+    it. With
+    ``active`` (0-d int32 on the device) the kernel does nothing when the
+    flag is 0, and the returned block is undefined."""
+    dev = rows.rvals.device
+    if dev.type != "cuda":
+        raise ValueError(f"well_spmv_multi_cuda needs the layout on a CUDA device, got {dev}")
+    if not 0 < nrows < rows.rowptr.numel():
+        raise ValueError(f"nrows must be in [1, {rows.rowptr.numel() - 1}], got {nrows}")
+    check_rows(rows, rows.rowptr.numel() - 1, rows.rvals)
+    if (X.dtype != torch.float32 or X.dim() != 2 or X.shape[0] != nrows or X.shape[1] < 1
+            or not X.is_contiguous() or X.device != dev):
+        raise ValueError(f"well_spmv_multi_cuda needs a contiguous f32 ({nrows}, k) block "
+                         f"on {dev}, got {X.dtype} {tuple(X.shape)} on {X.device}")
+    check_active(active, rows.rvals)
+    Y = torch.empty((nrows, X.shape[1]), dtype=torch.float32, device=dev)
+    well_spmv_multi_launch(rows, X, Y, nrows, None if active is None else active.data_ptr(),
+                           cuda_stream(X))
+    return Y
+
+
+well_spmv_multi_cuda.launches = 0
+
+
+def well_spmv_multi(rows: WellRows, X: torch.Tensor, nrows: int, backend: str = "auto",
+                    active: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The k-column WELL SpMV over the layout ``rows``: K13 x k for a CUDA
+    layout (``"auto"``), the plain version for a CPU one; ``active`` is read
+    by the kernel only."""
+    if resolve_backend(backend, rows.rvals.device) == "cuda":
+        return well_spmv_multi_cuda(rows, X, nrows, active=active)
+    return well_spmv_multi_torch(rows, X, nrows)
 
 
 def well_spmv_fused_gather(vals, lidx, gidl, wrow, sgb, x2, bg: int, nsg: int,

@@ -20,9 +20,10 @@ _COL_ALIGN = 8  # one 16-byte load holds 8 bf16 (or 4 f32) of a row
 
 
 def matvec_torch(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Plain version of K1: float32 products and sums (bf16 A widened)."""
+    """Plain version of K1: float32 products and sums (bf16 A widened); a
+    float64 A or x (an f64 solve, which no kernel serves) gives float64."""
     matvec_torch.launches += 1
-    return A.to(torch.float32) @ x
+    return A.to(torch.promote_types(A.dtype, x.dtype)) @ x
 
 
 matvec_torch.launches = 0
@@ -63,13 +64,15 @@ def gemv_launch(A: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     """Launch K1, y = A @ x, with no checks: the caller has checked A and x
     as ``matvec_cuda`` does and owns y. ``active`` is the flag's device
     pointer or None; ``stream`` a CUDA stream handle. The one place that
-    counts K1's launches."""
+    counts K1's launches (``bf16_launches`` counts those with a bf16 A
+    among them)."""
     lib = _lib.load()
     fn = lib.tpucg_gemv_f32 if A.dtype == torch.float32 else lib.tpucg_gemv_bf16
     err = fn(A.data_ptr(), x.data_ptr(), y.data_ptr(), A.shape[0], A.shape[1], active, stream)
     if err:
         _lib.check(err, "matvec_cuda")
     matvec_cuda.launches += 1
+    matvec_cuda.bf16_launches += A.dtype == torch.bfloat16
 
 
 def matvec_cuda(
@@ -85,6 +88,7 @@ def matvec_cuda(
 
 
 matvec_cuda.launches = 0
+matvec_cuda.bf16_launches = 0
 
 
 def matvec(

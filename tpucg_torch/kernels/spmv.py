@@ -8,6 +8,12 @@ is the canonical (ndiag, npad) layout in f32 or bf16, with f32 sums. tpucg's row
 TPU DMA layout; it is kept here, in NumPy, for carrying tpucg's operators
 across only.
 
+K6 x k (``dia_spmv_multi``) is the same product on the k columns of a
+row-major (npad, k) block X at once, each stored value read once for all k
+columns and each column summed in K6's order, so column j equals K6 on
+column j bit for bit: the multi-RHS and block solves' matvec, where tpucg
+vmaps its Pallas kernel.
+
 ELLPACK (``ell_spmv``) and block-ELL (``bsr_ell_spmv``) products are plain
 torch ops on any device, as tpucg computes them in XLA outside any Pallas
 kernel: a gather, a product and a row sum (a batched block product for BSR).
@@ -45,6 +51,11 @@ def ell_spmv(values: torch.Tensor, indices: torch.Tensor, x: torch.Tensor) -> to
     return (values.to(torch.float32) * x[indices.long()]).sum(1)
 
 
+def ell_spmv_multi(values: torch.Tensor, indices: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+    """``ell_spmv`` on the k columns of X (n, k) at once."""
+    return (values.to(torch.float32)[:, :, None] * X[indices.long()]).sum(1)
+
+
 def bsr_ell_spmv(values: torch.Tensor, indices: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Block-ELL SpMV (tpucg's ``bsr_ell_spmv``, ``spmv.py:359``): values
     (nbr, L, bs, bs), indices (nbr, L) block-column ids, x (ncols,). Each
@@ -53,6 +64,16 @@ def bsr_ell_spmv(values: torch.Tensor, indices: torch.Tensor, x: torch.Tensor) -
     nbr, L, bs, _ = values.shape
     gathered = x.reshape(-1, bs)[indices.reshape(-1).long()].reshape(nbr, L, bs)
     return torch.einsum("rlij,rlj->ri", values.to(torch.float32), gathered).reshape(nbr * bs)
+
+
+def bsr_ell_spmv_multi(values: torch.Tensor, indices: torch.Tensor,
+                       X: torch.Tensor) -> torch.Tensor:
+    """``bsr_ell_spmv`` on the k columns of X (ncols, k) at once."""
+    nbr, L, bs, _ = values.shape
+    k = X.shape[1]
+    gathered = X.reshape(-1, bs, k)[indices.reshape(-1).long()].reshape(nbr, L, bs, k)
+    return torch.einsum("rlij,rljc->ric", values.to(torch.float32),
+                        gathered).reshape(nbr * bs, k)
 
 
 def _shift(x: torch.Tensor, off: int) -> torch.Tensor:
@@ -154,6 +175,83 @@ def dia_spmv(data: torch.Tensor, offsets: Sequence[int], x: torch.Tensor, backen
     if resolve_backend(backend, data.device) == "cuda":
         return dia_spmv_cuda(data, offsets, x, active=active)
     return dia_spmv_torch(data, offsets, x)
+
+
+def _shift_rows(X: torch.Tensor, off: int) -> torch.Tensor:
+    """result[i] = X[i + off], 0 outside [0, n) along the first axis."""
+    n = X.shape[0]
+    if off == 0:
+        return X
+    if abs(off) >= n:
+        return torch.zeros_like(X)
+    if off > 0:
+        return torch.cat([X[off:], X.new_zeros((off,) + X.shape[1:])], 0)
+    return torch.cat([X.new_zeros((-off,) + X.shape[1:]), X[: n + off]], 0)
+
+
+def dia_spmv_multi_torch(data: torch.Tensor, offsets: Sequence[int],
+                         X: torch.Tensor) -> torch.Tensor:
+    """Plain version of K6 x k: ``dia_spmv_torch`` on the k columns of X
+    (npad, k) at once, the same products added in the same order, so column
+    j equals ``dia_spmv_torch`` on column j bit for bit."""
+    dia_spmv_multi_torch.launches += 1
+    Y = torch.zeros_like(X)
+    for d, off in enumerate(offsets):
+        Y = Y + data[d].to(torch.float32)[:, None] * _shift_rows(X, int(off))
+    return Y
+
+
+dia_spmv_multi_torch.launches = 0
+
+
+def check_block(what: str, X: torch.Tensor, rows: int, device: torch.device) -> None:
+    """A k-column kernel's X: a contiguous f32 (rows, k) block, k >= 1, on
+    ``device``."""
+    if (X.dtype != torch.float32 or X.dim() != 2 or X.shape[0] != rows or X.shape[1] < 1
+            or not X.is_contiguous() or X.device != device):
+        raise ValueError(f"{what} needs a contiguous f32 ({rows}, k) block on {device}, got "
+                         f"{X.dtype} {tuple(X.shape)} on {X.device}")
+
+
+def dia_spmv_multi_launch(data: torch.Tensor, offs: np.ndarray, X: torch.Tensor,
+                          Y: torch.Tensor, active: Optional[int], stream: int) -> None:
+    """Launch K6 x k, Y = A X, with no checks: the caller has checked the
+    slab and X as ``dia_spmv_multi_cuda`` does and owns Y. The one place
+    that counts K6 x k's launches."""
+    lib = _lib.load()
+    fn = (lib.tpucg_dia_spmv_multi_f32 if data.dtype == torch.float32
+          else lib.tpucg_dia_spmv_multi_bf16)
+    err = fn(data.data_ptr(), offs.ctypes.data, offs.size, X.data_ptr(), Y.data_ptr(),
+             data.shape[1], X.shape[1], active, stream)
+    if err:
+        _lib.check(err, "dia_spmv_multi_cuda")
+    dia_spmv_multi_cuda.launches += 1
+
+
+def dia_spmv_multi_cuda(data: torch.Tensor, offsets: Sequence[int], X: torch.Tensor, *,
+                        active: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K6 x k on the card: Y (npad, k) = A X. With ``active`` (0-d int32 on
+    the device) the kernel does nothing when the flag is 0, and the
+    returned block is undefined."""
+    check_dia(data, offsets)
+    check_block("dia_spmv_multi_cuda", X, data.shape[1], data.device)
+    check_active(active, data)
+    Y = torch.empty_like(X)
+    dia_spmv_multi_launch(data, offsets_array(offsets), X, Y,
+                          None if active is None else active.data_ptr(), cuda_stream(X))
+    return Y
+
+
+dia_spmv_multi_cuda.launches = 0
+
+
+def dia_spmv_multi(data: torch.Tensor, offsets: Sequence[int], X: torch.Tensor,
+                   backend: str = "auto", active: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The k-column DIA SpMV: K6 x k for a CUDA slab (``"auto"``), the plain
+    version for a CPU one; ``active`` is read by the kernel only."""
+    if resolve_backend(backend, data.device) == "cuda":
+        return dia_spmv_multi_cuda(data, offsets, X, active=active)
+    return dia_spmv_multi_torch(data, offsets, X)
 
 
 # K7: K6 on one rank's row block of a distributed banded solve. The block's

@@ -13,6 +13,12 @@ x-planes. ``stencil_march_plan`` is its plan (tile, run, grid, shared bytes
 and the ratio of u's reads to the slab), the kernel's constants mirror it,
 and a plan can be forced (``_plan=``) for the card checks and the tile
 sweep (``bench/k8_march.py``). Every plan gives the plain version's bits.
+
+K8 x k (``poisson3d_multi``) applies the stencil to the k columns of a
+row-major (m^3, k) block at once, a thread 4 columns of a cell (1 where k
+% 4 != 0), each column in K8's order, so column j equals K8 on column j
+bit for bit: the multi-RHS and block solves' matvec, where tpucg vmaps its
+Pallas kernel.
 """
 
 from __future__ import annotations
@@ -260,6 +266,67 @@ def poisson3d(u: torch.Tensor, m: int, backend: str = "auto",
     if resolve_backend(backend, u.device) == "cuda":
         return poisson3d_cuda(u, m, active=active)
     return poisson3d_torch(u, m)
+
+
+def poisson3d_multi_torch(U: torch.Tensor, m: int) -> torch.Tensor:
+    """Plain version of K8 x k: ``poisson3d_torch`` on the k columns of U
+    (m^3, k) at once, in its order, so column j equals it bit for bit."""
+    poisson3d_multi_torch.launches += 1
+    k = U.shape[1]
+    v = U.reshape(m, m, m, k)
+    y = 6.0 * v
+    for axis in range(3):
+        shape = [m, m, m, k]
+        shape[axis] = 1
+        zeros = v.new_zeros(shape)
+        y = y - torch.cat([v.narrow(axis, 1, m - 1), zeros], dim=axis)
+        y = y - torch.cat([zeros, v.narrow(axis, 0, m - 1)], dim=axis)
+    return y.reshape(m ** 3, k)
+
+
+poisson3d_multi_torch.launches = 0
+
+
+def poisson3d_multi_launch(U: torch.Tensor, Y: torch.Tensor, m: int, active: Optional[int],
+                           stream: int) -> None:
+    """Launch K8 x k, Y = A U, with no checks: the caller has checked U as
+    ``poisson3d_multi_cuda`` does and owns Y. The one place that counts
+    K8 x k's launches."""
+    err = _lib.load().tpucg_poisson3d_multi_f32(U.data_ptr(), Y.data_ptr(), m, U.shape[1],
+                                                active, stream)
+    if err:
+        _lib.check(err, "poisson3d_multi_cuda")
+    poisson3d_multi_cuda.launches += 1
+
+
+def poisson3d_multi_cuda(U: torch.Tensor, m: int, *,
+                         active: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K8 x k on the card: Y (m^3, k) = A U. With ``active`` (0-d int32 on
+    the device) the kernel does nothing when the flag is 0, and the
+    returned block is undefined."""
+    if not stencil_supported(m):
+        raise ValueError(f"poisson3d_multi_cuda needs 2 <= m <= {STENCIL_MAX_M}, got m={m}")
+    if (U.dtype != torch.float32 or U.dim() != 2 or U.shape[0] != m ** 3 or U.shape[1] < 1
+            or not U.is_contiguous() or U.device.type != "cuda"):
+        raise ValueError(f"poisson3d_multi_cuda needs a contiguous f32 ({m ** 3}, k) block on "
+                         f"a CUDA device, got {U.dtype} {tuple(U.shape)} on {U.device}")
+    check_active(active, U)
+    Y = torch.empty_like(U)
+    poisson3d_multi_launch(U, Y, m, None if active is None else active.data_ptr(),
+                           cuda_stream(U))
+    return Y
+
+
+poisson3d_multi_cuda.launches = 0
+
+
+def poisson3d_multi(U: torch.Tensor, m: int, backend: str = "auto",
+                    active: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The k-column stencil: K8 x k for a CUDA tensor (``"auto"``), the
+    plain version for a CPU one; ``active`` is read by the kernel only."""
+    if resolve_backend(backend, U.device) == "cuda":
+        return poisson3d_multi_cuda(U, m, active=active)
+    return poisson3d_multi_torch(U, m)
 
 
 # K9: the stencil on one rank's slab of a distributed solve. u holds the

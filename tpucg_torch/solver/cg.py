@@ -42,6 +42,13 @@ the lap loop: a whole-solve kernel runs it in one launch, K4 (dense), K10
 systems, through the batched kernel K5 where it applies and
 ``batch_cg_loop`` elsewhere; ``cg_solve_batch_banded`` B banded systems
 that share their offsets, through K12 or ``batch_cg_loop``.
+
+``cg_solve_multi`` solves k right-hand sides of one system in lockstep
+(``multi_cg_loop``) and ``cg_solve_block`` by true block CG
+(``block_cg_loop``, ``block_pcg_loop`` and their k x k algebra in torch
+ops), both on the operator's ``matvec_multi``: K6 x k, K8 x k or K13 x k
+on the card, a GEMM for a dense A. An f64 solve runs the plain route
+(``TorchLap``) on the solve's device, since no kernel is f64.
 """
 
 from __future__ import annotations
@@ -222,19 +229,51 @@ def block_jacobi_minv(op: LinearOperator, bs: int) -> torch.Tensor:
     return invert_blocks(op.diagonal_blocks(bs))
 
 
-def make_block_precond(minv: torch.Tensor, npad: int) -> Callable:
-    """z = M^-1 r for block Jacobi's ``minv`` (nb, bs, bs): one batched
-    (bs, bs) x (bs,) product a call (a ``torch`` call, full f32 with TF32
-    off). r is padded when bs does not divide its length; the pad blocks
-    are identity, so pad coordinates pass through."""
-    nb, bs, _ = minv.shape
+def make_block_apply(S: torch.Tensor, npad: int) -> Callable:
+    """Apply the block-diagonal (nb, bs, bs) ``S`` to an (npad, k) block:
+    one batched (bs, bs) x (bs, k) product (TF32 off). Rows past npad (bs
+    not dividing it) are padded in and cut off, so the tail passes
+    through."""
+    nb, bs, _ = S.shape
     pad = nb * bs - npad
 
+    def apply(Y):
+        Yp = F.pad(Y, (0, 0, 0, pad)) if pad else Y
+        Z = torch.bmm(S, Yp.reshape(nb, bs, -1)).reshape(nb * bs, -1)
+        return Z[:npad] if pad else Z
+    return apply
+
+
+def make_block_precond(minv: torch.Tensor, npad: int) -> Callable:
+    """z = M^-1 r for block Jacobi's ``minv`` (nb, bs, bs): ``make_block_apply``
+    on r as a one-column block (a ``torch`` call, full f32 with TF32 off).
+    The pad blocks are identity, so pad coordinates pass through."""
+    apply = make_block_apply(minv, npad)
+
     def precond(r, act=None):
-        rp = F.pad(r, (0, pad)) if pad else r
-        z = torch.bmm(minv, rp.reshape(nb, bs, 1)).reshape(-1)
-        return z[:npad] if pad else z
+        return apply(r[:, None])[:, 0]
     return precond
+
+
+def sqrt_pair_blocks(blocks: torch.Tensor):
+    """Block Jacobi's split pair on an extracted (nb, bs, bs) batch
+    (tpucg's): (M^-1/2, M^1/2) of each block from one batched
+    ``torch.linalg.eigh`` (set-up, as tpucg's XLA eigh), eigenvalues floored
+    at 1e-12 of each block's largest and at 1e-30 so a singular tail block
+    cannot NaN the rsqrt, both symmetrized."""
+    w, V = torch.linalg.eigh(blocks)
+    w = torch.maximum(w, torch.clamp(1e-12 * w[:, -1:], min=1e-30))
+    vt = V.transpose(1, 2)
+    isq = (V * torch.rsqrt(w)[:, None, :]) @ vt
+    sq = (V * torch.sqrt(w)[:, None, :]) @ vt
+    return 0.5 * (isq + isq.transpose(1, 2)), 0.5 * (sq + sq.transpose(1, 2))
+
+
+def block_jacobi_sqrt_pair(op: LinearOperator, bs: int):
+    """(M^-1/2, M^1/2) of M = blockdiag(A) in blocks of ``bs``: block CG's
+    blockwise equilibration (``cg_solve_block``), from the operator's
+    ``diagonal_blocks``."""
+    return sqrt_pair_blocks(op.diagonal_blocks(bs))
 
 
 def make_precond(precondition: str, minv: Optional[torch.Tensor], matvec: Callable,
@@ -320,7 +359,13 @@ def lap_ops(op: LinearOperator, backend: str):
     _require_backend(op, backend)
     if backend == "cuda":
         return _cuda_lap_ops(op)
+    return _torch_lap_ops(op)
 
+
+def _torch_lap_ops(op: LinearOperator):
+    """``lap_ops``'s plain route on any device: the operator's ``matvec``
+    and plain dots and updates (float64 vectors included: the route of an
+    f64 solve, where the operators take their plain products)."""
     def dot(u, v, act):
         return dot_torch(u, v)
 
@@ -430,6 +475,8 @@ class _CudaLap:
 
     def start(self, state: _State, tol2, maxiter: int, safe_alpha: bool,
               preconditioned: bool) -> None:
+        if state.rsold.dtype != torch.float32:
+            raise ValueError(f"the CUDA lap's kernels are f32, the state is {state.rsold.dtype}")
         self.safe_alpha, self.preconditioned = safe_alpha, preconditioned
         hist = state.hist
         if hist is not None:
@@ -474,18 +521,20 @@ class _CudaLap:
 
 
 def _check_state(x, r, p, rsold, rslast) -> None:
-    """The loop's vectors: f32 of one length, its scalars 0-d f32, all on
-    one device (checked once per loop, before any lap)."""
+    """The loop's vectors: f32 (or, on the plain route of an f64 solve,
+    f64) of one length, its scalars 0-d of the same dtype, all on one
+    device (checked once per loop, before any lap)."""
     vecs, scalars = (x, r, p), (rsold, rslast)
     if (
-        any(v.dtype != torch.float32 for v in vecs + scalars)
+        x.dtype not in (torch.float32, torch.float64)
+        or any(v.dtype != x.dtype for v in vecs + scalars)
         or x.dim() != 1 or not (x.shape == r.shape == p.shape)
         or any(s.dim() != 0 for s in scalars)
         or any(v.device != x.device for v in vecs + scalars)
     ):
         raise ValueError(
-            "CG state needs f32 x, r, p of one length and 0-d f32 rsold, rslast "
-            "on one device, got " + ", ".join(
+            "CG state needs f32 (or f64) x, r, p of one length and 0-d rsold, rslast "
+            "of their dtype on one device, got " + ", ".join(
                 f"{v.dtype} {tuple(v.shape)} on {v.device}" for v in vecs + scalars)
         )
 
@@ -854,7 +903,7 @@ def ca_cg_loop(
             S2[base + i + 1, base + i] = 1.0
             S2[base + i - 1, base + i] = 1.0
             D[base + i, base + i] = 1.0
-    S1, S2, D = (torch.from_numpy(a).to(dev) for a in (S1, S2, D))
+    S1, S2, D = (torch.from_numpy(a).to(dev, f32) for a in (S1, S2, D))
     if interval is None:
         lam_lo, lam_hi = spectral_interval_estimate(matvec, dot, b, power_iters)
     else:
@@ -1052,10 +1101,351 @@ def _run_chebyshev(matvec, dot, b, x0, *, tol, maxiter, check_every, precond=Non
     return st.x, st.k, st.rslast.sqrt(), st.done
 
 
+def _keep_if(ran: torch.Tensor, new: tuple, old: tuple) -> tuple:
+    """``new`` where the 0-d flag ``ran`` is set, else ``old``, field by
+    field: a masked step of a loop whose state is a tuple."""
+    return tuple(torch.where(ran, a, o) for a, o in zip(new, old))
+
+
+class _MultiState(NamedTuple):
+    """``multi_cg_loop``'s state, with tpucg's field names: ``k`` the laps
+    run (the loop's bound), ``its`` each column's laps, every other scalar
+    a (k,) tensor."""
+
+    k: torch.Tensor
+    its: torch.Tensor
+    X: torch.Tensor
+    R: torch.Tensor
+    P: torch.Tensor
+    rsold: torch.Tensor
+    rslast: torch.Tensor
+    done: torch.Tensor
+
+
+def _dot_cols(U: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
+    """Columnwise dots of two (npad, k) blocks -> (k,), in f32 (tpucg's
+    HIGHEST-precision einsum)."""
+    return (U * V).sum(0)
+
+
+def multi_cg_loop(
+    mvm: Callable,
+    B: torch.Tensor,
+    X0: torch.Tensor,
+    *,
+    tol: float,
+    maxiter: int,
+    safe_alpha: bool = True,
+    precond: Optional[Callable] = None,
+    chunk: Optional[int] = None,
+) -> _MultiState:
+    """k independent CG (or PCG) recurrences in lockstep, one batched matvec
+    ``mvm(X, act)`` (the operator's ``matvec_multi``) a lap (tpucg's
+    ``multi_cg_loop``). Each column's iterates are ``cg_loop``'s: the same
+    update order and the stop on r.r after the x/r update; a column that
+    has stopped takes alpha = 0 and keeps p and rsold. ``precond(R, act)``
+    maps a block to M^-1 times it. Each lap is one masked step of
+    ``run_chunks``, running while k < ``maxiter`` and a column is not done:
+    a step enqueued after that changes nothing, and its matvec gets the
+    flag (0) so a kernel returns at once. ``its`` counts each column's laps,
+    as tpucg's vmapped lanes count theirs."""
+    dev = B.device
+    R0 = B - mvm(X0, None)
+    tol2 = torch.tensor(tol, dtype=R0.dtype, device=dev) ** 2
+    rr0 = _dot_cols(R0, R0)
+    if precond is None:
+        P0, rs0 = R0, rr0
+    else:
+        P0 = precond(R0, None)
+        rs0 = _dot_cols(R0, P0)
+    st = _MultiState(k=torch.zeros((), dtype=torch.int32, device=dev),
+                     its=torch.zeros(B.shape[1], dtype=torch.int32, device=dev),
+                     X=X0, R=R0, P=P0, rsold=rs0, rslast=rr0, done=rr0 < tol2)
+
+    def running(s: _MultiState) -> torch.Tensor:
+        return (s.k < maxiter) & ~s.done.all()
+
+    def step():
+        nonlocal st
+        s = st
+        ran = running(s)
+        act = ran.to(torch.int32)
+        AP = mvm(s.P, act)
+        pap = _dot_cols(s.P, AP)
+        alpha = alpha_torch(pap, s.rsold, safe_alpha)
+        alpha = torch.where(s.done, 0.0, alpha)
+        X = s.X + alpha * s.P
+        R = s.R - alpha * AP
+        rr = torch.where(s.done, s.rslast, _dot_cols(R, R))
+        done = s.done | (rr < tol2)
+        if precond is None:
+            Z, rs_new = R, rr
+        else:
+            Z = precond(R, act)
+            rs_new = _dot_cols(R, Z)
+        P = torch.where(done, s.P, Z + (rs_new / s.rsold) * s.P)
+        rsold = torch.where(done, s.rsold, rs_new)
+        its = s.its + (~s.done).to(torch.int32)
+        st = _MultiState(*_keep_if(ran, (s.k + 1, its, X, R, P, rsold, rr, done), s))
+    run_chunks(step, lambda: bool(running(st)), chunk)
+    return st
+
+
+# The k x k algebra of block CG runs O(k^2) small torch ops a lap; keep
+# block widths where that stays cheap (cg_solve_multi serves wide batches).
+BLOCK_CG_MAX_K = 32
+
+
+def _chol_lower(G: torch.Tensor, k: int) -> torch.Tensor:
+    """Cholesky factor of the k x k ``G``, by hand in f32 torch ops (tpucg's
+    ``_chol_lower``): the diagonal is floored at 1e-30 before its sqrt, so a
+    ridged Gram that rounding has pushed to 0 or below never gives NaN (a
+    library Cholesky has no such floor)."""
+    L = torch.zeros_like(G)
+    for j in range(k):
+        s = G[j, j]
+        if j:
+            s = s - L[j, :j] @ L[j, :j]
+        ljj = torch.sqrt(torch.clamp(s, min=1e-30))
+        L[j, j] = ljj
+        if j + 1 < k:
+            col = G[j + 1:, j]
+            if j:
+                col = col - L[j + 1:, :j] @ L[j, :j]
+            L[j + 1:, j] = col / ljj
+    return L
+
+
+def _tri_solve_lower(L: torch.Tensor, M: torch.Tensor, k: int) -> torch.Tensor:
+    """Z with L Z = M (L (k, k) lower triangular, M (k, m)) by forward
+    substitution, a row at a time (tpucg's ``_tri_solve_lower``)."""
+    rows = []
+    for i in range(k):
+        acc = M[i]
+        if i:
+            acc = acc - L[i, :i] @ torch.stack(rows)
+        rows.append(acc / L[i, i])
+    return torch.stack(rows)
+
+
+def _spd_inv(T: torch.Tensor, eyek: torch.Tensor, k: int) -> torch.Tensor:
+    """T^-1 = L^-T L^-1 of a ridged k x k SPD ``T`` through ``_chol_lower``."""
+    L = _chol_lower(T, k)
+    Linv = _tri_solve_lower(L, eyek, k)
+    return Linv.T @ Linv
+
+
+def _col_scale(G: torch.Tensor) -> torch.Tensor:
+    """The column norms of a Gram's diagonal, floored at 1e-15 of the largest
+    and at 1e-18: a ~zero column (a converged residual, a zero rhs) keeps a
+    scale whose square survives f32 (a 1e-30 relative floor squared
+    underflowed outer(d, d) to 0, and 0/0 poisoned the block with NaN)."""
+    d = torch.sqrt(torch.clamp(torch.diagonal(G), min=0.0))
+    return torch.maximum(d, torch.clamp(1e-15 * d.max(), min=1e-18))
+
+
+def _cholqr(gram: Callable, Y: torch.Tensor, eyek: torch.Tensor, ridge: float):
+    """Column-equilibrated Cholesky QR of the (n, k) block ``Y`` through one
+    ``gram``: Y = Q R with Q orthonormal (tpucg's ``_cholqr``). The columns
+    are scaled to unit norm before the Cholesky, so the f32 Gram factors
+    when their norms span orders of magnitude; the floors of ``_col_scale``
+    keep a ~zero column finite, with a ~zero entry of R."""
+    k = eyek.shape[0]
+    G = gram(Y, Y)
+    G = 0.5 * (G + G.T)
+    d = _col_scale(G)
+    Gn = G / torch.outer(d, d) + ridge * eyek
+    L = _chol_lower(Gn, k)
+    Qt = _tri_solve_lower(L, (Y / d[None, :]).T, k)
+    return Qt.T, L.T * d[None, :]
+
+
+def _cholqr2(gram: Callable, Y: torch.Tensor, eyek: torch.Tensor, ridge: float = 1e-6):
+    """CholeskyQR2: a second pass restores Q's orthonormality to O(eps)
+    after the ridged first (tpucg's ``_cholqr2``)."""
+    Q1, R1 = _cholqr(gram, Y, eyek, ridge)
+    Q2, R2 = _cholqr(gram, Q1, eyek, ridge)
+    return Q2, R2 @ R1
+
+
+def _cholqr_pc(gram: Callable, pc: Callable, Y: torch.Tensor, Z: torch.Tensor,
+               eyek: torch.Tensor, ridge: float):
+    """M^-1-inner-product Cholesky QR of the residual-side block ``Y``, Z =
+    M^-1 Y given (tpucg's ``_cholqr_pc``): (U, V, R) with Y = V R, V^T M^-1
+    V = I, and U = M^-1 V from a fresh ``pc`` (a transformed Z drifts from
+    M^-1 V on a near-rank-deficient block until the pair Gram stops being
+    PSD). The Gram Z^T Y is a sum of signed products, so on top of
+    ``_col_scale``'s floors its normalized form is clipped to [-1, 1] and
+    its diagonal pinned at 1 + ridge."""
+    k = eyek.shape[0]
+    G = gram(Z, Y)
+    G = 0.5 * (G + G.T)
+    d = _col_scale(G)
+    Gn = torch.clamp(G / torch.outer(d, d), -1.0, 1.0)
+    Gn = Gn - torch.diag(torch.diagonal(Gn)) + (1.0 + ridge) * eyek
+    L = _chol_lower(Gn, k)
+    V = _tri_solve_lower(L, (Y / d[None, :]).T, k).T
+    return pc(V), V, L.T * d[None, :]
+
+
+def _cholqr2_pc(gram: Callable, pc: Callable, Y: torch.Tensor, Z: torch.Tensor,
+                eyek: torch.Tensor, ridge: float = 1e-6):
+    """Two passes of ``_cholqr_pc``; the second reuses the first's fresh U
+    as its Z (tpucg's ``_cholqr2_pc``)."""
+    U1, V1, R1 = _cholqr_pc(gram, pc, Y, Z, eyek, ridge)
+    U2, V2, R2 = _cholqr_pc(gram, pc, V1, U1, eyek, ridge)
+    return U2, V2, R2 @ R1
+
+
+def _block_alpha(gram: Callable, S: torch.Tensor, AS: torch.Tensor, eyek: torch.Tensor,
+                 ridge: float) -> torch.Tensor:
+    """The lap's (S^T A S + delta I)^-1, delta = ridge * trace / k + 1e-30."""
+    krhs = eyek.shape[0]
+    T = gram(S, AS)
+    T = 0.5 * (T + T.T)
+    delta = ridge * (torch.trace(T) / krhs) + 1e-30
+    return _spd_inv(T + delta * eyek, eyek, krhs)
+
+
+def _block_boundaries(inner_step: Callable, inner_running: Callable, boundary: Callable,
+                      maxiter: int, chunk: Optional[int]) -> None:
+    """The two loops of block CG: inner laps through ``run_chunks`` (one host
+    read a chunk) until the recurrence's stop or ``maxiter``, then the
+    confirm/refute ``boundary``, whose ``done`` the host reads once; again
+    until done. With ``maxiter`` <= 0 nothing runs."""
+    if maxiter <= 0:
+        return
+    while True:
+        run_chunks(inner_step, lambda: bool(inner_running()), chunk)
+        if bool(boundary()):
+            return
+
+
+def block_cg_loop(
+    mv: Callable,
+    gram: Callable,
+    B: torch.Tensor,
+    X0: torch.Tensor,
+    *,
+    tol: float,
+    maxiter: int,
+    ridge: float = 1e-6,
+    chunk: Optional[int] = None,
+):
+    """True block CG in the stable BCGrQ form (Dubrulle 2001; tpucg's
+    ``block_cg_loop``): the k columns search one block-Krylov space, with the
+    residual block kept orthonormal (Q, by ``_cholqr2`` each lap) and its
+    magnitudes in the k x k factor C, so a column's recurrence norm is C's
+    column norm. A lap is one ``mv(S, act)`` and three Grams.
+
+    The stop is tentative: when every column's C-norm is under tol (or at
+    ``maxiter``) the loop computes the true residual B - A X and confirms
+    (every column under tol), accepts at the f32 floor (the worst column
+    not 10% better than at the last refute) or refutes, re-anchoring Q, C
+    and S on the true residual. Returns (laps, X, the last true per-column
+    r.r, converged per column)."""
+    dev, krhs = B.device, B.shape[1]
+    tol2 = torch.tensor(tol, dtype=B.dtype, device=dev) ** 2
+    eyek = torch.eye(krhs, dtype=B.dtype, device=dev)
+    Q0, C0 = _cholqr2(gram, B - mv(X0, None), eyek, ridge)
+    inf = torch.tensor(float("inf"), dtype=B.dtype, device=dev)
+    st = [torch.zeros((), dtype=torch.int32, device=dev), X0, Q0, C0, Q0]  # k, X, Q, C, S
+    refute_rr, rr = inf, torch.full((krhs,), float("inf"), dtype=B.dtype, device=dev)
+
+    def inner_running():
+        k, _, _, C, _ = st
+        return (k < maxiter) & ~((C * C).sum(0) < tol2).all()
+
+    def inner_step():
+        k, X, Q, C, S = st
+        ran = inner_running()
+        AS = mv(S, ran.to(torch.int32))
+        alpha = _block_alpha(gram, S, AS, eyek, ridge)
+        Xn = X + S @ (alpha @ C)
+        Qn, rho = _cholqr2(gram, Q - AS @ alpha, eyek, ridge)
+        st[:] = _keep_if(ran, (k + 1, Xn, Qn, rho @ C, Qn + S @ rho.T), st)
+
+    def boundary():
+        nonlocal refute_rr, rr
+        k, X, Q, C, S = st
+        Rt = B - mv(X, None)
+        rr = torch.diagonal(gram(Rt, Rt))
+        worst = rr.max()
+        done = (rr < tol2).all() | (worst >= 0.81 * refute_rr) | (k >= maxiter)  # 0.9^2
+        Qr, Cr = _cholqr2(gram, Rt, eyek, ridge)
+        again = ~done
+        st[2:] = _keep_if(again, (Qr, Cr, Qr), (Q, C, S))
+        refute_rr = torch.where(again, worst, refute_rr)
+        return done
+
+    _block_boundaries(inner_step, inner_running, boundary, maxiter, chunk)
+    return st[0], st[1], rr, rr < tol2
+
+
+def block_pcg_loop(
+    mv: Callable,
+    gram: Callable,
+    pc: Callable,
+    B: torch.Tensor,
+    X0: torch.Tensor,
+    *,
+    tol: float,
+    maxiter: int,
+    ridge: float = 1e-6,
+    chunk: Optional[int] = None,
+):
+    """Preconditioned true block CG (tpucg's ``block_pcg_loop``):
+    ``block_cg_loop``'s recurrence on M^-1/2 A M^-1/2 carried in the
+    original variables, with V (the residual side, M^-1-orthonormal) and
+    every M^-1-side block from a fresh ``pc(Y)`` (``_cholqr2_pc``). A
+    lap is one ``mv`` and three applications of ``pc``. Its stops,
+    ``residual_norm`` and ``converged`` are on the M^-1/2-weighted residual:
+    the boundary's rr = diag((M^-1 R)^T R) of the true R = B - A X, clipped
+    at 0 (a sum of signed products). Same boundary rules as
+    ``block_cg_loop``; same return."""
+    dev, krhs = B.device, B.shape[1]
+    tol2 = torch.tensor(tol, dtype=B.dtype, device=dev) ** 2
+    eyek = torch.eye(krhs, dtype=B.dtype, device=dev)
+    R0 = B - mv(X0, None)
+    U0, V0, C0 = _cholqr2_pc(gram, pc, R0, pc(R0), eyek, ridge)
+    inf = torch.tensor(float("inf"), dtype=B.dtype, device=dev)
+    st = [torch.zeros((), dtype=torch.int32, device=dev), X0, V0, C0, U0]  # k, X, V, C, S
+    refute_rr, rr = inf, torch.full((krhs,), float("inf"), dtype=B.dtype, device=dev)
+
+    def inner_running():
+        k, _, _, C, _ = st
+        return (k < maxiter) & ~((C * C).sum(0) < tol2).all()
+
+    def inner_step():
+        k, X, V, C, S = st
+        ran = inner_running()
+        AS = mv(S, ran.to(torch.int32))
+        alpha = _block_alpha(gram, S, AS, eyek, ridge)
+        Xn = X + S @ (alpha @ C)
+        MW = V - AS @ alpha
+        Un, Vn, rho = _cholqr2_pc(gram, pc, MW, pc(MW), eyek, ridge)
+        st[:] = _keep_if(ran, (k + 1, Xn, Vn, rho @ C, Un + S @ rho.T), st)
+
+    def boundary():
+        nonlocal refute_rr, rr
+        k, X, V, C, S = st
+        Rt = B - mv(X, None)
+        Zt = pc(Rt)
+        rr = torch.clamp(torch.diagonal(gram(Zt, Rt)), min=0.0)
+        worst = rr.max()
+        done = (rr < tol2).all() | (worst >= 0.81 * refute_rr) | (k >= maxiter)  # 0.9^2
+        Ur, Vr, Cr = _cholqr2_pc(gram, pc, Rt, Zt, eyek, ridge)
+        again = ~done
+        st[2:] = _keep_if(again, (Vr, Cr, Ur), (V, C, S))
+        refute_rr = torch.where(again, worst, refute_rr)
+        return done
+
+    _block_boundaries(inner_step, inner_running, boundary, maxiter, chunk)
+    return st[0], st[1], rr, rr < tol2
+
+
 def _check_supported(config: CGConfig, two_level) -> None:
     """Name the ROADMAP item of every configuration the port does not run."""
-    if config.dtype != torch.float32:
-        raise NotImplementedError(f"solve dtype {config.dtype} is ROADMAP M9")
     if two_level is not None:
         raise NotImplementedError("two_level= is ROADMAP M12")
 
@@ -1171,9 +1561,23 @@ def cg_solve(
     bounds of M^-1 A) skips their power-method set-up.
     ``record_residuals`` (cg only) returns the per-lap ||r|| in
     ``residual_history``; ``chunk`` is ``run_chunks``'s.
+
+    ``dtype=torch.float64`` solves in f64 (tpucg's one extra solve dtype):
+    a dense A is stored in f64, b, x0 and every vector of the loop are
+    f64, and the lap is ``TorchLap`` over plain f64 products, dots and
+    updates on the solve's device (the card unless ``device`` says
+    otherwise), as tpucg routes an f64 solve to XLA. No kernel of either
+    package is f64, so ``kernel="cuda"`` with f64 raises (tpucg reroutes
+    it to XLA silently). tpucg's x64-mode switch is a JAX rule; torch needs
+    none.
     """
     config = _configure(config, overrides)
     _check_supported(config, two_level)
+    f64 = config.dtype == torch.float64
+    if f64 and config.kernel == "cuda":
+        raise ValueError("kernel='cuda' with dtype=float64: no kernel of this package (or of "
+                         "tpucg) is f64; an f64 solve runs plain torch ops on its device "
+                         "(kernel='auto' or 'torch')")
     if record_residuals and config.method != "cg":
         raise ValueError("record_residuals requires method='cg'")
     if interval is not None and config.method not in ("ca", "chebyshev"):
@@ -1183,18 +1587,24 @@ def cg_solve(
         device = A.device
     device = canonical_device(device)
     backend = resolve_backend(config.kernel, device)
-    op = as_operator(A, backend=backend, device=device)
+    # An f64 dense A is stored f64 on the "torch" backend; a sparse one
+    # keeps its kernel, whose matvec takes the plain product for f64.
+    op = as_operator(A, backend="auto" if f64 else backend, dtype=config.dtype, device=device)
     if op.device != device:
         raise ValueError(f"operator lives on {op.device}, solve asked for {device}")
-    _require_backend(op, backend)  # K4 too: one choice runs the whole solve
+    if f64:
+        backend = "torch"  # chosen by the dtype, as tpucg chooses: no kernel is f64
+    else:
+        _require_backend(op, backend)  # K4 too: one choice runs the whole solve
+    dtype = config.dtype
     n, npad = op.n, op.padded_n
-    b = torch.as_tensor(b, dtype=torch.float32, device=device)
+    b = torch.as_tensor(b, dtype=dtype, device=device)
     if b.shape != (n,):
         raise ValueError(f"b must have shape ({n},), got {tuple(b.shape)}")
     x0 = (
-        torch.zeros(n, dtype=torch.float32, device=device)
+        torch.zeros(n, dtype=dtype, device=device)
         if x0 is None
-        else torch.as_tensor(x0, dtype=torch.float32, device=device)
+        else torch.as_tensor(x0, dtype=dtype, device=device)
     )
     if x0.shape != (n,):
         raise ValueError(f"x0 must have shape ({n},), got {tuple(x0.shape)}")
@@ -1206,12 +1616,12 @@ def cg_solve(
     minv = None
     if config.precondition == "jacobi":
         d = op.diagonal()
-        minv = torch.where(d != 0, 1.0 / d, 1.0)
+        minv = torch.where(d != 0, 1.0 / d, 1.0).to(dtype)
     elif config.precondition == "block_jacobi":
-        minv = block_jacobi_minv(op, int(config.pc_block_size))
+        minv = block_jacobi_minv(op, int(config.pc_block_size)).to(dtype)
     tol = float(config.tol)
     poly = config.precondition == "poly"
-    kind = _fused_eligible(config, op, backend, config.dtype, record_residuals)
+    kind = _fused_eligible(config, op, backend, dtype, record_residuals)
     if kind is not None:
         kw = dict(tol=tol, maxiter=maxiter, safe_alpha=bool(config.safe_alpha),
                   precondition=config.precondition,
@@ -1223,10 +1633,10 @@ def cg_solve(
         else:
             x, k, rr = fused_dia_cg_solve_cuda(op.data, op.offsets, b, x0, **kw)
         return _fused_result(x[:n], k, rr, tol)
-    matvec, dot, lap = lap_ops(op, backend)
+    matvec, dot, lap = _torch_lap_ops(op) if f64 else lap_ops(op, backend)
     precond = make_precond(config.precondition, minv, matvec, dot, b, config.poly_degree)
     safe_alpha = bool(config.safe_alpha)
-    tol2 = torch.tensor(tol, dtype=torch.float32, device=device) ** 2
+    tol2 = torch.tensor(tol, dtype=dtype, device=device) ** 2
     if config.method == "pipelined":
         s = pipelined_cg_loop(
             matvec, lambda pairs: tuple(dot(u, v, None) for u, v in pairs), b, x0,
@@ -1454,3 +1864,185 @@ def cg_solve_batch_banded(
     if npad != n:
         res = res._replace(x=res.x[:, :n])
     return res
+
+
+def _block_operands(op: LinearOperator, B, X0, device):
+    """B and X0 of a multi-RHS or block solve as f32 (npad, k) blocks on
+    ``device``, the rows past n zero (the identity tail's exact solution)."""
+    n, npad = op.n, op.padded_n
+    B = torch.as_tensor(B, dtype=torch.float32, device=device)
+    if B.dim() != 2 or B.shape[0] != n:
+        raise ValueError(f"B must have shape ({n}, k), got {tuple(B.shape)}")
+    k = B.shape[1]
+    X0 = (torch.zeros((n, k), dtype=torch.float32, device=device) if X0 is None
+          else torch.as_tensor(X0, dtype=torch.float32, device=device))
+    if X0.shape != (n, k):
+        raise ValueError(f"X0 must have shape ({n}, {k}), got {tuple(X0.shape)}")
+    pad = (0, 0, 0, npad - n)
+    return F.pad(B, pad).contiguous(), F.pad(X0, pad).contiguous()
+
+
+def _block_operator(A, config: CGConfig, device):
+    """The operator and backend of a multi-RHS or block solve, resolved as
+    ``cg_solve`` resolves them (one backend runs the whole solve)."""
+    if device is None and isinstance(A, (LinearOperator, torch.Tensor)):
+        device = A.device
+    device = canonical_device(device)
+    backend = resolve_backend(config.kernel, device)
+    op = as_operator(A, backend=backend, device=device)
+    if op.device != device:
+        raise ValueError(f"operator lives on {op.device}, solve asked for {device}")
+    _require_backend(op, backend)
+    return op, backend, device
+
+
+def _poly_weight(op: LinearOperator, backend: str, like: torch.Tensor) -> torch.Tensor:
+    """0.95 / lambda_max of the poly preconditioner, from the power method on
+    the operator's single-column matvec and dot (K1, K6, K8 or K13 and K3 on
+    the card). The seed does not depend on the rhs, so every column of
+    tpucg's vmapped solve gets this one value."""
+    matvec, dot, _ = lap_ops(op, backend)
+    return 0.95 / lambda_max_estimate(matvec, dot, like)
+
+
+def _poly_block(mv: Callable, w: torch.Tensor, degree: int) -> Callable:
+    """The truncated-Neumann M^-1 (``make_poly_precond``'s) on an (npad, k)
+    block through the k-column matvec ``mv(X, act)``."""
+    def pc(R, act=None):
+        Z = w * R
+        for _ in range(degree - 1):
+            Z = Z + w * R - w * mv(Z, act)
+        return Z
+    return pc
+
+
+def cg_solve_multi(
+    A,
+    B,
+    X0=None,
+    config: Optional[CGConfig] = None,
+    *,
+    device=None,
+    chunk: Optional[int] = None,
+    **overrides,
+) -> CGResult:
+    """Solve A X = B for the k columns of B (n, k) at once: k independent CG
+    recurrences in lockstep (tpucg's ``cg_solve_multi``), through
+    ``multi_cg_loop`` on the operator's ``matvec_multi``: K6 x k, K8 x k or
+    K13 x k on the card (the matrix read once for all k columns), a GEMM
+    for a dense A. ``precondition`` none, jacobi and block_jacobi run in the
+    matrix form; poly applies each column's Neumann polynomial through the
+    same product, with tpucg's lambda_max (its seed does not depend on the
+    column, so one estimate serves all). The solve is f32; ``device`` and
+    ``chunk`` as in ``cg_solve``. Result fields are batched: ``x`` is (n,
+    k); ``iterations``, ``residual_norm`` and ``converged`` are (k,), each
+    column's."""
+    config = _configure(config, overrides)
+    if config.method != "cg":
+        raise ValueError("cg_solve_multi supports method='cg' only")
+    op, backend, device = _block_operator(A, config, device)
+    n = op.n
+    B, X0 = _block_operands(op, B, X0, device)
+    minv = None
+    if config.precondition == "jacobi":
+        d = op.diagonal()
+        minv = torch.where(d != 0, 1.0 / d, 1.0)[:, None]
+    elif config.precondition == "block_jacobi":
+        minv = block_jacobi_minv(op, int(config.pc_block_size))
+    maxiter = int(config.maxiter if config.maxiter is not None else n)
+    mv = op.matvec_multi
+    precond = None
+    if config.precondition == "jacobi":
+        precond = lambda R, act=None: minv * R  # noqa: E731
+    elif config.precondition == "block_jacobi":
+        bapp = make_block_apply(minv, op.padded_n)
+        precond = lambda R, act=None: bapp(R)  # noqa: E731
+    elif config.precondition == "poly":
+        precond = _poly_block(mv, _poly_weight(op, backend, B[:, 0]), int(config.poly_degree))
+    s = multi_cg_loop(mv, B, X0, tol=float(config.tol), maxiter=maxiter,
+                      safe_alpha=bool(config.safe_alpha), precond=precond, chunk=chunk)
+    return CGResult(x=s.X[:n], iterations=s.its, residual_norm=s.rslast.sqrt(),
+                    converged=s.done)
+
+
+def cg_solve_block(
+    A,
+    B,
+    X0=None,
+    config: Optional[CGConfig] = None,
+    *,
+    device=None,
+    chunk: Optional[int] = None,
+    **overrides,
+) -> CGResult:
+    """Solve A X = B with true block CG (tpucg's ``cg_solve_block``): the k
+    columns of B (n, k), k <= ``BLOCK_CG_MAX_K``, share one block-Krylov
+    space (``block_cg_loop``, BCGrQ), so related columns converge in fewer
+    laps than ``cg_solve_multi``'s independent ones. A lap is one
+    ``matvec_multi`` (K6 x k, K8 x k or K13 x k on the card, a GEMM for a
+    dense A), three k x k Grams and the k x k algebra in torch ops.
+
+    Preconditioners, by tpucg's routes: ``"jacobi"`` on a dense f32 A
+    equilibrates A once (D^-1/2 A D^-1/2 materialised), on any other
+    operator wraps its product in the two scalings; ``"block_jacobi"``
+    wraps it in the blocks' M^-1/2 (``block_jacobi_sqrt_pair``);
+    ``"poly"`` runs ``block_pcg_loop``. Their stops, ``residual_norm`` and
+    ``converged`` are on the M^-1/2-weighted residual (||D^-1/2 (B - A
+    X)|| per column under Jacobi). ``iterations`` is the shared lap count
+    (0-d); ``residual_norm`` and ``converged`` are (k,), from the true
+    residual at the last boundary (a column accepted at the f32 floor
+    reports converged False). The solve is f32; ``device`` and ``chunk``
+    as in ``cg_solve``."""
+    config = _configure(config, overrides)
+    if config.method != "cg" or config.precondition not in (
+            "none", "jacobi", "block_jacobi", "poly"):
+        raise ValueError("cg_solve_block supports method='cg' with precondition "
+                         "'none', 'jacobi', 'block_jacobi', or 'poly'")
+    op, backend, device = _block_operator(A, config, device)
+    n, npad = op.n, op.padded_n
+    scale = None
+    if (config.precondition == "jacobi" and isinstance(op, DenseOperator)
+            and op.A.dtype == torch.float32):
+        # The exact symmetric equilibration, materialised once: Jacobi-PCG's
+        # iterates at no cost a lap.
+        d = op.diagonal()
+        scale = torch.where(d > 0, torch.rsqrt(d), torch.ones_like(d))
+        op = DenseOperator(A=scale[:, None] * op.A * scale[None, :], n=n, backend=op.backend)
+    B, X0 = _block_operands(op, B, X0, device)
+    k = B.shape[1]
+    if k > BLOCK_CG_MAX_K:
+        raise ValueError(
+            f"block CG supports k <= {BLOCK_CG_MAX_K} right-hand sides (got {k}): its k x k "
+            "algebra is O(k^2) small ops a lap; use cg_solve_multi for wide batches")
+    if scale is not None:
+        B = scale[:, None] * B
+        X0 = X0 / scale[:, None]
+    maxiter = int(config.maxiter if config.maxiter is not None else n)
+    tol = float(config.tol)
+    mv = op.matvec_multi
+
+    def gram(U, V):
+        return U.T @ V
+    loop = dict(tol=tol, maxiter=maxiter, chunk=chunk)
+    unscale = None
+    if config.precondition == "poly":
+        pc = _poly_block(mv, _poly_weight(op, backend, B[:, 0]), int(config.poly_degree))
+        k_, X, rr, done = block_pcg_loop(mv, gram, pc, B, X0, **loop)
+    elif config.precondition == "block_jacobi":
+        isq, sq = block_jacobi_sqrt_pair(op, int(config.pc_block_size))
+        sapp, sqapp = make_block_apply(isq, npad), make_block_apply(sq, npad)
+        k_, Y, rr, done = block_cg_loop(lambda Y, act=None: sapp(mv(sapp(Y), act)), gram,
+                                        sapp(B), sqapp(X0), **loop)
+        X = sapp(Y)
+    elif config.precondition == "jacobi" and scale is None:
+        d = op.diagonal()
+        sc = torch.sqrt(torch.where(d > 0, 1.0 / d, torch.ones_like(d)))[:, None]
+        k_, Y, rr, done = block_cg_loop(lambda Y, act=None: sc * mv(sc * Y, act), gram,
+                                        sc * B, X0 / sc, **loop)
+        X = sc * Y
+    else:
+        k_, X, rr, done = block_cg_loop(mv, gram, B, X0, **loop)
+        unscale = scale
+    if unscale is not None:
+        X = unscale[:, None] * X
+    return CGResult(x=X[:n], iterations=k_, residual_norm=rr.sqrt(), converged=done)

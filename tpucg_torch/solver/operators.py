@@ -18,6 +18,19 @@ Each operator's ``launcher()`` checks its stored operands once and returns
 its matvec's launch core, ``launch(x, y, active, stream)``, which the CUDA
 lap (``cg._cuda_lap_ops``) calls every lap.
 
+``matvec_multi(X)`` applies the operator to the k columns of a row-major
+(padded_n, k) f32 block at once, for the multi-RHS and block solves: K6 x
+k, K8 x k and K13 x k for the DIA, Poisson and WELL operators on the card
+(their plain versions on the CPU), each column bit for bit the
+single-column kernel's; ``torch.matmul`` for a dense A, as tpucg runs that
+GEMM in XLA; plain products for ELL and BSR.
+
+A float64 solve (``CGConfig(dtype=torch.float64)``) reaches no kernel, as
+in tpucg: ``DenseOperator.create(dtype=torch.float64)`` stores A in f64 on
+the ``"torch"`` backend, and every operator's ``matvec`` takes its plain
+product for a vector that is not f32 (a DIA slab or WELL values stay f32
+and widen exactly).
+
 ``diagonal_blocks(bs)`` gives block Jacobi its (nb, bs, bs) diagonal blocks
 where the format stores them addressably, as tpucg's operators do: dense,
 DIA and Poisson extract theirs, a ``WellOperator`` carries the blocks taken
@@ -43,22 +56,35 @@ from tpucg_torch.kernels.gather_spmv import (
     well_rows,
     well_spmv_cuda,
     well_spmv_launch,
+    well_spmv_multi,
     well_spmv_torch,
 )
-from tpucg_torch.kernels.matvec import MATVEC_ALIGN, check_matvec, gemv_launch, matvec
+from tpucg_torch.kernels.matvec import (
+    MATVEC_ALIGN,
+    check_matvec,
+    gemv_launch,
+    matvec,
+    matvec_torch,
+)
 from tpucg_torch.kernels.spmv import (
     LANE,
     bsr_ell_spmv,
+    bsr_ell_spmv_multi,
     check_dia,
     dia_spmv,
     dia_spmv_launch,
+    dia_spmv_multi,
+    dia_spmv_torch,
     ell_spmv,
+    ell_spmv_multi,
     offsets_array,
 )
 from tpucg_torch.kernels.stencil import (
     STENCIL_MAX_M,
     poisson3d,
     poisson3d_launch,
+    poisson3d_multi,
+    poisson3d_torch,
     stencil_supported,
 )
 
@@ -78,6 +104,12 @@ class LinearOperator:
         return self.n
 
     def matvec(self, x: torch.Tensor, active: Optional[torch.Tensor] = None) -> torch.Tensor:
+        raise NotImplementedError
+
+    def matvec_multi(self, X: torch.Tensor,
+                     active: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """A @ X for X (padded_n, k), the multi-RHS and block solves'
+        batched matvec; ``active`` is the k-column kernel's flag."""
         raise NotImplementedError
 
     def diagonal(self) -> torch.Tensor:
@@ -135,30 +167,39 @@ class DenseOperator(LinearOperator):
 
     ``backend`` resolves against A's device when the operator is made:
     ``"auto"`` is ``"cuda"`` for a CUDA tensor and ``"torch"`` otherwise, and
-    ``"cuda"`` for a CPU tensor raises."""
+    ``"cuda"`` for a CPU tensor raises. A float64 A takes ``"torch"`` on
+    any device (tpucg forces its f64 operators onto XLA): no kernel is
+    f64, so ``"cuda"`` with an f64 A raises."""
 
     A: torch.Tensor
     n: int
     backend: str = "auto"
 
     def __post_init__(self):
-        object.__setattr__(self, "backend", resolve_backend(self.backend, self.A.device))
+        backend = self.backend
+        if self.A.dtype == torch.float64:
+            if backend == "cuda":
+                raise ValueError("a float64 DenseOperator has no CUDA kernel (K1 is f32/bf16): "
+                                 "use backend 'torch' or 'auto'")
+            backend = "torch"
+        object.__setattr__(self, "backend", resolve_backend(backend, self.A.device))
 
     @classmethod
     def create(cls, A, backend: str = "auto", dtype=torch.float32, device=None) -> "DenseOperator":
         """``dtype`` is the device storage dtype of A: float32 (the reference
-        contract) or bfloat16 (half the bytes per matvec, f32 accumulation).
-        ``device`` defaults to A's device for a tensor, else the card when
-        there is one; ``backend`` resolves against it."""
-        if dtype not in (torch.float32, torch.bfloat16):
-            raise NotImplementedError(
-                f"storage dtype {dtype} is ROADMAP M9 (f64); this slice stores f32 or bf16"
-            )
+        contract), bfloat16 (half the bytes per matvec, f32 accumulation) or
+        float64 (for f64 solves, on the ``"torch"`` backend). ``device``
+        defaults to A's device for a tensor, else the card when there is
+        one; ``backend`` resolves against it."""
+        if dtype not in (torch.float32, torch.bfloat16, torch.float64):
+            raise ValueError(f"storage dtype must be float32, bfloat16 or float64, got {dtype}")
+        host = np.float64 if dtype == torch.float64 else np.float32
         if isinstance(A, torch.Tensor):
             device = A.device if device is None else device
-            A = A.detach().to("cpu", torch.float32).numpy()
+            A = A.detach().to("cpu", torch.float64 if host is np.float64 else torch.float32)
+            A = A.numpy()
         device = canonical_device(device)
-        A = np.asarray(A, dtype=np.float32)
+        A = np.asarray(A, dtype=host)
         n = A.shape[0]
         if A.shape != (n, n):
             raise ValueError(f"A must be square, got {A.shape}")
@@ -174,12 +215,22 @@ class DenseOperator(LinearOperator):
         return self.A.device
 
     def matvec(self, x: torch.Tensor, active: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """A @ x; ``active`` is the CUDA kernel's lap flag (see matvec_cuda)."""
+        """A @ x; ``active`` is the CUDA kernel's lap flag (see matvec_cuda).
+        A vector that is not f32 takes the plain product."""
+        if x.dtype != torch.float32:
+            return matvec_torch(self.A, x)
         return matvec(self.A, x, backend=self.backend, active=active)
 
+    def matvec_multi(self, X: torch.Tensor,
+                     active: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """A @ X by ``torch.matmul`` (tpucg's XLA GEMM; TF32 off), bf16 A
+        widened as ``matvec_torch`` widens it."""
+        return torch.matmul(self.A.to(torch.promote_types(self.A.dtype, X.dtype)), X)
+
     def diagonal(self) -> torch.Tensor:
-        # The identity tail gives 1.0 there, safe to invert; bf16 widened.
-        return torch.diagonal(self.A).to(torch.float32)
+        # The identity tail gives 1.0 there, safe to invert; bf16 widened,
+        # f64 kept.
+        return torch.diagonal(self.A).to(torch.promote_types(self.A.dtype, torch.float32))
 
     def diagonal_blocks(self, bs: int) -> torch.Tensor:
         # One gather of (nb, bs, bs) entries; tail indices (bs not dividing
@@ -190,10 +241,10 @@ class DenseOperator(LinearOperator):
         idx = torch.arange(nb * bs, device=dev)
         valid = (idx < N).reshape(nb, bs)
         idxc = idx.clamp(max=N - 1).reshape(nb, bs)
-        blocks = self.A[idxc[:, :, None], idxc[:, None, :]].to(torch.float32)
+        dt = torch.promote_types(self.A.dtype, torch.float32)
+        blocks = self.A[idxc[:, :, None], idxc[:, None, :]].to(dt)
         blocks = torch.where(valid[:, :, None] & valid[:, None, :], blocks, 0.0)
-        return blocks + torch.eye(bs, dtype=torch.float32, device=dev)[None] * (
-            ~valid[:, :, None])
+        return blocks + torch.eye(bs, dtype=dt, device=dev)[None] * (~valid[:, :, None])
 
     def launcher(self) -> Callable:
         A = self.A
@@ -268,8 +319,17 @@ class DiaOperator(LinearOperator):
         return self.data.device
 
     def matvec(self, x: torch.Tensor, active: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """A @ x; ``active`` is the CUDA kernel's lap flag (see dia_spmv_cuda)."""
+        """A @ x; ``active`` is the CUDA kernel's lap flag (see dia_spmv_cuda).
+        A vector that is not f32 takes the plain product, as tpucg's does."""
+        if x.dtype != torch.float32:
+            return dia_spmv_torch(self.data, self.offsets, x)
         return dia_spmv(self.data, self.offsets, x, backend=self.backend, active=active)
+
+    def matvec_multi(self, X: torch.Tensor,
+                     active: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """A @ X: K6 x k on the card, its plain version on the CPU."""
+        return dia_spmv_multi(self.data, self.offsets, X.contiguous(), backend=self.backend,
+                              active=active)
 
     def diagonal(self) -> torch.Tensor:
         if 0 not in self.offsets:
@@ -311,8 +371,16 @@ class PoissonOperator(LinearOperator):
         return self.m ** 3
 
     def matvec(self, x: torch.Tensor, active: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """A @ x; ``active`` is the CUDA kernel's lap flag (see poisson3d_cuda)."""
+        """A @ x; ``active`` is the CUDA kernel's lap flag (see poisson3d_cuda).
+        A vector that is not f32 takes the plain product, as tpucg's does."""
+        if x.dtype != torch.float32:
+            return poisson3d_torch(x, self.m)
         return poisson3d(x, self.m, backend=self.backend, active=active)
+
+    def matvec_multi(self, X: torch.Tensor,
+                     active: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """A @ X: K8 x k on the card, its plain version on the CPU."""
+        return poisson3d_multi(X.contiguous(), self.m, backend=self.backend, active=active)
 
     def diagonal(self) -> torch.Tensor:
         return torch.full((self.n,), 6.0, dtype=torch.float32, device=self.device)
@@ -389,6 +457,10 @@ class EllOperator(LinearOperator):
     def matvec(self, x: torch.Tensor, active: Optional[torch.Tensor] = None) -> torch.Tensor:
         return ell_spmv(self.values, self.indices, x)
 
+    def matvec_multi(self, X: torch.Tensor,
+                     active: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return ell_spmv_multi(self.values, self.indices, X)
+
     def diagonal(self) -> torch.Tensor:
         rows = torch.arange(self.n, device=self.device)[:, None]
         return torch.where(self.indices == rows, self.values, 0.0).sum(1)
@@ -450,6 +522,10 @@ class BsrOperator(LinearOperator):
 
     def matvec(self, x: torch.Tensor, active: Optional[torch.Tensor] = None) -> torch.Tensor:
         return bsr_ell_spmv(self.values, self.indices, x)
+
+    def matvec_multi(self, X: torch.Tensor,
+                     active: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return bsr_ell_spmv_multi(self.values, self.indices, X)
 
     def diagonal(self) -> torch.Tensor:
         nbr, L = self.indices.shape
@@ -570,18 +646,24 @@ class WellOperator(LinearOperator):
         return self.vals.device
 
     def matvec(self, x: torch.Tensor, active: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """A @ x over the padded length; ``active`` is K13's lap flag."""
+        """A @ x over the padded length; ``active`` is K13's lap flag. A
+        vector that is not f32 takes the plain product, as tpucg's does."""
         x2 = x.reshape(self.n_groups, LANE)
         arrays = (self.vals, self.lidx, self.gidl, self.wrow, self.sgb, x2, self.bg, self.nsg)
-        if self.backend == "cuda":
+        if self.backend == "cuda" and x.dtype == torch.float32:
             y2 = well_spmv_cuda(*arrays, index=self.rows, active=active)
         else:
             y2 = well_spmv_torch(*arrays, index=self.rows)
         return y2.reshape(-1)[: self.padded_n]
 
-    def matvec_multi(self, X: torch.Tensor) -> torch.Tensor:
-        raise NotImplementedError("WellOperator.matvec_multi serves the multi-RHS and block "
-                                  "solvers: ROADMAP M9")
+    def matvec_multi(self, X: torch.Tensor,
+                     active: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """A @ X over the padded length: K13 x k on the card over the
+        operator's layout (the packed matrix read once for all k columns,
+        where tpucg's vmap re-runs its kernel per column), its plain version
+        on the CPU."""
+        return well_spmv_multi(self.rows, X.contiguous(), self.padded_n, backend=self.backend,
+                               active=active)
 
     def diagonal(self) -> torch.Tensor:
         return self.dvec
@@ -661,9 +743,12 @@ def as_operator(A, backend: str = "auto", dtype=torch.float32, device=None) -> L
     unchanged). As in tpucg, a ``CSRMatrix`` becomes an ``EllOperator`` and
     an ``EllMatrix``, ``BSRMatrix``, ``WellMatrix`` or ``DIAMatrix`` its own
     operator (``best_sparse_operator`` picks a format instead). ``dtype`` is
-    the storage dtype of a dense A, a DIA slab or WELL values."""
+    the storage dtype of a dense A, a DIA slab or WELL values; float64
+    applies to a dense A only (a sparse container keeps f32, as tpucg's
+    keeps its own dtype)."""
     if isinstance(A, LinearOperator):
         return A
+    sparse_dtype = torch.float32 if dtype == torch.float64 else dtype
     kind = type(A).__name__
     if kind == "CSRMatrix":
         return EllOperator.from_csr(A, backend=backend, device=device)
@@ -672,9 +757,11 @@ def as_operator(A, backend: str = "auto", dtype=torch.float32, device=None) -> L
     if kind == "BSRMatrix":
         return BsrOperator.from_bsr(A, backend=backend, device=device)
     if kind == "WellMatrix":
-        return WellOperator.from_well(A, backend=backend, storage_dtype=dtype, device=device)
+        return WellOperator.from_well(A, backend=backend, storage_dtype=sparse_dtype,
+                                      device=device)
     if kind == "DIAMatrix":
-        return DiaOperator.from_dia(A, backend=backend, storage_dtype=dtype, device=device)
+        return DiaOperator.from_dia(A, backend=backend, storage_dtype=sparse_dtype,
+                                    device=device)
     if kind == "COOMatrix" or getattr(A, "is_sparse", False) or (
             isinstance(A, torch.Tensor) and A.layout != torch.strided):
         raise TypeError(f"cannot interpret {kind} as a linear operator: convert it to a "

@@ -100,7 +100,11 @@ def _check_supported(config: CGConfig, interval=None, two_level=None) -> None:
         raise NotImplementedError("sharded precondition='block_jacobi' is ROADMAP M14 step 2 "
                                   "(M8's block Jacobi on the mesh)")
     if config.dtype != _F32:
-        raise NotImplementedError(f"solve dtype {config.dtype} is ROADMAP M9")
+        # tpucg's sharded solves run f32 whatever config.dtype says (they
+        # read storage_dtype only); the port refuses instead of solving in
+        # another dtype than the one asked for.
+        raise ValueError(f"sharded solves are float32 (tpucg's run f32 whatever config.dtype "
+                         f"says); got dtype={config.dtype}: use cg_solve for a float64 solve")
     if interval is not None:
         raise NotImplementedError("sharded interval= serves method='ca'/'chebyshev': ROADMAP "
                                   "M14 step 2 (M8's loops on the mesh)")
