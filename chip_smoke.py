@@ -212,6 +212,34 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    its residual below the f32 solve's, no kernel launched, and
    ``kernel="cuda"`` with f64 raising. Times: ms a solve, CUDA events.
 
+21. M12: the guarded finish of K3 and K2 (alpha 0 unless p.Ap > 0; a tail
+   whose rs_new is not > 0 steps with beta 0 and rsold FLT_MIN), K3's alpha
+   with p.Ap > 0, == 0, < 0 and NaN, K3's tail with r.z > 0, == 0, < 0 and
+   K2's with r'.r' > 0 and == 0, each bit-identical to its NumPy emulation
+   (``tests/_torch_helpers.py`` ``alpha_emulated``, ``lap_tail_emulated``),
+   its plain version and its repeat, and the launch cores' µs guarded and
+   unguarded (``bench.lap_ab.lap_cases``); two-level PCG on FEM 300k (mesh
+   order, WELL, agg 64, tol 1e-3 ||b||) through ``cli.main(["solve", ...,
+   "--two-level", "64"])`` with ``--smooth-degree 2`` and with
+   ``--coarse-max 256`` (multilevel), and pipelined through ``cg_solve``
+   (pipelined CG has no true-residual check, and below FEM 300k's f32 floor
+   its recurrence drifts: its run there is shown, not held, and it is held
+   on the geometric 100k graph at 1e-5 ||b||, tpucg's pipelined two-level
+   family):
+   laps (a multiple of 16 for classic PCG, which stops on the true residual
+   every 16 laps), converged or stagnation-stopped, the float64 true
+   residual within the FEM bound, K13, K3 and K2 launched and no plain
+   version, the plain route's laps within 16, ``build_two_level``'s host
+   seconds and ms a solve (median of 3) beside the Jacobi lap route at 1e-5
+   and 1e-3 ||b||; ``cg_solve_deflated`` on a clustered dense n = 4096
+   system (eigenvalues 0.01, 0.02, 0.03 under a [1, 2] bulk, built on the
+   card) with its three slow eigenvectors, fewer laps than the plain solve;
+   ``RecyclingCG`` on FEM 300k with the Chebyshev-smoothed two-level over 4
+   right-hand sides of a smooth sequence, K13 x k building the basis; MINRES
+   on the dense indefinite n = 4096 system, its badly scaled form with
+   Jacobi and block Jacobi, and the staggered-sign band in DIA form at n =
+   262,144 (K6), each converged, its laps within 1% of the plain route's.
+
 The line before last is a JSON object of the kernels (K1-K14, K6xk, K8xk,
 K13xk and P1-P7:
 launches on the main path, error against the plain version, times, the
@@ -275,6 +303,8 @@ def main() -> int:
     )
 
     from _torch_helpers import (
+        alpha_emulated,
+        lap_tail_emulated,
         BAND_SETS,
         batch_dia_cg_emulated,
         dot_emulated,
@@ -290,6 +320,8 @@ def main() -> int:
     )
 
     from tpucg_torch.bench import k4_resident, k10_lap, k11_lap
+    from tpucg_torch.bench.lap_ab import CASES as LAP_CASES, LapOperands, lap_cases
+    from tpucg_torch.kernels import blas1 as blas1_module
     from tpucg_torch.bench.k8_march import cold_seconds as stencil_cold_seconds
     from tpucg_torch.bench import probe_gather as pg
     from tpucg_torch.bench.timing import (
@@ -319,12 +351,14 @@ def main() -> int:
     from tpucg_torch.io.golden import GOLDEN_2X2, GOLDEN_4X4
     from tpucg_torch.kernels import _lib
     from tpucg_torch.kernels.blas1 import (
+        alpha_torch,
         CudaLapTail,
         dot_alpha_cuda,
         dot_alpha_torch,
         dot_alpha_launch,
         dot_cuda,
         dot_launch,
+        dot_tail_launch,
         dot_torch,
         fused_update_cuda,
         fused_update_launch,
@@ -393,7 +427,10 @@ def main() -> int:
         lap_ops,
         spectral_interval,
     )
+    from tpucg_torch.solver.deflation import RecyclingCG, cg_solve_deflated
     from tpucg_torch.solver.ir import cg_solve_ir, ir_loop
+    from tpucg_torch.solver.minres import minres_solve
+    from tpucg_torch.solver.twolevel import build_two_level
     from tpucg_torch.solver.fused import (
         fused_batch_cg_solve_torch,
         fused_batch_dia_cg_solve_torch,
@@ -414,6 +451,7 @@ def main() -> int:
         sharded_cg_solve,
         sharded_operator_cg_solve,
     )
+    from tpucg_torch.sparse.formats import DIAMatrix
     from tpucg_torch.sparse.well import csr_to_well
     from tpucg_torch.comm.mesh import init_distributed, make_mesh
 
@@ -2281,6 +2319,363 @@ def main() -> int:
               f"{t64.median * 1e3:.3f} ms a solve {tag}")
         del op_dia, wells, op_g, op_p, bp, bp64
         print(f"M9: {time.perf_counter() - t_phase:.1f} s")
+
+    # M12: the guarded finish of K3 and K2, two-level and multilevel
+    # PCG, deflated and recycling CG and MINRES; each path driven once with
+    # the counts at 0.
+    with phase("M12: guarded finish, two-level, deflation, recycling, MINRES"):
+        t_phase = time.perf_counter()
+
+        def median3_ms(fn):
+            """(median, min, max) ms of 3 solves, each ended by a synchronize
+            (host clock; ``time_fn`` takes 5 or more)."""
+            walls = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            return sorted(walls)[1], min(walls), max(walls)
+
+        def f32_bits(v):
+            """The f32 bits of v; every NaN as one (a NaN sum's payload is the
+            hardware's, 0x7fffffff on the card, NumPy's 0x7fc00000)."""
+            v = np.float32(float(v))
+            return np.int32(-1) if np.isnan(v) else v.view(np.int32)
+
+        # (a) The guarded finish: K3's alpha with p.Ap > 0, == 0, < 0 and
+        # NaN; K3's tail with rs_new = r.z > 0, == 0, < 0 and K2's with
+        # rs_new = r'.r' > 0 and == 0 (r'.r' is never < 0); each bit for bit
+        # its NumPy emulation, its plain version and its repeat.
+        vg = rnd(8192)
+        vnan = vg.clone()
+        vnan[17] = float("nan")
+        dots_m12 = {"> 0": (vg, vg), "== 0": (torch.zeros_like(vg), vg), "< 0": (-vg, vg),
+                    "NaN": (vnan, vg)}
+        rs_m12 = torch.tensor(1.7, device=dev)
+        for label, (ua, va) in dots_m12.items():
+            pap, al = dot_alpha_cuda(ua, va, rs_m12, True, guard=True)
+            again = dot_alpha_cuda(ua, va, rs_m12, True, guard=True)
+            d_emu = dot_emulated(ua.cpu().numpy(), va.cpu().numpy())
+            require(f32_bits(pap) == f32_bits(d_emu)
+                    and f32_bits(al) == f32_bits(alpha_emulated(d_emu, 1.7, 2))
+                    and f32_bits(al) == f32_bits(alpha_torch(pap, rs_m12, True, True))
+                    and f32_bits(again[0]) == f32_bits(pap) and f32_bits(again[1]) == f32_bits(al),
+                    f"guarded K3 alpha, p.Ap {label}: {float(pap)!r} -> {float(al)!r}")
+            print(f"guarded K3 alpha, p.Ap {label}: alpha {float(al)!r}, bit-identical to the "
+                  "emulation, the plain version and its repeat")
+
+        def m12_tail():
+            s = CudaLapTail(dev)
+            s.load(torch.tensor(3, dtype=torch.int32), torch.tensor(0.8), torch.tensor(0.9),
+                   torch.tensor(False), torch.full((), -1.0, device=dev), 100)
+            return s
+
+        plain_lap = LapTail(k=torch.tensor(3, dtype=torch.int32), rsold=torch.tensor(0.8),
+                            rslast=torch.tensor(0.9), done=torch.tensor(False),
+                            active=torch.tensor(True))
+        names_m12 = ("k", "rsold", "rslast", "done", "active", "beta", "step")
+
+        def tail_agrees(s, rr_, rs_new):
+            want = lap_tail_emulated(3, 0.8, False, rr_, rs_new, -1.0, 100, True)
+            plain = lap_tail_torch(plain_lap, torch.tensor(rr_), torch.tensor(rs_new),
+                                   torch.tensor(-1.0), 100, True)
+            got = {f: getattr(s, f).cpu() for f in names_m12}
+            return all(f32_bits(got[f]) == f32_bits(np.float32(want[f])) for f in names_m12) and \
+                all(f32_bits(got[f]) == f32_bits(getattr(plain, f)) for f in names_m12)
+
+        for label, (ua, va) in list(dots_m12.items())[:3]:
+            runs = []
+            for _ in range(2):
+                s = m12_tail()
+                s.rr.fill_(0.5)
+                out = torch.empty((), device=dev)
+                dot_tail_launch(ua, va, scratch_for(ua), out, s.address, cuda_stream(ua),
+                                guard=True)
+                torch.cuda.synchronize()
+                runs.append([f32_bits(getattr(s, f)) for f in names_m12])
+                rs_new = dot_emulated(ua.cpu().numpy(), va.cpu().numpy())
+                require(f32_bits(out) == f32_bits(rs_new) and tail_agrees(s, 0.5, rs_new),
+                        f"guarded K3 tail, rs_new {label}")
+            require(runs[0] == runs[1], f"guarded K3 tail, rs_new {label}: repeat")
+            print(f"guarded K3 tail, rs_new {label}: beta {float(s.beta)!r}, rsold "
+                  f"{float(s.rsold)!r}, bit-identical to the emulation, the plain version and "
+                  "its repeat")
+        xg, pg_, apg = (rnd(8192) for _ in range(3))
+        for label, rg in (("> 0", rnd(8192)), ("== 0", 0.5 * apg)):
+            runs = []
+            for _ in range(2):
+                s = m12_tail()
+                xo_, ro_ = xg.clone(), rg.clone()
+                fused_update_tail_launch(xo_, ro_, pg_, apg, torch.tensor(0.5, device=dev), xo_,
+                                         ro_, scratch_for(xg), s.rr, s.address,
+                                         cuda_stream(xg), guard=True)
+                torch.cuda.synchronize()
+                emu = fused_update_emulated(*(t_.cpu().numpy() for t_ in (xg, rg, pg_, apg)),
+                                            np.float32(0.5))
+                require(np.array_equal(xo_.cpu().numpy().view(np.int32), emu[0].view(np.int32))
+                        and np.array_equal(ro_.cpu().numpy().view(np.int32),
+                                           emu[1].view(np.int32))
+                        and tail_agrees(s, emu[2], emu[2]), f"guarded K2 tail, rs_new {label}")
+                runs.append([f32_bits(getattr(s, f)) for f in names_m12])
+            require(runs[0] == runs[1], f"guarded K2 tail, rs_new {label}: repeat")
+            print(f"guarded K2 tail, rs_new {label}: r'.r' {float(s.rr)!r}, beta "
+                  f"{float(s.beta)!r}, rsold {float(s.rsold)!r}, bit-identical to the emulation, "
+                  "the plain version and its repeat")
+        lap_us, lap_set = {}, LapOperands(dev, 8192)
+        for guard in (False, True):
+            for label, call in lap_cases(blas1_module, lap_set, guard=guard).items():
+                lap_set.reset()
+                lap_us[(label, guard)] = device_seconds_per_call(call) * 1e6
+        print("K3/K2 launch cores at n = 8192, device µs a call (queued): " + "; ".join(
+            f"{label} {lap_us[(label, False)]:.3f} unguarded, {lap_us[(label, True)]:.3f} "
+            "guarded" for label in LAP_CASES) + f" {tag}")
+
+        # (b) Two-level on the FEM 300k system (mesh order, WELL) at tol 1e-3
+        # ||b||: --smooth-degree 2 and --coarse-max 256 through the CLI,
+        # pipelined through cg_solve; each beside the Jacobi lap route.
+        op_f = best_sparse_operator(A_fem, device=dev)
+        bd_f = torch.as_tensor(b_fem, device=dev)
+        b64_f = b_fem.astype(np.float64)
+        nb_f = float(np.linalg.norm(b64_f))
+        tol_f = 1e-3 * nb_f
+
+        def fem_true(x):
+            x = x.cpu().numpy() if isinstance(x, torch.Tensor) else x
+            return float(np.linalg.norm(b64_f - A_fem.matvec(x.astype(np.float64))) / nb_f)
+
+        def plain_two_level(tl_):
+            if tl_.inner is None:
+                return tl_
+            return dataclasses.replace(
+                tl_, coarse_op=dataclasses.replace(tl_.coarse_op, backend="torch"),
+                inner=plain_two_level(tl_.inner))
+
+        op_f_plain = dataclasses.replace(op_f, backend="torch")
+        res_j5 = cg_solve(op_f, bd_f, tol=1e-5 * nb_f, maxiter=4000, precondition="jacobi")
+        t_j5 = median3_ms(lambda: cg_solve(op_f, bd_f, tol=1e-5 * nb_f, maxiter=4000,
+                                           precondition="jacobi"))
+        res_j3 = cg_solve(op_f, bd_f, tol=tol_f, maxiter=4000, precondition="jacobi")
+        t_j3 = median3_ms(lambda: cg_solve(op_f, bd_f, tol=tol_f, maxiter=4000,
+                                           precondition="jacobi"))
+        print(f"FEM 300k Jacobi lap route: {int(res_j5.iterations)} laps at tol 1e-5 ||b||, "
+              f"{t_j5[0]:.3f} ms a solve; {int(res_j3.iterations)} laps at 1e-3 ||b||, "
+              f"{t_j3[0]:.3f} ms (medians of 3, host clock) {tag}")
+        with tempfile.TemporaryDirectory() as tmp:
+            pa, pb, px = (str(Path(tmp) / f) for f in ("A.mtx", "b.mtx", "x.txt"))
+            save_matrix_market(pa, A_fem, symmetric=True)
+            save_matrix_market(pb, b_fem)
+            for label, flags, build_kw in (
+                    ("--smooth-degree 2", ["--smooth-degree", "2"], dict(smooth_degree=2)),
+                    ("--coarse-max 256", ["--coarse-max", "256"], dict(coarse_max=256))):
+                t0 = time.perf_counter()
+                tl_f = build_two_level(A_fem, agg_size=64, npad=op_f.padded_n, device=dev,
+                                       **build_kw)
+                torch.cuda.synchronize()
+                build_s = time.perf_counter() - t0
+                argv = (["solve", pa, pb, "--two-level", "64", "--tol", repr(tol_f),
+                         "--maxiter", "4000", "--output", px] + flags)
+                out = io.StringIO()
+                with contextlib.redirect_stdout(out):
+                    rc, launched = drive(lambda: cli.main(argv))
+                text = out.getvalue()
+                fmt = re.search(r"system size\s+: \d+ x \d+\s+\[([^\]]+)\]", text).group(1)
+                laps = int(re.search(r"iterations\s+: (\d+)", text).group(1))
+                conv = "converged            : True" in text
+                tr = fem_true(load_vector(px, n=A_fem.shape[0]))
+                require(rc == (0 if conv else 3), f"two-level {label}: rc {rc}")
+                require(tr <= fem_residual_bound,
+                        f"two-level {label}: true residual {tr:.3e} > {fem_residual_bound}")
+                require(laps % 16 == 0 or laps == 4000,
+                        f"two-level {label}: {laps} laps, not at a check boundary")
+                require(all(launched[w] > 0 for w in ("well_spmv_cuda", "dot_cuda",
+                                                       "fused_update_cuda"))
+                        and all(c == 0 for w, c in launched.items() if w.endswith("_torch")),
+                        f"two-level {label}: launches {launched}")
+                ref_f = cg_solve(op_f_plain, bd_f, tol=tol_f, maxiter=4000, kernel="torch",
+                                 two_level=plain_two_level(tl_f))
+                require(abs(laps - int(ref_f.iterations)) <= 16,
+                        f"two-level {label}: {laps} laps, plain route {int(ref_f.iterations)}")
+                t_f = median3_ms(lambda: cg_solve(op_f, bd_f, tol=tol_f, maxiter=4000,
+                                                  two_level=tl_f))
+                stop = "converged" if conv else (
+                    "stopped on stagnation" if laps < 4000 else "cut at maxiter")
+                print(f"FEM 300k two-level agg 64 {label} [{fmt}, {tl_f.levels} level(s), nc "
+                      f"{tl_f.nc}], tol 1e-3 ||b||: {laps} laps, {stop}, float64 ||b - A x|| "
+                      f"/ ||b|| {tr:.4e} (bound {fem_residual_bound}); plain route on the card "
+                      f"{int(ref_f.iterations)} laps; build_two_level {build_s:.3f} s (host); "
+                      f"{t_f[0]:.3f} ms a solve (median of 3; min {t_f[1]:.3f}, max "
+                      f"{t_f[2]:.3f}) against Jacobi's {t_j5[0]:.3f} ms "
+                      f"({int(res_j5.iterations)} laps); launches: "
+                      + ", ".join(f"{w} {c}" for w, c in sorted(launched.items()) if c)
+                      + f" {tag}")
+        # Pipelined two-level: pipelined CG has no true-residual check and no
+        # stagnation exit (tpucg's neither), and its f32 floor grows with the
+        # condition (tpucg: ~kappa 1e-7 ||b||). On FEM 300k at 1e-3 ||b|| it
+        # runs past the floor and x drifts: shown once, capped at 1,000 laps,
+        # not held. Held on the geometric 100k graph (WELL) at 1e-5 ||b||,
+        # tpucg's pipelined two-level family (RESULTS.md, kappa ~1e2).
+        tl_f = build_two_level(A_fem, agg_size=64, npad=op_f.padded_n, smooth_degree=2,
+                               device=dev)
+        below = cg_solve(op_f, bd_f, tol=tol_f, maxiter=1000, two_level=tl_f,
+                         method="pipelined")
+        print(f"FEM 300k two-level agg 64 smooth 2, pipelined, tol 1e-3 ||b|| (below its f32 "
+              f"floor): {int(below.iterations)} laps, converged {bool(below.converged)}, "
+              f"float64 ||b - A x|| / ||b|| {fem_true(below.x):.4e} (shown, not held)")
+        A_g, b_g, _ = random_geometric_spd(100_000, seed=0, avg_degree=12.0)
+        op_g = WellOperator.from_csr(A_g, device=dev)
+        bd_g = torch.as_tensor(b_g, device=dev)
+        b64_g = b_g.astype(np.float64)
+        tol_g = 1e-5 * float(np.linalg.norm(b64_g))
+        t0 = time.perf_counter()
+        tl_g = build_two_level(A_g, agg_size=64, npad=op_g.padded_n, smooth_degree=2,
+                               device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        kw_g = dict(tol=tol_g, maxiter=2000, two_level=tl_g, method="pipelined")
+        res_g, launched = drive(lambda: cg_solve(op_g, bd_g, **kw_g))
+        tr = float(np.linalg.norm(b64_g - A_g.matvec(res_g.x.cpu().numpy().astype(np.float64)))
+                   / np.linalg.norm(b64_g))
+        ref_g = cg_solve(dataclasses.replace(op_g, backend="torch"), bd_g, kernel="torch",
+                         **kw_g)
+        laps = int(res_g.iterations)
+        require(bool(res_g.converged) and tr <= 2e-5,
+                f"two-level pipelined geometric: converged {bool(res_g.converged)}, true {tr:.3e}")
+        require(abs(laps - int(ref_g.iterations)) <= 1,
+                f"two-level pipelined geometric: {laps} laps, plain route {int(ref_g.iterations)}")
+        require(all(launched[w] > 0 for w in ("well_spmv_cuda", "dot_cuda"))
+                and all(c == 0 for w, c in launched.items() if w.endswith("_torch")),
+                f"two-level pipelined geometric: launches {launched}")
+        t_g = median3_ms(lambda: cg_solve(op_g, bd_g, **kw_g))
+        t_gc = median3_ms(lambda: cg_solve(op_g, bd_g, tol=tol_g, maxiter=2000, two_level=tl_g))
+        t_gj = median3_ms(lambda: cg_solve(op_g, bd_g, tol=tol_g, maxiter=2000,
+                                           precondition="jacobi"))
+        res_gj = cg_solve(op_g, bd_g, tol=tol_g, maxiter=2000, precondition="jacobi")
+        print(f"geometric 100k two-level agg 64 smooth 2, pipelined, tol 1e-5 ||b||: {laps} "
+              f"laps, converged, float64 ||b - A x|| / ||b|| {tr:.4e}; plain route on the card "
+              f"{int(ref_g.iterations)} laps; build_two_level {build_s:.3f} s (host); "
+              f"{t_g[0]:.3f} ms a solve (median of 3) against classic two-level "
+              f"{t_gc[0]:.3f} ms and the Jacobi lap route {t_gj[0]:.3f} ms "
+              f"({int(res_gj.iterations)} laps); launches: "
+              + ", ".join(f"{w} {c}" for w, c in sorted(launched.items()) if c) + f" {tag}")
+        del op_g, tl_g, tl_f
+        print(f"M12 two-level: {time.perf_counter() - t_phase:.1f} s so far")
+
+        # (c) Deflation: the clustered dense n = 4096 system (0.01, 0.02,
+        # 0.03 under a [1, 2] bulk; built on the card in float64) with its
+        # three slow eigenvectors; then RecyclingCG on FEM 300k with the
+        # Chebyshev-smoothed two-level over a smooth sequence of 4 b's.
+        nd = 4096
+        rng_d = np.random.default_rng(0)
+        Qd, _ = torch.linalg.qr(torch.from_numpy(rng_d.standard_normal((nd, nd))).to(dev))
+        lam_d = torch.from_numpy(np.concatenate([[0.01, 0.02, 0.03],
+                                                 1.0 + rng_d.uniform(0, 1, nd - 3)])).to(dev)
+        Ad = (Qd * lam_d) @ Qd.T
+        op_d = DenseOperator.create((0.5 * (Ad + Ad.T)).float(), device=dev)
+        bd_d = torch.from_numpy(rng_d.standard_normal(nd).astype(np.float32)).to(dev)
+        tol_d = 1e-5 * float(bd_d.norm())
+        Vd = Qd[:, :3].float()
+        res_dp, lp_d = drive(lambda: cg_solve(op_d, bd_d, tol=tol_d, maxiter=4 * nd))
+        res_dd, ld_d = drive(lambda: cg_solve_deflated(op_d, bd_d, Vd, tol=tol_d,
+                                                       maxiter=4 * nd))
+        require(bool(res_dd.converged) and bool(res_dp.converged)
+                and int(res_dd.iterations) < int(res_dp.iterations),
+                f"deflation dense: {int(res_dd.iterations)} laps against plain "
+                f"{int(res_dp.iterations)}")
+        require(ld_d["matvec_cuda"] > 0 and ld_d["fused_update_cuda"] > 0
+                and all(c == 0 for w, c in ld_d.items() if w.endswith("_torch")),
+                f"deflation dense: launches {ld_d}")
+        t_dd = median3_ms(lambda: cg_solve_deflated(op_d, bd_d, Vd, tol=tol_d,
+                                                    maxiter=4 * nd))
+        t_dp = median3_ms(lambda: cg_solve(op_d, bd_d, tol=tol_d, maxiter=4 * nd))
+        print(f"deflated CG dense n={nd} clustered (3 slow eigenvectors), tol 1e-5 ||b||: "
+              f"{int(res_dd.iterations)} laps ({t_dd[0]:.3f} ms a solve, median of 3) against "
+              f"the plain solve's {int(res_dp.iterations)} ({t_dp[0]:.3f} ms; launches "
+              + ", ".join(f"{w} {c}" for w, c in sorted(lp_d.items()) if c) + "); deflated "
+              "launches " + ", ".join(f"{w} {c}" for w, c in sorted(ld_d.items()) if c)
+              + f" {tag}")
+        del Ad, op_d
+        tl_r = build_two_level(A_fem, agg_size=64, npad=op_f.padded_n, smooth_degree=2,
+                               device=dev)
+        rec = RecyclingCG(op_f, two_level=tl_r, max_vectors=4, tol=tol_f, maxiter=4000)
+        wave = np.sin(2 * np.pi * 3 * np.arange(A_fem.shape[0]) / A_fem.shape[0])
+        multi_launches, rec_lines = 0, []
+        for step_t in range(4):
+            b_t = (b_fem * (1 + 0.25 * np.sin(0.5 * step_t))
+                   + 0.05 * step_t * np.abs(b_fem).max() * wave).astype(np.float32)
+            t0 = time.perf_counter()
+            res_r, lr = drive(lambda: rec.solve(b_t))
+            wall = time.perf_counter() - t0
+            multi_launches += lr["well_spmv_multi_cuda"]
+            tr = float(np.linalg.norm(b_t - A_fem.matvec(res_r.x.cpu().numpy().astype(
+                np.float64))) / np.linalg.norm(b_t.astype(np.float64)))
+            require(tr <= fem_residual_bound and lr["well_spmv_cuda"] > 0,
+                    f"recycling solve {step_t}: true residual {tr:.3e}, launches {lr}")
+            rec_lines.append(f"b_{step_t}: {int(res_r.iterations)} laps, "
+                             f"{'converged' if bool(res_r.converged) else 'not converged'}, "
+                             f"true {tr:.4e}, basis {0 if rec._basis is None else rec._basis.m}, "
+                             f"{wall * 1e3:.1f} ms (with the basis rebuild)")
+        require(multi_launches > 0, "recycling: K13 x k never ran for the basis")
+        print(f"RecyclingCG FEM 300k, two-level agg 64 smooth 2, max_vectors 4, tol 1e-3 ||b||: "
+              + "; ".join(rec_lines) + f"; K13 x k launches {multi_launches} {tag}")
+        del rec, tl_r
+        print(f"M12 deflation: {time.perf_counter() - t_phase:.1f} s so far")
+
+        # (d) MINRES: the dense indefinite n = 4096 system (half its spectrum
+        # in [-2, -1]) plain, its badly scaled form (10^U(-1.5, 1.5)) with
+        # Jacobi and block Jacobi (bs 128), and the staggered-sign band in
+        # DIA form at n = 262,144 (K6): each converged on the true residual,
+        # its laps within 1% of the plain route's on the card.
+        rng_m = np.random.default_rng(1)
+        lam_m = torch.from_numpy(np.concatenate([-(1.0 + rng_m.uniform(0, 1, nd // 2)),
+                                                 1.0 + rng_m.uniform(0, 1, nd // 2)])).to(dev)
+        Am = (Qd * lam_m) @ Qd.T
+        sc = torch.from_numpy(10.0 ** rng_m.uniform(-1.5, 1.5, nd)).to(dev)
+        Ams = Am * sc[None, :] * sc[:, None]
+        w_b, n_b = 512, 262_144
+        data_b = np.zeros((5, n_b), np.float32)
+        data_b[[0, 1, 3, 4]] = -1.0
+        data_b[2] = np.where((np.arange(n_b) // w_b) % 2 == 0, 5.0, -5.0)
+        band = DIAMatrix(data=data_b, offsets=(-w_b, -1, 0, 1, w_b), shape=(n_b, n_b))
+        mcases = []
+        for label, Amat, pc, rel in (("dense n=4096 indefinite", Am, "none", 1e-4),
+                                     ("dense n=4096 scaled, jacobi", Ams, "jacobi", 1e-3),
+                                     ("dense n=4096 scaled, block_jacobi bs=128", Ams,
+                                      "block_jacobi", 1e-3)):
+            op_m = DenseOperator.create((0.5 * (Amat + Amat.T)).float(), device=dev)
+            mcases.append((label, op_m, DenseOperator(A=op_m.A, n=op_m.n, backend="torch"), pc,
+                           rel, "matvec_cuda", 8 * nd))
+        mcases.append(("band DIA n=262144 staggered sign", DiaOperator.from_dia(band, device=dev),
+                       DiaOperator.from_dia(band, backend="torch", device=dev), "none", 1e-4,
+                       "dia_spmv_cuda", 4000))
+        for label, op_m, op_mp, pc, rel, kern, cap in mcases:
+            bm = torch.from_numpy(rng_m.standard_normal(op_m.n).astype(np.float32)).to(dev)
+            kw_m = dict(tol=rel * float(bm.norm()), maxiter=cap, precondition=pc,
+                        pc_block_size=128)
+            t0 = time.perf_counter()
+            res_m, lm = drive(lambda: minres_solve(op_m, bm, **kw_m))
+            wall = time.perf_counter() - t0
+            res_mp = minres_solve(op_mp, bm, kernel="torch", **kw_m)
+            km, kmp = int(res_m.iterations), int(res_mp.iterations)
+            xm = res_m.x.double()
+            Ad_m = op_m.A[:op_m.n, :op_m.n].double() if hasattr(op_m, "A") else None
+            tr = (float((bm.double() - Ad_m @ xm).norm()) if Ad_m is not None else float(
+                (bm.double() - torch.from_numpy(band.matvec(xm.cpu().numpy())).to(dev)).norm()))
+            # converged: the solver's f32 true residual under tol; the float64
+            # one is printed beside it, held within 2 tol (f32 rounding of A x).
+            require(bool(res_m.converged) and tr <= 2 * kw_m["tol"],
+                    f"MINRES {label}: converged {bool(res_m.converged)}, true {tr:.3e}")
+            require(bool(res_mp.converged) and abs(km - kmp) <= max(1, kmp // 100),
+                    f"MINRES {label}: {km} laps, plain route {kmp}")
+            require(lm[kern] > 0 and all(c == 0 for w, c in lm.items() if w.endswith("_torch")),
+                    f"MINRES {label}: launches {lm}")
+            print(f"MINRES {label} ({pc}, tol {rel:g} ||b||): {km} laps, float64 ||b - A x|| "
+                  f"{tr:.4e} (tol {kw_m['tol']:.4e}); plain route on the card {kmp} laps; "
+                  f"{wall * 1e3:.1f} ms (one solve, host clock); launches: " + ", ".join(
+                      f"{w} {c}" for w, c in sorted(lm.items()) if c) + f" {tag}")
+        del Am, Ams, Qd, mcases
+        print(f"M12: {time.perf_counter() - t_phase:.1f} s")
 
     # (id, name, key of its launch count, source, the TPU kernel it replaces)
     meta = (

@@ -758,6 +758,36 @@ def fused_update_emulated(x, r, p, ap, alpha):
     return xn, rn, dot_emulated(rn, rn)
 
 
+def alpha_emulated(pap, rsold, rule: int):
+    """K3's alpha in float32 NumPy: rule 0 divides as is, 1 (safe_alpha)
+    gives 0 where p.Ap == 0, 2 (the guarded finish) 0 unless p.Ap > 0 (NaN
+    included)."""
+    pap, rsold = np.float32(pap), np.float32(rsold)
+    with np.errstate(all="ignore"):
+        q = np.float32(rsold / pap)
+    if rule == 2:
+        return q if pap > 0 else np.float32(0)
+    if rule == 1 and pap == 0:
+        return np.float32(0)
+    return q
+
+
+def lap_tail_emulated(k, rsold, done, rr, rs_new, tol2, maxiter, guard: bool):
+    """The lap's tail (``csrc/blas.cu`` ``lap_tail``) on a running lap, in
+    float32 NumPy: the scalars after it (k, rsold, rslast, done, active,
+    beta, step). Guarded, a lap whose rs_new is not > 0 steps with beta 0 and
+    rsold FLT_MIN."""
+    rsold, rr, rs_new, tol2 = (np.float32(v) for v in (rsold, rr, rs_new, tol2))
+    stop = bool(rr < tol2)
+    healthy = (not guard) or bool(rs_new > 0)
+    with np.errstate(all="ignore"):
+        beta = np.float32(rs_new / rsold) if healthy else np.float32(0)
+    rs_step = rs_new if healthy else np.float32(np.finfo(np.float32).tiny)
+    done = bool(done) or stop
+    return dict(k=k + 1, rsold=rsold if stop else rs_step, rslast=rr, done=done,
+                active=(not done) and k + 1 < maxiter, beta=beta, step=not stop)
+
+
 @pytest.fixture
 def cuda_device():
     """The first CUDA device; tests that need the card skip without one."""

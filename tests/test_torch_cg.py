@@ -162,29 +162,39 @@ def test_operator_padding_matches_tpucg(n, npad):
         (dict(method="chebyshev"), 8),
         (dict(precondition="block_jacobi"), 0),
         (dict(dtype=torch.float64), 0),
-        (dict(two_level=object()), None),
+        (dict(two_level=2), 0),
         (dict(method="ca", interval=(1.0, 5.0)), 3),
     ],
     ids=["pipelined", "ca", "chebyshev", "block_jacobi", "f64", "two_level", "interval"],
 )
 def test_unported_options_name_their_roadmap_item(kw, laps):
-    # Two-level PCG (M12) still names its ROADMAP item; M8's methods, block
-    # Jacobi, cached intervals and f64 solves (M9; tpucg's under its x64
-    # mode) solve the 2x2 golden as tpucg does: its laps (within a CA block
-    # or a Chebyshev check) and x.
+    # M8's methods, block Jacobi, cached intervals, f64 solves (M9; tpucg's
+    # under its x64 mode) and two-level PCG (M12: aggregates of 2 rows, each
+    # package's own build for its operator's padding; the true-residual
+    # check stops both at lap 16) solve the 2x2 golden as tpucg does: its laps
+    # (within a CA block or a Chebyshev check) and x.
     import contextlib
 
     import jax
     import jax.numpy as jnp
 
     g = GOLDEN_2X2
-    if laps is None:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cg_solve(g["A"], g["b"], device=CPU, **kw)
-        return
+    jkw = kw
+    if "two_level" in kw:
+        from tpucg.sparse.formats import COOMatrix as JCOO
+
+        from tpucg_torch.solver.twolevel import build_two_level
+        from tpucg_torch.sparse.formats import COOMatrix
+
+        r, c = np.nonzero(g["A"])
+        parts = (r, c, np.asarray(g["A"], np.float32)[r, c], (2, 2))
+        kw = dict(two_level=build_two_level(COOMatrix(*parts).to_csr(), agg_size=2, npad=128,
+                                            device=CPU))
+        # tpucg's XLA dense operator is unpadded: its cycle is built for n = 2.
+        jkw = dict(two_level=tpucg.build_two_level(JCOO(*parts).to_csr(), agg_size=2, npad=2))
     port = cg_solve(g["A"], g["b"], g["x0"], device=CPU, maxiter=256, **kw)
     f64 = kw.get("dtype") == torch.float64
-    jkw = dict(kw, dtype=jnp.float64) if f64 else kw
+    jkw = dict(kw, dtype=jnp.float64) if f64 else jkw
     with jax.enable_x64() if f64 else contextlib.nullcontext():
         ref = tpucg.cg_solve(g["A"], g["b"], g["x0"], kernel="xla", maxiter=256, **jkw)
         ref = ref._replace(x=np.asarray(ref.x))

@@ -92,12 +92,12 @@ def test_solve_mtx_bf16_and_dense_array_files(tmp_path, capsys):
     (["--pc-block-size", "32"], "M8"),
 ])
 def test_later_slices_name_their_roadmap_item(tmp_path, capsys, flags, item):
-    # M8's options (method, block Jacobi) now solve, as tpucg's CLI does. A
-    # distributed solve of an irregular matrix (promoted to WELL) is still
-    # refused: it needs the WELL shard packers.
+    # M8's options (method, block Jacobi) and M12's (two-level, MINRES) now
+    # solve, as tpucg's CLI does. A distributed solve of an irregular matrix
+    # (promoted to WELL) is still refused: it needs the WELL shard packers.
     A, b = SYSTEMS["geometric_shuffled" if "--strategy" in flags else "poisson"]()
     pa, pb = _files(tmp_path, A, b)
-    if item == "M8":
+    if item in ("M8", "M12"):
         _held_to_tpucgs_cli(tmp_path, capsys, pa, pb, A, b, flags, laps=3)
         return
     with pytest.raises(NotImplementedError, match=item) as err:
@@ -252,3 +252,83 @@ def test_selftest_runs_tpucgs_multi_rhs_check(capsys):
     assert rc == 0, out
     line = next(ln for ln in out.splitlines() if "multi-RHS (k=2)" in ln)
     assert "[ok]" in line and "iters [" in line
+
+
+# ---- M12: two-level and MINRES through the CLI ------------------------------
+
+
+def _held_at(tmp_path, capsys, A, b, flags, rel_tol, laps=0):
+    """``solve`` through both CLIs at tol ``rel_tol`` ||b||: rc 0, the same
+    format tag, laps within ``laps``, x within 1e-4 of max |x|."""
+    pa, pb = _files(tmp_path, A, b)
+    common = ["solve", pa, pb, "--tol", repr(rel_tol * float(np.linalg.norm(b))),
+              "--maxiter", "3000"] + flags
+    x_ours, x_theirs = str(tmp_path / "x.txt"), str(tmp_path / "jx.txt")
+    rc, out, fmt, k = _run(cli.main, common + ["--device", "cpu", "--output", x_ours], capsys)
+    jrc, jout, jfmt_, jk = _run(jcli.main, common + ["--output", x_theirs], capsys)
+    assert rc == jrc == 0, out + jout
+    assert fmt == jfmt_
+    assert abs(k - jk) <= laps, (k, jk)
+    n = A.shape[0]
+    assert scaled_err(load_vector(x_ours, n=n), load_vector(x_theirs, n=n)) <= 1e-4
+    return fmt, k
+
+
+@pytest.mark.parametrize("flags,tag,laps", [
+    (["--two-level", "32"], "WellOperator+2lvl32", 0),
+    (["--two-level", "32", "--smooth-degree", "2"], "WellOperator+2lvl32", 0),
+    (["--two-level", "4", "--coarse-max", "64"], "WellOperator+2lvl4x2lv", 0),
+    (["--two-level", "32", "--method", "pipelined"], "WellOperator+2lvl32", 1),
+], ids=["jacobi_smoother", "chebyshev_smoother", "multilevel", "pipelined"])
+def test_solve_two_level_matches_tpucgs_cli(tmp_path, capsys, flags, tag, laps):
+    # The FEM 1.5k .mtx (WELL) at tol 1e-3 ||b||, above its f32 floor: the
+    # format tags (+2lvl, x2lv for the multilevel hierarchy), the laps (a
+    # multiple of 16 for classic PCG's true-residual checks) and x.
+    A, b = SYSTEMS["fem"]()
+    fmt, k = _held_at(tmp_path, capsys, A, b, flags, 1e-3, laps)
+    assert fmt == tag
+    assert "--method" in flags or k % 16 == 0
+
+
+@pytest.mark.parametrize("pc", ["none", "jacobi", "block_jacobi"])
+def test_solve_minres_matches_tpucgs_cli(tmp_path, capsys, pc):
+    # Poisson m = 6 (DIA) at tol 1e-5 ||b||; 8-9 laps, where the phibar
+    # trigger's rounding can move the stop by one (tpucg_torch's own MINRES
+    # parity, laps equal, is in test_torch_minres.py).
+    A, b = SYSTEMS["poisson"]()
+    fmt, _ = _held_at(tmp_path, capsys, A, b, ["--method", "minres", "--precondition", pc,
+                                               "--pc-block-size", "36"], 1e-5, laps=1)
+    assert fmt == "DiaOperator"
+
+
+def test_solve_minres_dense_text(tmp_path, capsys):
+    # A dense system from the reference's text format: MINRES on the
+    # DenseOperator (K1 on the card), the oracle's x.
+    from tpucg_torch.io.generator import generate_spd_system
+    from tpucg_torch.io.textio import save_array
+    from tpucg_torch.solver.oracle import oracle_cg
+
+    A, b, x0 = generate_spd_system(64, seed=4)
+    pa, pb, px = (str(tmp_path / f) for f in ("A.txt", "b.txt", "x.txt"))
+    save_array(pa, A.ravel())
+    save_array(pb, b)
+    rc = cli.main(["solve", pa, pb, "--device", "cpu", "--method", "minres", "--output", px])
+    out = capsys.readouterr().out
+    assert rc == 0 and "converged            : True" in out, out
+    np.testing.assert_allclose(load_vector(px, n=64), oracle_cg(A, b, x0)[0], atol=1e-4)
+
+
+def test_m12_options_refused_where_tpucg_refuses_or_on_the_mesh(tmp_path):
+    A, b = SYSTEMS["fem"]()
+    pa, pb = _files(tmp_path, A, b)
+    with pytest.raises(SystemExit, match="do not apply to --method minres"):
+        cli.main(["solve", pa, pb, "--device", "cpu", "--method", "minres",
+                  "--two-level", "32"])
+    for flags in (["--two-level", "32"], ["--method", "minres"]):
+        with pytest.raises(NotImplementedError, match="M14 step 5"):
+            cli.main(["solve", pa, pb, "--device", "cpu", "--strategy", "allgather"] + flags)
+    dense, rhs = str(tmp_path / "D.npy"), str(tmp_path / "r.npy")
+    np.save(dense, np.eye(8, dtype=np.float32))
+    np.save(rhs, np.ones(8, np.float32))
+    with pytest.raises(SystemExit, match="sparse .mtx"):
+        cli.main(["solve", dense, rhs, "--device", "cpu", "--two-level", "4"])

@@ -6,6 +6,8 @@ imports neither jax nor tpucg, so it runs where only the port is installed:
     python -m pytest --noconftest -o addopts="" -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -1963,3 +1965,198 @@ def test_m9_ir_on_card_runs_k1_bf16_and_f32(cuda_device):
     plain = cg_solve_ir(A, b, x0, tol=tol, device=cuda_device, kernel="torch")
     assert bool(plain.converged)
     assert abs(int(res.iterations) - int(plain.iterations)) <= 4
+
+
+# ---- M12: the guarded finish, two-level, deflation, MINRES -----------------
+
+from _torch_helpers import alpha_emulated, lap_tail_emulated  # noqa: E402
+from tpucg_torch.solver.cg import TRUE_CHECK_EVERY  # noqa: E402
+from tpucg_torch.solver.deflation import RecyclingCG, cg_solve_deflated  # noqa: E402
+from tpucg_torch.solver.minres import minres_solve  # noqa: E402
+from tpucg_torch.solver.twolevel import build_two_level  # noqa: E402
+
+F32_BITS = np.int32
+
+def _m12_dot_cases(dev, n=8192):
+    """(u, v) pairs whose dot is > 0, == 0, < 0 and NaN."""
+    v = _rand(dev, n, seed=11)
+    nan = v.clone()
+    nan[17] = float("nan")
+    return {"pos": (v, v), "zero": (torch.zeros_like(v), v), "neg": (-v, v), "nan": (nan, v)}
+
+
+@pytest.mark.parametrize("case", ["pos", "zero", "neg", "nan"])
+def test_m12_guarded_alpha_equals_the_emulation_on_card(cuda_device, case):
+    u, v = _m12_dot_cases(cuda_device)[case]
+    rsold = torch.tensor(1.7, device=cuda_device)
+    pap, alpha = dot_alpha_cuda(u, v, rsold, True, guard=True)
+    d = dot_emulated(u.cpu().numpy(), v.cpu().numpy())
+    # A NaN sum's payload is the hardware's (0x7fffffff here, NumPy's
+    # 0x7fc00000): NaN is compared as NaN, every other value bit for bit.
+    assert (np.isnan(d) and np.isnan(float(pap))) or \
+        np.float32(float(pap)).view(F32_BITS) == np.float32(d).view(F32_BITS)
+    want = alpha_emulated(d, 1.7, 2)
+    assert np.float32(float(alpha)).view(F32_BITS) == want.view(F32_BITS)
+    assert _same_bits(alpha, alpha_torch(pap, rsold, True, True))
+    again = dot_alpha_cuda(u, v, rsold, True, guard=True)
+    assert _same_bits(pap, again[0]) and _same_bits(alpha, again[1])
+    # Unguarded, the parent's rule: a negative p.Ap divides, a NaN passes.
+    _, plain = dot_alpha_cuda(u, v, rsold, True)
+    unguarded = alpha_emulated(d, 1.7, 1)
+    assert (np.isnan(unguarded) and np.isnan(float(plain))) or \
+        np.float32(float(plain)).view(F32_BITS) == unguarded.view(F32_BITS)
+
+
+def _m12_tail(dev, tol2):
+    s = CudaLapTail(dev)
+    s.load(torch.tensor(3, dtype=torch.int32), torch.tensor(0.8), torch.tensor(0.9),
+           torch.tensor(False), torch.tensor(tol2, device=dev), 100)
+    return s
+
+
+def _m12_tail_matches(s, want):
+    assert int(s.k) == want["k"] and bool(s.done) == want["done"]
+    assert bool(s.active) == want["active"] and bool(s.step) == want["step"]
+    for name in ("rsold", "rslast", "beta"):
+        assert np.float32(float(getattr(s, name))).view(F32_BITS) == \
+            np.float32(want[name]).view(F32_BITS), name
+
+
+@pytest.mark.parametrize("case", ["pos", "zero", "neg", "nan"])
+@pytest.mark.parametrize("tol2", [-1.0, 1e-6], ids=["check_true", "tested"])
+def test_m12_guarded_k3_tail_equals_the_emulation_on_card(cuda_device, case, tol2):
+    u, v = _m12_dot_cases(cuda_device)[case]
+    stream = cuda_stream(u)
+    runs = []
+    for _ in range(2):
+        s = _m12_tail(cuda_device, tol2)
+        s.rr.fill_(0.5)
+        out = torch.empty((), device=cuda_device)
+        dot_tail_launch(u, v, scratch_for(u), out, s.address, stream, guard=True)
+        torch.cuda.synchronize()
+        d = dot_emulated(u.cpu().numpy(), v.cpu().numpy())
+        _m12_tail_matches(s, lap_tail_emulated(3, 0.8, False, 0.5, d, tol2, 100, True))
+        plain = lap_tail_torch(LapTail(k=torch.tensor(3, dtype=torch.int32),
+                                       rsold=torch.tensor(0.8), rslast=torch.tensor(0.9),
+                                       done=torch.tensor(False), active=torch.tensor(True)),
+                               torch.tensor(0.5), out.cpu(), torch.tensor(tol2), 100, True)
+        assert _same_bits(s.rsold.cpu(), plain.rsold) and _same_bits(s.beta.cpu(), plain.beta)
+        runs.append([t.clone() for t in (out, s.k, s.rsold, s.rslast, s.beta, s.step)])
+        assert (np.isnan(d) and np.isnan(float(out))) or \
+            np.float32(float(out)).view(F32_BITS) == np.float32(d).view(F32_BITS)
+    assert all(_same_bits(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.parametrize("case", ["pos", "zero"])
+def test_m12_guarded_k2_tail_equals_the_emulation_on_card(cuda_device, case):
+    # r' = r - alpha ap is exactly 0 for r = alpha ap with alpha a power of 2.
+    n = 8192
+    x, p, ap = (_rand(cuda_device, n, seed=s) for s in (21, 22, 23))
+    r = 0.5 * ap if case == "zero" else _rand(cuda_device, n, seed=24)
+    alpha = torch.tensor(0.5, device=cuda_device)
+    s = _m12_tail(cuda_device, -1.0)
+    xo, ro = x.clone(), r.clone()
+    fused_update_tail_launch(xo, ro, p, ap, alpha, xo, ro, scratch_for(x), s.rr, s.address,
+                             cuda_stream(x), guard=True)
+    torch.cuda.synchronize()
+    emu = fused_update_emulated(*(t.cpu().numpy() for t in (x, r, p, ap)), np.float32(0.5))
+    assert np.array_equal(xo.cpu().numpy().view(F32_BITS), emu[0].view(F32_BITS))
+    assert np.array_equal(ro.cpu().numpy().view(F32_BITS), emu[1].view(F32_BITS))
+    assert (float(s.rr) == 0.0) == (case == "zero")
+    _m12_tail_matches(s, lap_tail_emulated(3, 0.8, False, emu[2], emu[2], -1.0, 100, True))
+
+
+def _m12_fem(dev, seed=1, n=6_000):
+    A, b, _ = fem_p1_system(n, seed=seed)
+    op = WellOperator.from_csr(A, device=dev)
+    return A, b, op
+
+
+@pytest.mark.parametrize("form", ["two_level", "multilevel", "pipelined"])
+def test_m12_two_level_on_card_matches_the_plain_route(cuda_device, form):
+    # K13, K3 and K2 (with the guarded finish) run; laps within one check
+    # window of the plain route on the card; chunk sizes move no bit.
+    A, b, op = _m12_fem(cuda_device)
+    tol = 1e-3 * float(np.linalg.norm(b))
+    kw = dict(coarse_max=64) if form == "multilevel" else {}
+    tl = build_two_level(A, agg_size=8 if kw else 32, npad=op.padded_n, device=cuda_device, **kw)
+    method = "pipelined" if form == "pipelined" else "cg"
+    res, moved = _m9_counted(lambda: cg_solve(op, b, tol=tol, maxiter=4000, two_level=tl,
+                                              method=method))
+    assert bool(res.converged)
+    assert moved["well_spmv_cuda"] > 0 and moved["dot_cuda"] > 0
+    assert all(c == 0 for w, c in moved.items() if w.endswith("_torch"))
+    if method == "cg":
+        assert moved["fused_update_cuda"] > 0 and int(res.iterations) % TRUE_CHECK_EVERY == 0
+        again = cg_solve(op, b, tol=tol, maxiter=4000, two_level=tl, chunk=5)
+        assert _same_bits(again.x, res.x) and int(again.iterations) == int(res.iterations)
+
+    def plain(t):
+        if t.inner is None:
+            return t
+        return dataclasses.replace(t, coarse_op=dataclasses.replace(t.coarse_op,
+                                                                    backend="torch"),
+                                   inner=plain(t.inner))
+    ref = cg_solve(dataclasses.replace(op, backend="torch"), b, tol=tol, maxiter=4000,
+                   kernel="torch", two_level=plain(tl), method=method)
+    assert bool(ref.converged)
+    assert abs(int(res.iterations) - int(ref.iterations)) <= TRUE_CHECK_EVERY
+    assert scaled_err(res.x.cpu().numpy(), ref.x.cpu().numpy()) <= 1e-3
+
+
+def test_m12_recycling_builds_its_basis_on_k13xk_on_card(cuda_device):
+    A, b, op = _m12_fem(cuda_device, seed=3, n=4_000)
+    tl = build_two_level(A, agg_size=32, npad=op.padded_n, device=cuda_device)
+    rec = RecyclingCG(op, max_vectors=2, tol=1e-3 * float(np.linalg.norm(b)), maxiter=4000,
+                      two_level=tl)
+    wave = np.sin(2 * np.pi * 3 * np.arange(len(b)) / len(b)) * np.abs(b).max()
+    for t in range(3):
+        res, moved = _m9_counted(lambda: rec.solve((b + 0.1 * t * wave).astype(np.float32)))
+        assert bool(res.converged) or float(res.residual_norm) < 0.1 * np.linalg.norm(b)
+        assert moved["well_spmv_multi_cuda"] > 0  # the basis's A W
+    assert rec._basis.m == 2 and rec._basis.W.device == cuda_device
+
+
+def test_m12_dense_deflation_on_card(cuda_device):
+    rng = np.random.default_rng(0)
+    n = 512
+    Q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+    lam = np.concatenate([[0.01, 0.02, 0.03], 1.0 + rng.uniform(0, 1, n - 3)])
+    A = (0.5 * ((Q * lam) @ Q.T + ((Q * lam) @ Q.T).T)).astype(np.float32)
+    b = rng.standard_normal(n).astype(np.float32)
+    tol = 1e-5 * float(np.linalg.norm(b))
+    plain = cg_solve(A, b, device=cuda_device, tol=tol, maxiter=4 * n)
+    res, moved = _m9_counted(lambda: cg_solve_deflated(A, b, Q[:, :3].astype(np.float32),
+                                                       device=cuda_device, tol=tol,
+                                                       maxiter=4 * n))
+    assert bool(res.converged) and int(res.iterations) * 2 < int(plain.iterations)
+    assert moved["matvec_cuda"] > 0 and moved["fused_update_cuda"] > 0
+    ref = cg_solve_deflated(A, b, Q[:, :3].astype(np.float32), device=cuda_device, tol=tol,
+                            maxiter=4 * n, kernel="torch")
+    assert int(ref.iterations) == int(res.iterations)
+
+
+@pytest.mark.parametrize("pc", ["none", "jacobi", "block_jacobi"])
+def test_m12_minres_on_card_matches_the_plain_route(cuda_device, pc):
+    # Dense jacobi MINRES keeps K1 (tpucg's "auto" would take XLA's GEMV).
+    rng = np.random.default_rng(0)
+    n = 512
+    Q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+    lam = np.concatenate([-(1 + rng.uniform(0, 1, n // 2)), 1 + rng.uniform(0, 1, n // 2)])
+    A = (Q * lam) @ Q.T
+    if pc != "none":
+        s = 10.0 ** rng.uniform(-0.5, 0.5, n)
+        A = A * s[None, :] * s[:, None]
+    A = (0.5 * (A + A.T)).astype(np.float32)
+    b = rng.standard_normal(n).astype(np.float32)
+    kw = dict(tol=1e-4 * float(np.linalg.norm(b)), maxiter=8 * n, precondition=pc,
+              pc_block_size=64)
+    res, moved = _m9_counted(lambda: minres_solve(A, b, device=cuda_device, **kw))
+    assert bool(res.converged)
+    assert moved["matvec_cuda"] > 0 and moved["dot_cuda"] > 0
+    assert all(c == 0 for w, c in moved.items() if w.endswith("_torch"))
+    ref = minres_solve(A, b, device=cuda_device, kernel="torch", **kw)
+    assert bool(ref.converged)
+    # Hundreds of f32 Lanczos laps: two summation orders (K1 and K3 against
+    # torch.mv and torch.dot) end within 3% of each other.
+    assert abs(int(res.iterations) - int(ref.iterations)) <= max(1, 3 * int(ref.iterations) // 100)

@@ -251,7 +251,7 @@ def test_refusals_name_their_roadmap_item(one_rank):
             sharded_cg_solve(A, b, mesh=one_rank, **kw)
         with pytest.raises(NotImplementedError, match=item):
             sharded_operator_cg_solve(op, b4, mesh=one_rank, **kw)
-    with pytest.raises(NotImplementedError, match="M12"):
+    with pytest.raises(NotImplementedError, match="M14 step 5"):
         sharded_operator_cg_solve(op, b4, mesh=one_rank, two_level=object())
     csr = poisson3d_csr(4)
     with pytest.raises(NotImplementedError, match="shard packers"):

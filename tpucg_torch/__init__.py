@@ -21,7 +21,13 @@ it applies, and ``cg_solve_batch_banded`` B banded ones (K12).
 ``cg_solve_block`` by true block CG, both on the operators' k-column
 products (K6 x k, K8 x k, K13 x k); ``cg_solve(dtype=torch.float64)``
 solves in f64 on plain torch ops, and ``cg_solve_ir`` refines a bf16-rate
-dense solve to the f32 contract.
+dense solve to the f32 contract. ``build_two_level`` builds tpucg's
+two-level (and, with ``coarse_max``, multilevel) preconditioner for
+``cg_solve(two_level=)``, which then stops on the true residual every 16
+laps; ``cg_solve_deflated`` and ``RecyclingCG`` deflate with a basis
+(``build_deflation_basis``, ``DeflationBasis``) or with a sequence's own
+solutions; ``minres_solve`` solves symmetric indefinite systems
+(``abs_inv_blocks`` for block Jacobi there). All of these are serial.
 ``sharded_cg_solve`` and ``sharded_operator_cg_solve`` distribute a solve's
 rows over the ranks of a ``torch.distributed`` world (``make_mesh``,
 ``init_distributed``): dense with the allgather or overlap-ring exchange,
@@ -51,7 +57,14 @@ from tpucg_torch.solver.cg import (
     cg_solve_multi,
     spectral_interval,
 )
+from tpucg_torch.solver.deflation import (
+    DeflationBasis,
+    RecyclingCG,
+    build_deflation_basis,
+    cg_solve_deflated,
+)
 from tpucg_torch.solver.ir import cg_solve_ir
+from tpucg_torch.solver.minres import abs_inv_blocks, minres_solve
 from tpucg_torch.solver.operators import (
     BsrOperator,
     DenseOperator,
@@ -70,6 +83,7 @@ from tpucg_torch.solver.sharded import (
     sharded_cg_solve,
     sharded_operator_cg_solve,
 )
+from tpucg_torch.solver.twolevel import TwoLevel, build_two_level
 from tpucg_torch.sparse.formats import COOMatrix, CSRMatrix, DIAMatrix, csr_to_dia
 from tpucg_torch.sparse.well import WellMatrix, csr_to_well
 
@@ -86,6 +100,14 @@ __all__ = [
     "cg_solve_multi",
     "BLOCK_CG_MAX_K",
     "spectral_interval",
+    "TwoLevel",
+    "build_two_level",
+    "DeflationBasis",
+    "RecyclingCG",
+    "build_deflation_basis",
+    "cg_solve_deflated",
+    "abs_inv_blocks",
+    "minres_solve",
     "DistributedSystem",
     "Mesh",
     "distribute_system",

@@ -41,15 +41,21 @@ def _ours(name: str) -> bool:
 
 
 def parent_probes(root: str):
-    """The parent checkout's ``tpucg_torch.kernels.probe_gather``: imported
-    from ``root`` with this checkout's package set aside, which is put back
-    after (the parent's functions keep their own module globals)."""
+    """The parent checkout's ``tpucg_torch.kernels.probe_gather``."""
+    return parent_module(root, "kernels.probe_gather")
+
+
+def parent_module(root: str, name: str):
+    """The parent checkout's ``tpucg_torch.<name>``: imported from ``root``
+    with this checkout's package set aside, which is put back after (the
+    parent's functions keep their own module globals, and its kernels'
+    library builds under its own root)."""
     saved = {k: v for k, v in sys.modules.items() if _ours(k)}
     for k in saved:
         del sys.modules[k]
     sys.path.insert(0, str(Path(root).resolve()))
     try:
-        module = importlib.import_module(f"{PACKAGE}.kernels.probe_gather")
+        module = importlib.import_module(f"{PACKAGE}.{name}")
     finally:
         sys.path.pop(0)
         for k in [k for k in sys.modules if _ours(k)]:

@@ -18,6 +18,10 @@ spectrum bounds), and ``--precondition block_jacobi`` with
 ``--pc-block-size`` (an irregular ``.mtx`` promoted to WELL carries the
 blocks taken from its CSR).
 
+``solve`` also takes tpucg's M12 options, serially: ``--two-level AGG``
+(with ``--smooth-degree`` and ``--coarse-max``) on a sparse ``.mtx``, and
+``--method minres``.
+
 ``solve --strategy allgather|overlap`` and ``bench --strategy ...`` /
 ``bench --compare-strategies`` (serial, allgather, overlap on the dense
 system, as tpucg's ``cli.py:945-976, 1014-1021``) run the distributed
@@ -42,17 +46,45 @@ BASELINE_S = {512: 0.005, 1024: 0.016, 2048: 0.039, 4096: 0.186, 8192: 0.562}
 
 
 def _check_solve_options(args) -> None:
-    """Name the ROADMAP item of every solve option this port does not run."""
-    if args.two_level is not None:
-        raise NotImplementedError("--two-level (the two-level preconditioner) is ROADMAP M12")
+    """tpucg's checks of the solve options, and the ROADMAP item of every
+    option this port does not run."""
+    if args.method == "minres" and (args.two_level is not None or args.interval is not None):
+        # MINRES takes neither: building the cycle and stamping "+2lvl" on a
+        # solve without it would misstate the configuration (tpucg's check).
+        raise SystemExit("--two-level/--interval do not apply to --method minres (MINRES "
+                         "preconditioning is --precondition jacobi/block_jacobi)")
     if args.strategy == "summa":
         raise NotImplementedError("--strategy summa (the 2-D SUMMA decomposition) is ROADMAP M14")
-    if args.method == "minres":
-        raise NotImplementedError("--method minres is ROADMAP M12")
+    if args.strategy != "serial" and (args.two_level is not None or args.method == "minres"):
+        raise NotImplementedError("distributed --two-level and --method minres (M12 on the mesh) "
+                                  "are ROADMAP M14 step 5")
     if args.strategy != "serial" and (args.method != "cg" or args.precondition == "block_jacobi"
                                       or args.interval is not None):
         raise NotImplementedError("the distributed pipelined, CA and Chebyshev methods and "
                                   "block Jacobi are ROADMAP M14")
+
+
+def _minres(op, b, x0, args):
+    """``--method minres``: ``minres_solve`` with tpucg's CLI options (tol,
+    maxiter, precondition, pc_block_size)."""
+    from tpucg_torch.solver.minres import minres_solve
+
+    return minres_solve(op, b, x0, tol=args.tol, maxiter=args.maxiter, kernel=args.kernel,
+                        precondition=args.precondition, pc_block_size=args.pc_block_size)
+
+
+def _two_level(args, csr, op):
+    """``--two-level AGG``: tpucg's cycle built from the (possibly reordered)
+    CSR for the operator's padding and device, with ``--smooth-degree`` and
+    ``--coarse-max``; and the format tag, ``+2lvl<AGG>`` and ``x<levels>lv``
+    for a multilevel hierarchy."""
+    from tpucg_torch.solver.twolevel import build_two_level
+
+    tl = build_two_level(csr, agg_size=args.two_level, npad=op.padded_n,
+                         smooth_degree=args.smooth_degree, coarse_max=args.coarse_max,
+                         device=op.device)
+    tag = f"+2lvl{args.two_level}" + (f"x{tl.levels}lv" if tl.levels > 1 else "")
+    return tl, tag
 
 
 def _method_kw(args) -> dict:
@@ -186,6 +218,14 @@ def _cmd_solve_mtx(args, t_total0) -> int:
         if args.storage == "bf16":
             op = _bf16_operator(op)
             fmt += "+bf16"
+    two_level = None
+    if args.two_level is not None:
+        if csr is None:
+            raise SystemExit("--two-level applies to sparse .mtx systems (dense systems "
+                             "converge in O(10) laps already)")
+        # Contiguous aggregates inherit the ordering's locality (hence --rcm).
+        two_level, tag = _two_level(args, csr, op)
+        fmt += tag
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     build_s = time.perf_counter() - t0
@@ -194,8 +234,11 @@ def _cmd_solve_mtx(args, t_total0) -> int:
               precondition=args.precondition, poly_degree=args.poly_degree,
               record_residuals=_record(args))
     storage = torch.bfloat16 if args.storage == "bf16" else torch.float32
-    if mesh is None:
-        res = cg_solve(op, b, x0, fused=args.fused, **kw, **_method_kw(args))
+    if args.method == "minres":  # serial only (_check_solve_options)
+        res = _minres(op, b, x0, args)
+    elif mesh is None:
+        res = cg_solve(op, b, x0, fused=args.fused, two_level=two_level, **kw,
+                       **_method_kw(args))
     elif csr is None:
         res = sharded_cg_solve(mat, b, x0, mesh=mesh, strategy=args.strategy,
                                storage_dtype=storage, **kw)
@@ -210,7 +253,8 @@ def _cmd_solve_mtx(args, t_total0) -> int:
     print(f"device               : {device} [{op.backend}]" if mesh is None else
           f"strategy             : {args.strategy} [{mesh!r}]")
     print(f"data load (s)        : {load_s:.6f}  (parse, reordering)")
-    print(f"operator build (s)   : {build_s:.6f}  (promotion, packing, placement)")
+    print(f"operator build (s)   : {build_s:.6f}  (promotion, packing, placement"
+          + (", two-level set-up)" if two_level is not None else ")"))
     print(f"CG solve (s)         : {solve_s:.6f}")
     print(f"total (s)            : {time.perf_counter() - t_total0:.6f}")
     return _report(args, res, perm, n)
@@ -266,6 +310,9 @@ def cmd_solve(args) -> int:
     t_total0 = time.perf_counter()
     if args.matrix.endswith(".mtx"):
         return _cmd_solve_mtx(args, t_total0)
+    if args.two_level is not None:
+        raise SystemExit("--two-level applies to sparse .mtx systems (dense systems converge in "
+                         "O(10) laps already)")
     A, b, x0 = load_system(args.matrix, args.rhs, args.x0, n=args.n)
     n = A.shape[0]
     load_s = time.perf_counter() - t_total0
@@ -278,7 +325,10 @@ def cmd_solve(args) -> int:
     t0 = time.perf_counter()
     if mesh is None:
         op = DenseOperator.create(A, backend=args.kernel, device=device, dtype=storage)
-        res = cg_solve(op, b, x0, fused=args.fused, **kw, **_method_kw(args))
+        if args.method == "minres":
+            res = _minres(op, b, x0, args)
+        else:
+            res = cg_solve(op, b, x0, fused=args.fused, **kw, **_method_kw(args))
         where = f"{device} [{op.backend}]"
     else:
         res = sharded_cg_solve(A, b, x0, mesh=mesh, strategy=args.strategy,
@@ -610,7 +660,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="pipelined = Ghysels-Vanroose CG (a lap's dots independent of "
                          "its matvec); ca = s-step CG (one Gram product per --s-step "
                          "laps); chebyshev = Chebyshev iteration (no dot inside a lap, a "
-                         "check every --check-every laps); minres is ROADMAP M12")
+                         "check every --check-every laps); minres = Paige-Saunders MINRES "
+                         "for symmetric indefinite systems (--precondition none, jacobi or "
+                         "block_jacobi; serial)")
     ps.add_argument("--strategy", default="serial",
                     choices=("serial", "allgather", "overlap", "summa"),
                     help="distributed row-block solve over torch.distributed (under "
@@ -618,7 +670,16 @@ def build_parser() -> argparse.ArgumentParser:
                          "the halo or gather decomposition of a DIA, ELL or BSR .mtx; "
                          "summa (2-D) is ROADMAP M14")
     ps.add_argument("--two-level", type=int, default=None, metavar="AGG",
-                    help="two-level preconditioner (ROADMAP M12)")
+                    help="two-level preconditioning with AGG-row contiguous aggregates (.mtx "
+                         "sparse systems, method cg or pipelined, serial): the coarse-space "
+                         "correction that cuts FEM-class lap counts where Jacobi cannot "
+                         "(pairs with --rcm); stops on the true residual every 16 laps")
+    ps.add_argument("--smooth-degree", type=int, default=1, dest="smooth_degree",
+                    help="smoother degree for --two-level: 1 = damped Jacobi; l >= 2 = "
+                         "l-step Chebyshev smoothing (l - 1 matvecs a half-cycle)")
+    ps.add_argument("--coarse-max", type=int, default=None, dest="coarse_max", metavar="NC",
+                    help="with --two-level: recurse to a multilevel hierarchy while a coarse "
+                         "level exceeds NC rows (sparse coarse operators, recursive cycles)")
     ps.set_defaults(fn=cmd_solve)
 
     pt = sub.add_parser("selftest", help="goldens + oracle checks")

@@ -6,7 +6,9 @@ state. These functions take both from NumPy arrays, as a ``tpucg``
 ``BsrOperator`` and ``_State`` hold them (``np.asarray`` of each field), and
 give the port's state back in the same form, so a lap of either package can
 start where the other stopped. A ``PoissonOperator`` holds only its grid
-edge.
+edge. A built two-level preconditioner (``TwoLevel``, recursively) and a
+deflation basis (``DeflationBasis``) come over the same way, so both
+packages can be held to the same preconditioner and basis.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 from tpucg_torch.io.partitioner import round_up
 from tpucg_torch.kernels.spmv import LANE, dia_deinterleave
 from tpucg_torch.solver.cg import _State
+from tpucg_torch.solver.deflation import DeflationBasis
 from tpucg_torch.solver.operators import (
     BsrOperator,
     DenseOperator,
@@ -26,8 +29,10 @@ from tpucg_torch.solver.operators import (
     EllOperator,
     PoissonOperator,
     WellOperator,
+    LinearOperator,
     padded_size,
 )
+from tpucg_torch.solver.twolevel import TwoLevel
 
 STATE_FIELDS = ("k", "x", "r", "p", "rsold", "rslast", "done")
 
@@ -152,3 +157,48 @@ def state_to_numpy(state: _State) -> Dict[str, np.ndarray]:
     if state.hist is not None:
         out["hist"] = state.hist.cpu().numpy()
     return out
+
+
+TWO_LEVEL_FIELDS = ("acinv", "dinv", "agg", "npad", "omega", "smooth_degree", "smooth_alpha",
+                    "coarse_cycles")
+
+
+def two_level_from_numpy(fields: Dict, device="cpu") -> TwoLevel:
+    """The port's ``TwoLevel`` for a tpucg ``TwoLevel``'s fields under its
+    names (``acinv`` and ``dinv`` as NumPy arrays, the rest scalars). The
+    multilevel form also carries ``coarse_op``, the coarse operator already
+    made with one of the functions above (a port ``LinearOperator``), and
+    ``inner``, the next level's fields as such a dict, converted in turn."""
+    missing = [f for f in TWO_LEVEL_FIELDS if f not in fields]
+    if missing:
+        raise ValueError(f"two-level fields are missing {missing}")
+    inner, cop = fields.get("inner"), fields.get("coarse_op")
+    if (inner is None) != (cop is None):
+        raise ValueError("a multilevel TwoLevel carries both coarse_op and inner")
+    if cop is not None and not isinstance(cop, LinearOperator):
+        raise TypeError(f"coarse_op must be a port operator, got {type(cop).__name__}")
+
+    def put(name):
+        return torch.tensor(np.asarray(fields[name], np.float32), device=device)
+
+    return TwoLevel(
+        acinv=put("acinv"), dinv=put("dinv"), agg=int(fields["agg"]), npad=int(fields["npad"]),
+        omega=float(fields["omega"]), smooth_degree=int(fields["smooth_degree"]),
+        smooth_alpha=float(fields["smooth_alpha"]), coarse_op=cop,
+        inner=None if inner is None else two_level_from_numpy(inner, device),
+        coarse_cycles=int(fields["coarse_cycles"]),
+    )
+
+
+def deflation_basis_from_numpy(W, AW, Ginv, device="cpu") -> DeflationBasis:
+    """The port's ``DeflationBasis`` for a tpucg ``DeflationBasis``'s W
+    (npad, m), AW (npad, m) and Ginv (m, m)."""
+    def put(a):
+        return torch.tensor(np.asarray(a, np.float32), device=device)
+
+    W, AW, Ginv = put(W), put(AW), put(Ginv)
+    m = W.shape[1]
+    if W.dim() != 2 or AW.shape != W.shape or Ginv.shape != (m, m):
+        raise ValueError(f"expected W and AW (npad, m) and Ginv (m, m), got "
+                         f"{tuple(W.shape)}, {tuple(AW.shape)}, {tuple(Ginv.shape)}")
+    return DeflationBasis(W=W, AW=AW, Ginv=Ginv)

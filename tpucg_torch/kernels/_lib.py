@@ -38,12 +38,12 @@ SIGNATURES = {
     "tpucg_dot_f32": (ctypes.c_int, [_PTR, _PTR, _PTR, _PTR, _LEN, _PTR, _PTR]),
     "tpucg_dot_alpha_f32": (
         ctypes.c_int, [_PTR] * 6 + [ctypes.c_int, _LEN, _PTR, _PTR]),
-    "tpucg_dot_tail_f32": (ctypes.c_int, [_PTR] * 5 + [_LEN, _PTR]),
+    "tpucg_dot_tail_f32": (ctypes.c_int, [_PTR] * 5 + [ctypes.c_int, _LEN, _PTR]),
     "tpucg_fused_update_f32": (
         ctypes.c_int,
         [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _LEN, _PTR, _PTR],
     ),
-    "tpucg_fused_update_tail_f32": (ctypes.c_int, [_PTR] * 10 + [_LEN, _PTR]),
+    "tpucg_fused_update_tail_f32": (ctypes.c_int, [_PTR] * 10 + [ctypes.c_int, _LEN, _PTR]),
     "tpucg_p_update_f32": (ctypes.c_int, [_PTR] * 5 + [_LEN, _PTR]),
     "tpucg_reduce_blocks": (ctypes.c_int, [_LEN]),
     "tpucg_fused_cg_f32": (

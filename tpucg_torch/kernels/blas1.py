@@ -6,6 +6,11 @@ Each of K2 and K3 is one launch, and finishes the lap's scalar work in the
 block that sums last: K3 can also write alpha (``dot_alpha_torch``), and
 the lap's last reduction runs its tail (``lap_tail_torch``), which sets
 ``beta`` and ``step`` for p's update (``p_update_torch``).
+
+``guard=True`` selects the guarded finish of tpucg's true-residual solves
+(``tpucg/solver/cg.py:380-412``): alpha is 0 unless p.Ap > 0, and a lap
+whose rs_new is not > 0 steps with beta 0 and rsold ``FLT_MIN``. Legacy
+solves keep the unguarded rule, bit for bit.
 """
 
 from __future__ import annotations
@@ -13,6 +18,7 @@ from __future__ import annotations
 import ctypes
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from tpucg_torch.kernels import _lib
@@ -28,16 +34,25 @@ def dot_torch(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 dot_torch.launches = 0
 
 
-def alpha_torch(pap: torch.Tensor, rsold: torch.Tensor, safe_alpha: bool) -> torch.Tensor:
-    """alpha = rsold / p.Ap; with ``safe_alpha``, 0 where p.Ap is 0."""
-    return torch.where(pap != 0, rsold / pap, 0.0) if safe_alpha else rsold / pap
+# rsold of a guarded lap whose rs_new is not > 0 (tpucg's
+# np.finfo(np.float32).tiny, the kernels' FLT_MIN).
+FLT_MIN = float(np.finfo(np.float32).tiny)
 
 
-def dot_alpha_torch(u, v, rsold, safe_alpha: bool = True):
+def alpha_torch(pap: torch.Tensor, rsold: torch.Tensor, safe_alpha: bool,
+                guard: bool = False) -> torch.Tensor:
+    """alpha = rsold / p.Ap; with ``safe_alpha``, 0 where p.Ap is 0, or
+    with ``guard`` too, 0 unless p.Ap > 0 (NaN included)."""
+    if not safe_alpha:
+        return rsold / pap
+    return torch.where(pap > 0 if guard else pap != 0, rsold / pap, 0.0)
+
+
+def dot_alpha_torch(u, v, rsold, safe_alpha: bool = True, guard: bool = False):
     """Plain version of K3's alpha mode: (u.v, rsold / u.v)."""
     dot_alpha_torch.launches += 1
     pap = torch.dot(u, v)
-    return pap, alpha_torch(pap, rsold, safe_alpha)
+    return pap, alpha_torch(pap, rsold, safe_alpha, guard)
 
 
 dot_alpha_torch.launches = 0
@@ -71,14 +86,20 @@ class LapTail(NamedTuple):
     hist: Optional[torch.Tensor] = None
 
 
-def lap_tail_torch(t: LapTail, rr, rs_new, tol2, maxiter: int) -> LapTail:
+def lap_tail_torch(t: LapTail, rr, rs_new, tol2, maxiter: int, guard: bool = False) -> LapTail:
     """Plain version of the tail that K2 (rs_new = r'.r') or K3 (rs_new =
     r'.z') runs: stop when r'.r' < tol^2; a running lap that does not stop
-    steps (beta = rs_new / rsold, rsold = rs_new); rslast, hist[k + 1], done
+    steps (beta = rs_new / rsold, rsold = rs_new; with ``guard``, beta 0 and
+    rsold ``FLT_MIN`` where rs_new is not > 0); rslast, hist[k + 1], done
     and k follow a running lap, and ``active`` is what is left."""
     lap_tail_torch.launches += 1
     stop = rr < tol2
     step = t.active & ~stop
+    beta, rs_step = rs_new / t.rsold, rs_new
+    if guard:
+        healthy = rs_new > 0
+        beta = torch.where(healthy, beta, 0.0)
+        rs_step = torch.where(healthy, rs_new, FLT_MIN)
     hist = t.hist
     if hist is not None:
         pos = torch.arange(hist.numel(), device=hist.device)
@@ -87,11 +108,11 @@ def lap_tail_torch(t: LapTail, rr, rs_new, tol2, maxiter: int) -> LapTail:
     k = t.k + t.active.to(torch.int32)
     return LapTail(
         k=k,
-        rsold=torch.where(step, rs_new, t.rsold),
+        rsold=torch.where(step, rs_step, t.rsold),
         rslast=torch.where(t.active, rr, t.rslast),
         done=done,
         active=~done & (k < maxiter),
-        beta=rs_new / t.rsold,
+        beta=beta,
         step=step,
         hist=hist,
     )
@@ -210,18 +231,21 @@ def dot_launch(u, v, scratch, out, active: Optional[int], stream: int) -> None:
 
 
 def dot_alpha_launch(u, v, scratch, out, rsold, alpha, safe_alpha: bool,
-                     active: Optional[int], stream: int) -> None:
-    """Launch K3 in alpha mode: out = u . v, alpha = rsold / out."""
+                     active: Optional[int], stream: int, guard: bool = False) -> None:
+    """Launch K3 in alpha mode: out = u . v, alpha = rsold / out (guarded
+    with ``guard``, which applies with ``safe_alpha`` only, as in tpucg)."""
+    rule = 2 if safe_alpha and guard else int(bool(safe_alpha))  # the C ABI's alpha_rule
     _launched(_lib.load().tpucg_dot_alpha_f32(
         u.data_ptr(), v.data_ptr(), scratch.data_ptr(), out.data_ptr(), rsold.data_ptr(),
-        alpha.data_ptr(), int(safe_alpha), u.numel(), active, stream), "dot_cuda", dot_cuda)
+        alpha.data_ptr(), rule, u.numel(), active, stream), "dot_cuda", dot_cuda)
 
 
-def dot_tail_launch(u, v, scratch, out, lap: int, stream: int) -> None:
-    """Launch K3 in tail mode: out = u . v = rs_new, then the lap's tail."""
+def dot_tail_launch(u, v, scratch, out, lap: int, stream: int, guard: bool = False) -> None:
+    """Launch K3 in tail mode: out = u . v = rs_new, then the lap's tail
+    (guarded with ``guard``)."""
     _launched(_lib.load().tpucg_dot_tail_f32(
-        u.data_ptr(), v.data_ptr(), scratch.data_ptr(), out.data_ptr(), lap, u.numel(),
-        stream), "dot_cuda", dot_cuda)
+        u.data_ptr(), v.data_ptr(), scratch.data_ptr(), out.data_ptr(), lap, int(guard),
+        u.numel(), stream), "dot_cuda", dot_cuda)
 
 
 def fused_update_launch(x, r, p, ap, alpha, xo, ro, scratch, rr,
@@ -234,12 +258,13 @@ def fused_update_launch(x, r, p, ap, alpha, xo, ro, scratch, rr,
 
 
 def fused_update_tail_launch(x, r, p, ap, alpha, xo, ro, scratch, rr, lap: int,
-                             stream: int) -> None:
-    """Launch K2 in tail mode: K2, then the lap's tail with rs_new = rr."""
+                             stream: int, guard: bool = False) -> None:
+    """Launch K2 in tail mode: K2, then the lap's tail with rs_new = rr
+    (guarded with ``guard``)."""
     _launched(_lib.load().tpucg_fused_update_tail_f32(
         x.data_ptr(), r.data_ptr(), p.data_ptr(), ap.data_ptr(), alpha.data_ptr(),
-        xo.data_ptr(), ro.data_ptr(), scratch.data_ptr(), rr.data_ptr(), lap, x.numel(),
-        stream), "fused_update_cuda", fused_update_cuda)
+        xo.data_ptr(), ro.data_ptr(), scratch.data_ptr(), rr.data_ptr(), lap, int(guard),
+        x.numel(), stream), "fused_update_cuda", fused_update_cuda)
 
 
 def p_update_launch(z, p, beta, step, scratch, stream: int) -> None:
@@ -265,12 +290,13 @@ def dot_cuda(
 dot_cuda.launches = 0
 
 
-def dot_alpha_cuda(u, v, rsold, safe_alpha: bool = True):
+def dot_alpha_cuda(u, v, rsold, safe_alpha: bool = True, guard: bool = False):
     """K3's alpha mode on the card: (u.v, rsold / u.v), 0-d f32 tensors."""
     _check_vectors("dot_alpha_cuda", u, v)
     _check_scalars("dot_alpha_cuda", u, rsold)
     out, alpha = (torch.empty((), dtype=torch.float32, device=u.device) for _ in range(2))
-    dot_alpha_launch(u, v, scratch_for(u), out, rsold, alpha, safe_alpha, None, cuda_stream(u))
+    dot_alpha_launch(u, v, scratch_for(u), out, rsold, alpha, safe_alpha, None, cuda_stream(u),
+                     guard)
     return out, alpha
 
 

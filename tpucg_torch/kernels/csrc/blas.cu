@@ -39,8 +39,17 @@
 // scalar tail of cg.py's loop in one thread (lap_tail). p's update is one
 // small kernel after it, gated by the tail's `step`, which it consumes.
 // alpha, beta and the flags stay in device memory: the host never waits.
+//
+// The guarded finish (a template argument, Guard): tpucg's breakdown guards
+// of its true-residual mode (tpucg/solver/cg.py:380-412), for solves that
+// iterate past their f32 floor, where p.Ap and r.z cross zero. K3's alpha
+// is rsold / p.Ap only where p.Ap > 0 (else 0, NaN included), and the tail
+// steps with beta = rs_new / rsold and rsold = rs_new only where rs_new > 0
+// (else beta 0 and rsold FLT_MIN). The unguarded instantiations are the
+// code they were, so legacy solves keep their bits and their time.
 #include "blas.cuh"
 
+#include <cfloat>
 #include <cstdint>
 
 namespace tpucg {
@@ -172,13 +181,20 @@ __device__ __forceinline__ TailIn load_tail(const LapScalars& s) {
 // The lap's scalar tail, cg.py's torch ops after r'.r' (lap_tail_torch), in
 // the one thread that finishes the lap's last reduction. Only a running lap
 // gets here (a frozen one returns before its ticket), so `active` reads 1.
-// Divisions and the square root are IEEE-rounded, as torch's.
+// Divisions and the square root are IEEE-rounded, as torch's. With Guard a
+// lap whose rs_new is not > 0 steps with beta 0 and leaves rsold FLT_MIN.
+template <bool Guard>
 __device__ __forceinline__ void lap_tail(const LapScalars& s, const TailIn& in, float rr,
                                          float rs_new) {
   const bool stop = rr < in.tol2;
-  *s.beta = __fdiv_rn(rs_new, in.rsold);
+  const bool healthy = !Guard || rs_new > 0.f;  // true unguarded
+  if (healthy) {
+    *s.beta = __fdiv_rn(rs_new, in.rsold);
+  } else {
+    *s.beta = 0.f;
+  }
   *s.step = !stop;
-  if (!stop) *s.rsold = rs_new;
+  if (!stop) *s.rsold = healthy ? rs_new : FLT_MIN;
   *s.rslast = rr;
   if (s.hist != nullptr && in.k + 1LL < s.hist_n) s.hist[in.k + 1] = __fsqrt_rn(rr);
   const bool done = in.done != 0 || stop;
@@ -188,8 +204,9 @@ __device__ __forceinline__ void lap_tail(const LapScalars& s, const TailIn& in, 
 }
 
 // K3's finish: kSum writes u . v; kAlpha also alpha = rsold / u.v (0 where
-// u.v is 0 with safe_alpha); kTail runs the lap's tail with rs_new = u.v
-// and the lap's r'.r' read from its slot.
+// u.v is 0 with safe_alpha; with Guard, 0 unless u.v > 0); kTail runs the
+// lap's tail (guarded with Guard) with rs_new = u.v and the lap's r'.r'
+// read from its slot.
 enum class DotFinish { kSum, kAlpha, kTail };
 
 struct AlphaArgs {
@@ -200,7 +217,7 @@ struct AlphaArgs {
 
 // `active` carries no __restrict__: under kTail it is the flag the tail
 // writes (after every block has read it).
-template <DotFinish F>
+template <DotFinish F, bool Guard>
 __global__ void __launch_bounds__(kBlock)
 dot_kernel(const float* __restrict__ u, const float* __restrict__ v, long long n,
            float* partials, int* ticket, float* out, const int* active, AlphaArgs al,
@@ -227,18 +244,20 @@ dot_kernel(const float* __restrict__ u, const float* __restrict__ v, long long n
   float total;
   if (!last_block_sum(block_sum(acc), partials, ticket, total) || threadIdx.x != 0) return;
   *out = total;
-  if constexpr (F == DotFinish::kAlpha) {
+  if constexpr (F == DotFinish::kAlpha && Guard) {
+    *al.alpha = total > 0.f ? __fdiv_rn(rsold, total) : 0.f;
+  } else if constexpr (F == DotFinish::kAlpha) {
     *al.alpha = (al.safe_alpha && total == 0.f) ? 0.f : __fdiv_rn(rsold, total);
   } else if constexpr (F == DotFinish::kTail) {
-    lap_tail(lap, in, in.rr, total);
+    lap_tail<Guard>(lap, in, in.rr, total);
   }
 }
 
 // x and xo (r and ro) may be the same array: each element is read and then
 // written by one thread, so they carry no __restrict__, and a group's loads
 // are issued before its stores by hand. With Tail the block that finishes
-// r'.r' runs the lap's tail with rs_new = r'.r'.
-template <bool Tail>
+// r'.r' runs the lap's tail (guarded with Guard) with rs_new = r'.r'.
+template <bool Tail, bool Guard>
 __global__ void __launch_bounds__(kBlock)
 fused_update_kernel(const float* x, const float* r, const float* __restrict__ p,
                     const float* __restrict__ ap, const float* __restrict__ alpha,
@@ -277,7 +296,7 @@ fused_update_kernel(const float* x, const float* r, const float* __restrict__ p,
   float total;
   if (!last_block_sum(block_sum(acc), partials, ticket, total) || threadIdx.x != 0) return;
   *rr = total;
-  if constexpr (Tail) lap_tail(lap, in, total, total);
+  if constexpr (Tail) lap_tail<Guard>(lap, in, total, total);
 }
 
 // p = z + beta p where the lap's tail set `step` (also on the lap that
@@ -319,24 +338,24 @@ inline int* ticket_of(void* scratch, int nb) {
   return reinterpret_cast<int*>(static_cast<float*>(scratch) + nb);
 }
 
-template <DotFinish F>
+template <DotFinish F, bool Guard = false>
 cudaError_t launch_dot(const void* u, const void* v, void* scratch, void* out, long long n,
                        const int* active, AlphaArgs al, const LapScalars& lap, void* stream) {
   const int nb = reduce_blocks(n);
-  dot_kernel<F><<<nb, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+  dot_kernel<F, Guard><<<nb, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(u), static_cast<const float*>(v), n,
       static_cast<float*>(scratch), ticket_of(scratch, nb), static_cast<float*>(out), active,
       al, lap);
   return cudaGetLastError();
 }
 
-template <bool Tail>
+template <bool Tail, bool Guard = false>
 cudaError_t launch_fused_update(const void* x, const void* r, const void* p, const void* ap,
                                 const void* alpha, void* xo, void* ro, void* scratch, void* rr,
                                 long long n, const int* active, const LapScalars& lap,
                                 void* stream) {
   const int nb = reduce_blocks(n);
-  fused_update_kernel<Tail><<<nb, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+  fused_update_kernel<Tail, Guard><<<nb, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(r),
       static_cast<const float*>(p), static_cast<const float*>(ap),
       static_cast<const float*>(alpha), static_cast<float*>(xo), static_cast<float*>(ro), n,
@@ -377,20 +396,26 @@ extern "C" cudaError_t tpucg_dot_f32(const void* u, const void* v, void* scratch
 
 extern "C" cudaError_t tpucg_dot_alpha_f32(const void* u, const void* v, void* scratch,
                                            void* out, const void* rsold, void* alpha,
-                                           int safe_alpha, long long n, const void* active,
+                                           int alpha_rule, long long n, const void* active,
                                            void* stream) {
   const tpucg::AlphaArgs al{static_cast<const float*>(rsold), static_cast<float*>(alpha),
-                            safe_alpha};
-  return tpucg::launch_dot<tpucg::DotFinish::kAlpha>(
-      u, v, scratch, out, n, static_cast<const int*>(active), al, {}, stream);
+                            alpha_rule != 0};
+  const auto* act = static_cast<const int*>(active);
+  return alpha_rule == 2
+             ? tpucg::launch_dot<tpucg::DotFinish::kAlpha, true>(u, v, scratch, out, n, act, al,
+                                                                 {}, stream)
+             : tpucg::launch_dot<tpucg::DotFinish::kAlpha>(u, v, scratch, out, n, act, al, {},
+                                                           stream);
 }
 
 extern "C" cudaError_t tpucg_dot_tail_f32(const void* u, const void* v, void* scratch,
-                                          void* out, const void* lap, long long n,
+                                          void* out, const void* lap, int guard, long long n,
                                           void* stream) {
   const auto& s = *static_cast<const tpucg::LapScalars*>(lap);
-  return tpucg::launch_dot<tpucg::DotFinish::kTail>(u, v, scratch, out, n, s.active, {}, s,
-                                                    stream);
+  return guard ? tpucg::launch_dot<tpucg::DotFinish::kTail, true>(u, v, scratch, out, n,
+                                                                  s.active, {}, s, stream)
+               : tpucg::launch_dot<tpucg::DotFinish::kTail>(u, v, scratch, out, n, s.active,
+                                                            {}, s, stream);
 }
 
 extern "C" cudaError_t tpucg_fused_update_f32(const void* x, const void* r, const void* p,
@@ -404,10 +429,13 @@ extern "C" cudaError_t tpucg_fused_update_f32(const void* x, const void* r, cons
 extern "C" cudaError_t tpucg_fused_update_tail_f32(const void* x, const void* r, const void* p,
                                                    const void* ap, const void* alpha, void* xo,
                                                    void* ro, void* scratch, void* rr,
-                                                   const void* lap, long long n, void* stream) {
+                                                   const void* lap, int guard, long long n,
+                                                   void* stream) {
   const auto& s = *static_cast<const tpucg::LapScalars*>(lap);
-  return tpucg::launch_fused_update<true>(x, r, p, ap, alpha, xo, ro, scratch, rr, n, s.active,
-                                          s, stream);
+  return guard ? tpucg::launch_fused_update<true, true>(x, r, p, ap, alpha, xo, ro, scratch, rr,
+                                                        n, s.active, s, stream)
+               : tpucg::launch_fused_update<true>(x, r, p, ap, alpha, xo, ro, scratch, rr, n,
+                                                  s.active, s, stream);
 }
 
 extern "C" cudaError_t tpucg_p_update_f32(const void* z, void* p, const void* beta, void* step,

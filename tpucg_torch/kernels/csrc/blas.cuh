@@ -104,16 +104,18 @@ cudaError_t tpucg_gemv_bf16(const void* A, const void* x, void* y, long long row
 // K3: *out = u . v over n f32.
 cudaError_t tpucg_dot_f32(const void* u, const void* v, void* scratch, void* out,
                           long long n, const void* active, void* stream);
-// K3, alpha mode: also *alpha = *rsold / *out (0 where *out is 0 and
-// safe_alpha is set).
+// K3, alpha mode: also *alpha = *rsold / *out. alpha_rule 0 divides as is,
+// 1 gives 0 where *out is 0 (safe_alpha), 2 gives 0 unless *out > 0 (the
+// guarded finish of true-residual solves).
 cudaError_t tpucg_dot_alpha_f32(const void* u, const void* v, void* scratch, void* out,
-                                const void* rsold, void* alpha, int safe_alpha, long long n,
+                                const void* rsold, void* alpha, int alpha_rule, long long n,
                                 const void* active, void* stream);
 // K3, tail mode: *out = rs_new = u . v (r . z), then the lap's tail with the
 // lap's r'.r' read from lap->rr; `lap` is a host LapScalars, its active the
-// flag.
+// flag. guard != 0: the guarded tail (a step with rs_new <= 0, or NaN, takes
+// beta 0 and rsold FLT_MIN).
 cudaError_t tpucg_dot_tail_f32(const void* u, const void* v, void* scratch, void* out,
-                               const void* lap, long long n, void* stream);
+                               const void* lap, int guard, long long n, void* stream);
 
 // K2: xo = x + alpha p, ro = r - alpha ap, *rr = ro . ro, with alpha read
 // from device memory. xo may alias x and ro may alias r (in-place update).
@@ -121,11 +123,12 @@ cudaError_t tpucg_fused_update_f32(const void* x, const void* r, const void* p,
                                    const void* ap, const void* alpha, void* xo,
                                    void* ro, void* scratch, void* rr, long long n,
                                    const void* active, void* stream);
-// K2, tail mode: the same, then the lap's tail with rs_new = rr.
+// K2, tail mode: the same, then the lap's tail with rs_new = rr (guarded
+// where guard != 0, as K3's).
 cudaError_t tpucg_fused_update_tail_f32(const void* x, const void* r, const void* p,
                                         const void* ap, const void* alpha, void* xo, void* ro,
-                                        void* scratch, void* rr, const void* lap, long long n,
-                                        void* stream);
+                                        void* scratch, void* rr, const void* lap, int guard,
+                                        long long n, void* stream);
 // p = z + *beta p (two roundings) when *step is set, which it then clears;
 // nothing when it is 0. z and p f32 (n,), p updated in place.
 cudaError_t tpucg_p_update_f32(const void* z, void* p, const void* beta, void* step,

@@ -49,12 +49,19 @@ that share their offsets, through K12 or ``batch_cg_loop``.
 ops), both on the operator's ``matvec_multi``: K6 x k, K8 x k or K13 x k
 on the card, a GEMM for a dense A. An f64 solve runs the plain route
 (``TorchLap``) on the solve's device, since no kernel is f64.
+
+``cg_loop`` also runs tpucg's periodic modes: true-residual stopping every
+``check_true_every`` laps with the stagnation exit and the guarded finish
+of K3 and K2 (``cg_solve(two_level=)`` and the deflated two-level solve
+take it at ``TRUE_CHECK_EVERY``), and residual replacement every
+``replace_every`` laps. ``solver/twolevel.py``, ``solver/deflation.py`` and
+``solver/minres.py`` build on this module.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -341,6 +348,21 @@ def _require_backend(op: LinearOperator, backend: str) -> None:
         )
 
 
+def _solve_operator(A, kernel: str, device):
+    """The f32 operator of a solve, its backend and device (default: A's,
+    for a tensor or operator, else the card when there is one); the
+    operator's backend must be the solve's."""
+    if device is None and isinstance(A, (LinearOperator, torch.Tensor)):
+        device = A.device
+    device = canonical_device(device)
+    backend = resolve_backend(kernel, device)
+    op = as_operator(A, backend=backend, device=device)
+    if op.device != device:
+        raise ValueError(f"operator lives on {op.device}, solve asked for {device}")
+    _require_backend(op, backend)
+    return op, backend, device
+
+
 def lap_ops(op: LinearOperator, backend: str):
     """The ``(matvec, dot, lap)`` that ``cg_loop`` runs for ``op`` on
     ``backend``: ``matvec(x, act)`` and ``dot(u, v, act)`` take the lap's
@@ -389,9 +411,9 @@ class TorchLap:
         self.dot, self._update = dot, update
 
     def start(self, state: _State, tol2, maxiter: int, safe_alpha: bool,
-              preconditioned: bool) -> None:
+              preconditioned: bool, guard: bool = False) -> None:
         self.tol2, self.maxiter, self.safe_alpha = tol2, maxiter, safe_alpha
-        self.preconditioned = preconditioned
+        self.preconditioned, self.guard = preconditioned, guard
         self.t = LapTail(k=state.k, rsold=state.rsold, rslast=state.rslast, done=state.done,
                          active=~state.done & (state.k < maxiter), hist=state.hist)
 
@@ -399,16 +421,31 @@ class TorchLap:
         return self.t.active.to(torch.int32)
 
     def alpha(self, p, ap, act):
-        return alpha_torch(self.dot(p, ap, act), self.t.rsold, self.safe_alpha)
+        return alpha_torch(self.dot(p, ap, act), self.t.rsold, self.safe_alpha, self.guard)
 
     def update(self, x, r, p, ap, alpha, act):
         x, r, self.rr = self._update(x, r, p, ap, alpha, act)
         if not self.preconditioned:
-            self.t = lap_tail_torch(self.t, self.rr, self.rr, self.tol2, self.maxiter)
+            self.t = lap_tail_torch(self.t, self.rr, self.rr, self.tol2, self.maxiter,
+                                    self.guard)
         return x, r
 
     def tail(self, r, z, act) -> None:
-        self.t = lap_tail_torch(self.t, self.rr, self.dot(r, z, act), self.tol2, self.maxiter)
+        self.t = lap_tail_torch(self.t, self.rr, self.dot(r, z, act), self.tol2, self.maxiter,
+                                self.guard)
+
+    def scalars(self) -> LapTail:
+        """The loop's scalars as they stand (no copy)."""
+        return self.t
+
+    def put(self, rsold=None, rslast=None, done=None) -> None:
+        """Set scalars between laps (a true-residual check, a residual
+        replacement); ``active`` follows ``done`` and k."""
+        t = self.t
+        done = t.done if done is None else done
+        self.t = t._replace(rsold=t.rsold if rsold is None else rsold,
+                            rslast=t.rslast if rslast is None else rslast, done=done,
+                            active=~done & (t.k < self.maxiter))
 
     def p_update(self, z, p):
         return p_update_torch(z, p, self.t.beta, self.t.step)
@@ -418,6 +455,31 @@ class TorchLap:
 
     def finish(self) -> LapTail:
         return self.t
+
+
+def flagged_matvec(op: LinearOperator, backend: str) -> Callable:
+    """``lap_ops``'s ``matvec(x, act)`` alone: on ``"cuda"`` the operator's
+    kernel under the flag ``act``, into one output buffer that every flagged
+    call overwrites (so each product is consumed before the next flagged
+    matvec), and the checked wrapper for ``act`` None; on ``"torch"`` the
+    operator's ``matvec``."""
+    _require_backend(op, backend)
+    if backend != "cuda":
+        return op.matvec
+    launch = op.launcher()
+    n, dev = op.padded_n, op.device
+    y = torch.empty(n, dtype=torch.float32, device=dev)
+    stream = cuda_stream(y)
+
+    def matvec(x, act):
+        if act is None:
+            return op.matvec(x)
+        if x.shape[0] != n or x.device != dev:
+            raise ValueError(f"x {tuple(x.shape)} on {x.device} for an operator of {n} on {dev}")
+        launch(x, y, act.data_ptr(), stream)
+        return y
+    matvec.out = y
+    return matvec
 
 
 def _cuda_lap_ops(op: LinearOperator):
@@ -432,18 +494,9 @@ def _cuda_lap_ops(op: LinearOperator):
     ``cg_loop`` checks its vectors once; the matvec checks x's length every
     lap, so no launch reads past the operator.
     """
-    launch = op.launcher()
-    n, dev = op.padded_n, op.device
-    y = torch.empty(n, dtype=torch.float32, device=dev)
+    matvec = flagged_matvec(op, "cuda")
+    y = matvec.out
     stream = cuda_stream(y)
-
-    def matvec(x, act):
-        if act is None:
-            return op.matvec(x)
-        if x.shape[0] != n or x.device != dev:
-            raise ValueError(f"x {tuple(x.shape)} on {x.device} for an operator of {n} on {dev}")
-        launch(x, y, act.data_ptr(), stream)
-        return y
 
     def dot(u, v, act):
         if act is None:
@@ -474,10 +527,11 @@ class _CudaLap:
         self.s = CudaLapTail(like.device)
 
     def start(self, state: _State, tol2, maxiter: int, safe_alpha: bool,
-              preconditioned: bool) -> None:
+              preconditioned: bool, guard: bool = False) -> None:
         if state.rsold.dtype != torch.float32:
             raise ValueError(f"the CUDA lap's kernels are f32, the state is {state.rsold.dtype}")
         self.safe_alpha, self.preconditioned = safe_alpha, preconditioned
+        self.guard, self.maxiter = guard, maxiter
         hist = state.hist
         if hist is not None:
             if hist.dtype != torch.float32 or hist.dim() != 1 or hist.device != tol2.device:
@@ -492,7 +546,7 @@ class _CudaLap:
 
     def alpha(self, p, ap, act):
         dot_alpha_launch(p, ap, self.scratch, self.d, self.s.rsold, self.alpha_out,
-                         self.safe_alpha, act.data_ptr(), self.stream)
+                         self.safe_alpha, act.data_ptr(), self.stream, self.guard)
         return self.alpha_out
 
     def update(self, x, r, p, ap, alpha, act):
@@ -501,11 +555,28 @@ class _CudaLap:
                                 act.data_ptr(), self.stream)
         else:
             fused_update_tail_launch(x, r, p, ap, alpha, x, r, self.scratch, self.s.rr,
-                                     self.s.address, self.stream)
+                                     self.s.address, self.stream, self.guard)
         return x, r
 
     def tail(self, r, z, act) -> None:
-        dot_tail_launch(r, z, self.scratch, self.d, self.s.address, self.stream)
+        dot_tail_launch(r, z, self.scratch, self.d, self.s.address, self.stream, self.guard)
+
+    def scalars(self) -> LapTail:
+        """The loop's scalar buffers as they stand (no copy)."""
+        s = self.s
+        return LapTail(k=s.k, rsold=s.rsold, rslast=s.rslast, done=s.done, active=s.active)
+
+    def put(self, rsold=None, rslast=None, done=None) -> None:
+        """Set scalars between laps, in place on the device (a true-residual
+        check, a residual replacement); ``active`` follows ``done`` and k."""
+        s = self.s
+        if rsold is not None:
+            s.rsold.copy_(rsold)
+        if rslast is not None:
+            s.rslast.copy_(rslast)
+        if done is not None:
+            s.done.copy_(done)
+            s.active.copy_(~s.done & (s.k < self.maxiter))
 
     def p_update(self, z, p):
         p_update_launch(z, p, self.s.beta, self.s.step, self.scratch, self.stream)
@@ -539,6 +610,22 @@ def _check_state(x, r, p, rsold, rslast) -> None:
         )
 
 
+# True-residual stopping cadence of the strong-preconditioner solves
+# (two-level, deflation composed with two-level; tpucg's TRUE_CHECK_EVERY):
+# at high condition the f32 recurrence decouples from the true residual in
+# both directions, so these solves test ||b - A x|| every 16 laps.
+TRUE_CHECK_EVERY = 16
+
+
+class StagCarry(NamedTuple):
+    """The stagnation exit's bookkeeping between ``cg_loop`` calls (tpucg's
+    ``(prev_rr, prev_stag)``): the true r.r of the last check boundary and
+    whether its window was stagnant, 0-d tensors on the loop's device."""
+
+    prev_rr: torch.Tensor
+    prev_stag: torch.Tensor
+
+
 def cg_loop(
     matvec: Callable,
     dot: Callable,
@@ -554,8 +641,11 @@ def cg_loop(
     hist_len: Optional[int] = None,
     chunk: Optional[int] = None,
     replace_every: Optional[int] = None,
+    replace_fn: Optional[Callable] = None,
     check_true_every: Optional[int] = None,
-) -> _State:
+    stag_carry=None,
+    return_stag: bool = False,
+) -> Union[_State, Tuple[_State, StagCarry]]:
     """Run CG laps until ``sqrt(r.r) < tol`` or k == ``maxiter``.
 
     ``matvec``/``dot``/``lap`` come from ``lap_ops`` (or a sharded route).
@@ -567,22 +657,61 @@ def cg_loop(
     cumulative k); its tensors are not modified. ``chunk`` fixes the laps
     per host read (``run_chunks``; default: 1, 2, 4, ... up to
     ``CHUNK_MAX``).
+
+    tpucg's periodic modes (``tpucg/solver/cg.py:280-516``), serial:
+
+    - ``check_true_every`` (needs ``b``): the stop tests the TRUE residual.
+      The per-lap recurrence test is off (tol^2 = -1); after every lap that
+      lands on k % check_true_every == 0 the loop computes r_t = b - A x and
+      rr_t = r_t.r_t, and stops on rr_t < tol^2 or on two stagnant windows
+      in a row (rr_t > 0.995 of the last boundary's and > 100 times the
+      recurrence's r.r); ``rslast`` takes rr_t at a boundary only, so a
+      solve cut by ``maxiter`` mid-window keeps the recurrence's r.r. The
+      lap runs the guarded finish (alpha 0 unless p.Ap > 0, beta 0 and
+      rsold ``FLT_MIN`` where r.z is not > 0: K3 and K2 with ``guard``).
+    - ``replace_every`` (needs ``b``; not with ``check_true_every``): every
+      that-many laps a running solve re-anchors r to b - A x (through
+      ``replace_fn(x, r_true) -> (x, r)`` where given) and rsold to (r,
+      M^-1 r); p is kept.
+    - ``stag_carry`` / ``return_stag``: the stagnation bookkeeping lives
+      outside the state; ``return_stag=True`` returns ``(state,
+      StagCarry)``, which a later call takes as ``stag_carry`` to continue
+      the two-window rule (without ``check_true_every`` the carry passes
+      through, default (inf, False)).
+
+    The host knows which lap lands on a boundary from the laps it enqueued
+    (and, for a resumed state, one read of its k); the check and the
+    replacement are masked on the device by a flag that is set only where
+    that lap ran (k equals the boundary), through the flagged matvec and K3
+    on the card, so a frozen lap's check changes nothing and the chunk size
+    moves no result.
     """
-    if replace_every or check_true_every:
-        raise NotImplementedError(
-            "replace_every/check_true_every serve two-level and deflated "
-            "solves: ROADMAP M12"
-        )
+    if replace_every and check_true_every:
+        raise ValueError("replace_every and check_true_every are mutually exclusive")
+    every = check_true_every or replace_every
+    if every and b is None:
+        raise ValueError("replace_every/check_true_every need b")
+    k0 = 0
     if state is None:
         state = init_state(matvec, dot, b, x0, tol, precond=precond, hist_len=hist_len)
+    elif every:
+        k0 = int(state.k)  # the one host read of a resumed periodic loop
     # The cuda lap updates x, r and p in place: the loop owns its copies.
     x, r, p = (v.clone(memory_format=torch.contiguous_format)
                for v in (state.x, state.r, state.p))
     _check_state(x, r, p, state.rsold, state.rslast)
-    tol2 = torch.tensor(tol, dtype=r.dtype, device=r.device) ** 2
-    lap.start(state, tol2, maxiter, safe_alpha, precond is not None)
+    dev, dt = r.device, r.dtype
+    true_tol2 = torch.tensor(tol, dtype=dt, device=dev) ** 2
+    tol2 = torch.full((), -1.0, dtype=dt, device=dev) if check_true_every else true_tol2
+    lap.start(state, tol2, maxiter, safe_alpha, precond is not None, bool(check_true_every))
+    if stag_carry is None:
+        stag = StagCarry(torch.full((), float("inf"), dtype=dt, device=dev),
+                         torch.zeros((), dtype=torch.bool, device=dev))
+    else:
+        stag = StagCarry(torch.as_tensor(stag_carry[0], dtype=dt, device=dev),
+                         torch.as_tensor(stag_carry[1], dtype=torch.bool, device=dev))
 
-    def step():
+    def lap_step():
         nonlocal x, r, p
         act = lap.flag()
         ap = matvec(p, act)
@@ -594,10 +723,49 @@ def cg_loop(
             z = precond(r, act)
             lap.tail(r, z, act)
         p = lap.p_update(z, p)
+
+    def true_check(at):
+        # tpucg's outer_body after its window: the check takes effect only
+        # where the boundary's lap ran (`at`).
+        nonlocal stag
+        flag = at.to(torch.int32)
+        r_t = b - matvec(x, flag)
+        rr_t = dot(r_t, r_t, flag)
+        t = lap.scalars()
+        stagnant = (rr_t > 0.995 * stag.prev_rr) & (rr_t > 100.0 * t.rslast)
+        stop = at & ((rr_t < true_tol2) | (stagnant & stag.prev_stag))
+        lap.put(rslast=torch.where(at, rr_t, t.rslast), done=t.done | stop)
+        stag = StagCarry(torch.where(at, rr_t, stag.prev_rr),
+                         torch.where(at, stagnant, stag.prev_stag))
+
+    def replace(at):
+        nonlocal x, r
+        flag = at.to(torch.int32)
+        r_true = b - matvec(x, flag)
+        x_n, r_n = (x, r_true) if replace_fn is None else replace_fn(x, r_true)
+        z_t = r_n if precond is None else precond(r_n, flag)
+        rs_t = dot(r_n, z_t, flag)
+        lap.put(rsold=torch.where(at, rs_t, lap.scalars().rsold))
+        x, r = torch.where(at, x_n, x), torch.where(at, r_n, r)
+
+    laps = 0  # laps enqueued: a lap that runs leaves k = k0 + laps
+
+    def step():
+        nonlocal laps
+        lap_step()
+        laps += 1
+        k_b = k0 + laps
+        if every and k_b % every == 0 and k_b <= maxiter:
+            t = lap.scalars()
+            if check_true_every:
+                true_check(t.k == k_b)
+            else:
+                replace((t.k == k_b) & ~t.done)
     run_chunks(step, lap.running, chunk)
     t = lap.finish()
-    return _State(k=t.k, x=x, r=r, p=p, rsold=t.rsold, rslast=t.rslast, done=t.done,
-                  hist=t.hist)
+    st = _State(k=t.k, x=x, r=r, p=p, rsold=t.rsold, rslast=t.rslast, done=t.done,
+                hist=t.hist)
+    return (st, stag) if return_stag else st
 
 
 class _BatchState(NamedTuple):
@@ -1444,10 +1612,21 @@ def block_pcg_loop(
     return st[0], st[1], rr, rr < tol2
 
 
-def _check_supported(config: CGConfig, two_level) -> None:
-    """Name the ROADMAP item of every configuration the port does not run."""
-    if two_level is not None:
-        raise NotImplementedError("two_level= is ROADMAP M12")
+def _check_two_level(two_level, config: CGConfig, dtype, npad: int, device) -> None:
+    """tpucg's refusals of a ``two_level`` solve (``cg.py:2416-2440``): the
+    cycle is the preconditioner of a method cg or pipelined solve, f32, built
+    for the operator's padded size (and, here, on the solve's device)."""
+    if config.method not in ("cg", "pipelined") or config.precondition != "none":
+        raise ValueError("two_level runs as THE preconditioner of a method='cg' or 'pipelined' "
+                         f"solve (got method={config.method!r}, "
+                         f"precondition={config.precondition!r})")
+    if dtype != torch.float32:
+        raise ValueError("two_level preconditioning is float32-only")
+    if two_level.npad != npad:
+        raise ValueError(f"two_level was built for padded size {two_level.npad}, operator has "
+                         f"{npad}: rebuild with build_two_level(csr, npad={npad})")
+    if two_level.device != device:
+        raise ValueError(f"two_level lives on {two_level.device}, the solve on {device}")
 
 
 def _fused_eligible(config: CGConfig, op: LinearOperator, backend: str, dtype,
@@ -1562,6 +1741,15 @@ def cg_solve(
     ``record_residuals`` (cg only) returns the per-lap ||r|| in
     ``residual_history``; ``chunk`` is ``run_chunks``'s.
 
+    ``two_level`` (``build_two_level``, built for the operator's
+    ``padded_n`` on the solve's device) is the preconditioner of a
+    ``method="cg"`` or ``"pipelined"`` solve with ``precondition="none"``:
+    classic CG then tests the true residual every ``TRUE_CHECK_EVERY`` laps
+    (``cg_loop(check_true_every=)``, guarded finish; ``converged`` is the
+    last check's r.r < tol^2, and a stagnation stop reports unconverged),
+    pipelined replaces its residuals every ``PIPE_REPLACE_EVERY`` laps. A
+    two-level solve never takes a whole-solve kernel.
+
     ``dtype=torch.float64`` solves in f64 (tpucg's one extra solve dtype):
     a dense A is stored in f64, b, x0 and every vector of the loop are
     f64, and the lap is ``TorchLap`` over plain f64 products, dots and
@@ -1572,7 +1760,6 @@ def cg_solve(
     none.
     """
     config = _configure(config, overrides)
-    _check_supported(config, two_level)
     f64 = config.dtype == torch.float64
     if f64 and config.kernel == "cuda":
         raise ValueError("kernel='cuda' with dtype=float64: no kernel of this package (or of "
@@ -1621,7 +1808,10 @@ def cg_solve(
         minv = block_jacobi_minv(op, int(config.pc_block_size)).to(dtype)
     tol = float(config.tol)
     poly = config.precondition == "poly"
-    kind = _fused_eligible(config, op, backend, dtype, record_residuals)
+    if two_level is not None:
+        _check_two_level(two_level, config, dtype, npad, device)
+    kind = (None if two_level is not None
+            else _fused_eligible(config, op, backend, dtype, record_residuals))
     if kind is not None:
         kw = dict(tol=tol, maxiter=maxiter, safe_alpha=bool(config.safe_alpha),
                   precondition=config.precondition,
@@ -1634,7 +1824,12 @@ def cg_solve(
             x, k, rr = fused_dia_cg_solve_cuda(op.data, op.offsets, b, x0, **kw)
         return _fused_result(x[:n], k, rr, tol)
     matvec, dot, lap = _torch_lap_ops(op) if f64 else lap_ops(op, backend)
-    precond = make_precond(config.precondition, minv, matvec, dot, b, config.poly_degree)
+    if two_level is not None:
+        from tpucg_torch.solver.twolevel import make_two_level_precond
+
+        precond = make_two_level_precond(two_level, matvec, dot, b)
+    else:
+        precond = make_precond(config.precondition, minv, matvec, dot, b, config.poly_degree)
     safe_alpha = bool(config.safe_alpha)
     tol2 = torch.tensor(tol, dtype=dtype, device=device) ** 2
     if config.method == "pipelined":
@@ -1664,6 +1859,7 @@ def cg_solve(
         tol=tol, maxiter=maxiter, safe_alpha=safe_alpha, precond=precond,
         hist_len=maxiter if record_residuals else None,
         chunk=chunk,
+        check_true_every=TRUE_CHECK_EVERY if two_level is not None else None,
     )
     return CGResult(
         x=s.x[:n],

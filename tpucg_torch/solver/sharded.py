@@ -109,7 +109,7 @@ def _check_supported(config: CGConfig, interval=None, two_level=None) -> None:
         raise NotImplementedError("sharded interval= serves method='ca'/'chebyshev': ROADMAP "
                                   "M14 step 2 (M8's loops on the mesh)")
     if two_level is not None:
-        raise NotImplementedError("two_level= (distributed two-level PCG) is ROADMAP M12")
+        raise NotImplementedError("two_level= (distributed two-level PCG) is ROADMAP M14 step 5")
 
 
 # --- the lap's closures ------------------------------------------------------
