@@ -367,15 +367,29 @@ OPERATOR_CASES = {
     "banded_n1000_jacobi": (("banded", 1000, 11), {"precondition": "jacobi"}),
     "bsr_m6": (("bsr", 6, 12), {}),
     "bsr_m6_jacobi": (("bsr", 6, 12), {"precondition": "jacobi"}),
+    # Irregular CSRs, sharded as row blocks of WELL: tpucg's FEM fixture
+    # (test_checkpoint.py) at tpucg's FEM tol 1e-3 ||b||, above its f32 floor
+    # of ~4e-4 ||b||, and its shuffled geometric graph (test_sharded_sparse.py).
+    "well_fem6000": (("fem", 6000, 1), {"tol_rel": 1e-3}),
+    "well_fem6000_jacobi": (("fem", 6000, 1), {"tol_rel": 1e-3, "precondition": "jacobi"}),
+    "well_geo3000_shuffled": (("geometric", 3000, 7), {}),
+    "well_geo3000_shuffled_jacobi": (("geometric", 3000, 7), {"precondition": "jacobi"}),
 }
 
 
 def sharded_system(spec):
     """The NumPy system of a sharded case: a dict with ``A`` (dense) or
     ``op`` (the port's host container: ``("poisson", m)``, a DIAMatrix, a
-    CSRMatrix for ELL, a BSRMatrix), ``b``, ``x0`` (or None), and ``x_true``
+    CSRMatrix for ELL, a BSRMatrix, or a CSRMatrix with ``well`` set, which
+    both packages shard as WELL), ``b``, ``x0`` (or None), and ``x_true``
     where the case has one."""
-    from tpucg_torch.io.generator import generate_spd_system, poisson3d_csr, poisson3d_dia
+    from tpucg_torch.io.generator import (
+        fem_p1_system,
+        generate_spd_system,
+        poisson3d_csr,
+        poisson3d_dia,
+        random_geometric_spd,
+    )
     from tpucg_torch.io.golden import GOLDEN_4X4
     from tpucg_torch.sparse.formats import COOMatrix, csr_to_bsr, csr_to_dia
 
@@ -393,6 +407,10 @@ def sharded_system(spec):
         n = spec[1]
         A, b, x0 = generate_spd_system(n, seed=spec[2])
         return {"A": (A - (n - n / 8.0) * np.eye(n)).astype(np.float32), "b": b, "x0": x0}
+    if kind in ("fem", "geometric"):
+        csr, b, _ = (fem_p1_system(spec[1], seed=spec[2]) if kind == "fem" else
+                     random_geometric_spd(spec[1], seed=spec[2], avg_degree=10.0, shuffle=True))
+        return {"op": csr, "well": True, "b": b.astype(np.float32), "x0": None}
     n_or_m, seed = spec[1], spec[2]
     rng = np.random.default_rng(seed)
     if kind == "banded":
@@ -450,7 +468,7 @@ def solve_sharded_case(mesh, name: str, strategy: str = "allgather"):
             op = PoissonOperator(op[1], device="cpu")
         elif type(op).__name__ == "BSRMatrix":
             op = BsrOperator.from_bsr(op, device="cpu")
-        elif type(op).__name__ == "CSRMatrix":
+        elif type(op).__name__ == "CSRMatrix" and not s.get("well"):
             from tpucg_torch.solver.operators import EllOperator
 
             op = EllOperator.from_csr(op, device="cpu")
@@ -499,17 +517,27 @@ def laps_run(k: int) -> int:
     return total
 
 
-def card_world_worker(rank, nprocs, cases, m, b_poisson, kw):
+def card_world_worker(rank, nprocs, cases, m, b_poisson, kw, well=None):
     """A rank of a gloo world on cuda:0 (``chip_smoke.py``): each case,
-    ``("dense", strategy)`` on ``generate_spd_system(8192, seed=0)`` or
+    ``("dense", strategy)`` on ``generate_spd_system(8192, seed=0)``,
     ``("poisson", None)`` / ``("dia", None)`` on the m^3 Laplacian with
-    ``b_poisson`` and ``kw`` (tol, maxiter), solved once to warm up and once
-    timed on the host clock; rank 0's x, laps, ms, laps run, and the
-    transport's calls and host seconds in the timed solve."""
+    ``b_poisson`` and ``kw`` (tol, maxiter), or ``(name, None)`` for a name
+    of ``well``, which maps it to ``((generator, n, seed), solve keywords)``
+    of an irregular CSR (``"fem"``: ``fem_p1_system``; ``"geometric"``:
+    ``random_geometric_spd`` at average degree 12) solved as sharded WELL
+    with its own b; each solved once to warm up (not WELL, which packs its
+    operator in every call) and once timed on the host clock; rank 0's x,
+    laps, ms, laps run, and the transport's calls and host seconds in the
+    timed solve."""
     import time
 
     from tpucg_torch.comm.mesh import make_mesh
-    from tpucg_torch.io.generator import generate_spd_system, poisson3d_dia
+    from tpucg_torch.io.generator import (
+        fem_p1_system,
+        generate_spd_system,
+        poisson3d_dia,
+        random_geometric_spd,
+    )
     from tpucg_torch.kernels.dispatch import strict_f32
     from tpucg_torch.solver.operators import PoissonOperator
     from tpucg_torch.solver.sharded import (
@@ -530,12 +558,20 @@ def card_world_worker(rank, nprocs, cases, m, b_poisson, kw):
 
             def solve():
                 return sharded_cg_solve(system, mesh=mesh, strategy=strategy)
+        elif well is not None and kind in well:
+            (gen, n, seed), kw_w = well[kind]
+            A_w, b_w, _ = (fem_p1_system(n, seed=seed) if gen == "fem" else
+                           random_geometric_spd(n, seed=seed, avg_degree=12.0))
+
+            def solve():
+                return sharded_operator_cg_solve(A_w, b_w, mesh=mesh, **kw_w)
         else:
             op = PoissonOperator(m, device=dev) if kind == "poisson" else poisson3d_dia(m)
 
             def solve():
                 return sharded_operator_cg_solve(op, b_poisson, mesh=mesh, **kw)
-        solve()
+        if kind not in (well or {}):
+            solve()  # a warm-up (a WELL solve packs its operator on every call)
         torch.cuda.synchronize()
         mesh.stats.update(calls=0, seconds=0.0)
         t0 = time.perf_counter()

@@ -2,8 +2,11 @@
 in-process on the CPU: the same operator class, laps within one and x
 within 1e-4 of max |x|, with and without a reordering; the bench forms of
 tpucg's sparse operators; the methods, block Jacobi and cached intervals
-against tpucg's CLI; the options that later slices bring."""
+against tpucg's CLI; the options that later slices bring; the distributed
+solve of an irregular ``.mtx`` (sharded WELL) and ``--checkpoint``, whose
+files either package's CLI resumes."""
 
+import os
 import re
 
 import numpy as np
@@ -92,17 +95,16 @@ def test_solve_mtx_bf16_and_dense_array_files(tmp_path, capsys):
     (["--pc-block-size", "32"], "M8"),
 ])
 def test_later_slices_name_their_roadmap_item(tmp_path, capsys, flags, item):
-    # M8's options (method, block Jacobi) and M12's (two-level, MINRES) now
-    # solve, as tpucg's CLI does. A distributed solve of an irregular matrix
-    # (promoted to WELL) is still refused: it needs the WELL shard packers.
+    # M8's options (method, block Jacobi), M12's (two-level, MINRES) and M14
+    # step 1's distributed solve of an irregular matrix (promoted to WELL,
+    # handed to the ranks as its CSR and packed into row blocks of WELL) now
+    # solve, as tpucg's CLI does (tpucg's on its 8 CPU devices, the port's
+    # as a world of one rank).
     A, b = SYSTEMS["geometric_shuffled" if "--strategy" in flags else "poisson"]()
     pa, pb = _files(tmp_path, A, b)
-    if item in ("M8", "M12"):
-        _held_to_tpucgs_cli(tmp_path, capsys, pa, pb, A, b, flags, laps=3)
-        return
-    with pytest.raises(NotImplementedError, match=item) as err:
-        cli.main(["solve", pa, pb, "--device", "cpu"] + flags)
-    assert "--strategy" not in flags or "shard packers" in str(err.value)
+    out = _held_to_tpucgs_cli(tmp_path, capsys, pa, pb, A, b, flags, laps=3)
+    assert "--strategy" not in flags or (
+        "[WellOperator]" in out and "strategy             : allgather" in out)
 
 
 def _held_to_tpucgs_cli(tmp_path, capsys, pa, pb, A, b, flags, laps):
@@ -332,3 +334,106 @@ def test_m12_options_refused_where_tpucg_refuses_or_on_the_mesh(tmp_path):
     np.save(rhs, np.ones(8, np.float32))
     with pytest.raises(SystemExit, match="sparse .mtx"):
         cli.main(["solve", dense, rhs, "--device", "cpu", "--two-level", "4"])
+
+
+# ---- M14 step 1 and M13 through the CLI --------------------------------------
+
+
+@pytest.mark.parametrize("strategy", ["allgather", "overlap"])
+def test_solve_strategy_irregular_mtx_bf16(tmp_path, capsys, strategy):
+    # --storage bf16 rides the sharded WELL solve as its storage dtype.
+    A, b = SYSTEMS["geometric_shuffled"]()
+    pa, pb = _files(tmp_path, A, b)
+    tol = 1e-3 * float(np.linalg.norm(b))
+    rc, out, fmt, k = _run(cli.main, ["solve", pa, pb, "--device", "cpu", "--strategy", strategy,
+                                      "--storage", "bf16", "--tol", repr(tol)], capsys)
+    assert rc == 0 and fmt == "WellOperator+bf16", out
+    _, _, _, k_serial = _run(cli.main, ["solve", pa, pb, "--device", "cpu", "--storage", "bf16",
+                                        "--tol", repr(tol)], capsys)
+    assert k == k_serial
+
+
+def _ck_argv(pa, pb, ck, *extra):
+    return ["solve", pa, pb, "--precondition", "jacobi", "--checkpoint", ck,
+            "--segment-iters", "16"] + list(extra)
+
+
+@pytest.mark.parametrize("writer", ["port", "tpucg"])
+def test_solve_mtx_checkpoint_resumes_across_clis(tmp_path, capsys, writer):
+    # A capped run keeps its file (rc 3, "checkpoint retained"); the other
+    # package's CLI resumes it to the end (rc 0) and removes it. The port's
+    # resume of its own file equals its run through bit for bit.
+    A, b = SYSTEMS["fem"]()
+    pa, pb = _files(tmp_path, A, b)
+    tol = ["--tol", repr(1e-5 * float(np.linalg.norm(b)))]
+    ck, x_full, x_res = (str(tmp_path / f) for f in ("ck.npz", "full.txt", "res.txt"))
+    first, then = ((cli.main, jcli.main) if writer == "port" else (jcli.main, cli.main))
+    dev = lambda main: ["--device", "cpu"] if main is cli.main else []  # noqa: E731
+    rc, out, fmt, k = _run(first, _ck_argv(pa, pb, ck, "--maxiter", "32", *tol, *dev(first)),
+                           capsys)
+    assert rc == 3 and k == 32 and fmt == "WellOperator", out
+    assert "checkpoint retained  : " + ck in out and "checkpointed every 16 iters" in out
+    assert os.path.exists(ck)
+    rc, out, _, k_res = _run(then, _ck_argv(pa, pb, ck, *tol, *dev(then), "--output", x_res),
+                             capsys)
+    assert rc == 0 and not os.path.exists(ck), out
+    rc, out, _, k_full = _run(cli.main, ["solve", pa, pb, "--precondition", "jacobi",
+                                         "--device", "cpu", "--fused", "never", *tol,
+                                         "--output", x_full], capsys)
+    assert rc == 0 and abs(k_res - k_full) <= 1, (k_res, k_full)
+    n = A.shape[0]
+    assert scaled_err(load_vector(x_res, n=n), load_vector(x_full, n=n)) <= 1e-4
+
+
+def test_solve_dense_checkpoint_resume_is_bit_identical(tmp_path, capsys):
+    # tpucg's _cmd_solve_checkpointed on the reference's text format: killed
+    # at 8 laps and resumed, the same laps and x as the run through; the
+    # residual history is not recorded (tpucg's note).
+    from tpucg_torch.io.generator import generate_spd_system
+    from tpucg_torch.io.textio import save_array
+
+    n = 96
+    A, b, _ = generate_spd_system(n, seed=4)
+    A = (A - np.float32(n - n / 8.0) * np.eye(n, dtype=np.float32)).astype(np.float32)
+    pa, pb = str(tmp_path / "A.txt"), str(tmp_path / "b.txt")
+    save_array(pa, A.ravel(), fmt="%r")
+    save_array(pb, b, fmt="%r")
+    ck, xa, xb = (str(tmp_path / f) for f in ("ck.npz", "xa.txt", "xb.txt"))
+    base = ["solve", pa, pb, "--device", "cpu", "--checkpoint", ck, "--segment-iters", "4"]
+    assert cli.main(base + ["--output", xa]) == 0 and not os.path.exists(ck)
+    out = capsys.readouterr().out
+    k_full = int(re.search(r"iterations\s+: (\d+)", out).group(1))
+    assert k_full > 8 and "checkpointed every 4 iters" in out
+    assert cli.main(base + ["--maxiter", "8", "--residual-history"]) == 3
+    out = capsys.readouterr().out
+    assert "not recorded by checkpointed solves" in out and "||r_0||" not in out
+    assert "checkpoint retained" in out and os.path.exists(ck)
+    assert cli.main(base + ["--output", xb]) == 0 and not os.path.exists(ck)
+    out = capsys.readouterr().out
+    assert int(re.search(r"iterations\s+: (\d+)", out).group(1)) == k_full
+    np.testing.assert_array_equal(load_vector(xa, n=n), load_vector(xb, n=n))
+
+
+def test_checkpoint_refusals(tmp_path):
+    A, b = SYSTEMS["geometric_shuffled"]()
+    pa, pb = _files(tmp_path, A, b)
+    ck = str(tmp_path / "ck.npz")
+    with pytest.raises(SystemExit, match="--interval"):
+        cli.main(["solve", pa, pb, "--device", "cpu", "--checkpoint", ck, "--method",
+                  "chebyshev", "--interval", "0.1", "10"])
+    with pytest.raises(SystemExit, match="bf16"):
+        cli.main(["solve", pa, pb, "--device", "cpu", "--checkpoint", ck, "--strategy",
+                  "allgather", "--storage", "bf16"])
+    with pytest.raises(NotImplementedError, match="M14 step 6"):
+        cli.main(["solve", pa, pb, "--device", "cpu", "--checkpoint", ck, "--strategy",
+                  "allgather"])
+    dense, rhs = str(tmp_path / "D.npy"), str(tmp_path / "r.npy")
+    np.save(dense, np.eye(8, dtype=np.float32))
+    np.save(rhs, np.ones(8, np.float32))
+    with pytest.raises(NotImplementedError, match="M14 step 6"):
+        cli.main(["solve", dense, rhs, "--device", "cpu", "--checkpoint", ck, "--strategy",
+                  "overlap"])
+    with pytest.raises(ValueError, match="method='cg'"):
+        cli.main(["solve", dense, rhs, "--device", "cpu", "--checkpoint", ck, "--method",
+                  "pipelined"])
+    assert not os.path.exists(ck) and not torch.distributed.is_initialized()

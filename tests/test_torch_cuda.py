@@ -2160,3 +2160,64 @@ def test_m12_minres_on_card_matches_the_plain_route(cuda_device, pc):
     # Hundreds of f32 Lanczos laps: two summation orders (K1 and K3 against
     # torch.mv and torch.dot) end within 3% of each other.
     assert abs(int(res.iterations) - int(ref.iterations)) <= max(1, 3 * int(ref.iterations) // 100)
+
+
+# ---- M13: the serial checkpoint; M14 step 1: sharded WELL ----------------------
+
+from tpucg_torch.solver.checkpoint import cg_solve_checkpointed  # noqa: E402
+
+
+@pytest.fixture
+def fem300k_two_level(cuda_device):
+    """FEM 300k (mesh order) promoted to WELL, with the two-level cycle of
+    ``chip_smoke.py``'s phase 21 (agg 64, Chebyshev smoother)."""
+    A, b, _ = fem_p1_system(300_000, seed=0)
+    op = best_sparse_operator(A, device=cuda_device)
+    tl = build_two_level(A, agg_size=64, npad=op.padded_n, smooth_degree=2, device=cuda_device)
+    return A, b, op, tl
+
+
+def test_m13_well_two_level_kill_and_resume_on_card(fem300k_two_level, tmp_path):
+    # At 5e-2 ||b|| (above FEM 300k's f32 floor, ~1.9e-2): the segmented
+    # solve, a solve killed at a segment boundary and resumed from its file,
+    # and cg_solve take the same laps and x bit for bit; K13, K3 and K2 run,
+    # no plain version.
+    A, b, op, tl = fem300k_two_level
+    assert isinstance(op, WellOperator)
+    kw = dict(tol=5e-2 * float(np.linalg.norm(b)), maxiter=4000, two_level=tl)
+    seg, moved = _m9_counted(lambda: cg_solve_checkpointed(op, b, segment_iters=32, **kw))
+    k = int(seg.iterations)
+    assert bool(seg.converged) and k % TRUE_CHECK_EVERY == 0 and k >= 2 * TRUE_CHECK_EVERY
+    assert all(moved[w] > 0 for w in ("well_spmv_cuda", "dot_cuda", "fused_update_cuda"))
+    assert all(c == 0 for w, c in moved.items() if w.endswith("_torch"))
+    plain = cg_solve(op, b, **kw)
+    assert int(plain.iterations) == k and _same_bits(plain.x, seg.x)
+    ck = str(tmp_path / "fem.npz")
+    kill = (k // 2) // TRUE_CHECK_EVERY * TRUE_CHECK_EVERY
+    part = cg_solve_checkpointed(op, b, segment_iters=16, checkpoint_path=ck,
+                                 **dict(kw, maxiter=kill))
+    assert int(part.iterations) == kill and not bool(part.converged)
+    res = cg_solve_checkpointed(op, b, segment_iters=32, checkpoint_path=ck, **kw)
+    assert int(res.iterations) == k and _same_bits(res.x, seg.x)
+    assert res.x.device == op.device
+
+
+@pytest.mark.parametrize("storage", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("pc", ["none", "jacobi", "poly"])
+def test_m14_one_nccl_rank_sharded_well_equals_the_serial_route(nccl_one_rank, pc, storage):
+    # The shuffled geometric graph (one stored entry a diagonal): one rank's
+    # WELL pack is the serial promotion's, so the sharded solve (K13 on the
+    # gathered x, K3 and K2; the lap's tail and p's update in torch ops)
+    # equals the serial lap route bit for bit.
+    from tpucg_torch.solver.sharded import sharded_operator_cg_solve
+
+    dev = nccl_one_rank.device
+    A, b, _ = random_geometric_spd(50_000, seed=0, avg_degree=12.0, shuffle=True)
+    kw = dict(tol=1e-5 * float(np.linalg.norm(b)), maxiter=4000, precondition=pc)
+    want = cg_solve(WellOperator.from_csr(A, device=dev, storage_dtype=storage), b, **kw)
+    got, moved = _m9_counted(lambda: sharded_operator_cg_solve(
+        A, b, mesh=nccl_one_rank, storage_dtype=storage, **kw))
+    assert bool(got.converged) and int(got.iterations) == int(want.iterations)
+    assert _same_bits(got.x, want.x)
+    assert all(moved[w] > 0 for w in ("well_spmv_cuda", "dot_cuda", "fused_update_cuda"))
+    assert all(c == 0 for w, c in moved.items() if w.endswith("_torch") and w != "p_update_torch")

@@ -7,6 +7,8 @@ rounding carries over solves (tpucg's own round-trip bound), x within 1e-4
 of max |x|; the A-orthonormal basis equals tpucg's within 1e-5, and a
 ``RecyclingCG`` state saved by either package loads in the other."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -251,10 +253,18 @@ def test_recycling_with_two_level_on_fem_matches_tpucg():
     assert port._basis is not None and port._basis.m == 2
 
 
-def test_recycling_refusals():
+def test_recycling_refusals(tmp_path):
     A, _ = _clustered_spd(n=128, seed=40)
     with pytest.raises(NotImplementedError, match="M14 step 5"):
         RecyclingCG(A, mesh=object(), device=CPU)
-    with pytest.raises(NotImplementedError, match="M13"):
-        RecyclingCG(A, device=CPU).solve(np.ones(128, np.float32), checkpoint_path="x.npz")
+    # checkpoint_path= (M13) runs: the solve of the plain sequence, its file
+    # removed on convergence, its solution admitted.
+    b = np.ones(128, np.float32)
+    ck = str(tmp_path / "x.npz")
+    rec = RecyclingCG(A, device=CPU, tol=1e-4 * float(np.linalg.norm(b)), maxiter=1024)
+    res = rec.solve(b, checkpoint_path=ck, segment_iters=4)
+    want = cg_solve(A, b, device=CPU, tol=1e-4 * float(np.linalg.norm(b)), maxiter=1024)
+    assert bool(res.converged) and int(res.iterations) == int(want.iterations)
+    assert torch.equal(res.x, want.x) and not os.path.exists(ck)
+    assert rec._basis is not None and rec._basis.m == 1
     assert isinstance(RecyclingCG(A, device=CPU).op, DenseOperator)

@@ -5,8 +5,9 @@ one rank against the port's serial solve.
 Worlds of 2 and 4 ranks are spawned once for the module
 (``_torch_helpers.run_world``, a file rendezvous in the test's temporary
 directory); every rank runs every case of ``DENSE_CASES`` (with both
-strategies) and ``OPERATOR_CASES``, and rank 0 returns the results. tpucg
-runs each case on ``make_mesh(P)`` of the 8 CPU devices that
+strategies) and ``OPERATOR_CASES`` (sharded WELL among them: a bare CSR,
+which both packages pack into row blocks of WELL), and rank 0 returns the
+results. tpucg runs each case on ``make_mesh(P)`` of the 8 CPU devices that
 ``tests/conftest.py`` forces. Tolerances follow tpucg's own tests: laps
 equal where they hold its sharded solve to its serial one, within one where
 they allow one, and x within their tolerances, measured against max |x| for
@@ -38,7 +39,12 @@ from tpucg.solver.operators import PoissonOperator as JPoissonOperator
 from tpucg.solver.sharded import sharded_cg_solve as j_sharded_cg_solve
 from tpucg.solver.sharded import sharded_operator_cg_solve as j_sharded_operator_cg_solve
 from tpucg_torch.comm.mesh import Mesh, init_distributed, make_mesh
-from tpucg_torch.io.generator import generate_spd_system, poisson3d_csr, poisson3d_dia
+from tpucg_torch.io.generator import (
+    generate_spd_system,
+    poisson3d_csr,
+    poisson3d_dia,
+    random_geometric_spd,
+)
 from tpucg_torch.io.partitioner import RowPartition, pad_system
 from tpucg_torch.solver.cg import cg_solve
 from tpucg_torch.solver.operators import (
@@ -100,8 +106,9 @@ def _jax_case(name, strategy, P):
     elif kind == "DIAMatrix":
         op = jfmt.DIAMatrix(offsets=op.offsets, data=op.data, shape=op.shape)
     elif kind == "CSRMatrix":
-        op = JEllOperator.from_csr(jfmt.CSRMatrix(indptr=op.indptr, indices=op.indices,
-                                                  data=op.data, shape=op.shape))
+        op = jfmt.CSRMatrix(indptr=op.indptr, indices=op.indices, data=op.data, shape=op.shape)
+        if not s.get("well"):  # a bare CSR is tpucg's sharded WELL
+            op = JEllOperator.from_csr(op)
     else:
         op = JBsrOperator.from_bsr(jfmt.BSRMatrix(indptr=op.indptr, indices=op.indices,
                                                   data=op.data, shape=op.shape))
@@ -119,7 +126,17 @@ EQUAL_LAPS = ("golden_4x4", "spectrum_n96", "record_n96", "poisson_m8",
               "poisson_m9_pad_planes", "ell_m7")
 
 
+# Unpreconditioned CG on tpucg's FEM 6000 fixture stops where its residual
+# curve is flat, so the stop moves with the sums' rounding: tpucg's own
+# sharded solve takes 1712, 1659, 1631 and 1548 laps on meshes of 1, 2, 4 and
+# 8 devices (x within 5e-5 of max |x| across them). The port is held within
+# that spread (10%), x within 1e-4 as for every case.
+SPREAD_LAPS = {"well_fem6000": 0.10}
+
+
 def _laps_ok(name, got, want):
+    if name in SPREAD_LAPS:
+        return abs(got - want) <= SPREAD_LAPS[name] * want
     return got == want if name in EQUAL_LAPS else abs(got - want) <= 1
 
 
@@ -161,8 +178,15 @@ def test_operator_matches_tpucg(worlds, name, P):
     assert _laps_ok(name, k, jk), (k, jk)
     bound = 1e-3 if name == "dia_m16_bf16" else 1e-4
     assert scaled_err(got["x"], jx) <= bound
-    x_true = sharded_system(OPERATOR_CASES[name][0])["x_true"]
-    assert scaled_err(got["x"], x_true) <= 2e-3
+    s = sharded_system(OPERATOR_CASES[name][0])
+    if "x_true" in s:
+        assert scaled_err(got["x"], s["x_true"]) <= 2e-3
+    else:
+        # The irregular systems (tpucg's test_sharded_sparse.py:402-409):
+        # the float64 residual within 2 tol.
+        A, b = s["op"], s["b"]
+        tol = OPERATOR_CASES[name][1].get("tol_rel", 1e-5) * float(np.linalg.norm(b))
+        assert np.linalg.norm(b - A.matvec(got["x"].astype(np.float64))) <= 2 * tol
 
 
 def test_worlds_sum_in_rank_order(worlds):
@@ -220,6 +244,66 @@ def test_one_rank_equals_serial_operator(one_rank, kind, pc):
     assert torch.equal(got.x, want.x)
 
 
+@pytest.mark.parametrize("storage", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("pc", ["none", "jacobi", "poly"])
+def test_one_rank_well_equals_serial(one_rank, pc, storage):
+    # One rank's WELL pack is the serial promotion's (P = 1: the same rows,
+    # the same block size), so the solve is the serial WELL solve lap for
+    # lap and bit for bit. The shuffled geometric graph stores one entry a
+    # diagonal, so Jacobi's diagonal (the CSR's, summed in float64, as in
+    # tpucg's sharded solve) is the serial pack's too.
+    A, b, _ = random_geometric_spd(1500, seed=3, avg_degree=8.0, shuffle=True)
+    kw = dict(tol=1e-5 * float(np.linalg.norm(b)), maxiter=4 * A.shape[0], precondition=pc)
+    got = sharded_operator_cg_solve(A, b, mesh=one_rank, storage_dtype=storage, **kw)
+    want = cg_solve(WellOperator.from_csr(A, device="cpu", storage_dtype=storage), b, **kw)
+    assert bool(got.converged) and int(got.iterations) == int(want.iterations)
+    assert torch.equal(got.x, want.x)
+
+
+@pytest.mark.parametrize("P", [1, 2, 3, 4])
+@pytest.mark.parametrize("case", ["fem", "geometric"])
+def test_csr_to_well_sharded_is_tpucgs(case, P):
+    # tpucg's test_sharded_sparse.py:383 and :417: n is no multiple of
+    # P * 128, so every shard count pads; the stacked arrays and statics
+    # equal tpucg's bit for bit, and each shard's pack applied to the whole
+    # x gives its row block of A x.
+    from tpucg.sparse.well import csr_to_well_sharded as j_csr_to_well_sharded
+    from tpucg_torch.io.generator import fem_p1_system
+    from tpucg_torch.interop import well_shards_from_numpy
+    from tpucg_torch.kernels.gather_spmv import well_spmv_torch
+    from tpucg_torch.sparse.well import LANE, csr_to_well, csr_to_well_sharded
+
+    A = (fem_p1_system(6000, seed=1)[0] if case == "fem"
+         else random_geometric_spd(3000, seed=7, avg_degree=10.0)[0])
+    n = A.shape[0]
+    assert n % (P * 128)
+    stacked, st = csr_to_well_sharded(A, P)
+    jstacked, jst = j_csr_to_well_sharded(A, P)
+    assert st == jst and sorted(stacked) == sorted(jstacked)
+    for key in stacked:
+        assert stacked[key].dtype == jstacked[key].dtype, key
+        np.testing.assert_array_equal(stacked[key], jstacked[key], err_msg=key)
+    rps, npad = st["rps"], st["npad"]
+    assert rps % 128 == 0 and npad == P * rps >= n
+    if P == 1:
+        w = csr_to_well(A)
+        for key in ("vals", "lidx", "gidl", "wrow", "sgb"):
+            np.testing.assert_array_equal(stacked[key][0], getattr(w, key), err_msg=key)
+    x = np.random.default_rng(1).standard_normal(npad).astype(np.float32)
+    x[n:] = 0.0
+    y_ref = A.matvec(x[:n].astype(np.float64))
+    for rank in range(P):
+        blk = well_shards_from_numpy(jstacked, jst, rank, n=n)
+        assert (blk.kind, blk.n, blk.npad, blk.m) == ("well", n, npad, rps)
+        vals, lidx, gidl, wrow, sgb, rows = blk.arrays
+        y = well_spmv_torch(vals, lidx, gidl, wrow, sgb, torch.from_numpy(x).reshape(-1, LANE),
+                            st["bg"], st["nsg"], index=rows).reshape(-1)[:rps].numpy()
+        lo, hi = rank * rps, min((rank + 1) * rps, n)
+        if lo < n:
+            np.testing.assert_allclose(y[:hi - lo], y_ref[lo:hi], rtol=1e-5, atol=1e-5)
+        np.testing.assert_array_equal(y[max(hi - lo, 0):], x[max(hi, lo):(rank + 1) * rps])
+
+
 def test_distribute_system_layouts(one_rank):
     A, b, x0 = generate_spd_system(50, seed=2)
     part = RowPartition(n=50, num_shards=1, align=ROW_ALIGN)
@@ -253,11 +337,16 @@ def test_refusals_name_their_roadmap_item(one_rank):
             sharded_operator_cg_solve(op, b4, mesh=one_rank, **kw)
     with pytest.raises(NotImplementedError, match="M14 step 5"):
         sharded_operator_cg_solve(op, b4, mesh=one_rank, two_level=object())
+    # A CSR is sharded WELL (irregular sparsity) and solves; a serial WELL
+    # pack cannot be re-sharded: tpucg's TypeError (sharded.py:2388-2392).
     csr = poisson3d_csr(4)
-    with pytest.raises(NotImplementedError, match="shard packers"):
-        sharded_operator_cg_solve(csr, b4, mesh=one_rank)
-    with pytest.raises(NotImplementedError, match="shard packers"):
+    res = sharded_operator_cg_solve(csr, b4, mesh=one_rank, tol=1e-5 * 8.0)
+    assert bool(res.converged)
+    np.testing.assert_allclose(csr.matvec(res.x.numpy().astype(np.float64)), b4, atol=1e-4)
+    with pytest.raises(TypeError, match="CSR"):
         sharded_operator_cg_solve(WellOperator.from_csr(csr, device="cpu"), b4, mesh=one_rank)
+    with pytest.raises(NotImplementedError, match="M14 step 2"):
+        sharded_operator_cg_solve(csr, b4, mesh=one_rank, precondition="block_jacobi")
     with pytest.raises(ValueError, match="bfloat16"):
         sharded_operator_cg_solve(op, b4, mesh=one_rank, storage_dtype=torch.bfloat16)
     no_main = DiaOperator(data=torch.ones(2, 128), offsets=(-1, 1), n=128)

@@ -27,12 +27,15 @@ two-level (and, with ``coarse_max``, multilevel) preconditioner for
 laps; ``cg_solve_deflated`` and ``RecyclingCG`` deflate with a basis
 (``build_deflation_basis``, ``DeflationBasis``) or with a sequence's own
 solutions; ``minres_solve`` solves symmetric indefinite systems
-(``abs_inv_blocks`` for block Jacobi there). All of these are serial.
-``sharded_cg_solve`` and ``sharded_operator_cg_solve`` distribute a solve's
-rows over the ranks of a ``torch.distributed`` world (``make_mesh``,
-``init_distributed``): dense with the allgather or overlap-ring exchange,
-Poisson on slabs with plane halos (K9), DIA on row blocks with band halos
-(K7), ELL and BSR. The package imports neither ``jax`` nor ``tpucg``.
+(``abs_inv_blocks`` for block Jacobi there); ``cg_solve_checkpointed``
+writes a long solve's state every few laps (``save_checkpoint``,
+``load_checkpoint``: tpucg's ``.npz``) and resumes it bit for bit. All of
+these are serial. ``sharded_cg_solve`` and ``sharded_operator_cg_solve``
+distribute a solve's rows over the ranks of a ``torch.distributed`` world
+(``make_mesh``, ``init_distributed``): dense with the allgather or
+overlap-ring exchange, Poisson on slabs with plane halos (K9), DIA on row
+blocks with band halos (K7), ELL and BSR, and an irregular CSR as row
+blocks of WELL (K13 on each rank's rows of the gathered x). The package imports neither ``jax`` nor ``tpucg``.
 """
 
 from tpucg_torch.comm.mesh import Mesh, init_distributed, make_mesh
@@ -56,6 +59,11 @@ from tpucg_torch.solver.cg import (
     cg_solve_block,
     cg_solve_multi,
     spectral_interval,
+)
+from tpucg_torch.solver.checkpoint import (
+    cg_solve_checkpointed,
+    load_checkpoint,
+    save_checkpoint,
 )
 from tpucg_torch.solver.deflation import (
     DeflationBasis,
@@ -106,6 +114,9 @@ __all__ = [
     "RecyclingCG",
     "build_deflation_basis",
     "cg_solve_deflated",
+    "cg_solve_checkpointed",
+    "load_checkpoint",
+    "save_checkpoint",
     "abs_inv_blocks",
     "minres_solve",
     "DistributedSystem",

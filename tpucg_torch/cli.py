@@ -22,11 +22,19 @@ blocks taken from its CSR).
 (with ``--smooth-degree`` and ``--coarse-max``) on a sparse ``.mtx``, and
 ``--method minres``.
 
+``solve --checkpoint PATH --segment-iters N`` runs tpucg's segmented
+solve (``cg_solve_checkpointed``) on a dense or ``.mtx`` system, serially:
+the state goes to PATH every N laps, a run that stops unconverged (rc 3)
+leaves the file, and the same command run again resumes from it. The file
+is tpucg's, so either package's CLI resumes the other's.
+
 ``solve --strategy allgather|overlap`` and ``bench --strategy ...`` /
 ``bench --compare-strategies`` (serial, allgather, overlap on the dense
 system, as tpucg's ``cli.py:945-976, 1014-1021``) run the distributed
 solves over ``torch.distributed``: under ``torchrun --nproc-per-node P`` on
-its world, else as a world of one rank. Only rank 0 prints.
+its world, else as a world of one rank; an irregular ``.mtx`` (promoted to
+WELL) goes to the ranks as its CSR, packed into row blocks of WELL. Only
+rank 0 prints.
 """
 
 from __future__ import annotations
@@ -62,6 +70,25 @@ def _check_solve_options(args) -> None:
                                       or args.interval is not None):
         raise NotImplementedError("the distributed pipelined, CA and Chebyshev methods and "
                                   "block Jacobi are ROADMAP M14")
+    if args.checkpoint is not None and args.interval is not None:
+        raise SystemExit("--interval does not compose with --checkpoint")
+
+
+def _refuse_mesh_checkpoint(args) -> None:
+    if args.checkpoint is not None and args.strategy != "serial":
+        raise NotImplementedError("solve --checkpoint with --strategy (the multi-process "
+                                  "checkpoint) is ROADMAP M14 step 6")
+
+
+def _checkpoint_kw(args) -> dict:
+    """``cg_solve_checkpointed``'s options from the command line (method and
+    precondition forwarded, so its refusals fire), with tpucg's note that
+    no residual history is recorded."""
+    if args.residual_history:
+        print("note: --residual-history is not recorded by checkpointed solves")
+    return dict(tol=args.tol, maxiter=args.maxiter, kernel=args.kernel, method=args.method,
+                precondition=args.precondition, pc_block_size=args.pc_block_size,
+                segment_iters=args.segment_iters, checkpoint_path=args.checkpoint)
 
 
 def _minres(op, b, x0, args):
@@ -165,6 +192,7 @@ def _cmd_solve_mtx(args, t_total0) -> int:
     from tpucg_torch.io.mmio import load_matrix_market
     from tpucg_torch.kernels.dispatch import canonical_device
     from tpucg_torch.solver.cg import cg_solve
+    from tpucg_torch.solver.checkpoint import cg_solve_checkpointed
     from tpucg_torch.solver.operators import DenseOperator, best_sparse_operator
     from tpucg_torch.solver.sharded import sharded_cg_solve, sharded_operator_cg_solve
 
@@ -209,10 +237,6 @@ def _cmd_solve_mtx(args, t_total0) -> int:
             csr, backend="auto" if mesh else args.kernel, device="cpu" if mesh else device,
             pc_block_size=args.pc_block_size if args.precondition == "block_jacobi" else None)
         fmt = type(op).__name__
-        if mesh is not None and fmt == "WellOperator":
-            raise NotImplementedError(
-                f"--strategy {args.strategy} on an irregular matrix (promoted to WELL) needs "
-                "the WELL shard packers (csr_to_well_sharded), ROADMAP M14")
         if perm is not None:
             fmt += "+strength" if args.strength_order is not None else "+rcm"
         if args.storage == "bf16":
@@ -232,9 +256,20 @@ def _cmd_solve_mtx(args, t_total0) -> int:
     t0 = time.perf_counter()
     kw = dict(tol=args.tol, maxiter=args.maxiter, kernel=args.kernel,
               precondition=args.precondition, poly_degree=args.poly_degree,
-              record_residuals=_record(args))
+              record_residuals=args.checkpoint is None and _record(args))
     storage = torch.bfloat16 if args.storage == "bf16" else torch.float32
-    if args.method == "minres":  # serial only (_check_solve_options)
+    # The sharded WELL decomposition packs each rank's rows against global
+    # columns: it takes the source CSR (a serial pack cannot be re-sharded).
+    well_mesh = mesh is not None and fmt.startswith("WellOperator")
+    sh_target = csr if well_mesh else op
+    if args.checkpoint is not None:
+        if well_mesh and args.storage == "bf16":
+            raise SystemExit("--storage bf16 does not compose with --checkpoint on sharded "
+                             "irregular (WELL) systems yet")
+        _refuse_mesh_checkpoint(args)
+        res = cg_solve_checkpointed(op, b, x0, two_level=two_level, device=device,
+                                    **_checkpoint_kw(args))
+    elif args.method == "minres":  # serial only (_check_solve_options)
         res = _minres(op, b, x0, args)
     elif mesh is None:
         res = cg_solve(op, b, x0, fused=args.fused, two_level=two_level, **kw,
@@ -243,21 +278,26 @@ def _cmd_solve_mtx(args, t_total0) -> int:
         res = sharded_cg_solve(mat, b, x0, mesh=mesh, strategy=args.strategy,
                                storage_dtype=storage, **kw)
     else:
-        res = sharded_operator_cg_solve(op, b, x0, mesh=mesh, storage_dtype=storage, **kw)
+        res = sharded_operator_cg_solve(sh_target, b, x0, mesh=mesh, storage_dtype=storage, **kw)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     solve_s = time.perf_counter() - t0
     if mesh is not None and mesh.rank != 0:
         return 0 if bool(res.converged) else 3  # rank 0 reports and writes x
     print(f"system size          : {n} x {n}  [{fmt}]")
-    print(f"device               : {device} [{op.backend}]" if mesh is None else
-          f"strategy             : {args.strategy} [{mesh!r}]")
+    print(f"device               : {device} [{op.backend}]{_ck_note(args)}" if mesh is None
+          else f"strategy             : {args.strategy} [{mesh!r}]")
     print(f"data load (s)        : {load_s:.6f}  (parse, reordering)")
     print(f"operator build (s)   : {build_s:.6f}  (promotion, packing, placement"
           + (", two-level set-up)" if two_level is not None else ")"))
     print(f"CG solve (s)         : {solve_s:.6f}")
     print(f"total (s)            : {time.perf_counter() - t_total0:.6f}")
     return _report(args, res, perm, n)
+
+
+def _ck_note(args) -> str:
+    return ("" if args.checkpoint is None
+            else f" checkpointed every {args.segment_iters} iters")
 
 
 def _record(args) -> bool:
@@ -279,6 +319,9 @@ def _report(args, res, perm, n) -> int:
     print(f"iterations           : {int(res.iterations)}")
     print(f"final ||r||          : {float(res.residual_norm):.6e}")
     print(f"converged            : {bool(res.converged)}")
+    if args.checkpoint is not None and not bool(res.converged) and os.path.exists(
+            args.checkpoint):  # a stagnation stop is done: its file is removed
+        print(f"checkpoint retained  : {args.checkpoint} (re-run to resume)")
     if res.residual_history is not None:
         hist = res.residual_history.cpu().numpy()
         for i in range(int(res.iterations) + 1):
@@ -313,6 +356,7 @@ def cmd_solve(args) -> int:
     if args.two_level is not None:
         raise SystemExit("--two-level applies to sparse .mtx systems (dense systems converge in "
                          "O(10) laps already)")
+    _refuse_mesh_checkpoint(args)
     A, b, x0 = load_system(args.matrix, args.rhs, args.x0, n=args.n)
     n = A.shape[0]
     load_s = time.perf_counter() - t_total0
@@ -321,15 +365,20 @@ def cmd_solve(args) -> int:
     storage = torch.bfloat16 if args.storage == "bf16" else torch.float32
     kw = dict(tol=args.tol, maxiter=args.maxiter, kernel=args.kernel,
               precondition=args.precondition, poly_degree=args.poly_degree,
-              record_residuals=_record(args))
+              record_residuals=args.checkpoint is None and _record(args))
     t0 = time.perf_counter()
     if mesh is None:
         op = DenseOperator.create(A, backend=args.kernel, device=device, dtype=storage)
-        if args.method == "minres":
+        if args.checkpoint is not None:
+            # tpucg's _cmd_solve_checkpointed (cli.py:641-703), serially.
+            from tpucg_torch.solver.checkpoint import cg_solve_checkpointed
+
+            res = cg_solve_checkpointed(op, b, x0, device=device, **_checkpoint_kw(args))
+        elif args.method == "minres":
             res = _minres(op, b, x0, args)
         else:
             res = cg_solve(op, b, x0, fused=args.fused, **kw, **_method_kw(args))
-        where = f"{device} [{op.backend}]"
+        where = f"{device} [{op.backend}]{_ck_note(args)}"
     else:
         res = sharded_cg_solve(A, b, x0, mesh=mesh, strategy=args.strategy,
                                storage_dtype=storage, **kw)
@@ -648,6 +697,12 @@ def build_parser() -> argparse.ArgumentParser:
     ps.add_argument("--tol", type=float, default=1.0e-6)
     ps.add_argument("--maxiter", type=int, default=None)
     ps.add_argument("--residual-history", action="store_true")
+    ps.add_argument("--checkpoint", default=None, metavar="PATH",
+                    help="segmented solve with resumable .npz checkpoints at PATH (tpucg's "
+                         "file format; serial: the multi-process checkpoint is ROADMAP M14 "
+                         "step 6)")
+    ps.add_argument("--segment-iters", type=int, default=128, dest="segment_iters",
+                    help="laps per checkpoint segment")
     ps.add_argument("--print-solution", action="store_true")
     ps.add_argument("--output", default=None, help="write the solution to this file")
     ps.add_argument("--rcm", action="store_true",
@@ -667,8 +722,9 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=("serial", "allgather", "overlap", "summa"),
                     help="distributed row-block solve over torch.distributed (under "
                          "torchrun, or one rank): allgather or overlap for a dense A, "
-                         "the halo or gather decomposition of a DIA, ELL or BSR .mtx; "
-                         "summa (2-D) is ROADMAP M14")
+                         "the halo or gather decomposition of a DIA, ELL or BSR .mtx, "
+                         "row blocks of WELL for an irregular one; summa (2-D) is ROADMAP "
+                         "M14")
     ps.add_argument("--two-level", type=int, default=None, metavar="AGG",
                     help="two-level preconditioning with AGG-row contiguous aggregates (.mtx "
                          "sparse systems, method cg or pipelined, serial): the coarse-space "

@@ -8,7 +8,10 @@ give the port's state back in the same form, so a lap of either package can
 start where the other stopped. A ``PoissonOperator`` holds only its grid
 edge. A built two-level preconditioner (``TwoLevel``, recursively) and a
 deflation basis (``DeflationBasis``) come over the same way, so both
-packages can be held to the same preconditioner and basis.
+packages can be held to the same preconditioner and basis, and so do the
+stacked shard arrays of tpucg's sharded WELL (``csr_to_well_sharded``).
+A saved solve needs no converter: both packages write and read the same
+``.npz`` (``tpucg_torch.solver.checkpoint``).
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from tpucg_torch.solver.operators import (
     LinearOperator,
     padded_size,
 )
+from tpucg_torch.solver.sharded import well_shard_block
 from tpucg_torch.solver.twolevel import TwoLevel
 
 STATE_FIELDS = ("k", "x", "r", "p", "rsold", "rslast", "done")
@@ -110,6 +114,16 @@ def well_operator_from_numpy(vals, lidx, gidl, wrow, sgb, dvec, n: int, bg: int,
                         sgb=put(sgb, np.int32), dvec=put(dvec, np.float32), n=int(n),
                         bg=int(bg), nsg=int(nsg),
                         dblk=None if dblk is None else put(dblk, np.float32))
+
+
+def well_shards_from_numpy(stacked: Dict[str, np.ndarray], statics: Dict, rank: int,
+                           device="cpu", n=None, storage_dtype=torch.float32):
+    """One rank's block of the port's sharded WELL operator from tpucg's
+    ``csr_to_well_sharded`` output: ``stacked`` (P, ...) arrays and
+    ``statics`` (rps, npad, bg, nsg); slice [rank] on ``device`` with its
+    K13 layout. ``n`` is the logical size (default: the padded one)."""
+    return well_shard_block(stacked, statics, rank, statics["npad"] if n is None else n,
+                            device, storage_dtype)
 
 
 def ell_operator_from_numpy(values, indices, n: int, device="cpu") -> EllOperator:

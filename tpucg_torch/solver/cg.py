@@ -1720,7 +1720,8 @@ def cg_solve(
 
     ``A`` is a dense array or tensor, a sparse container (a ``CSRMatrix``
     becomes an ``EllOperator`` as in tpucg; ``best_sparse_operator`` picks a
-    format instead), or an operator (``DenseOperator``, ``DiaOperator``,
+    format instead, and ``cg_solve_checkpointed`` promotes a bare CSR through
+    it, as tpucg's does), or an operator (``DenseOperator``, ``DiaOperator``,
     ``PoissonOperator``, ``WellOperator``, ``BsrOperator``,
     ``EllOperator``). ``device``
     defaults to the device of a tensor or operator ``A``, else the card when

@@ -19,8 +19,8 @@ or K13 x k on the card, a GEMM for a dense A, as tpucg's vmap runs it.
 ``RecyclingCG`` solves a sequence of systems with one operator and
 recycles each admitted solution into the basis; its state saves to and
 loads from tpucg's ``.npz`` format under the probe-signature guard
-(``solver/checkpoint.py``). Its distributed form is ROADMAP M14 step 5, its
-checkpointed solve M13.
+(``solver/checkpoint.py``), and a solve of the sequence can be checkpointed
+(``solve(checkpoint_path=)``). Its distributed form is ROADMAP M14 step 5.
 """
 
 from __future__ import annotations
@@ -262,12 +262,20 @@ class RecyclingCG:
 
     def solve(self, b, x0=None, *, checkpoint_path=None, segment_iters: int = 128) -> CGResult:
         """Solve the next system of the sequence and admit its solution.
-        ``checkpoint_path`` (the segmented checkpointed solve) is ROADMAP
-        M13."""
+        ``checkpoint_path`` runs this solve through ``cg_solve_checkpointed``
+        (segments of ``segment_iters`` laps, resumable from the file) with
+        the sequence's basis and ``two_level``: the recurrence of the solve
+        without it. With ``save_state``/``load_state`` an interrupted
+        sequence resumes warm: the stack restores the deflation space, the
+        file the solve in flight."""
         if checkpoint_path is not None:
-            raise NotImplementedError("RecyclingCG.solve(checkpoint_path=...) (the segmented "
-                                      "checkpointed solve) is ROADMAP M13")
-        if self._basis is not None:
+            from tpucg_torch.solver.checkpoint import cg_solve_checkpointed
+
+            res = cg_solve_checkpointed(self.op, b, x0, config=self.config,
+                                        checkpoint_path=checkpoint_path,
+                                        segment_iters=segment_iters, two_level=self.two_level,
+                                        basis=self._basis, device=self.device)
+        elif self._basis is not None:
             res = cg_solve_deflated(self.op, b, basis=self._basis, x0=x0, config=self.config,
                                     two_level=self.two_level, device=self.device)
         else:

@@ -29,12 +29,14 @@ The exchanges:
 - Poisson: the slab decomposition, one x-plane from each neighbour (K9);
 - DIA: the band halo, ``halo_length(offsets)`` elements of x from each
   neighbour (K7);
+- WELL (an irregular CSR, ``csr_to_well_sharded``): x gathered whole,
+  then K13 for the rank's rows, whose pack addresses global columns;
 - ELL and BSR: x gathered whole, then tpucg's XLA products as plain torch
   ops (tpucg has no Pallas kernel for them, so none is owed).
 
 ``x`` comes back whole on every rank. Methods other than ``"cg"``, block
-Jacobi, 2-D meshes, sharded WELL and the two-level preconditioner name
-their ROADMAP item.
+Jacobi, 2-D meshes and the two-level preconditioner name their ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -57,6 +59,13 @@ from tpucg_torch.kernels.blas1 import (
     scratch_for,
 )
 from tpucg_torch.kernels.dispatch import cuda_stream, resolve_backend
+from tpucg_torch.kernels.gather_spmv import (
+    check_well,
+    check_well_values,
+    well_rows,
+    well_spmv_launch,
+    well_spmv_torch,
+)
 from tpucg_torch.kernels.matvec import check_matvec, gemv_launch, matvec_torch
 from tpucg_torch.kernels.spmv import (
     LANE,
@@ -237,7 +246,9 @@ class _ShardedOperator:
     """This rank's share of a sparse operator: its ``kind``, the logical and
     padded sizes, the block's arrays on the mesh's device, the block's
     diagonal for Jacobi (inverted on the device, as the serial solve inverts
-    it; None without Jacobi) and the kind's statics."""
+    it; None without Jacobi) and the kind's statics (for WELL, as tpucg
+    keeps them: ``m`` the rows a rank, ``offsets`` (bg, nsg); its arrays
+    are the rank's packed arrays and their ``WellRows`` layout)."""
 
     kind: str
     n: int
@@ -300,6 +311,26 @@ def _operator_matvec(sop: _ShardedOperator, mesh: Mesh, backend: str) -> Callabl
                 dia_spmv_halo_launch(data, offs_np, x, lo, hi, out, _flag(act), stream)
             else:
                 out.copy_(dia_spmv_halo_torch(data, offs, x, lo, hi))
+            return out
+        return matvec
+    if sop.kind == "well":
+        # tpucg's WELL arm (sharded.py:1252-1271): the direction gathered
+        # whole (the pack's windows are global columns), then K13 for this
+        # rank's rows alone; the pack was checked against x's length when
+        # its layout was built (well_shard_block).
+        vals, lidx, gidl, wrow, sgb, rows = sop.arrays
+        bg, nsg = sop.offsets
+        x_full = torch.empty(sop.npad, dtype=_F32, device=dev)
+
+        def matvec(x, act):
+            mesh.all_gather(x_full, x)
+            out = _output(y, act)
+            if backend == "cuda":
+                well_spmv_launch(rows, x_full, out, blk, _flag(act), stream)
+            else:
+                y2 = well_spmv_torch(vals, lidx, gidl, wrow, sgb, x_full.reshape(-1, LANE), bg,
+                                     nsg, index=rows)
+                out.copy_(y2.reshape(-1)[:blk])
             return out
         return matvec
     # ELL and BSR: x gathered whole, then tpucg's XLA product as plain torch
@@ -517,15 +548,16 @@ def _prepare_sharded_operator(op, mesh: Mesh, config: CGConfig,
     kind_name = type(op).__name__
     if storage_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"storage_dtype must be float32 or bfloat16, got {storage_dtype}")
-    if kind_name in ("CSRMatrix", "WellOperator", "WellMatrix"):
-        raise NotImplementedError(
-            f"sharded {kind_name} (irregular sparsity: sharded WELL) needs the WELL shard "
-            "packers (csr_to_well_sharded), ROADMAP M14")
+    if kind_name in ("WellOperator", "WellMatrix"):
+        # tpucg's else branch (sharded.py:2388-2392): a serial pack holds no
+        # row blocks against global columns.
+        raise TypeError(f"sharded_operator_cg_solve cannot re-shard a serial {kind_name}: pass "
+                        "the source CSRMatrix (irregular -> sharded WELL)")
     if storage_dtype != torch.float32 and not (
-            isinstance(op, DiaOperator) or kind_name == "DIAMatrix"):
-        raise ValueError("storage_dtype=bfloat16 is supported for DIA operators (the stencil "
-                         "is matrix-free; ELL/BSR index arrays dominate their footprint), got "
-                         f"{kind_name}")
+            isinstance(op, DiaOperator) or kind_name in ("DIAMatrix", "CSRMatrix")):
+        raise ValueError("storage_dtype=bfloat16 is supported for DIA and WELL operators (the "
+                         "stencil is matrix-free; ELL/BSR index arrays dominate their "
+                         f"footprint), got {kind_name}")
     jacobi = config.precondition == "jacobi"
 
     def put(a, dtype=None):
@@ -564,6 +596,8 @@ def _prepare_sharded_operator(op, mesh: Mesh, config: CGConfig,
         diag = block[offsets.index(0)].to(_F32) if jacobi else None
         return _ShardedOperator("dia", n, npad, (block.to(storage_dtype).contiguous(),), diag,
                                 offsets=tuple(offsets))
+    if kind_name == "CSRMatrix":
+        return _well_block(op, mesh, jacobi, storage_dtype)
     if isinstance(op, EllOperator) or kind_name == "EllMatrix":
         values, indices = _host(op.values), _host(op.indices, np.int32)
         n = values.shape[0]
@@ -604,8 +638,56 @@ def _prepare_sharded_operator(op, mesh: Mesh, config: CGConfig,
             diag = put(blocks.sum(axis=1).reshape(-1).astype(np.float32))
         return _ShardedOperator("bsr", op.n, nbr_pad * bs,
                                 (put(values[rows]), put(indices[rows])), diag)
-    raise TypeError("sharded_operator_cg_solve supports Poisson, DIA, ELL and BSR operators, "
-                    f"got {kind_name}")
+    raise TypeError("sharded_operator_cg_solve supports Poisson, DIA, ELL and BSR operators "
+                    f"and CSRMatrix (irregular -> sharded WELL), got {kind_name}")
+
+
+def well_shard_block(stacked: dict, statics: dict, rank: int, n: int, device,
+                     storage_dtype=torch.float32, diag=None) -> _ShardedOperator:
+    """Rank ``rank``'s block of a sharded WELL operator of logical size
+    ``n`` from ``csr_to_well_sharded``'s ``(stacked, statics)`` (this
+    package's or tpucg's): slice [rank] of each stacked array on
+    ``device``, the values in ``storage_dtype`` (bf16 runs K13's bf16
+    instantiation), checked against x's length, and K13's layout of those
+    rows, built once. ``diag`` is the block's diagonal for Jacobi."""
+    if storage_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"storage_dtype must be float32 or bfloat16, got {storage_dtype}")
+    npad, bg, nsg = int(statics["npad"]), int(statics["bg"]), int(statics["nsg"])
+
+    def put(name, dtype):
+        return torch.from_numpy(np.ascontiguousarray(np.asarray(stacked[name][rank]),
+                                                     dtype=dtype)).to(device)
+
+    vals = put("vals", np.float32).to(storage_dtype)
+    lidx, gidl, wrow, sgb = (put(k, np.int8 if k == "lidx" else np.int32)
+                             for k in ("lidx", "gidl", "wrow", "sgb"))
+    check_well(vals, lidx, gidl, wrow, sgb, bg, nsg)
+    check_well_values(lidx, gidl, wrow, sgb, bg, nsg, npad // LANE)
+    rows = well_rows(vals, lidx, gidl, wrow, sgb, bg, nsg)
+    return _ShardedOperator("well", int(n), npad, (vals, lidx, gidl, wrow, sgb, rows), diag,
+                            m=int(statics["rps"]), offsets=(bg, nsg))
+
+
+def _well_block(csr, mesh: Mesh, jacobi: bool, storage_dtype) -> _ShardedOperator:
+    """tpucg's sharded WELL preparation (``sharded.py:2340-2379``): every
+    rank packs the row blocks on the host (``csr_to_well_sharded``) and
+    places its own; Jacobi's diagonal is the CSR's, summed in float64, 1
+    where it is 0 and on the identity tail."""
+    from tpucg_torch.sparse.well import csr_to_well_sharded
+
+    n = int(csr.shape[0])
+    stacked, st = csr_to_well_sharded(csr, mesh.size)
+    diag = None
+    if jacobi:
+        coo = csr.to_coo()
+        on = coo.row == coo.col
+        dv = np.zeros(n, np.float64)
+        np.add.at(dv, coo.row[on], coo.data[on].astype(np.float64))
+        d = np.ones(st["npad"], np.float32)
+        d[:n] = np.where(dv != 0, dv, 1.0).astype(np.float32)
+        rps = st["rps"]
+        diag = torch.from_numpy(d[mesh.rank * rps:(mesh.rank + 1) * rps]).to(mesh.device)
+    return well_shard_block(stacked, st, mesh.rank, n, mesh.device, storage_dtype, diag)
 
 
 def sharded_operator_cg_solve(
@@ -631,6 +713,12 @@ def sharded_operator_cg_solve(
     - ``DiaOperator`` / ``DIAMatrix``: 128-aligned row blocks with the band's
       reach of halo from each neighbour (K7); the slab in f32 or, with
       ``storage_dtype=torch.bfloat16``, bf16;
+    - ``CSRMatrix`` (irregular sparsity): row blocks of WELL
+      (``csr_to_well_sharded``: 128-row aligned, identity-padded, columns
+      global), x gathered whole, K13 on the rank's rows; the values in f32
+      or, with ``storage_dtype=torch.bfloat16``, bf16. A serial
+      ``WellOperator`` cannot be re-sharded and raises ``TypeError``: pass
+      its CSR;
     - ``EllOperator`` / ``EllMatrix`` and ``BsrOperator`` / ``BSRMatrix``:
       row blocks (identity-padded to P) and x gathered whole.
 

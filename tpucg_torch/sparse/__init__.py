@@ -12,7 +12,7 @@ from tpucg_torch.sparse.formats import (
     csr_to_ell,
 )
 from tpucg_torch.sparse.ordering import permute_csr, rcm_order, strength_order
-from tpucg_torch.sparse.well import WellMatrix, csr_to_well
+from tpucg_torch.sparse.well import WellMatrix, csr_to_well, csr_to_well_sharded, pad_well_shard
 
 __all__ = [
     "BSRMatrix",
@@ -25,6 +25,8 @@ __all__ = [
     "csr_to_dia",
     "csr_to_ell",
     "csr_to_well",
+    "csr_to_well_sharded",
+    "pad_well_shard",
     "permute_csr",
     "rcm_order",
     "strength_order",

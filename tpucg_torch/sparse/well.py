@@ -1,6 +1,7 @@
 """WELL, windowed gather-ELLPACK: tpucg's irregular-sparse format (a NumPy
 copy of ``tpucg.sparse.well``'s ``WellMatrix``, ``_auto_block_sublanes`` and
-``csr_to_well``; the shard packers come with ROADMAP slice F).
+``csr_to_well``, and its shard packers ``pad_well_shard`` and
+``csr_to_well_sharded``).
 
 The layout was chosen for the TPU, whose only fast data-dependent reads
 are whole-row DMA and the in-register lane shuffle. The port keeps it
@@ -298,3 +299,79 @@ def csr_to_well(csr, block_sublanes=None, groups_per_super: int = 64) -> WellMat
         block_sublanes=BS,
         groups_per_super=BG,
     )
+
+
+def pad_well_shard(w: WellMatrix, NS: int) -> dict:
+    """One shard's pack zero-padded to the mesh-wide sublane count ``NS``
+    (tpucg's): the padding stream blocks hold value 0 and the last
+    super-group id, so they add exact zeros. Returns the arrays of one
+    shard in ``csr_to_well_sharded``'s stacked layout, without the shard
+    axis."""
+    BS = w.block_sublanes
+    NB = NS // BS
+    nsg = w.n_supergroups
+
+    def pad(a, shape, dtype, fill=0):
+        out = np.full(shape, fill, dtype)
+        out[: a.shape[0]] = a
+        return out
+
+    return dict(
+        vals=pad(w.vals, (NS, LANE), np.float32),
+        lidx=pad(w.lidx, (NS, LANE), np.int8),
+        gidl=pad(w.gidl, (NB, BS), np.int32),
+        wrow=pad(w.wrow, (NS // CHUNK,), np.int32),
+        sgb=pad(w.sgb, (NB,), np.int32, fill=nsg - 1),
+    )
+
+
+def csr_to_well_sharded(csr, num_shards: int, block_sublanes=None,
+                        groups_per_super: int = 64):
+    """Row blocks of a square CSR as WELL packs of one shape, stacked on a
+    leading shard axis (tpucg's; rank s takes slice [s] of each array).
+
+    Each shard owns ``rps = ceil(n / (P * 128)) * 128`` contiguous rows;
+    rows past n get the identity tail at their global diagonal, so the
+    padded operator is blockdiag(A, I). Columns stay global: the sharded
+    matvec gathers x whole. The packs are zero-padded to the largest
+    shard's sublane count. ``block_sublanes=None`` lets shard 0's pick
+    (``_auto_block_sublanes``) govern every shard. Returns ``(stacked,
+    statics)``: ``stacked`` a dict of (P, ...) host arrays (vals f32, lidx
+    int8, gidl, wrow, sgb int32), ``statics`` rps, npad, bg and nsg."""
+    from tpucg_torch.sparse.formats import COOMatrix
+
+    n_rows, n_cols = csr.shape
+    if n_rows != n_cols:
+        raise ValueError(f"sharded WELL needs a square matrix, got {csr.shape}")
+    P = int(num_shards)
+    rps = -(-n_rows // (P * LANE)) * LANE
+    npad = P * rps
+
+    rows = np.repeat(np.arange(n_rows, dtype=np.int64), np.diff(csr.indptr))
+    cols = csr.indices.astype(np.int64)
+    vals = csr.data.astype(np.float32)
+    if npad != n_rows:  # the identity tail at the global diagonal
+        tail = np.arange(n_rows, npad, dtype=np.int64)
+        rows = np.concatenate([rows, tail])
+        cols = np.concatenate([cols, tail])
+        vals = np.concatenate([vals, np.ones(tail.size, np.float32)])
+
+    shard_of = rows // rps
+    wells = []
+    for s in range(P):
+        sel = shard_of == s
+        wells.append(csr_to_well(
+            COOMatrix(row=rows[sel] - s * rps, col=cols[sel], data=vals[sel],
+                      shape=(rps, npad)).to_csr(),
+            block_sublanes=block_sublanes, groups_per_super=groups_per_super))
+        if block_sublanes is None:
+            # One BS for every shard (the stacked shapes agree): shard 0's.
+            block_sublanes = wells[0].block_sublanes
+    nsg = wells[0].n_supergroups
+    if any(w.n_supergroups != nsg for w in wells):
+        raise AssertionError("the shards' super-group counts differ")
+    NS = max(w.n_sublanes for w in wells)
+    stacked = {name: np.stack([pad_well_shard(w, NS)[name] for w in wells])
+               for name in ("vals", "lidx", "gidl", "wrow", "sgb")}
+    statics = dict(rps=rps, npad=npad, bg=groups_per_super, nsg=nsg)
+    return stacked, statics
