@@ -265,6 +265,29 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    removed), equal to the command without it. Every drive launches K13 (or
    K1), K3 and K2 and no plain version.
 
+23. M14 steps 2-3 (``m14_mesh_phase``): a world of one NCCL rank on the
+   card at full width runs tpucg's sharded methods and block Jacobi,
+   ``sharded_cg_solve_multi`` and ``sharded_cg_solve_block``, each driven
+   with the counts at 0 and held to the serial solve on the card (laps
+   equal, FEM within 1%; the same converged; x within 1e-4 of max |x|,
+   2e-3 for FEM's Jacobi solves stopped early, printed as bit-identical
+   where it is): dense n = 8192 with allgather and overlap,
+   pipelined, CA (s = 3), Chebyshev and block Jacobi (bs 64; K1, K3, K2);
+   Poisson m = 128 slabs (K9) pipelined with Jacobi, Chebyshev on a cached
+   ``spectral_interval`` and block Jacobi; DIA m = 128 (K7) block Jacobi;
+   FEM 300k as sharded WELL (K13) block Jacobi and pipelined Jacobi (capped
+   at 300 laps: its true residual's f32 floor lies above tol), geometric
+   100k pipelined Jacobi; multi-RHS at k = 8 on dense n = 8192 (a GEMM on
+   the gathered block), Poisson m = 128 (the (halo, 8) exchange, the plain
+   batched stencil) and FEM 300k WELL (K13 x k, capped at 1,000 laps);
+   block CG at k = 8 on dense n = 8192 (none, Jacobi) and FEM 300k WELL
+   Jacobi (K13 x k). Then the transport calls and host ms a lap, pipelined against
+   classic (one gather and one ``rank_sum`` against one and two); then a
+   gloo world of 2 ranks on cuda:0: dense n = 8192 pipelined and block
+   Jacobi against the one-rank solves, the geometric 100k graph's multi-RHS
+   and block CG at k = 8 (K13 x k) against the serial ones, laps within
+   one, x within 1e-4 of max |x|, and the transport a lap there.
+
 The line before last is a JSON object of the kernels (K1-K14, K6xk, K8xk,
 K13xk and P1-P7:
 launches on the main path, error against the plain version, times, the
@@ -299,6 +322,291 @@ def phase(name):
         print(f"== {name}: FAILED", flush=True)
         raise
     print(f"== {name}: ok ({time.perf_counter() - t0:.2f} s)", flush=True)
+
+
+def m14_mesh_phase(dev, tag, drive, A_fem, b_fem, flagship=None, n=8192, m=128,
+                   n_geo=100_000, backend="nccl"):
+    """Phase 23: M14 steps 2 and 3 on the mesh, a world of one NCCL rank on
+    the card at full width and a gloo world of 2 ranks on cuda:0 (see the
+    module's docstring). ``drive`` runs one call with every launch count at
+    0 just before it and returns its result and the counts just after;
+    ``flagship`` is the dense n = 8192 (DenseOperator, b, x0) on the card
+    when phase 5 made it. ``n``, ``m``, ``n_geo`` and ``backend`` are the
+    phase's sizes and the one-rank world's transport (smaller ones, on a
+    CPU mesh with gloo, rehearse its flow). Returns the launches of K7, K9,
+    K13 and K13 x k that its drives made on the main path (the kernels line
+    adds them)."""
+    import numpy as np
+    import torch
+
+    from _torch_helpers import card_methods_worker, run_world, scaled_err
+    from tpucg_torch.comm.mesh import init_distributed, make_mesh
+    from tpucg_torch.config import CGConfig
+    from tpucg_torch.io.generator import generate_spd_system, poisson3d_dia, random_geometric_spd
+    from tpucg_torch.kernels.stencil import poisson3d_torch
+    from tpucg_torch.solver.cg import (
+        cg_solve,
+        cg_solve_block,
+        cg_solve_multi,
+        spectral_interval,
+    )
+    from tpucg_torch.solver.operators import (
+        DenseOperator,
+        DiaOperator,
+        PoissonOperator,
+        WellOperator,
+        best_sparse_operator,
+    )
+    from tpucg_torch.solver.sharded import (
+        distribute_system,
+        sharded_cg_solve,
+        sharded_cg_solve_block,
+        sharded_cg_solve_multi,
+        sharded_operator_cg_solve,
+    )
+
+    t_phase = time.perf_counter()
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    added = dict.fromkeys(("dia_spmv_halo_cuda", "poisson3d_slab_cuda", "well_spmv_cuda",
+                           "well_spmv_multi_cuda"), 0)
+    # The sharded lap's tail and p's update are torch ops (TorchLap): the
+    # only plain versions a sharded solve runs.
+    lap_plain = ("lap_tail_torch", "p_update_torch")
+    init_distributed(backend=backend, device=dev)
+    mesh = make_mesh(device=dev, backend=backend)
+    print(f"{mesh!r}")
+    results = {}
+
+    def held(label, solve, serial, need, laps_pct=0, x_tol=1e-4):
+        """One sharded solve driven with the counts at 0, held to the serial
+        solve on the card: laps equal (within ``laps_pct`` per cent, at
+        least one lap, where it is nonzero), the same ``converged``, x within
+        ``x_tol`` of max |x|; the kernels ``need`` launched and no plain
+        version but the lap's; ms a solve (host clock, set-up included)
+        beside the serial solve's."""
+        t0 = time.perf_counter()
+        res, launched = drive(solve)
+        ms = (time.perf_counter() - t0) * 1e3
+        sync()
+        t0 = time.perf_counter()
+        ser = serial()
+        sync()
+        ms_ser = (time.perf_counter() - t0) * 1e3
+        k = res.iterations.reshape(-1).tolist()
+        ks = ser.iterations.reshape(-1).tolist()
+        slack = [max(1, round(laps_pct * c / 100)) if laps_pct else 0 for c in ks]
+        require(all(abs(a - c) <= e for a, c, e in zip(k, ks, slack)),
+                f"{label}: laps {k}, serial {ks}")
+        require(torch.equal(res.converged.reshape(-1).cpu(), ser.converged.reshape(-1).cpu()),
+                f"{label}: converged {res.converged.tolist()}, serial {ser.converged.tolist()}")
+        x, xs = res.x.reshape(res.x.shape[0], -1), ser.x.reshape(ser.x.shape[0], -1)
+        e = float(((x - xs).abs().max(0).values / xs.abs().max(0).values).max())
+        require(e <= x_tol, f"{label}: x {e:.3e} of max |x| from the serial solve's")
+        require(all(launched[w] > 0 for w in need), f"{label}: launches {launched}")
+        require(all(c == 0 for w, c in launched.items()
+                    if w.endswith("_torch") and w not in lap_plain),
+                f"{label}: a plain version ran ({launched})")
+        for w in added:
+            added[w] += launched[w]
+        results[label] = res
+        ran = {w: c for w, c in launched.items() if c}
+        print(f"{label}: laps {k if len(k) > 1 else k[0]} (serial {ks if len(ks) > 1 else ks[0]}"
+              f"), converged {res.converged.reshape(-1).tolist()}, x "
+              + ("bit-identical" if torch.equal(x, xs) else f"within {e:.3e} of max |x|")
+              + f"; {ms:.1f} ms a solve with set-up (host clock), serial {ms_ser:.1f} ms; "
+              "launches " + ", ".join(f"{w} {c}" for w, c in sorted(ran.items())) + f" {tag}")
+        return res
+
+    # Dense n = 8192 (K1, K3, and K2 with block Jacobi's PCG), both
+    # strategies, at phase 19's tolerances.
+    if flagship is None:
+        A, b, x0 = generate_spd_system(n, seed=0)
+        op = DenseOperator.create(A, device=dev)
+        bd, x0d = torch.as_tensor(b, device=dev), torch.as_tensor(x0, device=dev)
+    else:
+        op, bd, x0d = flagship
+    A = op.A[:n, :n].cpu().numpy()
+    b, x0 = bd.cpu().numpy(), x0d.cpu().numpy()
+    bn = float(bd.norm())
+    dense_kw = (("pipelined", dict(method="pipelined", tol=1e-6 * bn), ("matvec_cuda", "dot_cuda")),
+                ("ca s=3", dict(method="ca", s_step=3, tol=1e-6), ("matvec_cuda", "dot_cuda")),
+                ("chebyshev", dict(method="chebyshev", tol=1e-6), ("matvec_cuda", "dot_cuda")),
+                ("cg + block_jacobi bs=64", dict(precondition="block_jacobi", pc_block_size=64,
+                                                 tol=1e-6),
+                 ("matvec_cuda", "dot_cuda", "fused_update_cuda")))
+    cfg_bj = CGConfig(precondition="block_jacobi", pc_block_size=64)
+    for strategy in ("allgather", "overlap"):
+        system = distribute_system(A, b, x0, mesh, strategy=strategy, config=cfg_bj)
+        for label, kw, need in dense_kw:
+            held(f"dense n={n} {strategy} {label}",
+                 lambda kw=kw: sharded_cg_solve(system, mesh=mesh, strategy=strategy, **kw),
+                 lambda kw=kw: cg_solve(op, bd, x0d, **kw), need)
+        del system
+    # Poisson m = 128 as slabs (K9) and DIA (K7), at tol 1e-5 ||b||.
+    xt = torch.as_tensor(np.random.default_rng(0).standard_normal(m ** 3).astype(np.float32),
+                         device=dev)
+    bp = poisson3d_torch(xt, m)
+    kw_p = dict(tol=1e-5 * float(bp.norm()), maxiter=8 * m + 200)
+    opp = PoissonOperator(m, device=dev)
+    interval = spectral_interval(opp)[:2]
+    for label, kw in (("pipelined + jacobi", dict(method="pipelined", precondition="jacobi")),
+                      ("chebyshev, cached interval", dict(method="chebyshev", interval=interval,
+                                                          maxiter=20_000)),
+                      ("cg + block_jacobi bs=64", dict(precondition="block_jacobi",
+                                                       pc_block_size=64))):
+        kw = dict(kw_p, **kw)
+        held(f"Poisson m={m} slab {label}",
+             lambda kw=kw: sharded_operator_cg_solve(opp, bp, mesh=mesh, **kw),
+             lambda kw=kw: cg_solve(opp, bp, fused="never", **kw),
+             ("poisson3d_slab_cuda", "dot_cuda"))
+    opd = DiaOperator.from_dia(poisson3d_dia(m), device=dev)
+    kw = dict(kw_p, precondition="block_jacobi", pc_block_size=64)
+    held(f"DIA m={m} band halo cg + block_jacobi bs=64",
+         lambda: sharded_operator_cg_solve(opd, bp, mesh=mesh, **kw),
+         lambda: cg_solve(opd, bp, fused="never", **kw),
+         ("dia_spmv_halo_cuda", "dot_cuda", "fused_update_cuda"))
+    del opd
+    # FEM 300k as sharded WELL (K13). tpucg's sharded Jacobi sums the CSR's
+    # diagonal in float64, the serial pack in f32 over FEM's duplicate
+    # entries: held within 1% of the laps.
+    nb_fem = float(np.linalg.norm(b_fem.astype(np.float64)))
+    op_fem = best_sparse_operator(A_fem, device=dev, pc_block_size=64)
+    bf = torch.as_tensor(b_fem, device=dev)
+    kw_f = dict(tol=1e-5 * nb_fem, maxiter=4000)
+    held("FEM 300k WELL cg + block_jacobi bs=64",
+         lambda: sharded_operator_cg_solve(A_fem, b_fem, mesh=mesh, precondition="block_jacobi",
+                                           pc_block_size=64, **kw_f),
+         lambda: cg_solve(op_fem, bf, precondition="block_jacobi", pc_block_size=64, **kw_f),
+         ("well_spmv_cuda", "dot_cuda", "fused_update_cuda"), laps_pct=1)
+    # Preconditioned pipelined CG replaces its residuals every 25 laps, so
+    # the r.r it stops on is the true one's, and FEM 300k's f32 floor of the
+    # true residual (8.55e-2 ||b||, phase 13) lies above any tol it could
+    # meet: in both routes it runs to its cap. It is held there, capped at
+    # 300 laps, x within 2e-3 of max |x|: an unconverged iterate carries the
+    # two Jacobi diagonals' difference (the sharded one summed in float64,
+    # as tpucg's, the serial pack's in f32 over FEM's duplicate entries; on
+    # an H100 a converged iterate within 7.5e-6, phase 16, a capped one
+    # 1.1e-3); and converged on the geometric 100k graph (one stored entry a
+    # diagonal: the same Jacobi in both routes) at 1e-4 ||b||: its replaced
+    # residual stalls just above 1e-5 ||b|| there, in both routes and in
+    # tpucg's.
+    held("FEM 300k WELL pipelined + jacobi, capped at 300 laps",
+         lambda: sharded_operator_cg_solve(A_fem, b_fem, mesh=mesh, method="pipelined",
+                                           precondition="jacobi", tol=1e-5 * nb_fem,
+                                           maxiter=300),
+         lambda: cg_solve(op_fem, bf, method="pipelined", precondition="jacobi",
+                          tol=1e-5 * nb_fem, maxiter=300),
+         ("well_spmv_cuda", "dot_cuda"), x_tol=2e-3)
+    A_g, b_g, _ = random_geometric_spd(n_geo, seed=0, avg_degree=12.0)
+    op_g = WellOperator.from_csr(A_g, device=dev)
+    kw = dict(tol=1e-4 * float(np.linalg.norm(b_g)), maxiter=4000, method="pipelined",
+              precondition="jacobi")
+    held(f"geometric {n_geo} WELL pipelined + jacobi",
+         lambda: sharded_operator_cg_solve(A_g, b_g, mesh=mesh, **kw),
+         lambda: cg_solve(op_g, torch.as_tensor(b_g, device=dev), **kw),
+         ("well_spmv_cuda", "dot_cuda"))
+    # Multi-RHS at k = 8: dense (A_blk @ the gathered block, a GEMM, and
+    # the rank-summed column dots), Poisson (the (halo, 8) exchange, the
+    # plain batched stencil) and FEM 300k WELL (K13 x k; unpreconditioned
+    # FEM is capped at 1,000 laps, as phase 16 caps it).
+    Bd = np.random.default_rng(0).random((n, 8)).astype(np.float32)
+    held(f"multi k=8 dense n={n}", lambda: sharded_cg_solve_multi(A, Bd, mesh=mesh, tol=1e-6),
+         lambda: cg_solve_multi(op, Bd, tol=1e-6), ())
+    Bp = torch.stack([bp * (1.0 + 0.1 * j) + 0.01 * j * xt for j in range(8)], 1)
+    kw = dict(tol=1e-5 * float(Bp[:, 0].norm()), maxiter=8 * m + 200)
+    held(f"multi k=8 Poisson m={m}", lambda: sharded_cg_solve_multi(opp, Bp, mesh=mesh, **kw),
+         lambda: cg_solve_multi(opp, Bp, **kw), ())
+    Bf = np.random.default_rng(1).standard_normal((A_fem.shape[0], 8)).astype(np.float32)
+    kw = dict(tol=1e-5 * float(np.linalg.norm(Bf[:, 0])), maxiter=1000)
+    held("multi k=8 FEM 300k WELL, capped at 1,000 laps",
+         lambda: sharded_cg_solve_multi(A_fem, Bf, mesh=mesh, **kw),
+         lambda: cg_solve_multi(op_fem, Bf, **kw), ("well_spmv_multi_cuda",), laps_pct=1)
+    # Block CG at k = 8: dense none and Jacobi (the scalings around the
+    # product) at phase 20's tol 1e-5 ||B[:, 0]||, FEM 300k WELL Jacobi at
+    # 5e-2 of the weighted ||B[:, 0]|| (above FEM 300k's f32 floor, where
+    # the block solve's true-residual boundary can confirm). Stopped that
+    # early, FEM's x still carries the two Jacobi diagonals' difference (as
+    # the capped pipelined solve's above; 7.3e-4 of max |x| on an H100):
+    # held within 2e-3.
+    kw = dict(tol=1e-5 * float(np.linalg.norm(Bd[:, 0])))
+    held(f"block k=8 dense n={n}", lambda: sharded_cg_solve_block(A, Bd, mesh=mesh, **kw),
+         lambda: cg_solve_block(op, Bd, **kw), ())
+    held(f"block k=8 dense n={n} jacobi",
+         lambda: sharded_cg_solve_block(A, Bd, mesh=mesh, precondition="jacobi", **kw),
+         lambda: cg_solve_block(op, Bd, precondition="jacobi", **kw), ())
+    d = op_fem.diagonal()[:A_fem.shape[0]].cpu().numpy()
+    kw = dict(tol=5e-2 * float(np.linalg.norm(Bf[:, 0] / np.sqrt(d))), maxiter=4000,
+              precondition="jacobi")
+    held("block k=8 FEM 300k WELL jacobi",
+         lambda: sharded_cg_solve_block(A_fem, Bf, mesh=mesh, **kw),
+         lambda: cg_solve_block(op_fem, Bf, **kw), ("well_spmv_multi_cuda",), laps_pct=1,
+         x_tol=2e-3)
+    # The transport a lap, pipelined against classic, on the dense
+    # allgather system: capped solves of 16 and 144 laps in chunks of 16
+    # after one of 16 to warm up, the difference over 128 laps (a lap's
+    # gather of p is one call).
+    system = distribute_system(A, b, x0, mesh)
+    for method in ("pipelined", "cg"):
+        seen = {}
+        for laps in (16, 16, 144):
+            sync()
+            mesh.stats.update(calls=0, seconds=0.0)
+            sharded_cg_solve(system, mesh=mesh, method=method, tol=1e-30, maxiter=laps, chunk=16)
+            sync()
+            seen[laps] = (mesh.stats["calls"], mesh.stats["seconds"])
+        calls = (seen[144][0] - seen[16][0]) / 128
+        require(calls == (2 if method == "pipelined" else 3),
+                f"{method}: {calls} transport calls a lap")
+        print(f"transport a lap, one {backend} rank, dense n={n} allgather, {method}: {calls:g} "
+              "calls "
+              f"({calls - 1:g} rank_sum, 1 gather of p), "
+              f"{(seen[144][1] - seen[16][1]) / 128 * 1e3:.4f} ms host (enqueue) {tag}")
+    del system
+    torch.distributed.destroy_process_group()
+    print(f"M14 steps 2-3, one {backend} rank: {time.perf_counter() - t_phase:.1f} s so far")
+
+    # A gloo world of 2 ranks on cuda:0: dense pipelined and block Jacobi
+    # against the one-rank solves, and the geometric 100k graph's multi-RHS
+    # and block CG at k = 8 against the serial solves.
+    B_g = np.random.default_rng(0).standard_normal((A_g.shape[0], 8)).astype(np.float32)
+    kw_g = dict(tol=1e-5 * float(np.linalg.norm(B_g[:, 0])), maxiter=4000)
+    refs = [results[f"dense n={n} allgather pipelined"],
+            results[f"dense n={n} allgather cg + block_jacobi bs=64"],
+            cg_solve_multi(op_g, B_g, **kw_g), cg_solve_block(op_g, B_g, **kw_g)]
+    cases = [("dense", dense_kw[0][1]), ("dense", dense_kw[3][1]), ("multi", kw_g),
+             ("block", kw_g)]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        got = run_world(2, card_methods_worker, args=(cases, 0, n, n_geo, str(dev)),
+                        rendezvous=str(Path(tmp) / "world2"), timeout_s=300)
+    print(f"world of 2 ranks on {dev} ({got['mesh']}): {time.perf_counter() - t0:.1f} s with "
+          "start-up")
+    for i, ((kind, _), ref) in enumerate(zip(cases, refs)):
+        r = got[i]
+        label = ("dense pipelined", "dense cg + block_jacobi", f"multi k=8 geometric {n_geo}",
+                 f"block k=8 geometric {n_geo}")[i]
+        k, kr = r["laps"].reshape(-1).tolist(), ref.iterations.reshape(-1).tolist()
+        se = scaled_err(r["x"].reshape(r["x"].shape[0], -1).T,
+                        ref.x.reshape(ref.x.shape[0], -1).T.cpu().numpy())
+        require(r["converged"].all() and bool(ref.converged.all())
+                and all(abs(a - c) <= 1 for a, c in zip(k, kr)) and se <= 1e-4,
+                f"gloo P=2 {label}: laps {k} (reference {kr}), x err {se:.3e}")
+        need = ("well_spmv_multi_cuda",) if kind != "dense" else ("matvec_cuda", "dot_cuda")
+        require(all(r["launches"][w] > 0 for w in need), f"gloo P=2 {label}: {r['launches']}")
+        lap_runs = max(k)
+        print(f"  gloo P=2 {label}: laps {k if len(k) > 1 else k[0]} (reference "
+              f"{kr if len(kr) > 1 else kr[0]}), x within {se:.3e} of max |x|; {r['ms']:.1f} ms "
+              f"a solve (host clock), transport {r['transport_calls']} calls, "
+              f"{r['transport_s'] * 1e3:.1f} ms ({r['transport_s'] * 1e3 / max(lap_runs, 1):.3f} "
+              "ms a lap); launches (rank 0) " + ", ".join(
+                  f"{w} {c}" for w, c in sorted(r["launches"].items()) if c) + f" {tag}")
+    for method, (calls, ms) in got["per_lap"].items():
+        require(calls == (2 if method == "pipelined" else 3),
+                f"gloo P=2 {method}: {calls} transport calls a lap")
+        print(f"transport a lap, gloo P=2 on {dev}, dense n={n} allgather, {method}: {calls:g} "
+              f"calls ({calls - 1:g} rank_sum, 1 gather of p), {ms:.4f} ms host {tag}")
+    print(f"M14 steps 2-3: {time.perf_counter() - t_phase:.1f} s")
+    return added
 
 
 def main() -> int:
@@ -2991,6 +3299,13 @@ def main() -> int:
               f"--checkpoint; launches of the resume: {used} {tag}")
         del tl_c
         print(f"M13: {time.perf_counter() - t_phase:.1f} s")
+
+    with phase("M14 steps 2-3: the methods, block Jacobi, multi-RHS and block CG on the mesh"):
+        for kern, c in m14_mesh_phase(dev, tag, drive, A_fem, b_fem, flagship[:3]).items():
+            if kern in m9_counts:
+                m9_counts[kern] += c
+            else:
+                counts[kern] = counts.get(kern, 0) + c
 
     # (id, name, key of its launch count, source, the TPU kernel it replaces)
     meta = (

@@ -397,6 +397,25 @@ def sharded_system(spec):
     if kind == "generator":
         A, b, _ = generate_spd_system(spec[1], seed=spec[2])
         return {"A": A, "b": b, "x0": None}
+    if kind == "laplacian":
+        n = spec[1]
+        b = (np.ones(n, np.float32) if spec[2] is None
+             else np.random.default_rng(spec[2]).standard_normal(n).astype(np.float32))
+        return {"A": laplacian1d(n), "b": b, "x0": None}
+    if kind == "scaled_tridiag":
+        # tpucg's test_sharded_sparse.py:532: a badly block-scaled
+        # tridiagonal SPD matrix in DIA form.
+        n = spec[1]
+        rng = np.random.default_rng(spec[2])
+        d = np.exp(rng.uniform(0, 3, n))
+        Ad = np.diag(4.0 * np.ones(n)) + np.diag(-np.ones(n - 1), 1) + np.diag(-np.ones(n - 1), -1)
+        Ad = d[:, None] * Ad * d[None, :]
+        ii, jj = np.nonzero(Ad)
+        csr = COOMatrix(row=ii, col=jj, data=Ad[ii, jj].astype(np.float32),
+                        shape=(n, n)).to_csr()
+        b = rng.standard_normal(n).astype(np.float32)
+        return {"op": csr_to_dia(csr), "b": b, "x0": None,
+                "x_true": np.linalg.solve(Ad, b.astype(np.float64))}
     if kind == "golden4":
         g = GOLDEN_4X4
         return {"A": g["A"], "b": g["b"], "x0": g["x0"], "x_true": g["x_star"]}
@@ -504,6 +523,273 @@ def sharded_cases_worker(rank, nprocs, device="cpu"):
     return out
 
 
+# M14 step 2's cases (tests/test_torch_sharded_methods.py): tpucg's own
+# tests of its sharded methods and block Jacobi (test_pipelined.py,
+# test_ca.py, test_chebyshev.py, test_interval.py, test_precond.py,
+# test_sharded_sparse.py) with their systems. name -> (system, solve keyword
+# arguments); a dense case runs with allgather, and those of
+# ``METHOD_OVERLAP_CASES`` with overlap too. ``tol_rel`` is tol
+# over ||b||; ``maxiter_n`` maxiter over n; ``interval`` "exact" is the
+# float64 spectrum's bounds, "poisson" the m^3 Laplacian's.
+METHOD_DENSE_CASES = {
+    "pipelined_n192": (("generator", 192, 2), {"method": "pipelined", "tol_rel": 1e-5}),
+    "pipelined_jacobi_n128": (("generator", 128, 3), {"method": "pipelined",
+                                                      "precondition": "jacobi", "tol_rel": 1e-5}),
+    "ca_n192": (("generator", 192, 2), {"method": "ca", "s_step": 3, "tol_rel": 1e-5}),
+    "ca_n67_padded": (("generator", 67, 3), {"method": "ca", "s_step": 3}),
+    "chebyshev_n192": (("generator", 192, 2), {"method": "chebyshev", "tol_rel": 1e-5,
+                                               "maxiter_n": 8}),
+    "ca_interval_n192": (("generator", 192, 3), {"method": "ca", "interval": "exact",
+                                                 "maxiter": 800}),
+    "chebyshev_interval_n192": (("generator", 192, 3), {"method": "chebyshev",
+                                                        "interval": "exact", "maxiter": 800}),
+    "block_jacobi_lap1024": (("laplacian", 1024, 3), {"precondition": "block_jacobi",
+                                                      "pc_block_size": 32, "tol_rel": 1e-5,
+                                                      "maxiter_n": 8}),
+    "block_jacobi_bs24_lap256": (("laplacian", 256, 0), {"precondition": "block_jacobi",
+                                                         "pc_block_size": 24, "tol_rel": 1e-5,
+                                                         "maxiter_n": 8}),
+    "pipelined_block_jacobi_n128": (("generator", 128, 3), {
+        "method": "pipelined", "precondition": "block_jacobi", "pc_block_size": 32,
+        "tol_rel": 1e-5}),
+}
+# The dense cases that also run with the overlap ring (the methods reach the
+# matvec only through its closure; one case of each loop exercises both).
+METHOD_OVERLAP_CASES = ("pipelined_n192", "ca_n192", "block_jacobi_lap1024")
+METHOD_OPERATOR_CASES = {
+    "poisson_m8_pipelined": (("poisson", 8, 0), {"method": "pipelined"}),
+    "poisson_m8_pipelined_jacobi": (("poisson", 8, 0), {"method": "pipelined",
+                                                        "precondition": "jacobi"}),
+    "poisson_m8_ca": (("poisson", 8, 0), {"method": "ca", "s_step": 3}),
+    "poisson_m8_chebyshev": (("poisson", 8, 0), {"method": "chebyshev", "maxiter_n": 8}),
+    "dia_m6_ca": (("dia", 6, 5), {"method": "ca", "s_step": 3}),
+    "dia_m6_chebyshev": (("dia", 6, 5), {"method": "chebyshev", "maxiter_n": 8}),
+    "poisson_m12_ca_interval": (("poisson", 12, 5), {"method": "ca", "interval": "poisson"}),
+    "poisson_m12_chebyshev_interval": (("poisson", 12, 5), {"method": "chebyshev",
+                                                            "interval": "poisson"}),
+    "poisson_m6_block_jacobi_bs24": (("poisson", 6, 0), {"precondition": "block_jacobi",
+                                                         "pc_block_size": 24}),
+    "poisson_m8_pipelined_block_jacobi": (("poisson", 8, 2), {
+        "method": "pipelined", "precondition": "block_jacobi", "pc_block_size": 64}),
+    "dia_scaled_block_jacobi": (("scaled_tridiag", 1100, 5), {
+        "precondition": "block_jacobi", "pc_block_size": 32, "maxiter_n": 8}),
+    "well_geo900_block_jacobi": (("geometric", 900, 1), {"precondition": "block_jacobi",
+                                                         "pc_block_size": 32}),
+    "well_geo900_pipelined_jacobi": (("geometric", 900, 1), {"method": "pipelined",
+                                                             "precondition": "jacobi"}),
+}
+
+
+def method_case_kwargs(name: str, s: dict) -> dict:
+    """The solve keyword arguments of a case of ``METHOD_DENSE_CASES`` /
+    ``METHOD_OPERATOR_CASES`` for its system ``s`` (``sharded_system``),
+    the same for both packages: tol (default 1e-6 for dense systems, 1e-5
+    ||b|| for operators), maxiter (default n for dense, 4 n for operators)
+    and the interval as floats."""
+    dense = name in METHOD_DENSE_CASES
+    kw = dict((METHOD_DENSE_CASES if dense else METHOD_OPERATOR_CASES)[name][1])
+    n = s["b"].shape[0]
+    nb = float(np.linalg.norm(s["b"]))
+    if "tol_rel" in kw:
+        kw["tol"] = kw.pop("tol_rel") * nb
+    kw.setdefault("tol", 1e-6 if dense else 1e-5 * nb)
+    if "maxiter_n" in kw:
+        kw["maxiter"] = kw.pop("maxiter_n") * n
+    kw.setdefault("maxiter", n if dense else 4 * n)
+    iv = kw.get("interval")
+    if iv == "exact":
+        w = np.linalg.eigvalsh(np.asarray(s["A"], np.float64))
+        kw["interval"] = (float(w[0]), float(w[-1]))
+    elif iv == "poisson":
+        m = round(n ** (1 / 3))
+        c = float(np.cos(np.pi / (m + 1)))
+        kw["interval"] = (6.0 - 6.0 * c, 6.0 + 6.0 * c)
+    return kw
+
+
+def method_case_op(s: dict, device="cpu"):
+    """The port's operator of an operator case's system: a PoissonOperator,
+    the DIAMatrix, or the CSR (sharded WELL)."""
+    from tpucg_torch.solver.operators import PoissonOperator
+
+    op = s["op"]
+    return PoissonOperator(op[1], device=device) if isinstance(op, tuple) else op
+
+
+def solve_method_case(mesh, name: str, strategy: str = "allgather"):
+    """One case of ``METHOD_DENSE_CASES`` / ``METHOD_OPERATOR_CASES``
+    through the port's sharded solve on ``mesh``; x, iterations, converged
+    and residual_norm as NumPy."""
+    from tpucg_torch.solver.sharded import sharded_cg_solve, sharded_operator_cg_solve
+
+    dense = name in METHOD_DENSE_CASES
+    s = sharded_system((METHOD_DENSE_CASES if dense else METHOD_OPERATOR_CASES)[name][0])
+    kw = method_case_kwargs(name, s)
+    if dense:
+        res = sharded_cg_solve(s["A"], s["b"], s["x0"], mesh=mesh, strategy=strategy, **kw)
+    else:
+        res = sharded_operator_cg_solve(method_case_op(s, mesh.device), s["b"], s["x0"],
+                                        mesh=mesh, **kw)
+    return {"x": res.x.cpu().numpy(), "iterations": int(res.iterations),
+            "converged": bool(res.converged), "residual_norm": float(res.residual_norm)}
+
+
+def sharded_methods_worker(rank, nprocs, device="cpu"):
+    """A rank of a world that runs every method case (the dense ones of
+    ``METHOD_OVERLAP_CASES`` with both strategies) on a gloo mesh of
+    ``device``, ``Mesh.rank_sum`` on a vector
+    and a matrix, and the transport's calls in capped pipelined and classic
+    solves; rank 0's results by case."""
+    from tpucg_torch.comm.mesh import make_mesh
+    from tpucg_torch.io.generator import generate_spd_system
+    from tpucg_torch.solver.sharded import sharded_cg_solve
+
+    mesh = make_mesh(device=device, backend="gloo")
+    out = {}
+    for name in METHOD_DENSE_CASES:
+        for strategy in ("allgather", "overlap")[:2 if name in METHOD_OVERLAP_CASES else 1]:
+            out[(name, strategy)] = solve_method_case(mesh, name, strategy)
+    for name in METHOD_OPERATOR_CASES:
+        out[(name, None)] = solve_method_case(mesh, name)
+    # The scaled band with point Jacobi, beside its block-Jacobi case.
+    from tpucg_torch.solver.sharded import sharded_operator_cg_solve
+
+    s = sharded_system(METHOD_OPERATOR_CASES["dia_scaled_block_jacobi"][0])
+    kw = dict(method_case_kwargs("dia_scaled_block_jacobi", s), precondition="jacobi")
+    out["dia_scaled_jacobi_laps"] = int(sharded_operator_cg_solve(
+        s["op"], s["b"], mesh=mesh, **kw).iterations)
+    # rank_sum of a vector and a matrix: rank r's partials are (r + 1) / 3
+    # times (1, 2, ...), every rank's sums gathered to rank 0.
+    sums = []
+    for shape in ((5,), (3, 4)):
+        part = (torch.arange(1, int(np.prod(shape)) + 1, dtype=torch.float32).reshape(shape)
+                * torch.tensor((rank + 1) / 3, dtype=torch.float32))
+        tot = mesh.rank_sum(part)
+        everyone = torch.empty((nprocs,) + shape, dtype=torch.float32)
+        mesh.all_gather(everyone.reshape(-1), tot.contiguous().reshape(-1))
+        sums.append(everyone.numpy())
+    out["rank_sum"] = sums
+    # The transport's calls a lap: capped solves (tol 1e-30 never stops them)
+    # of 8 and 16 laps, one chunk a lap; the difference is 8 laps' calls.
+    A, b, x0 = generate_spd_system(64, seed=1)
+    calls = {}
+    for method in ("pipelined", "cg"):
+        for laps in (8, 16):
+            mesh.stats.update(calls=0, seconds=0.0)
+            sharded_cg_solve(A, b, x0, mesh=mesh, method=method, tol=1e-30, maxiter=laps,
+                             chunk=1)
+            calls[(method, laps)] = mesh.stats["calls"]
+    out["calls"] = calls
+    return out
+
+
+# M14 step 3's cases (tests/test_torch_sharded_multi.py): tpucg's tests of
+# its sharded multi-RHS and block CG (test_multi.py, test_block.py,
+# test_sharded_sparse.py) with their systems. name -> (system, B, solve
+# keyword arguments): the system as ``sharded_system`` takes it (plus
+# "scaled", tpucg's diagonally scaled generator system of
+# test_block.py:267), B as (seed, k, "random" uniform | "normal");
+# ``tol_rel`` is tol over ||B[:, 0]|| (under Jacobi over ||D^-1/2 B[:, 0]||).
+MULTI_CASES = {
+    "multi_n96_k5": (("generator", 96, 21), (2, 5, "random"), {}),
+    "multi_n50_k3_padded": (("generator", 50, 22), (3, 3, "random"), {}),
+    "multi_poisson_m8_k3": (("poisson", 8, 0), (4, 3, "normal"), {"tol_rel": 1e-5}),
+    "multi_dia_m6_k2": (("dia", 6, 5), (4, 2, "normal"), {"tol_rel": 1e-5}),
+    "multi_well_geo2000_k2": (("geometric", 2000, 9), (10, 2, "normal"), {"tol_rel": 1e-5}),
+    "multi_ell_m7_k2": (("ell", 7, 8), (5, 2, "normal"), {"tol_rel": 1e-5}),
+    "multi_bsr_m6_k2": (("bsr", 6, 12), (5, 2, "normal"), {"tol_rel": 1e-5}),
+}
+BLOCK_CASES = {
+    "block_n192_k4": (("generator", 192, 7), (8, 4, "normal"), {}),
+    "block_n67_k3_padded": (("generator", 67, 9), (10, 3, "normal"), {}),
+    "block_n131_jacobi": (("scaled", 131, 14), (14, 3, "normal"), {
+        "precondition": "jacobi", "tol_rel": 1e-5, "maxiter_n": 4}),
+    "block_n131_poly": (("generator", 131, 14), (15, 3, "normal"), {
+        "precondition": "poly", "poly_degree": 2, "tol_rel": 1e-5, "maxiter_n": 4}),
+    "block_n128_block_jacobi": (("generator", 128, 3), (5, 3, "normal"), {
+        "precondition": "block_jacobi", "pc_block_size": 32}),
+    "block_poisson_m8": (("poisson", 8, 0), (6, 3, "normal"), {"tol_rel": 1e-5}),
+    "block_poisson_m8_jacobi": (("poisson", 8, 0), (6, 3, "normal"), {
+        "precondition": "jacobi", "tol_rel": 1e-5}),
+    "block_poisson_m8_poly": (("poisson", 8, 0), (6, 3, "normal"), {
+        "precondition": "poly", "poly_degree": 2, "tol_rel": 1e-5}),
+    "block_dia_m6": (("dia", 6, 5), (7, 2, "normal"), {"tol_rel": 1e-5}),
+    "block_well_geo2000_jacobi": (("geometric", 2000, 9), (10, 2, "normal"), {
+        "precondition": "jacobi", "tol_rel": 1e-5}),
+}
+
+
+def multi_case(name: str):
+    """(system, B, keyword arguments) of a case of ``MULTI_CASES`` /
+    ``BLOCK_CASES``, the same for both packages: tol (default 1e-6 for
+    dense systems, 1e-5 ||B[:, 0]|| for operators) and maxiter (default n
+    for dense, 4 n for operators)."""
+    spec, (seed, k, dist), kw = {**MULTI_CASES, **BLOCK_CASES}[name]
+    if spec[0] == "scaled":
+        from tpucg_torch.io.generator import generate_spd_system
+
+        n = spec[1]
+        rng = np.random.default_rng(spec[2])
+        A0 = generate_spd_system(n, seed=spec[2])[0]
+        d = np.exp(rng.uniform(0.0, np.log(100.0), n)).astype(np.float32)
+        s = {"A": (A0 * d[:, None] * d[None, :]).astype(np.float32)}
+    else:
+        s = sharded_system(spec)
+    dense = "A" in s
+    n = (s["A"] if dense else s["b"]).shape[0]
+    rng = np.random.default_rng(seed)
+    B = (rng.random((n, k)) if dist == "random" else rng.standard_normal((n, k))).astype(np.float32)
+    kw = dict(kw)
+    if "tol_rel" in kw:
+        col = B[:, 0]
+        if kw.get("precondition") == "jacobi" and dense:
+            col = col / np.sqrt(np.diag(s["A"]))
+        kw["tol"] = kw.pop("tol_rel") * float(np.linalg.norm(col))
+    kw.setdefault("tol", 1e-6 if dense else 1e-5 * float(np.linalg.norm(B[:, 0])))
+    if "maxiter_n" in kw:
+        kw["maxiter"] = kw.pop("maxiter_n") * n
+    kw.setdefault("maxiter", n if dense else 4 * n)
+    return s, B, kw
+
+
+def multi_case_operator(s: dict, device="cpu"):
+    """The port's A of a multi/block case: the dense array, or the operator
+    (Poisson, the DIAMatrix, an EllOperator or BsrOperator, or the CSR as
+    sharded WELL)."""
+    from tpucg_torch.solver.operators import BsrOperator, EllOperator, PoissonOperator
+
+    if "A" in s:
+        return s["A"]
+    op = s["op"]
+    if isinstance(op, tuple):
+        return PoissonOperator(op[1], device=device)
+    kind = type(op).__name__
+    if kind == "BSRMatrix":
+        return BsrOperator.from_bsr(op, device=device)
+    if kind == "CSRMatrix" and not s.get("well"):
+        return EllOperator.from_csr(op, device=device)
+    return op
+
+
+def sharded_multi_worker(rank, nprocs, device="cpu"):
+    """A rank of a world that runs every case of ``MULTI_CASES`` through
+    ``sharded_cg_solve_multi`` and of ``BLOCK_CASES`` through
+    ``sharded_cg_solve_block`` on a gloo mesh of ``device``; rank 0's x,
+    iterations, residual_norm and converged as NumPy, by case."""
+    from tpucg_torch.comm.mesh import make_mesh
+    from tpucg_torch.solver.sharded import sharded_cg_solve_block, sharded_cg_solve_multi
+
+    mesh = make_mesh(device=device, backend="gloo")
+    out = {}
+    for name in list(MULTI_CASES) + list(BLOCK_CASES):
+        s, B, kw = multi_case(name)
+        solve = sharded_cg_solve_multi if name in MULTI_CASES else sharded_cg_solve_block
+        res = solve(multi_case_operator(s, mesh.device), B, mesh=mesh, **kw)
+        out[name] = {k: getattr(res, k).cpu().numpy()
+                     for k in ("x", "iterations", "residual_norm", "converged")}
+    return out
+
+
 def laps_run(k: int) -> int:
     """Laps ``cg_loop`` runs for a solve that stops after k: chunks of 1, 2,
     4, ... up to ``CHUNK_MAX`` until one ends past the stop (its last laps
@@ -584,6 +870,98 @@ def card_world_worker(rank, nprocs, cases, m, b_poisson, kw, well=None):
             "laps_run": laps_run(k), "transport_s": mesh.stats["seconds"],
             "transport_calls": mesh.stats["calls"],
         }
+    return out
+
+
+def card_methods_worker(rank, nprocs, cases, B_seed=0, n=8192, n_geo=100_000,
+                        device="cuda:0"):
+    """A rank of a gloo world on ``device`` (``chip_smoke.py``'s M14 steps
+    2-3 phase; on the CPU with small sizes, its rehearsal): each case,
+    ``("dense", kw)`` on ``generate_spd_system(n, seed=0)`` through
+    ``sharded_cg_solve`` (allgather) with the keyword arguments ``kw``, or
+    ``(kind, kw)`` with kind ``"multi"`` or ``"block"`` on the geometric
+    graph (``random_geometric_spd(n_geo, seed=0, avg_degree=12.0)``) as
+    sharded WELL, B (n_geo, 8) standard normal from
+    ``default_rng(B_seed)``, through ``sharded_cg_solve_multi`` /
+    ``sharded_cg_solve_block``; each solved once to warm up, then once
+    timed on the host clock with the transport's calls and seconds; and
+    capped pipelined and classic solves of the dense system (16 and 144
+    laps, chunks of 16, after one of 16 to warm up), whose difference gives
+    the transport calls and host ms a lap. Rank 0's x,
+    laps, converged, ms, transport, and the kernels' launches in each
+    solve."""
+    import time
+
+    from tpucg_torch.comm.mesh import make_mesh
+    from tpucg_torch.io.generator import generate_spd_system, random_geometric_spd
+    from tpucg_torch.kernels.blas1 import dot_cuda, fused_update_cuda
+    from tpucg_torch.kernels.dispatch import strict_f32
+    from tpucg_torch.kernels.gather_spmv import well_spmv_cuda, well_spmv_multi_cuda
+    from tpucg_torch.kernels.matvec import matvec_cuda
+    from tpucg_torch.solver.sharded import (
+        distribute_system,
+        sharded_cg_solve,
+        sharded_cg_solve_block,
+        sharded_cg_solve_multi,
+    )
+
+    strict_f32()
+    dev = torch.device(device)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    mesh = make_mesh(device=dev, backend="gloo")
+    kernels = (matvec_cuda, dot_cuda, fused_update_cuda, well_spmv_cuda, well_spmv_multi_cuda)
+    A, b, x0 = generate_spd_system(n, seed=0)
+    systems = {}
+    out = {"mesh": repr(mesh)}
+    for i, (kind, kw) in enumerate(cases):
+        if kind == "dense":
+            key = ("dense", kw.get("precondition") == "block_jacobi")
+            if key not in systems:
+                from tpucg_torch.config import CGConfig
+
+                systems[key] = distribute_system(A, b, x0, mesh, config=CGConfig(**{
+                    k: v for k, v in kw.items() if k in ("precondition", "pc_block_size")}))
+
+            def solve():
+                return sharded_cg_solve(systems[key], mesh=mesh, **kw)
+        else:
+            if "geo" not in systems:
+                A_g = random_geometric_spd(n_geo, seed=0, avg_degree=12.0)[0]
+                B = np.random.default_rng(B_seed).standard_normal(
+                    (A_g.shape[0], 8)).astype(np.float32)
+                systems["geo"] = (A_g, B)
+            A_g, B = systems["geo"]
+            fn = sharded_cg_solve_multi if kind == "multi" else sharded_cg_solve_block
+
+            def solve():
+                return fn(A_g, B, mesh=mesh, **kw)
+        solve()  # a warm-up (the transport's first calls set up its buffers)
+        sync()
+        mesh.stats.update(calls=0, seconds=0.0)
+        before = [w.launches for w in kernels]
+        t0 = time.perf_counter()
+        res = solve()
+        sync()
+        out[i] = {
+            "x": res.x.cpu().numpy() if rank == 0 else None,
+            "laps": res.iterations.cpu().numpy(), "converged": res.converged.cpu().numpy(),
+            "ms": (time.perf_counter() - t0) * 1e3, "transport_s": mesh.stats["seconds"],
+            "transport_calls": mesh.stats["calls"],
+            "launches": {w.__name__: w.launches - c for w, c in zip(kernels, before)},
+        }
+    system = systems.get(("dense", False)) or distribute_system(A, b, x0, mesh)
+    per_lap = {}
+    for method in ("pipelined", "cg"):
+        seen = {}
+        for laps in (16, 16, 144):
+            sync()
+            mesh.stats.update(calls=0, seconds=0.0)
+            sharded_cg_solve(system, mesh=mesh, method=method, tol=1e-30, maxiter=laps, chunk=16)
+            sync()
+            seen[laps] = (mesh.stats["calls"], mesh.stats["seconds"])
+        per_lap[method] = ((seen[144][0] - seen[16][0]) / 128,
+                           (seen[144][1] - seen[16][1]) / 128 * 1e3)
+    out["per_lap"] = per_lap
     return out
 
 

@@ -162,14 +162,45 @@ def test_residual_history_needs_method_cg(tmp_path, capsys):
     assert rc == 0 and "requires --method cg" in out and "||r_0||" not in out
 
 
-def test_distributed_methods_name_m14(tmp_path):
-    pa, pb = str(tmp_path / "A.npy"), str(tmp_path / "b.npy")
+def test_distributed_methods_name_m14(tmp_path, capsys):
+    # The distributed pipelined, CA and Chebyshev methods and block Jacobi
+    # (once refused, naming ROADMAP M14) solve on the mesh, a world of one
+    # rank here: A = I, x = b.
+    pa, pb, px = (str(tmp_path / f) for f in ("A.npy", "b.npy", "x.txt"))
     np.save(pa, np.eye(16, dtype=np.float32))
     np.save(pb, np.ones(16, np.float32))
     for flags in (["--method", "pipelined"], ["--precondition", "block_jacobi"],
-                  ["--method", "ca", "--interval", "1", "2"]):
-        with pytest.raises(NotImplementedError, match="M14"):
-            cli.main(["solve", pa, pb, "--device", "cpu", "--strategy", "allgather"] + flags)
+                  ["--method", "ca", "--interval", "1", "2"],
+                  ["--method", "chebyshev", "--interval", "0.9", "1.1"]):
+        rc = cli.main(["solve", pa, pb, "--device", "cpu", "--strategy", "allgather",
+                       "--output", px] + flags)
+        out = capsys.readouterr().out
+        assert rc == 0 and "converged            : True" in out, (flags, out)
+        assert "strategy allgather" in out
+        np.testing.assert_allclose(load_vector(px, n=16), 1.0, atol=1e-6)
+    assert not torch.distributed.is_initialized()
+
+
+@pytest.mark.parametrize("case,flags,laps", [
+    ("poisson", ["--method", "pipelined", "--precondition", "jacobi"], 1),
+    ("poisson", ["--precondition", "block_jacobi", "--pc-block-size", "64"], 1),
+    ("poisson", ["--method", "chebyshev", "--interval", "0.3", "12.0"], 8),
+    ("poisson", ["--method", "ca", "--interval", "0.3", "12.0"], 3),
+    ("geometric_shuffled", ["--method", "pipelined", "--precondition", "block_jacobi"], 1),
+])
+def test_solve_strategy_methods_match_tpucgs_cli(tmp_path, capsys, case, flags, laps):
+    # The methods and block Jacobi on the mesh through both CLIs (tpucg's on
+    # its 8 CPU devices, the port's as a world of one rank): the Poisson
+    # .mtx as DIA row blocks with band halos, the irregular one as row
+    # blocks of WELL. The blocks of 64 fall alike on both meshes (they
+    # divide every rank's rows), and the interval is given, so neither
+    # solve depends on its mesh's padding.
+    A, b = SYSTEMS[case]()
+    pa, pb = _files(tmp_path, A, b)
+    out = _held_to_tpucgs_cli(tmp_path, capsys, pa, pb, A, b,
+                              ["--strategy", "allgather"] + flags, laps)
+    assert "strategy             : allgather" in out
+    assert ("[DiaOperator]" if case == "poisson" else "[WellOperator]") in out
 
 
 def test_bf16_refused_for_bsr():

@@ -2221,3 +2221,156 @@ def test_m14_one_nccl_rank_sharded_well_equals_the_serial_route(nccl_one_rank, p
     assert _same_bits(got.x, want.x)
     assert all(moved[w] > 0 for w in ("well_spmv_cuda", "dot_cuda", "fused_update_cuda"))
     assert all(c == 0 for w, c in moved.items() if w.endswith("_torch") and w != "p_update_torch")
+
+
+# ---- M14 steps 2-3: the methods, block Jacobi, multi-RHS and block CG on the mesh ----
+
+
+from tpucg_torch.solver.cg import cg_solve_block, cg_solve_multi  # noqa: E402
+
+
+def _m14s23_clean(moved):
+    """No plain version ran but the sharded lap's tail and p's update."""
+    return all(c == 0 for w, c in moved.items()
+               if w.endswith("_torch") and w not in ("lap_tail_torch", "p_update_torch"))
+
+
+@pytest.mark.parametrize("strategy", ["allgather", "overlap"])
+@pytest.mark.parametrize("kw", [
+    {"method": "pipelined", "tol": 1e-4}, {"method": "ca", "s_step": 3},
+    {"method": "chebyshev"}, {"precondition": "block_jacobi", "pc_block_size": 64},
+    {"method": "pipelined", "precondition": "block_jacobi", "pc_block_size": 64, "tol": 1e-4},
+], ids=["pipelined", "ca", "chebyshev", "block_jacobi", "pipelined_block_jacobi"])
+def test_m14s23_one_nccl_rank_dense_methods_equal_serial(nccl_one_rank, strategy, kw):
+    # One rank's closures are the serial solve's kernels on the same
+    # operands (K1 on the gathered p, K3's partials gathered back): laps and
+    # x bit for bit; block Jacobi's PCG adds K2.
+    from tpucg_torch.solver.sharded import sharded_cg_solve
+
+    dev = nccl_one_rank.device
+    A, b, x0 = generate_spd_system(1024, seed=0)
+    want = cg_solve(A, b, x0, device=dev, fused="never", **kw)
+    got, moved = _m9_counted(lambda: sharded_cg_solve(A, b, x0, mesh=nccl_one_rank,
+                                                      strategy=strategy, **kw))
+    assert bool(got.converged) and int(got.iterations) == int(want.iterations)
+    assert _same_bits(got.x, want.x)
+    assert moved["matvec_cuda"] > 0 and moved["dot_cuda"] > 0 and _m14s23_clean(moved)
+
+
+@pytest.mark.parametrize("kind", ["poisson", "dia", "well"])
+def test_m14s23_one_nccl_rank_operator_block_jacobi(nccl_one_rank, kind):
+    # Block Jacobi from the rank's own blocks (Poisson's and DIA's DIA rows,
+    # WELL's CSR) with K9, K7 or K13, equal to the serial lap route bit for
+    # bit; pipelined on Poisson too (on the geometric graph its recurrence
+    # drifts below tol 1e-5 ||b|| in both routes).
+    from tpucg_torch.kernels.spmv import dia_spmv_halo_cuda
+    from tpucg_torch.kernels.stencil import poisson3d_slab_cuda
+    from tpucg_torch.solver.sharded import sharded_operator_cg_solve
+
+    dev = nccl_one_rank.device
+    if kind == "well":
+        A, b, _ = random_geometric_spd(20_000, seed=1, avg_degree=12.0, shuffle=True)
+        sharded_op, serial_op, kern = A, WellOperator.from_csr(A, device=dev,
+                                                               pc_block_size=64), "well_spmv_cuda"
+    else:
+        m = 24
+        b = poisson3d_dia(m).matvec(np.random.default_rng(3).standard_normal(m ** 3)
+                                    .astype(np.float32)).astype(np.float32)
+        sharded_op = serial_op = (PoissonOperator(m, device=dev) if kind == "poisson"
+                                  else DiaOperator.from_dia(poisson3d_dia(m), device=dev))
+        kern = "poisson3d_slab_cuda" if kind == "poisson" else "dia_spmv_halo_cuda"
+    for method in ("cg", "pipelined") if kind == "poisson" else ("cg",):
+        kw = dict(tol=1e-5 * float(np.linalg.norm(b)), maxiter=4000, method=method,
+                  precondition="block_jacobi", pc_block_size=64)
+        want = cg_solve(serial_op, b, fused="never", **kw)
+        before = {w: w.launches for w in (poisson3d_slab_cuda, dia_spmv_halo_cuda)}
+        got, moved = _m9_counted(lambda: sharded_operator_cg_solve(sharded_op, b,
+                                                                   mesh=nccl_one_rank, **kw))
+        moved.update({w.__name__: w.launches - c for w, c in before.items()})
+        assert bool(got.converged) and int(got.iterations) == int(want.iterations), method
+        assert _same_bits(got.x, want.x), method
+        assert moved[kern] > 0 and moved["dot_cuda"] > 0 and _m14s23_clean(moved)
+
+
+@pytest.mark.parametrize("kind", ["dense", "poisson", "well"])
+def test_m14s23_one_nccl_rank_multi_and_block_equal_serial(nccl_one_rank, kind):
+    # k = 8: the dense GEMM on the gathered block, Poisson's (halo, 8)
+    # exchange and plain batched stencil, WELL's K13 x k over the rank's
+    # layout; the rank-summed column dots and Grams of one rank are the
+    # serial ones: multi-RHS laps and x bit for bit. Block CG's laps are
+    # equal and x within 1e-5 of max |x|: its serial product takes the k x k
+    # algebra's transposed views (cuBLAS sums those in another order), the
+    # sharded one a contiguous gathered block.
+    from tpucg_torch.solver.sharded import sharded_cg_solve_block, sharded_cg_solve_multi
+
+    dev = nccl_one_rank.device
+    rng = np.random.default_rng(4)
+    if kind == "dense":
+        A = generate_spd_system(1024, seed=2)[0]
+        sharded_A, serial_A, tol = A, A, 1e-6
+    elif kind == "poisson":
+        sharded_A = serial_A = PoissonOperator(16, device=dev)
+        tol = 1e-3
+    else:
+        A = random_geometric_spd(20_000, seed=1, avg_degree=12.0, shuffle=True)[0]
+        sharded_A, serial_A, tol = A, WellOperator.from_csr(A, device=dev), 1e-2
+    n = 1024 if kind == "dense" else (4096 if kind == "poisson" else 20_000)
+    B = rng.standard_normal((n, 8)).astype(np.float32)
+    kw = dict(tol=tol, maxiter=4000)
+    for sharded, serial in ((sharded_cg_solve_multi, cg_solve_multi),
+                            (sharded_cg_solve_block, cg_solve_block)):
+        want = serial(serial_A, B, device=dev, **kw)
+        got, moved = _m9_counted(lambda: sharded(sharded_A, B, mesh=nccl_one_rank, **kw))
+        assert bool(got.converged.all()) and torch.equal(got.iterations.cpu(),
+                                                         want.iterations.cpu()), sharded
+        if sharded is sharded_cg_solve_multi:
+            assert _same_bits(got.x, want.x)
+        else:
+            assert scaled_err(got.x.T.cpu().numpy(), want.x.T.cpu().numpy()) <= 1e-5
+        assert _m14s23_clean(moved)
+        if kind == "well":
+            assert moved["well_spmv_multi_cuda"] > 0
+
+
+def test_m14s23_pipelined_lap_is_one_rank_sum_on_card(nccl_one_rank):
+    # The transport's calls over 32 more laps: a pipelined lap gathers p once
+    # and sums its stacked dots in one rank_sum, a classic lap two.
+    from tpucg_torch.solver.sharded import distribute_system, sharded_cg_solve
+
+    mesh = nccl_one_rank
+    system = distribute_system(*generate_spd_system(1024, seed=0), mesh)
+    for method, per_lap in (("pipelined", 2), ("cg", 3)):
+        calls = []
+        for laps in (16, 48):
+            mesh.stats.update(calls=0, seconds=0.0)
+            sharded_cg_solve(system, mesh=mesh, method=method, tol=1e-30, maxiter=laps, chunk=16)
+            calls.append(mesh.stats["calls"])
+        assert calls[1] - calls[0] == 32 * per_lap, method
+
+
+def test_m14s23_two_gloo_ranks_on_one_card(cuda_device, tmp_path):
+    # chip_smoke.py's gloo world at small sizes: dense pipelined and block
+    # Jacobi, the geometric graph's multi-RHS and block CG at k = 8 (K13 x k).
+    from _torch_helpers import card_methods_worker, run_world
+
+    A, b, x0 = generate_spd_system(1024, seed=0)
+    A_g = random_geometric_spd(20_000, seed=0, avg_degree=12.0)[0]
+    B = np.random.default_rng(0).standard_normal((20_000, 8)).astype(np.float32)
+    kw = dict(tol=1e-5 * float(np.linalg.norm(B[:, 0])), maxiter=2000)
+    cases = [("dense", {"method": "pipelined", "tol": 1e-4}),
+             ("dense", {"precondition": "block_jacobi", "pc_block_size": 64}),
+             ("multi", kw), ("block", kw)]
+    got = run_world(2, card_methods_worker, args=(cases, 0, 1024, 20_000, "cuda:0"),
+                    rendezvous=str(tmp_path / "world"), timeout_s=300)
+    op_g = WellOperator.from_csr(A_g, device=cuda_device)
+    refs = [cg_solve(A, b, x0, device=cuda_device, **cases[0][1]),
+            cg_solve(A, b, x0, device=cuda_device, **cases[1][1]),
+            cg_solve_multi(op_g, B, **kw), cg_solve_block(op_g, B, **kw)]
+    for i, ref in enumerate(refs):
+        r = got[i]
+        assert r["converged"].all() and bool(ref.converged.all()), i
+        assert np.abs(r["laps"].reshape(-1) - ref.iterations.cpu().numpy().reshape(-1)).max() <= 1
+        x = r["x"].reshape(r["x"].shape[0], -1).T
+        assert scaled_err(x, ref.x.reshape(ref.x.shape[0], -1).T.cpu().numpy()) <= 1e-4, i
+    assert got[2]["launches"]["well_spmv_multi_cuda"] > 0
+    assert got["per_lap"]["pipelined"][0] == 2 and got["per_lap"]["cg"][0] == 3

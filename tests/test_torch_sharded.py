@@ -329,11 +329,21 @@ def test_refusals_name_their_roadmap_item(one_rank):
     A, b, _ = generate_spd_system(16, seed=0)
     op = PoissonOperator(4, device="cpu")
     b4 = np.ones(64, np.float32)
-    for kw, item in (({"method": "pipelined"}, "M8"), ({"precondition": "block_jacobi"}, "M8"),
-                     ({"interval": (1.0, 2.0)}, "M8")):
-        with pytest.raises(NotImplementedError, match=item):
+    # M8's loops, block Jacobi and cached intervals (once refused as M14
+    # step 2) solve on the mesh; an interval with another method than CA
+    # or Chebyshev is tpucg's ValueError.
+    for kw, iv in (({"method": "pipelined"}, None),
+                   ({"precondition": "block_jacobi", "pc_block_size": 16}, None),
+                   ({"method": "chebyshev", "maxiter": 256}, ((14.0, 25.0), (0.5, 12.0)))):
+        res = sharded_cg_solve(A, b, mesh=one_rank, interval=iv and iv[0], **kw)
+        assert bool(res.converged), kw
+        res = sharded_operator_cg_solve(op, b4, mesh=one_rank, interval=iv and iv[1], tol=8e-5,
+                                        **kw)
+        assert bool(res.converged), kw
+    for kw in ({"interval": (1.0, 2.0)}, {"method": "pipelined", "interval": (1.0, 2.0)}):
+        with pytest.raises(ValueError, match="interval"):
             sharded_cg_solve(A, b, mesh=one_rank, **kw)
-        with pytest.raises(NotImplementedError, match=item):
+        with pytest.raises(ValueError, match="interval"):
             sharded_operator_cg_solve(op, b4, mesh=one_rank, **kw)
     with pytest.raises(NotImplementedError, match="M14 step 5"):
         sharded_operator_cg_solve(op, b4, mesh=one_rank, two_level=object())
@@ -345,8 +355,11 @@ def test_refusals_name_their_roadmap_item(one_rank):
     np.testing.assert_allclose(csr.matvec(res.x.numpy().astype(np.float64)), b4, atol=1e-4)
     with pytest.raises(TypeError, match="CSR"):
         sharded_operator_cg_solve(WellOperator.from_csr(csr, device="cpu"), b4, mesh=one_rank)
-    with pytest.raises(NotImplementedError, match="M14 step 2"):
-        sharded_operator_cg_solve(csr, b4, mesh=one_rank, precondition="block_jacobi")
+    # Block Jacobi on sharded WELL takes the CSR's shard-aligned blocks.
+    res = sharded_operator_cg_solve(csr, b4, mesh=one_rank, tol=1e-5 * 8.0,
+                                    precondition="block_jacobi", pc_block_size=16)
+    assert bool(res.converged)
+    np.testing.assert_allclose(csr.matvec(res.x.numpy().astype(np.float64)), b4, atol=1e-4)
     with pytest.raises(ValueError, match="bfloat16"):
         sharded_operator_cg_solve(op, b4, mesh=one_rank, storage_dtype=torch.bfloat16)
     no_main = DiaOperator(data=torch.ones(2, 128), offsets=(-1, 1), n=128)

@@ -35,7 +35,11 @@ distribute a solve's rows over the ranks of a ``torch.distributed`` world
 (``make_mesh``, ``init_distributed``): dense with the allgather or
 overlap-ring exchange, Poisson on slabs with plane halos (K9), DIA on row
 blocks with band halos (K7), ELL and BSR, and an irregular CSR as row
-blocks of WELL (K13 on each rank's rows of the gathered x). The package imports neither ``jax`` nor ``tpucg``.
+blocks of WELL (K13 on each rank's rows of the gathered x), with every
+method and preconditioner of a serial cg solve (block Jacobi on each rank's
+own blocks); ``sharded_cg_solve_multi`` and ``sharded_cg_solve_block``
+distribute the multi-RHS and block CG solves (K13 x k on WELL). The package
+imports neither ``jax`` nor ``tpucg``.
 """
 
 from tpucg_torch.comm.mesh import Mesh, init_distributed, make_mesh
@@ -89,6 +93,8 @@ from tpucg_torch.solver.sharded import (
     DistributedSystem,
     distribute_system,
     sharded_cg_solve,
+    sharded_cg_solve_block,
+    sharded_cg_solve_multi,
     sharded_operator_cg_solve,
 )
 from tpucg_torch.solver.twolevel import TwoLevel, build_two_level
@@ -125,6 +131,8 @@ __all__ = [
     "init_distributed",
     "make_mesh",
     "sharded_cg_solve",
+    "sharded_cg_solve_block",
+    "sharded_cg_solve_multi",
     "sharded_operator_cg_solve",
     "BsrOperator",
     "DenseOperator",

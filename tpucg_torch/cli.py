@@ -33,8 +33,10 @@ is tpucg's, so either package's CLI resumes the other's.
 system, as tpucg's ``cli.py:945-976, 1014-1021``) run the distributed
 solves over ``torch.distributed``: under ``torchrun --nproc-per-node P`` on
 its world, else as a world of one rank; an irregular ``.mtx`` (promoted to
-WELL) goes to the ranks as its CSR, packed into row blocks of WELL. Only
-rank 0 prints.
+WELL) goes to the ranks as its CSR, packed into row blocks of WELL. They
+take the method options and block Jacobi as the serial solve does (ELL and
+BSR refuse block Jacobi, as tpucg's sharded solve does). Only rank 0
+prints.
 """
 
 from __future__ import annotations
@@ -62,14 +64,11 @@ def _check_solve_options(args) -> None:
         raise SystemExit("--two-level/--interval do not apply to --method minres (MINRES "
                          "preconditioning is --precondition jacobi/block_jacobi)")
     if args.strategy == "summa":
-        raise NotImplementedError("--strategy summa (the 2-D SUMMA decomposition) is ROADMAP M14")
+        raise NotImplementedError("--strategy summa (the 2-D SUMMA decomposition) is ROADMAP "
+                                  "M14 step 7")
     if args.strategy != "serial" and (args.two_level is not None or args.method == "minres"):
         raise NotImplementedError("distributed --two-level and --method minres (M12 on the mesh) "
                                   "are ROADMAP M14 step 5")
-    if args.strategy != "serial" and (args.method != "cg" or args.precondition == "block_jacobi"
-                                      or args.interval is not None):
-        raise NotImplementedError("the distributed pipelined, CA and Chebyshev methods and "
-                                  "block Jacobi are ROADMAP M14")
     if args.checkpoint is not None and args.interval is not None:
         raise SystemExit("--interval does not compose with --checkpoint")
 
@@ -276,9 +275,10 @@ def _cmd_solve_mtx(args, t_total0) -> int:
                        **_method_kw(args))
     elif csr is None:
         res = sharded_cg_solve(mat, b, x0, mesh=mesh, strategy=args.strategy,
-                               storage_dtype=storage, **kw)
+                               storage_dtype=storage, **kw, **_method_kw(args))
     else:
-        res = sharded_operator_cg_solve(sh_target, b, x0, mesh=mesh, storage_dtype=storage, **kw)
+        res = sharded_operator_cg_solve(sh_target, b, x0, mesh=mesh, storage_dtype=storage, **kw,
+                                        **_method_kw(args))
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     solve_s = time.perf_counter() - t0
@@ -381,7 +381,7 @@ def cmd_solve(args) -> int:
         where = f"{device} [{op.backend}]{_ck_note(args)}"
     else:
         res = sharded_cg_solve(A, b, x0, mesh=mesh, strategy=args.strategy,
-                               storage_dtype=storage, **kw)
+                               storage_dtype=storage, **kw, **_method_kw(args))
         where = f"{mesh!r}, strategy {args.strategy}"
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -549,6 +549,7 @@ def _bench_one(args, strategy: str, mesh) -> dict:
         profile_table,
         time_fn,
     )
+    from tpucg_torch.config import CGConfig
     from tpucg_torch.io.generator import generate_spd_system
     from tpucg_torch.solver.cg import cg_solve
     from tpucg_torch.solver.operators import DenseOperator
@@ -556,12 +557,8 @@ def _bench_one(args, strategy: str, mesh) -> dict:
 
     storage = torch.bfloat16 if args.storage == "bf16" else torch.float32
     t_total0 = time.perf_counter()
-    kw = dict(kernel=args.kernel, precondition=args.precondition, poly_degree=args.poly_degree)
-    if strategy == "serial":
-        kw.update(_method_kw(args))
-    elif args.method != "cg" or args.precondition == "block_jacobi" or args.interval is not None:
-        raise NotImplementedError("the distributed pipelined, CA and Chebyshev methods and "
-                                  "block Jacobi are ROADMAP M14")
+    kw = dict(kernel=args.kernel, precondition=args.precondition, poly_degree=args.poly_degree,
+              **_method_kw(args))
     if args.operator == "dense":
         n = args.n
         A, b, x0 = generate_spd_system(n, seed=0)
@@ -570,7 +567,10 @@ def _bench_one(args, strategy: str, mesh) -> dict:
         # block of it, on the card (the reference's MPI_Scatter phase).
         t0 = time.perf_counter()
         if strategy != "serial":
-            system = distribute_system(A, b, x0, mesh, strategy=strategy, storage_dtype=storage)
+            # Under block Jacobi each rank's rows are whole blocks (pc_align).
+            system = distribute_system(A, b, x0, mesh, strategy=strategy, storage_dtype=storage,
+                                       config=CGConfig(precondition=args.precondition,
+                                                       pc_block_size=args.pc_block_size))
             torch.cuda.synchronize()
             distribute_s = time.perf_counter() - t0
 
@@ -721,10 +721,11 @@ def build_parser() -> argparse.ArgumentParser:
     ps.add_argument("--strategy", default="serial",
                     choices=("serial", "allgather", "overlap", "summa"),
                     help="distributed row-block solve over torch.distributed (under "
-                         "torchrun, or one rank): allgather or overlap for a dense A, "
-                         "the halo or gather decomposition of a DIA, ELL or BSR .mtx, "
-                         "row blocks of WELL for an irregular one; summa (2-D) is ROADMAP "
-                         "M14")
+                         "torchrun, or one rank), with every --method and --precondition "
+                         "of a serial cg solve: allgather or overlap for a dense A, the "
+                         "halo or gather decomposition of a DIA, ELL or BSR .mtx, row "
+                         "blocks of WELL for an irregular one; summa (2-D) is ROADMAP M14 "
+                         "step 7")
     ps.add_argument("--two-level", type=int, default=None, metavar="AGG",
                     help="two-level preconditioning with AGG-row contiguous aggregates (.mtx "
                          "sparse systems, method cg or pipelined, serial): the coarse-space "
@@ -763,7 +764,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="serial, allgather and overlap in turn on the dense system: a "
                          "report each on stderr, the serial arm's JSON line")
     pb.add_argument("--method", default="cg", choices=("cg", "pipelined", "ca", "chebyshev"),
-                    help="the serial solve's method (see solve --method)")
+                    help="the solve's method, serial or distributed (see solve --method)")
     pb.set_defaults(fn=cmd_bench)
 
     pi = sub.add_parser("info", help="device / backend / kernel library")

@@ -159,12 +159,15 @@ class Mesh:
         return out
 
     def rank_sum(self, partial: torch.Tensor) -> torch.Tensor:
-        """The sum over the ranks of a 0-d f32 ``partial``: every rank's
-        partial gathered, then added left to right in rank order (no
-        all_reduce, whose order of summation is NCCL's). One rank's sum is
-        its partial, bit for bit."""
-        parts = torch.empty(self.size, dtype=partial.dtype, device=partial.device)
-        self.all_gather(parts, partial.reshape(1))
+        """The sum over the ranks of ``partial`` (any shape and dtype: a
+        dot, a pipelined lap's stacked dots, a Gram): every rank's partial
+        gathered into (size, *shape), then the rows added left to right in
+        rank order (no all_reduce, whose order of summation is NCCL's), so
+        every rank holds the same bits. One rank's sum is its partial, bit
+        for bit."""
+        parts = torch.empty((self.size,) + tuple(partial.shape), dtype=partial.dtype,
+                            device=partial.device)
+        self.all_gather(parts.reshape(-1), partial.contiguous().reshape(-1))
         s = parts[0]
         for i in range(1, self.size):
             s = s + parts[i]

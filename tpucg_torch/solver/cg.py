@@ -25,7 +25,9 @@ Beside the classic loop (``cg_loop``) are tpucg's other methods:
 Chebyshev basis) and ``chebyshev_loop``, each enqueued in masked steps (a
 lap, a block of s laps, a chunk of ``check_every`` laps) through the same
 runner; their matvecs and dots are the operator's kernel and K3, called
-without a flag, so each product is a fresh tensor. Block Jacobi
+without a flag, so each product is a fresh tensor. ``run_method`` runs
+them for ``cg_solve`` and for the sharded solves, whose closures sum over
+the ranks (``solver/sharded.py``). Block Jacobi
 (``block_jacobi_minv``, ``make_block_precond``) and the spectral interval
 (``spectral_interval_estimate``, ``spectral_interval``) serve them.
 
@@ -1261,12 +1263,41 @@ def chebyshev_loop(
     return _State(k=k, x=x, r=r, p=d, rsold=rr, rslast=rr, done=done)
 
 
-def _run_chebyshev(matvec, dot, b, x0, *, tol, maxiter, check_every, precond=None,
-                   interval=None, chunk=None):
-    """``chebyshev_loop`` -> (x, k, ||r||, done), tpucg's result tuple."""
-    st = chebyshev_loop(matvec, dot, b, x0, tol=tol, maxiter=maxiter, check_every=check_every,
-                        precond=precond, interval=interval, chunk=chunk)
-    return st.x, st.k, st.rslast.sqrt(), st.done
+def run_method(config: CGConfig, matvec: Callable, dot: Callable, dots: Callable,
+               gram: Callable, b: torch.Tensor, x0: torch.Tensor, *, maxiter: int,
+               precond: Optional[Callable] = None, interval=None,
+               chunk: Optional[int] = None):
+    """The loop of ``config.method`` ``"pipelined"``, ``"ca"`` or
+    ``"chebyshev"`` -> (x, k, ||r||, converged), tpucg's result tuple
+    (``_run_pipelined``, ``_run_ca``, ``_run_chebyshev``), for the serial
+    solve and the sharded ones alike: ``matvec(v, act)``, ``dot(u, v, act)``,
+    ``dots(pairs)`` (every dot of a pipelined lap at once) and ``gram(V)``
+    (CA's V^T V) are the caller's, summed over the ranks on a mesh.
+
+    - pipelined: replaces its residuals every ``PIPE_REPLACE_EVERY`` laps
+      when preconditioned; convergence is tested a lap late, so a solve cut
+      by maxiter reports its final r.r, recomputed;
+    - ca: ``rslast`` is the exact (verified) block-end r.r;
+    - chebyshev: the loop's carried r.r."""
+    tol, safe_alpha = float(config.tol), bool(config.safe_alpha)
+    if config.method == "pipelined":
+        s = pipelined_cg_loop(
+            matvec, dots, b, x0, tol=tol, maxiter=maxiter, safe_alpha=safe_alpha,
+            precond=precond, replace_every=None if precond is None else PIPE_REPLACE_EVERY,
+            chunk=chunk)
+        rr = torch.where(s.done, s.rslast, dot(s.r, s.r, None))
+        tol2 = torch.tensor(tol, dtype=b.dtype, device=b.device) ** 2
+        return s.x, s.k, rr.sqrt(), s.done | (rr < tol2)
+    if config.method == "ca":
+        s = ca_cg_loop(matvec, dot, gram, b, x0, s=int(config.s_step), tol=tol,
+                       maxiter=maxiter, safe_alpha=safe_alpha, interval=interval, chunk=chunk)
+        return s.x, s.k, s.rslast.sqrt(), s.done
+    if config.method == "chebyshev":
+        s = chebyshev_loop(matvec, dot, b, x0, tol=tol, maxiter=maxiter,
+                           check_every=int(config.check_every), precond=precond,
+                           interval=interval, chunk=chunk)
+        return s.x, s.k, s.rslast.sqrt(), s.done
+    raise ValueError(f"run_method runs pipelined, ca and chebyshev, got {config.method!r}")
 
 
 def _keep_if(ran: torch.Tensor, new: tuple, old: tuple) -> tuple:
@@ -1306,6 +1337,7 @@ def multi_cg_loop(
     safe_alpha: bool = True,
     precond: Optional[Callable] = None,
     chunk: Optional[int] = None,
+    dot_cols: Callable = _dot_cols,
 ) -> _MultiState:
     """k independent CG (or PCG) recurrences in lockstep, one batched matvec
     ``mvm(X, act)`` (the operator's ``matvec_multi``) a lap (tpucg's
@@ -1316,16 +1348,17 @@ def multi_cg_loop(
     ``run_chunks``, running while k < ``maxiter`` and a column is not done:
     a step enqueued after that changes nothing, and its matvec gets the
     flag (0) so a kernel returns at once. ``its`` counts each column's laps,
-    as tpucg's vmapped lanes count theirs."""
+    as tpucg's vmapped lanes count theirs. ``dot_cols(U, V)`` gives the
+    columnwise dots (k,) (a sharded solve passes its rank-summed form)."""
     dev = B.device
     R0 = B - mvm(X0, None)
     tol2 = torch.tensor(tol, dtype=R0.dtype, device=dev) ** 2
-    rr0 = _dot_cols(R0, R0)
+    rr0 = dot_cols(R0, R0)
     if precond is None:
         P0, rs0 = R0, rr0
     else:
         P0 = precond(R0, None)
-        rs0 = _dot_cols(R0, P0)
+        rs0 = dot_cols(R0, P0)
     st = _MultiState(k=torch.zeros((), dtype=torch.int32, device=dev),
                      its=torch.zeros(B.shape[1], dtype=torch.int32, device=dev),
                      X=X0, R=R0, P=P0, rsold=rs0, rslast=rr0, done=rr0 < tol2)
@@ -1339,18 +1372,18 @@ def multi_cg_loop(
         ran = running(s)
         act = ran.to(torch.int32)
         AP = mvm(s.P, act)
-        pap = _dot_cols(s.P, AP)
+        pap = dot_cols(s.P, AP)
         alpha = alpha_torch(pap, s.rsold, safe_alpha)
         alpha = torch.where(s.done, 0.0, alpha)
         X = s.X + alpha * s.P
         R = s.R - alpha * AP
-        rr = torch.where(s.done, s.rslast, _dot_cols(R, R))
+        rr = torch.where(s.done, s.rslast, dot_cols(R, R))
         done = s.done | (rr < tol2)
         if precond is None:
             Z, rs_new = R, rr
         else:
             Z = precond(R, act)
-            rs_new = _dot_cols(R, Z)
+            rs_new = dot_cols(R, Z)
         P = torch.where(done, s.P, Z + (rs_new / s.rsold) * s.P)
         rsold = torch.where(done, s.rsold, rs_new)
         its = s.its + (~s.done).to(torch.int32)
@@ -1831,33 +1864,15 @@ def cg_solve(
         precond = make_two_level_precond(two_level, matvec, dot, b)
     else:
         precond = make_precond(config.precondition, minv, matvec, dot, b, config.poly_degree)
-    safe_alpha = bool(config.safe_alpha)
-    tol2 = torch.tensor(tol, dtype=dtype, device=device) ** 2
-    if config.method == "pipelined":
-        s = pipelined_cg_loop(
-            matvec, lambda pairs: tuple(dot(u, v, None) for u, v in pairs), b, x0,
-            tol=tol, maxiter=maxiter, safe_alpha=safe_alpha, precond=precond,
-            replace_every=None if precond is None else PIPE_REPLACE_EVERY, chunk=chunk,
-        )
-        # Convergence is tested a lap late: a solve cut by maxiter reports
-        # its final r.r.
-        rr = torch.where(s.done, s.rslast, dot(s.r, s.r, None))
-        return CGResult(x=s.x[:n], iterations=s.k, residual_norm=rr.sqrt(),
-                        converged=s.done | (rr < tol2))
-    if config.method == "ca":
-        s = ca_cg_loop(matvec, dot, gram_f32, b, x0, s=int(config.s_step), tol=tol,
-                       maxiter=maxiter, safe_alpha=safe_alpha, interval=interval, chunk=chunk)
-        # rslast is the exact (verified) block-end r.r.
-        return CGResult(x=s.x[:n], iterations=s.k, residual_norm=s.rslast.sqrt(),
-                        converged=s.done)
-    if config.method == "chebyshev":
-        x, k, rn, done = _run_chebyshev(matvec, dot, b, x0, tol=tol, maxiter=maxiter,
-                                        check_every=int(config.check_every), precond=precond,
-                                        interval=interval, chunk=chunk)
+    if config.method != "cg":
+        x, k, rn, done = run_method(
+            config, matvec, dot, lambda pairs: tuple(dot(u, v, None) for u, v in pairs),
+            gram_f32, b, x0, maxiter=maxiter, precond=precond, interval=interval, chunk=chunk)
         return CGResult(x=x[:n], iterations=k, residual_norm=rn, converged=done)
+    tol2 = torch.tensor(tol, dtype=dtype, device=device) ** 2
     s = cg_loop(
         matvec, dot, lap, b, x0,
-        tol=tol, maxiter=maxiter, safe_alpha=safe_alpha, precond=precond,
+        tol=tol, maxiter=maxiter, safe_alpha=bool(config.safe_alpha), precond=precond,
         hist_len=maxiter if record_residuals else None,
         chunk=chunk,
         check_true_every=TRUE_CHECK_EVERY if two_level is not None else None,

@@ -34,15 +34,26 @@ The exchanges:
 - ELL and BSR: x gathered whole, then tpucg's XLA products as plain torch
   ops (tpucg has no Pallas kernel for them, so none is owed).
 
-``x`` comes back whole on every rank. Methods other than ``"cg"``, block
-Jacobi, 2-D meshes and the two-level preconditioner name their ROADMAP
-item.
+Every method runs on the mesh through the same closures (``cg.run_method``
+takes them as the serial solve does): pipelined CG sums a lap's dots in one
+``rank_sum`` of their stacked partials (``dots``), CA-CG its basis's Gram in
+one (``gram``, summed in float64), Chebyshev only its checks' dots. Block
+Jacobi is shard-local: the block grid restarts at every rank's first row, so
+each rank inverts its own diagonal blocks once and applies them with no
+collective. ``sharded_cg_solve_multi`` and ``sharded_cg_solve_block`` run k
+right-hand sides on one (blk, k) product a lap: one gather of the direction
+block (or a (halo, k) exchange) and the rank's rows of A times it.
+
+``x`` comes back whole on every rank. 2-D meshes (M14 step 7), the
+two-level preconditioner (step 5) and the multi-process checkpoint (step 6)
+name their ROADMAP item.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+import math
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -64,16 +75,20 @@ from tpucg_torch.kernels.gather_spmv import (
     check_well_values,
     well_rows,
     well_spmv_launch,
+    well_spmv_multi_launch,
+    well_spmv_multi_torch,
     well_spmv_torch,
 )
 from tpucg_torch.kernels.matvec import check_matvec, gemv_launch, matvec_torch
 from tpucg_torch.kernels.spmv import (
     LANE,
     bsr_ell_spmv,
+    bsr_ell_spmv_multi,
     check_dia,
     dia_spmv_halo_launch,
     dia_spmv_halo_torch,
     ell_spmv,
+    ell_spmv_multi,
     halo_length,
     offsets_array,
 )
@@ -82,7 +97,23 @@ from tpucg_torch.kernels.stencil import (
     poisson3d_slab_launch,
     poisson3d_slab_torch,
 )
-from tpucg_torch.solver.cg import CGResult, TorchLap, _configure, cg_loop, make_precond
+from tpucg_torch.solver.cg import (
+    BLOCK_CG_MAX_K,
+    CGResult,
+    TorchLap,
+    _configure,
+    _poly_block,
+    block_cg_loop,
+    block_pcg_loop,
+    cg_loop,
+    invert_blocks,
+    lambda_max_estimate,
+    make_block_apply,
+    make_precond,
+    multi_cg_loop,
+    run_method,
+    sqrt_pair_blocks,
+)
 from tpucg_torch.solver.operators import (
     BsrOperator,
     DiaOperator,
@@ -101,22 +132,39 @@ _F32 = torch.float32
 ROW_ALIGN = 8
 
 
-def _check_supported(config: CGConfig, interval=None, two_level=None) -> None:
-    if config.method != "cg":
-        raise NotImplementedError(f"sharded method={config.method!r} is ROADMAP M14 step 2 "
-                                  "(M8's loops on the mesh)")
-    if config.precondition == "block_jacobi":
-        raise NotImplementedError("sharded precondition='block_jacobi' is ROADMAP M14 step 2 "
-                                  "(M8's block Jacobi on the mesh)")
+def pc_align(base: int, config: CGConfig) -> int:
+    """The dense partition's row alignment (tpucg's ``pc_align``,
+    ``sharded.py:63``): under block Jacobi each rank's rows are a multiple
+    of ``pc_block_size`` as well, so no block crosses a rank (the identity
+    tail's blocks are exact unit diagonals)."""
+    if config.precondition != "block_jacobi":
+        return base
+    return math.lcm(base, int(config.pc_block_size))
+
+
+def _interval_static(interval, config: CGConfig):
+    """A cached spectral interval as host floats (tpucg's
+    ``_interval_static``, ``sharded.py:143``); it serves CA and Chebyshev
+    only."""
+    if interval is None:
+        return None
+    if config.method not in ("ca", "chebyshev"):
+        raise ValueError("interval=(lam_lo, lam_hi) applies to method='ca'/'chebyshev' "
+                         f"(got method={config.method!r})")
+    return (float(interval[0]), float(interval[1]))
+
+
+def _check_supported(config: CGConfig, interval=None, two_level=None,
+                     record_residuals: bool = False) -> None:
+    if record_residuals and config.method != "cg":
+        raise ValueError("record_residuals requires method='cg'")
     if config.dtype != _F32:
         # tpucg's sharded solves run f32 whatever config.dtype says (they
         # read storage_dtype only); the port refuses instead of solving in
         # another dtype than the one asked for.
         raise ValueError(f"sharded solves are float32 (tpucg's run f32 whatever config.dtype "
                          f"says); got dtype={config.dtype}: use cg_solve for a float64 solve")
-    if interval is not None:
-        raise NotImplementedError("sharded interval= serves method='ca'/'chebyshev': ROADMAP "
-                                  "M14 step 2 (M8's loops on the mesh)")
+    _interval_static(interval, config)
     if two_level is not None:
         raise NotImplementedError("two_level= (distributed two-level PCG) is ROADMAP M14 step 5")
 
@@ -124,38 +172,78 @@ def _check_supported(config: CGConfig, interval=None, two_level=None) -> None:
 # --- the lap's closures ------------------------------------------------------
 
 
-def _reductions(mesh: Mesh, backend: str, like: torch.Tensor):
-    """``dot`` and ``update`` for ``cg_loop``'s ``TorchLap``: K3 or K2 on
-    this rank's block (their plain versions on the torch backend), one
-    launch each, then ``Mesh.rank_sum``; the lap's scalars stay in torch ops
-    on the summed values. On cuda the lap's calls write their sums into
-    buffers owned here, and K2 updates x and r in place, as the serial cuda
-    lap does."""
+@dataclasses.dataclass(frozen=True)
+class _Reductions:
+    """The sums over the ranks that the loops take (tpucg's
+    ``_make_reductions``, ``sharded.py:75``, and its Grams), every one a
+    single ``Mesh.rank_sum`` of this rank's partial:
+
+    - ``dot(u, v, act)`` and ``update(x, r, p, ap, alpha, act)``: the
+      classic lap's (``TorchLap``);
+    - ``dots(pairs)``: every dot of a pipelined lap, stacked, in one sum;
+    - ``gram(V)``: CA's basis Gram, the rank's V^T V summed in float64 and
+      rounded to f32 once (the serial ``gram_f32`` on the partial sums);
+    - ``dot_cols(U, V)``: the multi-RHS loop's columnwise dots (k,);
+    - ``gram_kk(U, V)``: block CG's k x k U^T V."""
+
+    dot: Callable
+    update: Callable
+    dots: Callable
+    gram: Callable
+    dot_cols: Callable
+    gram_kk: Callable
+
+
+def _reductions(mesh: Mesh, backend: str, like: torch.Tensor) -> _Reductions:
+    """The rank-summed closures on ``backend``: K3 or K2 on this rank's
+    block (their plain versions on the torch backend), one launch each,
+    then ``Mesh.rank_sum``; the lap's scalars stay in torch ops on the
+    summed values. On cuda the lap's calls write their sums into buffers
+    owned here, and K2 updates x and r in place, as the serial cuda lap
+    does. Calls without a flag (the pipelined lap's dots, the power method)
+    take K3's checked wrapper."""
+    rank_sum = mesh.rank_sum
+
+    def gram(V):
+        return rank_sum(V.T.to(torch.float64) @ V.to(torch.float64)).to(V.dtype)
+
+    def dot_cols(U, V):
+        return rank_sum((U * V).sum(0))
+
+    def gram_kk(U, V):
+        return rank_sum(U.T @ V)
+
     if backend == "cuda":
         stream = cuda_stream(like)
         d = torch.empty((), dtype=_F32, device=like.device)
         rr = torch.empty((), dtype=_F32, device=like.device)
         scratch = scratch_for(like)
+        one = dot_cuda
 
         def dot(u, v, act):
             if act is None:
-                return mesh.rank_sum(dot_cuda(u, v))
+                return rank_sum(dot_cuda(u, v))
             dot_launch(u, v, scratch, d, act.data_ptr(), stream)
-            return mesh.rank_sum(d)
+            return rank_sum(d)
 
         def update(x, r, p, ap, alpha, act):
             fused_update_launch(x, r, p, ap, alpha, x, r, scratch, rr, act.data_ptr(), stream)
-            return x, r, mesh.rank_sum(rr)
-        return dot, update
+            return x, r, rank_sum(rr)
+    else:
+        one = dot_torch
 
-    def dot(u, v, act):
-        return mesh.rank_sum(dot_torch(u, v))
+        def dot(u, v, act):
+            return rank_sum(dot_torch(u, v))
 
-    def update(x, r, p, ap, alpha, act):
-        xn, rn, rr = fused_update_torch(x, r, p, ap, alpha)
-        keep = act.bool()
-        return torch.where(keep, xn, x), torch.where(keep, rn, r), mesh.rank_sum(rr)
-    return dot, update
+        def update(x, r, p, ap, alpha, act):
+            xn, rn, rr_ = fused_update_torch(x, r, p, ap, alpha)
+            keep = act.bool()
+            return torch.where(keep, xn, x), torch.where(keep, rn, r), rank_sum(rr_)
+
+    def dots(pairs):
+        total = rank_sum(torch.stack([one(u, v) for u, v in pairs]))
+        return tuple(total[i] for i in range(len(pairs)))
+    return _Reductions(dot, update, dots, gram, dot_cols, gram_kk)
 
 
 def _output(y: torch.Tensor, act) -> torch.Tensor:
@@ -248,7 +336,8 @@ class _ShardedOperator:
     diagonal for Jacobi (inverted on the device, as the serial solve inverts
     it; None without Jacobi) and the kind's statics (for WELL, as tpucg
     keeps them: ``m`` the rows a rank, ``offsets`` (bg, nsg); its arrays
-    are the rank's packed arrays and their ``WellRows`` layout)."""
+    are the rank's packed arrays and their ``WellRows`` layout), and under
+    block Jacobi the rank's raw diagonal blocks."""
 
     kind: str
     n: int
@@ -258,6 +347,7 @@ class _ShardedOperator:
     m: int = 0
     m_padded: int = 0
     offsets: tuple = ()
+    blocks: Optional[torch.Tensor] = None  # block Jacobi's (nbl, bs, bs), f32
 
 
 def _operator_matvec(sop: _ShardedOperator, mesh: Mesh, backend: str) -> Callable:
@@ -346,22 +436,149 @@ def _operator_matvec(sop: _ShardedOperator, mesh: Mesh, backend: str) -> Callabl
     return matvec
 
 
-def _solve(matvec, mesh: Mesh, backend: str, b_blk, x0_blk, diag, config: CGConfig,
-           maxiter: int, record_residuals: bool, chunk):
-    """``cg_loop`` on this rank's block with the sharded closures; returns
-    the loop's final state and x gathered whole (padded length)."""
-    dot, update = _reductions(mesh, backend, b_blk)
+def _poisson_slab_multi(U: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+                        m: int) -> torch.Tensor:
+    """``poisson3d_slab_torch`` on the k columns of U (blk, k) at once, the
+    halos (m^2, k): each column equals the single-column plain version bit
+    for bit (tpucg forces its XLA slab arm here, ``sharded.py:1318-1319``,
+    so no kernel is owed)."""
+    k = U.shape[1]
+    v = U.reshape(-1, m, m, k)
+    y = 6.0 * v
+    y = y - torch.cat([v[1:], hi.reshape(1, m, m, k)], dim=0)
+    y = y - torch.cat([lo.reshape(1, m, m, k), v[:-1]], dim=0)
+    for axis in (1, 2):
+        shape = list(v.shape)
+        shape[axis] = 1
+        zeros = v.new_zeros(shape)
+        y = y - torch.cat([v.narrow(axis, 1, m - 1), zeros], dim=axis)
+        y = y - torch.cat([zeros, v.narrow(axis, 0, m - 1)], dim=axis)
+    return y.reshape(-1, k)
+
+
+def _dia_halo_multi(data: torch.Tensor, offsets, X: torch.Tensor, lo: torch.Tensor,
+                    hi: torch.Tensor) -> torch.Tensor:
+    """``dia_spmv_halo_torch`` on the k columns of X (blk, k) at once, the
+    halos (pad, k); each column equals the single-column plain version bit
+    for bit."""
+    pad, blk = lo.shape[0], X.shape[0]
+    X_ext = torch.cat([lo, X, hi])
+    Y = torch.zeros_like(X)
+    for d, off in enumerate(offsets):
+        Y = Y + data[d].to(_F32)[:, None] * X_ext[pad + int(off): pad + int(off) + blk]
+    return Y
+
+
+def _gather_rows(mesh: Mesh, X: torch.Tensor) -> torch.Tensor:
+    """Every rank's (blk, k) block of rows, whole: (P blk, k) in rank order,
+    one ``Mesh.all_gather``."""
+    X = X.contiguous()
+    out = torch.empty((X.shape[0] * mesh.size,) + tuple(X.shape[1:]), dtype=X.dtype,
+                      device=X.device)
+    mesh.all_gather(out.reshape(-1), X.reshape(-1))
+    return out
+
+
+def _dense_matvec_batched(A_blk: torch.Tensor, mesh: Mesh) -> Callable:
+    """``mvm(X_blk, act)``, (blk, k) -> (blk, k), of a dense (blk, npad) row
+    block (tpucg's ``_sharded_multi_jit``, ``sharded.py:292``): the (blk, k)
+    direction block gathered whole in one call, then one product of the
+    rank's rows with it (a GEMM, as the serial dense ``matvec_multi``)."""
+    def mvm(X, act=None):
+        return A_blk @ _gather_rows(mesh, X)
+    return mvm
+
+
+def _operator_matvec_batched(sop: _ShardedOperator, mesh: Mesh, backend: str) -> Callable:
+    """``mvm(X_blk, act)``, (blk, k) -> (blk, k), of a sharded sparse
+    operator (tpucg's ``_operator_matvec_batched``, ``sharded.py:1284``): one
+    (halo, k) exchange a call for Poisson and DIA, then the plain batched
+    product (tpucg forces its XLA arms there, so no kernel is owed); X
+    gathered whole for WELL, then K13 x k over the rank's ``WellRows``
+    layout for its rows (``well_spmv_multi_torch`` on the CPU), and for ELL
+    and BSR, then their plain k-column products."""
+    dev = mesh.device
+    blk = sop.npad // mesh.size
+    if sop.kind == "poisson":
+        m, mm = sop.m, sop.m * sop.m
+        mp = blk // mm
+        plane = mesh.rank * mp + torch.arange(mp, device=dev)
+        keep = (plane < m).repeat_interleave(mm)[:, None]
+        padded = sop.m_padded != m
+
+        def mvm(X, act=None):
+            U = X * keep if padded else X
+            lo = U.new_zeros((mm, U.shape[1]))
+            hi = U.new_zeros((mm, U.shape[1]))
+            _halo_exchange(mesh, U[:mm].contiguous(), U[-mm:].contiguous(), lo, hi)
+            Y = _poisson_slab_multi(U, lo, hi, m)
+            return torch.where(keep, Y, X) if padded else Y
+        return mvm
+    if sop.kind == "dia":
+        (data,) = sop.arrays
+        offs = sop.offsets
+        pad = halo_length(offs)
+
+        def mvm(X, act=None):
+            lo = X.new_zeros((pad, X.shape[1]))
+            hi = X.new_zeros((pad, X.shape[1]))
+            _halo_exchange(mesh, X[:pad].contiguous(), X[-pad:].contiguous(), lo, hi)
+            return _dia_halo_multi(data, offs, X, lo, hi)
+        return mvm
+    if sop.kind == "well":
+        rows = sop.arrays[5]
+        stream = cuda_stream(rows.rvals) if backend == "cuda" else None
+
+        def mvm(X, act=None):
+            X_full = _gather_rows(mesh, X)
+            if backend != "cuda":
+                return well_spmv_multi_torch(rows, X_full, blk)
+            Y = torch.empty((blk, X.shape[1]), dtype=_F32, device=dev)
+            well_spmv_multi_launch(rows, X_full, Y, blk, _flag(act), stream)
+            return Y
+        return mvm
+    values, indices = sop.arrays
+    product = ell_spmv_multi if sop.kind == "ell" else bsr_ell_spmv_multi
+
+    def mvm(X, act=None):
+        return product(values, indices, _gather_rows(mesh, X))
+    return mvm
+
+
+def _solve(matvec, mesh: Mesh, backend: str, b_blk, x0_blk, diag, blocks, config: CGConfig,
+           maxiter: int, record_residuals: bool, chunk, interval, cg_converged: str) -> CGResult:
+    """The method's loop on this rank's block with the sharded closures
+    (``cg_loop`` for ``"cg"``, ``run_method`` for the others, as
+    ``cg_solve`` runs them); x gathered whole (padded length). ``diag`` is
+    Jacobi's diagonal and ``blocks`` block Jacobi's raw diagonal blocks,
+    both this rank's. A cg solve's ``converged`` is ``cg_converged``:
+    ``"done"`` (the dense solve's, tpucg's loop flag) or ``"rr"`` (the
+    operator solve's, r.r < tol^2)."""
+    red = _reductions(mesh, backend, b_blk)
     minv = None
     if config.precondition == "jacobi":
         minv = torch.where(diag != 0, 1.0 / diag, 1.0)
-    precond = make_precond(config.precondition, minv, matvec, dot, b_blk, config.poly_degree)
-    s = cg_loop(matvec, dot, TorchLap(dot, update), b_blk, x0_blk, tol=float(config.tol),
-                maxiter=maxiter,
+    elif config.precondition == "block_jacobi":
+        minv = invert_blocks(blocks)
+    precond = make_precond(config.precondition, minv, matvec, red.dot, b_blk,
+                           config.poly_degree)
+    if config.method != "cg":
+        x, k, rn, done = run_method(config, matvec, red.dot, red.dots, red.gram, b_blk, x0_blk,
+                                    maxiter=maxiter, precond=precond,
+                                    interval=_interval_static(interval, config), chunk=chunk)
+        return CGResult(x=_gather_rows(mesh, x), iterations=k, residual_norm=rn,
+                        converged=done)
+    s = cg_loop(matvec, red.dot, TorchLap(red.dot, red.update), b_blk, x0_blk,
+                tol=float(config.tol), maxiter=maxiter,
                 safe_alpha=bool(config.safe_alpha), precond=precond,
                 hist_len=maxiter if record_residuals else None, chunk=chunk)
-    x_full = torch.empty(b_blk.shape[0] * mesh.size, dtype=_F32, device=b_blk.device)
-    mesh.all_gather(x_full, s.x)
-    return s, x_full
+    if cg_converged == "rr":
+        converged = s.rslast < torch.tensor(float(config.tol), dtype=_F32,
+                                            device=b_blk.device) ** 2
+    else:
+        converged = s.done
+    return CGResult(x=_gather_rows(mesh, s.x), iterations=s.k, residual_norm=s.rslast.sqrt(),
+                    converged=converged, residual_history=s.hist)
 
 
 # --- the dense solve ---------------------------------------------------------
@@ -424,13 +641,15 @@ def _padded_block(v, n: int, npad: int, r0: int, r1: int) -> np.ndarray:
 
 def distribute_system(A, b, x0=None, mesh: Optional[Mesh] = None,
                       part: Optional[RowPartition] = None, strategy: str = "allgather",
-                      storage_dtype=torch.float32) -> DistributedSystem:
+                      storage_dtype=torch.float32,
+                      config: Optional[CGConfig] = None) -> DistributedSystem:
     """Pad this rank's rows of (A, b, x0) and place them on the mesh's
     device once (tpucg's ``distribute_system``, ``sharded.py:2409``; the
     bench times it apart). ``part`` defaults to ``RowPartition(n, P,
-    ROW_ALIGN)``; ``strategy`` fixes the block's layout;
-    ``storage_dtype=torch.bfloat16`` stores A's block in bf16 (f32 sums and
-    vectors)."""
+    pc_align(ROW_ALIGN, config))``: a solve under block Jacobi (``config``'s
+    precondition) needs each rank's rows in whole blocks; ``strategy`` fixes
+    the block's layout; ``storage_dtype=torch.bfloat16`` stores A's block in
+    bf16 (f32 sums and vectors)."""
     if strategy not in STRATEGIES:
         raise ValueError(f"unknown strategy {strategy!r}")
     if storage_dtype not in (torch.float32, torch.bfloat16):
@@ -440,7 +659,9 @@ def distribute_system(A, b, x0=None, mesh: Optional[Mesh] = None,
     n = A.shape[0]
     if A.shape != (n, n):
         raise ValueError(f"A must be square, got {A.shape}")
-    part = RowPartition(n=n, num_shards=mesh.size, align=ROW_ALIGN) if part is None else part
+    if part is None:
+        align = ROW_ALIGN if config is None else pc_align(ROW_ALIGN, config)
+        part = RowPartition(n=n, num_shards=mesh.size, align=align)
     if part.n != n or part.num_shards != mesh.size or part.block_rows % ROW_ALIGN:
         raise ValueError(f"{part} does not partition n={n} over {mesh.size} ranks in rows of 8")
     npad, blk = part.n_padded, part.block_rows
@@ -458,13 +679,37 @@ def distribute_system(A, b, x0=None, mesh: Optional[Mesh] = None,
     )
 
 
-def _own_diagonal(system: DistributedSystem) -> torch.Tensor:
-    """The block's diagonal entries, which lie in its own column block
-    (tpucg's ``_jacobi_minv_blk``, ``sharded.py:629``), widened to f32."""
+def _own_square(system: DistributedSystem) -> torch.Tensor:
+    """The (blk, blk) square of the block's own column block, where its
+    diagonal lies (tpucg's ``_jacobi_minv_blk``, ``sharded.py:629``), in
+    either layout, in A's storage dtype."""
     A, r = system.A, system.rank
     blk = system.part.block_rows
-    own = A[r] if system.strategy == "overlap" else A[:, r * blk:(r + 1) * blk]
-    return torch.diagonal(own).to(_F32)
+    return A[r] if system.strategy == "overlap" else A[:, r * blk:(r + 1) * blk]
+
+
+def _square_blocks(sq: torch.Tensor, bs: int) -> torch.Tensor:
+    """The (blk / bs, bs, bs) diagonal blocks of a rank's own (blk, blk)
+    square (tpucg's ``_local_diag_blocks``, ``sharded.py:613``; the
+    partition keeps bs | blk), widened to f32."""
+    nb = sq.shape[0] // bs
+    blocks = sq.reshape(nb, bs, nb, bs).diagonal(dim1=0, dim2=2).permute(2, 0, 1)
+    return blocks.to(_F32).contiguous()
+
+
+def _local_diag_blocks(system: DistributedSystem, bs: int) -> torch.Tensor:
+    """This rank's diagonal blocks of a placed dense system, either layout."""
+    return _square_blocks(_own_square(system), bs)
+
+
+def _check_pc_blocks(config: CGConfig, part: RowPartition) -> None:
+    """A placed system whose rank blocks are not whole bs-blocks cannot run
+    block Jacobi (tpucg's ``ValueError``, ``sharded.py:2816-2826``): it is
+    distributed again, never re-padded here."""
+    if config.precondition == "block_jacobi" and part.block_rows % config.pc_block_size:
+        raise ValueError(f"pre-sharded A's padding is incompatible with pc_block_size="
+                         f"{config.pc_block_size} (shard block {part.block_rows} rows); "
+                         "redistribute without pre-sharding")
 
 
 def sharded_cg_solve(
@@ -487,14 +732,19 @@ def sharded_cg_solve(
     ``A`` is the whole matrix (each rank takes its rows) or this rank's
     ``DistributedSystem`` (then ``b`` and ``x0`` are not passed: the system
     holds them). ``config.strategy`` is ``"allgather"`` or ``"overlap"``;
-    ``precondition`` ``"none"``, ``"jacobi"`` or ``"poly"``;
-    ``storage_dtype`` f32 or bf16 (f32 sums and vectors; the solve then
-    meets the f32 contract on the bf16-rounded system). ``mesh`` defaults to
+    ``precondition`` ``"none"``, ``"jacobi"``, ``"block_jacobi"`` (the
+    rank's own diagonal blocks of ``pc_block_size``, inverted once; the
+    partition aligns to them, ``pc_align``) or ``"poly"``; ``method``
+    ``"cg"``, ``"pipelined"``, ``"ca"`` (``s_step``) or ``"chebyshev"``
+    (``check_every``), with ``interval=(lam_lo, lam_hi)`` for the last two,
+    each reporting its fields as the serial solve does. ``storage_dtype``
+    f32 or bf16 (f32 sums and vectors; the solve then meets the f32
+    contract on the bf16-rounded system). ``mesh`` defaults to
     ``make_mesh()``; ``kernel="auto"`` runs K1, K2 and K3 on a CUDA mesh and
     their plain versions on a CPU one. Every rank returns the same result,
     with x whole, trimmed to ``n`` (default: the system's)."""
     config = _configure(config, overrides)
-    _check_supported(config, interval)
+    _check_supported(config, interval, record_residuals=record_residuals)
     mesh = make_mesh() if mesh is None else mesh
     backend = resolve_backend(config.kernel, mesh.device)
     if isinstance(A, DistributedSystem):
@@ -515,15 +765,18 @@ def sharded_cg_solve(
         if b is None:
             raise ValueError("b is required")
         system = distribute_system(A, b, x0, mesh, strategy=config.strategy,
-                                   storage_dtype=storage_dtype)
+                                   storage_dtype=storage_dtype, config=config)
+    _check_pc_blocks(config, system.part)
     n = system.n if n is None else int(n)
     maxiter = int(config.maxiter if config.maxiter is not None else n)
     matvec = _dense_matvec(system.A, system.strategy, mesh, backend)
-    diag = _own_diagonal(system) if config.precondition == "jacobi" else None
-    s, x = _solve(matvec, mesh, backend, system.b, system.x0, diag, config, maxiter,
-                  record_residuals, chunk)
-    return CGResult(x=x[:n], iterations=s.k, residual_norm=s.rslast.sqrt(), converged=s.done,
-                    residual_history=s.hist)
+    pc = config.precondition
+    diag = torch.diagonal(_own_square(system)).to(_F32) if pc == "jacobi" else None
+    blocks = _local_diag_blocks(system, int(config.pc_block_size)) if pc == "block_jacobi" \
+        else None
+    res = _solve(matvec, mesh, backend, system.b, system.x0, diag, blocks, config, maxiter,
+                 record_residuals, chunk, interval, "done")
+    return res._replace(x=res.x[:n])
 
 
 # --- the operator solve ------------------------------------------------------
@@ -538,6 +791,63 @@ def _dia_canonical(op, device):
         return op.data.detach().to(device), op.offsets, op.n
     return (torch.from_numpy(np.asarray(op.data, np.float32)).to(device),
             tuple(int(o) for o in op.offsets), int(op.shape[0]))
+
+
+def _diag_blocks_sharded(offsets, data: np.ndarray, num: int, bs: int) -> np.ndarray:
+    """Shard-aligned diagonal blocks of a canonical (ndiag, npad) DIA slab
+    (tpucg's ``_diag_blocks_sharded``, ``sharded.py:2103``, host set-up in
+    NumPy): the bs-block grid restarts at every shard's first row (npad /
+    ``num`` rows a shard), so no block crosses a shard; a shard's grid tail
+    (bs not dividing its rows) takes identity rows. Returns the raw (num *
+    ceil(blk / bs), bs, bs) blocks, shard by shard."""
+    ndiag, npad = data.shape
+    blk = npad // num
+    if blk * num != npad:
+        raise ValueError(f"num={num} must divide the slab's {npad} rows")
+    nbl = -(-blk // bs)
+    D = np.zeros((ndiag, num, nbl * bs), np.float32)
+    D[:, :, :blk] = np.asarray(data, np.float32).reshape(ndiag, num, blk)
+    blocks = np.zeros((num, nbl, bs, bs), np.float32)
+    for d, off in enumerate(int(o) for o in offsets):
+        if abs(off) >= bs:
+            continue  # never lands inside a bs-block
+        rs = np.arange(max(0, -off), bs - max(0, off))
+        blocks[:, :, rs, rs + off] = D[d].reshape(num, nbl, bs)[..., rs]
+    if nbl * bs != blk:
+        # Cross-shard band entries the slice carried into the tail are cut,
+        # then the virtual rows are identity.
+        tail = np.arange(nbl * bs).reshape(nbl, bs) >= blk
+        cut = tail[None, :, :, None] | tail[None, :, None, :]
+        blocks = np.where(cut, 0.0, blocks)
+        blocks += np.eye(bs, dtype=np.float32)[None, None] * tail[None, :, :, None]
+    return blocks.reshape(num * nbl, bs, bs)
+
+
+def _poisson_dia_rows(m: int, npad: int):
+    """The DIA rows (offsets, (7, npad) f32) of the plane-padded 3-D
+    7-point Laplacian that the slab decomposition applies, pad planes
+    identity (tpucg's ``_poisson_dia_rows``, ``sharded.py:2137``): block
+    Jacobi's set-up input for ``_diag_blocks_sharded``."""
+    N = m ** 3
+    i = np.arange(npad)
+    offsets = [0]
+    rows = [np.where(i < N, 6.0, 1.0).astype(np.float32)]
+    for off, ok_fwd in ((1, (i % m) != m - 1), (m, ((i // m) % m) != m - 1),
+                        (m * m, (i // (m * m)) != m - 1)):
+        fwd = np.where(ok_fwd & (i + off < N) & (i < N), -1.0, 0.0)
+        bwd = np.zeros(npad, np.float32)
+        bwd[off:] = fwd[:-off]
+        offsets += [off, -off]
+        rows += [fwd.astype(np.float32), bwd]
+    return offsets, np.stack(rows)
+
+
+def _rank_blocks(offsets, data: np.ndarray, mesh: Mesh, bs: int) -> np.ndarray:
+    """This rank's share of ``_diag_blocks_sharded(offsets, data, P, bs)``,
+    computed from its own rows alone (the grid restarts at its first row,
+    so the blocks are the same)."""
+    blk = data.shape[1] // mesh.size
+    return _diag_blocks_sharded(offsets, data[:, mesh.rank * blk:(mesh.rank + 1) * blk], 1, bs)
 
 
 def _prepare_sharded_operator(op, mesh: Mesh, config: CGConfig,
@@ -559,6 +869,7 @@ def _prepare_sharded_operator(op, mesh: Mesh, config: CGConfig,
                          "stencil is matrix-free; ELL/BSR index arrays dominate their "
                          f"footprint), got {kind_name}")
     jacobi = config.precondition == "jacobi"
+    bs = int(config.pc_block_size) if config.precondition == "block_jacobi" else None
 
     def put(a, dtype=None):
         t = torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -569,12 +880,15 @@ def _prepare_sharded_operator(op, mesh: Mesh, config: CGConfig,
         m_padded = round_up(m, P)
         npad = m_padded * m * m
         blk = npad // P
-        diag = None
+        diag = blocks = None
         if jacobi:
             d = np.ones(npad, np.float32)
             d[: op.n] = 6.0
             diag = put(d[rank * blk:(rank + 1) * blk])
-        return _ShardedOperator("poisson", op.n, npad, (), diag, m=m, m_padded=m_padded)
+        if bs is not None:
+            blocks = put(_rank_blocks(*_poisson_dia_rows(m, npad), mesh, bs))
+        return _ShardedOperator("poisson", op.n, npad, (), diag, m=m, m_padded=m_padded,
+                                blocks=blocks)
     if isinstance(op, DiaOperator) or kind_name == "DIAMatrix":
         # On the mesh's device: a slab placed there already is sliced there
         # (bf16 widens exactly, so the storage cast is lossless either way).
@@ -594,10 +908,15 @@ def _prepare_sharded_operator(op, mesh: Mesh, config: CGConfig,
                              "ranks (the halo exchange covers one neighbour)")
         block = data[:, rank * blk:(rank + 1) * blk]
         diag = block[offsets.index(0)].to(_F32) if jacobi else None
+        blocks = None
+        if bs is not None:
+            # From the canonical slab as stored (a bf16 slab widened), as
+            # tpucg takes them (sharded.py:2301-2304).
+            blocks = put(_rank_blocks(offsets, data.to(_F32).cpu().numpy(), mesh, bs))
         return _ShardedOperator("dia", n, npad, (block.to(storage_dtype).contiguous(),), diag,
-                                offsets=tuple(offsets))
+                                offsets=tuple(offsets), blocks=blocks)
     if kind_name == "CSRMatrix":
-        return _well_block(op, mesh, jacobi, storage_dtype)
+        return _well_block(op, mesh, jacobi, storage_dtype, bs)
     if isinstance(op, EllOperator) or kind_name == "EllMatrix":
         values, indices = _host(op.values), _host(op.indices, np.int32)
         n = values.shape[0]
@@ -668,11 +987,15 @@ def well_shard_block(stacked: dict, statics: dict, rank: int, n: int, device,
                             m=int(statics["rps"]), offsets=(bg, nsg))
 
 
-def _well_block(csr, mesh: Mesh, jacobi: bool, storage_dtype) -> _ShardedOperator:
-    """tpucg's sharded WELL preparation (``sharded.py:2340-2379``): every
+def _well_block(csr, mesh: Mesh, jacobi: bool, storage_dtype,
+                bs: Optional[int] = None) -> _ShardedOperator:
+    """tpucg's sharded WELL preparation (``sharded.py:2340-2387``): every
     rank packs the row blocks on the host (``csr_to_well_sharded``) and
     places its own; Jacobi's diagonal is the CSR's, summed in float64, 1
-    where it is 0 and on the identity tail."""
+    where it is 0 and on the identity tail; block Jacobi's blocks (``bs``)
+    are the CSR's shard-aligned ones (``csr_diagonal_blocks``), this
+    rank's share."""
+    from tpucg_torch.sparse.formats import csr_diagonal_blocks
     from tpucg_torch.sparse.well import csr_to_well_sharded
 
     n = int(csr.shape[0])
@@ -687,7 +1010,13 @@ def _well_block(csr, mesh: Mesh, jacobi: bool, storage_dtype) -> _ShardedOperato
         d[:n] = np.where(dv != 0, dv, 1.0).astype(np.float32)
         rps = st["rps"]
         diag = torch.from_numpy(d[mesh.rank * rps:(mesh.rank + 1) * rps]).to(mesh.device)
-    return well_shard_block(stacked, st, mesh.rank, n, mesh.device, storage_dtype, diag)
+    sop = well_shard_block(stacked, st, mesh.rank, n, mesh.device, storage_dtype, diag)
+    if bs is None:
+        return sop
+    blocks = csr_diagonal_blocks(csr, bs, npad=st["npad"], shards=mesh.size)
+    nbl = blocks.shape[0] // mesh.size
+    mine = np.ascontiguousarray(blocks[mesh.rank * nbl:(mesh.rank + 1) * nbl])
+    return dataclasses.replace(sop, blocks=torch.from_numpy(mine).to(mesh.device))
 
 
 def sharded_operator_cg_solve(
@@ -722,13 +1051,21 @@ def sharded_operator_cg_solve(
     - ``EllOperator`` / ``EllMatrix`` and ``BsrOperator`` / ``BSRMatrix``:
       row blocks (identity-padded to P) and x gathered whole.
 
-    Precondition ``"none"``, ``"jacobi"`` or ``"poly"``; every rank returns
-    the same result, x whole. ``converged`` is r.r < tol^2, as tpucg's."""
+    Precondition ``"none"``, ``"jacobi"``, ``"block_jacobi"`` (Poisson, DIA
+    and WELL: the shard-aligned diagonal blocks, taken on the host, each
+    rank inverting its own once; ELL and BSR raise tpucg's ``ValueError``)
+    or ``"poly"``; ``method`` and ``interval`` as ``sharded_cg_solve``'s.
+    Every rank returns the same result, x whole. A cg solve's ``converged``
+    is r.r < tol^2, as tpucg's; the other methods report their own."""
     config = _configure(config, overrides)
-    _check_supported(config, interval, two_level)
+    _check_supported(config, interval, two_level, record_residuals)
     mesh = make_mesh() if mesh is None else mesh
     backend = resolve_backend(config.kernel, mesh.device)
     sop = _prepare_sharded_operator(op, mesh, config, storage_dtype)
+    if config.precondition == "block_jacobi" and sop.blocks is None:
+        raise ValueError("precondition='block_jacobi' on sharded operators is implemented for "
+                         "Poisson/DIA/WELL (shard-local diagonal blocks); ELL/BSR support "
+                         "'none', 'jacobi', or 'poly'")
     n, npad = sop.n, sop.npad
     blk = npad // mesh.size
     b, x0 = _host_rhs(b, x0, n)
@@ -737,8 +1074,187 @@ def sharded_operator_cg_solve(
     x0_blk = torch.from_numpy(_padded_block(x0, n, npad, r0, r1)).to(mesh.device)
     maxiter = int(config.maxiter if config.maxiter is not None else n)
     matvec = _operator_matvec(sop, mesh, backend)
-    s, x = _solve(matvec, mesh, backend, b_blk, x0_blk, sop.diag, config, maxiter,
-                  record_residuals, chunk)
-    tol2 = torch.tensor(float(config.tol), dtype=_F32, device=mesh.device) ** 2
-    return CGResult(x=x[:n], iterations=s.k, residual_norm=s.rslast.sqrt(),
-                    converged=s.rslast < tol2, residual_history=s.hist)
+    res = _solve(matvec, mesh, backend, b_blk, x0_blk, sop.diag, sop.blocks, config, maxiter,
+                 record_residuals, chunk, interval, "rr")
+    return res._replace(x=res.x[:n])
+
+
+# --- k right-hand sides: multi-RHS and block CG --------------------------------
+
+
+_OPERATOR_NAMES = ("PoissonOperator", "DiaOperator", "DIAMatrix", "EllOperator", "EllMatrix",
+                   "BsrOperator", "BSRMatrix", "CSRMatrix", "WellOperator", "WellMatrix")
+
+
+def _is_operator(A) -> bool:
+    """A sparse or stencil operator (tpucg's ``_operator_types``, plus the
+    serial WELL forms, which ``_prepare_sharded_operator`` refuses by
+    name)."""
+    return type(A).__name__ in _OPERATOR_NAMES
+
+
+def _rhs_blocks(B, X0, n: int, npad: int, mesh: Mesh):
+    """This rank's rows of B and X0 (n, k) (X0 None: zeros), padded to
+    npad with zero rows (the identity tail's exact solution), as f32 (blk,
+    k) blocks on the mesh's device; and k."""
+    B = _host(B)
+    if B.ndim != 2 or B.shape[0] != n:
+        raise ValueError(f"B must have shape ({n}, k), got {B.shape}")
+    k = B.shape[1]
+    X0 = np.zeros((n, k), np.float32) if X0 is None else _host(X0)
+    if X0.shape != (n, k):
+        raise ValueError(f"X0 must have shape ({n}, {k}), got {X0.shape}")
+    blk = npad // mesh.size
+    r0, r1 = mesh.rank * blk, (mesh.rank + 1) * blk
+
+    def rows(V):
+        out = np.zeros((npad, k), np.float32)
+        out[:n] = V
+        return torch.from_numpy(np.ascontiguousarray(out[r0:r1])).to(mesh.device)
+    return rows(B), rows(X0), k
+
+
+class _KColumns(NamedTuple):
+    """A multi-RHS or block solve's share on this rank: the batched closure
+    ``mv``, the (blk, k) B and X0, n, npad and k; its own (blk, blk) square
+    of a dense A (Jacobi's diagonal, block Jacobi's blocks), or its
+    Jacobi diagonal from the sharded operator (None without Jacobi)."""
+
+    mv: Callable
+    B: torch.Tensor
+    X0: torch.Tensor
+    n: int
+    npad: int
+    k: int
+    square: Optional[torch.Tensor]
+    diag: Optional[torch.Tensor]
+
+
+def _k_columns(A, B, X0, mesh: Mesh, config: CGConfig) -> _KColumns:
+    if _is_operator(A):
+        sop = _prepare_sharded_operator(A, mesh, config)
+        n, npad, square, diag = sop.n, sop.npad, None, sop.diag
+        mv = _operator_matvec_batched(sop, mesh, resolve_backend(config.kernel, mesh.device))
+    else:
+        A = _host(A)
+        n = A.shape[0]
+        if A.shape != (n, n):
+            raise ValueError(f"A must be square, got {A.shape}")
+        rp = RowPartition(n=n, num_shards=mesh.size, align=pc_align(ROW_ALIGN, config))
+        npad = rp.n_padded
+        r0, r1 = rp.row_range(mesh.rank)
+        A_blk = torch.from_numpy(_row_block(A, n, npad, r0, r1)).to(mesh.device)
+        mv = _dense_matvec_batched(A_blk, mesh)
+        square = A_blk[:, r0:r1]
+        diag = torch.diagonal(square)
+    B_blk, X0_blk, k = _rhs_blocks(B, X0, n, npad, mesh)
+    return _KColumns(mv, B_blk, X0_blk, n, npad, k, square, diag)
+
+
+def sharded_cg_solve_multi(
+    A,
+    B,
+    X0=None,
+    mesh: Optional[Mesh] = None,
+    config: Optional[CGConfig] = None,
+    *,
+    chunk: Optional[int] = None,
+    **overrides,
+) -> CGResult:
+    """Solve A X = B for the k columns of B (n, k) with A's rows in blocks
+    over the mesh's ranks (tpucg's ``sharded_cg_solve_multi``,
+    ``sharded.py:323``, and its operator arm ``_sharded_operator_multi``,
+    ``:1816``): k independent CG recurrences in lockstep (``multi_cg_loop``)
+    on one (blk, k) product a lap, their columnwise dots summed over the
+    ranks in one ``rank_sum`` each.
+
+    ``A`` is a dense array or tensor (its rank's rows times the (npad, k)
+    direction block, gathered whole in one call) or a sparse operator as
+    ``sharded_operator_cg_solve`` takes it: Poisson and DIA exchange (halo,
+    k) blocks, WELL runs K13 x k on the gathered block, ELL and BSR their
+    plain products. Method cg with precondition none only (tpucg's
+    ``ValueError`` otherwise). Result fields are batched: ``x`` (n, k);
+    ``iterations``, ``residual_norm`` and ``converged`` (k,), each
+    column's."""
+    config = _configure(config, overrides)
+    if config.method != "cg" or config.precondition != "none":
+        raise ValueError("sharded_cg_solve_multi supports method='cg', precondition='none'")
+    _check_supported(config)
+    mesh = make_mesh() if mesh is None else mesh
+    kc = _k_columns(A, B, X0, mesh, config)
+    red = _reductions(mesh, resolve_backend(config.kernel, mesh.device), kc.B[:, 0])
+    s = multi_cg_loop(kc.mv, kc.B, kc.X0, tol=float(config.tol),
+                      maxiter=int(config.maxiter if config.maxiter is not None else kc.n),
+                      safe_alpha=bool(config.safe_alpha), chunk=chunk, dot_cols=red.dot_cols)
+    return CGResult(x=_gather_rows(mesh, s.X)[:kc.n], iterations=s.its,
+                    residual_norm=s.rslast.sqrt(), converged=s.done)
+
+
+def sharded_cg_solve_block(
+    A,
+    B,
+    X0=None,
+    mesh: Optional[Mesh] = None,
+    config: Optional[CGConfig] = None,
+    *,
+    chunk: Optional[int] = None,
+    **overrides,
+) -> CGResult:
+    """Solve A X = B by true block CG with A's rows in blocks over the
+    mesh's ranks (tpucg's ``sharded_cg_solve_block``, ``sharded.py:509``:
+    ``_sharded_block_jit``, ``:413``, and the operator arm
+    ``_sharded_operator_block``, ``:1841``): ``block_cg_loop`` /
+    ``block_pcg_loop`` on the batched closure of
+    ``sharded_cg_solve_multi``, every k x k Gram one ``rank_sum`` of the
+    rank's U^T V, the k x k algebra on the replicated sums.
+
+    Preconditioners, by tpucg's routes: ``"jacobi"`` as the two scalings
+    around the product (the column scale before the gather, the row scale
+    after); ``"block_jacobi"`` (dense only: operators raise tpucg's
+    ``ValueError``) as the rank's diagonal blocks' M^-1/2 around it
+    (``sqrt_pair_blocks``); ``"poly"`` runs ``block_pcg_loop`` with
+    lambda_max from the power method on column 0 through the batched
+    closure. k <= ``BLOCK_CG_MAX_K``. Result fields as ``cg_solve_block``'s:
+    ``iterations`` the shared laps (0-d), ``residual_norm`` and
+    ``converged`` (k,)."""
+    config = _configure(config, overrides)
+    if config.method != "cg" or config.precondition not in (
+            "none", "jacobi", "block_jacobi", "poly"):
+        raise ValueError("sharded_cg_solve_block supports method='cg' with precondition "
+                         "'none', 'jacobi', 'block_jacobi', or 'poly'")
+    if _is_operator(A) and config.precondition == "block_jacobi":
+        raise ValueError("block CG on sharded sparse operators supports precondition in "
+                         "{'none', 'jacobi', 'poly'} (block Jacobi on sharded sparse operators "
+                         "is unimplemented, matching sharded_operator_cg_solve)")
+    _check_supported(config)
+    mesh = make_mesh() if mesh is None else mesh
+    kc = _k_columns(A, B, X0, mesh, config)
+    if kc.k > BLOCK_CG_MAX_K:
+        raise ValueError(f"block CG supports k <= {BLOCK_CG_MAX_K} right-hand sides (got "
+                         f"{kc.k}); use sharded_cg_solve_multi for wide batches")
+    red = _reductions(mesh, resolve_backend(config.kernel, mesh.device), kc.B[:, 0])
+    mv, gram = kc.mv, red.gram_kk
+    loop = dict(tol=float(config.tol),
+                maxiter=int(config.maxiter if config.maxiter is not None else kc.n), chunk=chunk)
+    pc = config.precondition
+    if pc == "jacobi":
+        sc = torch.sqrt(torch.where(kc.diag != 0, 1.0 / kc.diag, 1.0))[:, None]
+        k_, Y, rr, done = block_cg_loop(lambda Y, act=None: sc * mv(sc * Y, act), gram,
+                                        sc * kc.B, kc.X0 / sc, **loop)
+        X = sc * Y
+    elif pc == "block_jacobi":
+        blk = kc.npad // mesh.size
+        isq, sq = sqrt_pair_blocks(_square_blocks(kc.square, int(config.pc_block_size)))
+        sapp, sqapp = make_block_apply(isq, blk), make_block_apply(sq, blk)
+        k_, Y, rr, done = block_cg_loop(lambda Y, act=None: sapp(mv(sapp(Y), act)), gram,
+                                        sapp(kc.B), sqapp(kc.X0), **loop)
+        X = sapp(Y)
+    elif pc == "poly":
+        lam = lambda_max_estimate(lambda p, act=None: mv(p[:, None])[:, 0], red.dot,
+                                  kc.B[:, 0])
+        pcb = _poly_block(mv, 0.95 / lam, int(config.poly_degree))
+        k_, X, rr, done = block_pcg_loop(mv, gram, pcb, kc.B, kc.X0, **loop)
+    else:
+        k_, X, rr, done = block_cg_loop(mv, gram, kc.B, kc.X0, **loop)
+    return CGResult(x=_gather_rows(mesh, X)[:kc.n], iterations=k_, residual_norm=rr.sqrt(),
+                    converged=done)
