@@ -307,6 +307,13 @@ import time
 from pathlib import Path
 
 
+# FEM 300k's laps on the card: sharded WELL Jacobi on one NCCL rank at 1e-5
+# ||b|| (phases 16-17: the CSR's diagonal summed in float64) and the serial
+# two-level cycle, agg 64, Chebyshev smoother, at 1e-3 ||b|| (phase 21).
+FEM_SHARDED_JACOBI_LAPS = 1725
+FEM_TWO_LEVEL_LAPS = 96
+
+
 def require(ok, what):
     if not ok:
         raise RuntimeError(f"check failed: {what}")
@@ -606,6 +613,374 @@ def m14_mesh_phase(dev, tag, drive, A_fem, b_fem, flagship=None, n=8192, m=128,
         print(f"transport a lap, gloo P=2 on {dev}, dense n={n} allgather, {method}: {calls:g} "
               f"calls ({calls - 1:g} rank_sum, 1 gather of p), {ms:.4f} ms host {tag}")
     print(f"M14 steps 2-3: {time.perf_counter() - t_phase:.1f} s")
+    return added
+
+
+def m14_s45_phase(dev, tag, drive, A_fem, b_fem, flagship=None, n=8192, n_text=2048, n_defl=4096,
+                  m=128, n_geo=100_000, backend="nccl", fem_jacobi_laps=None,
+                  fem_two_level_laps=None):
+    """Phase 24: M14 steps 4 and 5, a world of one NCCL rank on the card at
+    full width and a gloo world of 2 ranks on cuda:0 (see the module's
+    docstring). ``drive`` runs one call with every launch count at 0 just
+    before it and returns its result and the counts just after;
+    ``flagship`` is phase 5's dense n = 8192 (DenseOperator, b, x0) on the
+    card. ``fem_jacobi_laps`` and ``fem_two_level_laps`` are the laps that
+    phases 16-17 (sharded WELL Jacobi, one NCCL rank) and 21 (serial
+    two-level, agg 64, Chebyshev smoother, 1e-3 ||b||) take on FEM 300k
+    (None: not held, the CPU rehearsal's smaller FEM). ``n``, ``n_text``,
+    ``n_defl``, ``m``, ``n_geo`` and ``backend`` are the phase's sizes and
+    the one-rank world's transport (smaller ones, on a CPU mesh with gloo,
+    rehearse its flow). Returns the launches of K9 and K13 that its drives
+    made on the main path (the kernels line adds them)."""
+    import numpy as np
+    import torch
+
+    from _torch_helpers import card_m14s45_worker, run_world, scaled_err
+    from tpucg_torch.comm.mesh import init_distributed, make_mesh
+    from tpucg_torch.io import _native
+    from tpucg_torch.io.generator import generate_spd_system, random_geometric_spd
+    from tpucg_torch.io.mmio import build_mm_index, mm_index_path, save_matrix_market
+    from tpucg_torch.io.textio import save_array
+    from tpucg_torch.kernels.matvec import matvec_cuda
+    from tpucg_torch.kernels.stencil import poisson3d_torch
+    from tpucg_torch.solver.cg import cg_solve
+    from tpucg_torch.solver.deflation import (
+        RecyclingCG,
+        cg_solve_deflated,
+        sharded_cg_solve_deflated,
+    )
+    from tpucg_torch.solver.ir import cg_solve_ir, sharded_cg_solve_ir
+    from tpucg_torch.solver.minres import minres_solve, sharded_minres_solve
+    from tpucg_torch.solver.operators import DenseOperator, PoissonOperator, WellOperator
+    from tpucg_torch.solver.sharded import (
+        distribute_system,
+        load_system_sharded,
+        load_well_system_sharded,
+        sharded_cg_solve,
+        sharded_operator_cg_solve,
+    )
+    from tpucg_torch.solver.twolevel import build_two_level
+    from tpucg_torch.sparse.well import csr_to_well_sharded
+
+    t_phase = time.perf_counter()
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    added = dict.fromkeys(("poisson3d_slab_cuda", "well_spmv_cuda"), 0)
+    lap_plain = ("lap_tail_torch", "p_update_torch")
+    init_distributed(backend=backend, device=dev)
+    mesh = make_mesh(device=dev, backend=backend)
+    print(f"{mesh!r}")
+
+    def launches(text, launched):
+        return text + ", ".join(f"{w} {c}" for w, c in sorted(launched.items()) if c)
+
+    def held(label, solve, serial, need, laps_pct=0, x_tol=1e-4, bits=False):
+        """One sharded solve driven with the counts at 0, held to ``serial``
+        on the card: laps equal (``laps_pct``: within that per cent, at
+        least one lap), both converged, x within ``x_tol`` of max |x| (bit
+        for bit with ``bits``); the kernels ``need`` launched and no plain
+        version but the lap's. Returns its result, counts and ms."""
+        t0 = time.perf_counter()
+        res, launched = drive(solve)
+        ms = (time.perf_counter() - t0) * 1e3
+        sync()
+        t0 = time.perf_counter()
+        ser = serial()
+        sync()
+        ms_ser = (time.perf_counter() - t0) * 1e3
+        k, ks = int(res.iterations), int(ser.iterations)
+        slack = max(1, round(laps_pct * ks / 100)) if laps_pct else 0
+        require(abs(k - ks) <= slack, f"{label}: laps {k}, serial {ks}")
+        require(bool(res.converged) and bool(ser.converged),
+                f"{label}: converged {bool(res.converged)}, serial {bool(ser.converged)}")
+        x, xs = res.x.reshape(-1), ser.x.reshape(-1)
+        same = torch.equal(x, xs)
+        e = float((x - xs).abs().max() / xs.abs().max())
+        require(same if bits else e <= x_tol, f"{label}: x {e:.3e} of max |x| from the serial")
+        require(all(launched[w] > 0 for w in need), f"{label}: launches {launched}")
+        require(not on_card or all(c == 0 for w, c in launched.items()
+                                   if w.endswith("_torch") and w not in lap_plain),
+                f"{label}: a plain version ran ({launched})")
+        for w in added:
+            added[w] += launched.get(w, 0)
+        print(f"{label}: laps {k} (serial {ks}), x "
+              + ("bit-identical" if same else f"within {e:.3e} of max |x|")
+              + f"; {ms:.1f} ms a solve with set-up (host clock), serial {ms_ser:.1f} ms; "
+              + launches("launches ", launched) + f" {tag}")
+        return res, launched
+
+    nf = A_fem.shape[0]
+    nb_fem = float(np.linalg.norm(b_fem.astype(np.float64)))
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {k: str(Path(tmp) / f) for k, f in (
+            ("fem", "fem.mtx"), ("fem_b", "fem_b.npy"), ("A_npy", "A.npy"), ("b_npy", "b.npy"),
+            ("x0_npy", "x0.npy"), ("A_txt", "A.txt"), ("b_txt", "b.txt"))}
+        # (a) Host-sharded WELL: phase 13's FEM 300k matrix written as a
+        # row-sorted general .mtx (a rank reads a byte range of it) and
+        # indexed once.
+        t0 = time.perf_counter()
+        save_matrix_market(paths["fem"], A_fem, symmetric=False)
+        np.save(paths["fem_b"], b_fem)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        build_mm_index(paths["fem"])
+        index_s = time.perf_counter() - t0
+        with np.load(mm_index_path(paths["fem"])) as z:
+            off = z["row_offsets"]
+        file_bytes = Path(paths["fem"]).stat().st_size
+        t0 = time.perf_counter()
+        ws = load_well_system_sharded(paths["fem"], paths["fem_b"], mesh=mesh, two_level_agg=64,
+                                      smooth_degree=2)
+        sync()
+        load_s = time.perf_counter() - t0
+        stacked, st = csr_to_well_sharded(A_fem, 1)
+        for i, k in enumerate(("vals", "lidx", "gidl", "wrow", "sgb")):
+            require(np.array_equal(ws.block.arrays[i].cpu().numpy(), stacked[k][0]),
+                    f"host-sharded FEM: {k} differs from csr_to_well_sharded's")
+        del stacked
+        require(ws.bytes_read == off[-1] - off[0],
+                f"host-sharded FEM: {ws.bytes_read} bytes read, the matrix has {off[-1] - off[0]}")
+        print(f"host-sharded FEM {nf}: .mtx {file_bytes} bytes (written {write_s:.1f} s, "
+              f"indexed {index_s:.1f} s), one rank read {ws.bytes_read} (its rows' bytes), "
+              f"packs equal csr_to_well_sharded's bit for bit (BS {ws.statics['block_sublanes']}, "
+              f"NS {ws.statics['n_sublanes']}); load + pack + place + the two-level cycle from "
+              f"the parts (agg 64, smooth 2, nc {ws.two_level.nc}) {load_s:.2f} s {tag}")
+        kw_j = dict(precondition="jacobi", tol=1e-5 * nb_fem, maxiter=4000)
+        res, launched = drive(lambda: sharded_operator_cg_solve(ws, mesh=mesh, **kw_j))
+        k = int(res.iterations)
+        require(bool(res.converged) and (fem_jacobi_laps is None or k == fem_jacobi_laps),
+                f"host-sharded FEM Jacobi: {k} laps, phases 16-17 {fem_jacobi_laps}")
+        require(not on_card or all(launched[w] > 0 for w in ("well_spmv_cuda", "dot_cuda")),
+                f"host-sharded FEM Jacobi: launches {launched}")
+        added["well_spmv_cuda"] += launched.get("well_spmv_cuda", 0)
+        print(f"host-sharded FEM Jacobi, tol 1e-5 ||b||: {k} laps (phases 16-17's sharded WELL: "
+              f"{fem_jacobi_laps}); " + launches("launches ", launched) + f" {tag}")
+        # Two-level agg 64 built from the parts with phase 21's FEM options
+        # (Chebyshev smoother, 1e-3 ||b||: a stagnation stop above FEM's
+        # f32 floor), held to phase 21's serial laps within a 16-lap check.
+        kw_t = dict(tol=1e-3 * nb_fem, maxiter=4000)
+        t0 = time.perf_counter()
+        res, launched = drive(lambda: sharded_operator_cg_solve(ws, mesh=mesh,
+                                                                two_level=ws.two_level, **kw_t))
+        ms = (time.perf_counter() - t0) * 1e3
+        k = int(res.iterations)
+        x64 = res.x.cpu().numpy().astype(np.float64)
+        tr = float(np.linalg.norm(b_fem - A_fem.matvec(x64)) / nb_fem)
+        require(k % 16 == 0 and (fem_two_level_laps is None or abs(k - fem_two_level_laps) <= 16),
+                f"host-sharded FEM two-level: {k} laps, phase 21 {fem_two_level_laps}")
+        require(tr <= 0.25, f"host-sharded FEM two-level: true residual {tr:.3e}")
+        require(not on_card or all(launched[w] > 0 for w in ("well_spmv_cuda", "dot_cuda")),
+                f"host-sharded FEM two-level: launches {launched}")
+        added["well_spmv_cuda"] += launched.get("well_spmv_cuda", 0)
+        ref_two_level = res
+        seen = {}
+        for label, pkw in (("two-level", dict(two_level=ws.two_level)),
+                           ("jacobi", dict(precondition="jacobi"))):
+            for laps in (16, 32):
+                sync()
+                mesh.stats.update(calls=0, seconds=0.0)
+                sharded_operator_cg_solve(ws, mesh=mesh, tol=1e-30, maxiter=laps, chunk=16, **pkw)
+                sync()
+                seen[(label, laps)] = (mesh.stats["calls"], mesh.stats["seconds"])
+        per = {lb: ((seen[(lb, 32)][0] - seen[(lb, 16)][0]) / 16,
+                    (seen[(lb, 32)][1] - seen[(lb, 16)][1]) / 16 * 1e3)
+               for lb in ("two-level", "jacobi")}
+        # A cycle adds its four matvecs' gathers (two products, a smoother's
+        # one each) and ONE coarse gather; a 16-lap true-residual check adds
+        # a gather and a rank_sum (2 calls over 16 laps).
+        require(per["two-level"][0] - per["jacobi"][0] == 5 + 2 / 16,
+                f"transport a lap: two-level {per['two-level'][0]}, jacobi {per['jacobi'][0]}")
+        print(f"host-sharded FEM two-level agg 64, smooth 2 (built from the parts), tol 1e-3 "
+              f"||b||: {k} laps (phase 21's serial "
+              f"{fem_two_level_laps}), converged {bool(res.converged)}, float64 ||b - A x|| / "
+              f"||b|| {tr:.4e}; {ms:.1f} ms a solve (host clock); transport a lap "
+              f"{per['two-level'][0]:g} calls, {per['two-level'][1]:.4f} ms host against "
+              f"Jacobi's {per['jacobi'][0]:g} calls, {per['jacobi'][1]:.4f} ms; "
+              + launches("launches ", launched) + f" {tag}")
+        del ws
+        # Pipelined two-level on the geometric graph, where phase 21 holds
+        # it (agg 64, smooth 2, 1e-5 ||b||).
+        A_g, b_g, _ = random_geometric_spd(n_geo, seed=0, avg_degree=12.0)
+        op_g = WellOperator.from_csr(A_g, device=dev)
+        tl_g = build_two_level(A_g, agg_size=64, npad=op_g.padded_n, smooth_degree=2, device=dev)
+        kw = dict(tol=1e-5 * float(np.linalg.norm(b_g)), maxiter=2000, two_level=tl_g,
+                  method="pipelined")
+        held(f"geometric {n_geo} two-level agg 64 smooth 2, pipelined",
+             lambda: sharded_operator_cg_solve(A_g, b_g, mesh=mesh, **kw),
+             lambda: cg_solve(op_g, torch.as_tensor(b_g, device=dev), **kw),
+             ("well_spmv_cuda", "dot_cuda") if on_card else (), bits=True)
+        del op_g, tl_g
+        print(f"M14 steps 4-5 host-sharded WELL: {time.perf_counter() - t_phase:.1f} s so far")
+
+        # (b) Dense host-sharded loading: n from .npy (a memory map), n_text
+        # from text through the range parser.
+        if flagship is None:
+            A, b, x0 = generate_spd_system(n, seed=0)
+        else:
+            op, bd, x0d = flagship
+            A, b, x0 = op.A[:n, :n].cpu().numpy(), bd.cpu().numpy(), x0d.cpu().numpy()
+        np.save(paths["A_npy"], A)
+        np.save(paths["b_npy"], b)
+        np.save(paths["x0_npy"], x0)
+        A_t, b_t, _ = generate_spd_system(n_text, seed=0)
+        t0 = time.perf_counter()
+        save_array(paths["A_txt"], A_t, fmt="%r")
+        save_array(paths["b_txt"], b_t, fmt="%r")
+        text_s = time.perf_counter() - t0
+        require(_native.parse_floats_range(paths["b_txt"], 0, 1) is not None,
+                "the native range parser is not available")
+        asked = []
+        ranged = _native.parse_floats_range
+
+        def counting(path, start, count):
+            asked.append(count)
+            return ranged(path, start, count)
+        for label, files, (Ah, bh, x0h) in (
+                (f"dense n={n} .npy", (paths["A_npy"], paths["b_npy"], paths["x0_npy"]),
+                 (A, b, x0)),
+                (f"dense n={n_text} text", (paths["A_txt"], paths["b_txt"], None),
+                 (A_t, b_t, None))):
+            for strategy in ("allgather", "overlap"):
+                del asked[:]
+                _native.parse_floats_range = counting
+                try:
+                    t0 = time.perf_counter()
+                    system = load_system_sharded(*files, mesh=mesh, strategy=strategy)
+                    sync()
+                    ld_s = time.perf_counter() - t0
+                finally:
+                    _native.parse_floats_range = ranged
+                ref = distribute_system(Ah, bh, x0h, mesh, strategy=strategy)
+                require(all(torch.equal(getattr(system, f), getattr(ref, f))
+                            for f in ("A", "b", "x0")) and system.part == ref.part,
+                        f"{label} {strategy}: the loaded system is not distribute_system's")
+                ntok = Ah.shape[0] ** 2 if "text" in label else 0
+                require(sum(asked) == ntok, f"{label}: {sum(asked)} tokens parsed, not {ntok}")
+                held(f"{label} {strategy} loaded host-sharded",
+                     lambda: sharded_cg_solve(system, mesh=mesh, strategy=strategy),
+                     lambda: sharded_cg_solve(Ah, bh, x0h, mesh=mesh, strategy=strategy),
+                     ("matvec_cuda", "dot_cuda") if on_card else (), bits=True)
+                print(f"  {label} {strategy}: loaded in {ld_s:.3f} s, {sum(asked)} tokens "
+                      f"parsed (text written in {text_s:.1f} s)")
+                del system, ref
+        print(f"M14 steps 4-5 dense loading: {time.perf_counter() - t_phase:.1f} s so far")
+
+        # (c) Deflation, recycling, MINRES and IR on the mesh, each against
+        # its serial solve on the card.
+        # Phase 21's clustered system (0.01, 0.02, 0.03 under a [1, 2]
+        # bulk, built on the card in float64) with its slow eigenvectors.
+        rng_d = np.random.default_rng(0)
+        Qd, _ = torch.linalg.qr(torch.from_numpy(rng_d.standard_normal((n_defl, n_defl))).to(dev))
+        lam_d = torch.from_numpy(np.concatenate([[0.01, 0.02, 0.03],
+                                                 1.0 + rng_d.uniform(0, 1, n_defl - 3)])).to(dev)
+        Ad = (Qd * lam_d) @ Qd.T
+        Ad = (0.5 * (Ad + Ad.T)).float()
+        bd_d = rng_d.standard_normal(n_defl).astype(np.float32)
+        Vd = Qd[:, :3].float()
+        del Qd
+        kw = dict(tol=1e-5 * float(np.linalg.norm(bd_d)), maxiter=4 * n_defl)
+        op_d = DenseOperator.create(Ad, device=dev)
+        held(f"deflated dense n={n_defl} clustered (3 slow eigenvectors)",
+             lambda: sharded_cg_solve_deflated(Ad, bd_d, Vd, mesh=mesh, **kw),
+             lambda: cg_solve_deflated(op_d, bd_d, Vd, **kw),
+             ("matvec_cuda", "dot_cuda") if on_card else (), laps_pct=1)
+        del op_d, Ad, Vd
+        opp = PoissonOperator(m, device=dev)
+        xt = torch.as_tensor(np.random.default_rng(0).standard_normal(m ** 3).astype(np.float32),
+                             device=dev)
+        bp = poisson3d_torch(xt, m).cpu().numpy()
+        # The Laplacian's three slowest eigenvectors, sin products.
+        g = np.sin(np.pi * np.arange(1, m + 1) / (m + 1))
+        g2 = np.sin(2 * np.pi * np.arange(1, m + 1) / (m + 1))
+        Vp = np.stack([np.einsum("i,j,k->ijk", *f).ravel() for f in
+                       ((g, g, g), (g2, g, g), (g, g2, g))], 1).astype(np.float32)
+        kw = dict(tol=1e-5 * float(np.linalg.norm(bp)), maxiter=8 * m + 200)
+        need = ("poisson3d_slab_cuda", "dot_cuda") if on_card else ()
+        held(f"deflated Poisson m={m} slabs (3 slowest eigenvectors)",
+             lambda: sharded_cg_solve_deflated(opp, bp, Vp, mesh=mesh, **kw),
+             lambda: cg_solve_deflated(opp, bp, Vp, **kw), need, laps_pct=1)
+        drift = np.random.default_rng(2).standard_normal(m ** 3).astype(np.float32)
+        rec, rec_s = RecyclingCG(opp, max_vectors=4, mesh=mesh, **kw), RecyclingCG(opp, **kw)
+        for t in range(3):
+            bt = (bp + 0.05 * t * drift).astype(np.float32)
+            held(f"RecyclingCG(mesh=) Poisson m={m}, right-hand side {t + 1} of 3",
+                 lambda: rec.solve(bt), lambda: rec_s.solve(bt), need, laps_pct=1)
+        del rec, rec_s
+        if flagship is not None:
+            op = flagship[0]
+        else:
+            op = DenseOperator.create(A, device=dev)
+        kw = dict(tol=1e-5 * float(np.linalg.norm(b)), precondition="jacobi")
+        held(f"MINRES dense n={n} jacobi",
+             lambda: sharded_minres_solve(A, b, x0, mesh=mesh, **kw),
+             lambda: minres_solve(op, b, x0, **kw),
+             ("matvec_cuda", "dot_cuda") if on_card else (), laps_pct=1)
+        kw = dict(tol=1e-5 * float(np.linalg.norm(bp)), maxiter=8 * m + 200)
+        held(f"MINRES Poisson m={m} slabs", lambda: sharded_minres_solve(opp, bp, mesh=mesh, **kw),
+             lambda: minres_solve(opp, bp, **kw), need, laps_pct=1)
+        A_ir = (A - (n - n / 32.0) * np.eye(n, dtype=np.float32)).astype(np.float32)
+        kw = dict(tol=1e-5 * float(np.linalg.norm(b)))
+        for strategy in ("allgather", "overlap"):
+            seen = {}
+
+            def solve_ir():
+                matvec_cuda.bf16_launches = 0
+                res = sharded_cg_solve_ir(A_ir, b, mesh=mesh, strategy=strategy, **kw)
+                seen["bf16"] = matvec_cuda.bf16_launches  # the serial solve's not counted
+                return res
+            _, launched = held(f"IR dense n={n} {strategy}", solve_ir,
+                               lambda: cg_solve_ir(A_ir, b, device=dev, **kw),
+                               ("matvec_cuda", "dot_cuda") if on_card else (), laps_pct=1)
+            bf16 = seen["bf16"]
+            require(not on_card or 0 < bf16 < launched["matvec_cuda"],
+                    f"IR {strategy}: K1 bf16 {bf16} of {launched['matvec_cuda']}")
+            print(f"  IR {strategy}: K1 launches {launched['matvec_cuda']}, of them bf16 {bf16}")
+        del opp, A_ir
+        # One rank's MINRES and IR at n_text, for the world of 2 below.
+        tol_t = 1e-5 * float(np.linalg.norm(b_t))
+        refs = {"minres": sharded_minres_solve(A_t, b_t, mesh=mesh, precondition="jacobi",
+                                               tol=tol_t),
+                "ir": sharded_cg_solve_ir((A_t - (n_text - n_text / 32.0) * np.eye(
+                    n_text, dtype=np.float32)).astype(np.float32), b_t, mesh=mesh, tol=tol_t),
+                "two_level": ref_two_level}
+        torch.distributed.destroy_process_group()
+        print(f"M14 steps 4-5, one {backend} rank: {time.perf_counter() - t_phase:.1f} s so far")
+
+        # (d) A gloo world of 2 ranks on the card: host-sharded FEM with the
+        # two-level cycle from the parts, each rank reading about half of
+        # the file; MINRES and IR on dense n_text against one rank.
+        fem_kw = dict(two_level_agg=64, smooth_degree=2, tol=1e-3 * nb_fem, maxiter=4000)
+        with tempfile.TemporaryDirectory() as rv:
+            t0 = time.perf_counter()
+            got = run_world(2, card_m14s45_worker, args=(paths, fem_kw, n_text, str(dev)),
+                            rendezvous=str(Path(rv) / "world2"), timeout_s=400)
+        print(f"world of 2 ranks on {dev} ({got['mesh']}): {time.perf_counter() - t0:.1f} s with "
+              f"start-up; host-sharded load with two-level {got['load_s']:.2f} s")
+        data = int(off[-1] - off[0])
+        read = got["bytes_read"]
+        require(sum(read) == data and all(0.4 < r / data < 0.6 for r in read),
+                f"gloo P=2: bytes read {read} of {data}")
+    for label, ref in refs.items():
+        r = got[label]
+        se = scaled_err(r["x"], ref.x.cpu().numpy())
+        slack = 16 if label == "two_level" else 0
+        require(r["converged"] == bool(ref.converged) and abs(r["laps"] - int(ref.iterations))
+                <= slack and (label == "two_level" or se <= 1e-4),
+                f"gloo P=2 {label}: laps {r['laps']} (one rank {int(ref.iterations)}), "
+                f"x {se:.3e}")
+        print(f"  gloo P=2 {label}: laps {r['laps']} (one rank {int(ref.iterations)}), x within "
+              f"{se:.3e} of max |x|; {r['ms']:.1f} ms a solve (host clock), transport "
+              f"{r['transport_calls']} calls, {r['transport_s'] * 1e3:.1f} ms "
+              f"({r['transport_s'] * 1e3 / max(r['laps'], 1):.3f} ms a lap); "
+              + launches("launches (rank 0) ", r["launches"]) + f" {tag}")
+    for label, (calls, ms) in got["per_lap"].items():
+        print(f"transport a lap, gloo P=2 on {dev}, host-sharded FEM {label}: {calls:g} calls, "
+              f"{ms:.4f} ms host {tag}")
+    require(got["per_lap"]["two_level"][0] - got["per_lap"]["jacobi"][0] == 5 + 2 / 16,
+            f"gloo P=2 transport a lap: {got['per_lap']}")
+    print(f"gloo P=2 host-sharded FEM: bytes read {read} of the matrix's {data} "
+          f"({[round(r / data, 4) for r in read]})")
+    print(f"M14 steps 4-5: {time.perf_counter() - t_phase:.1f} s")
     return added
 
 
@@ -3306,6 +3681,12 @@ def main() -> int:
                 m9_counts[kern] += c
             else:
                 counts[kern] = counts.get(kern, 0) + c
+
+    with phase("M14 steps 4-5: host-sharded loading, then M12 on the mesh"):
+        for kern, c in m14_s45_phase(dev, tag, drive, A_fem, b_fem, flagship[:3],
+                                     fem_jacobi_laps=FEM_SHARDED_JACOBI_LAPS,
+                                     fem_two_level_laps=FEM_TWO_LEVEL_LAPS).items():
+            counts[kern] = counts.get(kern, 0) + c
 
     # (id, name, key of its launch count, source, the TPU kernel it replaces)
     meta = (

@@ -1211,3 +1211,438 @@ def cuda_device():
 
     strict_f32()
     return torch.device("cuda", 0)
+
+
+# ---- M14 steps 4 and 5 (tests/test_torch_host_sharded.py,
+# tests/test_torch_sharded_m12.py) -------------------------------------------
+
+
+def host_sharded_files(d: str) -> dict:
+    """The files of the host-sharded tests under directory ``d``: tpucg's
+    dense text and ``.npy`` system (``generate_spd_system(100, seed=1)``,
+    n = 100 so that a world of 4 pads into an identity tail) and its FEM
+    fixture of ``tests/test_sharded_io_mtx.py`` (``fem_p1_system(6000,
+    seed=2)`` written symmetric, expanded to an indexed general ``.mtx``)
+    with b as ``.npy``; returns their paths and the ``.mtx``'s size."""
+    import os
+
+    from tpucg_torch.io import mmio
+    from tpucg_torch.io.generator import fem_p1_system, generate_spd_system
+    from tpucg_torch.io.textio import save_array
+
+    p = {k: os.path.join(d, f) for k, f in (
+        ("A_txt", "A.txt"), ("A_npy", "A.npy"), ("b_txt", "b.txt"), ("x0_txt", "x0.txt"),
+        ("fem_sym", "fem_sym.mtx"), ("fem", "fem.mtx"), ("fem_b", "fem_b.npy"))}
+    A, b, _ = generate_spd_system(100, seed=1)
+    x0 = np.random.default_rng(2).standard_normal(100).astype(np.float32)
+    save_array(p["A_txt"], A, fmt="%r")
+    np.save(p["A_npy"], A)
+    save_array(p["b_txt"], b, fmt="%r")
+    save_array(p["x0_txt"], x0, fmt="%r")
+    Af, bf, _ = fem_p1_system(6_000, seed=2)
+    mmio.save_matrix_market(p["fem_sym"], Af.to_coo(), symmetric=True)
+    mmio.expand_matrix_market(p["fem_sym"], p["fem"])
+    np.save(p["fem_b"], bf)
+    p["fem_bytes"] = os.path.getsize(p["fem"])
+    return p
+
+
+def _gather_np(mesh, a) -> np.ndarray:
+    """Every rank's equally shaped array, stacked in rank order on every
+    rank (int8 widened for the transport)."""
+    t = torch.as_tensor(np.ascontiguousarray(a))
+    wide = t.to(torch.int32) if t.dtype == torch.int8 else t
+    out = torch.empty((mesh.size,) + tuple(wide.shape), dtype=wide.dtype)
+    mesh.all_gather(out.reshape(-1), wide.reshape(-1))
+    return out.numpy().astype(t.numpy().dtype)
+
+
+def host_sharded_worker(rank, nprocs, paths):
+    """A rank of a gloo world that loads the files of ``host_sharded_files``
+    host-sharded and solves them; rank 0 returns, stacked in rank order:
+    each dense load's blocks (text and ``.npy``, both strategies) and the
+    tokens each rank asked of the range parser (and the whole-file parses
+    of the matrix: none), whether each equals ``distribute_system`` of the
+    whole system bit for bit, and its solve; the WELL loads' packs, BS, NS,
+    diag, bytes read and two-level acinv of every rank, and their Jacobi,
+    two-level and pipelined two-level solves; ``Mesh.host_sum`` and
+    ``host_max`` of per-rank arrays."""
+    from tpucg_torch.comm.mesh import make_mesh
+    from tpucg_torch.io import _native
+    from tpucg_torch.io.textio import load_system
+    from tpucg_torch.solver.sharded import (
+        distribute_system,
+        load_system_sharded,
+        load_well_system_sharded,
+        sharded_cg_solve,
+        sharded_operator_cg_solve,
+    )
+
+    mesh = make_mesh(device="cpu", backend="gloo")
+    asked, whole = [], []
+    ranged, full = _native.parse_floats_range, _native.parse_floats
+
+    def counting_range(path, start, count):
+        asked.append((path, int(start), int(count)))
+        return ranged(path, start, count)
+
+    def counting_full(path):
+        whole.append(path)
+        return full(path)
+    _native.parse_floats_range, _native.parse_floats = counting_range, counting_full
+    out = {}
+    try:
+        A, b, x0 = load_system(paths["A_txt"], paths["b_txt"], paths["x0_txt"])
+        for fmt in ("txt", "npy"):
+            for strategy in ("allgather", "overlap"):
+                del asked[:]
+                del whole[:]
+                s = load_system_sharded(paths[f"A_{fmt}"], paths["b_txt"], paths["x0_txt"],
+                                        mesh=mesh, strategy=strategy)
+                ref = distribute_system(A, b, x0, mesh, strategy=strategy)
+                same = all(torch.equal(getattr(s, f), getattr(ref, f)) for f in ("A", "b", "x0"))
+                tokens = sum(c for p, _, c in asked if p == paths["A_txt"])
+                res = sharded_cg_solve(s, mesh=mesh, strategy=strategy)
+                out[("dense", fmt, strategy)] = {
+                    "A": _gather_np(mesh, s.A.numpy()), "b": _gather_np(mesh, s.b.numpy()),
+                    "x0": _gather_np(mesh, s.x0.numpy()), "same": _gather_np(mesh, [same]),
+                    "tokens": _gather_np(mesh, [tokens]), "part": s.part,
+                    "whole_matrix_parses": _gather_np(mesh, [whole.count(paths["A_txt"])]),
+                    "x": res.x.numpy(), "iterations": int(res.iterations),
+                    "converged": bool(res.converged)}
+    finally:
+        _native.parse_floats_range, _native.parse_floats = ranged, full
+    ws = load_well_system_sharded(paths["fem"], paths["fem_b"], mesh=mesh, two_level_agg=64)
+    arrays = ws.block.arrays
+    out["well"] = {
+        "packs": {k: _gather_np(mesh, arrays[i].numpy())
+                  for i, k in enumerate(("vals", "lidx", "gidl", "wrow", "sgb"))},
+        "statics": ws.statics, "n": ws.n, "npad": ws.npad,
+        "diag": _gather_np(mesh, ws.diag), "bytes_read": _gather_np(mesh, [ws.bytes_read]),
+        "acinv": _gather_np(mesh, ws.two_level.acinv.numpy()),
+        "dinv": _gather_np(mesh, ws.two_level.dinv.numpy()),
+        "b": _gather_np(mesh, ws.b.numpy()),
+    }
+    nb = float(np.linalg.norm(np.load(paths["fem_b"]).astype(np.float64)))
+    n = ws.n
+    for label, kw in (("jacobi", dict(precondition="jacobi", tol=3e-4 * nb)),
+                      ("two_level", dict(two_level=ws.two_level, tol=2e-3 * nb)),
+                      ("two_level_pipelined", dict(two_level=ws.two_level, method="pipelined",
+                                                   tol=5e-3 * nb))):
+        res = sharded_operator_cg_solve(ws, mesh=mesh, maxiter=4 * n, **kw)
+        out[("well", label)] = {"x": res.x.numpy(), "iterations": int(res.iterations),
+                                "converged": bool(res.converged)}
+    part = np.arange(6, dtype=np.float64) * (rank + 1) / 3.0
+    out["host_sum"] = _gather_np(mesh, mesh.host_sum(part))
+    out["host_max"] = _gather_np(mesh, mesh.host_max(np.asarray([3 * rank, 7 - rank],
+                                                                np.int64)))
+    return out
+
+
+def _clustered_spd(n=256, n_small=3, seed=0):
+    """tpucg's deflation system (``tests/test_deflation.py:15``): SPD with
+    n_small eigenvalues 0.01, 0.02, ... under a bulk in [1, 2], and its
+    slow eigenvectors."""
+    rng = np.random.default_rng(seed)
+    Q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+    lam = np.concatenate([0.01 * (1.0 + np.arange(n_small)),
+                          1.0 + rng.uniform(0.0, 1.0, n - n_small)])
+    A = (Q * lam) @ Q.T
+    return (0.5 * (A + A.T)).astype(np.float32), Q[:, :n_small].astype(np.float32)
+
+
+def sym_indefinite(n=192, seed=0):
+    """tpucg's MINRES system (``tests/test_minres.py``): half the spectrum
+    in [-2, -1], half in [1, 2]."""
+    rng = np.random.default_rng(seed)
+    Q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+    half = n // 2
+    lam = np.concatenate([-(1.0 + rng.uniform(0.0, 1.0, half)),
+                          1.0 + rng.uniform(0.0, 1.0, n - half)])
+    A = (Q * lam) @ Q.T
+    return (0.5 * (A + A.T)).astype(np.float32)
+
+
+def staggered_band(n, w=64, e=None, seed=3):
+    """tpucg's MINRES benchmark band (``benchmarks/minres_bench.py:47``) at
+    a stripe of w: offsets +-1, +-w under a +-5 diagonal in stripes of w
+    rows, |lambda| in [1, 9] of both signs; with ``e``, scaled S B S by s =
+    10^U(-e, e) (plain MINRES stalls on it, Jacobi and block Jacobi undo the
+    scaling). Returns (data (5, n) f32, offsets)."""
+    data = np.zeros((5, n), np.float32)
+    data[0] = data[4] = -1.0
+    data[1] = data[3] = -1.0
+    data[2] = np.where((np.arange(n) // w) % 2 == 0, 5.0, -5.0)
+    offsets = (-w, -1, 0, 1, w)
+    if e is not None:
+        s = 10.0 ** np.random.default_rng(seed).uniform(-e, e, n)
+        for d, off in enumerate(offsets):
+            j = np.arange(n) + off
+            ok = (j >= 0) & (j < n)
+            data[d, ok] = data[d, ok] * s[ok] * s[j[ok]]
+    return data.astype(np.float32), offsets
+
+
+# M14 step 5's cases: name -> (solver, system, keyword arguments). Solvers:
+# "two_level" (sharded_operator_cg_solve(two_level=) with the cycle
+# ``tl`` = dict(agg, smooth_degree, coarse_max) built by build_two_level for
+# the sharded padding), "deflated" (sharded_cg_solve_deflated with ``V``:
+# "low" the system's slow eigenvectors, "random" (seed, m), "plain" the
+# plain sharded solve's x), "minres", "ir" and "recycling" (RecyclingCG(
+# mesh=) over ``steps`` right-hand sides base + 0.05 t drift). Systems as
+# ``m12_system`` makes them; ``tol_rel`` is tol over ||b||.
+M12_CASES = {
+    "tl_geo5000": ("two_level", ("geometric", 5000, 2), {"tl": dict(agg=64), "tol_rel": 1e-5,
+                                                          "maxiter": 800}),
+    "tl_geo5000_cheb": ("two_level", ("geometric", 5000, 2), {
+        "tl": dict(agg=64, smooth_degree=2), "tol_rel": 1e-5, "maxiter": 800}),
+    "tl_geo5000_pipelined": ("two_level", ("geometric", 5000, 2), {
+        "tl": dict(agg=64), "tol_rel": 1e-5, "method": "pipelined", "maxiter": 800}),
+    "ml_geo5000": ("two_level", ("geometric", 5000, 2), {
+        "tl": dict(agg=16, coarse_max=64), "tol_rel": 1e-5, "maxiter": 800}),
+    "tl_poisson_m12": ("two_level", ("poisson", 12, 5), {"tl": dict(agg=16), "tol_rel": 1e-5,
+                                                          "maxiter": 800}),
+    "ml_poisson_m16": ("two_level", ("poisson", 16, 5), {
+        "tl": dict(agg=8, coarse_max=64), "tol_rel": 1e-5, "maxiter": 800}),
+    "tl_dia_m16": ("two_level", ("dia", 16, 7), {"tl": dict(agg=64), "tol_rel": 1e-5,
+                                                  "maxiter": 800}),
+    "defl_clustered_n256": ("deflated", ("clustered", 256, 30), {
+        "V": "low", "tol_rel": 1e-5, "maxiter": 1024}),
+    "defl_clustered_n256_overlap": ("deflated", ("clustered", 256, 30), {
+        "V": "low", "tol_rel": 1e-5, "maxiter": 1024, "strategy": "overlap"}),
+    "defl_generator_n100_padded": ("deflated", ("generator", 100, 32), {"V": (33, 3)}),
+    "defl_scaled_n192_jacobi": ("deflated", ("scaled_clustered", 192, 34), {
+        "V": "low", "tol_rel_w": 1e-4, "maxiter": 768, "precondition": "jacobi"}),
+    "defl_poisson_m8_exact": ("deflated", ("poisson", 8, 30), {"V": "plain", "tol_rel": 1e-5}),
+    "defl_dia_m8_jacobi": ("deflated", ("dia", 8, 31), {"V": (31, 3), "tol_rel": 1e-5,
+                                                         "precondition": "jacobi"}),
+    "defl_well_geo2000_exact": ("deflated", ("geometric", 2000, 9), {"V": "plain",
+                                                                      "tol_rel": 1e-5}),
+    "recycling_poisson_m8": ("recycling", ("poisson", 8, 33), {"tol": 1e-4, "steps": 3}),
+    "minres_n192": ("minres", ("indefinite", 192, 1), {"tol_rel": 1e-5}),
+    "minres_band2048_jacobi": ("minres", ("scaled_band_dense", 2048, 1), {
+        "tol_rel": 1e-4, "precondition": "jacobi"}),
+    "minres_band2048_block_jacobi": ("minres", ("scaled_band_dense", 2048, 1), {
+        "tol_rel": 1e-4, "precondition": "block_jacobi", "pc_block_size": 32}),
+    "minres_dia_band4096": ("minres", ("band_dia", 4096, 1), {"tol_rel": 1e-4}),
+    "minres_poisson_m8": ("minres", ("poisson", 8, 40), {"tol_rel": 1e-5}),
+    "ir_n256": ("ir", ("ir_shifted", 256, 4), {"tol_rel": 1e-5}),
+    "ir_n50_overlap_padded": ("ir", ("generator", 50, 6), {"tol_rel": 1e-5,
+                                                           "strategy": "overlap"}),
+}
+
+
+def m12_system(spec) -> dict:
+    """The NumPy system of an ``M12_CASES`` case: ``A`` (dense) or ``op``
+    (``("poisson", m)``, a DIAMatrix or a CSRMatrix, which both packages
+    shard as WELL), ``b``, and ``low`` (slow eigenvectors) or ``csr`` (the
+    two-level build's input) where the case has them."""
+    from tpucg_torch.io.generator import (
+        generate_spd_system,
+        poisson3d_csr,
+        poisson3d_dia,
+        random_geometric_spd,
+    )
+    from tpucg_torch.sparse.formats import DIAMatrix
+
+    kind, n, seed = spec
+    rng = np.random.default_rng(seed)
+    if kind == "geometric":
+        A, b, _ = random_geometric_spd(n, seed=seed, avg_degree=12.0, shift=0.05)
+        return {"op": A, "csr": A, "b": b.astype(np.float32)}
+    if kind in ("poisson", "dia"):
+        m = n
+        b = rng.standard_normal(m ** 3).astype(np.float32)
+        op = ("poisson", m) if kind == "poisson" else poisson3d_dia(m)
+        return {"op": op, "csr": poisson3d_csr(m), "b": b}
+    if kind == "clustered":
+        A, low = _clustered_spd(n=n, seed=seed)
+        return {"A": A, "low": low, "b": rng.standard_normal(n).astype(np.float32)}
+    if kind == "scaled_clustered":  # tpucg's test_deflation.py test_composes_with_jacobi
+        A, low = _clustered_spd(n=n, seed=seed)
+        d = np.exp(np.random.default_rng(seed + 1).uniform(0, np.log(10), n))
+        As = (A * d[:, None] * d[None, :]).astype(np.float32)
+        b = np.random.default_rng(seed + 2).standard_normal(n).astype(np.float32)
+        return {"A": As, "low": (low / d[:, None]).astype(np.float32), "b": b}
+    if kind == "generator":
+        A, b, _ = generate_spd_system(n, seed=seed)
+        return {"A": A, "b": b}
+    if kind == "ir_shifted":  # tpucg's test_ir.py: A - (n - n/32) I
+        A, b, _ = generate_spd_system(n, seed=seed)
+        return {"A": (A - (n - n / 32.0) * np.eye(n)).astype(np.float32), "b": b}
+    if kind == "indefinite":
+        return {"A": sym_indefinite(n, seed=0),
+                "b": rng.standard_normal(n).astype(np.float32)}
+    data, offsets = staggered_band(n, e=1.0 if kind == "scaled_band_dense" else None)
+    dia = DIAMatrix(data=data, offsets=offsets, shape=(n, n))
+    b = rng.standard_normal(n).astype(np.float32)
+    if kind == "scaled_band_dense":
+        A = np.zeros((n, n), np.float32)
+        for d, off in enumerate(offsets):
+            i = np.arange(max(0, -off), min(n, n - off))
+            A[i, i + off] = data[d, i]
+        return {"A": A, "b": b}
+    return {"op": dia, "b": b}
+
+
+def m12_kwargs(name: str, s: dict) -> dict:
+    """A case's solve keyword arguments (tol from ``tol_rel``, or
+    ``tol_rel_w`` over ||D^-1/2 b||; maxiter default 4 n), the same for both
+    packages; the solver's own entries (tl, V, steps) removed."""
+    kw = {k: v for k, v in M12_CASES[name][2].items() if k not in ("tl", "V", "steps")}
+    b = s["b"]
+    if "tol_rel" in kw:
+        kw["tol"] = kw.pop("tol_rel") * float(np.linalg.norm(b))
+    if "tol_rel_w" in kw:
+        d = np.diag(s["A"]).astype(np.float64)
+        kw["tol"] = kw.pop("tol_rel_w") * float(np.linalg.norm(b / np.sqrt(d)))
+    kw.setdefault("maxiter", 4 * b.shape[0])
+    return kw
+
+
+def m12_npad(s: dict, P: int) -> int:
+    """The sharded padding of an operator case on P ranks (both packages):
+    Poisson's plane-padded slabs, DIA's and WELL's 128 P-aligned rows."""
+    op = s["op"]
+    if isinstance(op, tuple):
+        m = op[1]
+        return -(-m // P) * P * m * m
+    n = s["b"].shape[0]
+    return -(-n // (128 * P)) * 128 * P
+
+
+def solve_m12_case(mesh, name: str, s: dict = None) -> dict:
+    """One case of ``M12_CASES`` through the port on ``mesh`` (its system
+    ``s``, default ``m12_system`` of its spec); x, iterations (a list for
+    recycling), converged and residual_norm as NumPy."""
+    from tpucg_torch.solver.deflation import RecyclingCG, sharded_cg_solve_deflated
+    from tpucg_torch.solver.ir import sharded_cg_solve_ir
+    from tpucg_torch.solver.minres import sharded_minres_solve
+    from tpucg_torch.solver.operators import PoissonOperator
+    from tpucg_torch.solver.sharded import sharded_operator_cg_solve
+    from tpucg_torch.solver.twolevel import build_two_level
+
+    solver, spec, raw = M12_CASES[name]
+    s = m12_system(spec) if s is None else s
+    kw = m12_kwargs(name, s)
+    A = s.get("A")
+    if A is None:
+        A = s["op"]
+        if isinstance(A, tuple):
+            A = PoissonOperator(A[1], device=mesh.device)
+    if solver == "two_level":
+        t = raw["tl"]
+        tl = build_two_level(s["csr"], agg_size=t["agg"], npad=m12_npad(s, mesh.size),
+                             smooth_degree=t.get("smooth_degree", 1),
+                             coarse_max=t.get("coarse_max"), device=mesh.device)
+        res = sharded_operator_cg_solve(A, s["b"], mesh=mesh, two_level=tl, **kw)
+    elif solver == "deflated":
+        V = raw["V"]
+        if V == "low":
+            V = s["low"]
+        elif V == "plain":
+            V = sharded_operator_cg_solve(A, s["b"], mesh=mesh, **kw).x.cpu().numpy()
+        else:
+            V = np.random.default_rng(V[0]).standard_normal((s["b"].shape[0], V[1]))
+        res = sharded_cg_solve_deflated(A, s["b"], V.astype(np.float32), mesh=mesh, **kw)
+    elif solver == "minres":
+        res = sharded_minres_solve(A, s["b"], mesh=mesh, **kw)
+    elif solver == "ir":
+        res = sharded_cg_solve_ir(A, s["b"], mesh=mesh, **kw)
+    else:
+        drift = np.random.default_rng(spec[2] + 100).standard_normal(s["b"].shape[0])
+        rec = RecyclingCG(A, max_vectors=4, mesh=mesh, **kw)
+        runs = [rec.solve((s["b"] + 0.05 * t * drift).astype(np.float32))
+                for t in range(raw["steps"])]
+        return {"x": np.stack([r.x.cpu().numpy() for r in runs]),
+                "iterations": [int(r.iterations) for r in runs],
+                "converged": all(bool(r.converged) for r in runs)}
+    return {"x": res.x.cpu().numpy(), "iterations": int(res.iterations),
+            "converged": bool(res.converged), "residual_norm": float(res.residual_norm)}
+
+
+def sharded_m12_worker(rank, nprocs, systems, device="cpu"):
+    """A rank of a world that runs the cases of ``M12_CASES`` on a gloo
+    mesh of ``device``, each on its system in ``systems`` (made once by the
+    caller: the ranks of one machine would contend for its cores making
+    them); rank 0's results by case."""
+    from tpucg_torch.comm.mesh import make_mesh
+
+    mesh = make_mesh(device=device, backend="gloo")
+    return {name: solve_m12_case(mesh, name, systems[name]) for name in M12_CASES}
+
+
+def card_m14s45_worker(rank, nprocs, paths, fem_kw, n=2048, device="cuda:0"):
+    """A rank of a gloo world on ``device`` (``chip_smoke.py``'s M14 steps
+    4-5 phase; on the CPU with small sizes, its rehearsal): the indexed
+    FEM ``.mtx`` of ``paths`` loaded host-sharded with the two-level cycle
+    built from the parts (``fem_kw``: two_level_agg, smooth_degree, tol,
+    maxiter), its bytes read, the two-level solve timed with its transport;
+    capped two-level and Jacobi solves of 16 and 32 laps (the transport's
+    calls and host ms a lap: their difference over 16 laps); MINRES with
+    Jacobi on ``generate_spd_system(n, seed=0)`` and IR on tpucg's IR system
+    A - (n - n/32) I, allgather. Rank 0's results, with every rank's bytes
+    read and the kernels' launches (rank 0)."""
+    import time
+
+    from tpucg_torch.comm.mesh import make_mesh
+    from tpucg_torch.io.generator import generate_spd_system
+    from tpucg_torch.kernels.blas1 import dot_cuda, fused_update_cuda
+    from tpucg_torch.kernels.dispatch import strict_f32
+    from tpucg_torch.kernels.gather_spmv import well_spmv_cuda
+    from tpucg_torch.kernels.matvec import matvec_cuda
+    from tpucg_torch.solver.ir import sharded_cg_solve_ir
+    from tpucg_torch.solver.minres import sharded_minres_solve
+    from tpucg_torch.solver.sharded import load_well_system_sharded, sharded_operator_cg_solve
+
+    strict_f32()
+    dev = torch.device(device)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    mesh = make_mesh(device=dev, backend="gloo")
+    kernels = (matvec_cuda, dot_cuda, fused_update_cuda, well_spmv_cuda)
+    out = {"mesh": repr(mesh)}
+    t0 = time.perf_counter()
+    ws = load_well_system_sharded(paths["fem"], paths["fem_b"], mesh=mesh,
+                                  two_level_agg=fem_kw["two_level_agg"],
+                                  smooth_degree=fem_kw["smooth_degree"])
+    sync()
+    out["load_s"] = time.perf_counter() - t0
+    out["bytes_read"] = [int(v) for v in mesh.host_max(
+        np.eye(nprocs, dtype=np.int64)[rank] * ws.bytes_read)]
+
+    def timed(label, fn):
+        sync()
+        mesh.stats.update(calls=0, seconds=0.0)
+        before = [w.launches for w in kernels]
+        t0 = time.perf_counter()
+        res = fn()
+        sync()
+        out[label] = {
+            "x": res.x.cpu().numpy() if rank == 0 else None,
+            "laps": int(res.iterations), "converged": bool(res.converged),
+            "ms": (time.perf_counter() - t0) * 1e3, "transport_s": mesh.stats["seconds"],
+            "transport_calls": mesh.stats["calls"],
+            "launches": {w.__name__: w.launches - c for w, c in zip(kernels, before)}}
+    kw = dict(tol=fem_kw["tol"], maxiter=fem_kw["maxiter"])
+    timed("two_level", lambda: sharded_operator_cg_solve(ws, mesh=mesh, two_level=ws.two_level,
+                                                         **kw))
+    per_lap = {}
+    for label, pkw in (("two_level", dict(two_level=ws.two_level)),
+                       ("jacobi", dict(precondition="jacobi"))):
+        seen = {}
+        for laps in (16, 32):
+            sync()
+            mesh.stats.update(calls=0, seconds=0.0)
+            sharded_operator_cg_solve(ws, mesh=mesh, tol=1e-30, maxiter=laps, chunk=16, **pkw)
+            sync()
+            seen[laps] = (mesh.stats["calls"], mesh.stats["seconds"])
+        per_lap[label] = ((seen[32][0] - seen[16][0]) / 16,
+                          (seen[32][1] - seen[16][1]) / 16 * 1e3)
+    out["per_lap"] = per_lap
+    A, b, _ = generate_spd_system(n, seed=0)
+    tol = 1e-5 * float(np.linalg.norm(b))
+    timed("minres", lambda: sharded_minres_solve(A, b, mesh=mesh, precondition="jacobi",
+                                                 tol=tol))
+    A_ir = (A - (n - n / 32.0) * np.eye(n, dtype=np.float32)).astype(np.float32)
+    timed("ir", lambda: sharded_cg_solve_ir(A_ir, b, mesh=mesh, tol=tol))
+    return out

@@ -357,9 +357,17 @@ def test_m12_options_refused_where_tpucg_refuses_or_on_the_mesh(tmp_path):
     with pytest.raises(SystemExit, match="do not apply to --method minres"):
         cli.main(["solve", pa, pb, "--device", "cpu", "--method", "minres",
                   "--two-level", "32"])
+    # On the mesh (M14 step 5 brought --two-level and --method minres there)
+    # what remains refused names its item: the 2-D SUMMA strategy (step 7)
+    # and the multi-process checkpoint (step 6), with either option.
+    ck = str(tmp_path / "ck.npz")
     for flags in (["--two-level", "32"], ["--method", "minres"]):
-        with pytest.raises(NotImplementedError, match="M14 step 5"):
-            cli.main(["solve", pa, pb, "--device", "cpu", "--strategy", "allgather"] + flags)
+        with pytest.raises(NotImplementedError, match="M14 step 7"):
+            cli.main(["solve", pa, pb, "--device", "cpu", "--strategy", "summa"] + flags)
+        with pytest.raises(NotImplementedError, match="M14 step 6"):
+            cli.main(["solve", pa, pb, "--device", "cpu", "--strategy", "allgather",
+                      "--checkpoint", ck] + flags)
+    assert not os.path.exists(ck) and not torch.distributed.is_initialized()
     dense, rhs = str(tmp_path / "D.npy"), str(tmp_path / "r.npy")
     np.save(dense, np.eye(8, dtype=np.float32))
     np.save(rhs, np.ones(8, np.float32))
@@ -468,3 +476,151 @@ def test_checkpoint_refusals(tmp_path):
         cli.main(["solve", dense, rhs, "--device", "cpu", "--checkpoint", ck, "--method",
                   "pipelined"])
     assert not os.path.exists(ck) and not torch.distributed.is_initialized()
+
+
+# ---- M14 steps 4 and 5 through the CLI ----------------------------------------
+
+
+def _solve_out(argv, capsys):
+    rc = cli.main(argv)
+    out = capsys.readouterr().out
+    return rc, out, int(re.search(r"iterations\s+: (\d+)", out).group(1))
+
+
+@pytest.mark.parametrize("fmt", ["txt", "npy"])
+@pytest.mark.parametrize("strategy", ["allgather", "overlap"])
+def test_solve_strategy_text_loads_host_sharded(tmp_path, capsys, monkeypatch, fmt, strategy):
+    # tpucg's cli.py:575-600: the sharded dense path loads through
+    # load_system_sharded (the rank parses its own rows: the range parser is
+    # asked for n^2 tokens on one rank), never the whole-system loader; the
+    # solve equals the serial one (one rank, the same padding) and tpucg's
+    # CLI's (its 8 CPU devices).
+    from tpucg_torch.io import _native, textio
+    from tpucg_torch.io.generator import generate_spd_system
+    from tpucg_torch.io.textio import save_array
+    from tpucg_torch.solver import sharded
+
+    n = 128
+    A, b, _ = generate_spd_system(n, seed=4)
+    pa, pb = str(tmp_path / f"A.{fmt}"), str(tmp_path / "b.txt")
+    save_array(pa, A, fmt="%r") if fmt == "txt" else np.save(pa, A)
+    save_array(pb, b, fmt="%r")
+    x_serial, x_mesh, x_j = (str(tmp_path / f) for f in ("xs.txt", "xm.txt", "xj.txt"))
+    common = ["solve", pa, pb, "--precondition", "jacobi"]
+    rc, _, k_serial = _solve_out(common + ["--device", "cpu", "--output", x_serial], capsys)
+    loads, asked = [], []
+    real_load, real_range = sharded.load_system_sharded, _native.parse_floats_range
+
+    def load(*a, **kw):
+        loads.append(a[0])
+        return real_load(*a, **kw)
+
+    def ranged(path, start, count):
+        asked.append(count)
+        return real_range(path, start, count)
+
+    def whole(*a, **kw):
+        raise AssertionError("the sharded path loaded the whole system")
+    monkeypatch.setattr(sharded, "load_system_sharded", load)
+    monkeypatch.setattr(_native, "parse_floats_range", ranged)
+    monkeypatch.setattr(textio, "load_system", whole)
+    rc2, out, k_mesh = _solve_out(common + ["--device", "cpu", "--strategy", strategy,
+                                            "--output", x_mesh], capsys)
+    assert rc == rc2 == 0 and loads == [pa], out
+    assert sum(asked) == (n * n if fmt == "txt" else 0)
+    assert k_mesh == k_serial
+    np.testing.assert_array_equal(load_vector(x_mesh, n=n), load_vector(x_serial, n=n))
+    monkeypatch.undo()
+    jrc = jcli.main(common + ["--strategy", strategy, "--output", x_j])
+    jout = capsys.readouterr().out
+    assert jrc == 0 and int(re.search(r"iterations\s+: (\d+)", jout).group(1)) == k_mesh
+    assert scaled_err(load_vector(x_mesh, n=n), load_vector(x_j, n=n)) <= 1e-4
+    assert not torch.distributed.is_initialized()
+
+
+def test_solve_strategy_text_refusals(tmp_path):
+    # tpucg's refusals on the host-sharded route (cli.py:582-587, 593-596).
+    pa, pb = str(tmp_path / "A.npy"), str(tmp_path / "b.npy")
+    np.save(pa, np.eye(16, dtype=np.float32))
+    np.save(pb, np.ones(16, np.float32))
+    with pytest.raises(SystemExit, match="host-sharded loading"):
+        cli.main(["solve", pa, pb, "--device", "cpu", "--strategy", "allgather",
+                  "--storage", "bf16"])
+    with pytest.raises(ValueError, match="--n 15 does not match the 16 values"):
+        cli.main(["solve", pa, pb, "--device", "cpu", "--strategy", "overlap", "--n", "15"])
+    assert not torch.distributed.is_initialized()
+
+
+@pytest.mark.parametrize("flags", [["--two-level", "32"],
+                                   ["--two-level", "32", "--method", "pipelined"],
+                                   ["--two-level", "16", "--coarse-max", "64"],
+                                   ["--method", "minres", "--precondition", "jacobi"]],
+                         ids=["two_level", "two_level_pipelined", "multilevel", "minres"])
+def test_solve_strategy_takes_m12_options(tmp_path, capsys, flags):
+    # tpucg's cli.py:374-400: --two-level (the WELL decomposition's
+    # padding) and --method minres on the mesh. One rank pads as the serial
+    # operator does, so the distributed solve is the serial one bit for bit;
+    # tpucg's CLI on its 8 devices converges too, x within 1e-3 of max |x|
+    # (its padding, hence its coarse tail, is another).
+    A, b = SYSTEMS["geometric_shuffled"]()
+    pa, pb = _files(tmp_path, A, b)
+    n = A.shape[0]
+    common = ["solve", pa, pb, "--tol", str(1e-5 * float(np.linalg.norm(b))), "--maxiter",
+              "3000", "--rcm"] + flags
+    xs, xm, xj = (str(tmp_path / f) for f in ("xs.txt", "xm.txt", "xj.txt"))
+    rc, out_s, fmt_s, k_s = _run(cli.main, common + ["--device", "cpu", "--output", xs], capsys)
+    rc2, out_m, fmt_m, k_m = _run(cli.main, common + ["--device", "cpu", "--strategy",
+                                                      "allgather", "--output", xm], capsys)
+    assert rc == rc2 == 0 and fmt_s == fmt_m and "WellOperator+rcm" in fmt_m, out_m
+    assert ("+2lvl" in fmt_m) == ("--two-level" in flags)
+    assert k_s == k_m and "strategy             : allgather" in out_m
+    np.testing.assert_array_equal(load_vector(xm, n=n), load_vector(xs, n=n))
+    jrc, jout, jfmt_, _ = _run(jcli.main, common + ["--strategy", "allgather", "--output", xj],
+                               capsys)
+    assert jrc == 0 and jfmt_ == fmt_m, jout
+    assert scaled_err(load_vector(xm, n=n), load_vector(xj, n=n)) <= 1e-3
+    assert not torch.distributed.is_initialized()
+
+
+def test_solve_strategy_minres_dense_and_two_level_refusal(tmp_path, capsys):
+    # --method minres on a dense text system with --strategy: tpucg's CLI
+    # loads A whole there (cli.py:560-572); one rank equals the serial solve.
+    # --two-level with --strategy on a format other than WELL or DIA is
+    # tpucg's SystemExit.
+    from tpucg_torch.io.textio import save_array
+    from _torch_helpers import sym_indefinite
+
+    A = sym_indefinite(128, seed=2)
+    b = np.random.default_rng(3).standard_normal(128).astype(np.float32)
+    pa, pb = str(tmp_path / "A.txt"), str(tmp_path / "b.txt")
+    save_array(pa, A, fmt="%r")
+    save_array(pb, b, fmt="%r")
+    outs = {}
+    for how in ("serial", "overlap"):
+        x = str(tmp_path / f"x_{how}.txt")
+        rc, out, k = _solve_out(["solve", pa, pb, "--device", "cpu", "--method", "minres",
+                                 "--tol", "1e-4", "--strategy", how, "--output", x], capsys)
+        assert rc == 0, out
+        outs[how] = (k, load_vector(x, n=128))
+    assert outs["serial"][0] == outs["overlap"][0]
+    np.testing.assert_array_equal(outs["serial"][1], outs["overlap"][1])
+    # Dense 8 x 8 blocks at block offsets 0, +-5, +-11 (75 diagonals: no
+    # DIA; full tiles: BSR).
+    from tpucg_torch.sparse.formats import COOMatrix
+
+    nb = 32
+    bi, bj = np.meshgrid(np.arange(nb), np.arange(nb), indexing="ij")
+    keep = np.isin(bj - bi, (0, 5, -5, 11, -11))
+    bi, bj = bi[keep], bj[keep]
+    ii = (bi[:, None, None] * 8 + np.arange(8)[None, :, None]) + 0 * np.arange(8)[None, None]
+    jj = (bj[:, None, None] * 8 + np.arange(8)[None, None, :]) + 0 * np.arange(8)[None, :, None]
+    ii, jj = ii.ravel(), jj.ravel()
+    coo = COOMatrix(row=ii, col=jj, data=np.where(ii == jj, 64.0, -0.1).astype(np.float32),
+                    shape=(8 * nb, 8 * nb))
+    pa2, pb2 = _files(tmp_path, coo, np.ones(8 * nb, np.float32))
+    rc, out, fmt, _ = _run(cli.main, ["solve", pa2, pb2, "--device", "cpu"], capsys)
+    assert rc == 0 and fmt == "BsrOperator", out
+    with pytest.raises(SystemExit, match="WELL/DIA decompositions"):
+        cli.main(["solve", pa2, pb2, "--device", "cpu", "--strategy", "allgather",
+                  "--two-level", "8"])
+    assert not torch.distributed.is_initialized()

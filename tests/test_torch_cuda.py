@@ -2374,3 +2374,186 @@ def test_m14s23_two_gloo_ranks_on_one_card(cuda_device, tmp_path):
         assert scaled_err(x, ref.x.reshape(ref.x.shape[0], -1).T.cpu().numpy()) <= 1e-4, i
     assert got[2]["launches"]["well_spmv_multi_cuda"] > 0
     assert got["per_lap"]["pipelined"][0] == 2 and got["per_lap"]["cg"][0] == 3
+
+
+# ---- M14 steps 4-5: host-sharded loading and M12 on the mesh ------------------
+
+
+def _m14s45_fem_files(tmp_path, n=20_000):
+    """An indexed general .mtx of fem_p1_system(n, seed=0) and its b (.npy)."""
+    from tpucg_torch.io.generator import fem_p1_system
+    from tpucg_torch.io.mmio import build_mm_index, save_matrix_market
+
+    A, b, _ = fem_p1_system(n, seed=0)
+    paths = {"fem": str(tmp_path / "fem.mtx"), "fem_b": str(tmp_path / "fem_b.npy")}
+    save_matrix_market(paths["fem"], A, symmetric=False)
+    build_mm_index(paths["fem"])
+    np.save(paths["fem_b"], b)
+    return A, b, paths
+
+
+@pytest.mark.parametrize("fmt", ["txt", "npy"])
+@pytest.mark.parametrize("strategy", ["allgather", "overlap"])
+def test_m14s45_host_sharded_dense_load_on_card(nccl_one_rank, tmp_path, fmt, strategy):
+    # The rank's block parsed from its own rows (the range parser on text, a
+    # memory map on .npy) is distribute_system's; its solve is the whole
+    # system's bit for bit (K1, K3).
+    from tpucg_torch.io.textio import save_array
+    from tpucg_torch.solver.sharded import (
+        distribute_system,
+        load_system_sharded,
+        sharded_cg_solve,
+    )
+
+    A, b, x0 = generate_spd_system(500, seed=1)
+    pa, pb, px = (str(tmp_path / f) for f in (f"A.{fmt}", "b.txt", "x0.txt"))
+    save_array(pa, A, fmt="%r") if fmt == "txt" else np.save(pa, A)
+    save_array(pb, b, fmt="%r")
+    save_array(px, x0, fmt="%r")
+    got = load_system_sharded(pa, pb, px, mesh=nccl_one_rank, strategy=strategy)
+    want = distribute_system(A, b, x0, nccl_one_rank, strategy=strategy)
+    assert got.A.device == nccl_one_rank.device and got.part == want.part
+    for f in ("A", "b", "x0"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    res, moved = _m9_counted(lambda: sharded_cg_solve(got, mesh=nccl_one_rank,
+                                                      strategy=strategy))
+    ref = sharded_cg_solve(A, b, x0, mesh=nccl_one_rank, strategy=strategy)
+    assert bool(res.converged) and int(res.iterations) == int(ref.iterations)
+    assert _same_bits(res.x, ref.x)
+    assert moved["matvec_cuda"] > 0 and moved["dot_cuda"] > 0 and _m14s23_clean(moved)
+
+
+def test_m14s45_host_sharded_well_on_card(nccl_one_rank, tmp_path):
+    # One rank reads the whole file's rows and packs what csr_to_well_sharded
+    # packs; its Jacobi solve is the CSR route's bit for bit (K13); the
+    # two-level cycle built from the parts solves with K13 and K3.
+    from tpucg_torch.solver.sharded import load_well_system_sharded, sharded_operator_cg_solve
+    from tpucg_torch.sparse.well import csr_to_well_sharded
+
+    A, b, paths = _m14s45_fem_files(tmp_path)
+    ws = load_well_system_sharded(paths["fem"], paths["fem_b"], mesh=nccl_one_rank,
+                                  two_level_agg=64, smooth_degree=2)
+    stacked, _ = csr_to_well_sharded(A, 1)
+    for i, k in enumerate(("vals", "lidx", "gidl", "wrow", "sgb")):
+        assert np.array_equal(ws.block.arrays[i].cpu().numpy(), stacked[k][0]), k
+    assert ws.two_level.device == nccl_one_rank.device
+    nb = float(np.linalg.norm(b))
+    kw = dict(precondition="jacobi", tol=1e-4 * nb, maxiter=4000)
+    got, moved = _m9_counted(lambda: sharded_operator_cg_solve(ws, mesh=nccl_one_rank, **kw))
+    want = sharded_operator_cg_solve(A, b, mesh=nccl_one_rank, **kw)
+    assert bool(got.converged) and int(got.iterations) == int(want.iterations)
+    assert _same_bits(got.x, want.x)
+    assert moved["well_spmv_cuda"] > 0 and _m14s23_clean(moved)
+    got, moved = _m9_counted(lambda: sharded_operator_cg_solve(
+        ws, mesh=nccl_one_rank, two_level=ws.two_level, tol=2e-3 * nb, maxiter=4000))
+    assert int(got.iterations) % 16 == 0 and int(got.iterations) < int(want.iterations)
+    assert moved["well_spmv_cuda"] > 0 and moved["dot_cuda"] > 0 and _m14s23_clean(moved)
+
+
+@pytest.mark.parametrize("method,coarse_max", [("cg", None), ("pipelined", None), ("cg", 64)],
+                         ids=["two_level", "two_level_pipelined", "multilevel"])
+def test_m14s45_two_level_equals_serial_on_card(nccl_one_rank, method, coarse_max):
+    # One rank's WELL pack, aggregates and gathered coarse residual are the
+    # serial cycle's: laps and x bit for bit (K13, K3; the multilevel
+    # hierarchy's coarse operator on its own kernel, with local dots).
+    from tpucg_torch.solver.sharded import sharded_operator_cg_solve
+    from tpucg_torch.solver.twolevel import build_two_level
+
+    dev = nccl_one_rank.device
+    A, b, _ = random_geometric_spd(20_000, seed=2, avg_degree=12.0, shift=0.05)
+    op = WellOperator.from_csr(A, device=dev)
+    tl = build_two_level(A, agg_size=16 if coarse_max else 64, npad=op.padded_n,
+                         coarse_max=coarse_max, device=dev)
+    kw = dict(tol=1e-5 * float(np.linalg.norm(b)), maxiter=2000, method=method, two_level=tl)
+    want = cg_solve(op, b, **kw)
+    got, moved = _m9_counted(lambda: sharded_operator_cg_solve(A, b, mesh=nccl_one_rank, **kw))
+    assert bool(got.converged) and int(got.iterations) == int(want.iterations)
+    assert _same_bits(got.x, want.x)
+    assert moved["well_spmv_cuda"] > 0 and moved["dot_cuda"] > 0 and _m14s23_clean(moved)
+
+
+def test_m14s45_deflation_recycling_minres_ir_on_card(nccl_one_rank):
+    # Each against its serial solve on the card: laps equal, x within 1e-5
+    # of max |x| (the sharded deflation keeps tpucg's explicit (W^T A W)^-1,
+    # the serial one an A-orthonormal W); MINRES bit for bit; IR's inner
+    # laps on K1's bf16 form, its residual on K1's f32 form.
+    from _torch_helpers import _clustered_spd
+    from tpucg_torch.solver.deflation import (
+        RecyclingCG,
+        cg_solve_deflated,
+        sharded_cg_solve_deflated,
+    )
+    from tpucg_torch.solver.ir import cg_solve_ir, sharded_cg_solve_ir
+    from tpucg_torch.solver.minres import minres_solve, sharded_minres_solve
+
+    mesh, dev = nccl_one_rank, nccl_one_rank.device
+    A, V = _clustered_spd(n=512, seed=0)
+    b = np.random.default_rng(1).standard_normal(512).astype(np.float32)
+    kw = dict(tol=1e-5 * float(np.linalg.norm(b)), maxiter=2048)
+    got, moved = _m9_counted(lambda: sharded_cg_solve_deflated(A, b, V, mesh=mesh, **kw))
+    want = cg_solve_deflated(A, b, V, device=dev, **kw)
+    assert bool(got.converged) and int(got.iterations) == int(want.iterations)
+    assert scaled_err(got.x.cpu().numpy(), want.x.cpu().numpy()) <= 1e-5
+    assert moved["matvec_cuda"] > 0 and _m14s23_clean(moved)
+    op = PoissonOperator(16, device=dev)
+    bp = np.random.default_rng(2).standard_normal(16 ** 3).astype(np.float32)
+    kw = dict(tol=1e-5 * float(np.linalg.norm(bp)), maxiter=1000)
+    rec, rec_s = RecyclingCG(op, mesh=mesh, **kw), RecyclingCG(op, **kw)
+    for t in range(3):
+        bt = (bp * (1.0 + 0.1 * t)).astype(np.float32)
+        got, want = rec.solve(bt), rec_s.solve(bt)
+        assert bool(got.converged) and int(got.iterations) == int(want.iterations), t
+        assert scaled_err(got.x.cpu().numpy(), want.x.cpu().numpy()) <= 1e-5
+    A, b, x0 = generate_spd_system(512, seed=3)
+    kw = dict(tol=1e-5 * float(np.linalg.norm(b)), precondition="jacobi")
+    got, moved = _m9_counted(lambda: sharded_minres_solve(A, b, x0, mesh=mesh, **kw))
+    want = minres_solve(A, b, x0, device=dev, **kw)
+    assert bool(got.converged) and int(got.iterations) == int(want.iterations)
+    assert _same_bits(got.x, want.x) and moved["matvec_cuda"] > 0 and _m14s23_clean(moved)
+    A_ir = (A - (512 - 16.0) * np.eye(512, dtype=np.float32)).astype(np.float32)
+    kw = dict(tol=1e-5 * float(np.linalg.norm(b)))
+    bf16 = matvec_cuda.bf16_launches
+    got, moved = _m9_counted(lambda: sharded_cg_solve_ir(A_ir, b, mesh=mesh, **kw))
+    bf16 = matvec_cuda.bf16_launches - bf16
+    want = cg_solve_ir(A_ir, b, device=dev, **kw)
+    assert bool(got.converged) and int(got.iterations) == int(want.iterations)
+    assert _same_bits(got.x, want.x)
+    assert 0 < bf16 < moved["matvec_cuda"] and _m14s23_clean(moved)
+
+
+def test_m14s45_two_gloo_ranks_on_one_card(cuda_device, tmp_path):
+    # chip_smoke.py's gloo world at small sizes: each rank reads about half
+    # of the .mtx; the two-level cycle adds its matvecs' gathers and one
+    # coarse gather a lap; MINRES and IR take one rank's laps.
+    from _torch_helpers import card_m14s45_worker, run_world
+    from tpucg_torch.comm.mesh import init_distributed, make_mesh
+    from tpucg_torch.io.mmio import mm_index_path
+    from tpucg_torch.solver.ir import sharded_cg_solve_ir
+    from tpucg_torch.solver.minres import sharded_minres_solve
+
+    A, b, paths = _m14s45_fem_files(tmp_path)
+    nb = float(np.linalg.norm(b))
+    fem_kw = dict(two_level_agg=64, smooth_degree=2, tol=2e-3 * nb, maxiter=4000)
+    got = run_world(2, card_m14s45_worker, args=(paths, fem_kw, 512, "cuda:0"),
+                    rendezvous=str(tmp_path / "world"), timeout_s=300)
+    with np.load(mm_index_path(paths["fem"])) as z:
+        data = int(z["row_offsets"][-1] - z["row_offsets"][0])
+    assert sum(got["bytes_read"]) == data
+    assert all(0.4 < r / data < 0.6 for r in got["bytes_read"])
+    assert got["two_level"]["converged"] and got["two_level"]["launches"]["well_spmv_cuda"] > 0
+    assert got["per_lap"]["two_level"][0] - got["per_lap"]["jacobi"][0] == 5 + 2 / 16
+    init_distributed(backend="nccl", device=cuda_device)
+    mesh = make_mesh(device=cuda_device, backend="nccl")
+    try:
+        Ad, bd, _ = generate_spd_system(512, seed=0)
+        tol = 1e-5 * float(np.linalg.norm(bd))
+        refs = {"minres": sharded_minres_solve(Ad, bd, mesh=mesh, precondition="jacobi",
+                                               tol=tol),
+                "ir": sharded_cg_solve_ir((Ad - (512 - 16.0) * np.eye(512, dtype=np.float32))
+                                          .astype(np.float32), bd, mesh=mesh, tol=tol)}
+    finally:
+        torch.distributed.destroy_process_group()
+    for label, ref in refs.items():
+        r = got[label]
+        assert r["converged"] and r["laps"] == int(ref.iterations), label
+        assert scaled_err(r["x"], ref.x.cpu().numpy()) <= 1e-4, label

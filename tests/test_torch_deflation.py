@@ -255,8 +255,17 @@ def test_recycling_with_two_level_on_fem_matches_tpucg():
 
 def test_recycling_refusals(tmp_path):
     A, _ = _clustered_spd(n=128, seed=40)
-    with pytest.raises(NotImplementedError, match="M14 step 5"):
-        RecyclingCG(A, mesh=object(), device=CPU)
+    # On a mesh (M14 step 5) it keeps tpucg's ValueError for two_level= and
+    # its checkpointed solve names the multi-process checkpoint (M14 step 6);
+    # test_torch_sharded_m12.py holds its solves to tpucg's.
+    from tpucg_torch.comm.mesh import Mesh
+
+    mesh = Mesh(group=None, rank=0, size=1, device=CPU, backend="gloo")
+    with pytest.raises(ValueError, match="serial-only"):
+        RecyclingCG(A, mesh=mesh, two_level=object())
+    with pytest.raises(NotImplementedError, match="M14 step 6"):
+        RecyclingCG(A, mesh=mesh).solve(np.ones(128, np.float32),
+                                        checkpoint_path=str(tmp_path / "mesh.npz"))
     # checkpoint_path= (M13) runs: the solve of the plain sequence, its file
     # removed on convergence, its solution admitted.
     b = np.ones(128, np.float32)

@@ -345,8 +345,15 @@ def test_refusals_name_their_roadmap_item(one_rank):
             sharded_cg_solve(A, b, mesh=one_rank, **kw)
         with pytest.raises(ValueError, match="interval"):
             sharded_operator_cg_solve(op, b4, mesh=one_rank, **kw)
-    with pytest.raises(NotImplementedError, match="M14 step 5"):
-        sharded_operator_cg_solve(op, b4, mesh=one_rank, two_level=object())
+    # two_level= runs on the mesh (M14 step 5) under tpucg's refusals: the
+    # cycle preconditions a cg or pipelined solve with no other
+    # preconditioner (test_torch_sharded_m12.py holds it to tpucg's).
+    from tpucg_torch.solver.twolevel import build_two_level
+
+    tl = build_two_level(poisson3d_csr(4), agg_size=8, npad=64, device="cpu")
+    for kw in ({"method": "ca"}, {"precondition": "jacobi"}):
+        with pytest.raises(ValueError, match="THE preconditioner"):
+            sharded_operator_cg_solve(op, b4, mesh=one_rank, two_level=tl, **kw)
     # A CSR is sharded WELL (irregular sparsity) and solves; a serial WELL
     # pack cannot be re-sharded: tpucg's TypeError (sharded.py:2388-2392).
     csr = poisson3d_csr(4)
@@ -367,6 +374,9 @@ def test_refusals_name_their_roadmap_item(one_rank):
         sharded_operator_cg_solve(no_main, np.ones(128, np.float32), mesh=one_rank)
     with pytest.raises(ValueError, match="strategy"):
         sharded_cg_solve(A, b, mesh=one_rank, strategy="ring")
+    # A 2-D mesh (tpucg's make_mesh2d, the SUMMA decomposition) names its item.
+    with pytest.raises(NotImplementedError, match="M14 step 7"):
+        sharded_cg_solve(A, b, mesh=tpucg.make_mesh2d(2, 2))
 
 
 def test_mesh_surface(one_rank):

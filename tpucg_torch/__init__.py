@@ -37,9 +37,15 @@ overlap-ring exchange, Poisson on slabs with plane halos (K9), DIA on row
 blocks with band halos (K7), ELL and BSR, and an irregular CSR as row
 blocks of WELL (K13 on each rank's rows of the gathered x), with every
 method and preconditioner of a serial cg solve (block Jacobi on each rank's
-own blocks); ``sharded_cg_solve_multi`` and ``sharded_cg_solve_block``
-distribute the multi-RHS and block CG solves (K13 x k on WELL). The package
-imports neither ``jax`` nor ``tpucg``.
+own blocks, or the two-level cycle on the operator split);
+``sharded_cg_solve_multi`` and ``sharded_cg_solve_block`` distribute the
+multi-RHS and block CG solves (K13 x k on WELL), and
+``sharded_cg_solve_deflated``, ``RecyclingCG(mesh=)``,
+``sharded_minres_solve`` and ``sharded_cg_solve_ir`` the deflated,
+recycling, MINRES and refinement solves. ``load_system_sharded`` (dense
+text or ``.npy``) and ``load_well_system_sharded`` (an indexed ``.mtx``,
+with ``build_two_level_from_parts``) load host-sharded: each rank reads only
+its own rows. The package imports neither ``jax`` nor ``tpucg``.
 """
 
 from tpucg_torch.comm.mesh import Mesh, init_distributed, make_mesh
@@ -53,7 +59,13 @@ from tpucg_torch.io.generator import (
     random_geometric_spd,
 )
 from tpucg_torch.io.mmio import load_matrix_market, save_matrix_market
-from tpucg_torch.io.textio import load_matrix, load_system, load_vector, save_array
+from tpucg_torch.io.textio import (
+    load_matrix,
+    load_matrix_rows,
+    load_system,
+    load_vector,
+    save_array,
+)
 from tpucg_torch.solver.cg import (
     BLOCK_CG_MAX_K,
     CGResult,
@@ -74,9 +86,10 @@ from tpucg_torch.solver.deflation import (
     RecyclingCG,
     build_deflation_basis,
     cg_solve_deflated,
+    sharded_cg_solve_deflated,
 )
-from tpucg_torch.solver.ir import cg_solve_ir
-from tpucg_torch.solver.minres import abs_inv_blocks, minres_solve
+from tpucg_torch.solver.ir import cg_solve_ir, sharded_cg_solve_ir
+from tpucg_torch.solver.minres import abs_inv_blocks, minres_solve, sharded_minres_solve
 from tpucg_torch.solver.operators import (
     BsrOperator,
     DenseOperator,
@@ -91,13 +104,16 @@ from tpucg_torch.solver.operators import (
 from tpucg_torch.solver.oracle import oracle_cg
 from tpucg_torch.solver.sharded import (
     DistributedSystem,
+    WellShardedSystem,
     distribute_system,
+    load_system_sharded,
+    load_well_system_sharded,
     sharded_cg_solve,
     sharded_cg_solve_block,
     sharded_cg_solve_multi,
     sharded_operator_cg_solve,
 )
-from tpucg_torch.solver.twolevel import TwoLevel, build_two_level
+from tpucg_torch.solver.twolevel import TwoLevel, build_two_level, build_two_level_from_parts
 from tpucg_torch.sparse.formats import COOMatrix, CSRMatrix, DIAMatrix, csr_to_dia
 from tpucg_torch.sparse.well import WellMatrix, csr_to_well
 
@@ -116,19 +132,26 @@ __all__ = [
     "spectral_interval",
     "TwoLevel",
     "build_two_level",
+    "build_two_level_from_parts",
     "DeflationBasis",
     "RecyclingCG",
     "build_deflation_basis",
     "cg_solve_deflated",
+    "sharded_cg_solve_deflated",
     "cg_solve_checkpointed",
     "load_checkpoint",
     "save_checkpoint",
     "abs_inv_blocks",
     "minres_solve",
+    "sharded_minres_solve",
+    "sharded_cg_solve_ir",
     "DistributedSystem",
     "Mesh",
+    "WellShardedSystem",
     "distribute_system",
     "init_distributed",
+    "load_system_sharded",
+    "load_well_system_sharded",
     "make_mesh",
     "sharded_cg_solve",
     "sharded_cg_solve_block",
@@ -159,6 +182,7 @@ __all__ = [
     "poisson3d_csr",
     "poisson3d_dia",
     "load_matrix",
+    "load_matrix_rows",
     "load_system",
     "load_vector",
     "save_array",

@@ -18,9 +18,10 @@ spectrum bounds), and ``--precondition block_jacobi`` with
 ``--pc-block-size`` (an irregular ``.mtx`` promoted to WELL carries the
 blocks taken from its CSR).
 
-``solve`` also takes tpucg's M12 options, serially: ``--two-level AGG``
-(with ``--smooth-degree`` and ``--coarse-max``) on a sparse ``.mtx``, and
-``--method minres``.
+``solve`` also takes tpucg's M12 options: ``--two-level AGG`` (with
+``--smooth-degree`` and ``--coarse-max``) on a sparse ``.mtx``, and
+``--method minres``; with ``--strategy`` too (two-level on the WELL and DIA
+decompositions, tpucg's ``cli.py:374-400``).
 
 ``solve --checkpoint PATH --segment-iters N`` runs tpucg's segmented
 solve (``cg_solve_checkpointed``) on a dense or ``.mtx`` system, serially:
@@ -33,10 +34,13 @@ is tpucg's, so either package's CLI resumes the other's.
 system, as tpucg's ``cli.py:945-976, 1014-1021``) run the distributed
 solves over ``torch.distributed``: under ``torchrun --nproc-per-node P`` on
 its world, else as a world of one rank; an irregular ``.mtx`` (promoted to
-WELL) goes to the ranks as its CSR, packed into row blocks of WELL. They
-take the method options and block Jacobi as the serial solve does (ELL and
-BSR refuse block Jacobi, as tpucg's sharded solve does). Only rank 0
-prints.
+WELL) goes to the ranks as its CSR, packed into row blocks of WELL. A
+dense text or ``.npy`` system is loaded host-sharded
+(``load_system_sharded``: each rank parses only its own rows, tpucg's
+``cli.py:575-600``; ``--storage bf16`` is refused there, as tpucg's CLI
+refuses it). They take the method options and block Jacobi as the serial
+solve does (ELL and BSR refuse block Jacobi, as tpucg's sharded solve
+does). Only rank 0 prints.
 """
 
 from __future__ import annotations
@@ -66,9 +70,6 @@ def _check_solve_options(args) -> None:
     if args.strategy == "summa":
         raise NotImplementedError("--strategy summa (the 2-D SUMMA decomposition) is ROADMAP "
                                   "M14 step 7")
-    if args.strategy != "serial" and (args.two_level is not None or args.method == "minres"):
-        raise NotImplementedError("distributed --two-level and --method minres (M12 on the mesh) "
-                                  "are ROADMAP M14 step 5")
     if args.checkpoint is not None and args.interval is not None:
         raise SystemExit("--interval does not compose with --checkpoint")
 
@@ -90,25 +91,40 @@ def _checkpoint_kw(args) -> dict:
                 segment_iters=args.segment_iters, checkpoint_path=args.checkpoint)
 
 
-def _minres(op, b, x0, args):
-    """``--method minres``: ``minres_solve`` with tpucg's CLI options (tol,
-    maxiter, precondition, pc_block_size)."""
-    from tpucg_torch.solver.minres import minres_solve
+def _minres(op, b, x0, args, mesh=None):
+    """``--method minres``: ``minres_solve``, or ``sharded_minres_solve`` on
+    a mesh, with tpucg's CLI options (tol, maxiter, precondition,
+    pc_block_size; the strategy on a mesh)."""
+    from tpucg_torch.solver.minres import minres_solve, sharded_minres_solve
 
-    return minres_solve(op, b, x0, tol=args.tol, maxiter=args.maxiter, kernel=args.kernel,
-                        precondition=args.precondition, pc_block_size=args.pc_block_size)
+    kw = dict(tol=args.tol, maxiter=args.maxiter, kernel=args.kernel,
+              precondition=args.precondition, pc_block_size=args.pc_block_size)
+    if mesh is None:
+        return minres_solve(op, b, x0, **kw)
+    return sharded_minres_solve(op, b, x0, mesh=mesh, strategy=args.strategy, **kw)
 
 
-def _two_level(args, csr, op):
+def _two_level(args, csr, op, mesh=None):
     """``--two-level AGG``: tpucg's cycle built from the (possibly reordered)
-    CSR for the operator's padding and device, with ``--smooth-degree`` and
+    CSR for the operator's padding and device (on a mesh: the WELL and DIA
+    decompositions' padding, round_up(n, 128 P), on the mesh's device; other
+    formats refuse, as tpucg's CLI does), with ``--smooth-degree`` and
     ``--coarse-max``; and the format tag, ``+2lvl<AGG>`` and ``x<levels>lv``
     for a multilevel hierarchy."""
+    from tpucg_torch.io.partitioner import round_up
+    from tpucg_torch.solver.operators import DiaOperator, WellOperator
     from tpucg_torch.solver.twolevel import build_two_level
 
-    tl = build_two_level(csr, agg_size=args.two_level, npad=op.padded_n,
+    if mesh is None:
+        npad, device = op.padded_n, op.device
+    else:
+        if not isinstance(op, (WellOperator, DiaOperator)):
+            raise SystemExit("--two-level with sharded strategies supports the WELL/DIA "
+                             f"decompositions (this matrix promoted to {type(op).__name__})")
+        npad, device = round_up(csr.shape[0], 128 * mesh.size), mesh.device
+    tl = build_two_level(csr, agg_size=args.two_level, npad=npad,
                          smooth_degree=args.smooth_degree, coarse_max=args.coarse_max,
-                         device=op.device)
+                         device=device)
     tag = f"+2lvl{args.two_level}" + (f"x{tl.levels}lv" if tl.levels > 1 else "")
     return tl, tag
 
@@ -247,7 +263,7 @@ def _cmd_solve_mtx(args, t_total0) -> int:
             raise SystemExit("--two-level applies to sparse .mtx systems (dense systems "
                              "converge in O(10) laps already)")
         # Contiguous aggregates inherit the ordering's locality (hence --rcm).
-        two_level, tag = _two_level(args, csr, op)
+        two_level, tag = _two_level(args, csr, op, mesh)
         fmt += tag
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -268,8 +284,12 @@ def _cmd_solve_mtx(args, t_total0) -> int:
         _refuse_mesh_checkpoint(args)
         res = cg_solve_checkpointed(op, b, x0, two_level=two_level, device=device,
                                     **_checkpoint_kw(args))
-    elif args.method == "minres":  # serial only (_check_solve_options)
-        res = _minres(op, b, x0, args)
+    elif args.method == "minres":
+        if well_mesh and args.storage == "bf16":
+            print("note: --storage bf16 is serial-only for MINRES on irregular (WELL) systems; "
+                  "solving in f32")
+        res = _minres(op if mesh is None else (mat if csr is None else sh_target), b, x0, args,
+                      mesh)
     elif mesh is None:
         res = cg_solve(op, b, x0, fused=args.fused, two_level=two_level, **kw,
                        **_method_kw(args))
@@ -278,7 +298,7 @@ def _cmd_solve_mtx(args, t_total0) -> int:
                                storage_dtype=storage, **kw, **_method_kw(args))
     else:
         res = sharded_operator_cg_solve(sh_target, b, x0, mesh=mesh, storage_dtype=storage, **kw,
-                                        **_method_kw(args))
+                                        two_level=two_level, **_method_kw(args))
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     solve_s = time.perf_counter() - t0
@@ -346,8 +366,9 @@ def cmd_solve(args) -> int:
     from tpucg_torch.io.textio import load_system
     from tpucg_torch.kernels.dispatch import canonical_device
     from tpucg_torch.solver.cg import cg_solve
+    from tpucg_torch.config import CGConfig
     from tpucg_torch.solver.operators import DenseOperator
-    from tpucg_torch.solver.sharded import sharded_cg_solve
+    from tpucg_torch.solver.sharded import load_system_sharded, sharded_cg_solve
 
     _check_solve_options(args)
     t_total0 = time.perf_counter()
@@ -357,12 +378,29 @@ def cmd_solve(args) -> int:
         raise SystemExit("--two-level applies to sparse .mtx systems (dense systems converge in "
                          "O(10) laps already)")
     _refuse_mesh_checkpoint(args)
-    A, b, x0 = load_system(args.matrix, args.rhs, args.x0, n=args.n)
-    n = A.shape[0]
-    load_s = time.perf_counter() - t_total0
     mesh = None if args.strategy == "serial" else _mesh(args.device)
     device = canonical_device(args.device) if mesh is None else mesh.device
     storage = torch.bfloat16 if args.storage == "bf16" else torch.float32
+    system = None
+    if mesh is not None and args.method != "minres":
+        # Host-sharded loading: each rank parses only its own rows (the
+        # reference's rank 0 reads everything, parallel_cg.c:100-108).
+        if args.storage == "bf16":
+            raise SystemExit("--storage bf16 with sharded dense strategies: cast at distribution "
+                             "is not wired through host-sharded loading; use --strategy serial "
+                             "or the library API (sharded_cg_solve(..., "
+                             "storage_dtype=torch.bfloat16))")
+        system = load_system_sharded(args.matrix, args.rhs, args.x0, mesh=mesh,
+                                     kernel=args.kernel, strategy=args.strategy,
+                                     config=CGConfig(precondition=args.precondition,
+                                                     pc_block_size=args.pc_block_size))
+        n = system.n
+        if args.n is not None and n != args.n:
+            raise ValueError(f"--n {args.n} does not match the {n} values in {args.rhs!r}")
+    else:
+        A, b, x0 = load_system(args.matrix, args.rhs, args.x0, n=args.n)
+        n = A.shape[0]
+    load_s = time.perf_counter() - t_total0
     kw = dict(tol=args.tol, maxiter=args.maxiter, kernel=args.kernel,
               precondition=args.precondition, poly_degree=args.poly_degree,
               record_residuals=args.checkpoint is None and _record(args))
@@ -380,8 +418,11 @@ def cmd_solve(args) -> int:
             res = cg_solve(op, b, x0, fused=args.fused, **kw, **_method_kw(args))
         where = f"{device} [{op.backend}]{_ck_note(args)}"
     else:
-        res = sharded_cg_solve(A, b, x0, mesh=mesh, strategy=args.strategy,
-                               storage_dtype=storage, **kw, **_method_kw(args))
+        if system is None:  # --method minres: tpucg's CLI loads A whole there
+            res = _minres(A, b, x0, args, mesh)
+        else:
+            res = sharded_cg_solve(system, mesh=mesh, strategy=args.strategy, n=n, **kw,
+                                   **_method_kw(args))
         where = f"{mesh!r}, strategy {args.strategy}"
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -717,7 +758,7 @@ def build_parser() -> argparse.ArgumentParser:
                          "laps); chebyshev = Chebyshev iteration (no dot inside a lap, a "
                          "check every --check-every laps); minres = Paige-Saunders MINRES "
                          "for symmetric indefinite systems (--precondition none, jacobi or "
-                         "block_jacobi; serial)")
+                         "block_jacobi; with --strategy on the mesh too)")
     ps.add_argument("--strategy", default="serial",
                     choices=("serial", "allgather", "overlap", "summa"),
                     help="distributed row-block solve over torch.distributed (under "
@@ -728,7 +769,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "step 7")
     ps.add_argument("--two-level", type=int, default=None, metavar="AGG",
                     help="two-level preconditioning with AGG-row contiguous aggregates (.mtx "
-                         "sparse systems, method cg or pipelined, serial): the coarse-space "
+                         "sparse systems, method cg or pipelined; with --strategy on the WELL "
+                         "and DIA decompositions): the coarse-space "
                          "correction that cuts FEM-class lap counts where Jacobi cannot "
                          "(pairs with --rcm); stops on the true residual every 16 laps")
     ps.add_argument("--smooth-degree", type=int, default=1, dest="smooth_degree",

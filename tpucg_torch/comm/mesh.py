@@ -15,7 +15,11 @@ The transport, for what the solves exchange:
   then summed in rank order, the same on every rank, so every rank holds
   the bit-identical scalar and runs repeat; no ``all_reduce``);
 - ``sendrecv``, the point-to-point halos and the ring, to and from
-  neighbouring ranks.
+  neighbouring ranks;
+- ``host_sum`` and ``host_max`` of small host arrays (tpucg's
+  ``_sum_across_processes`` and ``_max_across_processes``, the agreements
+  of host-sharded loading and the distributed two-level build), the same
+  bits on every rank.
 
 On NCCL every exchange is ordered on the current CUDA stream: the host
 never waits for it. gloo takes CUDA tensors in its collectives but refuses
@@ -36,6 +40,7 @@ import os
 import time
 from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -172,6 +177,23 @@ class Mesh:
         for i in range(1, self.size):
             s = s + parts[i]
         return s
+
+    def host_sum(self, arr: np.ndarray) -> np.ndarray:
+        """The sum over the ranks of a host array (tpucg's
+        ``_sum_across_processes``): ``rank_sum`` on the mesh's device, in
+        the array's dtype (float64 for the two-level build's coarse
+        matrix), so every rank holds the same bits. One rank's is its
+        array."""
+        t = torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+        return self.rank_sum(t).cpu().numpy()
+
+    def host_max(self, arr: np.ndarray) -> np.ndarray:
+        """The elementwise max over the ranks of a host array (tpucg's
+        ``_max_across_processes``): every rank's gathered, then the max."""
+        t = torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+        parts = torch.empty((self.size,) + tuple(t.shape), dtype=t.dtype, device=t.device)
+        self.all_gather(parts.reshape(-1), t.reshape(-1))
+        return parts.amax(dim=0).cpu().numpy()
 
     def sendrecv(self, sends: Sequence[Tuple[torch.Tensor, int]],
                  recvs: Sequence[Tuple[torch.Tensor, int]]) -> _Handle:

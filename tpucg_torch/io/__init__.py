@@ -10,7 +10,13 @@ from tpucg_torch.io.generator import (
 from tpucg_torch.io.golden import GOLDEN_2X2, GOLDEN_4X4
 from tpucg_torch.io.mmio import load_matrix_market, save_matrix_market
 from tpucg_torch.io.partitioner import RowPartition, pad_identity_tail, pad_system, round_up
-from tpucg_torch.io.textio import load_matrix, load_system, load_vector, save_array
+from tpucg_torch.io.textio import (
+    load_matrix,
+    load_matrix_rows,
+    load_system,
+    load_vector,
+    save_array,
+)
 
 __all__ = [
     "fem_p1_system",
@@ -26,6 +32,7 @@ __all__ = [
     "pad_system",
     "round_up",
     "load_matrix",
+    "load_matrix_rows",
     "load_system",
     "load_vector",
     "save_array",

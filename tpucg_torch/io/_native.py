@@ -2,7 +2,9 @@
 a copy of ``tpucg.io._native`` over the same ``native/libfastio.so``.
 
 If the shared library is not built and cannot be, ``parse_floats`` returns
-None and callers parse with NumPy.
+None and callers parse with NumPy; ``parse_floats_range`` (host-sharded
+loading: a rank parses only its rows) returns None too when the library, or
+its range symbol, is missing.
 """
 
 from __future__ import annotations
@@ -58,6 +60,16 @@ def _load() -> Optional[ctypes.CDLL]:
             ctypes.POINTER(ctypes.c_float),
             ctypes.c_longlong,
         ]
+        try:
+            lib.fastio_parse_floats_range.restype = ctypes.c_longlong
+            lib.fastio_parse_floats_range.argtypes = [
+                ctypes.c_char_p,
+                ctypes.c_longlong,
+                ctypes.POINTER(ctypes.c_float),
+                ctypes.c_longlong,
+            ]
+        except AttributeError:  # a stale library built before the range parser
+            pass
         _LIB = lib
     except (OSError, AttributeError):
         _LIB = None
@@ -85,3 +97,23 @@ def parse_floats(path: str) -> Optional[np.ndarray]:
     if got < 0:
         raise IOError(f"native parser failed to open {path!r}")
     return out[:got].copy()
+
+
+def parse_floats_range(path: str, start: int, count: int) -> Optional[np.ndarray]:
+    """Parse the float tokens [start, start + count) of ``path`` with the
+    native library (tpucg's), or None when the library or its range symbol
+    is unavailable. ``IOError`` when the file cannot be opened,
+    ``ValueError`` when it yields fewer tokens than asked."""
+    lib = _load()
+    if lib is None or not hasattr(lib, "fastio_parse_floats_range"):
+        return None
+    out = np.empty(count, dtype=np.float32)
+    got = lib.fastio_parse_floats_range(
+        os.fsencode(path), int(start), out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        int(count))
+    if got < 0:
+        raise IOError(f"native parser failed to open {path!r}")
+    if got != count:
+        raise ValueError(f"{path!r}: requested tokens [{start}, {start + count}), file only "
+                         f"yielded {got}")
+    return out

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import os
 import re
+import warnings
 from typing import Optional
 
 import numpy as np
@@ -66,6 +67,40 @@ def load_matrix(path: str, n: Optional[int] = None, dtype=np.float32) -> np.ndar
     elif vals.size != n * n:
         raise ValueError(f"{path!r}: expected {n * n} values, found {vals.size}")
     return vals.reshape(n, n)
+
+
+def load_matrix_rows(path: str, row_start: int, row_stop: int, n: int,
+                     dtype=np.float32) -> np.ndarray:
+    """Rows [row_start, row_stop) of an n x n row-major matrix (tpucg's):
+    host-sharded loading, each rank parsing only its own rows where the
+    reference's rank 0 reads everything (``parallel_cg.c:100-108``). A
+    ``.npy`` is memory-mapped (only the rows' pages are read); f32 text
+    goes through the native range parser; otherwise a ``RuntimeWarning``
+    and the whole file parsed and sliced."""
+    if not 0 <= row_start <= row_stop <= n:
+        raise ValueError(f"invalid row range [{row_start}, {row_stop}) for n={n}")
+    count = (row_stop - row_start) * n
+    if count == 0:
+        return np.empty((0, n), dtype)
+    if path.endswith(".npy"):
+        mm = np.load(path, mmap_mode="r")
+        if mm.size != n * n:
+            raise ValueError(f"{path!r}: expected {n * n} values, found {mm.size}")
+        block = np.array(mm.reshape(n, n)[row_start:row_stop], dtype=dtype)
+        del mm
+        return block
+    arr = (_native.parse_floats_range(path, row_start * n, count)
+           if np.dtype(dtype) == np.float32 else None)  # the native parser is f32-only
+    if arr is None:
+        warnings.warn("native range parser unavailable: load_matrix_rows is falling back to "
+                      "parsing the WHOLE matrix file and slicing; the host-sharded-loading "
+                      "memory guarantee does not hold on this host (build "
+                      "native/libfastio.so to restore it)", RuntimeWarning, stacklevel=2)
+        full = _parse_floats(path, np.dtype(dtype))
+        if full.size != n * n:
+            raise ValueError(f"{path!r}: expected {n * n} values, found {full.size}")
+        arr = full[row_start * n:row_stop * n]
+    return arr.astype(dtype, copy=False).reshape(row_stop - row_start, n)
 
 
 def save_array(path: str, arr: np.ndarray, fmt: str = "%.4f") -> None:

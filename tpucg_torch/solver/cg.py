@@ -1679,8 +1679,8 @@ def _fused_eligible(config: CGConfig, op: LinearOperator, backend: str, dtype,
     - ``DiaOperator``, f32 or bf16 slab, none/poly, and jacobi when 0 is
       among the offsets.
 
-    The sparse size caps are the card's own. Where the port's route differs
-    from tpucg's (each pinned by ``tests/test_torch_fused_sparse.py``):
+    The sparse size caps are the card's own. Where the port's route and
+    tpucg's differ (each pinned by ``tests/test_torch_fused_sparse.py``):
 
     - Poisson grids that are not lane-tileable ((m*m) % 128 != 0, e.g.
       m = 10) and 128 < m <= ``FUSED_STENCIL_AUTO_MAX_M`` run K10 here and

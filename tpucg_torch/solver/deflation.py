@@ -20,7 +20,17 @@ or K13 x k on the card, a GEMM for a dense A, as tpucg's vmap runs it.
 recycles each admitted solution into the basis; its state saves to and
 loads from tpucg's ``.npz`` format under the probe-signature guard
 (``solver/checkpoint.py``), and a solve of the sequence can be checkpointed
-(``solve(checkpoint_path=)``). Its distributed form is ROADMAP M14 step 5.
+(``solve(checkpoint_path=)``).
+
+``sharded_cg_solve_deflated`` runs deflated CG over the mesh's ranks:
+W and AW split by rows beside A's rows, the m x m inverse replicated, and
+one ``rank_sum`` of the (m,) coefficients a lap beyond classic sharded CG's
+sums. The dense arm builds the basis on the host in float64 against the
+identity-padded matrix (tpucg's ``_host_basis``); the operator arm
+orthonormalizes V on the host and forms AW with the sharded operator's own
+matvec, one column at a time. ``RecyclingCG(mesh=)`` runs every solve of
+its sequence that way; its checkpointed solve on a mesh is ROADMAP M14 step
+6.
 """
 
 from __future__ import annotations
@@ -32,20 +42,45 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from tpucg_torch.comm.mesh import make_mesh
 from tpucg_torch.config import CGConfig
+from tpucg_torch.io.partitioner import RowPartition, pad_identity_tail
+from tpucg_torch.kernels.dispatch import resolve_backend
 from tpucg_torch.solver.cg import (
     TRUE_CHECK_EVERY,
     CGResult,
+    TorchLap,
     _configure,
     _solve_operator,
     block_jacobi_minv,
     cg_loop,
     cg_solve,
+    invert_blocks,
     lap_ops,
     make_block_precond,
     make_poly_precond,
+    make_precond,
 )
 from tpucg_torch.solver.checkpoint import signatures_match, system_signature
+from tpucg_torch.solver.sharded import (
+    ROW_ALIGN,
+    _check_supported,
+    _dense_matvec,
+    _gather_rows,
+    _host,
+    _local_diag_blocks,
+    _operator_matvec,
+    _own_square,
+    _prepare_sharded_operator,
+    _reductions,
+    check_1d,
+    distribute_system,
+    is_operator,
+    operator_rhs,
+    pc_align,
+    sharded_cg_solve,
+    sharded_operator_cg_solve,
+)
 
 # Residual replacement in the deflation x two-level recurrence: off, as in
 # tpucg (measured there to grow the iterate exponentially past the f32
@@ -68,6 +103,17 @@ class DeflationBasis(NamedTuple):
         return int(self.W.shape[1])
 
 
+def _orthonormal(V) -> np.ndarray:
+    """An orthonormal float64 basis of the columns of V (n, m) by a float64
+    SVD, directions below 1e-6 of the largest singular value pruned
+    (tpucg's rank-revealing step)."""
+    U, s, _ = np.linalg.svd(np.asarray(V, np.float64), full_matrices=False)
+    keep = s > max(1e-6 * (s[0] if s.size else 0.0), 1e-30)
+    if not keep.any():
+        raise ValueError("V has no usable directions (all ~zero)")
+    return U[:, keep]
+
+
 def build_deflation_basis(A, V, kernel: str = "auto", *, device=None) -> DeflationBasis:
     """A-orthonormalize the columns of ``V`` (n, m) into a ``DeflationBasis``
     for ``A`` (tpucg's): a host float64 SVD of V (directions below 1e-6 of
@@ -82,11 +128,7 @@ def build_deflation_basis(A, V, kernel: str = "auto", *, device=None) -> Deflati
         V = V[:, None]
     if V.shape[0] != op.n:
         raise ValueError(f"V must have {op.n} rows, got {V.shape}")
-    U, s, _ = np.linalg.svd(V, full_matrices=False)
-    keep = s > max(1e-6 * (s[0] if s.size else 0.0), 1e-30)
-    if not keep.any():
-        raise ValueError("V has no usable directions (all ~zero)")
-    W = np.ascontiguousarray(U[:, keep], dtype=np.float32)
+    W = np.ascontiguousarray(_orthonormal(V), dtype=np.float32)
     npad = op.padded_n
     if npad != op.n:
         W = np.pad(W, ((0, npad - op.n), (0, 0)))
@@ -226,14 +268,166 @@ def cg_solve_deflated(
     return res._replace(x=res.x[:n])
 
 
+def _host_basis(Apad: np.ndarray, Vpad: np.ndarray):
+    """The dense arm's basis on the host (tpucg's ``_host_basis``): V
+    orthonormalized by a float64 SVD (directions below 1e-6 of the largest
+    singular value pruned), AW = A W and (W^T A W)^-1 in float64 against
+    the identity-padded A, each cast to f32 once."""
+    W = _orthonormal(Vpad)
+    AW = np.asarray(Apad, np.float64) @ W
+    G = W.T @ AW
+    Ginv = np.linalg.inv(0.5 * (G + G.T))
+    return W.astype(np.float32), AW.astype(np.float32), Ginv.astype(np.float32)
+
+
+def _host_stack(V, n: int) -> np.ndarray:
+    """V (n,) or (n, m) as a host f32 (n, m) stack."""
+    V = _host(V)
+    if V.ndim == 1:
+        V = V[:, None]
+    if V.shape[0] != n:
+        raise ValueError(f"V must have {n} rows, got {V.shape}")
+    return V
+
+
+def _sharded_deflated_run(matvec, mesh, backend, b_blk, x0_blk, W, AW, Ginv, minv,
+                          config: CGConfig, maxiter: int, chunk) -> CGResult:
+    """tpucg's ``_sharded_deflated_jit`` body on this rank's rows: the base
+    preconditioner, the Galerkin warm start and ``cg_loop`` with the
+    deflation folded into ``precond``; ``W`` and ``AW`` are the rank's rows
+    (f32 (blk, m) on its device), ``Ginv`` the replicated (m, m). A
+    projection is one ``rank_sum`` of the rank's (m,) product AW^T z.
+    ``converged`` is the loop's flag, as tpucg's."""
+    red = _reductions(mesh, backend, b_blk)
+    base = make_precond(config.precondition, minv, matvec, red.dot, b_blk, config.poly_degree)
+
+    def deflate(z):
+        c = mesh.rank_sum(torch.mv(AW.T, z))
+        return z - torch.mv(W, torch.mv(Ginv, c))
+
+    def precond(r, act=None):
+        return deflate(r if base is None else base(r, act))
+    r0 = b_blk - matvec(x0_blk, None)
+    x0_blk = x0_blk + torch.mv(W, torch.mv(Ginv, mesh.rank_sum(torch.mv(W.T, r0))))
+    s = cg_loop(matvec, red.dot, TorchLap(red.dot, red.update), b_blk, x0_blk,
+                tol=float(config.tol), maxiter=maxiter, safe_alpha=bool(config.safe_alpha),
+                precond=precond, chunk=chunk)
+    return CGResult(x=_gather_rows(mesh, s.x), iterations=s.k, residual_norm=s.rslast.sqrt(),
+                    converged=s.done)
+
+
+def sharded_cg_solve_deflated(
+    A,
+    b,
+    V,
+    x0=None,
+    mesh=None,
+    config: Optional[CGConfig] = None,
+    *,
+    chunk: Optional[int] = None,
+    **overrides,
+) -> CGResult:
+    """Deflated CG with A's rows in blocks over the mesh's ranks (tpucg's
+    ``sharded_cg_solve_deflated``, ``deflation.py:727``): W and AW split by
+    rows beside A's, the m x m inverse replicated, one extra ``rank_sum``
+    of m values a lap.
+
+    A dense ``A`` (whole, on the host) takes ``sharded_cg_solve``'s
+    strategies and preconditioners (none, jacobi, block_jacobi, poly); its
+    basis is built on the host in float64 against the identity-padded A
+    (``_host_basis``). A sparse or stencil operator (Poisson slabs, DIA band
+    halos, ELL, BSR, a CSR as sharded WELL, a ``WellShardedSystem``) takes
+    ``sharded_operator_cg_solve``'s decompositions with precondition none,
+    jacobi or poly; V is orthonormalized on the host, AW formed by the
+    sharded matvec (one column at a time) and (W^T A W)^-1 inverted in
+    float64. Method cg, float32; x whole on every rank."""
+    config = _configure(config, overrides)
+    if config.method != "cg":
+        raise ValueError(f"sharded_cg_solve_deflated supports method='cg' (got {config.method!r})")
+    mesh = make_mesh() if mesh is None else mesh
+    check_1d(mesh)
+    _check_supported(config)
+    backend = resolve_backend(config.kernel, mesh.device)
+    if is_operator(A):
+        return _sharded_operator_deflated(A, b, V, x0, mesh, config, backend, chunk)
+    A = _host(A)
+    n = A.shape[0]
+    part = RowPartition(n=n, num_shards=mesh.size, align=pc_align(ROW_ALIGN, config))
+    npad, blk = part.n_padded, part.block_rows
+    V = _host_stack(V, n)
+    Vpad = np.pad(V, ((0, npad - n), (0, 0))) if npad != n else V
+    W, AW, Ginv = _host_basis(pad_identity_tail(A, npad), Vpad)
+    system = distribute_system(A, b, x0, mesh, part, strategy=config.strategy)
+    matvec = _dense_matvec(system.A, system.strategy, mesh, backend)
+    minv = None
+    if config.precondition == "jacobi":
+        d = torch.diagonal(_own_square(system)).to(torch.float32)
+        minv = torch.where(d != 0, 1.0 / d, 1.0)
+    elif config.precondition == "block_jacobi":
+        minv = invert_blocks(_local_diag_blocks(system, int(config.pc_block_size)))
+    r0 = mesh.rank * blk
+
+    def rows(a):
+        return torch.from_numpy(np.ascontiguousarray(a[r0:r0 + blk])).to(mesh.device)
+    res = _sharded_deflated_run(
+        matvec, mesh, backend, system.b, system.x0, rows(W), rows(AW),
+        torch.from_numpy(Ginv).to(mesh.device), minv, config,
+        int(config.maxiter if config.maxiter is not None else n), chunk)
+    return res._replace(x=res.x[:n])
+
+
+def _sharded_operator_deflated(op, b, V, x0, mesh, config: CGConfig, backend: str,
+                               chunk) -> CGResult:
+    """The operator arm of ``sharded_cg_solve_deflated`` (tpucg's
+    ``_sharded_operator_deflated``, ``deflation.py:631``): W from a float64
+    SVD of the padded V on the host, AW from the sharded matvec of each
+    column of the rank's rows of W, gathered whole, then G = W^T AW and its
+    inverse in float64 (tpucg's explicit-inverse scheme)."""
+    if config.precondition not in ("none", "jacobi", "poly"):
+        raise ValueError("deflated CG on sharded sparse operators supports precondition in "
+                         "{'none', 'jacobi', 'poly'} (block Jacobi on sharded sparse operators "
+                         "is unimplemented, matching sharded_operator_cg_solve)")
+    sop = _prepare_sharded_operator(op, mesh, config)
+    n, npad = sop.n, sop.npad
+    blk = npad // mesh.size
+    V = _host_stack(V, n)
+    Vpad = np.pad(V, ((0, npad - n), (0, 0))) if npad != n else V
+    W = np.ascontiguousarray(_orthonormal(Vpad), dtype=np.float32)
+    b_blk, x0_blk = operator_rhs(op, sop, b, x0, mesh)
+    matvec = _operator_matvec(sop, mesh, backend)
+    r0 = mesh.rank * blk
+    W_blk = torch.from_numpy(np.ascontiguousarray(W[r0:r0 + blk])).to(mesh.device)
+    AW_blk = torch.stack([matvec(W_blk[:, j].contiguous(), None)
+                          for j in range(W.shape[1])], dim=1)
+    AW = _gather_rows(mesh, AW_blk).cpu().numpy()
+    G = W.astype(np.float64).T @ AW.astype(np.float64)
+    Ginv = np.linalg.inv(0.5 * (G + G.T)).astype(np.float32)
+    minv = None
+    if config.precondition == "jacobi":
+        minv = torch.where(sop.diag != 0, 1.0 / sop.diag, 1.0)
+    res = _sharded_deflated_run(
+        matvec, mesh, backend, b_blk, x0_blk, W_blk, AW_blk,
+        torch.from_numpy(Ginv).to(mesh.device), minv, config,
+        int(config.maxiter if config.maxiter is not None else n), chunk)
+    return res._replace(x=res.x[:n])
+
+
 class RecyclingCG:
     """Solve a sequence of systems with one operator, recycling solutions
-    (tpucg's ``RecyclingCG``, serial). Each solution that converged, or that
-    got below 0.1 ||b|| (an honest stop at the f32 floor), joins the basis
+    (tpucg's ``RecyclingCG``). Each solution that converged, or that got
+    below 0.1 ||b|| (an honest stop at the f32 floor), joins the basis
     (FIFO, at most ``max_vectors``); later solves deflate with it. The basis
     is rebuilt (``build_deflation_basis``) when a vector is admitted.
     ``two_level`` is the base preconditioner of every solve. ``device`` and
     the config's ``kernel`` resolve as in ``cg_solve``.
+
+    With ``mesh`` every solve runs distributed (tpucg's ``_solve_sharded``):
+    ``sharded_cg_solve_deflated`` on the stack once it holds a vector,
+    before that ``sharded_operator_cg_solve`` (an operator) or
+    ``sharded_cg_solve`` (a dense A), the basis rebuilt by each deflated
+    solve from the stack; ``two_level`` with ``mesh`` is tpucg's
+    ``ValueError`` and ``solve(checkpoint_path=)`` on a mesh is ROADMAP M14
+    step 6.
 
     >>> rec = RecyclingCG(A, max_vectors=4)
     >>> for b in rhs_sequence:
@@ -243,11 +437,16 @@ class RecyclingCG:
     def __init__(self, A, max_vectors: int = 8, mesh=None,
                  config: Optional[CGConfig] = None, two_level=None, *, device=None,
                  **overrides):
-        if mesh is not None:
-            raise NotImplementedError("RecyclingCG(mesh=...) (distributed recycling) is ROADMAP "
-                                      "M14 step 5")
+        if two_level is not None and mesh is not None:
+            raise ValueError("RecyclingCG(two_level=...) is serial-only (compose the sharded arms "
+                             "explicitly via sharded_operator_cg_solve)")
         self.config = _configure(config, overrides)
-        self.op, _, self.device = _solve_operator(A, self.config.kernel, device)
+        self.mesh = mesh
+        if mesh is None:
+            self.op, _, self.device = _solve_operator(A, self.config.kernel, device)
+        else:
+            check_1d(mesh)
+            self.op, self.device = None, mesh.device
         self.A = A
         self.two_level = two_level
         self.max_vectors = int(max_vectors)
@@ -256,7 +455,7 @@ class RecyclingCG:
 
     def _rebuild(self) -> None:
         self._basis = None
-        if self._vectors:
+        if self._vectors and self.mesh is None:
             self._basis = build_deflation_basis(self.op, np.stack(self._vectors, axis=1),
                                                 kernel=self.config.kernel, device=self.device)
 
@@ -268,6 +467,9 @@ class RecyclingCG:
         without it. With ``save_state``/``load_state`` an interrupted
         sequence resumes warm: the stack restores the deflation space, the
         file the solve in flight."""
+        if checkpoint_path is not None and self.mesh is not None:
+            raise NotImplementedError("RecyclingCG.solve(checkpoint_path=) on a mesh (the "
+                                      "multi-process checkpoint) is ROADMAP M14 step 6")
         if checkpoint_path is not None:
             from tpucg_torch.solver.checkpoint import cg_solve_checkpointed
 
@@ -275,6 +477,8 @@ class RecyclingCG:
                                         checkpoint_path=checkpoint_path,
                                         segment_iters=segment_iters, two_level=self.two_level,
                                         basis=self._basis, device=self.device)
+        elif self.mesh is not None:
+            res = self._solve_sharded(b, x0)
         elif self._basis is not None:
             res = cg_solve_deflated(self.op, b, basis=self._basis, x0=x0, config=self.config,
                                     two_level=self.two_level, device=self.device)
@@ -289,8 +493,17 @@ class RecyclingCG:
             self._rebuild()
         return res
 
+    def _solve_sharded(self, b, x0) -> CGResult:
+        if self._vectors:
+            return sharded_cg_solve_deflated(self.A, b, np.stack(self._vectors, axis=1), x0=x0,
+                                             mesh=self.mesh, config=self.config)
+        if is_operator(self.A):
+            return sharded_operator_cg_solve(self.A, b, x0, mesh=self.mesh, config=self.config)
+        return sharded_cg_solve(self.A, b, x0, mesh=self.mesh, config=self.config)
+
     def _signature(self) -> np.ndarray:
-        return system_signature(self.op, np.zeros(self.op.padded_n, np.float32))
+        op = self.op if self.op is not None else _solve_operator(self.A, "auto", "cpu")[0]
+        return system_signature(op, np.zeros(op.padded_n, np.float32))
 
     def save_state(self, path: str) -> None:
         """The recycled stack as an atomic ``.npz`` (tpucg's format: ``V``

@@ -14,6 +14,11 @@ the normalised residual to a relative tolerance; each round ends with one
 f32 true residual (K1 with f32 A). The host reads one flag a round, beside
 the inner loop's reads once a chunk. Both copies of A stay on the device
 (1.5x the f32 bytes).
+
+``sharded_cg_solve_ir`` refines over the mesh's ranks: a bf16 and an f32
+copy of each rank's row block, the inner laps on the bf16 block's sharded
+matvec (K1's bf16 form) with rank-summed dots, the true residual on the f32
+block's (K1's f32 form).
 """
 
 from __future__ import annotations
@@ -23,10 +28,22 @@ from typing import Callable, NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from tpucg_torch.comm.mesh import make_mesh
 from tpucg_torch.config import CGConfig
+from tpucg_torch.io.partitioner import RowPartition
 from tpucg_torch.kernels.dispatch import canonical_device, resolve_backend
-from tpucg_torch.solver.cg import CGResult, _configure, cg_loop, lap_ops
+from tpucg_torch.solver.cg import CGResult, TorchLap, _configure, cg_loop, lap_ops
 from tpucg_torch.solver.operators import DenseOperator
+from tpucg_torch.solver.sharded import (
+    ROW_ALIGN,
+    _check_supported,
+    _dense_matvec,
+    _gather_rows,
+    _host,
+    _reductions,
+    check_1d,
+    distribute_system,
+)
 
 
 class _IRState(NamedTuple):
@@ -134,3 +151,56 @@ def cg_solve_ir(
                 max_refine=int(max_refine))
     return CGResult(x=s.x[:n], iterations=s.inner_total, residual_norm=s.rr.sqrt(),
                     converged=s.done)
+
+
+def sharded_cg_solve_ir(
+    A,
+    b,
+    x0=None,
+    mesh=None,
+    config: Optional[CGConfig] = None,
+    *,
+    inner_rtol: float = 3.0e-2,
+    inner_maxiter: Optional[int] = None,
+    max_refine: int = 6,
+    chunk: Optional[int] = None,
+    **overrides,
+) -> CGResult:
+    """Mixed-precision refinement with A's rows in blocks over the mesh's
+    ranks (tpucg's ``sharded_cg_solve_ir``, ``ir.py:228``): a bf16 and an
+    f32 copy of each rank's block (``distribute_system``, rows in multiples
+    of ``ROW_ALIGN``, ``strategy`` allgather or overlap), the inner laps of
+    ``ir_loop`` on the bf16 block's sharded matvec with rank-summed dots,
+    the true residual on the f32 block's. ``cg_solve_ir``'s contract and
+    options; method cg and precondition none only, as tpucg's. x whole on
+    every rank."""
+    config = _configure(config, overrides)
+    if config.method != "cg" or config.precondition != "none":
+        raise ValueError("sharded_cg_solve_ir supports method='cg', precondition='none'")
+    mesh = make_mesh() if mesh is None else mesh
+    check_1d(mesh)
+    _check_supported(config)
+    backend = resolve_backend(config.kernel, mesh.device)
+    A = _host(A)
+    n = A.shape[0]
+    part = RowPartition(n=n, num_shards=mesh.size, align=ROW_ALIGN)
+    sys16, sys32 = (distribute_system(A, b, x0, mesh, part, strategy=config.strategy,
+                                      storage_dtype=dt)
+                    for dt in (torch.bfloat16, torch.float32))
+    mv16 = _dense_matvec(sys16.A, config.strategy, mesh, backend)
+    mv32 = _dense_matvec(sys32.A, config.strategy, mesh, backend)
+    del sys16
+    red = _reductions(mesh, backend, sys32.b)
+    lap = TorchLap(red.dot, red.update)
+    # config.maxiter caps each inner solve (tpucg's rule); inner_maxiter
+    # overrides it.
+    inner_cap = int(inner_maxiter if inner_maxiter is not None
+                    else config.maxiter if config.maxiter is not None else n)
+
+    def inner(rhs):
+        return cg_loop(mv16, red.dot, lap, rhs, torch.zeros_like(rhs), tol=float(inner_rtol),
+                       maxiter=inner_cap, chunk=chunk)
+    s = ir_loop(lambda x: mv32(x, None), red.dot, inner, sys32.b, sys32.x0,
+                tol=float(config.tol), max_refine=int(max_refine))
+    return CGResult(x=_gather_rows(mesh, s.x)[:n], iterations=s.inner_total,
+                    residual_norm=s.rr.sqrt(), converged=s.done)

@@ -1,5 +1,5 @@
 """MINRES for symmetric indefinite systems (the counterpart of
-``tpucg.solver.minres``), serial.
+``tpucg.solver.minres``), serial and over the mesh's ranks.
 
 CG needs SPD A; MINRES (Paige and Saunders 1975) minimizes ||b - A x|| over
 the same Krylov space with a Lanczos three-term recurrence and Givens
@@ -17,6 +17,11 @@ untriggered lap's pair returns at once on the card; ``done`` is taken from
 the confirmation only where that flag is set. ``converged`` is recomputed
 from the true residual at the end.
 
+``sharded_minres_solve`` runs the same loop on a rank's rows with the
+sharded closures (its two dots a lap and the confirmation's each one
+``rank_sum``): a dense A with the allgather or overlap exchange, or a
+sparse operator with ``sharded_operator_cg_solve``'s decompositions.
+
 tpucg's ``kernel="auto"`` sends Jacobi-preconditioned dense MINRES to its
 XLA GEMV (``tpucg/solver/minres.py:526-535``, a TPU fusion cliff); the port
 keeps K1 there (ROADMAP's intended differences).
@@ -29,7 +34,10 @@ from typing import Callable, NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from tpucg_torch.comm.mesh import make_mesh
 from tpucg_torch.config import CGConfig
+from tpucg_torch.io.partitioner import RowPartition
+from tpucg_torch.kernels.dispatch import resolve_backend
 from tpucg_torch.solver.cg import (
     CGResult,
     _configure,
@@ -37,6 +45,22 @@ from tpucg_torch.solver.cg import (
     lap_ops,
     make_block_precond,
     run_chunks,
+)
+from tpucg_torch.solver.sharded import (
+    ROW_ALIGN,
+    _check_supported,
+    _dense_matvec,
+    _gather_rows,
+    _host,
+    _local_diag_blocks,
+    _operator_matvec,
+    _own_square,
+    _prepare_sharded_operator,
+    _reductions,
+    check_1d,
+    distribute_system,
+    is_operator,
+    operator_rhs,
 )
 
 
@@ -201,3 +225,72 @@ def minres_solve(A, b, x0=None, config: Optional[CGConfig] = None, *, device=Non
     rr = dot(r, r, None)
     return CGResult(x=s.x[:n], iterations=s.k, residual_norm=rr.sqrt(),
                     converged=rr < torch.tensor(tol, device=device) ** 2)
+
+
+def sharded_minres_solve(A, b=None, x0=None, mesh=None, config: Optional[CGConfig] = None, *,
+                         chunk: Optional[int] = None, **overrides) -> CGResult:
+    """MINRES with A's rows in blocks over the mesh's ranks (tpucg's
+    ``sharded_minres_solve``, ``minres.py:381``): ``minres_loop`` on the
+    rank's rows with the sharded matvec and rank-summed dots, the true
+    residual recomputed at the end (``converged`` is ||b - A x|| < tol).
+
+    A dense ``A`` (whole, on the host; tpucg's ``_sharded_minres_jit``) is
+    split by ``distribute_system`` with rows in multiples of ``ROW_ALIGN``
+    and runs ``strategy`` allgather or overlap; ``precondition`` none,
+    jacobi (1 / |diag A| of the rank's rows) or block_jacobi (its own
+    diagonal blocks, ``abs_inv_blocks``; ``pc_block_size`` must divide a
+    rank's rows). A sparse or stencil operator (tpucg's
+    ``_sharded_operator_minres``) takes ``sharded_operator_cg_solve``'s
+    decompositions with precondition none or jacobi (1 / |diag|); a
+    ``WellShardedSystem``'s b and x0 are its own unless given. x whole on
+    every rank."""
+    config = _configure(config, overrides)
+    if config.method != "cg":
+        raise ValueError("sharded_minres_solve has no method variants")
+    if config.precondition not in ("none", "jacobi", "block_jacobi"):
+        raise ValueError("sharded_minres_solve supports precondition in {'none', 'jacobi', "
+                         "'block_jacobi'} (M must be SPD)")
+    mesh = make_mesh() if mesh is None else mesh
+    check_1d(mesh)
+    _check_supported(config)
+    backend = resolve_backend(config.kernel, mesh.device)
+    minv = None
+    if is_operator(A):
+        if config.precondition == "block_jacobi":
+            raise ValueError("sharded MINRES on sparse operators supports precondition 'none' or "
+                             "'jacobi' (block Jacobi on sharded sparse operators is "
+                             "unimplemented, matching sharded_operator_cg_solve)")
+        sop = _prepare_sharded_operator(A, mesh, config)
+        n, blk = sop.n, sop.npad // mesh.size
+        b_blk, x0_blk = operator_rhs(A, sop, b, x0, mesh)
+        matvec = _operator_matvec(sop, mesh, backend)
+        if config.precondition == "jacobi":
+            minv = torch.where(sop.diag != 0, 1.0 / sop.diag, 1.0).abs()
+    else:
+        if b is None:
+            raise ValueError("b is required")
+        A = _host(A)
+        n = A.shape[0]
+        part = RowPartition(n=n, num_shards=mesh.size, align=ROW_ALIGN)
+        blk = part.block_rows
+        if config.precondition == "block_jacobi" and blk % int(config.pc_block_size):
+            raise ValueError(f"pc_block_size={config.pc_block_size} must divide each shard's "
+                             f"block ({blk} rows)")
+        system = distribute_system(A, b, x0, mesh, part, strategy=config.strategy)
+        b_blk, x0_blk = system.b, system.x0
+        matvec = _dense_matvec(system.A, system.strategy, mesh, backend)
+        if config.precondition == "jacobi":
+            # 1 / |d|: an SPD M for an indefinite diagonal.
+            d = torch.diagonal(_own_square(system)).to(torch.float32)
+            minv = torch.where(d != 0, 1.0 / d, 1.0).abs()
+        elif config.precondition == "block_jacobi":
+            minv = abs_inv_blocks(_local_diag_blocks(system, int(config.pc_block_size)))
+    red = _reductions(mesh, backend, b_blk)
+    tol = float(config.tol)
+    s = minres_loop(matvec, red.dot, b_blk, x0_blk, tol=tol,
+                    maxiter=int(config.maxiter if config.maxiter is not None else n),
+                    psolve=_make_minres_psolve(minv, blk), chunk=chunk)
+    r = b_blk - matvec(s.x, None)
+    rr = red.dot(r, r, None)
+    return CGResult(x=_gather_rows(mesh, s.x)[:n], iterations=s.k, residual_norm=rr.sqrt(),
+                    converged=rr < torch.tensor(tol, device=rr.device) ** 2)

@@ -44,9 +44,19 @@ collective. ``sharded_cg_solve_multi`` and ``sharded_cg_solve_block`` run k
 right-hand sides on one (blk, k) product a lap: one gather of the direction
 block (or a (halo, k) exchange) and the rank's rows of A times it.
 
-``x`` comes back whole on every rank. 2-D meshes (M14 step 7), the
-two-level preconditioner (step 5) and the multi-process checkpoint (step 6)
-name their ROADMAP item.
+The two-level cycle (``two_level=``) runs on the operator split: the
+smoother and the cycle's products on the rank's rows, restriction and
+prolongation on its own aggregates, one gather of the coarse residuals a
+cycle and the coarse inverse replicated.
+
+Host-sharded loading: ``load_system_sharded`` (a dense text or ``.npy``
+matrix) and ``load_well_system_sharded`` (an indexed ``.mtx``) have each
+rank read only its own rows and place its block; no rank holds the whole
+matrix, where the reference's rank 0 reads it all
+(``parallel_cg.c:100-108``).
+
+``x`` comes back whole on every rank. 2-D meshes (M14 step 7) and the
+multi-process checkpoint (step 6) name their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -99,6 +109,7 @@ from tpucg_torch.kernels.stencil import (
 )
 from tpucg_torch.solver.cg import (
     BLOCK_CG_MAX_K,
+    TRUE_CHECK_EVERY,
     CGResult,
     TorchLap,
     _configure,
@@ -120,6 +131,7 @@ from tpucg_torch.solver.operators import (
     EllOperator,
     PoissonOperator,
 )
+from tpucg_torch.solver.twolevel import build_two_level_from_parts, make_two_level_precond_sharded
 
 STRATEGIES = ("allgather", "overlap")
 _F32 = torch.float32
@@ -154,7 +166,16 @@ def _interval_static(interval, config: CGConfig):
     return (float(interval[0]), float(interval[1]))
 
 
-def _check_supported(config: CGConfig, interval=None, two_level=None,
+def check_1d(mesh) -> None:
+    """The port's meshes are the 1-D row axis (``Mesh``); tpucg's 2-D mesh
+    (``make_mesh2d``, the SUMMA decomposition) is ROADMAP M14 step 7."""
+    if not isinstance(mesh, Mesh):
+        raise NotImplementedError(f"a 2-D mesh (tpucg's make_mesh2d, the SUMMA decomposition) is "
+                                  f"ROADMAP M14 step 7; the port's meshes are 1-D (Mesh), got "
+                                  f"{type(mesh).__name__}")
+
+
+def _check_supported(config: CGConfig, interval=None,
                      record_residuals: bool = False) -> None:
     if record_residuals and config.method != "cg":
         raise ValueError("record_residuals requires method='cg'")
@@ -165,8 +186,6 @@ def _check_supported(config: CGConfig, interval=None, two_level=None,
         raise ValueError(f"sharded solves are float32 (tpucg's run f32 whatever config.dtype "
                          f"says); got dtype={config.dtype}: use cg_solve for a float64 solve")
     _interval_static(interval, config)
-    if two_level is not None:
-        raise NotImplementedError("two_level= (distributed two-level PCG) is ROADMAP M14 step 5")
 
 
 # --- the lap's closures ------------------------------------------------------
@@ -546,22 +565,33 @@ def _operator_matvec_batched(sop: _ShardedOperator, mesh: Mesh, backend: str) ->
 
 
 def _solve(matvec, mesh: Mesh, backend: str, b_blk, x0_blk, diag, blocks, config: CGConfig,
-           maxiter: int, record_residuals: bool, chunk, interval, cg_converged: str) -> CGResult:
+           maxiter: int, record_residuals: bool, chunk, interval, cg_converged: str,
+           two_level=None) -> CGResult:
     """The method's loop on this rank's block with the sharded closures
     (``cg_loop`` for ``"cg"``, ``run_method`` for the others, as
     ``cg_solve`` runs them); x gathered whole (padded length). ``diag`` is
     Jacobi's diagonal and ``blocks`` block Jacobi's raw diagonal blocks,
-    both this rank's. A cg solve's ``converged`` is ``cg_converged``:
-    ``"done"`` (the dense solve's, tpucg's loop flag) or ``"rr"`` (the
-    operator solve's, r.r < tol^2)."""
+    both this rank's. ``two_level`` is the cycle of
+    ``make_two_level_precond_sharded``; classic CG then stops on the true
+    residual every ``TRUE_CHECK_EVERY`` laps (tpucg's ``sharded.py:1410``).
+    A cg solve's ``converged`` is ``cg_converged``: ``"done"`` (the dense
+    solve's, tpucg's loop flag) or ``"rr"`` (the operator solve's, r.r <
+    tol^2)."""
     red = _reductions(mesh, backend, b_blk)
     minv = None
     if config.precondition == "jacobi":
         minv = torch.where(diag != 0, 1.0 / diag, 1.0)
     elif config.precondition == "block_jacobi":
         minv = invert_blocks(blocks)
-    precond = make_precond(config.precondition, minv, matvec, red.dot, b_blk,
-                           config.poly_degree)
+    if two_level is not None:
+        # The hierarchy's vectors are whole on every rank: its dots are this
+        # rank's alone (K3's checked wrapper, or its plain version).
+        one = dot_cuda if backend == "cuda" else dot_torch
+        precond = make_two_level_precond_sharded(two_level, matvec, red.dot, b_blk, mesh,
+                                                 lambda u, v, act=None: one(u, v))
+    else:
+        precond = make_precond(config.precondition, minv, matvec, red.dot, b_blk,
+                               config.poly_degree)
     if config.method != "cg":
         x, k, rn, done = run_method(config, matvec, red.dot, red.dots, red.gram, b_blk, x0_blk,
                                     maxiter=maxiter, precond=precond,
@@ -571,7 +601,8 @@ def _solve(matvec, mesh: Mesh, backend: str, b_blk, x0_blk, diag, blocks, config
     s = cg_loop(matvec, red.dot, TorchLap(red.dot, red.update), b_blk, x0_blk,
                 tol=float(config.tol), maxiter=maxiter,
                 safe_alpha=bool(config.safe_alpha), precond=precond,
-                hist_len=maxiter if record_residuals else None, chunk=chunk)
+                hist_len=maxiter if record_residuals else None, chunk=chunk,
+                check_true_every=TRUE_CHECK_EVERY if two_level is not None else None)
     if cg_converged == "rr":
         converged = s.rslast < torch.tensor(float(config.tol), dtype=_F32,
                                             device=b_blk.device) ** 2
@@ -603,13 +634,12 @@ class DistributedSystem:
     size: int
 
 
-def _row_block(A: np.ndarray, n: int, npad: int, r0: int, r1: int) -> np.ndarray:
+def _row_block(rows: np.ndarray, n: int, npad: int, r0: int, r1: int) -> np.ndarray:
     """Rows [r0, r1) of A padded to npad with its identity tail, without the
-    padded whole (tpucg's ``load_system_sharded`` block, ``sharded.py:2473``)."""
+    padded whole (tpucg's ``load_system_sharded`` block, ``sharded.py:2473``);
+    ``rows`` are A's rows [r0, min(r1, n))."""
     block = np.zeros((r1 - r0, npad), dtype=np.float32)
-    top = min(r1, n)
-    if top > r0:
-        block[: top - r0, :n] = A[r0:top]
+    block[: rows.shape[0], :n] = rows
     for i in range(max(r0, n), r1):
         block[i - r0, i] = 1.0
     return block
@@ -620,16 +650,19 @@ def _host(v, dtype=np.float32) -> np.ndarray:
     return np.asarray(v.detach().cpu() if isinstance(v, torch.Tensor) else v, dtype)
 
 
+def _host_vector(v, n: int, name: str):
+    """``v`` (or None) as a host f32 vector of length n."""
+    if v is None:
+        return None
+    v = _host(v)
+    if v.shape != (n,):
+        raise ValueError(f"{name} must have shape ({n},), got {v.shape}")
+    return v
+
+
 def _host_rhs(b, x0, n: int):
     """b and x0 (or None) as host f32 vectors of length n."""
-    b = _host(b)
-    if b.shape != (n,):
-        raise ValueError(f"b must have shape ({n},), got {b.shape}")
-    if x0 is not None:
-        x0 = _host(x0)
-        if x0.shape != (n,):
-            raise ValueError(f"x0 must have shape ({n},), got {x0.shape}")
-    return b, x0
+    return _host_vector(b, n, "b"), _host_vector(x0, n, "x0")
 
 
 def _padded_block(v, n: int, npad: int, r0: int, r1: int) -> np.ndarray:
@@ -664,12 +697,21 @@ def distribute_system(A, b, x0=None, mesh: Optional[Mesh] = None,
         part = RowPartition(n=n, num_shards=mesh.size, align=align)
     if part.n != n or part.num_shards != mesh.size or part.block_rows % ROW_ALIGN:
         raise ValueError(f"{part} does not partition n={n} over {mesh.size} ranks in rows of 8")
-    npad, blk = part.n_padded, part.block_rows
     r0, r1 = part.row_range(mesh.rank)
-    block = _row_block(A, n, npad, r0, r1)
+    b, x0 = _host_rhs(b, x0, n)
+    return _place(A[r0:min(r1, n)], b, x0, part, strategy, mesh, storage_dtype)
+
+
+def _place(rows: np.ndarray, b, x0, part: RowPartition, strategy: str, mesh: Mesh,
+           storage_dtype=torch.float32) -> DistributedSystem:
+    """This rank's ``DistributedSystem`` from A's rows [r0, min(r1, n)) and
+    the whole b and x0 (or None): the block padded with its identity tail,
+    laid out for ``strategy``, placed on the mesh's device."""
+    n, npad, blk = part.n, part.n_padded, part.block_rows
+    r0, r1 = part.row_range(mesh.rank)
+    block = _row_block(rows, n, npad, r0, r1)
     if strategy == "overlap":
         block = np.ascontiguousarray(block.reshape(blk, mesh.size, blk).transpose(1, 0, 2))
-    b, x0 = _host_rhs(b, x0, n)
     dev = mesh.device
     return DistributedSystem(
         A=torch.from_numpy(block).to(device=dev, dtype=storage_dtype),
@@ -677,6 +719,40 @@ def distribute_system(A, b, x0=None, mesh: Optional[Mesh] = None,
         x0=torch.from_numpy(_padded_block(x0, n, npad, r0, r1)).to(dev),
         n=n, part=part, strategy=strategy, rank=mesh.rank, size=mesh.size,
     )
+
+
+def load_system_sharded(matrix_path: str, rhs_path: str, x0_path: Optional[str] = None,
+                        mesh: Optional[Mesh] = None, kernel: str = "auto",
+                        strategy: str = "allgather",
+                        config: Optional[CGConfig] = None) -> DistributedSystem:
+    """Host-sharded loading of a dense system (tpucg's
+    ``load_system_sharded``, ``sharded.py:2441``): this rank parses only its
+    own rows of the matrix file (``load_matrix_rows``: the native range
+    parser on f32 text, a memory map on ``.npy``) and places its
+    ``DistributedSystem``, which ``sharded_cg_solve`` takes as it is. No
+    rank holds the whole of A; each holds the O(n) b and x0. The row
+    alignment and identity tail are ``distribute_system``'s, so the result
+    equals ``distribute_system(*load_system(...))`` bit for bit. Beside
+    tpucg's arguments: ``strategy`` (the port lays a block out by strategy,
+    tpucg does not) and ``config`` (block Jacobi aligns the partition to
+    ``pc_block_size``, as ``distribute_system``'s ``config`` does).
+    ``kernel`` is checked and otherwise unused: every backend aligns rows to
+    ``ROW_ALIGN``."""
+    from tpucg_torch.io.textio import load_matrix_rows, load_vector
+
+    if strategy not in STRATEGIES:
+        raise ValueError(f"unknown strategy {strategy!r}")
+    mesh = make_mesh() if mesh is None else mesh
+    check_1d(mesh)
+    resolve_backend(kernel, mesh.device)
+    b = load_vector(rhs_path)
+    n = int(b.size)
+    x0 = None if x0_path is None else load_vector(x0_path, n=n)
+    align = ROW_ALIGN if config is None else pc_align(ROW_ALIGN, config)
+    part = RowPartition(n=n, num_shards=mesh.size, align=align)
+    r0, r1 = part.row_range(mesh.rank)
+    rows = load_matrix_rows(matrix_path, min(r0, n), min(r1, n), n)
+    return _place(rows, b, x0, part, strategy, mesh)
 
 
 def _own_square(system: DistributedSystem) -> torch.Tensor:
@@ -746,6 +822,7 @@ def sharded_cg_solve(
     config = _configure(config, overrides)
     _check_supported(config, interval, record_residuals=record_residuals)
     mesh = make_mesh() if mesh is None else mesh
+    check_1d(mesh)
     backend = resolve_backend(config.kernel, mesh.device)
     if isinstance(A, DistributedSystem):
         system = A
@@ -858,6 +935,23 @@ def _prepare_sharded_operator(op, mesh: Mesh, config: CGConfig,
     kind_name = type(op).__name__
     if storage_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"storage_dtype must be float32 or bfloat16, got {storage_dtype}")
+    jacobi = config.precondition == "jacobi"
+    bs = int(config.pc_block_size) if config.precondition == "block_jacobi" else None
+    if isinstance(op, WellShardedSystem):
+        # Placed by load_well_system_sharded: nothing to pack or place.
+        if storage_dtype != torch.float32:
+            raise ValueError("storage_dtype=bfloat16 is not supported on pre-sharded WELL systems "
+                             "yet (cast at pack time instead)")
+        if bs is not None:
+            raise ValueError("precondition='block_jacobi' needs the source CSR; pre-sharded WELL "
+                             "systems support 'none'/'jacobi'/two_level")
+        if (op.rank, op.size) != (rank, P) or op.block.arrays[0].device != dev:
+            raise ValueError(f"system was packed for rank {op.rank} of {op.size} shards on "
+                             f"{op.block.arrays[0].device}, the mesh is {mesh!r}")
+        rps = op.statics["rps"]
+        diag = (torch.from_numpy(op.diag[rank * rps:(rank + 1) * rps].copy()).to(dev) if jacobi
+                else None)
+        return dataclasses.replace(op.block, diag=diag)
     if kind_name in ("WellOperator", "WellMatrix"):
         # tpucg's else branch (sharded.py:2388-2392): a serial pack holds no
         # row blocks against global columns.
@@ -868,8 +962,6 @@ def _prepare_sharded_operator(op, mesh: Mesh, config: CGConfig,
         raise ValueError("storage_dtype=bfloat16 is supported for DIA and WELL operators (the "
                          "stencil is matrix-free; ELL/BSR index arrays dominate their "
                          f"footprint), got {kind_name}")
-    jacobi = config.precondition == "jacobi"
-    bs = int(config.pc_block_size) if config.precondition == "block_jacobi" else None
 
     def put(a, dtype=None):
         t = torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -1019,9 +1111,138 @@ def _well_block(csr, mesh: Mesh, jacobi: bool, storage_dtype,
     return dataclasses.replace(sop, blocks=torch.from_numpy(mine).to(mesh.device))
 
 
+@dataclasses.dataclass(frozen=True)
+class WellShardedSystem:
+    """This rank's share of an irregular system loaded host-sharded
+    (tpucg's ``WellShardedSystem``, ``sharded.py:2529``): ``block`` the
+    rank's WELL pack on the mesh's device (a ``"well"`` block as
+    ``sharded_operator_cg_solve`` runs it), ``statics`` its sizes (rps, npad,
+    bg, nsg, and the mesh-wide ``block_sublanes`` and ``n_sublanes``), ``b``
+    and ``x0`` the rank's rows (f32, on the device), ``diag`` the (npad,)
+    f32 operator diagonal (host, summed over the ranks, 1 on the identity
+    tail and where it is 0), ``bytes_read`` the matrix bytes this rank read,
+    ``two_level`` the cycle built from the parts (``two_level_agg``) or
+    None, and ``rank``/``size`` the mesh's."""
+
+    block: "_ShardedOperator"
+    statics: dict
+    n: int
+    npad: int
+    b: torch.Tensor
+    x0: torch.Tensor
+    diag: np.ndarray
+    bytes_read: int
+    two_level: Optional[object]
+    rank: int
+    size: int
+
+
+def load_well_system_sharded(matrix_path: str, rhs_path: Optional[str] = None,
+                             x0_path: Optional[str] = None, mesh: Optional[Mesh] = None,
+                             groups_per_super: int = 64, two_level_agg: Optional[int] = None,
+                             smooth_degree: int = 1) -> WellShardedSystem:
+    """Host-sharded loading of an irregular system (tpucg's
+    ``load_well_system_sharded``, ``sharded.py:2545``): this rank reads only
+    its rows of an indexed general ``.mtx`` (``load_matrix_market_rows``:
+    one byte range; ``build_mm_index`` or ``expand_matrix_market`` index a
+    file once) and packs them into WELL against global columns
+    (``local_rows_to_well_shard``), ``rps = ceil(n / (P 128)) 128`` rows a
+    rank; a rank wholly in the identity tail packs an empty COO. Two
+    agreements over the ranks (``Mesh.host_max``): rank 0's adaptive
+    stream block governs every rank, and every pack is padded to the
+    largest sublane count. The diagonal is each rank's float64 part, summed
+    (``Mesh.host_sum``). ``rhs_path``/``x0_path``: ``.npy`` (memory-mapped)
+    or MatrixMarket; every rank holds the O(n) vectors, not the O(nnz)
+    matrix. ``two_level_agg`` builds the two-level cycle from the same parts
+    (``build_two_level_from_parts``), smoother ``smooth_degree``."""
+    from tpucg_torch.io.mmio import load_matrix_market, load_matrix_market_rows, mm_index_path
+    from tpucg_torch.sparse.formats import COOMatrix
+    from tpucg_torch.sparse.well import local_rows_to_well_shard, pad_well_shard
+
+    mesh = make_mesh() if mesh is None else mesh
+    check_1d(mesh)
+    with np.load(mm_index_path(matrix_path)) as z:
+        n, ncol = int(z["nrow"]), int(z["ncol"])
+    if n != ncol:
+        raise ValueError(f"matrix is {n}x{ncol}, CG needs square SPD")
+    P, rank = mesh.size, mesh.rank
+    rps = -(-n // (P * LANE)) * LANE
+    npad = P * rps
+    g0 = rank * rps
+    r1 = min(n, g0 + rps)
+    bytes_read = 0
+    if r1 > g0:
+        coo, _, bytes_read = load_matrix_market_rows(matrix_path, g0, r1)
+    else:  # the rank lies wholly in the identity tail
+        coo = COOMatrix(row=np.empty(0, np.int64), col=np.empty(0, np.int64),
+                        data=np.empty(0, np.float32), shape=(rps, npad))
+    # Rank 0 picks the stream block adaptively; every rank follows it.
+    w = (local_rows_to_well_shard(coo, 0, rps, npad, n, None, groups_per_super)
+         if rank == 0 else None)
+    BS = int(mesh.host_max(np.asarray([0 if w is None else w.block_sublanes], np.int64))[0])
+    if w is None:
+        w = local_rows_to_well_shard(coo, rank, rps, npad, n, BS, groups_per_super)
+    NS = int(mesh.host_max(np.asarray([w.n_sublanes], np.int64))[0])
+    packed = pad_well_shard(w, NS)
+    statics = dict(rps=rps, npad=npad, bg=int(groups_per_super), nsg=w.n_supergroups,
+                   block_sublanes=BS, n_sublanes=NS)
+    block = well_shard_block({k: v[None] for k, v in packed.items()}, statics, 0, n, mesh.device)
+    # The diagonal from the rank's rows, summed over the ranks: O(npad)
+    # floats, not the O(nnz) matrix.
+    diag_part = np.zeros(npad, np.float64)
+    on_d = (coo.row + g0) == coo.col
+    np.add.at(diag_part, coo.col[on_d], coo.data[on_d].astype(np.float64))
+    diag = mesh.host_sum(diag_part)
+    diag[n:npad] = 1.0
+    diag = np.where(diag != 0, diag, 1.0).astype(np.float32)
+
+    def rows(path):
+        v = np.zeros(npad, np.float32)
+        if path is not None:
+            vals = np.load(path, mmap_mode="r") if path.endswith(".npy") \
+                else load_matrix_market(path)
+            vals = np.asarray(vals, np.float32).ravel()
+            if vals.size != n:
+                raise ValueError(f"{path!r}: expected {n} values, got {vals.size}")
+            v[:n] = vals
+        return torch.from_numpy(v[g0:g0 + rps].copy()).to(mesh.device)
+
+    b, x0 = rows(rhs_path), rows(x0_path)
+    tl = None
+    if two_level_agg is not None:
+        # The coarse build from the same parts: it never sees the whole
+        # matrix either.
+        if rps % int(two_level_agg):
+            raise ValueError(f"two_level_agg={two_level_agg} must divide rows-per-shard ({rps})")
+        tl = build_two_level_from_parts([(g0, coo)], n=n, npad=npad, agg_size=int(two_level_agg),
+                                        smooth_degree=smooth_degree, diag=diag, mesh=mesh)
+    return WellShardedSystem(block=block, statics=statics, n=n, npad=npad, b=b, x0=x0, diag=diag,
+                             bytes_read=int(bytes_read), two_level=tl, rank=rank, size=P)
+
+
+def _check_two_level_sharded(two_level, config: CGConfig, npad: int, mesh: Mesh) -> None:
+    """tpucg's refusals of a sharded two-level solve (``sharded.py:1984-2007``):
+    the cycle preconditions a cg or pipelined solve, was built for the
+    sharded padding, and its aggregates divide a rank's rows (so none
+    crosses a rank); here it also lives on the mesh's device."""
+    if config.method not in ("cg", "pipelined") or config.precondition != "none":
+        raise ValueError("two_level runs as THE preconditioner of a method='cg' or 'pipelined' "
+                         f"solve (got method={config.method!r}, "
+                         f"precondition={config.precondition!r})")
+    if two_level.npad != npad:
+        raise ValueError(f"two_level was built for padded size {two_level.npad}, the sharded "
+                         f"decomposition pads to {npad} -- rebuild with build_two_level(csr, "
+                         f"agg_size={two_level.agg}, npad={npad})")
+    if (npad // mesh.size) % two_level.agg:
+        raise ValueError(f"agg_size={two_level.agg} must divide rows-per-shard "
+                         f"({npad // mesh.size}) so aggregates stay shard-local")
+    if two_level.device != mesh.device:
+        raise ValueError(f"two_level lives on {two_level.device}, the mesh on {mesh.device}")
+
+
 def sharded_operator_cg_solve(
     op,
-    b,
+    b=None,
     x0=None,
     mesh: Optional[Mesh] = None,
     config: Optional[CGConfig] = None,
@@ -1049,47 +1270,73 @@ def sharded_operator_cg_solve(
       ``WellOperator`` cannot be re-sharded and raises ``TypeError``: pass
       its CSR;
     - ``EllOperator`` / ``EllMatrix`` and ``BsrOperator`` / ``BSRMatrix``:
-      row blocks (identity-padded to P) and x gathered whole.
+      row blocks (identity-padded to P) and x gathered whole;
+    - ``WellShardedSystem`` (``load_well_system_sharded``): the rank's
+      placed WELL block; ``b`` and ``x0`` default to the loader's.
 
     Precondition ``"none"``, ``"jacobi"``, ``"block_jacobi"`` (Poisson, DIA
     and WELL: the shard-aligned diagonal blocks, taken on the host, each
     rank inverting its own once; ELL and BSR raise tpucg's ``ValueError``)
     or ``"poly"``; ``method`` and ``interval`` as ``sharded_cg_solve``'s.
-    Every rank returns the same result, x whole. A cg solve's ``converged``
-    is r.r < tol^2, as tpucg's; the other methods report their own."""
+    ``two_level`` (``build_two_level`` with ``npad`` the sharded padding, or
+    ``build_two_level_from_parts``; on the mesh's device) is the
+    preconditioner of a ``method="cg"`` or ``"pipelined"`` solve with
+    ``precondition="none"``, its aggregates dividing a rank's rows
+    (``make_two_level_precond_sharded``); classic CG then stops on the true
+    residual every ``TRUE_CHECK_EVERY`` laps. Every rank returns the same
+    result, x whole. A cg solve's ``converged`` is r.r < tol^2, as tpucg's;
+    the other methods report their own."""
     config = _configure(config, overrides)
-    _check_supported(config, interval, two_level, record_residuals)
+    _check_supported(config, interval, record_residuals)
     mesh = make_mesh() if mesh is None else mesh
+    check_1d(mesh)
     backend = resolve_backend(config.kernel, mesh.device)
     sop = _prepare_sharded_operator(op, mesh, config, storage_dtype)
     if config.precondition == "block_jacobi" and sop.blocks is None:
         raise ValueError("precondition='block_jacobi' on sharded operators is implemented for "
                          "Poisson/DIA/WELL (shard-local diagonal blocks); ELL/BSR support "
                          "'none', 'jacobi', or 'poly'")
-    n, npad = sop.n, sop.npad
-    blk = npad // mesh.size
-    b, x0 = _host_rhs(b, x0, n)
-    r0, r1 = mesh.rank * blk, (mesh.rank + 1) * blk
-    b_blk = torch.from_numpy(_padded_block(b, n, npad, r0, r1)).to(mesh.device)
-    x0_blk = torch.from_numpy(_padded_block(x0, n, npad, r0, r1)).to(mesh.device)
-    maxiter = int(config.maxiter if config.maxiter is not None else n)
+    if two_level is not None:
+        _check_two_level_sharded(two_level, config, sop.npad, mesh)
+    b_blk, x0_blk = operator_rhs(op, sop, b, x0, mesh)
+    maxiter = int(config.maxiter if config.maxiter is not None else sop.n)
     matvec = _operator_matvec(sop, mesh, backend)
     res = _solve(matvec, mesh, backend, b_blk, x0_blk, sop.diag, sop.blocks, config, maxiter,
-                 record_residuals, chunk, interval, "rr")
-    return res._replace(x=res.x[:n])
+                 record_residuals, chunk, interval, "rr", two_level)
+    return res._replace(x=res.x[:sop.n])
+
+
+def operator_rhs(op, sop: _ShardedOperator, b, x0, mesh: Mesh):
+    """This rank's rows of b and x0 for a sharded operator, padded with the
+    identity tail's zeros, f32 on the mesh's device; a
+    ``WellShardedSystem``'s own b and x0 where they are not given (tpucg's
+    ``sharded.py:2025-2032``)."""
+    blk = sop.npad // mesh.size
+    r0, r1 = mesh.rank * blk, (mesh.rank + 1) * blk
+    placed = isinstance(op, WellShardedSystem)
+    if b is None and not placed:
+        raise ValueError("b is required (only a WellShardedSystem carries its own)")
+
+    def rows(v):
+        return torch.from_numpy(_padded_block(v, sop.n, sop.npad, r0, r1)).to(mesh.device)
+    b_blk = op.b if b is None else rows(_host_vector(b, sop.n, "b"))
+    if x0 is None and placed:
+        return b_blk, op.x0
+    return b_blk, rows(_host_vector(x0, sop.n, "x0"))
 
 
 # --- k right-hand sides: multi-RHS and block CG --------------------------------
 
 
 _OPERATOR_NAMES = ("PoissonOperator", "DiaOperator", "DIAMatrix", "EllOperator", "EllMatrix",
-                   "BsrOperator", "BSRMatrix", "CSRMatrix", "WellOperator", "WellMatrix")
+                   "BsrOperator", "BSRMatrix", "CSRMatrix", "WellOperator", "WellMatrix",
+                   "WellShardedSystem")
 
 
-def _is_operator(A) -> bool:
+def is_operator(A) -> bool:
     """A sparse or stencil operator (tpucg's ``_operator_types``, plus the
     serial WELL forms, which ``_prepare_sharded_operator`` refuses by
-    name)."""
+    name, and a host-sharded ``WellShardedSystem``)."""
     return type(A).__name__ in _OPERATOR_NAMES
 
 
@@ -1131,7 +1378,7 @@ class _KColumns(NamedTuple):
 
 
 def _k_columns(A, B, X0, mesh: Mesh, config: CGConfig) -> _KColumns:
-    if _is_operator(A):
+    if is_operator(A):
         sop = _prepare_sharded_operator(A, mesh, config)
         n, npad, square, diag = sop.n, sop.npad, None, sop.diag
         mv = _operator_matvec_batched(sop, mesh, resolve_backend(config.kernel, mesh.device))
@@ -1143,7 +1390,7 @@ def _k_columns(A, B, X0, mesh: Mesh, config: CGConfig) -> _KColumns:
         rp = RowPartition(n=n, num_shards=mesh.size, align=pc_align(ROW_ALIGN, config))
         npad = rp.n_padded
         r0, r1 = rp.row_range(mesh.rank)
-        A_blk = torch.from_numpy(_row_block(A, n, npad, r0, r1)).to(mesh.device)
+        A_blk = torch.from_numpy(_row_block(A[r0:min(r1, n)], n, npad, r0, r1)).to(mesh.device)
         mv = _dense_matvec_batched(A_blk, mesh)
         square = A_blk[:, r0:r1]
         diag = torch.diagonal(square)
@@ -1181,6 +1428,7 @@ def sharded_cg_solve_multi(
         raise ValueError("sharded_cg_solve_multi supports method='cg', precondition='none'")
     _check_supported(config)
     mesh = make_mesh() if mesh is None else mesh
+    check_1d(mesh)
     kc = _k_columns(A, B, X0, mesh, config)
     red = _reductions(mesh, resolve_backend(config.kernel, mesh.device), kc.B[:, 0])
     s = multi_cg_loop(kc.mv, kc.B, kc.X0, tol=float(config.tol),
@@ -1222,12 +1470,13 @@ def sharded_cg_solve_block(
             "none", "jacobi", "block_jacobi", "poly"):
         raise ValueError("sharded_cg_solve_block supports method='cg' with precondition "
                          "'none', 'jacobi', 'block_jacobi', or 'poly'")
-    if _is_operator(A) and config.precondition == "block_jacobi":
+    if is_operator(A) and config.precondition == "block_jacobi":
         raise ValueError("block CG on sharded sparse operators supports precondition in "
                          "{'none', 'jacobi', 'poly'} (block Jacobi on sharded sparse operators "
                          "is unimplemented, matching sharded_operator_cg_solve)")
     _check_supported(config)
     mesh = make_mesh() if mesh is None else mesh
+    check_1d(mesh)
     kc = _k_columns(A, B, X0, mesh, config)
     if kc.k > BLOCK_CG_MAX_K:
         raise ValueError(f"block CG supports k <= {BLOCK_CG_MAX_K} right-hand sides (got "

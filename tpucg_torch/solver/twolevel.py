@@ -25,6 +25,13 @@ is a fixed SPD operator, so PCG's contract is unchanged. S is damped Jacobi
 on [lam / alpha, 1.5 lam] of D^-1 A (l - 1 matvecs), lam the 24-step power
 estimate of lambda_max(D^-1 A).
 
+On the mesh (``make_two_level_precond_sharded``, tpucg's
+``twolevel.py:450``), each rank smooths, restricts and prolongs its own rows
+(aggregates never cross a rank), gathers the (nc / P,) coarse residuals once
+a cycle and applies the replicated coarse inverse (or hierarchy);
+``build_two_level_from_parts`` (tpucg's ``twolevel.py:261``) assembles the
+coarse matrix from each rank's rows with one float64 sum over the ranks.
+
 The cycle's matvecs are the solve's flagged ``matvec(v, act)`` (``lap_ops``):
 on the card the operator's kernel under the lap's ``active`` flag, into the
 one output buffer the lap's Ap also lives in, so each product is consumed
@@ -187,6 +194,78 @@ def build_two_level(
     )
 
 
+def build_two_level_from_parts(
+    parts,
+    n: int,
+    npad: int,
+    agg_size: int,
+    omega: float = 0.7,
+    ridge: float = 0.0,
+    smooth_degree: int = 1,
+    smooth_alpha: float = 4.0,
+    diag=None,
+    *,
+    mesh=None,
+    device=None,
+) -> TwoLevel:
+    """A ``TwoLevel`` assembled from row blocks (tpucg's
+    ``build_two_level_from_parts``, ``twolevel.py:261``): each rank adds
+    the partial Galerkin coarse matrix of its own rows in float64, one
+    ``Mesh.host_sum`` completes Ac (in rank order, so every rank inverts the
+    same bits), the identity tail [n, npad) is added once after the sum,
+    then symmetrize, the f64 inverse, symmetrize, f32. No rank holds the
+    whole matrix. ``parts`` is a list of ``(global_row_offset, COOMatrix)``
+    with local rows and global columns (``load_matrix_market_rows``);
+    ``diag`` the summed (npad,) diagonal when the caller has it, else it is
+    summed from the parts the same way. ``mesh=None``: the parts are the
+    whole matrix (one process). ``device`` defaults to the mesh's, else the
+    card when there is one. As tpucg's: agg_size | npad and no
+    ``coarse_max``."""
+    agg = int(agg_size)
+    if agg < 2:
+        raise ValueError(f"agg_size must be >= 2, got {agg_size}")
+    if npad % agg:
+        raise ValueError(f"sharded two-level needs agg_size | npad ({agg} vs {npad})")
+    total = (lambda a: a) if mesh is None else mesh.host_sum
+    nc = npad // agg
+    Ac_part = np.zeros((nc, nc), np.float64)
+    need_diag = diag is None
+    diag_part = np.zeros(npad, np.float64) if need_diag else None
+    for row0, coo in parts:
+        grows = np.asarray(coo.row).astype(np.int64) + int(row0)
+        gcols = np.asarray(coo.col).astype(np.int64)
+        vals = np.asarray(coo.data).astype(np.float64)
+        np.add.at(Ac_part, (grows // agg, gcols // agg), vals)
+        if need_diag:
+            on_d = grows == gcols
+            np.add.at(diag_part, grows[on_d], vals[on_d])
+    Ac = total(Ac_part)
+    idx = np.arange(nc)
+    Ac[idx, idx] += np.bincount(np.arange(n, npad, dtype=np.int64) // agg, minlength=nc)
+    Ac = 0.5 * (Ac + Ac.T)
+    if ridge:
+        Ac[idx, idx] += ridge * (np.trace(Ac) / nc)
+    acinv = np.linalg.inv(Ac)
+    acinv = (0.5 * (acinv + acinv.T)).astype(np.float32)
+    if need_diag:
+        d64 = total(diag_part)
+        d64[n:npad] = 1.0
+        d = np.where(d64 != 0, d64, 1.0).astype(np.float32)
+    else:
+        d = np.asarray(diag, np.float32)
+        if d.shape != (npad,):
+            raise ValueError(f"diag must have shape ({npad},), got {d.shape}")
+    if smooth_degree < 1:
+        raise ValueError(f"smooth_degree must be >= 1, got {smooth_degree}")
+    device = canonical_device(mesh.device if device is None and mesh is not None else device)
+    return TwoLevel(
+        acinv=torch.from_numpy(acinv).to(device),
+        dinv=torch.from_numpy((1.0 / d).astype(np.float32)).to(device), agg=agg,
+        npad=int(npad), omega=float(omega), smooth_degree=int(smooth_degree),
+        smooth_alpha=float(smooth_alpha),
+    )
+
+
 def _make_smoother(matvec: Callable, dinv: torch.Tensor, lam: torch.Tensor, omega: float,
                    degree: int, alpha: float) -> Callable:
     """The cycle's smoother ``smooth(r, act)`` (tpucg's): degree 1 is one
@@ -274,5 +353,40 @@ def make_two_level_precond(tl: TwoLevel, matvec: Callable, dot: Callable,
         z = S(r, act)
         e = coarse_solve(restrict(r - matvec(z, act)), act)
         z = z + prolong(e)
+        return z + S(r - matvec(z, act), act)
+    return precond
+
+
+def make_two_level_precond_sharded(tl: TwoLevel, matvec: Callable, dot: Callable,
+                                   like: torch.Tensor, mesh, local_dot: Callable) -> Callable:
+    """The cycle on a rank's row block (tpucg's
+    ``make_two_level_precond_sharded``, ``twolevel.py:450``): the solve's
+    rank-summed ``matvec`` and ``dot`` for the smoother and the cycle's two
+    products, restriction and prolongation on the rank's own aggregates (the
+    caller keeps agg | rows a rank, so none crosses a rank), ONE
+    ``all_gather`` of the (nc / P,) coarse residuals a coarse solve, and the
+    (nc, nc) inverse (or the multilevel hierarchy) replicated on every rank.
+    The hierarchy's vectors are whole on every rank, so its dots are
+    ``local_dot`` (a rank-summed dot there would multiply by P)."""
+    blk = like.shape[-1]
+    agg = int(tl.agg)
+    ncl = blk // agg
+    r0 = mesh.rank * blk
+    dinv = tl.dinv[r0:r0 + blk]
+    lam = lambda_max_estimate(lambda v, act=None: dinv * matvec(v, act), dot, like,
+                              power_iters=SMOOTH_POWER_ITERS)
+    S = _make_smoother(matvec, dinv, lam, tl.omega, tl.smooth_degree, tl.smooth_alpha)
+    coarse_solve = _coarse_solve_fn(tl, local_dot)
+    c0 = mesh.rank * ncl
+
+    def coarse(r, act=None):
+        rc = torch.empty(ncl * mesh.size, dtype=r.dtype, device=r.device)
+        mesh.all_gather(rc, r.reshape(ncl, agg).sum(dim=1))
+        e = coarse_solve(rc, act)[c0:c0 + ncl]
+        return e[:, None].expand(ncl, agg).reshape(-1)
+
+    def precond(r, act=None):
+        z = S(r, act)
+        z = z + coarse(r - matvec(z, act), act)
         return z + S(r - matvec(z, act), act)
     return precond

@@ -12,7 +12,13 @@ from tpucg_torch.sparse.formats import (
     csr_to_ell,
 )
 from tpucg_torch.sparse.ordering import permute_csr, rcm_order, strength_order
-from tpucg_torch.sparse.well import WellMatrix, csr_to_well, csr_to_well_sharded, pad_well_shard
+from tpucg_torch.sparse.well import (
+    WellMatrix,
+    csr_to_well,
+    csr_to_well_sharded,
+    local_rows_to_well_shard,
+    pad_well_shard,
+)
 
 __all__ = [
     "BSRMatrix",
@@ -26,6 +32,7 @@ __all__ = [
     "csr_to_ell",
     "csr_to_well",
     "csr_to_well_sharded",
+    "local_rows_to_well_shard",
     "pad_well_shard",
     "permute_csr",
     "rcm_order",

@@ -1,7 +1,7 @@
 """WELL, windowed gather-ELLPACK: tpucg's irregular-sparse format (a NumPy
 copy of ``tpucg.sparse.well``'s ``WellMatrix``, ``_auto_block_sublanes`` and
-``csr_to_well``, and its shard packers ``pad_well_shard`` and
-``csr_to_well_sharded``).
+``csr_to_well``, and its shard packers ``pad_well_shard``,
+``csr_to_well_sharded`` and ``local_rows_to_well_shard``).
 
 The layout was chosen for the TPU, whose only fast data-dependent reads
 are whole-row DMA and the in-register lane shuffle. The port keeps it
@@ -299,6 +299,34 @@ def csr_to_well(csr, block_sublanes=None, groups_per_super: int = 64) -> WellMat
         block_sublanes=BS,
         groups_per_super=BG,
     )
+
+
+def local_rows_to_well_shard(coo_local, shard: int, rps: int, npad: int, n: int,
+                             block_sublanes, groups_per_super: int = 64) -> WellMatrix:
+    """ONE shard's WELL pack from only its own rows (tpucg's): the
+    host-sharded form of ``csr_to_well_sharded``, which needs the whole CSR
+    on every rank. ``coo_local`` holds the rows in local numbering [0, rps)
+    against global columns (``io.mmio.load_matrix_market_rows``); the
+    shard's global rows in [n, npad) get the identity tail here.
+    ``block_sublanes`` is the mesh-wide BS (None: this shard's adaptive
+    pick); the caller pads the pack to the mesh-wide sublane count with
+    ``pad_well_shard``."""
+    from tpucg_torch.sparse.formats import COOMatrix
+
+    rows = coo_local.row.astype(np.int64)
+    cols = coo_local.col.astype(np.int64)
+    vals = coo_local.data.astype(np.float32)
+    g0 = shard * rps
+    t0, t1 = max(n, g0), min(npad, g0 + rps)
+    if t1 > t0:
+        tail = np.arange(t0, t1, dtype=np.int64)
+        rows = np.concatenate([rows, tail - g0])
+        cols = np.concatenate([cols, tail])
+        vals = np.concatenate([vals, np.ones(tail.size, np.float32)])
+    return csr_to_well(
+        COOMatrix(row=rows, col=cols, data=vals, shape=(rps, npad)).to_csr(),
+        block_sublanes=None if block_sublanes is None else int(block_sublanes),
+        groups_per_super=groups_per_super)
 
 
 def pad_well_shard(w: WellMatrix, NS: int) -> dict:
