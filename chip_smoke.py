@@ -288,6 +288,46 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    and block CG at k = 8 (K13 x k) against the serial ones, laps within
    one, x within 1e-4 of max |x|, and the transport a lap there.
 
+24. M14 steps 4-5 (``m14_s45_phase``): host-sharded loading and M12 on the
+   mesh. One NCCL rank: FEM 300k written as an indexed general ``.mtx`` and
+   loaded host-sharded (``load_well_system_sharded``: the packs equal
+   ``csr_to_well_sharded``'s bit for bit, the bytes read the file's matrix
+   bytes), its Jacobi solve at 1e-5 ||b|| (phases 16-17's 1,725 laps) and
+   the two-level cycle built from the parts (agg 64, Chebyshev smoother,
+   1e-3 ||b||: phase 21's laps within a 16-lap check), the transport a lap
+   against Jacobi's; pipelined two-level on geometric 100k; dense n = 8192
+   from ``.npy`` and n = 2048 from text (every token through the native
+   range parser), both strategies, bit for bit the whole-system solve;
+   deflated dense n = 4096 and Poisson m = 128, ``RecyclingCG(mesh=)`` on
+   three right-hand sides, MINRES dense and Poisson, IR dense (K1 with bf16
+   A), each against its serial solve. Then a gloo world of 2 ranks on
+   cuda:0: each rank reads about half of the FEM file, the two-level, MINRES
+   and IR solves against one rank's, the transport a lap.
+
+25. M14 steps 6-7 (``m14_s67_phase``): the checkpoint on the mesh and the
+   2-D SUMMA decomposition. One NCCL rank, each solve killed at a segment
+   boundary (its file kept) and resumed in a fresh call, bit for bit the
+   uncheckpointed sharded solve: dense n = 8192 (K1), Poisson m = 128 slabs
+   (K9), DIA m = 128 band halos (K7), FEM 300k sharded WELL Jacobi (K13,
+   1,725 laps); FEM two-level (agg 64, Chebyshev smoother, 1e-3 ||b||) run
+   through in segments bit for bit, then killed and resumed within two
+   16-lap windows (its stagnation stop); one save and one resume in host
+   ms. The 1 x 1 2-D mesh: cg, Jacobi, pipelined, CA, Chebyshev, poly and
+   bf16 storage on dense n = 8192, each bit for bit the 1-D one-rank solve.
+   K1 on every rank's block of the 2 x 2 ((4096, 4096)) and 1 x 4 ((8192,
+   2048)) layouts, column-permuted, f32 and bf16, against its plain version
+   within 1e-5 of max(|A| |x|).
+   Then gloo worlds on cuda:0, at once: 4 ranks as 2 x 2 (cg, pipelined,
+   Jacobi, bf16 storage, multi-RHS and block CG at k = 8, deflated n =
+   4096, MINRES with Jacobi, and the checkpoint killed and resumed bit for
+   bit through the whole-state file) and 1 x 4 (cg, pipelined), laps within
+   one of the one-rank solve's and x within 1e-4 of max |x|, the transport's
+   calls and host ms a lap beside the 1-D allgather's on the same world;
+   and 2 ranks with a file per rank (dense n = 8192 loaded host-sharded),
+   killed and resumed bit for bit, one save and one resume in host ms.
+   Every one-rank drive runs with the counts at 0, launches its kernels
+   and no plain version but the sharded lap's tail.
+
 The line before last is a JSON object of the kernels (K1-K14, K6xk, K8xk,
 K13xk and P1-P7:
 launches on the main path, error against the plain version, times, the
@@ -616,9 +656,7 @@ def m14_mesh_phase(dev, tag, drive, A_fem, b_fem, flagship=None, n=8192, m=128,
     return added
 
 
-def m14_s45_phase(dev, tag, drive, A_fem, b_fem, flagship=None, n=8192, n_text=2048, n_defl=4096,
-                  m=128, n_geo=100_000, backend="nccl", fem_jacobi_laps=None,
-                  fem_two_level_laps=None):
+def m14_s45_phase(dev, tag, drive, A_fem, b_fem, flagship, fem_jacobi_laps, fem_two_level_laps):
     """Phase 24: M14 steps 4 and 5, a world of one NCCL rank on the card at
     full width and a gloo world of 2 ranks on cuda:0 (see the module's
     docstring). ``drive`` runs one call with every launch count at 0 just
@@ -626,12 +664,9 @@ def m14_s45_phase(dev, tag, drive, A_fem, b_fem, flagship=None, n=8192, n_text=2
     ``flagship`` is phase 5's dense n = 8192 (DenseOperator, b, x0) on the
     card. ``fem_jacobi_laps`` and ``fem_two_level_laps`` are the laps that
     phases 16-17 (sharded WELL Jacobi, one NCCL rank) and 21 (serial
-    two-level, agg 64, Chebyshev smoother, 1e-3 ||b||) take on FEM 300k
-    (None: not held, the CPU rehearsal's smaller FEM). ``n``, ``n_text``,
-    ``n_defl``, ``m``, ``n_geo`` and ``backend`` are the phase's sizes and
-    the one-rank world's transport (smaller ones, on a CPU mesh with gloo,
-    rehearse its flow). Returns the launches of K9 and K13 that its drives
-    made on the main path (the kernels line adds them)."""
+    two-level, agg 64, Chebyshev smoother, 1e-3 ||b||) take on FEM 300k.
+    Returns the launches of K9 and K13 that its drives made on the main
+    path (the kernels line adds them)."""
     import numpy as np
     import torch
 
@@ -662,13 +697,15 @@ def m14_s45_phase(dev, tag, drive, A_fem, b_fem, flagship=None, n=8192, n_text=2
     from tpucg_torch.solver.twolevel import build_two_level
     from tpucg_torch.sparse.well import csr_to_well_sharded
 
+    # Dense (n from .npy, n_text from text), deflated dense, Poisson m^3
+    # and the geometric graph's sizes.
+    n, n_text, n_defl, m, n_geo = 8192, 2048, 4096, 128, 100_000
     t_phase = time.perf_counter()
-    on_card = dev.type == "cuda"
-    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    sync = torch.cuda.synchronize
     added = dict.fromkeys(("poisson3d_slab_cuda", "well_spmv_cuda"), 0)
     lap_plain = ("lap_tail_torch", "p_update_torch")
-    init_distributed(backend=backend, device=dev)
-    mesh = make_mesh(device=dev, backend=backend)
+    init_distributed(backend="nccl", device=dev)
+    mesh = make_mesh(device=dev, backend="nccl")
     print(f"{mesh!r}")
 
     def launches(text, launched):
@@ -698,7 +735,7 @@ def m14_s45_phase(dev, tag, drive, A_fem, b_fem, flagship=None, n=8192, n_text=2
         e = float((x - xs).abs().max() / xs.abs().max())
         require(same if bits else e <= x_tol, f"{label}: x {e:.3e} of max |x| from the serial")
         require(all(launched[w] > 0 for w in need), f"{label}: launches {launched}")
-        require(not on_card or all(c == 0 for w, c in launched.items()
+        require(all(c == 0 for w, c in launched.items()
                                    if w.endswith("_torch") and w not in lap_plain),
                 f"{label}: a plain version ran ({launched})")
         for w in added:
@@ -748,9 +785,9 @@ def m14_s45_phase(dev, tag, drive, A_fem, b_fem, flagship=None, n=8192, n_text=2
         kw_j = dict(precondition="jacobi", tol=1e-5 * nb_fem, maxiter=4000)
         res, launched = drive(lambda: sharded_operator_cg_solve(ws, mesh=mesh, **kw_j))
         k = int(res.iterations)
-        require(bool(res.converged) and (fem_jacobi_laps is None or k == fem_jacobi_laps),
+        require(bool(res.converged) and k == fem_jacobi_laps,
                 f"host-sharded FEM Jacobi: {k} laps, phases 16-17 {fem_jacobi_laps}")
-        require(not on_card or all(launched[w] > 0 for w in ("well_spmv_cuda", "dot_cuda")),
+        require(all(launched[w] > 0 for w in ("well_spmv_cuda", "dot_cuda")),
                 f"host-sharded FEM Jacobi: launches {launched}")
         added["well_spmv_cuda"] += launched.get("well_spmv_cuda", 0)
         print(f"host-sharded FEM Jacobi, tol 1e-5 ||b||: {k} laps (phases 16-17's sharded WELL: "
@@ -766,10 +803,10 @@ def m14_s45_phase(dev, tag, drive, A_fem, b_fem, flagship=None, n=8192, n_text=2
         k = int(res.iterations)
         x64 = res.x.cpu().numpy().astype(np.float64)
         tr = float(np.linalg.norm(b_fem - A_fem.matvec(x64)) / nb_fem)
-        require(k % 16 == 0 and (fem_two_level_laps is None or abs(k - fem_two_level_laps) <= 16),
+        require(k % 16 == 0 and abs(k - fem_two_level_laps) <= 16,
                 f"host-sharded FEM two-level: {k} laps, phase 21 {fem_two_level_laps}")
         require(tr <= 0.25, f"host-sharded FEM two-level: true residual {tr:.3e}")
-        require(not on_card or all(launched[w] > 0 for w in ("well_spmv_cuda", "dot_cuda")),
+        require(all(launched[w] > 0 for w in ("well_spmv_cuda", "dot_cuda")),
                 f"host-sharded FEM two-level: launches {launched}")
         added["well_spmv_cuda"] += launched.get("well_spmv_cuda", 0)
         ref_two_level = res
@@ -808,17 +845,14 @@ def m14_s45_phase(dev, tag, drive, A_fem, b_fem, flagship=None, n=8192, n_text=2
         held(f"geometric {n_geo} two-level agg 64 smooth 2, pipelined",
              lambda: sharded_operator_cg_solve(A_g, b_g, mesh=mesh, **kw),
              lambda: cg_solve(op_g, torch.as_tensor(b_g, device=dev), **kw),
-             ("well_spmv_cuda", "dot_cuda") if on_card else (), bits=True)
+             ("well_spmv_cuda", "dot_cuda"), bits=True)
         del op_g, tl_g
         print(f"M14 steps 4-5 host-sharded WELL: {time.perf_counter() - t_phase:.1f} s so far")
 
         # (b) Dense host-sharded loading: n from .npy (a memory map), n_text
         # from text through the range parser.
-        if flagship is None:
-            A, b, x0 = generate_spd_system(n, seed=0)
-        else:
-            op, bd, x0d = flagship
-            A, b, x0 = op.A[:n, :n].cpu().numpy(), bd.cpu().numpy(), x0d.cpu().numpy()
+        op, bd, x0d = flagship
+        A, b, x0 = op.A[:n, :n].cpu().numpy(), bd.cpu().numpy(), x0d.cpu().numpy()
         np.save(paths["A_npy"], A)
         np.save(paths["b_npy"], b)
         np.save(paths["x0_npy"], x0)
@@ -859,7 +893,7 @@ def m14_s45_phase(dev, tag, drive, A_fem, b_fem, flagship=None, n=8192, n_text=2
                 held(f"{label} {strategy} loaded host-sharded",
                      lambda: sharded_cg_solve(system, mesh=mesh, strategy=strategy),
                      lambda: sharded_cg_solve(Ah, bh, x0h, mesh=mesh, strategy=strategy),
-                     ("matvec_cuda", "dot_cuda") if on_card else (), bits=True)
+                     ("matvec_cuda", "dot_cuda"), bits=True)
                 print(f"  {label} {strategy}: loaded in {ld_s:.3f} s, {sum(asked)} tokens "
                       f"parsed (text written in {text_s:.1f} s)")
                 del system, ref
@@ -883,7 +917,7 @@ def m14_s45_phase(dev, tag, drive, A_fem, b_fem, flagship=None, n=8192, n_text=2
         held(f"deflated dense n={n_defl} clustered (3 slow eigenvectors)",
              lambda: sharded_cg_solve_deflated(Ad, bd_d, Vd, mesh=mesh, **kw),
              lambda: cg_solve_deflated(op_d, bd_d, Vd, **kw),
-             ("matvec_cuda", "dot_cuda") if on_card else (), laps_pct=1)
+             ("matvec_cuda", "dot_cuda"), laps_pct=1)
         del op_d, Ad, Vd
         opp = PoissonOperator(m, device=dev)
         xt = torch.as_tensor(np.random.default_rng(0).standard_normal(m ** 3).astype(np.float32),
@@ -895,7 +929,7 @@ def m14_s45_phase(dev, tag, drive, A_fem, b_fem, flagship=None, n=8192, n_text=2
         Vp = np.stack([np.einsum("i,j,k->ijk", *f).ravel() for f in
                        ((g, g, g), (g2, g, g), (g, g2, g))], 1).astype(np.float32)
         kw = dict(tol=1e-5 * float(np.linalg.norm(bp)), maxiter=8 * m + 200)
-        need = ("poisson3d_slab_cuda", "dot_cuda") if on_card else ()
+        need = ("poisson3d_slab_cuda", "dot_cuda")
         held(f"deflated Poisson m={m} slabs (3 slowest eigenvectors)",
              lambda: sharded_cg_solve_deflated(opp, bp, Vp, mesh=mesh, **kw),
              lambda: cg_solve_deflated(opp, bp, Vp, **kw), need, laps_pct=1)
@@ -906,15 +940,11 @@ def m14_s45_phase(dev, tag, drive, A_fem, b_fem, flagship=None, n=8192, n_text=2
             held(f"RecyclingCG(mesh=) Poisson m={m}, right-hand side {t + 1} of 3",
                  lambda: rec.solve(bt), lambda: rec_s.solve(bt), need, laps_pct=1)
         del rec, rec_s
-        if flagship is not None:
-            op = flagship[0]
-        else:
-            op = DenseOperator.create(A, device=dev)
         kw = dict(tol=1e-5 * float(np.linalg.norm(b)), precondition="jacobi")
         held(f"MINRES dense n={n} jacobi",
              lambda: sharded_minres_solve(A, b, x0, mesh=mesh, **kw),
              lambda: minres_solve(op, b, x0, **kw),
-             ("matvec_cuda", "dot_cuda") if on_card else (), laps_pct=1)
+             ("matvec_cuda", "dot_cuda"), laps_pct=1)
         kw = dict(tol=1e-5 * float(np.linalg.norm(bp)), maxiter=8 * m + 200)
         held(f"MINRES Poisson m={m} slabs", lambda: sharded_minres_solve(opp, bp, mesh=mesh, **kw),
              lambda: minres_solve(opp, bp, **kw), need, laps_pct=1)
@@ -930,9 +960,9 @@ def m14_s45_phase(dev, tag, drive, A_fem, b_fem, flagship=None, n=8192, n_text=2
                 return res
             _, launched = held(f"IR dense n={n} {strategy}", solve_ir,
                                lambda: cg_solve_ir(A_ir, b, device=dev, **kw),
-                               ("matvec_cuda", "dot_cuda") if on_card else (), laps_pct=1)
+                               ("matvec_cuda", "dot_cuda"), laps_pct=1)
             bf16 = seen["bf16"]
-            require(not on_card or 0 < bf16 < launched["matvec_cuda"],
+            require(0 < bf16 < launched["matvec_cuda"],
                     f"IR {strategy}: K1 bf16 {bf16} of {launched['matvec_cuda']}")
             print(f"  IR {strategy}: K1 launches {launched['matvec_cuda']}, of them bf16 {bf16}")
         del opp, A_ir
@@ -944,7 +974,7 @@ def m14_s45_phase(dev, tag, drive, A_fem, b_fem, flagship=None, n=8192, n_text=2
                     n_text, dtype=np.float32)).astype(np.float32), b_t, mesh=mesh, tol=tol_t),
                 "two_level": ref_two_level}
         torch.distributed.destroy_process_group()
-        print(f"M14 steps 4-5, one {backend} rank: {time.perf_counter() - t_phase:.1f} s so far")
+        print(f"M14 steps 4-5, one NCCL rank: {time.perf_counter() - t_phase:.1f} s so far")
 
         # (d) A gloo world of 2 ranks on the card: host-sharded FEM with the
         # two-level cycle from the parts, each rank reading about half of
@@ -981,6 +1011,316 @@ def m14_s45_phase(dev, tag, drive, A_fem, b_fem, flagship=None, n=8192, n_text=2
     print(f"gloo P=2 host-sharded FEM: bytes read {read} of the matrix's {data} "
           f"({[round(r / data, 4) for r in read]})")
     print(f"M14 steps 4-5: {time.perf_counter() - t_phase:.1f} s")
+    return added
+
+
+def m14_s67_phase(dev, tag, drive, A_fem, b_fem, flagship, fem_jacobi_laps, fem_two_level_laps):
+    """Phase 25: M14 steps 6 and 7, a world of one NCCL rank on the card at
+    full width, then gloo worlds of 4 and 2 ranks on cuda:0 (see the
+    module's docstring). ``drive``, ``flagship`` and the FEM laps as
+    ``m14_s45_phase``'s. Returns the launches of the kernels its one-rank
+    drives made on the main path (the kernels line adds them)."""
+    import concurrent.futures
+    import os
+
+    import numpy as np
+    import torch
+
+    from _torch_helpers import (
+        card_m14s67_files_worker,
+        card_m14s67_worker,
+        ckpt_io_ms,
+        run_world,
+        scaled_err,
+    )
+    from tpucg_torch.comm.mesh import init_distributed, make_mesh, make_mesh2d
+    from tpucg_torch.io.generator import poisson3d_dia
+    from tpucg_torch.io.partitioner import round_up
+    from tpucg_torch.kernels.matvec import matvec_cuda, matvec_torch
+    from tpucg_torch.kernels.stencil import poisson3d_torch
+    from tpucg_torch.solver.checkpoint import (
+        _io_for,
+        sharded_cg_solve_checkpointed,
+        sharded_operator_cg_solve_checkpointed,
+    )
+    from tpucg_torch.solver.deflation import sharded_cg_solve_deflated
+    from tpucg_torch.solver.minres import sharded_minres_solve
+    from tpucg_torch.solver.operators import PoissonOperator
+    from tpucg_torch.solver.sharded import (
+        _colperm_2d,
+        sharded_cg_solve,
+        sharded_cg_solve_block,
+        sharded_cg_solve_multi,
+        sharded_operator_cg_solve,
+        summa_pad,
+    )
+    from tpucg_torch.solver.twolevel import build_two_level
+
+    # Dense, deflated dense and Poisson m^3 sizes; k right-hand sides.
+    n, n_defl, m, k_cols = 8192, 4096, 128, 8
+    t_phase = time.perf_counter()
+    sync = torch.cuda.synchronize
+    added = {}
+    lap_plain = ("lap_tail_torch", "p_update_torch")
+    init_distributed(backend="nccl", device=dev)
+    mesh = make_mesh(device=dev, backend="nccl")
+    mesh2 = make_mesh2d(1, 1, device=dev, backend="nccl")
+    print(f"{mesh!r}; {mesh2!r}")
+
+    def launches(text, launched):
+        return text + ", ".join(f"{w} {c}" for w, c in sorted(launched.items()) if c)
+
+    def counted(label, launched, need):
+        """The kernels ``need`` launched, no plain version but the lap's;
+        the launches join the kernels line."""
+        require(all(launched[w] > 0 for w in need),
+                f"{label}: launches {launched}")
+        require(all(c == 0 for w, c in launched.items()
+                                   if w.endswith("_torch") and w not in lap_plain),
+                f"{label}: a plain version ran ({launched})")
+        for w, c in launched.items():
+            if c and w.endswith("_cuda"):
+                added[w] = added.get(w, 0) + c
+
+    def merged(*ls):
+        return {w: sum(lc.get(w, 0) for lc in ls) for w in ls[0]}
+
+    dense_need = ("matvec_cuda", "dot_cuda", "fused_update_cuda")
+
+    def kill_resume(label, plain, ck, seg, cap, need, stag=False, laps_want=None, io_ms=False):
+        """``plain()`` (the uncheckpointed sharded solve) against ``ck``
+        killed at ``cap`` laps (segments of ``seg``, the file kept) and
+        resumed in a fresh call: laps and x bit for bit, or (``stag``, a
+        stagnation stop) within two 16-lap windows; the file removed."""
+        with tempfile.TemporaryDirectory() as d:
+            path = str(Path(d) / "ck.npz")
+            ref = plain()
+            t0 = time.perf_counter()
+            capped, l1 = drive(lambda: ck(segment_iters=seg, maxiter=cap, checkpoint_path=path))
+            require(int(capped.iterations) == cap and os.path.exists(path),
+                    f"{label}: killed at {int(capped.iterations)} laps, file "
+                    f"{os.path.exists(path)}")
+            ms_io = ""
+            if io_ms:
+                save, load = ckpt_io_ms(_io_for(mesh), path, int(ref.x.shape[0]), 0.0, sync)
+                ms_io = f"; one save {save:.2f} ms, one resume {load:.2f} ms (host clock)"
+            res, l2 = drive(lambda: ck(segment_iters=seg, checkpoint_path=path))
+            wall = (time.perf_counter() - t0) * 1e3
+            require(not os.path.exists(path), f"{label}: the file outlived the solve")
+        k, kr = int(res.iterations), int(ref.iterations)
+        require(laps_want is None or kr == laps_want, f"{label}: {kr} laps, want {laps_want}")
+        same = torch.equal(res.x, ref.x)
+        if stag:
+            require(k % 16 == 0 and abs(k - kr) <= 32, f"{label}: {k} laps, run through {kr}")
+        else:
+            require(k == kr and same and bool(res.converged),
+                    f"{label}: laps {k} (run through {kr}), x bit-identical {same}")
+        launched = merged(l1, l2)
+        counted(label, launched, need)
+        print(f"{label}: killed at {cap} laps (segments of {seg}), resumed to {k} laps (the "
+              f"uncheckpointed sharded solve {kr}), x "
+              + ("bit-identical" if same else
+                 f"within {scaled_err(res.x.cpu().numpy(), ref.x.cpu().numpy()):.3e} of max |x|")
+              + f"; {wall:.1f} ms both calls{ms_io}; " + launches("launches ", launched)
+              + f" {tag}")
+        return ref
+
+    # (a) One rank: the 1-D checkpointed dense solve, the operator solves
+    # (K9, K7, sharded WELL Jacobi and two-level), each killed and resumed.
+    op, bd, x0d = flagship
+    A, b, x0 = op.A[:n, :n].cpu().numpy(), bd.cpu().numpy(), x0d.cpu().numpy()
+    tol = 1e-6 * float(np.linalg.norm(b))
+    kw = dict(tol=tol, maxiter=2000)
+    ref_dense = kill_resume(
+        f"checkpointed dense n={n}, one rank",
+        lambda: sharded_cg_solve(A, b, x0, mesh=mesh, **kw),
+        lambda **k: sharded_cg_solve_checkpointed(A, b, x0, mesh=mesh, **dict(kw, **k)),
+        1, 2, dense_need, io_ms=True)
+    xt = torch.as_tensor(np.random.default_rng(0).standard_normal(m ** 3).astype(np.float32),
+                         device=dev)
+    bp = poisson3d_torch(xt, m).cpu().numpy()
+    kwp = dict(tol=1e-5 * float(np.linalg.norm(bp)), maxiter=8 * m + 200)
+    opp = PoissonOperator(m, device=dev)
+    dia = poisson3d_dia(m)
+    for label, o, kern in ((f"checkpointed Poisson m={m} slab", opp, "poisson3d_slab_cuda"),
+                           (f"checkpointed DIA m={m} band halo", dia, "dia_spmv_halo_cuda")):
+        kill_resume(label, lambda o=o: sharded_operator_cg_solve(o, bp, mesh=mesh, **kwp),
+                    lambda o=o, **k: sharded_operator_cg_solve_checkpointed(
+                        o, bp, mesh=mesh, **dict(kwp, **k)),
+                    16, 32, (kern, "dot_cuda", "fused_update_cuda"))
+    del opp, dia
+    nb_fem = float(np.linalg.norm(b_fem.astype(np.float64)))
+    well_need = ("well_spmv_cuda", "dot_cuda", "fused_update_cuda")
+    kwj = dict(precondition="jacobi", tol=1e-5 * nb_fem, maxiter=4000)
+    kill_resume(f"checkpointed FEM {A_fem.shape[0]} sharded WELL Jacobi",
+                lambda: sharded_operator_cg_solve(A_fem, b_fem, mesh=mesh, **kwj),
+                lambda **k: sharded_operator_cg_solve_checkpointed(A_fem, b_fem, mesh=mesh,
+                                                                   **dict(kwj, **k)),
+                256, 768, well_need, laps_want=fem_jacobi_laps,
+                io_ms=True)
+    t0 = time.perf_counter()
+    tl = build_two_level(A_fem, agg_size=64, npad=round_up(A_fem.shape[0], 128),
+                         smooth_degree=2, device=dev)
+    tl_s = time.perf_counter() - t0
+    kwt = dict(tol=1e-3 * nb_fem, maxiter=4000, two_level=tl)
+    plain_tl = lambda: sharded_operator_cg_solve(A_fem, b_fem, mesh=mesh, **kwt)  # noqa: E731
+    ck_tl = lambda **k: sharded_operator_cg_solve_checkpointed(  # noqa: E731
+        A_fem, b_fem, mesh=mesh, **dict(kwt, **k))
+    through, lt = drive(lambda: ck_tl(segment_iters=32))
+    ref_tl = plain_tl()
+    k, kr = int(through.iterations), int(ref_tl.iterations)
+    require(k == kr and torch.equal(through.x, ref_tl.x) and k % 16 == 0
+            and abs(k - fem_two_level_laps) <= 16,
+            f"FEM two-level checkpointed: {k} laps, uncheckpointed {kr}, phase 21 "
+            f"{fem_two_level_laps}")
+    counted("FEM two-level checkpointed", lt, well_need)
+    print(f"checkpointed FEM two-level agg 64 smooth 2 (built in {tl_s:.2f} s), tol 1e-3 ||b||, "
+          f"run through in segments of 32: {k} laps (phase 21's serial {fem_two_level_laps}), "
+          f"x bit-identical to the uncheckpointed sharded solve; " + launches("launches ", lt)
+          + f" {tag}")
+    kill_resume("checkpointed FEM two-level", plain_tl, ck_tl, 32, 32, well_need, stag=True)
+    del tl, ref_tl, through
+    print(f"M14 steps 6-7 operator checkpoints: {time.perf_counter() - t_phase:.1f} s so far")
+
+    # (b) The 1 x 1 2-D mesh against the 1-D one-rank solve, bit for bit.
+    refs = {}
+    for label, mkw in (("cg", {}), ("jacobi", {"precondition": "jacobi"}),
+                       ("pipelined", {"method": "pipelined"}), ("ca", {"method": "ca"}),
+                       ("chebyshev", {"method": "chebyshev"}), ("poly", {"precondition": "poly"}),
+                       ("bf16", {"storage_dtype": torch.bfloat16})):
+        one = sharded_cg_solve(A, b, x0, mesh=mesh, **kw, **mkw)
+        bf16_before = matvec_cuda.bf16_launches
+        res, launched = drive(lambda: sharded_cg_solve(A, b, x0, mesh=mesh2, **kw, **mkw))
+        bf16 = matvec_cuda.bf16_launches - bf16_before
+        same = torch.equal(res.x, one.x)
+        require(same and int(res.iterations) == int(one.iterations) and bool(res.converged),
+                f"1x1 {label}: laps {int(res.iterations)} (1-D {int(one.iterations)}), "
+                f"bit-identical {same}")
+        require(label != "bf16" or bf16 > 0, f"1x1 bf16: K1 bf16 launches {bf16}")
+        counted(f"1x1 {label}", launched, ("matvec_cuda", "dot_cuda"))
+        refs[label] = one
+        print(f"2-D 1x1 {label}: {int(res.iterations)} laps, x bit-identical to the 1-D one-rank "
+              f"solve; " + launches("launches ", launched) + f" {tag}")
+    B = np.random.default_rng(0).standard_normal((n, k_cols)).astype(np.float32)
+    tol_k = 1e-6 * float(np.linalg.norm(B[:, 0]))
+    refs["multi"] = sharded_cg_solve_multi(A, B, mesh=mesh, tol=tol_k, maxiter=2000)
+    refs["block"] = sharded_cg_solve_block(A, B, mesh=mesh, tol=tol_k, maxiter=2000)
+    refs["minres"] = sharded_minres_solve(A, b, x0, mesh=mesh, precondition="jacobi",
+                                          tol=1e-5 * float(np.linalg.norm(b)))
+    # Phase 21's clustered system (0.01, 0.02, 0.03 under a [1, 2] bulk).
+    rng_d = np.random.default_rng(0)
+    Qd, _ = torch.linalg.qr(torch.from_numpy(rng_d.standard_normal((n_defl, n_defl))).to(dev))
+    lam_d = torch.from_numpy(np.concatenate([[0.01, 0.02, 0.03],
+                                             1.0 + rng_d.uniform(0, 1, n_defl - 3)])).to(dev)
+    Ad = (Qd * lam_d) @ Qd.T
+    Ad = (0.5 * (Ad + Ad.T)).float().cpu().numpy()
+    bd_d = rng_d.standard_normal(n_defl).astype(np.float32)
+    Vd = Qd[:, :3].float().cpu().numpy()
+    del Qd
+    refs["deflated"] = sharded_cg_solve_deflated(Ad, bd_d, Vd, mesh=mesh,
+                                                 tol=1e-5 * float(np.linalg.norm(bd_d)),
+                                                 maxiter=4 * n_defl)
+    torch.distributed.destroy_process_group()
+    print(f"M14 steps 6-7, one NCCL rank: {time.perf_counter() - t_phase:.1f} s so far")
+
+    # K1 on every rank's block of the 2 x 2 and 1 x 4 worlds below, padded
+    # and column-permuted as distribute_system_2d lays them out, f32 and
+    # bf16, against its plain version: |y - y_plain| <= 1e-5 * max(|A| |x|),
+    # the 'kernels vs plain' phase's bound. These launches are not counted.
+    gen = torch.Generator(device=dev).manual_seed(1)
+    A_dev = op.A[:n, :n]
+    for R, C in ((2, 2), (1, 4)):
+        npad = summa_pad(n, R, C)
+        require(npad == n, f"summa_pad({n}, {R}, {C}) = {npad}: the blocks would hold padding")
+        rb, cb = npad // R, npad // C
+        perm = torch.as_tensor(_colperm_2d(npad, R, C), device=dev)
+        worst = dict.fromkeys((torch.float32, torch.bfloat16), 0.0)
+        for i in range(R):
+            for j in range(C):
+                blk32 = A_dev[i * rb:(i + 1) * rb].index_select(
+                    1, perm[j * cb:(j + 1) * cb]).contiguous()
+                x = 2 * torch.rand(cb, generator=gen, device=dev) - 1
+                for blk in (blk32, blk32.to(torch.bfloat16)):
+                    y, y_ref = matvec_cuda(blk, x), matvec_torch(blk, x)
+                    scale = float((blk.float().abs() @ x.abs()).max())
+                    e = float((y - y_ref).abs().max())
+                    require(e <= 1e-5 * scale, f"K1 {R}x{C} block ({i}, {j}) {blk.dtype}: "
+                            f"err {e} scale {scale}")
+                    worst[blk.dtype] = max(worst[blk.dtype], e / scale)
+        del blk32, blk
+        print(f"K1 on the {R}x{C} blocks ({rb}, {cb}), every rank's, column-permuted: max abs err "
+              f"/ max(|A| |x|) f32 {worst[torch.float32]:.3e}, bf16 {worst[torch.bfloat16]:.3e} "
+              f"(bound 1e-5) {tag}")
+    del A_dev
+
+    # (c) Gloo worlds on the card: 4 ranks as 2 x 2 and 1 x 4, and 2 ranks
+    # with a file per rank, at once.
+    cfg = dict(k=k_cols, B_seed=0, tol_k=tol_k, seg=1, cap=2)
+    with tempfile.TemporaryDirectory() as d:
+        paths = {"dir": d}
+        for key, arr in (("A", A), ("b", b), ("x0", x0), ("A_defl", Ad), ("b_defl", bd_d),
+                         ("V_defl", Vd)):
+            paths[key] = str(Path(d) / f"{key}.npy")
+            np.save(paths[key], arr)
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            f4 = pool.submit(run_world, 4, card_m14s67_worker, args=(paths, cfg, str(dev)),
+                             rendezvous=str(Path(d) / "world4"), timeout_s=500)
+            f2 = pool.submit(run_world, 2, card_m14s67_files_worker,
+                             args=(paths, cfg, str(dev)), rendezvous=str(Path(d) / "world2"),
+                             timeout_s=500)
+            got4, got2 = f4.result(), f2.result()
+    print(f"gloo worlds of 4 and 2 ranks on {dev}, at once: {time.perf_counter() - t0:.1f} s "
+          f"with start-up ({got4['mesh']}; {got4[('repr', '2x2')]}; {got2['mesh']})")
+    ref_x = {label: r.x.cpu().numpy() for label, r in refs.items()}
+    for (label, shape), r in sorted((k_, v) for k_, v in got4.items()
+                                    if isinstance(k_, tuple) and k_[0] not in ("repr",)
+                                    and not k_[0].startswith("ckpt")):
+        one = refs[label]
+        laps, one_laps = np.asarray(r["laps"]), one.iterations.cpu().numpy()
+        se = scaled_err(r["x"].T, ref_x[label].T) if label in ("multi", "block") else \
+            scaled_err(r["x"], ref_x[label])
+        require(r["converged"] and np.abs(laps - one_laps).max() <= 1 and se <= 1e-4,
+                f"gloo 4 ranks {shape} {label}: laps {laps.tolist()} (one rank "
+                f"{one_laps.tolist()}), x {se:.3e}")
+        # k columns run a GEMM on the gathered block and torch dots (tpucg's
+        # jnp.matmul): no kernel of this package.
+        require(label in ("multi", "block")
+                or all(r["launches"][w] > 0 for w in ("matvec_cuda", "dot_cuda")),
+                f"gloo 4 ranks {shape} {label}: launches {r['launches']}")
+        print(f"  gloo 4 ranks {shape} {label}: laps {laps.tolist()} (one rank "
+              f"{one_laps.tolist()}), x within {se:.3e} of max |x|; {r['ms']:.1f} ms a solve "
+              f"with set-up (host clock), transport {r['transport_calls']} calls "
+              f"{r['transport_s'] * 1e3:.1f} ms; " + launches("launches (rank 0) ", r["launches"])
+              + f" {tag}")
+    require(got4["bf16_launches"] > 0,
+            f"gloo 4 ranks bf16: K1 bf16 launches {got4['bf16_launches']}")
+    for label, (calls, ms) in got4["per_lap"].items():
+        print(f"transport a lap, gloo 4 ranks on {dev}, dense n={n} {label}: {calls:g} calls, "
+              f"{ms:.4f} ms host {tag}")
+    pl = got4["per_lap"]
+    require(pl["1-D allgather"][0] == 3 and pl["2x2"][0] == 4 and pl["1x4"][0] == 3,
+            f"transport calls a lap: {pl}")
+    kr = got4[("ckpt_resumed", "2x2")]
+    require(got4["ckpt_kept"] and not got4["ckpt_left"] and got4["ckpt_bits"]
+            and kr["laps"] == got4[("ckpt_plain", "2x2")]["laps"]
+            and got4[("ckpt_killed", "2x2")]["laps"] == cfg["cap"],
+            f"gloo 4 ranks 2x2 checkpoint: kept {got4['ckpt_kept']}, left {got4['ckpt_left']}, "
+            f"bits {got4['ckpt_bits']}")
+    print(f"  gloo 4 ranks 2x2 checkpointed dense n={n}: killed at {cfg['cap']} laps, resumed to "
+          f"{kr['laps']} laps, x bit-identical to the uncheckpointed 2x2 solve; the whole-state "
+          f"file (rank 0 writes): one save {got4['ckpt_io_ms'][0]:.2f} ms, one resume "
+          f"{got4['ckpt_io_ms'][1]:.2f} ms (host clock, rank 0) {tag}")
+    require(got2["bits"] and got2["kept"] == [True, True, False] and not got2["left"]
+            and got2["resumed"]["laps"] == got2["plain"]["laps"]
+            and got2["killed"]["laps"] == cfg["cap"],
+            f"gloo 2 ranks per-rank files: {got2['kept']}, bits {got2['bits']}")
+    print(f"  gloo 2 ranks, dense n={n} loaded host-sharded (.npy): killed at {cfg['cap']} laps "
+          f"(a file per rank), resumed to {got2['resumed']['laps']} laps, x bit-identical to the "
+          f"uncheckpointed solve; one save {got2['io_ms'][0]:.2f} ms, one resume "
+          f"{got2['io_ms'][1]:.2f} ms (host clock, rank 0); "
+          + launches("launches (rank 0) ", got2["resumed"]["launches"]) + f" {tag}")
+    print(f"M14 steps 6-7: {time.perf_counter() - t_phase:.1f} s")
     return added
 
 
@@ -3684,6 +4024,12 @@ def main() -> int:
 
     with phase("M14 steps 4-5: host-sharded loading, then M12 on the mesh"):
         for kern, c in m14_s45_phase(dev, tag, drive, A_fem, b_fem, flagship[:3],
+                                     fem_jacobi_laps=FEM_SHARDED_JACOBI_LAPS,
+                                     fem_two_level_laps=FEM_TWO_LEVEL_LAPS).items():
+            counts[kern] = counts.get(kern, 0) + c
+
+    with phase("M14 steps 6-7: the checkpoint on the mesh, then the 2-D SUMMA decomposition"):
+        for kern, c in m14_s67_phase(dev, tag, drive, A_fem, b_fem, flagship[:3],
                                      fem_jacobi_laps=FEM_SHARDED_JACOBI_LAPS,
                                      fem_two_level_laps=FEM_TWO_LEVEL_LAPS).items():
             counts[kern] = counts.get(kern, 0) + c

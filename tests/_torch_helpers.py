@@ -1646,3 +1646,671 @@ def card_m14s45_worker(rank, nprocs, paths, fem_kw, n=2048, device="cuda:0"):
     A_ir = (A - (n - n / 32.0) * np.eye(n, dtype=np.float32)).astype(np.float32)
     timed("ir", lambda: sharded_cg_solve_ir(A_ir, b, mesh=mesh, tol=tol))
     return out
+
+
+# M14 step 7's cases, tpucg's tests/test_sharded2d.py and the 2-D cases of
+# test_ca.py, test_chebyshev.py and test_poly_precond.py with their systems
+# and seeds: name -> (solver, system, keyword arguments). Solvers: "cg"
+# (sharded_cg_solve), "minres", "deflated" (V "plain": the plain 2-D solve's
+# x; (seed, m): a random stack), "multi" and "block" (B (n, k) from seed
+# ``B``). Systems: ("gen", n, seed) generate_spd_system, ("shifted", n,
+# seed, f) its A - (n - n/f) I, ("scaled", n, seed) tpucg's badly
+# diagonal-scaled system, ("indefinite", n, seed) tpucg's 2-D MINRES
+# system, ("scaled_band", n, seed) the scaled staggered band of the M12
+# cases as a dense A (MINRES with Jacobi there stops in a few laps set by
+# the spectrum; on tpucg's indefinite system its laps move 192-195 between
+# tpucg's own meshes), ("golden",) the 4x4 golden. ``tol_rel`` is tol over
+# ||b||.
+SUMMA_SHAPES = ((2, 2), (1, 4), (4, 1))
+SUMMA_CASES = {
+    "oracle_n96": ("cg", ("gen", 96, 1), {}),
+    "padded_n67": ("cg", ("gen", 67, 3), {}),
+    "pipelined_n128": ("cg", ("gen", 128, 2), {"method": "pipelined", "tol_rel": 1e-5}),
+    "golden_4x4": ("cg", ("golden",), {}),
+    "jacobi_scaled_n96": ("cg", ("scaled", 96, 6), {"precondition": "jacobi", "tol_rel": 1e-5,
+                                                     "maxiter": 960}),
+    "record_n96": ("cg", ("shifted", 96, 19, 8.0), {"record_residuals": True}),
+    "ca_n96": ("cg", ("gen", 96, 1), {"method": "ca", "s_step": 3}),
+    "chebyshev_n96": ("cg", ("gen", 96, 1), {"method": "chebyshev", "maxiter": 768}),
+    "poly_n96": ("cg", ("shifted", 96, 7, 10.0), {"precondition": "poly", "poly_degree": 3,
+                                                   "tol_rel": 1e-5, "maxiter": 960}),
+    "bf16_n200": ("cg", ("gen", 200, 73), {"storage_dtype": "bf16", "tol_rel": 1e-4}),
+    "minres_n192": ("minres", ("indefinite", 192, 70), {"tol_rel": 1e-4, "maxiter": 768}),
+    "minres_jacobi_band512": ("minres", ("scaled_band", 512, 1), {
+        "tol_rel": 1e-4, "maxiter": 2048, "precondition": "jacobi"}),
+    "deflated_plain_n200": ("deflated", ("gen", 200, 71), {"V": "plain", "tol_rel": 1e-5}),
+    "deflated_jacobi_n200": ("deflated", ("gen", 200, 71), {"V": (72, 3), "tol_rel": 1e-5,
+                                                             "precondition": "jacobi"}),
+    "multi_k8_n200": ("multi", ("gen", 200, 80), {"B": 81, "tol": 1e-5}),
+    "block_k8_n200": ("block", ("gen", 200, 80), {"B": 81, "tol": 1e-5}),
+    "block_jacobi_k8_n200": ("block", ("gen", 200, 80), {"B": 81, "tol": 1e-5,
+                                                          "precondition": "jacobi"}),
+    "block_poly_k8_n200": ("block", ("gen", 200, 80), {"B": 81, "tol": 1e-5,
+                                                        "precondition": "poly",
+                                                        "poly_degree": 2}),
+}
+
+
+def summa_system(spec) -> dict:
+    """The NumPy system of a ``SUMMA_CASES`` case: A, b, x0 (or None)."""
+    from tpucg_torch.io.generator import generate_spd_system
+    from tpucg_torch.io.golden import GOLDEN_4X4
+
+    kind = spec[0]
+    if kind == "golden":
+        g = GOLDEN_4X4
+        return {"A": np.asarray(g["A"], np.float32), "b": np.asarray(g["b"], np.float32),
+                "x0": np.asarray(g["x0"], np.float32)}
+    n, seed = spec[1], spec[2]
+    if kind == "scaled":  # tpucg's test_2d_jacobi_matches_serial
+        rng = np.random.default_rng(seed)
+        Rm = rng.random((n, n))
+        d = 10.0 ** rng.uniform(-2, 2, n)
+        A = (((0.5 * (Rm + Rm.T) + n * np.eye(n)) * d).T * d).astype(np.float32)
+        x_true = rng.standard_normal(n)
+        return {"A": A, "b": (A @ x_true).astype(np.float32), "x0": None}
+    if kind == "indefinite":  # tpucg's test_minres_2d_indefinite
+        rng = np.random.default_rng(seed)
+        Q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+        lam = np.concatenate([-(1 + rng.uniform(0, 1, n // 2)),
+                              1 + rng.uniform(0, 1, n - n // 2)])
+        A = ((Q * lam) @ Q.T).astype(np.float32)
+        return {"A": 0.5 * (A + A.T), "b": rng.standard_normal(n).astype(np.float32),
+                "x0": None}
+    if kind == "scaled_band":
+        band = m12_system(("scaled_band_dense", n, seed))
+        return {"A": band["A"], "b": band["b"], "x0": None}
+    A, b, x0 = generate_spd_system(n, seed=seed)
+    if kind == "shifted":
+        A = (A - (n - n / spec[3]) * np.eye(n)).astype(np.float32)
+    return {"A": A, "b": b, "x0": x0}
+
+
+def summa_kwargs(name: str, s: dict, torch_dtypes: bool = True) -> dict:
+    """A case's solve keyword arguments (tol from ``tol_rel``; bf16 as the
+    package's dtype), its own entries (V, B) removed."""
+    kw = {k: v for k, v in SUMMA_CASES[name][2].items() if k not in ("V", "B")}
+    if "tol_rel" in kw:
+        kw["tol"] = kw.pop("tol_rel") * float(np.linalg.norm(s["b"]))
+    if kw.get("storage_dtype") == "bf16":
+        if torch_dtypes:
+            kw["storage_dtype"] = torch.bfloat16
+        else:
+            import ml_dtypes
+
+            kw["storage_dtype"] = ml_dtypes.bfloat16
+    return kw
+
+
+def summa_rhs(name: str, s: dict) -> np.ndarray:
+    """B of a multi or block case: (n, 8) from the case's seed."""
+    n = s["A"].shape[0]
+    return np.random.default_rng(SUMMA_CASES[name][2]["B"]).standard_normal(
+        (n, 8)).astype(np.float32)
+
+
+def solve_summa_case(mesh, name: str, s: dict = None) -> dict:
+    """One case of ``SUMMA_CASES`` through the port on ``mesh``; x,
+    iterations (a list for multi), converged, the residual history where
+    recorded, as NumPy."""
+    from tpucg_torch.solver.deflation import sharded_cg_solve_deflated
+    from tpucg_torch.solver.minres import sharded_minres_solve
+    from tpucg_torch.solver.sharded import (
+        sharded_cg_solve,
+        sharded_cg_solve_block,
+        sharded_cg_solve_multi,
+    )
+
+    solver, spec, raw = SUMMA_CASES[name]
+    s = summa_system(spec) if s is None else s
+    kw = summa_kwargs(name, s)
+    A, b, x0 = s["A"], s["b"], s["x0"]
+    if solver == "cg":
+        res = sharded_cg_solve(A, b, x0, mesh=mesh, **kw)
+    elif solver == "minres":
+        res = sharded_minres_solve(A, b, mesh=mesh, **kw)
+    elif solver == "deflated":
+        V = raw["V"]
+        if V == "plain":
+            V = sharded_cg_solve(A, b, mesh=mesh, **kw).x.cpu().numpy()
+        else:
+            V = np.random.default_rng(V[0]).standard_normal((b.shape[0], V[1]))
+        res = sharded_cg_solve_deflated(A, b, V.astype(np.float32), mesh=mesh, **kw)
+    else:
+        fn = sharded_cg_solve_multi if solver == "multi" else sharded_cg_solve_block
+        res = fn(A, summa_rhs(name, s), mesh=mesh, **kw)
+    hist = getattr(res, "residual_history", None)
+    return {"x": res.x.cpu().numpy(), "iterations": res.iterations.cpu().numpy().tolist(),
+            "converged": res.converged.cpu().numpy().tolist(),
+            "hist": None if hist is None else hist.cpu().numpy()}
+
+
+def sharded2d_worker(rank, nprocs, systems, shapes, device="cpu"):
+    """A rank of a world of R C ranks that runs every case of
+    ``SUMMA_CASES`` on each R x C mesh of ``shapes`` (gloo on ``device``),
+    each on its system in ``systems``; rank 0's results by (case, shape)."""
+    from tpucg_torch.comm.mesh import make_mesh2d
+
+    out = {}
+    try:  # a mesh smaller than the world: refused on every rank alike
+        make_mesh2d(1, nprocs // 2, device=device, backend="gloo")
+    except ValueError as e:
+        out["smaller_mesh"] = str(e)
+    for shape in shapes:
+        mesh = make_mesh2d(*shape, device=device, backend="gloo")
+        for name in SUMMA_CASES:
+            out[(name, shape)] = solve_summa_case(mesh, name, systems[name])
+        out[("stats", shape)] = dict(mesh.stats)
+    return out
+
+
+# M14 step 6's kill-and-resume cases on a mesh: name -> (kind, options).
+# "dense" runs sharded_cg_solve_checkpointed on the rank's block of
+# tpucg's conditioned checkpoint system shifted further
+# (tests/test_checkpoint.py ``_conditioned_system(96)`` is A - (n - n/8) I,
+# 8 laps; A - (n - n/16) I takes 13-14) loaded host-sharded;
+# "operator" sharded_operator_cg_solve_checkpointed on Poisson m = 8 slabs
+# (K9), its DIA form (K7) and the geometric 2000 graph as sharded WELL
+# (K13), Jacobi and the two-level cycle (agg 32); "2d" the dense host
+# system on the world's 2-D mesh. ``cap`` is the laps of the killed run,
+# ``seg`` the segment of both runs.
+CKPT_CASES = {
+    "dense_allgather": ("dense", {"strategy": "allgather", "seg": 4, "cap": 8}),
+    "dense_overlap_jacobi": ("dense", {"strategy": "overlap", "precondition": "jacobi",
+                                       "seg": 3, "cap": 6}),
+    "poisson_m8": ("operator", {"op": "poisson", "seg": 8, "cap": 16}),
+    "dia_m8_jacobi": ("operator", {"op": "dia", "precondition": "jacobi", "seg": 8, "cap": 16}),
+    "well_geo2000_jacobi": ("operator", {"op": "well", "precondition": "jacobi", "seg": 8,
+                                         "cap": 16}),
+    "well_geo2000_two_level": ("operator", {"op": "well", "two_level": 32, "seg": 16,
+                                            "cap": 16}),
+    "summa": ("2d", {"seg": 4, "cap": 8}),
+    "summa_jacobi": ("2d", {"precondition": "jacobi", "seg": 5, "cap": 10}),
+}
+
+
+def ckpt_systems(d: str) -> dict:
+    """The checkpoint cases' systems, made once by the caller: the dense
+    one written to text files under ``d`` (for load_system_sharded) and
+    kept whole (the 2-D cases'), Poisson's b, and the geometric graph."""
+    import os
+
+    from tpucg_torch.io.generator import generate_spd_system, random_geometric_spd
+    from tpucg_torch.io.textio import save_array
+
+    n = 96
+    A, b, x0 = generate_spd_system(n, seed=4)
+    A = (A - np.float32(n - n / 16.0) * np.eye(n, dtype=np.float32)).astype(np.float32)
+    paths = {k: os.path.join(d, f) for k, f in (("A", "A.txt"), ("b", "b.txt"),
+                                                 ("x0", "x0.txt"))}
+    save_array(paths["A"], A.ravel(), fmt="%r")
+    save_array(paths["b"], b, fmt="%r")
+    save_array(paths["x0"], x0, fmt="%r")
+    G, bg, _ = random_geometric_spd(2000, seed=9, avg_degree=8.0)
+    rng = np.random.default_rng(5)
+    return {"dense": (A, b, x0), "paths": paths, "poisson_b": rng.standard_normal(512).astype(
+        np.float32), "geo": (G, bg.astype(np.float32))}
+
+
+def ckpt_case_run(mesh, mesh2d, name, systems):
+    """The case's pieces on this rank: (uncheckpointed solve, checkpointed
+    solve as a function of its keyword arguments)."""
+    from tpucg_torch.io.generator import poisson3d_dia
+    from tpucg_torch.solver.checkpoint import (
+        sharded_cg_solve_checkpointed,
+        sharded_operator_cg_solve_checkpointed,
+    )
+    from tpucg_torch.solver.operators import PoissonOperator
+    from tpucg_torch.solver.sharded import (
+        load_system_sharded,
+        sharded_cg_solve,
+        sharded_operator_cg_solve,
+    )
+    from tpucg_torch.solver.twolevel import build_two_level
+
+    kind, o = CKPT_CASES[name]
+    pc = o.get("precondition", "none")
+    if kind == "dense":
+        p = systems["paths"]
+        from tpucg_torch.config import CGConfig
+
+        system = load_system_sharded(p["A"], p["b"], p["x0"], mesh=mesh, strategy=o["strategy"],
+                                     config=CGConfig(precondition=pc))
+        kw = dict(strategy=o["strategy"], precondition=pc,
+                  tol=1e-5 * float(np.linalg.norm(systems["dense"][1])), maxiter=400)
+        return (lambda: sharded_cg_solve(system, mesh=mesh, **kw),
+                lambda **k: sharded_cg_solve_checkpointed(system, mesh=mesh, **dict(kw, **k)))
+    if kind == "2d":
+        A, b, x0 = systems["dense"]
+        kw = dict(precondition=pc, tol=1e-5 * float(np.linalg.norm(b)), maxiter=400)
+        return (lambda: sharded_cg_solve(A, b, x0, mesh=mesh2d, **kw),
+                lambda **k: sharded_cg_solve_checkpointed(A, b, x0, mesh=mesh2d,
+                                                          **dict(kw, **k)))
+    tl = None
+    if o["op"] == "poisson":
+        op, b = PoissonOperator(8, device=mesh.device), systems["poisson_b"]
+    elif o["op"] == "dia":
+        op, b = poisson3d_dia(8), systems["poisson_b"]
+    else:
+        op, b = systems["geo"]
+        if "two_level" in o:
+            npad = -(-op.shape[0] // (128 * mesh.size)) * 128 * mesh.size
+            tl = build_two_level(op, agg_size=o["two_level"], npad=npad, device=mesh.device)
+    kw = dict(precondition=pc, tol=1e-5 * float(np.linalg.norm(b)), maxiter=2000)
+    return (lambda: sharded_operator_cg_solve(op, b, mesh=mesh, two_level=tl, **kw),
+            lambda **k: sharded_operator_cg_solve_checkpointed(op, b, mesh=mesh, two_level=tl,
+                                                               **dict(kw, **k)))
+
+
+def _files_of(path, size):
+    import os
+
+    return [os.path.exists(path)] + [os.path.exists(f"{path}.proc{r}") for r in range(size)]
+
+
+def _raised_everywhere(mesh, fn) -> dict:
+    """Run ``fn`` on every rank; -> the exception's type and message on this
+    rank (None if it returned) and how many ranks raised (a gather after
+    the call: a rank left waiting inside it would hang the world)."""
+    try:
+        fn()
+        err = None
+    except Exception as e:  # noqa: BLE001 - the refusal under test
+        err = (type(e).__name__, str(e))
+    n_raised = int(mesh.host_sum(np.array([err is not None], np.int64))[0])
+    return {"error": err, "ranks_raised": n_raised}
+
+
+def sharded_checkpoint_worker(rank, nprocs, d, systems, tpucg_2d_file=None, device="cpu"):
+    """A rank of a gloo world that runs ``CKPT_CASES``, each killed at a
+    segment boundary (``cap`` laps, the file kept) and resumed in a fresh
+    call, against the uncheckpointed sharded solve; then the refusals,
+    each raised on every rank; then (given) the resume of tpucg's 2 x 2
+    whole-state file. Rank 0's results."""
+    import os
+    import shutil
+
+    from tpucg_torch.comm.mesh import make_mesh, make_mesh2d
+    from tpucg_torch.solver.checkpoint import sharded_cg_solve_checkpointed
+    from tpucg_torch.solver.sharded import sharded_cg_solve
+
+    mesh = make_mesh(device=device, backend="gloo")
+    mesh2d = make_mesh2d(2, nprocs // 2, device=device, backend="gloo")
+    out = {}
+    for name in CKPT_CASES:
+        plain, ck = ckpt_case_run(mesh, mesh2d, name, systems)
+        _, o = CKPT_CASES[name]
+        path = os.path.join(d, f"{name}.npz")
+        ref = plain()
+        capped = ck(segment_iters=o["seg"], maxiter=o["cap"], checkpoint_path=path)
+        kept = _files_of(path, nprocs)
+        mesh.host_max(np.zeros(1))  # every rank has looked before any resumes
+        res = ck(segment_iters=o["seg"], checkpoint_path=path)
+        out[name] = {
+            "ref_laps": int(ref.iterations), "laps": int(res.iterations),
+            "capped_laps": int(capped.iterations), "capped_converged": bool(capped.converged),
+            "converged": bool(res.converged), "bits": torch.equal(ref.x, res.x),
+            "x": res.x.cpu().numpy(), "kept": kept, "left": _files_of(path, nprocs)}
+    # Refusals, each decided alike on every rank.
+    _, ck = ckpt_case_run(mesh, mesh2d, "dense_allgather", systems)
+    path = os.path.join(d, "refuse.npz")
+    ck(segment_iters=2, maxiter=2, checkpoint_path=path)
+    out["tol"] = _raised_everywhere(mesh, lambda: ck(checkpoint_path=path, tol=1e-3))
+    out["precondition"] = _raised_everywhere(
+        mesh, lambda: ck(checkpoint_path=path, precondition="jacobi"))
+    A, b, x0 = systems["dense"]
+    from tpucg_torch.solver.sharded import distribute_system
+
+    other = distribute_system(A, 2.0 * b, x0, mesh)
+    kw = dict(tol=1e-5 * float(np.linalg.norm(b)), maxiter=400)
+    out["signature"] = _raised_everywhere(
+        mesh, lambda: sharded_cg_solve_checkpointed(other, mesh=mesh, checkpoint_path=path, **kw))
+    small = distribute_system(A[:64, :64], b[:64], None, mesh)
+    out["n"] = _raised_everywhere(
+        mesh, lambda: sharded_cg_solve_checkpointed(small, mesh=mesh, checkpoint_path=path,
+                                                    **kw))
+    out["host_arrays"] = _raised_everywhere(
+        mesh, lambda: sharded_cg_solve_checkpointed(A, b, x0, mesh=mesh, **kw))
+    # A torn generation: rank 1's file from the segment before.
+    torn = os.path.join(d, "torn.npz")
+    ck(segment_iters=2, maxiter=2, checkpoint_path=torn)
+    if rank == 1:
+        shutil.copy(f"{torn}.proc1", os.path.join(d, "old.proc1"))
+    mesh.host_max(np.zeros(1))
+    ck(segment_iters=2, maxiter=4, checkpoint_path=torn)
+    if rank == 1:
+        shutil.copy(os.path.join(d, "old.proc1"), f"{torn}.proc1")
+    mesh.host_max(np.zeros(1))
+    out["torn"] = _raised_everywhere(mesh, lambda: ck(checkpoint_path=torn))
+    # Files written by a world of another size: this rank's file says so.
+    topo = os.path.join(d, "topo.npz")
+    ck(segment_iters=2, maxiter=2, checkpoint_path=topo)
+    with np.load(f"{topo}.proc{rank}") as z:
+        fields = dict(z)
+    fields["process_count"] = np.int64(2 * nprocs)
+    np.savez(f"{topo}.proc{rank}.npz", **fields)
+    os.replace(f"{topo}.proc{rank}.npz", f"{topo}.proc{rank}")
+    mesh.host_max(np.zeros(1))
+    out["topology"] = _raised_everywhere(mesh, lambda: ck(checkpoint_path=topo))
+    # A file on some ranks only.
+    some = os.path.join(d, "some.npz")
+    ck(segment_iters=2, maxiter=2, checkpoint_path=some)
+    mesh.host_max(np.zeros(1))
+    if rank == nprocs - 1:
+        os.remove(f"{some}.proc{rank}")
+    mesh.host_max(np.zeros(1))
+    out["missing"] = _raised_everywhere(mesh, lambda: ck(checkpoint_path=some))
+    if tpucg_2d_file is not None:
+        res = sharded_cg_solve_checkpointed(A, b, x0, mesh=mesh2d, segment_iters=4,
+                                            checkpoint_path=tpucg_2d_file, **kw)
+        out["tpucg_2d"] = {"laps": int(res.iterations), "converged": bool(res.converged),
+                           "x": res.x.cpu().numpy(), "left": os.path.exists(tpucg_2d_file)}
+        out["tpucg_2d_plain"] = sharded_cg_solve(A, b, x0, mesh=mesh2d, **kw).x.cpu().numpy()
+    return out
+
+
+def mp_dense_worker(rank, nprocs, workdir):
+    """A rank of the port's multi-process battery (tpucg's
+    ``tests/_mp_worker.py`` main mode on a gloo world): host-sharded loading
+    of the text system with each rank's parsed row ranges recorded, the
+    solve under both strategies, the per-rank checkpoint capped and resumed,
+    Chebyshev, block CG and block Jacobi; rank 0 writes the results to
+    ``workdir`` as tpucg's worker does, every rank its reads."""
+    import json
+    import os
+
+    import tpucg_torch.io.textio as textio
+    from tpucg_torch.comm.mesh import make_mesh
+    from tpucg_torch.config import CGConfig
+    from tpucg_torch.solver.checkpoint import _mp_path, sharded_cg_solve_checkpointed
+    from tpucg_torch.solver.sharded import (
+        load_system_sharded,
+        sharded_cg_solve,
+        sharded_cg_solve_block,
+    )
+
+    reads = []
+    orig = textio.load_matrix_rows
+
+    def traced(path, r0, r1, ncols):
+        reads.append([int(r0), int(r1)])
+        return orig(path, r0, r1, ncols)
+
+    textio.load_matrix_rows = traced
+    mesh = make_mesh(device="cpu", backend="gloo")
+    files = [os.path.join(workdir, f) for f in ("A.txt", "b.txt", "x0.txt")]
+    put = (lambda name, v: np.save(os.path.join(workdir, name), v)) if rank == 0 \
+        else (lambda name, v: None)
+
+    def meta(name, d):
+        if rank == 0:
+            with open(os.path.join(workdir, name), "w") as f:
+                json.dump(d, f)
+    for strategy in ("allgather", "overlap"):
+        system = load_system_sharded(*files, mesh=mesh, strategy=strategy)
+        n = system.n
+        res = sharded_cg_solve(system, mesh=mesh, strategy=strategy)
+        put(f"x_{strategy}.npy", res.x.numpy())
+        meta(f"meta_{strategy}.json", {"iterations": int(res.iterations),
+                                       "converged": bool(res.converged),
+                                       "residual_norm": float(res.residual_norm)})
+    system = load_system_sharded(*files, mesh=mesh)
+    ckpt = os.path.join(workdir, "cg.ckpt")
+    res_cap = sharded_cg_solve_checkpointed(system, mesh=mesh, segment_iters=2, maxiter=2,
+                                            checkpoint_path=ckpt)
+    assert not bool(res_cap.converged), "n=72 system converged in 2 laps?"
+    assert os.path.exists(_mp_path(ckpt, rank)), "capped exit left no shard file"
+    res_ck = sharded_cg_solve_checkpointed(system, mesh=mesh, segment_iters=3,
+                                           checkpoint_path=ckpt)
+    assert not os.path.exists(_mp_path(ckpt, rank)), "converged solve must clean up"
+    res_plain = sharded_cg_solve(system, mesh=mesh)
+    put("x_ckpt.npy", res_ck.x.numpy())
+    put("x_ckpt_plain.npy", res_plain.x.numpy())
+    meta("meta_ckpt.json", {"iterations": int(res_ck.iterations),
+                            "converged": bool(res_ck.converged),
+                            "plain_iterations": int(res_plain.iterations)})
+    res_ch = sharded_cg_solve(system, mesh=mesh, method="chebyshev", maxiter=8 * n)
+    A_full, _, _ = textio.load_system(*files)
+    Bk = np.random.default_rng(3).standard_normal((n, 3)).astype(np.float32)
+    res_blk = sharded_cg_solve_block(np.asarray(A_full), Bk, mesh=mesh)
+    # Block Jacobi with shard-local blocks of 8 (the partition aligns to them).
+    system_bj = load_system_sharded(*files, mesh=mesh,
+                                    config=CGConfig(precondition="block_jacobi",
+                                                    pc_block_size=8))
+    res_bj = sharded_cg_solve(system_bj, mesh=mesh, precondition="block_jacobi", pc_block_size=8)
+    put("x_cheb.npy", res_ch.x.numpy())
+    put("x_block.npy", res_blk.x.numpy())
+    put("x_bj.npy", res_bj.x.numpy())
+    meta("meta_arms.json", {"cheb_converged": bool(res_ch.converged),
+                            "cheb_iterations": int(res_ch.iterations),
+                            "block_converged": bool(res_blk.converged.all()),
+                            "block_iterations": int(res_blk.iterations),
+                            "bj_converged": bool(res_bj.converged)})
+    with open(os.path.join(workdir, f"reads_{rank}.json"), "w") as f:
+        json.dump(sorted(reads), f)
+    return True
+
+
+def mp_operator_worker(rank, nprocs, workdir):
+    """A rank of the port's wide operator battery (tpucg's ``_mp_worker.py``
+    operator mode on a gloo world): Poisson m = 8 slabs and their DIA form,
+    sharded WELL with the two-level cycle, and the indexed ``.mtx`` loaded
+    host-sharded with the cycle built from the parts, each rank's bytes
+    read written to ``workdir``. The DIA and WELL inputs are tpucg's
+    generators' arrays, read from ``workdir/ops.npz``."""
+    import json
+    import os
+
+    from tpucg_torch.comm.mesh import make_mesh
+    from tpucg_torch.solver.operators import PoissonOperator
+    from tpucg_torch.solver.sharded import load_well_system_sharded, sharded_operator_cg_solve
+    from tpucg_torch.solver.twolevel import build_two_level
+    from tpucg_torch.sparse.formats import CSRMatrix, DIAMatrix
+
+    mesh = make_mesh(device="cpu", backend="gloo")
+    with np.load(os.path.join(workdir, "ops.npz")) as z:
+        m = int(z["m"])
+        dia = DIAMatrix(offsets=z["dia_offsets"], data=z["dia_data"], shape=(m ** 3, m ** 3))
+        Aw = CSRMatrix(indptr=z["w_indptr"], indices=z["w_indices"], data=z["w_data"],
+                       shape=tuple(int(v) for v in z["w_shape"]))
+        bw = z["w_b"]
+    n = m ** 3
+    b = np.ones(n, np.float32)
+    tol = 1.0e-5 * float(np.linalg.norm(b))
+    res_p = sharded_operator_cg_solve(PoissonOperator(m, device="cpu"), b, mesh=mesh, tol=tol)
+    res_d = sharded_operator_cg_solve(dia, b, mesh=mesh, tol=tol)
+    tol_w = 1e-5 * float(np.linalg.norm(bw))
+    tl = build_two_level(Aw, agg_size=32, npad=1024, device="cpu")
+    res_w = sharded_operator_cg_solve(Aw, bw, mesh=mesh, tol=tol_w, two_level=tl)
+    sys_mtx = load_well_system_sharded(os.path.join(workdir, "G.mtx"),
+                                       os.path.join(workdir, "gb.npy"), mesh=mesh,
+                                       two_level_agg=32)
+    res_mx = sharded_operator_cg_solve(sys_mtx, mesh=mesh, tol=tol_w,
+                                       two_level=sys_mtx.two_level)
+    with open(os.path.join(workdir, f"mtx_bytes_{rank}.json"), "w") as f:
+        json.dump({"bytes_read": int(sys_mtx.bytes_read)}, f)
+    if rank == 0:
+        for name, r, k in (("poisson", res_p, n), ("dia", res_d, n), ("well2l", res_w, 1024),
+                           ("mtx", res_mx, sys_mtx.n)):
+            np.save(os.path.join(workdir, f"x_op_{name}.npy"), r.x.numpy()[:k])
+        with open(os.path.join(workdir, "meta_op.json"), "w") as f:
+            json.dump({"nproc": nprocs, "poisson_converged": bool(res_p.converged),
+                       "poisson_iterations": int(res_p.iterations),
+                       "dia_converged": bool(res_d.converged),
+                       "dia_iterations": int(res_d.iterations),
+                       "well2l_converged": bool(res_w.converged),
+                       "well2l_iterations": int(res_w.iterations),
+                       "mtx_converged": bool(res_mx.converged),
+                       "mtx_iterations": int(res_mx.iterations), "mtx_n": int(sys_mtx.n)}, f)
+    return True
+
+
+def _timed_run(mesh, rank, kernels, fn, sync):
+    """One solve with the world's transport counted from 0: its result's
+    laps (a list for k columns), x (rank 0), converged, host ms, transport
+    calls and seconds, and the kernels' launches on this rank."""
+    import time
+
+    sync()
+    mesh.stats.update(calls=0, seconds=0.0)
+    before = [w.launches for w in kernels]
+    t0 = time.perf_counter()
+    res = fn()
+    sync()
+    return {"x": res.x.cpu().numpy() if rank == 0 else None,
+            "laps": res.iterations.cpu().numpy().tolist(),
+            "converged": bool(res.converged.all()), "ms": (time.perf_counter() - t0) * 1e3,
+            "transport_calls": mesh.stats["calls"], "transport_s": mesh.stats["seconds"],
+            "launches": {w.__name__: w.launches - c for w, c in zip(kernels, before)}}
+
+
+def _per_lap(mesh, solve, sync):
+    """The transport's calls and host ms a lap of a capped classic solve:
+    the difference of 32 and 16 laps over 16."""
+    seen = {}
+    for laps in (16, 32):
+        sync()
+        mesh.stats.update(calls=0, seconds=0.0)
+        solve(laps)
+        sync()
+        seen[laps] = (mesh.stats["calls"], mesh.stats["seconds"])
+    return ((seen[32][0] - seen[16][0]) / 16, (seen[32][1] - seen[16][1]) / 16 * 1e3)
+
+
+def ckpt_io_ms(io, path, n, tol, sync):
+    """Host ms of one resume (``io.load``) and one save of its state through
+    the transport ``io`` (a copy beside ``path``, removed)."""
+    import time
+
+    sync()
+    t0 = time.perf_counter()
+    state, _, _, sig, pre, _ = io.load(path)
+    sync()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    io.save(path + ".timed", io.to_host(state), n, tol, sig, pre)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    io.remove(path + ".timed")
+    return save_ms, load_ms
+
+
+def card_m14s67_worker(rank, nprocs, paths, cfg, device="cuda:0"):
+    """A rank of a gloo world of 4 on ``device`` (``chip_smoke.py``'s phase
+    25; on the CPU with small sizes, its rehearsal): the dense system of
+    ``paths`` (.npy) on the 2 x 2 mesh (cg, pipelined, Jacobi, bf16
+    storage, multi-RHS and block CG at k = ``cfg["k"]``, deflated on the
+    clustered system of ``paths``, MINRES with Jacobi, the checkpoint killed
+    at ``cfg["cap"]`` laps and resumed) and on 1 x 4 (cg, pipelined); the
+    transport a lap on each and on the world's 1-D mesh (allgather). Rank
+    0's results, with its kernels' launches."""
+    import os
+
+    from tpucg_torch.comm.mesh import make_mesh, make_mesh2d
+    from tpucg_torch.kernels.blas1 import dot_cuda, fused_update_cuda
+    from tpucg_torch.kernels.dispatch import strict_f32
+    from tpucg_torch.kernels.matvec import matvec_cuda
+    from tpucg_torch.solver.checkpoint import _io_for, sharded_cg_solve_checkpointed
+    from tpucg_torch.solver.deflation import sharded_cg_solve_deflated
+    from tpucg_torch.solver.minres import sharded_minres_solve
+    from tpucg_torch.solver.sharded import (
+        sharded_cg_solve,
+        sharded_cg_solve_block,
+        sharded_cg_solve_multi,
+    )
+
+    strict_f32()
+    dev = torch.device(device)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    A, b, x0 = (np.load(paths[k]) for k in ("A", "b", "x0"))
+    Ad, bd, Vd = (np.load(paths[k]) for k in ("A_defl", "b_defl", "V_defl"))
+    B = np.random.default_rng(cfg["B_seed"]).standard_normal((A.shape[0], cfg["k"])).astype(
+        np.float32)
+    tol = 1e-6 * float(np.linalg.norm(b))
+    kernels = (matvec_cuda, dot_cuda, fused_update_cuda)
+    world = make_mesh(device=dev, backend="gloo")
+    out = {"mesh": repr(world)}
+    per_lap = {"1-D allgather": _per_lap(world, lambda k: sharded_cg_solve(
+        A, b, x0, mesh=world, tol=1e-30, maxiter=k, chunk=16), sync)}
+    for shape in ((2, 2), (1, 4)):
+        mesh = make_mesh2d(*shape, device=dev, backend="gloo")
+        tag = f"{shape[0]}x{shape[1]}"
+        out[("repr", tag)] = repr(mesh)
+
+        def run(label, fn):
+            out[(label, tag)] = _timed_run(mesh, rank, kernels, fn, sync)
+        base = dict(tol=tol, maxiter=2000)
+        run("cg", lambda: sharded_cg_solve(A, b, x0, mesh=mesh, **base))
+        run("pipelined", lambda: sharded_cg_solve(A, b, x0, mesh=mesh, method="pipelined",
+                                                  **base))
+        per_lap[tag] = _per_lap(mesh, lambda k: sharded_cg_solve(
+            A, b, x0, mesh=mesh, tol=1e-30, maxiter=k, chunk=16), sync)
+        if shape != (2, 2):
+            continue
+        run("jacobi", lambda: sharded_cg_solve(A, b, x0, mesh=mesh, precondition="jacobi",
+                                               **base))
+        bf16_before = matvec_cuda.bf16_launches
+        run("bf16", lambda: sharded_cg_solve(A, b, x0, mesh=mesh, storage_dtype=torch.bfloat16,
+                                             **base))
+        out["bf16_launches"] = matvec_cuda.bf16_launches - bf16_before
+        run("multi", lambda: sharded_cg_solve_multi(A, B, mesh=mesh, tol=cfg["tol_k"],
+                                                    maxiter=2000))
+        run("block", lambda: sharded_cg_solve_block(A, B, mesh=mesh, tol=cfg["tol_k"],
+                                                    maxiter=2000))
+        run("deflated", lambda: sharded_cg_solve_deflated(
+            Ad, bd, Vd, mesh=mesh, tol=1e-5 * float(np.linalg.norm(bd)),
+            maxiter=4 * Ad.shape[0]))
+        run("minres", lambda: sharded_minres_solve(A, b, x0, mesh=mesh, precondition="jacobi",
+                                                   tol=1e-5 * float(np.linalg.norm(b))))
+        path = os.path.join(paths["dir"], "summa.npz")
+        kw = dict(mesh=mesh, segment_iters=cfg["seg"], checkpoint_path=path, **base)
+        run("ckpt_plain", lambda: sharded_cg_solve(A, b, x0, mesh=mesh, **base))
+        run("ckpt_killed", lambda: sharded_cg_solve_checkpointed(A, b, x0, **dict(
+            kw, maxiter=cfg["cap"])))
+        out["ckpt_kept"] = os.path.exists(path)
+        out["ckpt_io_ms"] = ckpt_io_ms(_io_for(mesh), path, A.shape[0], tol, sync)
+        run("ckpt_resumed", lambda: sharded_cg_solve_checkpointed(A, b, x0, **kw))
+        out["ckpt_left"] = os.path.exists(path)
+        out["ckpt_bits"] = bool(rank != 0 or np.array_equal(out[("ckpt_resumed", tag)]["x"],
+                                                            out[("ckpt_plain", tag)]["x"]))
+    out["per_lap"] = per_lap
+    return out
+
+
+def card_m14s67_files_worker(rank, nprocs, paths, cfg, device="cuda:0"):
+    """A rank of a gloo world of 2 on ``device`` (phase 25): the dense
+    system of ``paths`` (.npy) loaded host-sharded, its checkpointed solve
+    killed at ``cfg["cap"]`` laps with a file per rank and resumed, against
+    the uncheckpointed solve; one save and one resume of the per-rank
+    files, timed. Rank 0's results."""
+    import os
+
+    from tpucg_torch.comm.mesh import make_mesh
+    from tpucg_torch.kernels.blas1 import dot_cuda, fused_update_cuda
+    from tpucg_torch.kernels.dispatch import strict_f32
+    from tpucg_torch.kernels.matvec import matvec_cuda
+    from tpucg_torch.solver.checkpoint import _io_for, sharded_cg_solve_checkpointed
+    from tpucg_torch.solver.sharded import load_system_sharded, sharded_cg_solve
+
+    strict_f32()
+    dev = torch.device(device)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    mesh = make_mesh(device=dev, backend="gloo")
+    system = load_system_sharded(paths["A"], paths["b"], paths["x0"], mesh=mesh)
+    b = np.load(paths["b"])
+    kw = dict(tol=1e-6 * float(np.linalg.norm(b)), maxiter=2000)
+    kernels = (matvec_cuda, dot_cuda, fused_update_cuda)
+    path = os.path.join(paths["dir"], "files.npz")
+    out = {"mesh": repr(mesh)}
+    out["plain"] = _timed_run(mesh, rank, kernels, lambda: sharded_cg_solve(system, mesh=mesh,
+                                                                            **kw), sync)
+    out["killed"] = _timed_run(mesh, rank, kernels, lambda: sharded_cg_solve_checkpointed(
+        system, mesh=mesh, segment_iters=cfg["seg"], checkpoint_path=path,
+        **dict(kw, maxiter=cfg["cap"])), sync)
+    out["kept"] = [os.path.exists(f"{path}.proc{r}") for r in range(nprocs)] + [
+        os.path.exists(path)]
+    out["io_ms"] = ckpt_io_ms(_io_for(mesh, per_rank=True), path, system.n, kw["tol"], sync)
+    out["resumed"] = _timed_run(mesh, rank, kernels, lambda: sharded_cg_solve_checkpointed(
+        system, mesh=mesh, segment_iters=cfg["seg"], checkpoint_path=path, **kw), sync)
+    out["left"] = any(os.path.exists(f"{path}.proc{r}") for r in range(nprocs))
+    out["bits"] = bool(rank != 0 or np.array_equal(out["resumed"]["x"], out["plain"]["x"]))
+    return out

@@ -268,10 +268,14 @@ def test_solve_strategy_mtx_distributes_the_promoted_operator(tmp_path, capsys, 
 
 
 def test_solve_strategy_summa_and_bench_without_card(tmp_path):
+    # tpucg's --strategy has no 2-D arm (its SUMMA decomposition is reached
+    # through the library's make_mesh2d): argparse refuses summa in both.
     A, b = SYSTEMS["poisson"]()
     pa, pb = _files(tmp_path, A, b)
-    with pytest.raises(NotImplementedError, match="SUMMA"):
-        cli.main(["solve", pa, pb, "--device", "cpu", "--strategy", "summa"])
+    for main in (cli.main, jcli.main):
+        with pytest.raises(SystemExit) as e:
+            main(["solve", pa, pb, "--strategy", "summa"])
+        assert e.value.code == 2
     if not torch.cuda.is_available():
         assert cli.main(["bench", "--compare-strategies", "--n", "128"]) == 2
         assert cli.main(["bench", "--strategy", "overlap", "--n", "128"]) == 2
@@ -351,22 +355,38 @@ def test_solve_minres_dense_text(tmp_path, capsys):
     np.testing.assert_allclose(load_vector(px, n=64), oracle_cg(A, b, x0)[0], atol=1e-4)
 
 
-def test_m12_options_refused_where_tpucg_refuses_or_on_the_mesh(tmp_path):
+def test_m12_options_refused_where_tpucg_refuses_or_on_the_mesh(tmp_path, capsys):
     A, b = SYSTEMS["fem"]()
     pa, pb = _files(tmp_path, A, b)
     with pytest.raises(SystemExit, match="do not apply to --method minres"):
         cli.main(["solve", pa, pb, "--device", "cpu", "--method", "minres",
                   "--two-level", "32"])
-    # On the mesh (M14 step 5 brought --two-level and --method minres there)
-    # what remains refused names its item: the 2-D SUMMA strategy (step 7)
-    # and the multi-process checkpoint (step 6), with either option.
+    # On the mesh (M14 step 5 brought --two-level and --method minres there,
+    # steps 6 and 7 the checkpoint): --strategy summa is argparse's refusal,
+    # as tpucg's; --checkpoint with --two-level runs the checkpointed
+    # operator solve under the cycle, laps and x bit for bit the command
+    # without --checkpoint; --checkpoint with --method minres is refused by
+    # the checkpointed solve's config (an unknown method there), a
+    # ValueError as in tpucg.
     ck = str(tmp_path / "ck.npz")
+    tol = repr(1e-3 * float(np.linalg.norm(b)))
     for flags in (["--two-level", "32"], ["--method", "minres"]):
-        with pytest.raises(NotImplementedError, match="M14 step 7"):
+        with pytest.raises(SystemExit):
             cli.main(["solve", pa, pb, "--device", "cpu", "--strategy", "summa"] + flags)
-        with pytest.raises(NotImplementedError, match="M14 step 6"):
-            cli.main(["solve", pa, pb, "--device", "cpu", "--strategy", "allgather",
-                      "--checkpoint", ck] + flags)
+    xs = [str(tmp_path / f"x{i}.txt") for i in range(2)]
+    laps = []
+    for extra, x in ((["--checkpoint", ck, "--segment-iters", "32"], xs[0]), ([], xs[1])):
+        rc, out, _, k = _run(cli.main, ["solve", pa, pb, "--device", "cpu", "--strategy",
+                                        "allgather", "--tol", tol, "--two-level", "32",
+                                        "--output", x] + extra, capsys)
+        assert rc == 0, out
+        laps.append(k)
+    assert laps[0] == laps[1]
+    np.testing.assert_array_equal(load_vector(xs[0], n=A.shape[0]),
+                                  load_vector(xs[1], n=A.shape[0]))
+    with pytest.raises(ValueError, match="method"):
+        cli.main(["solve", pa, pb, "--device", "cpu", "--strategy", "allgather",
+                  "--checkpoint", ck, "--method", "minres"])
     assert not os.path.exists(ck) and not torch.distributed.is_initialized()
     dense, rhs = str(tmp_path / "D.npy"), str(tmp_path / "r.npy")
     np.save(dense, np.eye(8, dtype=np.float32))
@@ -453,7 +473,7 @@ def test_solve_dense_checkpoint_resume_is_bit_identical(tmp_path, capsys):
     np.testing.assert_array_equal(load_vector(xa, n=n), load_vector(xb, n=n))
 
 
-def test_checkpoint_refusals(tmp_path):
+def test_checkpoint_refusals(tmp_path, capsys):
     A, b = SYSTEMS["geometric_shuffled"]()
     pa, pb = _files(tmp_path, A, b)
     ck = str(tmp_path / "ck.npz")
@@ -463,15 +483,25 @@ def test_checkpoint_refusals(tmp_path):
     with pytest.raises(SystemExit, match="bf16"):
         cli.main(["solve", pa, pb, "--device", "cpu", "--checkpoint", ck, "--strategy",
                   "allgather", "--storage", "bf16"])
-    with pytest.raises(NotImplementedError, match="M14 step 6"):
-        cli.main(["solve", pa, pb, "--device", "cpu", "--checkpoint", ck, "--strategy",
-                  "allgather"])
+    # --checkpoint with --strategy runs on the mesh (a world of one rank
+    # here): the sharded WELL solve in segments equals the one without
+    # them, laps and x bit for bit, and removes its file.
+    xs = [str(tmp_path / f"x{i}.txt") for i in range(2)]
+    laps = []
+    for extra, x in ((["--checkpoint", ck, "--segment-iters", "16"], xs[0]), ([], xs[1])):
+        rc, out, fmt, k = _run(cli.main, ["solve", pa, pb, "--device", "cpu", "--strategy",
+                                          "allgather", "--output", x] + extra, capsys)
+        assert rc == 0 and fmt == "WellOperator", out
+        laps.append(k)
+    assert "checkpointed every 16 iters" not in out and laps[0] == laps[1]
+    np.testing.assert_array_equal(load_vector(xs[0], n=A.shape[0]),
+                                  load_vector(xs[1], n=A.shape[0]))
     dense, rhs = str(tmp_path / "D.npy"), str(tmp_path / "r.npy")
     np.save(dense, np.eye(8, dtype=np.float32))
     np.save(rhs, np.ones(8, np.float32))
-    with pytest.raises(NotImplementedError, match="M14 step 6"):
-        cli.main(["solve", dense, rhs, "--device", "cpu", "--checkpoint", ck, "--strategy",
-                  "overlap"])
+    assert cli.main(["solve", dense, rhs, "--device", "cpu", "--checkpoint", ck, "--strategy",
+                     "overlap", "--output", xs[0]]) == 0
+    np.testing.assert_array_equal(load_vector(xs[0], n=8), np.ones(8, np.float32))
     with pytest.raises(ValueError, match="method='cg'"):
         cli.main(["solve", dense, rhs, "--device", "cpu", "--checkpoint", ck, "--method",
                   "pipelined"])

@@ -256,14 +256,14 @@ def test_recycling_with_two_level_on_fem_matches_tpucg():
 def test_recycling_refusals(tmp_path):
     A, _ = _clustered_spd(n=128, seed=40)
     # On a mesh (M14 step 5) it keeps tpucg's ValueError for two_level= and
-    # its checkpointed solve names the multi-process checkpoint (M14 step 6);
-    # test_torch_sharded_m12.py holds its solves to tpucg's.
+    # for a checkpointed solve (tpucg's "serial-only"); test_torch_sharded_m12.py
+    # holds its solves to tpucg's.
     from tpucg_torch.comm.mesh import Mesh
 
     mesh = Mesh(group=None, rank=0, size=1, device=CPU, backend="gloo")
     with pytest.raises(ValueError, match="serial-only"):
         RecyclingCG(A, mesh=mesh, two_level=object())
-    with pytest.raises(NotImplementedError, match="M14 step 6"):
+    with pytest.raises(ValueError, match="RecyclingCG checkpoint_path is serial-only"):
         RecyclingCG(A, mesh=mesh).solve(np.ones(128, np.float32),
                                         checkpoint_path=str(tmp_path / "mesh.npz"))
     # checkpoint_path= (M13) runs: the solve of the plain sequence, its file

@@ -374,9 +374,16 @@ def test_refusals_name_their_roadmap_item(one_rank):
         sharded_operator_cg_solve(no_main, np.ones(128, np.float32), mesh=one_rank)
     with pytest.raises(ValueError, match="strategy"):
         sharded_cg_solve(A, b, mesh=one_rank, strategy="ring")
-    # A 2-D mesh (tpucg's make_mesh2d, the SUMMA decomposition) names its item.
-    with pytest.raises(NotImplementedError, match="M14 step 7"):
+    # tpucg's own 2-D mesh is not a mesh of this package; the port's
+    # (make_mesh2d, the SUMMA decomposition) takes the dense solve and
+    # refuses the operator solve in tpucg's words (test_torch_sharded2d.py
+    # holds its solves to tpucg's).
+    with pytest.raises(TypeError, match="Mesh2D"):
         sharded_cg_solve(A, b, mesh=tpucg.make_mesh2d(2, 2))
+    from tpucg_torch.comm.mesh import make_mesh2d
+
+    with pytest.raises(ValueError, match="the 2-D SUMMA arm is dense"):
+        sharded_operator_cg_solve(op, b4, mesh=make_mesh2d(1, 1, device="cpu"))
 
 
 def test_mesh_surface(one_rank):

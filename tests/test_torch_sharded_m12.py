@@ -283,19 +283,35 @@ def test_refusals_and_messages(one_rank, tmp_path):
             sharded_cg_solve_ir(A64, b64, mesh=one_rank, **kw)
     with pytest.raises(ValueError, match="float32"):
         sharded_cg_solve_ir(A64, b64, mesh=one_rank, dtype=torch.float64)
-    # RecyclingCG on a mesh: tpucg's ValueError with two_level; the
-    # checkpointed solve (the multi-process checkpoint) names M14 step 6.
+    # RecyclingCG on a mesh: tpucg's ValueError with two_level, and for a
+    # checkpointed solve (tpucg's "serial-only").
     with pytest.raises(ValueError, match="serial-only"):
         RecyclingCG(A, mesh=one_rank, two_level=tl)
     rec = RecyclingCG(A64, mesh=one_rank)
-    with pytest.raises(NotImplementedError, match="M14 step 6"):
+    with pytest.raises(ValueError, match="RecyclingCG checkpoint_path is serial-only"):
         rec.solve(b64, checkpoint_path=str(tmp_path / "ck.npz"))
-    # A 2-D mesh (tpucg's make_mesh2d) names M14 step 7 in every M12 solve.
-    mesh2d = tpucg.make_mesh2d(2, 2)
-    for call in (lambda: sharded_cg_solve_deflated(A64, b64, np.ones((64, 1)), mesh=mesh2d),
-                 lambda: sharded_minres_solve(A64, b64, mesh=mesh2d),
-                 lambda: sharded_cg_solve_ir(A64, b64, mesh=mesh2d),
-                 lambda: sharded_operator_cg_solve(A, b, mesh=mesh2d),
-                 lambda: RecyclingCG(A64, mesh=mesh2d)):
-        with pytest.raises(NotImplementedError, match="M14 step 7"):
+    # The port's 2-D mesh (make_mesh2d, M14 step 7): IR and the operator
+    # solves refuse it in tpucg's words; the dense deflated, MINRES and
+    # recycling solves run their SUMMA arms (held to tpucg's in
+    # test_torch_sharded2d.py). tpucg's own mesh is not this package's.
+    from tpucg_torch.comm.mesh import make_mesh2d
+
+    mesh2d = make_mesh2d(1, 1, device="cpu")
+    with pytest.raises(ValueError, match="sharded_cg_solve_ir runs on 1-D meshes"):
+        sharded_cg_solve_ir(A64, b64, mesh=mesh2d)
+    with pytest.raises(ValueError, match="the 2-D SUMMA arm is dense"):
+        sharded_operator_cg_solve(A, b, mesh=mesh2d)
+    tol = 1e-5 * float(np.linalg.norm(b64))
+    for call in (lambda: sharded_cg_solve_deflated(A64, b64, np.ones((64, 1)), mesh=mesh2d,
+                                                   tol=tol),
+                 lambda: sharded_minres_solve(A64, b64, mesh=mesh2d, tol=tol),
+                 lambda: RecyclingCG(A64, mesh=mesh2d, tol=tol).solve(b64)):
+        assert bool(call().converged)
+    jmesh = tpucg.make_mesh2d(2, 2)
+    for call in (lambda: sharded_cg_solve_deflated(A64, b64, np.ones((64, 1)), mesh=jmesh),
+                 lambda: sharded_minres_solve(A64, b64, mesh=jmesh),
+                 lambda: sharded_cg_solve_ir(A64, b64, mesh=jmesh),
+                 lambda: sharded_operator_cg_solve(A, b, mesh=jmesh),
+                 lambda: RecyclingCG(A64, mesh=jmesh)):
+        with pytest.raises(TypeError, match="Mesh2D"):
             call()

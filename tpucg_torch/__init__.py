@@ -45,10 +45,14 @@ multi-RHS and block CG solves (K13 x k on WELL), and
 recycling, MINRES and refinement solves. ``load_system_sharded`` (dense
 text or ``.npy``) and ``load_well_system_sharded`` (an indexed ``.mtx``,
 with ``build_two_level_from_parts``) load host-sharded: each rank reads only
-its own rows. The package imports neither ``jax`` nor ``tpucg``.
+its own rows. ``make_mesh2d`` lays the ranks out R x C: the dense solves
+then run the 2-D SUMMA decomposition. ``sharded_cg_solve_checkpointed`` and
+``sharded_operator_cg_solve_checkpointed`` checkpoint the distributed
+solves (a file per rank, or the whole-state file). The package imports
+neither ``jax`` nor ``tpucg``.
 """
 
-from tpucg_torch.comm.mesh import Mesh, init_distributed, make_mesh
+from tpucg_torch.comm.mesh import Mesh, Mesh2D, init_distributed, make_mesh, make_mesh2d
 from tpucg_torch.config import CGConfig
 from tpucg_torch.io.generator import (
     fem_p1_system,
@@ -80,6 +84,8 @@ from tpucg_torch.solver.checkpoint import (
     cg_solve_checkpointed,
     load_checkpoint,
     save_checkpoint,
+    sharded_cg_solve_checkpointed,
+    sharded_operator_cg_solve_checkpointed,
 )
 from tpucg_torch.solver.deflation import (
     DeflationBasis,
@@ -104,8 +110,10 @@ from tpucg_torch.solver.operators import (
 from tpucg_torch.solver.oracle import oracle_cg
 from tpucg_torch.solver.sharded import (
     DistributedSystem,
+    DistributedSystem2D,
     WellShardedSystem,
     distribute_system,
+    distribute_system_2d,
     load_system_sharded,
     load_well_system_sharded,
     sharded_cg_solve,
@@ -141,18 +149,24 @@ __all__ = [
     "cg_solve_checkpointed",
     "load_checkpoint",
     "save_checkpoint",
+    "sharded_cg_solve_checkpointed",
+    "sharded_operator_cg_solve_checkpointed",
     "abs_inv_blocks",
     "minres_solve",
     "sharded_minres_solve",
     "sharded_cg_solve_ir",
     "DistributedSystem",
+    "DistributedSystem2D",
     "Mesh",
+    "Mesh2D",
     "WellShardedSystem",
     "distribute_system",
+    "distribute_system_2d",
     "init_distributed",
     "load_system_sharded",
     "load_well_system_sharded",
     "make_mesh",
+    "make_mesh2d",
     "sharded_cg_solve",
     "sharded_cg_solve_block",
     "sharded_cg_solve_multi",

@@ -24,10 +24,14 @@ blocks taken from its CSR).
 decompositions, tpucg's ``cli.py:374-400``).
 
 ``solve --checkpoint PATH --segment-iters N`` runs tpucg's segmented
-solve (``cg_solve_checkpointed``) on a dense or ``.mtx`` system, serially:
-the state goes to PATH every N laps, a run that stops unconverged (rc 3)
-leaves the file, and the same command run again resumes from it. The file
-is tpucg's, so either package's CLI resumes the other's.
+solve (``cg_solve_checkpointed``) on a dense or ``.mtx`` system: the state
+goes to PATH every N laps, a run that stops unconverged (rc 3) leaves the
+file, and the same command run again resumes from it. The file is tpucg's,
+so either package's CLI resumes the other's. With ``--strategy`` it runs on
+the mesh (tpucg's ``cli.py:375-387``): ``sharded_cg_solve_checkpointed``
+on the rank's host-sharded dense block (a file per rank on more than one
+rank) or ``sharded_operator_cg_solve_checkpointed`` on a sparse ``.mtx``
+(the whole-state file).
 
 ``solve --strategy allgather|overlap`` and ``bench --strategy ...`` /
 ``bench --compare-strategies`` (serial, allgather, overlap on the dense
@@ -67,28 +71,29 @@ def _check_solve_options(args) -> None:
         # solve without it would misstate the configuration (tpucg's check).
         raise SystemExit("--two-level/--interval do not apply to --method minres (MINRES "
                          "preconditioning is --precondition jacobi/block_jacobi)")
-    if args.strategy == "summa":
-        raise NotImplementedError("--strategy summa (the 2-D SUMMA decomposition) is ROADMAP "
-                                  "M14 step 7")
     if args.checkpoint is not None and args.interval is not None:
         raise SystemExit("--interval does not compose with --checkpoint")
 
 
-def _refuse_mesh_checkpoint(args) -> None:
-    if args.checkpoint is not None and args.strategy != "serial":
-        raise NotImplementedError("solve --checkpoint with --strategy (the multi-process "
-                                  "checkpoint) is ROADMAP M14 step 6")
+def _checkpoint_left(args, mesh) -> bool:
+    """The solve left its file: the whole-state one, or this rank's of a
+    per-rank checkpoint."""
+    paths = [args.checkpoint] + ([f"{args.checkpoint}.proc{mesh.rank}"] if mesh else [])
+    return any(os.path.exists(p) for p in paths)
 
 
-def _checkpoint_kw(args) -> dict:
-    """``cg_solve_checkpointed``'s options from the command line (method and
-    precondition forwarded, so its refusals fire), with tpucg's note that
-    no residual history is recorded."""
-    if args.residual_history:
+def _checkpoint_kw(args, mesh=None) -> dict:
+    """The checkpointed solves' options from the command line (method and
+    precondition forwarded, so their refusals fire; the strategy on a
+    mesh), with tpucg's note that no residual history is recorded."""
+    if args.residual_history and (mesh is None or mesh.rank == 0):
         print("note: --residual-history is not recorded by checkpointed solves")
-    return dict(tol=args.tol, maxiter=args.maxiter, kernel=args.kernel, method=args.method,
-                precondition=args.precondition, pc_block_size=args.pc_block_size,
-                segment_iters=args.segment_iters, checkpoint_path=args.checkpoint)
+    kw = dict(tol=args.tol, maxiter=args.maxiter, kernel=args.kernel, method=args.method,
+              precondition=args.precondition, pc_block_size=args.pc_block_size,
+              segment_iters=args.segment_iters, checkpoint_path=args.checkpoint)
+    if mesh is not None:
+        kw["strategy"] = args.strategy
+    return kw
 
 
 def _minres(op, b, x0, args, mesh=None):
@@ -207,9 +212,17 @@ def _cmd_solve_mtx(args, t_total0) -> int:
     from tpucg_torch.io.mmio import load_matrix_market
     from tpucg_torch.kernels.dispatch import canonical_device
     from tpucg_torch.solver.cg import cg_solve
-    from tpucg_torch.solver.checkpoint import cg_solve_checkpointed
+    from tpucg_torch.solver.checkpoint import (
+        cg_solve_checkpointed,
+        sharded_cg_solve_checkpointed,
+        sharded_operator_cg_solve_checkpointed,
+    )
     from tpucg_torch.solver.operators import DenseOperator, best_sparse_operator
-    from tpucg_torch.solver.sharded import sharded_cg_solve, sharded_operator_cg_solve
+    from tpucg_torch.solver.sharded import (
+        distribute_system,
+        sharded_cg_solve,
+        sharded_operator_cg_solve,
+    )
 
     mesh = None if args.strategy == "serial" else _mesh(args.device)
     device = canonical_device(args.device) if mesh is None else mesh.device
@@ -281,9 +294,18 @@ def _cmd_solve_mtx(args, t_total0) -> int:
         if well_mesh and args.storage == "bf16":
             raise SystemExit("--storage bf16 does not compose with --checkpoint on sharded "
                              "irregular (WELL) systems yet")
-        _refuse_mesh_checkpoint(args)
-        res = cg_solve_checkpointed(op, b, x0, two_level=two_level, device=device,
-                                    **_checkpoint_kw(args))
+        if mesh is None:
+            res = cg_solve_checkpointed(op, b, x0, two_level=two_level, device=device,
+                                        **_checkpoint_kw(args))
+        elif csr is None:
+            # A dense .mtx: every rank holds it, each places its own block.
+            res = sharded_cg_solve_checkpointed(
+                distribute_system(mat, b, x0, mesh, strategy=args.strategy),
+                mesh=mesh, **_checkpoint_kw(args, mesh))
+        else:
+            res = sharded_operator_cg_solve_checkpointed(sh_target, b, x0, mesh=mesh,
+                                                         two_level=two_level,
+                                                         **_checkpoint_kw(args, mesh))
     elif args.method == "minres":
         if well_mesh and args.storage == "bf16":
             print("note: --storage bf16 is serial-only for MINRES on irregular (WELL) systems; "
@@ -306,13 +328,13 @@ def _cmd_solve_mtx(args, t_total0) -> int:
         return 0 if bool(res.converged) else 3  # rank 0 reports and writes x
     print(f"system size          : {n} x {n}  [{fmt}]")
     print(f"device               : {device} [{op.backend}]{_ck_note(args)}" if mesh is None
-          else f"strategy             : {args.strategy} [{mesh!r}]")
+          else f"strategy             : {args.strategy} [{mesh!r}]{_ck_note(args)}")
     print(f"data load (s)        : {load_s:.6f}  (parse, reordering)")
     print(f"operator build (s)   : {build_s:.6f}  (promotion, packing, placement"
           + (", two-level set-up)" if two_level is not None else ")"))
     print(f"CG solve (s)         : {solve_s:.6f}")
     print(f"total (s)            : {time.perf_counter() - t_total0:.6f}")
-    return _report(args, res, perm, n)
+    return _report(args, res, perm, n, mesh)
 
 
 def _ck_note(args) -> str:
@@ -329,7 +351,7 @@ def _record(args) -> bool:
     return args.residual_history
 
 
-def _report(args, res, perm, n) -> int:
+def _report(args, res, perm, n, mesh=None) -> int:
     """The iterations, residual, convergence and x of a solve, as tpucg's
     CLI prints them; x un-permuted to the file's numbering."""
     import numpy as np
@@ -339,8 +361,8 @@ def _report(args, res, perm, n) -> int:
     print(f"iterations           : {int(res.iterations)}")
     print(f"final ||r||          : {float(res.residual_norm):.6e}")
     print(f"converged            : {bool(res.converged)}")
-    if args.checkpoint is not None and not bool(res.converged) and os.path.exists(
-            args.checkpoint):  # a stagnation stop is done: its file is removed
+    if args.checkpoint is not None and not bool(res.converged) and _checkpoint_left(
+            args, mesh):  # a stagnation stop is done: its file is removed
         print(f"checkpoint retained  : {args.checkpoint} (re-run to resume)")
     if res.residual_history is not None:
         hist = res.residual_history.cpu().numpy()
@@ -377,12 +399,11 @@ def cmd_solve(args) -> int:
     if args.two_level is not None:
         raise SystemExit("--two-level applies to sparse .mtx systems (dense systems converge in "
                          "O(10) laps already)")
-    _refuse_mesh_checkpoint(args)
     mesh = None if args.strategy == "serial" else _mesh(args.device)
     device = canonical_device(args.device) if mesh is None else mesh.device
     storage = torch.bfloat16 if args.storage == "bf16" else torch.float32
     system = None
-    if mesh is not None and args.method != "minres":
+    if mesh is not None and (args.method != "minres" or args.checkpoint is not None):
         # Host-sharded loading: each rank parses only its own rows (the
         # reference's rank 0 reads everything, parallel_cg.c:100-108).
         if args.storage == "bf16":
@@ -420,10 +441,16 @@ def cmd_solve(args) -> int:
     else:
         if system is None:  # --method minres: tpucg's CLI loads A whole there
             res = _minres(A, b, x0, args, mesh)
+        elif args.checkpoint is not None:
+            # tpucg's _cmd_solve_checkpointed on the mesh (cli.py:677-689).
+            from tpucg_torch.solver.checkpoint import sharded_cg_solve_checkpointed
+
+            res = sharded_cg_solve_checkpointed(system, mesh=mesh, n=n,
+                                                **_checkpoint_kw(args, mesh))
         else:
             res = sharded_cg_solve(system, mesh=mesh, strategy=args.strategy, n=n, **kw,
                                    **_method_kw(args))
-        where = f"{mesh!r}, strategy {args.strategy}"
+        where = f"{mesh!r}, strategy {args.strategy}{_ck_note(args)}"
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     solve_s = time.perf_counter() - t0
@@ -434,7 +461,7 @@ def cmd_solve(args) -> int:
     print(f"data load (s)        : {load_s:.6f}")
     print(f"CG solve (s)         : {solve_s:.6f}  (includes operator placement)")
     print(f"total (s)            : {time.perf_counter() - t_total0:.6f}")
-    return _report(args, res, None, n)
+    return _report(args, res, None, n, mesh)
 
 
 def cmd_selftest(args) -> int:
@@ -740,8 +767,9 @@ def build_parser() -> argparse.ArgumentParser:
     ps.add_argument("--residual-history", action="store_true")
     ps.add_argument("--checkpoint", default=None, metavar="PATH",
                     help="segmented solve with resumable .npz checkpoints at PATH (tpucg's "
-                         "file format; serial: the multi-process checkpoint is ROADMAP M14 "
-                         "step 6)")
+                         "file format); with --strategy it runs on the mesh: one rank writes "
+                         "PATH, more ranks PATH.proc<rank> each for a dense system and PATH "
+                         "for a sparse one")
     ps.add_argument("--segment-iters", type=int, default=128, dest="segment_iters",
                     help="laps per checkpoint segment")
     ps.add_argument("--print-solution", action="store_true")
@@ -760,13 +788,12 @@ def build_parser() -> argparse.ArgumentParser:
                          "for symmetric indefinite systems (--precondition none, jacobi or "
                          "block_jacobi; with --strategy on the mesh too)")
     ps.add_argument("--strategy", default="serial",
-                    choices=("serial", "allgather", "overlap", "summa"),
+                    choices=("serial", "allgather", "overlap"),
                     help="distributed row-block solve over torch.distributed (under "
                          "torchrun, or one rank), with every --method and --precondition "
                          "of a serial cg solve: allgather or overlap for a dense A, the "
                          "halo or gather decomposition of a DIA, ELL or BSR .mtx, row "
-                         "blocks of WELL for an irregular one; summa (2-D) is ROADMAP M14 "
-                         "step 7")
+                         "blocks of WELL for an irregular one")
     ps.add_argument("--two-level", type=int, default=None, metavar="AGG",
                     help="two-level preconditioning with AGG-row contiguous aggregates (.mtx "
                          "sparse systems, method cg or pipelined; with --strategy on the WELL "

@@ -29,8 +29,12 @@ through pinned host memory; ``repr(mesh)`` says so. That path is chosen by
 the backend, which the caller names: gloo on a card is never a fallback for
 NCCL. NCCL refuses two ranks on one card: ranks that share a card run gloo.
 
-2-D meshes (tpucg's ``make_mesh2d``, the SUMMA decomposition) are ROADMAP
-M14.
+A ``Mesh2D`` (tpucg's ``make_mesh2d``) lays the world's R x C ranks out
+row-major, rank r = i C + j, for the 2-D SUMMA decomposition: beside the
+world's ``Mesh`` it holds this rank's column group (ranks i' C + j, the
+direction's gather) and its row group (ranks i C + j', the partial
+products' sum), each a ``Mesh`` of its own on the world's device and
+backend, counting into the world's ``stats``.
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ import torch
 import torch.distributed as dist
 
 ROWS_AXIS = "rows"
+COLS_AXIS = "cols"
 
 # torch 2.13 names the gathering collective all_gather_single; the card's
 # torch (2.11) knows it as all_gather_into_tensor only.
@@ -235,3 +240,86 @@ def make_mesh(device=None, backend: Optional[str] = None) -> Mesh:
         torch.cuda.set_device(device)
     return Mesh(group=None, rank=dist.get_rank(), size=dist.get_world_size(), device=device,
                 backend=actual)
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh2D:
+    """One rank's view of an R x C mesh (tpucg's ``make_mesh2d``, axes
+    ``ROWS_AXIS`` and ``COLS_AXIS``): the ``world`` (rank r = i C + j in
+    row-major order), the ``col`` group of rank (i, j) (its R ranks i' C +
+    j, this rank's place i) and its ``row`` group (its C ranks i C + j',
+    place j). The world's collectives (``all_gather``, ``rank_sum`` over
+    all R C ranks in rank order, ``host_sum``, ``host_max``) are the mesh's
+    own, so the dots and gathers of the 1-D solves run on it unchanged; all
+    three groups count into the world's ``stats``."""
+
+    world: Mesh
+    rows: int
+    cols: int
+    col: Mesh
+    row: Mesh
+
+    rank = property(lambda self: self.world.rank)
+    size = property(lambda self: self.world.size)
+    device = property(lambda self: self.world.device)
+    backend = property(lambda self: self.world.backend)
+    stats = property(lambda self: self.world.stats)
+    staged = property(lambda self: self.world.staged)
+    shape = property(lambda self: (self.rows, self.cols))
+
+    @property
+    def i(self) -> int:
+        """This rank's mesh row."""
+        return self.rank // self.cols
+
+    @property
+    def j(self) -> int:
+        """This rank's mesh column."""
+        return self.rank % self.cols
+
+    def __repr__(self) -> str:
+        transport = ("gloo, point-to-point through pinned host memory" if self.staged
+                     else self.backend)
+        return (f"Mesh2D({ROWS_AXIS} x {COLS_AXIS} = {self.rows} x {self.cols}: rank "
+                f"{self.rank} = ({self.i}, {self.j}) on {self.device}, transport {transport})")
+
+    def all_gather(self, out: torch.Tensor, inp: torch.Tensor) -> torch.Tensor:
+        return self.world.all_gather(out, inp)
+
+    def rank_sum(self, partial: torch.Tensor) -> torch.Tensor:
+        return self.world.rank_sum(partial)
+
+    def host_sum(self, arr: np.ndarray) -> np.ndarray:
+        return self.world.host_sum(arr)
+
+    def host_max(self, arr: np.ndarray) -> np.ndarray:
+        return self.world.host_max(arr)
+
+
+def make_mesh2d(rows: int, cols: int, device=None, backend: Optional[str] = None) -> Mesh2D:
+    """The rows x cols mesh of this process's world (tpucg's
+    ``make_mesh2d``), which must hold rows * cols ranks; device and backend
+    as ``make_mesh``'s. Every rank creates the column groups, then the row
+    groups, in the same order (``dist.new_group`` is collective)."""
+    rows, cols = int(rows), int(cols)
+    if rows < 1 or cols < 1:
+        raise ValueError(f"a 2-D mesh needs rows, cols >= 1, got {rows}x{cols}")
+    world = make_mesh(device, backend)
+    if rows * cols > world.size:
+        raise ValueError(f"requested {rows}x{cols} mesh, only {world.size} ranks")
+    if rows * cols != world.size:
+        raise ValueError(f"a {rows}x{cols} mesh spans {rows * cols} ranks; this world has "
+                         f"{world.size}: the port's 2-D mesh is the whole world")
+
+    def group(ranks):
+        return None if len(ranks) == world.size else dist.new_group(ranks)
+
+    col_groups = [group([i * cols + j for i in range(rows)]) for j in range(cols)]
+    row_groups = [group([i * cols + j for j in range(cols)]) for i in range(rows)]
+    i, j = world.rank // cols, world.rank % cols
+
+    def sub(g, rank, size):
+        return Mesh(group=g, rank=rank, size=size, device=world.device,
+                    backend=world.backend, stats=world.stats)
+    return Mesh2D(world=world, rows=rows, cols=cols, col=sub(col_groups[j], i, rows),
+                  row=sub(row_groups[i], j, cols))

@@ -26,18 +26,44 @@ by O(1).
 A bare ``CSRMatrix`` is promoted by ``best_sparse_operator`` (DIA, BSR or
 WELL), as tpucg's checkpointed solve promotes it, while ``cg_solve`` and
 ``as_operator`` map a CSR to ELL; a file tpucg wrote for a bare CSR
-therefore resumes here. The multi-process checkpoint is ROADMAP M14 step 6.
+therefore resumes here.
+
+On a mesh (``sharded_cg_solve_checkpointed``,
+``sharded_operator_cg_solve_checkpointed``) every rank is a process, and the
+file a solve writes follows from how it was started:
+
+- one rank: tpucg's single-process whole-state file (``_CkptIO``), so a
+  file written by either package resumes in the other;
+- more than one rank, the 1-D dense solve: a file per rank,
+  ``<path>.proc<rank>``, tpucg's ``save_checkpoint_mp`` key for key (the
+  rank's rows of x, r and p, ``row_start``, ``npad``, the replicated
+  scalars, ``process_index`` and ``process_count``; ``_MpCkptIO``). It takes
+  a placed ``DistributedSystem`` (``load_system_sharded``), as tpucg's
+  multi-process path takes pre-sharded arrays, and refuses host arrays;
+- more than one rank, the 2-D and operator solves (tpucg has only the
+  single-process form of these, and every rank holds the host system):
+  the whole-state file, written by rank 0 after a gather of x, r and p;
+  on resume every rank reads it and keeps its own rows
+  (``_GatheredCkptIO``).
+
+Every refusal on a mesh is decided on values that every rank holds (one
+gather of each rank's view: whether its file exists, the topology, the
+generation), so no rank raises while another waits at a collective.
+tpucg's torn-write guard (``multihost_utils.assert_equal`` of k, rsold and
+rslast) is that gather, compared on every rank.
 """
 
 from __future__ import annotations
 
 import os
+import zlib
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from tpucg_torch.comm.mesh import Mesh, Mesh2D, make_mesh
 from tpucg_torch.config import CGConfig
 from tpucg_torch.kernels.dispatch import canonical_device, resolve_backend
 from tpucg_torch.solver.cg import (
@@ -52,8 +78,27 @@ from tpucg_torch.solver.cg import (
     block_jacobi_minv,
     cg_loop,
     init_state,
+    TorchLap,
     lap_ops,
     make_precond,
+)
+from tpucg_torch.solver.sharded import (
+    DistributedSystem,
+    DistributedSystem2D,
+    _check_2d_config,
+    _check_two_level_sharded,
+    _dense_matvec,
+    _gather_rows,
+    _operator_matvec,
+    _place_dense_1d,
+    _precond,
+    _prepare_sharded2d,
+    _prepare_sharded_operator,
+    _reductions,
+    _summa_matvec,
+    check_1d,
+    check_mesh,
+    operator_rhs,
 )
 
 
@@ -169,20 +214,231 @@ def _state_to_host(state: _State) -> dict:
                 done=np.bool_(h[3 * npad + 3] != 0))
 
 
+# --- the multi-process file and the transports ---------------------------------
+
+
+def _mp_path(path: str, rank: int) -> str:
+    """Rank ``rank``'s file of a per-rank checkpoint (tpucg's ``_mp_path``)."""
+    return f"{path}.proc{rank}"
+
+
+def save_checkpoint_mp(path: str, state, n: int, tol: float,
+                       signature: Optional[np.ndarray] = None, precondition: str = "none", *,
+                       mesh: Mesh) -> None:
+    """Write this rank's rows of the state (``state``'s x, r, p are the
+    rank's block, tensors or NumPy arrays; the scalars replicated) to
+    ``<path>.proc<rank>``, tpucg's ``save_checkpoint_mp`` key for key: x, r,
+    p f32 (blk,), ``row_start`` and ``npad`` int64, rsold and rslast f32
+    0-d, k int32 0-d, done bool 0-d, n int64, tol float64, the signature,
+    the preconditioner's identity as bytes, ``process_index`` (the rank)
+    and ``process_count`` (the world) int64. Atomic, as ``save_checkpoint``."""
+    h = _host_state(state)
+    blk = h["x"].shape[0]
+    real = _mp_path(path, mesh.rank)
+    tmp = real + ".tmp"
+    np.savez(tmp, x=h["x"], r=h["r"], p=h["p"], row_start=np.int64(mesh.rank * blk),
+             npad=np.int64(mesh.size * blk), rsold=h["rsold"], rslast=h["rslast"], k=h["k"],
+             done=h["done"], n=np.int64(n), tol=np.float64(tol),
+             signature=np.zeros(0) if signature is None else np.asarray(signature),
+             precondition=np.bytes_(precondition.encode()),
+             process_index=np.int64(mesh.rank), process_count=np.int64(mesh.size))
+    os.replace(tmp if tmp.endswith(".npz") else tmp + ".npz", real)
+
+
+def _gather_host(mesh: Mesh, vals) -> np.ndarray:
+    """Every rank's int64 ``vals`` -> (size, len) on every rank, one gather."""
+    t = torch.tensor(np.asarray(vals, np.int64), device=mesh.device)
+    out = torch.empty(mesh.size * t.numel(), dtype=torch.int64, device=mesh.device)
+    mesh.all_gather(out, t)
+    return out.cpu().numpy().reshape(mesh.size, -1)
+
+
+def _bits(v, dtype) -> int:
+    """A scalar's bits as an int (NaN payloads and -0 kept apart)."""
+    return int(np.asarray(v, dtype).reshape(1).view(np.int32 if dtype == np.float32
+                                                    else np.int64)[0])
+
+
+def load_checkpoint_mp(path: str, mesh: Mesh):
+    """Read this rank's file of a per-rank checkpoint -> (state, n, tol,
+    signature, precondition), the state's x, r, p the rank's rows on the
+    mesh's device. Every rank gathers every rank's view of its file, then
+    refuses the same way (tpucg's ``load_checkpoint_mp`` checks and its
+    torn-write guard): a file missing on some ranks, another world size,
+    a file of another rank or row block, or files of different generations
+    (k, rsold, rslast, or the solve's identity differing)."""
+    own = _mp_path(path, mesh.rank)
+    meta = None
+    if os.path.exists(own):
+        with np.load(own) as z:
+            blocks = {key: np.array(z[key], np.float32) for key in ("x", "r", "p")}
+            sc = {key: np.asarray(z[key]) for key in ("k", "rsold", "rslast", "done")}
+            meta = (int(z["n"]), float(z["tol"]), np.asarray(z["signature"]),
+                    bytes(z["precondition"]).decode())
+            view = [1, int(z["process_count"]), int(z["process_index"]), int(z["row_start"]),
+                    int(z["npad"]), int(sc["k"]), _bits(sc["rsold"], np.float32),
+                    _bits(sc["rslast"], np.float32), int(bool(sc["done"])), meta[0],
+                    _bits(meta[1], np.float64), zlib.crc32(meta[3].encode()),
+                    zlib.crc32(np.asarray(meta[2], np.float64).tobytes())]
+    if meta is None:
+        view = [0] * 13
+    views = _gather_host(mesh, view)
+    have = views[:, 0] == 1
+    counts = sorted({int(c) for c in views[have, 1]})
+    if any(c != mesh.size for c in counts):
+        raise ValueError(f"checkpoint {path!r} was written by {counts[-1]} processes; this run "
+                         f"has {mesh.size} — resume on the same topology")
+    if not have.all():
+        raise ValueError(f"checkpoint {path!r} is torn across processes (no file for ranks "
+                         f"{np.flatnonzero(~have).tolist()}); delete and restart")
+    if (views[:, 2] != np.arange(mesh.size)).any():
+        bad = int(np.flatnonzero(views[:, 2] != np.arange(mesh.size))[0])
+        raise ValueError(f"{_mp_path(path, bad)!r} belongs to process {int(views[bad, 2])}, "
+                         f"not {bad}")
+    blk = views[0, 4] // mesh.size
+    if (views[:, 3] != np.arange(mesh.size) * blk).any() or (views[:, 4] != views[0, 4]).any():
+        raise ValueError(f"checkpoint {path!r}'s row blocks do not cover this mesh's ranks "
+                         "— mesh layout changed")
+    if (views[:, 5:] != views[0, 5:]).any():
+        raise ValueError(f"checkpoint {path!r} is torn across processes (per-process files "
+                         "carry different iteration states); delete and restart")
+    dev = mesh.device
+
+    def put(a, dtype):
+        return torch.from_numpy(np.array(a, dtype=dtype)).to(dev)
+    state = _State(k=put(sc["k"], np.int32), x=put(blocks["x"], np.float32),
+                   r=put(blocks["r"], np.float32), p=put(blocks["p"], np.float32),
+                   rsold=put(sc["rsold"], np.float32), rslast=put(sc["rslast"], np.float32),
+                   done=put(sc["done"], np.bool_))
+    return (state,) + meta
+
+
+def _agreed(mesh: Mesh, flag: bool, what: str) -> bool:
+    """A flag every rank must hold alike, gathered: the same on every rank,
+    or the same ``ValueError`` on every rank."""
+    flags = _gather_host(mesh, [int(bool(flag))])[:, 0]
+    if flags.min() != flags.max():
+        raise ValueError(f"{what} on ranks {np.flatnonzero(flags).tolist()} only; every rank "
+                         "must see the same checkpoint")
+    return bool(flags[0])
+
+
+def _barrier(mesh: Mesh) -> None:
+    _gather_host(mesh, [0])
+
+
+class _CkptIO:
+    """One process: tpucg's whole-state file (``save_checkpoint``). ``load``
+    returns the file's state, n, tol, signature, identity and padded
+    size."""
+
+    def __init__(self, device):
+        self.device = device
+
+    def exists(self, path: str) -> bool:
+        return os.path.exists(path)
+
+    def to_host(self, state: _State) -> dict:
+        return _state_to_host(state)
+
+    def save(self, path: str, host: dict, n: int, tol: float, signature, precondition) -> None:
+        save_checkpoint(path, host, n, tol, signature=signature, precondition=precondition)
+
+    def load(self, path: str):
+        state, n, tol, sig, pre = load_checkpoint(path, self.device)
+        return state, n, tol, sig, pre, int(state.x.shape[0])
+
+    def remove(self, path: str) -> None:
+        if os.path.exists(path):
+            os.remove(path)
+
+
+class _MpCkptIO(_CkptIO):
+    """More than one rank, the 1-D dense solve: a file per rank
+    (``save_checkpoint_mp``); the state's vectors are the rank's rows."""
+
+    def __init__(self, mesh: Mesh):
+        super().__init__(mesh.device)
+        self.mesh = mesh
+
+    def exists(self, path: str) -> bool:
+        # A file on some ranks only is decided by the load's gather.
+        flags = _gather_host(self.mesh, [int(os.path.exists(_mp_path(path, self.mesh.rank)))])
+        return bool(flags.max())
+
+    def save(self, path, host, n, tol, signature, precondition) -> None:
+        save_checkpoint_mp(path, host, n, tol, signature, precondition, mesh=self.mesh)
+        _barrier(self.mesh)
+
+    def load(self, path: str):
+        state, n, tol, sig, pre = load_checkpoint_mp(path, self.mesh)
+        return state, n, tol, sig, pre, int(state.x.shape[0]) * self.mesh.size
+
+    def remove(self, path: str) -> None:
+        super().remove(_mp_path(path, self.mesh.rank))
+        _barrier(self.mesh)
+
+
+class _GatheredCkptIO(_CkptIO):
+    """More than one rank, the 2-D and operator solves: the whole-state file,
+    written by rank 0 after a gather of x, r and p; on resume every rank
+    reads it and keeps its own rows (a chunk of npad / size)."""
+
+    def __init__(self, mesh):
+        super().__init__(mesh.device)
+        self.mesh = mesh
+
+    def exists(self, path: str) -> bool:
+        return _agreed(self.mesh, os.path.exists(path), f"checkpoint {path!r} exists")
+
+    def to_host(self, state: _State) -> dict:
+        g = lambda v: _gather_rows(self.mesh, v)  # noqa: E731
+        return _state_to_host(state._replace(x=g(state.x), r=g(state.r), p=g(state.p)))
+
+    def save(self, path, host, n, tol, signature, precondition) -> None:
+        if self.mesh.rank == 0:
+            super().save(path, host, n, tol, signature, precondition)
+        _barrier(self.mesh)
+
+    def load(self, path: str):
+        state, n, tol, sig, pre, npad = super().load(path)
+        if npad % self.mesh.size == 0:
+            blk = npad // self.mesh.size
+            rows = slice(self.mesh.rank * blk, (self.mesh.rank + 1) * blk)
+            state = state._replace(x=state.x[rows].clone(), r=state.r[rows].clone(),
+                                   p=state.p[rows].clone())
+        return state, n, tol, sig, pre, npad
+
+    def remove(self, path: str) -> None:
+        if self.mesh.rank == 0:
+            super().remove(path)
+        _barrier(self.mesh)
+
+
+def _io_for(mesh, per_rank: bool = False) -> _CkptIO:
+    """The transport of a solve on ``mesh`` (the module docstring's rule)."""
+    if mesh.size == 1:
+        return _CkptIO(mesh.device)
+    return _MpCkptIO(mesh) if per_rank else _GatheredCkptIO(mesh)
+
+
 # --- the segment driver --------------------------------------------------------
 
 
 def _resume_or_none(checkpoint_path: Optional[str], *, n: int, npad: int, tol: float,
-                    precondition: str, sig_fn: Callable[[], np.ndarray], device):
-    """Load and check an existing file -> (state or None, its signature or
-    None). Refuses another size or padding, another tol, another
-    preconditioner identity and another system (the probe signature)."""
-    if checkpoint_path is None or not os.path.exists(checkpoint_path):
+                    precondition: str, sig_fn: Callable[[], np.ndarray], io: _CkptIO):
+    """Load and check an existing file through the transport ``io`` ->
+    (state or None, its signature or None). Refuses another size or
+    padding, another tol, another preconditioner identity and another
+    system (the probe signature). On a mesh every rank holds the same
+    file's values (``io.load`` refuses otherwise), so every rank decides
+    alike."""
+    if checkpoint_path is None or not io.exists(checkpoint_path):
         return None, None
-    state, n_ck, tol_ck, sig_ck, pre_ck = load_checkpoint(checkpoint_path, device)
-    if n_ck != n or tuple(state.x.shape) != (npad,):
+    state, n_ck, tol_ck, sig_ck, pre_ck, npad_ck = io.load(checkpoint_path)
+    if n_ck != n or npad_ck != npad:
         raise ValueError(f"checkpoint {checkpoint_path!r} is for n={n_ck} (padded "
-                         f"{tuple(state.x.shape)}); this system is n={n} (padded ({npad},))")
+                         f"({npad_ck},)); this system is n={n} (padded ({npad},))")
     if tol_ck != tol:
         raise ValueError(f"checkpoint tol {tol_ck} != requested tol {tol}")
     if pre_ck != precondition:
@@ -199,34 +455,33 @@ def _resume_or_none(checkpoint_path: Optional[str], *, n: int, npad: int, tol: f
 def _drive_segments(state: _State, segment_fn: Callable, *, n: int, tol: float, maxiter: int,
                     segment_iters: int, precondition: str, checkpoint_path: Optional[str],
                     keep_checkpoint: bool, sig: Optional[np.ndarray],
-                    sig_fn: Callable[[], np.ndarray]) -> CGResult:
+                    sig_fn: Callable[[], np.ndarray], io: _CkptIO,
+                    whole: Callable = lambda v: v) -> CGResult:
     """Run ``segment_fn(state, k_now, k_target) -> state`` until the solve
-    stops or reaches ``maxiter``, writing the file after every segment; the
-    file is removed once the solve is done (converged, or stopped on
-    stagnation, as tpucg's), so a capped exit leaves it for a later resume.
-    The host reads k and done once a segment, with the file's copy when
-    there is a file."""
+    stops or reaches ``maxiter``, writing the file through ``io`` after
+    every segment; the file is removed once the solve is done (converged,
+    or stopped on stagnation, as tpucg's), so a capped exit leaves it for a
+    later resume. The host reads k and done once a segment, with the file's
+    copy when there is a file. ``whole`` gathers a sharded x whole."""
     k_now, done = int(state.k), bool(state.done)
     while not done and k_now < maxiter:
         k_target = min(k_now + segment_iters, maxiter)
         state = segment_fn(state, k_now, k_target)
         if checkpoint_path is not None:
-            host = _state_to_host(state)
+            host = io.to_host(state)
             if sig is None:
                 sig = sig_fn()
-            save_checkpoint(checkpoint_path, host, n, tol, signature=sig,
-                            precondition=precondition)
+            io.save(checkpoint_path, host, n, tol, sig, precondition)
             k_now, done = int(host["k"]), bool(host["done"])
         else:
             k_now, done = (int(v) for v in torch.stack(
                 [state.k.to(torch.int32), state.done.to(torch.int32)]).cpu())
-    if (checkpoint_path is not None and not keep_checkpoint and done
-            and os.path.exists(checkpoint_path)):
-        os.remove(checkpoint_path)
+    if checkpoint_path is not None and not keep_checkpoint and done:
+        io.remove(checkpoint_path)
     tol2 = torch.tensor(tol, dtype=torch.float32, device=state.rslast.device) ** 2
     # Under the true-residual check done also fires on stagnation: converged
     # is the last r.r (the last check's there) against tol.
-    return CGResult(x=state.x[:n], iterations=state.k, residual_norm=state.rslast.sqrt(),
+    return CGResult(x=whole(state.x)[:n], iterations=state.k, residual_norm=state.rslast.sqrt(),
                     converged=state.done & (state.rslast < tol2))
 
 
@@ -235,15 +490,16 @@ def _drive_segments(state: _State, segment_fn: Callable, *, n: int, tol: float, 
 CHECKPOINT_PRECONDITIONERS = ("none", "jacobi", "block_jacobi")
 
 
-def _validate_checkpoint_config(config: CGConfig, segment_iters: int) -> None:
+def _validate_checkpoint_config(config: CGConfig, segment_iters: int,
+                                allowed=CHECKPOINT_PRECONDITIONERS) -> None:
     if segment_iters < 1:
         raise ValueError("segment_iters must be >= 1")
     if config.method != "cg":
         raise ValueError("checkpointed solves support method='cg' only (the pipelined state "
                          "is not checkpointable)")
-    if config.precondition not in CHECKPOINT_PRECONDITIONERS:
+    if config.precondition not in allowed:
         raise ValueError("this checkpointed solver supports precondition in "
-                         f"{CHECKPOINT_PRECONDITIONERS} (a "
+                         f"{allowed} (a "
                          "resumed poly preconditioner would re-estimate lambda_max and diverge "
                          "from the saved trajectory; block_jacobi is serial-only so far)")
     if config.dtype != torch.float32:
@@ -385,8 +641,9 @@ def cg_solve_checkpointed(
     def sig_fn():
         return system_signature(op, b)
 
+    io = _CkptIO(device)
     state, sig = _resume_or_none(checkpoint_path, n=n, npad=npad, tol=tol,
-                                 precondition=pre_id, sig_fn=sig_fn, device=device)
+                                 precondition=pre_id, sig_fn=sig_fn, io=io)
     matvec, dot, lap = lap_ops(op, backend)
     precond = _serial_precond(config.precondition, minv, matvec, dot, b, two_level, basis)
     if state is None:
@@ -426,4 +683,167 @@ def cg_solve_checkpointed(
     return _drive_segments(state, segment_fn, n=n, tol=tol, maxiter=maxiter,
                            segment_iters=segment_iters, precondition=pre_id,
                            checkpoint_path=checkpoint_path, keep_checkpoint=keep_checkpoint,
-                           sig=sig, sig_fn=sig_fn)
+                           sig=sig, sig_fn=sig_fn, io=io)
+
+
+# --- the checkpoint on a mesh -------------------------------------------------
+
+
+def _sharded_signature(matvec, mesh, b_blk: torch.Tensor) -> np.ndarray:
+    """``system_signature`` through a sharded matvec (tpucg's probe under
+    several processes, ``checkpoint.py:925-936``): this rank's rows of the
+    probe through the product, the response and b gathered whole, then
+    projected; the same bits on every rank."""
+    blk = b_blk.shape[0]
+    npad = blk * mesh.size
+    probe, R = _signature_probe_and_R(npad)
+    y = matvec(torch.from_numpy(probe[mesh.rank * blk:(mesh.rank + 1) * blk]).to(b_blk.device),
+               None)
+    y_full = _gather_rows(mesh, y).cpu().numpy().astype(np.float64)
+    b_full = _gather_rows(mesh, b_blk).cpu().numpy().astype(np.float64)
+    return _project_signature(R, y_full, b_full)
+
+
+def _sharded_segments(matvec, mesh, backend: str, b_blk, x0_blk, diag, config: CGConfig, *,
+                      n: int, pre_id: str, segment_iters: int, checkpoint_path, keep_checkpoint,
+                      io: _CkptIO, two_level=None) -> CGResult:
+    """The segmented solve on this rank's rows with the sharded closures (the
+    counterparts of tpucg's ``_sharded_init_jit`` and
+    ``_sharded_segment_jit``): ``init_state`` on a fresh start, then
+    ``cg_loop`` a segment at a time with the stagnation carry in memory
+    (under ``two_level`` the true-residual check every
+    ``TRUE_CHECK_EVERY`` laps), x gathered whole at the end."""
+    red = _reductions(mesh, backend, b_blk)
+    precond = _precond(matvec, mesh, backend, red, b_blk, diag, None, config, two_level)
+    tol = float(config.tol)
+    npad = b_blk.shape[0] * mesh.size
+    maxiter = int(config.maxiter if config.maxiter is not None else n)
+
+    def sig_fn():
+        return _sharded_signature(matvec, mesh, b_blk)
+
+    state, sig = _resume_or_none(checkpoint_path, n=n, npad=npad, tol=tol, precondition=pre_id,
+                                 sig_fn=sig_fn, io=io)
+    if state is None:
+        state = init_state(matvec, red.dot, b_blk, x0_blk, tol, precond=precond)
+    lap = TorchLap(red.dot, red.update)
+    stag = [None]
+
+    def segment_fn(st, k_now, k_target):
+        st, stag[0] = cg_loop(
+            matvec, red.dot, lap, b_blk, None, tol=tol, maxiter=k_target,
+            safe_alpha=bool(config.safe_alpha), state=st, precond=precond,
+            chunk=min(k_target - k_now, CHUNK_MAX),
+            check_true_every=TRUE_CHECK_EVERY if two_level is not None else None,
+            stag_carry=stag[0], return_stag=True)
+        return st
+
+    return _drive_segments(state, segment_fn, n=n, tol=tol, maxiter=maxiter,
+                           segment_iters=segment_iters, precondition=pre_id,
+                           checkpoint_path=checkpoint_path, keep_checkpoint=keep_checkpoint,
+                           sig=sig, sig_fn=sig_fn, io=io,
+                           whole=lambda v: _gather_rows(mesh, v))
+
+
+def sharded_cg_solve_checkpointed(
+    A,
+    b=None,
+    x0=None,
+    mesh=None,
+    config: Optional[CGConfig] = None,
+    *,
+    segment_iters: int = 128,
+    checkpoint_path: Optional[str] = None,
+    keep_checkpoint: bool = False,
+    n: Optional[int] = None,
+    **overrides,
+) -> CGResult:
+    """The distributed dense solve in segments with a resumable file
+    (tpucg's ``sharded_cg_solve_checkpointed``, ``checkpoint.py:794``): the
+    semantics of ``cg_solve_checkpointed`` (method cg, f32, precondition
+    none or jacobi; a resume equals the uninterrupted solve bit for bit),
+    the laps of ``sharded_cg_solve`` and its x bit for bit, the identity
+    probe through the distributed product.
+
+    On a 1-D ``Mesh`` ``A`` is the host matrix (one rank only) or the
+    rank's ``DistributedSystem`` (``load_system_sharded`` or
+    ``distribute_system``; ``b`` and ``x0`` then not passed, ``n`` the
+    logical size to trim x to). One rank writes the whole-state file, more
+    ranks a file each (the module docstring's rule) and refuse host arrays
+    in tpucg's words. On a ``Mesh2D`` ``A``, ``b`` and ``x0`` are host
+    arrays (tpucg's 2-D arm, ``checkpoint.py:1121``); the file is the
+    whole-state one."""
+    config = _configure(config, overrides)
+    _validate_checkpoint_config(config, segment_iters, allowed=("none", "jacobi"))
+    mesh = make_mesh() if mesh is None else mesh
+    check_mesh(mesh)
+    backend = resolve_backend(config.kernel, mesh.device)
+    if isinstance(mesh, Mesh2D):
+        if n is not None or isinstance(A, (DistributedSystem, DistributedSystem2D)):
+            raise ValueError("2-D checkpointing takes host arrays (the column permutation is "
+                             "applied at distribution)")
+        _check_2d_config(config)
+        system, diag, n = _prepare_sharded2d(A, b, x0, mesh, config)
+        return _sharded_segments(
+            _summa_matvec(system.A, mesh, backend), mesh, backend, system.b, system.x0, diag,
+            config, n=n, pre_id=config.precondition, segment_iters=segment_iters,
+            checkpoint_path=checkpoint_path, keep_checkpoint=keep_checkpoint,
+            io=_io_for(mesh))
+    if not isinstance(A, DistributedSystem):
+        if mesh.size > 1:
+            raise ValueError("multi-process checkpointing takes pre-sharded device arrays (use "
+                             "load_system_sharded); a host-array input would make every host "
+                             "materialize all of A")
+        if n is not None and n != np.shape(A)[0]:
+            raise ValueError("n override is for pre-sharded device inputs")
+    system, n, diag = _place_dense_1d(A, b, x0, mesh, config, n)
+    return _sharded_segments(
+        _dense_matvec(system.A, system.strategy, mesh, backend), mesh, backend, system.b,
+        system.x0, diag, config, n=n, pre_id=config.precondition, segment_iters=segment_iters,
+        checkpoint_path=checkpoint_path, keep_checkpoint=keep_checkpoint,
+        io=_io_for(mesh, per_rank=True))
+
+
+def sharded_operator_cg_solve_checkpointed(
+    op,
+    b=None,
+    x0=None,
+    mesh=None,
+    config: Optional[CGConfig] = None,
+    *,
+    segment_iters: int = 128,
+    checkpoint_path: Optional[str] = None,
+    keep_checkpoint: bool = False,
+    two_level=None,
+    **overrides,
+) -> CGResult:
+    """The distributed sparse and stencil solves in segments with a
+    resumable file (tpucg's ``sharded_operator_cg_solve_checkpointed``,
+    ``checkpoint.py:973``): the operators and padding of
+    ``sharded_operator_cg_solve`` (Poisson slab halos, K9; DIA band halos,
+    K7; ELL; BSR; a CSR or a ``WellShardedSystem`` as sharded WELL, K13),
+    precondition none or jacobi, or ``two_level`` (built for the sharded
+    padding, its aggregates dividing a rank's rows) with the true-residual
+    check every ``TRUE_CHECK_EVERY`` laps and the stagnation carry passed
+    from segment to segment in memory (a killed and resumed solve restarts
+    it and may stop up to two check windows later). 1-D meshes only; the
+    file is the whole-state one (the module docstring's rule)."""
+    config = _configure(config, overrides)
+    _validate_checkpoint_config(config, segment_iters, allowed=("none", "jacobi"))
+    mesh = make_mesh() if mesh is None else mesh
+    check_1d(mesh, "operator checkpointing runs on 1-D meshes")
+    backend = resolve_backend(config.kernel, mesh.device)
+    sop = _prepare_sharded_operator(op, mesh, config)
+    pre_id = config.precondition
+    if two_level is not None:
+        if config.precondition != "none":
+            raise ValueError(f"two_level runs as THE preconditioner (got "
+                             f"precondition={config.precondition!r})")
+        _check_two_level_sharded(two_level, config, sop.npad, mesh)
+        if checkpoint_path is not None:
+            pre_id = _two_level_identity(two_level)
+    b_blk, x0_blk = operator_rhs(op, sop, b, x0, mesh)
+    return _sharded_segments(
+        _operator_matvec(sop, mesh, backend), mesh, backend, b_blk, x0_blk, sop.diag, config,
+        n=sop.n, pre_id=pre_id, segment_iters=segment_iters, checkpoint_path=checkpoint_path,
+        keep_checkpoint=keep_checkpoint, io=_io_for(mesh), two_level=two_level)

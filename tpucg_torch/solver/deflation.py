@@ -29,8 +29,9 @@ sums. The dense arm builds the basis on the host in float64 against the
 identity-padded matrix (tpucg's ``_host_basis``); the operator arm
 orthonormalizes V on the host and forms AW with the sharded operator's own
 matvec, one column at a time. ``RecyclingCG(mesh=)`` runs every solve of
-its sequence that way; its checkpointed solve on a mesh is ROADMAP M14 step
-6.
+its sequence that way (``solve(checkpoint_path=)`` is serial-only, as
+tpucg's). On a ``Mesh2D`` the dense arm runs the SUMMA decomposition
+(tpucg's ``_sharded2d_deflated``).
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from tpucg_torch.comm.mesh import make_mesh
+from tpucg_torch.comm.mesh import Mesh2D, make_mesh
 from tpucg_torch.config import CGConfig
 from tpucg_torch.io.partitioner import RowPartition, pad_identity_tail
 from tpucg_torch.kernels.dispatch import resolve_backend
@@ -72,8 +73,12 @@ from tpucg_torch.solver.sharded import (
     _operator_matvec,
     _own_square,
     _prepare_sharded_operator,
+    DENSE_2D,
+    _check_2d_config,
+    _prepare_sharded2d,
     _reductions,
-    check_1d,
+    _summa_matvec,
+    check_mesh,
     distribute_system,
     is_operator,
     operator_rhs,
@@ -340,14 +345,20 @@ def sharded_cg_solve_deflated(
     ``sharded_operator_cg_solve``'s decompositions with precondition none,
     jacobi or poly; V is orthonormalized on the host, AW formed by the
     sharded matvec (one column at a time) and (W^T A W)^-1 inverted in
-    float64. Method cg, float32; x whole on every rank."""
+    float64. On a ``Mesh2D`` a dense ``A`` runs the SUMMA decomposition
+    with precondition none, jacobi or poly (``_sharded2d_deflated``).
+    Method cg, float32; x whole on every rank."""
     config = _configure(config, overrides)
     if config.method != "cg":
         raise ValueError(f"sharded_cg_solve_deflated supports method='cg' (got {config.method!r})")
     mesh = make_mesh() if mesh is None else mesh
-    check_1d(mesh)
+    check_mesh(mesh)
     _check_supported(config)
     backend = resolve_backend(config.kernel, mesh.device)
+    if isinstance(mesh, Mesh2D):
+        if is_operator(A):
+            raise ValueError(DENSE_2D)
+        return _sharded2d_deflated(A, b, V, x0, mesh, config, backend, chunk)
     if is_operator(A):
         return _sharded_operator_deflated(A, b, V, x0, mesh, config, backend, chunk)
     A = _host(A)
@@ -372,6 +383,35 @@ def sharded_cg_solve_deflated(
     res = _sharded_deflated_run(
         matvec, mesh, backend, system.b, system.x0, rows(W), rows(AW),
         torch.from_numpy(Ginv).to(mesh.device), minv, config,
+        int(config.maxiter if config.maxiter is not None else n), chunk)
+    return res._replace(x=res.x[:n])
+
+
+def _sharded2d_deflated(A, b, V, x0, mesh, config: CGConfig, backend: str, chunk) -> CGResult:
+    """The 2-D SUMMA arm of ``sharded_cg_solve_deflated`` (tpucg's
+    ``_sharded2d_deflated``, ``deflation.py:576``): the basis built on the
+    host in float64 against the padded, un-permuted A (the permutation is
+    the stored A's alone, so W and AW are in the vectors' order), each rank
+    keeping its chunk of their rows; the projections summed over every
+    rank."""
+    if config.precondition not in ("none", "jacobi", "poly"):
+        raise ValueError("2-D deflated CG supports precondition in {'none', 'jacobi', 'poly'} "
+                         "(block Jacobi is 1-D-only: the 2-D decomposition stores "
+                         "column-permuted blocks)")
+    _check_2d_config(config)
+    system, diag, n = _prepare_sharded2d(A, b, x0, mesh, config)
+    npad, cs = system.npad, system.b.shape[0]
+    V = _host_stack(V, n)
+    Vpad = np.pad(V, ((0, npad - n), (0, 0))) if npad != n else V
+    W, AW, Ginv = _host_basis(pad_identity_tail(_host(A), npad), Vpad)
+    r0 = mesh.rank * cs
+
+    def rows(a):
+        return torch.from_numpy(np.ascontiguousarray(a[r0:r0 + cs])).to(mesh.device)
+    minv = None if diag is None else torch.where(diag != 0, 1.0 / diag, 1.0)
+    res = _sharded_deflated_run(
+        _summa_matvec(system.A, mesh, backend), mesh, backend, system.b, system.x0, rows(W),
+        rows(AW), torch.from_numpy(Ginv).to(mesh.device), minv, config,
         int(config.maxiter if config.maxiter is not None else n), chunk)
     return res._replace(x=res.x[:n])
 
@@ -426,8 +466,8 @@ class RecyclingCG:
     before that ``sharded_operator_cg_solve`` (an operator) or
     ``sharded_cg_solve`` (a dense A), the basis rebuilt by each deflated
     solve from the stack; ``two_level`` with ``mesh`` is tpucg's
-    ``ValueError`` and ``solve(checkpoint_path=)`` on a mesh is ROADMAP M14
-    step 6.
+    ``ValueError``, as ``solve(checkpoint_path=)`` on a mesh is (a 1-D
+    ``Mesh`` or a ``Mesh2D``, whose solves take the SUMMA arms).
 
     >>> rec = RecyclingCG(A, max_vectors=4)
     >>> for b in rhs_sequence:
@@ -445,7 +485,7 @@ class RecyclingCG:
         if mesh is None:
             self.op, _, self.device = _solve_operator(A, self.config.kernel, device)
         else:
-            check_1d(mesh)
+            check_mesh(mesh)
             self.op, self.device = None, mesh.device
         self.A = A
         self.two_level = two_level
@@ -468,8 +508,7 @@ class RecyclingCG:
         sequence resumes warm: the stack restores the deflation space, the
         file the solve in flight."""
         if checkpoint_path is not None and self.mesh is not None:
-            raise NotImplementedError("RecyclingCG.solve(checkpoint_path=) on a mesh (the "
-                                      "multi-process checkpoint) is ROADMAP M14 step 6")
+            raise ValueError("RecyclingCG checkpoint_path is serial-only")
         if checkpoint_path is not None:
             from tpucg_torch.solver.checkpoint import cg_solve_checkpointed
 

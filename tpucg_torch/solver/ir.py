@@ -178,7 +178,7 @@ def sharded_cg_solve_ir(
     if config.method != "cg" or config.precondition != "none":
         raise ValueError("sharded_cg_solve_ir supports method='cg', precondition='none'")
     mesh = make_mesh() if mesh is None else mesh
-    check_1d(mesh)
+    check_1d(mesh, "sharded_cg_solve_ir runs on 1-D meshes")
     _check_supported(config)
     backend = resolve_backend(config.kernel, mesh.device)
     A = _host(A)

@@ -34,7 +34,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from tpucg_torch.comm.mesh import make_mesh
+from tpucg_torch.comm.mesh import Mesh2D, make_mesh
 from tpucg_torch.config import CGConfig
 from tpucg_torch.io.partitioner import RowPartition
 from tpucg_torch.kernels.dispatch import resolve_backend
@@ -56,8 +56,11 @@ from tpucg_torch.solver.sharded import (
     _operator_matvec,
     _own_square,
     _prepare_sharded_operator,
+    DENSE_2D,
+    _prepare_sharded2d,
     _reductions,
-    check_1d,
+    _summa_matvec,
+    check_mesh,
     distribute_system,
     is_operator,
     operator_rhs,
@@ -242,7 +245,9 @@ def sharded_minres_solve(A, b=None, x0=None, mesh=None, config: Optional[CGConfi
     rank's rows). A sparse or stencil operator (tpucg's
     ``_sharded_operator_minres``) takes ``sharded_operator_cg_solve``'s
     decompositions with precondition none or jacobi (1 / |diag|); a
-    ``WellShardedSystem``'s b and x0 are its own unless given. x whole on
+    ``WellShardedSystem``'s b and x0 are its own unless given. On a
+    ``Mesh2D`` a dense ``A`` runs the SUMMA product (tpucg's
+    ``_sharded2d_minres_jit``) with precondition none or jacobi. x whole on
     every rank."""
     config = _configure(config, overrides)
     if config.method != "cg":
@@ -251,11 +256,23 @@ def sharded_minres_solve(A, b=None, x0=None, mesh=None, config: Optional[CGConfi
         raise ValueError("sharded_minres_solve supports precondition in {'none', 'jacobi', "
                          "'block_jacobi'} (M must be SPD)")
     mesh = make_mesh() if mesh is None else mesh
-    check_1d(mesh)
+    check_mesh(mesh)
     _check_supported(config)
     backend = resolve_backend(config.kernel, mesh.device)
     minv = None
-    if is_operator(A):
+    if isinstance(mesh, Mesh2D):
+        # tpucg's 2-D SUMMA arm (minres.py:423-452): jacobi is 1 / |d|.
+        if is_operator(A):
+            raise ValueError(DENSE_2D)
+        if config.precondition == "block_jacobi":
+            raise ValueError("precondition='block_jacobi' is supported on 1-D meshes (the 2-D "
+                             "decomposition stores column-permuted blocks)")
+        system, diag, n = _prepare_sharded2d(A, b, x0, mesh, config)
+        b_blk, x0_blk, blk = system.b, system.x0, system.b.shape[0]
+        matvec = _summa_matvec(system.A, mesh, backend)
+        if diag is not None:
+            minv = torch.where(diag != 0, 1.0 / diag, 1.0).abs()
+    elif is_operator(A):
         if config.precondition == "block_jacobi":
             raise ValueError("sharded MINRES on sparse operators supports precondition 'none' or "
                              "'jacobi' (block Jacobi on sharded sparse operators is "

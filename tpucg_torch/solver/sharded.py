@@ -55,8 +55,18 @@ rank read only its own rows and place its block; no rank holds the whole
 matrix, where the reference's rank 0 reads it all
 (``parallel_cg.c:100-108``).
 
-``x`` comes back whole on every rank. 2-D meshes (M14 step 7) and the
-multi-process checkpoint (step 6) name their ROADMAP item.
+The 2-D SUMMA decomposition (a ``Mesh2D`` of R x C ranks, tpucg's
+``sharded2d`` arms): rank (i, j) keeps the (npad/R, npad/C) block (i, j) of
+the column-permuted A (``_colperm_2d``) and chunk r = i C + j of every
+vector. A product gathers p's chunks within the column group, runs K1 on
+the rectangular block (bf16 under bf16 storage), then sums the row group's
+(npad/R,) partials in the group's rank order and keeps its chunk (tpucg's
+``psum_scatter``, in a fixed order: no reduce-scatter); the dots are the
+world's ``rank_sum``, so the 1-D loops run on it unchanged. Dense only:
+the operator solves, block Jacobi, ``interval=`` and IR refuse it in
+tpucg's words.
+
+``x`` comes back whole on every rank.
 """
 
 from __future__ import annotations
@@ -68,7 +78,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from tpucg_torch.comm.mesh import Mesh, make_mesh
+from tpucg_torch.comm.mesh import Mesh, Mesh2D, make_mesh
 from tpucg_torch.config import CGConfig
 from tpucg_torch.io.partitioner import RowPartition, round_up
 from tpucg_torch.kernels.blas1 import (
@@ -89,7 +99,7 @@ from tpucg_torch.kernels.gather_spmv import (
     well_spmv_multi_torch,
     well_spmv_torch,
 )
-from tpucg_torch.kernels.matvec import check_matvec, gemv_launch, matvec_torch
+from tpucg_torch.kernels.matvec import _COL_ALIGN, check_matvec, gemv_launch, matvec_torch
 from tpucg_torch.kernels.spmv import (
     LANE,
     bsr_ell_spmv,
@@ -166,13 +176,24 @@ def _interval_static(interval, config: CGConfig):
     return (float(interval[0]), float(interval[1]))
 
 
-def check_1d(mesh) -> None:
-    """The port's meshes are the 1-D row axis (``Mesh``); tpucg's 2-D mesh
-    (``make_mesh2d``, the SUMMA decomposition) is ROADMAP M14 step 7."""
-    if not isinstance(mesh, Mesh):
-        raise NotImplementedError(f"a 2-D mesh (tpucg's make_mesh2d, the SUMMA decomposition) is "
-                                  f"ROADMAP M14 step 7; the port's meshes are 1-D (Mesh), got "
-                                  f"{type(mesh).__name__}")
+# tpucg's refusal of a sparse operator on a 2-D mesh (sharded.py:357-361).
+DENSE_2D = ("sparse operators take the 1-D operator decompositions; the 2-D SUMMA arm is "
+            "dense")
+
+
+def check_mesh(mesh) -> None:
+    """A mesh of this package: a 1-D ``Mesh`` or a ``Mesh2D``."""
+    if not isinstance(mesh, (Mesh, Mesh2D)):
+        raise TypeError(f"expected a Mesh or Mesh2D of tpucg_torch.comm.mesh, got "
+                        f"{type(mesh).__name__}")
+
+
+def check_1d(mesh, refusal: str = "this solve runs on 1-D meshes") -> None:
+    """A call that tpucg runs on 1-D meshes only: a ``Mesh2D`` raises its
+    ``ValueError`` with ``refusal``, tpucg's words for that call."""
+    check_mesh(mesh)
+    if isinstance(mesh, Mesh2D):
+        raise ValueError(refusal)
 
 
 def _check_supported(config: CGConfig, interval=None,
@@ -508,6 +529,137 @@ def _dense_matvec_batched(A_blk: torch.Tensor, mesh: Mesh) -> Callable:
     return mvm
 
 
+# --- the 2-D SUMMA decomposition ---------------------------------------------
+
+
+def summa_pad(n: int, rows: int, cols: int) -> int:
+    """The padded size of an R x C decomposition: a multiple of R C (the
+    vectors' chunks) and of 8 C, so that a block's npad / C columns meet
+    K1's column alignment on every backend. tpucg pads to lcm(R C, R align,
+    C align) with align 1 on XLA, 128 under Pallas."""
+    return round_up(n, math.lcm(rows * cols, cols * _COL_ALIGN))
+
+
+def _colperm_2d(npad: int, R: int, C: int) -> np.ndarray:
+    """A's column order in storage (tpucg's ``_colperm_2d``,
+    ``sharded.py:1010``): rank (i, j) holds chunk k = i C + j of every
+    vector, and its column group's gather puts chunks (0..R-1, j) in i
+    order, so column block j of the stored A holds those chunks' columns
+    in that order. Vectors, b and x stay in natural order."""
+    cs = npad // (R * C)
+    return np.concatenate([np.arange(k * cs, (k + 1) * cs)
+                           for j in range(C) for k in (i * C + j for i in range(R))])
+
+
+class DistributedSystem2D(NamedTuple):
+    """This rank's share of a dense system on a ``Mesh2D`` (tpucg's
+    ``distribute_system_2d`` result): ``A`` its (npad/R, npad/C) block of
+    the padded, column-permuted A in the storage dtype, ``b`` and ``x0`` its
+    chunk (npad/(R C),) in f32, and ``npad``."""
+
+    A: torch.Tensor
+    b: torch.Tensor
+    x0: torch.Tensor
+    npad: int
+
+
+def distribute_system_2d(A, b, x0=None, mesh: Optional[Mesh2D] = None,
+                         storage_dtype=torch.float32) -> DistributedSystem2D:
+    """Pad (``summa_pad``, the identity tail), column-permute and place this
+    rank's block of A and chunk of b and x0 on a 2-D mesh (tpucg's
+    ``distribute_system_2d``, ``sharded.py:1105``);
+    ``storage_dtype=torch.bfloat16`` stores the block in bf16 (f32 sums and
+    vectors). No rank holds more of A on the device than its block."""
+    if not isinstance(mesh, Mesh2D):
+        raise TypeError(f"distribute_system_2d takes a Mesh2D, got {type(mesh).__name__}")
+    if storage_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"storage_dtype must be float32 or bfloat16, got {storage_dtype}")
+    A = _host(A)
+    n = A.shape[0]
+    if A.shape != (n, n):
+        raise ValueError(f"A must be square, got {A.shape}")
+    R, C = mesh.shape
+    npad = summa_pad(n, R, C)
+    rb, cb, cs = npad // R, npad // C, npad // (R * C)
+    r0 = mesh.i * rb
+    rows = _row_block(A[r0:min(r0 + rb, n)], n, npad, r0, r0 + rb)
+    block = np.ascontiguousarray(rows[:, _colperm_2d(npad, R, C)[mesh.j * cb:(mesh.j + 1) * cb]])
+    del rows
+    b, x0 = _host_rhs(b, x0, n)
+    c0, dev = mesh.rank * cs, mesh.device
+    return DistributedSystem2D(
+        A=torch.from_numpy(block).to(device=dev, dtype=storage_dtype),
+        b=torch.from_numpy(_padded_block(b, n, npad, c0, c0 + cs)).to(dev),
+        x0=torch.from_numpy(_padded_block(x0, n, npad, c0, c0 + cs)).to(dev), npad=npad)
+
+
+def _row_sum_chunk(mesh: Mesh2D, partial: torch.Tensor) -> torch.Tensor:
+    """tpucg's ``psum_scatter`` over the row group, in a fixed order: the
+    row group's (npad/R, ...) partials gathered, added left to right in the
+    group's rank order, and this rank's chunk j of the sum kept."""
+    C = mesh.cols
+    cs = partial.shape[0] // C
+    parts = _gather_rows(mesh.row, partial).reshape((C,) + tuple(partial.shape))
+    chunk = parts[:, mesh.j * cs:(mesh.j + 1) * cs]
+    s = chunk[0]
+    for c in range(1, C):
+        s = s + chunk[c]
+    return s
+
+
+def _summa_matvec(A_blk: torch.Tensor, mesh: Mesh2D, backend: str) -> Callable:
+    """``matvec(p_chunk, act)`` of the SUMMA GEMV (tpucg's ``_matvec_2d``,
+    ``sharded.py:903``): p's chunks gathered within the column group (npad/C
+    values), K1 on the rank's rectangular block (its bf16 form under bf16
+    storage), the row group's partials summed in rank order and this rank's
+    chunk kept. A group of one exchanges nothing: a 1 x 1 mesh is the 1-D
+    one-rank product bit for bit."""
+    R, C = mesh.shape
+    rb, cb = A_blk.shape
+    dev = A_blk.device
+    part = torch.empty(rb, dtype=_F32, device=dev)
+    y = torch.empty(rb // C, dtype=_F32, device=dev)
+    p_cols = torch.empty(cb, dtype=_F32, device=dev)
+    if backend == "cuda":
+        check_matvec(A_blk)
+        stream = cuda_stream(part)
+
+        def gemv(x, out, act):
+            gemv_launch(A_blk, x, out, _flag(act), stream)
+    else:
+        def gemv(x, out, act):
+            out.copy_(matvec_torch(A_blk, x))
+
+    def matvec(x, act):
+        if R > 1:
+            mesh.col.all_gather(p_cols, x)
+            x = p_cols
+        out = _output(y if C > 1 else part, act)
+        if C == 1:
+            gemv(x, out, act)
+            return out
+        gemv(x, part, act)
+        out.copy_(_row_sum_chunk(mesh, part))
+        return out
+    return matvec
+
+
+def _summa_matvec_batched(A_blk: torch.Tensor, mesh: Mesh2D) -> Callable:
+    """``mvm(X_chunk, act)``, (cs, k) -> (cs, k), of the SUMMA product
+    (tpucg's ``_matvec_2d_batched``, ``sharded.py:1570``): one (npad/C, k)
+    gather in the column group, one (npad/R, npad/C) x (npad/C, k) product
+    (a GEMM, as tpucg's ``jnp.matmul`` and the 1-D batched product), one
+    fixed-order sum of the row group's (npad/R, k) partials."""
+    A32 = A_blk.to(_F32)
+
+    def mvm(X, act=None):
+        if mesh.rows > 1:
+            X = _gather_rows(mesh.col, X)
+        part = A32 @ X
+        return part if mesh.cols == 1 else _row_sum_chunk(mesh, part).contiguous()
+    return mvm
+
+
 def _operator_matvec_batched(sop: _ShardedOperator, mesh: Mesh, backend: str) -> Callable:
     """``mvm(X_blk, act)``, (blk, k) -> (blk, k), of a sharded sparse
     operator (tpucg's ``_operator_matvec_batched``, ``sharded.py:1284``): one
@@ -564,6 +716,26 @@ def _operator_matvec_batched(sop: _ShardedOperator, mesh: Mesh, backend: str) ->
     return mvm
 
 
+def _precond(matvec, mesh: Mesh, backend: str, red: _Reductions, b_blk, diag, blocks,
+             config: CGConfig, two_level=None) -> Optional[Callable]:
+    """A sharded solve's preconditioner on this rank's block: Jacobi from
+    ``diag``, block Jacobi from ``blocks`` (the rank's own), poly through
+    the sharded closures, or the two-level cycle of
+    ``make_two_level_precond_sharded``."""
+    if two_level is not None:
+        # The hierarchy's vectors are whole on every rank: its dots are this
+        # rank's alone (K3's checked wrapper, or its plain version).
+        one = dot_cuda if backend == "cuda" else dot_torch
+        return make_two_level_precond_sharded(two_level, matvec, red.dot, b_blk, mesh,
+                                              lambda u, v, act=None: one(u, v))
+    minv = None
+    if config.precondition == "jacobi":
+        minv = torch.where(diag != 0, 1.0 / diag, 1.0)
+    elif config.precondition == "block_jacobi":
+        minv = invert_blocks(blocks)
+    return make_precond(config.precondition, minv, matvec, red.dot, b_blk, config.poly_degree)
+
+
 def _solve(matvec, mesh: Mesh, backend: str, b_blk, x0_blk, diag, blocks, config: CGConfig,
            maxiter: int, record_residuals: bool, chunk, interval, cg_converged: str,
            two_level=None) -> CGResult:
@@ -578,20 +750,7 @@ def _solve(matvec, mesh: Mesh, backend: str, b_blk, x0_blk, diag, blocks, config
     solve's, tpucg's loop flag) or ``"rr"`` (the operator solve's, r.r <
     tol^2)."""
     red = _reductions(mesh, backend, b_blk)
-    minv = None
-    if config.precondition == "jacobi":
-        minv = torch.where(diag != 0, 1.0 / diag, 1.0)
-    elif config.precondition == "block_jacobi":
-        minv = invert_blocks(blocks)
-    if two_level is not None:
-        # The hierarchy's vectors are whole on every rank: its dots are this
-        # rank's alone (K3's checked wrapper, or its plain version).
-        one = dot_cuda if backend == "cuda" else dot_torch
-        precond = make_two_level_precond_sharded(two_level, matvec, red.dot, b_blk, mesh,
-                                                 lambda u, v, act=None: one(u, v))
-    else:
-        precond = make_precond(config.precondition, minv, matvec, red.dot, b_blk,
-                               config.poly_degree)
+    precond = _precond(matvec, mesh, backend, red, b_blk, diag, blocks, config, two_level)
     if config.method != "cg":
         x, k, rn, done = run_method(config, matvec, red.dot, red.dots, red.gram, b_blk, x0_blk,
                                     maxiter=maxiter, precond=precond,
@@ -688,6 +847,8 @@ def distribute_system(A, b, x0=None, mesh: Optional[Mesh] = None,
     if storage_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"storage_dtype must be float32 or bfloat16, got {storage_dtype}")
     mesh = make_mesh() if mesh is None else mesh
+    check_1d(mesh, "distribute_system places row blocks of a 1-D mesh: use "
+                   "distribute_system_2d on a 2-D mesh")
     A = _host(A)
     n = A.shape[0]
     if A.shape != (n, n):
@@ -743,7 +904,8 @@ def load_system_sharded(matrix_path: str, rhs_path: str, x0_path: Optional[str] 
     if strategy not in STRATEGIES:
         raise ValueError(f"unknown strategy {strategy!r}")
     mesh = make_mesh() if mesh is None else mesh
-    check_1d(mesh)
+    check_1d(mesh, "load_system_sharded takes a 1-D mesh (the 2-D SUMMA arm distributes from "
+                   "host arrays)")
     resolve_backend(kernel, mesh.device)
     b = load_vector(rhs_path)
     n = int(b.size)
@@ -818,12 +980,40 @@ def sharded_cg_solve(
     contract on the bf16-rounded system). ``mesh`` defaults to
     ``make_mesh()``; ``kernel="auto"`` runs K1, K2 and K3 on a CUDA mesh and
     their plain versions on a CPU one. Every rank returns the same result,
-    with x whole, trimmed to ``n`` (default: the system's)."""
+    with x whole, trimmed to ``n`` (default: the system's).
+
+    On a ``Mesh2D`` the solve runs the SUMMA decomposition (tpucg's 2-D
+    arm, ``sharded.py:2759``): A whole on the host (``distribute_system_2d``
+    places each rank's block), every method, precondition none, jacobi (the
+    un-permuted A's diagonal) or poly, ``record_residuals`` and bf16
+    storage; ``n=``, ``interval=`` and block Jacobi raise tpucg's
+    ``ValueError``."""
     config = _configure(config, overrides)
     _check_supported(config, interval, record_residuals=record_residuals)
     mesh = make_mesh() if mesh is None else mesh
-    check_1d(mesh)
+    check_mesh(mesh)
     backend = resolve_backend(config.kernel, mesh.device)
+    if isinstance(mesh, Mesh2D):
+        return _sharded2d_solve(A, b, x0, mesh, config, backend, n, interval, record_residuals,
+                                storage_dtype, chunk)
+    system, n, diag = _place_dense_1d(A, b, x0, mesh, config, n, storage_dtype)
+    _check_pc_blocks(config, system.part)
+    maxiter = int(config.maxiter if config.maxiter is not None else n)
+    matvec = _dense_matvec(system.A, system.strategy, mesh, backend)
+    blocks = _local_diag_blocks(system, int(config.pc_block_size)) \
+        if config.precondition == "block_jacobi" else None
+    res = _solve(matvec, mesh, backend, system.b, system.x0, diag, blocks, config, maxiter,
+                 record_residuals, chunk, interval, "done")
+    return res._replace(x=res.x[:n])
+
+
+def _place_dense_1d(A, b, x0, mesh: Mesh, config: CGConfig, n=None,
+                    storage_dtype=torch.float32):
+    """This rank's share of a dense system on a 1-D mesh, shared by the
+    plain and checkpointed solves: a ``DistributedSystem`` checked against
+    the mesh, the strategy and the storage dtype, or host arrays placed by
+    ``distribute_system``. Returns (the system, n: the system's unless
+    given, Jacobi's diagonal of the rank's own rows or None)."""
     if isinstance(A, DistributedSystem):
         system = A
         if b is not None or x0 is not None:
@@ -843,16 +1033,60 @@ def sharded_cg_solve(
             raise ValueError("b is required")
         system = distribute_system(A, b, x0, mesh, strategy=config.strategy,
                                    storage_dtype=storage_dtype, config=config)
-    _check_pc_blocks(config, system.part)
-    n = system.n if n is None else int(n)
-    maxiter = int(config.maxiter if config.maxiter is not None else n)
-    matvec = _dense_matvec(system.A, system.strategy, mesh, backend)
-    pc = config.precondition
-    diag = torch.diagonal(_own_square(system)).to(_F32) if pc == "jacobi" else None
-    blocks = _local_diag_blocks(system, int(config.pc_block_size)) if pc == "block_jacobi" \
+    diag = torch.diagonal(_own_square(system)).to(_F32) if config.precondition == "jacobi" \
         else None
-    res = _solve(matvec, mesh, backend, system.b, system.x0, diag, blocks, config, maxiter,
-                 record_residuals, chunk, interval, "done")
+    return system, system.n if n is None else int(n), diag
+
+
+def _prepare_sharded2d(A, b, x0, mesh: Mesh2D, config: CGConfig, storage_dtype=torch.float32):
+    """Place a dense host system on a 2-D mesh and this rank's chunk of
+    Jacobi's diagonal (tpucg's ``_prepare_sharded2d``, ``sharded.py:2856``:
+    the un-permuted A's diagonal, 1 on the identity tail; None without
+    Jacobi); shared by the plain, deflated, MINRES and checkpointed 2-D
+    solves. Returns (the placed system, the diagonal chunk, n)."""
+    if isinstance(A, (DistributedSystem, DistributedSystem2D)):
+        raise ValueError("the 2-D SUMMA arm takes host arrays (the column permutation is applied "
+                         "at distribution)")
+    if b is None:
+        raise ValueError("b is required")
+    A = _host(A)
+    system = distribute_system_2d(A, b, x0, mesh, storage_dtype)
+    diag = _diag_chunk(A, system.npad, mesh) if config.precondition == "jacobi" else None
+    return system, diag, A.shape[0]
+
+
+def _diag_chunk(A: np.ndarray, npad: int, mesh: Mesh2D) -> torch.Tensor:
+    """This rank's chunk of the padded, un-permuted A's diagonal (1 on the
+    identity tail), f32 on the mesh's device."""
+    d = np.ones(npad, np.float32)
+    d[:A.shape[0]] = np.diag(A)
+    cs = npad // mesh.size
+    return torch.from_numpy(d[mesh.rank * cs:(mesh.rank + 1) * cs]).to(mesh.device)
+
+
+def _check_2d_config(config: CGConfig, n=None, interval=None) -> None:
+    """tpucg's refusals of its 2-D arm (``sharded.py:2762-2775``)."""
+    if n is not None:
+        raise ValueError("n override is for pre-padded 1-D inputs")
+    if interval is not None:
+        raise ValueError("interval caching is implemented for the 1-D decompositions (the 2-D "
+                         "SUMMA arm re-estimates per solve)")
+    if config.precondition == "block_jacobi":
+        raise ValueError("precondition='block_jacobi' is supported on 1-D meshes (the 2-D "
+                         "decomposition stores column-permuted blocks)")
+
+
+def _sharded2d_solve(A, b, x0, mesh: Mesh2D, config: CGConfig, backend: str, n, interval,
+                     record_residuals: bool, storage_dtype, chunk) -> CGResult:
+    """``sharded_cg_solve``'s 2-D arm (tpucg's ``_sharded2d_solve``,
+    ``sharded.py:2888``, and ``_sharded2d_cg_jit``): the 1-D solve's loops
+    on the SUMMA product and the world's dots."""
+    _check_2d_config(config, n, interval)
+    system, diag, n = _prepare_sharded2d(A, b, x0, mesh, config, storage_dtype)
+    matvec = _summa_matvec(system.A, mesh, backend)
+    maxiter = int(config.maxiter if config.maxiter is not None else n)
+    res = _solve(matvec, mesh, backend, system.b, system.x0, diag, None, config, maxiter,
+                 record_residuals, chunk, None, "done")
     return res._replace(x=res.x[:n])
 
 
@@ -1160,7 +1394,7 @@ def load_well_system_sharded(matrix_path: str, rhs_path: Optional[str] = None,
     from tpucg_torch.sparse.well import local_rows_to_well_shard, pad_well_shard
 
     mesh = make_mesh() if mesh is None else mesh
-    check_1d(mesh)
+    check_1d(mesh, "load_well_system_sharded takes a 1-D mesh")
     with np.load(mm_index_path(matrix_path)) as z:
         n, ncol = int(z["nrow"]), int(z["ncol"])
     if n != ncol:
@@ -1289,7 +1523,7 @@ def sharded_operator_cg_solve(
     config = _configure(config, overrides)
     _check_supported(config, interval, record_residuals)
     mesh = make_mesh() if mesh is None else mesh
-    check_1d(mesh)
+    check_1d(mesh, DENSE_2D)
     backend = resolve_backend(config.kernel, mesh.device)
     sop = _prepare_sharded_operator(op, mesh, config, storage_dtype)
     if config.precondition == "block_jacobi" and sop.blocks is None:
@@ -1378,6 +1612,17 @@ class _KColumns(NamedTuple):
 
 
 def _k_columns(A, B, X0, mesh: Mesh, config: CGConfig) -> _KColumns:
+    if isinstance(mesh, Mesh2D):
+        # tpucg's _sharded2d_multi / _sharded2d_block (sharded.py:1702,
+        # :1737): the SUMMA product on k columns, the diagonal un-permuted.
+        if is_operator(A):
+            raise ValueError(DENSE_2D)
+        A = _host(A)
+        n = A.shape[0]
+        system = distribute_system_2d(A, np.zeros(n, np.float32), None, mesh)
+        B_blk, X0_blk, k = _rhs_blocks(B, X0, n, system.npad, mesh)
+        return _KColumns(_summa_matvec_batched(system.A, mesh), B_blk, X0_blk, n, system.npad,
+                         k, None, _diag_chunk(A, system.npad, mesh))
     if is_operator(A):
         sop = _prepare_sharded_operator(A, mesh, config)
         n, npad, square, diag = sop.n, sop.npad, None, sop.diag
@@ -1419,7 +1664,9 @@ def sharded_cg_solve_multi(
     direction block, gathered whole in one call) or a sparse operator as
     ``sharded_operator_cg_solve`` takes it: Poisson and DIA exchange (halo,
     k) blocks, WELL runs K13 x k on the gathered block, ELL and BSR their
-    plain products. Method cg with precondition none only (tpucg's
+    plain products. On a ``Mesh2D`` a dense ``A`` runs the SUMMA product on
+    (cs, k) chunks (``_summa_matvec_batched``); operators raise tpucg's
+    ``ValueError``. Method cg with precondition none only (tpucg's
     ``ValueError`` otherwise). Result fields are batched: ``x`` (n, k);
     ``iterations``, ``residual_norm`` and ``converged`` (k,), each
     column's."""
@@ -1428,7 +1675,7 @@ def sharded_cg_solve_multi(
         raise ValueError("sharded_cg_solve_multi supports method='cg', precondition='none'")
     _check_supported(config)
     mesh = make_mesh() if mesh is None else mesh
-    check_1d(mesh)
+    check_mesh(mesh)
     kc = _k_columns(A, B, X0, mesh, config)
     red = _reductions(mesh, resolve_backend(config.kernel, mesh.device), kc.B[:, 0])
     s = multi_cg_loop(kc.mv, kc.B, kc.X0, tol=float(config.tol),
@@ -1462,7 +1709,10 @@ def sharded_cg_solve_block(
     ``ValueError``) as the rank's diagonal blocks' M^-1/2 around it
     (``sqrt_pair_blocks``); ``"poly"`` runs ``block_pcg_loop`` with
     lambda_max from the power method on column 0 through the batched
-    closure. k <= ``BLOCK_CG_MAX_K``. Result fields as ``cg_solve_block``'s:
+    closure. On a ``Mesh2D`` a dense ``A`` runs the SUMMA product, its Grams
+    summed over every rank, with none, jacobi or poly (tpucg's
+    ``_sharded2d_block``). k <= ``BLOCK_CG_MAX_K``. Result fields as
+    ``cg_solve_block``'s:
     ``iterations`` the shared laps (0-d), ``residual_norm`` and
     ``converged`` (k,)."""
     config = _configure(config, overrides)
@@ -1470,13 +1720,20 @@ def sharded_cg_solve_block(
             "none", "jacobi", "block_jacobi", "poly"):
         raise ValueError("sharded_cg_solve_block supports method='cg' with precondition "
                          "'none', 'jacobi', 'block_jacobi', or 'poly'")
+    mesh = make_mesh() if mesh is None else mesh
+    check_mesh(mesh)
+    if isinstance(mesh, Mesh2D):
+        if is_operator(A):
+            raise ValueError(DENSE_2D)
+        if config.precondition == "block_jacobi":
+            raise ValueError("2-D block CG supports precondition in {'none', 'jacobi', 'poly'} "
+                             "(block Jacobi is 1-D-only: the 2-D decomposition stores "
+                             "column-permuted blocks)")
     if is_operator(A) and config.precondition == "block_jacobi":
         raise ValueError("block CG on sharded sparse operators supports precondition in "
                          "{'none', 'jacobi', 'poly'} (block Jacobi on sharded sparse operators "
                          "is unimplemented, matching sharded_operator_cg_solve)")
     _check_supported(config)
-    mesh = make_mesh() if mesh is None else mesh
-    check_1d(mesh)
     kc = _k_columns(A, B, X0, mesh, config)
     if kc.k > BLOCK_CG_MAX_K:
         raise ValueError(f"block CG supports k <= {BLOCK_CG_MAX_K} right-hand sides (got "
