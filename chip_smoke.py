@@ -328,6 +328,22 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    Every one-rank drive runs with the counts at 0, launches its kernels
    and no plain version but the sharded lap's tail.
 
+26. M15, the CLI and the dry run (``m15_phase``): ``generate 8192`` in
+   its own process and ``dryrun_multichip(4)`` (tpucg's battery of sharded
+   solves, each held to its oracle, on a gloo world of 4 ranks on cuda:0)
+   start first and run beside the rest: ``entry()`` (K1/K3/K2, x bit for
+   bit ``cg_solve``'s); ``info --spectrum`` on phase 14's FEM 300k ``.mtx``
+   (K13), equal to ``spectral_interval``; ``bench --json --n 8192`` and
+   ``bench --json --operator poisson-free --m 128`` (every stdout line
+   parses, the metric line last, the library's laps). Then ``convert``
+   the generated matrix to ``.npy`` (the flagship's A to %.4f);
+   ``info --spectrum`` on it and ``solve --method chebyshev --interval``
+   with its bounds; ``solve --deflate`` with x* and b as V's columns
+   (the Galerkin start: at most 2 laps), serially and with ``--strategy
+   allgather --devices 1`` on one NCCL rank; each bit for bit the library
+   call's. ``--debug-nans``: a NaN in b raises ``FloatingPointError``, the
+   clean system passes. Each CLI call is a drive with the counts at 0.
+
 The line before last is a JSON object of the kernels (K1-K14, K6xk, K8xk,
 K13xk and P1-P7:
 launches on the main path, error against the plain version, times, the
@@ -340,6 +356,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import os
 import re
 import sys
 import tempfile
@@ -1324,6 +1341,225 @@ def m14_s67_phase(dev, tag, drive, A_fem, b_fem, flagship, fem_jacobi_laps, fem_
     return added
 
 
+def m15_phase(dev, tag, drive, flagship, fem_mtx):
+    """Phase 26: M15, the CLI and the dry run (see the module's docstring).
+    ``drive`` as ``m14_mesh_phase``'s; ``flagship`` the dense n = 8192
+    (DenseOperator, b, x0) on the card; ``fem_mtx`` the FEM 300k ``.mtx``
+    that phase 14 wrote. Returns the launches of the kernels its drives made
+    on the main path (the kernels line adds them)."""
+    import concurrent.futures
+    import subprocess
+
+    import numpy as np
+    import torch
+
+    from tpucg_torch import cli
+    from tpucg_torch.comm.mesh import init_distributed, make_mesh
+    from tpucg_torch.dryrun import dryrun_multichip, entry
+    from tpucg_torch.io.mmio import load_matrix_market
+    from tpucg_torch.io.textio import load_vector, save_array
+    from tpucg_torch.solver.cg import cg_solve, spectral_interval
+    from tpucg_torch.solver.deflation import cg_solve_deflated, sharded_cg_solve_deflated
+    from tpucg_torch.solver.operators import best_sparse_operator
+
+    n = 8192
+    t_phase = time.perf_counter()
+    added = {}
+    lap_plain = ("lap_tail_torch", "p_update_torch")
+    dense_need = ("matvec_cuda", "dot_cuda", "fused_update_cuda")
+
+    def counted(label, launched, need, mesh=False):
+        """The kernels ``need`` launched and no plain version (on the mesh:
+        but the sharded lap's tail); the launches join the kernels line."""
+        require(all(launched[w] > 0 for w in need), f"{label}: launches {launched}")
+        require(all(c == 0 for w, c in launched.items()
+                    if w.endswith("_torch") and not (mesh and w in lap_plain)),
+                f"{label}: a plain version ran ({launched})")
+        for w, c in launched.items():
+            if c and w.endswith("_cuda"):
+                added[w] = added.get(w, 0) + c
+        return ", ".join(f"{w} {c}" for w, c in sorted(launched.items()) if c)
+
+    def run_cli(argv):
+        """``python -m tpucg_torch`` in this process: its exit code, stdout
+        and launches, counted from 0."""
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc, launched = drive(lambda: cli.main(argv))
+        return rc, out.getvalue(), launched, time.perf_counter() - t0
+
+    def laps(text):
+        return int(re.search(r"iterations\s+: (\d+)", text).group(1))
+
+    def same_bits(a, b):
+        a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+        return a.shape == b.shape and np.array_equal(a.view(np.uint32), b.view(np.uint32))
+
+    root = str(Path(__file__).resolve().parent)
+    with tempfile.TemporaryDirectory() as d, concurrent.futures.ThreadPoolExecutor(1) as pool:
+        # The generator (its own process, as a user runs it) and the dry run
+        # (a gloo world of 4 ranks on the card) run beside the drives below.
+        t_bg = time.perf_counter()
+        gen = subprocess.Popen([sys.executable, "-m", "tpucg_torch", "generate", str(n),
+                                "--out-dir", d], cwd=root, stdout=subprocess.PIPE,
+                               stderr=subprocess.STDOUT, text=True)
+        try:
+            world = pool.submit(dryrun_multichip, 4, device=str(dev))
+
+            # (a) entry(): the flagship dense CG on cg_loop, K1/K3/K2.
+            fn, args = entry(device=dev)
+            (x, k, rnorm), launched = drive(lambda: fn(*args))
+            ref = cg_solve(*args, tol=1e-6, maxiter=1024, fused="never")
+            require(int(k) >= 1 and float(rnorm) < 1e-5 and int(k) == int(ref.iterations)
+                    and same_bits(x.cpu(), ref.x.cpu()),
+                    f"entry(): k {int(k)}, ||r|| {float(rnorm):.3e}, cg_solve "
+                    f"{int(ref.iterations)} laps")
+            print(f"entry() on {dev}: n=1024, {int(k)} laps, ||r|| {float(rnorm):.3e}, x bit for "
+                  f"bit cg_solve(fused='never')'s; launches "
+                  f"{counted('entry()', launched, dense_need)}")
+
+            # (b) info --spectrum on FEM 300k: spectral_interval's bits.
+            rc, out, launched, secs = run_cli(["info", "--spectrum", fem_mtx])
+            spec = json.loads(out)["spectrum"]
+            want = spectral_interval(best_sparse_operator(load_matrix_market(fem_mtx).to_csr(),
+                                                          device=dev))
+            require(rc == 0 and (spec["lam_lo"], spec["lam_hi"], spec["kappa"]) == want,
+                    f"info --spectrum FEM 300k: {spec}, spectral_interval {want}")
+            print(f"info --spectrum FEM 300k .mtx: lam_lo {spec['lam_lo']!r}, lam_hi "
+                  f"{spec['lam_hi']!r}, kappa {spec['kappa']:.6g}, equal to spectral_interval's; "
+                  f"{secs:.2f} s; launches "
+                  f"{counted('info --spectrum FEM', launched, ('well_spmv_cuda', 'dot_cuda'))}")
+
+            # (c) bench --json: every line parses, the metric line last, the
+            # library solve's laps.
+            op, bd, x0d = flagship
+            lib_laps = int(cg_solve(op, bd, x0d).iterations)
+            pop, pb, _, _ = cli._poisson_system("poisson-free", 128, torch.float32, "auto", dev)
+            lib_p = int(cg_solve(pop, pb, tol=1e-5 * float(np.linalg.norm(pb)),
+                                 maxiter=4 * pop.n).iterations)
+            del pop
+            for argv, metric, want_laps, need in (
+                    (["--n", str(n)], f"dense_cg_solve_time_n{n}", lib_laps, dense_need),
+                    (["--operator", "poisson-free", "--m", "128"],
+                     "poisson_free_cg_solve_time_m128", lib_p,
+                     ("fused_stencil_cg_solve_cuda", "poisson3d_cuda"))):
+                rc, out, launched, secs = run_cli(["bench", "--json"] + argv)
+                rows = [json.loads(ln) for ln in out.splitlines()]
+                require(rc == 0 and len(rows) == 2 and rows[-1]["metric"] == metric
+                        and rows[0]["iterations"] == want_laps,
+                        f"bench --json {argv}: rc {rc}, {out!r}, library laps {want_laps}")
+                print(f"bench --json {' '.join(argv)}: {rows[0]['iterations']} laps (the "
+                      f"library's {want_laps}), solve {rows[0]['solve_s'] * 1e3:.3f} ms, last "
+                      f"line {rows[-1]}; {secs:.2f} s; launches "
+                      f"{counted('bench ' + argv[-1], launched, need)} {tag}")
+
+            gen_out, _ = gen.communicate(timeout=300)
+        finally:
+            if gen.poll() is None:
+                gen.kill()
+                gen.wait()
+        gen_s = time.perf_counter() - t_bg
+        pa_txt, pb_txt = (str(Path(d) / f) for f in (f"matrix{n}X{n}.txt", f"vector{n}X1.txt"))
+        require(gen.returncode == 0 and os.path.exists(pa_txt), f"generate {n}: {gen_out}")
+
+        # (d) convert the matrix to .npy: the flagship A rounded to %.4f.
+        pa = str(Path(d) / "A.npy")
+        rc, out, _, conv_s = run_cli(["convert", pa_txt, pa])
+        A = np.load(pa)
+        b = load_vector(pb_txt, n=n)
+        # %.4f rounds by at most 5e-5, then the f32 parse by half an ulp.
+        A_f = op.A.cpu().numpy()[:n, :n]
+        err = float((np.abs(A - A_f) / (5e-5 + np.spacing(np.abs(A_f)))).max())
+        del A_f
+        require(rc == 0 and A.shape == (n, n) and err <= 1.0,
+                f"convert: rc {rc}, shape {A.shape}, |A - flagship A| {err} of its bound")
+        print(f"generate {n} (its own process, beside (a)-(c)): done after {gen_s:.1f} s; convert "
+              f"to .npy {conv_s:.1f} s; max |A - the flagship's A| {err:.3f} of 5e-5 + an ulp "
+              f"(%.4f)")
+
+        # (e) info --spectrum on the .npy, then solve --method chebyshev
+        # --interval with it: the library's bits and laps.
+        rc, out, launched, _ = run_cli(["info", "--spectrum", pa])
+        spec = json.loads(out)["spectrum"]
+        want = spectral_interval(A, device=dev)
+        require(rc == 0 and (spec["lam_lo"], spec["lam_hi"], spec["kappa"]) == want,
+                f"info --spectrum A.npy: {spec}, spectral_interval {want}")
+        used = counted("info --spectrum A.npy", launched, ("matvec_cuda", "dot_cuda"))
+        px = str(Path(d) / "x.txt")
+        rc, out, launched, secs = run_cli(
+            ["solve", pa, pb_txt, "--method", "chebyshev", "--interval", repr(spec["lam_lo"]),
+             repr(spec["lam_hi"]), "--output", px])
+        ref = cg_solve(A, b, device=dev, method="chebyshev",
+                       interval=(spec["lam_lo"], spec["lam_hi"]))
+        require(rc == 0 and laps(out) == int(ref.iterations) and bool(ref.converged)
+                and same_bits(load_vector(px, n=n), ref.x.cpu()),
+                f"solve --method chebyshev --interval: {laps(out)} laps, the library's "
+                f"{int(ref.iterations)}")
+        print(f"info --spectrum A.npy (n={n}): [{spec['lam_lo']!r}, {spec['lam_hi']!r}], "
+              f"spectral_interval's bits, launches {used}; solve --method chebyshev --interval: "
+              f"{laps(out)} laps and x bit for bit the library's, {secs:.2f} s; launches "
+              f"{counted('chebyshev --interval', launched, ('matvec_cuda',))}")
+
+        # (f) solve --deflate with x* among V's columns: the Galerkin start
+        # lands on x*; serially and on one NCCL rank, the library's bits.
+        tol = 1e-5 * float(np.linalg.norm(b.astype(np.float64)))
+        x_star = cg_solve(A, b, device=dev, tol=tol).x.cpu().numpy()
+        pv = str(Path(d) / "V.npy")
+        np.save(pv, np.stack([x_star, b], axis=1).astype(np.float32))
+        V = np.load(pv)
+        x0 = np.zeros(n, np.float32)
+        base = ["solve", pa, pb_txt, "--deflate", pv, "--tol", repr(tol), "--output", px]
+        rc, out, launched, secs = run_cli(base)
+        ref = cg_solve_deflated(A, b, V, x0=x0, device=dev, tol=tol)
+        require(rc == 0 and "[deflated m=2]" in out and laps(out) == int(ref.iterations) <= 2
+                and same_bits(load_vector(px, n=n), ref.x.cpu()),
+                f"solve --deflate: {laps(out)} laps, the library's {int(ref.iterations)}")
+        print(f"solve --deflate (x*, b): {laps(out)} laps, x bit for bit cg_solve_deflated's, "
+              f"{secs:.2f} s; launches "
+              f"{counted('solve --deflate', launched, ('matvec_cuda',))} {tag}")
+        rc, out, launched, secs = run_cli(base + ["--strategy", "allgather", "--devices", "1"])
+        init_distributed(backend="nccl", device=dev)
+        try:
+            ref = sharded_cg_solve_deflated(A, b, V, x0=x0, mesh=make_mesh(device=dev,
+                                                                         backend="nccl"),
+                                            strategy="allgather", tol=tol)
+        finally:
+            torch.distributed.destroy_process_group()
+        require(rc == 0 and "rank 0 of 1" in out and laps(out) == int(ref.iterations) <= 2
+                and same_bits(load_vector(px, n=n), ref.x.cpu()),
+                f"solve --deflate --strategy allgather: {laps(out)} laps, the library's "
+                f"{int(ref.iterations)}")
+        print(f"solve --deflate --strategy allgather --devices 1 (one NCCL rank): {laps(out)} "
+              f"laps, x bit for bit sharded_cg_solve_deflated's, {secs:.2f} s; launches "
+              f"{counted('solve --deflate, one rank', launched, ('matvec_cuda',), mesh=True)}")
+
+        # (g) --debug-nans: a NaN in b raises FloatingPointError; the clean
+        # system passes.
+        bn = b.copy()
+        bn[7] = np.nan
+        pbn = str(Path(d) / "bn.txt")
+        save_array(pbn, bn, fmt="%r")
+        try:
+            run_cli(["solve", pa, pbn, "--debug-nans", "--maxiter", "16"])
+            raised = None
+        except FloatingPointError as e:
+            raised = str(e)
+        require(raised is not None and "not finite" in raised, f"--debug-nans: {raised}")
+        rc, out, launched, _ = run_cli(["solve", pa, pb_txt, "--debug-nans"])
+        require(rc == 0 and "converged            : True" in out, f"--debug-nans clean: {out}")
+        print(f"--debug-nans: NaN b raised FloatingPointError ({raised}); the clean system "
+              f"passed, launches {counted('--debug-nans', launched, dense_need)}")
+
+        # (h) The dry run's gloo world of 4 on the card.
+        line = world.result()
+        require(line.startswith(f"dryrun_multichip OK: 4 ranks on {dev} (gloo)"), line)
+        print(f"dryrun_multichip(4) on {dev}: passed, {time.perf_counter() - t_bg:.1f} s after "
+              f"it started (beside (a)-(g), with start-up)")
+    print(f"M15: {time.perf_counter() - t_phase:.1f} s {tag}")
+    return added
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1542,6 +1778,10 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     strict_f32()  # the plain references run in full f32, no TF32
+    # Files one phase writes for a later one (a name no phase reuses: main's
+    # locals are shared by every phase).
+    handoff_dir = tempfile.TemporaryDirectory()
+    fem_mtx = str(Path(handoff_dir.name) / "fem.mtx")
 
     with phase("device"):
         name = torch.cuda.get_device_name(0)
@@ -2509,6 +2749,7 @@ def main() -> int:
             t0 = time.perf_counter()
             csr = load_matrix_market(pa).to_csr()
             load_s = time.perf_counter() - t0
+            os.replace(pa, fem_mtx)  # phase 26's info --spectrum reads it
         b64 = b_fem.astype(np.float64)
         true_rel = float(np.linalg.norm(b64 - csr.matvec(x)) / np.linalg.norm(b64))
         require(true_rel <= fem_residual_bound,
@@ -4033,6 +4274,11 @@ def main() -> int:
                                      fem_jacobi_laps=FEM_SHARDED_JACOBI_LAPS,
                                      fem_two_level_laps=FEM_TWO_LEVEL_LAPS).items():
             counts[kern] = counts.get(kern, 0) + c
+
+    with phase("M15: the CLI and the dry run"):
+        for kern, c in m15_phase(dev, tag, drive, flagship[:3], fem_mtx).items():
+            counts[kern] = counts.get(kern, 0) + c
+    handoff_dir.cleanup()
 
     # (id, name, key of its launch count, source, the TPU kernel it replaces)
     meta = (

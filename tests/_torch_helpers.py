@@ -290,55 +290,43 @@ def scaled_err(x, want) -> float:
 
 def run_world(nprocs: int, target, args=(), rendezvous: str = "", timeout_s: float = 600.0):
     """Run ``target(rank, nprocs, *args)`` in ``nprocs`` spawned processes,
-    the ranks of one gloo world (``init_distributed`` through the file
-    ``rendezvous``, which must not exist yet), and return rank 0's return
-    value. A rank that raises fails the world (the others are ended) and
-    raises here with its traceback; so does a world that outlasts
-    ``timeout_s``. The ranks import this module, torch and tpucg_torch, no
-    jax."""
-    import queue as queue_mod
-    import time
+    the ranks of one gloo world, and return rank 0's return value: the
+    package's ``tpucg_torch.dryrun.spawn_world`` (a rank that raises, or a
+    world that outlasts ``timeout_s``, raises here). The ranks import this
+    module, torch and tpucg_torch, no jax."""
+    from tpucg_torch.dryrun import spawn_world
 
-    import torch.multiprocessing as tmp
+    return spawn_world(nprocs, target, args=args, rendezvous=rendezvous, timeout_s=timeout_s)
 
-    results = tmp.get_context("spawn").Queue()
-    ctx = tmp.start_processes(_world_rank, args=(nprocs, rendezvous, target, args, results),
-                              nprocs=nprocs, join=False, start_method="spawn")
-    deadline = time.monotonic() + timeout_s
-    out = None
-    try:
-        while True:
-            try:  # drain while waiting: a rank exits only once its result is read
-                out = results.get(timeout=0.2)
-            except queue_mod.Empty:
-                pass
-            if ctx.join(timeout=0.2):
-                break
-            if time.monotonic() > deadline:
-                raise TimeoutError(f"a world of {nprocs} ranks outlasted {timeout_s} s")
-    finally:
-        for p in ctx.processes:
-            if p.is_alive():
-                p.kill()
-    if out is None:
-        out = results.get(timeout=30)
+
+def cli_world_worker(rank, nprocs, argvs):
+    """A rank of a world that runs each of ``argvs`` through the port's CLI,
+    as the ranks of ``torchrun -m tpucg_torch`` do; returns, for rank 0,
+    each command's exit code (or the ``ValueError``, ``SystemExit`` or
+    ``FloatingPointError`` it raised, as "Type: text") and its stdout."""
+    import contextlib
+    import io
+
+    from tpucg_torch import cli
+
+    out = []
+    for argv in argvs:
+        buf = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(argv)
+        except (ValueError, SystemExit, FloatingPointError) as e:
+            rc = f"{type(e).__name__}: {e}"
+        out.append((rc, buf.getvalue()))
     return out
 
 
-def _world_rank(rank, nprocs, rendezvous, target, args, results):
-    torch.set_num_threads(1)
-    import torch.distributed as dist
-
-    from tpucg_torch.comm.mesh import init_distributed
-
-    init_distributed(init_method=f"file://{rendezvous}", world_size=nprocs, rank=rank,
-                     backend="gloo")
-    try:
-        out = target(rank, nprocs, *args)
-        if rank == 0:
-            results.put(out)
-    finally:
-        dist.destroy_process_group()
+def raising_worker(rank, nprocs, label):
+    """A rank of a world whose rank 0 fails a check, as a dry-run case that
+    misses its oracle does."""
+    if rank == 0:
+        raise AssertionError((label, "did not converge"))
+    return None
 
 
 # The sharded cases of tests/test_torch_sharded.py: tpucg's own sharded

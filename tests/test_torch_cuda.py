@@ -2557,3 +2557,74 @@ def test_m14s45_two_gloo_ranks_on_one_card(cuda_device, tmp_path):
         r = got[label]
         assert r["converged"] and r["laps"] == int(ref.iterations), label
         assert scaled_err(r["x"], ref.x.cpu().numpy()) <= 1e-4, label
+
+
+# ---- M15: the CLI's last parts and the dry-run entry points on the card ---------
+
+
+def test_m15_bench_json_lines_then_the_metric_line(cuda_device, capsys):
+    # With --json every arm's report is a JSON line on stdout, then the
+    # metric line, last; without it stdout is the metric line alone.
+    import json
+
+    from tpucg_torch import cli
+
+    assert cli.main(["bench", "--n", "1024", "--repeats", "5", "--json"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    rows = [json.loads(ln) for ln in lines]
+    assert len(rows) == 2 and rows[-1]["metric"] == "dense_cg_solve_time_n1024"
+    A, b, x0 = generate_spd_system(1024, seed=0)
+    want = cg_solve(A, b, x0, device=cuda_device)
+    assert rows[0]["iterations"] == int(want.iterations) and rows[0]["strategy"] == "serial"
+    assert cli.main(["bench", "--n", "1024", "--repeats", "5", "--tol", "1e-3"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert len(lines) == 1 and json.loads(lines[0])["metric"] == "dense_cg_solve_time_n1024"
+
+
+def test_m15_bench_json_poisson_iterations_are_the_librarys(cuda_device, capsys):
+    import json
+
+    from tpucg_torch import cli
+
+    assert cli.main(["bench", "--operator", "poisson-free", "--m", "32", "--repeats", "5",
+                     "--json"]) == 0
+    rep, metric = (json.loads(ln) for ln in capsys.readouterr().out.splitlines())
+    op, b, _, _ = cli._poisson_system("poisson-free", 32, torch.float32, "auto", cuda_device)
+    want = cg_solve(op, b, tol=1e-5 * float(np.linalg.norm(b)), maxiter=4 * op.n)
+    assert rep["iterations"] == int(want.iterations) and rep["nnz"] == 7 * 32 ** 3 - 6 * 32 * 32
+    assert metric["metric"] == "poisson_free_cg_solve_time_m32"
+
+
+def test_m15_entry_runs_the_lap_kernels(cuda_device):
+    from tpucg_torch.dryrun import entry
+
+    fn, args = entry()
+    assert args[0].device == cuda_device
+    (x, k, rnorm), moved = _m9_counted(lambda: fn(*args))
+    assert x.shape == (1024,) and int(k) >= 1 and float(rnorm) < 1e-5
+    assert moved["matvec_cuda"] > 0 and moved["dot_cuda"] > 0 and moved["fused_update_cuda"] > 0
+    assert all(c == 0 for w, c in moved.items() if w.endswith("_torch"))
+
+
+def test_m15_deflate_and_debug_nans_on_card(cuda_device, tmp_path, capsys):
+    from tpucg_torch import cli
+    from tpucg_torch.io.textio import load_vector, save_array
+
+    A, b, x0 = generate_spd_system(512, seed=2)
+    x_star = oracle_cg(A, b, x0)[0]
+    V = np.stack([x_star, b], axis=1).astype(np.float32)
+    pa, pb, pv, px = (str(tmp_path / f) for f in ("A.npy", "b.txt", "V.npy", "x.txt"))
+    np.save(pa, A)
+    save_array(pb, b, fmt="%r")
+    np.save(pv, V)
+    tol = 1e-5 * float(np.linalg.norm(b))
+    assert cli.main(["solve", pa, pb, "--deflate", pv, "--tol", repr(tol), "--output", px]) == 0
+    out = capsys.readouterr().out
+    want = cg_solve_deflated(A, b, V, device=cuda_device, tol=tol)
+    assert f"iterations           : {int(want.iterations)}" in out and int(want.iterations) <= 2
+    np.testing.assert_array_equal(load_vector(px, n=512), want.x.cpu().numpy())
+    bn = b.copy()
+    bn[7] = np.nan
+    save_array(pb, bn, fmt="%r")
+    with pytest.raises(FloatingPointError, match="not finite"):
+        cli.main(["solve", pa, pb, "--debug-nans", "--maxiter", "16"])

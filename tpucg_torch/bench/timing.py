@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
+import json
 import statistics
 import subprocess
 import time
@@ -291,6 +292,7 @@ class BenchReport:
     matvec_gbps: Optional[float] = None
     roofline_frac: Optional[float] = None
     above_peak: bool = False
+    strategy: str = "serial"
 
     def finalize(self, hbm_peak: float) -> "BenchReport":
         if self.matvec is not None:
@@ -304,6 +306,27 @@ class BenchReport:
             # (A cached, or work not waited for), not a fast kernel.
             self.above_peak = self.roofline_frac > 1.0
         return self
+
+    def to_json(self) -> str:
+        """The report as one JSON line with tpucg's ``BenchReport`` keys
+        (``timing.py:360-399``) where this report has the quantity (solve_s
+        and matvec_s are the medians; device_kind is the card's name and
+        power limit), then this report's own: the solve's min, max and
+        samples, the matvec's bytes and the above-peak flag."""
+        mv = None if self.matvec is None else self.matvec.median
+        return json.dumps({
+            "n": self.n, "iterations": self.iterations, "residual_norm": self.residual_norm,
+            "distribute_s": self.distribute_s, "solve_s": self.solve.median,
+            "total_s": self.total_s, "matvec_s": mv, "matvec_gbps": self.matvec_gbps,
+            "roofline_frac": self.roofline_frac,
+            "iters_per_s": self.iterations / self.solve.median if self.solve.median else None,
+            "nnz": self.nnz,
+            "nnz_per_s": self.nnz / mv if mv and self.nnz is not None else None,
+            "padded_n": self.padded_n, "strategy": self.strategy, "backend": self.backend,
+            "device_kind": self.card, "solve_min_s": self.solve.min,
+            "solve_max_s": self.solve.max, "solve_samples": self.solve.samples,
+            "matvec_bytes": self.matvec_bytes, "above_peak": self.above_peak,
+        })
 
     def pretty(self) -> str:
         lines = [

@@ -1,6 +1,7 @@
-"""``python -m tpucg_torch``: solve, selftest, bench and info (the
-counterparts of tpucg's ``cmd_solve``, ``cmd_selftest``, ``cmd_bench`` and
-``cmd_info``). ``solve`` and ``bench`` take tpucg's ``--fused
+"""``python -m tpucg_torch``: solve, generate, convert, selftest, bench and
+info (the counterparts of tpucg's ``cmd_solve``, ``cmd_generate``,
+``cmd_convert``, ``cmd_selftest``, ``cmd_bench`` and ``cmd_info``, with
+tpucg's output and refusals). ``solve`` and ``bench`` take tpucg's ``--fused
 {auto,always,never}``: ``always`` runs a solve the whole-solve kernels take
 (K4 dense, K10 Poisson stencil, K11 DIA) as one launch, ``never`` the lap
 path. ``solve A.mtx b.mtx`` reads a MatrixMarket system, optionally
@@ -45,6 +46,13 @@ dense text or ``.npy`` system is loaded host-sharded
 refuses it). They take the method options and block Jacobi as the serial
 solve does (ELL and BSR refuse block Jacobi, as tpucg's sharded solve
 does). Only rank 0 prints.
+
+``solve --deflate V`` deflates a dense system with the basis V (serial or
+on the mesh); ``info --spectrum MATRIX`` prints the bounds that ``solve
+--interval`` takes; ``bench --json`` adds each arm's report as a JSON line
+before the metric line and ``bench --tol`` sets the solve's tolerance.
+``--devices K`` must name the world's size, and ``--debug-nans`` checks the
+result once for NaN and Inf (tpucg's flag checks every operation).
 """
 
 from __future__ import annotations
@@ -144,15 +152,42 @@ def _method_kw(args) -> dict:
     return kw
 
 
-def _mesh(device):
+def _mesh(device, devices: Optional[int] = None):
     """The mesh of a distributed solve: torchrun's world, or this process as
     a world of one rank; on ``device`` (default: the card when there is one,
-    ``cuda:<LOCAL_RANK>``)."""
+    ``cuda:<LOCAL_RANK>``). ``--devices K`` is tpucg's ``make_mesh(K)``
+    (``cli.py:41``) for a world of P ranks: K > P raises tpucg's
+    ``ValueError``, K == P is the world, and K < P is refused, since the
+    port's mesh spans the whole world as its 2-D mesh does (launch K ranks
+    instead)."""
     import torch
 
     from tpucg_torch.comm.mesh import make_mesh
 
-    return make_mesh(device=device or ("cuda" if torch.cuda.is_available() else "cpu"))
+    mesh = make_mesh(device=device or ("cuda" if torch.cuda.is_available() else "cpu"))
+    if devices is not None and devices > mesh.size:
+        raise ValueError(f"requested {devices} devices, only {mesh.size} present")
+    if devices is not None and devices < mesh.size:
+        raise ValueError(f"requested {devices} devices of a world of {mesh.size} ranks: the "
+                         f"port's mesh spans the whole world (launch {devices} ranks)")
+    return mesh
+
+
+def _check_finite(args, res) -> None:
+    """``--debug-nans``: x and the residual norm checked once, after the
+    solve, raising ``FloatingPointError`` (the class ``jax_debug_nans``
+    raises) that names the non-finite quantity. JAX checks every operation;
+    torch has no such mode, and a check each lap would read the host each
+    lap. Every rank of a mesh holds the same x and norm, so every rank
+    raises or none does."""
+    import torch
+
+    if not args.debug_nans:
+        return
+    bad = [name for name, t in (("x", res.x), ("the residual norm", res.residual_norm))
+           if not bool(torch.isfinite(torch.as_tensor(t)).all())]
+    if bad:
+        raise FloatingPointError(f"--debug-nans: {' and '.join(bad)} not finite after the solve")
 
 
 @contextlib.contextmanager
@@ -224,7 +259,7 @@ def _cmd_solve_mtx(args, t_total0) -> int:
         sharded_operator_cg_solve,
     )
 
-    mesh = None if args.strategy == "serial" else _mesh(args.device)
+    mesh = None if args.strategy == "serial" else _mesh(args.device, args.devices)
     device = canonical_device(args.device) if mesh is None else mesh.device
     t0 = time.perf_counter()
     mat = load_matrix_market(args.matrix)
@@ -324,6 +359,7 @@ def _cmd_solve_mtx(args, t_total0) -> int:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     solve_s = time.perf_counter() - t0
+    _check_finite(args, res)
     if mesh is not None and mesh.rank != 0:
         return 0 if bool(res.converged) else 3  # rank 0 reports and writes x
     print(f"system size          : {n} x {n}  [{fmt}]")
@@ -395,11 +431,16 @@ def cmd_solve(args) -> int:
     _check_solve_options(args)
     t_total0 = time.perf_counter()
     if args.matrix.endswith(".mtx"):
+        if args.deflate:
+            raise SystemExit("--deflate supports dense (text/.npy) matrices; sparse .mtx "
+                             "operators are not deflatable from the CLI")
         return _cmd_solve_mtx(args, t_total0)
     if args.two_level is not None:
         raise SystemExit("--two-level applies to sparse .mtx systems (dense systems converge in "
                          "O(10) laps already)")
-    mesh = None if args.strategy == "serial" else _mesh(args.device)
+    if args.deflate:
+        return _cmd_solve_deflated(args, t_total0)
+    mesh = None if args.strategy == "serial" else _mesh(args.device, args.devices)
     device = canonical_device(args.device) if mesh is None else mesh.device
     storage = torch.bfloat16 if args.storage == "bf16" else torch.float32
     system = None
@@ -454,6 +495,7 @@ def cmd_solve(args) -> int:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     solve_s = time.perf_counter() - t0
+    _check_finite(args, res)
     if mesh is not None and mesh.rank != 0:
         return 0 if bool(res.converged) else 3  # rank 0 reports and writes x
     print(f"system size          : {n} x {n}")
@@ -462,6 +504,147 @@ def cmd_solve(args) -> int:
     print(f"CG solve (s)         : {solve_s:.6f}  (includes operator placement)")
     print(f"total (s)            : {time.perf_counter() - t_total0:.6f}")
     return _report(args, res, None, n, mesh)
+
+
+def _load_deflation_v(path: str, n: int):
+    """The deflation basis V (n, m) from .npy or .mtx (tpucg's
+    ``_load_deflation_v``, ``cli.py:447``); a vector is one column."""
+    import numpy as np
+
+    if path.endswith(".npy"):
+        V = np.load(path)
+    elif path.endswith(".mtx"):
+        from tpucg_torch.io.mmio import load_matrix_market
+
+        V = load_matrix_market(path)
+        if not isinstance(V, np.ndarray):
+            V = V.to_dense()
+    else:
+        raise SystemExit("--deflate expects a .npy or .mtx file")
+    V = np.asarray(V, np.float32)
+    if V.ndim == 1:
+        V = V[:, None]
+    if V.shape[0] != n:
+        raise SystemExit(f"--deflate basis has {V.shape[0]} rows, system has {n}")
+    return V
+
+
+def _cmd_solve_deflated(args, t_total0) -> int:
+    """``solve --deflate V`` on a dense system (tpucg's
+    ``_cmd_solve_deflated``, ``cli.py:472``): ``cg_solve_deflated``, or with
+    ``--strategy`` ``sharded_cg_solve_deflated`` on the CLI's mesh. A, b
+    and x0 are loaded whole (``load_system``), on every rank of a mesh too,
+    as tpucg's CLI loads them: the deflated solve places each rank's rows
+    itself. ``method`` is forwarded, so the solves' method guard fires."""
+    import torch
+
+    from tpucg_torch.io.textio import load_system
+    from tpucg_torch.kernels.dispatch import canonical_device, resolve_backend
+    from tpucg_torch.solver.deflation import cg_solve_deflated, sharded_cg_solve_deflated
+
+    if args.checkpoint is not None:
+        raise SystemExit("--deflate does not compose with --checkpoint")
+    mesh = None if args.strategy == "serial" else _mesh(args.device, args.devices)
+    device = canonical_device(args.device) if mesh is None else mesh.device
+    A, b, x0 = load_system(args.matrix, args.rhs, args.x0, n=args.n)
+    n = A.shape[0]
+    V = _load_deflation_v(args.deflate, n)
+    load_s = time.perf_counter() - t_total0
+    kw = dict(tol=args.tol, maxiter=args.maxiter, kernel=args.kernel, method=args.method,
+              precondition=args.precondition, poly_degree=args.poly_degree,
+              pc_block_size=args.pc_block_size)
+    record = args.residual_history and args.method == "cg" and mesh is None
+    if args.residual_history and not record and (mesh is None or mesh.rank == 0):
+        print("note: --residual-history requires --method cg --strategy serial with "
+              "--deflate; no history will be recorded")
+    t0 = time.perf_counter()
+    if mesh is None:
+        res = cg_solve_deflated(A, b, V, x0=x0, record_residuals=record, device=device, **kw)
+    else:
+        res = sharded_cg_solve_deflated(A, b, V, x0=x0, mesh=mesh, strategy=args.strategy,
+                                        **kw)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    solve_s = time.perf_counter() - t0
+    _check_finite(args, res)
+    if mesh is not None and mesh.rank != 0:
+        return 0 if bool(res.converged) else 3  # rank 0 reports and writes x
+    print(f"system size          : {n} x {n}  [deflated m={V.shape[1]}]")
+    print(f"device               : {device} [{resolve_backend(args.kernel, device)}]"
+          if mesh is None else f"strategy             : {args.strategy} [{mesh!r}]")
+    print(f"data load (s)        : {load_s:.6f}")
+    print(f"CG solve (s)         : {solve_s:.6f}  (includes operator placement)")
+    print(f"total (s)            : {time.perf_counter() - t_total0:.6f}")
+    return _report(args, res, None, n, mesh)
+
+
+def cmd_generate(args) -> int:
+    """A random SPD system in the reference's text format (tpucg's
+    ``cmd_generate``, ``cli.py:714``): ``generateSPDmatrix.m``'s file names,
+    A and b in %.4f, x0 in %.1f."""
+    from tpucg_torch.io.generator import generate_spd_system
+    from tpucg_torch.io.textio import save_array
+
+    n = args.n
+    A, b, x0 = generate_spd_system(n, seed=args.seed)
+    os.makedirs(args.out_dir, exist_ok=True)
+    pa = os.path.join(args.out_dir, f"matrix{n}X{n}.txt")
+    pb = os.path.join(args.out_dir, f"vector{n}X1.txt")
+    px = os.path.join(args.out_dir, f"X{n}X1.txt")
+    save_array(pa, A, fmt="%.4f")
+    save_array(pb, b, fmt="%.4f")
+    save_array(px, x0, fmt="%.1f")
+    print(f"wrote {pa}, {pb}, {px}")
+    return 0
+
+
+def cmd_convert(args) -> int:
+    """Format conversion (tpucg's ``cmd_convert``, ``cli.py:735``): .mtx ->
+    .mtx expands symmetric storage, sorts the rows and writes the byte-offset
+    sidecar that host-sharded loading reads (``expand_matrix_market``); a
+    COO .mtx -> .npy or text is densified; text or .npy -> .mtx; text <->
+    .npy with ``--kind``, ``--n`` and ``--fmt``."""
+    import numpy as np
+
+    from tpucg_torch.io.textio import load_matrix, load_vector, save_array
+
+    src, dst = args.src, args.dst
+    if src.endswith(".mtx") and dst.endswith(".mtx"):
+        from tpucg_torch.io.mmio import expand_matrix_market
+
+        idx = expand_matrix_market(src, dst)
+        print(f"wrote {dst} + sidecar {idx} (host-sharded loading ready)")
+        return 0
+    if src.endswith(".mtx"):
+        from tpucg_torch.io.mmio import load_matrix_market
+
+        arr = load_matrix_market(src)
+        if not isinstance(arr, np.ndarray):
+            arr = arr.to_dense()  # text and .npy are dense formats
+        if dst.endswith(".npy"):
+            np.save(dst, arr)
+        else:
+            save_array(dst, arr, fmt=args.fmt)
+    elif dst.endswith(".mtx"):
+        from tpucg_torch.io.mmio import save_matrix_market
+
+        if src.endswith(".npy"):
+            arr = np.load(src)
+        elif args.kind == "matrix":
+            arr = load_matrix(src, n=args.n)
+        else:
+            arr = load_vector(src, n=args.n)
+        save_matrix_market(dst, arr)
+    elif dst.endswith(".npy"):
+        arr = load_matrix(src, n=args.n) if args.kind == "matrix" else load_vector(src, n=args.n)
+        np.save(dst, arr)
+    elif src.endswith(".npy"):
+        arr = np.load(src)
+        save_array(dst, arr, fmt=args.fmt)
+    else:
+        raise SystemExit("one of src/dst must be a .npy or .mtx file")
+    print(f"wrote {dst} ({arr.size} values, shape {arr.shape})")
+    return 0
 
 
 def cmd_selftest(args) -> int:
@@ -474,6 +657,7 @@ def cmd_selftest(args) -> int:
     from tpucg_torch.kernels.dispatch import canonical_device, resolve_backend
     from tpucg_torch.solver.cg import cg_solve, cg_solve_multi
     from tpucg_torch.solver.oracle import oracle_cg
+    from tpucg_torch.solver.sharded import sharded_cg_solve
 
     device = canonical_device(args.device)
     failures = []
@@ -517,6 +701,20 @@ def cmd_selftest(args) -> int:
             and (pc != "none" or int(r.iterations) == k_ref),
             f"{int(r.iterations)} iters (oracle {k_ref})",
         )
+    # tpucg's mesh checks (cli.py:828-844) on the CLI's mesh: torchrun's
+    # world, or this process as a world of one rank, on the device.
+    mesh = _mesh(device)
+    for strategy in ("allgather", "overlap"):
+        rs = sharded_cg_solve(A, b, x0, mesh=mesh, strategy=strategy, kernel=args.kernel)
+        check(f"sharded[{strategy}] n={n} ({mesh.size} ranks)",
+              bool(rs.converged) and np.allclose(rs.x.cpu().numpy(), x_ref, atol=1e-4),
+              f"{int(rs.iterations)} iters")
+    # Pipelined CG's f32 residual floor lies a little above classic CG's:
+    # its check runs at a tolerance scaled to ||b||, as tpucg's does.
+    ptol = 1e-5 * float(np.linalg.norm(b))
+    rp = cg_solve(A, b, x0, method="pipelined", tol=ptol, kernel=args.kernel, device=device)
+    check("pipelined", bool(rp.converged) and np.allclose(rp.x.cpu().numpy(), x_ref, atol=1e-3),
+          f"{int(rp.iterations)} iters")
     B = np.stack([b, 0.5 * b], axis=1).astype(np.float32)
     rm = cg_solve_multi(A, B, kernel=args.kernel, device=device)
     check("multi-RHS (k=2)", bool(rm.converged.all())
@@ -593,18 +791,24 @@ def cmd_bench(args) -> int:
         args.strategy,)
     if args.operator != "dense" and strategies != ("serial",):
         raise SystemExit("the distributed bench runs the dense system (--operator dense)")
-    mesh = None if strategies == ("serial",) else _mesh("cuda")
+    mesh = None if strategies == ("serial",) else _mesh("cuda", args.devices)
     with _rank0_prints(mesh):
         # tpucg's --compare-strategies (cli.py:1014-1021): the reference's
         # question, collective against point-to-point, beside serial; one
-        # report each on stderr, the JSON line of the first arm.
-        lines = [_bench_one(args, strategy, mesh) for strategy in strategies]
-        print(json.dumps(lines[0]))
+        # report each on stderr, the JSON line of the first arm. With --json
+        # every arm's report also goes to stdout as a JSON line (tpucg's
+        # BenchReport.to_json), before the metric line, which stays last.
+        arms = [_bench_one(args, strategy, mesh) for strategy in strategies]
+        if args.json:
+            for _, report in arms:
+                print(report.to_json())
+        print(json.dumps(arms[0][0]))
     return 0
 
 
-def _bench_one(args, strategy: str, mesh) -> dict:
-    """One bench arm: the report on stderr, the JSON line returned."""
+def _bench_one(args, strategy: str, mesh):
+    """One bench arm: the report on stderr; returns the metric line and the
+    report."""
     import numpy as np
     import torch
 
@@ -630,7 +834,7 @@ def _bench_one(args, strategy: str, mesh) -> dict:
     if args.operator == "dense":
         n = args.n
         A, b, x0 = generate_spd_system(n, seed=0)
-        tol, maxiter, nnz = 1.0e-6, None, None
+        tol, maxiter, nnz = 1.0e-6 if args.tol is None else args.tol, None, None
         # Distribution phase: placing the padded operator, or this rank's
         # block of it, on the card (the reference's MPI_Scatter phase).
         t0 = time.perf_counter()
@@ -655,7 +859,7 @@ def _bench_one(args, strategy: str, mesh) -> dict:
         n, x0, maxiter = op.n, None, 4 * op.n
         # Large-norm sparse systems: an absolute 1e-6 is below the f32
         # residual floor (tpucg's choice, cli.py:938-943).
-        tol = 1.0e-5 * float(np.linalg.norm(b))
+        tol = 1.0e-5 * float(np.linalg.norm(b)) if args.tol is None else args.tol
     if strategy == "serial":
         bd = torch.as_tensor(b, device="cuda")
         x0d = None if x0 is None else torch.as_tensor(x0, device="cuda")
@@ -666,6 +870,7 @@ def _bench_one(args, strategy: str, mesh) -> dict:
             return cg_solve(op, bd, x0d, fused=args.fused, tol=tol, maxiter=maxiter, **kw)
 
     res = solve()
+    _check_finite(args, res)
     solve_t = time_fn(solve, warmup=1, iters=args.repeats)
     matvec_t = None
     if strategy == "serial":
@@ -687,6 +892,7 @@ def _bench_one(args, strategy: str, mesh) -> dict:
         card=nvidia_smi_card(),
         backend=(f"{args.operator} {args.storage} {where} method={args.method} "
                  f"precondition={args.precondition}"),
+        strategy=strategy,
         padded_n=padded_n,
         matvec=matvec_t,
         matvec_bytes=None if matvec_t is None else mv_bytes,
@@ -709,13 +915,13 @@ def _bench_one(args, strategy: str, mesh) -> dict:
             "value": round(solve_t.median, 6),
             "unit": "s",
             "vs_baseline": round(baseline / solve_t.median, 2) if baseline else None,
-        }
+        }, report
     # The reference C code has no sparse solve: no vs_baseline.
     return {
         "metric": f"{args.operator.replace('-', '_')}_cg_solve_time_m{args.m}",
         "value": round(solve_t.median, 6),
         "unit": "s",
-    }
+    }, report
 
 
 def cmd_info(args) -> int:
@@ -735,7 +941,7 @@ def cmd_info(args) -> int:
         except ValueError:
             peak = "unknown card"
     lib = _lib.library_path()
-    print(json.dumps({
+    info = {
         "tpucg_torch_version": tpucg_torch.__version__,
         "torch_version": torch.__version__,
         "torch_cuda": torch.version.cuda,
@@ -745,8 +951,41 @@ def cmd_info(args) -> int:
         "kernel_library": {"built": lib.exists(), "path": str(lib)},
         "hbm_peak_bytes_per_s": peak,
         "native_parser": _native._load() is not None,
-    }, indent=2))
+    }
+    if args.spectrum:
+        info["spectrum"] = _spectrum(args.spectrum, args.device)
+    print(json.dumps(info, indent=2))
     return 0
+
+
+def _spectrum(path: str, device) -> dict:
+    """``info --spectrum MATRIX`` (tpucg's ``cli.py:1049-1073``): the SPD
+    bounds of a matrix loaded by suffix (a sparse .mtx through COO -> CSR ->
+    ``best_sparse_operator``; .npy, text and a dense .mtx as dense A) from
+    ``spectral_interval`` on ``device``, whose power iterations run on the
+    operator's kernel (K1, K6, K13 ... on the card). Feed lam_lo and lam_hi
+    to ``solve --interval``."""
+    import numpy as np
+
+    from tpucg_torch.kernels.dispatch import canonical_device
+    from tpucg_torch.solver.cg import spectral_interval
+
+    device = canonical_device(device)
+    if path.endswith(".mtx"):
+        from tpucg_torch.io.mmio import load_matrix_market
+        from tpucg_torch.solver.operators import best_sparse_operator
+
+        A = load_matrix_market(path)
+        if not isinstance(A, np.ndarray):
+            A = best_sparse_operator(A.to_csr(), device=device)
+    elif path.endswith(".npy"):
+        A = np.load(path)
+    else:
+        from tpucg_torch.io.textio import load_matrix
+
+        A = load_matrix(path)
+    lam_lo, lam_hi, kappa = spectral_interval(A, device=device)
+    return {"matrix": path, "lam_lo": lam_lo, "lam_hi": lam_hi, "kappa": kappa}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -806,9 +1045,30 @@ def build_parser() -> argparse.ArgumentParser:
     ps.add_argument("--coarse-max", type=int, default=None, dest="coarse_max", metavar="NC",
                     help="with --two-level: recurse to a multilevel hierarchy while a coarse "
                          "level exceeds NC rows (sparse coarse operators, recursive cycles)")
+    ps.add_argument("--deflate", default=None, metavar="V",
+                    help="deflation basis (.npy or .mtx, n x m columns): Galerkin start and "
+                         "the A-orthogonal projection every lap (cg_solve_deflated; serial and "
+                         "--strategy, dense text/.npy systems, method cg)")
     ps.set_defaults(fn=cmd_solve)
 
-    pt = sub.add_parser("selftest", help="goldens + oracle checks")
+    pg = sub.add_parser("generate", help="write a random SPD system in the reference's text "
+                                         "format (generateSPDmatrix.m's files)")
+    pg.add_argument("n", type=int)
+    pg.add_argument("--seed", type=int, default=0)
+    pg.add_argument("--out-dir", default=".")
+    pg.set_defaults(fn=cmd_generate)
+
+    pc = sub.add_parser("convert", help="convert between formats; .mtx -> .mtx expands, "
+                                        "row-sorts and indexes for host-sharded loading; text "
+                                        "<-> .npy (binary loads skip parsing)")
+    pc.add_argument("src")
+    pc.add_argument("dst")
+    pc.add_argument("--kind", default="matrix", choices=("matrix", "vector"))
+    pc.add_argument("--n", type=int, default=None)
+    pc.add_argument("--fmt", default="%r", help="text format when converting to text")
+    pc.set_defaults(fn=cmd_convert)
+
+    pt = sub.add_parser("selftest", help="goldens + oracle + mesh checks")
     pt.add_argument("--n", type=int, default=256)
     pt.set_defaults(fn=cmd_selftest)
 
@@ -834,9 +1094,19 @@ def build_parser() -> argparse.ArgumentParser:
                          "report each on stderr, the serial arm's JSON line")
     pb.add_argument("--method", default="cg", choices=("cg", "pipelined", "ca", "chebyshev"),
                     help="the solve's method, serial or distributed (see solve --method)")
+    pb.add_argument("--tol", type=float, default=None,
+                    help="absolute residual tolerance (default: 1e-6 for the dense system, "
+                         "1e-5 ||b|| for Poisson)")
+    pb.add_argument("--json", action="store_true",
+                    help="also print each arm's report to stdout as a JSON line, before the "
+                         "metric line")
     pb.set_defaults(fn=cmd_bench)
 
     pi = sub.add_parser("info", help="device / backend / kernel library")
+    pi.add_argument("--spectrum", default=None, metavar="MATRIX",
+                    help="also estimate the SPD spectrum bounds of this matrix (text/.npy/.mtx): "
+                         "prints lam_lo / lam_hi / kappa; pass lam_lo lam_hi to solve "
+                         "--interval to skip the per-solve set-up")
     pi.set_defaults(fn=cmd_info)
 
     for sp in (ps, pt, pb):
@@ -864,8 +1134,16 @@ def build_parser() -> argparse.ArgumentParser:
                         help="cached spectrum bounds for --method ca/chebyshev (e.g. from "
                              "tpucg_torch.spectral_interval): skips the per-solve "
                              "power-method set-up")
-    for sp in (ps, pt):
+    for sp in (ps, pt, pi):
         sp.add_argument("--device", default=None, help="torch device (default: the card if any)")
+    for sp in (ps, pb):
+        sp.add_argument("--devices", type=int, default=None,
+                        help="ranks of a distributed solve: must be the world's size (torchrun's "
+                             "--nproc-per-node, 1 without torchrun); a serial solve ignores it")
+        sp.add_argument("--debug-nans", action="store_true", dest="debug_nans",
+                        help="raise FloatingPointError when x or the residual norm is NaN or "
+                             "Inf; checked once on the result, not on every operation as "
+                             "tpucg's jax_debug_nans is")
     return p
 
 

@@ -103,14 +103,18 @@ def load_matrix_rows(path: str, row_start: int, row_stop: int, n: int,
     return arr.astype(dtype, copy=False).reshape(row_stop - row_start, n)
 
 
+# Values formatted a block at a time (from a Python list: ~1.5x faster than
+# a value at a time for the 67 M of a generated n = 8192 matrix).
+_SAVE_BLOCK = 1 << 20
+
+
 def save_array(path: str, arr: np.ndarray, fmt: str = "%.4f") -> None:
     """Write an array one value per line, row-major; ``"%r"`` round-trips."""
     flat = np.asarray(arr).reshape(-1)
+    form = (lambda v: repr(float(v))) if fmt == "%r" else fmt.__mod__
     with open(path, "w") as f:
-        if fmt == "%r":
-            f.writelines(f"{repr(float(v))}\n" for v in flat)
-        else:
-            f.writelines((fmt % v) + "\n" for v in flat)
+        for i in range(0, flat.size, _SAVE_BLOCK):
+            f.write("\n".join(map(form, flat[i:i + _SAVE_BLOCK].tolist())) + "\n")
 
 
 def load_system(
