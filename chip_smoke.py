@@ -335,14 +335,19 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    bit ``cg_solve``'s); ``info --spectrum`` on phase 14's FEM 300k ``.mtx``
    (K13), equal to ``spectral_interval``; ``bench --json --n 8192`` and
    ``bench --json --operator poisson-free --m 128`` (every stdout line
-   parses, the metric line last, the library's laps). Then ``convert``
+   parses, the metric line last, the library's laps); ``bench --json --n
+   256 --tol 1e-30``, serially (K4) and with ``--strategy allgather
+   --devices 1`` on one NCCL rank: tpucg's cap of 4 n = 1024 laps, not
+   converged. Then ``convert``
    the generated matrix to ``.npy`` (the flagship's A to %.4f);
    ``info --spectrum`` on it and ``solve --method chebyshev --interval``
    with its bounds; ``solve --deflate`` with x* and b as V's columns
    (the Galerkin start: at most 2 laps), serially and with ``--strategy
    allgather --devices 1`` on one NCCL rank; each bit for bit the library
-   call's. ``--debug-nans``: a NaN in b raises ``FloatingPointError``, the
-   clean system passes. Each CLI call is a drive with the counts at 0.
+   call's. A numpy-fed ``cg_solve(A, b, x0)`` with no ``device`` runs on
+   ``cuda:0`` through K1, K3 and K2, bit for bit the same call with
+   ``device=cuda:0``. ``--debug-nans``: a NaN in b raises
+   ``FloatingPointError``, the clean system passes. Each CLI call is a drive with the counts at 0.
 
 The line before last is a JSON object of the kernels (K1-K14, K6xk, K8xk,
 K13xk and P1-P7:
@@ -1454,6 +1459,23 @@ def m15_phase(dev, tag, drive, flagship, fem_mtx):
                       f"line {rows[-1]}; {secs:.2f} s; launches "
                       f"{counted('bench ' + argv[-1], launched, need)} {tag}")
 
+            # (c') bench's lap cap is tpucg's 4 n: at a tol that n = 256
+            # cannot reach, the serial arm (K4) and one NCCL rank's take
+            # 1024 laps and do not converge.
+            for argv, need, on_mesh in (
+                    ([], ("fused_cg_solve_cuda", "matvec_cuda"), False),
+                    (["--strategy", "allgather", "--devices", "1"], dense_need, True)):
+                rc, out, launched, secs = run_cli(["bench", "--json", "--n", "256", "--tol",
+                                                   "1e-30"] + argv)
+                rep = json.loads(out.splitlines()[0])
+                require(rc == 0 and rep["n"] == 256 and rep["iterations"] == 4 * 256
+                        and not rep["residual_norm"] <= 1e-30,
+                        f"bench --json --n 256 --tol 1e-30 {argv}: rc {rc}, {out!r}")
+                print(f"bench --json --n 256 --tol 1e-30 {' '.join(argv) or '(serial)'}: "
+                      f"{rep['iterations']} laps (4 n), ||r|| {rep['residual_norm']!r}, not "
+                      f"converged; {secs:.2f} s; launches "
+                      f"{counted('bench cap ' + rep['strategy'], launched, need, mesh=on_mesh)}")
+
             gen_out, _ = gen.communicate(timeout=300)
         finally:
             if gen.poll() is None:
@@ -1509,6 +1531,18 @@ def m15_phase(dev, tag, drive, flagship, fem_mtx):
         np.save(pv, np.stack([x_star, b], axis=1).astype(np.float32))
         V = np.load(pv)
         x0 = np.zeros(n, np.float32)
+        # (f') The default device is the card: a numpy-fed cg_solve with no
+        # device runs on cuda:0, K1, K3 and K2, and no plain version.
+        res, launched = drive(lambda: cg_solve(A, b, x0))
+        ref = cg_solve(A, b, x0, device=dev)
+        require(res.x.device == dev and bool(res.converged)
+                and int(res.iterations) == int(ref.iterations) and same_bits(res.x.cpu(),
+                                                                           ref.x.cpu()),
+                f"cg_solve(A, b, x0), no device: on {res.x.device}, {int(res.iterations)} laps, "
+                f"device={dev}'s {int(ref.iterations)}")
+        print(f"cg_solve(A, b, x0) from numpy, no device: on {res.x.device}, "
+              f"{int(res.iterations)} laps, x bit for bit device={dev}'s; launches "
+              f"{counted('numpy-fed cg_solve', launched, dense_need)}")
         base = ["solve", pa, pb_txt, "--deflate", pv, "--tol", repr(tol), "--output", px]
         rc, out, launched, secs = run_cli(base)
         ref = cg_solve_deflated(A, b, V, x0=x0, device=dev, tol=tol)

@@ -2595,6 +2595,31 @@ def test_m15_bench_json_poisson_iterations_are_the_librarys(cuda_device, capsys)
     assert metric["metric"] == "poisson_free_cg_solve_time_m32"
 
 
+@pytest.mark.parametrize("strategy", ["serial", "allgather"])
+def test_bench_caps_a_dense_solve_at_4n_laps_on_card(cuda_device, capsys, strategy):
+    # tpucg's bench caps every arm at 4 n laps: at a tol that n = 256 cannot
+    # reach, the serial arm (K4) and one NCCL rank's take 1024 laps.
+    import json
+
+    from tpucg_torch import cli
+
+    argv = ["bench", "--n", "256", "--tol", "1e-30", "--repeats", "5", "--json",
+            "--strategy", strategy]
+    assert cli.main(argv + ([] if strategy == "serial" else ["--devices", "1"])) == 0
+    rep = json.loads(capsys.readouterr().out.splitlines()[0])
+    assert rep["strategy"] == strategy and rep["n"] == 256
+    assert rep["iterations"] == 4 * 256 and not rep["residual_norm"] <= 1e-30
+
+
+def test_m15_numpy_fed_solve_runs_on_the_card(cuda_device):
+    # device=None is the card: numpy data goes there and runs K1, K3 and K2.
+    A, b, x0 = generate_spd_system(8192, seed=0)
+    res, moved = _m9_counted(lambda: cg_solve(A, b, x0))
+    assert res.x.device == cuda_device and bool(res.converged)
+    assert moved["matvec_cuda"] > 0 and moved["dot_cuda"] > 0 and moved["fused_update_cuda"] > 0
+    assert all(c == 0 for w, c in moved.items() if w.endswith("_torch"))
+
+
 def test_m15_entry_runs_the_lap_kernels(cuda_device):
     from tpucg_torch.dryrun import entry
 

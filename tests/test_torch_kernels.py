@@ -134,8 +134,13 @@ def test_blas1_cuda_rejects(vs, match):
 
 
 def test_resolve_backend(monkeypatch):
+    # No device means the card: with none, "auto" and canonical_device(None)
+    # raise and name device='cpu'; nothing carries on on the CPU unasked.
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    assert dispatch.resolve_backend("auto") == "torch"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dispatch.resolve_backend("auto")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dispatch.canonical_device(None)
     assert dispatch.resolve_backend("torch") == "torch"
     assert dispatch.resolve_backend("auto", "cuda") == "cuda"
     assert dispatch.resolve_backend("auto", "cpu") == "torch"
@@ -146,7 +151,6 @@ def test_resolve_backend(monkeypatch):
     with pytest.raises(ValueError):
         dispatch.resolve_backend("pallas")
     assert dispatch.canonical_device("cpu") == torch.device("cpu")
-    assert dispatch.canonical_device(None) == torch.device("cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     assert dispatch.resolve_backend("auto") == "cuda"

@@ -154,17 +154,15 @@ def _method_kw(args) -> dict:
 
 def _mesh(device, devices: Optional[int] = None):
     """The mesh of a distributed solve: torchrun's world, or this process as
-    a world of one rank; on ``device`` (default: the card when there is one,
-    ``cuda:<LOCAL_RANK>``). ``--devices K`` is tpucg's ``make_mesh(K)``
-    (``cli.py:41``) for a world of P ranks: K > P raises tpucg's
-    ``ValueError``, K == P is the world, and K < P is refused, since the
-    port's mesh spans the whole world as its 2-D mesh does (launch K ranks
-    instead)."""
-    import torch
-
+    a world of one rank; on ``device`` (default: the card,
+    ``cuda:<LOCAL_RANK>``, which raises when there is none). ``--devices K``
+    is tpucg's ``make_mesh(K)`` (``cli.py:41``) for a world of P ranks: K > P
+    raises tpucg's ``ValueError``, K == P is the world, and K < P is
+    refused, since the port's mesh spans the whole world as its 2-D mesh
+    does (launch K ranks instead)."""
     from tpucg_torch.comm.mesh import make_mesh
 
-    mesh = make_mesh(device=device or ("cuda" if torch.cuda.is_available() else "cpu"))
+    mesh = make_mesh(device=device or "cuda")
     if devices is not None and devices > mesh.size:
         raise ValueError(f"requested {devices} devices, only {mesh.size} present")
     if devices is not None and devices < mesh.size:
@@ -806,6 +804,14 @@ def cmd_bench(args) -> int:
     return 0
 
 
+def _bench_solve_kw(args, n: int, tol: float) -> dict:
+    """The solve keywords of every bench arm, dense serial and sharded and
+    Poisson: at most 4 n laps, tpucg's cap (``cli.py:954``, ``:975``), so a
+    ``--tol`` the system cannot reach times as many laps as tpucg's bench."""
+    return dict(kernel=args.kernel, precondition=args.precondition,
+                poly_degree=args.poly_degree, tol=tol, maxiter=4 * n, **_method_kw(args))
+
+
 def _bench_one(args, strategy: str, mesh):
     """One bench arm: the report on stderr; returns the metric line and the
     report."""
@@ -829,12 +835,10 @@ def _bench_one(args, strategy: str, mesh):
 
     storage = torch.bfloat16 if args.storage == "bf16" else torch.float32
     t_total0 = time.perf_counter()
-    kw = dict(kernel=args.kernel, precondition=args.precondition, poly_degree=args.poly_degree,
-              **_method_kw(args))
     if args.operator == "dense":
         n = args.n
         A, b, x0 = generate_spd_system(n, seed=0)
-        tol, maxiter, nnz = 1.0e-6 if args.tol is None else args.tol, None, None
+        kw, nnz = _bench_solve_kw(args, n, 1.0e-6 if args.tol is None else args.tol), None
         # Distribution phase: placing the padded operator, or this rank's
         # block of it, on the card (the reference's MPI_Scatter phase).
         t0 = time.perf_counter()
@@ -848,7 +852,7 @@ def _bench_one(args, strategy: str, mesh):
 
             def solve():
                 return sharded_cg_solve(system, mesh=mesh, strategy=strategy,
-                                        storage_dtype=storage, tol=tol, **kw)
+                                        storage_dtype=storage, **kw)
         else:
             op = DenseOperator.create(A, backend=args.kernel, device="cuda", dtype=storage)
             mv_bytes = gemv_bytes(op.padded_n, op.padded_n, op.A.element_size())
@@ -856,10 +860,11 @@ def _bench_one(args, strategy: str, mesh):
         t0 = time.perf_counter()  # the slab's generation and placement
         op, b, nnz, mv_bytes = _poisson_system(args.operator, args.m, storage, args.kernel,
                                                "cuda")
-        n, x0, maxiter = op.n, None, 4 * op.n
+        n, x0 = op.n, None
         # Large-norm sparse systems: an absolute 1e-6 is below the f32
         # residual floor (tpucg's choice, cli.py:938-943).
-        tol = 1.0e-5 * float(np.linalg.norm(b)) if args.tol is None else args.tol
+        kw = _bench_solve_kw(args, n, 1.0e-5 * float(np.linalg.norm(b)) if args.tol is None
+                             else args.tol)
     if strategy == "serial":
         bd = torch.as_tensor(b, device="cuda")
         x0d = None if x0 is None else torch.as_tensor(x0, device="cuda")
@@ -867,7 +872,7 @@ def _bench_one(args, strategy: str, mesh):
         distribute_s = time.perf_counter() - t0
 
         def solve():
-            return cg_solve(op, bd, x0d, fused=args.fused, tol=tol, maxiter=maxiter, **kw)
+            return cg_solve(op, bd, x0d, fused=args.fused, **kw)
 
     res = solve()
     _check_finite(args, res)
@@ -947,7 +952,7 @@ def cmd_info(args) -> int:
         "torch_cuda": torch.version.cuda,
         "cuda_available": cuda,
         "device": torch.cuda.get_device_name() if cuda else "cpu",
-        "kernel_backend": resolve_backend("auto"),
+        "kernel_backend": resolve_backend("auto", "cuda" if cuda else "cpu"),
         "kernel_library": {"built": lib.exists(), "path": str(lib)},
         "hbm_peak_bytes_per_s": peak,
         "native_parser": _native._load() is not None,
@@ -1135,7 +1140,7 @@ def build_parser() -> argparse.ArgumentParser:
                              "tpucg_torch.spectral_interval): skips the per-solve "
                              "power-method set-up")
     for sp in (ps, pt, pi):
-        sp.add_argument("--device", default=None, help="torch device (default: the card if any)")
+        sp.add_argument("--device", default=None, help="torch device (default: the card)")
     for sp in (ps, pb):
         sp.add_argument("--devices", type=int, default=None,
                         help="ranks of a distributed solve: must be the world's size (torchrun's "

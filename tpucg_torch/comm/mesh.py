@@ -48,6 +48,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from tpucg_torch.kernels.dispatch import require_card
+
 ROWS_AXIS = "rows"
 COLS_AXIS = "cols"
 
@@ -65,8 +67,7 @@ def default_device(device=None) -> torch.device:
     CUDA device with no card raises."""
     device = torch.device("cuda", _local_rank()) if device is None else torch.device(device)
     if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("a CUDA mesh needs a card and there is none: pass device='cpu'")
+        require_card("a CUDA mesh")
         if device.index is None:
             device = torch.device("cuda", _local_rank())
     return device
@@ -87,17 +88,15 @@ def init_distributed(
     pass ``init_method`` (``"file://<path>"`` or ``"tcp://localhost:<free
     port>"``), ``world_size`` and ``rank``; with none of them and no
     torchrun, the process is a world of one rank (an in-process store). The
-    backend is NCCL for a CUDA ``device`` (default: the card when there is
-    one) and gloo for the CPU, or the one named."""
+    backend is NCCL for a CUDA ``device`` (default: the card, which raises
+    when there is none) and gloo for ``device='cpu'``, or the one named."""
     given = (init_method, world_size, rank)
     if any(v is not None for v in given) and any(v is None for v in given):
         raise ValueError("pass init_method, world_size and rank together (or none of them)")
     if dist.is_initialized():
         return
     if backend is None:
-        on_card = (torch.cuda.is_available() if device is None
-                   else torch.device(device).type == "cuda")
-        backend = "nccl" if on_card else "gloo"
+        backend = "nccl" if default_device(device).type == "cuda" else "gloo"
     kw = dict(backend=backend)
     if init_method is None:
         if "RANK" in os.environ and "WORLD_SIZE" in os.environ:

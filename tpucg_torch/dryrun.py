@@ -85,7 +85,7 @@ def entry(device=None):
     tpucg's ``entry()`` gives it. ``fn(A, b, x0)`` runs ``cg_loop`` on the
     device of its arguments, K1, K3 and K2 on the card and their plain
     versions on the CPU, and returns ``(x, k, ||r||)``. ``device`` defaults
-    to the card when there is one."""
+    to the card, which raises when there is none."""
     from tpucg_torch.io.generator import generate_spd_system
     from tpucg_torch.kernels.dispatch import canonical_device
 
@@ -382,9 +382,10 @@ def _battery(rank: int, P: int, device: str, workdir: str) -> str:
 def dryrun_multichip(n_ranks: int, device=None) -> str:
     """Run tpucg's dry-run battery (``__graft_entry__.py:65``) on a gloo
     world of ``n_ranks`` spawned processes: on ``cuda:0`` when ``device`` is
-    the card (the default when there is one), on the CPU when asked. Raises
-    the failing rank's error (an ``AssertionError`` naming the case) when a
-    case misses its oracle; returns and prints the summary line."""
+    the card (the default, which raises when there is none), on the CPU
+    when asked. Raises the failing rank's error (an ``AssertionError``
+    naming the case) when a case misses its oracle; returns and prints the
+    summary line."""
     from tpucg_torch.kernels.dispatch import canonical_device
 
     device = canonical_device(device)

@@ -14,13 +14,21 @@ import torch
 BACKENDS = ("auto", "cuda", "torch")
 
 
+def require_card(what: str) -> None:
+    """Raise unless there is a card: ``what`` runs on the card, and nothing
+    carries on on the CPU unless the caller asks for it."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"{what} needs a card and there is none: pass device='cpu'")
+
+
 def canonical_device(device=None) -> torch.device:
     """``device`` as a torch.device with its index: ``"cuda"`` means the
     current CUDA device, as tensors placed there report it (``cuda:0``).
-    None means the card when there is one, else the CPU (JAX's
-    default-device rule)."""
+    None means the card; with no card it raises, and the CPU is had only by
+    asking for it (``device='cpu'``)."""
     if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
+        require_card("device=None")
+        device = "cuda"
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         return torch.device("cuda", torch.cuda.current_device())
@@ -30,12 +38,15 @@ def canonical_device(device=None) -> torch.device:
 def resolve_backend(kernel: str = "auto", device=None) -> str:
     """Map ``CGConfig.kernel`` to a concrete backend.
 
-    ``"auto"`` gives ``"cuda"`` when the data lives on a CUDA device (with no
-    ``device``: when CUDA is available) and ``"torch"`` otherwise. Asking for
+    ``"auto"`` gives ``"cuda"`` when the data lives on a CUDA device and
+    ``"torch"`` otherwise; with no ``device`` it means the card, and raises
+    as ``canonical_device(None)`` does when there is none. Asking for
     ``"cuda"`` where there is no CUDA device raises: nothing falls back.
     """
     if kernel not in BACKENDS:
         raise ValueError(f"unknown kernel backend {kernel!r}")
+    if kernel == "auto" and device is None:
+        device = canonical_device(None)
     on_cuda = (
         torch.cuda.is_available()
         if device is None

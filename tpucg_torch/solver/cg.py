@@ -352,8 +352,8 @@ def _require_backend(op: LinearOperator, backend: str) -> None:
 
 def _solve_operator(A, kernel: str, device):
     """The f32 operator of a solve, its backend and device (default: A's,
-    for a tensor or operator, else the card when there is one); the
-    operator's backend must be the solve's."""
+    for a tensor or operator, else the card, which raises when there is
+    none); the operator's backend must be the solve's."""
     if device is None and isinstance(A, (LinearOperator, torch.Tensor)):
         device = A.device
     device = canonical_device(device)
@@ -1756,10 +1756,11 @@ def cg_solve(
     format instead, and ``cg_solve_checkpointed`` promotes a bare CSR through
     it, as tpucg's does), or an operator (``DenseOperator``, ``DiaOperator``,
     ``PoissonOperator``, ``WellOperator``, ``BsrOperator``,
-    ``EllOperator``). ``device``
-    defaults to the device of a tensor or operator ``A``, else the card when
-    there is one; ``kernel="auto"`` then runs the CUDA kernels on a CUDA
-    device and the plain versions elsewhere. On the cuda backend a solve
+    ``EllOperator``). ``device`` defaults to the device of a tensor or
+    operator ``A``, else the card (with no card it raises: a numpy ``A``
+    runs on the CPU only where ``device='cpu'`` asks for it);
+    ``kernel="auto"`` then runs the CUDA kernels on a CUDA device and the
+    plain versions elsewhere. On the cuda backend a solve
     ``_fused_eligible`` admits runs as one launch of K4, K10 or K11; every
     other solve, and ``fused="never"``, takes the lap path (``cg_loop`` on
     the operator's matvec kernel, K2 and K3). ``precondition`` is

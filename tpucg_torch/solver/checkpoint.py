@@ -181,8 +181,8 @@ def save_checkpoint(path: str, state, n: int, tol: float,
 
 def load_checkpoint(path: str, device=None):
     """Read a file of either package -> (state, n, tol, signature,
-    precondition), the state's tensors on ``device`` (default: the card
-    when there is one)."""
+    precondition), the state's tensors on ``device`` (default: the card,
+    which raises when there is none)."""
     device = canonical_device(device)
     with np.load(path) as z:
         def put(name, dtype):

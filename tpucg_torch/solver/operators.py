@@ -289,8 +289,8 @@ class DiaOperator(LinearOperator):
         """``dia`` is a ``DIAMatrix`` (this package's or tpucg's).
         ``storage_dtype=torch.bfloat16`` stores the slab in bf16: half the
         bytes K6 and K11 stream, f32 sums, and the solve meets the f32
-        contract on the bf16-rounded system. ``device`` defaults to the card
-        when there is one."""
+        contract on the bf16-rounded system. ``device`` defaults to the card,
+        which raises when there is none."""
         if storage_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"storage_dtype must be float32 or bfloat16, got {storage_dtype}")
         data = np.asarray(dia.data, dtype=np.float32)
@@ -352,8 +352,8 @@ class PoissonOperator(LinearOperator):
     """Matrix-free 3-D 7-point Dirichlet Laplacian on an m^3 grid: the same
     operator as ``poisson3d_csr(m)``, applied as 6 u minus the in-grid
     neighbours, with no stored matrix. n = padded_n = m^3. ``device``
-    defaults to the card when there is one; ``backend`` resolves against it
-    (tpucg's ``kernel`` field)."""
+    defaults to the card, which raises when there is none; ``backend``
+    resolves against it (tpucg's ``kernel`` field)."""
 
     m: int
     backend: str = "auto"
@@ -444,7 +444,7 @@ class EllOperator(LinearOperator):
     @classmethod
     def from_ell(cls, ell, backend: str = "auto", device=None) -> "EllOperator":
         """``ell`` is an ``EllMatrix`` (this package's or tpucg's); ``device``
-        defaults to the card when there is one."""
+        defaults to the card, which raises when there is none."""
         device = canonical_device(device)
         return cls(values=torch.as_tensor(np.asarray(ell.values, np.float32), device=device),
                    indices=torch.as_tensor(np.asarray(ell.indices, np.int32), device=device),
@@ -615,8 +615,8 @@ class WellOperator(LinearOperator):
         ``storage_dtype=torch.bfloat16`` stores the values in bf16 (3.5
         streamed bytes a slot instead of 5.5; f32 products and sums; the
         solve meets the f32 contract on the bf16-rounded system). ``device``
-        defaults to the card when there is one; ``dblk`` (an array) the
-        diagonal blocks of block Jacobi."""
+        defaults to the card, which raises when there is none; ``dblk`` (an
+        array) the diagonal blocks of block Jacobi."""
         if storage_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"storage_dtype must be float32 or bfloat16, got {storage_dtype}")
         device = canonical_device(device)
@@ -698,8 +698,8 @@ def best_sparse_operator(csr, backend: str = "auto", max_diags: int = 64,
        ``bsr_fill_cap`` times nnz (n identity-padded to the blocksize);
     3. WELL otherwise, for a square matrix (``fallback="ell"``: ELLPACK).
 
-    ``device`` defaults to the card when there is one; every operator's
-    backend resolves against it (tpucg's "xla" operators have no
+    ``device`` defaults to the card, which raises when there is none; every
+    operator's backend resolves against it (tpucg's "xla" operators have no
     counterpart). ``pc_block_size`` has a WELL operator carry the diagonal
     blocks of block Jacobi, taken from the CSR (DIA, BSR and dense extract
     theirs from addressable storage)."""

@@ -121,7 +121,7 @@ def build_two_level(
     above it (floored at ``COARSE_FLOOR``), the coarse matrix is assembled
     sparse and the build recurses with the inner aggregate size ceil(nc /
     coarse_max), so the deepest level has at most ``coarse_max`` rows.
-    ``device`` defaults to the card when there is one."""
+    ``device`` defaults to the card, which raises when there is none."""
     n, ncols = csr.shape
     if n != ncols:
         raise ValueError(f"two-level needs a square matrix, got {csr.shape}")
@@ -219,7 +219,7 @@ def build_two_level_from_parts(
     ``diag`` the summed (npad,) diagonal when the caller has it, else it is
     summed from the parts the same way. ``mesh=None``: the parts are the
     whole matrix (one process). ``device`` defaults to the mesh's, else the
-    card when there is one. As tpucg's: agg_size | npad and no
+    card, which raises when there is none. As tpucg's: agg_size | npad and no
     ``coarse_max``."""
     agg = int(agg_size)
     if agg < 2:
