@@ -203,7 +203,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    100k) at k = 1, 3, 8 and 32, each bit-identical to its plain k-column
    version, to its repeat and, column by column, to the single-column
    kernel; µs a launch (queued) beside k single-column launches, the plain
-   version, the bound and (k = 8) a torch CSR product on the block. Then
+   version, the bound and (k = 8) a torch CSR product on the block; K13 x
+   k also untimed at k = 5 and 33 (scalar columns), on the arrowhead of n =
+   5000 (its first row through the long rows' kernel) at k = 5, 8 and 33,
+   and timed with bf16 values at k = 8. Then
    ``cg_solve_multi`` at k = 8 on dense n = 8192 (none, jacobi; tol 1e-6),
    Poisson m = 128 as a stencil and as DIA and the geometric 100k graph on
    WELL (tol 1e-5 ||B[:, 0]||), each column within a lap of the port's
@@ -3530,6 +3533,36 @@ def main() -> int:
                     m9_times["K13xk"] = t
                     bounds["K13xk"] = bound_of(nbytes, 2 * nnz * k)
             del X
+        # K13 x k on scalar columns (k = 5; k = 33 the lighter thread),
+        # untimed, also on the arrowhead (its first row, 5000 slots, goes to
+        # the long rows' kernel, in the same wrapper call), and with bf16
+        # values at k = 8 (the f32 operator's values rounded, as from_csr
+        # rounds them: no second pack).
+        arrow = arrowhead_spd(5000, seed=0)
+        untimed = {**wells, "arrowhead 5000": (arrow, WellOperator.from_csr(arrow, device=dev))}
+        for label, (A, op) in untimed.items():
+            nw = op.padded_n
+            for k in (5, 8, 33) if label == "arrowhead 5000" else (5, 33):
+                Xw = rnd(nw, k)
+                Xw[A.shape[0]:] = 0.0
+                e, _ = multi_vs_plain(f"K13 x {k} {label} f32",
+                                      lambda Z: well_spmv_multi_cuda(op.rows, Z, nw),
+                                      lambda Z: well_spmv_multi_torch(op.rows, Z, nw), op.matvec,
+                                      Xw, 0, 0, timed=False)
+                err["K13xk"] = max(err["K13xk"], e)
+        for label, (A, op) in wells.items():
+            nw = op.padded_n
+            opb = dataclasses.replace(op, vals=op.vals.to(torch.bfloat16))
+            nnz = opb.rows.cols.numel()
+            Xw = rnd(nw, 8)
+            Xw[A.shape[0]:] = 0.0
+            e, _ = multi_vs_plain(
+                f"K13 x 8 {label} bf16 (n={A.shape[0]}, {nnz} live slots)",
+                lambda Z: well_spmv_multi_cuda(opb.rows, Z, nw),
+                lambda Z: well_spmv_multi_torch(opb.rows, Z, nw), opb.matvec, Xw,
+                nnz * 6 + 4 * (nw + 1) + 8 * nw * 8, 2 * nnz * 8, plain_synced=True)
+            err["K13xk"] = max(err["K13xk"], e)
+            del opb, Xw
         for kid, (tk, tp, tl, _) in m9_times.items():
             times[kid], library[kid] = (tk, tp), tl
         del csr_dia

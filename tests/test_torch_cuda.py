@@ -1829,22 +1829,72 @@ def test_m9_poisson_multi_equals_plain_and_k8(cuda_device, k, m):
     _m9_columns_equal(Y, lambda u: poisson3d_cuda(u, m), U)
 
 
-@pytest.mark.parametrize("k", M9_K)
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("kind", ["geometric", "arrowhead", "fem"])
-def test_m9_well_multi_equals_plain_and_k13(cuda_device, k, dtype, kind):
+# K13 x k's column counts: one thread a row's 4-column group (k % 4 == 0)
+# or column, the lighter thread from 8 groups on (k = 32, 64; 8, 16 and 33
+# scalar columns), and the long rows' passes of 32 columns (33, 64).
+M9_WELL_K = (1, 2, 3, 4, 5, 8, 16, 32, 33, 64)
+
+
+def _m9_well_op(kind, dev, dtype):
     A = {"geometric": lambda: random_geometric_spd(3000, seed=2)[0],
          "arrowhead": lambda: arrowhead_spd(5000, seed=1),
          "fem": lambda: fem_p1_system(2000, seed=0)[0]}[kind]()
-    op = WellOperator.from_csr(A, device=cuda_device, storage_dtype=dtype)
-    X = _rand(cuda_device, op.padded_n, k, seed=k)
+    return WellOperator.from_csr(A, device=dev, storage_dtype=dtype)
+
+
+def _m9_well_held(op, X):
+    """K13 x k on X equals the plain version and its repeat bit for bit, and
+    K13 column by column."""
     Y = op.matvec_multi(X)
     assert torch.equal(Y, well_spmv_multi_torch(op.rows, X, op.padded_n))
     assert torch.equal(Y, op.matvec_multi(X))
     _m9_columns_equal(Y, op.matvec, X)
-    # The largest tile (8 bytes a slot past 48 KB: the launch opts in).
+    return Y
+
+
+@pytest.mark.parametrize("k", M9_WELL_K)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["geometric", "arrowhead", "fem"])
+def test_m9_well_multi_equals_plain_and_k13(cuda_device, k, dtype, kind):
+    op = _m9_well_op(kind, cuda_device, dtype)
+    assert op.rows.long_rows.numel() == (kind == "arrowhead")
+    X = _rand(cuda_device, op.padded_n, k, seed=k)
+    Y = _m9_well_held(op, X)
+    # The largest tile: the arrowhead's long row is then the flat kernel's.
     big = well_rows(op.vals, op.lidx, op.gidl, op.wrow, op.sgb, op.bg, op.nsg, tile=TILE_MAX)
+    assert big.long_rows.numel() == 0
     assert torch.equal(well_spmv_multi_cuda(big, X, op.padded_n), Y)
+
+
+@pytest.mark.parametrize("k", [4, 8, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["geometric", "arrowhead"])
+def test_m9_well_multi_misaligned_x_takes_scalar_columns(cuda_device, k, dtype, kind):
+    # X 4 bytes past a 16-byte boundary: a column a thread (V = 1) where the
+    # aligned block takes 4; the same bits either way.
+    op = _m9_well_op(kind, cuda_device, dtype)
+    X = _rand(cuda_device, op.padded_n, k, seed=k + 1)
+    buf = torch.empty(X.numel() + 1, dtype=torch.float32, device=cuda_device)
+    Xm = buf[1:].view(op.padded_n, k)
+    Xm.copy_(X)
+    assert Xm.is_contiguous() and Xm.data_ptr() % 16 == 4
+    assert torch.equal(_m9_well_held(op, Xm), _m9_well_held(op, X))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_m9_well_multi_long_rows_in_column_passes(cuda_device, dtype):
+    # The arrowhead's first row (5,000 slots) with a small tile: long rows
+    # of several chunks of products and, at k = 72, three passes of columns
+    # (32, 32, 8); rows 1.. the flat kernel's.
+    A = arrowhead_spd(5000, seed=1)
+    op = WellOperator.from_csr(A, device=cuda_device, storage_dtype=dtype)
+    rows = well_rows(op.vals, op.lidx, op.gidl, op.wrow, op.sgb, op.bg, op.nsg, tile=64)
+    assert rows.long_rows.tolist() == [0]
+    for k in (1, 32, 72):
+        X = _rand(cuda_device, op.padded_n, k, seed=k)
+        Y = well_spmv_multi_cuda(rows, X, op.padded_n)
+        assert torch.equal(Y, well_spmv_multi_torch(rows, X, op.padded_n))
+        assert torch.equal(Y, op.matvec_multi(X))
 
 
 def test_m9_multi_kernels_flag_zero_write_nothing(cuda_device):
@@ -1864,8 +1914,13 @@ def test_m9_multi_kernels_flag_zero_write_nothing(cuda_device):
     Xw = _rand(cuda_device, op.padded_n, k)
     Yw = torch.full_like(Xw, 7.0)
     well_spmv_multi_launch(op.rows, Xw, Yw, op.padded_n, off.data_ptr(), stream)
+    # The long rows' kernel too (the arrowhead's first row).
+    oa = WellOperator.from_csr(arrowhead_spd(5000, seed=1), device=cuda_device)
+    Xa = _rand(cuda_device, oa.padded_n, k)
+    Ya = torch.full_like(Xa, 7.0)
+    well_spmv_multi_launch(oa.rows, Xa, Ya, oa.padded_n, off.data_ptr(), stream)
     torch.cuda.synchronize()
-    assert bool((Y == 7.0).all()) and bool((Yw == 7.0).all())
+    assert bool((Y == 7.0).all()) and bool((Yw == 7.0).all()) and bool((Ya == 7.0).all())
 
 
 M9_CUDA = (matvec_cuda, dot_cuda, fused_update_cuda, p_update_cuda, dia_spmv_cuda,

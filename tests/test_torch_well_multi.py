@@ -20,14 +20,17 @@ import pytest
 import torch
 
 import tpucg
-from _torch_helpers import scaled_err
+from _torch_helpers import arrowhead_spd, scaled_err
 from tpucg.solver.cg import _cg_block_jit, _cg_multi_jit
 from tpucg.solver.cg import block_jacobi_minv as j_block_jacobi_minv
 from tpucg.solver.operators import WellOperator as JWellOperator
 from tpucg_torch.io.generator import random_geometric_spd
-from tpucg_torch.kernels.gather_spmv import well_spmv_multi, well_spmv_multi_torch
+from tpucg_torch.kernels.gather_spmv import (TILE, TILE_MAX, well_rows, well_spmv_multi,
+                                             well_spmv_multi_torch)
 from tpucg_torch.solver.cg import cg_solve, cg_solve_block, cg_solve_multi
 from tpucg_torch.solver.operators import WellOperator
+from tpucg_torch.solver.sharded import well_shard_block
+from tpucg_torch.sparse.well import csr_to_well_sharded
 
 CPU = torch.device("cpu")
 
@@ -156,3 +159,97 @@ def test_block_cg_well_uses_the_k_column_product_and_converges(geo):
         # the two f32 trajectories (XLA fuses each axpy into an FMA, torch
         # does not) end 1.9e-5 of max |x| apart.
         assert scaled_err(X, np.asarray(ref.x)[:n]) <= 1e-4
+
+
+# The layout's tiles and its long rows (the rows of more than half a tile,
+# which K13 x k takes with a block each, ``WellRows.long_rows``) in every
+# layout the operator, a rank's block and a forced tile build: each row in
+# exactly one tile, a long row a tile of its own, the slot cap held; the
+# plain k-column product over any of those layouts is tpucg's.
+
+LAYOUT_TILES = (2, 64, 1024, TILE, TILE_MAX)
+
+
+@pytest.fixture(scope="module")
+def arrow():
+    return arrowhead_spd(3000, seed=1)
+
+
+def _matrix(kind, geo, arrow):
+    return geo[0] if kind == "geometric" else arrow
+
+
+def _check_tiles(rows, nrows):
+    """Each of ``nrows`` rows in exactly one tile, a row of more than half a
+    tile a tile of its own and listed in ``long_rows``, every other tile at
+    most ``tile`` slots; returns the long rows."""
+    ptr = rows.rowptr.long()
+    lens = torch.diff(ptr)
+    assert lens.numel() == nrows
+    tptr = rows.tptr.long()
+    assert rows.tptr.dtype == torch.int32 and rows.tptr.is_contiguous()
+    assert int(tptr[0]) == 0 and int(tptr[-1]) == nrows
+    assert bool((torch.diff(tptr) > 0).all())
+    slots = ptr[tptr[1:]] - ptr[tptr[:-1]]
+    single = torch.diff(tptr) == 1
+    assert bool((slots[~single] <= rows.tile).all())
+    long_rows = torch.nonzero(lens > rows.tile // 2).reshape(-1).tolist()
+    assert rows.long_rows.dtype == torch.int32 and rows.long_rows.is_contiguous()
+    assert rows.long_rows.tolist() == long_rows
+    starts = set(tptr.tolist())
+    assert all(r in starts and r + 1 in starts for r in long_rows)
+    return long_rows
+
+
+@pytest.mark.parametrize("tile", LAYOUT_TILES)
+@pytest.mark.parametrize("kind", ["geometric", "arrowhead"])
+def test_long_rows_are_the_rows_past_half_a_tile(geo, arrow, kind, tile):
+    op = WellOperator.from_csr(_matrix(kind, geo, arrow), device=CPU)
+    rows = well_rows(op.vals, op.lidx, op.gidl, op.wrow, op.sgb, op.bg, op.nsg, tile=tile)
+    long_rows = _check_tiles(rows, op.nsg * op.bg * 128)
+    if kind == "arrowhead":
+        assert long_rows[:1] == ([0] if arrow.shape[0] > tile // 2 else [])
+
+
+@pytest.mark.parametrize("k", [2, 5, 16, 33])
+@pytest.mark.parametrize("kind", ["geometric", "arrowhead"])
+def test_multi_plain_over_any_tiling_is_tpucgs(geo, arrow, kind, k):
+    A = _matrix(kind, geo, arrow)
+    op = WellOperator.from_csr(A, device=CPU)
+    X = _rhs(op.padded_n, A.shape[0], k, seed=k)
+    want = np.asarray(JWellOperator.from_csr(A, backend="xla").matvec_multi(jnp.asarray(X)))
+    for tile in (64, TILE, TILE_MAX):
+        rows = well_rows(op.vals, op.lidx, op.gidl, op.wrow, op.sgb, op.bg, op.nsg, tile=tile)
+        Y = well_spmv_multi_torch(rows, torch.from_numpy(X), op.padded_n).numpy()
+        np.testing.assert_array_equal(Y, want, err_msg=f"tile {tile}")
+
+
+@pytest.mark.parametrize("P", [2, 3])
+def test_sharded_rank_layouts_list_their_long_rows(arrow, P):
+    # A rank's block gets the operator's tiling and long rows (the
+    # arrowhead's full row, on rank 0), and its plain product is the block's
+    # rows of A X.
+    n = arrow.shape[0]
+    stacked, statics = csr_to_well_sharded(arrow, P)
+    rps, npad = int(statics["rps"]), int(statics["npad"])
+    X = _rhs(npad, n, 8, seed=P)
+    dense = np.zeros((npad, npad))
+    dense[:n, :n] = _dense(arrow)
+    dense[np.arange(n, npad), np.arange(n, npad)] = 1.0
+    want = dense @ X.astype(np.float64)
+    scale = np.abs(dense) @ np.abs(X.astype(np.float64))
+    for rank in range(P):
+        rows = well_shard_block(stacked, statics, rank, n, CPU).arrays[5]
+        long_rows = _check_tiles(rows, rows.rowptr.numel() - 1)
+        assert long_rows == ([0] if rank == 0 else [])
+        Y = well_spmv_multi_torch(rows, torch.from_numpy(X), rps).numpy()
+        blk = slice(rank * rps, (rank + 1) * rps)
+        assert np.all(np.abs(Y - want[blk]) <= 1e-5 * np.maximum(scale[blk], 1e-30))
+
+
+def _dense(csr):
+    out = np.zeros(csr.shape)
+    for i in range(csr.shape[0]):
+        lo, hi = csr.indptr[i], csr.indptr[i + 1]
+        np.add.at(out[i], csr.indices[lo:hi], csr.data[lo:hi])
+    return out

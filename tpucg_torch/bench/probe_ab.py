@@ -46,24 +46,31 @@ def parent_probes(root: str):
 
 
 def parent_module(root: str, name: str):
-    """The parent checkout's ``tpucg_torch.<name>``: imported from ``root``
-    with this checkout's package set aside, which is put back after (the
-    parent's functions keep their own module globals, and its kernels'
+    """The parent checkout's ``tpucg_torch.<name>`` (``parent_modules``)."""
+    return parent_modules(root, name)[0]
+
+
+def parent_modules(root: str, *names: str) -> tuple:
+    """The parent checkout's ``tpucg_torch.<name>`` for each of ``names``,
+    imported together from ``root`` (so they share one copy of the parent's
+    package) with this checkout's package set aside, which is put back after
+    (the parent's functions keep their own module globals, and its kernels'
     library builds under its own root)."""
     saved = {k: v for k, v in sys.modules.items() if _ours(k)}
     for k in saved:
         del sys.modules[k]
     sys.path.insert(0, str(Path(root).resolve()))
     try:
-        module = importlib.import_module(f"{PACKAGE}.{name}")
+        modules = tuple(importlib.import_module(f"{PACKAGE}.{name}") for name in names)
     finally:
         sys.path.pop(0)
         for k in [k for k in sys.modules if _ours(k)]:
             del sys.modules[k]
         sys.modules.update(saved)
-    if Path(module.__file__).resolve().parents[2] != Path(root).resolve():
-        raise RuntimeError(f"probe_ab: imported {module.__file__}, not the parent at {root}")
-    return module
+    for module in modules:
+        if Path(module.__file__).resolve().parents[2] != Path(root).resolve():
+            raise RuntimeError(f"probe_ab: imported {module.__file__}, not the parent at {root}")
+    return modules
 
 
 def ab_lines(parent, cases: dict, reps: int, copies: int) -> list:

@@ -305,13 +305,16 @@ cudaError_t tpucg_well_spmv_bf16(const void* rvals, const void* cols, const void
                                  long long ntiles, int tile, const void* active, void* stream);
 // K13 x k: Y = A X over the same layout, X f32 (columns, k) and Y f32
 // (nrows, k) row-major, K13's products and sums for every column; k >= 1.
+// A row of at most tile / 2 slots is taken by a thread a column group; the
+// nlong rows of long_rows (int32, ascending: every row of more than tile / 2
+// slots) each by a block of their own.
 cudaError_t tpucg_well_spmv_multi_f32(const void* rvals, const void* cols, const void* rowptr,
-                                      const void* tptr, const void* x, void* y, long long nrows,
-                                      long long ntiles, int tile, long long k,
+                                      const void* long_rows, const void* x, void* y,
+                                      long long nrows, long long nlong, int tile, long long k,
                                       const void* active, void* stream);
 cudaError_t tpucg_well_spmv_multi_bf16(const void* rvals, const void* cols, const void* rowptr,
-                                       const void* tptr, const void* x, void* y,
-                                       long long nrows, long long ntiles, int tile, long long k,
+                                       const void* long_rows, const void* x, void* y,
+                                       long long nrows, long long nlong, int tile, long long k,
                                        const void* active, void* stream);
 
 // P1-P7, the gather probes of benchmarks/probe_gather.py (probe.cu): f32

@@ -22,11 +22,12 @@ column j, as in a CSR product (tpucg's padding slots read x at lane 0 of
 their window and carry it to rows that store nothing in that column).
 
 K13 x k (``well_spmv_multi``) is the same product on the k columns of a
-row-major block X (padded n, k) over the same layout, each live slot's
-value and column read once for all k columns and each column summed in
+row-major block X (padded n, k) over the same layout, each column summed in
 K13's order, so column j equals K13 on column j bit for bit: the multi-RHS
 and block solves' matvec (``WellOperator.matvec_multi``), where tpucg vmaps
-its Pallas kernel.
+its Pallas kernel. On the card a thread takes a row's group of 4 columns
+(or 1), with several of the row's gathers of X in flight; the rows of more
+than half a tile (``WellRows.long_rows``) are taken by a block each.
 """
 
 from __future__ import annotations
@@ -51,13 +52,15 @@ class WellRows(NamedTuple):
     ``rvals`` (their values, in the storage dtype), in ascending sublane
     order; tile t's rows are ``[tptr[t], tptr[t + 1])``. A tile of several
     rows holds at most ``tile`` live slots; a longer row is a tile of its
-    own."""
+    own. ``long_rows`` are the rows of more than ``tile // 2`` slots, in
+    ascending order: K13 x k takes each with a block of its own."""
 
-    rowptr: torch.Tensor  # int32 (nsg * bg * 128 + 1,)
-    cols: torch.Tensor    # int32 (live slots,)
-    rvals: torch.Tensor   # f32 or bf16 (live slots,)
-    tptr: torch.Tensor    # int32 (tiles + 1,)
+    rowptr: torch.Tensor     # int32 (nsg * bg * 128 + 1,)
+    cols: torch.Tensor       # int32 (live slots,)
+    rvals: torch.Tensor      # f32 or bf16 (live slots,)
+    tptr: torch.Tensor       # int32 (tiles + 1,)
     tile: int
+    long_rows: torch.Tensor  # int32 (rows of more than tile // 2 slots,)
 
 
 def well_rows(vals, lidx, gidl, wrow, sgb, bg: int, nsg: int, tile: int = TILE) -> WellRows:
@@ -72,8 +75,9 @@ def well_rows(vals, lidx, gidl, wrow, sgb, bg: int, nsg: int, tile: int = TILE) 
     every row of more than h slots and at the row after it, and every
     ``tile`` rows. A tile of several rows then holds rows of at most h slots
     that all start within one run of h, so fewer than 2 h <= ``tile`` slots,
-    and at most ``tile`` rows; its mean is about h. Raises where a count or
-    a column would not fit int32."""
+    and at most ``tile`` rows; its mean is about h. The rows of more than h
+    slots are also listed (``long_rows``). Raises where a count or a column
+    would not fit int32."""
     check_well(vals, lidx, gidl, wrow, sgb, bg, nsg)
     if not 2 <= tile <= TILE_MAX:
         raise ValueError(f"tile must be in [2, {TILE_MAX}], got {tile}")
@@ -104,7 +108,8 @@ def well_rows(vals, lidx, gidl, wrow, sgb, bg: int, nsg: int, tile: int = TILE) 
     tptr = torch.cat([torch.nonzero(new).reshape(-1), idx.new_full((1,), nrows)])
     return WellRows(rowptr=rowptr.to(torch.int32), cols=col[order].to(torch.int32),
                     rvals=vals.reshape(-1)[live][order].contiguous(),
-                    tptr=tptr.to(torch.int32), tile=int(tile))
+                    tptr=tptr.to(torch.int32), tile=int(tile),
+                    long_rows=torch.nonzero(big).reshape(-1).to(torch.int32))
 
 
 def check_well(vals, lidx, gidl, wrow, sgb, bg: int, nsg: int,
@@ -154,7 +159,7 @@ def check_well_values(lidx, gidl, wrow, sgb, bg: int, nsg: int, ngroups_x: int) 
 def check_rows(rows: WellRows, nrows: int, vals: torch.Tensor) -> None:
     """A layout's types and shapes for ``nrows`` output rows and values like
     ``vals``, with no read of its values."""
-    t = (rows.rowptr, rows.cols, rows.tptr)
+    t = (rows.rowptr, rows.cols, rows.tptr, rows.long_rows)
     if (any(a.dtype != torch.int32 or a.dim() != 1 for a in t)
             or rows.rowptr.numel() != nrows + 1 or rows.tptr.numel() < 2
             or rows.rvals.dtype != vals.dtype or rows.rvals.shape != rows.cols.shape
@@ -162,7 +167,8 @@ def check_rows(rows: WellRows, nrows: int, vals: torch.Tensor) -> None:
         raise ValueError(f"a WellRows layout for {nrows} rows of {vals.dtype} values, got "
                          f"rowptr {tuple(rows.rowptr.shape)}, cols {tuple(rows.cols.shape)}, "
                          f"rvals {rows.rvals.dtype} {tuple(rows.rvals.shape)}, tptr "
-                         f"{tuple(rows.tptr.shape)}, tile {rows.tile}")
+                         f"{tuple(rows.tptr.shape)}, tile {rows.tile}, long_rows "
+                         f"{rows.long_rows.dtype} {tuple(rows.long_rows.shape)}")
     if any(a.device != vals.device or not a.is_contiguous() for a in t + (rows.rvals,)):
         raise ValueError(f"a WellRows layout must be contiguous and on {vals.device}")
 
@@ -272,8 +278,8 @@ def well_spmv_multi_launch(rows: WellRows, X, Y, nrows: int, active: Optional[in
     fn = (lib.tpucg_well_spmv_multi_f32 if rows.rvals.dtype == torch.float32
           else lib.tpucg_well_spmv_multi_bf16)
     err = fn(rows.rvals.data_ptr(), rows.cols.data_ptr(), rows.rowptr.data_ptr(),
-             rows.tptr.data_ptr(), X.data_ptr(), Y.data_ptr(), nrows, rows.tptr.numel() - 1,
-             rows.tile, X.shape[1], active, stream)
+             rows.long_rows.data_ptr(), X.data_ptr(), Y.data_ptr(), nrows,
+             rows.long_rows.numel(), rows.tile, X.shape[1], active, stream)
     if err:
         _lib.check(err, "well_spmv_multi_cuda")
     well_spmv_multi_cuda.launches += 1
